@@ -3,10 +3,11 @@
 
   python3 chip_smoke.py
 
-Builds the port's CUDA kernels from csrc/, holds the Kerr DP45 kernel
-against its plain PyTorch version on the card, drives the main path (the
-1024^2 Kerr a=0.9 shadow through render_shadow) and checks the image.
-Phases:
+Builds the port's CUDA kernels from csrc/, holds each kernel against its
+plain PyTorch version on the card, drives three paths through the entry
+points a user calls (the 1024^2 Kerr a=0.9 shadow, the 1024^2
+Schwarzschild shadow and the 512^2 Schwarzschild lensed render) and
+checks what they produce. Phases:
   1. machine: card name and power limit, torch and nvcc versions;
   2. build: nvcc for sm_90a, with the build time;
   3. kernel vs plain version: 4,096 random rays (status agreement > 0.99,
@@ -16,9 +17,24 @@ Phases:
   4. main path: render_shadow once to warm up and 3 more times; the kernel
      launch counter must grow and the plain loop's stay at 0; the shadow
      must be the Kerr D inside the alpha_crit circle.
-The second-to-last line is a JSON object of per-kernel results, the last
-{"ok": true, "device": {...}}. Exit code 0 iff every phase passed; without
-a CUDA device it exits 1 and prints no result.
+  5. orbit kernel vs plain version, Schwarzschild and Reissner-Nordstrom
+     Q=0.6: 4,096 random rays in [0.2, 4] alpha_crit plus an alpha = 0
+     lane, then the 1,048,576 rays of the 1024^2 grid (status agreement
+     > 0.999, p99 |d final_alpha| < 1e-4 on stable escaped rays, the
+     alpha = 0 lane INVALID), each with both times and both n_steps;
+  6. config 1: the 1024^2 Schwarzschild shadow through render_shadow,
+     warm-up and 3 runs; 1,048,576 traced rays, the orbit kernel launched
+     and its plain loop not; captured pixels 0.98-1.02 x the analytic
+     alpha_crit disk, none outside 1.01 alpha_crit;
+  7. config 2: the 512^2 Schwarzschild lensed render through
+     render_scene, warm-up and 3 runs, with every stage's time; a finite
+     (512, 512, 3) float32 image whose black pixels are the captured rays;
+     then a 64^2 render on the card against the CPU (shadow masks >= 99 %,
+     bilinear image RMSE < 1e-3 on pixels of winding < 2).
+Each path's launch counters are set to 0 just before it and read just
+after. The second-to-last line is a JSON object of per-kernel results, the
+last {"ok": true, "device": {...}}. Exit code 0 iff every phase passed;
+without a CUDA device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -38,6 +54,9 @@ LAMBDA_MAX = 5000.0
 GATE_STEPS = 20000
 KERNEL_SOURCE = "light_path_tracer_tpu_torch/csrc/kerr_dp45.cu"
 REPLACES = "light_path_tracer_tpu/ops/pallas/kerr_trace_kernel.py:40"
+ORBIT_SOURCE = "light_path_tracer_tpu_torch/csrc/schwarzschild_rk4.cu"
+ORBIT_REPLACES = ("light_path_tracer_tpu/ops/pallas/"
+                  "schwarzschild_kernel.py:30")
 
 
 class SmokeFailure(Exception):
@@ -105,17 +124,45 @@ def both_versions(label, metric, alphas, thetas, refine, max_steps,
     return cmp
 
 
+def orbit_both(label, metric, alphas, kernel_repeats):
+    """Orbit kernel and plain version on the same CUDA rays; print both,
+    with the kernel's per-ray step statistics."""
+    import torch
+    from light_path_tracer_tpu_torch.ops.cuda.schwarzschild_kernel import (
+        trace_rays_schwarzschild_cuda, trace_rays_schwarzschild_plain)
+    ms, rk = cuda_ms(lambda: trace_rays_schwarzschild_cuda(
+        metric, R_OBS, alphas), kernel_repeats)
+    plain_ms, rp = cuda_ms(lambda: trace_rays_schwarzschild_plain(
+        metric, R_OBS, alphas), 1)
+    _, steps = trace_rays_schwarzschild_cuda(metric, R_OBS, alphas,
+                                             return_steps=True)
+    st = steps.cpu().numpy()
+    cmp = compare(rk, rp, alphas, metric.alpha_crit(R_OBS))
+    warps = np.pad(st, (0, -st.size % 32)).reshape(-1, 32).max(axis=1)
+    cmp.update(ms=ms, plain_ms=plain_ms, n=int(alphas.numel()),
+               n_steps_kernel=int(rk.n_steps), n_steps_plain=int(rp.n_steps),
+               steps_mean=float(st.mean()), steps_max=int(st.max()),
+               lane_efficiency=float(st.sum() / (32.0 * warps.sum())))
+    print(f"  {label}: {json.dumps(cmp)}", flush=True)
+    torch.cuda.synchronize()
+    return cmp, rk
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    from light_path_tracer_tpu_torch.models import Kerr
+    from light_path_tracer_tpu_torch.models import (Kerr, ReissnerNordstrom,
+                                                    Schwarzschild)
     from light_path_tracer_tpu_torch.ops import kerr_trace
+    from light_path_tracer_tpu_torch.ops import schwarzschild_trace
     from light_path_tracer_tpu_torch.ops.cuda import _build
     from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel
-    from light_path_tracer_tpu_torch.pipeline import (render_shadow,
+    from light_path_tracer_tpu_torch.ops.cuda import schwarzschild_kernel
+    from light_path_tracer_tpu_torch.pipeline import (render_scene,
+                                                      render_shadow,
                                                       trace_inputs)
     from light_path_tracer_tpu_torch import camera
     from light_path_tracer_tpu_torch.utils.config import (RenderConfig,
@@ -223,11 +270,126 @@ def main() -> int:
     print(f"main path 1024^2 Kerr a=0.9 shadow: best {best:,.0f} rays/s "
           f"on {card}", flush=True)
 
+    # -- 5. orbit kernel vs plain version --------------------------------
+    orbit_launch = schwarzschild_kernel.trace_rays_schwarzschild_cuda
+    orbit_plain = schwarzschild_trace.trace_rays_schwarzschild
+    print("orbit kernel vs plain version (f32):", flush=True)
+    schw = Schwarzschild(M=1.0)
+    for metric in (schw, ReissnerNordstrom(M=1.0, Q=0.6)):
+        ac_o = metric.alpha_crit(R_OBS)
+        rng = np.random.default_rng(1)
+        al_o = torch.tensor(np.concatenate(
+            [[0.0], rng.uniform(0.2 * ac_o, 4 * ac_o, 4096)]), **f32)
+        g, rk = orbit_both(f"{type(metric).__name__} 4097 rays", metric,
+                           al_o, 20)
+        require(g["status_agree"] > 0.999 and g["p99"] < 1e-4,
+                f"{type(metric).__name__} 4097-ray gate: {g}")
+        require(int(rk.status[0]) == 0, "the alpha = 0 lane is not INVALID")
+    dim1 = (1024, 1024)
+    fov1 = camera.fov_from_vertical(np.radians(40.0), dim1)
+    al_grid = camera.build_alpha_lookup(dim1, fov1, device=dev).reshape(-1)
+    gorb, _ = orbit_both("Schwarzschild 1024^2 grid", schw, al_grid, 10)
+    require(gorb["status_agree"] > 0.999 and gorb["p99"] < 1e-4,
+            f"1024^2 orbit gate: {gorb}")
+    del al_grid
+
+    # -- 6. config 1: 1024^2 Schwarzschild shadow ---------------------------
+    scene1 = SceneConfig(M=1.0, r_obs_mult=R_OBS)
+    orbit_launch.launches = 0
+    orbit_plain.launches = 0
+    img1, st1 = render_shadow(scene1, dim1, cfg, device="cuda")   # warmup
+    best1 = None
+    for _ in range(3):
+        img1, st1 = render_shadow(scene1, dim1, cfg, device="cuda")
+        rps = st1["traced_rays"] / st1["timings"]["precompute"]
+        best1 = rps if best1 is None else max(best1, rps)
+    launches1, plain1 = orbit_launch.launches, orbit_plain.launches
+    print(f"config 1: orbit kernel launches {launches1}, plain-loop calls "
+          f"{plain1}, traced_rays {st1['traced_rays']}, integrator_steps "
+          f"{st1['integrator_steps']}, timings "
+          f"{json.dumps(st1['timings'])}", flush=True)
+    require(launches1 >= 4 and plain1 == 0,
+            f"config 1: {launches1} kernel launches, {plain1} plain calls")
+    require(st1["traced_rays"] == 1024 * 1024,
+            f"config 1 traced_rays {st1['traced_rays']}")
+    require(img1.shape == dim1 and bool(torch.isfinite(img1).all()),
+            "config 1: bad image")
+    ac1 = schw.alpha_crit(R_OBS)
+    alpha1 = camera.build_alpha_lookup(dim1, fov1, device=dev)
+    cap1 = img1 == 0.0
+    n_cap1, n_disk1 = int(cap1.sum()), int((alpha1 < ac1).sum())
+    out1 = int((cap1 & (alpha1 >= 1.01 * ac1)).sum())
+    ratio1 = n_cap1 / max(n_disk1, 1)
+    print(f"config 1 shadow: {n_cap1} captured px, alpha_crit disk "
+          f"{n_disk1} px, ratio {ratio1:.4f}, captured outside 1.01 "
+          f"alpha_crit: {out1}; best {best1:,.0f} rays/s on {card}",
+          flush=True)
+    require(0.98 <= ratio1 <= 1.02, f"config 1 ratio {ratio1:.4f}")
+    require(out1 == 0, f"config 1: {out1} captured px outside 1.01 "
+            f"alpha_crit")
+    del img1, alpha1, cap1
+
+    # -- 7. config 2: 512^2 Schwarzschild lensed render ---------------------
+    src = np.random.default_rng(3).random((512, 512, 3)).astype(np.float32)
+    orbit_launch.launches = 0
+    orbit_plain.launches = 0
+    out2 = render_scene(scene1, src, cfg, device="cuda")        # warmup
+    runs = []
+    for _ in range(3):
+        out2 = render_scene(scene1, src, cfg, device="cuda")
+        runs.append(dict(out2.timings))
+    launches2, plain2 = orbit_launch.launches, orbit_plain.launches
+    best2 = min(runs, key=lambda t: t["total"])
+    rps2 = max(out2.precompute.traced_rays / t["precompute"] for t in runs)
+    img2 = out2.image
+    black = (img2 == 0.0).all(dim=2)
+    captured2 = torch.isnan(out2.precompute.final_alpha)
+    magenta = torch.tensor([1.0, 0.0, 1.0], device=dev)
+    n_magenta = int((img2 == magenta).all(dim=2).sum())
+    print(f"config 2: orbit kernel launches {launches2}, plain-loop calls "
+          f"{plain2}, traced_rays {out2.precompute.traced_rays}, best "
+          f"frame {best2['total'] * 1e3:.3f} ms, precompute {rps2:,.0f} "
+          f"rays/s, stages of the best frame (s) {json.dumps(best2)}, "
+          f"black px {int(black.sum())}, captured rays "
+          f"{int(captured2.sum())}, magenta px {n_magenta} on {card}",
+          flush=True)
+    require(launches2 >= 4 and plain2 == 0,
+            f"config 2: {launches2} kernel launches, {plain2} plain calls")
+    require(tuple(img2.shape) == (512, 512, 3)
+            and img2.dtype == torch.float32
+            and bool(torch.isfinite(img2).all()), "config 2: bad image")
+    require(out2.precompute.traced_rays == 512 * 512,
+            f"config 2 traced_rays {out2.precompute.traced_rays}")
+    require(bool((black == captured2).all()),
+            "config 2: black pixels are not the captured rays")
+
+    small = np.random.default_rng(4).random((64, 64, 3)).astype(np.float32)
+    cfg_bl = RenderConfig(sampling="bilinear")
+    scene_s = SceneConfig(M=1.0, r_obs_mult=R_OBS, vertical_fov_deg=12.0)
+    og = render_scene(scene_s, small, cfg_bl, device="cuda")
+    oc = render_scene(scene_s, small, cfg_bl, device="cpu")
+    mg = torch.isnan(og.precompute.final_alpha).cpu()
+    mc = torch.isnan(oc.precompute.final_alpha)
+    calm = ((og.precompute.winding.cpu().to(torch.int32) < 2)
+            & (oc.precompute.winding.to(torch.int32) < 2))
+    rmse = float(((og.image.cpu() - oc.image)[calm] ** 2).mean().sqrt())
+    mask_agree = float((mg == mc).float().mean())
+    print(f"config 2 check, 64^2 card vs CPU: shadow masks agree "
+          f"{mask_agree:.4f}, bilinear RMSE (winding < 2) {rmse:.3e}",
+          flush=True)
+    require(mask_agree >= 0.99 and rmse < 1e-3,
+            f"64^2 card vs CPU: masks {mask_agree:.4f}, RMSE {rmse:.3e}")
+
     print(json.dumps({"kernels": [{
         "name": "kerr_dp45", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches,
         "max_abs_err": gmain["max_abs"], "ms": gmain["ms"],
-        "plain_ms": gmain["plain_ms"]}]}), flush=True)
+        "plain_ms": gmain["plain_ms"]}, {
+        "name": "schwarzschild_rk4", "route": "cuda",
+        "source": ORBIT_SOURCE, "replaces": ORBIT_REPLACES,
+        "launches": launches1 + launches2,
+        "max_abs_err": gorb["max_abs"], "ms": gorb["ms"],
+        "plain_ms": gorb["plain_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

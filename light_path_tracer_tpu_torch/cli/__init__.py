@@ -2,15 +2,17 @@
 
 Usage:
   python -m light_path_tracer_tpu_torch shadow --a 0.9 --size 1024 --output s.png
-  python -m light_path_tracer_tpu_torch shadow --a 0.9 --analytic
+  python -m light_path_tracer_tpu_torch shadow --size 1024    # Schwarzschild
+  python -m light_path_tracer_tpu_torch shadow --Q 0.6 --analytic
   python -m light_path_tracer_tpu_torch shadow --a 0.9 --size 64 --device cpu
+  python -m light_path_tracer_tpu_torch lens --image src.png --output l.png
 """
 
 from __future__ import annotations
 
 import argparse
 
-from light_path_tracer_tpu_torch.cli import shadow
+from light_path_tracer_tpu_torch.cli import lens, shadow
 
 
 def build_parser():
@@ -18,6 +20,7 @@ def build_parser():
         prog="light_path_tracer_tpu_torch",
         description="General-relativistic ray tracer (PyTorch/CUDA port)")
     sub = parser.add_subparsers(dest="command")
+    lens.register(sub)
     shadow.register(sub)
     return parser
 

@@ -9,9 +9,10 @@ import numpy as np
 def _add_scene_args(p):
     p.add_argument("--M", type=float, default=1.0, help="BH mass")
     p.add_argument("--a", type=float, default=0.0,
-                   help="BH spin (|a| <= M; only Kerr, a != 0, is ported)")
+                   help="BH spin (|a| <= M, 0 = Schwarzschild)")
     p.add_argument("--Q", type=float, default=0.0,
-                   help="BH charge (not ported yet)")
+                   help="BH charge (Reissner-Nordstrom, with --a 0; "
+                        "Kerr-Newman, --a != 0, is not ported yet)")
     p.add_argument("--eps3", type=float, default=0.0,
                    help="Johannsen-Psaltis deformation (not ported yet)")
     p.add_argument("--r-obs", type=float, default=100.0,
@@ -33,16 +34,23 @@ def _add_scene_args(p):
 def _add_render_args(p):
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="torch device: 'cuda' runs the hand-written CUDA "
-                        "kernel, 'cpu' the plain PyTorch loop")
+                        "kernels, 'cpu' their plain PyTorch loops")
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "float64"],
                    help="float64 runs on the CPU path only (the CUDA "
-                        "kernel is float32)")
+                        "kernels are float32)")
     p.add_argument("--chunk-size", type=int, default=0,
                    help="rays per chunk (0 = whole grid in one dispatch; "
                         "chunking is not ported yet)")
+    p.add_argument("--progress", default="off",
+                   choices=["off", "bar", "live"],
+                   help="chunked-trace progress (not ported yet)")
     p.add_argument("--no-symmetry", action="store_true",
                    help="disable top/bottom mirror symmetry")
+    p.add_argument("--loop-around", action="store_true",
+                   help="wrap out-of-FOV source samples (legacy mode)")
+    p.add_argument("--cache", action="store_true",
+                   help="cache traced lookup tables (not ported yet)")
     p.add_argument("--precision", default="fast",
                    choices=["fast", "precise", "gate"],
                    help="tolerance tier: fast (throughput), precise, or "
@@ -52,6 +60,34 @@ def _add_render_args(p):
                    help="Kerr integrator (only dp45 is ported)")
     p.add_argument("--max-steps", type=int, default=200000,
                    help="adaptive-step budget per ray")
+    p.add_argument("--sampling", default="nearest",
+                   choices=["nearest", "bilinear"],
+                   help="background-texture sampling of the lensed render")
+    p.add_argument("--bilinear", action="store_const", dest="sampling",
+                   const="bilinear", help="same as --sampling bilinear")
+
+
+def _add_multihost_args(p):
+    p.add_argument("--multihost", action="store_true",
+                   help="multi-process render (not ported yet)")
+    p.add_argument("--coordinator", default=None,
+                   help="coordinator address host:port (--multihost)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="total process count (--multihost)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's id, 0..N-1 (--multihost)")
+    p.add_argument("--init-timeout", type=float, default=60.0,
+                   help="seconds to wait for the cluster (--multihost)")
+    p.add_argument("--heartbeat-timeout", type=float, default=None,
+                   help="seconds before a dead peer is detected "
+                        "(--multihost)")
+
+
+def not_ported(what: str):
+    """The error a flag or mode that is not ported yet raises."""
+    return NotImplementedError(
+        f"{what} is not ported to the PyTorch package yet (ROADMAP.md, "
+        f"Queue 1)")
 
 
 def _scene_from(args):
@@ -68,10 +104,14 @@ def _scene_from(args):
 
 def _render_cfg_from(args):
     from light_path_tracer_tpu_torch.utils.config import RenderConfig
+    if args.progress != "off":
+        raise not_ported("--progress")
     return RenderConfig(
         dtype=args.dtype,
         max_steps=args.max_steps,
         chunk_size=args.chunk_size or None,
         use_tb_symmetry=not args.no_symmetry,
+        render_loop_around=args.loop_around,
         precision=args.precision,
-        integrator=args.integrator)
+        integrator=args.integrator,
+        sampling=args.sampling)

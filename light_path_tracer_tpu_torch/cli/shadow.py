@@ -5,7 +5,8 @@ from __future__ import annotations
 import numpy as np
 
 from light_path_tracer_tpu_torch.cli._shared import (
-    _add_render_args, _add_scene_args, _render_cfg_from, _scene_from)
+    _add_multihost_args, _add_render_args, _add_scene_args,
+    _render_cfg_from, _scene_from, not_ported)
 
 
 def cmd_shadow(args) -> int:
@@ -17,9 +18,7 @@ def cmd_shadow(args) -> int:
                        ("--multihost", args.multihost),
                        ("--visibility", args.visibility is not None)):
         if used:
-            raise NotImplementedError(
-                f"shadow {flag} is not ported to the PyTorch package yet "
-                f"(ROADMAP.md, Queue 1)")
+            raise not_ported(f"shadow {flag}")
 
     scene = _scene_from(args)
     cfg = _render_cfg_from(args)
@@ -53,6 +52,5 @@ def register(sub):
     p.add_argument("--output", default="black_hole_shadow.png")
     p.add_argument("--visibility", metavar="PATH",
                    help="visibility-domain analysis (not ported yet)")
-    p.add_argument("--multihost", action="store_true",
-                   help="multi-process render (not ported yet)")
+    _add_multihost_args(p)
     p.set_defaults(fn=cmd_shadow)

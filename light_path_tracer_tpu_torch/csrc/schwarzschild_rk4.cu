@@ -1,0 +1,228 @@
+// Schwarzschild / Reissner-Nordstrom fixed-step RK4 orbit kernel for
+// Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel
+//   light_path_tracer_tpu/ops/pallas/schwarzschild_kernel.py::_orbit_tile_kernel
+//   (entry trace_rays_schwarzschild_pallas),
+// written from what that kernel computes, not from its tiling. The plain
+// PyTorch version is light_path_tracer_tpu_torch/ops/schwarzschild_trace.py
+// (trace_rays_schwarzschild); the wrapper is
+// ops/cuda/schwarzschild_kernel.py.
+//
+// Work: one CUDA thread per ray, 128 threads per block, grid =
+// ceil(n/128). Each thread computes its ray's orbit initial state
+// (u0 = 1/r_obs, w0 from the impact parameter, the sign of cos(alpha)
+// picking the branch), runs fixed-step RK4 in phi on
+//   (u', w') = (w, -u + 3 M u^2 [- 2 Q^2 u^3])
+// with h = clip(phi_max - phi, 0, h_max) until the ray is captured
+// (u crosses 1/(1.01 R_S)), escapes (u crosses 1/(2 r_obs)) or n_steps
+// steps are spent, moving onto a crossing by the linear fraction of the
+// step, and then extracts the final angle from the escape heading, the
+// half-orbit count and the status fold. So one frame's trace is one
+// launch: nothing is left for torch to do per ray. Each warp adds its
+// largest per-ray step count to one int64 counter (the n_steps contract
+// of ops/types.py); the per-ray counts are written too when asked for.
+//
+// What bounds it: arithmetic and the slowest lane of each warp. A step is
+// four RHS evaluations of a few multiply-adds each, with no
+// transcendental inside the loop, and a ray moves 4 bytes in and 13 out.
+// Rays near the photon sphere wind up to phi_max (1000 steps) while sky
+// rays escape in ~60, and a warp runs until its slowest lane is done; the
+// raster order of an image grid keeps neighbours similar, which is all
+// this first version does about it.
+//
+// Numerics follow the float32 path of the JAX package: every constant is
+// computed in double on the host and rounded once to float, operations
+// keep JAX's association order ((3M u) u, (h/6) (k1 + 2k2 + 2k3 + k4)),
+// the Schwarzschild and Reissner-Nordstrom initial states keep their own
+// operation orders (template flag kCharged), jnp.maximum(x, 1e-300) is
+// max(x, 0) in float32 (the literal underflows), and max/min/clip
+// propagate NaN as jnp's do. Build without --use_fast_math: phi reaches
+// 50 rad, where __sinf/__cosf lose accuracy. nvcc contracts a*b + c into
+// FMA, so results are close to, not bitwise equal to, the plain
+// version's.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+
+constexpr int kRunning = 2;
+constexpr int kEscaped = 1;
+constexpr int kCaptured = -1;
+constexpr int kInvalid = 0;
+
+struct OrbitParams {
+  float r_obs;       // observer radius
+  float sqrt_f0;     // sqrt(max(f(r_obs), 1e-300))
+  float u0;          // 1 / r_obs
+  float two_M;       // 2 * M, as float32 arithmetic on a float32 M
+  float q2;          // Q^2 (Reissner-Nordstrom initial state)
+  float c3M;         // 3 M (orbit RHS)
+  float c2Q2;        // 2 Q^2 (Reissner-Nordstrom orbit RHS)
+  float u_capture;   // 1 / (1.01 R_S)
+  float u_escape;    // 1 / (2 r_obs)
+  float phi_max, h_max;
+  float pi;          // the float32 pi of the half-orbit count
+  float r_reclass;   // 1.1 R_S: escaped-like rays inside it are captured
+  int n_steps;       // ceil(phi_max / h_max)
+  int obs_invalid;   // f(r_obs) <= 0: the observer sits inside a horizon
+};
+
+// NaN-propagating max/min/clip (jnp.maximum / jnp.minimum / jnp.clip).
+__device__ __forceinline__ float jmax(float x, float y) {
+  return (x > y || x != x) ? x : y;
+}
+__device__ __forceinline__ float jmin(float x, float y) {
+  return (x < y || x != x) ? x : y;
+}
+__device__ __forceinline__ float jclip(float x, float lo, float hi) {
+  return jmin(jmax(x, lo), hi);
+}
+
+// w' of the orbit equation (models/schwarzschild.py orbit_rhs and the
+// Reissner-Nordstrom override).
+template <bool kCharged>
+__device__ __forceinline__ float orbit_dw(float u, const OrbitParams& P) {
+  const float dw = -u + P.c3M * u * u;
+  return kCharged ? dw - P.c2Q2 * u * u * u : dw;
+}
+
+// Fraction of the step at which prev -> nxt crosses target (_lerp_frac).
+__device__ __forceinline__ float lerp_frac(float prev, float nxt,
+                                           float target) {
+  const float denom = nxt - prev;
+  const float frac = denom == 0.0f ? 1.0f : (target - prev) / denom;
+  return jclip(frac, 0.0f, 1.0f);
+}
+
+template <bool kCharged>
+__global__ void __launch_bounds__(kThreads)
+orbit_rk4_kernel(const float* __restrict__ alpha,
+                 float* __restrict__ final_alpha_out,
+                 int* __restrict__ n_half_out, int* __restrict__ status_out,
+                 int* __restrict__ steps_out,
+                 unsigned long long* __restrict__ warp_steps_total, int n,
+                 OrbitParams P) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  int steps = 0;
+
+  if (i < n) {
+    // ---- initial state (orbit_initial_state) ----
+    const float al = alpha[i];
+    const float b = P.r_obs * sinf(al) / P.sqrt_f0;
+    const float u0 = P.u0;
+    const float b_safe = b == 0.0f ? 1.0f : b;
+    float w0_sq;
+    if (kCharged) {
+      // 2 M u^3 - Q^2 u^4 with u^3 = u (u u), u^4 = (u u)(u u).
+      const float u2 = u0 * u0;
+      w0_sq = 1.0f / (b_safe * b_safe) - u0 * u0 + P.two_M * (u0 * u2) -
+              P.q2 * (u2 * u2);
+    } else {
+      w0_sq = 1.0f / (b_safe * b_safe) - u0 * u0 + P.two_M * u0 * u0 * u0;
+    }
+    const bool invalid = P.obs_invalid != 0 || b == 0.0f || w0_sq < 0.0f;
+    const float w0 =
+        (cosf(al) >= 0.0f ? 1.0f : -1.0f) * sqrtf(jmax(w0_sq, 0.0f));
+
+    // ---- fixed-step RK4 in phi with linear crossing events ----
+    float u = u0, w = w0, phi = 0.0f;
+    int status = invalid ? kInvalid : kRunning;
+    while (steps < P.n_steps && status == kRunning) {
+      ++steps;
+      const float h = jmax(jmin(P.h_max, P.phi_max - phi), 0.0f);
+      const float hh = 0.5f * h;
+      const float k1u = w;
+      const float k1w = orbit_dw<kCharged>(u, P);
+      const float k2u = w + hh * k1w;
+      const float k2w = orbit_dw<kCharged>(u + hh * k1u, P);
+      const float k3u = w + hh * k2w;
+      const float k3w = orbit_dw<kCharged>(u + hh * k2u, P);
+      const float k4u = w + h * k3w;
+      const float k4w = orbit_dw<kCharged>(u + h * k3u, P);
+      const float h6 = h / 6.0f;
+      const float u_next = u + h6 * (k1u + 2.0f * k2u + 2.0f * k3u + k4u);
+      const float w_next = w + h6 * (k1w + 2.0f * k2w + 2.0f * k3w + k4w);
+
+      const bool cap = (u < P.u_capture) && (u_next >= P.u_capture);
+      const bool esc = (u > P.u_escape) && (u_next <= P.u_escape) && !cap;
+      const float frac = cap ? lerp_frac(u, u_next, P.u_capture)
+                             : (esc ? lerp_frac(u, u_next, P.u_escape)
+                                    : 1.0f);
+      u = cap ? P.u_capture : (esc ? P.u_escape : u_next);
+      w = w + frac * (w_next - w);
+      phi = phi + frac * h;
+      if (cap) status = kCaptured;
+      else if (esc) status = kEscaped;
+    }
+
+    // ---- extraction (orbit_extract_angle) and the status fold ----
+    const float r_f = 1.0f / jmax(u, 0.0f);
+    const int n_half = static_cast<int>(floorf(fabsf(phi) / P.pi));
+    const bool captured_by_radius = r_f <= P.r_reclass;
+    const float dr_dphi = -w / jmax(u * u, 0.0f);
+    const float sin_phi = sinf(phi), cos_phi = cosf(phi);
+    const float heading = atan2f(dr_dphi * sin_phi + r_f * cos_phi,
+                                 dr_dphi * cos_phi - r_f * sin_phi);
+    const float fa = acosf(jclip(-cosf(heading), -1.0f, 1.0f));
+
+    const bool escaped_like = status == kEscaped || status == kRunning;
+    const bool captured =
+        status == kCaptured || (escaped_like && captured_by_radius);
+    const int status_fold =
+        status == kInvalid ? kInvalid : (captured ? kCaptured : kEscaped);
+    final_alpha_out[i] = status_fold == kEscaped ? fa : __int_as_float(
+                                                            0x7fc00000);
+    n_half_out[i] = status == kInvalid ? 0 : n_half;
+    status_out[i] = status_fold;
+    if (steps_out != nullptr) steps_out[i] = steps;
+  }
+
+  // The warp's largest per-ray step count (lanes past n count 0).
+  const unsigned int warp_max =
+      __reduce_max_sync(0xffffffffu, static_cast<unsigned int>(steps));
+  if ((threadIdx.x & 31) == 0 && warp_max != 0)
+    atomicAdd(warp_steps_total, static_cast<unsigned long long>(warp_max));
+}
+
+}  // namespace
+
+extern "C" {
+
+// Zeroes the warp-step counter, launches the kernel on `stream` and
+// returns the first CUDA error (0 on success). Pointers are device
+// pointers; steps_out may be null; charged selects the
+// Reissner-Nordstrom form.
+int lpt_orbit_rk4(const void* alpha, void* final_alpha_out,
+                  void* n_half_out, void* status_out, void* steps_out,
+                  void* warp_steps_total, int n, int charged, float r_obs,
+                  float sqrt_f0, float u0, float two_M, float q2, float c3M,
+                  float c2Q2, float u_capture, float u_escape, float phi_max,
+                  float h_max, float pi, float r_reclass, int n_steps,
+                  int obs_invalid, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(warp_steps_total, 0,
+                                    sizeof(unsigned long long), s);
+  if (err != cudaSuccess || n <= 0) return static_cast<int>(err);
+  OrbitParams P{r_obs,     sqrt_f0,  u0,    two_M,   q2,
+                c3M,       c2Q2,     u_capture, u_escape, phi_max,
+                h_max,     pi,       r_reclass, n_steps,  obs_invalid};
+  const int blocks = (n + kThreads - 1) / kThreads;
+  const float* a = static_cast<const float*>(alpha);
+  float* fa = static_cast<float*>(final_alpha_out);
+  int* nh = static_cast<int*>(n_half_out);
+  int* st = static_cast<int*>(status_out);
+  int* sp = static_cast<int*>(steps_out);
+  unsigned long long* tot = static_cast<unsigned long long*>(warp_steps_total);
+  if (charged)
+    orbit_rk4_kernel<true><<<blocks, kThreads, 0, s>>>(a, fa, nh, st, sp,
+                                                       tot, n, P);
+  else
+    orbit_rk4_kernel<false><<<blocks, kThreads, 0, s>>>(a, fa, nh, st, sp,
+                                                        tot, n, P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,10 +1,10 @@
 """Build and load the package's CUDA kernels.
 
 The sources in `light_path_tracer_tpu_torch/csrc/*.cu` have a plain C
-interface. At first use they are compiled by `nvcc` for Hopper (`sm_90a`)
-into one shared library under `build/light_path_tracer_tpu_torch/` beside
-the package, named by a hash of the sources and flags, and loaded with
-`ctypes`. A later process with the same sources loads the existing file.
+interface. At first use each is compiled by its own `nvcc` for Hopper
+(`sm_90a`), all at once, and the objects are linked into one shared
+library under `build/light_path_tracer_tpu_torch/` beside the package,
+named by a hash of the sources and flags, and loaded with `ctypes`. A later process with the same sources loads the existing file.
 Nothing is compiled when a module is imported, and a missing `nvcc` or a
 failed build raises with the compiler's output.
 """
@@ -26,7 +26,8 @@ BUILD_DIR = _PKG.parent / "build" / "light_path_tracer_tpu_torch"
 # -Xptxas -v only reports registers, shared memory and spills per kernel
 # (kept in build_log); it does not change the code.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _F = ctypes.c_float
@@ -56,36 +57,55 @@ def _sources():
 
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"lpt_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _compile(out: Path) -> str:
-    """Compile every source into `out`; returns nvcc's output."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *(str(s) for s in _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+def _run(procs):
+    """Wait for every (cmd, Popen); raise with the compiler's output if
+    any failed. Returns the concatenated output."""
+    log, failed = [], []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        log.append(out)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-        return proc.stdout + proc.stderr
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            failed.append(f"nvcc failed (exit {proc.returncode}): "
+                          f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(log)
+
+
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+
+
+def _compile(out: Path) -> str:
+    """Compile every source into `out`, one nvcc per source, all started
+    together, then link; returns nvcc's output."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        log = _run([_start([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                            str(src)])
+                    for src, obj in zip(_sources(), objs)])
+        lib = Path(tmp) / out.name
+        log += _run([_start([_nvcc(), *LINK_FLAGS, "-o", str(lib),
+                             *(str(o) for o in objs)])])
+        os.replace(lib, out)
+    return log
 
 
 def _declare(lib):
     fn = lib.lpt_kerr_dp45
     fn.argtypes = ([_P] * 10 + [_I] + [_F] * 6 + [_I] + [_F] * 8 + [_P])
+    fn.restype = _I
+    fn = lib.lpt_orbit_rk4
+    fn.argtypes = [_P] * 6 + [_I] * 2 + [_F] * 13 + [_I] * 2 + [_P]
     fn.restype = _I
     lib.lpt_cuda_error_string.argtypes = [_I]
     lib.lpt_cuda_error_string.restype = ctypes.c_char_p

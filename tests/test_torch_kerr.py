@@ -12,7 +12,10 @@ import pytest
 import torch
 
 from light_path_tracer_tpu.models import Kerr as JKerr
-from light_path_tracer_tpu_torch.models import Kerr, make_metric
+from light_path_tracer_tpu.models import make_metric as jmake_metric
+from light_path_tracer_tpu_torch.convert import metric_from_jax
+from light_path_tracer_tpu_torch.models import (Kerr, ReissnerNordstrom,
+                                                Schwarzschild, make_metric)
 
 R_OBS = 100.0
 RTOL = {"float64": 1e-12, "float32": 1e-5}
@@ -130,7 +133,21 @@ def test_host_geometry_matches_jax(spin):
 
 
 @pytest.mark.parametrize("kwargs", [dict(a=0.0), dict(a=0.0, Q=0.5),
-                                    dict(a=0.5, Q=0.5),
+                                    dict(a=0.0, Q=-0.3)])
+def test_make_metric_returns_spherical_families(kwargs):
+    """a = 0 selects Schwarzschild, or Reissner-Nordstrom with Q != 0, as
+    the JAX package's make_metric does, and metric_from_jax carries the
+    JAX metric across to the same object."""
+    got = make_metric(M=1.0, **kwargs)
+    ref = jmake_metric(M=1.0, **kwargs)
+    assert type(got).__name__ == type(ref).__name__
+    assert isinstance(got, ReissnerNordstrom if kwargs.get("Q")
+                      else Schwarzschild)
+    assert got == metric_from_jax(ref)
+    assert got.R_S == pytest.approx(ref.R_S, rel=1e-12)
+
+
+@pytest.mark.parametrize("kwargs", [dict(a=0.5, Q=0.5),
                                     dict(a=0.9, eps3=1.0)])
 def test_make_metric_raises_for_families_not_ported(kwargs):
     with pytest.raises(NotImplementedError):

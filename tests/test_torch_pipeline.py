@@ -128,8 +128,14 @@ def test_cli_shadow_on_cpu(tmp_path, capsys):
 def test_port_imports_without_jax():
     code = ("import sys, light_path_tracer_tpu_torch, "
             "light_path_tracer_tpu_torch.cli, "
+            "light_path_tracer_tpu_torch.cli.lens, "
             "light_path_tracer_tpu_torch.convert, "
-            "light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel; "
+            "light_path_tracer_tpu_torch.render, "
+            "light_path_tracer_tpu_torch.utils.save, "
+            "light_path_tracer_tpu_torch.models.reissner_nordstrom, "
+            "light_path_tracer_tpu_torch.ops.schwarzschild_trace, "
+            "light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel, "
+            "light_path_tracer_tpu_torch.ops.cuda.schwarzschild_kernel; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'light_path_tracer_tpu.')) or "
             "m == 'light_path_tracer_tpu'); print(bad); "
