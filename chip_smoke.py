@@ -7,7 +7,7 @@ Builds the port's CUDA kernels from csrc/, holds each kernel against its
 plain PyTorch version on the card, drives three paths through the entry
 points a user calls (the 1024^2 Kerr a=0.9 shadow, the 1024^2
 Schwarzschild shadow and the 512^2 Schwarzschild lensed render) and
-checks what they produce. Phases:
+checks what they produce, then the config-4 thin-disk render. Phases:
   1. machine: card name and power limit, torch and nvcc versions;
   2. build: nvcc for sm_90a, with the build time;
   3. kernel vs plain version: 4,096 random rays (status agreement > 0.99,
@@ -31,6 +31,27 @@ checks what they produce. Phases:
      (512, 512, 3) float32 image whose black pixels are the captured rays;
      then a 64^2 render on the card against the CPU (shadow masks >= 99 %,
      bilinear image RMSE < 1e-3 on pixels of winding < 2).
+  8. disk kernel vs plain version: 4,096 random rays (alpha in [0.01,
+     0.12] rad, theta_obs = 80 deg), opaque and then translucent with
+     momenta, and the 1,048,576 rays of the 1024^2 config-4 grid with
+     both versions capped at 512 attempts (status and n_hits agreement
+     > 0.99; on rays hit in both, median |d r_hits[0]| < 1e-3 M and p99
+     < 0.1 M; median |d final_alpha| < 1e-4 on escaped no-hit rays), each
+     with both times and both n_steps;
+  9. two-pass drivers: on the 1024^2 disk grid, aligned and offset by a
+     quarter pixel, trace_disk_rays_two_pass equals the single pass bitwise
+     (status, n_hits, r_hits, phi_hits, final_alpha) whenever at most
+     `slots` rays are unconverged, with both times; the disk driver over
+     the kernel and over the plain loop on phase 8's 4,096 rays (phase 8's
+     gates); trace_rays_kerr_two_pass on the main-path rays with
+     pass1_steps = 64, bitwise against the single pass and over the plain
+     loop; then render_shadow with two_pass=True equals phase 4's image;
+ 10. config 4: the 1024^2 Kerr a=0.9 thin-disk render through render_disk,
+     warm-up and 3 runs; the disk kernel launched (through the two-pass
+     driver) and its plain loop not; a finite (1024, 1024) float32 image in
+     [0, 1] with disk pixels and captured rays, its brighter half > 2x the
+     dimmer (Doppler beaming); then a 64^2 render on the card against the
+     CPU (disk masks >= 99 %, median |d image| < 1e-3 on disk pixels).
 Each path's launch counters are set to 0 just before it and read just
 after. The second-to-last line is a JSON object of per-kernel results, the
 last {"ok": true, "device": {...}}. Exit code 0 iff every phase passed;
@@ -57,6 +78,9 @@ REPLACES = "light_path_tracer_tpu/ops/pallas/kerr_trace_kernel.py:40"
 ORBIT_SOURCE = "light_path_tracer_tpu_torch/csrc/schwarzschild_rk4.cu"
 ORBIT_REPLACES = ("light_path_tracer_tpu/ops/pallas/"
                   "schwarzschild_kernel.py:30")
+DRIVER_SOURCE = "light_path_tracer_tpu_torch/ops/cuda/kerr_trace_kernel.py"
+JAX_KERNELS = "light_path_tracer_tpu/ops/pallas/kerr_trace_kernel.py"
+THETA_DISK = float(np.radians(80.0))
 
 
 class SmokeFailure(Exception):
@@ -146,6 +170,73 @@ def orbit_both(label, metric, alphas, kernel_repeats):
     print(f"  {label}: {json.dumps(cmp)}", flush=True)
     torch.cuda.synchronize()
     return cmp, rk
+
+
+def disk_compare(rk, rp):
+    """Disk kernel result rk against plain result rp on the same rays:
+    status and n_hits agreement, |d r_hits[0]| on rays hit in both, and
+    |d final_alpha| on rays escaped with no hit in both."""
+    sk, sp = rk.status.cpu().numpy(), rp.status.cpu().numpy()
+    nk, npl = rk.n_hits.cpu().numpy(), rp.n_hits.cpu().numpy()
+    both = (nk > 0) & (npl > 0)
+    d = np.abs(rk.r_hits[0].cpu().numpy()[both]
+               - rp.r_hits[0].cpu().numpy()[both]).astype(np.float64)
+    fk, fp = rk.final_alpha.cpu().numpy(), rp.final_alpha.cpu().numpy()
+    free = (nk == 0) & (npl == 0) & np.isfinite(fk) & np.isfinite(fp)
+    dfa = np.abs(fk[free] - fp[free]).astype(np.float64)
+    return dict(status_agree=float((sk == sp).mean()),
+                nhits_agree=float((nk == npl).mean()),
+                hit=int(both.sum()), two_hits=int((nk >= 2).sum()),
+                median_dr=float(np.median(d)) if d.size else 0.0,
+                p99_dr=float(np.percentile(d, 99)) if d.size else 0.0,
+                max_dr=float(d.max()) if d.size else 0.0,
+                free=int(free.sum()),
+                median_dfa=float(np.median(dfa)) if dfa.size else 0.0)
+
+
+def disk_both(label, metric, alphas, thetas, max_steps, plane, max_hits,
+              kernel_repeats, record_momentum=False):
+    """Disk kernel and plain version on the same CUDA rays; print both,
+    and require the phase-8 gates."""
+    import torch
+    from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
+        trace_disk_rays_cuda, trace_disk_rays_plain)
+    args = (metric, R_OBS, alphas, thetas, THETA_DISK, LAMBDA_MAX,
+            max_steps, plane, max_hits)
+    kw = dict(record_momentum=record_momentum)
+    ms, rk = cuda_ms(lambda: trace_disk_rays_cuda(*args, **kw),
+                     kernel_repeats)
+    plain_ms, rp = cuda_ms(lambda: trace_disk_rays_plain(*args, **kw), 1)
+    cmp = disk_compare(rk, rp)
+    if record_momentum:
+        both = ((rk.n_hits > 0) & (rp.n_hits > 0)).cpu()
+        cmp["median_dpr"] = float(
+            (rk.pr_hits[0].cpu() - rp.pr_hits[0].cpu()).abs()[both]
+            .median())
+    cmp.update(ms=ms, plain_ms=plain_ms, n=int(alphas.numel()),
+               n_steps_kernel=int(rk.n_steps), n_steps_plain=int(rp.n_steps))
+    print(f"  {label}: {json.dumps(cmp)}", flush=True)
+    torch.cuda.synchronize()
+    require(cmp["status_agree"] > 0.99 and cmp["nhits_agree"] > 0.99
+            and cmp["median_dr"] < 1e-3 and cmp["p99_dr"] < 0.1
+            and cmp["median_dfa"] < 1e-4, f"{label} gate: {cmp}")
+    return cmp
+
+
+def same_bits(a, b):
+    """Bitwise equality of two float or int tensors (NaN == NaN)."""
+    import torch
+    if a.dtype.is_floating_point:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def disk_bitwise(r1, r2):
+    fields = [(r1.status, r2.status), (r1.n_hits, r2.n_hits),
+              (r1.final_alpha, r2.final_alpha)]
+    fields += list(zip(r1.r_hits, r2.r_hits)) + list(zip(r1.phi_hits,
+                                                         r2.phi_hits))
+    return all(same_bits(a, b) for a, b in fields)
 
 
 def main() -> int:
@@ -380,6 +471,188 @@ def main() -> int:
     require(mask_agree >= 0.99 and rmse < 1e-3,
             f"64^2 card vs CPU: masks {mask_agree:.4f}, RMSE {rmse:.3e}")
 
+    # -- 8. disk kernel vs plain version ---------------------------------
+    from light_path_tracer_tpu_torch import disk as disk_mod
+    from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
+        trace_disk_rays_cuda, trace_disk_rays_plain, trace_disk_rays_two_pass,
+        trace_rays_kerr_plain, trace_rays_kerr_two_pass)
+    kerr = Kerr(M=1.0, a=0.9)
+    disk_cfg = disk_mod.DiskConfig()
+    r_in = disk_mod.r_isco(1.0, 0.9)
+    opaque = (r_in, disk_cfg.r_out, float(np.pi / 2), True)
+    translucent = (r_in, disk_cfg.r_out, float(np.pi / 2), False)
+    print("disk kernel vs plain version (f32 'fast'):", flush=True)
+    rng = np.random.default_rng(0)
+    al_d = torch.tensor(rng.uniform(0.01, 0.12, 4096), **f32)
+    th_d = torch.tensor(rng.uniform(-np.pi, np.pi, 4096), **f32)
+    disk_both("4096 random rays, opaque", kerr, al_d, th_d, GATE_STEPS,
+              opaque, 2, 5)
+    disk_both("4096 random rays, translucent, momenta", kerr, al_d, th_d,
+              GATE_STEPS, translucent, 2, 5, record_momentum=True)
+    scene4 = SceneConfig(M=1.0, a=0.9, r_obs_mult=R_OBS,
+                         theta_obs=THETA_DISK)
+    fov4 = camera.fov_from_vertical(scene4.vertical_fov, dim)
+    grid4 = dict(dtype=torch.float32, device=dev)
+    al4 = camera.build_alpha_lookup(dim, fov4, **grid4).reshape(-1)
+    th4 = camera.build_theta_lookup(dim, fov4, **grid4).reshape(-1)
+    # Capped at the first pass's 512 attempts, for both versions: a
+    # near-axis ray of this grid can grind the whole 200,000-attempt
+    # budget, and the plain loop costs ~10 ms an iteration at 1M rays.
+    gdisk = disk_both("1024^2 config-4 grid, max_steps 512", kerr, al4,
+                      th4, 512, opaque, 2, 3)
+
+    # -- 9. two-pass drivers -----------------------------------------------
+    print("two-pass drivers (pass1_steps 512, slots 8192 unless stated):",
+          flush=True)
+    drv = {}
+    for label, offset in (("aligned", (0.0, 0.0)), ("quarter-pixel offset",
+                                                    (0.25, 0.25))):
+        al_o = camera.build_alpha_lookup(dim, fov4, pixel_offset=offset,
+                                         **grid4).reshape(-1)
+        th_o = camera.build_theta_lookup(dim, fov4, pixel_offset=offset,
+                                         **grid4).reshape(-1)
+        o_args = (kerr, R_OBS, al_o, th_o, THETA_DISK, LAMBDA_MAX,
+                  cfg.max_steps, opaque, 2)
+        one_ms, r1 = cuda_ms(lambda: trace_disk_rays_cuda(*o_args), 3)
+        two_ms, r2 = cuda_ms(lambda: trace_disk_rays_two_pass(*o_args), 3)
+        _, unc = trace_disk_rays_cuda(*o_args[:6], 512, opaque, 2,
+                                      return_unconverged=True)
+        n_unc = int(unc.sum())
+        same = disk_bitwise(r1, r2)
+        row = dict(single_ms=one_ms, two_pass_ms=two_ms, unconverged=n_unc,
+                   bitwise_equal=same, n_steps_single=int(r1.n_steps),
+                   n_steps_two_pass=int(r2.n_steps))
+        drv[label] = row
+        print(f"  disk 1024^2 {label}: {json.dumps(row)}", flush=True)
+        require(same or n_unc > 8192, f"disk two-pass {label} differs from "
+                f"the single pass with {n_unc} <= 8192 unconverged rays")
+    # The driver over the kernel and over the plain loop, on phase 8's
+    # 4,096 rays (max_steps 20,000, pass1_steps 64).
+    r_args = (kerr, R_OBS, al_d, th_d, THETA_DISK, LAMBDA_MAX, GATE_STEPS,
+              opaque, 2)
+    two_ms_k, r2k = cuda_ms(lambda: trace_disk_rays_two_pass(
+        *r_args, pass1_steps=64), 5)
+    two_ms_p, r2p = cuda_ms(lambda: trace_disk_rays_two_pass(
+        *r_args, pass1_steps=64, trace_fn=trace_disk_rays_plain), 1)
+    same = disk_bitwise(trace_disk_rays_cuda(*r_args), r2k)
+    g_drv = disk_compare(r2k, r2p)
+    g_drv.update(ms=two_ms_k, plain_ms=two_ms_p, bitwise_equal=same)
+    print(f"  disk driver, 4096 random rays, pass1_steps 64, kernel vs "
+          f"plain loop: {json.dumps(g_drv)}", flush=True)
+    require(same, "disk two-pass differs from the single pass at 4096 rays")
+    require(g_drv["status_agree"] > 0.99 and g_drv["nhits_agree"] > 0.99
+            and g_drv["median_dr"] < 1e-3 and g_drv["p99_dr"] < 0.1,
+            f"disk driver gate: {g_drv}")
+
+    al3, th3, rf3, _rows = trace_inputs(scene, cfg, dim, fov, dev)
+    k_args = (kerr, R_OBS, al3, th3, np.pi / 2, rf3, LAMBDA_MAX,
+              cfg.max_steps)
+    one_ms, k1 = cuda_ms(lambda: kerr_trace_kernel.trace_rays_kerr_cuda(
+        *k_args), 3)
+    two_ms, k2 = cuda_ms(lambda: trace_rays_kerr_two_pass(
+        *k_args, pass1_steps=64), 3)
+    _, unc = kerr_trace_kernel.trace_rays_kerr_cuda(
+        *k_args[:7], 64, return_unconverged=True)
+    n_unc = int(unc.sum())
+    same = all(same_bits(a, b) for a, b in zip(k1[:3], k2[:3]))
+    plain2_ms, k2p = cuda_ms(lambda: trace_rays_kerr_two_pass(
+        *k_args, pass1_steps=64, trace_fn=trace_rays_kerr_plain), 1)
+    g_k2 = compare(k2, k2p, al3, ac)
+    kerr_row = dict(single_ms=one_ms, two_pass_ms=two_ms, unconverged=n_unc,
+                    bitwise_equal=same, n_steps_single=int(k1.n_steps),
+                    n_steps_two_pass=int(k2.n_steps), plain_ms=plain2_ms,
+                    kernel_vs_plain=g_k2)
+    print(f"  Kerr shadow 1024^2 main-path rays, pass1_steps 64: "
+          f"{json.dumps(kerr_row)}", flush=True)
+    require(same or n_unc > 8192, f"Kerr two-pass differs from the single "
+            f"pass with {n_unc} <= 8192 unconverged rays")
+    require(g_k2["status_agree"] > 0.99 and g_k2["p99"] < 2e-3,
+            f"Kerr driver kernel vs plain gate: {g_k2}")
+    del al3, th3, rf3, k1, k2, k2p, r2k, r2p
+
+    trace_rays_kerr_two_pass.launches = 0
+    kerr_trace_kernel.trace_rays_kerr_cuda.launches = 0
+    kerr_trace.trace_rays_kerr.launches = 0
+    img_tp, st_tp = render_shadow(scene, dim, RenderConfig(
+        two_pass=True, pass1_steps=64), device="cuda")
+    launches_k2 = trace_rays_kerr_two_pass.launches
+    print(f"  render_shadow two_pass=True: driver calls {launches_k2}, "
+          f"kernel launches {kerr_trace_kernel.trace_rays_kerr_cuda.launches},"
+          f" plain-loop calls {kerr_trace.trace_rays_kerr.launches}, "
+          f"precompute {st_tp['timings']['precompute'] * 1e3:.3f} ms",
+          flush=True)
+    require(launches_k2 == 1 and kerr_trace.trace_rays_kerr.launches == 0
+            and kerr_trace_kernel.trace_rays_kerr_cuda.launches == 2,
+            "render_shadow two_pass=True did not run the driver over the "
+            "kernel")
+    require(bool(torch.equal(img_tp, img)) or n_unc > 8192,
+            "render_shadow two_pass=True differs from the single pass")
+
+    # -- 10. config 4: 1024^2 thin-disk render ------------------------------
+    trace_disk_rays_cuda.launches = 0
+    trace_disk_rays_two_pass.launches = 0
+    kerr_trace.trace_disk_rays_kerr.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    img4, st4 = disk_mod.render_disk(scene4, dim, cfg, disk_cfg,
+                                     device="cuda")          # warmup
+    best4, runs4 = None, []
+    for _ in range(3):
+        img4, st4 = disk_mod.render_disk(scene4, dim, cfg, disk_cfg,
+                                         device="cuda")
+        runs4.append(dict(st4["timings"]))
+        rps = st4["traced_rays"] / st4["timings"]["precompute"]
+        best4 = rps if best4 is None else max(best4, rps)
+    launches4 = trace_disk_rays_cuda.launches
+    driver4 = trace_disk_rays_two_pass.launches
+    plain4 = kerr_trace.trace_disk_rays_kerr.launches
+    peak4 = torch.cuda.max_memory_allocated(dev) / 2**20
+    print(f"config 4: disk kernel launches {launches4}, two-pass driver "
+          f"calls {driver4}, plain-loop calls {plain4}, disk_pixels "
+          f"{st4['disk_pixels']}, captured {st4['captured']}, "
+          f"integrator_steps {st4['integrator_steps']}, stages of each run "
+          f"(s) {json.dumps(runs4)}, peak device memory {peak4:.1f} MiB",
+          flush=True)
+    require(launches4 >= 8 and driver4 >= 4 and plain4 == 0,
+            f"config 4: {launches4} kernel launches, {driver4} driver calls,"
+            f" {plain4} plain calls")
+    require(st4["traced_rays"] == 1024 * 1024,
+            f"config 4 traced_rays {st4['traced_rays']}")
+    require(tuple(img4.shape) == dim and img4.dtype == torch.float32
+            and bool(torch.isfinite(img4).all())
+            and float(img4.min()) >= 0.0 and float(img4.max()) <= 1.0,
+            "config 4: bad image")
+    require(st4["disk_pixels"] > 0 and st4["captured"] > 0,
+            f"config 4: disk_pixels {st4['disk_pixels']}, captured "
+            f"{st4['captured']}")
+    left = float(img4[:, :512].double().sum())
+    right = float(img4[:, 512:].double().sum())
+    beaming = max(left, right) / max(min(left, right), 1e-9)
+    print(f"config 4 image: halves {left:.1f} / {right:.1f}, ratio "
+          f"{beaming:.3f}; best {best4:,.0f} rays/s on {card}", flush=True)
+    require(beaming > 2.0, f"config 4: Doppler half ratio {beaming:.3f}")
+
+    dim64 = (64, 64)
+    og, _ = disk_mod.render_disk(scene4, dim64, cfg, disk_cfg, device="cuda")
+    oc, _ = disk_mod.render_disk(scene4, dim64, cfg, disk_cfg, device="cpu")
+    fov64 = camera.fov_from_vertical(scene4.vertical_fov, dim64)
+    masks = []
+    for device in ("cuda", "cpu"):
+        g64 = dict(dtype=torch.float32, device=device)
+        res64 = disk_mod.trace_disk_rays(
+            kerr, R_OBS,
+            camera.build_alpha_lookup(dim64, fov64, **g64).reshape(-1),
+            camera.build_theta_lookup(dim64, fov64, **g64).reshape(-1),
+            THETA_DISK, LAMBDA_MAX, cfg.max_steps, disk_cfg)
+        masks.append((res64.n_hits > 0).cpu().reshape(dim64))
+    mask_agree = float((masks[0] == masks[1]).float().mean())
+    both = masks[0] & masks[1]
+    d64 = float((og.cpu() - oc).abs()[both].median())
+    print(f"config 4 check, 64^2 card vs CPU: disk masks agree "
+          f"{mask_agree:.4f}, median |d image| on disk pixels {d64:.3e}",
+          flush=True)
+    require(mask_agree >= 0.99 and d64 < 1e-3,
+            f"64^2 disk card vs CPU: masks {mask_agree:.4f}, median {d64}")
+
     print(json.dumps({"kernels": [{
         "name": "kerr_dp45", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches,
@@ -389,7 +662,20 @@ def main() -> int:
         "source": ORBIT_SOURCE, "replaces": ORBIT_REPLACES,
         "launches": launches1 + launches2,
         "max_abs_err": gorb["max_abs"], "ms": gorb["ms"],
-        "plain_ms": gorb["plain_ms"]}]}), flush=True)
+        "plain_ms": gorb["plain_ms"]}, {
+        "name": "kerr_dp45_disk", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": f"{JAX_KERNELS}:316", "launches": launches4,
+        "max_abs_err": gdisk["max_dr"], "ms": gdisk["ms"],
+        "plain_ms": gdisk["plain_ms"]}, {
+        "name": "trace_disk_rays_two_pass", "route": "cuda",
+        "source": DRIVER_SOURCE, "replaces": f"{JAX_KERNELS}:416",
+        "launches": driver4, "max_abs_err": g_drv["max_dr"],
+        "ms": two_ms_k, "plain_ms": two_ms_p}, {
+        "name": "trace_rays_kerr_two_pass", "route": "cuda",
+        "source": DRIVER_SOURCE, "replaces": f"{JAX_KERNELS}:257",
+        "launches": launches_k2, "max_abs_err": g_k2["max_abs"],
+        "ms": kerr_row["two_pass_ms"], "plain_ms": plain2_ms}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -12,9 +12,14 @@ kernel (`ops/cuda/schwarzschild_kernel.py`) on a CUDA device, or to
 their plain PyTorch loops (`ops/kerr_trace.py`,
 `ops/schwarzschild_trace.py`) on the CPU.
 
+The accretion-disk still render (`render_disk`, config 4) traces
+through the kernel's disk variant (`trace_disk_rays_cuda`), by default
+inside the two-pass straggler driver (`trace_disk_rays_two_pass`).
+
 This package imports torch and never jax.
 """
 
+from light_path_tracer_tpu_torch.disk import DiskConfig, render_disk
 from light_path_tracer_tpu_torch.models import (Kerr, ReissnerNordstrom,
                                                 Schwarzschild, make_metric)
 from light_path_tracer_tpu_torch.ops.batch import trace_batch
@@ -26,4 +31,4 @@ from light_path_tracer_tpu_torch.utils.config import RenderConfig, SceneConfig
 __all__ = ["Kerr", "Schwarzschild", "ReissnerNordstrom", "make_metric",
            "trace_batch", "TraceResult", "RenderOutput",
            "precompute_final_alpha", "render_scene", "render_shadow",
-           "RenderConfig", "SceneConfig"]
+           "RenderConfig", "SceneConfig", "DiskConfig", "render_disk"]

@@ -6,13 +6,15 @@ Usage:
   python -m light_path_tracer_tpu_torch shadow --Q 0.6 --analytic
   python -m light_path_tracer_tpu_torch shadow --a 0.9 --size 64 --device cpu
   python -m light_path_tracer_tpu_torch lens --image src.png --output l.png
+  python -m light_path_tracer_tpu_torch disk --a 0.9 --size 1024 --output d.png
+  python -m light_path_tracer_tpu_torch disk --a 0.9 --size 64 --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
 
-from light_path_tracer_tpu_torch.cli import lens, shadow
+from light_path_tracer_tpu_torch.cli import disk, lens, shadow
 
 
 def build_parser():
@@ -20,6 +22,7 @@ def build_parser():
         prog="light_path_tracer_tpu_torch",
         description="General-relativistic ray tracer (PyTorch/CUDA port)")
     sub = parser.add_subparsers(dest="command")
+    disk.register(sub)
     lens.register(sub)
     shadow.register(sub)
     return parser

@@ -1,7 +1,7 @@
 """Carry the JAX package's state into this package.
 
-The tracer has no weights: a scene, a render configuration and the
-metric's parameters are its whole state. These functions read the JAX
+The tracer has no weights: a scene, a render configuration, a disk
+configuration and the metric's parameters are its whole state. These functions read the JAX
 package's frozen dataclasses field by field, as plain Python floats, ints
 and strings, and build this package's objects from them. They import
 nothing of JAX; any object with the same fields works.
@@ -41,6 +41,14 @@ def render_cfg_from_jax(cfg) -> RenderConfig:
               for f in dataclasses.fields(RenderConfig)}
     values["backend"] = "auto"
     return RenderConfig(**values)
+
+
+def disk_config_from_jax(disk):
+    """light_path_tracer_tpu.disk.DiskConfig -> this package's
+    DiskConfig, field by field."""
+    from light_path_tracer_tpu_torch.disk import DiskConfig
+    return DiskConfig(**{f.name: getattr(disk, f.name)
+                         for f in dataclasses.fields(DiskConfig)})
 
 
 def metric_from_jax(metric):

@@ -1,13 +1,13 @@
 """Batch tracing driver (whole-grid branch).
 
 Spherically symmetric metrics (Schwarzschild, Reissner-Nordstrom) go to
-the orbit-equation tracer, Kerr to the DP45 tracer. The JAX package's
-`trace_batch` also chunks and difficulty-sorts large Kerr batches and
-re-traces stragglers in a second pass. Those branches are not ported:
-here the whole batch goes to one call, and the tensor's device
-picks the implementation — the hand-written CUDA kernel for a CUDA
-tensor, the plain PyTorch loop for a CPU tensor. Nothing moves a batch
-between devices or falls back from one path to the other.
+the orbit-equation tracer, Kerr to the DP45 tracer, in one pass or, for
+large batches, through the two-pass straggler driver. The JAX package's
+`trace_batch` also chunks and difficulty-sorts large Kerr batches; that
+branch is not ported: here the whole batch goes to one call. The
+tensor's device picks the implementation — the hand-written CUDA kernel
+for a CUDA tensor, the plain PyTorch loop for a CPU tensor. Nothing moves
+a batch between devices or falls back from one path to the other.
 """
 
 from __future__ import annotations
@@ -38,15 +38,18 @@ def trace_batch(metric, r_obs, alphas, thetas=None, theta_obs=math.pi / 2,
                 axis_refine=None, *, chunk_size=None, lambda_max=None,
                 max_steps=200000, phi_max=50.0, h_max=0.05,
                 backend="auto", integrator="dp45",
-                event_interp="hermite", two_pass="auto",
+                event_interp="hermite", two_pass="auto", pass1_steps=512,
                 formulation="theta", precision="fast"):
     """Trace N rays through `metric`; returns TraceResult of shape (N,).
 
     Spherically symmetric metrics trace the orbit equation in phi
     (phi_max, h_max); the Kerr-only arguments do not apply to them.
-    lambda_max defaults to max(5000, 6 r_obs). two_pass='auto' traces in
-    one pass; the two-pass straggler driver, chunking, other integrators
-    and interpolants, and the mu chart raise until they are ported.
+    lambda_max defaults to max(5000, 6 r_obs). two_pass: 'auto' | True |
+    False — the straggler driver (a `pass1_steps`-capped pass, then a
+    full-depth re-trace of the rays still running); 'auto' turns it on
+    above 2,000,000 rays, the JAX package's rule. Chunking, other
+    integrators and interpolants, and the mu chart raise until they are
+    ported.
     """
     n = int(alphas.shape[0])
     device = alphas.device
@@ -70,8 +73,6 @@ def trace_batch(metric, r_obs, alphas, thetas=None, theta_obs=math.pi / 2,
     if chunk_size is not None and chunk_size < n:
         raise NotImplementedError(
             "chunked tracing is not ported yet; use chunk_size=None")
-    if two_pass is True:
-        raise NotImplementedError("the two-pass driver is not ported yet")
     if integrator != "dp45":
         raise NotImplementedError(
             f"integrator={integrator!r} is not ported yet (dp45 only)")
@@ -88,12 +89,21 @@ def trace_batch(metric, r_obs, alphas, thetas=None, theta_obs=math.pi / 2,
     if lambda_max is None:
         lambda_max = max(5000.0, 6.0 * float(r_obs))
 
-    if _backend(backend, alphas) == "cuda":
+    # 'auto' two-pass is batch-size dependent, as in the JAX package: the
+    # 2M-ray threshold was set on a TPU, where one straggler pins an
+    # 8192-lane tile; PERF.md records what it does on the H100.
+    use_two_pass = two_pass if two_pass != "auto" else n > 2_000_000
+    path = _backend(backend, alphas)
+    kwargs = dict(precision=precision, formulation=formulation)
+    if use_two_pass:
+        from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
+            trace_rays_kerr_two_pass as kerr_fn)
+        kwargs["pass1_steps"] = pass1_steps
+    elif path == "cuda":
         from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
             trace_rays_kerr_cuda as kerr_fn)
     else:
         from light_path_tracer_tpu_torch.ops.kerr_trace import (
             trace_rays_kerr as kerr_fn)
     return kerr_fn(metric, float(r_obs), alphas, thetas, float(theta_obs),
-                   axis_refine, float(lambda_max), max_steps,
-                   precision=precision, formulation=formulation)
+                   axis_refine, float(lambda_max), max_steps, **kwargs)

@@ -104,6 +104,10 @@ def _declare(lib):
     fn = lib.lpt_kerr_dp45
     fn.argtypes = ([_P] * 10 + [_I] + [_F] * 6 + [_I] + [_F] * 8 + [_P])
     fn.restype = _I
+    fn = lib.lpt_kerr_dp45_disk
+    fn.argtypes = ([_P] * 14 + [_I] * 3 + [_F] * 6 + [_I] + [_F] * 9 + [_I]
+                   + [_P])
+    fn.restype = _I
     fn = lib.lpt_orbit_rk4
     fn.argtypes = [_P] * 6 + [_I] * 2 + [_F] * 13 + [_I] * 2 + [_P]
     fn.restype = _I

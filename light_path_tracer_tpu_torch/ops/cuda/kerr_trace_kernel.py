@@ -1,37 +1,61 @@
-"""Wrapper of the hand-written CUDA Kerr DP45 kernel (csrc/kerr_dp45.cu).
+"""Wrapper of the hand-written CUDA Kerr DP45 kernel (csrc/kerr_dp45.cu),
+and the two-pass straggler drivers over it.
 
-The counterpart of `light_path_tracer_tpu.ops.pallas.kerr_trace_kernel`
-(`trace_rays_kerr_pallas`). The kernel runs one thread per ray: initial
-conditions, plunge radius and the whole adaptive loop, writing the final
-state, status and per-ray attempt count; the escape angle is extracted
-here in torch (`finalize_angles`), as the JAX wrapper does.
+The counterpart of `light_path_tracer_tpu.ops.pallas.kerr_trace_kernel`.
+The kernel runs one thread per ray: initial conditions, plunge radius and
+the whole adaptive loop, writing the final state, status and per-ray
+attempt count; the escape angle is extracted here in torch
+(`finalize_angles`), as the JAX wrapper does. Its disk variant
+(`trace_disk_rays_cuda`, `trace_disk_rays_pallas` in JAX) adds the
+plane-crossing recorder and writes the hit records too.
 
-`trace_rays_kerr_cuda` launches the kernel on CUDA float32 tensors and
-raises on any other CUDA input; it never falls back. Given CPU tensors it
-runs the kernel's plain version, the PyTorch loop `trace_rays_kerr_plain`
-(ops/kerr_trace.py), because there is no kernel to run there; the tests
-and the chip smoke test compare the two.
+`trace_rays_kerr_cuda` and `trace_disk_rays_cuda` launch the kernel on
+CUDA float32 tensors and raise on any other CUDA input; they never fall
+back. Given CPU tensors they run the kernel's plain version, the PyTorch
+loop (`trace_rays_kerr_plain`, `trace_disk_rays_plain`, ops/kerr_trace.py),
+because there is no kernel to run there; the tests and the chip smoke
+test compare the two.
+
+`trace_rays_kerr_two_pass` and `trace_disk_rays_two_pass` keep the JAX
+drivers' semantics on either device: a first pass capped at `pass1_steps`
+attempts per ray, then the first `slots` rays still running, in index
+order, re-traced from scratch with the full budget and scattered back;
+rays beyond `slots` keep their first-pass result, and n_steps is the sum
+of both passes. The kernel computes every ray on its own thread, so the
+result equals a single pass bitwise whenever at most `slots` rays are
+unconverged. (The plain loop on the CPU is elementwise too, but PyTorch
+may round a transcendental function differently in a vectorised body
+than in its scalar tail, so there it is exact when both passes' batch
+sizes are multiples of 32.)
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from light_path_tracer_tpu_torch.models.kerr import Kerr
 from light_path_tracer_tpu_torch.ops.cuda._build import check, load_library
 from light_path_tracer_tpu_torch.ops.kerr_trace import (
-    _h_init_for, finalize_angles, get_tols, warp_step_sum)
+    RUNNING, _h_init_for, disk_result, finalize_angles, get_tols,
+    warp_step_sum)
+from light_path_tracer_tpu_torch.ops.kerr_trace import (
+    trace_disk_rays_kerr as trace_disk_rays_plain)
 from light_path_tracer_tpu_torch.ops.kerr_trace import (
     trace_rays_kerr as trace_rays_kerr_plain)
-from light_path_tracer_tpu_torch.ops.types import TraceResult
+from light_path_tracer_tpu_torch.ops.types import DiskTraceResult, TraceResult
 
-__all__ = ["trace_rays_kerr_cuda", "trace_rays_kerr_plain"]
+__all__ = ["trace_rays_kerr_cuda", "trace_rays_kerr_plain",
+           "trace_disk_rays_cuda", "trace_disk_rays_plain",
+           "trace_rays_kerr_two_pass", "trace_disk_rays_two_pass"]
+
+# Crossing slots the disk variant is compiled for (csrc/kerr_dp45.cu).
+MAX_KERNEL_HITS = 4
 
 
-def _check_inputs(alphas, thetas, axis_refine):
-    for name, t, dtype in (("alphas", alphas, torch.float32),
-                           ("thetas", thetas, torch.float32),
-                           ("axis_refine", axis_refine, torch.bool)):
+def _check_inputs(tensors, alphas):
+    for name, t, dtype in tensors:
         if t.dtype != dtype:
             raise ValueError(f"the CUDA Kerr kernel (float32 only) takes "
                              f"{name} as {dtype}, got {t.dtype}")
@@ -47,22 +71,11 @@ def _check_inputs(alphas, thetas, axis_refine):
         raise ValueError("at most 2**31 - 1 rays per launch")
 
 
-def trace_rays_kerr_cuda(metric, r_obs, alphas, thetas, theta_obs,
-                         axis_refine, lambda_max: float,
-                         max_steps: int = 200000, precision: str = "fast",
-                         formulation: str = "theta"):
-    """Trace N Kerr rays with the CUDA kernel; returns TraceResult.
-
-    Same arguments and result as trace_rays_kerr_plain. alphas/thetas:
-    (N,) contiguous float32 CUDA tensors; axis_refine: (N,) bool on the
-    same device. Launches on the current stream and does not synchronise.
-    CPU tensors go to the plain version; other devices raise.
-    """
+def _check_call(alphas, metric, formulation, max_steps):
+    """Raise on what the kernel does not take; False for a CPU tensor
+    (the plain version runs), True for a CUDA tensor."""
     if alphas.device.type == "cpu":
-        return trace_rays_kerr_plain(
-            metric, r_obs, alphas, thetas, theta_obs, axis_refine,
-            lambda_max, max_steps, precision=precision,
-            formulation=formulation)
+        return False
     if alphas.device.type != "cuda":
         raise ValueError(f"no Kerr kernel for device {alphas.device}")
     if formulation != "theta":
@@ -72,9 +85,32 @@ def trace_rays_kerr_cuda(metric, r_obs, alphas, thetas, theta_obs,
     if not isinstance(metric, Kerr):
         raise TypeError(f"the CUDA kernel traces Kerr, got "
                         f"{type(metric).__name__}")
-    _check_inputs(alphas, thetas, axis_refine)
     if max_steps >= 2**31:
         raise ValueError("max_steps must fit in int32")
+    return True
+
+
+def trace_rays_kerr_cuda(metric, r_obs, alphas, thetas, theta_obs,
+                         axis_refine, lambda_max: float,
+                         max_steps: int = 200000, precision: str = "fast",
+                         formulation: str = "theta",
+                         return_unconverged: bool = False):
+    """Trace N Kerr rays with the CUDA kernel; returns TraceResult.
+
+    Same arguments and result as trace_rays_kerr_plain (with
+    return_unconverged, (TraceResult, raw-RUNNING mask)). alphas/thetas:
+    (N,) contiguous float32 CUDA tensors; axis_refine: (N,) bool on the
+    same device. Launches on the current stream and does not synchronise.
+    CPU tensors go to the plain version; other devices raise.
+    """
+    if not _check_call(alphas, metric, formulation, max_steps):
+        return trace_rays_kerr_plain(
+            metric, r_obs, alphas, thetas, theta_obs, axis_refine,
+            lambda_max, max_steps, precision=precision,
+            formulation=formulation, return_unconverged=return_unconverged)
+    _check_inputs((("alphas", alphas, torch.float32),
+                   ("thetas", thetas, torch.float32),
+                   ("axis_refine", axis_refine, torch.bool)), alphas)
 
     n = alphas.numel()
     state = torch.empty((5, n), dtype=torch.float32, device=alphas.device)
@@ -101,9 +137,173 @@ def trace_rays_kerr_cuda(metric, r_obs, alphas, thetas, theta_obs,
         r_obs, alphas, thetas, theta_obs)
     final_alpha, n_half, status_out = finalize_angles(
         metric, state, p_t, p_phi, status)
-    return TraceResult(final_alpha, n_half, status_out,
-                       warp_step_sum(attempts))
+    result = TraceResult(final_alpha, n_half, status_out,
+                         warp_step_sum(attempts))
+    if return_unconverged:
+        return result, status == RUNNING
+    return result
 
 
 # Kernel launches, so a run can show that it went through the kernel.
 trace_rays_kerr_cuda.launches = 0
+
+
+def trace_disk_rays_cuda(metric, r_obs, alphas, thetas, theta_obs,
+                         lambda_max: float, max_steps: int, disk_plane,
+                         max_disk_hits: int = 2, precision: str = "fast",
+                         formulation: str = "theta",
+                         return_unconverged: bool = False,
+                         record_momentum: bool = False):
+    """Trace N Kerr rays with the kernel's disk variant; returns
+    DiskTraceResult (with return_unconverged, (DiskTraceResult,
+    raw-RUNNING mask)).
+
+    Same arguments and result as trace_disk_rays_plain. disk_plane =
+    (r_in, r_out, theta_plane, opaque); max_disk_hits 1..4. alphas/
+    thetas: (N,) contiguous float32 CUDA tensors. Launches on the current
+    stream and does not synchronise. CPU tensors go to the plain version.
+    """
+    if not _check_call(alphas, metric, formulation, max_steps):
+        return trace_disk_rays_plain(
+            metric, r_obs, alphas, thetas, theta_obs, lambda_max,
+            max_steps, disk_plane, max_disk_hits, precision=precision,
+            return_unconverged=return_unconverged,
+            record_momentum=record_momentum)
+    _check_inputs((("alphas", alphas, torch.float32),
+                   ("thetas", thetas, torch.float32)), alphas)
+    if not 1 <= max_disk_hits <= MAX_KERNEL_HITS:
+        raise ValueError(f"the CUDA disk kernel records 1..{MAX_KERNEL_HITS}"
+                         f" crossings, got max_disk_hits={max_disk_hits}")
+    r_in, r_out, theta_plane, opaque = disk_plane
+
+    n = alphas.numel()
+    dev = alphas.device
+    state = torch.empty((5, n), dtype=torch.float32, device=dev)
+    status = torch.empty(n, dtype=torch.int32, device=dev)
+    attempts = torch.empty(n, dtype=torch.int32, device=dev)
+    n_hits = torch.empty(n, dtype=torch.int32, device=dev)
+    keys = ("r", "phi") + (("pr", "pth") if record_momentum else ())
+    hits = {k: torch.empty((max_disk_hits, n), dtype=torch.float32,
+                           device=dev) for k in keys}
+    rec = [hits[k].data_ptr() if k in hits else None
+           for k in ("r", "phi", "pr", "pth")]
+    tols = get_tols(torch.float32, precision)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.lpt_kerr_dp45_disk(
+            alphas.data_ptr(), thetas.data_ptr(),
+            *(state[c].data_ptr() for c in range(5)),
+            status.data_ptr(), attempts.data_ptr(), n_hits.data_ptr(),
+            *rec, n, int(max_disk_hits), int(bool(record_momentum)),
+            float(metric.M), float(metric.a), float(metric.r_plus),
+            float(r_obs), float(theta_obs), float(lambda_max),
+            int(max_steps), tols["atol"], tols["rtol"], tols["h_min"],
+            tols["tiny_err"], _h_init_for(r_obs),
+            float(metric.capture_radius()), float(r_in), float(r_out),
+            math.cos(theta_plane), int(bool(opaque)), stream)
+    check(lib, rc, "kerr_dp45_disk launch")
+    trace_disk_rays_cuda.launches += 1
+
+    hits["n"] = n_hits
+    _y0, p_t, p_phi, _inv = metric.initial_conditions_5d(
+        r_obs, alphas, thetas, theta_obs)
+    result = disk_result(metric, p_t, p_phi, state, status, attempts, hits)
+    if return_unconverged:
+        return result, status == RUNNING
+    return result
+
+
+trace_disk_rays_cuda.launches = 0
+
+
+def _stragglers(unconv, slots):
+    """(idx, dest): the first `slots` unconverged ray indices in index
+    order, padded with ray 0 as JAX's nonzero(size=slots, fill_value=0)
+    pads them, and the scatter destination of each slot, with the
+    padding sent to a spare row past the end. No host sync."""
+    n = unconv.numel()
+    slots = min(int(slots), n)
+    idx = torch.nonzero_static(unconv, size=slots, fill_value=0)[:, 0]
+    real = torch.arange(slots, device=unconv.device) < unconv.sum()
+    return idx, torch.where(real, idx, n)
+
+
+def _scatter(a1, a2, dest):
+    """a1 with row dest[j] replaced by a2[j] (dest == len(a1) drops j)."""
+    out = torch.cat([a1, a1[:1]])
+    out[dest] = a2
+    return out[:-1]
+
+
+def trace_rays_kerr_two_pass(metric, r_obs, alphas, thetas, theta_obs,
+                             axis_refine, lambda_max: float,
+                             max_steps: int = 200000,
+                             pass1_steps: int = 512, slots: int = 8192,
+                             precision: str = "fast",
+                             formulation: str = "theta", trace_fn=None):
+    """Straggler-robust tracing: a pass capped at `pass1_steps` attempts
+    per ray, then a full-depth re-trace of the first `slots` rays still
+    running. Returns TraceResult; see the module docstring. trace_fn:
+    the single-pass tracer, trace_rays_kerr_cuda by default (the chip
+    smoke test also drives the plain loop through it)."""
+    trace_rays_kerr_two_pass.launches += 1
+    trace_fn = trace_fn or trace_rays_kerr_cuda
+    res1, unconv = trace_fn(
+        metric, r_obs, alphas, thetas, theta_obs, axis_refine, lambda_max,
+        pass1_steps, precision=precision, formulation=formulation,
+        return_unconverged=True)
+    idx, dest = _stragglers(unconv, slots)
+    res2 = trace_fn(
+        metric, r_obs, alphas[idx], thetas[idx], theta_obs,
+        axis_refine[idx], lambda_max, max_steps, precision=precision,
+        formulation=formulation)
+    return TraceResult(
+        _scatter(res1.final_alpha, res2.final_alpha, dest),
+        _scatter(res1.n_half_orbits, res2.n_half_orbits, dest),
+        _scatter(res1.status, res2.status, dest),
+        res1.n_steps + res2.n_steps)
+
+
+# Driver calls, so a run can show which path it took.
+trace_rays_kerr_two_pass.launches = 0
+
+
+def trace_disk_rays_two_pass(metric, r_obs, alphas, thetas, theta_obs,
+                             lambda_max: float, max_steps: int, disk_plane,
+                             max_disk_hits: int = 2, pass1_steps: int = 512,
+                             slots: int = 8192, precision: str = "fast",
+                             formulation: str = "theta",
+                             record_momentum: bool = False, trace_fn=None):
+    """trace_rays_kerr_two_pass's recipe over the disk variant: the
+    re-traced rays bring back their whole record (status, hits, heading).
+    Returns DiskTraceResult. trace_fn: the single-pass tracer,
+    trace_disk_rays_cuda by default."""
+    trace_disk_rays_two_pass.launches += 1
+    trace_fn = trace_fn or trace_disk_rays_cuda
+    res1, unconv = trace_fn(
+        metric, r_obs, alphas, thetas, theta_obs, lambda_max, pass1_steps,
+        disk_plane, max_disk_hits, precision=precision,
+        formulation=formulation, return_unconverged=True,
+        record_momentum=record_momentum)
+    idx, dest = _stragglers(unconv, slots)
+    res2 = trace_fn(
+        metric, r_obs, alphas[idx], thetas[idx], theta_obs, lambda_max,
+        max_steps, disk_plane, max_disk_hits, precision=precision,
+        formulation=formulation, record_momentum=record_momentum)
+
+    def rows(a, b):
+        return tuple(_scatter(x, y, dest) for x, y in zip(a, b))
+
+    return DiskTraceResult(
+        _scatter(res1.status, res2.status, dest),
+        _scatter(res1.n_hits, res2.n_hits, dest),
+        rows(res1.r_hits, res2.r_hits), res1.xi,
+        res1.n_steps + res2.n_steps,
+        _scatter(res1.final_alpha, res2.final_alpha, dest),
+        _scatter(res1.n_half, res2.n_half, dest),
+        rows(res1.phi_hits, res2.phi_hits), res1.xi_hits,
+        rows(res1.pr_hits, res2.pr_hits), rows(res1.pth_hits, res2.pth_hits))
+
+
+trace_disk_rays_two_pass.launches = 0

@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from light_path_tracer_tpu_torch.ops import tableau as tb
-from light_path_tracer_tpu_torch.ops.types import TraceResult
+from light_path_tracer_tpu_torch.ops.types import DiskTraceResult, TraceResult
 
 RUNNING = 2
 ESCAPED = 1
@@ -128,6 +128,10 @@ def _select(mask, a, b):
     return torch.where(mask, a, b)
 
 
+def _lerp(y, y_next, frac):
+    return y + frac * (y_next - y)
+
+
 def _hermite_eval(y0, y1, f0, f1, h, s):
     """Cubic Hermite interpolant on the accepted step at fraction s, from
     the step's endpoint derivatives (k1 and the FSAL stage k7)."""
@@ -176,22 +180,40 @@ def _not_ported(what):
 def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
                    tiny_err, r_capture, r_escape, lambda_max, h_init,
                    max_steps, r_plunge=None, formulation="theta",
-                   method="dp45", disk_plane=None, extra_rhs=None,
-                   record_time=False, sat_window=0):
-    """The masked whole-batch adaptive DP45 loop (main-path subset).
+                   method="dp45", disk_plane=None, max_disk_hits=2,
+                   record_momentum=False, disk_normal=None,
+                   extra_disks=None, extra_rhs=None, record_time=False,
+                   sat_window=0):
+    """The masked whole-batch adaptive DP45 loop.
 
     y0: (5, N) state; p_t, p_phi, atol, rtol, r_plunge: (N,); r_capture,
     r_escape, h_min: 0-dim tensors. Returns (y_final, status, lambda,
-    attempts) with `attempts` the per-ray int32 attempt count. The mu
-    chart, DOP853, disk recording, extra state components, the time
-    recorder and the saturation exit are later slices of the port.
+    attempts) with `attempts` the per-ray int32 attempt count.
+
+    disk_plane=(r_in, r_out, theta_plane, opaque) adds the crossing
+    recorder and a fifth return value, the dict of hit records: "n" (N,)
+    int32 and "r", "phi" ("pr", "pth" with record_momentum) as
+    (max_disk_hits, N) tensors. On each accepted step a sign change of
+    cos(theta) - cos(theta_plane) over [y, y_acc] (or landing on the
+    plane) is located at the linear root of that difference on the
+    step's Hermite interpolant (linear interpolation on lanes whose step
+    an event shortened); a crossing with r_in <= r <= r_out fills slot n
+    and increments n up to max_disk_hits, with the physical azimuth
+    (phi + pi where sin(theta) < 0). An opaque plane parks a ray that is
+    still running at its first such crossing, as ESCAPED.
+
+    The mu chart, DOP853, tilted or warped planes (disk_normal), further
+    planes (extra_disks), extra state components, the time recorder and
+    the saturation exit are later slices of the port.
     """
     if formulation != "theta":
         raise _not_ported(f"formulation={formulation!r}")
     if method != "dp45":
         raise _not_ported(f"method={method!r}")
-    if disk_plane is not None:
-        raise _not_ported("disk recording")
+    if disk_normal is not None:
+        raise _not_ported("tilted or warped disk planes (disk_normal)")
+    if extra_disks:
+        raise _not_ported("further disk planes (extra_disks)")
     if extra_rhs is not None:
         raise _not_ported("extra state components (extra_rhs)")
     if record_time:
@@ -212,6 +234,20 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
     lam = torch.zeros_like(y[0])
     status = status0
     attempts = torch.zeros_like(status0)
+
+    if disk_plane is not None:
+        r_in, r_out, theta_plane, opaque = disk_plane
+        # The cos(theta) detector sees the plane on every branch of the
+        # double-cover chart (over-the-pole rays cross at theta = -pi/2).
+        # cos(pi/2) is 6.1e-17, not 0: the tangent case below needs it.
+        plane_c = math.cos(theta_plane)
+        slot_ids = torch.arange(max_disk_hits, dtype=torch.int32,
+                                device=y0.device)[:, None]
+        hits = {"n": torch.zeros_like(status0)}
+        for key in ("r", "phi") + (("pr", "pth") if record_momentum
+                                   else ()):
+            hits[key] = torch.zeros((max_disk_hits,) + y0[0].shape,
+                                    dtype=dtype, device=y0.device)
 
     for step in range(max_steps):
         running = (status == RUNNING) & (lam < lam_max)
@@ -294,6 +330,34 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
                                         torch.where(blowup, h * 0.25, h)))
         underflow = (reject | blowup) & (h_new < h_min)
 
+        if disk_plane is not None:
+            # -- plane crossing on the accepted segment [y, y_acc] --
+            d_prev = torch.cos(y[1]) - plane_c
+            d_next = torch.cos(y_acc[1]) - plane_c
+            crossed = accept & ((d_prev * d_next < 0.0)
+                                | ((d_next == 0.0) & (d_prev != 0.0)))
+            den = torch.where(d_next == d_prev, one, d_next - d_prev)
+            frac_c = torch.clamp(-d_prev / den, 0.0, 1.0)
+            # k7 is the derivative at y5, so an event-shortened step
+            # interpolates linearly.
+            y_cross = _select(
+                event, _lerp(y, y_acc, frac_c),
+                _hermite_eval(y, y_acc, k1, k7, frac * h_eff, frac_c))
+            r_c = y_cross[0]
+            in_disk = crossed & (r_c >= r_in) & (r_c <= r_out)
+            phi_c = torch.where(torch.sin(y_cross[1]) < 0.0,
+                                y_cross[2] + math.pi, y_cross[2])
+            take = in_disk & (hits["n"] == slot_ids)
+            hits["r"] = torch.where(take, r_c, hits["r"])
+            hits["phi"] = torch.where(take, phi_c, hits["phi"])
+            if record_momentum:
+                hits["pr"] = torch.where(take, y_cross[3], hits["pr"])
+                hits["pth"] = torch.where(take, y_cross[4], hits["pth"])
+            hits["n"] = torch.where(
+                in_disk, torch.clamp(hits["n"] + 1, max=max_disk_hits),
+                hits["n"])
+            first_hit = in_disk & (hits["n"] == 1)
+
         # -- state/status update (masked) --
         y = _select(accept, y_acc, y)
         # FSAL: stage 7 seeds the next step's stage 1 on plain accepts.
@@ -303,21 +367,33 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
         status = torch.where(cap, CAPTURED,
                              torch.where(esc, ESCAPED, status))
         status = torch.where(underflow | corrupt, INVALID, status)
+        if disk_plane is not None and opaque:
+            # The ray parks at its first in-disk crossing; a ray that
+            # was captured in the same step keeps its capture.
+            stop = first_hit & (status == RUNNING)
+            y = _select(stop, y_cross, y)
+            status = torch.where(stop, ESCAPED, status)
         attempts = attempts + running.to(attempts.dtype)
         h = h_new
 
+    if disk_plane is not None:
+        return y, status, lam, attempts, hits
     return y, status, lam, attempts
 
 
 def trace_rays_kerr(metric, r_obs, alphas, thetas, theta_obs, axis_refine,
                     lambda_max: float, max_steps: int = 200000,
                     precision: str = "fast", formulation: str = "theta",
-                    method: str = "dp45"):
+                    method: str = "dp45", return_unconverged: bool = False):
     """Trace a batch of Kerr rays adaptively; returns TraceResult.
 
     alphas/thetas: (N,) screen viewing angle / azimuth; theta_obs scalar;
     axis_refine: (N,) bool tolerance-tightening mask. Runs on the
     tensors' own device; call sites pass lambda_max = max(5000, 6 r_obs).
+    return_unconverged=True returns (TraceResult, mask) with mask the
+    rays whose raw status is still RUNNING after the loop: neither event
+    fired within max_steps attempts and lambda was not spent, or it was.
+    The two-pass drivers re-trace those.
     """
     trace_rays_kerr.launches += 1
     dtype = alphas.dtype
@@ -347,12 +423,74 @@ def trace_rays_kerr(metric, r_obs, alphas, thetas, theta_obs, axis_refine,
 
     final_alpha, n_half, status_out = finalize_angles(
         metric, y_f, p_t, p_phi, status_f)
-    return TraceResult(final_alpha, n_half, status_out,
-                       warp_step_sum(attempts))
+    result = TraceResult(final_alpha, n_half, status_out,
+                         warp_step_sum(attempts))
+    if return_unconverged:
+        return result, status_f == RUNNING
+    return result
 
 
 # Calls of the plain loop, so a run can show which path it took.
 trace_rays_kerr.launches = 0
+
+
+def disk_result(metric, p_t, p_phi, y_f, status_f, attempts, hits):
+    """DiskTraceResult from a disk trace's final state and hit records
+    (the (max_hits, N) tensors split into per-slot rows), with the
+    escape angle extracted in torch. Shared by the plain loop and the
+    CUDA wrapper."""
+    final_alpha, n_half, status_out = finalize_angles(
+        metric, y_f, p_t, p_phi, status_f)
+    rows = {k: tuple(hits[k].unbind(0)) if k in hits else ()
+            for k in ("r", "phi", "pr", "pth")}
+    return DiskTraceResult(status_out, hits["n"], rows["r"], p_phi,
+                           warp_step_sum(attempts), final_alpha, n_half,
+                           rows["phi"], (), rows["pr"], rows["pth"])
+
+
+def trace_disk_rays_kerr(metric, r_obs, alphas, thetas, theta_obs,
+                         lambda_max: float, max_steps: int, disk_plane,
+                         max_disk_hits: int = 2, precision: str = "fast",
+                         formulation: str = "theta",
+                         return_unconverged: bool = False,
+                         record_momentum: bool = False):
+    """Trace rays recording disk-plane crossings; returns DiskTraceResult.
+
+    The plain version of the CUDA disk kernel and the counterpart of the
+    JAX package's disk-mode trace: base tolerances on every ray (no
+    axis-refine band), no certain-plunge exit, Hermite events.
+    disk_plane = (r_in, r_out, theta_plane, opaque). return_unconverged
+    as in trace_rays_kerr.
+    """
+    trace_disk_rays_kerr.launches += 1
+    if formulation != "theta":
+        raise ValueError("disk mode supports formulation='theta' only")
+    dtype = alphas.dtype
+    tols = get_tols(dtype, precision)
+
+    def scalar(x):
+        return torch.full((), float(x), dtype=dtype, device=alphas.device)
+
+    y0, p_t, p_phi, invalid0 = metric.initial_conditions_5d(
+        r_obs, alphas, thetas, theta_obs)
+    status0 = torch.where(invalid0, INVALID, RUNNING).to(torch.int32)
+    y_f, status_f, _lam_f, attempts, hits = dp45_integrate(
+        metric, torch.stack(y0), p_t, p_phi, status0,
+        atol=torch.full_like(alphas, tols["atol"]),
+        rtol=torch.full_like(alphas, tols["rtol"]),
+        h_min=scalar(tols["h_min"]), tiny_err=tols["tiny_err"],
+        r_capture=scalar(metric.capture_radius()),
+        r_escape=scalar(float(r_obs) * 2.0),
+        lambda_max=lambda_max, h_init=_h_init_for(r_obs),
+        max_steps=max_steps, disk_plane=disk_plane,
+        max_disk_hits=max_disk_hits, record_momentum=record_momentum)
+    result = disk_result(metric, p_t, p_phi, y_f, status_f, attempts, hits)
+    if return_unconverged:
+        return result, status_f == RUNNING
+    return result
+
+
+trace_disk_rays_kerr.launches = 0
 
 
 def finalize_angles(metric, y_f, p_t, p_phi, status_f):

@@ -25,3 +25,33 @@ class TraceResult(NamedTuple):
     # attempt count (ops.kerr_trace.warp_step_sum). The plain PyTorch
     # loop reports the same quantity from its own per-ray counts.
     n_steps: torch.Tensor
+
+
+class DiskTraceResult(NamedTuple):
+    """Per-ray disk-mode trace output (`light_path_tracer_tpu.disk.
+    DiskTraceResult`, the same fields in the same order).
+
+    n_hits counts the in-disk crossings recorded (at most max_hits);
+    slot k of r_hits / phi_hits (and pr_hits / pth_hits with
+    record_momentum) holds the k-th crossing's radius, physical azimuth
+    and momenta, 0 where there was none. xi = L/E = p_phi per ray.
+    final_alpha / n_half are the escape heading and winding of the final
+    state (NaN final_alpha unless escaped); for an opaque disk they mean
+    something only on rays with n_hits == 0, since a hit ray parks at its
+    crossing. n_steps follows TraceResult's contract. xi_hits (tilted
+    disks), t_hits and t_end (record_time) stay empty in this package.
+    """
+
+    status: torch.Tensor
+    n_hits: torch.Tensor
+    r_hits: tuple
+    xi: torch.Tensor
+    n_steps: torch.Tensor
+    final_alpha: torch.Tensor
+    n_half: torch.Tensor
+    phi_hits: tuple = ()
+    xi_hits: tuple = ()
+    pr_hits: tuple = ()
+    pth_hits: tuple = ()
+    t_hits: tuple = ()
+    t_end: tuple = ()

@@ -142,6 +142,7 @@ def _precompute_eager(scene: SceneConfig, cfg: RenderConfig,
         chunk_size=cfg.chunk_size, max_steps=cfg.max_steps,
         backend=cfg.backend, integrator=cfg.integrator,
         event_interp=cfg.event_interp, two_pass=cfg.two_pass,
+        pass1_steps=cfg.pass1_steps,
         formulation=cfg.formulation, precision=cfg.precision)
 
     fa_rows = res.final_alpha.reshape(trace_rows, width).to(torch.float32)

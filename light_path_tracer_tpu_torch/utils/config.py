@@ -89,8 +89,8 @@ class RenderConfig:
     # None = one dispatch over the whole grid (the only ported branch).
     chunk_size: int | None = None
     sort_by_difficulty: bool = True    # chunked path only
-    # Two-pass straggler retrace: "auto" traces in one pass in this
-    # package (the two-pass driver is not ported); True raises.
+    # Two-pass straggler retrace (ops/cuda/kerr_trace_kernel.py): "auto"
+    # is on for batches above 2M rays and for every disk trace.
     two_pass: str | bool = "auto"
     pass1_steps: int = 512
     # Emission-saturation early exit of the volumetric family (not

@@ -5,6 +5,10 @@ can be loaded and saved where neither matplotlib nor Pillow is installed.
     matplotlib's colormap-index quantization;
   * `quantize_u8` / `save_png`: the lensed-render save, with matplotlib's
     float -> uint8 rule for RGB(A) input, (clip(x, 0, 1) * 255) truncated;
+  * `AFMHOT` / `save_afmhot_png`: the power-law disk save, matplotlib's
+    afmhot colormap applied to the colormap index, then saved as RGB;
+  * `save_gamma_png`: the blackbody disk save, clip(x, 0, 1)^(1/2.2)
+    in NumPy on the host, saved as RGB;
   * `write_png`: 8-bit gray, gray+alpha, RGB or RGBA PNG;
   * `read_png`: 8-bit non-interlaced gray, gray+alpha, RGB or RGBA PNG ->
     float32 / 255, as `matplotlib.image.imread` returns a PNG (gray as
@@ -35,6 +39,34 @@ def quantize_u8(img):
     """[0,1] float image -> uint8 on the same device: clip, then truncate
     (matplotlib's conversion of float RGB(A) input)."""
     return (torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8)
+
+
+def _afmhot_table():
+    """matplotlib's afmhot, 256 entries: r = 2x, g = 2x - 1/2, b = 2x - 1
+    at x = i / 255, clipped to [0, 1] (float64, (256, 3))."""
+    x = np.linspace(0.0, 1.0, 256)
+    return np.clip(np.stack([2.0 * x, 2.0 * x - 0.5, 2.0 * x - 1.0],
+                            axis=1), 0.0, 1.0)
+
+
+AFMHOT = _afmhot_table()
+
+
+def save_afmhot_png(path, img):
+    """Save an (H, W) [0,1] gray image tensor as an afmhot RGB PNG:
+    colormap index (quantize_cmap_index), the afmhot entry, then the
+    float -> uint8 truncation of an RGB save."""
+    idx = quantize_cmap_index(img).cpu().numpy()
+    write_png(path, (AFMHOT[idx] * 255).astype(np.uint8))
+
+
+def save_gamma_png(path, img):
+    """Save an (H, W, 3) linear-sRGB image tensor as an RGB PNG encoded
+    with clip(x, 0, 1)^(1/2.2), in the image's dtype in NumPy on the host
+    (a device pow could differ in the last ulp and flip a truncated
+    level)."""
+    arr = np.clip(img.cpu().numpy(), 0.0, 1.0) ** (1.0 / 2.2)
+    write_png(path, (arr * 255).astype(np.uint8))
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:

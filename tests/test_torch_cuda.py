@@ -12,18 +12,24 @@ the tolerance level). Orbit RK4 (fixed steps, so only roundings differ):
 status agreement above 0.999, p99 |d final_alpha| < 1e-4 on stable
 escaped rays, the alpha = 0 lane INVALID. The lensed render on the card
 against the CPU: shadow masks agree on >= 99 %, bilinear image RMSE
-< 1e-3 on pixels of winding < 2.
+< 1e-3 on pixels of winding < 2. The disk variant against its plain loop:
+status and n_hits agreement above 0.99, on rays hit in both median
+|d r_hits[0]| < 1e-3 M and p99 < 0.1 M (step sequences differ, as for
+the shadow), median |d final_alpha| < 1e-4 on escaped no-hit rays. Both
+two-pass drivers equal a single pass bitwise (the kernel computes each
+ray on its own thread).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from light_path_tracer_tpu_torch import pipeline
+from light_path_tracer_tpu_torch import camera, disk, pipeline
 from light_path_tracer_tpu_torch.models import (Kerr, ReissnerNordstrom,
                                                 Schwarzschild)
 from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
-    trace_rays_kerr_cuda, trace_rays_kerr_plain)
+    trace_disk_rays_cuda, trace_disk_rays_plain, trace_disk_rays_two_pass,
+    trace_rays_kerr_cuda, trace_rays_kerr_plain, trace_rays_kerr_two_pass)
 from light_path_tracer_tpu_torch.ops.cuda.schwarzschild_kernel import (
     trace_rays_schwarzschild_cuda, trace_rays_schwarzschild_plain)
 from light_path_tracer_tpu_torch.utils.config import (RenderConfig,
@@ -154,3 +160,111 @@ def test_render_scene_on_card_matches_cpu(cuda):
             & (oc.precompute.winding.to(torch.int32) < 2))
     diff = (og.image.cpu() - oc.image)[calm]
     assert float((diff ** 2).mean().sqrt()) < 1e-3
+
+
+THETA_DISK = float(np.radians(80.0))
+
+
+def _plane(opaque):
+    return (disk.r_isco(1.0, 0.9), 20.0, float(np.pi / 2), opaque)
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.is_floating_point() else x
+
+
+@pytest.mark.parametrize("opaque,momentum", [(True, False), (False, True)])
+def test_disk_kernel_matches_plain_version(cuda, opaque, momentum):
+    m = Kerr(M=1.0, a=0.9)
+    # chip_smoke.py phase 8's 4,096 rays: the p99 gate needs the tail of
+    # a population this size (a 2,048-ray draw measured p99 0.102 M).
+    rng = np.random.default_rng(0)
+    f32 = dict(dtype=torch.float32, device=cuda)
+    al = torch.tensor(rng.uniform(0.01, 0.12, 4096), **f32)
+    th = torch.tensor(rng.uniform(-np.pi, np.pi, 4096), **f32)
+    args = (m, R_OBS, al, th, THETA_DISK, 5000.0, 20000, _plane(opaque), 2)
+    before = trace_disk_rays_cuda.launches
+    rk = trace_disk_rays_cuda(*args, record_momentum=momentum)
+    torch.cuda.synchronize()
+    assert trace_disk_rays_cuda.launches == before + 1
+    rp = trace_disk_rays_plain(*args, record_momentum=momentum)
+    assert len(rk.pr_hits) == (2 if momentum else 0)
+    sk, sp = rk.status.cpu().numpy(), rp.status.cpu().numpy()
+    nk, npl = rk.n_hits.cpu().numpy(), rp.n_hits.cpu().numpy()
+    assert (sk == sp).mean() > 0.99 and (nk == npl).mean() > 0.99
+    both = (nk > 0) & (npl > 0)
+    d = np.abs(rk.r_hits[0].cpu().numpy()[both]
+               - rp.r_hits[0].cpu().numpy()[both])
+    assert both.sum() > 2000
+    assert np.median(d) < 1e-3 and np.percentile(d, 99) < 0.1
+    fk, fp = rk.final_alpha.cpu().numpy(), rp.final_alpha.cpu().numpy()
+    free = (nk == 0) & (npl == 0) & np.isfinite(fk) & np.isfinite(fp)
+    assert free.sum() > 100
+    assert np.median(np.abs(fk[free] - fp[free])) < 1e-4
+    if not opaque:
+        assert (nk >= 2).sum() > 50
+
+
+def test_disk_kernel_rejects_bad_inputs(cuda):
+    m = Kerr(M=1.0, a=0.9)
+    al = torch.linspace(0.01, 0.1, 64, device=cuda)
+    args = (m, R_OBS, al, al, THETA_DISK, 5000.0, 100, _plane(True))
+    with pytest.raises(ValueError):
+        trace_disk_rays_cuda(*args, 5)
+    with pytest.raises(ValueError):
+        trace_disk_rays_cuda(m, R_OBS, al.double(), al.double(),
+                             *args[4:], 2)
+
+
+def test_disk_two_pass_equals_single_pass_on_card(cuda):
+    m = Kerr(M=1.0, a=0.9)
+    dim = (256, 256)
+    fov = camera.fov_from_vertical(np.radians(40.0), dim)
+    grid = dict(dtype=torch.float32, device=cuda)
+    al = camera.build_alpha_lookup(dim, fov, **grid).reshape(-1)
+    th = camera.build_theta_lookup(dim, fov, **grid).reshape(-1)
+    args = (m, R_OBS, al, th, THETA_DISK, 5000.0, 20000, _plane(False), 2)
+    one = trace_disk_rays_cuda(*args, record_momentum=True)
+    two = trace_disk_rays_two_pass(*args, pass1_steps=64,
+                                   record_momentum=True)
+    _, unconv = trace_disk_rays_cuda(*args[:6], 64, _plane(False), 2,
+                                     return_unconverged=True)
+    assert 0 < int(unconv.sum()) <= 8192
+    for a, b in zip([one.status, one.n_hits, one.final_alpha, *one.r_hits,
+                     *one.phi_hits, *one.pr_hits, *one.pth_hits],
+                    [two.status, two.n_hits, two.final_alpha, *two.r_hits,
+                     *two.phi_hits, *two.pr_hits, *two.pth_hits]):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+def test_kerr_two_pass_equals_single_pass_on_card(cuda):
+    scene = SceneConfig(M=1.0, a=0.9)
+    cfg = RenderConfig()
+    dim = (256, 256)
+    fov = camera.fov_from_vertical(scene.vertical_fov, dim)
+    al, th, ref, _rows = pipeline.trace_inputs(scene, cfg, dim, fov, cuda)
+    m = Kerr(M=1.0, a=0.9)
+    args = (m, R_OBS, al, th, np.pi / 2, ref, 5000.0, 200000)
+    one = trace_rays_kerr_cuda(*args)
+    two = trace_rays_kerr_two_pass(*args, pass1_steps=64)
+    _, unconv = trace_rays_kerr_cuda(*args[:7], 64, return_unconverged=True)
+    assert 0 < int(unconv.sum()) <= 8192
+    for a, b in zip(one[:3], two[:3]):
+        assert torch.equal(_bits(a), _bits(b))
+    assert int(two.n_steps) > int(one.n_steps)
+
+
+def test_render_disk_on_card_matches_cpu(cuda):
+    scene = SceneConfig(M=1.0, a=0.9, theta_obs=THETA_DISK)
+    before = trace_disk_rays_two_pass.launches
+    img_gpu, st_gpu = disk.render_disk(scene, (64, 64), RenderConfig(),
+                                       device=cuda)
+    img_cpu, st_cpu = disk.render_disk(scene, (64, 64), RenderConfig(),
+                                       device="cpu")
+    assert trace_disk_rays_two_pass.launches == before + 2
+    assert img_gpu.device.type == "cuda" and img_gpu.shape == (64, 64)
+    mg, mc = img_gpu.cpu() > 0, img_cpu > 0
+    assert (mg == mc).float().mean().item() >= 0.99
+    assert st_gpu["disk_pixels"] > 100 and st_gpu["captured"] > 0
+    both = mg & mc
+    assert float((img_gpu.cpu() - img_cpu).abs()[both].median()) < 1e-3

@@ -24,6 +24,7 @@ from light_path_tracer_tpu.ops.kerr_trace import trace_rays_kerr as jtrace
 from light_path_tracer_tpu_torch.models import Kerr
 from light_path_tracer_tpu_torch.ops import kerr_trace as tk
 from light_path_tracer_tpu_torch.ops.batch import trace_batch
+from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
 from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
     trace_rays_kerr_cuda)
 
@@ -150,7 +151,7 @@ def test_cuda_wrapper_runs_plain_version_on_cpu():
 def test_trace_batch_rejects_branches_not_ported():
     tm = Kerr(M=1.0, a=0.9)
     al = torch.full((8,), 0.1)
-    for kwargs in (dict(chunk_size=4), dict(two_pass=True),
+    for kwargs in (dict(chunk_size=4),
                    dict(integrator="dop853"), dict(event_interp="linear"),
                    dict(formulation="mu")):
         with pytest.raises(NotImplementedError):
@@ -159,3 +160,76 @@ def test_trace_batch_rejects_branches_not_ported():
         trace_batch(tm, R_OBS, al, backend="pallas")
     empty = trace_batch(tm, R_OBS, torch.zeros(0))
     assert empty.final_alpha.shape == (0,) and int(empty.n_steps) == 0
+
+
+def _grid_rays(n, seed=7):
+    tm = Kerr(M=1.0, a=0.9)
+    al, th, ref = _rays(n, seed, tm.alpha_crit(R_OBS))
+    return (tm, torch.from_numpy(al.astype(np.float32)),
+            torch.from_numpy(th.astype(np.float32)), torch.from_numpy(ref))
+
+
+@pytest.mark.parametrize("pass1_steps", [4, 16])
+def test_kerr_two_pass_equals_single_pass(pass1_steps):
+    """The driver on the plain loop: every ray is re-traced or finished in
+    pass 1, and both agree exactly with one uncapped pass."""
+    tm, al, th, ref = _grid_rays(256)
+    args = (tm, R_OBS, al, th, np.pi / 2, ref, 5000.0, 5000)
+    one = tk.trace_rays_kerr(*args)
+    first, unconv = tk.trace_rays_kerr(*args[:7], pass1_steps,
+                                       return_unconverged=True)
+    assert 0 < int(unconv.sum()) <= 256
+    launches = kk.trace_rays_kerr_two_pass.launches
+    two = kk.trace_rays_kerr_two_pass(*args, pass1_steps=pass1_steps)
+    assert kk.trace_rays_kerr_two_pass.launches == launches + 1
+    assert torch.equal(two.status, one.status)
+    assert torch.equal(two.n_half_orbits, one.n_half_orbits)
+    assert torch.equal(two.final_alpha.nan_to_num(9.0),
+                       one.final_alpha.nan_to_num(9.0))
+    # n_steps counts both passes
+    assert int(two.n_steps) > int(first.n_steps)
+
+
+def test_kerr_two_pass_keeps_pass_one_beyond_slots():
+    tm, al, th, ref = _grid_rays(256)
+    args = (tm, R_OBS, al, th, np.pi / 2, ref, 5000.0, 5000)
+    one = tk.trace_rays_kerr(*args)
+    first, unconv = tk.trace_rays_kerr(*args[:7], 4, return_unconverged=True)
+    idx = torch.nonzero(unconv)[:, 0]
+    assert idx.numel() > 32
+    two = kk.trace_rays_kerr_two_pass(*args, pass1_steps=4, slots=32)
+    retraced = torch.zeros_like(unconv)
+    retraced[idx[:32]] = True
+    for a, b, c in zip(one[:3], two[:3], first[:3]):
+        a, b, c = (x.nan_to_num(9.0) if x.is_floating_point() else x
+                   for x in (a, b, c))
+        assert torch.equal(b[retraced], a[retraced])
+        assert torch.equal(b[~retraced], c[~retraced])
+
+
+def test_trace_batch_two_pass_rule(monkeypatch):
+    """two_pass=True runs the driver; 'auto' turns it on above 2,000,000
+    rays only (the JAX package's rule)."""
+    tm, al, th, ref = _grid_rays(64)
+    single = trace_batch(tm, R_OBS, al, th, np.pi / 2, ref, max_steps=5000)
+    launches = kk.trace_rays_kerr_two_pass.launches
+    two = trace_batch(tm, R_OBS, al, th, np.pi / 2, ref, max_steps=5000,
+                      two_pass=True, pass1_steps=8)
+    assert kk.trace_rays_kerr_two_pass.launches == launches + 1
+    assert torch.equal(two.status, single.status)
+    calls = []
+
+    def fake(name):
+        def run(metric, r_obs, alphas, *args, **kwargs):
+            calls.append((name, int(alphas.numel()),
+                          kwargs.get("pass1_steps")))
+            return single
+        return run
+
+    monkeypatch.setattr(kk, "trace_rays_kerr_two_pass", fake("two"))
+    monkeypatch.setattr(tk, "trace_rays_kerr", fake("one"))
+    for n in (2_000_000, 2_000_001):
+        trace_batch(tm, R_OBS, torch.full((n,), 0.1), pass1_steps=99)
+    trace_batch(tm, R_OBS, torch.full((2_000_001,), 0.1), two_pass=False)
+    assert calls == [("one", 2_000_000, None), ("two", 2_000_001, 99),
+                     ("one", 2_000_001, None)]

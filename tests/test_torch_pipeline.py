@@ -135,7 +135,10 @@ def test_port_imports_without_jax():
             "light_path_tracer_tpu_torch.models.reissner_nordstrom, "
             "light_path_tracer_tpu_torch.ops.schwarzschild_trace, "
             "light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel, "
-            "light_path_tracer_tpu_torch.ops.cuda.schwarzschild_kernel; "
+            "light_path_tracer_tpu_torch.ops.cuda.schwarzschild_kernel, "
+            "light_path_tracer_tpu_torch.disk, "
+            "light_path_tracer_tpu_torch.cli.disk, "
+            "light_path_tracer_tpu_torch.utils.color; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'light_path_tracer_tpu.')) or "
             "m == 'light_path_tracer_tpu'); print(bad); "
