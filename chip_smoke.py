@@ -7,9 +7,11 @@ Builds the port's CUDA kernels from csrc/, holds each kernel against its
 plain PyTorch version on the card, drives three paths through the entry
 points a user calls (the 1024^2 Kerr a=0.9 shadow, the 1024^2
 Schwarzschild shadow and the 512^2 Schwarzschild lensed render) and
-checks what they produce, then the config-4 thin-disk render. Phases:
+checks what they produce, then the config-4 thin-disk render and the
+1024^2 volumetric hot-flow and spectral renders. Phases:
   1. machine: card name and power limit, torch and nvcc versions;
-  2. build: nvcc for sm_90a, with the build time;
+  2. build: nvcc for sm_90a, with the build time and each kernel
+     instance's registers and spills;
   3. kernel vs plain version: 4,096 random rays (status agreement > 0.99,
      p99 |d final_alpha| < 2e-3 on stable escaped rays), a 128^2 image
      (shadow masks agree on >= 99.5% of pixels), and the main path's
@@ -52,6 +54,31 @@ checks what they produce, then the config-4 thin-disk render. Phases:
      [0, 1] with disk pixels and captured rays, its brighter half > 2x the
      dimmer (Doppler beaming); then a 64^2 render on the card against the
      CPU (disk masks >= 99 %, median |d image| < 1e-3 on disk pixels).
+ 11. extras kernel vs plain version: 4,096 random rays (alpha in [0.3, 4]
+     alpha_crit, theta_obs = 80 deg, max_steps 4000, sat_window 2048), the
+     thin, absorbed (alpha0 0.5), jet (beta 0.6, index -1), 2-band
+     (0.5/2, q 2) and 3-band (0.1/1/10, q 3) spectral forms (status
+     agreement > 0.99, p99 |d tau| < 1e-3, p99 |d emission| / max per
+     band < 1e-3, or < 2x the plain loop's own float32 gap from its
+     float64 result on the same rays where that is larger), with both
+     times and both n_steps;
+ 12. the 1024^2 volumetric scene (a = 0.9, theta_obs = 80 deg, FOV 16 deg,
+     default RIAFConfig): the kernel's single pass against the two-pass
+     drivers bitwise (thin and 3-band spectral; default first pass and a
+     256-attempt one), the rays the saturation and frozen-state exits
+     ended and the slowest rays; the plain loop against the kernel on the
+     256^2 grid of the scene for each of phase 13's four paths, both
+     capped at 2048 attempts (phase 11's gates); both drivers (thin and
+     3-band) over the kernel and over the plain loop on phase 11's rays;
+ 13. the four volumetric paths through render_volumetric and
+     render_volumetric_spectrum at 1024^2 (thin, absorbed alpha0 0.3, jet
+     beta 0.6, 3-band spectral 0.1/1/10), warm-up and 3 runs each: two
+     kernel launches per driver call and no plain loop, finite images in
+     [0, 1], the thin torus's Doppler crescent (half ratio > 2), absorbed
+     emission below the thin, the SSA turnover and the growing
+     photosphere of the spectrum; then 64^2 renders on the card against
+     the CPU, the thin image and each band of the 3-band spectrum
+     (emission masks >= 99 %, median |d image| < 1e-4).
 Each path's launch counters are set to 0 just before it and read just
 after. The second-to-last line is a JSON object of per-kernel results, the
 last {"ok": true, "device": {...}}. Exit code 0 iff every phase passed;
@@ -239,6 +266,434 @@ def disk_bitwise(r1, r2):
     return all(same_bits(a, b) for a, b in fields)
 
 
+def kernel_label(mangled):
+    """A short name for a kernel instance in ptxas's report."""
+    import re
+    for pat, fmt in ((r"kerr_dp45_extras_kernelINS_\d+(\w+?)E",
+                      "kerr_dp45_extras<{}>"),
+                     (r"kerr_dp45_kernelILb(\d)ELi(\d)ELb(\d)",
+                      "kerr_dp45<disk={},hits={},momentum={}>"),
+                     (r"orbit_rk4_kernelILb(\d)", "orbit_rk4<charged={}>")):
+        m = re.search(pat, mangled)
+        if m:
+            groups = list(m.groups())
+            if groups[0].startswith("SpectralILi"):
+                groups[0] = f"Spectral<{groups[0][11:]}>"
+            return fmt.format(*groups)
+    return mangled
+
+
+def ptxas_report(log):
+    """(kernel, registers, spill line) for each entry in nvcc's log."""
+    import re
+    rows, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = kernel_label(m.group(1))
+        elif "spill" in line:
+            spill = line.strip()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), spill))
+            name, spill = None, ""
+    return rows
+
+
+THETA_VOL = float(np.radians(80.0))
+VOL_SOURCE = "light_path_tracer_tpu_torch/csrc/kerr_dp45_extras.cu"
+VOL_JAX = "light_path_tracer_tpu/ops/pallas/volumetric_kernel.py"
+VOL_DRIVERS = "light_path_tracer_tpu_torch/ops/cuda/kerr_trace_kernel.py"
+# Sizes of phases 11-13: random rays, the scene's grid, the plain loop's
+# grid and the card-vs-CPU check.
+VOL_RAYS = 4096
+VOL_DIM = (1024, 1024)
+VOL_PLAIN_DIM = (256, 256)
+VOL_CHECK_DIM = (64, 64)
+
+
+def volumetric_forms():
+    """Phase 11's forms: (RIAFConfig, spectral bands or None)."""
+    from light_path_tracer_tpu_torch.volumetric import RIAFConfig
+    return {"thin": (RIAFConfig(), None),
+            "absorbed": (RIAFConfig(alpha0=0.5), None),
+            "jet": (RIAFConfig(profile="jet", jet_beta=0.6, index=-1.0),
+                    None),
+            "spectral 2-band": (RIAFConfig(g_power=4.0, alpha0=1.0,
+                                           opacity_index=2.0), (0.5, 2.0)),
+            "spectral 3-band": scene_forms()["spectral 3-band"]}
+
+
+def scene_forms():
+    """The four paths of phases 12 and 13 (the rows of the JAX package's
+    scripts/newmodes_bench.py): (RIAFConfig, spectral bands or None)."""
+    from light_path_tracer_tpu_torch.volumetric import RIAFConfig
+    return {"volumetric thin": (RIAFConfig(), None),
+            "volumetric absorbed": (RIAFConfig(alpha0=0.3), None),
+            "volumetric jet b=0.6": (RIAFConfig(profile="jet", jet_beta=0.6,
+                                                index=-1.0), None),
+            "spectral 3-band": (RIAFConfig(g_power=4.0, alpha0=1.0,
+                                           opacity_index=3.0),
+                                (0.1, 1.0, 10.0))}
+
+
+def extras_trace(metric, riaf, freqs, alphas, thetas, max_steps, kernel,
+                 **kw):
+    """One volumetric or spectral trace through the kernel wrapper
+    (kernel=True), its plain loop (False) or a two-pass driver (kw
+    `driver`); returns (result, [emission-like extras], [tau-like])."""
+    from light_path_tracer_tpu_torch import volumetric
+    from light_path_tracer_tpu_torch.ops import kerr_trace
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    from light_path_tracer_tpu_torch.ops.cuda import volumetric_kernel as vk
+    driver = kw.pop("driver", False)
+    args = (metric, R_OBS, alphas, thetas, THETA_VOL)
+    if freqs:
+        tf = volumetric.make_spectral_transfer(metric, riaf, freqs)
+        plain = kerr_trace.trace_rays_spectral
+        fn = vk.trace_rays_spectral_cuda if kernel else plain
+        if driver:
+            kw["trace_fn"] = fn
+            fn = kk.trace_rays_spectral_two_pass
+        res = fn(*args, tf, len(freqs), LAMBDA_MAX, max_steps, **kw)
+        return res, list(res.emission), [res.tau_hat]
+    em, ab = volumetric.make_transfer_fns(metric, riaf)
+    plain = kerr_trace.trace_rays_volumetric
+    fn = vk.trace_rays_volumetric_cuda if kernel else plain
+    if driver:
+        kw["trace_fn"] = fn
+        fn = kk.trace_rays_volumetric_two_pass
+    res = fn(*args, em, LAMBDA_MAX, max_steps, absorption_fn=ab, **kw)
+    return res, [res.emission], [res.optical_depth]
+
+
+def extras_compare(a, b):
+    """Result a = (res, em, tau) against result b on the same rays:
+    status agreement, p99 |d emission| / max(|b|) per band (and the
+    largest), max |d emission|, p99 |d tau|."""
+    sk, sp = a[0].status.cpu().numpy(), b[0].status.cpu().numpy()
+    ok = sk == sp
+    out = dict(status_agree=float(ok.mean()), p99_em_bands=[],
+               max_abs_em=0.0, p99_tau=0.0)
+    for xk, xp in zip(a[1], b[1]):
+        xk = xk.cpu().numpy().astype(np.float64)
+        xp = xp.cpu().numpy().astype(np.float64)
+        d = np.abs(xk - xp)[ok]
+        scale = max(np.abs(xp).max(), 1e-30)
+        out["p99_em_bands"].append(float(np.percentile(d, 99)) / scale)
+        out["max_abs_em"] = max(out["max_abs_em"], float(d.max()))
+    out["p99_em"] = max(out["p99_em_bands"])
+    for xk, xp in zip(a[2], b[2]):
+        d = np.abs(xk.cpu().numpy().astype(np.float64)
+                   - xp.cpu().numpy().astype(np.float64))[ok]
+        out["p99_tau"] = max(out["p99_tau"], float(np.percentile(d, 99)))
+    return out
+
+
+def f32_gap(metric, riaf, freqs, alphas, thetas, max_steps, plain32, **kw):
+    """The plain loop's own float32 result plain32 against its float64
+    result on the same rays (extras_compare's numbers)."""
+    rp64 = extras_trace(metric, riaf, freqs, alphas.double(),
+                        thetas.double(), max_steps, False, **kw)
+    return extras_compare(plain32, rp64)
+
+
+def extras_gate(what, g, gap):
+    """Phase 11's gates on kernel-vs-plain numbers g: status agreement
+    > 0.99, p99 |d tau| < 1e-3, and p99 |d emission| / max per band
+    below 1e-3, or below twice the plain loop's own float32 gap from
+    float64 on the same rays (gap) where that is larger: two float32
+    results each within e of the float64 one are within 2e of each
+    other. (The 0.1 band of the 3-band spectrum, q 3, carries
+    f^(1-q) = 100 times tau_hat's rounding.)"""
+    g["em_bars"] = [max(1e-3, 2.0 * e) for e in gap["p99_em_bands"]]
+    g["f32_gap_em_bands"] = gap["p99_em_bands"]
+    g["f32_gap_tau"] = gap["p99_tau"]
+    require(g["status_agree"] > 0.99
+            and all(p < b for p, b in zip(g["p99_em_bands"], g["em_bars"]))
+            and g["p99_tau"] < 1e-3, f"{what} gate: {g}")
+
+
+def extras_bitwise(a, b):
+    ra, rb = a[0], b[0]
+    pairs = [(ra.status, rb.status), (ra.final_alpha, rb.final_alpha),
+             (ra.n_half_orbits, rb.n_half_orbits)]
+    pairs += list(zip(a[1], b[1])) + list(zip(a[2], b[2]))
+    return all(same_bits(x, y) for x, y in pairs)
+
+
+def grinders(probe, width):
+    """Rays the saturation (flag 2) or frozen-state (flag 4) exit ended,
+    and the rays that ran longest, from a kernel probe."""
+    att = probe["attempts"].cpu().numpy()
+    fl = probe["flags"].cpu().numpy()
+    ended = (fl & 6) != 0
+    top = np.argsort(att)[-5:][::-1]
+    return dict(
+        exited=int(ended.sum()),
+        saturation_exits=int(((fl & 2) != 0).sum()),
+        frozen_exits=int(((fl & 4) != 0).sum()),
+        exit_attempts=([int(att[ended].min()), int(att[ended].max())]
+                       if ended.any() else []),
+        attempts_mean=float(att.mean()),
+        attempts_p999=float(np.percentile(att, 99.9)),
+        attempts_max=int(att.max()),
+        slowest=[dict(row=int(i // width), col=int(i % width),
+                      attempts=int(att[i]), flags=int(fl[i]))
+                 for i in top])
+
+
+def volumetric_phases(dev, card):
+    """Phases 11-13; returns the kernels-line entries of the extras kernel
+    and its drivers."""
+    import torch
+    from light_path_tracer_tpu_torch import camera, volumetric
+    from light_path_tracer_tpu_torch.models import Kerr
+    from light_path_tracer_tpu_torch.ops import kerr_trace
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    from light_path_tracer_tpu_torch.ops.cuda import volumetric_kernel as vk
+    from light_path_tracer_tpu_torch.utils.config import (RenderConfig,
+                                                          SceneConfig)
+
+    # -- 11. extras kernel vs plain version -----------------------------
+    kerr = Kerr(M=1.0, a=0.9)
+    ac = kerr.alpha_crit(R_OBS, THETA_VOL)
+    rng = np.random.default_rng(0)
+    f32 = dict(dtype=torch.float32, device=dev)
+    al = torch.tensor(rng.uniform(0.3 * ac, 4 * ac, VOL_RAYS), **f32)
+    th = torch.tensor(rng.uniform(-np.pi, np.pi, VOL_RAYS), **f32)
+    print(f"extras kernel vs plain version (f32 'fast', {VOL_RAYS} random "
+          f"rays, max_steps 4000, sat_window 2048):", flush=True)
+    g11, gap11 = {}, {}
+    for label, (riaf, freqs) in volumetric_forms().items():
+        probe = {}
+        ms, rk = cuda_ms(lambda: extras_trace(
+            kerr, riaf, freqs, al, th, 4000, True, sat_window=2048,
+            probe=probe), 3)
+        plain_ms, rp = cuda_ms(lambda: extras_trace(
+            kerr, riaf, freqs, al, th, 4000, False, sat_window=2048), 1)
+        g = extras_compare(rk, rp)
+        g.update(ms=ms, plain_ms=plain_ms, n_steps_kernel=int(rk[0].n_steps),
+                 n_steps_plain=int(rp[0].n_steps),
+                 kernel_attempts=grinders(probe, VOL_RAYS)["slowest"][:2])
+        gap11[label] = f32_gap(kerr, riaf, freqs, al, th, 4000, rp,
+                               sat_window=2048)
+        g11[label] = g
+        extras_gate(f"phase 11 {label}", g, gap11[label])
+        print(f"  {label}: {json.dumps(g)}", flush=True)
+
+    # -- 12. the 1024^2 scene: single pass vs drivers --------------------
+    scene = SceneConfig(M=1.0, a=0.9, r_obs_mult=R_OBS, theta_obs=THETA_VOL,
+                        vertical_fov_deg=16.0)
+    dim = VOL_DIM
+    fov = camera.fov_from_vertical(scene.vertical_fov, dim)
+    al12 = camera.build_alpha_lookup(dim, fov, **f32).reshape(-1)
+    th12 = camera.build_theta_lookup(dim, fov, **f32).reshape(-1)
+    forms12 = {"thin": scene_forms()["volumetric thin"],
+               "spectral 3-band": scene_forms()["spectral 3-band"]}
+    print(f"{dim[0]}^2 scene (a=0.9, theta_obs 80 deg, FOV 16 deg), kernel "
+          f"single pass vs two-pass driver:", flush=True)
+    g12 = {}
+    for label, (riaf, freqs) in forms12.items():
+        probe = {}
+        kw = dict(sat_window=2048)
+        one_ms, one = cuda_ms(lambda: extras_trace(
+            kerr, riaf, freqs, al12, th12, 200000, True, **kw), 3)
+        extras_trace(kerr, riaf, freqs, al12, th12, 200000, True, probe=probe,
+                     **kw)
+        two_ms, two = cuda_ms(lambda: extras_trace(
+            kerr, riaf, freqs, al12, th12, 200000, True, driver=True, **kw),
+            3)
+        row = dict(single_ms=one_ms, two_pass_ms=two_ms,
+                   bitwise_equal=extras_bitwise(one, two),
+                   n_steps_single=int(one[0].n_steps),
+                   n_steps_two_pass=int(two[0].n_steps),
+                   over_4096_attempts=int(probe["attempts"].gt(4096).sum()))
+        row.update(grinders(probe, dim[1]))
+        p256 = {}
+        extras_trace(kerr, riaf, freqs, al12, th12, 256, True, probe=p256,
+                     **kw)
+        n_unc = int((p256["flags"] & 1).sum())
+        two256 = extras_trace(kerr, riaf, freqs, al12, th12, 200000, True,
+                              driver=True, pass1_steps=256, **kw)
+        row.update(unconverged_256=n_unc,
+                   bitwise_equal_pass1_256=extras_bitwise(one, two256))
+        g12[label] = row
+        print(f"  {label}: {json.dumps(row)}", flush=True)
+        require(row["bitwise_equal"] and (row["bitwise_equal_pass1_256"]
+                                          or n_unc > 1024),
+                f"phase 12 {label}: the driver differs from the single pass")
+        del one, two, two256
+    # The plain loop against the kernel on the 256^2 grid of the scene,
+    # for each of phase 13's four paths, both capped at 2048 attempts
+    # (the plain loop costs ~10 ms an iteration at 1M rays, so it never
+    # runs the 1024^2 grid in full).
+    d256 = VOL_PLAIN_DIM
+    fov256 = camera.fov_from_vertical(scene.vertical_fov, d256)
+    al256 = camera.build_alpha_lookup(d256, fov256, **f32).reshape(-1)
+    th256 = camera.build_theta_lookup(d256, fov256, **f32).reshape(-1)
+    g256 = {}
+    for label, (riaf, freqs) in scene_forms().items():
+        ms256, rk = cuda_ms(lambda: extras_trace(
+            kerr, riaf, freqs, al256, th256, 2048, True, sat_window=2048),
+            3)
+        plain256, rp = cuda_ms(lambda: extras_trace(
+            kerr, riaf, freqs, al256, th256, 2048, False, sat_window=2048),
+            1)
+        g = extras_compare(rk, rp)
+        g.update(ms=ms256, plain_ms=plain256,
+                 n_steps_kernel=int(rk[0].n_steps),
+                 n_steps_plain=int(rp[0].n_steps))
+        g256[label] = g
+        extras_gate(f"phase 12 256^2 {label}", g, f32_gap(
+            kerr, riaf, freqs, al256, th256, 2048, rp, sat_window=2048))
+        print(f"  {label}, {d256[0]}^2 grid, both capped at 2048: "
+              f"{json.dumps(g)}", flush=True)
+    # Both drivers over the kernel and over the plain loop, on phase
+    # 11's 4,096 rays with a 64-attempt first pass.
+    drv = {}
+    for label in ("thin", "spectral 3-band"):
+        riaf, freqs = volumetric_forms()[label]
+        k_ms, rk = cuda_ms(lambda: extras_trace(
+            kerr, riaf, freqs, al, th, 4000, True, driver=True,
+            pass1_steps=64), 3)
+        p_ms, rp = cuda_ms(lambda: extras_trace(
+            kerr, riaf, freqs, al, th, 4000, False, driver=True,
+            pass1_steps=64), 1)
+        single = extras_trace(kerr, riaf, freqs, al, th, 4000, True)
+        g = extras_compare(rk, rp)
+        g.update(ms=k_ms, plain_ms=p_ms, bitwise_equal=extras_bitwise(
+            single, rk))
+        drv[label] = g
+        extras_gate(f"phase 12 {label} driver", g, gap11[label])
+        print(f"  {label} driver, {VOL_RAYS} random rays, pass1_steps 64, "
+              f"kernel vs plain loop: {json.dumps(g)}", flush=True)
+        require(g["bitwise_equal"], f"phase 12 {label} driver differs "
+                f"from the single pass")
+    del al12, th12, rk, rp
+
+    # -- 13. the four paths through the entry points ----------------------
+    cfg = RenderConfig()
+    paths = {label: riaf for label, (riaf, _f) in scene_forms().items()}
+    freqs3 = scene_forms()["spectral 3-band"][1]
+    counters = (vk.trace_rays_volumetric_cuda, vk.trace_rays_aux_cuda,
+                kk.trace_rays_volumetric_two_pass,
+                kk.trace_rays_spectral_two_pass,
+                kerr_trace.trace_rays_volumetric,
+                kerr_trace.trace_rays_spectral, kerr_trace.trace_rays_aux)
+    launches = {"volumetric": 0, "spectral": 0, "vol_driver": 0,
+                "spec_driver": 0}
+    totals = {}
+    for label, riaf in paths.items():
+        spectral = label.startswith("spectral")
+        for c in counters:
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+
+        def render():
+            if spectral:
+                return volumetric.render_volumetric_spectrum(
+                    scene, dim, freqs3, cfg, riaf, device="cuda")
+            return volumetric.render_volumetric(scene, dim, cfg, riaf,
+                                                device="cuda")
+        img, st = render()                                   # warmup
+        runs = []
+        for _ in range(3):
+            img, st = render()
+            runs.append(dict(st["timings"]))
+        best = max(st["traced_rays"] / t["precompute"] for t in runs)
+        n_kernel = (vk.trace_rays_aux_cuda if spectral
+                    else vk.trace_rays_volumetric_cuda).launches
+        n_driver = (kk.trace_rays_spectral_two_pass if spectral
+                    else kk.trace_rays_volumetric_two_pass).launches
+        n_plain = sum(c.launches for c in counters[4:])
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        launches["spectral" if spectral else "volumetric"] += n_kernel
+        launches["spec_driver" if spectral else "vol_driver"] += n_driver
+        row = dict(kernel_launches=n_kernel, driver_calls=n_driver,
+                   plain_loop_calls=n_plain, best_rays_per_s=best,
+                   peak_mib=peak, captured=st["captured"],
+                   integrator_steps=st["integrator_steps"],
+                   timings=runs)
+        require(n_kernel == 8 and n_driver == 4 and n_plain == 0,
+                f"{label}: {n_kernel} kernel launches, {n_driver} driver "
+                f"calls, {n_plain} plain calls")
+        require(st["traced_rays"] == dim[0] * dim[1]
+                and bool(torch.isfinite(img).all())
+                and float(img.min()) >= 0.0 and float(img.max()) <= 1.0,
+                f"{label}: bad image")
+        em = st["emission"]
+        if spectral:
+            flux, rad = st["flux"], st["mean_radius_rad"]
+            row.update(flux=flux.tolist(), mean_radius_rad=rad.tolist())
+            require(flux[1] > 2.0 * flux[0] and flux[1] > 2.0 * flux[2]
+                    and rad[0] > rad[1] > rad[2],
+                    f"{label}: no SSA turnover: flux {flux}, radii {rad}")
+        else:
+            h = dim[1] // 2
+            left, right = em[:, 1:h].sum(), em[:, h + 1:].sum()
+            row.update(emission_total=st["emission_total"],
+                       half_ratio=float(max(left, right)
+                                        / max(min(left, right), 1e-30)),
+                       tau_max=st["tau_max"])
+            totals[label] = st["emission_total"]
+            require(np.isfinite(em).all() and st["emission_total"] > 0,
+                    f"{label}: emission not finite and positive")
+        print(f"{label} {dim[0]}^2: {json.dumps(row)}; best {best:,.0f} "
+              f"rays/s on {card}", flush=True)
+        if label == "volumetric thin":
+            require(row["half_ratio"] > 2.0,
+                    f"no Doppler crescent: half ratio {row['half_ratio']}")
+    require(totals["volumetric absorbed"] < totals["volumetric thin"],
+            f"absorbed emission {totals['volumetric absorbed']} is not "
+            f"below the thin {totals['volumetric thin']}")
+
+    d64 = VOL_CHECK_DIM
+    og, sg = volumetric.render_volumetric(scene, d64, cfg, device="cuda")
+    oc, sc = volumetric.render_volumetric(scene, d64, cfg, device="cpu")
+    mask_agree = float(((sg["emission"] > 0) == (sc["emission"] > 0)).mean())
+    d = float((og.cpu() - oc).abs().median())
+    print(f"volumetric check, 64^2 card vs CPU: emission masks agree "
+          f"{mask_agree:.4f}, median |d image| {d:.3e}", flush=True)
+    require(mask_agree >= 0.99 and d < 1e-4,
+            f"64^2 volumetric card vs CPU: masks {mask_agree}, median {d}")
+    riaf3 = paths["spectral 3-band"]
+    og, sg = volumetric.render_volumetric_spectrum(scene, d64, freqs3, cfg,
+                                                   riaf3, device="cuda")
+    oc, sc = volumetric.render_volumetric_spectrum(scene, d64, freqs3, cfg,
+                                                   riaf3, device="cpu")
+    masks = [float(((sg["emission"][b] > 0) == (sc["emission"][b] > 0))
+                   .mean()) for b in range(len(freqs3))]
+    meds = [float((og[b].cpu() - oc[b]).abs().median())
+            for b in range(len(freqs3))]
+    print(f"spectral check, 64^2 card vs CPU, per band: emission masks "
+          f"agree {masks}, median |d image| {meds}", flush=True)
+    require(min(masks) >= 0.99 and max(meds) < 1e-4,
+            f"64^2 spectral card vs CPU: masks {masks}, medians {meds}")
+
+    thin, spec = g11["thin"], g11["spectral 3-band"]
+    return [{
+        "name": "kerr_dp45_extras", "route": "cuda", "source": VOL_SOURCE,
+        "replaces": f"{VOL_JAX}:53", "launches": launches["volumetric"],
+        "max_abs_err": thin["max_abs_em"], "ms": thin["ms"],
+        "plain_ms": thin["plain_ms"]}, {
+        "name": "trace_rays_volumetric_two_pass", "route": "cuda",
+        "source": VOL_DRIVERS, "replaces": f"{VOL_JAX}:209",
+        "launches": launches["vol_driver"],
+        "max_abs_err": drv["thin"]["max_abs_em"],
+        "ms": drv["thin"]["ms"], "plain_ms": drv["thin"]["plain_ms"]}, {
+        "name": "kerr_dp45_extras_spectral", "route": "cuda",
+        "source": VOL_SOURCE, "replaces": f"{VOL_JAX}:276",
+        "launches": launches["spectral"], "max_abs_err": spec["max_abs_em"],
+        "ms": spec["ms"], "plain_ms": spec["plain_ms"]}, {
+        "name": "trace_rays_spectral_two_pass", "route": "cuda",
+        "source": VOL_DRIVERS, "replaces": f"{VOL_JAX}:476",
+        "launches": launches["spec_driver"],
+        "max_abs_err": drv["spectral 3-band"]["max_abs_em"],
+        "ms": drv["spectral 3-band"]["ms"],
+        "plain_ms": drv["spectral 3-band"]["plain_ms"]}]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -278,9 +733,8 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.2f} s -> {_build.library_path().name}",
           flush=True)
-    for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    for name, regs, spill in ptxas_report(lib.build_log):
+        print(f"  ptxas: {name}: {regs} registers; {spill}", flush=True)
 
     # -- 3. kernel vs plain version ---------------------------------------
     metric = Kerr(M=1.0, a=0.9)
@@ -653,6 +1107,9 @@ def main() -> int:
     require(mask_agree >= 0.99 and d64 < 1e-3,
             f"64^2 disk card vs CPU: masks {mask_agree:.4f}, median {d64}")
 
+    # -- 11-13. the volumetric and spectral paths ------------------------
+    vol_kernels = volumetric_phases(dev, card)
+
     print(json.dumps({"kernels": [{
         "name": "kerr_dp45", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches,
@@ -674,7 +1131,8 @@ def main() -> int:
         "name": "trace_rays_kerr_two_pass", "route": "cuda",
         "source": DRIVER_SOURCE, "replaces": f"{JAX_KERNELS}:257",
         "launches": launches_k2, "max_abs_err": g_k2["max_abs"],
-        "ms": kerr_row["two_pass_ms"], "plain_ms": plain2_ms}]}),
+        "ms": kerr_row["two_pass_ms"], "plain_ms": plain2_ms}]
+        + vol_kernels}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

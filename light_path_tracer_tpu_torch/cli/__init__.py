@@ -8,13 +8,15 @@ Usage:
   python -m light_path_tracer_tpu_torch lens --image src.png --output l.png
   python -m light_path_tracer_tpu_torch disk --a 0.9 --size 1024 --output d.png
   python -m light_path_tracer_tpu_torch disk --a 0.9 --size 64 --device cpu
+  python -m light_path_tracer_tpu_torch volumetric --a 0.9 --theta-obs 80 --fov-v 16 --size 1024
+  python -m light_path_tracer_tpu_torch volumetric --size 32 --device cpu --freqs 0.1,1,10
 """
 
 from __future__ import annotations
 
 import argparse
 
-from light_path_tracer_tpu_torch.cli import disk, lens, shadow
+from light_path_tracer_tpu_torch.cli import disk, lens, shadow, volumetric
 
 
 def build_parser():
@@ -25,6 +27,7 @@ def build_parser():
     disk.register(sub)
     lens.register(sub)
     shadow.register(sub)
+    volumetric.register(sub)
     return parser
 
 

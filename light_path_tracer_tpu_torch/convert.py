@@ -1,7 +1,7 @@
 """Carry the JAX package's state into this package.
 
-The tracer has no weights: a scene, a render configuration, a disk
-configuration and the metric's parameters are its whole state. These functions read the JAX
+The tracer has no weights: a scene, a render configuration, a disk or
+hot-flow configuration and the metric's parameters are its whole state. These functions read the JAX
 package's frozen dataclasses field by field, as plain Python floats, ints
 and strings, and build this package's objects from them. They import
 nothing of JAX; any object with the same fields works.
@@ -49,6 +49,14 @@ def disk_config_from_jax(disk):
     from light_path_tracer_tpu_torch.disk import DiskConfig
     return DiskConfig(**{f.name: getattr(disk, f.name)
                          for f in dataclasses.fields(DiskConfig)})
+
+
+def riaf_config_from_jax(riaf):
+    """light_path_tracer_tpu.volumetric.RIAFConfig -> this package's
+    RIAFConfig, field by field."""
+    from light_path_tracer_tpu_torch.volumetric import RIAFConfig
+    return RIAFConfig(**{f.name: getattr(riaf, f.name)
+                         for f in dataclasses.fields(RIAFConfig)})
 
 
 def metric_from_jax(metric):

@@ -21,8 +21,8 @@ its plain PyTorch loop on the CPU. The emission and the tone map are
 plain PyTorch on the same device. The ISCO is host NumPy.
 
 Not ported yet (they raise, see ROADMAP.md): tilted and warped disks,
-the crossing-time recorder, charged (Kerr-Newman) and deformed (eps3)
-spacetimes, a boosted camera, the decomposed, frame, AA, composite,
+the crossing-time recorder, charged (Kerr-Newman) spacetimes, a boosted
+camera, the decomposed, frame, AA, composite,
 multi-disk and multi-host renders, and the hot-spot and texture patterns.
 """
 
@@ -43,7 +43,8 @@ from light_path_tracer_tpu_torch.utils.config import RenderConfig, SceneConfig
 from light_path_tracer_tpu_torch.utils.timing import StageTimer
 
 __all__ = ["DiskConfig", "DiskTraceResult", "r_isco", "disk_temperature",
-           "keplerian_redshift", "trace_disk_rays", "disk_emission",
+           "keplerian_omega", "keplerian_redshift",
+           "covariant_tphi_components", "trace_disk_rays", "disk_emission",
            "render_disk"]
 
 
@@ -76,14 +77,20 @@ class DiskConfig:
 
 
 def _scene_metric(scene: SceneConfig):
-    """Kerr of the scene (a = 0 included); charged and deformed scenes
-    raise."""
+    """Kerr of the scene (a = 0 included), for the disk and volumetric
+    renders. A deformed scene raises the JAX package's ValueError (the
+    orbital dynamics are Kerr/charged closed forms); a charged one is not
+    ported yet."""
     if scene.eps3:
-        raise _not_ported("the disk render of a Johannsen-Psaltis "
-                          "spacetime (eps3 != 0)")
+        raise ValueError("this path is not wired for Johannsen-Psaltis "
+                         "(eps3 != 0): disk orbital dynamics (ISCO, "
+                         "Omega, redshift) are Kerr/charged closed "
+                         "forms and sequences trace (Traced)Kerr. "
+                         "Deformed metrics support shadow/lens/"
+                         "magnification/AA/trajectory surfaces.")
     if scene.Q:
-        raise _not_ported("the disk render of a charged spacetime "
-                          "(Q != 0, Kerr-Newman)")
+        raise _not_ported("a charged spacetime (Q != 0, Kerr-Newman) in "
+                          "the disk and volumetric renders")
     return Kerr(M=scene.M, a=scene.a)
 
 
@@ -157,20 +164,13 @@ def keplerian_redshift(M, a, r_c, xi, prograde: bool = True,
     with charge, +-x / (r^2 +- a x), x = sqrt(M r - Q^2), and the
     equatorial covariant components gain (2Mr - Q^2)/r^2.
     """
+    omega = keplerian_omega(M, a, r_c, prograde, Q=Q)
     if Q:
-        x = torch.sqrt(torch.clamp(M * r_c - Q * Q, min=0.0))
-        s = 1.0 if prograde else -1.0
-        omega = s * x / (r_c * r_c + s * a * x)
         w = (2.0 * M * r_c - Q * Q) / (r_c * r_c)
         g_tt = -(1.0 - w)
         g_tphi = -a * w
         g_phiphi = r_c * r_c + a * a + a * a * w
     else:
-        sqrt_m = math.sqrt(M)
-        if prograde:
-            omega = sqrt_m / (r_c ** 1.5 + a * sqrt_m)
-        else:
-            omega = -sqrt_m / (r_c ** 1.5 - a * sqrt_m)
         g_tt = -(1.0 - 2.0 * M / r_c)
         g_tphi = -2.0 * M * a / r_c
         g_phiphi = r_c * r_c + a * a + 2.0 * M * a * a / r_c
@@ -178,6 +178,46 @@ def keplerian_redshift(M, a, r_c, xi, prograde: bool = True,
     u_t = 1.0 / torch.sqrt(torch.clamp(norm, min=1e-12))
     g = 1.0 / (u_t * (1.0 - omega * xi))
     return torch.clamp(g, min=0.0)
+
+
+def covariant_tphi_components(metric, r, c):
+    """Covariant Boyer-Lindquist (g_tt, g_tphi, g_phiphi) off the
+    equatorial plane at (r, cos theta = c), batched over tensors r, c:
+    the t-phi block of a circular emitter's redshift (volumetric flows).
+    Kerr (W = 2 M r); the charged form is not ported."""
+    M, a = float(metric.M), float(metric.a)
+    s2 = torch.clamp(1.0 - c * c, min=1e-12)
+    Sigma = r * r + a * a * c * c
+    W = 2.0 * M * r
+    ra2 = r * r + a * a
+    g_tt = -(1.0 - W / Sigma)
+    g_tph = -a * W * s2 / Sigma
+    g_pp = (ra2 + a * a * W * s2 / Sigma) * s2
+    return g_tt, g_tph, g_pp
+
+
+def keplerian_omega(M, a, r, prograde: bool = True, Q: float = 0.0):
+    """Keplerian angular velocity +-sqrt(M) / (r^1.5 +- a sqrt(M));
+    charged: +-x / (r^2 +- a x), x = sqrt(M r - Q^2). r is a tensor or a
+    Python float (then the result is a float)."""
+    if isinstance(r, torch.Tensor):
+        sqrt, clamp = torch.sqrt, torch.clamp
+    else:
+        r = float(r)
+
+        def sqrt(x):
+            return math.sqrt(x)
+
+        def clamp(x, min):
+            return max(x, min)
+    if Q:
+        x = sqrt(clamp(M * r - Q * Q, min=0.0))
+        s = 1.0 if prograde else -1.0
+        return s * x / (r * r + s * a * x)
+    sqrt_m = math.sqrt(M)
+    if prograde:
+        return sqrt_m / (r ** 1.5 + a * sqrt_m)
+    return -sqrt_m / (r ** 1.5 - a * sqrt_m)
 
 
 def _r_in_of(disk: DiskConfig, M, a) -> float:

@@ -4,7 +4,8 @@ The sources in `light_path_tracer_tpu_torch/csrc/*.cu` have a plain C
 interface. At first use each is compiled by its own `nvcc` for Hopper
 (`sm_90a`), all at once, and the objects are linked into one shared
 library under `build/light_path_tracer_tpu_torch/` beside the package,
-named by a hash of the sources and flags, and loaded with `ctypes`. A later process with the same sources loads the existing file.
+named by a hash of the sources, headers and flags, and loaded with
+`ctypes`. A later process with the same sources loads the existing file.
 Nothing is compiled when a module is imported, and a missing `nvcc` or a
 failed build raises with the compiler's output.
 """
@@ -56,9 +57,10 @@ def _sources():
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags
+    lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"lpt_kernels_{h.hexdigest()[:16]}.so"
@@ -107,6 +109,10 @@ def _declare(lib):
     fn = lib.lpt_kerr_dp45_disk
     fn.argtypes = ([_P] * 14 + [_I] * 3 + [_F] * 6 + [_I] + [_F] * 9 + [_I]
                    + [_P])
+    fn.restype = _I
+    fn = lib.lpt_kerr_dp45_extras
+    fn.argtypes = ([_I] * 2 + [_P] * 9 + [_I] + [_F] * 6 + [_I] + [_F] * 7
+                   + [_I, ctypes.c_uint, _F, _P, _P])
     fn.restype = _I
     fn = lib.lpt_orbit_rk4
     fn.argtypes = [_P] * 6 + [_I] * 2 + [_F] * 13 + [_I] * 2 + [_P]

@@ -16,9 +16,13 @@ loop (`trace_rays_kerr_plain`, `trace_disk_rays_plain`, ops/kerr_trace.py),
 because there is no kernel to run there; the tests and the chip smoke
 test compare the two.
 
-`trace_rays_kerr_two_pass` and `trace_disk_rays_two_pass` keep the JAX
-drivers' semantics on either device: a first pass capped at `pass1_steps`
-attempts per ray, then the first `slots` rays still running, in index
+`trace_rays_kerr_two_pass` and `trace_disk_rays_two_pass`, and the
+drivers over the extras kernel (`volumetric_kernel.py`):
+`trace_rays_volumetric_two_pass`, `trace_rays_aux_two_pass` and
+`trace_rays_spectral_two_pass` (pass 1 capped at 4,096 attempts, 1,024
+slots), keep the JAX drivers' semantics on either device: a first pass
+capped at `pass1_steps` attempts per ray, then the first `slots` rays
+still running, in index
 order, re-traced from scratch with the full budget and scattered back;
 rays beyond `slots` keep their first-pass result, and n_steps is the sum
 of both passes. The kernel computes every ray on its own thread, so the
@@ -44,11 +48,13 @@ from light_path_tracer_tpu_torch.ops.kerr_trace import (
     trace_disk_rays_kerr as trace_disk_rays_plain)
 from light_path_tracer_tpu_torch.ops.kerr_trace import (
     trace_rays_kerr as trace_rays_kerr_plain)
-from light_path_tracer_tpu_torch.ops.types import DiskTraceResult, TraceResult
+from light_path_tracer_tpu_torch.ops.types import TraceResult
 
 __all__ = ["trace_rays_kerr_cuda", "trace_rays_kerr_plain",
            "trace_disk_rays_cuda", "trace_disk_rays_plain",
-           "trace_rays_kerr_two_pass", "trace_disk_rays_two_pass"]
+           "trace_rays_kerr_two_pass", "trace_disk_rays_two_pass",
+           "trace_rays_volumetric_two_pass", "trace_rays_aux_two_pass",
+           "trace_rays_spectral_two_pass"]
 
 # Crossing slots the disk variant is compiled for (csrc/kerr_dp45.cu).
 MAX_KERNEL_HITS = 4
@@ -236,6 +242,31 @@ def _scatter(a1, a2, dest):
     return out[:-1]
 
 
+def _merge(res1, res2, dest):
+    """res1 with the re-traced rays' fields from res2 (two results of one
+    NamedTuple type, tuple fields taken element by element); n_steps
+    counts both passes."""
+    fields = []
+    for name, a, b in zip(res1._fields, res1, res2):
+        if name == "n_steps":
+            fields.append(a + b)
+        elif isinstance(a, tuple):
+            fields.append(tuple(_scatter(x, y, dest) for x, y in zip(a, b)))
+        else:
+            fields.append(_scatter(a, b, dest))
+    return type(res1)(*fields)
+
+
+def _two_pass(trace, pass1_steps, max_steps, slots):
+    """The recipe of every driver below. trace(pick, steps, **kw) is one
+    single pass, capped at `steps` attempts, over pick(t) of each per-ray
+    input t; the first pass also returns the mask of rays to re-trace."""
+    res1, unconv = trace(lambda t: t, pass1_steps, return_unconverged=True)
+    idx, dest = _stragglers(unconv, slots)
+    res2 = trace(lambda t: t[idx], max_steps)
+    return _merge(res1, res2, dest)
+
+
 def trace_rays_kerr_two_pass(metric, r_obs, alphas, thetas, theta_obs,
                              axis_refine, lambda_max: float,
                              max_steps: int = 200000,
@@ -249,20 +280,10 @@ def trace_rays_kerr_two_pass(metric, r_obs, alphas, thetas, theta_obs,
     smoke test also drives the plain loop through it)."""
     trace_rays_kerr_two_pass.launches += 1
     trace_fn = trace_fn or trace_rays_kerr_cuda
-    res1, unconv = trace_fn(
-        metric, r_obs, alphas, thetas, theta_obs, axis_refine, lambda_max,
-        pass1_steps, precision=precision, formulation=formulation,
-        return_unconverged=True)
-    idx, dest = _stragglers(unconv, slots)
-    res2 = trace_fn(
-        metric, r_obs, alphas[idx], thetas[idx], theta_obs,
-        axis_refine[idx], lambda_max, max_steps, precision=precision,
-        formulation=formulation)
-    return TraceResult(
-        _scatter(res1.final_alpha, res2.final_alpha, dest),
-        _scatter(res1.n_half_orbits, res2.n_half_orbits, dest),
-        _scatter(res1.status, res2.status, dest),
-        res1.n_steps + res2.n_steps)
+    return _two_pass(lambda pick, steps, **kw: trace_fn(
+        metric, r_obs, pick(alphas), pick(thetas), theta_obs,
+        pick(axis_refine), lambda_max, steps, precision=precision,
+        formulation=formulation, **kw), pass1_steps, max_steps, slots)
 
 
 # Driver calls, so a run can show which path it took.
@@ -281,29 +302,92 @@ def trace_disk_rays_two_pass(metric, r_obs, alphas, thetas, theta_obs,
     trace_disk_rays_cuda by default."""
     trace_disk_rays_two_pass.launches += 1
     trace_fn = trace_fn or trace_disk_rays_cuda
-    res1, unconv = trace_fn(
-        metric, r_obs, alphas, thetas, theta_obs, lambda_max, pass1_steps,
-        disk_plane, max_disk_hits, precision=precision,
-        formulation=formulation, return_unconverged=True,
-        record_momentum=record_momentum)
-    idx, dest = _stragglers(unconv, slots)
-    res2 = trace_fn(
-        metric, r_obs, alphas[idx], thetas[idx], theta_obs, lambda_max,
-        max_steps, disk_plane, max_disk_hits, precision=precision,
-        formulation=formulation, record_momentum=record_momentum)
-
-    def rows(a, b):
-        return tuple(_scatter(x, y, dest) for x, y in zip(a, b))
-
-    return DiskTraceResult(
-        _scatter(res1.status, res2.status, dest),
-        _scatter(res1.n_hits, res2.n_hits, dest),
-        rows(res1.r_hits, res2.r_hits), res1.xi,
-        res1.n_steps + res2.n_steps,
-        _scatter(res1.final_alpha, res2.final_alpha, dest),
-        _scatter(res1.n_half, res2.n_half, dest),
-        rows(res1.phi_hits, res2.phi_hits), res1.xi_hits,
-        rows(res1.pr_hits, res2.pr_hits), rows(res1.pth_hits, res2.pth_hits))
+    return _two_pass(lambda pick, steps, **kw: trace_fn(
+        metric, r_obs, pick(alphas), pick(thetas), theta_obs, lambda_max,
+        steps, disk_plane, max_disk_hits, precision=precision,
+        formulation=formulation, record_momentum=record_momentum, **kw),
+        pass1_steps, max_steps, slots)
 
 
 trace_disk_rays_two_pass.launches = 0
+
+
+def trace_rays_volumetric_two_pass(metric, r_obs, alphas, thetas,
+                                   theta_obs, emission_fn,
+                                   lambda_max: float,
+                                   max_steps: int = 200000,
+                                   precision: str = "fast",
+                                   method: str = "dp45", absorption_fn=None,
+                                   pass1_steps: int = 4096,
+                                   slots: int = 1024, sat_window: int = 0,
+                                   trace_fn=None):
+    """The two-pass recipe over the volumetric trace: the re-trace
+    restarts every path integral from lambda = 0, so the merge is exact.
+    Rays ended by the saturation or frozen-state exit read as finished
+    and are not re-traced. Returns VolumetricResult. trace_fn: the
+    single-pass tracer, volumetric_kernel.trace_rays_volumetric_cuda by
+    default."""
+    from light_path_tracer_tpu_torch.ops.cuda.volumetric_kernel import (
+        trace_rays_volumetric_cuda)
+    trace_rays_volumetric_two_pass.launches += 1
+    trace_fn = trace_fn or trace_rays_volumetric_cuda
+    return _two_pass(lambda pick, steps, **kw: trace_fn(
+        metric, r_obs, pick(alphas), pick(thetas), theta_obs, emission_fn,
+        lambda_max, steps, precision=precision, method=method,
+        absorption_fn=absorption_fn, sat_window=sat_window, **kw),
+        pass1_steps, max_steps, slots)
+
+
+trace_rays_volumetric_two_pass.launches = 0
+
+
+def trace_rays_aux_two_pass(metric, r_obs, alphas, thetas, theta_obs,
+                            transfer_fn, n_extras: int, aux,
+                            lambda_max: float, max_steps: int = 200000,
+                            precision: str = "fast", method: str = "dp45",
+                            pass1_steps: int = 4096, slots: int = 1024,
+                            sat_window: int = 0, sat_monitor: tuple = (),
+                            trace_fn=None):
+    """The two-pass recipe over the generic coupled-extras trace (the
+    re-traced rays take their aux values along). Returns ExtrasResult.
+    trace_fn: the single-pass tracer,
+    volumetric_kernel.trace_rays_aux_cuda by default."""
+    from light_path_tracer_tpu_torch.ops.cuda.volumetric_kernel import (
+        trace_rays_aux_cuda)
+    trace_rays_aux_two_pass.launches += 1
+    trace_fn = trace_fn or trace_rays_aux_cuda
+    aux = tuple(aux) if aux is not None else ()
+    return _two_pass(lambda pick, steps, **kw: trace_fn(
+        metric, r_obs, pick(alphas), pick(thetas), theta_obs, transfer_fn,
+        n_extras, tuple(pick(a) for a in aux), lambda_max, steps,
+        precision=precision, method=method, sat_window=sat_window,
+        sat_monitor=sat_monitor, **kw), pass1_steps, max_steps, slots)
+
+
+trace_rays_aux_two_pass.launches = 0
+
+
+def trace_rays_spectral_two_pass(metric, r_obs, alphas, thetas, theta_obs,
+                                 transfer_fn, n_bands: int,
+                                 lambda_max: float, max_steps: int = 200000,
+                                 precision: str = "fast",
+                                 method: str = "dp45",
+                                 pass1_steps: int = 4096, slots: int = 1024,
+                                 sat_window: int = 0,
+                                 sat_monitor: tuple = None, trace_fn=None):
+    """The two-pass recipe over the spectral trace; returns
+    SpectralResult. sat_monitor defaults to the n bands. trace_fn: the
+    single-pass spectral tracer, volumetric_kernel.trace_rays_spectral_cuda
+    by default."""
+    from light_path_tracer_tpu_torch.ops.cuda.volumetric_kernel import (
+        trace_rays_spectral_cuda)
+    trace_rays_spectral_two_pass.launches += 1
+    trace_fn = trace_fn or trace_rays_spectral_cuda
+    return _two_pass(lambda pick, steps, **kw: trace_fn(
+        metric, r_obs, pick(alphas), pick(thetas), theta_obs, transfer_fn,
+        n_bands, lambda_max, steps, precision=precision, method=method,
+        sat_window=sat_window, sat_monitor=sat_monitor, **kw),
+        pass1_steps, max_steps, slots)
+
+
+trace_rays_spectral_two_pass.launches = 0

@@ -16,11 +16,12 @@ stage), then a per-lane masked accept/reject:
     interpolant; FSAL reuses stage 7 as the next stage 1 (not after an
     event step); growth h *= 5 (tiny error) or min(5, 0.9 err^-0.2).
 
-The state is a (5, N) tensor, so the JAX package's tuple helpers become
-single tensor operations; each element still sees the same arithmetic in
-the same order. Finished lanes are frozen by masking, and every lane
-counts its own attempts, so the result of a lane does not depend on the
-rest of the batch.
+The state is a (5, N) tensor, (5 + n_extras, N) with error-controlled
+path-integral components (the volumetric and spectral transfer), so the
+JAX package's tuple helpers become single tensor operations; each element
+still sees the same arithmetic in the same order. Finished lanes are
+frozen by masking, and every lane counts its own attempts, so the result
+of a lane does not depend on the rest of the batch.
 """
 
 from __future__ import annotations
@@ -31,7 +32,9 @@ import torch
 import torch.nn.functional as F
 
 from light_path_tracer_tpu_torch.ops import tableau as tb
-from light_path_tracer_tpu_torch.ops.types import DiskTraceResult, TraceResult
+from light_path_tracer_tpu_torch.ops.types import (
+    DiskTraceResult, ExtrasResult, SpectralResult, TraceResult,
+    VolumetricResult)
 
 RUNNING = 2
 ESCAPED = 1
@@ -120,7 +123,7 @@ def _axpy(y, d):
 
 
 def _all_finite(y):
-    """(N,) mask: every component of the (5, N) state is finite."""
+    """(N,) mask: every component of the (C, N) state is finite."""
     return torch.isfinite(y).all(dim=0)
 
 
@@ -183,12 +186,27 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
                    method="dp45", disk_plane=None, max_disk_hits=2,
                    record_momentum=False, disk_normal=None,
                    extra_disks=None, extra_rhs=None, record_time=False,
-                   sat_window=0):
+                   sat_window=0, sat_monitor=(), sat_r_max=None):
     """The masked whole-batch adaptive DP45 loop.
 
-    y0: (5, N) state; p_t, p_phi, atol, rtol, r_plunge: (N,); r_capture,
-    r_escape, h_min: 0-dim tensors. Returns (y_final, status, lambda,
-    attempts) with `attempts` the per-ray int32 attempt count.
+    y0: (5, N) state, or (5 + n_extras, N) with extra_rhs; p_t, p_phi,
+    atol, rtol, r_plunge: (N,); r_capture, r_escape, h_min: 0-dim
+    tensors. Returns (y_final, status, lambda, attempts) with `attempts`
+    the per-ray int32 attempt count.
+
+    extra_rhs(y, p_t, p_phi) -> tuple of n_extras (N,) derivatives of
+    the extra components (y is the whole state): path integrals such as
+    the volumetric emission, integrated by the same embedded pair under
+    the same error control as the geodesic (the error norm runs over
+    every component, events shorten them to the event point).
+
+    sat_window > 0 adds the emission-saturation and frozen-state exits:
+    a lane whose monitored extras y[5 + i], i in sat_monitor, have not
+    changed bitwise for sat_window consecutive attempts (accepted or
+    rejected) while r <= sat_r_max, or whose whole state has not changed
+    for sat_window attempts anywhere, ends with lambda = lambda_max: it
+    reads as budget-complete (still RUNNING) and the two-pass drivers do
+    not re-trace it.
 
     disk_plane=(r_in, r_out, theta_plane, opaque) adds the crossing
     recorder and a fifth return value, the dict of hit records: "n" (N,)
@@ -203,8 +221,8 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
     still running at its first such crossing, as ESCAPED.
 
     The mu chart, DOP853, tilted or warped planes (disk_normal), further
-    planes (extra_disks), extra state components, the time recorder and
-    the saturation exit are later slices of the port.
+    planes (extra_disks) and the time recorder are later slices of the
+    port.
     """
     if formulation != "theta":
         raise _not_ported(f"formulation={formulation!r}")
@@ -214,26 +232,37 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
         raise _not_ported("tilted or warped disk planes (disk_normal)")
     if extra_disks:
         raise _not_ported("further disk planes (extra_disks)")
-    if extra_rhs is not None:
-        raise _not_ported("extra state components (extra_rhs)")
     if record_time:
         raise _not_ported("record_time")
-    if sat_window:
-        raise _not_ported("the saturation exit (sat_window)")
+    if sat_window and not sat_monitor:
+        raise ValueError("sat_window > 0 needs a non-empty sat_monitor "
+                         "(with nothing monitored every in-band lane "
+                         "would 'saturate')")
 
     dtype = y0.dtype
     lam_max = torch.full((), float(lambda_max), dtype=dtype,
                          device=y0.device)
 
-    def rhs(y):
-        return metric.rhs5(y, p_t, p_phi)
+    if extra_rhs is None:
+        def rhs(y):
+            return metric.rhs5(y, p_t, p_phi)
+    else:
+        def rhs(y):
+            return torch.cat((metric.rhs5(y[:5], p_t, p_phi),
+                              torch.stack(tuple(extra_rhs(y, p_t, p_phi)))))
 
     y = y0
+    n_comp = y0.shape[0]
     k1 = rhs(y)
     h = torch.full_like(y[0], h_init)
     lam = torch.zeros_like(y[0])
     status = status0
     attempts = torch.zeros_like(status0)
+    if sat_window:
+        sat_cnt = torch.zeros_like(status0)
+        frz_cnt = torch.zeros_like(status0)
+        sat_r_band = torch.full((), float(sat_r_max), dtype=dtype,
+                                device=y0.device)
 
     if disk_plane is not None:
         r_in, r_out, theta_plane, opaque = disk_plane
@@ -281,14 +310,14 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
             mag = mag + h_eff * torch.maximum(torch.abs(k1), torch.abs(k7))
         scales = atol + rtol * mag
 
-        # -- embedded error norm over the 5 components --
+        # -- embedded error norm over every component --
         err = _wsum(h_eff, [k1, k3, k4, k5, k6, k7],
                     [tb.E1, tb.E3, tb.E4, tb.E5, tb.E6, tb.E7])
         ratio = torch.where(finite_ok, err / scales, torch.zeros_like(err))
         err_sq = torch.zeros_like(h_eff)
-        for i in range(5):
+        for i in range(n_comp):
             err_sq = err_sq + ratio[i] * ratio[i]
-        err_norm = torch.sqrt(err_sq / 5.0)
+        err_norm = torch.sqrt(err_sq / float(n_comp))
 
         accept = running & finite_ok & (err_norm <= 1.0)
         reject = running & finite_ok & (err_norm > 1.0)
@@ -359,6 +388,7 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
             first_hit = in_disk & (hits["n"] == 1)
 
         # -- state/status update (masked) --
+        y_prev = y
         y = _select(accept, y_acc, y)
         # FSAL: stage 7 seeds the next step's stage 1 on plain accepts.
         k1 = _select(accept & ~event, k7, k1)
@@ -373,6 +403,24 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
             stop = first_hit & (status == RUNNING)
             y = _select(stop, y_cross, y)
             status = torch.where(stop, ESCAPED, status)
+        if sat_window:
+            # Saturation and frozen-state exits: count consecutive
+            # attempts, accepted or rejected, that left the monitored
+            # extras (resp. the whole state) bitwise unchanged. The
+            # measured grinder is a reject limit cycle that never
+            # accepts again, so counting accepted steps would never fire.
+            changed = torch.zeros_like(running)
+            for i in sat_monitor:
+                changed = changed | (y[5 + i] != y_prev[5 + i])
+            sat_cnt = torch.where(
+                running, torch.where(changed, 0, sat_cnt + 1), sat_cnt)
+            changed = changed | (y != y_prev).any(dim=0)
+            frz_cnt = torch.where(
+                running, torch.where(changed, 0, frz_cnt + 1), frz_cnt)
+            saturated = (running & (status == RUNNING)
+                         & (((sat_cnt >= sat_window) & (y[0] <= sat_r_band))
+                            | (frz_cnt >= sat_window)))
+            lam = torch.where(saturated, lam_max, lam)
         attempts = attempts + running.to(attempts.dtype)
         h = h_new
 
@@ -491,6 +539,187 @@ def trace_disk_rays_kerr(metric, r_obs, alphas, thetas, theta_obs,
 
 
 trace_disk_rays_kerr.launches = 0
+
+
+def saturation_r_max(metric) -> float:
+    """Radial band bound of the emission-saturation exit: 1.2 x the
+    outermost unstable spherical photon orbit. Only a lane inside the
+    band can be a trapped near-critical orbiter; outside it a no-change
+    streak is transit towards the source."""
+    return 1.2 * max(float(r) for r in metric.unstable_photon_radii())
+
+
+def _trace_extras(metric, r_obs, alphas, thetas, theta_obs, extra,
+                  n_extras, lambda_max, max_steps, precision, method,
+                  sat_window, sat_monitor):
+    """The coupled-extras trace shared by the volumetric, spectral and
+    aux entry points: base tolerances on every ray, no certain-plunge
+    exit (plunging photons collect emission down to the capture
+    surface), the extras starting at 0. Returns (y_f, status_f, lam_f,
+    attempts, p_t, p_phi)."""
+    dtype = alphas.dtype
+    tols = get_tols(dtype, precision)
+
+    def scalar(x):
+        return torch.full((), float(x), dtype=dtype, device=alphas.device)
+
+    y0, p_t, p_phi, invalid0 = metric.initial_conditions_5d(
+        r_obs, alphas, thetas, theta_obs)
+    y0 = torch.cat((torch.stack(y0),
+                    torch.zeros((n_extras,) + alphas.shape, dtype=dtype,
+                                device=alphas.device)))
+    status0 = torch.where(invalid0, INVALID, RUNNING).to(torch.int32)
+    y_f, status_f, lam_f, attempts = dp45_integrate(
+        metric, y0, p_t, p_phi, status0,
+        atol=torch.full_like(alphas, tols["atol"]),
+        rtol=torch.full_like(alphas, tols["rtol"]),
+        h_min=scalar(tols["h_min"]), tiny_err=tols["tiny_err"],
+        r_capture=scalar(metric.capture_radius()),
+        r_escape=scalar(float(r_obs) * 2.0),
+        lambda_max=lambda_max, h_init=_h_init_for(r_obs),
+        max_steps=max_steps, method=method, extra_rhs=extra,
+        sat_window=sat_window, sat_monitor=sat_monitor,
+        sat_r_max=saturation_r_max(metric) if sat_window else None)
+    return y_f, status_f, lam_f, attempts, p_t, p_phi
+
+
+def unconverged(status_f, lam_f, lambda_max):
+    """Rays the two-pass drivers re-trace: still RUNNING with lambda
+    budget left (the step cap stopped them). A saturation exit parks
+    lambda at lambda_max, so those rays read as finished."""
+    return (status_f == RUNNING) & (lam_f < lam_f.new_tensor(
+        float(lambda_max)))
+
+
+def extras_result(metric, p_t, p_phi, y_f, status_f, attempts):
+    """ExtrasResult from an extras trace's final (5 + n, N) state:
+    extras zeroed on lanes whose integration went INVALID (keyed off the
+    integration status, not the extraction's), angles by
+    finalize_angles. Shared by the plain loop and the CUDA wrapper."""
+    ok = status_f != INVALID
+    extras = tuple(torch.where(ok, e, torch.zeros_like(e))
+                   for e in y_f[5:].unbind(0))
+    final_alpha, n_half, status_out = finalize_angles(
+        metric, y_f[:5], p_t, p_phi, status_f)
+    return ExtrasResult(extras, final_alpha, n_half, status_out,
+                        warp_step_sum(attempts))
+
+
+def volumetric_result(res: ExtrasResult, absorbing: bool):
+    """VolumetricResult from the (I,) or (I, tau) ExtrasResult."""
+    em = res.extras[0]
+    tau = res.extras[1] if absorbing else torch.zeros_like(em)
+    return VolumetricResult(em, res.final_alpha, res.n_half_orbits,
+                            res.status, res.n_steps, tau)
+
+
+def spectral_result(res: ExtrasResult):
+    """SpectralResult from the (tau_hat, I_1..I_n) ExtrasResult."""
+    return SpectralResult(res.extras[1:], res.extras[0], res.final_alpha,
+                          res.n_half_orbits, res.status, res.n_steps)
+
+
+def trace_rays_volumetric(metric, r_obs, alphas, thetas, theta_obs,
+                          emission_fn, lambda_max: float,
+                          max_steps: int = 200000, precision: str = "fast",
+                          method: str = "dp45", absorption_fn=None,
+                          sat_window: int = 0,
+                          return_unconverged: bool = False):
+    """Trace rays accumulating a volumetric radiative-transfer integral;
+    returns VolumetricResult (with return_unconverged, also the mask of
+    rays the two-pass drivers re-trace).
+
+    emission_fn(y5, p_t, p_phi) -> per-lane emissivity weight is
+    integrated as a sixth state component. absorption_fn (optional)
+    -> the invariant opacity chi makes the transfer self-absorbed: the
+    state carries I and the optical depth tau from the camera, with
+    dI = exp(-max(tau, -30)) emission and dtau = chi (the floor bounds
+    exp(+|tau|) on unphysical RK stage probes). sat_window > 0 enables
+    the saturation exits monitoring I. The plain version of the CUDA
+    kernel's volumetric forms.
+    """
+    trace_rays_volumetric.launches += 1
+    if absorption_fn is None:
+        n_extras = 1
+
+        def extra(y, p_t, p_phi):
+            return (emission_fn(y[:5], p_t, p_phi),)
+    else:
+        n_extras = 2
+
+        def extra(y, p_t, p_phi):
+            return (torch.exp(-torch.clamp(y[6], min=-30.0))
+                    * emission_fn(y[:5], p_t, p_phi),
+                    absorption_fn(y[:5], p_t, p_phi))
+    y_f, status_f, lam_f, attempts, p_t, p_phi = _trace_extras(
+        metric, r_obs, alphas, thetas, theta_obs, extra, n_extras,
+        lambda_max, max_steps, precision, method, sat_window, (0,))
+    result = volumetric_result(
+        extras_result(metric, p_t, p_phi, y_f, status_f, attempts),
+        absorption_fn is not None)
+    if return_unconverged:
+        return result, unconverged(status_f, lam_f, lambda_max)
+    return result
+
+
+trace_rays_volumetric.launches = 0
+
+
+def trace_rays_spectral(metric, r_obs, alphas, thetas, theta_obs,
+                        transfer_fn, n_bands: int, lambda_max: float,
+                        max_steps: int = 200000, precision: str = "fast",
+                        method: str = "dp45", sat_window: int = 0,
+                        sat_monitor: tuple = None,
+                        return_unconverged: bool = False):
+    """Multi-frequency transfer: one trace carrying (tau_hat, I_1..I_n).
+
+    transfer_fn(y, p_t, p_phi) -> (d tau_hat, d I_1, ..., d I_n) reads
+    the whole state. sat_monitor lists the intensity extras the
+    saturation exit watches (default the n bands, extras 1..n). Returns
+    SpectralResult (with return_unconverged, also the re-trace mask).
+    """
+    trace_rays_spectral.launches += 1
+    if sat_monitor is None:
+        sat_monitor = tuple(range(1, 1 + n_bands))
+    y_f, status_f, lam_f, attempts, p_t, p_phi = _trace_extras(
+        metric, r_obs, alphas, thetas, theta_obs, transfer_fn,
+        1 + n_bands, lambda_max, max_steps, precision, method, sat_window,
+        sat_monitor)
+    result = spectral_result(
+        extras_result(metric, p_t, p_phi, y_f, status_f, attempts))
+    if return_unconverged:
+        return result, unconverged(status_f, lam_f, lambda_max)
+    return result
+
+
+trace_rays_spectral.launches = 0
+
+
+def trace_rays_aux(metric, r_obs, alphas, thetas, theta_obs, transfer_fn,
+                   n_extras: int, aux, lambda_max: float,
+                   max_steps: int = 200000, precision: str = "fast",
+                   method: str = "dp45", sat_window: int = 0,
+                   sat_monitor: tuple = (),
+                   return_unconverged: bool = False):
+    """Generic coupled-extras trace with per-ray auxiliary constants:
+    transfer_fn(y, p_t, p_phi, aux) -> n_extras derivatives, aux any
+    per-ray tensors the integrand reads as it reads p_t and p_phi.
+    Returns ExtrasResult (with return_unconverged, also the re-trace
+    mask)."""
+    trace_rays_aux.launches += 1
+
+    def extra(y, p_t, p_phi):
+        return transfer_fn(y, p_t, p_phi, aux)
+    y_f, status_f, lam_f, attempts, p_t, p_phi = _trace_extras(
+        metric, r_obs, alphas, thetas, theta_obs, extra, n_extras,
+        lambda_max, max_steps, precision, method, sat_window, sat_monitor)
+    result = extras_result(metric, p_t, p_phi, y_f, status_f, attempts)
+    if return_unconverged:
+        return result, unconverged(status_f, lam_f, lambda_max)
+    return result
+
+
+trace_rays_aux.launches = 0
 
 
 def finalize_angles(metric, y_f, p_t, p_phi, status_f):

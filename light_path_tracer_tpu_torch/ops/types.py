@@ -27,6 +27,53 @@ class TraceResult(NamedTuple):
     n_steps: torch.Tensor
 
 
+class VolumetricResult(NamedTuple):
+    """Per-ray volumetric radiative-transfer trace outcome
+    (`light_path_tracer_tpu.ops.types.VolumetricResult`, the same fields
+    in the same order).
+
+    emission is the path integral of the emissivity weight, integrated
+    as an error-controlled extra state component; 0 for lanes whose
+    integration went INVALID. With absorption it is the self-absorbed
+    integral of j g^p exp(-tau) and optical_depth the ray's total tau
+    (zeros when optically thin). final_alpha / n_half_orbits / status /
+    n_steps follow TraceResult.
+    """
+
+    emission: torch.Tensor       # (N,) float
+    final_alpha: torch.Tensor    # (N,) float
+    n_half_orbits: torch.Tensor  # (N,) int32
+    status: torch.Tensor         # (N,) int32
+    n_steps: torch.Tensor        # () int64
+    optical_depth: torch.Tensor  # (N,) float
+
+
+class SpectralResult(NamedTuple):
+    """Per-ray multi-frequency transfer outcome
+    (`light_path_tracer_tpu.ops.types.SpectralResult`): emission[i] is
+    band i's self-absorbed intensity, all bands from one trace sharing
+    the reduced optical depth tau_hat."""
+
+    emission: tuple              # n_bands x (N,) float
+    tau_hat: torch.Tensor        # (N,) float
+    final_alpha: torch.Tensor    # (N,) float
+    n_half_orbits: torch.Tensor  # (N,) int32
+    status: torch.Tensor         # (N,) int32
+    n_steps: torch.Tensor        # () int64
+
+
+class ExtrasResult(NamedTuple):
+    """Per-ray outcome of the generic coupled-extras trace
+    (`light_path_tracer_tpu.ops.types.ExtrasResult`): n error-controlled
+    path-integral components accumulated along each geodesic."""
+
+    extras: tuple                # n x (N,) float
+    final_alpha: torch.Tensor    # (N,) float
+    n_half_orbits: torch.Tensor  # (N,) int32
+    status: torch.Tensor         # (N,) int32
+    n_steps: torch.Tensor        # () int64
+
+
 class DiskTraceResult(NamedTuple):
     """Per-ray disk-mode trace output (`light_path_tracer_tpu.disk.
     DiskTraceResult`, the same fields in the same order).

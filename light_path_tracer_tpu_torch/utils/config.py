@@ -90,11 +90,13 @@ class RenderConfig:
     chunk_size: int | None = None
     sort_by_difficulty: bool = True    # chunked path only
     # Two-pass straggler retrace (ops/cuda/kerr_trace_kernel.py): "auto"
-    # is on for batches above 2M rays and for every disk trace.
+    # is on for batches above 2M rays and for every disk, volumetric and
+    # spectral trace. pass1_steps caps the shadow and disk first pass (the
+    # volumetric drivers keep the JAX package's 4096).
     two_pass: str | bool = "auto"
     pass1_steps: int = 512
-    # Emission-saturation early exit of the volumetric family (not
-    # ported yet).
+    # Emission-saturation and frozen-state exits of the volumetric
+    # family: attempts a ray may go without changing (0 = off).
     sat_window: int = 2048
     axis_refine_frac: float = 0.07     # tolerance-tightening column band
     use_tb_symmetry: bool = True       # top/bottom mirror when applicable

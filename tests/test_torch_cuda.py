@@ -17,19 +17,26 @@ status and n_hits agreement above 0.99, on rays hit in both median
 |d r_hits[0]| < 1e-3 M and p99 < 0.1 M (step sequences differ, as for
 the shadow), median |d final_alpha| < 1e-4 on escaped no-hit rays. Both
 two-pass drivers equal a single pass bitwise (the kernel computes each
-ray on its own thread).
+ray on its own thread). The extras kernel (volumetric thin, absorbed and
+jet, spectral) against its plain loop: status agreement above 0.99, p99
+|d emission| / max < 1e-3 and p99 |d tau| < 1e-3; its drivers equal a
+single pass bitwise; the volumetric render on the card against the CPU:
+emission masks >= 99 %, median |d image| < 1e-4.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from light_path_tracer_tpu_torch import camera, disk, pipeline
+from light_path_tracer_tpu_torch import camera, disk, pipeline, volumetric
 from light_path_tracer_tpu_torch.models import (Kerr, ReissnerNordstrom,
                                                 Schwarzschild)
 from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
     trace_disk_rays_cuda, trace_disk_rays_plain, trace_disk_rays_two_pass,
-    trace_rays_kerr_cuda, trace_rays_kerr_plain, trace_rays_kerr_two_pass)
+    trace_rays_kerr_cuda, trace_rays_kerr_plain, trace_rays_kerr_two_pass,
+    trace_rays_spectral_two_pass, trace_rays_volumetric_two_pass)
+from light_path_tracer_tpu_torch.ops import kerr_trace
+from light_path_tracer_tpu_torch.ops.cuda import volumetric_kernel as vk
 from light_path_tracer_tpu_torch.ops.cuda.schwarzschild_kernel import (
     trace_rays_schwarzschild_cuda, trace_rays_schwarzschild_plain)
 from light_path_tracer_tpu_torch.utils.config import (RenderConfig,
@@ -268,3 +275,151 @@ def test_render_disk_on_card_matches_cpu(cuda):
     assert st_gpu["disk_pixels"] > 100 and st_gpu["captured"] > 0
     both = mg & mc
     assert float((img_gpu.cpu() - img_cpu).abs()[both].median()) < 1e-3
+
+
+VOLUMETRIC_FORMS = {
+    "thin": (dict(), None),
+    "absorbed": (dict(alpha0=0.5), None),
+    "jet": (dict(profile="jet", jet_beta=0.6, index=-1.0), None),
+    "spectral": (dict(g_power=4.0, alpha0=1.0, opacity_index=2.0),
+                 (0.5, 2.0)),
+    "spectral 3-band": (dict(g_power=4.0, alpha0=1.0, opacity_index=3.0),
+                        (0.1, 1.0, 10.0)),
+}
+
+
+def _extras_rays(n, device, lo=0.3, hi=4.0, seed=0):
+    m = Kerr(M=1.0, a=0.9)
+    ac = m.alpha_crit(R_OBS, THETA_DISK)
+    rng = np.random.default_rng(seed)
+    f32 = dict(dtype=torch.float32, device=device)
+    return (m, torch.tensor(rng.uniform(lo * ac, hi * ac, n), **f32),
+            torch.tensor(rng.uniform(-np.pi, np.pi, n), **f32))
+
+
+def _extras_trace(form, kernel, m, al, th, max_steps, **kw):
+    """(result, [extras...]) of one form through the kernel wrapper or
+    its plain loop."""
+    riaf_kw, freqs = VOLUMETRIC_FORMS[form]
+    riaf = volumetric.RIAFConfig(**riaf_kw)
+    args = (m, R_OBS, al, th, THETA_DISK)
+    if freqs:
+        tf = volumetric.make_spectral_transfer(m, riaf, freqs)
+        fn = (vk.trace_rays_spectral_cuda if kernel
+              else kerr_trace.trace_rays_spectral)
+        res = fn(*args, tf, len(freqs), 5000.0, max_steps, **kw)
+        return res, [res.tau_hat, *res.emission]
+    em, ab = volumetric.make_transfer_fns(m, riaf)
+    fn = (vk.trace_rays_volumetric_cuda if kernel
+          else kerr_trace.trace_rays_volumetric)
+    res = fn(*args, em, 5000.0, max_steps, absorption_fn=ab, **kw)
+    return res, [res.emission, res.optical_depth]
+
+
+@pytest.mark.parametrize("form", list(VOLUMETRIC_FORMS))
+def test_extras_kernel_matches_plain_version(cuda, form):
+    m, al, th = _extras_rays(2048, cuda)
+    spectral = form.startswith("spectral")
+    launches = (vk.trace_rays_aux_cuda if spectral
+                else vk.trace_rays_volumetric_cuda)
+    before = launches.launches
+    rk, xk = _extras_trace(form, True, m, al, th, 4000, sat_window=2048)
+    torch.cuda.synchronize()
+    assert launches.launches == before + 1
+    rp, xp = _extras_trace(form, False, m, al, th, 4000, sat_window=2048)
+    sk, sp = rk.status.cpu().numpy(), rp.status.cpu().numpy()
+    ok = sk == sp
+    assert ok.mean() > 0.99
+    for i, (a, b) in enumerate(zip(xk, xp)):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        d = np.abs(a - b)[ok]
+        if not spectral and i == 1:                # tau
+            assert np.percentile(d, 99) < 1e-3
+        else:
+            assert np.percentile(d, 99) < 1e-3 * max(np.abs(b).max(), 1.0)
+    assert int(rk.n_steps) > 0 and rk.status.device == al.device
+
+
+def test_extras_kernel_rejects_bad_inputs(cuda):
+    m, al, th = _extras_rays(64, cuda)
+    em, _ = volumetric.make_transfer_fns(m, volumetric.RIAFConfig())
+    with pytest.raises(ValueError):
+        vk.trace_rays_volumetric_cuda(m, R_OBS, al.double(), th.double(),
+                                      THETA_DISK, em, 5000.0, 100)
+    with pytest.raises(ValueError):
+        vk.trace_rays_volumetric_cuda(m, R_OBS, al[::2], th[::2],
+                                      THETA_DISK, em, 5000.0, 100)
+    with pytest.raises(NotImplementedError):
+        vk.trace_rays_volumetric_cuda(m, R_OBS, al, th, THETA_DISK,
+                                      lambda y, pt, pp: y[0], 5000.0, 100)
+    tf = volumetric.make_spectral_transfer(m, volumetric.RIAFConfig(),
+                                           tuple(range(1, 10)))
+    with pytest.raises(NotImplementedError):
+        vk.trace_rays_spectral_cuda(m, R_OBS, al, th, THETA_DISK, tf, 9,
+                                    5000.0, 100)
+    with pytest.raises(NotImplementedError):
+        vk.trace_rays_aux_cuda(m, R_OBS, al, th, THETA_DISK, tf, 10, (al,),
+                               5000.0, 100)
+
+
+@pytest.mark.parametrize("form", ["absorbed", "spectral"])
+def test_extras_two_pass_equals_single_pass_on_card(cuda, form):
+    m, al, th = _extras_rays(4096, cuda, 0.9, 1.1, seed=9)
+    one, xo = _extras_trace(form, True, m, al, th, 20000)
+    if form == "spectral":
+        riaf_kw, freqs = VOLUMETRIC_FORMS[form]
+        tf = volumetric.make_spectral_transfer(
+            m, volumetric.RIAFConfig(**riaf_kw), freqs)
+        two = trace_rays_spectral_two_pass(
+            m, R_OBS, al, th, THETA_DISK, tf, 2, 5000.0, 20000,
+            pass1_steps=64)
+        xt = [two.tau_hat, *two.emission]
+    else:
+        em, ab = volumetric.make_transfer_fns(
+            m, volumetric.RIAFConfig(alpha0=0.5))
+        two = trace_rays_volumetric_two_pass(
+            m, R_OBS, al, th, THETA_DISK, em, 5000.0, 20000,
+            absorption_fn=ab, pass1_steps=64)
+        xt = [two.emission, two.optical_depth]
+    for a, b in zip([one.status, one.final_alpha, *xo],
+                    [two.status, two.final_alpha, *xt]):
+        assert torch.equal(_bits(a), _bits(b))
+    assert int(two.n_steps) > int(one.n_steps)
+
+
+def test_render_volumetric_on_card_matches_cpu(cuda):
+    scene = SceneConfig(M=1.0, a=0.9, theta_obs=THETA_DISK,
+                        vertical_fov_deg=16.0)
+    before = vk.trace_rays_volumetric_cuda.launches
+    img_gpu, st_gpu = volumetric.render_volumetric(scene, (64, 64),
+                                                   RenderConfig(),
+                                                   device=cuda)
+    img_cpu, st_cpu = volumetric.render_volumetric(scene, (64, 64),
+                                                   RenderConfig(),
+                                                   device="cpu")
+    assert vk.trace_rays_volumetric_cuda.launches == before + 2
+    assert img_gpu.device.type == "cuda" and img_gpu.shape == (64, 64)
+    mg, mc = st_gpu["emission"] > 0, st_cpu["emission"] > 0
+    assert (mg == mc).mean() >= 0.99
+    assert float((img_gpu.cpu() - img_cpu).abs().median()) < 1e-4
+
+
+
+def test_render_volumetric_spectrum_on_card_matches_cpu(cuda):
+    scene = SceneConfig(M=1.0, a=0.9, theta_obs=THETA_DISK,
+                        vertical_fov_deg=16.0)
+    riaf = volumetric.RIAFConfig(g_power=4.0, alpha0=1.0, opacity_index=3.0)
+    freqs = (0.1, 1.0, 10.0)
+    before = vk.trace_rays_aux_cuda.launches
+    img_gpu, st_gpu = volumetric.render_volumetric_spectrum(
+        scene, (64, 64), freqs, RenderConfig(), riaf, device=cuda)
+    img_cpu, st_cpu = volumetric.render_volumetric_spectrum(
+        scene, (64, 64), freqs, RenderConfig(), riaf, device="cpu")
+    assert vk.trace_rays_aux_cuda.launches == before + 2
+    assert img_gpu.device.type == "cuda" and img_gpu.shape == (3, 64, 64)
+    for band in range(3):
+        mg = st_gpu["emission"][band] > 0
+        mc = st_cpu["emission"][band] > 0
+        assert (mg == mc).mean() >= 0.99
+        assert float((img_gpu[band].cpu() - img_cpu[band]).abs()
+                     .median()) < 1e-4

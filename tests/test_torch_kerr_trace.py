@@ -160,6 +160,27 @@ def test_trace_batch_rejects_branches_not_ported():
         trace_batch(tm, R_OBS, al, backend="pallas")
     empty = trace_batch(tm, R_OBS, torch.zeros(0))
     assert empty.final_alpha.shape == (0,) and int(empty.n_steps) == 0
+    # The loop itself: extra state components and the saturation exits
+    # are ported; the mu chart, DOP853, tilted or further disk planes and
+    # the time recorder still raise.
+    one = torch.ones(8)
+    loop = dict(atol=one, rtol=one, h_min=torch.tensor(1e-7), tiny_err=1e-8,
+                r_capture=torch.tensor(2.0), r_escape=torch.tensor(200.0),
+                lambda_max=10.0, h_init=1.0, max_steps=2)
+    for kwargs in (dict(formulation="mu"), dict(method="dop853"),
+                   dict(disk_normal=(0.0, 0.0, 1.0)),
+                   dict(extra_disks=[((2.0, 9.0, 1.0, True), None)]),
+                   dict(record_time=True)):
+        with pytest.raises(NotImplementedError):
+            tk.dp45_integrate(tm, torch.ones((5, 8)), -one, one,
+                              torch.full((8,), 2, dtype=torch.int32),
+                              **loop, **kwargs)
+    y, status, lam, attempts = tk.dp45_integrate(
+        tm, torch.full((6, 8), 50.0), -one, 0.1 * one,
+        torch.full((8,), 2, dtype=torch.int32), **loop,
+        extra_rhs=lambda y, pt, pp: (torch.ones_like(pt),), sat_window=4,
+        sat_monitor=(0,), sat_r_max=5.0)
+    assert y.shape == (6, 8) and int(attempts.max()) <= 2
 
 
 def _grid_rays(n, seed=7):

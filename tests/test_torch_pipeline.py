@@ -138,7 +138,10 @@ def test_port_imports_without_jax():
             "light_path_tracer_tpu_torch.ops.cuda.schwarzschild_kernel, "
             "light_path_tracer_tpu_torch.disk, "
             "light_path_tracer_tpu_torch.cli.disk, "
-            "light_path_tracer_tpu_torch.utils.color; "
+            "light_path_tracer_tpu_torch.utils.color, "
+            "light_path_tracer_tpu_torch.volumetric, "
+            "light_path_tracer_tpu_torch.cli.volumetric, "
+            "light_path_tracer_tpu_torch.ops.cuda.volumetric_kernel; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'light_path_tracer_tpu.')) or "
             "m == 'light_path_tracer_tpu'); print(bad); "
