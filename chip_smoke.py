@@ -7,8 +7,10 @@ Builds the port's CUDA kernels from csrc/, holds each kernel against its
 plain PyTorch version on the card, drives three paths through the entry
 points a user calls (the 1024^2 Kerr a=0.9 shadow, the 1024^2
 Schwarzschild shadow and the 512^2 Schwarzschild lensed render) and
-checks what they produce, then the config-4 thin-disk render and the
-1024^2 volumetric hot-flow and spectral renders. Phases:
+checks what they produce, then the config-4 thin-disk render, the 1024^2
+volumetric hot-flow and spectral renders, the polarized, flare-movie and
+order-decomposition renders, and the card's arithmetic peak rates.
+Phases:
   1. machine: card name and power limit, torch and nvcc versions;
   2. build: nvcc for sm_90a, with the build time and each kernel
      instance's registers and spills;
@@ -55,7 +57,7 @@ checks what they produce, then the config-4 thin-disk render and the
      dimmer (Doppler beaming); then a 64^2 render on the card against the
      CPU (disk masks >= 99 %, median |d image| < 1e-3 on disk pixels).
  11. extras kernel vs plain version: 4,096 random rays (alpha in [0.3, 4]
-     alpha_crit, theta_obs = 80 deg, max_steps 4000, sat_window 2048), the
+     alpha_crit, theta_obs = 80 deg, max_steps 2500, sat_window 2048), the
      thin, absorbed (alpha0 0.5), jet (beta 0.6, index -1), 2-band
      (0.5/2, q 2) and 3-band (0.1/1/10, q 3) spectral forms (status
      agreement > 0.99, p99 |d tau| < 1e-3, p99 |d emission| / max per
@@ -68,7 +70,8 @@ checks what they produce, then the config-4 thin-disk render and the
      256-attempt one), the rays the saturation and frozen-state exits
      ended and the slowest rays; the plain loop against the kernel on the
      256^2 grid of the scene for each of phase 13's four paths, both
-     capped at 2048 attempts (phase 11's gates); both drivers (thin and
+     capped at 2048 attempts (phase 11's gates; the float64 run that
+     widens a bar only for the 3-band form); both drivers (thin and
      3-band) over the kernel and over the plain loop on phase 11's rays;
  13. the four volumetric paths through render_volumetric and
      render_volumetric_spectrum at 1024^2 (thin, absorbed alpha0 0.3, jet
@@ -79,10 +82,67 @@ checks what they produce, then the config-4 thin-disk render and the
      photosphere of the spectrum; then 64^2 renders on the card against
      the CPU, the thin image and each band of the 3-band spectrum
      (emission masks >= 99 %, median |d image| < 1e-4).
+ 14. the Stokes, movie and order forms of the extras kernel vs the plain
+     loop: Stokes (toroidal and vertical field, four per-ray aux
+     constants), Movie<8> thin and absorbed (alpha0 0.3, spot_amp 8, eight
+     frames over one blob period) and Order<3> thin and absorbed, on
+     phase 11's 4,096 random rays with max_steps 1500 and sat_window 512
+     (the plain loop costs ~10-40 ms an iteration, whatever the batch),
+     against the plain loop in float32 and (Stokes, movie) float64; then
+     the five forms of phase 15 on the scene's 256^2 grid, the Stokes
+     and order forms at the main path's window, both capped at 2,048
+     attempts (the lanes that reach that cap again with sat_window 512,
+     where the exits must end them in both), the movie forms with
+     sat_window 512 capped at 1,024 (their plain loop takes ~85 s at
+     2,048 attempts);
+     then each form's single pass on the 1024^2 scene (its time, the
+     exits' counts and the slowest rays) with the two-pass driver
+     bitwise against it. Gates: status agreement > 0.99; every
+     Stokes and movie extra p99 |d| / max < 1e-3 (Q and U against
+     max |I|), or < 2x the plain loop's own float32 gap from float64.
+     A two-order form joins the random rays: its open-ended last bucket
+     takes every later crossing.
+     The order buckets are not held per ray (floor(m) switches where m
+     sits within rounding of an integer after a crossing: a coin flip
+     per ray and crossing) but every order on its own: its flux within
+     max(3 %, 3 / sqrt(rays that carry it)) of its own plain flux, more
+     than 40 % of its carriers with the same bucket value, the flux
+     moved between orders < max(1 %, 1 / sqrt(carriers of order 0)) of
+     the total, the buckets' sum per ray within 1e-3 of the largest
+     (p99), the winding's p95 |dm| < 5e-3; the aux two-pass driver
+     bitwise against the single pass, over the kernel and over the plain
+     loop;
+ 15. the polarized, movie (thin and absorbed) and decomposed renders
+     through render_polarized_volumetric, render_volumetric_movie and
+     render_volumetric_decomposed at 1024^2 (a = 0.9, theta_obs = 80 deg,
+     FOV 16 deg, psi = 0; eight frames over one period with spot_amp 8;
+     three orders), warm-up and 3 runs each: two kernel launches per
+     driver call and no plain loop; the light curve varies over the
+     period and is flat with spot_amp 0; the orders sum to the thin image
+     within 1e-3 of its peak on 99.9 % of the pixels (fewer than 1e-3 of
+     them above it, each placed: an exit lane, the shadow's rim, or by
+     its plane crossings) and in total flux within 1e-4 (the two traces
+     carry other states and so take other steps) and their flux falls
+     with order; pol_frac
+     <= p0 and Q even, U odd under the top-bottom mirror at theta_obs =
+     90 deg; then 64^2 renders on the card against the CPU, the absorbed
+     movie and decomposition too, every order by phase 14's gates;
+ 16. the peak probe: the chains against the same recurrence in torch
+     (k = 64: float32 and float64 within 4 k ulp, sinf within 4 ulp) and
+     the card's FP32 FMA (one chain and eight a thread), FP64 FMA, mixed
+     and sinf rates from the marginal time between chain lengths 2,048
+     and 8,192.
 Each path's launch counters are set to 0 just before it and read just
-after. The second-to-last line is a JSON object of per-kernel results, the
-last {"ok": true, "device": {...}}. Exit code 0 iff every phase passed;
-without a CUDA device it exits 1 and prints no result.
+after. The second-to-last line is a JSON object of per-kernel results:
+beside each kernel's time stand its bound (the larger of its flops over
+the H100's published 67 TFLOP/s float32 rate and its bytes over 3.35
+TB/s, from this run's per-ray attempt counts and the flops per attempt
+counted from the CUDA sources; transcendentals are left out, so it stays
+a lower bound), the same bound at the FP32 rate phase 16 measured, and
+the slowest ray's attempts with the time that ray takes when traced
+alone. The last line is {"ok": true, "device": {...}}. Exit code 0 iff
+every phase passed; without a CUDA device it exits 1 and prints no
+result.
 """
 
 from __future__ import annotations
@@ -168,10 +228,17 @@ def both_versions(label, metric, alphas, thetas, refine, max_steps,
     ms, rk = cuda_ms(lambda: trace_rays_kerr_cuda(*args), kernel_repeats)
     plain_ms, rp = cuda_ms(lambda: trace_rays_kerr_plain(*args), 1)
     cmp = compare(rk, rp, alphas, metric.alpha_crit(R_OBS))
+    probe = {}
+    trace_rays_kerr_cuda(*args, probe=probe)
+    cmp.update(attempts_stats(probe["attempts"], lambda i: (
+        trace_rays_kerr_cuda(metric, R_OBS, alphas[i:i + 1],
+                             thetas[i:i + 1], np.pi / 2, refine[i:i + 1],
+                             LAMBDA_MAX, max_steps))))
     cmp.update(ms=ms, plain_ms=plain_ms, n=int(alphas.numel()),
                n_steps_kernel=int(rk.n_steps), n_steps_plain=int(rp.n_steps))
     print(f"  {label}: {json.dumps(cmp)}", flush=True)
     torch.cuda.synchronize()
+    cmp["attempts"] = probe["attempts"]
     return cmp
 
 
@@ -190,6 +257,8 @@ def orbit_both(label, metric, alphas, kernel_repeats):
     st = steps.cpu().numpy()
     cmp = compare(rk, rp, alphas, metric.alpha_crit(R_OBS))
     warps = np.pad(st, (0, -st.size % 32)).reshape(-1, 32).max(axis=1)
+    cmp.update(attempts_stats(steps, lambda i: (
+        trace_rays_schwarzschild_cuda(metric, R_OBS, alphas[i:i + 1]))))
     cmp.update(ms=ms, plain_ms=plain_ms, n=int(alphas.numel()),
                n_steps_kernel=int(rk.n_steps), n_steps_plain=int(rp.n_steps),
                steps_mean=float(st.mean()), steps_max=int(st.max()),
@@ -240,6 +309,11 @@ def disk_both(label, metric, alphas, thetas, max_steps, plane, max_hits,
         cmp["median_dpr"] = float(
             (rk.pr_hits[0].cpu() - rp.pr_hits[0].cpu()).abs()[both]
             .median())
+    probe = {}
+    trace_disk_rays_cuda(*args, probe=probe, **kw)
+    cmp.update(attempts_stats(probe["attempts"], lambda i: (
+        trace_disk_rays_cuda(metric, R_OBS, alphas[i:i + 1],
+                             thetas[i:i + 1], *args[4:], **kw))))
     cmp.update(ms=ms, plain_ms=plain_ms, n=int(alphas.numel()),
                n_steps_kernel=int(rk.n_steps), n_steps_plain=int(rp.n_steps))
     print(f"  {label}: {json.dumps(cmp)}", flush=True)
@@ -247,6 +321,7 @@ def disk_both(label, metric, alphas, thetas, max_steps, plane, max_hits,
     require(cmp["status_agree"] > 0.99 and cmp["nhits_agree"] > 0.99
             and cmp["median_dr"] < 1e-3 and cmp["p99_dr"] < 0.1
             and cmp["median_dfa"] < 1e-4, f"{label} gate: {cmp}")
+    cmp["attempts"] = probe["attempts"]
     return cmp
 
 
@@ -269,7 +344,7 @@ def disk_bitwise(r1, r2):
 def kernel_label(mangled):
     """A short name for a kernel instance in ptxas's report."""
     import re
-    for pat, fmt in ((r"kerr_dp45_extras_kernelINS_\d+(\w+?)E",
+    for pat, fmt in ((r"kerr_dp45_extras_kernelINS_\d+((?!Movie|Order)\w+?)E",
                       "kerr_dp45_extras<{}>"),
                      (r"kerr_dp45_kernelILb(\d)ELi(\d)ELb(\d)",
                       "kerr_dp45<disk={},hits={},momentum={}>"),
@@ -280,6 +355,16 @@ def kernel_label(mangled):
             if groups[0].startswith("SpectralILi"):
                 groups[0] = f"Spectral<{groups[0][11:]}>"
             return fmt.format(*groups)
+    m = re.search(r"kerr_dp45_extras_kernelINS_\d+(Movie|Order)ILi(\d)ELb(\d)",
+                  mangled)
+    if m:
+        return (f"kerr_dp45_extras<{m.group(1)}<{m.group(2)},"
+                f"absorbing={m.group(3)}>>")
+    m = re.search(r"\d+(fma8?_chain_kernel|mix_chain_kernel|"
+                  r"sin_chain_kernel)(I[fd])?", mangled)
+    if m:
+        kind = {"If": "<float>", "Id": "<double>", None: ""}[m.group(2)]
+        return f"peak_probe::{m.group(1)}{kind}"
     return mangled
 
 
@@ -300,6 +385,80 @@ def ptxas_report(log):
     return rows
 
 
+# Published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside
+# the tensor cores, and HBM3.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# Flops of one evaluation, counted from the CUDA sources as written
+# (before the compiler's common subexpressions; a multiply-add counts 2,
+# a division 1; sinf, cosf, expf, powf and sqrtf are left out): the
+# geodesic's rhs5 (kerr_dp45_common.cuh), the emissivity and redshift
+# every transfer form shares (source() in kerr_dp45_extras.cuh) and what
+# each form adds; one RK4 step of the orbit kernel.
+RHS5_FLOPS = 148
+SOURCE_FLOPS = 67
+ORBIT_STEP_FLOPS = 55
+
+
+def form_flops(kind, width=0, absorbing=False):
+    """The extras' flops of one RHS evaluation of a transfer form."""
+    extra = {"thin": 0, "absorbed": 6, "spectral": 5 + 3 * width,
+             "stokes": 240, "movie": 33 + 9 * width,
+             "order": 15 + width}[kind]
+    if absorbing and kind in ("movie", "order"):
+        extra += 7
+    return SOURCE_FLOPS + extra
+
+
+def attempt_flops(components, rhs_extra=0):
+    """Flops of one DP45 attempt over `components` state components: six
+    new RHS evaluations plus the stage sums, the error norm, the event
+    root and the controller (86 C + 55, the structure
+    scripts/roofline.py documents)."""
+    return 6 * (RHS5_FLOPS + rhs_extra) + 86 * components + 55
+
+
+def attempts_stats(attempts, alone):
+    """Sum and maximum of a launch's per-ray attempt counts, and the time
+    the slowest ray takes when it is traced alone: alone(i) runs the same
+    wrapper on ray i only."""
+    import torch
+    a = attempts.to(torch.int64)
+    i = int(a.argmax())
+    ms, _ = cuda_ms(lambda: alone(i), 3)
+    return dict(attempts_sum=int(a.sum()), slowest_attempts=int(a[i]),
+                slowest_alone_ms=ms)
+
+
+def driver_attempts(attempts, pass1_steps):
+    """Attempts a two-pass driver spends on rays whose single-pass counts
+    are `attempts`: the first pass up to its cap, then the unconverged
+    rays again from the start."""
+    import torch
+    a = attempts.to(torch.int64)
+    return int(torch.clamp(a, max=pass1_steps).sum() + a[a > pass1_steps]
+               .sum())
+
+
+def kernel_entry(name, source, replaces, launches, max_abs_err, ms,
+                 plain_ms, n, bytes_per_ray, flops, stats=None):
+    """One entry of the kernels line. flops: the operations this run's
+    inputs need; stats: attempts_stats of the timed call (a kernel's own
+    single launch; a driver's entry has none)."""
+    t_ops, t_bytes = flops / PEAK_FP32, n * bytes_per_ray / PEAK_BYTES
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches,
+             "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": 1e3 * max(t_ops, t_bytes),
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+             "library_ms": None, "rays": n, "flops": flops,
+             "bytes": n * bytes_per_ray}
+    if stats:
+        entry.update(slowest_attempts=stats["slowest_attempts"],
+                     slowest_alone_ms=stats["slowest_alone_ms"])
+    return entry
+
+
 THETA_VOL = float(np.radians(80.0))
 VOL_SOURCE = "light_path_tracer_tpu_torch/csrc/kerr_dp45_extras.cu"
 VOL_JAX = "light_path_tracer_tpu/ops/pallas/volumetric_kernel.py"
@@ -310,6 +469,11 @@ VOL_RAYS = 4096
 VOL_DIM = (1024, 1024)
 VOL_PLAIN_DIM = (256, 256)
 VOL_CHECK_DIM = (64, 64)
+# Attempt cap of phase 11 and of phase 12's driver check: above the
+# exits' ~2,150 attempts at sat_window 2048 (the plain loop costs ~10-30
+# ms an iteration, and a lane that never ends runs to the cap).
+VOL_STEPS = 2500
+DRIVER_STEPS = 2500
 
 
 def volumetric_forms():
@@ -398,17 +562,19 @@ def f32_gap(metric, riaf, freqs, alphas, thetas, max_steps, plain32, **kw):
     return extras_compare(plain32, rp64)
 
 
-def extras_gate(what, g, gap):
+def extras_gate(what, g, gap=None):
     """Phase 11's gates on kernel-vs-plain numbers g: status agreement
     > 0.99, p99 |d tau| < 1e-3, and p99 |d emission| / max per band
     below 1e-3, or below twice the plain loop's own float32 gap from
-    float64 on the same rays (gap) where that is larger: two float32
-    results each within e of the float64 one are within 2e of each
-    other. (The 0.1 band of the 3-band spectrum, q 3, carries
+    float64 on the same rays (gap, where given) if that is larger: two
+    float32 results each within e of the float64 one are within 2e of
+    each other. (The 0.1 band of the 3-band spectrum, q 3, carries
     f^(1-q) = 100 times tau_hat's rounding.)"""
-    g["em_bars"] = [max(1e-3, 2.0 * e) for e in gap["p99_em_bands"]]
-    g["f32_gap_em_bands"] = gap["p99_em_bands"]
-    g["f32_gap_tau"] = gap["p99_tau"]
+    if gap:
+        g["f32_gap_em_bands"] = gap["p99_em_bands"]
+        g["f32_gap_tau"] = gap["p99_tau"]
+    g["em_bars"] = [max(1e-3, 2.0 * e) for e in g.get(
+        "f32_gap_em_bands", [0.0] * len(g["p99_em_bands"]))]
     require(g["status_agree"] > 0.99
             and all(p < b for p, b in zip(g["p99_em_bands"], g["em_bars"]))
             and g["p99_tau"] < 1e-3, f"{what} gate: {g}")
@@ -463,24 +629,29 @@ def volumetric_phases(dev, card):
     al = torch.tensor(rng.uniform(0.3 * ac, 4 * ac, VOL_RAYS), **f32)
     th = torch.tensor(rng.uniform(-np.pi, np.pi, VOL_RAYS), **f32)
     print(f"extras kernel vs plain version (f32 'fast', {VOL_RAYS} random "
-          f"rays, max_steps 4000, sat_window 2048):", flush=True)
+          f"rays, max_steps {VOL_STEPS}, sat_window 2048):", flush=True)
     g11, gap11 = {}, {}
     for label, (riaf, freqs) in volumetric_forms().items():
         probe = {}
         ms, rk = cuda_ms(lambda: extras_trace(
-            kerr, riaf, freqs, al, th, 4000, True, sat_window=2048,
+            kerr, riaf, freqs, al, th, VOL_STEPS, True, sat_window=2048,
             probe=probe), 3)
         plain_ms, rp = cuda_ms(lambda: extras_trace(
-            kerr, riaf, freqs, al, th, 4000, False, sat_window=2048), 1)
+            kerr, riaf, freqs, al, th, VOL_STEPS, False, sat_window=2048),
+            1)
         g = extras_compare(rk, rp)
         g.update(ms=ms, plain_ms=plain_ms, n_steps_kernel=int(rk[0].n_steps),
                  n_steps_plain=int(rp[0].n_steps),
                  kernel_attempts=grinders(probe, VOL_RAYS)["slowest"][:2])
-        gap11[label] = f32_gap(kerr, riaf, freqs, al, th, 4000, rp,
+        g.update(attempts_stats(probe["attempts"], lambda i: extras_trace(
+            kerr, riaf, freqs, al[i:i + 1], th[i:i + 1], VOL_STEPS, True,
+            sat_window=2048)))
+        gap11[label] = f32_gap(kerr, riaf, freqs, al, th, VOL_STEPS, rp,
                                sat_window=2048)
         g11[label] = g
         extras_gate(f"phase 11 {label}", g, gap11[label])
         print(f"  {label}: {json.dumps(g)}", flush=True)
+        g["attempts"] = probe["attempts"]
 
     # -- 12. the 1024^2 scene: single pass vs drivers --------------------
     scene = SceneConfig(M=1.0, a=0.9, r_obs_mult=R_OBS, theta_obs=THETA_VOL,
@@ -510,6 +681,8 @@ def volumetric_phases(dev, card):
                    n_steps_two_pass=int(two[0].n_steps),
                    over_4096_attempts=int(probe["attempts"].gt(4096).sum()))
         row.update(grinders(probe, dim[1]))
+        if label == "thin":
+            thin_exited = (probe["flags"] & 6).ne(0).cpu().numpy()
         p256 = {}
         extras_trace(kerr, riaf, freqs, al12, th12, 256, True, probe=p256,
                      **kw)
@@ -545,25 +718,31 @@ def volumetric_phases(dev, card):
                  n_steps_kernel=int(rk[0].n_steps),
                  n_steps_plain=int(rp[0].n_steps))
         g256[label] = g
-        extras_gate(f"phase 12 256^2 {label}", g, f32_gap(
-            kerr, riaf, freqs, al256, th256, 2048, rp, sat_window=2048))
+        # The float64 run only where a bar needs it: the 3-band form.
+        gap = (f32_gap(kerr, riaf, freqs, al256, th256, 2048, rp,
+                       sat_window=2048) if freqs else None)
+        extras_gate(f"phase 12 256^2 {label}", g, gap)
         print(f"  {label}, {d256[0]}^2 grid, both capped at 2048: "
               f"{json.dumps(g)}", flush=True)
     # Both drivers over the kernel and over the plain loop, on phase
-    # 11's 4,096 rays with a 64-attempt first pass.
+    # 11's 4,096 rays with a 64-attempt first pass, capped at 2,500
+    # attempts (the plain loop costs ~10 ms an iteration).
     drv = {}
     for label in ("thin", "spectral 3-band"):
         riaf, freqs = volumetric_forms()[label]
         k_ms, rk = cuda_ms(lambda: extras_trace(
-            kerr, riaf, freqs, al, th, 4000, True, driver=True,
+            kerr, riaf, freqs, al, th, DRIVER_STEPS, True, driver=True,
             pass1_steps=64), 3)
         p_ms, rp = cuda_ms(lambda: extras_trace(
-            kerr, riaf, freqs, al, th, 4000, False, driver=True,
+            kerr, riaf, freqs, al, th, DRIVER_STEPS, False, driver=True,
             pass1_steps=64), 1)
-        single = extras_trace(kerr, riaf, freqs, al, th, 4000, True)
+        probe = {}
+        single = extras_trace(kerr, riaf, freqs, al, th, DRIVER_STEPS, True,
+                              probe=probe)
         g = extras_compare(rk, rp)
         g.update(ms=k_ms, plain_ms=p_ms, bitwise_equal=extras_bitwise(
-            single, rk))
+            single, rk), attempts_sum=driver_attempts(probe["attempts"],
+                                                      64))
         drv[label] = g
         extras_gate(f"phase 12 {label} driver", g, gap11[label])
         print(f"  {label} driver, {VOL_RAYS} random rays, pass1_steps 64, "
@@ -639,6 +818,8 @@ def volumetric_phases(dev, card):
             totals[label] = st["emission_total"]
             require(np.isfinite(em).all() and st["emission_total"] > 0,
                     f"{label}: emission not finite and positive")
+            if label == "volumetric thin":
+                thin_map = em
         print(f"{label} {dim[0]}^2: {json.dumps(row)}; best {best:,.0f} "
               f"rays/s on {card}", flush=True)
         if label == "volumetric thin":
@@ -672,26 +853,658 @@ def volumetric_phases(dev, card):
             f"64^2 spectral card vs CPU: masks {masks}, medians {meds}")
 
     thin, spec = g11["thin"], g11["spectral 3-band"]
-    return [{
-        "name": "kerr_dp45_extras", "route": "cuda", "source": VOL_SOURCE,
-        "replaces": f"{VOL_JAX}:53", "launches": launches["volumetric"],
-        "max_abs_err": thin["max_abs_em"], "ms": thin["ms"],
-        "plain_ms": thin["plain_ms"]}, {
-        "name": "trace_rays_volumetric_two_pass", "route": "cuda",
-        "source": VOL_DRIVERS, "replaces": f"{VOL_JAX}:209",
-        "launches": launches["vol_driver"],
-        "max_abs_err": drv["thin"]["max_abs_em"],
-        "ms": drv["thin"]["ms"], "plain_ms": drv["thin"]["plain_ms"]}, {
-        "name": "kerr_dp45_extras_spectral", "route": "cuda",
-        "source": VOL_SOURCE, "replaces": f"{VOL_JAX}:276",
-        "launches": launches["spectral"], "max_abs_err": spec["max_abs_em"],
-        "ms": spec["ms"], "plain_ms": spec["plain_ms"]}, {
-        "name": "trace_rays_spectral_two_pass", "route": "cuda",
-        "source": VOL_DRIVERS, "replaces": f"{VOL_JAX}:476",
-        "launches": launches["spec_driver"],
-        "max_abs_err": drv["spectral 3-band"]["max_abs_em"],
-        "ms": drv["spectral 3-band"]["ms"],
-        "plain_ms": drv["spectral 3-band"]["plain_ms"]}]
+    n_bands = len(freqs3)
+    thin_flops = attempt_flops(6, form_flops("thin"))
+    spec_flops = attempt_flops(6 + n_bands, form_flops("spectral", n_bands))
+    state = dict(kerr=kerr, al=al, th=th, scene=scene, cfg=cfg,
+                 thin_emission=thin_map, thin_exited=thin_exited)
+    return [
+        kernel_entry("kerr_dp45_extras", VOL_SOURCE, f"{VOL_JAX}:53",
+                     launches["volumetric"], thin["max_abs_em"], thin["ms"],
+                     thin["plain_ms"], VOL_RAYS, 8 + 4 * 5,
+                     thin["attempts_sum"] * thin_flops, thin),
+        kernel_entry("trace_rays_volumetric_two_pass", VOL_DRIVERS,
+                     f"{VOL_JAX}:209", launches["vol_driver"],
+                     drv["thin"]["max_abs_em"], drv["thin"]["ms"],
+                     drv["thin"]["plain_ms"], VOL_RAYS, 8 + 4 * 5,
+                     drv["thin"]["attempts_sum"] * thin_flops),
+        kernel_entry("kerr_dp45_extras_spectral", VOL_SOURCE,
+                     f"{VOL_JAX}:276", launches["spectral"],
+                     spec["max_abs_em"], spec["ms"], spec["plain_ms"],
+                     VOL_RAYS, 8 + 4 * (5 + n_bands),
+                     spec["attempts_sum"] * spec_flops, spec),
+        kernel_entry("trace_rays_spectral_two_pass", VOL_DRIVERS,
+                     f"{VOL_JAX}:476", launches["spec_driver"],
+                     drv["spectral 3-band"]["max_abs_em"],
+                     drv["spectral 3-band"]["ms"],
+                     drv["spectral 3-band"]["plain_ms"], VOL_RAYS,
+                     8 + 4 * (5 + n_bands),
+                     drv["spectral 3-band"]["attempts_sum"] * spec_flops)
+    ], state
+
+
+STOKES_SOURCE = "light_path_tracer_tpu_torch/csrc/kerr_dp45_stokes.cu"
+MOVIE_SOURCE = "light_path_tracer_tpu_torch/csrc/kerr_dp45_movie_{}.cu"
+ORDER_SOURCE = "light_path_tracer_tpu_torch/csrc/kerr_dp45_orders.cu"
+PROBE_SOURCE = "light_path_tracer_tpu_torch/csrc/peak_probe.cu"
+# Phase 14's depth: the plain loop costs ~10 ms an iteration whatever the
+# batch, so its runs are capped here and the exits' window is short.
+AUX_STEPS = 1500
+AUX_WINDOW = 512
+# The 256^2 grid's forms with (attempt cap, sat_window): the main path's
+# window with the cap at 2,048, except the movie forms, whose plain loop
+# costs ~40 ms an iteration (83 and 90 s at 2,048 on an H100's host).
+GRID_FORMS = {"stokes toroidal": (2048, 2048), "movie thin": (1024, 512),
+              "movie absorbed": (1024, 512), "order thin": (2048, 2048),
+              "order absorbed": (2048, 2048)}
+N_FRAMES = 8
+N_ORDERS = 3
+P0 = 0.7
+
+
+def aux_forms(metric, al, th):
+    """Phase 14's forms on rays (al, th): label -> (transfer_fn, n_extras,
+    aux, sat_monitor, flops of one attempt)."""
+    from light_path_tracer_tpu_torch import polarization, volumetric
+    from light_path_tracer_tpu_torch.disk import keplerian_omega
+    period = 2.0 * np.pi / abs(keplerian_omega(1.0, 0.9, 6.0, True))
+    times = tuple(period * k / N_FRAMES for k in range(N_FRAMES))
+    forms = {}
+    aux = polarization.camera_constants(metric, R_OBS, THETA_VOL, al, th)
+    for field in ("toroidal", "vertical"):
+        forms[f"stokes {field}"] = (
+            polarization.make_polarized_volumetric_transfer(
+                metric, volumetric.RIAFConfig(), field, P0), 3, aux,
+            (0, 1, 2), attempt_flops(8, form_flops("stokes")))
+    for a0 in (0.0, 0.3):
+        ab = int(a0 > 0)
+        riaf = volumetric.RIAFConfig(spot_amp=8.0, alpha0=a0)
+        name = "absorbed" if ab else "thin"
+        forms[f"movie {name}"] = (
+            volumetric.make_movie_transfer(metric, riaf, times),
+            1 + ab + N_FRAMES, (),
+            tuple(range(1 + ab, 1 + ab + N_FRAMES)),
+            attempt_flops(6 + ab + N_FRAMES,
+                          form_flops("movie", N_FRAMES, ab)))
+        riaf = volumetric.RIAFConfig(alpha0=a0)
+        forms[f"order {name}"] = (
+            volumetric.make_order_transfer(metric, riaf, N_ORDERS),
+            1 + ab + N_ORDERS, (),
+            tuple(range(1 + ab, 1 + ab + N_ORDERS)),
+            attempt_flops(6 + ab + N_ORDERS,
+                          form_flops("order", N_ORDERS, ab)))
+    return forms
+
+
+def aux_trace(metric, form, al, th, max_steps, kernel, **kw):
+    """One trace of a phase-14 form through the kernel wrapper
+    (kernel=True), the plain loop (False) or the aux two-pass driver (kw
+    `driver`) on rays of either precision; returns ExtrasResult."""
+    from light_path_tracer_tpu_torch.ops import kerr_trace
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    from light_path_tracer_tpu_torch.ops.cuda import volumetric_kernel as vk
+    tf, n_extras, aux, monitor, _flops = form
+    driver = kw.pop("driver", False)
+    aux = tuple(a.to(al.dtype) for a in aux)
+    plain_tf = tf if aux else (lambda y, pt, pp, _aux: tf(y, pt, pp))
+    fn = vk.trace_rays_aux_cuda if kernel else kerr_trace.trace_rays_aux
+    use = tf if kernel else plain_tf
+    if driver:
+        kw["trace_fn"] = fn
+        fn = kk.trace_rays_aux_two_pass
+    return fn(metric, R_OBS, al, th, THETA_VOL, use, n_extras, aux,
+              LAMBDA_MAX, max_steps, sat_monitor=monitor, **kw)
+
+
+def aux_compare(rk, rp, label, width=N_ORDERS):
+    """Kernel result rk against plain result rp: status agreement and,
+    per extra, p99 |d| / max |plain| on rays of equal status (the Stokes
+    Q and U against max |I|). For the order forms (`width` buckets, the
+    last extras) also: p99 of the
+    buckets' sum per ray against the largest sum; each order's flux
+    against its own plain flux (flux_rel) and the largest move against
+    the total (flux_shift); and, per order, of the rays that carry it in
+    the plain loop (that bucket above 5 % of the ray's sum, the sum above
+    1e-3 of the largest) the share whose kernel bucket sits within 1 % of
+    the ray's sum (bucket_match, of `carriers` rays)."""
+    ok = (rk.status == rp.status).cpu().numpy()
+    xk = np.stack([e.double().cpu().numpy() for e in rk.extras])
+    xp = np.stack([e.double().cpu().numpy() for e in rp.extras])
+    scales = np.maximum(np.abs(xp).max(axis=1), 1e-30)
+    if label.startswith("stokes"):
+        scales[:] = scales[0]
+    d = np.abs(xk - xp)[:, ok]
+    out = dict(status_agree=float(ok.mean()),
+               p99=(np.percentile(d, 99, axis=1) / scales).tolist(),
+               max_abs=float(d.max()))
+    if label.startswith("order"):
+        out.update(order_numbers(xk[-width:][:, ok], xp[-width:][:, ok]))
+        out["p95_m"] = float(np.percentile(d[0], 95))
+    return out
+
+
+def order_numbers(bk, bp):
+    """aux_compare's numbers of the order buckets bk (kernel) against bp
+    (plain), each (orders, rays)."""
+    sk, sp = bk.sum(axis=0), bp.sum(axis=0)
+    fk, fp = bk.sum(axis=1), bp.sum(axis=1)
+    carry = (sp > 1e-3 * sp.max()) & (bp > 0.05 * sp)
+    near = np.abs(bk - bp) < 0.01 * sp
+    carriers = carry.sum(axis=1)
+    return dict(
+        p99_sum=float(np.percentile(np.abs(sk - sp), 99)
+                      / max(sp.max(), 1e-30)),
+        flux_kernel=fk.tolist(), flux_plain=fp.tolist(),
+        flux_rel=(np.abs(fk - fp) / fp).tolist(),
+        flux_shift=float(np.abs(fk - fp).max() / fp.sum()),
+        carriers=carriers.tolist(),
+        bucket_match=((near & carry).sum(axis=1)
+                      / np.maximum(carriers, 1)).tolist())
+
+
+def order_gate(g):
+    """The order buckets' gates on order_numbers g. After a crossing m
+    sits within rounding of an integer, so floor(m) puts the stretch of
+    path up to the next crossing in either neighbour: a coin flip per ray
+    and crossing, and single rays differ. Every order is still held on
+    its own, with bars that follow the coin flips' 1 / sqrt(rays)
+    (neighbouring rays flip alike, so the factors are 2.5-3x the largest
+    readings on the H100): its flux within max(3 %, 3 / sqrt(carriers))
+    of its own plain flux, at least 20 carriers, of which more than 40 %
+    have the same bucket value; the flux moved between orders at most
+    max(1 %, 1 / sqrt(carriers of order 0)) of the total; the buckets'
+    sum per ray within 1e-3 of the largest (p99)."""
+    n = np.maximum(np.asarray(g["carriers"], dtype=np.float64), 1.0)
+    g["flux_bars"] = np.maximum(0.03, 3.0 / np.sqrt(n)).tolist()
+    g["flux_shift_bar"] = float(max(0.01, 1.0 / np.sqrt(n[0])))
+    return (g["p99_sum"] < 1e-3 and g["flux_shift"] < g["flux_shift_bar"]
+            and all(r < b for r, b in zip(g["flux_rel"], g["flux_bars"]))
+            and min(g["carriers"]) >= 20 and min(g["bucket_match"]) > 0.4)
+
+
+def aux_gate(what, g, gap=None):
+    """Phase 14's gates on kernel-vs-plain numbers g; gap: the plain
+    loop's own float32-vs-float64 numbers on the same rays, which raise a
+    bar of 1e-3 to twice the gap where given. The order forms' buckets
+    are held by order_gate, their winding by its p95."""
+    if "p99_sum" in g:
+        if gap:
+            g["f32_gap_flux_rel"] = gap["flux_rel"]
+            g["f32_gap_flux_shift"] = gap["flux_shift"]
+        require(g["status_agree"] > 0.99 and order_gate(g)
+                and g["p95_m"] < 5e-3, f"{what} gate: {g}")
+        return
+    n = len(g["p99"])
+    g["bars"] = [max(1e-3, 2.0 * e) for e in (gap["p99"] if gap
+                                              else [0.0] * n)]
+    if gap:
+        g["f32_gap"] = gap["p99"]
+    require(g["status_agree"] > 0.99
+            and all(p < b for p, b in zip(g["p99"], g["bars"])),
+            f"{what} gate: {g}")
+
+
+def aux_both(what, metric, label, form, al, th, max_steps, window,
+             f64=True, repeats=3):
+    """Kernel and plain loop (float32, and with f64 the float64 run that
+    sets the bars) of one form on the same rays; prints and gates;
+    returns the numbers with the kernel's per-ray attempts."""
+    kw = dict(sat_window=window)
+    probe = {}
+    ms, rk = cuda_ms(lambda: aux_trace(metric, form, al, th, max_steps, True,
+                                       probe=probe, **kw), repeats)
+    plain_ms, rp = cuda_ms(lambda: aux_trace(metric, form, al, th, max_steps,
+                                             False, **kw), 1)
+    width = len(form[3])
+    g = aux_compare(rk, rp, label, width)
+    g.update(ms=ms, plain_ms=plain_ms, n_steps_kernel=int(rk.n_steps),
+             n_steps_plain=int(rp.n_steps),
+             exits=int((probe["flags"] & 6).ne(0).sum()))
+    g.update(attempts_stats(probe["attempts"], lambda i: aux_trace(
+        metric, (form[0], form[1], tuple(a[i:i + 1] for a in form[2]),
+                 form[3], form[4]), al[i:i + 1], th[i:i + 1], max_steps,
+        True, **kw)))
+    gap = None
+    if f64:
+        gap = aux_compare(rp, aux_trace(metric, form, al.double(),
+                                        th.double(), max_steps, False, **kw),
+                          label, width)
+    aux_gate(f"{what} {label}", g, gap)
+    print(f"  {label}: {json.dumps(g)}", flush=True)
+    g["attempts"] = probe["attempts"]
+    return g
+
+
+def aux_exits(metric, label, form, al, th, lanes):
+    """The lanes of a capped run that reached the cap, again with the
+    exits' window at AUX_WINDOW and twice that as the cap, in the kernel
+    and in the plain loop: the exits must end every lane in both. (The
+    status may differ: a lane that freezes in the kernel need not freeze
+    in the plain loop, whose products are not contracted to FMA.)"""
+    if lanes.numel() == 0:
+        print(f"  {label}: no lane reached the cap", flush=True)
+        return
+    sub = (form[0], form[1], tuple(a[lanes] for a in form[2]), form[3],
+           form[4])
+    probe = {}
+    kw = dict(sat_window=AUX_WINDOW, return_unconverged=True)
+    rk, uk = aux_trace(metric, sub, al[lanes], th[lanes], 2 * AUX_WINDOW,
+                       True, probe=probe, **kw)
+    rp, up = aux_trace(metric, sub, al[lanes], th[lanes], 2 * AUX_WINDOW,
+                       False, **kw)
+    row = dict(lanes=int(lanes.numel()),
+               kernel_exits=int((probe["flags"] & 6).ne(0).sum()),
+               kernel_attempts=[int(probe["attempts"].min()),
+                                int(probe["attempts"].max())],
+               kernel_capped=int(uk.sum()), plain_capped=int(up.sum()),
+               status_agree=float((rk.status == rp.status).float().mean()))
+    print(f"  {label}, the {row['lanes']} lanes at the cap, sat_window "
+          f"{AUX_WINDOW}, capped at {2 * AUX_WINDOW}: {json.dumps(row)}",
+          flush=True)
+    require(row["kernel_exits"] > 0 and row["kernel_capped"] == 0
+            and row["plain_capped"] == 0,
+            f"phase 14 {label}: the exits do not end the frozen lanes")
+
+
+def aux_scene(metric, label, form, al, th, width):
+    """A form's single pass on the 1024^2 scene's rays at the main path's
+    depth and window, with the exits' counts and the slowest rays, and
+    its two-pass driver bitwise against it; prints; returns the row, the
+    single-pass result and the probe."""
+    import torch
+    kw = dict(sat_window=2048)
+    one_ms, one = cuda_ms(lambda: aux_trace(metric, form, al, th, 200000,
+                                            True, **kw), 3)
+    probe = {}
+    aux_trace(metric, form, al, th, 200000, True, probe=probe, **kw)
+    two_ms, two = cuda_ms(lambda: aux_trace(metric, form, al, th, 200000,
+                                            True, driver=True, **kw), 3)
+    same = all(same_bits(a, b) for a, b in zip(
+        (one.status, one.final_alpha, *one.extras),
+        (two.status, two.final_alpha, *two.extras)))
+    two256 = aux_trace(metric, form, al, th, 200000, True, driver=True,
+                       pass1_steps=256, **kw)
+    same256 = all(same_bits(a, b) for a, b in zip(
+        (one.status, one.final_alpha, *one.extras),
+        (two256.status, two256.final_alpha, *two256.extras)))
+    n_unc = int(probe["attempts"].gt(256).sum())
+    row = dict(single_ms=one_ms, two_pass_ms=two_ms, bitwise_equal=same,
+               over_256_attempts=n_unc, bitwise_equal_pass1_256=same256,
+               n_steps_single=int(one.n_steps),
+               attempts_sum=int(probe["attempts"].to(torch.int64).sum()))
+    row.update(grinders(probe, width))
+    print(f"  {label}: {json.dumps(row)}", flush=True)
+    require(same and (same256 or n_unc > 1024),
+            f"phase 14 {label}: the driver differs from the single pass on "
+            f"the scene")
+    return row, one, probe
+
+
+def new_mode_phases(dev, card, state):
+    """Phases 14 and 15; returns the kernels-line entries of the Stokes,
+    movie and order forms and of the aux driver."""
+    import torch
+    from light_path_tracer_tpu_torch import (camera, polarization,
+                                             volumetric)
+    from light_path_tracer_tpu_torch.ops import kerr_trace
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    from light_path_tracer_tpu_torch.ops.cuda import volumetric_kernel as vk
+    from light_path_tracer_tpu_torch.utils.config import SceneConfig
+
+    kerr, al, th = state["kerr"], state["al"], state["th"]
+    scene, cfg = state["scene"], state["cfg"]
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    # -- 14. Stokes, movie and order forms vs the plain loop -------------
+    print(f"aux, movie and order forms vs plain version (f32 'fast', "
+          f"{VOL_RAYS} random rays, max_steps {AUX_STEPS}, sat_window "
+          f"{AUX_WINDOW}):", flush=True)
+    forms = aux_forms(kerr, al, th)
+    g14 = {label: aux_both("phase 14", kerr, label, form, al, th, AUX_STEPS,
+                           AUX_WINDOW, f64=not label.startswith("order"))
+           for label, form in forms.items()}
+    # Two orders: the open-ended last bucket takes every later crossing
+    # (2 % of the flux), so a last bucket that is closed breaks the sum.
+    aux_both("phase 14", kerr, "order x2 thin", (
+        volumetric.make_order_transfer(kerr, volumetric.RIAFConfig(), 2),
+        3, (), (1, 2), attempt_flops(8, form_flops("order", 2))),
+        al, th, AUX_STEPS, AUX_WINDOW, f64=False)
+    d256 = VOL_PLAIN_DIM
+    fov256 = camera.fov_from_vertical(scene.vertical_fov, d256)
+    al256 = camera.build_alpha_lookup(d256, fov256, **f32).reshape(-1)
+    th256 = camera.build_theta_lookup(d256, fov256, **f32).reshape(-1)
+    forms256 = aux_forms(kerr, al256, th256)
+    print(f"  the scene's {d256[0]}^2 grid, kernel and plain loop capped "
+          f"alike (attempt cap, sat_window): {json.dumps(GRID_FORMS)}",
+          flush=True)
+    for label, (cap, window) in GRID_FORMS.items():
+        g = aux_both(f"phase 14 {d256[0]}^2", kerr, label, forms256[label],
+                     al256, th256, cap, window, f64=False)
+        if window > AUX_WINDOW:
+            aux_exits(kerr, label, forms256[label], al256, th256,
+                      g["attempts"].ge(cap).nonzero().reshape(-1))
+    # Each form's single pass on the 1024^2 scene, as phase 12 has it for
+    # the thin and 3-band forms: the kernel time that sets phase 15's
+    # frames, and who sets it.
+    dim = VOL_DIM
+    fov = camera.fov_from_vertical(scene.vertical_fov, dim)
+    al15 = camera.build_alpha_lookup(dim, fov, **f32).reshape(-1)
+    th15 = camera.build_theta_lookup(dim, fov, **f32).reshape(-1)
+    forms15 = aux_forms(kerr, al15, th15)
+    print(f"  {dim[0]}^2 scene, kernel single pass (max_steps 200000, "
+          f"sat_window 2048) vs two-pass driver:", flush=True)
+    scene14 = {}
+    for label in GRID_FORMS:
+        row, one, probe = aux_scene(kerr, label, forms15[label], al15, th15,
+                                    dim[1])
+        scene14[label] = row
+        if label == "order thin":
+            order_one = dict(
+                exited=(probe["flags"] & 6).ne(0).cpu().numpy(),
+                status=one.status.cpu().numpy(),
+                winding=one.extras[0].cpu().numpy())
+        del one, probe
+    del al15, th15, forms15
+    # The Mosaic reject limit cycle of ROADMAP Queue 3: the 256^2 order
+    # decomposition's pixel (171, 129), in the kernel and the plain loop.
+    lane = 171 * d256[1] + 129
+    probe = {}
+    sl = slice(lane, lane + 1)
+    order = forms256["order thin"]
+    aux_trace(kerr, order, al256[sl], th256[sl], 200000, True,
+              sat_window=2048, probe=probe)
+    res_p, unconv_p = aux_trace(kerr, order, al256[sl].cpu(),
+                                th256[sl].cpu(), 6000, False,
+                                sat_window=2048, return_unconverged=True)
+    print(f"  order decomposition, {d256[0]}^2 pixel (171, 129), alpha "
+          f"{float(al256[lane]):.6f}: kernel attempts "
+          f"{int(probe['attempts'][0])}, flags {int(probe['flags'][0])} "
+          f"(2 saturation exit, 4 frozen-state exit); plain loop on the "
+          f"CPU n_steps {int(res_p.n_steps)} of 6000, status "
+          f"{int(res_p.status[0])}, step-capped {bool(unconv_p[0])}",
+          flush=True)
+    # The aux driver over the kernel and over the plain loop, bitwise
+    # against the single pass, with a 64-attempt first pass.
+    stokes = forms["stokes toroidal"]
+    k_ms, rk = cuda_ms(lambda: aux_trace(kerr, stokes, al, th, AUX_STEPS,
+                                         True, driver=True, pass1_steps=64),
+                       3)
+    p_ms, rp = cuda_ms(lambda: aux_trace(kerr, stokes, al, th, AUX_STEPS,
+                                         False, driver=True, pass1_steps=64),
+                       1)
+    probe = {}
+    single = aux_trace(kerr, stokes, al, th, AUX_STEPS, True, probe=probe)
+    _r, unc = aux_trace(kerr, stokes, al, th, 64, True,
+                        return_unconverged=True)
+    same = all(same_bits(a, b) for a, b in zip(
+        (single.status, single.final_alpha, *single.extras),
+        (rk.status, rk.final_alpha, *rk.extras)))
+    g_drv = aux_compare(rk, rp, "stokes toroidal")
+    g_drv.update(ms=k_ms, plain_ms=p_ms, bitwise_equal=same,
+                 unconverged_64=int(unc.sum()),
+                 attempts_sum=driver_attempts(probe["attempts"], 64))
+    print(f"  aux driver (Stokes), {VOL_RAYS} random rays, pass1_steps 64, "
+          f"kernel vs plain loop: {json.dumps(g_drv)}", flush=True)
+    require(same and 0 < g_drv["unconverged_64"] <= 1024,
+            "the aux driver differs from the single pass")
+    require(g_drv["status_agree"] > 0.99 and max(g_drv["p99"]) < 1e-3,
+            f"aux driver kernel vs plain gate: {g_drv}")
+
+    # -- 15. the three renders through their entry points -----------------
+    dim = VOL_DIM
+    period = 2.0 * np.pi / abs(volumetric.keplerian_omega(1.0, 0.9, 6.0,
+                                                           True))
+    times = tuple(period * k / N_FRAMES for k in range(N_FRAMES))
+    blob = volumetric.RIAFConfig(spot_amp=8.0)
+    paths = {
+        "polarized": lambda d, device: (
+            polarization.render_polarized_volumetric(
+                scene, d, cfg, volumetric.RIAFConfig(), p0=P0,
+                device=device)),
+        "movie 8-frame": lambda d, device: (
+            volumetric.render_volumetric_movie(scene, d, times, cfg, blob,
+                                               device=device)),
+        "movie 8-frame absorbed": lambda d, device: (
+            volumetric.render_volumetric_movie(
+                scene, d, times, cfg,
+                volumetric.RIAFConfig(spot_amp=8.0, alpha0=0.3),
+                device=device)),
+        "decomposed x3": lambda d, device: (
+            volumetric.render_volumetric_decomposed(
+                scene, d, cfg, volumetric.RIAFConfig(), n_orders=N_ORDERS,
+                device=device))}
+    drivers = (kk.trace_rays_aux_two_pass, kk.trace_rays_spectral_two_pass)
+    plains = (kerr_trace.trace_rays_aux, kerr_trace.trace_rays_spectral)
+    launches, outs = {}, {}
+    for label, render in paths.items():
+        for c in (vk.trace_rays_aux_cuda, *drivers, *plains):
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = render(dim, "cuda")                            # warmup
+        runs = []
+        for _ in range(3):
+            out = render(dim, "cuda")
+            runs.append(dict(out[-1]["timings"]))
+        st = out[-1]
+        best = max(st["total_rays"] / t["precompute"] for t in runs)
+        n_kernel = vk.trace_rays_aux_cuda.launches
+        n_driver = sum(c.launches for c in drivers)
+        n_plain = sum(c.launches for c in plains)
+        launches[label] = n_kernel
+        launches[label + " driver"] = drivers[0].launches
+        outs[label] = out
+        row = dict(kernel_launches=n_kernel, driver_calls=n_driver,
+                   plain_loop_calls=n_plain, best_rays_per_s=best,
+                   peak_mib=torch.cuda.max_memory_allocated(dev) / 2**20,
+                   captured=st["captured"],
+                   integrator_steps=st["integrator_steps"], timings=runs)
+        require(n_kernel == 8 and n_driver == 4 and n_plain == 0,
+                f"{label}: {n_kernel} kernel launches, {n_driver} driver "
+                f"calls, {n_plain} plain calls")
+        require(st["total_rays"] == dim[0] * dim[1]
+                and st["integrator_steps"] > 0, f"{label}: bad stats")
+        if label == "polarized":
+            _evpa, frac, inten, _st = out
+            bright = inten > 1e-3 * inten.max()
+            row.update(pol_frac_max=float(frac[bright].max()),
+                       pol_frac_mean=float(frac[bright].mean()),
+                       q_over_i=float(np.abs(st["Q"]).max() / inten.max()))
+            require(np.isfinite(inten).all() and inten.max() > 0
+                    and row["pol_frac_max"] <= P0 + 1e-4
+                    and row["q_over_i"] > 0.05,
+                    f"polarized: {row}")
+        elif label.startswith("movie"):
+            frames = out[0]
+            lc = st["light_curve"]
+            row.update(light_curve=lc.tolist(), t_max=st["t_max"],
+                       modulation=float((lc.max() - lc.min())
+                                        / (lc.max() + lc.min())))
+            require(tuple(frames.shape) == (N_FRAMES, *dim)
+                    and bool(torch.isfinite(frames).all())
+                    and float(frames.min()) >= 0.0
+                    and float(frames.max()) <= 1.0
+                    and row["modulation"] > 0.01, f"{label}: {row}")
+        else:
+            layers = out[0]
+            flux = st["flux_per_order"]
+            total = layers.sum(dim=0).cpu().numpy()
+            thin = state["thin_emission"]
+            # The two traces carry other states (6 and 9 components), so
+            # their error norms and steps differ. The pixels above the
+            # bar are placed: on the near-axis lanes that either trace's
+            # saturation or frozen-state exit ended (they leave at
+            # another point of their path), within two pixels of a
+            # captured ray, or by the ray's plane crossings.
+            err = np.abs(total - thin) / thin.max()
+            over = err > 1e-3
+            exited = (state["thin_exited"] | order_one["exited"]).reshape(dim)
+            shadow = (order_one["status"] != 1).reshape(dim)
+            rim = np.zeros(dim, dtype=bool)
+            for dy in range(-2, 3):
+                for dx in range(-2, 3):
+                    rim |= np.roll(shadow, (dy, dx), axis=(0, 1))
+            crossings = np.rint(order_one["winding"]).reshape(dim)
+            rest = over & ~exited & ~rim
+            where = {"exit lanes": over & exited,
+                     "shadow rim": over & ~exited & rim,
+                     "three or more crossings": rest & (crossings >= 3),
+                     "two crossings": rest & (crossings == 2),
+                     "fewer crossings": rest & (crossings < 2)}
+            placed = {}
+            for name, mask in where.items():
+                rows, cols = np.nonzero(mask)
+                placed[name] = dict(
+                    pixels=int(mask.sum()),
+                    rows=[int(rows.min()), int(rows.max())] if rows.size
+                    else [],
+                    cols=[int(cols.min()), int(cols.max())] if cols.size
+                    else [],
+                    max=float(err[mask].max()) if rows.size else 0.0)
+            row.update(flux_per_order=flux, gamma=st["gamma_estimates"],
+                       partition_p999=float(np.percentile(err, 99.9)),
+                       partition_p9999=float(np.percentile(err, 99.99)),
+                       partition_over_1e3=int(over.sum()),
+                       partition_over_1e3_placed=placed,
+                       exit_lanes=int(exited.sum()),
+                       rim_pixels=int(rim.sum()),
+                       pixels_by_crossings=[int((crossings == k).sum())
+                                            for k in range(4)],
+                       partition_max=float(err.max()),
+                       flux_total_rel=float(abs(total.sum() / thin.sum()
+                                                - 1.0)))
+            require(bool(torch.isfinite(layers).all())
+                    and flux[0] > flux[1] > flux[2] > 0
+                    and row["partition_p999"] < 1e-3
+                    and row["partition_over_1e3"] < 1e-3 * over.size
+                    and row["flux_total_rel"] < 1e-4, f"{label}: {row}")
+        print(f"{label} {dim[0]}^2: {json.dumps(row)}; best {best:,.0f} "
+              f"rays/s on {card}", flush=True)
+    require(all(a < b for a, b in zip(
+        outs["movie 8-frame absorbed"][1]["light_curve"],
+        outs["movie 8-frame"][1]["light_curve"])),
+        "absorption does not dim every movie frame")
+    _f, st0 = volumetric.render_volumetric_movie(
+        scene, dim, times, cfg, volumetric.RIAFConfig(spot_amp=0.0),
+        device="cuda")
+    lc0 = st0["light_curve"]
+    flat = float((lc0.max() - lc0.min()) / lc0.max())
+    print(f"movie with spot_amp 0: light curve spread {flat:.3e}",
+          flush=True)
+    require(flat == 0.0, f"a stationary flow's light curve varies: {flat}")
+    scene90 = SceneConfig(M=1.0, a=0.9, r_obs_mult=R_OBS,
+                          vertical_fov_deg=16.0)
+    _e, _p, i90, s90 = polarization.render_polarized_volumetric(
+        scene90, VOL_PLAIN_DIM, cfg, device="cuda")
+    h = VOL_PLAIN_DIM[0]
+    top, bottom = slice(1, h // 2), slice(h - 1, h // 2, -1)
+    sym = {k: float(np.abs(s90[k][top] - sign * s90[k][bottom]).max()
+                    / i90.max())
+           for k, sign in (("I", 1.0), ("Q", 1.0), ("U", -1.0))}
+    print(f"polarized {h}^2 at theta_obs 90 deg, mirror residuals / peak: "
+          f"{json.dumps(sym)}", flush=True)
+    require(max(sym.values()) < 0.02, f"no mirror symmetry: {sym}")
+
+    d64 = VOL_CHECK_DIM
+    checks = {}
+    paths["decomposed x3 absorbed"] = lambda d, device: (
+        volumetric.render_volumetric_decomposed(
+            scene, d, cfg, volumetric.RIAFConfig(alpha0=0.3),
+            n_orders=N_ORDERS, device=device))
+    for label, render in paths.items():
+        og, oc = render(d64, "cuda"), render(d64, "cpu")
+        if label == "polarized":
+            peak = oc[2].max()
+            checks[label] = {k: float(np.median(np.abs(og[3][k] - oc[3][k]))
+                                      / peak) for k in "IQU"}
+            ok = max(checks[label].values()) < 1e-5
+        elif label.startswith("movie"):
+            checks[label] = dict(median=float(
+                (og[0].cpu() - oc[0]).abs().median()))
+            ok = checks[label]["median"] < 1e-4
+        else:
+            # Every order on its own, by phase 14's gates.
+            checks[label] = order_numbers(
+                og[0].cpu().numpy().astype(np.float64).reshape(N_ORDERS, -1),
+                oc[0].numpy().astype(np.float64).reshape(N_ORDERS, -1))
+            ok = order_gate(checks[label])
+        require(ok, f"64^2 {label} card vs CPU: {checks[label]}")
+    print(f"new modes check, 64^2 card vs CPU: {json.dumps(checks)}",
+          flush=True)
+
+    jax_file = VOL_JAX
+    entries = []
+    for label, name, source, path in (
+            ("stokes toroidal", "kerr_dp45_stokes", STOKES_SOURCE,
+             "polarized"),
+            ("movie thin", "kerr_dp45_movie_thin",
+             MOVIE_SOURCE.format("thin"), "movie 8-frame"),
+            ("movie absorbed", "kerr_dp45_movie_absorbed",
+             MOVIE_SOURCE.format("absorbed"), "movie 8-frame absorbed"),
+            ("order thin", "kerr_dp45_orders", ORDER_SOURCE,
+             "decomposed x3")):
+        g, form = g14[label], forms[label]
+        entries.append(kernel_entry(
+            name, source, f"{jax_file}:276", launches[path], g["max_abs"],
+            g["ms"], g["plain_ms"], VOL_RAYS,
+            8 + 4 * len(form[2]) + 4 * (form[1] + 4),
+            g["attempts_sum"] * form[4], g))
+        row = scene14[label]
+        entries[-1].update(scene_single_ms=row["single_ms"],
+                           scene_attempts_max=row["attempts_max"],
+                           scene_exited=row["exited"])
+    entries.append(kernel_entry(
+        "trace_rays_aux_two_pass", VOL_DRIVERS, f"{jax_file}:421",
+        launches["polarized driver"], g_drv["max_abs"], g_drv["ms"],
+        g_drv["plain_ms"], VOL_RAYS, 8 + 16 + 4 * 7,
+        g_drv["attempts_sum"] * stokes[4]))
+    return entries
+
+
+def probe_phase(dev, card):
+    """Phase 16; returns (the probe's kernels-line entry, the measured
+    rates)."""
+    import torch
+    from light_path_tracer_tpu_torch.ops.cuda import peak_probe
+    print("peak probe, kernel vs the same recurrence in torch (k = 64, "
+          "4,097 elements):", flush=True)
+    worst = {}
+    for form, (_index, dtype, _ops) in peak_probe.FORMS.items():
+        x = torch.linspace(0.1, 0.9, 4097, dtype=dtype, device=dev)
+        got = peak_probe.chain_cuda(x, 64, form)
+        want = peak_probe.chain_plain(x, 64, form)
+        ulp = torch.finfo(dtype).eps
+        bar = (4 * ulp if form == "sin"
+               else 4 * 64 * ulp * float(want.abs().max()))
+        worst[form] = float((got - want).abs().max())
+        require(worst[form] <= bar, f"probe {form}: |d| {worst[form]} > "
+                f"{bar}")
+    print(f"  max |d|: {json.dumps(worst)}", flush=True)
+    peak_probe.chain_cuda.launches = 0
+    rates = peak_probe.measure_rates(dev)
+    n_launch = peak_probe.chain_cuda.launches
+    tera = {f: r["rate"] / 1e12 for f, r in rates.items()}
+    print(f"peak rates on {card} (marginal, chain lengths 2,048 -> 8,192, "
+          f"{peak_probe.N_ELEMENTS} elements): FP32 FMA "
+          f"{tera['fma32']:.2f} TFLOP/s (one chain a thread), "
+          f"{tera['fma32x8']:.2f} TFLOP/s (eight), FP64 FMA "
+          f"{tera['fma64']:.2f} TFLOP/s, mixed {tera['mix']:.2f} TFLOP/s, "
+          f"sinf {tera['sin'] * 1e3:.1f} Gsin/s; {json.dumps(rates)}",
+          flush=True)
+    require(n_launch == 12 * len(rates), f"probe launches {n_launch}")
+    require(rates["fma32x8"]["rate"] > rates["fma64"]["rate"] > 1e12,
+            f"implausible rates: {tera}")
+    # The plain version at the timed shape, with a short chain.
+    x = torch.full((peak_probe.N_ELEMENTS,), 0.5, device=dev)
+    k_plain = 64
+    plain_ms, _ = cuda_ms(lambda: peak_probe.chain_plain(x, k_plain,
+                                                         "fma32x8"), 1)
+    kernel_ms, _ = cuda_ms(lambda: peak_probe.chain_cuda(x, k_plain,
+                                                         "fma32x8"), 5)
+    entry = kernel_entry(
+        "peak_probe", PROBE_SOURCE, "scripts/roofline.py:80", n_launch,
+        worst["fma32x8"], kernel_ms, plain_ms, peak_probe.N_ELEMENTS, 8,
+        16 * k_plain * peak_probe.N_ELEMENTS)
+    return entry, rates
 
 
 def main() -> int:
@@ -988,9 +1801,11 @@ def main() -> int:
         *r_args, pass1_steps=64), 5)
     two_ms_p, r2p = cuda_ms(lambda: trace_disk_rays_two_pass(
         *r_args, pass1_steps=64, trace_fn=trace_disk_rays_plain), 1)
-    same = disk_bitwise(trace_disk_rays_cuda(*r_args), r2k)
+    probe_d = {}
+    same = disk_bitwise(trace_disk_rays_cuda(*r_args, probe=probe_d), r2k)
     g_drv = disk_compare(r2k, r2p)
-    g_drv.update(ms=two_ms_k, plain_ms=two_ms_p, bitwise_equal=same)
+    g_drv.update(ms=two_ms_k, plain_ms=two_ms_p, bitwise_equal=same,
+                 attempts_sum=driver_attempts(probe_d["attempts"], 64))
     print(f"  disk driver, 4096 random rays, pass1_steps 64, kernel vs "
           f"plain loop: {json.dumps(g_drv)}", flush=True)
     require(same, "disk two-pass differs from the single pass at 4096 rays")
@@ -1012,7 +1827,8 @@ def main() -> int:
     plain2_ms, k2p = cuda_ms(lambda: trace_rays_kerr_two_pass(
         *k_args, pass1_steps=64, trace_fn=trace_rays_kerr_plain), 1)
     g_k2 = compare(k2, k2p, al3, ac)
-    kerr_row = dict(single_ms=one_ms, two_pass_ms=two_ms, unconverged=n_unc,
+    kerr_row = dict(attempts_sum=driver_attempts(gmain["attempts"], 64),
+                    single_ms=one_ms, two_pass_ms=two_ms, unconverged=n_unc,
                     bitwise_equal=same, n_steps_single=int(k1.n_steps),
                     n_steps_two_pass=int(k2.n_steps), plain_ms=plain2_ms,
                     kernel_vs_plain=g_k2)
@@ -1108,32 +1924,45 @@ def main() -> int:
             f"64^2 disk card vs CPU: masks {mask_agree:.4f}, median {d64}")
 
     # -- 11-13. the volumetric and spectral paths ------------------------
-    vol_kernels = volumetric_phases(dev, card)
+    vol_kernels, state = volumetric_phases(dev, card)
 
-    print(json.dumps({"kernels": [{
-        "name": "kerr_dp45", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches,
-        "max_abs_err": gmain["max_abs"], "ms": gmain["ms"],
-        "plain_ms": gmain["plain_ms"]}, {
-        "name": "schwarzschild_rk4", "route": "cuda",
-        "source": ORBIT_SOURCE, "replaces": ORBIT_REPLACES,
-        "launches": launches1 + launches2,
-        "max_abs_err": gorb["max_abs"], "ms": gorb["ms"],
-        "plain_ms": gorb["plain_ms"]}, {
-        "name": "kerr_dp45_disk", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": f"{JAX_KERNELS}:316", "launches": launches4,
-        "max_abs_err": gdisk["max_dr"], "ms": gdisk["ms"],
-        "plain_ms": gdisk["plain_ms"]}, {
-        "name": "trace_disk_rays_two_pass", "route": "cuda",
-        "source": DRIVER_SOURCE, "replaces": f"{JAX_KERNELS}:416",
-        "launches": driver4, "max_abs_err": g_drv["max_dr"],
-        "ms": two_ms_k, "plain_ms": two_ms_p}, {
-        "name": "trace_rays_kerr_two_pass", "route": "cuda",
-        "source": DRIVER_SOURCE, "replaces": f"{JAX_KERNELS}:257",
-        "launches": launches_k2, "max_abs_err": g_k2["max_abs"],
-        "ms": kerr_row["two_pass_ms"], "plain_ms": plain2_ms}]
-        + vol_kernels}),
-        flush=True)
+    # -- 14-15. the Stokes, movie and order forms and their renders -------
+    new_kernels = new_mode_phases(dev, card, state)
+
+    # -- 16. the peak probe ------------------------------------------------
+    probe_kernel, rates = probe_phase(dev, card)
+
+    shadow_flops = attempt_flops(5)
+    kernels = [
+        kernel_entry("kerr_dp45", KERNEL_SOURCE, REPLACES, launches,
+                     gmain["max_abs"], gmain["ms"], gmain["plain_ms"],
+                     gmain["n"], 9 + 28,
+                     gmain["attempts_sum"] * shadow_flops, gmain),
+        kernel_entry("schwarzschild_rk4", ORBIT_SOURCE, ORBIT_REPLACES,
+                     launches1 + launches2, gorb["max_abs"], gorb["ms"],
+                     gorb["plain_ms"], gorb["n"], 4 + 13,
+                     gorb["attempts_sum"] * ORBIT_STEP_FLOPS, gorb),
+        kernel_entry("kerr_dp45_disk", KERNEL_SOURCE, f"{JAX_KERNELS}:316",
+                     launches4, gdisk["max_dr"], gdisk["ms"],
+                     gdisk["plain_ms"], gdisk["n"], 8 + 32 + 16,
+                     gdisk["attempts_sum"] * shadow_flops, gdisk),
+        kernel_entry("trace_disk_rays_two_pass", DRIVER_SOURCE,
+                     f"{JAX_KERNELS}:416", driver4, g_drv["max_dr"],
+                     two_ms_k, two_ms_p, int(al_d.numel()), 8 + 32 + 16,
+                     g_drv["attempts_sum"] * shadow_flops),
+        kernel_entry("trace_rays_kerr_two_pass", DRIVER_SOURCE,
+                     f"{JAX_KERNELS}:257", launches_k2, g_k2["max_abs"],
+                     kerr_row["two_pass_ms"], plain2_ms, gmain["n"], 9 + 28,
+                     kerr_row["attempts_sum"] * shadow_flops)]
+    kernels += vol_kernels + new_kernels + [probe_kernel]
+    # The same bound at the float32 rate this card measured in phase 16.
+    for k in kernels:
+        k["bound_ms_measured_rate"] = 1e3 * max(
+            k["flops"] / rates["fma32x8"]["rate"], k["bytes"] / PEAK_BYTES)
+    require(all(k["launches"] > 0 for k in kernels),
+            f"a kernel was not launched on its path: "
+            f"{[k['name'] for k in kernels if k['launches'] <= 0]}")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -17,8 +17,11 @@ through the kernel's disk variant (`trace_disk_rays_cuda`), by default
 inside the two-pass straggler driver (`trace_disk_rays_two_pass`).
 
 The volumetric hot-flow image (`render_volumetric`, optically thin or
-self-absorbed) and the multi-frequency spectral image
-(`render_volumetric_spectrum`) trace through the CUDA extras kernel
+self-absorbed), the multi-frequency spectral image
+(`render_volumetric_spectrum`), the flare movie
+(`render_volumetric_movie`), the photon-ring order decomposition
+(`render_volumetric_decomposed`) and the polarized image
+(`render_polarized_volumetric`) trace through the CUDA extras kernel
 (`ops/cuda/volumetric_kernel.py`), by default inside its two-pass drivers.
 
 This package imports torch and never jax.
@@ -31,12 +34,17 @@ from light_path_tracer_tpu_torch.ops.batch import trace_batch
 from light_path_tracer_tpu_torch.ops.types import TraceResult
 from light_path_tracer_tpu_torch.pipeline import (
     RenderOutput, precompute_final_alpha, render_scene, render_shadow)
+from light_path_tracer_tpu_torch.polarization import (
+    render_polarized_volumetric)
 from light_path_tracer_tpu_torch.utils.config import RenderConfig, SceneConfig
 from light_path_tracer_tpu_torch.volumetric import (
-    RIAFConfig, render_volumetric, render_volumetric_spectrum)
+    RIAFConfig, render_volumetric, render_volumetric_decomposed,
+    render_volumetric_movie, render_volumetric_spectrum)
 
 __all__ = ["Kerr", "Schwarzschild", "ReissnerNordstrom", "make_metric",
            "trace_batch", "TraceResult", "RenderOutput",
            "precompute_final_alpha", "render_scene", "render_shadow",
            "RenderConfig", "SceneConfig", "DiskConfig", "render_disk",
-           "RIAFConfig", "render_volumetric", "render_volumetric_spectrum"]
+           "RIAFConfig", "render_volumetric", "render_volumetric_spectrum",
+           "render_volumetric_movie", "render_volumetric_decomposed",
+           "render_polarized_volumetric"]

@@ -1,9 +1,13 @@
 """`volumetric` subcommand: the hot-flow still image (RIAF torus, power
-law, shell or jet; optically thin or self-absorbed) and, with --freqs,
-the multi-frequency spectral images from one trace. Every flag of the JAX
-package's `volumetric` is registered with its default; the modes not
-ported yet (movies, the order decomposition, polarization, the
-visibility and centroid reports) raise."""
+law, shell or jet; optically thin or self-absorbed); with --freqs the
+multi-frequency spectral images, with --movie the flare-movie frames, with
+--decompose the photon-ring order layers and with --polarization the
+Stokes maps, each from one trace. Every flag of the JAX package's
+`volumetric` is registered with its default. Pictures are written as PNG
+files by this package's own writer and the arrays as .npz; the animated
+GIF, the matplotlib panels and the EVPA tick overlay of the JAX package
+are not drawn. The visibility and centroid reports are not ported yet and
+raise."""
 
 from __future__ import annotations
 
@@ -15,13 +19,117 @@ from light_path_tracer_tpu_torch.cli._shared import (
 
 
 def _reject_unported(args):
-    for flag, used in (("--movie", args.movie),
-                       ("--decompose", args.decompose),
-                       ("--polarization", args.polarization),
-                       ("--visibility", args.visibility),
+    for flag, used in (("--visibility", args.visibility),
                        ("--centroid", args.centroid)):
         if used:
             raise not_ported(f"volumetric {flag}")
+
+
+def _stem(path, suffix):
+    """`path` with its extension replaced by `suffix`; an animated or
+    vector format is refused (this package writes PNG only)."""
+    base, _, ext = path.rpartition(".")
+    if not base or ext.lower() != "png":
+        raise ValueError(
+            f"{path!r}: the PyTorch package writes PNG files (one per "
+            f"frame or order) and .npz arrays; give a .png path")
+    return base + suffix
+
+
+def _polarization(args, scene, cfg, riaf) -> int:
+    import torch
+    from light_path_tracer_tpu_torch.polarization import (
+        render_polarized_volumetric)
+    from light_path_tracer_tpu_torch.utils.save import save_afmhot_png
+    evpa, pol_frac, intensity, stats = render_polarized_volumetric(
+        scene, (args.size, args.size), cfg, riaf, field=args.b_field,
+        device=args.device)
+    img = intensity / max(float(np.nanmax(intensity)), 1e-30)
+    img = np.power(np.clip(img, 0.0, 1.0), 1 / 2.2)
+    frac_path = _stem(args.polarization, "_pol_frac.png")
+    npz_path = _stem(args.polarization, ".npz")
+    save_afmhot_png(args.polarization, torch.from_numpy(
+        img.astype(np.float32)))
+    save_afmhot_png(frac_path, torch.from_numpy(
+        np.clip(pol_frac, 0.0, 1.0).astype(np.float32)))
+    np.savez(npz_path, evpa=evpa, pol_frac=pol_frac, I=stats["I"],
+             Q=stats["Q"], U=stats["U"])
+    sel = np.isfinite(evpa)
+    print(f"Polarized volumetric ({args.b_field}): "
+          f"{args.size}x{args.size}, {stats['integrator_steps']:,} steps, "
+          f"mean pol fraction {np.nanmean(pol_frac[sel]):.3f} over "
+          f"{int(sel.sum()):,} px")
+    print(f"Saved: {args.polarization} (intensity), {frac_path}, "
+          f"{npz_path} (evpa, pol_frac, I, Q, U)")
+    return 0
+
+
+def _movie(args, scene, cfg, riaf) -> int:
+    from light_path_tracer_tpu_torch.disk import keplerian_omega
+    from light_path_tracer_tpu_torch.utils.save import save_afmhot_png
+    from light_path_tracer_tpu_torch.volumetric import (
+        render_volumetric_movie)
+    period = abs(2.0 * np.pi / keplerian_omega(
+        scene.M, scene.a, args.spot_r, not args.retrograde, Q=scene.Q))
+    times = tuple(period * args.orbits * k / args.movie
+                  for k in range(args.movie))
+    paths = [_stem(args.output, f"_{k:03d}.png") for k in range(args.movie)]
+    frames, stats = render_volumetric_movie(
+        scene, (args.size, args.size), times, cfg, riaf, device=args.device)
+    for path, frame in zip(paths, frames):
+        save_afmhot_png(path, frame)
+    npz_path = _stem(args.output, "_movie.npz")
+    np.savez(npz_path, times=stats["times"],
+             light_curve=stats["light_curve"], emission=stats["emission"])
+    t = stats["timings"]
+    print(f"Flare movie: {args.movie} frames ({args.orbits} orbit(s), "
+          f"period {period:.1f} M) from ONE trace "
+          f"({stats['integrator_steps']:,} steps, "
+          f"{t.get('precompute', 0.0):.3f}s)")
+    lc = stats["light_curve"]
+    print(f"  light curve modulation "
+          f"{(lc.max() - lc.min()) / (lc.max() + lc.min()):.1%}, "
+          f"retarded-time span {stats['t_max']:.0f} M")
+    print(f"Saved: {paths[0]} .. {paths[-1]} + {npz_path}")
+    return 0
+
+
+def _decompose(args, scene, cfg, riaf) -> int:
+    import torch
+    from light_path_tracer_tpu_torch.disk import decomposed_display
+    from light_path_tracer_tpu_torch.utils.save import save_afmhot_png
+    from light_path_tracer_tpu_torch.volumetric import (
+        render_volumetric_decomposed)
+    n_ord = max(args.orders, 2)
+    names = ["composite"] + [f"n{k}" for k in range(n_ord)]
+    paths = [_stem(args.decompose, f"_{name}.png") for name in names]
+    layers, stats = render_volumetric_decomposed(
+        scene, (args.size, args.size), cfg, riaf, n_orders=n_ord,
+        device=args.device)
+    stack = torch.cat([layers.sum(dim=0)[None], layers])
+    for path, im in zip(paths, decomposed_display(stack, riaf.tone_map)):
+        save_afmhot_png(path, im)
+    npz_path = _stem(args.decompose, ".npz")
+    np.savez(npz_path, layers=layers.cpu().numpy(),
+             flux_per_order=np.asarray(stats["flux_per_order"]),
+             mean_radius_rad=np.asarray(stats["mean_radius_rad"]),
+             winding=stats["winding"])
+    flux = np.asarray(stats["flux_per_order"])
+    frac = flux / max(flux.sum(), 1e-300)
+    t = stats["timings"]
+    print(f"Decomposition: {args.size}x{args.size}, a={args.a}, "
+          f"{n_ord} orders from ONE trace "
+          f"({stats['integrator_steps']:,} steps, "
+          f"{t.get('precompute', 0.0):.3f}s)")
+    for k in range(n_ord):
+        mr = np.degrees(stats["mean_radius_rad"][k])
+        print(f"  n={k}: flux {frac[k]:.2%}, mean radius {mr:.3f} deg")
+    print(f"  alpha_crit {np.degrees(stats['alpha_crit']):.3f} deg; "
+          f"flux ratios {[f'{r:.3g}' for r in stats['flux_ratios']]}; "
+          f"demagnification exponent(s) "
+          f"{[f'{g:.2f}' for g in stats['gamma_estimates']]}")
+    print(f"Saved: {paths[0]} .. {paths[-1]} + {npz_path}")
+    return 0
 
 
 def _save_bands(path, images):
@@ -70,16 +178,24 @@ def cmd_volumetric(args) -> int:
     _reject_unported(args)
     scene = _scene_from(args)
     cfg = _render_cfg_from(args)
-    # The blob only takes part in movies, which are not ported.
+    # The blob only takes part in movies (the still and spectral
+    # emissivities are stationary).
     riaf = RIAFConfig(
         profile=args.profile, r_peak=args.r_peak, sigma_r=args.sigma_r,
         h_cos=args.h_cos, index=args.index, shell_in=args.shell_in,
         shell_out=args.shell_out, g_power=args.g_power,
         prograde=not args.retrograde, tone_map=args.tone_map,
         alpha0=args.alpha0, opacity_index=args.opacity_index,
-        spot_amp=0.0, spot_r=args.spot_r, spot_sigma=args.spot_sigma,
+        spot_amp=args.spot_amp if args.movie else 0.0,
+        spot_r=args.spot_r, spot_sigma=args.spot_sigma,
         jet_beta=args.jet_beta, jet_cos=args.jet_cos,
         jet_sigma=args.jet_sigma, jet_r_base=args.jet_r_base)
+    if args.polarization:
+        return _polarization(args, scene, cfg, riaf)
+    if args.movie:
+        return _movie(args, scene, cfg, riaf)
+    if args.decompose:
+        return _decompose(args, scene, cfg, riaf)
     if args.freqs:
         return _spectrum(args, scene, cfg, riaf)
 
@@ -155,7 +271,10 @@ def register(sub):
                    help="q in alpha_nu ~ nu^-q (0 = gray); with --freqs "
                         "it makes the photosphere frequency-dependent")
     p.add_argument("--movie", type=int, metavar="N",
-                   help="flare movie of N frames (not ported yet)")
+                   help="flare movie: N observer-time frames of an "
+                        "orbiting hot-spot blob from one trace; writes "
+                        "OUTPUT_000.png .. and OUTPUT_movie.npz (times, "
+                        "light curve, raw frames); no GIF is written")
     p.add_argument("--orbits", type=float, default=1.0,
                    help="blob orbits covered by the movie")
     p.add_argument("--spot-amp", type=float, default=5.0,
@@ -165,15 +284,23 @@ def register(sub):
     p.add_argument("--centroid", default=None, metavar="PLOT.png",
                    help="with --movie: photocenter track (not ported yet)")
     p.add_argument("--decompose", default=None, metavar="PANEL.png",
-                   help="photon-ring order decomposition (not ported yet)")
+                   help="photon-ring order decomposition from one trace: "
+                        "writes PANEL_composite.png, PANEL_n0.png .. on a "
+                        "shared tone map and PANEL.npz (layers, fluxes, "
+                        "radii, winding); no matplotlib panel is drawn")
     p.add_argument("--orders", type=int, default=3,
                    help="image orders for --decompose (>= 2)")
     p.add_argument("--spot-sigma", type=float, default=1.0,
                    help="blob Gaussian size [M]")
     p.add_argument("--fps", type=float, default=12.0,
-                   help="movie GIF frame rate")
+                   help="movie frame rate (kept for the JAX package's "
+                        "command line; no animated file is written)")
     p.add_argument("--polarization", default=None, metavar="PLOT.png",
-                   help="polarized volumetric image (not ported yet)")
+                   help="polarized mode (Kerr only, optically thin): "
+                        "Stokes I/Q/U path integrals; writes the intensity "
+                        "map to PLOT.png, the polarization fraction to "
+                        "PLOT_pol_frac.png and evpa, pol_frac, I, Q, U to "
+                        "PLOT.npz; no EVPA tick overlay is drawn")
     p.add_argument("--b-field", default="toroidal",
                    choices=["vertical", "toroidal", "radial"],
                    help="magnetic-field geometry for --polarization")

@@ -1,8 +1,9 @@
 // Shared device code of the Kerr DP45 kernels (kerr_dp45.cu: shadow and
-// disk variants; kerr_dp45_extras.cu: the volumetric and spectral
-// transfer): the tableau, the NaN-propagating clamps, Hamilton's equations
-// on the reduced theta-state, the Hermite event root and the Bardeen
-// initial conditions. Every function is inlined into its caller.
+// disk variants; kerr_dp45_extras.cuh: the extras kernel of the volumetric,
+// spectral, Stokes, movie and order transfers): the tableau, the
+// NaN-propagating clamps, Hamilton's equations on the reduced theta-state,
+// the Hermite event root and the Bardeen initial conditions. Every function
+// is inlined into its caller.
 //
 // Numerics follow the float32 path of the JAX package's dp45_integrate:
 // the tableau is the double coefficients rounded to float, stage sums are

@@ -45,7 +45,7 @@ from light_path_tracer_tpu_torch.utils.timing import StageTimer
 __all__ = ["DiskConfig", "DiskTraceResult", "r_isco", "disk_temperature",
            "keplerian_omega", "keplerian_redshift",
            "covariant_tphi_components", "trace_disk_rays", "disk_emission",
-           "render_disk"]
+           "decomposed_display", "render_disk"]
 
 
 def _not_ported(what):
@@ -326,14 +326,24 @@ def disk_emission(scene: SceneConfig, disk: DiskConfig, r_in,
     return intensity, rgb
 
 
-def _tone_map(x, mode: str):
-    """Tone map normalised to this frame's own maximum."""
-    peak = torch.clamp(torch.max(x), min=1e-12)
+def _tone_map(x, mode: str, peak=None):
+    """Tone map normalised to this frame's own maximum, or to `peak`
+    (sequences pass their common maximum so frames are comparable)."""
+    peak = torch.clamp(torch.max(x) if peak is None else peak, min=1e-12)
     if mode == "asinh":
         return torch.asinh(10.0 * x / peak) / math.asinh(10.0)
     if mode == "sqrt":
         return torch.sqrt(x / peak)
     return x / peak
+
+
+def decomposed_display(layers, tone_map: str = "asinh"):
+    """Tone map of image-order layers (n, H, W) for display, every order
+    scaled by the peak over all of them, so the subrings'
+    demagnification stays visible. Returns float32 in [0, 1]."""
+    peak = torch.max(layers)
+    return torch.stack([_tone_map(layer, tone_map, peak=peak)
+                        for layer in layers]).to(torch.float32)
 
 
 def _finish_image(intensity, rgb, resolution, tone_map: str):

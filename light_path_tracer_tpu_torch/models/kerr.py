@@ -7,8 +7,8 @@ the shadow main path:
     and the shadow-envelope alpha_crit;
   * the batched hot path over torch tensors: screen -> conserved-quantity
     initial conditions, Hamilton's equations on the reduced 5-D state
-    [r, theta, phi, p_r, p_theta] (`rhs5`), the certain-plunge radius,
-    and the final-angle extraction.
+    [r, theta, phi, p_r, p_theta] (`rhs5`), the coordinate-time rate
+    (`tdot`), the certain-plunge radius, and the final-angle extraction.
 
 Every batched method computes in the dtype of its input tensors, with the
 metric parameters as 0-dim tensors of that dtype, in the same operation
@@ -35,6 +35,28 @@ _SIN2_FLOOR = 1e-15
 def _scalar(x, like):
     """0-dim tensor of x in `like`'s dtype and device."""
     return torch.full((), float(x), dtype=like.dtype, device=like.device)
+
+
+def inverse_metric_terms(M, a, r, th):
+    """The five nonzero contravariant Kerr metric components (g^tt,
+    g^tphi, g^rr, g^thth, g^phiphi) at tensors (r, th); M and a are
+    0-dim tensors or Python floats."""
+    sin_th = torch.sin(th)
+    cos_th = torch.cos(th)
+    sin2 = torch.clamp(sin_th * sin_th, min=_SIN2_FLOOR)
+    r2 = r * r
+    a2 = a * a
+    Sigma = r2 + a2 * cos_th * cos_th
+    Delta = r2 - 2.0 * M * r + a2
+    ra2 = r2 + a2
+    A = ra2 * ra2 - a2 * Delta * sin2
+    SD = Sigma * Delta
+    g_tt = -A / SD
+    g_tphi = -2.0 * M * a * r / SD
+    g_rr = Delta / Sigma
+    g_thth = 1.0 / Sigma
+    g_phiphi = (Delta - a2 * sin2) / (SD * sin2)
+    return g_tt, g_tphi, g_rr, g_thth, g_phiphi
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,23 +138,7 @@ class Kerr(Metric):
         return r * r - 2.0 * M * r + a * a
 
     def _inv_terms(self, r, th, M, a):
-        """The five nonzero contravariant Kerr metric components."""
-        sin_th = torch.sin(th)
-        cos_th = torch.cos(th)
-        sin2 = torch.clamp(sin_th * sin_th, min=_SIN2_FLOOR)
-        r2 = r * r
-        a2 = a * a
-        Sigma = r2 + a2 * cos_th * cos_th
-        Delta = r2 - 2.0 * M * r + a2
-        ra2 = r2 + a2
-        A = ra2 * ra2 - a2 * Delta * sin2
-        SD = Sigma * Delta
-        g_tt = -A / SD
-        g_tphi = -2.0 * M * a * r / SD
-        g_rr = Delta / Sigma
-        g_thth = 1.0 / Sigma
-        g_phiphi = (Delta - a2 * sin2) / (SD * sin2)
-        return g_tt, g_tphi, g_rr, g_thth, g_phiphi
+        return inverse_metric_terms(M, a, r, th)
 
     def _observer(self, r_obs, theta_obs, like, M, a):
         """Observer-position scalars (r, th, sin, cos, Sigma, Delta) as
@@ -305,6 +311,16 @@ class Kerr(Metric):
 
         out = torch.stack((dr, dth, dphi, dp_r, dp_th))
         return torch.where(frozen, torch.zeros_like(out), out)
+
+    def tdot(self, state5, p_t, p_phi):
+        """Coordinate-time rate dt/dlambda = g^tt p_t + g^tphi p_phi
+        along the reduced flow: the t-row of the full Hamiltonian system
+        that the 5-D state drops. t never feeds back into the dynamics;
+        the flare movie integrates it as an extra component."""
+        r, th = state5[0], state5[1]
+        M, a = _scalar(self.M, r), _scalar(self.a, r)
+        g_tt, g_tphi, *_rest = self._inv_terms(r, th, M, a)
+        return g_tt * p_t + g_tphi * p_phi
 
     def extract_angle(self, state5, p_t, p_phi, captured):
         """Final deflection angle from the integrated state, batched.

@@ -110,9 +110,14 @@ def _declare(lib):
     fn.argtypes = ([_P] * 14 + [_I] * 3 + [_F] * 6 + [_I] + [_F] * 9 + [_I]
                    + [_P])
     fn.restype = _I
-    fn = lib.lpt_kerr_dp45_extras
-    fn.argtypes = ([_I] * 2 + [_P] * 9 + [_I] + [_F] * 6 + [_I] + [_F] * 7
-                   + [_I, ctypes.c_uint, _F, _P, _P])
+    for name in ("lpt_kerr_dp45_extras", "lpt_kerr_dp45_stokes",
+                 "lpt_kerr_dp45_movie_thin", "lpt_kerr_dp45_movie_absorbed",
+                 "lpt_kerr_dp45_orders"):
+        fn = getattr(lib, name)
+        fn.argtypes = [_P, _P]
+        fn.restype = _I
+    fn = lib.lpt_peak_probe
+    fn.argtypes = [_I, _P, _P, _I, _I, ctypes.c_double, ctypes.c_double, _P]
     fn.restype = _I
     fn = lib.lpt_orbit_rk4
     fn.argtypes = [_P] * 6 + [_I] * 2 + [_F] * 13 + [_I] * 2 + [_P]

@@ -100,14 +100,16 @@ def trace_rays_kerr_cuda(metric, r_obs, alphas, thetas, theta_obs,
                          axis_refine, lambda_max: float,
                          max_steps: int = 200000, precision: str = "fast",
                          formulation: str = "theta",
-                         return_unconverged: bool = False):
+                         return_unconverged: bool = False,
+                         probe: dict | None = None):
     """Trace N Kerr rays with the CUDA kernel; returns TraceResult.
 
     Same arguments and result as trace_rays_kerr_plain (with
     return_unconverged, (TraceResult, raw-RUNNING mask)). alphas/thetas:
     (N,) contiguous float32 CUDA tensors; axis_refine: (N,) bool on the
-    same device. Launches on the current stream and does not synchronise.
-    CPU tensors go to the plain version; other devices raise.
+    same device. probe: a dict that receives the per-ray "attempts".
+    Launches on the current stream and does not synchronise. CPU tensors
+    go to the plain version; other devices raise.
     """
     if not _check_call(alphas, metric, formulation, max_steps):
         return trace_rays_kerr_plain(
@@ -138,6 +140,8 @@ def trace_rays_kerr_cuda(metric, r_obs, alphas, thetas, theta_obs,
             _h_init_for(r_obs), float(metric.capture_radius()), stream)
     check(lib, rc, "kerr_dp45 launch")
     trace_rays_kerr_cuda.launches += 1
+    if probe is not None:
+        probe["attempts"] = attempts
 
     _y0, p_t, p_phi, _inv = metric.initial_conditions_5d(
         r_obs, alphas, thetas, theta_obs)
@@ -159,15 +163,17 @@ def trace_disk_rays_cuda(metric, r_obs, alphas, thetas, theta_obs,
                          max_disk_hits: int = 2, precision: str = "fast",
                          formulation: str = "theta",
                          return_unconverged: bool = False,
-                         record_momentum: bool = False):
+                         record_momentum: bool = False,
+                         probe: dict | None = None):
     """Trace N Kerr rays with the kernel's disk variant; returns
     DiskTraceResult (with return_unconverged, (DiskTraceResult,
     raw-RUNNING mask)).
 
     Same arguments and result as trace_disk_rays_plain. disk_plane =
     (r_in, r_out, theta_plane, opaque); max_disk_hits 1..4. alphas/
-    thetas: (N,) contiguous float32 CUDA tensors. Launches on the current
-    stream and does not synchronise. CPU tensors go to the plain version.
+    thetas: (N,) contiguous float32 CUDA tensors. probe: a dict that
+    receives the per-ray "attempts". Launches on the current stream and
+    does not synchronise. CPU tensors go to the plain version.
     """
     if not _check_call(alphas, metric, formulation, max_steps):
         return trace_disk_rays_plain(
@@ -210,6 +216,8 @@ def trace_disk_rays_cuda(metric, r_obs, alphas, thetas, theta_obs,
             math.cos(theta_plane), int(bool(opaque)), stream)
     check(lib, rc, "kerr_dp45_disk launch")
     trace_disk_rays_cuda.launches += 1
+    if probe is not None:
+        probe["attempts"] = attempts
 
     hits["n"] = n_hits
     _y0, p_t, p_phi, _inv = metric.initial_conditions_5d(

@@ -1,24 +1,27 @@
 """Wrappers of the hand-written CUDA extras kernel
-(csrc/kerr_dp45_extras.cu): the volumetric (thin and self-absorbed) and
-the multi-frequency spectral transfer traces.
+(csrc/kerr_dp45_extras.cuh and its families' sources): the volumetric
+(thin and self-absorbed), multi-frequency spectral, flare-movie,
+photon-ring order and polarized (Stokes) transfer traces.
 
 The counterpart of the single-pass entries of
 `light_path_tracer_tpu.ops.pallas.volumetric_kernel`:
-`trace_rays_volumetric_pallas`, and `trace_rays_aux_pallas` /
-`trace_rays_spectral_pallas` for transfer functions without per-ray
-auxiliary inputs. The kernel runs one thread per ray through initial
-conditions, the adaptive loop over 5 + n extras components and the
-angle extraction, so a launch returns the finished result; its two-pass
-drivers are in `kerr_trace_kernel.py` beside the shadow and disk ones.
+`trace_rays_volumetric_pallas`, `trace_rays_aux_pallas` (with its per-ray
+auxiliary inputs) and `trace_rays_spectral_pallas`. The kernel runs one
+thread per ray through initial conditions, the adaptive loop over 5 + n
+extras components and the angle extraction, so a launch returns the
+finished result; its two-pass drivers are in `kerr_trace_kernel.py`
+beside the shadow and disk ones.
 
-The kernel evaluates the transfer functions of `volumetric.py` itself,
-from the description each one carries (`fn.kernel`, a
-`volumetric.KernelTransfer`): the profile, the flow and every constant.
-`KernelTransfer.constants` forms the constants in double, as the JAX
-package's float32 closures form them, and `riaf_params` rounds each once.
-A CUDA float32 tensor launches the kernel, and any other CUDA input raises (a float64 tensor, a transfer function without a
-description, more than 8 bands, per-ray aux inputs); CPU tensors run the
-plain loop (`ops/kerr_trace.py`).
+The kernel evaluates the transfer functions of `volumetric.py` and
+`polarization.py` itself, from the description each one carries
+(`fn.kernel`, a `volumetric.KernelTransfer`): the profile, the flow and
+every constant. `KernelTransfer.constants` forms the constants in double,
+as the JAX package's float32 closures form them, and `riaf_params` rounds
+each once. A CUDA float32 tensor launches the kernel, and any other CUDA
+input raises (a float64 tensor, a transfer function without a
+description, more than 8 bands or frames, more than 4 orders, aux inputs
+the transfer function does not take); CPU tensors run the plain loop
+(`ops/kerr_trace.py`).
 """
 
 from __future__ import annotations
@@ -36,17 +39,28 @@ from light_path_tracer_tpu_torch.ops.kerr_trace import (
     volumetric_result)
 from light_path_tracer_tpu_torch.ops.types import ExtrasResult
 
-__all__ = ["RiafParams", "riaf_params", "trace_rays_volumetric_cuda",
-           "trace_rays_aux_cuda", "trace_rays_spectral_cuda", "MAX_BANDS"]
+__all__ = ["RiafParams", "ExtrasCall", "riaf_params",
+           "trace_rays_volumetric_cuda", "trace_rays_aux_cuda",
+           "trace_rays_spectral_cuda", "MAX_BANDS", "MAX_FRAMES",
+           "MAX_ORDERS", "MAX_AUX"]
 
-# Band counts the spectral form is compiled for (csrc/kerr_dp45_extras.cu).
+# What the families are compiled for (csrc/): spectral bands, movie
+# frames, image orders (2..MAX_ORDERS) and per-ray aux constants.
 MAX_BANDS = 8
+MAX_FRAMES = 8
+MAX_ORDERS = 4
+MAX_AUX = 4
 
 _PROFILES = {"torus": 0, "powerlaw": 1, "shell": 2, "jet": 3}
+_FIELDS = {"vertical": 0, "toroidal": 1, "radial": 2}
 _FLOATS = ("two_M", "a", "a2", "kep_num", "kep_add", "r_peak", "two_sig_r2",
            "two_h2", "index", "shell_in", "shell_out", "edge_width",
            "jet_cos", "two_jet_sig2", "jet_r_base", "jet_beta", "jet_gamma",
            "g_power", "alpha0", "q_minus_1", "tau_floor")
+_SPOT_FLOATS = ("spot_amp", "spot_phase", "spot_omega", "spot_r", "spot_r2",
+                "two_spot_sig2")
+_ORDER_FLOATS = ("order_norm", "order_inv_two_sig2")
+_STOKES_FLOATS = ("two_Ma", "two_Ma2", "flow_sign", "p0")
 
 
 class RiafParams(ctypes.Structure):
@@ -56,7 +70,30 @@ class RiafParams(ctypes.Structure):
     _fields_ = ([("profile", ctypes.c_int), ("geometry", ctypes.c_int)]
                 + [(name, ctypes.c_float) for name in _FLOATS]
                 + [("neg_c", ctypes.c_float * MAX_BANDS),
-                   ("band_scale", ctypes.c_float * MAX_BANDS)])
+                   ("band_scale", ctypes.c_float * MAX_BANDS)]
+                + [(name, ctypes.c_float) for name in _SPOT_FLOATS]
+                + [("times", ctypes.c_float * MAX_FRAMES)]
+                + [(name, ctypes.c_float) for name in _ORDER_FLOATS]
+                + [("field", ctypes.c_int)]
+                + [(name, ctypes.c_float) for name in _STOKES_FLOATS])
+
+
+class ExtrasCall(ctypes.Structure):
+    """The kernel's ExtrasCall, field for field: the device pointers and
+    the stream first, then the 4-byte scalars."""
+
+    _fields_ = ([("alpha", ctypes.c_void_p), ("theta", ctypes.c_void_p),
+                 ("aux", ctypes.c_void_p * MAX_AUX)]
+                + [(name, ctypes.c_void_p) for name in (
+                    "extras", "final_alpha", "n_half", "status", "steps",
+                    "flags", "warp_steps", "stream")]
+                + [(name, ctypes.c_int) for name in (
+                    "n", "form", "variant", "max_steps", "sat_window")]
+                + [("sat_monitor", ctypes.c_uint)]
+                + [(name, ctypes.c_float) for name in (
+                    "M", "a", "r_plus", "r_obs", "theta_obs", "lambda_max",
+                    "atol", "rtol", "h_min", "tiny_err", "h_init",
+                    "r_capture", "r_reclass", "sat_r_max")])
 
 
 def riaf_params(spec) -> RiafParams:
@@ -64,12 +101,16 @@ def riaf_params(spec) -> RiafParams:
     constants, formed in double by KernelTransfer.constants, each rounded
     once to float32 by ctypes."""
     k = spec.constants()
+    names = _FLOATS + _SPOT_FLOATS + _ORDER_FLOATS + _STOKES_FLOATS
     p = RiafParams(profile=_PROFILES[spec.riaf.profile],
                    geometry=int(k["g_power"] == 0.0),
-                   **{name: k[name] for name in _FLOATS})
+                   field=_FIELDS.get(spec.field, 0),
+                   **{name: k[name] for name in names})
     for i, (ci, bs) in enumerate(zip(k["c"], k["band_scale"])):
         p.neg_c[i] = -ci
         p.band_scale[i] = bs
+    for i, t in enumerate(spec.times):
+        p.times[i] = t
     return p
 
 
@@ -82,24 +123,32 @@ def _kernel_transfer(fn, kinds, metric):
         raise NotImplementedError(
             "the CUDA extras kernel evaluates the transfer functions of "
             "light_path_tracer_tpu_torch.volumetric (make_transfer_fns, "
-            "make_spectral_transfer); other Python transfer functions run "
-            "on CPU tensors only")
+            "make_spectral_transfer, make_movie_transfer, "
+            "make_order_transfer) and polarization "
+            "(make_polarized_volumetric_transfer); other Python transfer "
+            "functions run on CPU tensors only")
     if spec.metric != metric:
         raise ValueError(f"the transfer function was made for "
                          f"{spec.metric}, not {metric}")
     return spec
 
 
-def _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
-            max_steps, precision, form, n_extras, params, sat_window,
-            sat_monitor, probe):
-    """One kernel launch; returns (ExtrasResult, unconverged mask)."""
+def _launch(entry, metric, r_obs, alphas, thetas, theta_obs, lambda_max,
+            max_steps, precision, form, variant, n_extras, params,
+            sat_window, sat_monitor, probe, aux=()):
+    """One kernel launch through the C entry point `entry`; returns
+    (ExtrasResult, unconverged mask)."""
     _check_inputs((("alphas", alphas, torch.float32),
-                   ("thetas", thetas, torch.float32)), alphas)
+                   ("thetas", thetas, torch.float32))
+                  + tuple((f"aux[{i}]", a, torch.float32)
+                          for i, a in enumerate(aux)), alphas)
     if sat_window and not sat_monitor:
         raise ValueError("sat_window > 0 needs a non-empty sat_monitor "
                          "(with nothing monitored every in-band lane "
                          "would 'saturate')")
+    if any(not 0 <= int(i) < n_extras for i in sat_monitor):
+        raise ValueError(f"sat_monitor {tuple(sat_monitor)} names extras "
+                         f"outside 0..{n_extras - 1}")
     n = alphas.numel()
     dev = alphas.device
     extras = torch.empty((n_extras, n), dtype=torch.float32, device=dev)
@@ -113,22 +162,28 @@ def _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
     tols = get_tols(torch.float32, precision)
     lib = load_library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lpt_kerr_dp45_extras(
-            form, n_extras - 1, alphas.data_ptr(), thetas.data_ptr(),
-            extras.data_ptr(), final_alpha.data_ptr(), n_half.data_ptr(),
-            status.data_ptr(), None if steps is None else steps.data_ptr(),
-            flags.data_ptr(), n_steps.data_ptr(), n,
-            float(metric.M), float(metric.a), float(metric.r_plus),
-            float(r_obs), float(theta_obs), float(lambda_max),
-            int(max_steps), tols["atol"], tols["rtol"], tols["h_min"],
-            tols["tiny_err"], _h_init_for(r_obs),
-            float(metric.capture_radius()),
-            float(metric.capture_radius() * 1.1), int(sat_window),
-            sum(1 << int(i) for i in sat_monitor),
-            saturation_r_max(metric) if sat_window else 0.0,
-            ctypes.byref(params), stream)
-    check(lib, rc, "kerr_dp45_extras launch")
+        call = ExtrasCall(
+            alpha=alphas.data_ptr(), theta=thetas.data_ptr(),
+            extras=extras.data_ptr(), final_alpha=final_alpha.data_ptr(),
+            n_half=n_half.data_ptr(), status=status.data_ptr(),
+            steps=None if steps is None else steps.data_ptr(),
+            flags=flags.data_ptr(), warp_steps=n_steps.data_ptr(),
+            stream=torch.cuda.current_stream().cuda_stream,
+            n=n, form=int(form), variant=int(variant),
+            max_steps=int(max_steps), sat_window=int(sat_window),
+            sat_monitor=sum(1 << int(i) for i in sat_monitor),
+            M=float(metric.M), a=float(metric.a),
+            r_plus=float(metric.r_plus), r_obs=float(r_obs),
+            theta_obs=float(theta_obs), lambda_max=float(lambda_max),
+            atol=tols["atol"], rtol=tols["rtol"], h_min=tols["h_min"],
+            tiny_err=tols["tiny_err"], h_init=_h_init_for(r_obs),
+            r_capture=float(metric.capture_radius()),
+            r_reclass=float(metric.capture_radius() * 1.1),
+            sat_r_max=saturation_r_max(metric) if sat_window else 0.0)
+        for i, a in enumerate(aux):
+            call.aux[i] = a.data_ptr()
+        rc = getattr(lib, entry)(ctypes.byref(call), ctypes.byref(params))
+    check(lib, rc, f"{entry} launch")
     if probe is not None:
         probe["attempts"] = steps
         probe["flags"] = flags
@@ -181,9 +236,9 @@ def trace_rays_volumetric_cuda(metric, r_obs, alphas, thetas, theta_obs,
                              "different RIAF configurations")
     absorbing = absorption_fn is not None
     res, unconv = _launch(
-        metric, r_obs, alphas, thetas, theta_obs, lambda_max, max_steps,
-        precision, int(absorbing), 2 if absorbing else 1,
-        riaf_params(spec), sat_window, (0,), probe)
+        "lpt_kerr_dp45_extras", metric, r_obs, alphas, thetas, theta_obs,
+        lambda_max, max_steps, precision, int(absorbing), 0,
+        2 if absorbing else 1, riaf_params(spec), sat_window, (0,), probe)
     trace_rays_volumetric_cuda.launches += 1
     result = volumetric_result(res, absorbing)
     return (result, unconv) if return_unconverged else result
@@ -191,6 +246,37 @@ def trace_rays_volumetric_cuda(metric, r_obs, alphas, thetas, theta_obs,
 
 # Kernel launches, so a run can show that it went through the kernel.
 trace_rays_volumetric_cuda.launches = 0
+
+
+def _family(spec, n_extras, n_aux):
+    """(C entry point, form, variant) of a transfer description, after
+    checking its extras, aux count and compiled widths. The width is the
+    number of bands, frames or orders; absorption adds the tau extra to
+    the movie and order forms."""
+    absorbing = int(spec.riaf.alpha0 > 0.0)
+    movie_entry = ("lpt_kerr_dp45_movie_absorbed" if absorbing
+                   else "lpt_kerr_dp45_movie_thin")
+    # kind -> (entry, form, width, width limit, its name, extras, aux)
+    entry, form, width, limit, what, expect, want_aux = {
+        "spectral": ("lpt_kerr_dp45_extras", 2, len(spec.freqs), MAX_BANDS,
+                     "bands", 1 + len(spec.freqs), 0),
+        "movie": (movie_entry, absorbing, len(spec.times), MAX_FRAMES,
+                  "frames", 1 + absorbing + len(spec.times), 0),
+        "order": ("lpt_kerr_dp45_orders", absorbing, spec.n_orders,
+                  MAX_ORDERS, "orders", 1 + absorbing + spec.n_orders, 0),
+        "stokes": ("lpt_kerr_dp45_stokes", 0, 0, 0, "", 3, MAX_AUX),
+    }[spec.kind]
+    if n_extras != expect:
+        raise ValueError(f"the {spec.kind} transfer has {expect} extras, "
+                         f"not {n_extras}")
+    if n_aux != want_aux:
+        raise ValueError(f"the {spec.kind} transfer takes {want_aux} "
+                         f"per-ray aux inputs, got {n_aux}")
+    if width > limit:
+        raise NotImplementedError(
+            f"{width} {what}: the CUDA {spec.kind} kernel is built for up "
+            f"to {limit} (ROADMAP.md, Queue 2)")
+    return entry, form, width
 
 
 def trace_rays_aux_cuda(metric, r_obs, alphas, thetas, theta_obs,
@@ -203,12 +289,15 @@ def trace_rays_aux_cuda(metric, r_obs, alphas, thetas, theta_obs,
     """Generic coupled-extras trace with the CUDA kernel; returns
     ExtrasResult (with return_unconverged, also the re-trace mask).
 
-    The counterpart of trace_rays_aux_pallas for aux = (): as there, the
-    transfer function is called as transfer_fn(y, p_t, p_phi). The
-    kernel's spectral form runs volumetric.make_spectral_transfer's
-    functions (n_extras = 1 + bands, at most 1 + MAX_BANDS); per-ray aux
-    inputs (the polarized transfer) are a later slice of the port and
-    raise. CPU tensors go to the plain loop.
+    The counterpart of trace_rays_aux_pallas: aux is a tuple of per-ray
+    float32 tensors on the rays' device (same length, contiguous), which
+    the kernel reads once per ray into registers; as there, with aux =
+    () the transfer function is called as transfer_fn(y, p_t, p_phi).
+    The kernel runs the functions of volumetric.make_spectral_transfer
+    (n_extras = 1 + bands), make_movie_transfer (1 + [1] + frames),
+    make_order_transfer (1 + [1] + orders) and
+    polarization.make_polarized_volumetric_transfer (3 extras, the four
+    camera constants as aux). CPU tensors go to the plain loop.
     """
     aux = tuple(aux) if aux is not None else ()
     if not _route(alphas, metric, method, max_steps):
@@ -221,23 +310,13 @@ def trace_rays_aux_cuda(metric, r_obs, alphas, thetas, theta_obs,
             lambda_max, max_steps, precision=precision, method=method,
             sat_window=sat_window, sat_monitor=sat_monitor,
             return_unconverged=return_unconverged)
-    if aux:
-        raise NotImplementedError(
-            "per-ray aux inputs of the CUDA extras kernel (the polarized "
-            "volumetric transfer) are not ported yet (ROADMAP.md, Queue 1)")
-    spec = _kernel_transfer(transfer_fn, ("spectral",), metric)
-    n_bands = len(spec.freqs)
-    if n_extras != 1 + n_bands:
-        raise ValueError(f"the spectral transfer of {n_bands} bands has "
-                         f"{1 + n_bands} extras, not {n_extras}")
-    if n_bands > MAX_BANDS:
-        raise NotImplementedError(
-            f"{n_bands} bands: the CUDA spectral kernel is built for 1.."
-            f"{MAX_BANDS} (ROADMAP.md, Queue 1)")
+    spec = _kernel_transfer(transfer_fn,
+                            ("spectral", "movie", "order", "stokes"), metric)
+    entry, form, variant = _family(spec, n_extras, len(aux))
     res, unconv = _launch(
-        metric, r_obs, alphas, thetas, theta_obs, lambda_max, max_steps,
-        precision, 2, n_extras, riaf_params(spec),
-        sat_window, sat_monitor, probe)
+        entry, metric, r_obs, alphas, thetas, theta_obs, lambda_max,
+        max_steps, precision, form, variant, n_extras, riaf_params(spec),
+        sat_window, sat_monitor, probe, aux)
     trace_rays_aux_cuda.launches += 1
     return (res, unconv) if return_unconverged else res
 
@@ -255,8 +334,10 @@ def trace_rays_spectral_cuda(metric, r_obs, alphas, thetas, theta_obs,
     """Multi-frequency transfer trace with the CUDA kernel (through
     trace_rays_aux_cuda, as trace_rays_spectral_pallas goes through
     trace_rays_aux_pallas); returns SpectralResult (with
-    return_unconverged, also the re-trace mask). sat_monitor defaults to
-    the n bands (extras 1..n). CPU tensors go to the plain loop."""
+    return_unconverged, also the re-trace mask). The movie and order
+    transfers ride it too, with their bookkeeping component in the
+    tau_hat slot. sat_monitor defaults to the n bands (extras 1..n). CPU
+    tensors go to the plain loop."""
     if sat_monitor is None:
         sat_monitor = tuple(range(1, 1 + n_bands))
     if not _route(alphas, metric, method, max_steps):

@@ -1,15 +1,21 @@
 """Volumetric radiative-transfer rendering (RIAF / hot-flow images).
 
-The counterpart of `light_path_tracer_tpu.volumetric` for the single-band
-still image (`render_volumetric`, optically thin or self-absorbed) and the
-multi-frequency spectral image (`render_volumetric_spectrum`). The
-emission rides the adaptive DP45 loop as error-controlled extra state
-components:
+The counterpart of `light_path_tracer_tpu.volumetric`: the single-band
+still image (`render_volumetric`, optically thin or self-absorbed), the
+multi-frequency spectral image (`render_volumetric_spectrum`), the flare
+movie (`render_volumetric_movie`) and the photon-ring order decomposition
+(`render_volumetric_decomposed`); the polarized image is in
+`polarization.py`. The emission rides the adaptive DP45 loop as
+error-controlled extra state components:
 
     thin:      dI/dlambda = g^p j_rest(r, theta)
     absorbed:  dI/dlambda = exp(-tau) g^p j_rest,  dtau/dlambda = chi
     spectral:  d tau_hat = alpha0 j g^(q-1),
                dI_i = f_i^-s j g^(3+s) exp(-f_i^(1-q) tau_hat)
+    movie:     dt = g^tt p_t + g^tphi p_phi,
+               dI_k = [exp(-tau)] g^p (j + blob(t_k - t))
+    orders:    dm = N(cos theta; 0, 0.03) |sin theta| |p_theta| / Sigma,
+               dI_n = [exp(-tau)] g^p j  where floor(m) = n
 
 with g the redshift of a Keplerian circular flow (ZAMO inside the photon
 region), or of a radial outflow in the jet profile; the JAX module's
@@ -23,8 +29,7 @@ PyTorch loop (`ops/kerr_trace.py`) on the CPU. The transfer functions
 below are the plain loop's; each carries the description (`.kernel`) from
 which the kernel evaluates the same function in registers.
 
-Not ported yet (they raise, see ROADMAP.md Queue 1): flare movies, the
-photon-ring order decomposition, polarized transfer, charged
+Not ported yet (they raise, see ROADMAP.md Queue 1): charged
 (Kerr-Newman) scenes, a boosted camera and the multi-device `mesh=` path.
 """
 
@@ -47,7 +52,9 @@ from light_path_tracer_tpu_torch.utils.timing import StageTimer
 
 __all__ = ["RIAFConfig", "KernelTransfer", "make_transfer_fns",
            "make_emission_fn", "make_spectral_transfer",
-           "render_volumetric", "render_volumetric_spectrum"]
+           "make_movie_transfer", "make_order_transfer",
+           "render_volumetric", "render_volumetric_spectrum",
+           "render_volumetric_movie", "render_volumetric_decomposed"]
 
 
 def _not_ported(what):
@@ -74,7 +81,8 @@ class RIAFConfig:
     tone_map: str = "sqrt"         # "linear" | "sqrt" | "asinh"
     alpha0: float = 0.0            # opacity scale [1/M]; 0 = optically thin
     opacity_index: float = 0.0     # q in alpha_nu ~ nu^-q (spectral only)
-    # Orbiting hot-spot blob of the flare movies (not ported yet).
+    # Orbiting hot-spot blob (flare movies): a Gaussian emissivity blob
+    # of peak spot_amp co-rotating with the Keplerian flow at spot_r.
     spot_amp: float = 0.0
     spot_r: float = 6.0
     spot_sigma: float = 1.0
@@ -90,19 +98,27 @@ class RIAFConfig:
 @dataclasses.dataclass(frozen=True)
 class KernelTransfer:
     """What a transfer function computes, for the CUDA kernel to compute
-    it too: `kind` is "emission", "absorption" or "spectral" (with the
-    band frequencies `freqs`), for `riaf` in `metric`."""
+    it too, for `riaf` in `metric`: `kind` is "emission", "absorption",
+    "spectral" (with the band frequencies `freqs`), "movie" (with the
+    frame `times`), "order" (with `n_orders` buckets) or "stokes" (with
+    the magnetic `field` geometry and the polarization fraction `p0`)."""
 
     kind: str
     metric: object
     riaf: RIAFConfig
     freqs: tuple = ()
+    times: tuple = ()
+    n_orders: int = 0
+    field: str = ""
+    p0: float = 0.0
 
     def constants(self) -> dict:
         """The constants the kernel evaluates the closures below with,
         each formed in double as the JAX closures' Python floats are
         (the kernel's wrapper rounds each once to float32); c and
-        band_scale are per band, empty for the single-band forms."""
+        band_scale are per band, empty for the single-band forms; the
+        spot_* constants are the movie's blob, the order_* ones the
+        crossing bump of the order decomposition."""
         riaf = self.riaf
         M, a = float(self.metric.M), float(self.metric.a)
         sign = 1.0 if riaf.prograde else -1.0
@@ -120,7 +136,25 @@ class KernelTransfer:
             jet_r_base=riaf.jet_r_base, jet_beta=float(riaf.jet_beta),
             jet_gamma=_jet_gamma(riaf.jet_beta), g_power=riaf.g_power,
             alpha0=riaf.alpha0, q_minus_1=riaf.opacity_index - 1.0,
-            tau_floor=floor, c=c, band_scale=band_scale)
+            tau_floor=floor, c=c, band_scale=band_scale,
+            spot_amp=riaf.spot_amp, spot_phase=riaf.spot_phase,
+            spot_omega=keplerian_omega(M, a, riaf.spot_r, riaf.prograde),
+            spot_r=riaf.spot_r, spot_r2=riaf.spot_r * riaf.spot_r,
+            two_spot_sig2=_two_sq(riaf.spot_sigma),
+            order_norm=_ORDER_NORM, order_inv_two_sig2=_ORDER_INV_TWO_SIG2,
+            two_Ma=2.0 * M * a, two_Ma2=2.0 * M * a * a,
+            flow_sign=sign, p0=float(self.p0))
+
+
+# Width of the equatorial-crossing bump in cos(theta) of the order
+# decomposition: the winding coordinate m integrates a unit-mass Gaussian
+# each time the ray sweeps through the plane. Small against the torus's
+# vertical extent (h_cos ~ 0.3), large enough for the error controller to
+# resolve the bump in a few steps. The norm and exponent scale are formed
+# in double.
+_ORDER_SIGMA = 0.03
+_ORDER_NORM = float(1.0 / (_ORDER_SIGMA * np.sqrt(2.0 * np.pi)))
+_ORDER_INV_TWO_SIG2 = float(1.0 / (2.0 * _ORDER_SIGMA ** 2))
 
 
 def _two_sq(width: float) -> float:
@@ -329,6 +363,123 @@ def make_spectral_transfer(metric, riaf: RIAFConfig, freqs: tuple):
     return transfer_fn
 
 
+def _weights(riaf, _j_rest, _g_clipped, y, p_t, p_phi):
+    """(j, w, chi) at state y: the rest-frame emissivity, the redshift
+    weight g^p and the invariant opacity alpha0 j / max(g, 0.1); w = 1
+    and chi = alpha0 j in the pure-geometry mode (g_power == 0)."""
+    j = _j_rest(y[0], torch.cos(y[1]))
+    if riaf.g_power == 0.0:
+        return j, 1.0, riaf.alpha0 * j
+    g = _g_clipped(y[:5], p_t, p_phi)
+    return (j, g ** riaf.g_power,
+            riaf.alpha0 * j / torch.clamp(g, min=0.1))
+
+
+@functools.lru_cache(maxsize=64)
+def make_movie_transfer(metric, riaf: RIAFConfig, times: tuple):
+    """transfer_fn(y, p_t, p_phi) of the flare movie: every
+    observer-time frame in one trace.
+
+    Extras (t, [tau,] I_1..I_n): the coordinate time from the camera is
+    an error-controlled component (dt/dlambda = metric.tdot), and frame
+    k's emissivity evaluates the orbiting blob at the retarded time
+    t_k - t(lambda), so each pixel sees the blob where it was when that
+    pixel's light left the flow. The blob is a flat-embedding Gaussian
+    of peak spot_amp co-rotating with the Keplerian flow at spot_r (the
+    base flow's redshift is the blob's Doppler). With alpha0 > 0 the
+    stationary base flow absorbs too (shared tau, the blob optically
+    thin) and the extras gain the tau component.
+    """
+    if riaf.spot_amp < 0.0:
+        raise ValueError(f"spot_amp must be >= 0, got {riaf.spot_amp}")
+    if not times:
+        raise ValueError("times must be non-empty")
+    make_transfer_fns(metric, riaf)               # validates the config
+    _j_rest, _g_clipped = _profile_fns(metric, riaf)
+    om_spot = keplerian_omega(float(metric.M), float(metric.a),
+                              riaf.spot_r, riaf.prograde)
+    R = riaf.spot_r
+    two_sig2 = _two_sq(riaf.spot_sigma)
+    absorbing = riaf.alpha0 > 0.0
+
+    def transfer_fn(y, p_t, p_phi):
+        r, th, phi = y[0], y[1], y[2]
+        # sin(theta) keeps its sign on the double-cover chart: the
+        # Cartesian embedding maps (theta > pi, phi) to the same point
+        # as (2 pi - theta, phi + pi).
+        s = torch.sin(th)
+        t = y[5]
+        j, w, chi = _weights(riaf, _j_rest, _g_clipped, y, p_t, p_phi)
+
+        def spot(t_k):
+            phi_s = riaf.spot_phase + om_spot * (t_k - t)
+            d2 = (r * r + R * R
+                  - 2.0 * r * R * s * torch.cos(phi - phi_s))
+            return riaf.spot_amp * torch.exp(-d2 / two_sig2)
+
+        tdot = metric.tdot(y[:5], p_t, p_phi)
+        if absorbing:
+            screen = torch.exp(-torch.clamp(y[6], min=-30.0))
+            return (tdot, chi, *(screen * w * (j + spot(tk))
+                                 for tk in times))
+        return (tdot, *(w * (j + spot(tk)) for tk in times))
+
+    transfer_fn.kernel = KernelTransfer(
+        "movie", metric, riaf, times=tuple(float(t) for t in times))
+    return transfer_fn
+
+
+@functools.lru_cache(maxsize=64)
+def make_order_transfer(metric, riaf: RIAFConfig, n_orders: int):
+    """transfer_fn(y, p_t, p_phi) of the photon-ring decomposition: the
+    path emission binned by image order, all orders in one trace.
+
+    Extras (m, [tau,] I_0..I_{N-1}). The smooth winding coordinate m
+    integrates a unit-mass Gaussian bump in cos(theta) once per
+    equatorial crossing,
+
+        dm/dlambda = N(cos theta; 0, sigma) |sin theta| |p_theta| / Sigma,
+
+    so it counts the ray's plane crossings continuously and locally.
+    Emission lands in bucket floor(m), the last bucket open-ended: order
+    0 is the direct image, order 1 the first lensed image, order >= 2
+    the demagnified photon subrings. Absorption shares the single-band
+    tau. The buckets partition the emission, so the layers sum to the
+    single-band image.
+    """
+    if n_orders < 2:
+        raise ValueError(f"n_orders must be >= 2, got {n_orders}")
+    make_transfer_fns(metric, riaf)               # validates the config
+    _j_rest, _g_clipped = _profile_fns(metric, riaf)
+    a2 = float(metric.a) ** 2
+    absorbing = riaf.alpha0 > 0.0
+
+    def transfer_fn(y, p_t, p_phi):
+        r, th = y[0], y[1]
+        c = torch.cos(th)
+        j, w, chi = _weights(riaf, _j_rest, _g_clipped, y, p_t, p_phi)
+        em = j * w
+        sigma_bl = r * r + a2 * c * c
+        dm = (_ORDER_NORM * torch.exp(-c * c * _ORDER_INV_TWO_SIG2)
+              * torch.abs(torch.sin(th)) * torch.abs(y[4]) / sigma_bl)
+        # RK stage probes can push m slightly negative: bucket 0.
+        bucket = torch.floor(torch.clamp(y[5], min=0.0))
+        if absorbing:
+            em = em * torch.exp(-torch.clamp(y[6], min=-30.0))
+        zero = torch.zeros_like(em)
+        d_i = tuple(
+            torch.where(bucket == n if n < n_orders - 1 else bucket >= n,
+                        em, zero)
+            for n in range(n_orders))
+        if absorbing:
+            return (dm, chi, *d_i)
+        return (dm, *d_i)
+
+    transfer_fn.kernel = KernelTransfer("order", metric, riaf,
+                                        n_orders=int(n_orders))
+    return transfer_fn
+
+
 def _lookups(scene, resolution, cfg, device):
     fov = camera.fov_from_vertical(scene.vertical_fov, resolution)
     dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
@@ -364,10 +515,13 @@ def _trace_volumetric(metric, scene, alpha, theta, emission_fn,
 
 
 def _trace_spectral(metric, scene, alpha, theta, transfer_fn, n_bands,
-                    cfg):
-    """The spectral trace on the tensors' device, through the two-pass
-    driver unless cfg.two_pass is False; returns SpectralResult. The
-    saturation exit watches the n bands."""
+                    cfg, sat_monitor=None):
+    """The spectral, movie or order trace on the tensors' device,
+    through the two-pass driver unless cfg.two_pass is False; returns
+    SpectralResult. sat_monitor: the extras the saturation exit watches,
+    by default the n bands (extras 1..n); the movie and the order
+    decomposition pass their frames or buckets, so that the bookkeeping
+    components (t, the winding m, tau) are never monitored."""
     from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
         trace_rays_spectral_two_pass)
     from light_path_tracer_tpu_torch.ops.cuda.volumetric_kernel import (
@@ -378,7 +532,7 @@ def _trace_spectral(metric, scene, alpha, theta, transfer_fn, n_bands,
     return fn(metric, scene.r_obs, alpha, theta, scene.theta_obs,
               transfer_fn, n_bands, _lambda_max(scene), cfg.max_steps,
               precision=cfg.precision, method=cfg.integrator,
-              sat_window=cfg.sat_window)
+              sat_window=cfg.sat_window, sat_monitor=sat_monitor)
 
 
 def _host(x, resolution=None):
@@ -501,3 +655,140 @@ def render_volumetric(scene: SceneConfig, resolution,
         timings=timer.finish())
     return image, stats
 
+
+
+def _extras_trace(metric, scene, resolution, cfg, device, timer,
+                  transfer_fn, n_items: int, absorbing: bool):
+    """The movie's and the decomposition's shared trace: extras
+    (bookkeeping, [tau,] item_1..item_n) through _trace_spectral with
+    the saturation exit watching the items only. Returns (fov, res,
+    items, tau on the host)."""
+    with timer.stage("build_lookup"):
+        fov, alpha, theta = _lookups(scene, resolution, cfg, device)
+    with timer.stage("precompute"):
+        n_extra_bands = n_items + (1 if absorbing else 0)
+        first = 1 + (1 if absorbing else 0)
+        res = _trace_spectral(
+            metric, scene, alpha, theta, transfer_fn, n_extra_bands, cfg,
+            sat_monitor=tuple(range(first, 1 + n_extra_bands)))
+    items = res.emission[1:] if absorbing else res.emission
+    tau = (_host(res.emission[0], resolution) if absorbing
+           else np.zeros(resolution))
+    return fov, res, items, tau
+
+
+def render_volumetric_movie(scene: SceneConfig, resolution, times,
+                            cfg: RenderConfig = RenderConfig(),
+                            riaf: RIAFConfig = RIAFConfig(), mesh=None,
+                            device="cuda"):
+    """Flare movie: every observer-time frame from one geodesic trace;
+    returns (frames, stats).
+
+    times: observer coordinate times [M] of the frames (the blob orbits
+    with period 2 pi / Omega_K(spot_r)). frames: (n, H, W) float32 on
+    `device`, tone-mapped on a common scale so that brightness is
+    comparable across frames. stats (NumPy): times, light_curve (the
+    per-frame integrated flux), emission (n, H, W), optical_depth,
+    t_max (the largest coordinate time any ray reached), spot_period,
+    captured, invalid, integrator_steps, total_rays, traced_rays,
+    timings.
+    """
+    if mesh is not None:
+        raise _not_ported("the multi-device movie render (mesh)")
+    metric = _scene_metric(scene)
+    times = tuple(float(t) for t in times)
+    transfer_fn = make_movie_transfer(metric, riaf, times)
+    timer = StageTimer(device)
+    height, width = resolution
+    _fov, res, bands, tau = _extras_trace(
+        metric, scene, resolution, cfg, device, timer, transfer_fn,
+        len(times), riaf.alpha0 > 0.0)
+
+    with timer.stage("render"):
+        peak = torch.clamp(torch.stack([b.max() for b in bands]).max(),
+                           min=1e-30)
+        frames = torch.stack([
+            _tone_map(b, riaf.tone_map, peak=peak).reshape(resolution)
+            for b in bands]).to(torch.float32)
+
+    em = np.stack([_host(b, resolution) for b in bands])
+    status = _host(res.status)
+    stats = dict(
+        times=np.asarray(times),
+        light_curve=em.sum(axis=(1, 2)),
+        emission=em,
+        optical_depth=tau,
+        t_max=float(_host(res.tau_hat).max()),
+        spot_period=2.0 * np.pi / abs(keplerian_omega(
+            float(metric.M), float(metric.a), riaf.spot_r, riaf.prograde)),
+        captured=int((status == CAPTURED).sum()),
+        invalid=int((status == INVALID).sum()),
+        integrator_steps=int(res.n_steps),
+        total_rays=height * width,
+        traced_rays=height * width,
+        timings=timer.finish())
+    return frames, stats
+
+
+def render_volumetric_decomposed(scene: SceneConfig, resolution,
+                                 cfg: RenderConfig = RenderConfig(),
+                                 riaf: RIAFConfig = RIAFConfig(),
+                                 n_orders: int = 3, mesh=None,
+                                 device="cuda"):
+    """Photon-ring decomposition of a volumetric image from one trace;
+    returns (layers, stats).
+
+    Layer n collects the path emission picked up after n equatorial
+    crossings (make_order_transfer's winding coordinate): n = 0 the
+    direct image of the flow, n = 1 the first lensed image, n >= 2 the
+    demagnified photon subrings on the critical curve. Absorption
+    (riaf.alpha0 > 0) screens every order through the shared optical
+    depth. layers: (n_orders, H, W) raw linear intensity, float32 on
+    `device` (disk.decomposed_display tone-maps them on a shared peak).
+    stats: alpha_crit, flux_per_order, flux_ratios, gamma_estimates
+    (-ln ratio, the measured demagnification exponent), mean_radius_rad
+    per order, winding (the final m map), optical_depth, captured,
+    invalid, integrator_steps, total_rays, traced_rays, timings.
+    """
+    if mesh is not None:
+        raise _not_ported("the multi-device order decomposition (mesh)")
+    metric = _scene_metric(scene)
+    transfer_fn = make_order_transfer(metric, riaf, n_orders)
+    timer = StageTimer(device)
+    height, width = resolution
+    fov, res, orders, tau = _extras_trace(
+        metric, scene, resolution, cfg, device, timer, transfer_fn,
+        n_orders, riaf.alpha0 > 0.0)
+
+    with timer.stage("render"):
+        # The bucket windows make the integrand discontinuous in lambda,
+        # so a nearly empty order can collect tiny negative increments
+        # from the overshoot of rejected probes; intensities are
+        # nonnegative and the noise is far below the partition tolerance.
+        layers = torch.stack([
+            torch.clamp(o.reshape(resolution), min=0.0)
+            for o in orders]).to(torch.float32)
+
+    em = _host(layers).astype(np.float64)
+    flux = em.sum(axis=(1, 2))
+    yy = (np.arange(height) - height / 2.0) * (fov[0] / height)
+    xx = (np.arange(width) - width / 2.0) * (fov[1] / width)
+    rad = np.hypot(yy[:, None], xx[None, :])
+    mean_r = (em * rad).sum(axis=(1, 2)) / np.maximum(flux, 1e-30)
+    ratios = flux[1:] / np.maximum(flux[:-1], 1e-300)
+    status = _host(res.status)
+    stats = dict(
+        alpha_crit=metric.alpha_crit(scene.r_obs, scene.theta_obs),
+        flux_per_order=flux.tolist(),
+        flux_ratios=ratios.tolist(),
+        gamma_estimates=(-np.log(np.maximum(ratios, 1e-300))).tolist(),
+        mean_radius_rad=mean_r.tolist(),
+        winding=_host(res.tau_hat, resolution),
+        optical_depth=tau,
+        captured=int((status == CAPTURED).sum()),
+        invalid=int((status == INVALID).sum()),
+        integrator_steps=int(res.n_steps),
+        total_rays=height * width,
+        traced_rays=height * width,
+        timings=timer.finish())
+    return layers, stats

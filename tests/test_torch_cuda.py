@@ -21,21 +21,32 @@ ray on its own thread). The extras kernel (volumetric thin, absorbed and
 jet, spectral) against its plain loop: status agreement above 0.99, p99
 |d emission| / max < 1e-3 and p99 |d tau| < 1e-3; its drivers equal a
 single pass bitwise; the volumetric render on the card against the CPU:
-emission masks >= 99 %, median |d image| < 1e-4.
+emission masks >= 99 %, median |d image| < 1e-4. The Stokes, movie and
+order forms against their plain loops: status agreement above 0.99, the
+Stokes and movie extras p99 |d| / max < 1e-3 (Q and U against max |I|),
+the order buckets by their sum per ray (p99 < 1e-3 of the largest) since
+floor(m) switches within rounding of an integer; the aux driver bitwise
+equal to the single pass; the three renders on the card against the CPU.
+The peak probe's chains against the same recurrence in torch: float64
+within 4 k ulp (the kernel's FMA rounds once, torch twice), float32
+within 4 k ulp, sinf within 4 ulp.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from light_path_tracer_tpu_torch import camera, disk, pipeline, volumetric
+from light_path_tracer_tpu_torch import (camera, disk, pipeline,
+                                         polarization, volumetric)
 from light_path_tracer_tpu_torch.models import (Kerr, ReissnerNordstrom,
                                                 Schwarzschild)
 from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
     trace_disk_rays_cuda, trace_disk_rays_plain, trace_disk_rays_two_pass,
-    trace_rays_kerr_cuda, trace_rays_kerr_plain, trace_rays_kerr_two_pass,
-    trace_rays_spectral_two_pass, trace_rays_volumetric_two_pass)
+    trace_rays_aux_two_pass, trace_rays_kerr_cuda, trace_rays_kerr_plain,
+    trace_rays_kerr_two_pass, trace_rays_spectral_two_pass,
+    trace_rays_volumetric_two_pass)
 from light_path_tracer_tpu_torch.ops import kerr_trace
+from light_path_tracer_tpu_torch.ops.cuda import peak_probe
 from light_path_tracer_tpu_torch.ops.cuda import volumetric_kernel as vk
 from light_path_tracer_tpu_torch.ops.cuda.schwarzschild_kernel import (
     trace_rays_schwarzschild_cuda, trace_rays_schwarzschild_plain)
@@ -357,7 +368,7 @@ def test_extras_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(NotImplementedError):
         vk.trace_rays_spectral_cuda(m, R_OBS, al, th, THETA_DISK, tf, 9,
                                     5000.0, 100)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="aux"):
         vk.trace_rays_aux_cuda(m, R_OBS, al, th, THETA_DISK, tf, 10, (al,),
                                5000.0, 100)
 
@@ -423,3 +434,202 @@ def test_render_volumetric_spectrum_on_card_matches_cpu(cuda):
         assert (mg == mc).mean() >= 0.99
         assert float((img_gpu[band].cpu() - img_cpu[band]).abs()
                      .median()) < 1e-4
+
+
+def _assert_orders_agree(bk, bp):
+    """Order buckets bk against bp, each (orders, rays). floor(m) flips a
+    coin per ray and crossing (m sits within rounding of an integer), so
+    single rays differ; every order is held on its own, with bars that
+    follow 1 / sqrt(rays that carry it): its flux within max(3 %, 3 /
+    sqrt(carriers)), more than 40 % of its carriers (bucket above 5 % of
+    the ray's sum) with the same value within 1 % of that sum, at most
+    max(1 %, 1 / sqrt(carriers of order 0)) of the total flux moved,
+    and the buckets' sum per ray within 1e-3 of the largest (p99)."""
+    sk, sp = bk.sum(axis=0), bp.sum(axis=0)
+    fk, fp = bk.sum(axis=1), bp.sum(axis=1)
+    assert np.percentile(np.abs(sk - sp), 99) < 1e-3 * sp.max()
+    carry = (sp > 1e-3 * sp.max()) & (bp > 0.05 * sp)
+    carriers = carry.sum(axis=1)
+    assert carriers.min() >= 20
+    near = (np.abs(bk - bp) < 0.01 * sp) & carry
+    assert (near.sum(axis=1) / carriers).min() > 0.4
+    assert np.all(np.abs(fk - fp) / fp
+                  < np.maximum(0.03, 3.0 / np.sqrt(carriers)))
+    assert (np.abs(fk - fp).max() / fp.sum()
+            < max(0.01, 1.0 / np.sqrt(carriers[0])))
+
+
+def _aux_forms(m, al, th):
+    """label -> (transfer_fn, n_extras, aux, sat_monitor) of the Stokes,
+    movie and order forms."""
+    period = 2.0 * np.pi / abs(disk.keplerian_omega(1.0, 0.9, 6.0, True))
+    times = tuple(period * k / 8 for k in range(8))
+    forms = {}
+    for a0 in (0.0, 0.3):
+        riaf = volumetric.RIAFConfig(spot_amp=8.0, alpha0=a0)
+        ab = int(a0 > 0)
+        forms[f"movie8 alpha0={a0}"] = (
+            volumetric.make_movie_transfer(m, riaf, times), 9 + ab, (),
+            tuple(range(1 + ab, 9 + ab)))
+        forms[f"order3 alpha0={a0}"] = (
+            volumetric.make_order_transfer(m, riaf, 3), 4 + ab, (),
+            tuple(range(1 + ab, 4 + ab)))
+    # Two orders: the open-ended last bucket takes every later crossing.
+    forms["order2 alpha0=0.0"] = (
+        volumetric.make_order_transfer(m, volumetric.RIAFConfig(), 2), 3,
+        (), (1, 2))
+    aux = polarization.camera_constants(m, R_OBS, THETA_DISK, al, th)
+    for field in ("vertical", "toroidal", "radial"):
+        forms[f"stokes {field}"] = (
+            polarization.make_polarized_volumetric_transfer(
+                m, volumetric.RIAFConfig(), field, 0.7), 3, aux, (0, 1, 2))
+    return forms
+
+
+AUX_FORMS = ["movie8 alpha0=0.0", "movie8 alpha0=0.3", "order3 alpha0=0.0",
+             "order3 alpha0=0.3", "order2 alpha0=0.0", "stokes vertical",
+             "stokes toroidal", "stokes radial"]
+
+
+@pytest.mark.parametrize("form", AUX_FORMS)
+def test_aux_kernel_matches_plain_version(cuda, form):
+    m, al, th = _extras_rays(2048, cuda)
+    tf, n_extras, aux, monitor = _aux_forms(m, al, th)[form]
+    kw = dict(sat_window=2048, sat_monitor=monitor)
+    before = vk.trace_rays_aux_cuda.launches
+    plain_before = kerr_trace.trace_rays_aux.launches
+    rk = vk.trace_rays_aux_cuda(m, R_OBS, al, th, THETA_DISK, tf, n_extras,
+                                aux, 5000.0, 4000, **kw)
+    torch.cuda.synchronize()
+    assert vk.trace_rays_aux_cuda.launches == before + 1
+    assert kerr_trace.trace_rays_aux.launches == plain_before
+    extra = tf if aux else (lambda y, pt, pp, _aux: tf(y, pt, pp))
+    rp = kerr_trace.trace_rays_aux(m, R_OBS, al, th, THETA_DISK, extra,
+                                   n_extras, aux, 5000.0, 4000, **kw)
+    ok = (rk.status == rp.status).cpu().numpy()
+    assert ok.mean() > 0.99
+    xk = np.stack([e.cpu().numpy() for e in rk.extras]).astype(np.float64)
+    xp = np.stack([e.cpu().numpy() for e in rp.extras]).astype(np.float64)
+    if form.startswith("order"):
+        first = len(monitor)
+        _assert_orders_agree(xk[-first:][:, ok], xp[-first:][:, ok])
+        assert np.percentile(np.abs(xk[0] - xp[0])[ok], 95) < 2e-3
+        return
+    scale = np.abs(xp[0]).max() if form.startswith("stokes") else None
+    for a, b in zip(xk, xp):
+        bar = 1e-3 * (scale or max(np.abs(b).max(), 1.0))
+        assert np.percentile(np.abs(a - b)[ok], 99) < bar
+
+
+def test_aux_kernel_rejects_bad_inputs(cuda):
+    m, al, th = _extras_rays(64, cuda)
+    forms = _aux_forms(m, al, th)
+    tf, n_extras, aux, _mon = forms["stokes toroidal"]
+    args = (m, R_OBS, al, th, THETA_DISK, tf, n_extras)
+    with pytest.raises(ValueError, match="aux"):
+        vk.trace_rays_aux_cuda(*args, aux[:3], 5000.0, 100)
+    with pytest.raises(ValueError):
+        vk.trace_rays_aux_cuda(*args, (aux[0].double(), *aux[1:]), 5000.0,
+                               100)
+    with pytest.raises(ValueError):
+        vk.trace_rays_aux_cuda(*args, (aux[0][:32], *aux[1:]), 5000.0, 100)
+    with pytest.raises(ValueError):
+        vk.trace_rays_aux_cuda(*args, (aux[0].cpu(), *aux[1:]), 5000.0, 100)
+    with pytest.raises(ValueError):
+        vk.trace_rays_aux_cuda(*args, aux, 5000.0, 100, sat_window=8,
+                               sat_monitor=(3,))
+    nine = volumetric.make_movie_transfer(m, volumetric.RIAFConfig(),
+                                          tuple(range(9)))
+    with pytest.raises(NotImplementedError):
+        vk.trace_rays_aux_cuda(m, R_OBS, al, th, THETA_DISK, nine, 10, (),
+                               5000.0, 100)
+    five = volumetric.make_order_transfer(m, volumetric.RIAFConfig(), 5)
+    with pytest.raises(NotImplementedError):
+        vk.trace_rays_aux_cuda(m, R_OBS, al, th, THETA_DISK, five, 6, (),
+                               5000.0, 100)
+    with pytest.raises(NotImplementedError):
+        vk.trace_rays_aux_cuda(m, R_OBS, al, th, THETA_DISK,
+                               lambda y, pt, pp, a: (y[0],) * 3, 3, aux,
+                               5000.0, 100)
+
+
+def test_aux_two_pass_equals_single_pass_on_card(cuda):
+    m, al, th = _extras_rays(4096, cuda, 0.9, 1.1, seed=9)
+    tf, n_extras, aux, monitor = _aux_forms(m, al, th)["stokes toroidal"]
+    args = (m, R_OBS, al, th, THETA_DISK, tf, n_extras, aux, 5000.0, 20000)
+    one = vk.trace_rays_aux_cuda(*args)
+    _, unconv = vk.trace_rays_aux_cuda(*args[:9], 64,
+                                       return_unconverged=True)
+    assert 0 < int(unconv.sum()) <= 1024
+    two = trace_rays_aux_two_pass(*args, pass1_steps=64)
+    for a, b in zip([one.status, one.final_alpha, *one.extras],
+                    [two.status, two.final_alpha, *two.extras]):
+        assert torch.equal(_bits(a), _bits(b))
+    assert int(two.n_steps) > int(one.n_steps)
+
+
+@pytest.mark.parametrize("form", list(peak_probe.FORMS))
+def test_peak_probe_matches_torch_loop(cuda, form):
+    _index, dtype, _ops = peak_probe.FORMS[form]
+    k = 64
+    x = torch.linspace(0.1, 0.9, 4097, dtype=dtype, device=cuda)
+    before = peak_probe.chain_cuda.launches
+    got = peak_probe.chain_cuda(x, k, form)
+    torch.cuda.synchronize()
+    assert peak_probe.chain_cuda.launches == before + 1
+    want = peak_probe.chain_plain(x, k, form)
+    ulp = torch.finfo(dtype).eps
+    bar = 4 * ulp if form == "sin" else 4 * k * ulp * float(want.abs().max())
+    assert float((got - want).abs().max()) <= bar
+    assert got.dtype == dtype and got.shape == x.shape
+    with pytest.raises(ValueError):
+        peak_probe.chain_cuda(x.to(torch.float16), k, form)
+    with pytest.raises(ValueError):
+        peak_probe.chain_cuda(x[::2], k, form)
+    with pytest.raises(ValueError):
+        peak_probe.chain_cuda(x, k, "fma16")
+
+
+def test_peak_probe_rates_are_plausible(cuda):
+    rates = peak_probe.measure_rates(cuda, repeats=3)
+    assert set(rates) == set(peak_probe.FORMS)
+    for row in rates.values():
+        assert row["ms_long"] > row["ms_short"] > 0.0
+    assert rates["fma32x8"]["rate"] > rates["fma64"]["rate"] > 1e12
+    assert rates["sin"]["rate"] > 1e10
+
+
+def test_new_renders_on_card_match_cpu(cuda):
+    scene = SceneConfig(M=1.0, a=0.9, theta_obs=THETA_DISK,
+                        vertical_fov_deg=16.0)
+    cfg = RenderConfig()
+    size = (64, 64)
+    before = vk.trace_rays_aux_cuda.launches
+    fg, sg = volumetric.render_volumetric_movie(
+        scene, size, (0.0, 30.0, 60.0), cfg,
+        volumetric.RIAFConfig(spot_amp=8.0), device=cuda)
+    fc, sc = volumetric.render_volumetric_movie(
+        scene, size, (0.0, 30.0, 60.0), cfg,
+        volumetric.RIAFConfig(spot_amp=8.0), device="cpu")
+    assert fg.device.type == "cuda" and fg.shape == (3, 64, 64)
+    assert float((fg.cpu() - fc).abs().median()) < 1e-4
+    np.testing.assert_allclose(sg["light_curve"], sc["light_curve"],
+                               rtol=1e-3)
+    lg, _tg = volumetric.render_volumetric_decomposed(scene, size, cfg,
+                                                      device=cuda)
+    lc, _tc = volumetric.render_volumetric_decomposed(scene, size, cfg,
+                                                      device="cpu")
+    _assert_orders_agree(
+        lg.cpu().numpy().astype(np.float64).reshape(3, -1),
+        lc.numpy().astype(np.float64).reshape(3, -1))
+    _e, pg, ig, stg = polarization.render_polarized_volumetric(
+        scene, size, cfg, device=cuda)
+    _e, pc, ic, stc = polarization.render_polarized_volumetric(
+        scene, size, cfg, device="cpu")
+    assert vk.trace_rays_aux_cuda.launches == before + 6
+    peak = ic.max()
+    for key in "IQU":
+        assert np.median(np.abs(stg[key] - stc[key])) < 1e-5 * peak
+    bright = ic > 1e-3 * peak
+    assert pg[bright].max() <= 0.7 + 1e-5
+    assert np.median(np.abs(pg - pc)[bright]) < 1e-3

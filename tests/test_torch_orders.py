@@ -1,0 +1,247 @@
+"""The PyTorch port's photon-ring order decomposition against the JAX
+package.
+
+Inputs come from numpy seeds and go through both packages. Criteria:
+  * the order transfer closure on random states, with and without
+    absorption, in the pure-geometry mode and with four orders: float64
+    within 1e-12 of each output's largest value, float32 within 2e-5
+    (states are drawn away from integer m, where the bucket switches);
+  * trace_rays_spectral over the order transfer on 192 rays (a = 0.9,
+    alpha in [0.3, 4] alpha_crit, theta_obs = 80 deg, max_steps 4000)
+    against the JAX XLA trace. float64: identical statuses, the winding m
+    and every bucket within 1e-8 of the largest. float32: status agreement
+    > 0.99 and the winding |dm| p95 < 2e-3, p99 < 0.1 (three seeds read
+    p95 7.6e-4 to 9.7e-4, p99 3.5e-3 to 4.4e-2: trapped orbiters); the
+    buckets are held by what the decomposition promises and not per ray,
+    because the integrand switches on floor(m) and after a crossing m
+    sits within rounding of an integer, so two float32 implementations
+    put a stretch of path in neighbouring buckets (each package's own
+    float32 buckets sit ~0.3 of the maximum from its float64 ones on such
+    rays): their sum per ray within 1e-4 of the largest (p99; read 4e-6
+    to 1e-5), and each order's flux over these 192 near-critical rays
+    within 40 % of the JAX flux (read 0.06 % to 35 %), the direct image's
+    within 15 % (read 1.3 % to 12 %);
+  * render_volumetric_decomposed at 24x24 in float64 against the JAX
+    render (layers to 1e-8 of the largest, fluxes, radii and exponents);
+  * physics on the port's CPU path: the orders sum to the single-band
+    image (1e-3 of its peak), flux falls with order, and absorption
+    screens every order;
+  * the wrapper's description and constants; fewer than 2 orders raise,
+    more than 4 are refused for the kernel only;
+  * the `volumetric --decompose` command writes one PNG an order, the
+    composite and the arrays.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from light_path_tracer_tpu import volumetric as jvol
+from light_path_tracer_tpu.models import Kerr as JKerr
+from light_path_tracer_tpu.ops.kerr_trace import trace_rays_spectral as jspec
+from light_path_tracer_tpu.utils.config import (RenderConfig as JRender,
+                                                SceneConfig as JScene)
+from light_path_tracer_tpu_torch import disk, volumetric
+from light_path_tracer_tpu_torch.convert import (render_cfg_from_jax,
+                                                 riaf_config_from_jax,
+                                                 scene_from_jax)
+from light_path_tracer_tpu_torch.models import Kerr
+from light_path_tracer_tpu_torch.ops import kerr_trace as tk
+from light_path_tracer_tpu_torch.ops.cuda import volumetric_kernel as vk
+from light_path_tracer_tpu_torch.utils.config import RenderConfig, SceneConfig
+
+R_OBS = 100.0
+THETA = float(np.radians(80.0))
+M, A = 1.0, 0.9
+BARS = {"float64": 1e-12, "float32": 2e-5}
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _transfers(n_orders=3, **riaf_kw):
+    jr = jvol.RIAFConfig(**riaf_kw)
+    return (jvol.make_order_transfer(JKerr(M=M, a=A), jr, n_orders),
+            volumetric.make_order_transfer(Kerr(M=M, a=A),
+                                           riaf_config_from_jax(jr),
+                                           n_orders))
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("n_orders, riaf_kw", [
+    (3, dict()), (3, dict(alpha0=0.4)),
+    (2, dict(g_power=0.0, alpha0=0.2)), (4, dict(profile="powerlaw"))],
+    ids=["thin", "absorbed", "geometry-2", "powerlaw-4"])
+def test_order_closure_matches_jax(n_orders, riaf_kw, dtype):
+    jt, tt = _transfers(n_orders, **riaf_kw)
+    rng = np.random.default_rng(0)
+    n = 256
+    absorbing = riaf_kw.get("alpha0", 0.0) > 0
+    m = rng.integers(-1, 6, n) + rng.uniform(0.1, 0.9, n)
+    y = [rng.uniform(2, 30, n), rng.uniform(0.15, 6.1, n),
+         rng.uniform(-9, 9, n), rng.uniform(-1, 1, n), rng.uniform(-3, 3, n),
+         m] + [rng.uniform(0, 3, n) for _ in range(n_orders + absorbing)]
+    y = [c.astype(dtype) for c in y]
+    p_t = -np.ones(n, dtype)
+    p_phi = rng.uniform(-4, 4, n).astype(dtype)
+    want = jt(tuple(jnp.asarray(c) for c in y), jnp.asarray(p_t),
+              jnp.asarray(p_phi))
+    got = tt(torch.from_numpy(np.stack(y)), torch.from_numpy(p_t),
+             torch.from_numpy(p_phi))
+    assert len(got) == len(want) == 1 + absorbing + n_orders
+    for g, w in zip(got, want):
+        g, w = _np(g), _np(w)
+        assert g.dtype == w.dtype
+        assert np.abs(g - w).max() <= BARS[dtype] * np.abs(w).max()
+    buckets = np.stack([_np(g) for g in got[1 + absorbing:]])
+    assert ((buckets != 0).sum(axis=0) <= 1).all()      # a partition
+    assert (buckets[-1][m >= n_orders - 1] != 0).any()  # last one is open
+    assert tt.kernel.kind == "order" and tt.kernel.n_orders == n_orders
+
+
+def _rays(n, seed, dtype):
+    ac = JKerr(M=M, a=A).alpha_crit(R_OBS, THETA)
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0.3 * ac, 4 * ac, n).astype(dtype),
+            rng.uniform(-np.pi, np.pi, n).astype(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_plain_order_trace_matches_jax(dtype):
+    al, th = _rays(192, 1, dtype)
+    jt, tt = _transfers(3)
+    kw = dict(sat_window=512, sat_monitor=(1, 2, 3))
+    rj = jspec(JKerr(M=M, a=A), R_OBS, jnp.asarray(al), jnp.asarray(th),
+               THETA, jt, 3, 5000.0, 4000, **kw)
+    rt = tk.trace_rays_spectral(
+        Kerr(M=M, a=A), R_OBS, torch.from_numpy(al), torch.from_numpy(th),
+        THETA, tt, 3, 5000.0, 4000, **kw)
+    sj, st = _np(rj.status), _np(rt.status)
+    mj, mt = _np(rj.tau_hat), _np(rt.tau_hat)
+    ej = np.stack([_np(e) for e in rj.emission])
+    et = np.stack([_np(e) for e in rt.emission])
+    assert mt.max() > 2.0 and (et[2] > 0).sum() > 5
+    if dtype == "float64":
+        np.testing.assert_array_equal(st, sj)
+        assert np.abs(mt - mj).max() < 1e-8 * mj.max()
+        assert np.abs(et - ej).max() < 1e-8 * ej.max()
+        return
+    ok = sj == st
+    assert ok.mean() > 0.99
+    dm = np.abs(mt - mj)[ok]
+    assert np.percentile(dm, 95) < 2e-3 and np.percentile(dm, 99) < 0.1
+    total_j, total_t = ej.sum(axis=0), et.sum(axis=0)
+    assert np.percentile(np.abs(total_t - total_j)[ok], 99) \
+        < 1e-4 * total_j.max()
+    flux_j, flux_t = ej[:, ok].sum(axis=1), et[:, ok].sum(axis=1)
+    assert abs(flux_t[0] - flux_j[0]) < 0.15 * flux_j[0]
+    assert np.all(np.abs(flux_t - flux_j) < 0.40 * flux_j)
+
+
+def test_render_decomposed_matches_jax():
+    jscene = JScene(M=M, a=A, r_obs_mult=R_OBS, vertical_fov_deg=16.0,
+                    theta_obs=THETA)
+    jcfg = JRender(dtype="float64", backend="xla")
+    jr = jvol.RIAFConfig(alpha0=0.2)
+    jl, jst = jvol.render_volumetric_decomposed(jscene, (24, 24), jcfg, jr,
+                                                n_orders=3)
+    tl, tst = volumetric.render_volumetric_decomposed(
+        scene_from_jax(jscene), (24, 24), render_cfg_from_jax(jcfg),
+        riaf_config_from_jax(jr), n_orders=3, device="cpu")
+    assert tl.dtype == torch.float32 and tl.shape == (3, 24, 24)
+    assert set(tst) == set(jst)
+    peak = np.asarray(jl).max()
+    assert np.abs(tl.numpy() - np.asarray(jl)).max() < 1e-6 * peak
+    for key in ("flux_per_order", "mean_radius_rad", "flux_ratios",
+                "gamma_estimates"):
+        np.testing.assert_allclose(tst[key], jst[key], rtol=1e-5)
+    assert np.abs(tst["winding"] - jst["winding"]).max() < 1e-8
+    np.testing.assert_allclose(tst["optical_depth"], jst["optical_depth"],
+                               atol=1e-8 * jst["optical_depth"].max())
+    for key in ("captured", "invalid", "total_rays", "traced_rays",
+                "alpha_crit"):
+        assert tst[key] == jst[key]
+
+
+def test_orders_partition_the_image_and_absorption_screens_them():
+    scene = SceneConfig(M=M, a=A, theta_obs=THETA, vertical_fov_deg=16.0)
+    cfg = RenderConfig(max_steps=20000)
+    size = (32, 32)
+    layers, st = volumetric.render_volumetric_decomposed(
+        scene, size, cfg, volumetric.RIAFConfig(), n_orders=3, device="cpu")
+    _img, thin = volumetric.render_volumetric(scene, size, cfg,
+                                              volumetric.RIAFConfig(),
+                                              device="cpu")
+    assert float(layers.min()) >= 0.0
+    total = layers.sum(dim=0).numpy()
+    assert np.abs(total - thin["emission"]).max() \
+        < 1e-3 * thin["emission"].max()
+    flux = st["flux_per_order"]
+    assert flux[0] > flux[1] > flux[2] > 0.0
+    assert st["winding"].max() > 2.0 and st["optical_depth"].max() == 0.0
+    assert all(0.0 < r < np.radians(16.0) for r in st["mean_radius_rad"])
+    assert st["gamma_estimates"][0] > 0.0
+    _l, sa = volumetric.render_volumetric_decomposed(
+        scene, size, cfg, volumetric.RIAFConfig(alpha0=0.5), n_orders=3,
+        device="cpu")
+    assert all(a < b for a, b in zip(sa["flux_per_order"], flux))
+    assert sa["optical_depth"].max() > 0.1
+    shown = disk.decomposed_display(layers, "sqrt")
+    assert shown.shape == layers.shape and float(shown.max()) == 1.0
+    assert float(shown[2].max()) < 1.0                  # one shared peak
+
+
+def test_order_wrapper_on_cpu_and_kernel_constants():
+    _jt, tt = _transfers(3)
+    al, th = _rays(32, 2, np.float32)
+    m = Kerr(M=M, a=A)
+    args = (m, R_OBS, torch.from_numpy(al), torch.from_numpy(th), THETA)
+    launches = vk.trace_rays_aux_cuda.launches
+    got = vk.trace_rays_aux_cuda(*args, tt, 4, (), 5000.0, 2000)
+    want = tk.trace_rays_spectral(*args, tt, 3, 5000.0, 2000)
+    assert vk.trace_rays_aux_cuda.launches == launches
+    for x, y in zip(got.extras, (want.tau_hat,) + want.emission):
+        assert torch.equal(x, y)
+    p = vk.riaf_params(tt.kernel)
+    f32 = np.float32
+    assert p.order_norm == f32(1.0 / (0.03 * np.sqrt(2.0 * np.pi)))
+    assert p.order_inv_two_sig2 == f32(1.0 / (2.0 * 0.03 ** 2))
+    assert p.a2 == f32(0.9 ** 2)
+    assert vk._family(tt.kernel, 4, 0) == ("lpt_kerr_dp45_orders", 0, 3)
+    absorbed = volumetric.make_order_transfer(
+        m, volumetric.RIAFConfig(alpha0=0.3), 4).kernel
+    assert vk._family(absorbed, 6, 0) == ("lpt_kerr_dp45_orders", 1, 4)
+    five = volumetric.make_order_transfer(m, volumetric.RIAFConfig(),
+                                          5).kernel
+    with pytest.raises(NotImplementedError, match="5 orders"):
+        vk._family(five, 6, 0)
+    with pytest.raises(ValueError, match="n_orders"):
+        volumetric.make_order_transfer(m, volumetric.RIAFConfig(), 1)
+    with pytest.raises(NotImplementedError):
+        volumetric.render_volumetric_decomposed(
+            SceneConfig(M=M, a=A), (4, 4), mesh=object(), device="cpu")
+
+
+def test_cli_decompose_on_cpu(tmp_path, capsys):
+    from light_path_tracer_tpu_torch.cli import main
+    from light_path_tracer_tpu_torch.utils.save import read_png
+    panel = tmp_path / "d.png"
+    assert main(["volumetric", "--size", "16", "--a", "0.9", "--theta-obs",
+                 "80", "--fov-v", "16", "--device", "cpu", "--decompose",
+                 str(panel), "--orders", "2"]) == 0
+    text = capsys.readouterr().out
+    assert "Decomposition: 16x16, a=0.9, 2 orders from ONE trace" in text
+    assert "n=1: flux" in text and "alpha_crit" in text
+    for name in ("composite", "n0", "n1"):
+        assert read_png(tmp_path / f"d_{name}.png").shape == (16, 16, 3)
+    data = np.load(tmp_path / "d.npz")
+    assert set(data.files) == {"layers", "flux_per_order",
+                               "mean_radius_rad", "winding"}
+    assert data["layers"].shape == (2, 16, 16)

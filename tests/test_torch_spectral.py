@@ -20,7 +20,8 @@ render in float64 (images to 1e-6, emission and tau_hat to 1e-9 of the
 largest, the same flux, radii and spectral-index maps); the SSA turnover
 and the band scaling hold on the port's CPU path. The `volumetric` CLI
 renders a still and a band panel on the CPU, registers every JAX flag
-with its default, and raises for the modes not ported yet.
+with its default, and raises for the reports not ported yet (visibility,
+centroid) and for charged scenes, in every mode.
 """
 
 import argparse
@@ -270,7 +271,9 @@ def test_cli_volumetric_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--movie", "4"], ["--decompose", "x.png"], ["--polarization", "x.png"],
+    ["--movie", "4", "--centroid", "x.png"],
+    ["--decompose", "x.png", "--Q", "0.3"],
+    ["--polarization", "x.png", "--visibility", "x.npz"],
     ["--visibility", "x.npz"], ["--centroid", "x.png"], ["--Q", "0.3"]])
 def test_cli_volumetric_rejects_modes_not_ported(tmp_path, flags):
     from light_path_tracer_tpu_torch.cli import main
