@@ -132,15 +132,44 @@ Phases:
      the card's FP32 FMA (one chain and eight a thread), FP64 FMA, mixed
      and sinf rates from the marginal time between chain lengths 2,048
      and 8,192.
+ 17. the float64 instances against the plain float64 loop: the Kerr and
+     disk kernels on 1,024 of phases 3's and 8's rays, the orbit kernel
+     on 1,024 rays and the alpha = 0 lane (Schwarzschild and RN), every
+     extras form on phase 11's and 14's 4,096 rays against the float64
+     plain runs those phases made (the orders' made here). Gates:
+     statuses > 0.999; p99 |d final_alpha| < 1e-6 rad on stable escaped
+     rays (orbit < 1e-8); disk median |d r_hits[0]| < 1e-6 M; extras p99
+     |d| / max < 1e-6 (tau against max(1, max |tau|)); the orders by
+     phase 14's flux gates. Then every entry-point family in float64 at
+     64^2 on the card against the CPU (render_shadow, render_scene,
+     render_disk, render_volumetric, _spectrum, _movie thin and absorbed,
+     _decomposed, render_polarized_volumetric): only float64 instances
+     launch, no float32 one and no plain loop; shadow pixels equal on
+     99.9 %, masks 99.9 %, lensed RMSE < 1e-6, median |d image| < 1e-6,
+     Stokes medians < 1e-8 of the peak, orders by flux. Then the float32
+     kernel against the float64 one on the 1024^2 main-path rays: status
+     agreement > 0.99, final-alpha RMSE on rays escaped in both, read
+     against the north star's 1e-3 rad, and both times.
+ 18. the exact-cycle exit: each ray kernel with the exit and with it off
+     (`_cycle_exit=False`, which grinds every attempt) on the aligned and
+     quarter-offset 1024^2 config-4 disk grids, the 1024^2 Kerr shadow,
+     and the volumetric scene's 1024^2 and 256^2 grids for the thin,
+     absorbed, jet, 3-band, Stokes, movie and order forms at window
+     2,048 (scripts/torch_cycle_census.py): every output bitwise equal
+     (state or extras, status, final alpha, half-orbits, flags, per-ray
+     attempts, warp step sum), with the lanes counted by kind (exact
+     cycle and its period, frozen with a moving lambda, ground without
+     freezing) and both times; the 256^2 order lane (171, 129).
 Each path's launch counters are set to 0 just before it and read just
-after. The second-to-last line is a JSON object of per-kernel results:
-beside each kernel's time stand its bound (the larger of its flops over
-the H100's published 67 TFLOP/s float32 rate and its bytes over 3.35
-TB/s, from this run's per-ray attempt counts and the flops per attempt
-counted from the CUDA sources; transcendentals are left out, so it stays
-a lower bound), the same bound at the FP32 rate phase 16 measured, and
-the slowest ray's attempts with the time that ray takes when traced
-alone. The last line is {"ok": true, "device": {...}}. Exit code 0 iff
+after (float32 and float64 instances count apart: `.launches`,
+`.launches_f64`). The second-to-last line is a JSON object of per-kernel
+results: beside each kernel's time stand its bound (the larger of its
+flops over the H100's published 67 TFLOP/s float32 rate, 34 TFLOP/s for
+the float64 instances, and its bytes over 3.35 TB/s, from this run's
+per-ray attempt counts and the flops per attempt counted from the CUDA
+sources; transcendentals are left out, so it stays a lower bound), the
+same bound at the FP32 (FP64) rate phase 16 measured, and the slowest
+ray's attempts with the time that ray takes when traced alone. The last line is {"ok": true, "device": {...}}. Exit code 0 iff
 every phase passed; without a CUDA device it exits 1 and prints no
 result.
 """
@@ -329,7 +358,8 @@ def same_bits(a, b):
     """Bitwise equality of two float or int tensors (NaN == NaN)."""
     import torch
     if a.dtype.is_floating_point:
-        a, b = a.view(torch.int32), b.view(torch.int32)
+        view = torch.int64 if a.dtype == torch.float64 else torch.int32
+        a, b = a.view(view), b.view(view)
     return bool(torch.equal(a, b))
 
 
@@ -344,22 +374,21 @@ def disk_bitwise(r1, r2):
 def kernel_label(mangled):
     """A short name for a kernel instance in ptxas's report."""
     import re
-    for pat, fmt in ((r"kerr_dp45_extras_kernelINS_\d+((?!Movie|Order)\w+?)E",
-                      "kerr_dp45_extras<{}>"),
-                     (r"kerr_dp45_kernelILb(\d)ELi(\d)ELb(\d)",
-                      "kerr_dp45<disk={},hits={},momentum={}>"),
-                     (r"orbit_rk4_kernelILb(\d)", "orbit_rk4<charged={}>")):
-        m = re.search(pat, mangled)
-        if m:
-            groups = list(m.groups())
-            if groups[0].startswith("SpectralILi"):
-                groups[0] = f"Spectral<{groups[0][11:]}>"
-            return fmt.format(*groups)
-    m = re.search(r"kerr_dp45_extras_kernelINS_\d+(Movie|Order)ILi(\d)ELb(\d)",
+    real = {"f": "float", "d": "double"}
+    m = re.search(r"kerr_dp45_kernelI([fd])Lb(\d)ELi(\d)ELb(\d)", mangled)
+    if m:
+        return (f"kerr_dp45<{real[m.group(1)]},disk={m.group(2)},"
+                f"hits={m.group(3)},momentum={m.group(4)}>")
+    m = re.search(r"kerr_dp45_extras_kernelINS_\d+([A-Za-z]+)I(\w*?)([fd])EE",
                   mangled)
     if m:
-        return (f"kerr_dp45_extras<{m.group(1)}<{m.group(2)},"
-                f"absorbing={m.group(3)}>>")
+        args = [v if k == "i" else ("absorbing=" + v)
+                for k, v in re.findall(r"L([ib])(\d+)E", m.group(2))]
+        args.append(real[m.group(3)])
+        return f"kerr_dp45_extras<{m.group(1)}<{','.join(args)}>>"
+    m = re.search(r"orbit_rk4_kernelILb(\d)E([fd])", mangled)
+    if m:
+        return f"orbit_rk4<charged={m.group(1)},{real[m.group(2)]}>"
     m = re.search(r"\d+(fma8?_chain_kernel|mix_chain_kernel|"
                   r"sin_chain_kernel)(I[fd])?", mangled)
     if m:
@@ -385,9 +414,10 @@ def ptxas_report(log):
     return rows
 
 
-# Published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside
-# the tensor cores, and HBM3.
+# Published peaks of one H100 SXM (NVIDIA's data sheet): float32 and
+# float64 outside the tensor cores, and HBM3.
 PEAK_FP32 = 67e12
+PEAK_FP64 = 34e12
 PEAK_BYTES = 3.35e12
 # Flops of one evaluation, counted from the CUDA sources as written
 # (before the compiler's common subexpressions; a multiply-add counts 2,
@@ -441,21 +471,25 @@ def driver_attempts(attempts, pass1_steps):
 
 
 def kernel_entry(name, source, replaces, launches, max_abs_err, ms,
-                 plain_ms, n, bytes_per_ray, flops, stats=None):
+                 plain_ms, n, bytes_per_ray, flops, stats=None,
+                 peak=PEAK_FP32):
     """One entry of the kernels line. flops: the operations this run's
-    inputs need; stats: attempts_stats of the timed call (a kernel's own
-    single launch; a driver's entry has none)."""
-    t_ops, t_bytes = flops / PEAK_FP32, n * bytes_per_ray / PEAK_BYTES
+    inputs need, at the rate `peak` of their type; stats: attempts_stats
+    of the timed call (a kernel's own single launch; a driver's entry has
+    none)."""
+    t_ops, t_bytes = flops / peak, n * bytes_per_ray / PEAK_BYTES
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches,
              "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
              "bound_ms": 1e3 * max(t_ops, t_bytes),
              "bound_by": "operations" if t_ops >= t_bytes else "bytes",
              "library_ms": None, "rays": n, "flops": flops,
+             "flops_type": "float64" if peak == PEAK_FP64 else "float32",
              "bytes": n * bytes_per_ray}
     if stats:
-        entry.update(slowest_attempts=stats["slowest_attempts"],
-                     slowest_alone_ms=stats["slowest_alone_ms"])
+        entry.update({k: stats[k] for k in ("slowest_attempts",
+                                            "slowest_alone_ms")
+                      if k in stats})
     return entry
 
 
@@ -556,10 +590,12 @@ def extras_compare(a, b):
 
 def f32_gap(metric, riaf, freqs, alphas, thetas, max_steps, plain32, **kw):
     """The plain loop's own float32 result plain32 against its float64
-    result on the same rays (extras_compare's numbers)."""
-    rp64 = extras_trace(metric, riaf, freqs, alphas.double(),
-                        thetas.double(), max_steps, False, **kw)
-    return extras_compare(plain32, rp64)
+    result on the same rays (extras_compare's numbers), and that float64
+    result with its time (phase 17 holds the float64 kernel against it)."""
+    ms, rp64 = cuda_ms(lambda: extras_trace(
+        metric, riaf, freqs, alphas.double(), thetas.double(), max_steps,
+        False, **kw), 1)
+    return extras_compare(plain32, rp64), (rp64, ms)
 
 
 def extras_gate(what, g, gap=None):
@@ -630,7 +666,7 @@ def volumetric_phases(dev, card):
     th = torch.tensor(rng.uniform(-np.pi, np.pi, VOL_RAYS), **f32)
     print(f"extras kernel vs plain version (f32 'fast', {VOL_RAYS} random "
           f"rays, max_steps {VOL_STEPS}, sat_window 2048):", flush=True)
-    g11, gap11 = {}, {}
+    g11, gap11, plain64 = {}, {}, {}
     for label, (riaf, freqs) in volumetric_forms().items():
         probe = {}
         ms, rk = cuda_ms(lambda: extras_trace(
@@ -646,8 +682,8 @@ def volumetric_phases(dev, card):
         g.update(attempts_stats(probe["attempts"], lambda i: extras_trace(
             kerr, riaf, freqs, al[i:i + 1], th[i:i + 1], VOL_STEPS, True,
             sat_window=2048)))
-        gap11[label] = f32_gap(kerr, riaf, freqs, al, th, VOL_STEPS, rp,
-                               sat_window=2048)
+        gap11[label], plain64[label] = f32_gap(
+            kerr, riaf, freqs, al, th, VOL_STEPS, rp, sat_window=2048)
         g11[label] = g
         extras_gate(f"phase 11 {label}", g, gap11[label])
         print(f"  {label}: {json.dumps(g)}", flush=True)
@@ -720,7 +756,7 @@ def volumetric_phases(dev, card):
         g256[label] = g
         # The float64 run only where a bar needs it: the 3-band form.
         gap = (f32_gap(kerr, riaf, freqs, al256, th256, 2048, rp,
-                       sat_window=2048) if freqs else None)
+                       sat_window=2048)[0] if freqs else None)
         extras_gate(f"phase 12 256^2 {label}", g, gap)
         print(f"  {label}, {d256[0]}^2 grid, both capped at 2048: "
               f"{json.dumps(g)}", flush=True)
@@ -857,7 +893,8 @@ def volumetric_phases(dev, card):
     thin_flops = attempt_flops(6, form_flops("thin"))
     spec_flops = attempt_flops(6 + n_bands, form_flops("spectral", n_bands))
     state = dict(kerr=kerr, al=al, th=th, scene=scene, cfg=cfg,
-                 thin_emission=thin_map, thin_exited=thin_exited)
+                 thin_emission=thin_map, thin_exited=thin_exited,
+                 plain64_11=plain64)
     return [
         kernel_entry("kerr_dp45_extras", VOL_SOURCE, f"{VOL_JAX}:53",
                      launches["volumetric"], thin["max_abs_em"], thin["ms"],
@@ -1064,14 +1101,16 @@ def aux_both(what, metric, label, form, al, th, max_steps, window,
         metric, (form[0], form[1], tuple(a[i:i + 1] for a in form[2]),
                  form[3], form[4]), al[i:i + 1], th[i:i + 1], max_steps,
         True, **kw)))
-    gap = None
+    gap = plain64 = None
     if f64:
-        gap = aux_compare(rp, aux_trace(metric, form, al.double(),
-                                        th.double(), max_steps, False, **kw),
-                          label, width)
+        plain64 = cuda_ms(lambda: aux_trace(metric, form, al.double(),
+                                            th.double(), max_steps, False,
+                                            **kw), 1)
+        gap = aux_compare(rp, plain64[1], label, width)
     aux_gate(f"{what} {label}", g, gap)
     print(f"  {label}: {json.dumps(g)}", flush=True)
     g["attempts"] = probe["attempts"]
+    g["plain64"] = plain64
     return g
 
 
@@ -1163,6 +1202,7 @@ def new_mode_phases(dev, card, state):
     g14 = {label: aux_both("phase 14", kerr, label, form, al, th, AUX_STEPS,
                            AUX_WINDOW, f64=not label.startswith("order"))
            for label, form in forms.items()}
+    state.update(g14=g14, forms14=forms)
     # Two orders: the open-ended last bucket takes every later crossing
     # (2 % of the flux), so a last bucket that is closed breaks the sum.
     aux_both("phase 14", kerr, "order x2 thin", (
@@ -1505,6 +1545,326 @@ def probe_phase(dev, card):
         worst["fma32x8"], kernel_ms, plain_ms, peak_probe.N_ELEMENTS, 8,
         16 * k_plain * peak_probe.N_ELEMENTS)
     return entry, rates
+
+
+F64_RAYS = 1024
+F64_SOURCE = "light_path_tracer_tpu_torch/csrc/{}_f64.cu"
+
+
+def f64_extras_gate(what, g, tau_scale=1.0):
+    """Phase 17's gates on float64 kernel-vs-plain extras numbers g:
+    status agreement > 0.999, every extra's p99 |d| / max < 1e-6 (tau
+    against max(1, max |tau|))."""
+    p99 = g.get("p99_em_bands", g.get("p99"))
+    tau = g.get("p99_tau", 0.0) / max(tau_scale, 1.0)
+    require(g["status_agree"] > 0.999 and max(p99) < 1e-6 and tau < 1e-6,
+            f"phase 17 {what} gate: {g}")
+
+
+def f64_counters():
+    """Every kernel wrapper and plain loop whose counts phase 17 reads."""
+    from light_path_tracer_tpu_torch.ops import kerr_trace as tk
+    from light_path_tracer_tpu_torch.ops import schwarzschild_trace as st
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    from light_path_tracer_tpu_torch.ops.cuda import schwarzschild_kernel
+    from light_path_tracer_tpu_torch.ops.cuda import volumetric_kernel as vk
+    kernels = dict(kerr=kk.trace_rays_kerr_cuda, disk=kk.trace_disk_rays_cuda,
+                   orbit=schwarzschild_kernel.trace_rays_schwarzschild_cuda,
+                   volumetric=vk.trace_rays_volumetric_cuda,
+                   aux=vk.trace_rays_aux_cuda)
+    plains = (tk.trace_rays_kerr, tk.trace_disk_rays_kerr, tk.trace_rays_aux,
+              tk.trace_rays_volumetric, tk.trace_rays_spectral,
+              st.trace_rays_schwarzschild)
+    return kernels, plains
+
+
+def float64_phase(dev, card, ctx):
+    """Phase 17: every float64 kernel instance against the plain float64
+    loop, the float64 renders of every entry-point family on the card
+    against the CPU (the float64 path: its launches are the f64 entries'
+    counts), and the float32 kernel against the float64 one on the main
+    path's rays. Returns the kernels-line entries of the float64
+    instances."""
+    import torch
+    from light_path_tracer_tpu_torch import (camera, disk, pipeline,
+                                             polarization, volumetric)
+    from light_path_tracer_tpu_torch.models import (Kerr, ReissnerNordstrom,
+                                                    Schwarzschild)
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    from light_path_tracer_tpu_torch.utils.config import (RenderConfig,
+                                                          SceneConfig)
+    kerr = Kerr(M=1.0, a=0.9)
+    n = F64_RAYS
+    rows = {}
+    print(f"float64 kernel instances vs the plain float64 loop (gates: "
+          f"status > 0.999; p99 |d final_alpha| < 1e-6 rad, orbit 1e-8; "
+          f"extras p99 |d| / max < 1e-6; disk median |d r_hits[0]| < 1e-6 "
+          f"M; orders by flux):", flush=True)
+    al, th, rf = (x[:n] for x in ctx["kerr_rays"])
+    g = both_versions(f"Kerr, {n} random rays", kerr, al.double(),
+                      th.double(), rf, GATE_STEPS, 5)
+    require(g["status_agree"] > 0.999 and g["p99"] < 1e-6,
+            f"phase 17 Kerr gate: {g}")
+    rows["kerr"] = g
+    al_d, th_d = (x[:n].double() for x in ctx["disk_rays"])
+    g = disk_both(f"disk, {n} random rays, opaque", kerr, al_d, th_d,
+                  GATE_STEPS, ctx["opaque"], 2, 5)
+    require(g["status_agree"] > 0.999 and g["nhits_agree"] > 0.999
+            and g["median_dr"] < 1e-6, f"phase 17 disk gate: {g}")
+    rows["disk"] = g
+    for metric in (Schwarzschild(M=1.0), ReissnerNordstrom(M=1.0, Q=0.6)):
+        ac_o = metric.alpha_crit(R_OBS)
+        rng = np.random.default_rng(1)
+        al_o = torch.tensor(np.concatenate(
+            [[0.0], rng.uniform(0.2 * ac_o, 4 * ac_o, n)]),
+            dtype=torch.float64, device=dev)
+        label = type(metric).__name__
+        g, rk = orbit_both(f"{label} {n + 1} rays", metric, al_o, 20)
+        require(g["status_agree"] > 0.999 and g["p99"] < 1e-8
+                and int(rk.status[0]) == 0, f"phase 17 {label} gate: {g}")
+        rows.setdefault("orbit", g)
+
+    # The extras forms on phase 11's and phase 14's rays, against the
+    # plain float64 runs those phases made.
+    st = ctx["state"]
+    al_v, th_v = st["al"].double(), st["th"].double()
+    for label, (riaf, freqs) in volumetric_forms().items():
+        rp64, plain_ms = st["plain64_11"][label]
+        probe = {}
+        ms, rk = cuda_ms(lambda: extras_trace(
+            kerr, riaf, freqs, al_v, th_v, VOL_STEPS, True, sat_window=2048,
+            probe=probe), 3)
+        g = extras_compare(rk, rp64)
+        g.update(ms=ms, plain_ms=plain_ms,
+                 attempts_sum=int(probe["attempts"].to(torch.int64).sum()),
+                 slowest_attempts=int(probe["attempts"].max()))
+        tau = max((float(t.abs().max()) for t in rp64[2]), default=1.0)
+        print(f"  {label}, {VOL_RAYS} rays: {json.dumps(g)}", flush=True)
+        f64_extras_gate(label, g, tau)
+        rows[label] = g
+    forms = ctx["state"]["forms14"]
+    for label, form in forms.items():
+        form = (form[0], form[1], tuple(a.double() for a in form[2]),
+                *form[3:])
+        width = len(form[3])
+        kw = dict(sat_window=AUX_WINDOW)
+        plain64 = st["g14"][label]["plain64"]
+        if plain64 is None:
+            plain64 = cuda_ms(lambda: aux_trace(kerr, form, al_v, th_v,
+                                                AUX_STEPS, False, **kw), 1)
+        plain_ms, rp64 = plain64
+        probe = {}
+        ms, rk = cuda_ms(lambda: aux_trace(kerr, form, al_v, th_v, AUX_STEPS,
+                                           True, probe=probe, **kw), 3)
+        g = aux_compare(rk, rp64, label, width)
+        g.update(ms=ms, plain_ms=plain_ms,
+                 attempts_sum=int(probe["attempts"].to(torch.int64).sum()),
+                 slowest_attempts=int(probe["attempts"].max()))
+        print(f"  {label}, {VOL_RAYS} rays: {json.dumps(g)}", flush=True)
+        if label.startswith("order"):
+            require(g["status_agree"] > 0.999 and order_gate(g)
+                    and g["p95_m"] < 5e-3, f"phase 17 {label} gate: {g}")
+        else:
+            f64_extras_gate(label, g)
+        rows[label] = g
+
+    # The entry points in float64 at 64^2, on the card and on the CPU:
+    # the card's renders launch only float64 instances and no plain loop.
+    kernels, plains = f64_counters()
+    cfg = RenderConfig(dtype="float64")
+    d64 = (64, 64)
+    scene_k = SceneConfig(M=1.0, a=0.9, vertical_fov_deg=12.0)
+    scene_s = SceneConfig(M=1.0, r_obs_mult=R_OBS, vertical_fov_deg=12.0)
+    scene_d = SceneConfig(M=1.0, a=0.9, r_obs_mult=R_OBS,
+                          theta_obs=THETA_DISK)
+    scene_v = st["scene"]
+    src = np.random.default_rng(4).random((64, 64, 3)).astype(np.float32)
+    period = 2.0 * np.pi / abs(volumetric.keplerian_omega(1.0, 0.9, 6.0,
+                                                           True))
+    times = tuple(period * k / 3 for k in range(3))
+    riaf3, freqs3 = scene_forms()["spectral 3-band"]
+    blob = volumetric.RIAFConfig(spot_amp=8.0)
+    families = {
+        "shadow": ("kerr", lambda device: pipeline.render_shadow(
+            scene_k, d64, cfg, device=device)),
+        "lensed": ("orbit", lambda device: pipeline.render_scene(
+            scene_s, src, RenderConfig(dtype="float64",
+                                       sampling="bilinear"),
+            device=device)),
+        "disk": ("disk", lambda device: disk.render_disk(
+            scene_d, d64, cfg, device=device)),
+        "volumetric": ("volumetric", lambda device: (
+            volumetric.render_volumetric(scene_v, d64, cfg, device=device))),
+        "spectrum": ("aux", lambda device: (
+            volumetric.render_volumetric_spectrum(
+                scene_v, d64, freqs3, cfg, riaf3, device=device))),
+        "movie": ("aux", lambda device: volumetric.render_volumetric_movie(
+            scene_v, d64, times, cfg, blob, device=device)),
+        "movie absorbed": ("aux", lambda device: (
+            volumetric.render_volumetric_movie(
+                scene_v, d64, times, cfg,
+                volumetric.RIAFConfig(spot_amp=8.0, alpha0=0.3),
+                device=device))),
+        "decomposed": ("aux", lambda device: (
+            volumetric.render_volumetric_decomposed(
+                scene_v, d64, cfg, n_orders=N_ORDERS, device=device))),
+        "polarized": ("aux", lambda device: (
+            polarization.render_polarized_volumetric(
+                scene_v, d64, cfg, device=device)))}
+    f64_launches, checks = {}, {}
+    for label, (kernel, render) in families.items():
+        for c in (*kernels.values(), *plains):
+            c.launches = 0
+            if hasattr(c, "launches_f64"):
+                c.launches_f64 = 0
+        og = render("cuda")
+        torch.cuda.synchronize()
+        n64 = kernels[kernel].launches_f64
+        n32 = sum(c.launches for c in kernels.values())
+        n_plain = sum(c.launches for c in plains)
+        f64_launches[label] = n64
+        require(n64 > 0 and n32 == 0 and n_plain == 0,
+                f"phase 17 {label} float64 render: {n64} float64 launches, "
+                f"{n32} float32, {n_plain} plain")
+        oc = render("cpu")
+        if label == "shadow":
+            c = dict(pixels_equal=float((og[0].cpu() == oc[0]).float()
+                                        .mean()))
+            ok = c["pixels_equal"] >= 0.999
+        elif label == "lensed":
+            calm = ((og.precompute.winding.cpu().to(torch.int32) < 2)
+                    & (oc.precompute.winding.to(torch.int32) < 2))
+            masks = (torch.isnan(og.precompute.final_alpha).cpu()
+                     == torch.isnan(oc.precompute.final_alpha))
+            c = dict(mask_agree=float(masks.float().mean()),
+                     rmse=float(((og.image.cpu() - oc.image)[calm] ** 2)
+                                .mean().sqrt()))
+            ok = c["mask_agree"] >= 0.999 and c["rmse"] < 1e-6
+        elif label == "disk":
+            mg, mc = og[0].cpu() > 0, oc[0] > 0
+            both = mg & mc
+            c = dict(mask_agree=float((mg == mc).float().mean()),
+                     median=float((og[0].cpu() - oc[0]).abs()[both]
+                                  .median()))
+            ok = c["mask_agree"] >= 0.999 and c["median"] < 1e-6
+        elif label == "decomposed":
+            c = order_numbers(
+                og[0].cpu().numpy().astype(np.float64).reshape(N_ORDERS, -1),
+                oc[0].numpy().astype(np.float64).reshape(N_ORDERS, -1))
+            ok = order_gate(c)
+        elif label == "polarized":
+            peak = oc[2].max()
+            c = {k: float(np.median(np.abs(og[3][k] - oc[3][k])) / peak)
+                 for k in "IQU"}
+            ok = max(c.values()) < 1e-8
+        else:
+            c = dict(median=float((og[0].cpu() - oc[0]).abs().median()),
+                     max=float((og[0].cpu() - oc[0]).abs().max()))
+            ok = c["median"] < 1e-6
+        c["float64_launches"] = n64
+        checks[label] = c
+        require(ok, f"phase 17 64^2 float64 {label} card vs CPU: {c}")
+    print(f"float64 renders, 64^2 card vs CPU: {json.dumps(checks)}",
+          flush=True)
+
+    # The float32 kernel against the float64 one on the main path's rays:
+    # the north star's final-alpha bar (1e-3 rad RMSE).
+    scene = SceneConfig(M=1.0, a=0.9, r_obs_mult=R_OBS)
+    dim = ctx["main_dim"]
+    fov = camera.fov_from_vertical(scene.vertical_fov, dim)
+    res = {}
+    for dtype in ("float32", "float64"):
+        al_m, th_m, rf_m, _rows = pipeline.trace_inputs(
+            scene, RenderConfig(dtype=dtype), dim, fov, dev)
+        ms, r = cuda_ms(lambda: kk.trace_rays_kerr_cuda(
+            kerr, R_OBS, al_m, th_m, np.pi / 2, rf_m, LAMBDA_MAX, 200000), 3)
+        probe = {}
+        kk.trace_rays_kerr_cuda(kerr, R_OBS, al_m, th_m, np.pi / 2, rf_m,
+                                LAMBDA_MAX, 200000, probe=probe)
+        res[dtype] = (r, ms, probe["attempts"])
+    (r32, ms32, a32), (r64, ms64, a64) = res["float32"], res["float64"]
+    s32, s64 = r32.status.cpu().numpy(), r64.status.cpu().numpy()
+    esc = (s32 == 1) & (s64 == 1)
+    d = (r32.final_alpha.double() - r64.final_alpha).cpu().numpy()[esc]
+    main = dict(rays=int(s32.size), status_agree=float((s32 == s64).mean()),
+                escaped_both=int(esc.sum()),
+                final_alpha_rmse=float(np.sqrt(np.mean(d * d))),
+                final_alpha_max=float(np.abs(d).max()),
+                ms_float32=ms32, ms_float64=ms64, ratio=ms64 / ms32,
+                attempts_sum_float32=int(a32.to(torch.int64).sum()),
+                attempts_sum_float64=int(a64.to(torch.int64).sum()),
+                slowest_float64=int(a64.max()))
+    main["meets_1e-3_rad"] = main["final_alpha_rmse"] < 1e-3
+    print(f"float32 vs float64 kernel, {dim[0]}^2 main-path rays: "
+          f"{json.dumps(main)} on {card}", flush=True)
+    require(main["status_agree"] > 0.99
+            and np.isfinite(main["final_alpha_rmse"]),
+            f"float32 vs float64 on the main path: {main}")
+
+    # The float64 instances' kernels-line entries: the launches of the
+    # float64 renders, the times of the comparisons above, the bound at
+    # the published FP64 rate.
+    shadow_flops = attempt_flops(5)
+    k, dk, ok_ = rows["kerr"], rows["disk"], rows["orbit"]
+    jv = f"{VOL_JAX}"
+    entries = [
+        kernel_entry("kerr_dp45_f64", F64_SOURCE.format("kerr_dp45"),
+                     REPLACES, f64_launches["shadow"], k["max_abs"], k["ms"],
+                     k["plain_ms"], k["n"], 17 + 48,
+                     k["attempts_sum"] * shadow_flops, k, peak=PEAK_FP64),
+        kernel_entry("kerr_dp45_disk_f64", F64_SOURCE.format("kerr_dp45"),
+                     f"{JAX_KERNELS}:316", f64_launches["disk"],
+                     dk["max_dr"], dk["ms"], dk["plain_ms"], dk["n"],
+                     16 + 52 + 32, dk["attempts_sum"] * shadow_flops, dk,
+                     peak=PEAK_FP64),
+        kernel_entry("schwarzschild_rk4_f64",
+                     F64_SOURCE.format("schwarzschild_rk4"), ORBIT_REPLACES,
+                     f64_launches["lensed"], ok_["max_abs"], ok_["ms"],
+                     ok_["plain_ms"], ok_["n"], 8 + 20,
+                     ok_["attempts_sum"] * ORBIT_STEP_FLOPS, ok_,
+                     peak=PEAK_FP64)]
+    n_bands = len(freqs3)
+    for label, name, fam, flops, nbytes in (
+            ("thin", "kerr_dp45_extras_f64", "volumetric",
+             attempt_flops(6, form_flops("thin")), 16 + 8 + 13),
+            ("spectral 3-band", "kerr_dp45_extras_spectral_f64", "spectrum",
+             attempt_flops(6 + n_bands, form_flops("spectral", n_bands)),
+             16 + 8 * (1 + n_bands) + 13)):
+        g = rows[label]
+        entries.append(kernel_entry(
+            name, F64_SOURCE.format("kerr_dp45_extras"), f"{jv}:53"
+            if label == "thin" else f"{jv}:276", f64_launches[fam],
+            g["max_abs_em"], g["ms"], g["plain_ms"], VOL_RAYS, nbytes,
+            g["attempts_sum"] * flops, g, peak=PEAK_FP64))
+    for label, name, fam in (
+            ("stokes toroidal", "kerr_dp45_stokes", "polarized"),
+            ("movie thin", "kerr_dp45_movie_thin", "movie"),
+            ("movie absorbed", "kerr_dp45_movie_absorbed", "movie absorbed"),
+            ("order thin", "kerr_dp45_orders", "decomposed")):
+        g, form = rows[label], forms[label]
+        entries.append(kernel_entry(
+            f"{name}_f64", F64_SOURCE.format(name), f"{jv}:276",
+            f64_launches[fam], g["max_abs"], g["ms"], g["plain_ms"],
+            VOL_RAYS, 16 + 8 * len(form[2]) + 8 * form[1] + 13,
+            g["attempts_sum"] * form[4], g, peak=PEAK_FP64))
+    return entries
+
+
+def cycle_phase(card):
+    """Phase 18: the exact-cycle exit bitwise against the run with the
+    exit off, and the lanes counted by kind, on the config-4 grids, the
+    1024^2 Kerr shadow, the volumetric scene's 1024^2 and 256^2 grids for
+    every form of phases 12 and 14, and the 256^2 order lane (171, 129)
+    (scripts/torch_cycle_census.py). Returns the census rows."""
+    import torch
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "scripts"))
+    from torch_cycle_census import census
+    print(f"exact-cycle exit vs exit off, bitwise, on {card}:", flush=True)
+    rows = census(torch.device("cuda", 0))
+    bad = [k for k, r in rows.items() if not r.get("bitwise_equal", True)]
+    require(not bad, f"the cycle exit changed the outputs of {bad}")
+    return rows
 
 
 def main() -> int:
@@ -1932,6 +2292,14 @@ def main() -> int:
     # -- 16. the peak probe ------------------------------------------------
     probe_kernel, rates = probe_phase(dev, card)
 
+    # -- 17. the float64 instances ----------------------------------------
+    f64_kernels = float64_phase(dev, card, dict(
+        kerr_rays=(alphas, thetas, refine), disk_rays=(al_d, th_d),
+        opaque=opaque, state=state, main_dim=dim))
+
+    # -- 18. the exact-cycle exit -------------------------------------------
+    cycle_phase(card)
+
     shadow_flops = attempt_flops(5)
     kernels = [
         kernel_entry("kerr_dp45", KERNEL_SOURCE, REPLACES, launches,
@@ -1954,11 +2322,14 @@ def main() -> int:
                      f"{JAX_KERNELS}:257", launches_k2, g_k2["max_abs"],
                      kerr_row["two_pass_ms"], plain2_ms, gmain["n"], 9 + 28,
                      kerr_row["attempts_sum"] * shadow_flops)]
-    kernels += vol_kernels + new_kernels + [probe_kernel]
-    # The same bound at the float32 rate this card measured in phase 16.
+    kernels += vol_kernels + new_kernels + [probe_kernel] + f64_kernels
+    # The same bound at the rate of its type this card measured in phase
+    # 16 (float32: eight chains a thread; float64: one).
     for k in kernels:
+        rate = rates["fma64" if k["flops_type"] == "float64"
+                     else "fma32x8"]["rate"]
         k["bound_ms_measured_rate"] = 1e3 * max(
-            k["flops"] / rates["fma32x8"]["rate"], k["bytes"] / PEAK_BYTES)
+            k["flops"] / rate, k["bytes"] / PEAK_BYTES)
     require(all(k["launches"] > 0 for k in kernels),
             f"a kernel was not launched on its path: "
             f"{[k['name'] for k in kernels if k['launches'] <= 0]}")

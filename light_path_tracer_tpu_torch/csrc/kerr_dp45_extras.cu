@@ -31,56 +31,56 @@
 // makes 6 new RHS evaluations; each adds the emissivity (an exp, a pow and
 // a cos) and the redshift (a pow, a sqrt and divisions) to the geodesic's
 // sinf, cosf and three reciprocals. A ray reads 8 bytes and writes
-// 4 (kExtras + 4) bytes. The state, its seven stages and the counters live
-// in registers: ptxas for sm_90a reports 80 (VolThin) to 152 (kBands = 8,
-// 14 components) registers a thread, with spills of 4-16 bytes in three
-// instances and none at 8 bands (chip_smoke.py prints the report).
+// 4 (kExtras + 4) bytes (twice that in float64). The state, its seven
+// stages and the counters live in registers (chip_smoke.py prints ptxas's
+// registers and spills for every instance).
 // Each warp adds its largest per-ray attempt count to one int64 counter
-// (the n_steps contract of ops/types.py).
+// (the n_steps contract of ops/types.py). This file builds the float
+// instances; kerr_dp45_extras_f64.cu the double ones (lpt_*_f64).
 
 #include "kerr_dp45_extras.cuh"
 
 namespace {
 
 // dI = g^p j (ops/kerr_trace.py trace_rays_volumetric, optically thin).
+template <class T>
 struct VolThin {
   static constexpr int kExtras = 1;
   static constexpr int kAux = 0;
-  __device__ static void eval(const float* y, float p_t, float p_phi,
-                              const Params&, const RiafParams& R,
-                              const float*, float* d) {
+  __device__ static void eval(const T* y, T p_t, T p_phi, const Params<T>&,
+                              const RiafParams<T>& R, const T*, T* d) {
     d[0] = source(y, p_t, p_phi, R).em;
   }
 };
 
 // dI = exp(-max(tau, -30)) g^p j, dtau = alpha0 j / max(g, 0.1).
+template <class T>
 struct VolAbsorbed {
   static constexpr int kExtras = 2;
   static constexpr int kAux = 0;
-  __device__ static void eval(const float* y, float p_t, float p_phi,
-                              const Params&, const RiafParams& R,
-                              const float*, float* d) {
-    const Source s = source(y, p_t, p_phi, R);
-    d[0] = expf(-jmax(y[6], -30.0f)) * s.em;
+  __device__ static void eval(const T* y, T p_t, T p_phi, const Params<T>&,
+                              const RiafParams<T>& R, const T*, T* d) {
+    const Source<T> s = source(y, p_t, p_phi, R);
+    d[0] = exp_(-jmax(y[6], T(-30.0))) * s.em;
     d[1] = opacity(s, R);
   }
 };
 
 // (d tau_hat, dI_1..dI_n) of volumetric.make_spectral_transfer.
-template <int kBands>
+template <int kBands, class T>
 struct Spectral {
   static constexpr int kExtras = 1 + kBands;
   static constexpr int kAux = 0;
-  __device__ static void eval(const float* y, float p_t, float p_phi,
-                              const Params&, const RiafParams& R,
-                              const float*, float* d) {
-    const Source s = source(y, p_t, p_phi, R);
-    d[0] = R.geometry ? R.alpha0 * s.j
-                      : R.alpha0 * s.j * powf(jmax(s.g, 0.1f), R.q_minus_1);
-    const float tau_hat = jmax(y[5], R.tau_floor);
+  __device__ static void eval(const T* y, T p_t, T p_phi, const Params<T>&,
+                              const RiafParams<T>& R, const T*, T* d) {
+    const Source<T> s = source(y, p_t, p_phi, R);
+    d[0] = R.geometry
+               ? R.alpha0 * s.j
+               : R.alpha0 * s.j * pow_(jmax(s.g, T(0.1)), R.q_minus_1);
+    const T tau_hat = jmax(y[5], R.tau_floor);
 #pragma unroll
     for (int b = 0; b < kBands; ++b)
-      d[1 + b] = R.band_scale[b] * s.em * expf(R.neg_c[b] * tau_hat);
+      d[1 + b] = R.band_scale[b] * s.em * exp_(R.neg_c[b] * tau_hat);
   }
 };
 
@@ -88,27 +88,24 @@ struct Spectral {
 
 extern "C" {
 
-// Launches the extras kernel for `call` (an ExtrasCall) with the
-// RiafParams at `riaf` (both host memory, copied into the launch) and
-// returns a cudaError_t (0 on success). call->form: 0 thin (1 extra),
+// Launches the extras kernel for `call` (an ExtrasCall of Real) with the
+// RiafParams of Real at `riaf` (both host memory, copied into the launch)
+// and returns a cudaError_t (0 on success). call->form: 0 thin (1 extra),
 // 1 self-absorbed (2), 2 spectral (1 + variant extras, variant = the
 // number of bands, 1..8).
-int lpt_kerr_dp45_extras(const void* call, const void* riaf) {
-  const ExtrasCall& C = *static_cast<const ExtrasCall*>(call);
-  Prepared K;
-  cudaError_t err;
-  if (!begin(C, riaf, &K, &err)) return static_cast<int>(err);
+int LPT_ENTRY(lpt_kerr_dp45_extras)(const void* call, const void* riaf) {
+  LPT_BEGIN(call, riaf);
   switch (C.form == 2 ? 10 + C.variant : C.form) {
-    case 0: launch<VolThin>(C, K); break;
-    case 1: launch<VolAbsorbed>(C, K); break;
-    case 11: launch<Spectral<1>>(C, K); break;
-    case 12: launch<Spectral<2>>(C, K); break;
-    case 13: launch<Spectral<3>>(C, K); break;
-    case 14: launch<Spectral<4>>(C, K); break;
-    case 15: launch<Spectral<5>>(C, K); break;
-    case 16: launch<Spectral<6>>(C, K); break;
-    case 17: launch<Spectral<7>>(C, K); break;
-    case 18: launch<Spectral<8>>(C, K); break;
+    case 0: launch<VolThin<Real>>(C, K); break;
+    case 1: launch<VolAbsorbed<Real>>(C, K); break;
+    case 11: launch<Spectral<1, Real>>(C, K); break;
+    case 12: launch<Spectral<2, Real>>(C, K); break;
+    case 13: launch<Spectral<3, Real>>(C, K); break;
+    case 14: launch<Spectral<4, Real>>(C, K); break;
+    case 15: launch<Spectral<5, Real>>(C, K); break;
+    case 16: launch<Spectral<6, Real>>(C, K); break;
+    case 17: launch<Spectral<7, Real>>(C, K); break;
+    case 18: launch<Spectral<8, Real>>(C, K); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

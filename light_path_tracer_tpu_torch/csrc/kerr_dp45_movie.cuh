@@ -34,40 +34,40 @@
 
 namespace {
 
-template <int kFrames, bool kAbsorbing>
+template <int kFrames, bool kAbsorbing, class T>
 struct Movie {
   static constexpr int kExtras = 1 + (kAbsorbing ? 1 : 0) + kFrames;
   static constexpr int kAux = 0;
-  __device__ static void eval(const float* y, float p_t, float p_phi,
-                              const Params& P, const RiafParams& R,
-                              const float*, float* d) {
-    const float r = y[0], th = y[1], phi = y[2], t = y[5];
-    const Source s = source(y, p_t, p_phi, R);
+  __device__ static void eval(const T* y, T p_t, T p_phi,
+                              const Params<T>& P, const RiafParams<T>& R,
+                              const T*, T* d) {
+    const T r = y[0], th = y[1], phi = y[2], t = y[5];
+    const Source<T> s = source(y, p_t, p_phi, R);
 
     // dt/dlambda from the contravariant metric (models/kerr.py tdot)
-    const float sin_th = sinf(th), cos_th = cosf(th);
-    const float sin2 = jmax(sin_th * sin_th, kSin2Floor);
-    const float r2 = r * r, a2 = P.a * P.a;
-    const float Sigma = r2 + a2 * cos_th * cos_th;
-    const float Delta = r2 - 2.0f * P.M * r + a2;
-    const float ra2 = r2 + a2;
-    const float A = ra2 * ra2 - a2 * Delta * sin2;
-    const float SD = Sigma * Delta;
-    d[0] = -A / SD * p_t + -2.0f * P.M * P.a * r / SD * p_phi;
+    const T sin_th = sin_(th), cos_th = cos_(th);
+    const T sin2 = jmax(sin_th * sin_th, Consts<T>::kSin2Floor);
+    const T r2 = r * r, a2 = P.a * P.a;
+    const T Sigma = r2 + a2 * cos_th * cos_th;
+    const T Delta = r2 - T(2.0) * P.M * r + a2;
+    const T ra2 = r2 + a2;
+    const T A = ra2 * ra2 - a2 * Delta * sin2;
+    const T SD = Sigma * Delta;
+    d[0] = -A / SD * p_t + -T(2.0) * P.M * P.a * r / SD * p_phi;
 
-    float weight = s.w;
+    T weight = s.w;
     if (kAbsorbing) {
       d[1] = opacity(s, R);
-      weight = expf(-jmax(y[6], -30.0f)) * s.w;
+      weight = exp_(-jmax(y[6], -T(30.0))) * s.w;
     }
     // the blob at each frame's retarded time
-    const float rr = r2 + R.spot_r2;
-    const float cross = 2.0f * r * R.spot_r * sin_th;
+    const T rr = r2 + R.spot_r2;
+    const T cross = T(2.0) * r * R.spot_r * sin_th;
 #pragma unroll
     for (int k = 0; k < kFrames; ++k) {
-      const float phi_s = R.spot_phase + R.spot_omega * (R.times[k] - t);
-      const float d2 = rr - cross * cosf(phi - phi_s);
-      const float spot = R.spot_amp * expf(-d2 / R.two_spot_sig2);
+      const T phi_s = R.spot_phase + R.spot_omega * (R.times[k] - t);
+      const T d2 = rr - cross * cos_(phi - phi_s);
+      const T spot = R.spot_amp * exp_(-d2 / R.two_spot_sig2);
       d[1 + (kAbsorbing ? 1 : 0) + k] = weight * (s.j + spot);
     }
   }
@@ -76,19 +76,16 @@ struct Movie {
 // The switch over the frame count for one absorption mode.
 template <bool kAbsorbing>
 int launch_movie(const void* call, const void* riaf) {
-  const ExtrasCall& C = *static_cast<const ExtrasCall*>(call);
-  Prepared K;
-  cudaError_t err;
-  if (!begin(C, riaf, &K, &err)) return static_cast<int>(err);
+  LPT_BEGIN(call, riaf);
   switch (C.variant) {
-    case 1: launch<Movie<1, kAbsorbing>>(C, K); break;
-    case 2: launch<Movie<2, kAbsorbing>>(C, K); break;
-    case 3: launch<Movie<3, kAbsorbing>>(C, K); break;
-    case 4: launch<Movie<4, kAbsorbing>>(C, K); break;
-    case 5: launch<Movie<5, kAbsorbing>>(C, K); break;
-    case 6: launch<Movie<6, kAbsorbing>>(C, K); break;
-    case 7: launch<Movie<7, kAbsorbing>>(C, K); break;
-    case 8: launch<Movie<8, kAbsorbing>>(C, K); break;
+    case 1: launch<Movie<1, kAbsorbing, Real>>(C, K); break;
+    case 2: launch<Movie<2, kAbsorbing, Real>>(C, K); break;
+    case 3: launch<Movie<3, kAbsorbing, Real>>(C, K); break;
+    case 4: launch<Movie<4, kAbsorbing, Real>>(C, K); break;
+    case 5: launch<Movie<5, kAbsorbing, Real>>(C, K); break;
+    case 6: launch<Movie<6, kAbsorbing, Real>>(C, K); break;
+    case 7: launch<Movie<7, kAbsorbing, Real>>(C, K); break;
+    case 8: launch<Movie<8, kAbsorbing, Real>>(C, K); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -8,9 +8,10 @@
 
 extern "C" {
 
-// Launches Movie<call->variant, true> for `call` (an ExtrasCall) with the
-// RiafParams at `riaf`; returns a cudaError_t (0 on success).
-int lpt_kerr_dp45_movie_absorbed(const void* call, const void* riaf) {
+// Launches Movie<call->variant, true> for `call` (an ExtrasCall of Real)
+// with the RiafParams of Real at `riaf`; returns a cudaError_t (0 on success).
+int LPT_ENTRY(lpt_kerr_dp45_movie_absorbed)(const void* call,
+                                             const void* riaf) {
   return launch_movie<true>(call, riaf);
 }
 

@@ -6,9 +6,9 @@
 
 extern "C" {
 
-// Launches Movie<call->variant, false> for `call` (an ExtrasCall) with the
-// RiafParams at `riaf`; returns a cudaError_t (0 on success).
-int lpt_kerr_dp45_movie_thin(const void* call, const void* riaf) {
+// Launches Movie<call->variant, false> for `call` (an ExtrasCall of Real)
+// with the RiafParams of Real at `riaf`; returns a cudaError_t (0 on success).
+int LPT_ENTRY(lpt_kerr_dp45_movie_thin)(const void* call, const void* riaf) {
   return launch_movie<false>(call, riaf);
 }
 

@@ -27,31 +27,31 @@
 
 namespace {
 
-template <int kOrders, bool kAbsorbing>
+template <int kOrders, bool kAbsorbing, class T>
 struct Order {
   static constexpr int kExtras = 1 + (kAbsorbing ? 1 : 0) + kOrders;
   static constexpr int kAux = 0;
-  __device__ static void eval(const float* y, float p_t, float p_phi,
-                              const Params&, const RiafParams& R,
-                              const float*, float* d) {
-    const float r = y[0], th = y[1];
-    const float c = cosf(th);
-    const Source s = source(y, p_t, p_phi, R);
-    const float sigma_bl = r * r + R.a2 * c * c;
-    d[0] = R.order_norm * expf(-c * c * R.order_inv_two_sig2) *
-           fabsf(sinf(th)) * fabsf(y[4]) / sigma_bl;
+  __device__ static void eval(const T* y, T p_t, T p_phi,
+                              const Params<T>&, const RiafParams<T>& R,
+                              const T*, T* d) {
+    const T r = y[0], th = y[1];
+    const T c = cos_(th);
+    const Source<T> s = source(y, p_t, p_phi, R);
+    const T sigma_bl = r * r + R.a2 * c * c;
+    d[0] = R.order_norm * exp_(-c * c * R.order_inv_two_sig2) *
+           abs_(sin_(th)) * abs_(y[4]) / sigma_bl;
     // RK stage probes can push m slightly negative: bucket 0.
-    const float bucket = floorf(jmax(y[5], 0.0f));
-    float em = s.em;
+    const T bucket = floor_(jmax(y[5], T(0.0)));
+    T em = s.em;
     if (kAbsorbing) {
       d[1] = opacity(s, R);
-      em = em * expf(-jmax(y[6], -30.0f));
+      em = em * exp_(-jmax(y[6], -T(30.0)));
     }
 #pragma unroll
     for (int n = 0; n < kOrders; ++n) {
-      const float edge = static_cast<float>(n);
+      const T edge = static_cast<T>(n);
       const bool in = n < kOrders - 1 ? bucket == edge : bucket >= edge;
-      d[1 + (kAbsorbing ? 1 : 0) + n] = in ? em : 0.0f;
+      d[1 + (kAbsorbing ? 1 : 0) + n] = in ? em : T(0.0);
     }
   }
 };
@@ -61,21 +61,18 @@ struct Order {
 extern "C" {
 
 // Launches Order<call->variant, call->form != 0> for `call` (an
-// ExtrasCall; variant = the number of orders, 2..4; form 1 = with
-// absorption) with the RiafParams at `riaf`; returns a cudaError_t (0 on
-// success).
-int lpt_kerr_dp45_orders(const void* call, const void* riaf) {
-  const ExtrasCall& C = *static_cast<const ExtrasCall*>(call);
-  Prepared K;
-  cudaError_t err;
-  if (!begin(C, riaf, &K, &err)) return static_cast<int>(err);
+// ExtrasCall of Real; variant = the number of orders, 2..4; form 1 = with
+// absorption) with the RiafParams of Real at `riaf`; returns a cudaError_t
+// (0 on success).
+int LPT_ENTRY(lpt_kerr_dp45_orders)(const void* call, const void* riaf) {
+  LPT_BEGIN(call, riaf);
   switch (10 * (C.form != 0) + C.variant) {
-    case 2: launch<Order<2, false>>(C, K); break;
-    case 3: launch<Order<3, false>>(C, K); break;
-    case 4: launch<Order<4, false>>(C, K); break;
-    case 12: launch<Order<2, true>>(C, K); break;
-    case 13: launch<Order<3, true>>(C, K); break;
-    case 14: launch<Order<4, true>>(C, K); break;
+    case 2: launch<Order<2, false, Real>>(C, K); break;
+    case 3: launch<Order<3, false, Real>>(C, K); break;
+    case 4: launch<Order<4, false, Real>>(C, K); break;
+    case 12: launch<Order<2, true, Real>>(C, K); break;
+    case 13: launch<Order<3, true, Real>>(C, K); break;
+    case 14: launch<Order<4, true, Real>>(C, K); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -31,126 +31,112 @@
 // raster order of an image grid keeps neighbours similar, which is all
 // this first version does about it.
 //
-// Numerics follow the float32 path of the JAX package: every constant is
-// computed in double on the host and rounded once to float, operations
+// Numerics follow the JAX package in the scalar type of the instance (this
+// file builds the float one, schwarzschild_rk4_f64.cu the double one,
+// entry lpt_orbit_rk4_f64): every constant is computed in double on the
+// host (and rounded once to float in the float instance), operations
 // keep JAX's association order ((3M u) u, (h/6) (k1 + 2k2 + 2k3 + k4)),
 // the Schwarzschild and Reissner-Nordstrom initial states keep their own
-// operation orders (template flag kCharged), jnp.maximum(x, 1e-300) is
-// max(x, 0) in float32 (the literal underflows), and max/min/clip
+// operation orders (template flag kCharged), jnp.maximum(x, 1e-300) keeps
+// its literal (0 in float32, where it underflows), and max/min/clip
 // propagate NaN as jnp's do. Build without --use_fast_math: phi reaches
 // 50 rad, where __sinf/__cosf lose accuracy. nvcc contracts a*b + c into
 // FMA, so results are close to, not bitwise equal to, the plain
 // version's.
 
-#include <cuda_runtime.h>
+#include "kerr_dp45_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-
-constexpr int kRunning = 2;
-constexpr int kEscaped = 1;
-constexpr int kCaptured = -1;
-constexpr int kInvalid = 0;
-
+template <class T>
 struct OrbitParams {
-  float r_obs;       // observer radius
-  float sqrt_f0;     // sqrt(max(f(r_obs), 1e-300))
-  float u0;          // 1 / r_obs
-  float two_M;       // 2 * M, as float32 arithmetic on a float32 M
-  float q2;          // Q^2 (Reissner-Nordstrom initial state)
-  float c3M;         // 3 M (orbit RHS)
-  float c2Q2;        // 2 Q^2 (Reissner-Nordstrom orbit RHS)
-  float u_capture;   // 1 / (1.01 R_S)
-  float u_escape;    // 1 / (2 r_obs)
-  float phi_max, h_max;
-  float pi;          // the float32 pi of the half-orbit count
-  float r_reclass;   // 1.1 R_S: escaped-like rays inside it are captured
-  int n_steps;       // ceil(phi_max / h_max)
-  int obs_invalid;   // f(r_obs) <= 0: the observer sits inside a horizon
+  T r_obs;       // observer radius
+  T sqrt_f0;     // sqrt(max(f(r_obs), 1e-300))
+  T u0;          // 1 / r_obs
+  T two_M;       // 2 M (float32 arithmetic on a float32 M in float)
+  T q2;          // Q^2 (Reissner-Nordstrom initial state)
+  T c3M;         // 3 M (orbit RHS)
+  T c2Q2;        // 2 Q^2 (Reissner-Nordstrom orbit RHS)
+  T u_capture;   // 1 / (1.01 R_S)
+  T u_escape;    // 1 / (2 r_obs)
+  T phi_max, h_max;
+  T pi;          // the pi of the half-orbit count, in T
+  T r_reclass;   // 1.1 R_S: escaped-like rays inside it are captured
+  int n_steps;   // ceil(phi_max / h_max)
+  int obs_invalid;  // f(r_obs) <= 0: the observer sits inside a horizon
 };
-
-// NaN-propagating max/min/clip (jnp.maximum / jnp.minimum / jnp.clip).
-__device__ __forceinline__ float jmax(float x, float y) {
-  return (x > y || x != x) ? x : y;
-}
-__device__ __forceinline__ float jmin(float x, float y) {
-  return (x < y || x != x) ? x : y;
-}
-__device__ __forceinline__ float jclip(float x, float lo, float hi) {
-  return jmin(jmax(x, lo), hi);
-}
 
 // w' of the orbit equation (models/schwarzschild.py orbit_rhs and the
 // Reissner-Nordstrom override).
-template <bool kCharged>
-__device__ __forceinline__ float orbit_dw(float u, const OrbitParams& P) {
-  const float dw = -u + P.c3M * u * u;
+template <bool kCharged, class T>
+__device__ __forceinline__ T orbit_dw(T u, const OrbitParams<T>& P) {
+  const T dw = -u + P.c3M * u * u;
   return kCharged ? dw - P.c2Q2 * u * u * u : dw;
 }
 
 // Fraction of the step at which prev -> nxt crosses target (_lerp_frac).
-__device__ __forceinline__ float lerp_frac(float prev, float nxt,
-                                           float target) {
-  const float denom = nxt - prev;
-  const float frac = denom == 0.0f ? 1.0f : (target - prev) / denom;
-  return jclip(frac, 0.0f, 1.0f);
+template <class T>
+__device__ __forceinline__ T lerp_frac(T prev, T nxt, T target) {
+  const T denom = nxt - prev;
+  const T frac = denom == T(0.0) ? T(1.0) : (target - prev) / denom;
+  return jclip(frac, T(0.0), T(1.0));
 }
 
-template <bool kCharged>
+template <bool kCharged, class T>
 __global__ void __launch_bounds__(kThreads)
-orbit_rk4_kernel(const float* __restrict__ alpha,
-                 float* __restrict__ final_alpha_out,
+orbit_rk4_kernel(const T* __restrict__ alpha,
+                 T* __restrict__ final_alpha_out,
                  int* __restrict__ n_half_out, int* __restrict__ status_out,
                  int* __restrict__ steps_out,
                  unsigned long long* __restrict__ warp_steps_total, int n,
-                 OrbitParams P) {
+                 OrbitParams<T> P) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   int steps = 0;
+  // jnp.maximum(x, 1e-300): the literal rounds to 0 in float32
+  const T tiny = T(1e-300);
 
   if (i < n) {
     // ---- initial state (orbit_initial_state) ----
-    const float al = alpha[i];
-    const float b = P.r_obs * sinf(al) / P.sqrt_f0;
-    const float u0 = P.u0;
-    const float b_safe = b == 0.0f ? 1.0f : b;
-    float w0_sq;
+    const T al = alpha[i];
+    const T b = P.r_obs * sin_(al) / P.sqrt_f0;
+    const T u0 = P.u0;
+    const T b_safe = b == T(0.0) ? T(1.0) : b;
+    T w0_sq;
     if (kCharged) {
       // 2 M u^3 - Q^2 u^4 with u^3 = u (u u), u^4 = (u u)(u u).
-      const float u2 = u0 * u0;
-      w0_sq = 1.0f / (b_safe * b_safe) - u0 * u0 + P.two_M * (u0 * u2) -
+      const T u2 = u0 * u0;
+      w0_sq = T(1.0) / (b_safe * b_safe) - u0 * u0 + P.two_M * (u0 * u2) -
               P.q2 * (u2 * u2);
     } else {
-      w0_sq = 1.0f / (b_safe * b_safe) - u0 * u0 + P.two_M * u0 * u0 * u0;
+      w0_sq = T(1.0) / (b_safe * b_safe) - u0 * u0 + P.two_M * u0 * u0 * u0;
     }
-    const bool invalid = P.obs_invalid != 0 || b == 0.0f || w0_sq < 0.0f;
-    const float w0 =
-        (cosf(al) >= 0.0f ? 1.0f : -1.0f) * sqrtf(jmax(w0_sq, 0.0f));
+    const bool invalid = P.obs_invalid != 0 || b == T(0.0) || w0_sq < T(0.0);
+    const T w0 =
+        (cos_(al) >= T(0.0) ? T(1.0) : -T(1.0)) * sqrt_(jmax(w0_sq, T(0.0)));
 
     // ---- fixed-step RK4 in phi with linear crossing events ----
-    float u = u0, w = w0, phi = 0.0f;
+    T u = u0, w = w0, phi = T(0.0);
     int status = invalid ? kInvalid : kRunning;
     while (steps < P.n_steps && status == kRunning) {
       ++steps;
-      const float h = jmax(jmin(P.h_max, P.phi_max - phi), 0.0f);
-      const float hh = 0.5f * h;
-      const float k1u = w;
-      const float k1w = orbit_dw<kCharged>(u, P);
-      const float k2u = w + hh * k1w;
-      const float k2w = orbit_dw<kCharged>(u + hh * k1u, P);
-      const float k3u = w + hh * k2w;
-      const float k3w = orbit_dw<kCharged>(u + hh * k2u, P);
-      const float k4u = w + h * k3w;
-      const float k4w = orbit_dw<kCharged>(u + h * k3u, P);
-      const float h6 = h / 6.0f;
-      const float u_next = u + h6 * (k1u + 2.0f * k2u + 2.0f * k3u + k4u);
-      const float w_next = w + h6 * (k1w + 2.0f * k2w + 2.0f * k3w + k4w);
+      const T h = jmax(jmin(P.h_max, P.phi_max - phi), T(0.0));
+      const T hh = T(0.5) * h;
+      const T k1u = w;
+      const T k1w = orbit_dw<kCharged>(u, P);
+      const T k2u = w + hh * k1w;
+      const T k2w = orbit_dw<kCharged>(u + hh * k1u, P);
+      const T k3u = w + hh * k2w;
+      const T k3w = orbit_dw<kCharged>(u + hh * k2u, P);
+      const T k4u = w + h * k3w;
+      const T k4w = orbit_dw<kCharged>(u + h * k3u, P);
+      const T h6 = h / T(6.0);
+      const T u_next = u + h6 * (k1u + T(2.0) * k2u + T(2.0) * k3u + k4u);
+      const T w_next = w + h6 * (k1w + T(2.0) * k2w + T(2.0) * k3w + k4w);
 
       const bool cap = (u < P.u_capture) && (u_next >= P.u_capture);
       const bool esc = (u > P.u_escape) && (u_next <= P.u_escape) && !cap;
-      const float frac = cap ? lerp_frac(u, u_next, P.u_capture)
-                             : (esc ? lerp_frac(u, u_next, P.u_escape)
-                                    : 1.0f);
+      const T frac = cap ? lerp_frac(u, u_next, P.u_capture)
+                         : (esc ? lerp_frac(u, u_next, P.u_escape) : T(1.0));
       u = cap ? P.u_capture : (esc ? P.u_escape : u_next);
       w = w + frac * (w_next - w);
       phi = phi + frac * h;
@@ -159,22 +145,21 @@ orbit_rk4_kernel(const float* __restrict__ alpha,
     }
 
     // ---- extraction (orbit_extract_angle) and the status fold ----
-    const float r_f = 1.0f / jmax(u, 0.0f);
-    const int n_half = static_cast<int>(floorf(fabsf(phi) / P.pi));
+    const T r_f = T(1.0) / jmax(u, tiny);
+    const int n_half = static_cast<int>(floor_(abs_(phi) / P.pi));
     const bool captured_by_radius = r_f <= P.r_reclass;
-    const float dr_dphi = -w / jmax(u * u, 0.0f);
-    const float sin_phi = sinf(phi), cos_phi = cosf(phi);
-    const float heading = atan2f(dr_dphi * sin_phi + r_f * cos_phi,
-                                 dr_dphi * cos_phi - r_f * sin_phi);
-    const float fa = acosf(jclip(-cosf(heading), -1.0f, 1.0f));
+    const T dr_dphi = -w / jmax(u * u, tiny);
+    const T sin_phi = sin_(phi), cos_phi = cos_(phi);
+    const T heading = atan2_(dr_dphi * sin_phi + r_f * cos_phi,
+                             dr_dphi * cos_phi - r_f * sin_phi);
+    const T fa = acos_(jclip(-cos_(heading), -T(1.0), T(1.0)));
 
     const bool escaped_like = status == kEscaped || status == kRunning;
     const bool captured =
         status == kCaptured || (escaped_like && captured_by_radius);
     const int status_fold =
         status == kInvalid ? kInvalid : (captured ? kCaptured : kEscaped);
-    final_alpha_out[i] = status_fold == kEscaped ? fa : __int_as_float(
-                                                            0x7fc00000);
+    final_alpha_out[i] = status_fold == kEscaped ? fa : quiet_nan<T>();
     n_half_out[i] = status == kInvalid ? 0 : n_half;
     status_out[i] = status_fold;
     if (steps_out != nullptr) steps_out[i] = steps;
@@ -193,35 +178,35 @@ extern "C" {
 
 // Zeroes the warp-step counter, launches the kernel on `stream` and
 // returns the first CUDA error (0 on success). Pointers are device
-// pointers; steps_out may be null; charged selects the
-// Reissner-Nordstrom form.
-int lpt_orbit_rk4(const void* alpha, void* final_alpha_out,
-                  void* n_half_out, void* status_out, void* steps_out,
-                  void* warp_steps_total, int n, int charged, float r_obs,
-                  float sqrt_f0, float u0, float two_M, float q2, float c3M,
-                  float c2Q2, float u_capture, float u_escape, float phi_max,
-                  float h_max, float pi, float r_reclass, int n_steps,
-                  int obs_invalid, void* stream) {
+// pointers (alpha and final_alpha_out of Real); steps_out may be null;
+// charged selects the Reissner-Nordstrom form.
+int LPT_ENTRY(lpt_orbit_rk4)(
+    const void* alpha, void* final_alpha_out, void* n_half_out,
+    void* status_out, void* steps_out, void* warp_steps_total, int n,
+    int charged, Real r_obs, Real sqrt_f0, Real u0, Real two_M, Real q2,
+    Real c3M, Real c2Q2, Real u_capture, Real u_escape, Real phi_max,
+    Real h_max, Real pi, Real r_reclass, int n_steps, int obs_invalid,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(warp_steps_total, 0,
                                     sizeof(unsigned long long), s);
   if (err != cudaSuccess || n <= 0) return static_cast<int>(err);
-  OrbitParams P{r_obs,     sqrt_f0,  u0,    two_M,   q2,
-                c3M,       c2Q2,     u_capture, u_escape, phi_max,
-                h_max,     pi,       r_reclass, n_steps,  obs_invalid};
+  OrbitParams<Real> P{r_obs,     sqrt_f0,  u0,        two_M,    q2,
+                      c3M,       c2Q2,     u_capture, u_escape, phi_max,
+                      h_max,     pi,       r_reclass, n_steps,  obs_invalid};
   const int blocks = (n + kThreads - 1) / kThreads;
-  const float* a = static_cast<const float*>(alpha);
-  float* fa = static_cast<float*>(final_alpha_out);
+  const Real* a = static_cast<const Real*>(alpha);
+  Real* fa = static_cast<Real*>(final_alpha_out);
   int* nh = static_cast<int*>(n_half_out);
   int* st = static_cast<int*>(status_out);
   int* sp = static_cast<int*>(steps_out);
   unsigned long long* tot = static_cast<unsigned long long*>(warp_steps_total);
   if (charged)
-    orbit_rk4_kernel<true><<<blocks, kThreads, 0, s>>>(a, fa, nh, st, sp,
-                                                       tot, n, P);
+    orbit_rk4_kernel<true, Real><<<blocks, kThreads, 0, s>>>(
+        a, fa, nh, st, sp, tot, n, P);
   else
-    orbit_rk4_kernel<false><<<blocks, kThreads, 0, s>>>(a, fa, nh, st, sp,
-                                                        tot, n, P);
+    orbit_rk4_kernel<false, Real><<<blocks, kThreads, 0, s>>>(
+        a, fa, nh, st, sp, tot, n, P);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,8 +1,10 @@
 """Batch tracing driver (whole-grid branch).
 
 Spherically symmetric metrics (Schwarzschild, Reissner-Nordstrom) go to
-the orbit-equation tracer, Kerr to the DP45 tracer, in one pass or, for
-large batches, through the two-pass straggler driver. The JAX package's
+the orbit-equation tracer, Kerr to the DP45 tracer: on the kernel in one
+pass or, for large batches, through the two-pass straggler driver; on the
+plain loop in one pass, as the JAX package's XLA branch ignores
+`two_pass`. The JAX package's
 `trace_batch` also chunks and difficulty-sorts large Kerr batches; that
 branch is not ported: here the whole batch goes to one call. The
 tensor's device picks the implementation — the hand-written CUDA kernel
@@ -45,11 +47,13 @@ def trace_batch(metric, r_obs, alphas, thetas=None, theta_obs=math.pi / 2,
     Spherically symmetric metrics trace the orbit equation in phi
     (phi_max, h_max); the Kerr-only arguments do not apply to them.
     lambda_max defaults to max(5000, 6 r_obs). two_pass: 'auto' | True |
-    False — the straggler driver (a `pass1_steps`-capped pass, then a
-    full-depth re-trace of the rays still running); 'auto' turns it on
-    above 2,000,000 rays, the JAX package's rule. Chunking, other
-    integrators and interpolants, and the mu chart raise until they are
-    ported.
+    False — on the kernel (CUDA tensors, float32 or float64) the
+    straggler driver (a `pass1_steps`-capped pass, then a full-depth
+    re-trace of the rays still running); 'auto' turns it on above
+    2,000,000 rays, the JAX package's rule for its kernel path. The plain
+    loop (CPU tensors) ignores it, as the JAX package's XLA branch does.
+    Chunking, other integrators and interpolants, and the mu chart raise
+    until they are ported.
     """
     n = int(alphas.shape[0])
     device = alphas.device
@@ -91,9 +95,11 @@ def trace_batch(metric, r_obs, alphas, thetas=None, theta_obs=math.pi / 2,
 
     # 'auto' two-pass is batch-size dependent, as in the JAX package: the
     # 2M-ray threshold was set on a TPU, where one straggler pins an
-    # 8192-lane tile; PERF.md records what it does on the H100.
-    use_two_pass = two_pass if two_pass != "auto" else n > 2_000_000
+    # 8192-lane tile; PERF.md records what it does on the H100. Only the
+    # kernel path takes it.
     path = _backend(backend, alphas)
+    use_two_pass = path == "cuda" and (two_pass if two_pass != "auto"
+                                       else n > 2_000_000)
     kwargs = dict(precision=precision, formulation=formulation)
     if use_two_pass:
         from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (

@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels.
 
 The sources in `light_path_tracer_tpu_torch/csrc/*.cu` have a plain C
-interface. At first use each is compiled by its own `nvcc` for Hopper
+interface; each `*_f64.cu` builds the float64 instances of its float
+sibling. At first use each is compiled by its own `nvcc` for Hopper
 (`sm_90a`), all at once, and the objects are linked into one shared
 library under `build/light_path_tracer_tpu_torch/` beside the package,
 named by a hash of the sources, headers and flags, and loaded with
@@ -32,6 +33,7 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _F = ctypes.c_float
+_D = ctypes.c_double
 _I = ctypes.c_int
 
 
@@ -103,24 +105,28 @@ def _compile(out: Path) -> str:
 
 
 def _declare(lib):
-    fn = lib.lpt_kerr_dp45
-    fn.argtypes = ([_P] * 10 + [_I] + [_F] * 6 + [_I] + [_F] * 8 + [_P])
-    fn.restype = _I
-    fn = lib.lpt_kerr_dp45_disk
-    fn.argtypes = ([_P] * 14 + [_I] * 3 + [_F] * 6 + [_I] + [_F] * 9 + [_I]
-                   + [_P])
-    fn.restype = _I
-    for name in ("lpt_kerr_dp45_extras", "lpt_kerr_dp45_stokes",
-                 "lpt_kerr_dp45_movie_thin", "lpt_kerr_dp45_movie_absorbed",
-                 "lpt_kerr_dp45_orders"):
-        fn = getattr(lib, name)
-        fn.argtypes = [_P, _P]
+    # Each entry has a float instance and a float64 one (name + "_f64")
+    # whose scalars are doubles.
+    for suffix, real in (("", _F), ("_f64", _D)):
+        fn = getattr(lib, "lpt_kerr_dp45" + suffix)
+        fn.argtypes = ([_P] * 11 + [_I] * 2 + [real] * 6 + [_I] + [real] * 8
+                       + [_P])
+        fn.restype = _I
+        fn = getattr(lib, "lpt_kerr_dp45_disk" + suffix)
+        fn.argtypes = ([_P] * 15 + [_I] * 4 + [real] * 6 + [_I] + [real] * 9
+                       + [_I] + [_P])
+        fn.restype = _I
+        for name in ("lpt_kerr_dp45_extras", "lpt_kerr_dp45_stokes",
+                     "lpt_kerr_dp45_movie_thin",
+                     "lpt_kerr_dp45_movie_absorbed", "lpt_kerr_dp45_orders"):
+            fn = getattr(lib, name + suffix)
+            fn.argtypes = [_P, _P]
+            fn.restype = _I
+        fn = getattr(lib, "lpt_orbit_rk4" + suffix)
+        fn.argtypes = [_P] * 6 + [_I] * 2 + [real] * 13 + [_I] * 2 + [_P]
         fn.restype = _I
     fn = lib.lpt_peak_probe
     fn.argtypes = [_I, _P, _P, _I, _I, ctypes.c_double, ctypes.c_double, _P]
-    fn.restype = _I
-    fn = lib.lpt_orbit_rk4
-    fn.argtypes = [_P] * 6 + [_I] * 2 + [_F] * 13 + [_I] * 2 + [_P]
     fn.restype = _I
     lib.lpt_cuda_error_string.argtypes = [_I]
     lib.lpt_cuda_error_string.restype = ctypes.c_char_p

@@ -10,11 +10,21 @@ attempt count; the escape angle is extracted here in torch
 plane-crossing recorder and writes the hit records too.
 
 `trace_rays_kerr_cuda` and `trace_disk_rays_cuda` launch the kernel on
-CUDA float32 tensors and raise on any other CUDA input; they never fall
-back. Given CPU tensors they run the kernel's plain version, the PyTorch
-loop (`trace_rays_kerr_plain`, `trace_disk_rays_plain`, ops/kerr_trace.py),
-because there is no kernel to run there; the tests and the chip smoke
-test compare the two.
+CUDA float32 or float64 tensors (the float64 instances, entries `*_f64`,
+with the float64 tolerance presets) and raise on any other CUDA input;
+they never fall back. Each wrapper counts its launches per dtype
+(`.launches` float32, `.launches_f64` float64). Given CPU tensors they run
+the kernel's plain version, the PyTorch loop (`trace_rays_kerr_plain`,
+`trace_disk_rays_plain`, ops/kerr_trace.py), because there is no kernel to
+run there; the tests and the chip smoke test compare the two.
+
+The kernels end a lane frozen in an exact cycle at once
+(csrc/kerr_dp45_common.cuh, CycleWatch), which changes no output. The
+private keyword `_cycle_exit=False` makes them grind such lanes as the
+attempts would, for the bitwise check of the exit; `probe` receives the
+per-ray cycle census ("cycles": the final frozen streak in bits 0-19,
+bit 20 set where lambda moved along it, the first cycle's period in bits
+21-30).
 
 `trace_rays_kerr_two_pass` and `trace_disk_rays_two_pass`, and the
 drivers over the extras kernel (`volumetric_kernel.py`):
@@ -60,11 +70,34 @@ __all__ = ["trace_rays_kerr_cuda", "trace_rays_kerr_plain",
 MAX_KERNEL_HITS = 4
 
 
+def entry_suffix(dtype) -> str:
+    """The C entry points' suffix for a floating dtype: '' for float32,
+    '_f64' for float64; ValueError for any other dtype."""
+    if dtype == torch.float32:
+        return ""
+    if dtype == torch.float64:
+        return "_f64"
+    raise ValueError(f"the CUDA kernels take float32 or float64 rays, got "
+                     f"{dtype}")
+
+
+def count_launch(fn, dtype):
+    """One launch of a kernel wrapper, on its counter for the dtype."""
+    if dtype == torch.float64:
+        fn.launches_f64 += 1
+    else:
+        fn.launches += 1
+
+
 def _check_inputs(tensors, alphas):
+    """tensors: (name, tensor, dtype) with dtype None for the rays' own
+    floating dtype (float32 or float64)."""
+    entry_suffix(alphas.dtype)
     for name, t, dtype in tensors:
+        dtype = dtype or alphas.dtype
         if t.dtype != dtype:
-            raise ValueError(f"the CUDA Kerr kernel (float32 only) takes "
-                             f"{name} as {dtype}, got {t.dtype}")
+            raise ValueError(f"the CUDA kernel takes {name} as {dtype}, got "
+                             f"{t.dtype}")
         if t.device != alphas.device:
             raise ValueError(f"{name} is on {t.device}, alphas on "
                              f"{alphas.device}")
@@ -101,37 +134,44 @@ def trace_rays_kerr_cuda(metric, r_obs, alphas, thetas, theta_obs,
                          max_steps: int = 200000, precision: str = "fast",
                          formulation: str = "theta",
                          return_unconverged: bool = False,
-                         probe: dict | None = None):
+                         probe: dict | None = None,
+                         _cycle_exit: bool = True):
     """Trace N Kerr rays with the CUDA kernel; returns TraceResult.
 
     Same arguments and result as trace_rays_kerr_plain (with
     return_unconverged, (TraceResult, raw-RUNNING mask)). alphas/thetas:
-    (N,) contiguous float32 CUDA tensors; axis_refine: (N,) bool on the
-    same device. probe: a dict that receives the per-ray "attempts".
-    Launches on the current stream and does not synchronise. CPU tensors
-    go to the plain version; other devices raise.
+    (N,) contiguous CUDA tensors, both float32 or both float64 (the
+    instance and the tolerance preset follow); axis_refine: (N,) bool on
+    the same device. probe: a dict that receives the per-ray "attempts"
+    and "cycles" (the module docstring). Launches on the current stream
+    and does not synchronise. CPU tensors go to the plain version; other
+    devices raise.
     """
     if not _check_call(alphas, metric, formulation, max_steps):
         return trace_rays_kerr_plain(
             metric, r_obs, alphas, thetas, theta_obs, axis_refine,
             lambda_max, max_steps, precision=precision,
             formulation=formulation, return_unconverged=return_unconverged)
-    _check_inputs((("alphas", alphas, torch.float32),
-                   ("thetas", thetas, torch.float32),
+    _check_inputs((("alphas", alphas, None), ("thetas", thetas, None),
                    ("axis_refine", axis_refine, torch.bool)), alphas)
 
     n = alphas.numel()
-    state = torch.empty((5, n), dtype=torch.float32, device=alphas.device)
-    status = torch.empty(n, dtype=torch.int32, device=alphas.device)
-    attempts = torch.empty(n, dtype=torch.int32, device=alphas.device)
-    tols = get_tols(torch.float32, precision)
+    dtype, dev = alphas.dtype, alphas.device
+    state = torch.empty((5, n), dtype=dtype, device=dev)
+    status = torch.empty(n, dtype=torch.int32, device=dev)
+    attempts = torch.empty(n, dtype=torch.int32, device=dev)
+    census = (torch.empty(n, dtype=torch.int32, device=dev)
+              if probe is not None else None)
+    tols = get_tols(dtype, precision)
     lib = load_library()
-    with torch.cuda.device(alphas.device):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lpt_kerr_dp45(
+        rc = getattr(lib, "lpt_kerr_dp45" + entry_suffix(dtype))(
             alphas.data_ptr(), thetas.data_ptr(), axis_refine.data_ptr(),
             *(state[c].data_ptr() for c in range(5)),
-            status.data_ptr(), attempts.data_ptr(), n,
+            status.data_ptr(), attempts.data_ptr(),
+            None if census is None else census.data_ptr(), n,
+            int(bool(_cycle_exit)),
             float(metric.M), float(metric.a), float(metric.r_plus),
             float(r_obs), float(theta_obs), float(lambda_max),
             int(max_steps),
@@ -139,9 +179,10 @@ def trace_rays_kerr_cuda(metric, r_obs, alphas, thetas, theta_obs,
             tols["h_min"], tols["tiny_err"],
             _h_init_for(r_obs), float(metric.capture_radius()), stream)
     check(lib, rc, "kerr_dp45 launch")
-    trace_rays_kerr_cuda.launches += 1
+    count_launch(trace_rays_kerr_cuda, dtype)
     if probe is not None:
         probe["attempts"] = attempts
+        probe["cycles"] = census
 
     _y0, p_t, p_phi, _inv = metric.initial_conditions_5d(
         r_obs, alphas, thetas, theta_obs)
@@ -154,8 +195,10 @@ def trace_rays_kerr_cuda(metric, r_obs, alphas, thetas, theta_obs,
     return result
 
 
-# Kernel launches, so a run can show that it went through the kernel.
+# Kernel launches per dtype, so a run can show that it went through the
+# kernel.
 trace_rays_kerr_cuda.launches = 0
+trace_rays_kerr_cuda.launches_f64 = 0
 
 
 def trace_disk_rays_cuda(metric, r_obs, alphas, thetas, theta_obs,
@@ -164,16 +207,18 @@ def trace_disk_rays_cuda(metric, r_obs, alphas, thetas, theta_obs,
                          formulation: str = "theta",
                          return_unconverged: bool = False,
                          record_momentum: bool = False,
-                         probe: dict | None = None):
+                         probe: dict | None = None,
+                         _cycle_exit: bool = True):
     """Trace N Kerr rays with the kernel's disk variant; returns
     DiskTraceResult (with return_unconverged, (DiskTraceResult,
     raw-RUNNING mask)).
 
     Same arguments and result as trace_disk_rays_plain. disk_plane =
     (r_in, r_out, theta_plane, opaque); max_disk_hits 1..4. alphas/
-    thetas: (N,) contiguous float32 CUDA tensors. probe: a dict that
-    receives the per-ray "attempts". Launches on the current stream and
-    does not synchronise. CPU tensors go to the plain version.
+    thetas: (N,) contiguous CUDA tensors, both float32 or both float64.
+    probe: a dict that receives the per-ray "attempts" and "cycles".
+    Launches on the current stream and does not synchronise. CPU tensors
+    go to the plain version.
     """
     if not _check_call(alphas, metric, formulation, max_steps):
         return trace_disk_rays_plain(
@@ -181,33 +226,37 @@ def trace_disk_rays_cuda(metric, r_obs, alphas, thetas, theta_obs,
             max_steps, disk_plane, max_disk_hits, precision=precision,
             return_unconverged=return_unconverged,
             record_momentum=record_momentum)
-    _check_inputs((("alphas", alphas, torch.float32),
-                   ("thetas", thetas, torch.float32)), alphas)
+    _check_inputs((("alphas", alphas, None), ("thetas", thetas, None)),
+                  alphas)
     if not 1 <= max_disk_hits <= MAX_KERNEL_HITS:
         raise ValueError(f"the CUDA disk kernel records 1..{MAX_KERNEL_HITS}"
                          f" crossings, got max_disk_hits={max_disk_hits}")
     r_in, r_out, theta_plane, opaque = disk_plane
 
     n = alphas.numel()
-    dev = alphas.device
-    state = torch.empty((5, n), dtype=torch.float32, device=dev)
+    dtype, dev = alphas.dtype, alphas.device
+    state = torch.empty((5, n), dtype=dtype, device=dev)
     status = torch.empty(n, dtype=torch.int32, device=dev)
     attempts = torch.empty(n, dtype=torch.int32, device=dev)
     n_hits = torch.empty(n, dtype=torch.int32, device=dev)
+    census = (torch.empty(n, dtype=torch.int32, device=dev)
+              if probe is not None else None)
     keys = ("r", "phi") + (("pr", "pth") if record_momentum else ())
-    hits = {k: torch.empty((max_disk_hits, n), dtype=torch.float32,
-                           device=dev) for k in keys}
+    hits = {k: torch.empty((max_disk_hits, n), dtype=dtype, device=dev)
+            for k in keys}
     rec = [hits[k].data_ptr() if k in hits else None
            for k in ("r", "phi", "pr", "pth")]
-    tols = get_tols(torch.float32, precision)
+    tols = get_tols(dtype, precision)
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lpt_kerr_dp45_disk(
+        rc = getattr(lib, "lpt_kerr_dp45_disk" + entry_suffix(dtype))(
             alphas.data_ptr(), thetas.data_ptr(),
             *(state[c].data_ptr() for c in range(5)),
             status.data_ptr(), attempts.data_ptr(), n_hits.data_ptr(),
-            *rec, n, int(max_disk_hits), int(bool(record_momentum)),
+            *rec, None if census is None else census.data_ptr(), n,
+            int(max_disk_hits), int(bool(record_momentum)),
+            int(bool(_cycle_exit)),
             float(metric.M), float(metric.a), float(metric.r_plus),
             float(r_obs), float(theta_obs), float(lambda_max),
             int(max_steps), tols["atol"], tols["rtol"], tols["h_min"],
@@ -215,9 +264,10 @@ def trace_disk_rays_cuda(metric, r_obs, alphas, thetas, theta_obs,
             float(metric.capture_radius()), float(r_in), float(r_out),
             math.cos(theta_plane), int(bool(opaque)), stream)
     check(lib, rc, "kerr_dp45_disk launch")
-    trace_disk_rays_cuda.launches += 1
+    count_launch(trace_disk_rays_cuda, dtype)
     if probe is not None:
         probe["attempts"] = attempts
+        probe["cycles"] = census
 
     hits["n"] = n_hits
     _y0, p_t, p_phi, _inv = metric.initial_conditions_5d(
@@ -229,6 +279,7 @@ def trace_disk_rays_cuda(metric, r_obs, alphas, thetas, theta_obs,
 
 
 trace_disk_rays_cuda.launches = 0
+trace_disk_rays_cuda.launches_f64 = 0
 
 
 def _stragglers(unconv, slots):

@@ -16,12 +16,17 @@ The kernel evaluates the transfer functions of `volumetric.py` and
 `polarization.py` itself, from the description each one carries
 (`fn.kernel`, a `volumetric.KernelTransfer`): the profile, the flow and
 every constant. `KernelTransfer.constants` forms the constants in double,
-as the JAX package's float32 closures form them, and `riaf_params` rounds
-each once. A CUDA float32 tensor launches the kernel, and any other CUDA
-input raises (a float64 tensor, a transfer function without a
-description, more than 8 bands or frames, more than 4 orders, aux inputs
-the transfer function does not take); CPU tensors run the plain loop
-(`ops/kerr_trace.py`).
+as the JAX package's closures form them; `riaf_params` packs them for the
+float32 instances, each rounded once (`RiafParams`), or unrounded for the
+float64 ones (`RiafParams64`). A CUDA float32 or float64 tensor launches
+the kernel instance of its dtype (the launch counters count per dtype:
+`.launches`, `.launches_f64`), and any other CUDA input raises (another
+dtype, a transfer function without a description, more than 8 bands or
+frames, more than 4 orders, aux inputs the transfer function does not
+take); CPU tensors run the plain loop (`ops/kerr_trace.py`). As in
+`kerr_trace_kernel.py`, the private `_cycle_exit=False` grinds the exact
+cycles the kernel otherwise counts at once, and `probe` receives their
+census.
 """
 
 from __future__ import annotations
@@ -33,13 +38,14 @@ import torch
 from light_path_tracer_tpu_torch.ops import kerr_trace as tk
 from light_path_tracer_tpu_torch.ops.cuda._build import check, load_library
 from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
-    _check_call, _check_inputs)
+    _check_call, _check_inputs, count_launch, entry_suffix)
 from light_path_tracer_tpu_torch.ops.kerr_trace import (
     _h_init_for, get_tols, saturation_r_max, spectral_result,
     volumetric_result)
 from light_path_tracer_tpu_torch.ops.types import ExtrasResult
 
-__all__ = ["RiafParams", "ExtrasCall", "riaf_params",
+__all__ = ["RiafParams", "RiafParams64", "ExtrasCall", "ExtrasCall64",
+           "riaf_params",
            "trace_rays_volumetric_cuda", "trace_rays_aux_cuda",
            "trace_rays_spectral_cuda", "MAX_BANDS", "MAX_FRAMES",
            "MAX_ORDERS", "MAX_AUX"]
@@ -63,49 +69,72 @@ _ORDER_FLOATS = ("order_norm", "order_inv_two_sig2")
 _STOKES_FLOATS = ("two_Ma", "two_Ma2", "flow_sign", "p0")
 
 
-class RiafParams(ctypes.Structure):
-    """The kernel's RiafParams, field for field (4-byte members, no
-    padding)."""
+def _riaf_fields(real):
+    """RiafParams<T>'s fields with real the ctypes type of T."""
+    return ([("profile", ctypes.c_int), ("geometry", ctypes.c_int)]
+            + [(name, real) for name in _FLOATS]
+            + [("neg_c", real * MAX_BANDS), ("band_scale", real * MAX_BANDS)]
+            + [(name, real) for name in _SPOT_FLOATS]
+            + [("times", real * MAX_FRAMES)]
+            + [(name, real) for name in _ORDER_FLOATS]
+            + [("field", ctypes.c_int)]
+            + [(name, real) for name in _STOKES_FLOATS])
 
-    _fields_ = ([("profile", ctypes.c_int), ("geometry", ctypes.c_int)]
-                + [(name, ctypes.c_float) for name in _FLOATS]
-                + [("neg_c", ctypes.c_float * MAX_BANDS),
-                   ("band_scale", ctypes.c_float * MAX_BANDS)]
-                + [(name, ctypes.c_float) for name in _SPOT_FLOATS]
-                + [("times", ctypes.c_float * MAX_FRAMES)]
-                + [(name, ctypes.c_float) for name in _ORDER_FLOATS]
-                + [("field", ctypes.c_int)]
-                + [(name, ctypes.c_float) for name in _STOKES_FLOATS])
+
+def _call_fields(real):
+    """ExtrasCall<T>'s fields with real the ctypes type of T: the device
+    pointers and the stream first, then the 4-byte members, then the
+    scalars."""
+    return ([("alpha", ctypes.c_void_p), ("theta", ctypes.c_void_p),
+             ("aux", ctypes.c_void_p * MAX_AUX)]
+            + [(name, ctypes.c_void_p) for name in (
+                "extras", "final_alpha", "n_half", "status", "steps",
+                "census", "flags", "warp_steps", "stream")]
+            + [(name, ctypes.c_int) for name in (
+                "n", "form", "variant", "max_steps", "sat_window")]
+            + [("sat_monitor", ctypes.c_uint), ("cycle_exit", ctypes.c_int)]
+            + [(name, real) for name in (
+                "M", "a", "r_plus", "r_obs", "theta_obs", "lambda_max",
+                "atol", "rtol", "h_min", "tiny_err", "h_init", "r_capture",
+                "r_reclass", "sat_r_max")])
+
+
+class RiafParams(ctypes.Structure):
+    """The float instances' RiafParams<float>, field for field."""
+
+    _fields_ = _riaf_fields(ctypes.c_float)
+
+
+class RiafParams64(ctypes.Structure):
+    """The float64 instances' RiafParams<double>, field for field."""
+
+    _fields_ = _riaf_fields(ctypes.c_double)
 
 
 class ExtrasCall(ctypes.Structure):
-    """The kernel's ExtrasCall, field for field: the device pointers and
-    the stream first, then the 4-byte scalars."""
+    """The float instances' ExtrasCall<float>, field for field."""
 
-    _fields_ = ([("alpha", ctypes.c_void_p), ("theta", ctypes.c_void_p),
-                 ("aux", ctypes.c_void_p * MAX_AUX)]
-                + [(name, ctypes.c_void_p) for name in (
-                    "extras", "final_alpha", "n_half", "status", "steps",
-                    "flags", "warp_steps", "stream")]
-                + [(name, ctypes.c_int) for name in (
-                    "n", "form", "variant", "max_steps", "sat_window")]
-                + [("sat_monitor", ctypes.c_uint)]
-                + [(name, ctypes.c_float) for name in (
-                    "M", "a", "r_plus", "r_obs", "theta_obs", "lambda_max",
-                    "atol", "rtol", "h_min", "tiny_err", "h_init",
-                    "r_capture", "r_reclass", "sat_r_max")])
+    _fields_ = _call_fields(ctypes.c_float)
 
 
-def riaf_params(spec) -> RiafParams:
+class ExtrasCall64(ctypes.Structure):
+    """The float64 instances' ExtrasCall<double>, field for field."""
+
+    _fields_ = _call_fields(ctypes.c_double)
+
+
+def riaf_params(spec, dtype=torch.float32):
     """The kernel's RiafParams for a volumetric.KernelTransfer: its
     constants, formed in double by KernelTransfer.constants, each rounded
-    once to float32 by ctypes."""
+    once to float32 by ctypes for the float32 instances (RiafParams), or
+    unrounded for the float64 ones (RiafParams64)."""
     k = spec.constants()
     names = _FLOATS + _SPOT_FLOATS + _ORDER_FLOATS + _STOKES_FLOATS
-    p = RiafParams(profile=_PROFILES[spec.riaf.profile],
-                   geometry=int(k["g_power"] == 0.0),
-                   field=_FIELDS.get(spec.field, 0),
-                   **{name: k[name] for name in names})
+    struct = RiafParams64 if entry_suffix(dtype) else RiafParams
+    p = struct(profile=_PROFILES[spec.riaf.profile],
+               geometry=int(k["g_power"] == 0.0),
+               field=_FIELDS.get(spec.field, 0),
+               **{name: k[name] for name in names})
     for i, (ci, bs) in enumerate(zip(k["c"], k["band_scale"])):
         p.neg_c[i] = -ci
         p.band_scale[i] = bs
@@ -134,13 +163,12 @@ def _kernel_transfer(fn, kinds, metric):
 
 
 def _launch(entry, metric, r_obs, alphas, thetas, theta_obs, lambda_max,
-            max_steps, precision, form, variant, n_extras, params,
-            sat_window, sat_monitor, probe, aux=()):
-    """One kernel launch through the C entry point `entry`; returns
-    (ExtrasResult, unconverged mask)."""
-    _check_inputs((("alphas", alphas, torch.float32),
-                   ("thetas", thetas, torch.float32))
-                  + tuple((f"aux[{i}]", a, torch.float32)
+            max_steps, precision, form, variant, n_extras, spec,
+            sat_window, sat_monitor, probe, cycle_exit, aux=()):
+    """One kernel launch through the C entry point `entry` (the instance
+    of the rays' dtype); returns (ExtrasResult, unconverged mask)."""
+    _check_inputs((("alphas", alphas, None), ("thetas", thetas, None))
+                  + tuple((f"aux[{i}]", a, None)
                           for i, a in enumerate(aux)), alphas)
     if sat_window and not sat_monitor:
         raise ValueError("sat_window > 0 needs a non-empty sat_monitor "
@@ -150,28 +178,33 @@ def _launch(entry, metric, r_obs, alphas, thetas, theta_obs, lambda_max,
         raise ValueError(f"sat_monitor {tuple(sat_monitor)} names extras "
                          f"outside 0..{n_extras - 1}")
     n = alphas.numel()
-    dev = alphas.device
-    extras = torch.empty((n_extras, n), dtype=torch.float32, device=dev)
-    final_alpha = torch.empty(n, dtype=torch.float32, device=dev)
+    dtype, dev = alphas.dtype, alphas.device
+    suffix = entry_suffix(dtype)
+    extras = torch.empty((n_extras, n), dtype=dtype, device=dev)
+    final_alpha = torch.empty(n, dtype=dtype, device=dev)
     n_half = torch.empty(n, dtype=torch.int32, device=dev)
     status = torch.empty(n, dtype=torch.int32, device=dev)
     flags = torch.empty(n, dtype=torch.uint8, device=dev)
     n_steps = torch.empty((), dtype=torch.int64, device=dev)
-    steps = (torch.empty(n, dtype=torch.int32, device=dev)
-             if probe is not None else None)
-    tols = get_tols(torch.float32, precision)
+    steps, census = ((torch.empty(n, dtype=torch.int32, device=dev),
+                      torch.empty(n, dtype=torch.int32, device=dev))
+                     if probe is not None else (None, None))
+    tols = get_tols(dtype, precision)
+    params = riaf_params(spec, dtype)
     lib = load_library()
     with torch.cuda.device(dev):
-        call = ExtrasCall(
+        call = (ExtrasCall64 if suffix else ExtrasCall)(
             alpha=alphas.data_ptr(), theta=thetas.data_ptr(),
             extras=extras.data_ptr(), final_alpha=final_alpha.data_ptr(),
             n_half=n_half.data_ptr(), status=status.data_ptr(),
             steps=None if steps is None else steps.data_ptr(),
+            census=None if census is None else census.data_ptr(),
             flags=flags.data_ptr(), warp_steps=n_steps.data_ptr(),
             stream=torch.cuda.current_stream().cuda_stream,
             n=n, form=int(form), variant=int(variant),
             max_steps=int(max_steps), sat_window=int(sat_window),
             sat_monitor=sum(1 << int(i) for i in sat_monitor),
+            cycle_exit=int(bool(cycle_exit)),
             M=float(metric.M), a=float(metric.a),
             r_plus=float(metric.r_plus), r_obs=float(r_obs),
             theta_obs=float(theta_obs), lambda_max=float(lambda_max),
@@ -182,11 +215,13 @@ def _launch(entry, metric, r_obs, alphas, thetas, theta_obs, lambda_max,
             sat_r_max=saturation_r_max(metric) if sat_window else 0.0)
         for i, a in enumerate(aux):
             call.aux[i] = a.data_ptr()
-        rc = getattr(lib, entry)(ctypes.byref(call), ctypes.byref(params))
-    check(lib, rc, f"{entry} launch")
+        rc = getattr(lib, entry + suffix)(ctypes.byref(call),
+                                          ctypes.byref(params))
+    check(lib, rc, f"{entry}{suffix} launch")
     if probe is not None:
         probe["attempts"] = steps
         probe["flags"] = flags
+        probe["cycles"] = census
     res = ExtrasResult(tuple(extras.unbind(0)), final_alpha, n_half, status,
                        n_steps)
     return res, (flags & 1).bool()
@@ -209,7 +244,8 @@ def trace_rays_volumetric_cuda(metric, r_obs, alphas, thetas, theta_obs,
                                method: str = "dp45", absorption_fn=None,
                                sat_window: int = 0,
                                return_unconverged: bool = False,
-                               probe: dict | None = None):
+                               probe: dict | None = None,
+                               _cycle_exit: bool = True):
     """Volumetric transfer trace with the CUDA kernel; returns
     VolumetricResult (with return_unconverged, also the mask of rays
     still running with lambda budget left).
@@ -217,10 +253,11 @@ def trace_rays_volumetric_cuda(metric, r_obs, alphas, thetas, theta_obs,
     Same arguments and result as ops.kerr_trace.trace_rays_volumetric;
     emission_fn/absorption_fn from volumetric.make_transfer_fns. The
     kernel's thin form (I) runs without absorption_fn, its self-absorbed
-    form (I, tau) with it. probe: a dict that receives the per-ray
-    "attempts" and the kernel's "flags" (bit 0 unconverged, 1 saturation
-    exit, 2 frozen-state exit). Launches on the current stream and does
-    not synchronise. CPU tensors go to the plain loop.
+    form (I, tau) with it. alphas/thetas: CUDA float32 or float64. probe:
+    a dict that receives the per-ray "attempts", the kernel's "flags" (bit
+    0 unconverged, 1 saturation exit, 2 frozen-state exit) and the cycle
+    census "cycles". Launches on the current stream and does not
+    synchronise. CPU tensors go to the plain loop.
     """
     if not _route(alphas, metric, method, max_steps):
         return tk.trace_rays_volumetric(
@@ -238,14 +275,16 @@ def trace_rays_volumetric_cuda(metric, r_obs, alphas, thetas, theta_obs,
     res, unconv = _launch(
         "lpt_kerr_dp45_extras", metric, r_obs, alphas, thetas, theta_obs,
         lambda_max, max_steps, precision, int(absorbing), 0,
-        2 if absorbing else 1, riaf_params(spec), sat_window, (0,), probe)
-    trace_rays_volumetric_cuda.launches += 1
+        2 if absorbing else 1, spec, sat_window, (0,), probe, _cycle_exit)
+    count_launch(trace_rays_volumetric_cuda, alphas.dtype)
     result = volumetric_result(res, absorbing)
     return (result, unconv) if return_unconverged else result
 
 
-# Kernel launches, so a run can show that it went through the kernel.
+# Kernel launches per dtype, so a run can show that it went through the
+# kernel.
 trace_rays_volumetric_cuda.launches = 0
+trace_rays_volumetric_cuda.launches_f64 = 0
 
 
 def _family(spec, n_extras, n_aux):
@@ -285,12 +324,13 @@ def trace_rays_aux_cuda(metric, r_obs, alphas, thetas, theta_obs,
                         precision: str = "fast", method: str = "dp45",
                         sat_window: int = 0, sat_monitor: tuple = (),
                         return_unconverged: bool = False,
-                        probe: dict | None = None):
+                        probe: dict | None = None,
+                        _cycle_exit: bool = True):
     """Generic coupled-extras trace with the CUDA kernel; returns
     ExtrasResult (with return_unconverged, also the re-trace mask).
 
     The counterpart of trace_rays_aux_pallas: aux is a tuple of per-ray
-    float32 tensors on the rays' device (same length, contiguous), which
+    tensors of the rays' dtype and device (same length, contiguous), which
     the kernel reads once per ray into registers; as there, with aux =
     () the transfer function is called as transfer_fn(y, p_t, p_phi).
     The kernel runs the functions of volumetric.make_spectral_transfer
@@ -315,13 +355,14 @@ def trace_rays_aux_cuda(metric, r_obs, alphas, thetas, theta_obs,
     entry, form, variant = _family(spec, n_extras, len(aux))
     res, unconv = _launch(
         entry, metric, r_obs, alphas, thetas, theta_obs, lambda_max,
-        max_steps, precision, form, variant, n_extras, riaf_params(spec),
-        sat_window, sat_monitor, probe, aux)
-    trace_rays_aux_cuda.launches += 1
+        max_steps, precision, form, variant, n_extras, spec, sat_window,
+        sat_monitor, probe, _cycle_exit, aux)
+    count_launch(trace_rays_aux_cuda, alphas.dtype)
     return (res, unconv) if return_unconverged else res
 
 
 trace_rays_aux_cuda.launches = 0
+trace_rays_aux_cuda.launches_f64 = 0
 
 
 def trace_rays_spectral_cuda(metric, r_obs, alphas, thetas, theta_obs,
@@ -330,7 +371,8 @@ def trace_rays_spectral_cuda(metric, r_obs, alphas, thetas, theta_obs,
                              precision: str = "fast", method: str = "dp45",
                              sat_window: int = 0, sat_monitor: tuple = None,
                              return_unconverged: bool = False,
-                             probe: dict | None = None):
+                             probe: dict | None = None,
+                             _cycle_exit: bool = True):
     """Multi-frequency transfer trace with the CUDA kernel (through
     trace_rays_aux_cuda, as trace_rays_spectral_pallas goes through
     trace_rays_aux_pallas); returns SpectralResult (with
@@ -350,7 +392,8 @@ def trace_rays_spectral_cuda(metric, r_obs, alphas, thetas, theta_obs,
         metric, r_obs, alphas, thetas, theta_obs, transfer_fn, 1 + n_bands,
         (), lambda_max, max_steps, precision=precision, method=method,
         sat_window=sat_window, sat_monitor=sat_monitor,
-        return_unconverged=return_unconverged, probe=probe)
+        return_unconverged=return_unconverged, probe=probe,
+        _cycle_exit=_cycle_exit)
     if return_unconverged:
         return spectral_result(out[0]), out[1]
     return spectral_result(out)

@@ -115,7 +115,8 @@ class KernelTransfer:
     def constants(self) -> dict:
         """The constants the kernel evaluates the closures below with,
         each formed in double as the JAX closures' Python floats are
-        (the kernel's wrapper rounds each once to float32); c and
+        (the kernel's wrapper rounds each once to float32 for the
+        float32 instances and passes it unrounded to the float64 ones); c and
         band_scale are per band, empty for the single-band forms; the
         spot_* constants are the movie's blob, the order_* ones the
         crossing bump of the order decomposition."""

@@ -29,7 +29,10 @@ floor(m) switches within rounding of an integer; the aux driver bitwise
 equal to the single pass; the three renders on the card against the CPU.
 The peak probe's chains against the same recurrence in torch: float64
 within 4 k ulp (the kernel's FMA rounds once, torch twice), float32
-within 4 k ulp, sinf within 4 ulp.
+within 4 k ulp, sinf within 4 ulp. Each family's float64 instance against
+the plain float64 loop (the gates of chip_smoke.py phase 17), and the
+exact-cycle exit bitwise against the same kernel grinding every attempt
+on near-axis lanes that freeze.
 """
 
 import numpy as np
@@ -97,8 +100,11 @@ def test_kernel_matches_plain_version(cuda):
 def test_kernel_rejects_bad_inputs(cuda):
     m, _ac, al, th, ref = _rays(64, cuda)
     with pytest.raises(ValueError):
-        trace_rays_kerr_cuda(m, R_OBS, al.double(), th.double(), np.pi / 2,
+        trace_rays_kerr_cuda(m, R_OBS, al.half(), th.half(), np.pi / 2,
                              ref, 5000.0, 100)
+    with pytest.raises(ValueError):
+        trace_rays_kerr_cuda(m, R_OBS, al.double(), th, np.pi / 2, ref,
+                             5000.0, 100)
     with pytest.raises(ValueError):
         trace_rays_kerr_cuda(m, R_OBS, al[::2], th[::2], np.pi / 2,
                              ref[::2], 5000.0, 100)
@@ -153,7 +159,7 @@ def test_orbit_kernel_rejects_bad_inputs(cuda):
     m = Schwarzschild(M=1.0)
     al = torch.linspace(0.01, 0.2, 64, device=cuda)
     with pytest.raises(ValueError):
-        trace_rays_schwarzschild_cuda(m, R_OBS, al.double())
+        trace_rays_schwarzschild_cuda(m, R_OBS, al.half())
     with pytest.raises(ValueError):
         trace_rays_schwarzschild_cuda(m, R_OBS, al[::2])
     with pytest.raises(ValueError):
@@ -188,7 +194,9 @@ def _plane(opaque):
 
 
 def _bits(x):
-    return x.view(torch.int32) if x.is_floating_point() else x
+    if not x.is_floating_point():
+        return x
+    return x.view(torch.int64 if x.dtype == torch.float64 else torch.int32)
 
 
 @pytest.mark.parametrize("opaque,momentum", [(True, False), (False, True)])
@@ -230,8 +238,9 @@ def test_disk_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):
         trace_disk_rays_cuda(*args, 5)
     with pytest.raises(ValueError):
-        trace_disk_rays_cuda(m, R_OBS, al.double(), al.double(),
-                             *args[4:], 2)
+        trace_disk_rays_cuda(m, R_OBS, al.half(), al.half(), *args[4:], 2)
+    with pytest.raises(ValueError):
+        trace_disk_rays_cuda(m, R_OBS, al.double(), al, *args[4:], 2)
 
 
 def test_disk_two_pass_equals_single_pass_on_card(cuda):
@@ -355,7 +364,10 @@ def test_extras_kernel_rejects_bad_inputs(cuda):
     m, al, th = _extras_rays(64, cuda)
     em, _ = volumetric.make_transfer_fns(m, volumetric.RIAFConfig())
     with pytest.raises(ValueError):
-        vk.trace_rays_volumetric_cuda(m, R_OBS, al.double(), th.double(),
+        vk.trace_rays_volumetric_cuda(m, R_OBS, al.half(), th.half(),
+                                      THETA_DISK, em, 5000.0, 100)
+    with pytest.raises(ValueError):
+        vk.trace_rays_volumetric_cuda(m, R_OBS, al.double(), th,
                                       THETA_DISK, em, 5000.0, 100)
     with pytest.raises(ValueError):
         vk.trace_rays_volumetric_cuda(m, R_OBS, al[::2], th[::2],
@@ -633,3 +645,174 @@ def test_new_renders_on_card_match_cpu(cuda):
     bright = ic > 1e-3 * peak
     assert pg[bright].max() <= 0.7 + 1e-5
     assert np.median(np.abs(pg - pc)[bright]) < 1e-3
+
+
+F64_FAMILIES = ["kerr", "disk", "orbit schwarzschild", "orbit rn_q0.6",
+                "thin", "absorbed", "spectral 3-band", "stokes toroidal",
+                "movie8 alpha0=0.0", "movie8 alpha0=0.3", "order3 alpha0=0.0"]
+
+
+@pytest.mark.parametrize("family", F64_FAMILIES)
+def test_float64_instance_matches_plain_float64(cuda, family):
+    """Each family's float64 instance against the plain loop in float64 on
+    the same rays: both round alike up to FMA contraction and the libm's
+    last ulp, so statuses agree (at most one ray of 512 or 2,048 flips at
+    an accept/reject tie), p99 |d final_alpha| < 1e-6 rad on stable
+    escaped rays (orbit: < 1e-8), extras p99 |d| / max < 1e-6, disk
+    median |d r_hits[0]| < 1e-6 M, the order buckets by flux. The
+    float64 launch counter grows and the float32 one does not."""
+    f64 = dict(dtype=torch.float64, device=cuda)
+    if family == "kerr":
+        m, ac, al, th, ref = _rays(512, cuda)
+        al, th = al.double(), th.double()
+        counter = trace_rays_kerr_cuda
+        args = (m, R_OBS, al, th, np.pi / 2, ref, 5000.0, 20000)
+        before = (counter.launches, counter.launches_f64)
+        rk = counter(*args)
+        rp = trace_rays_kerr_plain(*args)
+    elif family == "disk":
+        m = Kerr(M=1.0, a=0.9)
+        rng = np.random.default_rng(0)
+        al = torch.tensor(rng.uniform(0.01, 0.12, 512), **f64)
+        th = torch.tensor(rng.uniform(-np.pi, np.pi, 512), **f64)
+        counter = trace_disk_rays_cuda
+        args = (m, R_OBS, al, th, THETA_DISK, 5000.0, 20000, _plane(True), 2)
+        before = (counter.launches, counter.launches_f64)
+        rk = counter(*args)
+        rp = trace_disk_rays_plain(*args)
+    elif family.startswith("orbit"):
+        m = (Schwarzschild(M=1.0) if family.endswith("schwarzschild")
+             else ReissnerNordstrom(M=1.0, Q=0.6))
+        ac = m.alpha_crit(R_OBS)
+        rng = np.random.default_rng(1)
+        al = torch.tensor(np.concatenate([[0.0], rng.uniform(
+            0.2 * ac, 4 * ac, 1024)]), **f64)
+        counter = trace_rays_schwarzschild_cuda
+        before = (counter.launches, counter.launches_f64)
+        rk = counter(m, R_OBS, al)
+        rp = trace_rays_schwarzschild_plain(m, R_OBS, al)
+        assert int(rk.status[0]) == 0
+    else:
+        m, al, th = _extras_rays(2048, cuda)
+        al, th = al.double(), th.double()
+        if family in VOLUMETRIC_FORMS:
+            counter = (vk.trace_rays_aux_cuda if family.startswith("spec")
+                       else vk.trace_rays_volumetric_cuda)
+            before = (counter.launches, counter.launches_f64)
+            rk, xk = _extras_trace(family, True, m, al, th, 4000,
+                                   sat_window=2048)
+            rp, xp = _extras_trace(family, False, m, al, th, 4000,
+                                   sat_window=2048)
+        else:
+            tf, n_extras, aux, monitor = _aux_forms(m, al, th)[family]
+            kw = dict(sat_window=2048, sat_monitor=monitor)
+            counter = vk.trace_rays_aux_cuda
+            before = (counter.launches, counter.launches_f64)
+            rk = counter(m, R_OBS, al, th, THETA_DISK, tf, n_extras, aux,
+                         5000.0, 4000, **kw)
+            extra = tf if aux else (lambda y, pt, pp, _aux: tf(y, pt, pp))
+            rp = kerr_trace.trace_rays_aux(m, R_OBS, al, th, THETA_DISK,
+                                           extra, n_extras, aux, 5000.0,
+                                           4000, **kw)
+            xk, xp = list(rk.extras), list(rp.extras)
+    torch.cuda.synchronize()
+    assert (counter.launches, counter.launches_f64) == (before[0],
+                                                        before[1] + 1)
+    sk, sp = rk.status.cpu().numpy(), rp.status.cpu().numpy()
+    assert (sk != sp).sum() <= 1
+    ok = sk == sp
+    if family in ("kerr", "disk") or family.startswith("orbit"):
+        assert rk.final_alpha.dtype == torch.float64
+        fk, fp = rk.final_alpha.cpu().numpy(), rp.final_alpha.cpu().numpy()
+        if family == "disk":
+            nk, npl = rk.n_hits.cpu().numpy(), rp.n_hits.cpu().numpy()
+            assert (nk != npl).sum() <= 1
+            both = (nk > 0) & (npl > 0)
+            d = np.abs(rk.r_hits[0].cpu().numpy()[both]
+                       - rp.r_hits[0].cpu().numpy()[both])
+            assert both.sum() > 200 and np.median(d) < 1e-6
+            return
+        a = al.cpu().numpy()
+        stable = (sk == 1) & (sp == 1) & (np.abs(a - ac) > 0.05 * ac)
+        d = np.abs(fk[stable] - fp[stable])
+        bar = 1e-6 if family == "kerr" else 1e-8
+        assert stable.sum() > 200 and np.percentile(d, 99) < bar
+        return
+    xk = np.stack([e.cpu().numpy() for e in xk])
+    xp = np.stack([e.cpu().numpy() for e in xp])
+    assert xk.dtype == np.float64
+    if family.startswith("order"):
+        _assert_orders_agree(xk[-3:][:, ok], xp[-3:][:, ok])
+        return
+    scale = np.abs(xp[0]).max() if family.startswith("stokes") else None
+    for a, b in zip(xk, xp):
+        bar = 1e-6 * (scale or max(np.abs(b).max(), 1.0))
+        assert np.percentile(np.abs(a - b)[ok], 99) < bar
+
+
+def _near_axis(dim, fov_deg, cols, device, rows=None):
+    """The rays of columns `cols` (and rows `rows`) of a grid."""
+    fov = camera.fov_from_vertical(np.radians(fov_deg), dim)
+    grid = dict(dtype=torch.float32, device=device)
+    al = camera.build_alpha_lookup(dim, fov, **grid)
+    th = camera.build_theta_lookup(dim, fov, **grid)
+    rows = slice(None) if rows is None else rows
+    return (al[rows, cols].reshape(-1).contiguous(),
+            th[rows, cols].reshape(-1).contiguous())
+
+
+def test_cycle_exit_is_bitwise_on_frozen_disk_lanes(cuda):
+    """Config 4's near-axis lanes (rows 940-979, columns 500-523 of the
+    aligned 1024^2 disk grid, ray (959, 511) among them): the kernel with
+    the exact-cycle exit and the same kernel grinding every attempt give
+    bitwise the same state, status, hits, per-ray attempts and step
+    sum."""
+    m = Kerr(M=1.0, a=0.9)
+    al, th = _near_axis((1024, 1024), 40.0, slice(500, 524), cuda,
+                        slice(940, 980))
+    out = {}
+    for exit_on in (True, False):
+        probe = {}
+        r = trace_disk_rays_cuda(m, R_OBS, al, th, THETA_DISK, 5000.0,
+                                 200000, _plane(True), 2, probe=probe,
+                                 _cycle_exit=exit_on)
+        out[exit_on] = (r, probe)
+    (a, pa), (b, pb) = out[True], out[False]
+    fields = [(a.status, b.status), (a.n_hits, b.n_hits),
+              (a.final_alpha, b.final_alpha), (a.n_half, b.n_half),
+              (a.n_steps, b.n_steps), (pa["attempts"], pb["attempts"])]
+    fields += list(zip(a.r_hits, b.r_hits)) + list(zip(a.phi_hits,
+                                                       b.phi_hits))
+    assert all(torch.equal(_bits(x), _bits(y)) for x, y in fields)
+
+
+@pytest.mark.parametrize("form", ["thin", "spectral 3-band",
+                                  "order3 alpha0=0.0"])
+def test_cycle_exit_is_bitwise_on_frozen_volumetric_lanes(cuda, form):
+    """The volumetric scene's near-axis columns 500-523 at 1024^2 (a = 0.9,
+    theta_obs 80 deg, FOV 16 deg), where lanes freeze bitwise and the
+    frozen-state exit ends them: with the exact-cycle exit and without it
+    the extras, status, final alpha, flags, per-ray attempts and warp step
+    sum agree bitwise, and some lanes did freeze."""
+    m = Kerr(M=1.0, a=0.9)
+    al, th = _near_axis((1024, 1024), 16.0, slice(500, 524), cuda)
+    out = {}
+    for exit_on in (True, False):
+        probe = {}
+        kw = dict(sat_window=2048, probe=probe, _cycle_exit=exit_on)
+        if form in VOLUMETRIC_FORMS:
+            r, x = _extras_trace(form, True, m, al, th, 200000, **kw)
+        else:
+            tf, n_extras, aux, monitor = _aux_forms(m, al, th)[form]
+            r = vk.trace_rays_aux_cuda(m, R_OBS, al, th, THETA_DISK, tf,
+                                       n_extras, aux, 5000.0, 200000,
+                                       sat_monitor=monitor, **kw)
+            x = list(r.extras)
+        out[exit_on] = (r, x, probe)
+    (a, xa, pa), (b, xb, pb) = out[True], out[False]
+    fields = [(a.status, b.status), (a.final_alpha, b.final_alpha),
+              (a.n_half_orbits, b.n_half_orbits), (a.n_steps, b.n_steps),
+              (pa["attempts"], pb["attempts"]), (pa["flags"], pb["flags"])]
+    fields += list(zip(xa, xb))
+    assert all(torch.equal(_bits(x), _bits(y)) for x, y in fields)
+    assert int((pb["flags"] & 6).ne(0).sum()) > 0

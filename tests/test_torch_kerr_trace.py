@@ -228,16 +228,52 @@ def test_kerr_two_pass_keeps_pass_one_beyond_slots():
         assert torch.equal(b[~retraced], c[~retraced])
 
 
+def test_trace_batch_two_pass_matches_reference_on_cpu():
+    """Off the kernel two_pass changes nothing, as in the JAX package,
+    whose XLA branch ignores it: with two_pass=True and an 8-attempt
+    first pass both packages give the single pass's float64 result, and
+    the port's step count is its single pass's (a two-pass driver would
+    count both passes)."""
+    from light_path_tracer_tpu.ops.batch import trace_batch as jbatch
+    jm, tm = JKerr(M=1.0, a=0.9), Kerr(M=1.0, a=0.9)
+    al, th, ref = _rays(64, 11, jm.alpha_crit(R_OBS))
+    rj = jbatch(jm, R_OBS, jnp.asarray(al), jnp.asarray(th), np.pi / 2,
+                jnp.asarray(ref), max_steps=5000, backend="xla",
+                two_pass=True, pass1_steps=8)
+    args = (tm, R_OBS, torch.from_numpy(al), torch.from_numpy(th),
+            np.pi / 2, torch.from_numpy(ref))
+    two = trace_batch(*args, max_steps=5000, two_pass=True, pass1_steps=8)
+    one = trace_batch(*args, max_steps=5000, two_pass=False)
+    sj = np.asarray(rj.status)
+    np.testing.assert_array_equal(two.status.numpy(), sj)
+    np.testing.assert_array_equal(two.n_half_orbits.numpy(),
+                                  np.asarray(rj.n_half_orbits))
+    esc = sj == 1
+    assert esc.sum() > 20 and (sj == -1).sum() > 5
+    assert np.abs(two.final_alpha.numpy()[esc]
+                  - np.asarray(rj.final_alpha)[esc]).max() < 1e-8
+    assert int(two.n_steps) == int(one.n_steps)
+    assert torch.equal(two.final_alpha.nan_to_num(9.0),
+                       one.final_alpha.nan_to_num(9.0))
+
+
 def test_trace_batch_two_pass_rule(monkeypatch):
-    """two_pass=True runs the driver; 'auto' turns it on above 2,000,000
-    rays only (the JAX package's rule)."""
+    """On the kernel path two_pass=True runs the driver and 'auto' turns it
+    on above 2,000,000 rays only (the JAX package's rule for its kernel);
+    the plain loop ignores two_pass, as the JAX package's XLA branch
+    does."""
+    from light_path_tracer_tpu_torch.ops import batch
     tm, al, th, ref = _grid_rays(64)
     single = trace_batch(tm, R_OBS, al, th, np.pi / 2, ref, max_steps=5000)
     launches = kk.trace_rays_kerr_two_pass.launches
+    plain = tk.trace_rays_kerr.launches
     two = trace_batch(tm, R_OBS, al, th, np.pi / 2, ref, max_steps=5000,
                       two_pass=True, pass1_steps=8)
-    assert kk.trace_rays_kerr_two_pass.launches == launches + 1
-    assert torch.equal(two.status, single.status)
+    assert kk.trace_rays_kerr_two_pass.launches == launches
+    assert tk.trace_rays_kerr.launches == plain + 1
+    for a, b in zip(two[:4], single[:4]):
+        assert torch.equal(a.nan_to_num(9.0) if a.is_floating_point() else a,
+                           b.nan_to_num(9.0) if b.is_floating_point() else b)
     calls = []
 
     def fake(name):
@@ -248,9 +284,16 @@ def test_trace_batch_two_pass_rule(monkeypatch):
         return run
 
     monkeypatch.setattr(kk, "trace_rays_kerr_two_pass", fake("two"))
-    monkeypatch.setattr(tk, "trace_rays_kerr", fake("one"))
+    monkeypatch.setattr(kk, "trace_rays_kerr_cuda", fake("kernel"))
+    monkeypatch.setattr(tk, "trace_rays_kerr", fake("plain"))
+    big = torch.full((2_000_001,), 0.1)
+    trace_batch(tm, R_OBS, big, pass1_steps=99)
+    trace_batch(tm, R_OBS, big, two_pass=True)
+    monkeypatch.setattr(batch, "_backend", lambda backend, alphas: "cuda")
     for n in (2_000_000, 2_000_001):
-        trace_batch(tm, R_OBS, torch.full((n,), 0.1), pass1_steps=99)
-    trace_batch(tm, R_OBS, torch.full((2_000_001,), 0.1), two_pass=False)
-    assert calls == [("one", 2_000_000, None), ("two", 2_000_001, 99),
-                     ("one", 2_000_001, None)]
+        trace_batch(tm, R_OBS, big[:n], pass1_steps=99)
+    trace_batch(tm, R_OBS, big, two_pass=False)
+    trace_batch(tm, R_OBS, big[:64], two_pass=True, pass1_steps=7)
+    assert calls == [("plain", 2_000_001, None), ("plain", 2_000_001, None),
+                     ("kernel", 2_000_000, None), ("two", 2_000_001, 99),
+                     ("kernel", 2_000_001, None), ("two", 64, 7)]
