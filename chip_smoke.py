@@ -12,15 +12,18 @@ volumetric hot-flow and spectral renders, the polarized, flare-movie and
 order-decomposition renders, and the card's arithmetic peak rates.
 Phases:
   1. machine: card name and power limit, torch and nvcc versions;
-  2. build: nvcc for sm_90a, with the build time and each kernel
-     instance's registers and spills;
+  2. build: nvcc for sm_90a without FMA contraction (-fmad=false), with
+     the build time and each kernel instance's registers and spills;
   3. kernel vs plain version: 4,096 random rays (status agreement > 0.99,
      p99 |d final_alpha| < 2e-3 on stable escaped rays), a 128^2 image
      (shadow masks agree on >= 99.5% of pixels), and the main path's
-     524,288 rays at 1024^2 (same gates), each with both times;
+     524,288 rays at 1024^2 (same gates), each with both times, the
+     kernel alone by torch.profiler, the mean attempts and the lane
+     efficiency (attempts over 32 x the warp step sum);
   4. main path: render_shadow once to warm up and 3 more times; the kernel
      launch counter must grow and the plain loop's stay at 0; the shadow
-     must be the Kerr D inside the alpha_crit circle.
+     must be the Kerr D inside the alpha_crit circle; then 3 frames under
+     torch.profiler: launches, device ms and busy share a frame.
   5. orbit kernel vs plain version, Schwarzschild and Reissner-Nordstrom
      Q=0.6: 4,096 random rays in [0.2, 4] alpha_crit plus an alpha = 0
      lane, then the 1,048,576 rays of the 1024^2 grid (status agreement
@@ -127,7 +130,9 @@ Phases:
      <= p0 and Q even, U odd under the top-bottom mirror at theta_obs =
      90 deg; then 64^2 renders on the card against the CPU, the absorbed
      movie and decomposition too, every order by phase 14's gates;
- 16. the peak probe: the chains against the same recurrence in torch
+ 16. the peak probe (its FMAs written out as fmaf / fma, which
+     -fmad=false leaves fused): the chains against the same recurrence in
+     torch
      (k = 64: float32 and float64 within 4 k ulp, sinf within 4 ulp) and
      the card's FP32 FMA (one chain and eight a thread), FP64 FMA, mixed
      and sinf rates from the marginal time between chain lengths 2,048
@@ -160,6 +165,23 @@ Phases:
      attempts, warp step sum), with the lanes counted by kind (exact
      cycle and its period, frozen with a moving lambda, ground without
      freezing) and both times; the 256^2 order lane (171, 129).
+ 19. the reference's rays and the persistent schedule: config 4's rays
+     (959, 510..512) of the aligned grid end as JAX ends them (escaped,
+     no hit, 51, 51 and 17 attempts; with FMA contraction 511 froze), the
+     quarter-offset grid's seven lanes that froze with contraction, capped
+     at 1,000 attempts, as the plain loop on the CPU ends them (status,
+     hits, attempts; two lanes still end otherwise, ROADMAP Queue 3 #1,
+     and are printed, not gated), the 256^2 order lane (171, 129)
+     captured as in the plain loop (its attempts printed); the in-kernel
+     extraction against finalize_angles on the main path's final states
+     (statuses, half-orbits and NaN masks equal, final alpha within 1e-6
+     rad, 1e-13 in float64); the Kerr kernel's persistent schedule (lanes
+     that take the next ray; private, slower on the card) bitwise against
+     the static one (one ray a thread, index order, the default) on the
+     main path's 524,288 rays (float32 and float64) and on the aligned
+     and quarter-offset config-4 grids: every output, the probe's raw
+     states and attempts, and the warp step sum equal to torch's from the
+     attempts, with both wrappers' times (CUDA events).
 Each path's launch counters are set to 0 just before it and read just
 after (float32 and float64 instances count apart: `.launches`,
 `.launches_f64`). The second-to-last line is a JSON object of per-kernel
@@ -230,6 +252,46 @@ def cuda_ms(fn, repeats):
     return start.elapsed_time(stop) / repeats, out
 
 
+def device_profile(fn, reps, key=""):
+    """Per call of fn, over `reps` calls after a warm-up, by torch.profiler:
+    the wall ms (host clock, the profiler included), the device ms of every
+    device activity, the kernel launches (copies and fills left out), the
+    device's busy share of the wall time, and the launches of the kernels
+    whose name holds `key` with their mean device ms a launch (the
+    profiler on the card can drop a launch's record; the mean is over the
+    launches it kept)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - start) * 1e3 / reps
+    device_us = key_us = 0.0
+    launches = key_launches = 0
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", 0.0) or getattr(
+            ev, "cuda_time_total", 0.0)
+        if ev.device_type.name != "CUDA" or us <= 0.0:
+            continue
+        device_us += us
+        if "Memcpy" in ev.key or "Memset" in ev.key:
+            continue
+        launches += ev.count
+        if key and key in ev.key:
+            key_us += us
+            key_launches += ev.count
+    device_ms = device_us / 1e3 / reps
+    return dict(wall_ms=wall_ms, device_ms=device_ms,
+                launches=launches / reps, busy=device_ms / wall_ms,
+                kernel_ms=key_us / 1e3 / max(key_launches, 1),
+                kernel_launches=key_launches / reps)
+
+
 def compare(rk, rp, alphas, ac):
     """Kernel result rk against plain result rp on the same rays: status
     agreement, and |d final_alpha| on stable escaped rays (escaped in
@@ -265,6 +327,12 @@ def both_versions(label, metric, alphas, thetas, refine, max_steps,
                              LAMBDA_MAX, max_steps))))
     cmp.update(ms=ms, plain_ms=plain_ms, n=int(alphas.numel()),
                n_steps_kernel=int(rk.n_steps), n_steps_plain=int(rp.n_steps))
+    # The kernel alone (device time) beside the wrapper, and how busy its
+    # lanes were: attempts over 32 x the warp step sum.
+    cmp["kernel_ms"] = device_profile(lambda: trace_rays_kerr_cuda(*args),
+                                      kernel_repeats, "kerr_dp45")["kernel_ms"]
+    cmp["attempts_mean"] = cmp["attempts_sum"] / cmp["n"]
+    cmp["lane_efficiency"] = cmp["attempts_sum"] / (32 * cmp["n_steps_kernel"])
     print(f"  {label}: {json.dumps(cmp)}", flush=True)
     torch.cuda.synchronize()
     cmp["attempts"] = probe["attempts"]
@@ -375,10 +443,12 @@ def kernel_label(mangled):
     """A short name for a kernel instance in ptxas's report."""
     import re
     real = {"f": "float", "d": "double"}
-    m = re.search(r"kerr_dp45_kernelI([fd])Lb(\d)ELi(\d)ELb(\d)", mangled)
+    m = re.search(r"kerr_dp45_kernelI([fd])Lb(\d)ELi(\d)ELb(\d)E"
+                  r"(?:Lb(\d)E)?", mangled)
     if m:
+        persistent = ",persistent" if m.group(5) == "1" else ""
         return (f"kerr_dp45<{real[m.group(1)]},disk={m.group(2)},"
-                f"hits={m.group(3)},momentum={m.group(4)}>")
+                f"hits={m.group(3)},momentum={m.group(4)}{persistent}>")
     m = re.search(r"kerr_dp45_extras_kernelINS_\d+([A-Za-z]+)I(\w*?)([fd])EE",
                   mangled)
     if m:
@@ -1810,12 +1880,12 @@ def float64_phase(dev, card, ctx):
     entries = [
         kernel_entry("kerr_dp45_f64", F64_SOURCE.format("kerr_dp45"),
                      REPLACES, f64_launches["shadow"], k["max_abs"], k["ms"],
-                     k["plain_ms"], k["n"], 17 + 48,
+                     k["plain_ms"], k["n"], 17 + 16,
                      k["attempts_sum"] * shadow_flops, k, peak=PEAK_FP64),
         kernel_entry("kerr_dp45_disk_f64", F64_SOURCE.format("kerr_dp45"),
                      f"{JAX_KERNELS}:316", f64_launches["disk"],
                      dk["max_dr"], dk["ms"], dk["plain_ms"], dk["n"],
-                     16 + 52 + 32, dk["attempts_sum"] * shadow_flops, dk,
+                     16 + 28 + 32, dk["attempts_sum"] * shadow_flops, dk,
                      peak=PEAK_FP64),
         kernel_entry("schwarzschild_rk4_f64",
                      F64_SOURCE.format("schwarzschild_rk4"), ORBIT_REPLACES,
@@ -1864,6 +1934,187 @@ def cycle_phase(card):
     rows = census(torch.device("cuda", 0))
     bad = [k for k, r in rows.items() if not r.get("bitwise_equal", True)]
     require(not bad, f"the cycle exit changed the outputs of {bad}")
+    return rows
+
+
+# The rays that nvcc's contraction of a*b + c into FMA ended otherwise
+# than the reference (ROADMAP Queue 3 #1, #4), now built without it: row
+# 959 of config 4's aligned grid, pinned to JAX's (status, n_hits,
+# attempts) by tests/test_torch_config4_ray.py; the quarter-offset grid's
+# lanes that froze on the card with contraction and the 256^2 order
+# decomposition's lane (171, 129) (Order<3>, thin), each held to the plain
+# loop on the CPU, which tests/test_torch_config4_ray.py and
+# tests/test_torch_orders.py pin to JAX.
+ALIGNED_PINS = {(959, 511): (1, 0, 51), (959, 510): (1, 0, 51),
+                (959, 512): (1, 0, 17)}
+# The quarter-offset lanes, capped at QUARTER_CAP attempts in both (three
+# run to the cap in the plain loop and in JAX). OPEN_LANES end otherwise
+# on the card than in the plain loop (ROADMAP Queue 3 #1): printed, not
+# gated; so is the order lane's attempt count (captured in 148 on the
+# card, 144 in the plain loop, 150 in JAX: Queue 3 #4, #6).
+QUARTER_LANES = ((181, 512), (233, 512), (447, 512), (450, 512),
+                 (798, 512), (950, 511), (978, 511))
+OPEN_LANES = ((233, 512), (447, 512))
+QUARTER_CAP = 1000
+ORDER_LANE = (171, 129)
+
+
+def schedule_phase(dev, card):
+    """Phase 19: the rays of ALIGNED_PINS, QUARTER_LANES and ORDER_LANE on
+    the card against their pins; the in-kernel extraction against
+    finalize_angles on the main path's final states; the persistent
+    schedule (`_schedule="persistent"`) bitwise against the static one,
+    one ray a thread in index order, on the main path's 524,288 rays
+    (float32 and float64) and on the aligned and quarter-offset config-4
+    grids, with both times."""
+    import torch
+    from light_path_tracer_tpu_torch import camera, disk, volumetric
+    from light_path_tracer_tpu_torch.models import Kerr
+    from light_path_tracer_tpu_torch.ops import kerr_trace
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    from light_path_tracer_tpu_torch.pipeline import trace_inputs
+    from light_path_tracer_tpu_torch.utils.config import (RenderConfig,
+                                                          SceneConfig)
+    kerr = Kerr(M=1.0, a=0.9)
+    dim = (1024, 1024)
+    f32 = dict(dtype=torch.float32, device=dev)
+    plane = (disk.r_isco(1.0, 0.9), disk.DiskConfig().r_out,
+             float(np.pi / 2), True)
+    fov4 = camera.fov_from_vertical(np.radians(40.0), dim)
+    grids = {}
+    for label, off in (("aligned", (0.0, 0.0)), ("quarter-offset",
+                                                 (0.25, 0.25))):
+        grids[label] = (
+            camera.build_alpha_lookup(dim, fov4, pixel_offset=off,
+                                      **f32).reshape(-1),
+            camera.build_theta_lookup(dim, fov4, pixel_offset=off,
+                                      **f32).reshape(-1))
+    print(f"the reference's rays on the card, and the persistent schedule "
+          f"against the static one, on {card}:", flush=True)
+
+    def disk_ray(label, r, c, max_steps, plain):
+        al, th = grids[label]
+        i = r * dim[1] + c
+        pr = {}
+        rk = kk.trace_disk_rays_cuda(kerr, R_OBS, al[i:i + 1], th[i:i + 1],
+                                     THETA_DISK, LAMBDA_MAX, max_steps,
+                                     plane, 2, probe=pr)
+        row = dict(grid=label, ray=(r, c), max_steps=max_steps,
+                   status=int(rk.status[0]), n_hits=int(rk.n_hits[0]),
+                   attempts=int(pr["attempts"][0]))
+        if plain:
+            rp = kerr_trace.trace_disk_rays_kerr(
+                kerr, R_OBS, al[i:i + 1].cpu(), th[i:i + 1].cpu(),
+                THETA_DISK, LAMBDA_MAX, max_steps, plane, 2)
+            row["plain"] = (int(rp.status[0]), int(rp.n_hits[0]),
+                            int(rp.n_steps))
+            row["open"] = (r, c) in OPEN_LANES
+        print(f"  {json.dumps(row)}", flush=True)
+        return row
+
+    for (r, c), pin in ALIGNED_PINS.items():
+        row = disk_ray("aligned", r, c, 200000, False)
+        require((row["status"], row["n_hits"], row["attempts"]) == pin,
+                f"phase 19: config-4 ray ({r}, {c}) ends as {row}, not as "
+                f"JAX's (status, n_hits, attempts) {pin}")
+    for r, c in QUARTER_LANES:
+        row = disk_ray("quarter-offset", r, c, QUARTER_CAP, True)
+        require(row["open"] or (row["status"], row["n_hits"],
+                                row["attempts"]) == tuple(row["plain"]),
+                f"phase 19: quarter-offset lane ({r}, {c}) ends as {row}, "
+                f"not as the plain loop")
+    d = (256, 256)
+    fov = camera.fov_from_vertical(np.radians(16.0), d)
+    lane = ORDER_LANE[0] * d[1] + ORDER_LANE[1]
+    al = camera.build_alpha_lookup(d, fov, **f32).reshape(-1)[lane:lane + 1]
+    th = camera.build_theta_lookup(d, fov, **f32).reshape(-1)[lane:lane + 1]
+    order = volumetric.make_order_transfer(kerr, volumetric.RIAFConfig(), 3)
+    form = (order, 4, (), (1, 2, 3), 0)
+    probe = {}
+    rk = aux_trace(kerr, form, al, th, 200000, True, sat_window=2048,
+                   probe=probe)
+    rp = aux_trace(kerr, form, al.cpu(), th.cpu(), 6000, False,
+                   sat_window=2048)
+    row = dict(ray=ORDER_LANE, status=int(rk.status[0]),
+               attempts=int(probe["attempts"][0]),
+               flags=int(probe["flags"][0]),
+               plain=(int(rp.status[0]), int(rp.n_steps)))
+    print(f"  256^2 order decomposition lane: {json.dumps(row)}", flush=True)
+    require(row["status"] == row["plain"][0] == -1,
+            f"phase 19: the order lane {ORDER_LANE} ends as {row}, not "
+            f"captured as in the plain loop")
+
+    # The in-kernel extraction against finalize_angles on the kernel's own
+    # final states (the probe's raw state, status and p_phi).
+    scene = SceneConfig(M=1.0, a=0.9, r_obs_mult=R_OBS)
+    cfg = RenderConfig()
+    fov = camera.fov_from_vertical(scene.vertical_fov, dim)
+    al, th, rf, _rows = trace_inputs(scene, cfg, dim, fov, dev)
+    for dtype in (torch.float32, torch.float64):
+        a, t = al.to(dtype), th.to(dtype)
+        probe = {}
+        res = kk.trace_rays_kerr_cuda(kerr, R_OBS, a, t, np.pi / 2, rf,
+                                      LAMBDA_MAX, cfg.max_steps,
+                                      probe=probe)
+        fa, nh, st = kerr_trace.finalize_angles(
+            kerr, probe["state"], torch.full_like(a, -1.0), probe["p_phi"],
+            probe["raw_status"])
+        both = torch.isfinite(fa) & torch.isfinite(res.final_alpha)
+        d_alpha = float((fa - res.final_alpha)[both].abs().max())
+        row = dict(dtype=str(dtype), status_equal=bool(torch.equal(
+                       st, res.status)),
+                   n_half_equal=bool(torch.equal(
+                       nh, res.n_half_orbits)),
+                   nan_equal=bool(torch.equal(torch.isnan(fa), torch.isnan(
+                       res.final_alpha))),
+                   bitwise=same_bits(fa, res.final_alpha),
+                   max_abs_d_alpha=d_alpha)
+        print(f"  in-kernel extraction vs finalize_angles, main-path rays: "
+              f"{json.dumps(row)}", flush=True)
+        bar = 1e-6 if dtype == torch.float32 else 1e-13
+        require(row["status_equal"] and row["n_half_equal"]
+                and row["nan_equal"] and d_alpha <= bar,
+                f"phase 19: the in-kernel extraction differs from "
+                f"finalize_angles: {row}")
+
+    # Persistent against static, bitwise, with both times.
+    cases = [(f"main-path rays {tag}", lambda s, pr, dt=dt: (
+        kk.trace_rays_kerr_cuda(kerr, R_OBS, al.to(dt), th.to(dt), np.pi / 2,
+                                rf, LAMBDA_MAX, cfg.max_steps, probe=pr,
+                                return_unconverged=True, _schedule=s)))
+             for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64"))]
+    for label, (ga, gt) in grids.items():
+        cases.append((f"config-4 {label} grid f32",
+                      lambda s, pr, ga=ga, gt=gt: kk.trace_disk_rays_cuda(
+                          kerr, R_OBS, ga, gt, THETA_DISK, LAMBDA_MAX,
+                          200000, plane, 2, return_unconverged=True,
+                          probe=pr, _schedule=s)))
+    rows = {}
+    for label, run in cases:
+        out = {}
+        for sched in ("static", "persistent"):
+            pr = {}
+            (res, unc) = run(sched, pr)
+            ms, _ = cuda_ms(lambda: run(sched, None), 3)
+            out[sched] = (res, unc, pr, ms)
+        (a, ua, pa, ta), (b, ub, pb, tb) = out["static"], out["persistent"]
+        pairs = [(x, y) for x, y in zip(a, b) if not isinstance(x, tuple)]
+        pairs += [(x, y) for xs, ys in zip(a, b) if isinstance(xs, tuple)
+                  for x, y in zip(xs, ys)]
+        pairs += [(ua, ub)] + [(pa[k], pb[k]) for k in (
+            "attempts", "state", "raw_status", "cycles")]
+        row = dict(bitwise_equal=all(same_bits(x, y) for x, y in pairs),
+                   static_ms=ta, persistent_ms=tb,
+                   warp_step_sum=int(a.n_steps),
+                   warp_step_sum_torch=int(kerr_trace.warp_step_sum(
+                       pa["attempts"])))
+        rows[label] = row
+        print(f"  persistent vs static, {label}: {json.dumps(row)}",
+              flush=True)
+        require(row["bitwise_equal"] and row["warp_step_sum"]
+                == row["warp_step_sum_torch"],
+                f"phase 19: the persistent schedule differs from the static "
+                f"one on {label}: {row}")
     return rows
 
 
@@ -1987,6 +2238,11 @@ def main() -> int:
             f"1.01 alpha_crit circle")
     print(f"main path 1024^2 Kerr a=0.9 shadow: best {best:,.0f} rays/s "
           f"on {card}", flush=True)
+    frame = device_profile(lambda: render_shadow(scene, dim, cfg,
+                                                 device="cuda"), 3,
+                           "kerr_dp45")
+    print(f"main path frame under torch.profiler (3 frames): "
+          f"{json.dumps(frame)}", flush=True)
 
     # -- 5. orbit kernel vs plain version --------------------------------
     orbit_launch = schwarzschild_kernel.trace_rays_schwarzschild_cuda
@@ -2300,11 +2556,17 @@ def main() -> int:
     # -- 18. the exact-cycle exit -------------------------------------------
     cycle_phase(card)
 
+    # -- 19. the rays of the reference; persistent against static -------
+    schedule_phase(dev, card)
+
     shadow_flops = attempt_flops(5)
+    # Bytes a ray: alpha, theta (and the refine byte) in; final_alpha,
+    # n_half and the status out, plus p_phi, n_hits and two slots of
+    # (r, phi) hits in the disk variant.
     kernels = [
         kernel_entry("kerr_dp45", KERNEL_SOURCE, REPLACES, launches,
                      gmain["max_abs"], gmain["ms"], gmain["plain_ms"],
-                     gmain["n"], 9 + 28,
+                     gmain["n"], 9 + 12,
                      gmain["attempts_sum"] * shadow_flops, gmain),
         kernel_entry("schwarzschild_rk4", ORBIT_SOURCE, ORBIT_REPLACES,
                      launches1 + launches2, gorb["max_abs"], gorb["ms"],
@@ -2312,15 +2574,15 @@ def main() -> int:
                      gorb["attempts_sum"] * ORBIT_STEP_FLOPS, gorb),
         kernel_entry("kerr_dp45_disk", KERNEL_SOURCE, f"{JAX_KERNELS}:316",
                      launches4, gdisk["max_dr"], gdisk["ms"],
-                     gdisk["plain_ms"], gdisk["n"], 8 + 32 + 16,
+                     gdisk["plain_ms"], gdisk["n"], 8 + 20 + 16,
                      gdisk["attempts_sum"] * shadow_flops, gdisk),
         kernel_entry("trace_disk_rays_two_pass", DRIVER_SOURCE,
                      f"{JAX_KERNELS}:416", driver4, g_drv["max_dr"],
-                     two_ms_k, two_ms_p, int(al_d.numel()), 8 + 32 + 16,
+                     two_ms_k, two_ms_p, int(al_d.numel()), 8 + 20 + 16,
                      g_drv["attempts_sum"] * shadow_flops),
         kernel_entry("trace_rays_kerr_two_pass", DRIVER_SOURCE,
                      f"{JAX_KERNELS}:257", launches_k2, g_k2["max_abs"],
-                     kerr_row["two_pass_ms"], plain2_ms, gmain["n"], 9 + 28,
+                     kerr_row["two_pass_ms"], plain2_ms, gmain["n"], 9 + 12,
                      kerr_row["attempts_sum"] * shadow_flops)]
     kernels += vol_kernels + new_kernels + [probe_kernel] + f64_kernels
     # The same bound at the rate of its type this card measured in phase

@@ -7,23 +7,33 @@
 // PyTorch version is light_path_tracer_tpu_torch/ops/kerr_trace.py
 // (trace_rays_kerr); the wrapper is ops/cuda/kerr_trace_kernel.py.
 //
-// Work: one CUDA thread per ray, 128 threads per block, grid = ceil(n/128).
-// Each thread computes its ray's Bardeen initial conditions and its
-// certain-plunge radius (acosf exists here, so neither leaves the kernel
-// as it must under Mosaic), then runs its own adaptive DP45 + FSAL loop
-// over (r, theta, phi, p_r, p_theta) until the ray is captured, escapes or
-// goes invalid, max_steps attempts are spent, or lambda >= lambda_max. It
-// writes the final state, the status and its attempt count; the escape
-// angle is extracted afterwards in torch, as the JAX wrapper does.
+// Work: a lane takes a ray, computes its Bardeen initial conditions and
+// its certain-plunge radius (acosf exists here, so neither leaves the
+// kernel as it must under Mosaic), runs its adaptive DP45 + FSAL loop over
+// (r, theta, phi, p_r, p_theta) until the ray is captured, escapes or goes
+// invalid, max_steps attempts are spent, or lambda >= lambda_max, then
+// extracts the escape angle, half-orbit count and status itself
+// (finalize, kerr_dp45_common.cuh), books the warp step sum and writes the
+// ray's outputs; so a frame's trace is one launch and torch runs nothing
+// per ray. The schedule is static by default: one thread a ray in index
+// order, 128 threads a block, grid ceil(n/128). A persistent one (the
+// blocks the card holds at once; a lane whose ray has ended takes the next
+// from a global hand-out, in index order or in an order the wrapper
+// gives) runs the same code and gives bitwise the same outputs; measured
+// on the card it is slower than the static grid at every register budget
+// (the lanes' start and finish paths diverge inside a warp, and at 92 %
+// lane efficiency there is little idle time to reclaim: PERF.md §6), so
+// it serves only the bitwise check that a ray's result does not depend
+// on its lane.
 //
-// What bounds it: arithmetic. Each attempt makes 6 new RHS evaluations,
-// each with a sinf, a cosf and three reciprocals, while a ray moves only
-// about 40 bytes through device memory in the whole run (9 bytes in, 28
-// out; twice that in float64). The state lives in registers for the whole
-// loop. The cost that matters is warp divergence: a warp runs until its
-// slowest lane is done, and ray lifetimes range from tens of attempts to
-// the full budget. The raster order of an image grid keeps neighbouring
-// rays similar in difficulty, so consecutive rays share a warp.
+// What bounds it: arithmetic and the slowest ray. Each attempt makes 6 new
+// RHS evaluations, each with a sinf, a cosf and three reciprocals, while a
+// ray moves only about 21 bytes through device memory (9 in, 12 out; twice
+// that in float64). The state lives in registers for the whole loop. Ray
+// lifetimes range from tens of attempts to 166 on the main path, yet a
+// warp's lanes stay 92 % busy on its image grid (raster neighbours have
+// like lifetimes); what limits the launch is the dependent chain of each
+// attempt, so the kernel asks for occupancy (LPT_KERR_BLOCKS_*).
 //
 // A lane whose state freezes bitwise in an exact cycle of (h, lambda)
 // (kerr_dp45_common.cuh, CycleWatch) would repeat that cycle until
@@ -32,9 +42,10 @@
 // A ray just off the polar axis of the config-4 disk grid grinds so on the
 // card: this loop has no frozen-state window.
 //
-// The disk variant (kDisk, entry lpt_kerr_dp45_disk) replaces the same
-// Pallas kernel with its disk_plane recorder (trace_disk_rays_pallas):
-// after each accepted step it locates a crossing of cos(theta) = plane_c
+// The disk variant (kDisk; entry lpt_kerr_dp45 with disk = 1) replaces
+// the same Pallas kernel with its disk_plane recorder
+// (trace_disk_rays_pallas): after each accepted step it locates a
+// crossing of cos(theta) = plane_c
 // on the step's interpolant and keeps the first kMaxHits in-disk
 // crossings in registers (5 to 17 more live values). A frozen state
 // cannot cross the plane, so the cycle exit leaves the hit record alone.
@@ -44,8 +55,13 @@
 // instances, kerr_dp45_f64.cu the double ones (entries *_f64). Build
 // without --use_fast_math: the approximate __sinf/__cosf lose accuracy
 // once |theta| or |phi| grows (over-the-pole rays in the double-cover
-// chart). nvcc contracts a*b + c into FMA by default, so results are close
-// to, not bitwise equal to, the plain version's.
+// chart). The package builds with -fmad=false (ops/cuda/_build.py): no
+// a*b + c is contracted into an FMA, so every product and sum rounds
+// apart, as in the plain version and the JAX package on the CPU. A ray's
+// result is then a fixed sequence of IEEE operations and libdevice calls,
+// whichever lane runs it and when; it still differs from the plain
+// version's on the CPU where the math libraries round sin, cos or pow
+// otherwise.
 
 #include "kerr_dp45_common.cuh"
 
@@ -176,84 +192,124 @@ __device__ __forceinline__ void dp45_attempt(
   A.underflow = (reject || blowup) && (h_new < P.h_min);
 }
 
-// The ray kernel. kDisk = false is the shadow variant (the per-ray
-// axis-refine tolerances, the certain-plunge exit). kDisk = true adds the
-// plane-crossing recorder of the JAX package's disk mode and drops both:
-// base tolerances everywhere and no plunge exit. It keeps the first
-// kMaxHits in-disk crossings per ray (radius and physical azimuth, plus
-// p_r and p_theta when kMomentum) in registers. census_out (may be null)
-// receives CycleWatch::census() per ray.
+// One call of a C entry point, filled by the Python wrapper
+// (ops/cuda/kerr_trace_kernel.py KerrCall and KerrCall64, field for
+// field): device pointers, the stream, and the launch's scalars.
+// refine: one byte a ray (shadow; null in disk mode). order: the hand-out
+// order of the persistent schedule, positions to ray indices as int64
+// (null: index order). Per ray the kernel writes final_alpha, n_half and
+// the folded status; flags (may be null) marks a ray whose raw status is
+// still RUNNING (the two-pass drivers re-trace it); the disk variant also
+// writes p_phi and the hit records (hits: int32 a ray; r_hits, phi_hits
+// and, with momentum, pr_hits, pth_hits: (max_hits, n), slot-major). The
+// probe's outputs may be null: state (5, n), raw_status, steps
+// (attempts), census (CycleWatch::census), and p_phi in the shadow
+// variant. work: 4 + 2 ceil(n / 32) 32-bit words, zeroed by the entry:
+// the warp step sum (one uint64), the hand-out counter, a pad, then the
+// groups' maxima and counts (book_steps). persistent = 0 runs one ray a
+// thread in index order (the static schedule); cycle_exit = 0 grinds
+// exact cycles instead of counting them.
+template <class T>
+struct KerrCall {
+  const T *alpha, *theta;
+  const unsigned char* refine;
+  const long long* order;
+  T* final_alpha;
+  int *n_half, *status;
+  unsigned char* flags;
+  T *p_phi;
+  int* hits;
+  T *r_hits, *phi_hits, *pr_hits, *pth_hits;
+  T* state;
+  int *raw_status, *steps, *census;
+  unsigned int* work;
+  void* stream;
+  int n, max_steps, cycle_exit, persistent, max_hits, momentum, opaque;
+  T M, a, r_plus, r_obs, theta_obs, lambda_max, atol, rtol, atol_ref,
+      rtol_ref, h_min, tiny_err, h_init, r_capture, r_reclass, r_in,
+      r_out_disk, plane_c;
+};
+
+// The wrapper mirrors the struct with ctypes (natural alignment: the
+// pointers, the ints, then the scalars of T).
+static_assert(sizeof(KerrCall<float>) == 264, "KerrCall layout");
+static_assert(sizeof(KerrCall<double>) == 336, "KerrCall64 layout");
+
+// One ray in a lane's registers: its constants, its integration state and
+// (disk variant) its crossing records, with the steps of its life: start
+// (initial conditions and plunge radius), attempt (one DP45 attempt and
+// its bookkeeping), finish (extraction, outputs, warp-step booking).
 template <class T, bool kDisk, int kMaxHits, bool kMomentum>
-__global__ void __launch_bounds__(kThreads)
-kerr_dp45_kernel(const T* __restrict__ alpha, const T* __restrict__ theta,
-                 const unsigned char* __restrict__ refine,
-                 T* __restrict__ r_out, T* __restrict__ th_out,
-                 T* __restrict__ phi_out, T* __restrict__ pr_out,
-                 T* __restrict__ pth_out, int* __restrict__ status_out,
-                 int* __restrict__ steps_out, int* __restrict__ hits_out,
-                 T* __restrict__ r_hits_out, T* __restrict__ phi_hits_out,
-                 T* __restrict__ pr_hits_out, T* __restrict__ pth_hits_out,
-                 int* __restrict__ census_out, int n, int cycle_exit,
-                 Params<T> P, DiskParams<T> D) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+struct Ray {
+  static constexpr int kSlots = kDisk ? kMaxHits : 1;
+  static constexpr int kMomSlots = kMomentum ? kMaxHits : 1;
 
-  const T M = P.M, a = P.a;
-  const T al = alpha[i];
-  const T scr = theta[i];
-  T atol = P.atol, rtol = P.rtol;
-  if constexpr (!kDisk) {
-    const bool ref = refine[i] != 0;
-    atol = ref ? P.atol_ref : P.atol;
-    rtol = ref ? P.rtol_ref : P.rtol;
-  }
-
-  // ---- Bardeen initial conditions (models/kerr.py initial_conditions_5d)
-  const RayStart<T> S = initial_state(al, scr, P);
-  const T p_t = S.p_t, p_phi = S.p_phi;
-
-  // ---- certain-plunge radius (models/kerr.py plunge_radii); radius 0,
-  // which no accepted step reaches, disables the exit in disk mode
-  T r_plunge = T(0.0);
-  if constexpr (!kDisk) {
-    const T rho_p = P.r_obs * S.sin_al * sqrt_(S.Sigma) /
-                    sqrt_(jmax(S.Delta, T(1e-30)));
-    const T as_p = -rho_p * S.sin_scr;
-    const T bs_p = -rho_p * S.cos_scr;
-    const T eta_p =
-        bs_p * bs_p + S.cos_th * S.cos_th * (as_p * as_p - a * a);
-    const T ratio = jclip(-a / jmax(M, T(1e-30)), -T(1.0), T(1.0));
-    const T r_pro =
-        T(2.0) * M * (T(1.0) + cos_(T(2.0 / 3.0) * acos_(ratio)));
-    r_plunge = eta_p >= T(0.0) ? T(0.999) * r_pro : T(0.0);
-  }
-
-  const T r_capture = P.r_capture;
-  const T r_escape = P.r_obs * T(2.0);
-  const T lam_max = P.lambda_max;
-
-  // ---- adaptive DP45 + FSAL loop (ops/kerr_trace.py dp45_integrate)
-  T y[5] = {S.y[0], S.y[1], S.y[2], S.y[3], S.y[4]};
-  T k1[5];
-  rhs5(y, p_t, p_phi, P, k1);
-  T h = P.h_init;
-  T lam = T(0.0);
-  int status = S.bad_obs ? kInvalid : kRunning;
-  int steps = 0;
+  T atol, rtol, r_plunge, p_t, p_phi;
+  T y[5], k1[5];
+  T h, lam;
+  int status, steps, n_hits;
   CycleWatch<T> watch;
-
-  // crossing records (disk variant); sized 1 when unused
-  constexpr int kSlots = kDisk ? kMaxHits : 1;
-  constexpr int kMomSlots = kMomentum ? kMaxHits : 1;
-  int n_hits = 0;
   T r_hits[kSlots], phi_hits[kSlots], pr_hits[kMomSlots],
       pth_hits[kMomSlots];
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) r_hits[s] = phi_hits[s] = T(0.0);
-#pragma unroll
-  for (int s = 0; s < kMomSlots; ++s) pr_hits[s] = pth_hits[s] = T(0.0);
 
-  while (steps < P.max_steps && status == kRunning && lam < lam_max) {
+  __device__ __forceinline__ void start(const KerrCall<T>& C,
+                                        const Params<T>& P, int i) {
+    const T M = P.M, a = P.a;
+    atol = P.atol;
+    rtol = P.rtol;
+    if constexpr (!kDisk) {
+      const bool ref = C.refine[i] != 0;
+      atol = ref ? P.atol_ref : P.atol;
+      rtol = ref ? P.rtol_ref : P.rtol;
+    }
+
+    // ---- Bardeen initial conditions (models/kerr.py initial_conditions_5d)
+    const RayStart<T> S = initial_state(C.alpha[i], C.theta[i], P);
+    p_t = S.p_t;
+    p_phi = S.p_phi;
+
+    // ---- certain-plunge radius (models/kerr.py plunge_radii); radius 0,
+    // which no accepted step reaches, disables the exit in disk mode
+    r_plunge = T(0.0);
+    if constexpr (!kDisk) {
+      const T rho_p = P.r_obs * S.sin_al * sqrt_(S.Sigma) /
+                      sqrt_(jmax(S.Delta, T(1e-30)));
+      const T as_p = -rho_p * S.sin_scr;
+      const T bs_p = -rho_p * S.cos_scr;
+      const T eta_p =
+          bs_p * bs_p + S.cos_th * S.cos_th * (as_p * as_p - a * a);
+      const T ratio = jclip(-a / jmax(M, T(1e-30)), -T(1.0), T(1.0));
+      const T r_pro =
+          T(2.0) * M * (T(1.0) + cos_(T(2.0 / 3.0) * acos_(ratio)));
+      r_plunge = eta_p >= T(0.0) ? T(0.999) * r_pro : T(0.0);
+    }
+
+#pragma unroll
+    for (int c = 0; c < 5; ++c) y[c] = S.y[c];
+    rhs5(y, p_t, p_phi, P, k1);
+    h = P.h_init;
+    lam = T(0.0);
+    status = S.bad_obs ? kInvalid : kRunning;
+    steps = 0;
+    watch = CycleWatch<T>();
+    n_hits = 0;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) r_hits[s] = phi_hits[s] = T(0.0);
+#pragma unroll
+    for (int s = 0; s < kMomSlots; ++s) pr_hits[s] = pth_hits[s] = T(0.0);
+  }
+
+  // The loop condition of ops/kerr_trace.py dp45_integrate.
+  __device__ __forceinline__ bool running(const Params<T>& P) const {
+    return steps < P.max_steps && status == kRunning && lam < P.lambda_max;
+  }
+
+  __device__ __forceinline__ void attempt(const Params<T>& P,
+                                          const DiskParams<T>& D,
+                                          int cycle_exit) {
+    const T r_capture = P.r_capture;
+    const T r_escape = P.r_obs * T(2.0);
+    const T lam_max = P.lambda_max;
     ++steps;
     Attempt<T> A;
     dp45_attempt(y, k1, h, lam, lam_max, p_t, p_phi, atol, rtol, r_capture,
@@ -344,128 +400,177 @@ kerr_dp45_kernel(const T* __restrict__ alpha, const T* __restrict__ theta,
     h = A.h_new;
 
     // An exact cycle of a frozen lane runs to the step budget: count it.
-    const bool running = status == kRunning && lam < lam_max;
+    const bool going = status == kRunning && lam < lam_max;
     if (watch.update(!moved && !recorded, A.accept && !event, h, lam,
-                     running) &&
+                     going) &&
         cycle_exit)
       steps = P.max_steps;
   }
 
-  r_out[i] = y[0];
-  th_out[i] = y[1];
-  phi_out[i] = y[2];
-  pr_out[i] = y[3];
-  pth_out[i] = y[4];
-  status_out[i] = status;
-  steps_out[i] = steps;
-  if (census_out != nullptr) census_out[i] = watch.census();
-  if constexpr (kDisk) {
-    hits_out[i] = n_hits;
+  __device__ __forceinline__ void finish(const KerrCall<T>& C,
+                                         const Params<T>& P, int i) {
+    const int n = C.n;
+    const Final<T> F = finalize(y, p_t, p_phi, status, C.r_reclass, P);
+    C.final_alpha[i] = F.alpha;
+    C.n_half[i] = F.n_half;
+    C.status[i] = F.status;
+    if (C.flags != nullptr)
+      C.flags[i] = static_cast<unsigned char>(status == kRunning);
+    if (C.state != nullptr) {
 #pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      const size_t k = static_cast<size_t>(s) * n + i;
-      r_hits_out[k] = r_hits[s];
-      phi_hits_out[k] = phi_hits[s];
-      if constexpr (kMomentum) {
-        pr_hits_out[k] = pr_hits[s];
-        pth_hits_out[k] = pth_hits[s];
+      for (int c = 0; c < 5; ++c)
+        C.state[static_cast<size_t>(c) * n + i] = y[c];
+    }
+    if (C.raw_status != nullptr) C.raw_status[i] = status;
+    if (C.steps != nullptr) C.steps[i] = steps;
+    if (C.census != nullptr) C.census[i] = watch.census();
+    if (C.p_phi != nullptr) C.p_phi[i] = p_phi;
+    if constexpr (kDisk) {
+      C.hits[i] = n_hits;
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        const size_t k = static_cast<size_t>(s) * n + i;
+        C.r_hits[k] = r_hits[s];
+        C.phi_hits[k] = phi_hits[s];
+        if constexpr (kMomentum) {
+          C.pr_hits[k] = pr_hits[s];
+          C.pth_hits[k] = pth_hits[s];
+        }
+      }
+    }
+    book_steps(i, steps, n, C.work + 4,
+               reinterpret_cast<unsigned long long*>(C.work));
+  }
+};
+
+// The blocks of kThreads that one SM must hold at once, the second bound
+// of __launch_bounds__ (a thread then gets at most 65,536 / (kThreads x
+// blocks) registers), for the shadow and the disk variant. The kernel is
+// latency-bound, so occupancy pays for the spills: left free, nvcc gives
+// the static float shadow instance 88 registers (5 blocks an SM) and the
+// double ones 164-182; at 7 blocks (72 registers, some spilled to L1) the
+// main path's kernel runs 5 % faster, its double instance 7 % and the
+// double disk one 28 %, the float disk one within noise
+// (scripts/torch_kerr_registers.py, PERF.md §6). A build may set them
+// (-D), as that script does.
+#ifndef LPT_KERR_BLOCKS_SHADOW
+#define LPT_KERR_BLOCKS_SHADOW 7
+#endif
+#ifndef LPT_KERR_BLOCKS_DISK
+#define LPT_KERR_BLOCKS_DISK 7
+#endif
+
+// The ray kernel. kDisk = false is the shadow variant (the per-ray
+// axis-refine tolerances, the certain-plunge exit). kDisk = true adds the
+// plane-crossing recorder of the JAX package's disk mode and drops both:
+// base tolerances everywhere and no plunge exit. It keeps the first
+// kMaxHits in-disk crossings per ray (radius and physical azimuth, plus
+// p_r and p_theta when kMomentum) in registers.
+//
+// Schedule (an instance each, so the static one carries no hand-out
+// code). Static (kPersistent false, the default): one thread a ray in
+// index order, the grid covering n, the ray's attempts in a tight loop.
+// Persistent: the grid is what the card holds at once, and a lane whose
+// ray has ended takes the next one from the hand-out (fetch_ray); its loop
+// makes one attempt a turn, a lane refills at the top of the next turn,
+// and the warp leaves the loop when every lane has drained. Each lane runs
+// a ray through the same Ray steps either way (a fixed sequence of
+// correctly rounded operations, built without contraction), so the two
+// schedules give bitwise the same outputs.
+template <class T, bool kDisk, int kMaxHits, bool kMomentum,
+          bool kPersistent>
+__global__ void __launch_bounds__(kThreads, kDisk ? LPT_KERR_BLOCKS_DISK
+                                                  : LPT_KERR_BLOCKS_SHADOW)
+kerr_dp45_kernel(KerrCall<T> C, Params<T> P, DiskParams<T> D) {
+  Ray<T, kDisk, kMaxHits, kMomentum> R;
+  if constexpr (!kPersistent) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= C.n) return;
+    R.start(C, P, i);
+    while (R.running(P)) R.attempt(P, D, C.cycle_exit);
+    R.finish(C, P, i);
+  } else {
+    int ray = -1;
+    bool drained = false;
+    for (;;) {
+      // The whole warp votes; a drained lane votes no.
+      const int got = fetch_ray(ray < 0 && !drained, C.work + 2, C.order,
+                                C.n, drained);
+      if (got >= 0) {
+        ray = got;
+        R.start(C, P, ray);
+      }
+      if (__all_sync(kFullMask, ray < 0 && drained)) break;
+      if (ray >= 0) {
+        if (R.running(P)) R.attempt(P, D, C.cycle_exit);
+        if (!R.running(P)) {
+          R.finish(C, P, ray);
+          ray = -1;
+        }
       }
     }
   }
 }
 
-template <int kMaxHits, bool kMomentum>
-void launch_disk(int blocks, cudaStream_t stream, const Real* alpha,
-                 const Real* theta, Real* const state[5], int* status,
-                 int* steps, int* hits, Real* const rec[4], int* census,
-                 int n, int cycle_exit, const Params<Real>& P,
-                 const DiskParams<Real>& D) {
-  kerr_dp45_kernel<Real, true, kMaxHits, kMomentum>
-      <<<blocks, kThreads, 0, stream>>>(
-          alpha, theta, nullptr, state[0], state[1], state[2], state[3],
-          state[4], status, steps, hits, rec[0], rec[1], rec[2], rec[3],
-          census, n, cycle_exit, P, D);
+// Zeroes the call's work words and launches the instance on C.stream, in
+// the static or the persistent schedule (its grid read once: the blocks
+// one SM holds at once times the SM count).
+template <bool kDisk, int kMaxHits, bool kMomentum>
+int launch(const KerrCall<Real>& C, const Params<Real>& P,
+           const DiskParams<Real>& D) {
+  const cudaStream_t s = static_cast<cudaStream_t>(C.stream);
+  const size_t words = 4 + 2 * static_cast<size_t>((C.n + 31) / 32);
+  cudaError_t err = cudaMemsetAsync(C.work, 0, words * 4, s);
+  if (err != cudaSuccess || C.n <= 0) return static_cast<int>(err);
+  auto kernel = kerr_dp45_kernel<Real, kDisk, kMaxHits, kMomentum, false>;
+  int blocks = (C.n + kThreads - 1) / kThreads;
+  if (C.persistent) {
+    kernel = kerr_dp45_kernel<Real, kDisk, kMaxHits, kMomentum, true>;
+    static int resident = 0;
+    if (resident == 0) {
+      int per_sm = 0, device = 0, sms = 0;
+      if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+          (err = cudaDeviceGetAttribute(
+               &sms, cudaDevAttrMultiProcessorCount, device)) !=
+              cudaSuccess ||
+          (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &per_sm, kernel, kThreads, 0)) != cudaSuccess)
+        return static_cast<int>(err);
+      resident = per_sm * sms;
+    }
+    blocks = blocks < resident ? blocks : resident;
+  }
+  kernel<<<blocks, kThreads, 0, s>>>(C, P, D);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the shadow variant on `stream` and returns cudaGetLastError()
-// (0 on success). Pointers are device pointers to Real (float here, double
-// in the *_f64 entry); refine is one byte per ray; census_out may be null.
-// cycle_exit = 0 grinds exact cycles instead of counting them.
-int LPT_ENTRY(lpt_kerr_dp45)(
-    const void* alpha, const void* theta, const void* refine, void* r_out,
-    void* th_out, void* phi_out, void* pr_out, void* pth_out,
-    void* status_out, void* steps_out, void* census_out, int n,
-    int cycle_exit, Real M, Real a, Real r_plus, Real r_obs, Real theta_obs,
-    Real lambda_max, int max_steps, Real atol, Real rtol, Real atol_ref,
-    Real rtol_ref, Real h_min, Real tiny_err, Real h_init, Real r_capture,
-    void* stream) {
-  if (n <= 0) return 0;
-  Params<Real> P{M,    a,     r_plus,   r_obs,    theta_obs, lambda_max,
-                 max_steps, atol, rtol, atol_ref, rtol_ref,  h_min,
-                 tiny_err, h_init, r_capture};
-  const int blocks = (n + kThreads - 1) / kThreads;
-  kerr_dp45_kernel<Real, false, 1, false>
-      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const Real*>(alpha), static_cast<const Real*>(theta),
-          static_cast<const unsigned char*>(refine),
-          static_cast<Real*>(r_out), static_cast<Real*>(th_out),
-          static_cast<Real*>(phi_out), static_cast<Real*>(pr_out),
-          static_cast<Real*>(pth_out), static_cast<int*>(status_out),
-          static_cast<int*>(steps_out), nullptr, nullptr, nullptr, nullptr,
-          nullptr, static_cast<int*>(census_out), n, cycle_exit, P,
-          DiskParams<Real>{Real(0.0), Real(0.0), Real(0.0), 0});
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Launches the disk variant. hits_out: int32 per ray; r_hits_out,
-// phi_hits_out (and pr_hits_out, pth_hits_out when momentum != 0, else
-// unused): (max_hits, n) Real, slot-major. max_hits is 1..4.
-int LPT_ENTRY(lpt_kerr_dp45_disk)(
-    const void* alpha, const void* theta, void* r_out, void* th_out,
-    void* phi_out, void* pr_out, void* pth_out, void* status_out,
-    void* steps_out, void* hits_out, void* r_hits_out, void* phi_hits_out,
-    void* pr_hits_out, void* pth_hits_out, void* census_out, int n,
-    int max_hits, int momentum, int cycle_exit, Real M, Real a, Real r_plus,
-    Real r_obs, Real theta_obs, Real lambda_max, int max_steps, Real atol,
-    Real rtol, Real h_min, Real tiny_err, Real h_init, Real r_capture,
-    Real r_in, Real r_out_disk, Real plane_c, int opaque, void* stream) {
-  if (n <= 0) return 0;
-  Params<Real> P{M,    a,     r_plus, r_obs, theta_obs, lambda_max,
-                 max_steps, atol, rtol, atol, rtol,      h_min,
-                 tiny_err, h_init, r_capture};
-  const DiskParams<Real> D{r_in, r_out_disk, plane_c, opaque};
-  const int blocks = (n + kThreads - 1) / kThreads;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Real* al = static_cast<const Real*>(alpha);
-  const Real* th = static_cast<const Real*>(theta);
-  Real* const state[5] = {
-      static_cast<Real*>(r_out), static_cast<Real*>(th_out),
-      static_cast<Real*>(phi_out), static_cast<Real*>(pr_out),
-      static_cast<Real*>(pth_out)};
-  Real* const rec[4] = {
-      static_cast<Real*>(r_hits_out), static_cast<Real*>(phi_hits_out),
-      static_cast<Real*>(pr_hits_out), static_cast<Real*>(pth_hits_out)};
-  int* st = static_cast<int*>(status_out);
-  int* sp = static_cast<int*>(steps_out);
-  int* hi = static_cast<int*>(hits_out);
-  int* ce = static_cast<int*>(census_out);
-  const int x = cycle_exit;
-  switch (max_hits * 2 + (momentum != 0)) {
-    case 2: launch_disk<1, false>(blocks, s, al, th, state, st, sp, hi, rec, ce, n, x, P, D); break;
-    case 3: launch_disk<1, true>(blocks, s, al, th, state, st, sp, hi, rec, ce, n, x, P, D); break;
-    case 4: launch_disk<2, false>(blocks, s, al, th, state, st, sp, hi, rec, ce, n, x, P, D); break;
-    case 5: launch_disk<2, true>(blocks, s, al, th, state, st, sp, hi, rec, ce, n, x, P, D); break;
-    case 6: launch_disk<3, false>(blocks, s, al, th, state, st, sp, hi, rec, ce, n, x, P, D); break;
-    case 7: launch_disk<3, true>(blocks, s, al, th, state, st, sp, hi, rec, ce, n, x, P, D); break;
-    case 8: launch_disk<4, false>(blocks, s, al, th, state, st, sp, hi, rec, ce, n, x, P, D); break;
-    case 9: launch_disk<4, true>(blocks, s, al, th, state, st, sp, hi, rec, ce, n, x, P, D); break;
+// Launches the shadow variant (disk = 0) or the disk variant (disk = 1:
+// max_hits 1..4, momentum 0 or 1) for the call `call` (a KerrCall of this
+// instance's Real: float here, double in the *_f64 entry) and returns a
+// cudaError_t (0 on success).
+int LPT_ENTRY(lpt_kerr_dp45)(const void* call, int disk) {
+  const KerrCall<Real>& C = *static_cast<const KerrCall<Real>*>(call);
+  const Params<Real> P{C.M,        C.a,         C.r_plus,    C.r_obs,
+                       C.theta_obs, C.lambda_max, C.max_steps, C.atol,
+                       C.rtol,     C.atol_ref,  C.rtol_ref,  C.h_min,
+                       C.tiny_err, C.h_init,    C.r_capture};
+  const DiskParams<Real> D{C.r_in, C.r_out_disk, C.plane_c, C.opaque};
+  if (!disk) return launch<false, 1, false>(C, P, D);
+  switch (C.max_hits * 2 + (C.momentum != 0)) {
+    case 2: return launch<true, 1, false>(C, P, D);
+    case 3: return launch<true, 1, true>(C, P, D);
+    case 4: return launch<true, 2, false>(C, P, D);
+    case 5: return launch<true, 2, true>(C, P, D);
+    case 6: return launch<true, 3, false>(C, P, D);
+    case 7: return launch<true, 3, true>(C, P, D);
+    case 8: return launch<true, 4, false>(C, P, D);
+    case 9: return launch<true, 4, true>(C, P, D);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 #ifndef LPT_DOUBLE

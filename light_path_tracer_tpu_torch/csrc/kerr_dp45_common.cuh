@@ -3,9 +3,10 @@
 // spectral, Stokes, movie and order transfers; the orbit kernel
 // schwarzschild_rk4.cu takes the scalar types and clamps): the tableau, the
 // NaN-propagating clamps, Hamilton's equations on the reduced theta-state,
-// the Hermite event root, the Bardeen initial conditions and the
-// exact-cycle test of a frozen lane. Every function is inlined into its
-// caller.
+// the Hermite event root, the Bardeen initial conditions, the escape-angle
+// extraction of a finished ray, the exact-cycle test of a frozen lane, and
+// the persistent grid's ray hand-out with its warp-step accounting. Every
+// function is inlined into its caller.
 //
 // Everything is templated on the scalar type T, float or double, as the
 // plain loop (ops/kerr_trace.py) runs in its tensors' dtype. Numerics
@@ -17,7 +18,11 @@
 // exactly as the float literal x-with-f did (no literal of these sources
 // sits where the two roundings differ). The float instance calls sinf,
 // cosf, powf, ... and the double one sin, cos, pow, ... through the
-// overloads below.
+// overloads below. Every source builds with -fmad=false
+// (ops/cuda/_build.py): nvcc contracts no a*b + c into an FMA, so each
+// product and each sum rounds apart as in the plain loop and in XLA on
+// the CPU. With contraction, ray (959, 511) of the config-4 grid froze
+// on the card where the reference escapes in 51 attempts.
 //
 // A source file compiles one scalar type: float by default, double when
 // it defines LPT_DOUBLE before including this header (the *_f64.cu files,
@@ -40,6 +45,7 @@ typedef float Real;
 namespace {
 
 constexpr int kThreads = 128;
+constexpr unsigned int kFullMask = 0xffffffffu;
 
 constexpr int kRunning = 2;
 constexpr int kEscaped = 1;
@@ -363,6 +369,68 @@ __device__ __forceinline__ RayStart<T> initial_state(T al, T scr,
   return S;
 }
 
+// Escape heading, half-orbit count and status fold of a finished ray
+// (models/kerr.py extract_angle, then ops/kerr_trace.py finalize_angles),
+// term by term in the same order, with M and a as values of T as the
+// torch version has them: status_f is the integration's raw status, and a
+// ray at or inside r_reclass (1.1 x the capture radius) counts as
+// captured. Shared by the shadow and disk kernel (kerr_dp45.cu) and the
+// extras kernel (kerr_dp45_extras.cuh).
+template <class T>
+struct Final {
+  T alpha;
+  int n_half, status;
+};
+
+template <class T>
+__device__ __forceinline__ Final<T> finalize(const T* y, T p_t, T p_phi,
+                                             int status_f, T r_reclass,
+                                             const Params<T>& P) {
+  const T M = P.M, a = P.a;
+  const T r_f = y[0], th_f = y[1], phi_f = y[2];
+  int n_half = static_cast<int>(floor_(abs_(phi_f) / Consts<T>::kPi));
+  const bool is_captured = status_f == kCaptured || r_f <= r_reclass;
+  const bool bad_state =
+      !(is_finite_f(r_f) && is_finite_f(th_f) && is_finite_f(phi_f));
+
+  const T sin_th = sin_(th_f), cos_th = cos_(th_f);
+  const T sin2 = jmax(sin_th * sin_th, Consts<T>::kSin2Floor);
+  const T r_s = (bad_state || is_captured) ? T(10.0) * M + T(10.0) : r_f;
+  const T Sigma_f = r_s * r_s + a * a * cos_th * cos_th;
+  const T Delta_f = r_s * r_s - T(2.0) * M * r_s + a * a;
+  const bool degenerate =
+      Sigma_f <= T(1e-15) || abs_(Delta_f) <= T(1e-15);
+  const T S = degenerate ? T(1.0) : Sigma_f;
+  const T D = degenerate ? T(1.0) : Delta_f;
+
+  const T dr_dl = D / S * y[3];
+  const T dth_dl = y[4] / S;
+  const T dphi_dl = -a * (T(2.0) * M * r_s) / (S * D) * p_t +
+                    (D - a * a * sin2) / (S * D * sin2) * p_phi;
+  const T sin_phi = sin_(phi_f), cos_phi = cos_(phi_f);
+  const T vx = sin_th * cos_phi * dr_dl + r_s * cos_th * cos_phi * dth_dl -
+               r_s * sin_th * sin_phi * dphi_dl;
+  const T vy = sin_th * sin_phi * dr_dl + r_s * cos_th * sin_phi * dth_dl +
+               r_s * sin_th * cos_phi * dphi_dl;
+  const T vz = cos_th * dr_dl - r_s * sin_th * dth_dl;
+  const bool bad_v = !(is_finite_f(vx) && is_finite_f(vy) && is_finite_f(vz));
+  const T v_mag = sqrt_(vx * vx + vy * vy + vz * vz);
+  const bool tiny_v = v_mag < T(1e-30);
+  const T v_safe = tiny_v ? T(1.0) : v_mag;
+  const T alpha = acos_(jclip(-vx / v_safe, -T(1.0), T(1.0)));
+  const bool invalid = bad_state || degenerate || bad_v;
+  const int ext_status = is_captured ? -1 : (invalid ? 0 : 1);
+  if (bad_state && !is_captured) n_half = 0;
+
+  const bool invalid_f = status_f == kInvalid || ext_status == 0;
+  const bool cap_f = !invalid_f && ext_status == -1;
+  Final<T> F;
+  F.status = invalid_f ? kInvalid : (cap_f ? kCaptured : kEscaped);
+  F.alpha = (F.status == kEscaped && !tiny_v) ? alpha : quiet_nan<T>();
+  F.n_half = (invalid_f && status_f == kInvalid) ? 0 : n_half;
+  return F;
+}
+
 // The exact-cycle test of a frozen lane. An attempt is a pure function of
 // the lane's registers (y, k1, h, lam) and the ray's constants. Once an
 // accepted step has seeded k1 from stage 7 (FSAL), k1 = rhs(y) for the
@@ -427,5 +495,53 @@ struct CycleWatch {
     return s | (lam_moved ? 1 << 20 : 0) | (p << 21);
   }
 };
+
+// The persistent grid's hand-out of rays (kerr_dp45.cu). Every lane of
+// the warp calls it together; a lane that needs a ray votes, the lowest
+// voter takes one run of positions for all voters from the global counter
+// `next` with a single atomicAdd, and each voter takes the position of its
+// rank among them. A position indexes `order` (null: ray index order).
+// Returns the lane's new ray, or -1: it did not ask, or the positions are
+// spent, which sets `drained`.
+__device__ __forceinline__ int fetch_ray(bool need, unsigned int* next,
+                                         const long long* order, int n,
+                                         bool& drained) {
+  const unsigned int lane = threadIdx.x & 31u;
+  const unsigned int want = __ballot_sync(kFullMask, need);
+  if (want == 0u) return -1;
+  const int leader = __ffs(want) - 1;
+  unsigned int base = 0u;
+  if (static_cast<int>(lane) == leader) base = atomicAdd(next, __popc(want));
+  base = __shfl_sync(kFullMask, base, leader);
+  if (!need) return -1;
+  const unsigned int pos = base + __popc(want & ((1u << lane) - 1u));
+  if (pos >= static_cast<unsigned int>(n)) {
+    drained = true;
+    return -1;
+  }
+  return static_cast<int>(order != nullptr ? order[pos] : pos);
+}
+
+// The n_steps contract of ops/types.py (the sum over groups of 32
+// consecutive ray indices of the group's largest attempt count) when
+// lanes finish rays in any order: ray i folds its attempts into its
+// group's running maximum, then counts its arrival; the group's last ray
+// to arrive adds the maximum to warp_steps. group holds 2 ceil(n / 32)
+// zeroed words: the maxima, then the counts. The fence orders each ray's
+// maximum before its arrival.
+__device__ __forceinline__ void book_steps(int i, int steps, int n,
+                                           unsigned int* group,
+                                           unsigned long long* warp_steps) {
+  const int g = i >> 5;
+  const int groups = (n + 31) >> 5;
+  atomicMax(group + g, static_cast<unsigned int>(steps));
+  __threadfence();
+  const unsigned int size = static_cast<unsigned int>(min(32, n - (g << 5)));
+  if (atomicAdd(group + groups + g, 1u) == size - 1u) {
+    __threadfence();
+    const unsigned int m = atomicMax(group + g, 0u);
+    if (m != 0u) atomicAdd(warp_steps, static_cast<unsigned long long>(m));
+  }
+}
 
 }  // namespace

@@ -10,7 +10,7 @@
 // profiles and the emitter redshifts, the ray kernel (initial conditions,
 // the adaptive DP45 + FSAL loop over 5 + kExtras components, the
 // saturation and frozen-state exits, the exact-cycle exit, the angle
-// extraction), and the launch helpers. A functor is
+// extraction of kerr_dp45_common.cuh), and the launch helpers. A functor is
 //   template <class T> struct F { static constexpr int kExtras, kAux;
 //     static void eval(y, p_t, p_phi, P, R, aux, d); }
 // with d the kExtras derivatives at state y and aux the ray's kAux
@@ -21,8 +21,8 @@
 // sat_window consecutive attempts while r <= sat_r_max, or whose whole
 // state has not changed for sat_window attempts anywhere, ends with
 // lambda = lambda_max. The test compares the accepted state with the old
-// one value by value; a rejected attempt keeps the old registers untouched,
-// so contraction into FMA cannot make a frozen state look changed.
+// one value by value; a rejected attempt keeps the old registers
+// untouched, so no rounding can make a frozen state look changed.
 //
 // Exact-cycle exit (kerr_dp45_common.cuh, CycleWatch): a lane frozen in an
 // exact cycle of (h, lambda) would run its attempts unchanged until the
@@ -205,64 +205,6 @@ __device__ __forceinline__ void rhs_full(const T (&y)[N], T p_t, T p_phi,
                                          const T* aux, T (&out)[N]) {
   rhs5(y, p_t, p_phi, P, out);
   F::eval(y, p_t, p_phi, P, R, aux, out + 5);
-}
-
-// Escape heading, half-orbit count and status fold of a finished ray
-// (models/kerr.py extract_angle, then ops/kerr_trace.py finalize_angles),
-// with M and a as values of T as the torch version has them.
-template <class T>
-struct Final {
-  T alpha;
-  int n_half, status;
-};
-
-template <class T>
-__device__ __forceinline__ Final<T> finalize(const T* y, T p_t, T p_phi,
-                                             int status_f, T r_reclass,
-                                             const Params<T>& P) {
-  const T M = P.M, a = P.a;
-  const T r_f = y[0], th_f = y[1], phi_f = y[2];
-  int n_half = static_cast<int>(floor_(abs_(phi_f) / Consts<T>::kPi));
-  const bool is_captured = status_f == kCaptured || r_f <= r_reclass;
-  const bool bad_state =
-      !(is_finite_f(r_f) && is_finite_f(th_f) && is_finite_f(phi_f));
-
-  const T sin_th = sin_(th_f), cos_th = cos_(th_f);
-  const T sin2 = jmax(sin_th * sin_th, Consts<T>::kSin2Floor);
-  const T r_s = (bad_state || is_captured) ? T(10.0) * M + T(10.0) : r_f;
-  const T Sigma_f = r_s * r_s + a * a * cos_th * cos_th;
-  const T Delta_f = r_s * r_s - T(2.0) * M * r_s + a * a;
-  const bool degenerate =
-      Sigma_f <= T(1e-15) || abs_(Delta_f) <= T(1e-15);
-  const T S = degenerate ? T(1.0) : Sigma_f;
-  const T D = degenerate ? T(1.0) : Delta_f;
-
-  const T dr_dl = D / S * y[3];
-  const T dth_dl = y[4] / S;
-  const T dphi_dl = -a * (T(2.0) * M * r_s) / (S * D) * p_t +
-                    (D - a * a * sin2) / (S * D * sin2) * p_phi;
-  const T sin_phi = sin_(phi_f), cos_phi = cos_(phi_f);
-  const T vx = sin_th * cos_phi * dr_dl + r_s * cos_th * cos_phi * dth_dl -
-               r_s * sin_th * sin_phi * dphi_dl;
-  const T vy = sin_th * sin_phi * dr_dl + r_s * cos_th * sin_phi * dth_dl +
-               r_s * sin_th * cos_phi * dphi_dl;
-  const T vz = cos_th * dr_dl - r_s * sin_th * dth_dl;
-  const bool bad_v = !(is_finite_f(vx) && is_finite_f(vy) && is_finite_f(vz));
-  const T v_mag = sqrt_(vx * vx + vy * vy + vz * vz);
-  const bool tiny_v = v_mag < T(1e-30);
-  const T v_safe = tiny_v ? T(1.0) : v_mag;
-  const T alpha = acos_(jclip(-vx / v_safe, -T(1.0), T(1.0)));
-  const bool invalid = bad_state || degenerate || bad_v;
-  const int ext_status = is_captured ? -1 : (invalid ? 0 : 1);
-  if (bad_state && !is_captured) n_half = 0;
-
-  const bool invalid_f = status_f == kInvalid || ext_status == 0;
-  const bool cap_f = !invalid_f && ext_status == -1;
-  Final<T> F;
-  F.status = invalid_f ? kInvalid : (cap_f ? kCaptured : kEscaped);
-  F.alpha = (F.status == kEscaped && !tiny_v) ? alpha : quiet_nan<T>();
-  F.n_half = (invalid_f && status_f == kInvalid) ? 0 : n_half;
-  return F;
 }
 
 // One call of a C entry point, filled by the Python wrapper

@@ -19,6 +19,10 @@
 // once and written once (8 or 16 bytes), against 2 k to 16 k operations.
 // The multiplier and the addend are kernel arguments, so the compiler
 // cannot fold the recurrence; the loop is unrolled eight times.
+//
+// The package builds every kernel with -fmad=false (no contraction of
+// a*b + c), so each FMA of the chains below is written explicitly
+// (fma_): it is the operation being timed, one rounding per step.
 
 #include <cuda_runtime.h>
 
@@ -28,7 +32,15 @@ constexpr int kProbeThreads = 128;
 
 enum ProbeForm { kFma32 = 0, kFma64 = 1, kMix = 2, kSin = 3, kFma32x8 = 4 };
 
-// v <- v a + b, k times: 2 k flops an element.
+// One fused multiply-add, rounded once, in float or double.
+__device__ __forceinline__ float fma_(float x, float y, float z) {
+  return fmaf(x, y, z);
+}
+__device__ __forceinline__ double fma_(double x, double y, double z) {
+  return fma(x, y, z);
+}
+
+// v <- fma(v, a, b), k times: 2 k flops an element.
 template <class F>
 __global__ void __launch_bounds__(kProbeThreads)
 fma_chain_kernel(const F* __restrict__ x, F* __restrict__ out, int n, int k,
@@ -37,7 +49,7 @@ fma_chain_kernel(const F* __restrict__ x, F* __restrict__ out, int n, int k,
   if (i >= n) return;
   F v = x[i];
 #pragma unroll 8
-  for (int s = 0; s < k; ++s) v = v * a + b;
+  for (int s = 0; s < k; ++s) v = fma_(v, a, b);
   out[i] = v;
 }
 
@@ -55,7 +67,7 @@ fma8_chain_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
 #pragma unroll 4
   for (int s = 0; s < k; ++s) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = v[j] * a + b;
+    for (int j = 0; j < 8; ++j) v[j] = fma_(v[j], a, b);
   }
   float acc = v[0];
 #pragma unroll
@@ -78,8 +90,8 @@ mix_chain_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
   const float d1 = a, d2 = a + 1e-8f, d3 = a + 2e-8f;
 #pragma unroll 8
   for (int s = 0; s < k; ++s) {
-    f1 = f1 * a + b;
-    f2 = f2 * a + b;
+    f1 = fma_(f1, a, b);
+    f2 = fma_(f2, a, b);
     a1 = a1 + c1;
     a2 = a2 + c2;
     a3 = a3 + c3;

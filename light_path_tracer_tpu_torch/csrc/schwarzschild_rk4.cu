@@ -40,9 +40,11 @@
 // operation orders (template flag kCharged), jnp.maximum(x, 1e-300) keeps
 // its literal (0 in float32, where it underflows), and max/min/clip
 // propagate NaN as jnp's do. Build without --use_fast_math: phi reaches
-// 50 rad, where __sinf/__cosf lose accuracy. nvcc contracts a*b + c into
-// FMA, so results are close to, not bitwise equal to, the plain
-// version's.
+// 50 rad, where __sinf/__cosf lose accuracy. The package builds with
+// -fmad=false (ops/cuda/_build.py), so no a*b + c is contracted into an
+// FMA and each product and sum rounds apart, as in the plain version;
+// results still differ from it where the math libraries round sin or cos
+// otherwise.
 
 #include "kerr_dp45_common.cuh"
 

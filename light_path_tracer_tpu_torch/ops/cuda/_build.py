@@ -25,10 +25,13 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "light_path_tracer_tpu_torch"
+# -fmad=false: no contraction of a*b + c into one FMA, so each product and
+# sum rounds apart, as the plain loops and the JAX package on the CPU
+# round them (a kernel that wants an FMA writes fmaf / fma explicitly).
 # -Xptxas -v only reports registers, shared memory and spills per kernel
 # (kept in build_log); it does not change the code.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
@@ -109,12 +112,7 @@ def _declare(lib):
     # whose scalars are doubles.
     for suffix, real in (("", _F), ("_f64", _D)):
         fn = getattr(lib, "lpt_kerr_dp45" + suffix)
-        fn.argtypes = ([_P] * 11 + [_I] * 2 + [real] * 6 + [_I] + [real] * 8
-                       + [_P])
-        fn.restype = _I
-        fn = getattr(lib, "lpt_kerr_dp45_disk" + suffix)
-        fn.argtypes = ([_P] * 15 + [_I] * 4 + [real] * 6 + [_I] + [real] * 9
-                       + [_I] + [_P])
+        fn.argtypes = [_P, _I]
         fn.restype = _I
         for name in ("lpt_kerr_dp45_extras", "lpt_kerr_dp45_stokes",
                      "lpt_kerr_dp45_movie_thin",

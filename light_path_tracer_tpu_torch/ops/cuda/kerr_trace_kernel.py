@@ -2,12 +2,19 @@
 and the two-pass straggler drivers over it.
 
 The counterpart of `light_path_tracer_tpu.ops.pallas.kerr_trace_kernel`.
-The kernel runs one thread per ray: initial conditions, plunge radius and
-the whole adaptive loop, writing the final state, status and per-ray
-attempt count; the escape angle is extracted here in torch
-(`finalize_angles`), as the JAX wrapper does. Its disk variant
-(`trace_disk_rays_cuda`, `trace_disk_rays_pallas` in JAX) adds the
-plane-crossing recorder and writes the hit records too.
+A call is one kernel launch: each ray's initial conditions, plunge
+radius, whole adaptive loop, escape-angle extraction (the plain loop's
+`finalize_angles`) and its share of the warp step sum run in the kernel,
+which writes final_alpha, n_half and the status (the JAX wrapper extracts
+the angle outside its kernel only because Mosaic cannot lower acos). Its
+disk variant (`trace_disk_rays_cuda`, `trace_disk_rays_pallas` in JAX)
+adds the plane-crossing recorder and writes p_phi and the hit records
+too. The kernel runs one thread a ray in index order; the private
+keyword `_schedule="persistent"` runs the same kernel on a grid the card
+holds at once, where a lane that finishes its ray takes the next one
+(in `hand_out_order`), which gives bitwise the same outputs: the check
+that a ray's result does not depend on the lane that runs it. (It is
+slower on the card than the static grid: PERF.md §6.)
 
 `trace_rays_kerr_cuda` and `trace_disk_rays_cuda` launch the kernel on
 CUDA float32 or float64 tensors (the float64 instances, entries `*_f64`,
@@ -24,7 +31,8 @@ private keyword `_cycle_exit=False` makes them grind such lanes as the
 attempts would, for the bitwise check of the exit; `probe` receives the
 per-ray cycle census ("cycles": the final frozen streak in bits 0-19,
 bit 20 set where lambda moved along it, the first cycle's period in bits
-21-30).
+21-30), beside the raw final "state", "raw_status", "attempts" and the
+ray's "p_phi" (what `finalize_angles` needs to redo the extraction).
 
 `trace_rays_kerr_two_pass` and `trace_disk_rays_two_pass`, and the
 drivers over the extras kernel (`volumetric_kernel.py`):
@@ -32,33 +40,32 @@ drivers over the extras kernel (`volumetric_kernel.py`):
 `trace_rays_spectral_two_pass` (pass 1 capped at 4,096 attempts, 1,024
 slots), keep the JAX drivers' semantics on either device: a first pass
 capped at `pass1_steps` attempts per ray, then the first `slots` rays
-still running, in index
-order, re-traced from scratch with the full budget and scattered back;
-rays beyond `slots` keep their first-pass result, and n_steps is the sum
-of both passes. The kernel computes every ray on its own thread, so the
-result equals a single pass bitwise whenever at most `slots` rays are
-unconverged. (The plain loop on the CPU is elementwise too, but PyTorch
-may round a transcendental function differently in a vectorised body
-than in its scalar tail, so there it is exact when both passes' batch
+still running, in index order, re-traced from scratch with the full
+budget and scattered back; rays beyond `slots` keep their first-pass
+result, and n_steps is the sum of both passes. The kernel computes every
+ray on its own, whichever lane runs it, so the result equals a single
+pass bitwise whenever at most `slots` rays are unconverged. (The plain
+loop on the CPU is elementwise too, but PyTorch may round a
+transcendental function differently in a vectorised body than in its
+scalar tail, so there it is exact when both passes' batch
 sizes are multiples of 32.)
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
 from light_path_tracer_tpu_torch.models.kerr import Kerr
 from light_path_tracer_tpu_torch.ops.cuda._build import check, load_library
-from light_path_tracer_tpu_torch.ops.kerr_trace import (
-    RUNNING, _h_init_for, disk_result, finalize_angles, get_tols,
-    warp_step_sum)
+from light_path_tracer_tpu_torch.ops.kerr_trace import _h_init_for, get_tols
 from light_path_tracer_tpu_torch.ops.kerr_trace import (
     trace_disk_rays_kerr as trace_disk_rays_plain)
 from light_path_tracer_tpu_torch.ops.kerr_trace import (
     trace_rays_kerr as trace_rays_kerr_plain)
-from light_path_tracer_tpu_torch.ops.types import TraceResult
+from light_path_tracer_tpu_torch.ops.types import DiskTraceResult, TraceResult
 
 __all__ = ["trace_rays_kerr_cuda", "trace_rays_kerr_plain",
            "trace_disk_rays_cuda", "trace_disk_rays_plain",
@@ -129,23 +136,157 @@ def _check_call(alphas, metric, formulation, max_steps):
     return True
 
 
+def _kerr_call_fields(real):
+    """KerrCall<T>'s fields (csrc/kerr_dp45.cu) with real the ctypes type
+    of T: the device pointers and the stream, the ints, then the
+    scalars."""
+    return ([(name, ctypes.c_void_p) for name in (
+        "alpha", "theta", "refine", "order", "final_alpha", "n_half",
+        "status", "flags", "p_phi", "hits", "r_hits", "phi_hits", "pr_hits",
+        "pth_hits", "state", "raw_status", "steps", "census", "work",
+        "stream")]
+        + [(name, ctypes.c_int) for name in (
+            "n", "max_steps", "cycle_exit", "persistent", "max_hits",
+            "momentum", "opaque")]
+        + [(name, real) for name in (
+            "M", "a", "r_plus", "r_obs", "theta_obs", "lambda_max", "atol",
+            "rtol", "atol_ref", "rtol_ref", "h_min", "tiny_err", "h_init",
+            "r_capture", "r_reclass", "r_in", "r_out_disk", "plane_c")])
+
+
+class KerrCall(ctypes.Structure):
+    """The float instances' KerrCall<float>, field for field."""
+
+    _fields_ = _kerr_call_fields(ctypes.c_float)
+
+
+class KerrCall64(ctypes.Structure):
+    """The float64 instances' KerrCall<double>, field for field."""
+
+    _fields_ = _kerr_call_fields(ctypes.c_double)
+
+
+SCHEDULES = ("persistent", "static")
+
+
+def hand_out_order(metric, r_obs, theta_obs, alphas):
+    """The persistent schedule's hand-out order: None, the rays in index
+    order. Handing them out hardest first (`hardest_first_order`) saves
+    less on the main path than its sort costs, and costs time on config 4
+    (PERF.md §6)."""
+    return None
+
+
+def hardest_first_order(metric, r_obs, theta_obs, alphas):
+    """The ray indices sorted by |alpha - alpha_crit|, the difficulty key
+    of the JAX package's trace_batch, so the rays near the critical
+    curve, the longest, start first: a hand-out order the kernel takes
+    (int64 on the rays' device), kept for measuring against index
+    order (scripts/torch_kernel_study.py)."""
+    ac = metric.alpha_crit(float(r_obs), float(theta_obs))
+    return torch.argsort((alphas - ac).abs())
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
+            max_steps, precision, refine, disk, flags, probe, cycle_exit,
+            schedule):
+    """One launch of the kernel through its C entry point (the instance of
+    the rays' dtype): the shadow variant, or the disk variant when `disk`
+    holds (r_in, r_out, theta_plane, opaque, max_hits, momentum). Returns
+    the per-ray outputs by name, "n_steps" the warp step sum (0-dim
+    int64); "flags", the rays whose raw status is still RUNNING (bool),
+    only when asked for."""
+    if schedule not in SCHEDULES:
+        raise ValueError(f"_schedule must be one of {SCHEDULES}, got "
+                         f"{schedule!r}")
+    n = alphas.numel()
+    dtype, dev = alphas.dtype, alphas.device
+    suffix = entry_suffix(dtype)
+
+    def empty(*shape, dt=dtype):
+        return torch.empty(shape, dtype=dt, device=dev)
+    out = dict(final_alpha=empty(n), n_half=empty(n, dt=torch.int32),
+               status=empty(n, dt=torch.int32))
+    work = empty(4 + 2 * ((n + 31) // 32), dt=torch.int32)
+    if flags:
+        out["flags"] = empty(n, dt=torch.bool)
+    if probe is not None:
+        probe.update(state=empty(5, n), raw_status=empty(n, dt=torch.int32),
+                     attempts=empty(n, dt=torch.int32),
+                     cycles=empty(n, dt=torch.int32), p_phi=empty(n))
+    probe_t = probe or {}
+    order = (hand_out_order(metric, r_obs, theta_obs, alphas)
+             if schedule == "persistent" else None)
+    p_phi = probe_t.get("p_phi")
+    r_in = r_out = plane_c = 0.0
+    opaque = max_hits = momentum = 0
+    if disk is not None:
+        r_in, r_out, theta_plane, opaque, max_hits, momentum = disk
+        plane_c = math.cos(theta_plane)
+        out["p_phi"] = p_phi = empty(n) if p_phi is None else p_phi
+        out["n_hits"] = empty(n, dt=torch.int32)
+        for k in ("r", "phi") + (("pr", "pth") if momentum else ()):
+            out[k] = empty(max_hits, n)
+    tols = get_tols(dtype, precision)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        call = (KerrCall64 if suffix else KerrCall)(
+            alpha=alphas.data_ptr(), theta=thetas.data_ptr(),
+            refine=_ptr(refine), order=_ptr(order),
+            final_alpha=out["final_alpha"].data_ptr(),
+            n_half=out["n_half"].data_ptr(),
+            status=out["status"].data_ptr(), flags=_ptr(out.get("flags")),
+            p_phi=_ptr(p_phi), hits=_ptr(out.get("n_hits")),
+            r_hits=_ptr(out.get("r")), phi_hits=_ptr(out.get("phi")),
+            pr_hits=_ptr(out.get("pr")), pth_hits=_ptr(out.get("pth")),
+            state=_ptr(probe_t.get("state")),
+            raw_status=_ptr(probe_t.get("raw_status")),
+            steps=_ptr(probe_t.get("attempts")),
+            census=_ptr(probe_t.get("cycles")), work=work.data_ptr(),
+            stream=torch.cuda.current_stream().cuda_stream,
+            n=n, max_steps=int(max_steps), cycle_exit=int(bool(cycle_exit)),
+            persistent=int(schedule == "persistent"),
+            max_hits=int(max_hits), momentum=int(bool(momentum)),
+            opaque=int(bool(opaque)),
+            M=float(metric.M), a=float(metric.a),
+            r_plus=float(metric.r_plus), r_obs=float(r_obs),
+            theta_obs=float(theta_obs), lambda_max=float(lambda_max),
+            atol=tols["atol"], rtol=tols["rtol"],
+            atol_ref=tols["atol_ref"], rtol_ref=tols["rtol_ref"],
+            h_min=tols["h_min"], tiny_err=tols["tiny_err"],
+            h_init=_h_init_for(r_obs),
+            r_capture=float(metric.capture_radius()),
+            r_reclass=float(metric.capture_radius() * 1.1),
+            r_in=float(r_in), r_out_disk=float(r_out), plane_c=plane_c)
+        rc = getattr(lib, "lpt_kerr_dp45" + suffix)(
+            ctypes.byref(call), int(disk is not None))
+    check(lib, rc, f"kerr_dp45{suffix} launch")
+    out["n_steps"] = work[:2].view(torch.int64)[0]
+    return out
+
+
 def trace_rays_kerr_cuda(metric, r_obs, alphas, thetas, theta_obs,
                          axis_refine, lambda_max: float,
                          max_steps: int = 200000, precision: str = "fast",
                          formulation: str = "theta",
                          return_unconverged: bool = False,
                          probe: dict | None = None,
-                         _cycle_exit: bool = True):
+                         _cycle_exit: bool = True,
+                         _schedule: str = "static"):
     """Trace N Kerr rays with the CUDA kernel; returns TraceResult.
 
     Same arguments and result as trace_rays_kerr_plain (with
     return_unconverged, (TraceResult, raw-RUNNING mask)). alphas/thetas:
     (N,) contiguous CUDA tensors, both float32 or both float64 (the
     instance and the tolerance preset follow); axis_refine: (N,) bool on
-    the same device. probe: a dict that receives the per-ray "attempts"
-    and "cycles" (the module docstring). Launches on the current stream
-    and does not synchronise. CPU tensors go to the plain version; other
-    devices raise.
+    the same device. probe: a dict that receives the per-ray raw final
+    "state" (5, N), "raw_status", "attempts", "cycles" and "p_phi" (the
+    module docstring). One kernel launch on the current stream, which does not
+    synchronise. CPU tensors go to the plain version; other devices raise.
     """
     if not _check_call(alphas, metric, formulation, max_steps):
         return trace_rays_kerr_plain(
@@ -154,44 +295,14 @@ def trace_rays_kerr_cuda(metric, r_obs, alphas, thetas, theta_obs,
             formulation=formulation, return_unconverged=return_unconverged)
     _check_inputs((("alphas", alphas, None), ("thetas", thetas, None),
                    ("axis_refine", axis_refine, torch.bool)), alphas)
-
-    n = alphas.numel()
-    dtype, dev = alphas.dtype, alphas.device
-    state = torch.empty((5, n), dtype=dtype, device=dev)
-    status = torch.empty(n, dtype=torch.int32, device=dev)
-    attempts = torch.empty(n, dtype=torch.int32, device=dev)
-    census = (torch.empty(n, dtype=torch.int32, device=dev)
-              if probe is not None else None)
-    tols = get_tols(dtype, precision)
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, "lpt_kerr_dp45" + entry_suffix(dtype))(
-            alphas.data_ptr(), thetas.data_ptr(), axis_refine.data_ptr(),
-            *(state[c].data_ptr() for c in range(5)),
-            status.data_ptr(), attempts.data_ptr(),
-            None if census is None else census.data_ptr(), n,
-            int(bool(_cycle_exit)),
-            float(metric.M), float(metric.a), float(metric.r_plus),
-            float(r_obs), float(theta_obs), float(lambda_max),
-            int(max_steps),
-            tols["atol"], tols["rtol"], tols["atol_ref"], tols["rtol_ref"],
-            tols["h_min"], tols["tiny_err"],
-            _h_init_for(r_obs), float(metric.capture_radius()), stream)
-    check(lib, rc, "kerr_dp45 launch")
-    count_launch(trace_rays_kerr_cuda, dtype)
-    if probe is not None:
-        probe["attempts"] = attempts
-        probe["cycles"] = census
-
-    _y0, p_t, p_phi, _inv = metric.initial_conditions_5d(
-        r_obs, alphas, thetas, theta_obs)
-    final_alpha, n_half, status_out = finalize_angles(
-        metric, state, p_t, p_phi, status)
-    result = TraceResult(final_alpha, n_half, status_out,
-                         warp_step_sum(attempts))
+    out = _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
+                  max_steps, precision, axis_refine, None,
+                  return_unconverged, probe, _cycle_exit, _schedule)
+    count_launch(trace_rays_kerr_cuda, alphas.dtype)
+    result = TraceResult(out["final_alpha"], out["n_half"], out["status"],
+                         out["n_steps"])
     if return_unconverged:
-        return result, status == RUNNING
+        return result, out["flags"]
     return result
 
 
@@ -208,7 +319,8 @@ def trace_disk_rays_cuda(metric, r_obs, alphas, thetas, theta_obs,
                          return_unconverged: bool = False,
                          record_momentum: bool = False,
                          probe: dict | None = None,
-                         _cycle_exit: bool = True):
+                         _cycle_exit: bool = True,
+                         _schedule: str = "static"):
     """Trace N Kerr rays with the kernel's disk variant; returns
     DiskTraceResult (with return_unconverged, (DiskTraceResult,
     raw-RUNNING mask)).
@@ -216,9 +328,9 @@ def trace_disk_rays_cuda(metric, r_obs, alphas, thetas, theta_obs,
     Same arguments and result as trace_disk_rays_plain. disk_plane =
     (r_in, r_out, theta_plane, opaque); max_disk_hits 1..4. alphas/
     thetas: (N,) contiguous CUDA tensors, both float32 or both float64.
-    probe: a dict that receives the per-ray "attempts" and "cycles".
-    Launches on the current stream and does not synchronise. CPU tensors
-    go to the plain version.
+    probe: as trace_rays_kerr_cuda's. One kernel launch on the current
+    stream, which does not synchronise. CPU tensors go to the plain
+    version.
     """
     if not _check_call(alphas, metric, formulation, max_steps):
         return trace_disk_rays_plain(
@@ -232,49 +344,21 @@ def trace_disk_rays_cuda(metric, r_obs, alphas, thetas, theta_obs,
         raise ValueError(f"the CUDA disk kernel records 1..{MAX_KERNEL_HITS}"
                          f" crossings, got max_disk_hits={max_disk_hits}")
     r_in, r_out, theta_plane, opaque = disk_plane
+    out = _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
+                  max_steps, precision, None,
+                  (r_in, r_out, theta_plane, opaque, max_disk_hits,
+                   record_momentum),
+                  return_unconverged, probe, _cycle_exit, _schedule)
+    count_launch(trace_disk_rays_cuda, alphas.dtype)
 
-    n = alphas.numel()
-    dtype, dev = alphas.dtype, alphas.device
-    state = torch.empty((5, n), dtype=dtype, device=dev)
-    status = torch.empty(n, dtype=torch.int32, device=dev)
-    attempts = torch.empty(n, dtype=torch.int32, device=dev)
-    n_hits = torch.empty(n, dtype=torch.int32, device=dev)
-    census = (torch.empty(n, dtype=torch.int32, device=dev)
-              if probe is not None else None)
-    keys = ("r", "phi") + (("pr", "pth") if record_momentum else ())
-    hits = {k: torch.empty((max_disk_hits, n), dtype=dtype, device=dev)
-            for k in keys}
-    rec = [hits[k].data_ptr() if k in hits else None
-           for k in ("r", "phi", "pr", "pth")]
-    tols = get_tols(dtype, precision)
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, "lpt_kerr_dp45_disk" + entry_suffix(dtype))(
-            alphas.data_ptr(), thetas.data_ptr(),
-            *(state[c].data_ptr() for c in range(5)),
-            status.data_ptr(), attempts.data_ptr(), n_hits.data_ptr(),
-            *rec, None if census is None else census.data_ptr(), n,
-            int(max_disk_hits), int(bool(record_momentum)),
-            int(bool(_cycle_exit)),
-            float(metric.M), float(metric.a), float(metric.r_plus),
-            float(r_obs), float(theta_obs), float(lambda_max),
-            int(max_steps), tols["atol"], tols["rtol"], tols["h_min"],
-            tols["tiny_err"], _h_init_for(r_obs),
-            float(metric.capture_radius()), float(r_in), float(r_out),
-            math.cos(theta_plane), int(bool(opaque)), stream)
-    check(lib, rc, "kerr_dp45_disk launch")
-    count_launch(trace_disk_rays_cuda, dtype)
-    if probe is not None:
-        probe["attempts"] = attempts
-        probe["cycles"] = census
-
-    hits["n"] = n_hits
-    _y0, p_t, p_phi, _inv = metric.initial_conditions_5d(
-        r_obs, alphas, thetas, theta_obs)
-    result = disk_result(metric, p_t, p_phi, state, status, attempts, hits)
+    def rows(k):
+        return tuple(out[k].unbind(0)) if k in out else ()
+    result = DiskTraceResult(out["status"], out["n_hits"], rows("r"),
+                             out["p_phi"], out["n_steps"],
+                             out["final_alpha"], out["n_half"], rows("phi"),
+                             (), rows("pr"), rows("pth"))
     if return_unconverged:
-        return result, status == RUNNING
+        return result, out["flags"]
     return result
 
 

@@ -4,7 +4,9 @@ the ray kernels' bounds are stated against.
 The counterpart of `scripts/roofline.py::_chain` of the JAX package: chains
 of length k over an array of elements, in five forms,
 
-    "fma32": v <- v a + b in float32        (2 k flops an element)
+    "fma32": v <- fma(v, a, b) in float32   (2 k flops an element; the
+             kernel writes each FMA explicitly, since the package builds
+             with -fmad=false)
     "fma32x8": eight such chains an element, started 0.01 apart, their
              sum stored                      (16 k flops)
     "fma64": the same in float64            (2 k flops)

@@ -23,14 +23,12 @@ movie (thin and absorbed) and order (thin and absorbed) forms of
 chip_smoke.py's phases 12-14 at sat_window 2,048, and the 256^2 order
 decomposition's lane (171, 129).
 
-Then the diagnosis of config 4's ray (row 959, col 511 of the aligned
-grid): the plain loop on the CPU, the kernel as it is, and the kernel
-built from copies of csrc/ in which sinf, cosf or powf (one at a time,
-then all three) is replaced by its correctly rounded form, the double
-function rounded once, and the kernel built with -fmad=false (no
-contraction of a*b + c into FMA); each prints the ray's attempts,
-status and census. The repo's own tree is never changed. Exit code 0 iff every grid
-agreed bitwise.
+Then config 4's ray (row 959, col 511 of the aligned grid) in the plain
+loop on the CPU, in the kernel as the package builds it (-fmad=false: no
+contraction of a*b + c into FMA) and in the kernel built with nvcc's
+default contraction (where it froze in a period-1 cycle, while JAX and
+the plain loop escape in 51 attempts): each prints the ray's attempts,
+status and census. Exit code 0 iff every grid agreed bitwise.
 """
 
 from __future__ import annotations
@@ -38,10 +36,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import shutil
 import subprocess
 import sys
-import tempfile
 import time
 
 import numpy as np
@@ -53,23 +49,6 @@ R_OBS = 100.0
 LAMBDA_MAX = 5000.0
 THETA = float(np.radians(80.0))
 RAY = (959, 511)
-# The correctly rounded stand-ins of the diagnosis, one line each of
-# csrc/kerr_dp45_common.cuh.
-SWAPS = {
-    "sinf": ("__device__ __forceinline__ float sin_(float x) "
-             "{ return sinf(x); }",
-             "__device__ __forceinline__ float sin_(float x) "
-             "{ return (float)sin((double)x); }"),
-    "cosf": ("__device__ __forceinline__ float cos_(float x) "
-             "{ return cosf(x); }",
-             "__device__ __forceinline__ float cos_(float x) "
-             "{ return (float)cos((double)x); }"),
-    "powf": ("__device__ __forceinline__ float pow_(float x, float y) "
-             "{ return powf(x, y); }",
-             "__device__ __forceinline__ float pow_(float x, float y) "
-             "{ return (float)pow((double)x, (double)y); }"),
-}
-
 
 def decode(census):
     """(period, final frozen streak, lambda moved) per lane."""
@@ -274,36 +253,40 @@ def ray_run(dev, tag):
     return row, al.cpu(), th.cpu()
 
 
-def child(tag, flags):
-    """In a copy of the port: build its disk kernel alone, with the extra
-    nvcc `flags`, and trace RAY."""
-    import torch
+def contracted_ray(dev):
+    """RAY through the disk kernel built as nvcc builds by default, with
+    a*b + c contracted into FMA (the package's -fmad=false taken out):
+    only kerr_dp45.cu, into its own library."""
     from light_path_tracer_tpu_torch.ops.cuda import _build
+    saved = _build.NVCC_FLAGS, _build._sources, _build._declare
     csrc = _build.CSRC
-    _build._sources = lambda: [csrc / "kerr_dp45.cu"]
-    _build.NVCC_FLAGS = _build.NVCC_FLAGS + tuple(flags)
 
     def declare(lib):
-        fn = lib.lpt_kerr_dp45_disk
-        fn.argtypes = ([_build._P] * 15 + [_build._I] * 4 + [_build._F] * 6
-                       + [_build._I] + [_build._F] * 9 + [_build._I]
-                       + [_build._P])
-        fn.restype = _build._I
+        lib.lpt_kerr_dp45.argtypes = [_build._P, _build._I]
+        lib.lpt_kerr_dp45.restype = _build._I
         lib.lpt_cuda_error_string.argtypes = [_build._I]
         lib.lpt_cuda_error_string.restype = _build.ctypes.c_char_p
         return lib
-    _build._declare = declare
-    row, _al, _th = ray_run(torch.device("cuda", 0), tag)
-    print(f"RAY {json.dumps(row)}", flush=True)
+    try:
+        _build.NVCC_FLAGS = tuple(f for f in saved[0] if f != "-fmad=false")
+        _build._sources = lambda: [csrc / "kerr_dp45.cu"]
+        _build._declare = declare
+        _build.load_library.cache_clear()
+        row, _al, _th = ray_run(dev, "kernel built with contraction "
+                                     "(nvcc's default)")
+    finally:
+        _build.NVCC_FLAGS, _build._sources, _build._declare = saved
+        _build.load_library.cache_clear()
+    return row
 
 
 def diagnose(dev):
-    """The ray in the plain loop, this tree's kernel and the variants."""
-    import torch
+    """The ray in this tree's kernel, the plain loop on the CPU and the
+    kernel built with contraction."""
     from light_path_tracer_tpu_torch import disk
     from light_path_tracer_tpu_torch.models import Kerr
     from light_path_tracer_tpu_torch.ops import kerr_trace
-    row, al, th = ray_run(dev, "kernel")
+    row, al, th = ray_run(dev, "kernel (no contraction)")
     rows = [row]
     kerr = Kerr(M=1.0, a=0.9)
     plane = (disk.r_isco(1.0, 0.9), disk.DiskConfig().r_out,
@@ -314,44 +297,9 @@ def diagnose(dev):
                      attempts=int(res.n_steps), status=int(res.status[0]),
                      n_hits=int(res.n_hits[0]),
                      r_hit=float(res.r_hits[0][0])))
-    print(f"ray {RAY}: {json.dumps(rows[0])}", flush=True)
-    print(f"ray {RAY}: {json.dumps(rows[1])}", flush=True)
-    header = "light_path_tracer_tpu_torch/csrc/kerr_dp45_common.cuh"
-    variants = {f"correctly rounded {name}": ([name], [])
-                for name in SWAPS}
-    variants["correctly rounded sinf+cosf+powf"] = (list(SWAPS), [])
-    # nvcc contracts a*b + c into one FMA; XLA:CPU and the plain loop
-    # round the product first.
-    variants["no FMA contraction (-fmad=false)"] = ([], ["-fmad=false"])
-    for tag, (names, flags) in variants.items():
-        with tempfile.TemporaryDirectory() as tmp:
-            shutil.copytree(os.path.join(REPO, "light_path_tracer_tpu_torch"),
-                            os.path.join(tmp, "light_path_tracer_tpu_torch"),
-                            ignore=shutil.ignore_patterns("__pycache__"))
-            os.makedirs(os.path.join(tmp, "scripts"))
-            shutil.copy(os.path.abspath(__file__),
-                        os.path.join(tmp, "scripts"))
-            path = os.path.join(tmp, header)
-            with open(path) as f:
-                text = f.read()
-            for name in names:
-                old, new = SWAPS[name]
-                if text.count(old) != 1:
-                    raise RuntimeError(f"{name}: its line is not in {header}")
-                text = text.replace(old, new)
-            with open(path, "w") as f:
-                f.write(text)
-            out = subprocess.run(
-                [sys.executable, os.path.join(tmp, "scripts",
-                                              os.path.basename(__file__)),
-                 "--child", tag, *flags],
-                cwd=tmp, capture_output=True, text=True, timeout=600)
-            if out.returncode != 0:
-                raise RuntimeError(out.stderr[-3000:])
-            line = [x for x in out.stdout.splitlines()
-                    if x.startswith("RAY ")][-1]
-            rows.append(json.loads(line.removeprefix("RAY ")))
-            print(f"ray {RAY}: {json.dumps(rows[-1])}", flush=True)
+    rows.append(contracted_ray(dev))
+    for r in rows:
+        print(f"ray {RAY}: {json.dumps(r)}", flush=True)
     return rows
 
 
@@ -390,8 +338,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) >= 3 and sys.argv[1] == "--child":
-        sys.path.insert(0, os.getcwd())
-        child(sys.argv[2], sys.argv[3:])
-        sys.exit(0)
     sys.exit(main())

@@ -4,7 +4,8 @@
   python scripts/torch_profile_paths.py [--size 1024] [--frames 3]
                                         [--paths polarized,movie,...]
 
-Renders each path through its entry point on one NVIDIA GPU (the scenes
+Renders each path through its entry point on one NVIDIA GPU (the Kerr
+a = 0.9 shadow of the main path and config 4's thin disk, then the scenes
 of scripts/newmodes_bench.py: a = 0.9, r_obs 100 M, theta_obs 80 deg, FOV
 16 deg), three warm-up frames and then `--frames` frames under
 torch.profiler, and prints one JSON line per path: wall ms per frame
@@ -28,9 +29,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def paths(size):
-    from light_path_tracer_tpu_torch import polarization, volumetric
+    from light_path_tracer_tpu_torch import disk, pipeline, polarization
+    from light_path_tracer_tpu_torch import volumetric
     from light_path_tracer_tpu_torch.utils.config import (RenderConfig,
                                                           SceneConfig)
+    shadow = SceneConfig(M=1.0, a=0.9, r_obs_mult=100.0)
+    thin_disk = SceneConfig(M=1.0, a=0.9, r_obs_mult=100.0,
+                            theta_obs=float(np.radians(80.0)))
     scene = SceneConfig(M=1.0, a=0.9, r_obs_mult=100.0,
                         theta_obs=float(np.radians(80.0)),
                         vertical_fov_deg=16.0)
@@ -41,6 +46,10 @@ def paths(size):
     times = tuple(period * k / 8 for k in range(8))
     riaf = volumetric.RIAFConfig
     return {
+        "shadow": lambda: pipeline.render_shadow(shadow, dim, cfg,
+                                                 device="cuda"),
+        "disk": lambda: disk.render_disk(thin_disk, dim, cfg,
+                                         disk.DiskConfig(), device="cuda"),
         "thin": lambda: volumetric.render_volumetric(scene, dim, cfg, riaf()),
         "spectral": lambda: volumetric.render_volumetric_spectrum(
             scene, dim, (0.1, 1.0, 10.0), cfg,

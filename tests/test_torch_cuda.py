@@ -6,9 +6,9 @@ JAX, so it also runs where JAX is not installed:
   python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Gates as chip_smoke.py. Kerr DP45: status agreement above 0.99 and p99
-|d final_alpha| < 2e-3 on stable escaped rays (the two versions round
-differently, nvcc contracts a*b + c into FMA, so step sequences differ at
-the tolerance level). Orbit RK4 (fixed steps, so only roundings differ):
+|d final_alpha| < 2e-3 on stable escaped rays (the kernels build without
+FMA contraction, but the card's sinf, cosf and powf round otherwise than
+the CPU's, so step sequences differ at the tolerance level). Orbit RK4 (fixed steps, so only roundings differ):
 status agreement above 0.999, p99 |d final_alpha| < 1e-4 on stable
 escaped rays, the alpha = 0 lane INVALID. The lensed render on the card
 against the CPU: shadow masks agree on >= 99 %, bilinear image RMSE
@@ -32,7 +32,12 @@ within 4 k ulp (the kernel's FMA rounds once, torch twice), float32
 within 4 k ulp, sinf within 4 ulp. Each family's float64 instance against
 the plain float64 loop (the gates of chip_smoke.py phase 17), and the
 exact-cycle exit bitwise against the same kernel grinding every attempt
-on near-axis lanes that freeze.
+on near-axis lanes that freeze. Config 4's rays (959, 510..512) as JAX
+ends them; the quarter-offset grid's near-axis lanes and the order lane
+(171, 129) as the plain loop on the CPU ends them (the lanes still left
+open in ROADMAP Queue 3 are xfail with what each side does); the Kerr
+kernel's persistent schedule bitwise against its static one; its
+in-kernel extraction against finalize_angles on the same final states.
 """
 
 import numpy as np
@@ -816,3 +821,188 @@ def test_cycle_exit_is_bitwise_on_frozen_volumetric_lanes(cuda, form):
     fields += list(zip(xa, xb))
     assert all(torch.equal(_bits(x), _bits(y)) for x, y in fields)
     assert int((pb["flags"] & 6).ne(0).sum()) > 0
+
+
+# Config 4's row 959 of the aligned 1024^2 grid, pinned to JAX by
+# tests/test_torch_config4_ray.py: (column, attempts); each escapes with
+# no disk hit.
+ROW_959 = [(511, 51), (510, 51), (512, 17)]
+
+
+@pytest.mark.parametrize("col,attempts", ROW_959)
+def test_config4_row_959_ends_as_jax_on_card(cuda, col, attempts):
+    """Built without FMA contraction, the disk kernel ends config 4's
+    near-axis rays as JAX does (with contraction ray 511 froze in a
+    period-1 cycle and counted out the budget)."""
+    m = Kerr(M=1.0, a=0.9)
+    al, th = _near_axis((1024, 1024), 40.0, slice(col, col + 1), cuda,
+                        slice(959, 960))
+    probe = {}
+    r = trace_disk_rays_cuda(m, R_OBS, al, th, THETA_DISK, 5000.0, 200000,
+                             _plane(True), 2, probe=probe)
+    assert int(r.status[0]) == 1 and int(r.n_hits[0]) == 0
+    assert int(probe["attempts"][0]) == attempts
+
+
+QUARTER_CAP = 1000
+
+
+def _card_open(kernel, plain):
+    return pytest.mark.xfail(
+        reason=f"ROADMAP Queue 3 #1: the card ends this near-axis lane "
+               f"{kernel}, the plain loop on the CPU {plain} (status, hits, "
+               f"attempts; without contraction the roundings of sinf, cosf "
+               f"and powf still differ from the CPU's)")
+
+
+@pytest.mark.parametrize("row,col", [
+    (181, 512),
+    pytest.param(233, 512, marks=_card_open((1, 0, 69), (1, 0, 63))),
+    pytest.param(447, 512, marks=_card_open((1, 1, 70), (1, 1, 76))),
+    (450, 512), (798, 512), (950, 511), (978, 511)])
+def test_config4_quarter_offset_lane_ends_as_plain_loop_on_card(cuda, row,
+                                                                col):
+    """The quarter-offset config-4 grid's seven lanes that froze with FMA
+    contraction, capped at QUARTER_CAP attempts: the kernel ends each as
+    the plain loop on the CPU does (status, hits, attempts)."""
+    m = Kerr(M=1.0, a=0.9)
+    fov = camera.fov_from_vertical(np.radians(40.0), (1024, 1024))
+    grid = dict(dtype=torch.float32, device=cuda, pixel_offset=(0.25, 0.25))
+    i = row * 1024 + col
+    al = camera.build_alpha_lookup((1024, 1024), fov, **grid).reshape(-1)
+    th = camera.build_theta_lookup((1024, 1024), fov, **grid).reshape(-1)
+    al, th = al[i:i + 1].contiguous(), th[i:i + 1].contiguous()
+    probe = {}
+    rk = trace_disk_rays_cuda(m, R_OBS, al, th, THETA_DISK, 5000.0,
+                              QUARTER_CAP, _plane(True), 2, probe=probe)
+    rp = trace_disk_rays_plain(m, R_OBS, al.cpu(), th.cpu(), THETA_DISK,
+                               5000.0, QUARTER_CAP, _plane(True), 2)
+    assert (int(rk.status[0]), int(rk.n_hits[0]),
+            int(probe["attempts"][0])) == (int(rp.status[0]),
+                                           int(rp.n_hits[0]),
+                                           int(rp.n_steps))
+
+
+@pytest.mark.parametrize("field", [
+    "status",
+    pytest.param("attempts", marks=pytest.mark.xfail(
+        reason="ROADMAP Queue 3 #4, #6: the card captures the lane in 148 "
+               "attempts, the plain loop on the CPU in 144 (JAX in 150)"))])
+def test_order_lane_ends_as_plain_loop_on_card(cuda, field):
+    """The 256^2 order decomposition's lane (171, 129) under Order<3>
+    (thin, sat_window 2,048), which the kernel froze while it contracted
+    a*b + c: the kernel captures it, as the plain loop on the CPU does."""
+    m = Kerr(M=1.0, a=0.9)
+    d = (256, 256)
+    fov = camera.fov_from_vertical(np.radians(16.0), d)
+    grid = dict(dtype=torch.float32, device=cuda)
+    i = 171 * 256 + 129
+    al = camera.build_alpha_lookup(d, fov, **grid).reshape(-1)[i:i + 1]
+    th = camera.build_theta_lookup(d, fov, **grid).reshape(-1)[i:i + 1]
+    tf = volumetric.make_order_transfer(m, volumetric.RIAFConfig(), 3)
+    probe = {}
+    rk = vk.trace_rays_aux_cuda(m, R_OBS, al, th, THETA_DISK, tf, 4, (),
+                                5000.0, 200000, sat_window=2048,
+                                sat_monitor=(1, 2, 3), probe=probe)
+    rp = kerr_trace.trace_rays_aux(
+        m, R_OBS, al.cpu(), th.cpu(), THETA_DISK,
+        lambda y, p_t, p_phi, _aux: tf(y, p_t, p_phi), 4, (), 5000.0, 6000,
+        sat_window=2048, sat_monitor=(1, 2, 3))
+    if field == "status":
+        assert int(rk.status[0]) == int(rp.status[0]) == -1
+    else:
+        assert int(probe["attempts"][0]) == int(rp.n_steps)
+
+
+def _schedule_cases(device):
+    """(label, run(schedule, dtype, probe)) of the persistent-vs-static
+    check: the main path's rays at 256^2, and config 4's near-axis block
+    (rows 940-979, columns 500-523 of the aligned 1024^2 grid) beside
+    4,096 random disk rays, opaque with two slots and translucent with
+    momenta."""
+    m = Kerr(M=1.0, a=0.9)
+    scene = SceneConfig(M=1.0, a=0.9)
+    cfg = RenderConfig()
+    dim = (256, 256)
+    fov = camera.fov_from_vertical(scene.vertical_fov, dim)
+    al, th, ref, _rows = pipeline.trace_inputs(scene, cfg, dim, fov, device)
+    ald, thd = _near_axis((1024, 1024), 40.0, slice(500, 524), device,
+                          slice(940, 980))
+    rng = np.random.default_rng(0)
+    f32 = dict(dtype=torch.float32, device=device)
+    ald = torch.cat([ald, torch.tensor(rng.uniform(0.01, 0.12, 4096), **f32)])
+    thd = torch.cat([thd, torch.tensor(rng.uniform(-np.pi, np.pi, 4096),
+                                       **f32)])
+
+    def shadow(schedule, dtype, probe):
+        return trace_rays_kerr_cuda(m, R_OBS, al.to(dtype), th.to(dtype),
+                                    np.pi / 2, ref, 5000.0, 200000,
+                                    return_unconverged=True, probe=probe,
+                                    _schedule=schedule)
+
+    def disk_case(opaque, momentum):
+        def run(schedule, dtype, probe):
+            return trace_disk_rays_cuda(
+                m, R_OBS, ald.to(dtype), thd.to(dtype), THETA_DISK, 5000.0,
+                200000, _plane(opaque), 2, return_unconverged=True,
+                record_momentum=momentum, probe=probe, _schedule=schedule)
+        return run
+    return {"shadow": shadow, "disk opaque": disk_case(True, False),
+            "disk translucent, momenta": disk_case(False, True)}
+
+
+def _flat(result):
+    out = []
+    for x in result:
+        out.extend(x if isinstance(x, tuple) else (x,))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", ["shadow", "disk opaque",
+                                  "disk translucent, momenta"])
+def test_persistent_schedule_is_bitwise_static(cuda, case, dtype):
+    """The persistent grid (lanes that take the next ray; private, for this
+    check) and the static one (one ray a thread, index order, the default)
+    give bitwise the same final alpha, n_half, status, unconverged flags,
+    hits, per-ray attempts, raw final states and warp step sum, which is
+    the sum over groups of 32 consecutive rays of their largest attempt
+    count."""
+    run = _schedule_cases(cuda)[case]
+    out = {}
+    for schedule in ("static", "persistent"):
+        probe = {}
+        res, unconv = run(schedule, dtype, probe)
+        out[schedule] = (res, _flat(res) + [unconv], probe)
+    (res, a, pa), (_res, b, pb) = out["static"], out["persistent"]
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert torch.equal(_bits(x), _bits(y))
+    for k in ("attempts", "state", "raw_status", "cycles", "p_phi"):
+        assert torch.equal(_bits(pa[k]), _bits(pb[k]))
+    assert int(res.n_steps) == int(kerr_trace.warp_step_sum(pa["attempts"]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_in_kernel_extraction_matches_finalize_angles(cuda, dtype):
+    """The kernel's own extraction (finalize, kerr_dp45_common.cuh) against
+    the plain loop's finalize_angles on the kernel's raw final states:
+    statuses, half-orbits and NaN masks equal, final alpha within a few
+    roundings (the two use the same operations in the same order; torch's
+    and the kernel's libdevice calls may round apart)."""
+    run = _schedule_cases(cuda)["shadow"]
+    probe = {}
+    res, _unconv = run("persistent", dtype, probe)
+    p_t = torch.full_like(probe["p_phi"], -1.0)
+    fa, nh, st = kerr_trace.finalize_angles(
+        Kerr(M=1.0, a=0.9), probe["state"], p_t, probe["p_phi"],
+        probe["raw_status"])
+    assert torch.equal(st, res.status)
+    assert torch.equal(nh, res.n_half_orbits)
+    assert torch.equal(torch.isnan(fa), torch.isnan(res.final_alpha))
+    ok = torch.isfinite(fa)
+    bar = 1e-6 if dtype == torch.float32 else 1e-13
+    assert int(ok.sum()) > 1000
+    assert float((fa - res.final_alpha)[ok].abs().max()) <= bar

@@ -245,3 +245,39 @@ def test_cli_decompose_on_cpu(tmp_path, capsys):
     assert set(data.files) == {"layers", "flux_per_order",
                                "mean_radius_rad", "winding"}
     assert data["layers"].shape == (2, 16, 16)
+
+
+@pytest.mark.parametrize("field", [
+    "status",
+    pytest.param("attempts", marks=pytest.mark.xfail(
+        reason="JAX's XLA path captures the lane in 150 attempts, the "
+               "port's plain loop in 144 (ROADMAP Queue 3 #6: float32 "
+               "roundings of the order transfer differ between the two "
+               "on this near-critical lane)"))])
+def test_order_lane_171_129_plain_loop_matches_jax(field):
+    """The 256^2 order decomposition's lane (171, 129) (a = 0.9, theta_obs
+    80 deg, vertical FOV 16 deg, Order<3> thin, sat_window 2,048, float32
+    'fast'), where the card's kernel built with FMA contraction froze: the
+    port's plain loop ends it as JAX's XLA path does, from the same camera
+    angles bitwise: captured, in the same number of attempts."""
+    from light_path_tracer_tpu import camera as jcamera
+    from light_path_tracer_tpu_torch import camera
+    d = (256, 256)
+    fov = camera.fov_from_vertical(np.radians(16.0), d)
+    ja = np.asarray(jcamera.build_alpha_lookup(d, fov))[171, 129:130]
+    jth = np.asarray(jcamera.build_theta_lookup(d, fov))[171, 129:130]
+    pa = camera.build_alpha_lookup(d, fov, device="cpu")[171, 129:130]
+    pth = camera.build_theta_lookup(d, fov, device="cpu")[171, 129:130]
+    assert ja.dtype == np.float32
+    assert pa.numpy()[0] == ja[0] and pth.numpy()[0] == jth[0]
+    jt, tt = _transfers(3)
+    kw = dict(sat_window=2048, sat_monitor=(1, 2, 3))
+    rj = jspec(JKerr(M=M, a=A), R_OBS, jnp.asarray(ja), jnp.asarray(jth),
+               THETA, jt, 3, 5000.0, 6000, **kw)
+    rt = tk.trace_rays_spectral(Kerr(M=M, a=A), R_OBS, pa, pth, THETA, tt, 3,
+                                5000.0, 6000, **kw)
+    if field == "status":
+        assert int(np.asarray(rj.status)[0]) == int(rt.status[0]) == -1
+    else:
+        # One ray: both packages' step counts are its attempts.
+        assert int(np.asarray(rj.n_steps)) == int(rt.n_steps)
