@@ -73,7 +73,7 @@ Phases:
      256-attempt one), the rays the saturation and frozen-state exits
      ended and the slowest rays; the plain loop against the kernel on the
      256^2 grid of the scene for each of phase 13's four paths, both
-     capped at 2048 attempts (phase 11's gates; the float64 run that
+     capped at 1,024 attempts (phase 11's gates; the float64 run that
      widens a bar only for the 3-band form); both drivers (thin and
      3-band) over the kernel and over the plain loop on phase 11's rays;
  13. the four volumetric paths through render_volumetric and
@@ -93,11 +93,11 @@ Phases:
      (the plain loop costs ~10-40 ms an iteration, whatever the batch),
      against the plain loop in float32 and (Stokes, movie) float64; then
      the five forms of phase 15 on the scene's 256^2 grid, the Stokes
-     and order forms at the main path's window, both capped at 2,048
-     attempts (the lanes that reach that cap again with sat_window 512,
-     where the exits must end them in both), the movie forms with
-     sat_window 512 capped at 1,024 (their plain loop takes ~85 s at
-     2,048 attempts);
+     and absorbed order forms at the main path's window, both capped at
+     2,048 attempts (the lanes that reach that cap again with sat_window
+     512, where the exits must end them in both), the movie and thin
+     order forms with sat_window 512 capped at 1,024 (their plain loops
+     take 60-105 s at 2,048 attempts);
      then each form's single pass on the 1024^2 scene (its time, the
      exits' counts and the slowest rays) with the two-pass driver
      bitwise against it. Gates: status agreement > 0.99; every
@@ -165,7 +165,7 @@ Phases:
      attempts, warp step sum), with the lanes counted by kind (exact
      cycle and its period, frozen with a moving lambda, ground without
      freezing) and both times; the 256^2 order lane (171, 129).
- 19. the reference's rays and the persistent schedule: config 4's rays
+ 19. the reference's rays and the Kerr kernel's booking: config 4's rays
      (959, 510..512) of the aligned grid end as JAX ends them (escaped,
      no hit, 51, 51 and 17 attempts; with FMA contraction 511 froze), the
      quarter-offset grid's seven lanes that froze with contraction, capped
@@ -175,13 +175,12 @@ Phases:
      captured as in the plain loop (its attempts printed); the in-kernel
      extraction against finalize_angles on the main path's final states
      (statuses, half-orbits and NaN masks equal, final alpha within 1e-6
-     rad, 1e-13 in float64); the Kerr kernel's persistent schedule (lanes
-     that take the next ray; private, slower on the card) bitwise against
-     the static one (one ray a thread, index order, the default) on the
-     main path's 524,288 rays (float32 and float64) and on the aligned
-     and quarter-offset config-4 grids: every output, the probe's raw
-     states and attempts, and the warp step sum equal to torch's from the
-     attempts, with both wrappers' times (CUDA events).
+     rad, 1e-13 in float64); the warp step sum the Kerr kernel books
+     (each warp adds its largest attempt count) equal to torch's from the
+     per-ray attempts, and its unconverged flags to the raw statuses, on
+     the main path's 524,288 rays (float32 and float64) and on the
+     aligned and quarter-offset config-4 grids, with the wrapper's time
+     (CUDA events).
 Each path's launch counters are set to 0 just before it and read just
 after (float32 and float64 instances count apart: `.launches`,
 `.launches_f64`). The second-to-last line is a JSON object of per-kernel
@@ -443,12 +442,10 @@ def kernel_label(mangled):
     """A short name for a kernel instance in ptxas's report."""
     import re
     real = {"f": "float", "d": "double"}
-    m = re.search(r"kerr_dp45_kernelI([fd])Lb(\d)ELi(\d)ELb(\d)E"
-                  r"(?:Lb(\d)E)?", mangled)
+    m = re.search(r"kerr_dp45_kernelI([fd])Lb(\d)ELi(\d)ELb(\d)E", mangled)
     if m:
-        persistent = ",persistent" if m.group(5) == "1" else ""
         return (f"kerr_dp45<{real[m.group(1)]},disk={m.group(2)},"
-                f"hits={m.group(3)},momentum={m.group(4)}{persistent}>")
+                f"hits={m.group(3)},momentum={m.group(4)}>")
     m = re.search(r"kerr_dp45_extras_kernelINS_\d+([A-Za-z]+)I(\w*?)([fd])EE",
                   mangled)
     if m:
@@ -578,6 +575,8 @@ VOL_CHECK_DIM = (64, 64)
 # ms an iteration, and a lane that never ends runs to the cap).
 VOL_STEPS = 2500
 DRIVER_STEPS = 2500
+# Attempt cap of phase 12's 256^2 grid, kernel and plain loop alike.
+GRID_STEPS = 1024
 
 
 def volumetric_forms():
@@ -804,9 +803,10 @@ def volumetric_phases(dev, card):
                 f"phase 12 {label}: the driver differs from the single pass")
         del one, two, two256
     # The plain loop against the kernel on the 256^2 grid of the scene,
-    # for each of phase 13's four paths, both capped at 2048 attempts
-    # (the plain loop costs ~10 ms an iteration at 1M rays, so it never
-    # runs the 1024^2 grid in full).
+    # for each of phase 13's four paths, both capped at GRID_STEPS
+    # attempts, below the exits' ~2,150 (the plain loop costs 10-50 ms an
+    # iteration, so it never runs the 1024^2 grid in full; phase 11 and
+    # the drivers check the exits).
     d256 = VOL_PLAIN_DIM
     fov256 = camera.fov_from_vertical(scene.vertical_fov, d256)
     al256 = camera.build_alpha_lookup(d256, fov256, **f32).reshape(-1)
@@ -814,21 +814,21 @@ def volumetric_phases(dev, card):
     g256 = {}
     for label, (riaf, freqs) in scene_forms().items():
         ms256, rk = cuda_ms(lambda: extras_trace(
-            kerr, riaf, freqs, al256, th256, 2048, True, sat_window=2048),
-            3)
+            kerr, riaf, freqs, al256, th256, GRID_STEPS, True,
+            sat_window=2048), 3)
         plain256, rp = cuda_ms(lambda: extras_trace(
-            kerr, riaf, freqs, al256, th256, 2048, False, sat_window=2048),
-            1)
+            kerr, riaf, freqs, al256, th256, GRID_STEPS, False,
+            sat_window=2048), 1)
         g = extras_compare(rk, rp)
         g.update(ms=ms256, plain_ms=plain256,
                  n_steps_kernel=int(rk[0].n_steps),
                  n_steps_plain=int(rp[0].n_steps))
         g256[label] = g
         # The float64 run only where a bar needs it: the 3-band form.
-        gap = (f32_gap(kerr, riaf, freqs, al256, th256, 2048, rp,
+        gap = (f32_gap(kerr, riaf, freqs, al256, th256, GRID_STEPS, rp,
                        sat_window=2048)[0] if freqs else None)
         extras_gate(f"phase 12 256^2 {label}", g, gap)
-        print(f"  {label}, {d256[0]}^2 grid, both capped at 2048: "
+        print(f"  {label}, {d256[0]}^2 grid, both capped at {GRID_STEPS}: "
               f"{json.dumps(g)}", flush=True)
     # Both drivers over the kernel and over the plain loop, on phase
     # 11's 4,096 rays with a 64-attempt first pass, capped at 2,500
@@ -999,10 +999,11 @@ PROBE_SOURCE = "light_path_tracer_tpu_torch/csrc/peak_probe.cu"
 AUX_STEPS = 1500
 AUX_WINDOW = 512
 # The 256^2 grid's forms with (attempt cap, sat_window): the main path's
-# window with the cap at 2,048, except the movie forms, whose plain loop
-# costs ~40 ms an iteration (83 and 90 s at 2,048 on an H100's host).
+# window with the cap at 2,048, except the movie and thin order forms,
+# whose plain loops cost 30-50 ms an iteration (60-105 s at 2,048 on an
+# H100's host).
 GRID_FORMS = {"stokes toroidal": (2048, 2048), "movie thin": (1024, 512),
-              "movie absorbed": (1024, 512), "order thin": (2048, 2048),
+              "movie absorbed": (1024, 512), "order thin": (1024, 512),
               "order absorbed": (2048, 2048)}
 N_FRAMES = 8
 N_ORDERS = 3
@@ -1959,14 +1960,13 @@ QUARTER_CAP = 1000
 ORDER_LANE = (171, 129)
 
 
-def schedule_phase(dev, card):
+def reference_phase(dev, card):
     """Phase 19: the rays of ALIGNED_PINS, QUARTER_LANES and ORDER_LANE on
     the card against their pins; the in-kernel extraction against
-    finalize_angles on the main path's final states; the persistent
-    schedule (`_schedule="persistent"`) bitwise against the static one,
-    one ray a thread in index order, on the main path's 524,288 rays
-    (float32 and float64) and on the aligned and quarter-offset config-4
-    grids, with both times."""
+    finalize_angles on the main path's final states; the Kerr kernel's
+    warp step sum and unconverged flags against torch's from the probe,
+    on the main path's 524,288 rays (float32 and float64) and on the
+    aligned and quarter-offset config-4 grids, with the wrapper's time."""
     import torch
     from light_path_tracer_tpu_torch import camera, disk, volumetric
     from light_path_tracer_tpu_torch.models import Kerr
@@ -1989,8 +1989,8 @@ def schedule_phase(dev, card):
                                       **f32).reshape(-1),
             camera.build_theta_lookup(dim, fov4, pixel_offset=off,
                                       **f32).reshape(-1))
-    print(f"the reference's rays on the card, and the persistent schedule "
-          f"against the static one, on {card}:", flush=True)
+    print(f"the reference's rays on the card, and the Kerr kernel's "
+          f"booking, on {card}:", flush=True)
 
     def disk_ray(label, r, c, max_steps, plain):
         al, th = grids[label]
@@ -2077,44 +2077,35 @@ def schedule_phase(dev, card):
                 f"phase 19: the in-kernel extraction differs from "
                 f"finalize_angles: {row}")
 
-    # Persistent against static, bitwise, with both times.
-    cases = [(f"main-path rays {tag}", lambda s, pr, dt=dt: (
+    # The kernel's warp step sum and flags against torch's from the probe.
+    cases = [(f"main-path rays {tag}", lambda pr, dt=dt: (
         kk.trace_rays_kerr_cuda(kerr, R_OBS, al.to(dt), th.to(dt), np.pi / 2,
                                 rf, LAMBDA_MAX, cfg.max_steps, probe=pr,
-                                return_unconverged=True, _schedule=s)))
+                                return_unconverged=True)))
              for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64"))]
     for label, (ga, gt) in grids.items():
         cases.append((f"config-4 {label} grid f32",
-                      lambda s, pr, ga=ga, gt=gt: kk.trace_disk_rays_cuda(
+                      lambda pr, ga=ga, gt=gt: kk.trace_disk_rays_cuda(
                           kerr, R_OBS, ga, gt, THETA_DISK, LAMBDA_MAX,
                           200000, plane, 2, return_unconverged=True,
-                          probe=pr, _schedule=s)))
+                          probe=pr)))
     rows = {}
     for label, run in cases:
-        out = {}
-        for sched in ("static", "persistent"):
-            pr = {}
-            (res, unc) = run(sched, pr)
-            ms, _ = cuda_ms(lambda: run(sched, None), 3)
-            out[sched] = (res, unc, pr, ms)
-        (a, ua, pa, ta), (b, ub, pb, tb) = out["static"], out["persistent"]
-        pairs = [(x, y) for x, y in zip(a, b) if not isinstance(x, tuple)]
-        pairs += [(x, y) for xs, ys in zip(a, b) if isinstance(xs, tuple)
-                  for x, y in zip(xs, ys)]
-        pairs += [(ua, ub)] + [(pa[k], pb[k]) for k in (
-            "attempts", "state", "raw_status", "cycles")]
-        row = dict(bitwise_equal=all(same_bits(x, y) for x, y in pairs),
-                   static_ms=ta, persistent_ms=tb,
-                   warp_step_sum=int(a.n_steps),
+        pr = {}
+        res, unc = run(pr)
+        ms, _ = cuda_ms(lambda: run(None), 3)
+        row = dict(wrapper_ms=ms, warp_step_sum=int(res.n_steps),
                    warp_step_sum_torch=int(kerr_trace.warp_step_sum(
-                       pa["attempts"])))
+                       pr["attempts"])),
+                   flags_equal=bool(torch.equal(
+                       unc, pr["raw_status"] == kerr_trace.RUNNING)))
         rows[label] = row
-        print(f"  persistent vs static, {label}: {json.dumps(row)}",
+        print(f"  Kerr kernel's booking, {label}: {json.dumps(row)}",
               flush=True)
-        require(row["bitwise_equal"] and row["warp_step_sum"]
+        require(row["flags_equal"] and row["warp_step_sum"]
                 == row["warp_step_sum_torch"],
-                f"phase 19: the persistent schedule differs from the static "
-                f"one on {label}: {row}")
+                f"phase 19: the Kerr kernel's warp step sum or flags differ "
+                f"from torch's on {label}: {row}")
     return rows
 
 
@@ -2556,8 +2547,8 @@ def main() -> int:
     # -- 18. the exact-cycle exit -------------------------------------------
     cycle_phase(card)
 
-    # -- 19. the rays of the reference; persistent against static -------
-    schedule_phase(dev, card)
+    # -- 19. the rays of the reference; the Kerr kernel's booking --------
+    reference_phase(dev, card)
 
     shadow_flops = attempt_flops(5)
     # Bytes a ray: alpha, theta (and the refine byte) in; final_alpha,

@@ -15,16 +15,10 @@
 // extracts the escape angle, half-orbit count and status itself
 // (finalize, kerr_dp45_common.cuh), books the warp step sum and writes the
 // ray's outputs; so a frame's trace is one launch and torch runs nothing
-// per ray. The schedule is static by default: one thread a ray in index
-// order, 128 threads a block, grid ceil(n/128). A persistent one (the
-// blocks the card holds at once; a lane whose ray has ended takes the next
-// from a global hand-out, in index order or in an order the wrapper
-// gives) runs the same code and gives bitwise the same outputs; measured
-// on the card it is slower than the static grid at every register budget
-// (the lanes' start and finish paths diverge inside a warp, and at 92 %
-// lane efficiency there is little idle time to reclaim: PERF.md §6), so
-// it serves only the bitwise check that a ray's result does not depend
-// on its lane.
+// per ray. One thread runs one ray, in index order, 128 threads a block,
+// grid ceil(n/128). (A persistent grid, whose lanes take the next ray
+// when theirs ends, gave bitwise the same outputs and was slower at every
+// register budget: PERF.md §6.)
 //
 // What bounds it: arithmetic and the slowest ray. Each attempt makes 6 new
 // RHS evaluations, each with a sinf, a cosf and three reciprocals, while a
@@ -33,7 +27,7 @@
 // lifetimes range from tens of attempts to 166 on the main path, yet a
 // warp's lanes stay 92 % busy on its image grid (raster neighbours have
 // like lifetimes); what limits the launch is the dependent chain of each
-// attempt, so the kernel asks for occupancy (LPT_KERR_BLOCKS_*).
+// attempt, so the kernel asks for occupancy (kBlocksPerSm).
 //
 // A lane whose state freezes bitwise in an exact cycle of (h, lambda)
 // (kerr_dp45_common.cuh, CycleWatch) would repeat that cycle until
@@ -195,25 +189,20 @@ __device__ __forceinline__ void dp45_attempt(
 // One call of a C entry point, filled by the Python wrapper
 // (ops/cuda/kerr_trace_kernel.py KerrCall and KerrCall64, field for
 // field): device pointers, the stream, and the launch's scalars.
-// refine: one byte a ray (shadow; null in disk mode). order: the hand-out
-// order of the persistent schedule, positions to ray indices as int64
-// (null: index order). Per ray the kernel writes final_alpha, n_half and
+// refine: one byte a ray (shadow; null in disk mode). Per ray the kernel
+// writes final_alpha, n_half and
 // the folded status; flags (may be null) marks a ray whose raw status is
 // still RUNNING (the two-pass drivers re-trace it); the disk variant also
 // writes p_phi and the hit records (hits: int32 a ray; r_hits, phi_hits
 // and, with momentum, pr_hits, pth_hits: (max_hits, n), slot-major). The
 // probe's outputs may be null: state (5, n), raw_status, steps
 // (attempts), census (CycleWatch::census), and p_phi in the shadow
-// variant. work: 4 + 2 ceil(n / 32) 32-bit words, zeroed by the entry:
-// the warp step sum (one uint64), the hand-out counter, a pad, then the
-// groups' maxima and counts (book_steps). persistent = 0 runs one ray a
-// thread in index order (the static schedule); cycle_exit = 0 grinds
-// exact cycles instead of counting them.
+// variant. warp_steps: the warp step sum, zeroed by the entry.
+// cycle_exit = 0 grinds exact cycles instead of counting them.
 template <class T>
 struct KerrCall {
   const T *alpha, *theta;
   const unsigned char* refine;
-  const long long* order;
   T* final_alpha;
   int *n_half, *status;
   unsigned char* flags;
@@ -222,9 +211,9 @@ struct KerrCall {
   T *r_hits, *phi_hits, *pr_hits, *pth_hits;
   T* state;
   int *raw_status, *steps, *census;
-  unsigned int* work;
+  unsigned long long* warp_steps;
   void* stream;
-  int n, max_steps, cycle_exit, persistent, max_hits, momentum, opaque;
+  int n, max_steps, cycle_exit, max_hits, momentum, opaque;
   T M, a, r_plus, r_obs, theta_obs, lambda_max, atol, rtol, atol_ref,
       rtol_ref, h_min, tiny_err, h_init, r_capture, r_reclass, r_in,
       r_out_disk, plane_c;
@@ -232,13 +221,13 @@ struct KerrCall {
 
 // The wrapper mirrors the struct with ctypes (natural alignment: the
 // pointers, the ints, then the scalars of T).
-static_assert(sizeof(KerrCall<float>) == 264, "KerrCall layout");
-static_assert(sizeof(KerrCall<double>) == 336, "KerrCall64 layout");
+static_assert(sizeof(KerrCall<float>) == 248, "KerrCall layout");
+static_assert(sizeof(KerrCall<double>) == 320, "KerrCall64 layout");
 
 // One ray in a lane's registers: its constants, its integration state and
 // (disk variant) its crossing records, with the steps of its life: start
 // (initial conditions and plunge radius), attempt (one DP45 attempt and
-// its bookkeeping), finish (extraction, outputs, warp-step booking).
+// its bookkeeping), finish (extraction and outputs).
 template <class T, bool kDisk, int kMaxHits, bool kMomentum>
 struct Ray {
   static constexpr int kSlots = kDisk ? kMaxHits : 1;
@@ -438,109 +427,55 @@ struct Ray {
         }
       }
     }
-    book_steps(i, steps, n, C.work + 4,
-               reinterpret_cast<unsigned long long*>(C.work));
   }
 };
 
 // The blocks of kThreads that one SM must hold at once, the second bound
 // of __launch_bounds__ (a thread then gets at most 65,536 / (kThreads x
-// blocks) registers), for the shadow and the disk variant. The kernel is
-// latency-bound, so occupancy pays for the spills: left free, nvcc gives
-// the static float shadow instance 88 registers (5 blocks an SM) and the
-// double ones 164-182; at 7 blocks (72 registers, some spilled to L1) the
-// main path's kernel runs 5 % faster, its double instance 7 % and the
-// double disk one 28 %, the float disk one within noise
-// (scripts/torch_kerr_registers.py, PERF.md §6). A build may set them
-// (-D), as that script does.
-#ifndef LPT_KERR_BLOCKS_SHADOW
-#define LPT_KERR_BLOCKS_SHADOW 7
-#endif
-#ifndef LPT_KERR_BLOCKS_DISK
-#define LPT_KERR_BLOCKS_DISK 7
-#endif
+// blocks), 72 as ptxas allocates them). Left free, nvcc gives the float
+// shadow instance 88 registers (5 blocks an SM) and the double ones
+// 158-166; at 7 blocks, with some spilled to L1, the double disk instance
+// runs 6 % faster, both shadow instances within 1 % and the float disk
+// one slower (PERF.md §6).
+constexpr int kBlocksPerSm = 7;
 
-// The ray kernel. kDisk = false is the shadow variant (the per-ray
-// axis-refine tolerances, the certain-plunge exit). kDisk = true adds the
-// plane-crossing recorder of the JAX package's disk mode and drops both:
-// base tolerances everywhere and no plunge exit. It keeps the first
-// kMaxHits in-disk crossings per ray (radius and physical azimuth, plus
-// p_r and p_theta when kMomentum) in registers.
-//
-// Schedule (an instance each, so the static one carries no hand-out
-// code). Static (kPersistent false, the default): one thread a ray in
-// index order, the grid covering n, the ray's attempts in a tight loop.
-// Persistent: the grid is what the card holds at once, and a lane whose
-// ray has ended takes the next one from the hand-out (fetch_ray); its loop
-// makes one attempt a turn, a lane refills at the top of the next turn,
-// and the warp leaves the loop when every lane has drained. Each lane runs
-// a ray through the same Ray steps either way (a fixed sequence of
-// correctly rounded operations, built without contraction), so the two
-// schedules give bitwise the same outputs.
-template <class T, bool kDisk, int kMaxHits, bool kMomentum,
-          bool kPersistent>
-__global__ void __launch_bounds__(kThreads, kDisk ? LPT_KERR_BLOCKS_DISK
-                                                  : LPT_KERR_BLOCKS_SHADOW)
+// The ray kernel, one thread a ray. kDisk = false is the shadow variant
+// (the per-ray axis-refine tolerances, the certain-plunge exit). kDisk =
+// true adds the plane-crossing recorder of the JAX package's disk mode
+// and drops both: base tolerances everywhere and no plunge exit. It keeps
+// the first kMaxHits in-disk crossings per ray (radius and physical
+// azimuth, plus p_r and p_theta when kMomentum) in registers. The warp
+// adds its largest attempt count to the warp step sum: the warp is the
+// group of 32 consecutive rays that ops/types.py sums over (lanes past n
+// count 0).
+template <class T, bool kDisk, int kMaxHits, bool kMomentum>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 kerr_dp45_kernel(KerrCall<T> C, Params<T> P, DiskParams<T> D) {
-  Ray<T, kDisk, kMaxHits, kMomentum> R;
-  if constexpr (!kPersistent) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= C.n) return;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  int steps = 0;
+  if (i < C.n) {
+    Ray<T, kDisk, kMaxHits, kMomentum> R;
     R.start(C, P, i);
     while (R.running(P)) R.attempt(P, D, C.cycle_exit);
     R.finish(C, P, i);
-  } else {
-    int ray = -1;
-    bool drained = false;
-    for (;;) {
-      // The whole warp votes; a drained lane votes no.
-      const int got = fetch_ray(ray < 0 && !drained, C.work + 2, C.order,
-                                C.n, drained);
-      if (got >= 0) {
-        ray = got;
-        R.start(C, P, ray);
-      }
-      if (__all_sync(kFullMask, ray < 0 && drained)) break;
-      if (ray >= 0) {
-        if (R.running(P)) R.attempt(P, D, C.cycle_exit);
-        if (!R.running(P)) {
-          R.finish(C, P, ray);
-          ray = -1;
-        }
-      }
-    }
+    steps = R.steps;
   }
+  const unsigned int warp_max =
+      __reduce_max_sync(kFullMask, static_cast<unsigned int>(steps));
+  if ((threadIdx.x & 31) == 0 && warp_max != 0)
+    atomicAdd(C.warp_steps, static_cast<unsigned long long>(warp_max));
 }
 
-// Zeroes the call's work words and launches the instance on C.stream, in
-// the static or the persistent schedule (its grid read once: the blocks
-// one SM holds at once times the SM count).
+// Zeroes the warp step sum and launches the instance on C.stream.
 template <bool kDisk, int kMaxHits, bool kMomentum>
 int launch(const KerrCall<Real>& C, const Params<Real>& P,
            const DiskParams<Real>& D) {
   const cudaStream_t s = static_cast<cudaStream_t>(C.stream);
-  const size_t words = 4 + 2 * static_cast<size_t>((C.n + 31) / 32);
-  cudaError_t err = cudaMemsetAsync(C.work, 0, words * 4, s);
+  const cudaError_t err =
+      cudaMemsetAsync(C.warp_steps, 0, sizeof(unsigned long long), s);
   if (err != cudaSuccess || C.n <= 0) return static_cast<int>(err);
-  auto kernel = kerr_dp45_kernel<Real, kDisk, kMaxHits, kMomentum, false>;
-  int blocks = (C.n + kThreads - 1) / kThreads;
-  if (C.persistent) {
-    kernel = kerr_dp45_kernel<Real, kDisk, kMaxHits, kMomentum, true>;
-    static int resident = 0;
-    if (resident == 0) {
-      int per_sm = 0, device = 0, sms = 0;
-      if ((err = cudaGetDevice(&device)) != cudaSuccess ||
-          (err = cudaDeviceGetAttribute(
-               &sms, cudaDevAttrMultiProcessorCount, device)) !=
-              cudaSuccess ||
-          (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-               &per_sm, kernel, kThreads, 0)) != cudaSuccess)
-        return static_cast<int>(err);
-      resident = per_sm * sms;
-    }
-    blocks = blocks < resident ? blocks : resident;
-  }
-  kernel<<<blocks, kThreads, 0, s>>>(C, P, D);
+  kerr_dp45_kernel<Real, kDisk, kMaxHits, kMomentum>
+      <<<(C.n + kThreads - 1) / kThreads, kThreads, 0, s>>>(C, P, D);
   return static_cast<int>(cudaGetLastError());
 }
 

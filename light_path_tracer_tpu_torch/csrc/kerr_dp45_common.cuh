@@ -4,9 +4,8 @@
 // schwarzschild_rk4.cu takes the scalar types and clamps): the tableau, the
 // NaN-propagating clamps, Hamilton's equations on the reduced theta-state,
 // the Hermite event root, the Bardeen initial conditions, the escape-angle
-// extraction of a finished ray, the exact-cycle test of a frozen lane, and
-// the persistent grid's ray hand-out with its warp-step accounting. Every
-// function is inlined into its caller.
+// extraction of a finished ray and the exact-cycle test of a frozen lane.
+// Every function is inlined into its caller.
 //
 // Everything is templated on the scalar type T, float or double, as the
 // plain loop (ops/kerr_trace.py) runs in its tensors' dtype. Numerics
@@ -495,53 +494,5 @@ struct CycleWatch {
     return s | (lam_moved ? 1 << 20 : 0) | (p << 21);
   }
 };
-
-// The persistent grid's hand-out of rays (kerr_dp45.cu). Every lane of
-// the warp calls it together; a lane that needs a ray votes, the lowest
-// voter takes one run of positions for all voters from the global counter
-// `next` with a single atomicAdd, and each voter takes the position of its
-// rank among them. A position indexes `order` (null: ray index order).
-// Returns the lane's new ray, or -1: it did not ask, or the positions are
-// spent, which sets `drained`.
-__device__ __forceinline__ int fetch_ray(bool need, unsigned int* next,
-                                         const long long* order, int n,
-                                         bool& drained) {
-  const unsigned int lane = threadIdx.x & 31u;
-  const unsigned int want = __ballot_sync(kFullMask, need);
-  if (want == 0u) return -1;
-  const int leader = __ffs(want) - 1;
-  unsigned int base = 0u;
-  if (static_cast<int>(lane) == leader) base = atomicAdd(next, __popc(want));
-  base = __shfl_sync(kFullMask, base, leader);
-  if (!need) return -1;
-  const unsigned int pos = base + __popc(want & ((1u << lane) - 1u));
-  if (pos >= static_cast<unsigned int>(n)) {
-    drained = true;
-    return -1;
-  }
-  return static_cast<int>(order != nullptr ? order[pos] : pos);
-}
-
-// The n_steps contract of ops/types.py (the sum over groups of 32
-// consecutive ray indices of the group's largest attempt count) when
-// lanes finish rays in any order: ray i folds its attempts into its
-// group's running maximum, then counts its arrival; the group's last ray
-// to arrive adds the maximum to warp_steps. group holds 2 ceil(n / 32)
-// zeroed words: the maxima, then the counts. The fence orders each ray's
-// maximum before its arrival.
-__device__ __forceinline__ void book_steps(int i, int steps, int n,
-                                           unsigned int* group,
-                                           unsigned long long* warp_steps) {
-  const int g = i >> 5;
-  const int groups = (n + 31) >> 5;
-  atomicMax(group + g, static_cast<unsigned int>(steps));
-  __threadfence();
-  const unsigned int size = static_cast<unsigned int>(min(32, n - (g << 5)));
-  if (atomicAdd(group + groups + g, 1u) == size - 1u) {
-    __threadfence();
-    const unsigned int m = atomicMax(group + g, 0u);
-    if (m != 0u) atomicAdd(warp_steps, static_cast<unsigned long long>(m));
-  }
-}
 
 }  // namespace

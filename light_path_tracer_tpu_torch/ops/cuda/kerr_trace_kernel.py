@@ -9,12 +9,7 @@ which writes final_alpha, n_half and the status (the JAX wrapper extracts
 the angle outside its kernel only because Mosaic cannot lower acos). Its
 disk variant (`trace_disk_rays_cuda`, `trace_disk_rays_pallas` in JAX)
 adds the plane-crossing recorder and writes p_phi and the hit records
-too. The kernel runs one thread a ray in index order; the private
-keyword `_schedule="persistent"` runs the same kernel on a grid the card
-holds at once, where a lane that finishes its ray takes the next one
-(in `hand_out_order`), which gives bitwise the same outputs: the check
-that a ray's result does not depend on the lane that runs it. (It is
-slower on the card than the static grid: PERF.md §6.)
+too. The kernel runs one thread a ray in index order.
 
 `trace_rays_kerr_cuda` and `trace_disk_rays_cuda` launch the kernel on
 CUDA float32 or float64 tensors (the float64 instances, entries `*_f64`,
@@ -43,8 +38,8 @@ capped at `pass1_steps` attempts per ray, then the first `slots` rays
 still running, in index order, re-traced from scratch with the full
 budget and scattered back; rays beyond `slots` keep their first-pass
 result, and n_steps is the sum of both passes. The kernel computes every
-ray on its own, whichever lane runs it, so the result equals a single
-pass bitwise whenever at most `slots` rays are unconverged. (The plain
+ray on its own thread, so the result equals a single pass bitwise
+whenever at most `slots` rays are unconverged. (The plain
 loop on the CPU is elementwise too, but PyTorch may round a
 transcendental function differently in a vectorised body than in its
 scalar tail, so there it is exact when both passes' batch
@@ -141,13 +136,13 @@ def _kerr_call_fields(real):
     of T: the device pointers and the stream, the ints, then the
     scalars."""
     return ([(name, ctypes.c_void_p) for name in (
-        "alpha", "theta", "refine", "order", "final_alpha", "n_half",
-        "status", "flags", "p_phi", "hits", "r_hits", "phi_hits", "pr_hits",
-        "pth_hits", "state", "raw_status", "steps", "census", "work",
+        "alpha", "theta", "refine", "final_alpha", "n_half", "status",
+        "flags", "p_phi", "hits", "r_hits", "phi_hits", "pr_hits",
+        "pth_hits", "state", "raw_status", "steps", "census", "warp_steps",
         "stream")]
         + [(name, ctypes.c_int) for name in (
-            "n", "max_steps", "cycle_exit", "persistent", "max_hits",
-            "momentum", "opaque")]
+            "n", "max_steps", "cycle_exit", "max_hits", "momentum",
+            "opaque")]
         + [(name, real) for name in (
             "M", "a", "r_plus", "r_obs", "theta_obs", "lambda_max", "atol",
             "rtol", "atol_ref", "rtol_ref", "h_min", "tiny_err", "h_init",
@@ -166,43 +161,18 @@ class KerrCall64(ctypes.Structure):
     _fields_ = _kerr_call_fields(ctypes.c_double)
 
 
-SCHEDULES = ("persistent", "static")
-
-
-def hand_out_order(metric, r_obs, theta_obs, alphas):
-    """The persistent schedule's hand-out order: None, the rays in index
-    order. Handing them out hardest first (`hardest_first_order`) saves
-    less on the main path than its sort costs, and costs time on config 4
-    (PERF.md §6)."""
-    return None
-
-
-def hardest_first_order(metric, r_obs, theta_obs, alphas):
-    """The ray indices sorted by |alpha - alpha_crit|, the difficulty key
-    of the JAX package's trace_batch, so the rays near the critical
-    curve, the longest, start first: a hand-out order the kernel takes
-    (int64 on the rays' device), kept for measuring against index
-    order (scripts/torch_kernel_study.py)."""
-    ac = metric.alpha_crit(float(r_obs), float(theta_obs))
-    return torch.argsort((alphas - ac).abs())
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
 def _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
-            max_steps, precision, refine, disk, flags, probe, cycle_exit,
-            schedule):
+            max_steps, precision, refine, disk, flags, probe, cycle_exit):
     """One launch of the kernel through its C entry point (the instance of
     the rays' dtype): the shadow variant, or the disk variant when `disk`
     holds (r_in, r_out, theta_plane, opaque, max_hits, momentum). Returns
     the per-ray outputs by name, "n_steps" the warp step sum (0-dim
     int64); "flags", the rays whose raw status is still RUNNING (bool),
     only when asked for."""
-    if schedule not in SCHEDULES:
-        raise ValueError(f"_schedule must be one of {SCHEDULES}, got "
-                         f"{schedule!r}")
     n = alphas.numel()
     dtype, dev = alphas.dtype, alphas.device
     suffix = entry_suffix(dtype)
@@ -211,7 +181,7 @@ def _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
         return torch.empty(shape, dtype=dt, device=dev)
     out = dict(final_alpha=empty(n), n_half=empty(n, dt=torch.int32),
                status=empty(n, dt=torch.int32))
-    work = empty(4 + 2 * ((n + 31) // 32), dt=torch.int32)
+    warp_steps = empty(dt=torch.int64)
     if flags:
         out["flags"] = empty(n, dt=torch.bool)
     if probe is not None:
@@ -219,8 +189,6 @@ def _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
                      attempts=empty(n, dt=torch.int32),
                      cycles=empty(n, dt=torch.int32), p_phi=empty(n))
     probe_t = probe or {}
-    order = (hand_out_order(metric, r_obs, theta_obs, alphas)
-             if schedule == "persistent" else None)
     p_phi = probe_t.get("p_phi")
     r_in = r_out = plane_c = 0.0
     opaque = max_hits = momentum = 0
@@ -236,7 +204,7 @@ def _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
     with torch.cuda.device(dev):
         call = (KerrCall64 if suffix else KerrCall)(
             alpha=alphas.data_ptr(), theta=thetas.data_ptr(),
-            refine=_ptr(refine), order=_ptr(order),
+            refine=_ptr(refine),
             final_alpha=out["final_alpha"].data_ptr(),
             n_half=out["n_half"].data_ptr(),
             status=out["status"].data_ptr(), flags=_ptr(out.get("flags")),
@@ -246,10 +214,10 @@ def _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
             state=_ptr(probe_t.get("state")),
             raw_status=_ptr(probe_t.get("raw_status")),
             steps=_ptr(probe_t.get("attempts")),
-            census=_ptr(probe_t.get("cycles")), work=work.data_ptr(),
+            census=_ptr(probe_t.get("cycles")),
+            warp_steps=warp_steps.data_ptr(),
             stream=torch.cuda.current_stream().cuda_stream,
             n=n, max_steps=int(max_steps), cycle_exit=int(bool(cycle_exit)),
-            persistent=int(schedule == "persistent"),
             max_hits=int(max_hits), momentum=int(bool(momentum)),
             opaque=int(bool(opaque)),
             M=float(metric.M), a=float(metric.a),
@@ -265,7 +233,7 @@ def _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
         rc = getattr(lib, "lpt_kerr_dp45" + suffix)(
             ctypes.byref(call), int(disk is not None))
     check(lib, rc, f"kerr_dp45{suffix} launch")
-    out["n_steps"] = work[:2].view(torch.int64)[0]
+    out["n_steps"] = warp_steps
     return out
 
 
@@ -275,8 +243,7 @@ def trace_rays_kerr_cuda(metric, r_obs, alphas, thetas, theta_obs,
                          formulation: str = "theta",
                          return_unconverged: bool = False,
                          probe: dict | None = None,
-                         _cycle_exit: bool = True,
-                         _schedule: str = "static"):
+                         _cycle_exit: bool = True):
     """Trace N Kerr rays with the CUDA kernel; returns TraceResult.
 
     Same arguments and result as trace_rays_kerr_plain (with
@@ -297,7 +264,7 @@ def trace_rays_kerr_cuda(metric, r_obs, alphas, thetas, theta_obs,
                    ("axis_refine", axis_refine, torch.bool)), alphas)
     out = _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
                   max_steps, precision, axis_refine, None,
-                  return_unconverged, probe, _cycle_exit, _schedule)
+                  return_unconverged, probe, _cycle_exit)
     count_launch(trace_rays_kerr_cuda, alphas.dtype)
     result = TraceResult(out["final_alpha"], out["n_half"], out["status"],
                          out["n_steps"])
@@ -319,8 +286,7 @@ def trace_disk_rays_cuda(metric, r_obs, alphas, thetas, theta_obs,
                          return_unconverged: bool = False,
                          record_momentum: bool = False,
                          probe: dict | None = None,
-                         _cycle_exit: bool = True,
-                         _schedule: str = "static"):
+                         _cycle_exit: bool = True):
     """Trace N Kerr rays with the kernel's disk variant; returns
     DiskTraceResult (with return_unconverged, (DiskTraceResult,
     raw-RUNNING mask)).
@@ -348,7 +314,7 @@ def trace_disk_rays_cuda(metric, r_obs, alphas, thetas, theta_obs,
                   max_steps, precision, None,
                   (r_in, r_out, theta_plane, opaque, max_disk_hits,
                    record_momentum),
-                  return_unconverged, probe, _cycle_exit, _schedule)
+                  return_unconverged, probe, _cycle_exit)
     count_launch(trace_disk_rays_cuda, alphas.dtype)
 
     def rows(k):

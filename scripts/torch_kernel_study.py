@@ -3,16 +3,16 @@
 main path's Kerr kernel loses its time, on one NVIDIA GPU.
 
   python3 scripts/torch_kernel_study.py [--out study.json] [--turns 4]
-                                        [--sections ab,rays,main]
+                                        [--sections ab,rays,main,regs]
+                                        [--blocks 7,0]
 
 ab: builds the kernel library twice from the same sources, as the package
     builds it (ops/cuda/_build.py NVCC_FLAGS, with -fmad=false) and with
     nvcc's default contraction of a*b + c into FMA (the flag taken out),
     then times every ray kernel at its main-path shape in turns
     (contracted, not, not, contracted, ...): each call by CUDA events
-    (mean of 3 after a warm-up; the Kerr wrappers with their hand-out
-    order computed beforehand, so a call is a memset and the kernel) and
-    torch.profiler's device time a launch, each beside its bound (this
+    (mean of 3 after a warm-up; a Kerr call is a memset and the kernel)
+    and torch.profiler's device time a launch, each beside its bound (this
     run's flops over the published FP32 or FP64 rate; bytes are
     negligible beside them). Kernels: the Kerr shadow on the 524,288
     main-path rays (float32 and float64), the disk variant on config 4's
@@ -31,17 +31,22 @@ rays: in each build, config 4's rays (959, 510..512) of the aligned grid,
     order decomposition's lane (171, 129) under Order<3> beside the plain
     loop: status, attempts, hits, flags.
 main: the Kerr kernel as the package builds it, on the main path's
-    524,288 rays and on config 4's aligned 1024^2 grid, in three
-    schedules: static (one ray a thread, index order; the default),
-    persistent with the rays handed out in index order, and persistent
-    hardest first (kerr_trace_kernel.hardest_first_order): the wrapper
-    and the kernel alone (the wrapper with its hand-out order computed
-    beforehand), both by CUDA events, per-ray attempts (mean, max), lane
-    efficiency sum(attempts) / (32 x warp step sum); the main path's
-    slowest ray alone (kernel and wrapper), the hand-out
-    sort's cost, and one frame of render_shadow and of config 4's
-    render_disk under torch.profiler (device ms, kernel launches, busy
-    share).
+    524,288 rays and on config 4's aligned 1024^2 grid: the wrapper by
+    CUDA events and the kernel alone by torch.profiler, per-ray attempts
+    (mean, max), lane efficiency sum(attempts) / (32 x warp step sum);
+    the main path's slowest ray alone, and one frame of render_shadow
+    and of config 4's render_disk under torch.profiler (device ms,
+    kernel launches, busy share).
+regs: the Kerr kernel against its register budget. For each count in
+    --blocks of 128-thread blocks an SM must hold at once (the kernel's
+    kBlocksPerSm, the second bound of its __launch_bounds__, which caps
+    a thread at 65,536 / (128 x blocks) registers; 0 drops the bound),
+    builds csrc/kerr_dp45.cu and csrc/kerr_dp45_f64.cu alone from a copy
+    of csrc/ with that count, prints ptxas's registers and spills for
+    each instance, and times the wrapper (CUDA events, mean of 5 after a
+    warm-up) on the main path's rays and config 4's aligned grid, in
+    float32 and float64, each output held bitwise against the package
+    build's (a register budget may change the speed, never a result).
 
 The first line is the card's name and power limit. Needs a CUDA device;
 imports nothing of JAX.
@@ -50,7 +55,6 @@ imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import subprocess
@@ -83,27 +87,9 @@ def timed(fn, key, reps=3):
                 profiler_launches=prof["kernel_launches"])
 
 
-@contextlib.contextmanager
-def cached_order():
-    """The Kerr wrappers with their hand-out order computed once per
-    input, so a timed call is the memset and the kernel alone."""
-    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
-    own, cache = kk.hand_out_order, {}
-
-    def order(metric, r_obs, theta_obs, alphas):
-        key = (alphas.data_ptr(), alphas.numel(), float(theta_obs))
-        if key not in cache:
-            cache[key] = own(metric, r_obs, theta_obs, alphas)
-        return cache[key]
-    kk.hand_out_order = order
-    try:
-        yield
-    finally:
-        kk.hand_out_order = own
-
-
 class Builds:
-    """The package's build and the contracted one, switched in place."""
+    """The package's build and the contracted one, switched in place;
+    each is built on first use."""
 
     def __init__(self):
         from light_path_tracer_tpu_torch.ops.cuda import _build
@@ -304,8 +290,7 @@ def ab_section(dev, builds, X, turns):
     for turn, variant in enumerate(seq):
         builds.use(variant)
         for label, key, fn, _flops, _peak in table:
-            with cached_order():
-                row = timed(fn, key)
+            row = timed(fn, key)
             out[label][variant].append(row)
             print(f"turn {turn} [{variant}] {label}: {json.dumps(row)}",
                   flush=True)
@@ -429,65 +414,40 @@ def rays_section(dev, builds, X):
 
 
 def main_section(dev, builds, X):
-    import torch
     from light_path_tracer_tpu_torch.models import Kerr
     from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
     from torch_profile_paths import paths, profile
     builds.use("no contraction")
     kerr = Kerr(M=1.0, a=0.9)
     al, th, rf = X["main"]
-    own_order = kk.hand_out_order
+
     def shadow(a, t, r, **kw):
         return kk.trace_rays_kerr_cuda(kerr, R_OBS, a, t, np.pi / 2, r,
                                        LAMBDA_MAX, 200000, **kw)
 
-    def disk(a, t, **kw):
-        return kk.trace_disk_rays_cuda(kerr, R_OBS, a, t, THETA, LAMBDA_MAX,
-                                       200000, X["plane"], 2, **kw)
-
     ga, gt = X["aligned"]
     out = {}
-    for name, run, key_al, theta in (
-            ("main path", lambda **kw: shadow(al, th, rf, **kw), al,
-             np.pi / 2),
-            ("config-4 aligned", lambda **kw: disk(ga, gt, **kw), ga,
-             THETA)):
-        for schedule, order_fn, tag in (
-                ("static", own_order, "static"),
-                ("persistent", own_order, "persistent, index order"),
-                ("persistent", kk.hardest_first_order,
-                 "persistent, hardest first")):
-            label = f"{name}, {tag}"
-            kk.hand_out_order = order_fn
-            try:
-                pr = {}
-                res = run(probe=pr, _schedule=schedule)
-                att = pr["attempts"].double()
-                w = int(res.n_steps)
-                row = dict(wrapper=timed(lambda: run(_schedule=schedule),
-                                         "kerr_dp45"))
-                with cached_order():
-                    row["kernel"] = timed(lambda: run(_schedule=schedule),
-                                          "kerr_dp45")
-                row.update(attempts_mean=float(att.mean()),
-                           attempts_max=int(att.max()),
-                           attempts_sum=int(att.sum()), warp_step_sum=w,
-                           lane_efficiency=float(att.sum()) / (32 * w))
-            finally:
-                kk.hand_out_order = own_order
-            out[label] = row
-            print(f"Kerr kernel, {label}: {json.dumps(row)}", flush=True)
-        out[f"{name}, hand-out sort"] = timed(
-            lambda key_al=key_al, theta=theta: kk.hardest_first_order(
-                kerr, R_OBS, theta, key_al), "sort")
-        print(f"{name}, hand-out sort: "
-              f"{json.dumps(out[f'{name}, hand-out sort'])}", flush=True)
+    for name, run in (
+            ("main path", lambda **kw: shadow(al, th, rf, **kw)),
+            ("config-4 aligned", lambda **kw: kk.trace_disk_rays_cuda(
+                kerr, R_OBS, ga, gt, THETA, LAMBDA_MAX, 200000, X["plane"],
+                2, **kw))):
+        pr = {}
+        res = run(probe=pr)
+        att = pr["attempts"].double()
+        w = int(res.n_steps)
+        row = dict(wrapper=timed(run, "kerr_dp45"),
+                   attempts_mean=float(att.mean()),
+                   attempts_max=int(att.max()), attempts_sum=int(att.sum()),
+                   warp_step_sum=w,
+                   lane_efficiency=float(att.sum()) / (32 * w))
+        out[name] = row
+        print(f"Kerr kernel, {name}: {json.dumps(row)}", flush=True)
     pr = {}
     shadow(al, th, rf, probe=pr)
     i = int(pr["attempts"].argmax())
     out["main path, slowest ray alone"] = dict(timed(
-        lambda: shadow(al[i:i + 1], th[i:i + 1], rf[i:i + 1],
-                       _schedule="static"), "kerr_dp45"),
+        lambda: shadow(al[i:i + 1], th[i:i + 1], rf[i:i + 1]), "kerr_dp45"),
         ray=i, attempts=int(pr["attempts"][i]))
     print(f"main path, slowest ray alone: "
           f"{json.dumps(out['main path, slowest ray alone'])}", flush=True)
@@ -499,6 +459,96 @@ def main_section(dev, builds, X):
     return out
 
 
+def kerr_build(blocks):
+    """Build (or load) csrc/kerr_dp45.cu and its float64 sibling alone,
+    from a copy of csrc/ whose Kerr kernel asks for `blocks` blocks an SM
+    (0: no second bound), and make it the library the wrappers call.
+    Returns the build's seconds and ptxas's report."""
+    from chip_smoke import ptxas_report
+    from light_path_tracer_tpu_torch.ops.cuda import _build
+    src = _build.CSRC
+    text = (src / "kerr_dp45.cu").read_text()
+    const = "constexpr int kBlocksPerSm = 7;"
+    bound = "__launch_bounds__(kThreads, kBlocksPerSm)"
+    if const not in text or bound not in text:
+        raise RuntimeError("csrc/kerr_dp45.cu no longer states its block "
+                           "bound as this study expects")
+    text = (text.replace(const, f"constexpr int kBlocksPerSm = {blocks};")
+            if blocks else text.replace(bound, "__launch_bounds__(kThreads)"))
+    tmp = _build.BUILD_DIR / f"kerr_blocks_{blocks}"
+    tmp.mkdir(parents=True, exist_ok=True)
+    for f in src.glob("*.cuh"):
+        (tmp / f.name).write_text(f.read_text())
+    (tmp / "kerr_dp45.cu").write_text(text)
+    (tmp / "kerr_dp45_f64.cu").write_text(
+        (src / "kerr_dp45_f64.cu").read_text())
+
+    def declare(lib):
+        for suffix in ("", "_f64"):
+            fn = getattr(lib, "lpt_kerr_dp45" + suffix)
+            fn.argtypes = [_build._P, _build._I]
+            fn.restype = _build._I
+        lib.lpt_cuda_error_string.argtypes = [_build._I]
+        lib.lpt_cuda_error_string.restype = _build.ctypes.c_char_p
+        return lib
+    _build.CSRC = tmp
+    _build._sources = lambda: [tmp / "kerr_dp45.cu", tmp / "kerr_dp45_f64.cu"]
+    _build._declare = declare
+    _build.load_library.cache_clear()
+    t0 = time.perf_counter()
+    lib = _build.load_library()
+    return time.perf_counter() - t0, [
+        dict(kernel=k, registers=r, spill=sp)
+        for k, r, sp in ptxas_report(lib.build_log)]
+
+
+def regs_section(dev, builds, X, blocks_list):
+    import torch
+    from chip_smoke import cuda_ms, same_bits
+    from light_path_tracer_tpu_torch.models import Kerr
+    from light_path_tracer_tpu_torch.ops.cuda import _build
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    kerr = Kerr(M=1.0, a=0.9)
+    al, th, rf = X["main"]
+    ga, gt = X["aligned"]
+    cases = {}
+    for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        cases[f"main path {tag}"] = (
+            lambda a=al.to(dt), t=th.to(dt): kk.trace_rays_kerr_cuda(
+                kerr, R_OBS, a, t, np.pi / 2, rf, LAMBDA_MAX, 200000))
+        cases[f"config-4 aligned {tag}"] = (
+            lambda a=ga.to(dt), t=gt.to(dt): kk.trace_disk_rays_cuda(
+                kerr, R_OBS, a, t, THETA, LAMBDA_MAX, 200000, X["plane"], 2))
+
+    def flat(res):
+        return [y for x in res for y in (x if isinstance(x, tuple) else (x,))]
+    builds.use("no contraction")
+    want = {label: flat(run()) for label, run in cases.items()}
+    saved = (_build.CSRC, _build._sources, _build._declare)
+    out = {}
+    try:
+        for blocks in blocks_list:
+            build_s, report = kerr_build(blocks)
+            for row in report:
+                print(f"  blocks {blocks}: {row['kernel']}: "
+                      f"{row['registers']} registers; {row['spill']}",
+                      flush=True)
+            rows = {}
+            for label, run in cases.items():
+                got = flat(run())
+                ms, _ = cuda_ms(run, 5)
+                rows[label] = dict(ms=ms, bitwise_equal=all(
+                    same_bits(x, y) for x, y in zip(got, want[label])))
+                print(f"blocks {blocks}, {label}: {json.dumps(rows[label])}",
+                      flush=True)
+            out[str(blocks)] = dict(build_s=build_s, ptxas=report,
+                                    calls=rows)
+    finally:
+        _build.CSRC, _build._sources, _build._declare = saved
+        _build.load_library.cache_clear()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -507,7 +557,8 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--out", default=None)
     parser.add_argument("--turns", type=int, default=4)
-    parser.add_argument("--sections", default="ab,rays,main")
+    parser.add_argument("--sections", default="ab,rays,main,regs")
+    parser.add_argument("--blocks", default="7,0")
     args = parser.parse_args()
     dev = torch.device("cuda", 0)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -515,9 +566,6 @@ def main() -> int:
                           text=True, timeout=60).stdout.strip()
     print(card, flush=True)
     builds = Builds()
-    for name in builds.flags:
-        builds.use(name)
-    print(f"builds (s): {json.dumps(builds.build_s)}", flush=True)
     X = inputs(dev)
     report = dict(card=card, build_s=builds.build_s)
     sections = args.sections.split(",")
@@ -527,6 +575,10 @@ def main() -> int:
         report["rays"] = rays_section(dev, builds, X)
     if "ab" in sections:
         report["ab"] = ab_section(dev, builds, X, args.turns)
+    if "regs" in sections:
+        report["regs"] = regs_section(
+            dev, builds, X, [int(b) for b in args.blocks.split(",")])
+    print(f"builds (s): {json.dumps(builds.build_s)}", flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -36,8 +36,9 @@ on near-axis lanes that freeze. Config 4's rays (959, 510..512) as JAX
 ends them; the quarter-offset grid's near-axis lanes and the order lane
 (171, 129) as the plain loop on the CPU ends them (the lanes still left
 open in ROADMAP Queue 3 are xfail with what each side does); the Kerr
-kernel's persistent schedule bitwise against its static one; its
-in-kernel extraction against finalize_angles on the same final states.
+kernel's warp step sum and unconverged flags against its per-ray
+attempts and raw statuses, and its in-kernel extraction against
+finalize_angles on the same final states.
 """
 
 import numpy as np
@@ -914,12 +915,12 @@ def test_order_lane_ends_as_plain_loop_on_card(cuda, field):
         assert int(probe["attempts"][0]) == int(rp.n_steps)
 
 
-def _schedule_cases(device):
-    """(label, run(schedule, dtype, probe)) of the persistent-vs-static
-    check: the main path's rays at 256^2, and config 4's near-axis block
-    (rows 940-979, columns 500-523 of the aligned 1024^2 grid) beside
-    4,096 random disk rays, opaque with two slots and translucent with
-    momenta."""
+def _kerr_cases(device):
+    """(label, run(dtype, probe, n)) of the Kerr kernel's own checks over
+    the first n rays: the main path's rays at 256^2, and config 4's
+    near-axis block (rows 940-979, columns 500-523 of the aligned 1024^2
+    grid) beside 4,096 random disk rays, opaque with two slots and
+    translucent with momenta."""
     m = Kerr(M=1.0, a=0.9)
     scene = SceneConfig(M=1.0, a=0.9)
     cfg = RenderConfig()
@@ -934,18 +935,18 @@ def _schedule_cases(device):
     thd = torch.cat([thd, torch.tensor(rng.uniform(-np.pi, np.pi, 4096),
                                        **f32)])
 
-    def shadow(schedule, dtype, probe):
-        return trace_rays_kerr_cuda(m, R_OBS, al.to(dtype), th.to(dtype),
-                                    np.pi / 2, ref, 5000.0, 200000,
-                                    return_unconverged=True, probe=probe,
-                                    _schedule=schedule)
+    def shadow(dtype, probe, n=None):
+        return trace_rays_kerr_cuda(m, R_OBS, al[:n].to(dtype),
+                                    th[:n].to(dtype), np.pi / 2, ref[:n],
+                                    5000.0, 200000, return_unconverged=True,
+                                    probe=probe)
 
     def disk_case(opaque, momentum):
-        def run(schedule, dtype, probe):
+        def run(dtype, probe, n=None):
             return trace_disk_rays_cuda(
-                m, R_OBS, ald.to(dtype), thd.to(dtype), THETA_DISK, 5000.0,
-                200000, _plane(opaque), 2, return_unconverged=True,
-                record_momentum=momentum, probe=probe, _schedule=schedule)
+                m, R_OBS, ald[:n].to(dtype), thd[:n].to(dtype), THETA_DISK,
+                5000.0, 200000, _plane(opaque), 2, return_unconverged=True,
+                record_momentum=momentum, probe=probe)
         return run
     return {"shadow": shadow, "disk opaque": disk_case(True, False),
             "disk translucent, momenta": disk_case(False, True)}
@@ -962,26 +963,30 @@ def _flat(result):
                          ids=["f32", "f64"])
 @pytest.mark.parametrize("case", ["shadow", "disk opaque",
                                   "disk translucent, momenta"])
-def test_persistent_schedule_is_bitwise_static(cuda, case, dtype):
-    """The persistent grid (lanes that take the next ray; private, for this
-    check) and the static one (one ray a thread, index order, the default)
-    give bitwise the same final alpha, n_half, status, unconverged flags,
-    hits, per-ray attempts, raw final states and warp step sum, which is
-    the sum over groups of 32 consecutive rays of their largest attempt
-    count."""
-    run = _schedule_cases(cuda)[case]
-    out = {}
-    for schedule in ("static", "persistent"):
-        probe = {}
-        res, unconv = run(schedule, dtype, probe)
-        out[schedule] = (res, _flat(res) + [unconv], probe)
-    (res, a, pa), (_res, b, pb) = out["static"], out["persistent"]
-    assert len(a) == len(b)
-    for x, y in zip(a, b):
+def test_warp_step_sum_and_flags_match_the_probe(cuda, case, dtype):
+    """The warp step sum the kernel books (each warp adds its largest
+    attempt count) equals the sum over groups of 32 consecutive rays of
+    their largest attempt count, also with a short last group; the
+    unconverged flags are the rays whose raw status is RUNNING; a call
+    without the probe gives bitwise the same outputs (disk: xi is the
+    probe's p_phi)."""
+    run = _kerr_cases(cuda)[case]
+    probe = {}
+    res, unconv = run(dtype, probe)
+    assert int(res.n_steps) == int(kerr_trace.warp_step_sum(
+        probe["attempts"]))
+    assert torch.equal(unconv, probe["raw_status"] == kerr_trace.RUNNING)
+    again, unconv2 = run(dtype, None)
+    for x, y in zip(_flat(res) + [unconv], _flat(again) + [unconv2]):
         assert torch.equal(_bits(x), _bits(y))
-    for k in ("attempts", "state", "raw_status", "cycles", "p_phi"):
-        assert torch.equal(_bits(pa[k]), _bits(pb[k]))
-    assert int(res.n_steps) == int(kerr_trace.warp_step_sum(pa["attempts"]))
+    if case != "shadow":
+        assert torch.equal(_bits(res.xi), _bits(probe["p_phi"]))
+    n = res.status.numel() - 7
+    short = {}
+    res_n, _unc = run(dtype, short, n)
+    assert int(res_n.n_steps) == int(kerr_trace.warp_step_sum(
+        short["attempts"]))
+    assert torch.equal(short["attempts"], probe["attempts"][:n])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
@@ -992,9 +997,9 @@ def test_in_kernel_extraction_matches_finalize_angles(cuda, dtype):
     statuses, half-orbits and NaN masks equal, final alpha within a few
     roundings (the two use the same operations in the same order; torch's
     and the kernel's libdevice calls may round apart)."""
-    run = _schedule_cases(cuda)["shadow"]
+    run = _kerr_cases(cuda)["shadow"]
     probe = {}
-    res, _unconv = run("persistent", dtype, probe)
+    res, _unconv = run(dtype, probe)
     p_t = torch.full_like(probe["p_phi"], -1.0)
     fa, nh, st = kerr_trace.finalize_angles(
         Kerr(M=1.0, a=0.9), probe["state"], p_t, probe["p_phi"],

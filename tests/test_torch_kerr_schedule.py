@@ -1,12 +1,10 @@
-"""The Kerr kernel's call layout, hand-out order and build flags, on the CPU.
+"""The Kerr kernel's call layout and build flags, on the CPU.
 
-The CUDA kernel itself runs only on a card (tests/test_torch_cuda.py holds
-its persistent schedule bitwise against the static one there); here the
-parts of its wrapper that plain Python reaches: the ctypes mirror of the C
-call struct against the struct in csrc/kerr_dp45.cu, field by field and in
-size, the hardest-first hand-out order against the JAX package's
-difficulty key, the build flags (no FMA contraction, no fast math), and
-the CPU route of both wrappers with the private schedule keyword.
+The CUDA kernel itself runs only on a card (tests/test_torch_cuda.py);
+here the parts of its wrapper that plain Python reaches: the ctypes
+mirror of the C call struct against the struct in csrc/kerr_dp45.cu,
+field by field and in size, the build flags (no FMA contraction, no fast
+math), and the CPU route of both wrappers.
 """
 
 import ctypes
@@ -16,9 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from light_path_tracer_tpu import camera as jcamera
-from light_path_tracer_tpu.models import Kerr as JKerr
-from light_path_tracer_tpu_torch import camera, disk
+from light_path_tracer_tpu_torch import disk
 from light_path_tracer_tpu_torch.models import Kerr
 from light_path_tracer_tpu_torch.ops.cuda import _build
 from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
@@ -39,53 +35,18 @@ def _c_struct_fields():
     return names
 
 
-def test_kerr_call_mirror_matches_the_c_struct():
-    fields = _c_struct_fields()
-    for struct in (kk.KerrCall, kk.KerrCall64):
-        assert [f[0] for f in struct._fields_] == fields
+@pytest.mark.parametrize("struct, real", [("KerrCall", "float"),
+                                          ("KerrCall64", "double")])
+def test_kerr_call_mirror_matches_the_c_struct(struct, real):
+    """Each ctypes mirror has KerrCall<T>'s members in order, its scalars
+    of the instance's type, and the size the source asserts."""
+    mirror = getattr(kk, struct)
+    assert [f[0] for f in mirror._fields_] == _c_struct_fields()
+    scalar = {"float": ctypes.c_float, "double": ctypes.c_double}[real]
+    assert dict(mirror._fields_)["M"] is scalar
     sizes = dict(re.findall(r"sizeof\(KerrCall<(\w+)>\) == (\d+)",
                             SOURCE.read_text()))
-    assert ctypes.sizeof(kk.KerrCall) == int(sizes["float"]) == 264
-    assert ctypes.sizeof(kk.KerrCall64) == int(sizes["double"]) == 336
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_hardest_first_order_is_the_difficulty_sort(dtype):
-    """The hardest-first hand-out order sorts the rays by |alpha -
-    alpha_crit|, the key of the JAX package's trace_batch, from the same
-    alpha_crit; the default order is the rays' own (None)."""
-    m = Kerr(M=1.0, a=0.9)
-    theta = float(np.radians(80.0))
-    ac = m.alpha_crit(R_OBS, theta)
-    assert ac == pytest.approx(JKerr(M=1.0, a=0.9).alpha_crit(R_OBS, theta),
-                               rel=1e-12)
-    rng = np.random.default_rng(0)
-    al = torch.tensor(rng.uniform(0.0, 4 * ac, 5000), dtype=dtype)
-    assert kk.hand_out_order(m, R_OBS, theta, al) is None
-    order = kk.hardest_first_order(m, R_OBS, theta, al)
-    assert order.dtype == torch.int64 and order.shape == al.shape
-    assert torch.equal(torch.sort(order).values, torch.arange(al.numel()))
-    key = (al - ac).abs()[order]
-    assert bool((key[1:] >= key[:-1]).all())
-
-
-def test_hardest_first_order_on_a_grid_puts_the_critical_ring_first():
-    """On config 4's 256^2 grid (the JAX package's camera angles, bitwise
-    the port's) the first rays of the hardest-first order sit on the
-    alpha_crit ring."""
-    dim = (256, 256)
-    fov = camera.fov_from_vertical(np.radians(40.0), dim)
-    al = camera.build_alpha_lookup(dim, fov, device="cpu").reshape(-1)
-    np.testing.assert_array_equal(
-        al.numpy(), np.asarray(jcamera.build_alpha_lookup(dim, fov))
-        .reshape(-1))
-    m = Kerr(M=1.0, a=0.9)
-    theta = float(np.radians(80.0))
-    ac = m.alpha_crit(R_OBS, theta)
-    order = kk.hardest_first_order(m, R_OBS, theta, al)
-    first, last = al[order[:256]], al[order[-256:]]
-    assert float((first - ac).abs().max()) < 0.05 * ac
-    assert float((last - ac).abs().min()) > 3.0 * ac
+    assert ctypes.sizeof(mirror) == int(sizes[real])
 
 
 def test_kernels_build_without_contraction_or_fast_math():
@@ -103,28 +64,53 @@ def test_peak_probe_writes_its_fmas():
     assert not re.search(r"= \w+(\[j\])? \* a \+ b;", text)
 
 
-def test_cpu_tensors_take_the_plain_loops_with_either_schedule():
-    """On CPU tensors both wrappers run their plain loops, whatever the
-    private schedule keyword says (there is no kernel to schedule)."""
+def _bits(t):
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32) \
+        if t.is_floating_point() else t
+
+
+def _rays(dtype, n=64):
     m = Kerr(M=1.0, a=0.9)
     ac = m.alpha_crit(R_OBS)
     rng = np.random.default_rng(3)
-    al = torch.tensor(rng.uniform(0.5 * ac, 3 * ac, 64), dtype=torch.float32)
-    th = torch.tensor(rng.uniform(-np.pi, np.pi, 64), dtype=torch.float32)
-    ref = torch.zeros(64, dtype=torch.bool)
+    al = torch.tensor(rng.uniform(0.5 * ac, 3 * ac, n), dtype=dtype)
+    th = torch.tensor(rng.uniform(-np.pi, np.pi, n), dtype=dtype)
+    return m, al, th
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_cpu_tensors_take_the_plain_shadow_loop(dtype):
+    """On CPU tensors the shadow wrapper runs its plain loop: bitwise the
+    plain loop's result, with the unconverged mask when asked for."""
+    m, al, th = _rays(dtype)
+    ref = torch.zeros(al.numel(), dtype=torch.bool)
     args = (m, R_OBS, al, th, np.pi / 2, ref, 5000.0, 2000)
-    want = kk.trace_rays_kerr_plain(*args)
-    for schedule in ("persistent", "static"):
-        got = kk.trace_rays_kerr_cuda(*args, _schedule=schedule)
-        for a, b in zip(got, want):
-            assert torch.equal(a.view(torch.int32) if a.is_floating_point()
-                               else a, b.view(torch.int32)
-                               if b.is_floating_point() else b)
-    plane = (disk.r_isco(1.0, 0.9), 20.0, float(np.pi / 2), True)
-    dargs = (m, R_OBS, al * 0.2, th, float(np.radians(80.0)), 5000.0, 2000,
-             plane, 2)
-    want = kk.trace_disk_rays_plain(*dargs)
-    got = kk.trace_disk_rays_cuda(*dargs, _schedule="static")
-    assert torch.equal(got.status, want.status)
-    assert torch.equal(got.n_hits, want.n_hits)
+    want, want_unc = kk.trace_rays_kerr_plain(*args,
+                                              return_unconverged=True)
+    got, got_unc = kk.trace_rays_kerr_cuda(*args, return_unconverged=True)
+    for a, b in zip(got, want):
+        assert torch.equal(_bits(a), _bits(b))
+    assert torch.equal(got_unc, want_unc)
+
+
+@pytest.mark.parametrize("opaque, momentum", [(True, False), (False, True)],
+                         ids=["opaque", "translucent, momenta"])
+def test_cpu_tensors_take_the_plain_disk_loop(opaque, momentum):
+    """On CPU tensors the disk wrapper runs its plain loop: bitwise the
+    plain loop's statuses, hits, headings and hit records."""
+    m, al, th = _rays(torch.float32)
+    plane = (disk.r_isco(1.0, 0.9), 20.0, float(np.pi / 2), opaque)
+    args = (m, R_OBS, al * 0.2, th, float(np.radians(80.0)), 5000.0, 2000,
+            plane, 2)
+    want = kk.trace_disk_rays_plain(*args, record_momentum=momentum)
+    got = kk.trace_disk_rays_cuda(*args, record_momentum=momentum)
+    for name in ("status", "n_hits", "xi", "final_alpha", "n_half"):
+        assert torch.equal(_bits(getattr(got, name)),
+                           _bits(getattr(want, name)))
+    for name in ("r_hits", "phi_hits") + (("pr_hits", "pth_hits")
+                                          if momentum else ()):
+        assert len(getattr(got, name)) == len(getattr(want, name))
+        for a, b in zip(getattr(got, name), getattr(want, name)):
+            assert torch.equal(_bits(a), _bits(b))
     assert int(got.n_steps) == int(want.n_steps)
