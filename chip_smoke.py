@@ -13,7 +13,9 @@ order-decomposition renders, and the card's arithmetic peak rates.
 Phases:
   1. machine: card name and power limit, torch and nvcc versions;
   2. build: nvcc for sm_90a without FMA contraction (-fmad=false), with
-     the build time and each kernel instance's registers and spills;
+     the build time and each kernel instance's registers and spills; for
+     each extras instance also the blocks of 128 threads an SM holds
+     (the runtime's occupancy query) and its functor's block bound;
   3. kernel vs plain version: 4,096 random rays (status agreement > 0.99,
      p99 |d final_alpha| < 2e-3 on stable escaped rays), a 128^2 image
      (shadow masks agree on >= 99.5% of pixels), and the main path's
@@ -133,10 +135,13 @@ Phases:
  16. the peak probe (its FMAs written out as fmaf / fma, which
      -fmad=false leaves fused): the chains against the same recurrence in
      torch
-     (k = 64: float32 and float64 within 4 k ulp, sinf within 4 ulp) and
-     the card's FP32 FMA (one chain and eight a thread), FP64 FMA, mixed
-     and sinf rates from the marginal time between chain lengths 2,048
-     and 8,192.
+     (k = 64: float32 and float64 within 4 k ulp, sinf within 4 ulp, the
+     eight-chain library forms within 4 k ulp of their sum) and the
+     card's FP32 FMA (one chain and eight a thread), FP64 FMA, mixed and
+     sinf rates from the marginal time between chain lengths 2,048 and
+     8,192, and the rates of exp, pow, the IEEE division, sqrt, sin and
+     cos in float32 and float64, eight chains a thread, between shorter
+     lengths (peak_probe.CHAIN_LENGTHS).
  17. the float64 instances against the plain float64 loop: the Kerr and
      disk kernels on 1,024 of phases 3's and 8's rays, the orbit kernel
      on 1,024 rays and the alpha = 0 lane (Schwarzschild and RN), every
@@ -184,15 +189,19 @@ Phases:
 Each path's launch counters are set to 0 just before it and read just
 after (float32 and float64 instances count apart: `.launches`,
 `.launches_f64`). The second-to-last line is a JSON object of per-kernel
-results: beside each kernel's time stand its bound (the larger of its
-flops over the H100's published 67 TFLOP/s float32 rate, 34 TFLOP/s for
-the float64 instances, and its bytes over 3.35 TB/s, from this run's
-per-ray attempt counts and the flops per attempt counted from the CUDA
-sources; transcendentals are left out, so it stays a lower bound), the
-same bound at the FP32 (FP64) rate phase 16 measured, and the slowest
-ray's attempts with the time that ray takes when traced alone. The last line is {"ok": true, "device": {...}}. Exit code 0 iff
-every phase passed; without a CUDA device it exits 1 and prints no
-result.
+results: beside each kernel's time stand its flops-only bound `bound_ms`
+(the larger of its flops over the H100's published 67 TFLOP/s float32
+rate, 34 TFLOP/s for the float64 instances, and its bytes over 3.35
+TB/s, from this run's per-ray attempt counts and the flops per attempt
+counted from the CUDA sources with the library functions left out), the
+same bound at the FP32 (FP64) rate phase 16 measured, the counted bound
+`bound_counted_ms` (every operation of an attempt by kind, `ops`, each
+at the rate phase 16 measured for it, ops/cuda/bounds.py), the slowest
+ray's attempts with the time that ray takes when traced alone, and for
+the extras kernel the instance it launched with its registers, spills,
+blocks an SM and block bound. The last line is
+{"ok": true, "device": {...}}. Exit code 0 iff every phase passed;
+without a CUDA device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -206,6 +215,10 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from light_path_tracer_tpu_torch.ops.cuda import bounds  # noqa: E402
+from light_path_tracer_tpu_torch.ops.cuda.bounds import (  # noqa: E402
+    PEAK_BYTES, extras_work, kerr_work, orbit_work)
 
 R_OBS = 100.0
 LAMBDA_MAX = 5000.0
@@ -461,7 +474,36 @@ def kernel_label(mangled):
     if m:
         kind = {"If": "<float>", "Id": "<double>", None: ""}[m.group(2)]
         return f"peak_probe::{m.group(1)}{kind}"
+    m = re.search(r"op8_chain_kernelINS_\d+(\w+?)StepE([fd])", mangled)
+    if m:
+        return (f"peak_probe::op8_chain_kernel<{m.group(1)},"
+                f"{real[m.group(2)]}>")
     return mangled
+
+
+def extras_resources(report):
+    """Fill RESOURCES for every extras instance: what the runtime reports
+    for the card (volumetric_kernel.describe_instance: registers, local
+    memory, blocks an SM) and ptxas's spills (report: ptxas_report's rows
+    of this build; empty when the library was loaded from an earlier
+    one); fails if an instance is missing or no block fits an SM."""
+    import re
+    from light_path_tracer_tpu_torch.ops.cuda import volumetric_kernel as vk
+    ptx = {name: spill for name, _regs, spill in report}
+    for label, entry, form, variant, dtype in vk.extras_instances():
+        require(label in ptx or not ptx, f"ptxas reported no {label}")
+        d = vk.describe_instance(entry, form, variant, dtype)
+        nums = dict((k, int(v)) for v, k in re.findall(
+            r"(\d+) bytes (stack frame|spill stores|spill loads)",
+            ptx.get(label, "")))
+        require(d["blocks_per_sm"] > 0, f"{label}: {d}")
+        RESOURCES[label] = dict(
+            registers=d["registers"],
+            spill_stores=nums.get("spill stores", 0),
+            spill_loads=nums.get("spill loads", 0),
+            stack_bytes=nums.get("stack frame", 0),
+            local_bytes=d["local_bytes"], blocks_per_sm=d["blocks_per_sm"],
+            min_blocks=d["min_blocks"])
 
 
 def ptxas_report(log):
@@ -479,40 +521,6 @@ def ptxas_report(log):
             rows.append((name, int(m.group(1)), spill))
             name, spill = None, ""
     return rows
-
-
-# Published peaks of one H100 SXM (NVIDIA's data sheet): float32 and
-# float64 outside the tensor cores, and HBM3.
-PEAK_FP32 = 67e12
-PEAK_FP64 = 34e12
-PEAK_BYTES = 3.35e12
-# Flops of one evaluation, counted from the CUDA sources as written
-# (before the compiler's common subexpressions; a multiply-add counts 2,
-# a division 1; sinf, cosf, expf, powf and sqrtf are left out): the
-# geodesic's rhs5 (kerr_dp45_common.cuh), the emissivity and redshift
-# every transfer form shares (source() in kerr_dp45_extras.cuh) and what
-# each form adds; one RK4 step of the orbit kernel.
-RHS5_FLOPS = 148
-SOURCE_FLOPS = 67
-ORBIT_STEP_FLOPS = 55
-
-
-def form_flops(kind, width=0, absorbing=False):
-    """The extras' flops of one RHS evaluation of a transfer form."""
-    extra = {"thin": 0, "absorbed": 6, "spectral": 5 + 3 * width,
-             "stokes": 240, "movie": 33 + 9 * width,
-             "order": 15 + width}[kind]
-    if absorbing and kind in ("movie", "order"):
-        extra += 7
-    return SOURCE_FLOPS + extra
-
-
-def attempt_flops(components, rhs_extra=0):
-    """Flops of one DP45 attempt over `components` state components: six
-    new RHS evaluations plus the stage sums, the error norm, the event
-    root and the controller (86 C + 55, the structure
-    scripts/roofline.py documents)."""
-    return 6 * (RHS5_FLOPS + rhs_extra) + 86 * components + 55
 
 
 def attempts_stats(attempts, alone):
@@ -537,26 +545,37 @@ def driver_attempts(attempts, pass1_steps):
                .sum())
 
 
+# Each extras instance's resources, filled in phase 2: label (as
+# kernel_label names it) -> registers, spills, local memory, blocks an SM
+# and block bound.
+RESOURCES = {}
+
+
 def kernel_entry(name, source, replaces, launches, max_abs_err, ms,
-                 plain_ms, n, bytes_per_ray, flops, stats=None,
-                 peak=PEAK_FP32):
-    """One entry of the kernels line. flops: the operations this run's
-    inputs need, at the rate `peak` of their type; stats: attempts_stats
-    of the timed call (a kernel's own single launch; a driver's entry has
-    none)."""
-    t_ops, t_bytes = flops / peak, n * bytes_per_ray / PEAK_BYTES
+                 plain_ms, n, bytes_per_ray, work, stats=None,
+                 instance=None):
+    """One entry of the kernels line. work: the operations this run's
+    inputs need (bounds.Work: per-ray attempts times one attempt's, in the
+    instance's scalar type); bound_ms is the flops-only bound at the
+    published peak of that type (the counted bound joins once phase 16
+    has measured the card's rates); stats: attempts_stats of the timed
+    call (a kernel's own single launch; a driver's entry has none);
+    instance: the extras instance it launched, whose resources (phase 2)
+    the entry carries."""
+    n_bytes = n * bytes_per_ray
+    bound, by = bounds.flops_bound_ms(work, n_bytes)
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches,
              "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": 1e3 * max(t_ops, t_bytes),
-             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-             "library_ms": None, "rays": n, "flops": flops,
-             "flops_type": "float64" if peak == PEAK_FP64 else "float32",
-             "bytes": n * bytes_per_ray}
+             "bound_ms": bound, "bound_by": by, "library_ms": None,
+             "rays": n, "flops": work.flops, "flops_type": work.dtype,
+             "ops": work.ops, "bytes": n_bytes}
     if stats:
         entry.update({k: stats[k] for k in ("slowest_attempts",
                                             "slowest_alone_ms")
                       if k in stats})
+    if instance:
+        entry.update(instance=instance, **RESOURCES.get(instance, {}))
     return entry
 
 
@@ -960,8 +979,10 @@ def volumetric_phases(dev, card):
 
     thin, spec = g11["thin"], g11["spectral 3-band"]
     n_bands = len(freqs3)
-    thin_flops = attempt_flops(6, form_flops("thin"))
-    spec_flops = attempt_flops(6 + n_bands, form_flops("spectral", n_bands))
+    thin_work = extras_work("thin")
+    spec_work = extras_work("spectral", n_bands)
+    thin_inst = "kerr_dp45_extras<VolThin<float>>"
+    spec_inst = f"kerr_dp45_extras<Spectral<{n_bands},float>>"
     state = dict(kerr=kerr, al=al, th=th, scene=scene, cfg=cfg,
                  thin_emission=thin_map, thin_exited=thin_exited,
                  plain64_11=plain64)
@@ -969,24 +990,26 @@ def volumetric_phases(dev, card):
         kernel_entry("kerr_dp45_extras", VOL_SOURCE, f"{VOL_JAX}:53",
                      launches["volumetric"], thin["max_abs_em"], thin["ms"],
                      thin["plain_ms"], VOL_RAYS, 8 + 4 * 5,
-                     thin["attempts_sum"] * thin_flops, thin),
+                     thin["attempts_sum"] * thin_work, thin, thin_inst),
         kernel_entry("trace_rays_volumetric_two_pass", VOL_DRIVERS,
                      f"{VOL_JAX}:209", launches["vol_driver"],
                      drv["thin"]["max_abs_em"], drv["thin"]["ms"],
                      drv["thin"]["plain_ms"], VOL_RAYS, 8 + 4 * 5,
-                     drv["thin"]["attempts_sum"] * thin_flops),
+                     drv["thin"]["attempts_sum"] * thin_work,
+                     instance=thin_inst),
         kernel_entry("kerr_dp45_extras_spectral", VOL_SOURCE,
                      f"{VOL_JAX}:276", launches["spectral"],
                      spec["max_abs_em"], spec["ms"], spec["plain_ms"],
                      VOL_RAYS, 8 + 4 * (5 + n_bands),
-                     spec["attempts_sum"] * spec_flops, spec),
+                     spec["attempts_sum"] * spec_work, spec, spec_inst),
         kernel_entry("trace_rays_spectral_two_pass", VOL_DRIVERS,
                      f"{VOL_JAX}:476", launches["spec_driver"],
                      drv["spectral 3-band"]["max_abs_em"],
                      drv["spectral 3-band"]["ms"],
                      drv["spectral 3-band"]["plain_ms"], VOL_RAYS,
                      8 + 4 * (5 + n_bands),
-                     drv["spectral 3-band"]["attempts_sum"] * spec_flops)
+                     drv["spectral 3-band"]["attempts_sum"] * spec_work,
+                     instance=spec_inst)
     ], state
 
 
@@ -1012,7 +1035,7 @@ P0 = 0.7
 
 def aux_forms(metric, al, th):
     """Phase 14's forms on rays (al, th): label -> (transfer_fn, n_extras,
-    aux, sat_monitor, flops of one attempt)."""
+    aux, sat_monitor, the form as bounds.extras_work takes it)."""
     from light_path_tracer_tpu_torch import polarization, volumetric
     from light_path_tracer_tpu_torch.disk import keplerian_omega
     period = 2.0 * np.pi / abs(keplerian_omega(1.0, 0.9, 6.0, True))
@@ -1023,7 +1046,7 @@ def aux_forms(metric, al, th):
         forms[f"stokes {field}"] = (
             polarization.make_polarized_volumetric_transfer(
                 metric, volumetric.RIAFConfig(), field, P0), 3, aux,
-            (0, 1, 2), attempt_flops(8, form_flops("stokes")))
+            (0, 1, 2), dict(kind="stokes", field=field))
     for a0 in (0.0, 0.3):
         ab = int(a0 > 0)
         riaf = volumetric.RIAFConfig(spot_amp=8.0, alpha0=a0)
@@ -1032,16 +1055,24 @@ def aux_forms(metric, al, th):
             volumetric.make_movie_transfer(metric, riaf, times),
             1 + ab + N_FRAMES, (),
             tuple(range(1 + ab, 1 + ab + N_FRAMES)),
-            attempt_flops(6 + ab + N_FRAMES,
-                          form_flops("movie", N_FRAMES, ab)))
+            dict(kind="movie", width=N_FRAMES, absorbing=bool(ab)))
         riaf = volumetric.RIAFConfig(alpha0=a0)
         forms[f"order {name}"] = (
             volumetric.make_order_transfer(metric, riaf, N_ORDERS),
             1 + ab + N_ORDERS, (),
             tuple(range(1 + ab, 1 + ab + N_ORDERS)),
-            attempt_flops(6 + ab + N_ORDERS,
-                          form_flops("order", N_ORDERS, ab)))
+            dict(kind="order", width=N_ORDERS, absorbing=bool(ab)))
     return forms
+
+
+def extras_label(desc, real="float"):
+    """The extras instance (as kernel_label names it) of a phase-14 form's
+    bounds description."""
+    kind, width = desc["kind"], desc.get("width", 0)
+    ab = int(desc.get("absorbing", False))
+    args = {"stokes": "", "movie": f"{width},absorbing={ab},",
+            "order": f"{width},absorbing={ab},"}[kind]
+    return f"kerr_dp45_extras<{kind.capitalize()}<{args}{real}>>"
 
 
 def aux_trace(metric, form, al, th, max_steps, kernel, **kw):
@@ -1051,7 +1082,7 @@ def aux_trace(metric, form, al, th, max_steps, kernel, **kw):
     from light_path_tracer_tpu_torch.ops import kerr_trace
     from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
     from light_path_tracer_tpu_torch.ops.cuda import volumetric_kernel as vk
-    tf, n_extras, aux, monitor, _flops = form
+    tf, n_extras, aux, monitor, _work = form
     driver = kw.pop("driver", False)
     aux = tuple(a.to(al.dtype) for a in aux)
     plain_tf = tf if aux else (lambda y, pt, pp, _aux: tf(y, pt, pp))
@@ -1278,7 +1309,7 @@ def new_mode_phases(dev, card, state):
     # (2 % of the flux), so a last bucket that is closed breaks the sum.
     aux_both("phase 14", kerr, "order x2 thin", (
         volumetric.make_order_transfer(kerr, volumetric.RIAFConfig(), 2),
-        3, (), (1, 2), attempt_flops(8, form_flops("order", 2))),
+        3, (), (1, 2), dict(kind="order", width=2)),
         al, th, AUX_STEPS, AUX_WINDOW, f64=False)
     d256 = VOL_PLAIN_DIM
     fov256 = camera.fov_from_vertical(scene.vertical_fov, d256)
@@ -1558,7 +1589,8 @@ def new_mode_phases(dev, card, state):
             name, source, f"{jax_file}:276", launches[path], g["max_abs"],
             g["ms"], g["plain_ms"], VOL_RAYS,
             8 + 4 * len(form[2]) + 4 * (form[1] + 4),
-            g["attempts_sum"] * form[4], g))
+            g["attempts_sum"] * extras_work(**form[4]), g,
+            extras_label(form[4])))
         row = scene14[label]
         entries[-1].update(scene_single_ms=row["single_ms"],
                            scene_attempts_max=row["attempts_max"],
@@ -1567,7 +1599,8 @@ def new_mode_phases(dev, card, state):
         "trace_rays_aux_two_pass", VOL_DRIVERS, f"{jax_file}:421",
         launches["polarized driver"], g_drv["max_abs"], g_drv["ms"],
         g_drv["plain_ms"], VOL_RAYS, 8 + 16 + 4 * 7,
-        g_drv["attempts_sum"] * stokes[4]))
+        g_drv["attempts_sum"] * extras_work(**stokes[4]),
+        instance=extras_label(stokes[4])))
     return entries
 
 
@@ -1594,15 +1627,19 @@ def probe_phase(dev, card):
     rates = peak_probe.measure_rates(dev)
     n_launch = peak_probe.chain_cuda.launches
     tera = {f: r["rate"] / 1e12 for f, r in rates.items()}
-    print(f"peak rates on {card} (marginal, chain lengths 2,048 -> 8,192, "
+    library = ", ".join(f"{f[:-2]} {tera[f] * 1e3:.1f}" for f in rates
+                        if f[:-4] in peak_probe.LIBRARY_FORMS)
+    print(f"peak rates on {card} (marginal between two chain lengths, "
           f"{peak_probe.N_ELEMENTS} elements): FP32 FMA "
           f"{tera['fma32']:.2f} TFLOP/s (one chain a thread), "
           f"{tera['fma32x8']:.2f} TFLOP/s (eight), FP64 FMA "
           f"{tera['fma64']:.2f} TFLOP/s, mixed {tera['mix']:.2f} TFLOP/s, "
-          f"sinf {tera['sin'] * 1e3:.1f} Gsin/s; {json.dumps(rates)}",
+          f"sinf {tera['sin'] * 1e3:.1f} Gsin/s; library calls (eight "
+          f"chains a thread, G calls/s): {library}; {json.dumps(rates)}",
           flush=True)
     require(n_launch == 12 * len(rates), f"probe launches {n_launch}")
-    require(rates["fma32x8"]["rate"] > rates["fma64"]["rate"] > 1e12,
+    require(rates["fma32x8"]["rate"] > rates["fma64"]["rate"] > 1e12
+            and all(tera[f] > 1e-3 for f in rates),
             f"implausible rates: {tera}")
     # The plain version at the timed shape, with a short chain.
     x = torch.full((peak_probe.N_ELEMENTS,), 0.5, device=dev)
@@ -1614,7 +1651,8 @@ def probe_phase(dev, card):
     entry = kernel_entry(
         "peak_probe", PROBE_SOURCE, "scripts/roofline.py:80", n_launch,
         worst["fma32x8"], kernel_ms, plain_ms, peak_probe.N_ELEMENTS, 8,
-        16 * k_plain * peak_probe.N_ELEMENTS)
+        bounds.Work(16 * k_plain * peak_probe.N_ELEMENTS,
+                    {"flop": 8 * k_plain * peak_probe.N_ELEMENTS}))
     return entry, rates
 
 
@@ -1873,40 +1911,42 @@ def float64_phase(dev, card, ctx):
             f"float32 vs float64 on the main path: {main}")
 
     # The float64 instances' kernels-line entries: the launches of the
-    # float64 renders, the times of the comparisons above, the bound at
-    # the published FP64 rate.
-    shadow_flops = attempt_flops(5)
+    # float64 renders, the times of the comparisons above, the bounds in
+    # float64.
+    shadow_work = kerr_work("float64")
     k, dk, ok_ = rows["kerr"], rows["disk"], rows["orbit"]
     jv = f"{VOL_JAX}"
     entries = [
         kernel_entry("kerr_dp45_f64", F64_SOURCE.format("kerr_dp45"),
                      REPLACES, f64_launches["shadow"], k["max_abs"], k["ms"],
                      k["plain_ms"], k["n"], 17 + 16,
-                     k["attempts_sum"] * shadow_flops, k, peak=PEAK_FP64),
+                     k["attempts_sum"] * shadow_work, k),
         kernel_entry("kerr_dp45_disk_f64", F64_SOURCE.format("kerr_dp45"),
                      f"{JAX_KERNELS}:316", f64_launches["disk"],
                      dk["max_dr"], dk["ms"], dk["plain_ms"], dk["n"],
-                     16 + 28 + 32, dk["attempts_sum"] * shadow_flops, dk,
-                     peak=PEAK_FP64),
+                     16 + 28 + 32, dk["attempts_sum"] * shadow_work, dk),
         kernel_entry("schwarzschild_rk4_f64",
                      F64_SOURCE.format("schwarzschild_rk4"), ORBIT_REPLACES,
                      f64_launches["lensed"], ok_["max_abs"], ok_["ms"],
                      ok_["plain_ms"], ok_["n"], 8 + 20,
-                     ok_["attempts_sum"] * ORBIT_STEP_FLOPS, ok_,
-                     peak=PEAK_FP64)]
+                     ok_["attempts_sum"] * orbit_work(dtype="float64"),
+                     ok_)]
     n_bands = len(freqs3)
-    for label, name, fam, flops, nbytes in (
+    for label, name, fam, desc, nbytes in (
             ("thin", "kerr_dp45_extras_f64", "volumetric",
-             attempt_flops(6, form_flops("thin")), 16 + 8 + 13),
+             dict(kind="thin"), 16 + 8 + 13),
             ("spectral 3-band", "kerr_dp45_extras_spectral_f64", "spectrum",
-             attempt_flops(6 + n_bands, form_flops("spectral", n_bands)),
+             dict(kind="spectral", width=n_bands),
              16 + 8 * (1 + n_bands) + 13)):
         g = rows[label]
+        inst = ("kerr_dp45_extras<VolThin<double>>" if label == "thin" else
+                f"kerr_dp45_extras<Spectral<{n_bands},double>>")
         entries.append(kernel_entry(
             name, F64_SOURCE.format("kerr_dp45_extras"), f"{jv}:53"
             if label == "thin" else f"{jv}:276", f64_launches[fam],
             g["max_abs_em"], g["ms"], g["plain_ms"], VOL_RAYS, nbytes,
-            g["attempts_sum"] * flops, g, peak=PEAK_FP64))
+            g["attempts_sum"] * extras_work(**desc, dtype="float64"), g,
+            inst))
     for label, name, fam in (
             ("stokes toroidal", "kerr_dp45_stokes", "polarized"),
             ("movie thin", "kerr_dp45_movie_thin", "movie"),
@@ -1917,7 +1957,8 @@ def float64_phase(dev, card, ctx):
             f"{name}_f64", F64_SOURCE.format(name), f"{jv}:276",
             f64_launches[fam], g["max_abs"], g["ms"], g["plain_ms"],
             VOL_RAYS, 16 + 8 * len(form[2]) + 8 * form[1] + 13,
-            g["attempts_sum"] * form[4], g, peak=PEAK_FP64))
+            g["attempts_sum"] * extras_work(**form[4], dtype="float64"), g,
+            extras_label(form[4], "double")))
     return entries
 
 
@@ -2148,8 +2189,13 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.2f} s -> {_build.library_path().name}",
           flush=True)
+    extras_resources(ptxas_report(lib.build_log))
     for name, regs, spill in ptxas_report(lib.build_log):
-        print(f"  ptxas: {name}: {regs} registers; {spill}", flush=True)
+        r = RESOURCES.get(name)
+        more = (f"; {r['blocks_per_sm']} blocks an SM (block bound "
+                f"{r['min_blocks']})" if r else "")
+        print(f"  ptxas: {name}: {regs} registers; {spill}{more}",
+              flush=True)
 
     # -- 3. kernel vs plain version ---------------------------------------
     metric = Kerr(M=1.0, a=0.9)
@@ -2550,7 +2596,7 @@ def main() -> int:
     # -- 19. the rays of the reference; the Kerr kernel's booking --------
     reference_phase(dev, card)
 
-    shadow_flops = attempt_flops(5)
+    shadow_work = kerr_work()
     # Bytes a ray: alpha, theta (and the refine byte) in; final_alpha,
     # n_half and the status out, plus p_phi, n_hits and two slots of
     # (r, phi) hits in the disk variant.
@@ -2558,31 +2604,37 @@ def main() -> int:
         kernel_entry("kerr_dp45", KERNEL_SOURCE, REPLACES, launches,
                      gmain["max_abs"], gmain["ms"], gmain["plain_ms"],
                      gmain["n"], 9 + 12,
-                     gmain["attempts_sum"] * shadow_flops, gmain),
+                     gmain["attempts_sum"] * shadow_work, gmain),
         kernel_entry("schwarzschild_rk4", ORBIT_SOURCE, ORBIT_REPLACES,
                      launches1 + launches2, gorb["max_abs"], gorb["ms"],
                      gorb["plain_ms"], gorb["n"], 4 + 13,
-                     gorb["attempts_sum"] * ORBIT_STEP_FLOPS, gorb),
+                     gorb["attempts_sum"] * orbit_work(), gorb),
         kernel_entry("kerr_dp45_disk", KERNEL_SOURCE, f"{JAX_KERNELS}:316",
                      launches4, gdisk["max_dr"], gdisk["ms"],
                      gdisk["plain_ms"], gdisk["n"], 8 + 20 + 16,
-                     gdisk["attempts_sum"] * shadow_flops, gdisk),
+                     gdisk["attempts_sum"] * shadow_work, gdisk),
         kernel_entry("trace_disk_rays_two_pass", DRIVER_SOURCE,
                      f"{JAX_KERNELS}:416", driver4, g_drv["max_dr"],
                      two_ms_k, two_ms_p, int(al_d.numel()), 8 + 20 + 16,
-                     g_drv["attempts_sum"] * shadow_flops),
+                     g_drv["attempts_sum"] * shadow_work),
         kernel_entry("trace_rays_kerr_two_pass", DRIVER_SOURCE,
                      f"{JAX_KERNELS}:257", launches_k2, g_k2["max_abs"],
                      kerr_row["two_pass_ms"], plain2_ms, gmain["n"], 9 + 12,
-                     kerr_row["attempts_sum"] * shadow_flops)]
+                     kerr_row["attempts_sum"] * shadow_work)]
     kernels += vol_kernels + new_kernels + [probe_kernel] + f64_kernels
     # The same bound at the rate of its type this card measured in phase
-    # 16 (float32: eight chains a thread; float64: one).
+    # 16 (float32: eight chains a thread; float64: one), and the counted
+    # bound: every operation by kind at the rate phase 16 measured for it.
     for k in kernels:
         rate = rates["fma64" if k["flops_type"] == "float64"
                      else "fma32x8"]["rate"]
         k["bound_ms_measured_rate"] = 1e3 * max(
             k["flops"] / rate, k["bytes"] / PEAK_BYTES)
+        ms, by, parts = bounds.counted_bound_ms(
+            bounds.Work(k["flops"], k["ops"], k["flops_type"]), k["bytes"],
+            rates)
+        k.update(bound_counted_ms=ms, bound_counted_by=by,
+                 bound_counted_ms_by_kind=parts)
     require(all(k["launches"] > 0 for k in kernels),
             f"a kernel was not launched on its path: "
             f"{[k['name'] for k in kernels if k['launches'] <= 0]}")

@@ -179,17 +179,18 @@ __device__ __forceinline__ T error_scale(T y, T y5, T k1, T k7, T h_eff,
 }
 
 // Hamilton's equations on the reduced theta-state (models/kerr.py rhs5),
-// hard-zeroed inside r <= 1.001 r_+.
+// hard-zeroed inside r <= 1.001 r_+, with sin_th and cos_th the sine and
+// cosine of y[1] (the extras kernel hands them on to its transfer
+// function, which needs them too).
 template <class T>
-__device__ __forceinline__ void rhs5(const T y[5], T p_t, T p_phi,
-                                     const Params<T>& P, T out[5]) {
+__device__ __forceinline__ void rhs5_trig(const T y[5], T sin_th, T cos_th,
+                                          T p_t, T p_phi, const Params<T>& P,
+                                          T out[5]) {
   const T M = P.M, a = P.a;
-  const T r = y[0], th = y[1], p_r = y[3], p_th = y[4];
+  const T r = y[0], p_r = y[3], p_th = y[4];
   const bool frozen = r <= P.r_plus * T(1.001);
   const T r_s = frozen ? T(10.0) * P.r_plus + T(10.0) : r;
 
-  const T sin_th = sin_(th);
-  const T cos_th = cos_(th);
   const T sin2 = jmax(sin_th * sin_th, Consts<T>::kSin2Floor);
   const T a2 = a * a;
   const T r2 = r_s * r_s;
@@ -264,6 +265,12 @@ __device__ __forceinline__ void rhs5(const T y[5], T p_t, T p_phi,
   out[2] = frozen ? T(0.0) : dphi;
   out[3] = frozen ? T(0.0) : dp_r;
   out[4] = frozen ? T(0.0) : dp_th;
+}
+
+template <class T>
+__device__ __forceinline__ void rhs5(const T y[5], T p_t, T p_phi,
+                                     const Params<T>& P, T out[5]) {
+  rhs5_trig(y, sin_(y[1]), cos_(y[1]), p_t, p_phi, P, out);
 }
 
 // Step fraction where the cubic Hermite interpolant of r crosses target:

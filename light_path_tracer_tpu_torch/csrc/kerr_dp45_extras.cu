@@ -27,13 +27,15 @@
 // warp, and four profiles times ten functors would otherwise be forty
 // instances to build on every call.
 //
-// What bounds it: arithmetic and the slowest lane of each warp. An attempt
-// makes 6 new RHS evaluations; each adds the emissivity (an exp, a pow and
-// a cos) and the redshift (a pow, a sqrt and divisions) to the geodesic's
-// sinf, cosf and three reciprocals. A ray reads 8 bytes and writes
-// 4 (kExtras + 4) bytes (twice that in float64). The state, its seven
-// stages and the counters live in registers (chip_smoke.py prints ptxas's
-// registers and spills for every instance).
+// What bounds it: the issue of library sequences and the slowest lane of
+// each warp. An attempt makes 6 new RHS evaluations; each adds the
+// emissivity (an exp) and the redshift (two pows, a sqrt and nine IEEE
+// divisions) to the geodesic's sinf, cosf and three reciprocals, the cosf
+// shared (ops/cuda/bounds.py counts every operation of every form). A ray
+// reads 8 bytes and writes 4 (kExtras + 4) bytes (twice that in float64).
+// The state, its seven stages and the counters live in registers, under
+// each functor's block bound (chip_smoke.py prints every instance's
+// registers, spills and blocks an SM).
 // Each warp adds its largest per-ray attempt count to one int64 counter
 // (the n_steps contract of ops/types.py). This file builds the float
 // instances; kerr_dp45_extras_f64.cu the double ones (lpt_*_f64).
@@ -47,9 +49,11 @@ template <class T>
 struct VolThin {
   static constexpr int kExtras = 1;
   static constexpr int kAux = 0;
-  __device__ static void eval(const T* y, T p_t, T p_phi, const Params<T>&,
-                              const RiafParams<T>& R, const T*, T* d) {
-    d[0] = source(y, p_t, p_phi, R).em;
+  static constexpr int kMinBlocks = kSingle<T> ? 6 : 7;
+  __device__ static void eval(const T* y, Trig<T> tr, T p_t, T p_phi,
+                              const Params<T>&, const RiafParams<T>& R,
+                              const T*, T* d) {
+    d[0] = source(y, tr.c, p_t, p_phi, R).em;
   }
 };
 
@@ -58,9 +62,11 @@ template <class T>
 struct VolAbsorbed {
   static constexpr int kExtras = 2;
   static constexpr int kAux = 0;
-  __device__ static void eval(const T* y, T p_t, T p_phi, const Params<T>&,
-                              const RiafParams<T>& R, const T*, T* d) {
-    const Source<T> s = source(y, p_t, p_phi, R);
+  static constexpr int kMinBlocks = kSingle<T> ? 6 : 7;
+  __device__ static void eval(const T* y, Trig<T> tr, T p_t, T p_phi,
+                              const Params<T>&, const RiafParams<T>& R,
+                              const T*, T* d) {
+    const Source<T> s = source(y, tr.c, p_t, p_phi, R);
     d[0] = exp_(-jmax(y[6], T(-30.0))) * s.em;
     d[1] = opacity(s, R);
   }
@@ -71,9 +77,11 @@ template <int kBands, class T>
 struct Spectral {
   static constexpr int kExtras = 1 + kBands;
   static constexpr int kAux = 0;
-  __device__ static void eval(const T* y, T p_t, T p_phi, const Params<T>&,
-                              const RiafParams<T>& R, const T*, T* d) {
-    const Source<T> s = source(y, p_t, p_phi, R);
+  static constexpr int kMinBlocks = kSingle<T> ? (kBands <= 3 ? 5 : 8) : 3;
+  __device__ static void eval(const T* y, Trig<T> tr, T p_t, T p_phi,
+                              const Params<T>&, const RiafParams<T>& R,
+                              const T*, T* d) {
+    const Source<T> s = source(y, tr.c, p_t, p_phi, R);
     d[0] = R.geometry
                ? R.alpha0 * s.j
                : R.alpha0 * s.j * pow_(jmax(s.g, T(0.1)), R.q_minus_1);
@@ -81,6 +89,27 @@ struct Spectral {
 #pragma unroll
     for (int b = 0; b < kBands; ++b)
       d[1 + b] = R.band_scale[b] * s.em * exp_(R.neg_c[b] * tau_hat);
+  }
+};
+
+// The functors of this source by (form, variant): 0 thin, 1
+// self-absorbed, 2 spectral with variant = the number of bands (1..8).
+struct Forms {
+  template <class Fn>
+  int operator()(int form, int variant, Fn&& fn) const {
+    switch (form == 2 ? 10 + variant : form) {
+      case 0: return fn(Tag<VolThin<Real>>());
+      case 1: return fn(Tag<VolAbsorbed<Real>>());
+      case 11: return fn(Tag<Spectral<1, Real>>());
+      case 12: return fn(Tag<Spectral<2, Real>>());
+      case 13: return fn(Tag<Spectral<3, Real>>());
+      case 14: return fn(Tag<Spectral<4, Real>>());
+      case 15: return fn(Tag<Spectral<5, Real>>());
+      case 16: return fn(Tag<Spectral<6, Real>>());
+      case 17: return fn(Tag<Spectral<7, Real>>());
+      case 18: return fn(Tag<Spectral<8, Real>>());
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
 };
 
@@ -94,21 +123,14 @@ extern "C" {
 // 1 self-absorbed (2), 2 spectral (1 + variant extras, variant = the
 // number of bands, 1..8).
 int LPT_ENTRY(lpt_kerr_dp45_extras)(const void* call, const void* riaf) {
-  LPT_BEGIN(call, riaf);
-  switch (C.form == 2 ? 10 + C.variant : C.form) {
-    case 0: launch<VolThin<Real>>(C, K); break;
-    case 1: launch<VolAbsorbed<Real>>(C, K); break;
-    case 11: launch<Spectral<1, Real>>(C, K); break;
-    case 12: launch<Spectral<2, Real>>(C, K); break;
-    case 13: launch<Spectral<3, Real>>(C, K); break;
-    case 14: launch<Spectral<4, Real>>(C, K); break;
-    case 15: launch<Spectral<5, Real>>(C, K); break;
-    case 16: launch<Spectral<6, Real>>(C, K); break;
-    case 17: launch<Spectral<7, Real>>(C, K); break;
-    case 18: launch<Spectral<8, Real>>(C, K); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return run_entry(call, riaf, Forms());
+}
+
+// The resources of the instance of (form, variant) on the current card
+// into out[0..3] (describe in kerr_dp45_extras.cuh); a cudaError_t.
+int LPT_ENTRY(lpt_kerr_dp45_extras_describe)(int form, int variant,
+                                              int* out) {
+  return describe_entry(form, variant, out, Forms());
 }
 
 }  // extern "C"

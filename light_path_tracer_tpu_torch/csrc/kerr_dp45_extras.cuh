@@ -11,10 +11,21 @@
 // the adaptive DP45 + FSAL loop over 5 + kExtras components, the
 // saturation and frozen-state exits, the exact-cycle exit, the angle
 // extraction of kerr_dp45_common.cuh), and the launch helpers. A functor is
-//   template <class T> struct F { static constexpr int kExtras, kAux;
-//     static void eval(y, p_t, p_phi, P, R, aux, d); }
-// with d the kExtras derivatives at state y and aux the ray's kAux
-// per-ray constants (read once into registers).
+//   template <class T> struct F { static constexpr int kExtras, kAux,
+//     kMinBlocks; static void eval(y, tr, p_t, p_phi, P, R, aux, d); }
+// with d the kExtras derivatives at state y, tr the sine and cosine of
+// y[1] (computed once an evaluation for the geodesic and the transfer
+// function alike) and aux the ray's kAux per-ray constants (read once
+// into registers).
+//
+// Storage: a thread holds its ray's state, its seven stages and its
+// counters in registers. kMinBlocks, the second argument of the kernel's
+// __launch_bounds__, is the number of 128-thread blocks an SM must be
+// able to hold at once: it caps the registers a thread may use (65,536 /
+// (128 kMinBlocks)) and so trades spills for occupancy. Each functor
+// states it per scalar type (and width), as measured on the H100
+// (PERF.md §6); the stage values of the extras kept in shared memory
+// instead were measured slower for every instance (PERF.md §6).
 //
 // Saturation and frozen-state exits (sat_window > 0, ops/kerr_trace.py
 // dp45_integrate): a ray whose monitored extras have not changed for
@@ -162,17 +173,16 @@ __device__ __forceinline__ T g_jet(T r, T c, T p_r, T p_t, T p_phi,
 }
 
 // The rest-frame emissivity j, the emitter redshift g, the redshift
-// weight w = g^p and the emission em = j w at state y; g and w are 1 in
-// the pure-geometry mode.
+// weight w = g^p and the emission em = j w at state y with c = cos(y[1]);
+// g and w are 1 in the pure-geometry mode.
 template <class T>
 struct Source {
   T j, g, w, em;
 };
 
 template <class T>
-__device__ __forceinline__ Source<T> source(const T* y, T p_t, T p_phi,
+__device__ __forceinline__ Source<T> source(const T* y, T c, T p_t, T p_phi,
                                             const RiafParams<T>& R) {
-  const T c = cos_(y[1]);
   Source<T> s;
   s.j = j_rest(y[0], c, R);
   if (R.geometry) {
@@ -196,6 +206,12 @@ __device__ __forceinline__ T opacity(const Source<T>& s,
   return R.geometry ? R.alpha0 * s.j : R.alpha0 * s.j / jmax(s.g, T(0.1));
 }
 
+// sin(theta) and cos(theta) of the state an evaluation runs at.
+template <class T>
+struct Trig {
+  T s, c;
+};
+
 // The full right-hand side: the geodesic's five components, then the
 // functor's extras. aux holds the ray's F::kAux per-ray constants.
 template <class F, class T, int N>
@@ -203,8 +219,9 @@ __device__ __forceinline__ void rhs_full(const T (&y)[N], T p_t, T p_phi,
                                          const Params<T>& P,
                                          const RiafParams<T>& R,
                                          const T* aux, T (&out)[N]) {
-  rhs5(y, p_t, p_phi, P, out);
-  F::eval(y, p_t, p_phi, P, R, aux, out + 5);
+  const Trig<T> tr{sin_(y[1]), cos_(y[1])};
+  rhs5_trig(y, tr.s, tr.c, p_t, p_phi, P, out);
+  F::eval(y, tr, p_t, p_phi, P, R, aux, out + 5);
 }
 
 // One call of a C entry point, filled by the Python wrapper
@@ -256,9 +273,16 @@ __device__ __forceinline__ void window_exit(const SatParams<T>& S,
   }
 }
 
+// The blocks an SM must be able to hold at once: the functor's own
+// (see the head of this file).
+template <class F>
+struct BlockBound {
+  static constexpr int kMin = F::kMinBlocks;
+};
+
 // The ray kernel, one thread per ray.
 template <class F, class T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, BlockBound<F>::kMin)
 kerr_dp45_extras_kernel(ExtrasCall<T> C, Params<T> P, RiafParams<T> R,
                         SatParams<T> S) {
   using K = Tab<T>;
@@ -461,8 +485,8 @@ kerr_dp45_extras_kernel(ExtrasCall<T> C, Params<T> P, RiafParams<T> R,
 // What a C entry point does around its switch over the functors: begin()
 // zeroes the warp-step counter and forms the kernel's parameter structs
 // (false: nothing to launch, *err says whether that is an error);
-// launch<F>() starts the kernel for one functor. Both in the instance's
-// scalar type Real.
+// launch<F>() starts the kernel for one functor, describe<F>() reports an
+// instance's resources. All in the instance's scalar type Real.
 struct Prepared {
   Params<Real> P;
   RiafParams<Real> R;
@@ -483,18 +507,61 @@ inline bool begin(const ExtrasCall<Real>& C, const void* riaf, Prepared* out,
 }
 
 template <class F>
-void launch(const ExtrasCall<Real>& C, const Prepared& K) {
+int launch(const ExtrasCall<Real>& C, const Prepared& K) {
   kerr_dp45_extras_kernel<F, Real>
       <<<(C.n + kThreads - 1) / kThreads, kThreads, 0,
          static_cast<cudaStream_t>(C.stream)>>>(C, K.P, K.R, K.S);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// The C entry points' common prologue: the call struct of this instance
-// and the prepared parameters, or an early return of the error code.
-#define LPT_BEGIN(call, riaf)                                          \
-  const ExtrasCall<Real>& C = *static_cast<const ExtrasCall<Real>*>(call); \
-  Prepared K;                                                          \
-  cudaError_t err;                                                     \
-  if (!begin(C, riaf, &K, &err)) return static_cast<int>(err)
+// An instance's resources on the current card, into out[0..3]: resident
+// blocks of kThreads an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// registers a thread, local memory a thread (bytes: the spills and the
+// stack frame) and the block bound it was built with.
+template <class F>
+int describe(int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err =
+      cudaFuncGetAttributes(&attr, kerr_dp45_extras_kernel<F, Real>);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kerr_dp45_extras_kernel<F, Real>, kThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = blocks;
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = BlockBound<F>::kMin;
+  return 0;
+}
+
+// A family source names its functors through a picker,
+//   struct Pick { template <class Fn> int operator()(int form, int variant,
+//                                                     Fn&& fn) const; }
+// that calls fn(Tag<F>()) for the functor of (form, variant) and returns
+// cudaErrorInvalidValue for any other; its two C entry points are then
+// run_entry (launch) and describe_entry (resources).
+template <class F>
+struct Tag {
+  using type = F;
+};
+
+template <class Pick>
+int run_entry(const void* call, const void* riaf, Pick pick) {
+  const ExtrasCall<Real>& C = *static_cast<const ExtrasCall<Real>*>(call);
+  Prepared K;
+  cudaError_t err;
+  if (!begin(C, riaf, &K, &err)) return static_cast<int>(err);
+  return pick(C.form, C.variant, [&](auto tag) {
+    return launch<typename decltype(tag)::type>(C, K);
+  });
+}
+
+template <class Pick>
+int describe_entry(int form, int variant, int* out, Pick pick) {
+  return pick(form, variant, [&](auto tag) {
+    return describe<typename decltype(tag)::type>(out);
+  });
+}
 
 }  // namespace

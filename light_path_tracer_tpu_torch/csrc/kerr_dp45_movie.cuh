@@ -22,11 +22,13 @@
 // with sin(theta) signed (the double-cover chart). The frame times are
 // launch constants; kFrames is 1..8.
 //
-// What bounds it: arithmetic and registers. Each RHS adds a cosf and an
-// expf per frame to the thin form's work, six times an attempt, and the
-// state has up to 15 components, each with its seven stages: the widest
-// instances spill (chip_smoke.py prints ptxas's report). A ray reads 8
-// bytes and writes 4 (kExtras + 4).
+// What bounds it: arithmetic and registers. Each RHS adds a cosf, an
+// expf and a division per frame to the thin form's work, six times an
+// attempt (ops/cuda/bounds.py; sin and cos of theta come from the
+// geodesic's evaluation), and the state has up to 15 components,
+// each with its seven stages: under the functor's block bound the widest
+// instances spill (chip_smoke.py prints registers, spills and blocks an
+// SM). A ray reads 8 bytes and writes 4 (kExtras + 4).
 
 #pragma once
 
@@ -38,14 +40,17 @@ template <int kFrames, bool kAbsorbing, class T>
 struct Movie {
   static constexpr int kExtras = 1 + (kAbsorbing ? 1 : 0) + kFrames;
   static constexpr int kAux = 0;
-  __device__ static void eval(const T* y, T p_t, T p_phi,
+  static constexpr int kMinBlocks =
+      kSingle<T> ? (kAbsorbing ? 7 : (kFrames <= 5 ? 5 : 4))
+                 : (kAbsorbing && kFrames > 5 ? 7 : 3);
+  __device__ static void eval(const T* y, Trig<T> tr, T p_t, T p_phi,
                               const Params<T>& P, const RiafParams<T>& R,
                               const T*, T* d) {
-    const T r = y[0], th = y[1], phi = y[2], t = y[5];
-    const Source<T> s = source(y, p_t, p_phi, R);
+    const T r = y[0], phi = y[2], t = y[5];
+    const T sin_th = tr.s, cos_th = tr.c;
+    const Source<T> s = source(y, cos_th, p_t, p_phi, R);
 
     // dt/dlambda from the contravariant metric (models/kerr.py tdot)
-    const T sin_th = sin_(th), cos_th = cos_(th);
     const T sin2 = jmax(sin_th * sin_th, Consts<T>::kSin2Floor);
     const T r2 = r * r, a2 = P.a * P.a;
     const T Sigma = r2 + a2 * cos_th * cos_th;
@@ -73,22 +78,26 @@ struct Movie {
   }
 };
 
-// The switch over the frame count for one absorption mode.
+// The functors of one absorption mode by variant = the number of frames
+// (1..8); the form is the absorption flag, which the entry point fixes.
 template <bool kAbsorbing>
-int launch_movie(const void* call, const void* riaf) {
-  LPT_BEGIN(call, riaf);
-  switch (C.variant) {
-    case 1: launch<Movie<1, kAbsorbing, Real>>(C, K); break;
-    case 2: launch<Movie<2, kAbsorbing, Real>>(C, K); break;
-    case 3: launch<Movie<3, kAbsorbing, Real>>(C, K); break;
-    case 4: launch<Movie<4, kAbsorbing, Real>>(C, K); break;
-    case 5: launch<Movie<5, kAbsorbing, Real>>(C, K); break;
-    case 6: launch<Movie<6, kAbsorbing, Real>>(C, K); break;
-    case 7: launch<Movie<7, kAbsorbing, Real>>(C, K); break;
-    case 8: launch<Movie<8, kAbsorbing, Real>>(C, K); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+struct Frames {
+  template <class Fn>
+  int operator()(int form, int variant, Fn&& fn) const {
+    if (form != (kAbsorbing ? 1 : 0))
+      return static_cast<int>(cudaErrorInvalidValue);
+    switch (variant) {
+      case 1: return fn(Tag<Movie<1, kAbsorbing, Real>>());
+      case 2: return fn(Tag<Movie<2, kAbsorbing, Real>>());
+      case 3: return fn(Tag<Movie<3, kAbsorbing, Real>>());
+      case 4: return fn(Tag<Movie<4, kAbsorbing, Real>>());
+      case 5: return fn(Tag<Movie<5, kAbsorbing, Real>>());
+      case 6: return fn(Tag<Movie<6, kAbsorbing, Real>>());
+      case 7: return fn(Tag<Movie<7, kAbsorbing, Real>>());
+      case 8: return fn(Tag<Movie<8, kAbsorbing, Real>>());
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
-  return static_cast<int>(cudaGetLastError());
-}
+};
 
 }  // namespace

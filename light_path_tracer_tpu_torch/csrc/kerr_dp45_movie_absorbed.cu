@@ -8,11 +8,19 @@
 
 extern "C" {
 
-// Launches Movie<call->variant, true> for `call` (an ExtrasCall of Real)
-// with the RiafParams of Real at `riaf`; returns a cudaError_t (0 on success).
+// Launches Movie<call->variant, true> for `call` (an ExtrasCall of
+// Real, form 1) with the RiafParams of Real at `riaf`; returns a
+// cudaError_t (0 on success).
 int LPT_ENTRY(lpt_kerr_dp45_movie_absorbed)(const void* call,
-                                             const void* riaf) {
-  return launch_movie<true>(call, riaf);
+                                            const void* riaf) {
+  return run_entry(call, riaf, Frames<true>());
+}
+
+// The resources of Movie<variant, true> on the current card into out[0..3]
+// (describe in kerr_dp45_extras.cuh); a cudaError_t.
+int LPT_ENTRY(lpt_kerr_dp45_movie_absorbed_describe)(int form, int variant,
+                                                     int* out) {
+  return describe_entry(form, variant, out, Frames<true>());
 }
 
 }  // extern "C"

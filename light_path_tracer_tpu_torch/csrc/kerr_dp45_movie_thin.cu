@@ -6,10 +6,19 @@
 
 extern "C" {
 
-// Launches Movie<call->variant, false> for `call` (an ExtrasCall of Real)
-// with the RiafParams of Real at `riaf`; returns a cudaError_t (0 on success).
-int LPT_ENTRY(lpt_kerr_dp45_movie_thin)(const void* call, const void* riaf) {
-  return launch_movie<false>(call, riaf);
+// Launches Movie<call->variant, false> for `call` (an ExtrasCall of
+// Real, form 0) with the RiafParams of Real at `riaf`; returns a
+// cudaError_t (0 on success).
+int LPT_ENTRY(lpt_kerr_dp45_movie_thin)(const void* call,
+                                        const void* riaf) {
+  return run_entry(call, riaf, Frames<false>());
+}
+
+// The resources of Movie<variant, false> on the current card into out[0..3]
+// (describe in kerr_dp45_extras.cuh); a cudaError_t.
+int LPT_ENTRY(lpt_kerr_dp45_movie_thin_describe)(int form, int variant,
+                                                 int* out) {
+  return describe_entry(form, variant, out, Frames<false>());
 }
 
 }  // extern "C"

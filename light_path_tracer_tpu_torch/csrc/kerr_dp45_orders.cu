@@ -19,9 +19,10 @@
 // integrand is discontinuous where m crosses an integer, so a step that
 // straddles the edge is rejected until it is short enough; kOrders is 2..4.
 //
-// What bounds it: arithmetic, as the thin form, with one more expf and the
-// bucket selects per RHS; 8 to 11 components. A ray reads 8 bytes and
-// writes 4 (kExtras + 4).
+// What bounds it: arithmetic, as the thin form, with one more expf, a
+// division and the bucket selects per RHS (ops/cuda/bounds.py; sin and
+// cos of theta come from the geodesic's evaluation); 8 to 11 components.
+// A ray reads 8 bytes and writes 4 (kExtras + 4).
 
 #include "kerr_dp45_extras.cuh"
 
@@ -31,15 +32,17 @@ template <int kOrders, bool kAbsorbing, class T>
 struct Order {
   static constexpr int kExtras = 1 + (kAbsorbing ? 1 : 0) + kOrders;
   static constexpr int kAux = 0;
-  __device__ static void eval(const T* y, T p_t, T p_phi,
+  static constexpr int kMinBlocks =
+      kSingle<T> ? (kAbsorbing ? 7 : 6) : (kAbsorbing ? 6 : 3);
+  __device__ static void eval(const T* y, Trig<T> tr, T p_t, T p_phi,
                               const Params<T>&, const RiafParams<T>& R,
                               const T*, T* d) {
-    const T r = y[0], th = y[1];
-    const T c = cos_(th);
-    const Source<T> s = source(y, p_t, p_phi, R);
+    const T r = y[0];
+    const T c = tr.c;
+    const Source<T> s = source(y, c, p_t, p_phi, R);
     const T sigma_bl = r * r + R.a2 * c * c;
     d[0] = R.order_norm * exp_(-c * c * R.order_inv_two_sig2) *
-           abs_(sin_(th)) * abs_(y[4]) / sigma_bl;
+           abs_(tr.s) * abs_(y[4]) / sigma_bl;
     // RK stage probes can push m slightly negative: bucket 0.
     const T bucket = floor_(jmax(y[5], T(0.0)));
     T em = s.em;
@@ -56,6 +59,23 @@ struct Order {
   }
 };
 
+// The functors of this source by (form, variant): variant = the number
+// of orders (2..4), form 1 = with absorption.
+struct Forms {
+  template <class Fn>
+  int operator()(int form, int variant, Fn&& fn) const {
+    switch (10 * (form != 0) + variant) {
+      case 2: return fn(Tag<Order<2, false, Real>>());
+      case 3: return fn(Tag<Order<3, false, Real>>());
+      case 4: return fn(Tag<Order<4, false, Real>>());
+      case 12: return fn(Tag<Order<2, true, Real>>());
+      case 13: return fn(Tag<Order<3, true, Real>>());
+      case 14: return fn(Tag<Order<4, true, Real>>());
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -65,17 +85,14 @@ extern "C" {
 // absorption) with the RiafParams of Real at `riaf`; returns a cudaError_t
 // (0 on success).
 int LPT_ENTRY(lpt_kerr_dp45_orders)(const void* call, const void* riaf) {
-  LPT_BEGIN(call, riaf);
-  switch (10 * (C.form != 0) + C.variant) {
-    case 2: launch<Order<2, false, Real>>(C, K); break;
-    case 3: launch<Order<3, false, Real>>(C, K); break;
-    case 4: launch<Order<4, false, Real>>(C, K); break;
-    case 12: launch<Order<2, true, Real>>(C, K); break;
-    case 13: launch<Order<3, true, Real>>(C, K); break;
-    case 14: launch<Order<4, true, Real>>(C, K); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return run_entry(call, riaf, Forms());
+}
+
+// The resources of the instance of (form, variant) on the current card
+// into out[0..3] (describe in kerr_dp45_extras.cuh); a cudaError_t.
+int LPT_ENTRY(lpt_kerr_dp45_orders_describe)(int form, int variant,
+                                              int* out) {
+  return describe_entry(form, variant, out, Forms());
 }
 
 }  // extern "C"

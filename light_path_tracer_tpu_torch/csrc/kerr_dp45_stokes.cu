@@ -26,9 +26,10 @@
 // What bounds it: arithmetic. The state has 8 components, but this is the
 // widest right-hand side of all the families: beside the geodesic and the
 // emissivity it forms two metrics, three lowered vectors, two norms and
-// the 2x2 inversion (about 230 flops, three sqrt, one pow and a dozen
-// divisions more than the thin form), six times an attempt. A ray reads
-// 24 bytes and writes 28.
+// the 2x2 inversion (183 flops, three sqrt, one pow and 18 divisions more
+// than the thin form, ops/cuda/bounds.py; sin and cos of theta come from
+// the geodesic's evaluation), six times an attempt. A ray reads 24 bytes
+// and writes 28.
 
 #include "kerr_dp45_extras.cuh"
 
@@ -38,12 +39,13 @@ template <class T>
 struct Stokes {
   static constexpr int kExtras = 3;
   static constexpr int kAux = 4;
-  __device__ static void eval(const T* y, T p_t, T p_phi,
+  static constexpr int kMinBlocks = kSingle<T> ? 4 : 3;
+  __device__ static void eval(const T* y, Trig<T> tr, T p_t, T p_phi,
                               const Params<T>&, const RiafParams<T>& R,
                               const T* aux, T* d) {
-    const T r = y[0], th = y[1], p_r = y[3], p_th = y[4];
-    const Source<T> s = source(y, p_t, p_phi, R);
-    const T sin_th = sin_(th), cos_th = cos_(th);
+    const T r = y[0], p_r = y[3], p_th = y[4];
+    const T sin_th = tr.s, cos_th = tr.c;
+    const Source<T> s = source(y, cos_th, p_t, p_phi, R);
     const T r2 = r * r;
 
     // photon k^mu from the contravariant metric (E = 1, L = p_phi)
@@ -153,6 +155,16 @@ struct Stokes {
   }
 };
 
+// The one functor of this source (form 0, variant 0).
+struct Forms {
+  template <class Fn>
+  int operator()(int form, int variant, Fn&& fn) const {
+    if (form != 0 || variant != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return fn(Tag<Stokes<Real>>());
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -161,11 +173,17 @@ extern "C" {
 // of Real with four aux pointers) and the RiafParams of Real at `riaf`;
 // returns a cudaError_t (0 on success).
 int LPT_ENTRY(lpt_kerr_dp45_stokes)(const void* call, const void* riaf) {
-  LPT_BEGIN(call, riaf);
+  const ExtrasCall<Real>& C = *static_cast<const ExtrasCall<Real>*>(call);
   for (int k = 0; k < Stokes<Real>::kAux; ++k)
     if (C.aux[k] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  launch<Stokes<Real>>(C, K);
-  return static_cast<int>(cudaGetLastError());
+  return run_entry(call, riaf, Forms());
+}
+
+// The resources of the Stokes instance on the current card into
+// out[0..3] (describe in kerr_dp45_extras.cuh); a cudaError_t.
+int LPT_ENTRY(lpt_kerr_dp45_stokes_describe)(int form, int variant,
+                                              int* out) {
+  return describe_entry(form, variant, out, Forms());
 }
 
 }  // extern "C"

@@ -1,8 +1,12 @@
 // Arithmetic peak-rate probe for Hopper (sm_90a): register-resident
 // chains of FMA (float32, one chain or eight independent ones a thread,
-// and float64), of mixed FMA / add / mul, and of sinf, whose marginal time
-// between two chain lengths gives the card's own arithmetic rates: the
-// yardstick the ray kernels' bounds are stated against.
+// and float64), of mixed FMA / add / mul, of sinf, and of the operations
+// the ray kernels issue as library sequences rather than single
+// instructions (exp, pow, an IEEE division, sqrt, sin and cos, in float32
+// and float64, eight independent chains a thread each), whose marginal
+// time between two chain lengths gives the card's own rates: the
+// yardstick the ray kernels' bounds are stated against
+// (ops/cuda/bounds.py).
 //
 // Replaces the Pallas TPU kernel
 //   scripts/roofline.py::_chain_kernel (entry _chain),
@@ -18,7 +22,13 @@
 // What bounds it: arithmetic alone, by construction. An element is read
 // once and written once (8 or 16 bytes), against 2 k to 16 k operations.
 // The multiplier and the addend are kernel arguments, so the compiler
-// cannot fold the recurrence; the loop is unrolled eight times.
+// cannot fold the recurrence; the loop is unrolled eight times. The
+// library-sequence chains are maps that stay in range (exp(-v), b^v with
+// b = 1/2, b / v, sqrt(v), sin(v), cos(v) from v in (0, 1)), so every
+// call takes the sequence the ray kernels take, without special cases.
+// These are built as the package builds everything (no fast math, IEEE
+// division and square root), so each is the same sequence the ray
+// kernels run.
 //
 // The package builds every kernel with -fmad=false (no contraction of
 // a*b + c), so each FMA of the chains below is written explicitly
@@ -30,7 +40,13 @@ namespace {
 
 constexpr int kProbeThreads = 128;
 
-enum ProbeForm { kFma32 = 0, kFma64 = 1, kMix = 2, kSin = 3, kFma32x8 = 4 };
+enum ProbeForm {
+  kFma32 = 0, kFma64 = 1, kMix = 2, kSin = 3, kFma32x8 = 4,
+  // eight chains a thread of one library sequence: float32, then float64
+  kExp32x8 = 5, kPow32x8 = 6, kDiv32x8 = 7, kSqrt32x8 = 8, kSin32x8 = 9,
+  kCos32x8 = 10, kExp64x8 = 11, kPow64x8 = 12, kDiv64x8 = 13,
+  kSqrt64x8 = 14, kSin64x8 = 15, kCos64x8 = 16
+};
 
 // One fused multiply-add, rounded once, in float or double.
 __device__ __forceinline__ float fma_(float x, float y, float z) {
@@ -102,6 +118,78 @@ mix_chain_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
   out[i] = ((((((f1 + f2) + a1) + a2) + a3) + m1) + m2) + m3;
 }
 
+// The library sequences as the ray kernels call them (kerr_dp45_common.cuh
+// has the same overloads), one step of each chain.
+__device__ __forceinline__ float exp_(float x) { return expf(x); }
+__device__ __forceinline__ double exp_(double x) { return exp(x); }
+__device__ __forceinline__ float pow_(float x, float y) { return powf(x, y); }
+__device__ __forceinline__ double pow_(double x, double y) {
+  return pow(x, y);
+}
+__device__ __forceinline__ float sqrt_(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sqrt_(double x) { return sqrt(x); }
+__device__ __forceinline__ float sin_(float x) { return sinf(x); }
+__device__ __forceinline__ double sin_(double x) { return sin(x); }
+__device__ __forceinline__ float cos_(float x) { return cosf(x); }
+__device__ __forceinline__ double cos_(double x) { return cos(x); }
+
+struct ExpStep {
+  template <class F> __device__ static F run(F v, F) { return exp_(-v); }
+};
+struct PowStep {
+  template <class F> __device__ static F run(F v, F b) { return pow_(b, v); }
+};
+struct DivStep {
+  template <class F> __device__ static F run(F v, F b) { return b / v; }
+};
+struct SqrtStep {
+  template <class F> __device__ static F run(F v, F) { return sqrt_(v); }
+};
+struct SinStep {
+  template <class F> __device__ static F run(F v, F) { return sin_(v); }
+};
+struct CosStep {
+  template <class F> __device__ static F run(F v, F) { return cos_(v); }
+};
+
+// Eight independent chains v <- Op(v, b) an element, started 0.01 apart,
+// 8 k calls an element; their sum is stored.
+template <class Op, class F>
+__global__ void __launch_bounds__(kProbeThreads)
+op8_chain_kernel(const F* __restrict__ x, F* __restrict__ out, int n, int k,
+                 F b) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  F v[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = x[i] + F(0.01) * static_cast<F>(j);
+#pragma unroll 1
+  for (int s = 0; s < k; ++s) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = Op::run(v[j], b);
+  }
+  F acc = v[0];
+#pragma unroll
+  for (int j = 1; j < 8; ++j) acc = acc + v[j];
+  out[i] = acc;
+}
+
+struct Op8Launch {
+  int blocks;
+  cudaStream_t s;
+  const void* x;
+  void* out;
+  int n, k;
+  double b;
+};
+
+template <class Op, class F>
+void launch_op8(const Op8Launch& L) {
+  op8_chain_kernel<Op, F><<<L.blocks, kProbeThreads, 0, L.s>>>(
+      static_cast<const F*>(L.x), static_cast<F*>(L.out), L.n, L.k,
+      static_cast<F>(L.b));
+}
+
 // v <- sinf(v), k times.
 __global__ void __launch_bounds__(kProbeThreads)
 sin_chain_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
@@ -120,14 +208,18 @@ extern "C" {
 
 // Launches one chain of length k over n elements on `stream` and returns
 // a cudaError_t (0 on success). form: 0 float32 FMA, 1 float64 FMA (x and
-// out are double), 2 mixed, 3 sinf, 4 eight float32 FMA chains. a and b
-// are the multiplier and the addend (unused by form 3).
+// out are double), 2 mixed, 3 sinf, 4 eight float32 FMA chains, 5..10
+// eight float32 chains of exp(-v), b^v, b / v, sqrt(v), sin(v), cos(v),
+// 11..16 the same in float64 (x and out are double). a and b are the
+// multiplier and the addend of the FMA forms; b is the base of the power
+// and the numerator of the division.
 int lpt_peak_probe(int form, const void* x, void* out, int n, int k,
                    double a, double b, void* stream) {
   if (n <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = (n + kProbeThreads - 1) / kProbeThreads;
   const float af = static_cast<float>(a), bf = static_cast<float>(b);
+  const Op8Launch L{blocks, s, x, out, n, k, b};
   switch (form) {
     case kFma32:
       fma_chain_kernel<float><<<blocks, kProbeThreads, 0, s>>>(
@@ -153,6 +245,18 @@ int lpt_peak_probe(int form, const void* x, void* out, int n, int k,
       sin_chain_kernel<<<blocks, kProbeThreads, 0, s>>>(
           static_cast<const float*>(x), static_cast<float*>(out), n, k);
       break;
+    case kExp32x8: launch_op8<ExpStep, float>(L); break;
+    case kPow32x8: launch_op8<PowStep, float>(L); break;
+    case kDiv32x8: launch_op8<DivStep, float>(L); break;
+    case kSqrt32x8: launch_op8<SqrtStep, float>(L); break;
+    case kSin32x8: launch_op8<SinStep, float>(L); break;
+    case kCos32x8: launch_op8<CosStep, float>(L); break;
+    case kExp64x8: launch_op8<ExpStep, double>(L); break;
+    case kPow64x8: launch_op8<PowStep, double>(L); break;
+    case kDiv64x8: launch_op8<DivStep, double>(L); break;
+    case kSqrt64x8: launch_op8<SqrtStep, double>(L); break;
+    case kSin64x8: launch_op8<SinStep, double>(L); break;
+    case kCos64x8: launch_op8<CosStep, double>(L); break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

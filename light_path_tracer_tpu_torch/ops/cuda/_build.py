@@ -34,6 +34,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
+# The extras kernel's C entry points, one a transfer family; each has a
+# *_describe twin that reports an instance's resources.
+EXTRAS_ENTRIES = ("lpt_kerr_dp45_extras", "lpt_kerr_dp45_stokes",
+                  "lpt_kerr_dp45_movie_thin", "lpt_kerr_dp45_movie_absorbed",
+                  "lpt_kerr_dp45_orders")
+
 _P = ctypes.c_void_p
 _F = ctypes.c_float
 _D = ctypes.c_double
@@ -114,11 +120,12 @@ def _declare(lib):
         fn = getattr(lib, "lpt_kerr_dp45" + suffix)
         fn.argtypes = [_P, _I]
         fn.restype = _I
-        for name in ("lpt_kerr_dp45_extras", "lpt_kerr_dp45_stokes",
-                     "lpt_kerr_dp45_movie_thin",
-                     "lpt_kerr_dp45_movie_absorbed", "lpt_kerr_dp45_orders"):
+        for name in EXTRAS_ENTRIES:
             fn = getattr(lib, name + suffix)
             fn.argtypes = [_P, _P]
+            fn.restype = _I
+            fn = getattr(lib, name + "_describe" + suffix)
+            fn.argtypes = [_I, _I, _P]
             fn.restype = _I
         fn = getattr(lib, "lpt_orbit_rk4" + suffix)
         fn.argtypes = [_P] * 6 + [_I] * 2 + [real] * 13 + [_I] * 2 + [_P]

@@ -27,6 +27,12 @@ take); CPU tensors run the plain loop (`ops/kerr_trace.py`). As in
 `kerr_trace_kernel.py`, the private `_cycle_exit=False` grinds the exact
 cycles the kernel otherwise counts at once, and `probe` receives their
 census.
+
+Each instance is built with its functor's block bound (kMinBlocks in
+csrc/kerr_dp45_extras.cuh: the 128-thread blocks an SM must hold, which
+caps its registers). `extras_instances` lists every compiled instance and
+`describe_instance` reports one's registers, local memory and blocks an SM
+on the current card.
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ from light_path_tracer_tpu_torch.ops.kerr_trace import (
 from light_path_tracer_tpu_torch.ops.types import ExtrasResult
 
 __all__ = ["RiafParams", "RiafParams64", "ExtrasCall", "ExtrasCall64",
-           "riaf_params",
+           "riaf_params", "extras_instances", "describe_instance",
            "trace_rays_volumetric_cuda", "trace_rays_aux_cuda",
            "trace_rays_spectral_cuda", "MAX_BANDS", "MAX_FRAMES",
            "MAX_ORDERS", "MAX_AUX"]
@@ -141,6 +147,49 @@ def riaf_params(spec, dtype=torch.float32):
     for i, t in enumerate(spec.times):
         p.times[i] = t
     return p
+
+
+def extras_instances():
+    """Every compiled instance of the extras kernel, in float32 then
+    float64: (label, C entry point, form, variant, dtype), the label as
+    ptxas's report names the kernel (chip_smoke.kernel_label), e.g.
+    "kerr_dp45_extras<Movie<8,absorbing=1,float>>"."""
+    rows = [("VolThin<{}>", "lpt_kerr_dp45_extras", 0, 0),
+            ("VolAbsorbed<{}>", "lpt_kerr_dp45_extras", 1, 0)]
+    rows += [(f"Spectral<{b},{{}}>", "lpt_kerr_dp45_extras", 2, b)
+             for b in range(1, MAX_BANDS + 1)]
+    rows.append(("Stokes<{}>", "lpt_kerr_dp45_stokes", 0, 0))
+    for ab in (0, 1):
+        entry = ("lpt_kerr_dp45_movie_absorbed" if ab
+                 else "lpt_kerr_dp45_movie_thin")
+        rows += [(f"Movie<{f},absorbing={ab},{{}}>", entry, ab, f)
+                 for f in range(1, MAX_FRAMES + 1)]
+    rows += [(f"Order<{o},absorbing={ab},{{}}>", "lpt_kerr_dp45_orders", ab,
+              o) for ab in (0, 1) for o in range(2, MAX_ORDERS + 1)]
+    return [(f"kerr_dp45_extras<{label.format(real)}>", entry, form, variant,
+             dtype)
+            for dtype, real in ((torch.float32, "float"),
+                                (torch.float64, "double"))
+            for label, entry, form, variant in rows]
+
+
+def describe_instance(entry, form, variant, dtype=torch.float32):
+    """The resources of one extras instance on the current CUDA device, as
+    the runtime reports them: blocks_per_sm (resident 128-thread blocks an
+    SM), registers (a thread), local_bytes (a thread: spills and stack
+    frame) and min_blocks (its __launch_bounds__ block bound). Builds the
+    library on first use."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("describe_instance queries the CUDA runtime; it "
+                           "needs a CUDA device")
+    lib = load_library()
+    out = (ctypes.c_int * 4)()
+    suffix = entry_suffix(dtype)
+    rc = getattr(lib, f"{entry}_describe{suffix}")(int(form), int(variant),
+                                                    out)
+    check(lib, rc, f"{entry}_describe{suffix}")
+    keys = ("blocks_per_sm", "registers", "local_bytes", "min_blocks")
+    return dict(zip(keys, list(out)))
 
 
 def _kernel_transfer(fn, kinds, metric):

@@ -5,6 +5,8 @@ main path's Kerr kernel loses its time, on one NVIDIA GPU.
   python3 scripts/torch_kernel_study.py [--out study.json] [--turns 4]
                                         [--sections ab,rays,main,regs]
                                         [--blocks 7,0]
+  python3 scripts/torch_kernel_study.py --sections extras --parent DIR
+                                        [--extras-blocks 3,4,5,6]
 
 ab: builds the kernel library twice from the same sources, as the package
     builds it (ops/cuda/_build.py NVCC_FLAGS, with -fmad=false) and with
@@ -47,6 +49,27 @@ regs: the Kerr kernel against its register budget. For each count in
     warm-up) on the main path's rays and config 4's aligned grid, in
     float32 and float64, each output held bitwise against the package
     build's (a register budget may change the speed, never a result).
+extras: the extras kernel (csrc/kerr_dp45_extras.cuh) against an earlier
+    commit's. DIR holds that commit's csrc/ (unpacked from `git archive
+    <commit> light_path_tracer_tpu_torch/csrc` into a git-ignored
+    directory of the checkout, so it travels with the call). Builds the
+    extras sources of DIR, of the package (every functor with its own
+    block bound, kMinBlocks), and of one copy of the package's csrc/ for
+    each --extras-blocks count (every instance built with that block
+    bound), at most 12 nvcc processes at once; prints each build's
+    registers and spills and, for the package and the copies, the
+    runtime's blocks an SM of every instance, and the sin/cos range
+    reductions in each float32 instance's SASS (cuobjdump). Then, in
+    turns (the order reversed every other turn), runs every build on the
+    scenes: the 1024^2 volumetric scene in float32 (thin, absorbed, jet,
+    3-band, Stokes, movie thin and absorbed, orders thin and absorbed,
+    and more widths: 5 and 8 bands, movie thin and absorbed in 3 and 5
+    frames; max_steps 200000, sat_window 2048) and in float64, and phase
+    11's 4,096 random rays in float64; times each call (CUDA events, mean
+    of 3 after a warm-up; the summary gives the median over turns) and
+    holds every output (extras, final alpha,
+    half-orbits, status, flags, per-ray attempts, warp step sum) bitwise
+    against the earlier commit's.
 
 The first line is the card's name and power limit. Needs a CUDA device;
 imports nothing of JAX.
@@ -207,8 +230,8 @@ def kernel_table(dev, X):
     attempt, transcendentals left out) at the published rate `peak` of
     their type."""
     import torch
-    from chip_smoke import (ORBIT_STEP_FLOPS, PEAK_FP32, PEAK_FP64,
-                            attempt_flops, form_flops)
+    from light_path_tracer_tpu_torch.ops.cuda.bounds import (
+        ORBIT_STEP_FLOPS, PEAK_FP32, PEAK_FP64, attempt_flops, form_flops)
     from light_path_tracer_tpu_torch.models import Kerr, Schwarzschild
     from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
     from light_path_tracer_tpu_torch.ops.cuda import peak_probe
@@ -549,6 +572,282 @@ def regs_section(dev, builds, X, blocks_list):
     return out
 
 
+# The extras kernel's family sources (float32, then their float64
+# siblings), and the line of csrc/kerr_dp45_extras.cuh that gives every
+# instance its functor's block bound.
+EXTRAS_SOURCES = ("kerr_dp45_extras", "kerr_dp45_stokes",
+                  "kerr_dp45_movie_thin", "kerr_dp45_movie_absorbed",
+                  "kerr_dp45_orders")
+BOUND_LINE = "static constexpr int kMin = F::kMinBlocks;"
+# The scenes' forms and the instance each launches (float32 names).
+SCENE_INSTANCES = {
+    "thin": "VolThin<{}>", "absorbed": "VolAbsorbed<{}>",
+    "jet": "VolThin<{}>", "spectral 3-band": "Spectral<3,{}>",
+    "stokes toroidal": "Stokes<{}>",
+    "movie thin": "Movie<8,absorbing=0,{}>",
+    "movie absorbed": "Movie<8,absorbing=1,{}>",
+    "order thin": "Order<3,absorbing=0,{}>",
+    "order absorbed": "Order<3,absorbing=1,{}>"}
+
+
+def extras_builds(parent, blocks, jobs=12):
+    """Build the extras sources of the earlier commit's csrc/ (`parent`),
+    of the package's, and of one copy of the package's for each count in
+    `blocks` with every instance built with that block bound; at most
+    `jobs` nvcc processes at a time. Returns {build: (library, nvcc log,
+    object directory)} with each library's extras entries declared."""
+    import concurrent.futures
+    import ctypes
+    import shutil
+    from pathlib import Path
+    from light_path_tracer_tpu_torch.ops.cuda import _build
+    root = _build.BUILD_DIR / "extras_study"
+    dirs = {"parent": Path(parent), "package": _build.CSRC}
+    for count in blocks:
+        name = f"blocks:{count}"
+        d = root / name.replace(":", "_") / "csrc"
+        d.mkdir(parents=True, exist_ok=True)
+        for f in list(_build.CSRC.glob("*.cu")) + list(
+                _build.CSRC.glob("*.cuh")):
+            shutil.copyfile(f, d / f.name)
+        text = (d / "kerr_dp45_extras.cuh").read_text()
+        if BOUND_LINE not in text:
+            raise RuntimeError("csrc/kerr_dp45_extras.cuh no longer states "
+                               "its block bounds as this study expects")
+        (d / "kerr_dp45_extras.cuh").write_text(text.replace(
+            BOUND_LINE, f"static constexpr int kMin = {count};"))
+        dirs[name] = d
+    cmds = []
+    for name, d in dirs.items():
+        out = root / name.replace(":", "_")
+        out.mkdir(parents=True, exist_ok=True)
+        for src in EXTRAS_SOURCES:
+            for suffix in ("", "_f64"):
+                cmds.append((name, out / f"{src}{suffix}.o", [
+                    _build._nvcc(), *_build.NVCC_FLAGS, "-c", "-o",
+                    str(out / f"{src}{suffix}.o"),
+                    str(d / f"{src}{suffix}.cu")]))
+
+    def run(cmd):
+        return subprocess.run(cmd, capture_output=True, text=True)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(jobs) as pool:
+        done = list(pool.map(run, [c for _n, _o, c in cmds]))
+    logs = {name: "" for name in dirs}
+    for (name, _obj, cmd), proc in zip(cmds, done):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n"
+                               f"{proc.stdout}{proc.stderr}")
+        logs[name] += proc.stdout + proc.stderr
+    builds = {}
+    for name in dirs:
+        out = root / name.replace(":", "_")
+        so = out / "lpt_extras.so"
+        objs = [str(o) for n, o, _c in cmds if n == name]
+        subprocess.run([_build._nvcc(), *_build.LINK_FLAGS, "-o", str(so),
+                        *objs], check=True, capture_output=True)
+        lib = ctypes.CDLL(str(so))
+        for entry in _build.EXTRAS_ENTRIES:
+            for suffix in ("", "_f64"):
+                fn = getattr(lib, entry + suffix)
+                fn.argtypes = [_build._P, _build._P]
+                fn.restype = _build._I
+                if hasattr(lib, f"{entry}_describe{suffix}"):
+                    fn = getattr(lib, f"{entry}_describe{suffix}")
+                    fn.argtypes = [_build._I, _build._I, _build._P]
+                    fn.restype = _build._I
+        lib.lpt_cuda_error_string = lambda rc: b"see cudaError_t"
+        builds[name] = (lib, logs[name], out)
+    print(f"extras builds ({len(dirs)} x {2 * len(EXTRAS_SOURCES)} sources, "
+          f"{jobs} at a time): {time.perf_counter() - t0:.1f} s", flush=True)
+    return builds
+
+
+def trig_reductions(obj_dir):
+    """How many sin/cos range reductions (a product by 2/pi, the first
+    step of every sinf and cosf sequence) each float32 extras kernel of a
+    build's objects holds, by cuobjdump's SASS: {label: count}, or {}
+    where the toolkit has no cuobjdump."""
+    import re
+    import shutil
+    from chip_smoke import kernel_label
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    counts = {}
+    for obj in sorted(obj_dir.glob("*.o")):
+        sass = subprocess.run([tool, "-sass", str(obj)], capture_output=True,
+                              text=True).stdout
+        for part in sass.split("Function : ")[1:]:
+            name = kernel_label(part.split()[0])
+            if name.startswith("kerr_dp45_extras") and name.endswith(
+                    "float>>"):
+                counts[name] = len(re.findall(
+                    r"0\.6366197[0-9]*|6\.366197[0-9]*e-01", part))
+    return counts
+
+
+def extras_scenes(dev, X):
+    """(label, kind, args, alphas, thetas) of the extras section's runs:
+    the 1024^2 volumetric scene in float32 and float64, and phase 11's
+    4,096 random rays in float64."""
+    import torch
+    from light_path_tracer_tpu_torch import polarization, volumetric
+    from light_path_tracer_tpu_torch.models import Kerr
+    kerr = Kerr(M=1.0, a=0.9)
+    al_v, th_v = X["vol"]
+    rng = np.random.default_rng(0)
+    ac = kerr.alpha_crit(R_OBS, THETA)
+    f64 = dict(dtype=torch.float64, device=dev)
+    al_r = torch.tensor(rng.uniform(0.3 * ac, 4 * ac, 4096), **f64)
+    th_r = torch.tensor(rng.uniform(-np.pi, np.pi, 4096), **f64)
+    aux_r = polarization.camera_constants(kerr, R_OBS, THETA, al_r, th_r)
+    # More widths on the 1024^2 scene: five and eight bands, movie thin
+    # and absorbed in three and five frames.
+    R = volumetric.RIAFConfig
+    period = 2.0 * np.pi / abs(volumetric.keplerian_omega(1.0, 0.9, 6.0,
+                                                          True))
+    wider = {}
+    for b in (5, 8):
+        wider[f"spectral {b}-band"] = ("aux", (
+            volumetric.make_spectral_transfer(
+                kerr, R(g_power=4.0, alpha0=1.0, opacity_index=3.0),
+                tuple(np.geomspace(0.1, 10.0, b))), 1 + b, (),
+            tuple(range(1, 1 + b))), f"Spectral<{b},{{}}>")
+    for ab, name in ((0, "thin"), (1, "absorbed")):
+        for f in (3, 5):
+            wider[f"movie {name} {f}-frame"] = ("aux", (
+                volumetric.make_movie_transfer(
+                    kerr, R(spot_amp=8.0, alpha0=0.3 * ab),
+                    tuple(period * k / f for k in range(f))), 1 + ab + f,
+                (), tuple(range(1 + ab, 1 + ab + f))),
+                f"Movie<{f},absorbing={ab},{{}}>")
+    rows = []
+    for tag, al, th, aux in (
+            ("f32 1024^2", al_v, th_v, X["aux"]),
+            ("f64 1024^2", al_v.double(), th_v.double(), X["aux"]),
+            ("f64 4,096 rays", al_r, th_r, aux_r)):
+        real = "double" if al.dtype == torch.float64 else "float"
+        forms = {name: (kind, args, SCENE_INSTANCES[name])
+                 for name, (kind, args) in volumetric_forms(kerr,
+                                                            aux).items()}
+        if "1024" in tag:
+            forms.update(wider)
+        for name, (kind, args, inst) in forms.items():
+            rows.append((f"{name}, {tag}", kind, args, al, th,
+                         f"kerr_dp45_extras<{inst.format(real)}>"))
+    return kerr, rows
+
+
+def scene_work(name, dtype):
+    """One attempt's work (bounds.extras_work) of an extras scene's form,
+    by its name in extras_scenes."""
+    from light_path_tracer_tpu_torch.ops.cuda.bounds import extras_work
+    words = name.split()
+    kind = {"jet": "thin", "stokes": "stokes"}.get(words[0], words[0])
+    width = next((int(w.split("-")[0]) for w in words[1:] if "-" in w),
+                 {"spectral": 3, "movie": 8, "order": 3}.get(kind, 0))
+    return extras_work(kind, width, "absorbed" in words[1:],
+                       "jet" if words[0] == "jet" else "torus",
+                       dtype=str(dtype).replace("torch.", ""))
+
+
+def extras_outputs(res, probe):
+    """Every output of one call, flattened: the result's tensors (extras,
+    final alpha, half-orbits, status, warp step sum), the flags and the
+    per-ray attempts."""
+    import torch
+    out = []
+    for v in res:
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        elif isinstance(v, tuple):
+            out.extend(v)
+    return out + [probe["flags"], probe["attempts"]]
+
+
+def extras_section(dev, X, parent, blocks, turns):
+    from chip_smoke import cuda_ms, ptxas_report, same_bits
+    from light_path_tracer_tpu_torch.ops.cuda import volumetric_kernel as vk
+    builds = extras_builds(parent, blocks)
+    kerr, scenes = extras_scenes(dev, X)
+    saved = vk.load_library
+    report = dict(builds={}, scenes={})
+    try:
+        for name, (lib, log, obj_dir) in builds.items():
+            vk.load_library = lambda lib=lib: lib
+            rows = {}
+            for mangled_label, regs, spill in ptxas_report(log):
+                rows[mangled_label] = dict(registers=regs, spill=spill)
+            for label, count in trig_reductions(obj_dir).items():
+                rows.setdefault(label, {})["trig_reductions"] = count
+            if name != "parent":
+                for label, entry, form, variant, dtype in (
+                        vk.extras_instances()):
+                    rows.setdefault(label, {}).update(vk.describe_instance(
+                        entry, form, variant, dtype))
+            report["builds"][name] = rows
+            for label, row in rows.items():
+                if label.startswith("kerr_dp45_extras"):
+                    print(f"  [{name}] {label}: {json.dumps(row)}",
+                          flush=True)
+        want = {}
+        names = list(builds)
+        for turn in range(turns):
+            order = names if turn % 2 == 0 else names[::-1]
+            for name in order:
+                vk.load_library = lambda lib=builds[name][0]: lib
+                for label, kind, args, al, th, inst in scenes:
+                    def call(**kw):
+                        return vol_call(kerr, kind, args, al, th, **kw)
+                    probe = {}
+                    got = extras_outputs(call(probe=probe), probe)
+                    if name == "parent" and label not in want:
+                        want[label] = got
+                    ms, _ = cuda_ms(call, 3)
+                    row = report["scenes"].setdefault(label, dict(
+                        instance=inst)).setdefault(name, dict(ms=[]))
+                    row["ms"].append(ms)
+                    if label in want:
+                        row["bitwise_equal"] = row.get(
+                            "bitwise_equal", True) and len(got) == len(
+                                want[label]) and all(
+                            same_bits(a, b) for a, b in zip(got,
+                                                            want[label]))
+                    print(f"turn {turn} [{name}] {label}: {ms:.3f} ms, "
+                          f"bitwise {row.get('bitwise_equal')}",
+                          flush=True)
+    finally:
+        vk.load_library = saved
+    # Both bounds of every scene, from its per-ray attempts (the same in
+    # every build: the outputs are bitwise equal) and this card's rates.
+    from light_path_tracer_tpu_torch.ops.cuda import bounds, peak_probe
+    rates = peak_probe.measure_rates(dev)
+    report["rates"] = rates
+    for label, kind, args, al, _th, _inst in scenes:
+        attempts = int(want[label][-1].sum())
+        work = attempts * scene_work(label.split(", ")[0], al.dtype)
+        n_aux = 0 if kind == "vol" else len(args[2])
+        n_extras = (2 if args[1] is not None else 1) if kind == "vol" \
+            else args[1]
+        size = al.element_size()
+        n_bytes = al.numel() * (size * (3 + n_aux + n_extras) + 9)
+        report["scenes"][label].update(
+            attempts=attempts,
+            bound_ms=bounds.flops_bound_ms(work, n_bytes)[0],
+            bound_counted_ms=bounds.counted_bound_ms(work, n_bytes,
+                                                     rates)[0])
+    for label, by in report["scenes"].items():
+        summary = {name: dict(ms=float(np.median(r["ms"])),
+                              bitwise_equal=r.get("bitwise_equal"))
+                   for name, r in by.items() if isinstance(r, dict)}
+        bound = {k: by[k] for k in ("attempts", "bound_ms",
+                                    "bound_counted_ms")}
+        print(f"extras {label} ({by['instance']}): {json.dumps(bound)} "
+              f"{json.dumps(summary)}", flush=True)
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -559,6 +858,11 @@ def main() -> int:
     parser.add_argument("--turns", type=int, default=4)
     parser.add_argument("--sections", default="ab,rays,main,regs")
     parser.add_argument("--blocks", default="7,0")
+    parser.add_argument("--parent", default=None,
+                        help="the earlier commit's csrc/ (extras section)")
+    parser.add_argument("--extras-blocks", default="",
+                        help="block bounds to build every extras instance "
+                             "with, comma separated (extras section)")
     args = parser.parse_args()
     dev = torch.device("cuda", 0)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -578,6 +882,12 @@ def main() -> int:
     if "regs" in sections:
         report["regs"] = regs_section(
             dev, builds, X, [int(b) for b in args.blocks.split(",")])
+    if "extras" in sections:
+        if not args.parent:
+            parser.error("the extras section needs --parent")
+        blocks = [int(b) for b in args.extras_blocks.split(",") if b]
+        report["extras"] = extras_section(dev, X, args.parent, blocks,
+                                          args.turns)
     print(f"builds (s): {json.dumps(builds.build_s)}", flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

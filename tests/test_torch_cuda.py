@@ -615,6 +615,11 @@ def test_peak_probe_rates_are_plausible(cuda):
         assert row["ms_long"] > row["ms_short"] > 0.0
     assert rates["fma32x8"]["rate"] > rates["fma64"]["rate"] > 1e12
     assert rates["sin"]["rate"] > 1e10
+    # the library-sequence chains: eight a thread, a call a link
+    for form in peak_probe.FORMS:
+        if form[:-4] in peak_probe.LIBRARY_FORMS:
+            assert np.isfinite(rates[form]["rate"])
+            assert rates[form]["rate"] > 1e9
 
 
 def test_new_renders_on_card_match_cpu(cuda):
@@ -651,6 +656,136 @@ def test_new_renders_on_card_match_cpu(cuda):
     bright = ic > 1e-3 * peak
     assert pg[bright].max() <= 0.7 + 1e-5
     assert np.median(np.abs(pg - pc)[bright]) < 1e-3
+
+
+def _width_form(family, width, m, al, th):
+    """(transfer_fn, n_extras, aux, sat_monitor) of one instance of the
+    extras kernel: family thin, absorbed, stokes, spectral (width bands),
+    movie thin or absorbed (width frames), order thin or absorbed (width
+    orders)."""
+    R = volumetric.RIAFConfig
+    if family in ("thin", "absorbed"):
+        em, ab = volumetric.make_transfer_fns(
+            m, R(alpha0=0.5 if family == "absorbed" else 0.0))
+        return (em, ab), 1 + (family == "absorbed"), (), (0,)
+    if family == "stokes":
+        aux = polarization.camera_constants(m, R_OBS, THETA_DISK, al, th)
+        return (polarization.make_polarized_volumetric_transfer(
+            m, R(), "toroidal", 0.7), 3, aux, (0, 1, 2))
+    if family == "spectral":
+        freqs = tuple(np.geomspace(0.1, 10.0, width)) if width > 1 else (1.,)
+        return (volumetric.make_spectral_transfer(
+            m, R(g_power=4.0, alpha0=1.0, opacity_index=2.0), freqs),
+            1 + width, (), tuple(range(1, 1 + width)))
+    ab = int(family.endswith("absorbed"))
+    a0 = 0.3 if ab else 0.0
+    if family.startswith("movie"):
+        period = 2.0 * np.pi / abs(disk.keplerian_omega(1.0, 0.9, 6.0, True))
+        times = tuple(period * k / width for k in range(width))
+        tf = volumetric.make_movie_transfer(m, R(spot_amp=8.0, alpha0=a0),
+                                            times)
+    else:
+        tf = volumetric.make_order_transfer(m, R(alpha0=a0), width)
+    return tf, 1 + ab + width, (), tuple(range(1 + ab, 1 + ab + width))
+
+
+WIDTH_CASES = ([("thin", 0), ("absorbed", 0), ("stokes", 0)]
+               + [("spectral", b) for b in range(1, 9)]
+               + [(f"movie {k}", f) for k in ("thin", "absorbed")
+                  for f in range(1, 9)]
+               + [(f"order {k}", o) for k in ("thin", "absorbed")
+                  for o in range(2, 5)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("family,width", WIDTH_CASES,
+                         ids=[f"{f} {w}" for f, w in WIDTH_CASES])
+def test_every_extras_instance_matches_plain_version(cuda, family, width,
+                                                     dtype):
+    """Every instance the families build, in both scalar types, each under
+    its own block bound, launched once and held against the plain loop of
+    its dtype on the same rays, with
+    the gates of the tests above: float32 status agreement above 0.99 and
+    each extra's p99 |d| / max below 1e-3 (Stokes Q and U against max
+    |I|), float64 at most one status flip and 1e-6; the order buckets by
+    flux and carriers. Rays clear of the photon ring (alpha in 1.3..4
+    alpha_crit) end within a few hundred attempts, which keeps the plain
+    loops short; the orders take phase 11's rays, and four orders the
+    band about the critical curve, whose rays carry up to the third
+    order: the fourth, which no ray of the band reaches, must stay empty
+    in both."""
+    if family.startswith("order"):
+        lo, hi = (0.97, 1.06) if width == 4 else (0.3, 4.0)
+        m, al, th = _extras_rays(2048, cuda, lo, hi, seed=5)
+        max_steps, window = 4000, 2048
+    else:
+        m, al, th = _extras_rays(1024, cuda, 1.3, 4.0, seed=5)
+        max_steps, window = 1500, 512
+    al, th = al.to(dtype), th.to(dtype)
+    tf, n_extras, aux, monitor = _width_form(family, width, m, al, th)
+    aux = tuple(a.to(dtype) for a in aux)
+    f64 = dtype == torch.float64
+    kw = dict(sat_window=window)
+    if isinstance(tf, tuple):
+        counter = vk.trace_rays_volumetric_cuda
+        before = (counter.launches, counter.launches_f64)
+        rk = counter(m, R_OBS, al, th, THETA_DISK, tf[0], 5000.0, max_steps,
+                     absorption_fn=tf[1] if n_extras == 2 else None, **kw)
+        rp = kerr_trace.trace_rays_volumetric(
+            m, R_OBS, al, th, THETA_DISK, tf[0], 5000.0, max_steps,
+            absorption_fn=tf[1] if n_extras == 2 else None, **kw)
+        xk = [rk.emission, rk.optical_depth][:n_extras]
+        xp = [rp.emission, rp.optical_depth][:n_extras]
+    else:
+        counter = vk.trace_rays_aux_cuda
+        before = (counter.launches, counter.launches_f64)
+        rk = counter(m, R_OBS, al, th, THETA_DISK, tf, n_extras, aux,
+                     5000.0, max_steps, sat_monitor=monitor, **kw)
+        extra = tf if aux else (lambda y, pt, pp, _aux: tf(y, pt, pp))
+        rp = kerr_trace.trace_rays_aux(m, R_OBS, al, th, THETA_DISK, extra,
+                                       n_extras, aux, 5000.0, max_steps,
+                                       sat_monitor=monitor, **kw)
+        xk, xp = list(rk.extras), list(rp.extras)
+    torch.cuda.synchronize()
+    assert (counter.launches, counter.launches_f64) == (
+        (before[0], before[1] + 1) if f64 else (before[0] + 1, before[1]))
+    sk, sp = rk.status.cpu().numpy(), rp.status.cpu().numpy()
+    ok = sk == sp
+    if f64:
+        assert (~ok).sum() <= 1
+    else:
+        assert ok.mean() > 0.99
+    xk = np.stack([e.cpu().numpy() for e in xk]).astype(np.float64)
+    xp = np.stack([e.cpu().numpy() for e in xp]).astype(np.float64)
+    if family.startswith("order"):
+        bk, bp = xk[-width:][:, ok], xp[-width:][:, ok]
+        if width == 4:
+            # No ray of the band carries a fourth order (three plane
+            # crossings), so that bucket must stay empty on both sides.
+            assert bk[3].sum() <= 1e-3 * bk.sum()
+            assert bp[3].sum() <= 1e-3 * bp.sum()
+            bk, bp = bk[:3], bp[:3]
+        _assert_orders_agree(bk, bp)
+        return
+    tol = 1e-6 if f64 else 1e-3
+    scale = np.abs(xp[0]).max() if family == "stokes" else None
+    for i, (a, b) in enumerate(zip(xk, xp)):
+        bar = tol * (scale or max(np.abs(b).max(), 1.0))
+        if family == "absorbed" and i == 1 and not f64:
+            bar = tol                                   # tau, as above
+        assert np.percentile(np.abs(a - b)[ok], 99) < bar
+
+
+def test_every_extras_instance_fits_an_sm(cuda):
+    """The runtime's view of every instance: its block bound met (at least
+    min_blocks 128-thread blocks an SM, so at most 65,536 / (128
+    min_blocks) registers a thread)."""
+    for label, entry, form, variant, dtype in vk.extras_instances():
+        d = vk.describe_instance(entry, form, variant, dtype)
+        assert d["blocks_per_sm"] >= d["min_blocks"] >= 1, (label, d)
+        assert 0 < d["registers"] <= 65536 // (128 * d["min_blocks"]), (
+            label, d)
 
 
 F64_FAMILIES = ["kerr", "disk", "orbit schwarzschild", "orbit rn_q0.6",

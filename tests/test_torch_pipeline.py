@@ -141,7 +141,9 @@ def test_port_imports_without_jax():
             "light_path_tracer_tpu_torch.utils.color, "
             "light_path_tracer_tpu_torch.volumetric, "
             "light_path_tracer_tpu_torch.cli.volumetric, "
-            "light_path_tracer_tpu_torch.ops.cuda.volumetric_kernel; "
+            "light_path_tracer_tpu_torch.ops.cuda.volumetric_kernel, "
+            "light_path_tracer_tpu_torch.ops.cuda.bounds, "
+            "light_path_tracer_tpu_torch.ops.cuda.peak_probe; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'light_path_tracer_tpu.')) or "
             "m == 'light_path_tracer_tpu'); print(bad); "
