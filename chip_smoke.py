@@ -194,12 +194,13 @@ results: beside each kernel's time stand its flops-only bound `bound_ms`
 rate, 34 TFLOP/s for the float64 instances, and its bytes over 3.35
 TB/s, from this run's per-ray attempt counts and the flops per attempt
 counted from the CUDA sources with the library functions left out), the
-same bound at the FP32 (FP64) rate phase 16 measured, the counted bound
-`bound_counted_ms` (every operation of an attempt by kind, `ops`, each
-at the rate phase 16 measured for it, ops/cuda/bounds.py), the slowest
-ray's attempts with the time that ray takes when traced alone, and for
-the extras kernel the instance it launched with its registers, spills,
-blocks an SM and block bound. The last line is
+counted bound `bound_counted_ms` (every operation of an attempt by kind,
+`ops`, each at the rate phase 16 measured for it, a flop at no less than
+half the published peak, ops/cuda/bounds.py), the slowest ray's attempts
+with the time that ray takes when traced alone, and for the extras
+kernel the instance it launched with its registers, spills (bytes, from
+ptxas's report of the loaded library's build; null where that build kept
+none), blocks an SM and block bound. The last line is
 {"ok": true, "device": {...}}. Exit code 0 iff every phase passed;
 without a CUDA device it exits 1 and prints no result.
 """
@@ -218,7 +219,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from light_path_tracer_tpu_torch.ops.cuda import bounds  # noqa: E402
 from light_path_tracer_tpu_torch.ops.cuda.bounds import (  # noqa: E402
-    PEAK_BYTES, extras_work, kerr_work, orbit_work)
+    extras_work, kerr_work, orbit_work)
 
 R_OBS = 100.0
 LAMBDA_MAX = 5000.0
@@ -485,8 +486,9 @@ def extras_resources(report):
     """Fill RESOURCES for every extras instance: what the runtime reports
     for the card (volumetric_kernel.describe_instance: registers, local
     memory, blocks an SM) and ptxas's spills (report: ptxas_report's rows
-    of this build; empty when the library was loaded from an earlier
-    one); fails if an instance is missing or no block fits an SM."""
+    of the loaded library's build; the spill fields are None where that
+    build left no report); fails if an instance is missing or no block
+    fits an SM."""
     import re
     from light_path_tracer_tpu_torch.ops.cuda import volumetric_kernel as vk
     ptx = {name: spill for name, _regs, spill in report}
@@ -499,9 +501,9 @@ def extras_resources(report):
         require(d["blocks_per_sm"] > 0, f"{label}: {d}")
         RESOURCES[label] = dict(
             registers=d["registers"],
-            spill_stores=nums.get("spill stores", 0),
-            spill_loads=nums.get("spill loads", 0),
-            stack_bytes=nums.get("stack frame", 0),
+            spill_stores=nums.get("spill stores"),
+            spill_loads=nums.get("spill loads"),
+            stack_bytes=nums.get("stack frame"),
             local_bytes=d["local_bytes"], blocks_per_sm=d["blocks_per_sm"],
             min_blocks=d["min_blocks"])
 
@@ -2622,14 +2624,9 @@ def main() -> int:
                      kerr_row["two_pass_ms"], plain2_ms, gmain["n"], 9 + 12,
                      kerr_row["attempts_sum"] * shadow_work)]
     kernels += vol_kernels + new_kernels + [probe_kernel] + f64_kernels
-    # The same bound at the rate of its type this card measured in phase
-    # 16 (float32: eight chains a thread; float64: one), and the counted
-    # bound: every operation by kind at the rate phase 16 measured for it.
+    # The counted bound: every operation by kind at the rate phase 16
+    # measured for it (a flop at no less than the published rate).
     for k in kernels:
-        rate = rates["fma64" if k["flops_type"] == "float64"
-                     else "fma32x8"]["rate"]
-        k["bound_ms_measured_rate"] = 1e3 * max(
-            k["flops"] / rate, k["bytes"] / PEAK_BYTES)
         ms, by, parts = bounds.counted_bound_ms(
             bounds.Work(k["flops"], k["ops"], k["flops_type"]), k["bytes"],
             rates)

@@ -23,8 +23,9 @@
 // __launch_bounds__, is the number of 128-thread blocks an SM must be
 // able to hold at once: it caps the registers a thread may use (65,536 /
 // (128 kMinBlocks)) and so trades spills for occupancy. Each functor
-// states it per scalar type (and width), as measured on the H100
-// (PERF.md §6); the stage values of the extras kept in shared memory
+// states it per scalar type (and width), as measured on the H100 at the
+// widths the study times and carried to the widths between them (PERF.md
+// §6 lists which); the stage values of the extras kept in shared memory
 // instead were measured slower for every instance (PERF.md §6).
 //
 // Saturation and frozen-state exits (sat_window > 0, ops/kerr_trace.py
@@ -273,16 +274,10 @@ __device__ __forceinline__ void window_exit(const SatParams<T>& S,
   }
 }
 
-// The blocks an SM must be able to hold at once: the functor's own
-// (see the head of this file).
-template <class F>
-struct BlockBound {
-  static constexpr int kMin = F::kMinBlocks;
-};
-
-// The ray kernel, one thread per ray.
+// The ray kernel, one thread per ray; an SM must be able to hold the
+// functor's kMinBlocks of its blocks at once (see the head of this file).
 template <class F, class T>
-__global__ void __launch_bounds__(kThreads, BlockBound<F>::kMin)
+__global__ void __launch_bounds__(kThreads, F::kMinBlocks)
 kerr_dp45_extras_kernel(ExtrasCall<T> C, Params<T> P, RiafParams<T> R,
                         SatParams<T> S) {
   using K = Tab<T>;
@@ -531,7 +526,7 @@ int describe(int* out) {
   out[0] = blocks;
   out[1] = attr.numRegs;
   out[2] = static_cast<int>(attr.localSizeBytes);
-  out[3] = BlockBound<F>::kMin;
+  out[3] = F::kMinBlocks;
   return 0;
 }
 

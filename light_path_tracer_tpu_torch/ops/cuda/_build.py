@@ -29,7 +29,8 @@ BUILD_DIR = _PKG.parent / "build" / "light_path_tracer_tpu_torch"
 # sum rounds apart, as the plain loops and the JAX package on the CPU
 # round them (a kernel that wants an FMA writes fmaf / fma explicitly).
 # -Xptxas -v only reports registers, shared memory and spills per kernel
-# (kept in build_log); it does not change the code.
+# (kept beside the library and in build_log); it does not change the
+# code.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
@@ -77,6 +78,11 @@ def library_path() -> Path:
     return BUILD_DIR / f"lpt_kernels_{h.hexdigest()[:16]}.so"
 
 
+def log_path(lib: Path) -> Path:
+    """Where nvcc's output for the library at `lib` is kept."""
+    return lib.with_suffix(".log")
+
+
 def _run(procs):
     """Wait for every (cmd, Popen); raise with the compiler's output if
     any failed. Returns the concatenated output."""
@@ -109,6 +115,7 @@ def _compile(out: Path) -> str:
         lib = Path(tmp) / out.name
         log += _run([_start([_nvcc(), *LINK_FLAGS, "-o", str(lib),
                              *(str(o) for o in objs)])])
+        log_path(out).write_text(log)
         os.replace(lib, out)
     return log
 
@@ -141,10 +148,15 @@ def _declare(lib):
 @functools.cache
 def load_library():
     """The compiled kernel library, built on first use. Its `build_log`
-    attribute holds nvcc's resource report ('' when it was loaded from an
-    earlier build)."""
+    attribute holds nvcc's resource report of the build that made it (''
+    where that build kept none)."""
     path = library_path()
-    log = "" if path.exists() else _compile(path)
+    if not path.exists():
+        log = _compile(path)
+    elif log_path(path).exists():
+        log = log_path(path).read_text()
+    else:
+        log = ""
     lib = _declare(ctypes.CDLL(str(path)))
     lib.build_log = log
     return lib

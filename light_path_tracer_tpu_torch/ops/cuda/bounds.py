@@ -15,11 +15,12 @@ scripts/torch_kernel_study.py):
   attempts, each kind over the rate the peak probe (ops/cuda/peak_probe.py)
   measured for it on this card, summed; or the bytes, where larger. The
   kernels build without FMA contraction (-fmad=false), so every add, sub
-  and mul issues one instruction: a "flop" counts at the FMA chain's
-  instruction rate (half its flop rate). A division and sqrt are IEEE
-  sequences, sin, cos, exp and pow libdevice ones, each at its own
-  eight-chain throughput (sin and cos of small arguments, as the kernels
-  take them).
+  and mul issues one instruction: a "flop" counts at an FMA's instruction
+  rate, half the published FP32 (FP64) peak, or half the probe's FMA rate
+  where that reads higher (`PUBLISHED_FLOP`). A division and sqrt are
+  IEEE sequences, sin, cos, exp and pow libdevice ones, which have no
+  published rate: each counts at its own measured eight-chain throughput
+  (sin and cos of small arguments, as the kernels take them).
 
 How the sources are counted: every add, sub and mul of one evaluation as
 written, once per function (an expression a function repeats verbatim
@@ -38,7 +39,8 @@ from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["PEAK_FP32", "PEAK_FP64", "PEAK_BYTES", "RHS5_FLOPS",
+__all__ = ["PEAK_FP32", "PEAK_FP64", "PEAK_BYTES", "PUBLISHED_FLOP",
+           "RHS5_FLOPS",
            "SOURCE_FLOPS", "ORBIT_STEP_FLOPS", "KINDS", "RATE_FORMS",
            "GEODESIC", "Work", "form_flops", "attempt_flops", "source_ops",
            "transfer_ops", "rhs_ops", "attempt_ops", "extras_work",
@@ -50,6 +52,9 @@ __all__ = ["PEAK_FP32", "PEAK_FP64", "PEAK_BYTES", "RHS5_FLOPS",
 PEAK_FP32 = 67e12
 PEAK_FP64 = 34e12
 PEAK_BYTES = 3.35e12
+# A flop's instruction rate at those peaks (an FMA is two flops): the
+# counted bound never prices a flop below it.
+PUBLISHED_FLOP = {"float32": PEAK_FP32 / 2, "float64": PEAK_FP64 / 2}
 
 # The flops-only count: one evaluation as written, before the
 # compiler's common subexpressions, a multiply-add 2, a division 1, the
@@ -85,7 +90,8 @@ def attempt_flops(components, rhs_extra=0):
 
 KINDS = ("flop", "div", "sqrt", "sin", "cos", "exp", "pow")
 # kind -> (the peak probe's form that times it, operations per counted
-# unit of that form's rate): a flop at the FMA chain's instruction rate.
+# unit of that form's rate): a flop at the FMA chain's instruction rate,
+# raised to PUBLISHED_FLOP where the chain reads below it.
 RATE_FORMS = {
     "float32": dict(flop=("fma32x8", 0.5), div=("div32x8", 1.0),
                     sqrt=("sqrt32x8", 1.0), sin=("sin32x8", 1.0),
@@ -243,13 +249,17 @@ def flops_bound_ms(work, n_bytes, peak=None):
 
 def counted_bound_ms(work, n_bytes, rates):
     """The counted bound of a launch doing `work` (a total) and moving
-    n_bytes, at `rates` (peak_probe.measure_rates: {form: {"rate"}}):
-    (ms, "operations" or "bytes", {kind: ms})."""
+    n_bytes, at `rates` (peak_probe.measure_rates: {form: {"rate"}}), a
+    flop at no less than PUBLISHED_FLOP: (ms, "operations" or "bytes",
+    {kind: ms})."""
     by_kind = {}
     for kind, (form, per) in RATE_FORMS[work.dtype].items():
         count = work.ops.get(kind, 0)
         if count:
-            by_kind[kind] = 1e3 * count / (per * rates[form]["rate"])
+            rate = per * rates[form]["rate"]
+            if kind == "flop":
+                rate = max(rate, PUBLISHED_FLOP[work.dtype])
+            by_kind[kind] = 1e3 * count / rate
     t_ops, t_bytes = sum(by_kind.values()), 1e3 * n_bytes / PEAK_BYTES
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes"), by_kind

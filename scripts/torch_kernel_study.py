@@ -60,16 +60,18 @@ extras: the extras kernel (csrc/kerr_dp45_extras.cuh) against an earlier
     registers and spills and, for the package and the copies, the
     runtime's blocks an SM of every instance, and the sin/cos range
     reductions in each float32 instance's SASS (cuobjdump). Then, in
-    turns (the order reversed every other turn), runs every build on the
-    scenes: the 1024^2 volumetric scene in float32 (thin, absorbed, jet,
-    3-band, Stokes, movie thin and absorbed, orders thin and absorbed,
-    and more widths: 5 and 8 bands, movie thin and absorbed in 3 and 5
-    frames; max_steps 200000, sat_window 2048) and in float64, and phase
-    11's 4,096 random rays in float64; times each call (CUDA events, mean
-    of 3 after a warm-up; the summary gives the median over turns) and
-    holds every output (extras, final alpha,
-    half-orbits, status, flags, per-ray attempts, warp step sum) bitwise
-    against the earlier commit's.
+    turns (the order reversed every other turn), after one untimed turn
+    of every build on every scene, runs every build on the scenes: the
+    1024^2 volumetric scene in float32 (thin, absorbed, jet, 3-band,
+    Stokes, movie thin and absorbed, orders thin and absorbed, and more
+    widths: 5 and 8 bands, movie thin and absorbed in 3 and 5 frames;
+    max_steps 200000, sat_window 2048) and in float64, and phase 11's
+    4,096 random rays (32 blocks: the size of a two-pass driver's second
+    pass or a small render) in float32 and float64; times each call (CUDA
+    events, mean of 3 after a warm-up; the summary gives the median over
+    turns) and holds every output (extras, final alpha, half-orbits,
+    status, flags, per-ray attempts, warp step sum) bitwise against the
+    earlier commit's.
 
 The first line is the card's name and power limit. Needs a CUDA device;
 imports nothing of JAX.
@@ -573,12 +575,13 @@ def regs_section(dev, builds, X, blocks_list):
 
 
 # The extras kernel's family sources (float32, then their float64
-# siblings), and the line of csrc/kerr_dp45_extras.cuh that gives every
-# instance its functor's block bound.
+# siblings), and the expression of csrc/kerr_dp45_extras.cuh that gives
+# every instance its functor's block bound (in the kernel's
+# __launch_bounds__ and in what describe() reports).
 EXTRAS_SOURCES = ("kerr_dp45_extras", "kerr_dp45_stokes",
                   "kerr_dp45_movie_thin", "kerr_dp45_movie_absorbed",
                   "kerr_dp45_orders")
-BOUND_LINE = "static constexpr int kMin = F::kMinBlocks;"
+BOUND_EXPR = "F::kMinBlocks"
 # The scenes' forms and the instance each launches (float32 names).
 SCENE_INSTANCES = {
     "thin": "VolThin<{}>", "absorbed": "VolAbsorbed<{}>",
@@ -611,11 +614,11 @@ def extras_builds(parent, blocks, jobs=12):
                 _build.CSRC.glob("*.cuh")):
             shutil.copyfile(f, d / f.name)
         text = (d / "kerr_dp45_extras.cuh").read_text()
-        if BOUND_LINE not in text:
+        if f"__launch_bounds__(kThreads, {BOUND_EXPR})" not in text:
             raise RuntimeError("csrc/kerr_dp45_extras.cuh no longer states "
                                "its block bounds as this study expects")
         (d / "kerr_dp45_extras.cuh").write_text(text.replace(
-            BOUND_LINE, f"static constexpr int kMin = {count};"))
+            BOUND_EXPR, str(count)))
         dirs[name] = d
     cmds = []
     for name, d in dirs.items():
@@ -689,8 +692,8 @@ def trig_reductions(obj_dir):
 
 def extras_scenes(dev, X):
     """(label, kind, args, alphas, thetas) of the extras section's runs:
-    the 1024^2 volumetric scene in float32 and float64, and phase 11's
-    4,096 random rays in float64."""
+    the 1024^2 volumetric scene and phase 11's 4,096 random rays, each in
+    float32 and float64."""
     import torch
     from light_path_tracer_tpu_torch import polarization, volumetric
     from light_path_tracer_tpu_torch.models import Kerr
@@ -702,6 +705,9 @@ def extras_scenes(dev, X):
     al_r = torch.tensor(rng.uniform(0.3 * ac, 4 * ac, 4096), **f64)
     th_r = torch.tensor(rng.uniform(-np.pi, np.pi, 4096), **f64)
     aux_r = polarization.camera_constants(kerr, R_OBS, THETA, al_r, th_r)
+    al_r32, th_r32 = al_r.float(), th_r.float()
+    aux_r32 = polarization.camera_constants(kerr, R_OBS, THETA, al_r32,
+                                            th_r32)
     # More widths on the 1024^2 scene: five and eight bands, movie thin
     # and absorbed in three and five frames.
     R = volumetric.RIAFConfig
@@ -726,6 +732,7 @@ def extras_scenes(dev, X):
     for tag, al, th, aux in (
             ("f32 1024^2", al_v, th_v, X["aux"]),
             ("f64 1024^2", al_v.double(), th_v.double(), X["aux"]),
+            ("f32 4,096 rays", al_r32, th_r32, aux_r32),
             ("f64 4,096 rays", al_r, th_r, aux_r)):
         real = "double" if al.dtype == torch.float64 else "float"
         forms = {name: (kind, args, SCENE_INSTANCES[name])
@@ -767,6 +774,7 @@ def extras_outputs(res, probe):
 
 
 def extras_section(dev, X, parent, blocks, turns):
+    import torch
     from chip_smoke import cuda_ms, ptxas_report, same_bits
     from light_path_tracer_tpu_torch.ops.cuda import volumetric_kernel as vk
     builds = extras_builds(parent, blocks)
@@ -793,6 +801,13 @@ def extras_section(dev, X, parent, blocks, turns):
                           flush=True)
         want = {}
         names = list(builds)
+        # One untimed turn first: the card settles its clocks and the
+        # allocator its cache before any reading counts.
+        for name in names:
+            vk.load_library = lambda lib=builds[name][0]: lib
+            for _label, kind, args, al, th, _inst in scenes:
+                vol_call(kerr, kind, args, al, th)
+        torch.cuda.synchronize()
         for turn in range(turns):
             order = names if turn % 2 == 0 else names[::-1]
             for name in order:

@@ -5,8 +5,9 @@ The operation counts are read from the CUDA sources by hand; these tests
 pin them, form by form and width by width, so that a change to a
 functor's arithmetic shows here and is counted anew. The counted bound
 must never fall below the flops-only one (a flop there is half an FMA at
-the published peak; here one instruction, at most the same rate), and both
-scale linearly in the attempts. The extras instances the wrappers list
+the published peak; here one instruction, at the published instruction
+rate unless the probe reads higher), and both scale linearly in the
+attempts. The extras instances the wrappers list
 (chip_smoke.py labels ptxas's report with them) must be the ones the
 sources instantiate, and every functor must state its block bound. The peak
 probe's library-sequence chains run their plain version on the CPU.
@@ -154,6 +155,20 @@ def test_bounds_scale_linearly_in_the_attempts(name, work):
     assert f2 == pytest.approx(2.0 * f1, rel=1e-12)
 
 
+@pytest.mark.parametrize("dtype,form", [("float32", "fma32x8"),
+                                        ("float64", "fma64")])
+@pytest.mark.parametrize("scale", [0.5, 0.91, 1.0, 1.2])
+def test_a_flop_is_priced_at_no_less_than_the_published_rate(dtype, form,
+                                                             scale):
+    peak = bounds.PEAK_FP64 if dtype == "float64" else bounds.PEAK_FP32
+    rates = dict(RATES, **{form: dict(rate=scale * peak)})
+    work = bounds.Work(0, ops(flop=10**12), dtype)
+    ms = bounds.counted_bound_ms(work, 0, rates)[2]["flop"]
+    assert ms == pytest.approx(1e3 * 10**12 / (max(scale, 1.0) * peak / 2),
+                               rel=1e-12)
+    assert ms <= 1e3 * 10**12 / bounds.PUBLISHED_FLOP[dtype]
+
+
 def test_bytes_bind_a_launch_that_does_little_work():
     work = 10 * bounds.orbit_work()
     ms, by, _parts = bounds.counted_bound_ms(work, 10**9, RATES)
@@ -237,8 +252,9 @@ def test_block_bound_line_the_study_rewrites():
     study = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(study)
     text = (CSRC / "kerr_dp45_extras.cuh").read_text()
-    assert text.count(study.BOUND_LINE) == 1
-    assert "__launch_bounds__(kThreads, BlockBound<F>::kMin)" in text
+    assert text.count(study.BOUND_EXPR) == 2
+    assert f"__launch_bounds__(kThreads, {study.BOUND_EXPR})" in text
+    assert f"out[3] = {study.BOUND_EXPR};" in text
 
 
 @pytest.mark.parametrize("form", sorted(f for f in peak_probe.FORMS
