@@ -9,7 +9,8 @@ points a user calls (the 1024^2 Kerr a=0.9 shadow, the 1024^2
 Schwarzschild shadow and the 512^2 Schwarzschild lensed render) and
 checks what they produce, then the config-4 thin-disk render, the 1024^2
 volumetric hot-flow and spectral renders, the polarized, flare-movie and
-order-decomposition renders, and the card's arithmetic peak rates.
+order-decomposition renders, the card's arithmetic peak rates, and config
+5, the 4k Kerr shadow at 4 jittered samples a pixel.
 Phases:
   1. machine: card name and power limit, torch and nvcc versions;
   2. build: nvcc for sm_90a without FMA contraction (-fmad=false), with
@@ -152,11 +153,12 @@ Phases:
      |d| / max < 1e-6 (tau against max(1, max |tau|)); the orders by
      phase 14's flux gates. Then every entry-point family in float64 at
      64^2 on the card against the CPU (render_shadow, render_scene,
-     render_disk, render_volumetric, _spectrum, _movie thin and absorbed,
-     _decomposed, render_polarized_volumetric): only float64 instances
-     launch, no float32 one and no plain loop; shadow pixels equal on
-     99.9 %, masks 99.9 %, lensed RMSE < 1e-6, median |d image| < 1e-6,
-     Stokes medians < 1e-8 of the peak, orders by flux. Then the float32
+     render_shadow_aa, render_disk, render_volumetric, _spectrum, _movie
+     thin and absorbed, _decomposed, render_polarized_volumetric): only
+     float64 instances launch, no float32 one and no plain loop; shadow
+     pixels equal on 99.9 % (with AA too), masks 99.9 %, lensed RMSE
+     < 1e-6, median |d image| < 1e-6, Stokes medians < 1e-8 of the peak,
+     orders by flux. Then the float32
      kernel against the float64 one on the 1024^2 main-path rays: status
      agreement > 0.99, final-alpha RMSE on rays escaped in both, read
      against the north star's 1e-3 rad, and both times.
@@ -186,6 +188,40 @@ Phases:
      the main path's 524,288 rays (float32 and float64) and on the
      aligned and quarter-offset config-4 grids, with the wrapper's time
      (CUDA events).
+ 20. config 5 (bench.py:168-226): the 2160x3840 Kerr a=0.9 shadow at 4
+     jittered samples (aa_offsets(4)) with the mirror fold, 16,604,160
+     traced rays, through render_shadow_aa: a warm-up and 3 timed runs
+     (best precompute, rays/s as bench.py's kerr_a0.9_4k_aa4_rays_per_sec
+     and traced rays/s); the Kerr kernel and its two-pass driver launched,
+     the plain loop not; every pixel a coverage k/4, the mirror rows exact
+     copies, no pixel with a captured sample beyond 1.01 alpha_crit, every
+     fractional pixel beside another value and under 1 % of them; 3
+     frames under torch.profiler. Then the 16.6M stacked rays as one
+     batch, in pass-sized chunks and in difficulty-sorted chunks: without
+     two-pass bitwise equal, with the slowest rays' attempts; with
+     two-pass ('auto', on above 2M rays) each call's rays still running
+     after pass 1 against the two-pass driver's 8,192 slots, bitwise
+     equal where no chunk overflows (where one does, the rays that keep
+     their first-pass result and the pixels that change are printed, as
+     the JAX semantics allow). The kernel, its driver (first pass 256)
+     and the driver over the plain loop on ~42k of the stacked rays, both
+     capped at 512 attempts: 4,096 random rays a pass-sized chunk, the 64
+     slowest of each pass-sized and each sorted chunk, and three columns
+     each side of the polar axis in every row (phase 4's gates on the
+     random rays, the columns and the whole sample; on the slowest rays,
+     where float32 is chaotic, statuses > 0.99, every exit-ended lane's
+     status equal, and the same rays in float64 by phase 17's gates);
+     the exit-ended lanes at 200,000 attempts bitwise equal with the
+     exit off; the kernel and the driver a pass-sized chunk (CUDA
+     events), their own kernels-line entries, and the attempts split by
+     |alpha / alpha_crit - 1| against the main path's, with each one's
+     ns an attempt and lane efficiency. render_shadow_adaptive at a 5 % budget
+     equals the uniform image while no two-pass call overflows and the
+     budget covers the edge set. The four AA entry points at 48x64 on
+     the card against the CPU, both capped at 4,096 attempts: shadow
+     images equal on >= 99 %, lensed (bilinear) RMSE < 1e-3 on pixels of
+     winding < 2 (for the adaptive render, on pixels refined on both
+     sides or neither).
 Each path's launch counters are set to 0 just before it and read just
 after (float32 and float64 instances count apart: `.launches`,
 `.launches_f64`). The second-to-last line is a JSON object of per-kernel
@@ -200,8 +236,13 @@ half the published peak, ops/cuda/bounds.py), the slowest ray's attempts
 with the time that ray takes when traced alone, and for the extras
 kernel the instance it launched with its registers, spills (bytes, from
 ptxas's report of the loaded library's build; null where that build kept
-none), blocks an SM and block bound. The last line is
-{"ok": true, "device": {...}}. Exit code 0 iff every phase passed;
+none), blocks an SM and block bound. The config-5 entries
+(kerr_dp45_config5, trace_rays_kerr_two_pass_config5) time a launch on
+a pass-sized chunk; their plain_ms is the plain loop's on phase 20's
+sample (plain_rays, plain_max_steps), and their bounds count the
+attempts of every ray but the exit-ended lanes, which the exit books at
+200,000 without making them (attempts_booked counts them too). The last
+line is {"ok": true, "device": {...}}. Exit code 0 iff every phase passed;
 without a CUDA device it exits 1 and prints no result.
 """
 
@@ -1697,7 +1738,7 @@ def float64_phase(dev, card, ctx):
     path's rays. Returns the kernels-line entries of the float64
     instances."""
     import torch
-    from light_path_tracer_tpu_torch import (camera, disk, pipeline,
+    from light_path_tracer_tpu_torch import (aa, camera, disk, pipeline,
                                              polarization, volumetric)
     from light_path_tracer_tpu_torch.models import (Kerr, ReissnerNordstrom,
                                                     Schwarzschild)
@@ -1798,6 +1839,8 @@ def float64_phase(dev, card, ctx):
     families = {
         "shadow": ("kerr", lambda device: pipeline.render_shadow(
             scene_k, d64, cfg, device=device)),
+        "shadow aa": ("kerr", lambda device: aa.render_shadow_aa(
+            scene_k, d64, cfg, aa_samples=4, device=device)),
         "lensed": ("orbit", lambda device: pipeline.render_scene(
             scene_s, src, RenderConfig(dtype="float64",
                                        sampling="bilinear"),
@@ -1838,7 +1881,7 @@ def float64_phase(dev, card, ctx):
                 f"phase 17 {label} float64 render: {n64} float64 launches, "
                 f"{n32} float32, {n_plain} plain")
         oc = render("cpu")
-        if label == "shadow":
+        if label in ("shadow", "shadow aa"):
             c = dict(pixels_equal=float((og[0].cpu() == oc[0]).float()
                                         .mean()))
             ok = c["pixels_equal"] >= 0.999
@@ -2152,6 +2195,462 @@ def reference_phase(dev, card):
     return rows
 
 
+# Config 5 (bench.py:168-226): the 4k Kerr a=0.9 shadow at 4 jittered
+# samples a pixel with the mirror fold, 4 x 1,081 x 3,840 = 16,604,160
+# traced rays; the small grid and the CPU side's attempt cap of its
+# card-vs-CPU check.
+DIM5 = (2160, 3840)
+AA5 = 4
+SMALL5 = (48, 64)
+SMALL5_STEPS = 4096
+# The sample of the stacked rays that phase 20 holds against the plain
+# loop: SAMPLE5 random rays a pass-sized chunk, the SLOWEST5 slowest of
+# each pass-sized and each sorted chunk, and the AXIS5 columns each side
+# of the polar axis in every row; both sides capped at SAMPLE5_STEPS
+# attempts (the plain loop costs ~15 ms an iteration whatever the batch,
+# and a lane that never ends runs to the cap in it; only the exit-ended
+# lanes pass 512 attempts), the driver's first pass at SAMPLE5_PASS1.
+SAMPLE5 = 4096
+SLOWEST5 = 64
+AXIS5 = 3
+SAMPLE5_STEPS = 512
+SAMPLE5_PASS1 = 256
+# |alpha / alpha_crit - 1| bands of phase 20's split of the attempts.
+BANDS5 = (0.0, 0.02, 0.1, 0.5, float("inf"))
+
+
+def attempt_split(alphas, attempts, ac, groups):
+    """Rays and attempts by |alpha / alpha_crit - 1| band (BANDS5) in each
+    group (name -> bool mask): each band's share of the group's rays and
+    its mean attempts a ray."""
+    rel = (alphas.double() / ac - 1.0).abs()
+    a = attempts.double()
+    out = {}
+    for name, mask in groups.items():
+        total = max(int(mask.sum()), 1)
+        bands = []
+        for lo, hi in zip(BANDS5[:-1], BANDS5[1:]):
+            m = mask & (rel >= lo) & (rel < hi)
+            k = int(m.sum())
+            bands.append(dict(band=[lo, hi if hi != float("inf") else None],
+                              ray_share=k / total,
+                              mean_attempts=float(a[m].mean()) if k else 0.0))
+        out[name] = dict(rays=int(mask.sum()),
+                         mean_attempts=float(a[mask].mean()), bands=bands)
+    return out
+
+
+def config5_phase(dev, card, main):
+    """Phase 20: config 5 through render_shadow_aa, the chunk rule on the
+    card, the Kerr kernel and its driver against the plain loop on a
+    sample of config 5's own rays, adaptive against uniform AA, and the
+    AA entry points on the card against the CPU. main: the 1024^2 main
+    path's rays, refine flags, per-ray attempts and kernel ms (phase 3),
+    for the split of the attempts. Returns the config-5 render's launches
+    of the Kerr kernel and of its driver, and their kernels-line entries
+    at config 5's shapes."""
+    import torch
+    from light_path_tracer_tpu_torch import aa, adaptive, camera
+    from light_path_tracer_tpu_torch.ops import kerr_trace
+    from light_path_tracer_tpu_torch.ops.batch import (difficulty_order,
+                                                       trace_batch)
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    from light_path_tracer_tpu_torch.utils.config import (RenderConfig,
+                                                          SceneConfig)
+    scene = SceneConfig(M=1.0, a=0.9, r_obs_mult=R_OBS)
+    cfg = RenderConfig()
+    metric = scene.metric()
+    height, width = DIM5
+    rows = height // 2 + 1
+    offsets = aa.aa_offsets(AA5)
+    fov = camera.fov_from_vertical(scene.vertical_fov, DIM5)
+    kernel, driver = kk.trace_rays_kerr_cuda, kk.trace_rays_kerr_two_pass
+    plain = kerr_trace.trace_rays_kerr
+    slots = kk.SLOTS
+
+    def render():
+        return aa.render_shadow_aa(scene, DIM5, cfg, aa_samples=AA5,
+                                   device="cuda")
+
+    # -- (a) the render: a warm-up and 3 timed runs ----------------------
+    kernel.launches = driver.launches = plain.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    img, st = render()
+    runs = []
+    for _ in range(3):
+        img, st = render()
+        runs.append(st["timings"]["precompute"])
+    launches = dict(kernel=kernel.launches, driver=driver.launches)
+    plains = plain.launches
+    best = min(runs)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    print(f"config 5 (4k Kerr a=0.9, {AA5}x AA): kernel launches "
+          f"{launches['kernel']}, two-pass driver calls "
+          f"{launches['driver']}, plain-loop calls {plains}, traced_rays "
+          f"{st['traced_rays']}, precompute of each run (s) "
+          f"{json.dumps(runs)}, peak device memory {peak:.1f} MiB",
+          flush=True)
+    print(f"config 5: best precompute {best:.4f} s, "
+          f"kerr_a0.9_4k_aa4_rays_per_sec {height * width * AA5 / best:,.0f}"
+          f", traced rays/s {st['traced_rays'] / best:,.0f} on {card}",
+          flush=True)
+    require(launches["kernel"] > 0 and launches["driver"] > 0
+            and plains == 0, f"config 5: {launches} kernel launches and "
+            f"driver calls, {plains} plain calls")
+    require(st["traced_rays"] == AA5 * rows * width,
+            f"config 5 traced_rays {st['traced_rays']}")
+    require(tuple(img.shape) == DIM5 and img.dtype == torch.float32
+            and bool(torch.isfinite(img).all()), "config 5: bad image")
+    quarters = img * AA5
+    require(bool(torch.equal(quarters, quarters.round()))
+            and float(img.min()) >= 0.0 and float(img.max()) <= 1.0,
+            "config 5: a pixel is not a coverage k/4")
+    require(bool(torch.equal(img[rows:], img[1:height - rows + 1].flip(0))),
+            "config 5: the mirror rows are not copies")
+    ac = metric.alpha_crit(R_OBS)
+    alpha = camera.build_alpha_lookup(DIM5, fov, device=dev)
+    outside = int(((img < 1.0) & (alpha >= 1.01 * ac)).sum())
+    frac = (img > 0.0) & (img < 1.0)
+    n_frac = int(frac.sum())
+    lonely = int((frac & (adaptive._neighbor_max_diff(img) == 0.0)).sum())
+    share = n_frac / img.numel()
+    print(f"config 5 image: captured-sample px {int((img < 1.0).sum())}, "
+          f"outside 1.01 alpha_crit {outside}; fractional px {n_frac} "
+          f"({share:.5f} of the image), of them with no other value beside "
+          f"them {lonely}", flush=True)
+    require(outside == 0, f"config 5: {outside} pixels with a captured "
+            f"sample outside 1.01 alpha_crit")
+    require(lonely == 0 and share < 0.01,
+            f"config 5: {lonely} fractional pixels inside a flat region, "
+            f"fractional share {share:.5f}")
+    del alpha
+    frame = device_profile(render, 3, "kerr_dp45")
+    print(f"config 5 frame under torch.profiler (3 frames): "
+          f"{json.dumps(frame)}", flush=True)
+
+    # -- (b) the chunk rule: one batch, pass-sized chunks, sorted chunks --
+    al, th = aa._stacked_grids(metric, scene, cfg, DIM5, fov, offsets,
+                               trace_rows=rows, device=dev)
+    al, th = al.reshape(-1), th.reshape(-1)
+    n, chunk = al.numel(), rows * width
+    ways = {"one batch": dict(chunk_size=None),
+            "pass-sized chunks": dict(chunk_size=chunk,
+                                      sort_by_difficulty=False),
+            "sorted chunks": dict(chunk_size=chunk,
+                                  sort_by_difficulty=True)}
+
+    def trace(kw, two_pass):
+        return trace_batch(metric, R_OBS, al, th, scene.theta_obs,
+                           max_steps=cfg.max_steps, two_pass=two_pass, **kw)
+
+    single = {label: cuda_ms(lambda: trace(kw, False), 1)
+              for label, kw in ways.items()}
+    ref = single["one batch"][1]
+    bitwise = {label: all(same_bits(a, b) for a, b in zip(r[:3], ref[:3]))
+               for label, (_ms, r) in single.items()}
+    probe = {}
+    zeros = torch.zeros(n, dtype=torch.bool, device=dev)
+    kernel(metric, R_OBS, al, th, scene.theta_obs, zeros, LAMBDA_MAX,
+           cfg.max_steps, probe=probe)
+    attempts = probe["attempts"].to(torch.int64)
+    # The lanes the exact-cycle exit ended (period in bits 21-30 of the
+    # census), among those above the first pass's cap.
+    long = attempts > cfg.pass1_steps
+    exited = (probe["cycles"] >> 21) & 1023 > 0
+    cycled = int((long & exited).sum())
+    del probe
+    order = difficulty_order(metric, R_OBS, scene.theta_obs, al)
+    top = torch.topk(attempts, 5)
+    slowest = [{"pass": i // chunk, "row": i % chunk // width,
+                "col": i % width, "attempts": a}
+               for a, i in zip(top.values.tolist(), top.indices.tolist())]
+    _, unconv = kernel(metric, R_OBS, al, th, scene.theta_obs, zeros,
+                       LAMBDA_MAX, cfg.pass1_steps, return_unconverged=True)
+    stragglers = {"one batch": [int(unconv.sum())],
+                  "pass-sized chunks": unconv.reshape(-1, chunk).sum(1)
+                  .tolist(),
+                  "sorted chunks": unconv[order].reshape(-1, chunk).sum(1)
+                  .tolist()}
+    max_attempts = {"pass-sized chunks": attempts.reshape(-1, chunk)
+                    .amax(1).tolist(),
+                    "sorted chunks": attempts[order].reshape(-1, chunk)
+                    .amax(1).tolist()}
+    row_b = {label: dict(ms=ms, bitwise_equal=bitwise[label],
+                         unconverged_after_pass1=stragglers[label],
+                         max_attempts=max_attempts.get(
+                             label, [int(attempts.max())]))
+             for label, (ms, _r) in single.items()}
+    print(f"config 5 chunk rule, {n} stacked rays, two_pass=False: "
+          f"{json.dumps(row_b)}; slowest rays {json.dumps(slowest)}; rays "
+          f"above {cfg.pass1_steps} attempts {int(long.sum())}, of them "
+          f"ended by the exact-cycle exit {cycled}", flush=True)
+    require(all(bitwise.values()), f"config 5: the chunkings differ "
+            f"bitwise without two-pass: {bitwise}")
+    del single
+
+    def coverage(res):
+        fa = aa._mirror_fill(res.final_alpha.reshape(AA5, rows, width),
+                             height)
+        return (~torch.isnan(fa)).to(torch.float64).sum(0)
+
+    exact = coverage(ref)
+    row_2 = {}
+    for label, kw in ways.items():
+        ms, r = cuda_ms(lambda: trace(kw, "auto"), 1)
+        over = sum(max(0, c - slots) for c in stragglers[label])
+        same = all(same_bits(a, b) for a, b in zip(r[:3], ref[:3]))
+        row_2[label] = dict(ms=ms, bitwise_equal=same,
+                            rays_kept_from_pass1=over,
+                            pixels_changed=int((coverage(r) != exact).sum()))
+        require(same or over > 0, f"config 5: {label} with two-pass "
+                f"differs from the single pass with no chunk above {slots} "
+                f"unconverged rays")
+    uniform_changed = int((img * AA5 != exact).sum())
+    print(f"config 5 chunk rule, two_pass='auto' (slots {slots}): "
+          f"{json.dumps(row_2)}; the render's pixels off the exact image "
+          f"{uniform_changed} on {card}", flush=True)
+    del ref, exact
+
+    # -- (b2) the kernel and its driver against the plain loop on a sample
+    # of the stacked rays, both capped at SAMPLE5_STEPS ------------------
+    gen = torch.Generator().manual_seed(5)
+    ac = metric.alpha_crit(R_OBS, scene.theta_obs)
+    rand = torch.cat([c * chunk + torch.randint(0, chunk, (SAMPLE5,),
+                                                generator=gen)
+                      for c in range(AA5)]).to(dev)
+    cols = torch.arange(width // 2 - AXIS5, width // 2 + AXIS5)
+    axis = (torch.arange(AA5 * rows)[:, None] * width
+            + cols[None, :]).reshape(-1).to(dev)
+    slow = []
+    for c in range(AA5):
+        part = slice(c * chunk, (c + 1) * chunk)
+        slow.append(c * chunk + attempts[part].topk(SLOWEST5).indices)
+        slow.append(order[part][attempts[order[part]].topk(SLOWEST5)
+                                .indices])
+    slow = torch.cat(slow)
+    ex = torch.nonzero(exited)[:, 0]
+    idx = torch.unique(torch.cat([rand, axis, slow, ex]))
+    subsets = {name: torch.isin(idx, sub) for name, sub in
+               (("random", rand), ("polar-axis columns", axis),
+                ("slowest", slow), ("exit-ended", ex))}
+    subsets["all"] = torch.ones_like(subsets["random"])
+    s_args = (metric, R_OBS, al[idx], th[idx], scene.theta_obs,
+              zeros[:idx.numel()], LAMBDA_MAX, SAMPLE5_STEPS)
+    probe = {}
+    rk = kernel(*s_args, probe=probe)
+    rd = driver(*s_args, pass1_steps=SAMPLE5_PASS1)
+    s_plain_ms, rp = cuda_ms(lambda: kk.trace_rays_kerr_plain(*s_args), 1)
+    d_plain_ms, rdp = cuda_ms(lambda: driver(
+        *s_args, pass1_steps=SAMPLE5_PASS1,
+        trace_fn=kk.trace_rays_kerr_plain), 1)
+    ended_capped = int((((probe["cycles"] >> 21) & 1023) > 0).sum())
+    # Phase 4's rules on the random rays, the polar-axis columns and the
+    # whole sample. On the slowest rays float32 is chaotic: the
+    # exit-ended lanes freeze under the cap in both versions, at
+    # states that sin and cos rounded apart on a few of them, and a few
+    # other slow rays end apart so (ROADMAP Queue 3). There float32 is
+    # held by status (the exit-ended lanes lane by lane), and float64,
+    # where both versions end every one of these rays, by phase 17's
+    # rules.
+    e, slowest = subsets["exit-ended"], subsets["slowest"]
+
+    def part(r, m):
+        return r._replace(final_alpha=r.final_alpha[m], status=r.status[m])
+
+    row_s = {name: compare(part(rk, m), part(rp, m), al[idx][m], ac)
+             for name, m in subsets.items()}
+    g_drv = compare(rd, rdp, al[idx], ac)
+    pairs = list(zip(rk.status[e].tolist(), rp.status[e].tolist()))
+    status_pairs = {f"{k}/{q}": pairs.count((k, q)) for k, q in set(pairs)}
+    d_e = (rk.final_alpha[e] - rp.final_alpha[e]).abs()
+    sl = idx[slowest]
+    x64 = (metric, R_OBS, al[sl].double(), th[sl].double(), scene.theta_obs,
+           zeros[:sl.numel()], LAMBDA_MAX, SAMPLE5_STEPS)
+    r64, p64 = kernel(*x64), kk.trace_rays_kerr_plain(*x64)
+    g64 = compare(r64, p64, al[sl], ac)
+    e64 = e[slowest]
+    exit_row = dict(
+        f32_status_pairs=status_pairs, f32_frozen_by_the_exit=ended_capped,
+        f32_lanes_d_alpha_above_1e_3=int((d_e > 1e-3).sum()),
+        f32_max_abs_d_alpha=float(d_e.max()),
+        f64_captured=int((r64.status[e64] == -1).sum()))
+    driver_same = all(same_bits(a, b) for a, b in zip(rd[:3], rk[:3]))
+    print(f"config 5 kernel vs plain loop on {idx.numel()} of its stacked "
+          f"rays, both capped at {SAMPLE5_STEPS} attempts: "
+          f"{json.dumps(row_s)}; the {ex.numel()} exit-ended lanes "
+          f"{json.dumps(exit_row)}; the slowest set in float64 "
+          f"{json.dumps(g64)}; driver (pass1_steps {SAMPLE5_PASS1}) "
+          f"bitwise equal to the single pass {driver_same}, against the "
+          f"driver over the plain loop {json.dumps(g_drv)}; plain ms "
+          f"{s_plain_ms:.1f} (single pass), {d_plain_ms:.1f} (driver)",
+          flush=True)
+    for name in ("random", "polar-axis columns", "all"):
+        g = row_s[name]
+        require(g["status_agree"] > 0.99 and g["p99"] < 2e-3,
+                f"config 5 kernel vs plain loop, {name}: {g}")
+    require(g_drv["status_agree"] > 0.99 and g_drv["p99"] < 2e-3,
+            f"config 5 driver vs the driver over the plain loop: {g_drv}")
+    require(row_s["slowest"]["status_agree"] > 0.99
+            and row_s["exit-ended"]["status_agree"] == 1.0,
+            f"config 5: the slowest rays end otherwise in the plain loop: "
+            f"{row_s['slowest']}, exit-ended {exit_row}")
+    require(g64["status_agree"] > 0.999 and g64["p99"] < 1e-6,
+            f"config 5: the slowest rays in float64: {g64}")
+    require(driver_same, "config 5: the driver differs from the single "
+            "pass on the sample")
+    del rk, rd, rp, rdp, probe, r64, p64
+
+    # The exit-ended lanes at full depth with the exit and without it
+    # (every attempt ground): bitwise equal, as phase 18 holds its grids.
+    x_args = (metric, R_OBS, al[ex], th[ex], scene.theta_obs,
+              zeros[:ex.numel()], LAMBDA_MAX, cfg.max_steps)
+    p_on, p_off = {}, {}
+    on_ms, r_on = cuda_ms(lambda: kernel(*x_args, probe=p_on), 1)
+    off_ms, r_off = cuda_ms(lambda: kernel(*x_args, probe=p_off,
+                                           _cycle_exit=False), 1)
+    ground = (all(same_bits(a, b) for a, b in zip(r_on[:3], r_off[:3]))
+              and torch.equal(p_on["attempts"], p_off["attempts"])
+              and same_bits(p_on["state"], p_off["state"]))
+    print(f"config 5 exit-ended lanes ({ex.numel()}) at {cfg.max_steps} "
+          f"attempts: exit on {on_ms:.2f} ms, off {off_ms:.2f} ms, bitwise "
+          f"equal {ground}", flush=True)
+    require(ground, "config 5: the exit-ended lanes differ with the exit "
+            "off")
+    del r_on, r_off, p_on, p_off
+
+    # -- the Kerr kernel and its driver at config 5's shape: a launch a
+    # pass-sized chunk (CUDA events, the four chunks in a row), against
+    # the work of the rays the exit did not end (the exit books 200,000
+    # attempts a lane that it never makes) ---------------------------
+    parts = [(al[s:s + chunk], th[s:s + chunk]) for s in range(0, n, chunk)]
+    zc = zeros[:chunk]
+    k_ms, _ = cuda_ms(lambda: [kernel(
+        metric, R_OBS, a, t, scene.theta_obs, zc, LAMBDA_MAX,
+        cfg.max_steps) for a, t in parts], 1)
+    d_ms, _ = cuda_ms(lambda: [driver(
+        metric, R_OBS, a, t, scene.theta_obs, zc, LAMBDA_MAX,
+        cfg.max_steps, pass1_steps=cfg.pass1_steps) for a, t in parts], 1)
+    k_ms, d_ms = k_ms / AA5, d_ms / AA5
+    made = attempts.masked_fill(exited, 0)
+    slowest = attempts_stats(attempts, lambda i: kernel(
+        metric, R_OBS, al[i:i + 1], th[i:i + 1], scene.theta_obs,
+        zeros[:1], LAMBDA_MAX, cfg.max_steps))
+    shadow_work = kerr_work()
+    sample = dict(plain_rays=int(idx.numel()),
+                  plain_max_steps=SAMPLE5_STEPS,
+                  attempts_booked=int(attempts.sum()) // AA5,
+                  exit_ended=int(exited.sum()))
+    entries = [
+        kernel_entry("kerr_dp45_config5", KERNEL_SOURCE, REPLACES,
+                     launches["kernel"], row_s["all"]["max_abs"], k_ms,
+                     s_plain_ms, chunk, 9 + 12,
+                     int(made.sum()) // AA5 * shadow_work, slowest),
+        kernel_entry("trace_rays_kerr_two_pass_config5", DRIVER_SOURCE,
+                     f"{JAX_KERNELS}:257", launches["driver"],
+                     g_drv["max_abs"], d_ms, d_plain_ms, chunk, 9 + 12,
+                     driver_attempts(made, cfg.pass1_steps) // AA5
+                     * shadow_work)]
+    for e in entries:
+        e.update(sample)
+
+    # The attempts split by |alpha / alpha_crit - 1|: config 5's rays
+    # (those the exit did not end) against the main path's, refined and
+    # not; and each kernel's ns an attempt.
+    split = attempt_split(al, made, ac, {"config 5": ~exited})
+    m_al, m_rf, m_at = main["alphas"], main["refine"], main["attempts"]
+    split.update(attempt_split(m_al, m_at, ac, {
+        "1024^2 main path": torch.ones_like(m_rf),
+        "1024^2 refined columns": m_rf, "1024^2 other columns": ~m_rf}))
+    ns = {"config 5": k_ms * 1e6 / (int(made.sum()) / AA5),
+          "1024^2 main path": main["ms"] * 1e6 / int(m_at.sum())}
+    busy = {"config 5": int(made.sum()) / (32 * int(
+                kerr_trace.warp_step_sum(made))),
+            "1024^2 main path": int(m_at.sum()) / (32 * int(
+                kerr_trace.warp_step_sum(m_at)))}
+    print(f"config 5 kernel a pass-sized chunk ({chunk} rays): {k_ms:.3f} "
+          f"ms, driver {d_ms:.3f} ms; ns an attempt {json.dumps(ns)}; lane "
+          f"efficiency (the exit-ended lanes left out) {json.dumps(busy)}; "
+          f"attempts by |alpha/alpha_crit - 1| band {json.dumps(split)} on "
+          f"{card}", flush=True)
+    del al, th, zeros, order, attempts, made, exited, parts
+
+    # -- (c) adaptive against uniform AA ----------------------------------
+    adaptive.render_shadow_adaptive(scene, DIM5, cfg, aa_samples=AA5,
+                                    refine_frac=0.05, device="cuda")
+    img_a, st_a = adaptive.render_shadow_adaptive(
+        scene, DIM5, cfg, aa_samples=AA5, refine_frac=0.05, device="cuda")
+    al_r, th_r = adaptive._refine_angles(st_a["refined_idx"], DIM5, fov,
+                                         offsets, scene, torch.float32)
+    _, unc_r = kernel(metric, R_OBS, al_r.reshape(-1), th_r.reshape(-1),
+                      scene.theta_obs,
+                      torch.zeros(al_r.numel(), dtype=torch.bool,
+                                  device=dev),
+                      LAMBDA_MAX, cfg.pass1_steps, return_unconverged=True)
+    unc = dict(base=stragglers["pass-sized chunks"][0],
+               refine=int(unc_r.sum()))
+    overflow = (max(stragglers["pass-sized chunks"]) > slots
+                or max(unc.values()) > slots)
+    covered = st_a["edge_pixels"] <= st_a["refined_pixels"]
+    differ = int((img_a != img).sum())
+    t_a = st_a["timings"]
+    print(f"config 5 adaptive (5 % budget): traced_rays "
+          f"{st_a['traced_rays']}, edge_pixels {st_a['edge_pixels']}, "
+          f"refined_pixels {st_a['refined_pixels']}, unconverged after "
+          f"pass 1 {json.dumps(unc)}, stages (s) {json.dumps(t_a)}, "
+          f"traced rays/s {st_a['traced_rays'] / t_a['total']:,.0f}, "
+          f"pixels off the uniform image {differ} on {card}", flush=True)
+    require(differ == 0 or overflow or not covered,
+            f"config 5: adaptive differs from uniform AA on {differ} "
+            f"pixels with the edge set covered and no overflow")
+    del img_a, al_r, th_r, unc_r, img
+
+    # -- (d) the AA entry points on the card against the CPU --------------
+    cfg_s = RenderConfig(max_steps=SMALL5_STEPS)
+    src = np.random.default_rng(5).random(SMALL5 + (3,)).astype(np.float32)
+    cfg_b = RenderConfig(max_steps=SMALL5_STEPS, sampling="bilinear")
+    fov_s = camera.fov_from_vertical(scene.vertical_fov, SMALL5)
+    checks = {}
+    for label, fn in (("shadow aa", aa.render_shadow_aa),
+                      ("shadow adaptive", adaptive.render_shadow_adaptive)):
+        og, _ = fn(scene, SMALL5, cfg_s, device="cuda")
+        oc, _ = fn(scene, SMALL5, cfg_s, device="cpu")
+        checks[label] = dict(pixels_equal=float(
+            (og.cpu() == oc).float().mean()))
+    calm = None
+    for device in ("cuda", "cpu"):
+        nh = aa._trace_all_passes(metric, scene, cfg_b, SMALL5, fov_s,
+                                  offsets, device)[1].cpu()
+        quiet = nh.amax(0) < 2
+        calm = quiet if calm is None else calm & quiet
+    for label, fn in (("scene aa", aa.render_scene_aa),
+                      ("scene adaptive", adaptive.render_scene_adaptive)):
+        og, sg = fn(scene, src, cfg_b, device="cuda")
+        oc, sc = fn(scene, src, cfg_b, device="cpu")
+        keep = calm.clone()
+        c = {}
+        if "refined_idx" in sg:
+            # A pixel refined on one side only carries another sample
+            # set: a tie-break at the budget's edge, not an error.
+            ref_g = torch.zeros(SMALL5[0] * SMALL5[1], dtype=torch.bool)
+            ref_c = torch.zeros_like(ref_g)
+            ref_g[sg["refined_idx"].cpu()] = True
+            ref_c[sc["refined_idx"]] = True
+            one_side = (ref_g != ref_c).reshape(SMALL5)
+            c["refined_one_side"] = int(one_side.sum())
+            keep &= ~one_side
+        d = (og.cpu() - oc)[keep]
+        c.update(calm_px=int(keep.sum()), rmse=float((d ** 2).mean().sqrt()))
+        checks[label] = c
+    print(f"config 5 check, {SMALL5[0]}x{SMALL5[1]} card vs CPU "
+          f"(max_steps {SMALL5_STEPS}): {json.dumps(checks)}", flush=True)
+    require(all(checks[k]["pixels_equal"] >= 0.99
+                for k in ("shadow aa", "shadow adaptive"))
+            and all(checks[k]["rmse"] < 1e-3
+                    for k in ("scene aa", "scene adaptive")),
+            f"config 5 card vs CPU: {checks}")
+    return launches, entries
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2231,6 +2730,8 @@ def main() -> int:
                           cfg.max_steps, 3)
     require(gmain["status_agree"] > 0.99 and gmain["p99"] < 2e-3
             and gmain["mask_agree"] >= 0.995, f"1024^2 gate: {gmain}")
+    main_rays = dict(alphas=al, refine=rf, attempts=gmain["attempts"],
+                     ms=gmain["ms"])
     del al, th, rf
 
     # -- 4. main path ------------------------------------------------------
@@ -2598,6 +3099,9 @@ def main() -> int:
     # -- 19. the rays of the reference; the Kerr kernel's booking --------
     reference_phase(dev, card)
 
+    # -- 20. config 5: the 4k jittered-AA shadow -------------------------
+    launches5, kernels5 = config5_phase(dev, card, main_rays)
+
     shadow_work = kerr_work()
     # Bytes a ray: alpha, theta (and the refine byte) in; final_alpha,
     # n_half and the status out, plus p_phi, n_hits and two slots of
@@ -2620,10 +3124,11 @@ def main() -> int:
                      two_ms_k, two_ms_p, int(al_d.numel()), 8 + 20 + 16,
                      g_drv["attempts_sum"] * shadow_work),
         kernel_entry("trace_rays_kerr_two_pass", DRIVER_SOURCE,
-                     f"{JAX_KERNELS}:257", launches_k2, g_k2["max_abs"],
-                     kerr_row["two_pass_ms"], plain2_ms, gmain["n"], 9 + 12,
+                     f"{JAX_KERNELS}:257", launches_k2,
+                     g_k2["max_abs"], kerr_row["two_pass_ms"], plain2_ms,
+                     gmain["n"], 9 + 12,
                      kerr_row["attempts_sum"] * shadow_work)]
-    kernels += vol_kernels + new_kernels + [probe_kernel] + f64_kernels
+    kernels += kernels5 + vol_kernels + new_kernels + [probe_kernel] + f64_kernels
     # The counted bound: every operation by kind at the rate phase 16
     # measured for it (a flop at no less than the published rate).
     for k in kernels:

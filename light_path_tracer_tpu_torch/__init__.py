@@ -6,11 +6,16 @@ mirrors its layout and names module by module, in plain PyTorch, with
 every TPU kernel on a ported path rewritten as a hand-written CUDA kernel
 for Hopper (csrc/). Ported so far: the shadow (`render_shadow`) and the
 lensed render (`render_scene`) for Kerr, Schwarzschild and
-Reissner-Nordstrom, through the whole-grid `trace_batch` to the CUDA
-DP45 kernel (`ops/cuda/kerr_trace_kernel.py`) or the CUDA RK4 orbit
-kernel (`ops/cuda/schwarzschild_kernel.py`) on a CUDA device, or to
-their plain PyTorch loops (`ops/kerr_trace.py`,
+Reissner-Nordstrom, through `trace_batch` (whole-grid, or chunked and
+difficulty-sorted) to the CUDA DP45 kernel (`ops/cuda/kerr_trace_kernel.py`)
+or the CUDA RK4 orbit kernel (`ops/cuda/schwarzschild_kernel.py`) on a
+CUDA device, or to their plain PyTorch loops (`ops/kerr_trace.py`,
 `ops/schwarzschild_trace.py`) on the CPU.
+
+Config 5, the jittered-AA shadow and lensed render (`aa.py`:
+`render_shadow_aa`, `render_scene_aa`; `adaptive.py`:
+`render_shadow_adaptive`, `render_scene_adaptive`), traces the stacked
+AA passes through `trace_batch`, in pass-sized chunks above 8M rays.
 
 The accretion-disk still render (`render_disk`, config 4) traces
 through the kernel's disk variant (`trace_disk_rays_cuda`), by default
@@ -27,6 +32,8 @@ self-absorbed), the multi-frequency spectral image
 This package imports torch and never jax.
 """
 
+from light_path_tracer_tpu_torch.adaptive import (render_scene_adaptive,
+                                                  render_shadow_adaptive)
 from light_path_tracer_tpu_torch.disk import DiskConfig, render_disk
 from light_path_tracer_tpu_torch.models import (Kerr, ReissnerNordstrom,
                                                 Schwarzschild, make_metric)
@@ -47,4 +54,5 @@ __all__ = ["Kerr", "Schwarzschild", "ReissnerNordstrom", "make_metric",
            "RenderConfig", "SceneConfig", "DiskConfig", "render_disk",
            "RIAFConfig", "render_volumetric", "render_volumetric_spectrum",
            "render_volumetric_movie", "render_volumetric_decomposed",
-           "render_polarized_volumetric"]
+           "render_polarized_volumetric", "render_shadow_adaptive",
+           "render_scene_adaptive"]

@@ -117,14 +117,28 @@ def _cam_grids(image_dimension, fov, device, pixel_offset=(0.0, 0.0)):
     return x_cam, y_cam
 
 
-def _view_grids(image_dimension, fov, device, pixel_offset=(0.0, 0.0)):
-    """Broadcast unit view-direction component grids (vx, vy, vz)."""
-    x_cam, y_cam = _cam_grids(image_dimension, fov, device, pixel_offset)
-    denom = torch.sqrt(1.0 + x_cam[None, :] ** 2 + y_cam[:, None] ** 2)
-    vx = x_cam[None, :] / denom
-    vy = y_cam[:, None] / denom
-    vz = 1.0 / denom
-    return vx, vy, vz
+def _alpha_at(x_cam, y_cam, psi):
+    """Viewing angle to the BH direction at camera-plane points (float64
+    tensors that broadcast together)."""
+    d = psi_frame(psi).d
+    denom = torch.sqrt(1.0 + x_cam ** 2 + y_cam ** 2)
+    cos_alpha = (x_cam * float(d[0]) + y_cam * float(d[1])
+                 + float(d[2])) / denom
+    return torch.arccos(torch.clamp(cos_alpha, -1.0, 1.0))
+
+
+def _theta_at(x_cam, y_cam, psi):
+    """Screen azimuth about the BH direction at camera-plane points
+    (float64 tensors that broadcast together)."""
+    frame = psi_frame(psi)
+    e_x = [float(c) for c in frame.e_x]
+    e_y = [float(c) for c in frame.e_y]
+    denom = torch.sqrt(1.0 + x_cam ** 2 + y_cam ** 2)
+    vx, vy, vz = x_cam / denom, y_cam / denom, 1.0 / denom
+    return torch.arctan2(
+        vx * e_x[0] + vy * e_x[1] + vz * e_x[2],
+        vx * e_y[0] + vy * e_y[1] + vz * e_y[2],
+    )
 
 
 def build_alpha_lookup(image_dimension, fov, decimals=None, psi=(0.0, 0.0),
@@ -133,12 +147,7 @@ def build_alpha_lookup(image_dimension, fov, decimals=None, psi=(0.0, 0.0),
     """Per-pixel viewing angle alpha to the BH direction, (H, W)."""
     _reject_unported(boost, decimals)
     x_cam, y_cam = _cam_grids(image_dimension, fov, device, pixel_offset)
-    d = psi_frame(psi).d
-    denom = torch.sqrt(1.0 + x_cam[None, :] ** 2 + y_cam[:, None] ** 2)
-    cos_alpha = (x_cam[None, :] * float(d[0])
-                 + y_cam[:, None] * float(d[1]) + float(d[2])) / denom
-    alpha = torch.arccos(torch.clamp(cos_alpha, -1.0, 1.0))
-    return alpha.to(dtype)
+    return _alpha_at(x_cam[None, :], y_cam[:, None], psi).to(dtype)
 
 
 def build_theta_lookup(image_dimension, fov, psi=(0.0, 0.0),
@@ -146,15 +155,30 @@ def build_theta_lookup(image_dimension, fov, psi=(0.0, 0.0),
                        boost=None, device="cuda"):
     """Per-pixel screen azimuth theta about the BH direction, (H, W)."""
     _reject_unported(boost)
-    frame = psi_frame(psi)
-    e_x = [float(c) for c in frame.e_x]
-    e_y = [float(c) for c in frame.e_y]
-    vx, vy, vz = _view_grids(image_dimension, fov, device, pixel_offset)
-    theta = torch.arctan2(
-        vx * e_x[0] + vy * e_x[1] + vz * e_x[2],
-        vx * e_y[0] + vy * e_y[1] + vz * e_y[2],
-    )
-    return theta.to(dtype)
+    x_cam, y_cam = _cam_grids(image_dimension, fov, device, pixel_offset)
+    return _theta_at(x_cam[None, :], y_cam[:, None], psi).to(dtype)
+
+
+def pixel_angles_at(py, px, image_dimension, fov, psi=(0.0, 0.0),
+                    dtype=torch.float32, pixel_offset=(0.0, 0.0),
+                    boost=None):
+    """Batched (alpha, theta) at arbitrary pixel coordinates.
+
+    `py`/`px`: integer or float tensors of pixel rows and columns on one
+    device; returns (alpha, theta) of their shape in `dtype` on that
+    device. The grid builders' own maths (_alpha_at, _theta_at) in
+    float64 at scattered pixels instead of the whole grid, so each value
+    equals the grid's at its pixel (the adaptive-AA refinement traces
+    extra samples only at edge pixels).
+    """
+    _reject_unported(boost)
+    height, width = image_dimension
+    fx, fy = focal_lengths(image_dimension, fov)
+    oy, ox = pixel_offset
+    x_cam = (torch.as_tensor(px).to(torch.float64) - width / 2 + ox) / fx
+    y_cam = (torch.as_tensor(py).to(torch.float64) - height / 2 + oy) / fy
+    return (_alpha_at(x_cam, y_cam, psi).to(dtype),
+            _theta_at(x_cam, y_cam, psi).to(dtype))
 
 
 def axis_refine_columns(image_dimension, fov, psi=(0.0, 0.0),

@@ -40,8 +40,7 @@ def _add_render_args(p):
                    help="float64 runs on the CPU path only (the CUDA "
                         "kernels are float32)")
     p.add_argument("--chunk-size", type=int, default=0,
-                   help="rays per chunk (0 = whole grid in one dispatch; "
-                        "chunking is not ported yet)")
+                   help="rays per chunk (0 = whole grid in one dispatch)")
     p.add_argument("--progress", default="off",
                    choices=["off", "bar", "live"],
                    help="chunked-trace progress (not ported yet)")

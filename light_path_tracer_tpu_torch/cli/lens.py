@@ -1,11 +1,12 @@
 """`lens` subcommand: the lensed background-image render.
 
-The plain render of the JAX package's `lens`: load the image, print the
-metric, alpha_crit and the BH's screen offset, `render_scene`, save the
-PNG and print the benchmark summary. Every flag of the JAX parser is
-registered with its default; the modes not ported yet (disk composite,
-lookup cache, AA and adaptive AA, ring layers, the map-level products,
-multihost) raise NotImplementedError.
+The plain and AA renders of the JAX package's `lens`: load the image,
+print the metric, alpha_crit and the BH's screen offset, `render_scene`
+(or with `--aa N` `render_scene_aa`, with `--adaptive` too
+`render_scene_adaptive`), save the PNG and print the benchmark summary.
+Every flag of the JAX parser is registered with its default; the modes
+not ported yet (disk composite, lookup cache, ring layers, the map-level
+products, multihost) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -37,7 +38,6 @@ def cmd_lens(args) -> int:
 
     for flag, used in (
             ("--disk", args.disk), ("--cache", args.cache),
-            ("--aa", args.aa > 1), ("--adaptive", args.adaptive),
             ("--rings", args.rings),
             ("--magnification", args.magnification is not None),
             ("--shear", args.shear is not None),
@@ -73,18 +73,40 @@ def cmd_lens(args) -> int:
     print(f"BH screen offset: psi_y={args.psi_y:.4f} deg, "
           f"psi_x={args.psi_x:.4f} deg ({status})")
 
-    out = render_scene(scene, img, cfg, device=args.device)
-    timings = out.timings
-    timings["load_image"] += load_time
+    if args.aa > 1:
+        if args.adaptive:
+            from light_path_tracer_tpu_torch.adaptive import (
+                render_scene_adaptive)
+            result, stats = render_scene_adaptive(
+                scene, img, cfg, aa_samples=args.aa,
+                refine_frac=args.refine_frac, device=args.device)
+            print(f"  adaptive AA: {stats['refined_pixels']:,} pixels "
+                  f"refined ({stats['edge_pixels']:,} discrete-edge), "
+                  f"{stats['total_rays']:,} rays vs "
+                  f"{stats['uniform_aa_rays']:,} uniform")
+        else:
+            from light_path_tracer_tpu_torch.aa import render_scene_aa
+            result, stats = render_scene_aa(scene, img, cfg,
+                                            aa_samples=args.aa,
+                                            device=args.device)
+        timings = stats["timings"]
+        timings["load_image"] = timings.get("load_image", 0.0) + load_time
+        total, traced = stats["total_rays"], stats["traced_rays"]
+    else:
+        out = render_scene(scene, img, cfg, device=args.device)
+        timings = out.timings
+        timings["load_image"] += load_time
+        result = out.image
+        total = out.precompute.total_rays
+        traced = out.precompute.traced_rays
 
     t0 = time.perf_counter()
-    save_png(args.output, out.image)
+    save_png(args.output, result)
     timings["save_image"] = time.perf_counter() - t0
     timings["total"] = timings.get("total", 0.0) + timings["save_image"]
 
-    print_benchmark_summary((height, width), alpha_crit,
-                            out.precompute.total_rays,
-                            out.precompute.traced_rays, timings)
+    print_benchmark_summary((height, width), alpha_crit, total, traced,
+                            timings)
     print(f"Saved: {args.output}")
     return 0
 
@@ -108,11 +130,13 @@ def register(sub):
     p.add_argument("--disk-gain", type=float, default=1.0,
                    help="disk brightness relative to the background")
     p.add_argument("--aa", type=int, default=1,
-                   help="AA samples per pixel (not ported yet)")
+                   help="jittered AA samples per pixel")
     p.add_argument("--adaptive", action="store_true",
-                   help="adaptive AA (not ported yet)")
+                   help="adaptive AA: refine only edge pixels at --aa "
+                        "samples (adaptive.py)")
     p.add_argument("--refine-frac", type=float, default=0.05,
-                   help="adaptive-AA refinement budget")
+                   help="adaptive-AA refinement budget (fraction of "
+                        "pixels, the highest edge scores)")
     p.add_argument("--rings", action="store_true",
                    help="photon-ring layers (not ported yet)")
     p.add_argument("--max-order", type=int, default=3)

@@ -1,4 +1,5 @@
-"""`shadow` subcommand: analytic or integrated shadow render."""
+"""`shadow` subcommand: analytic or integrated shadow render, with
+uniform (`--aa N`) or adaptive (`--aa N --adaptive`) jittered AA."""
 
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ def cmd_shadow(args) -> int:
     from light_path_tracer_tpu_torch.pipeline import render_shadow
     from light_path_tracer_tpu_torch.utils.save import save_gray_png
 
-    for flag, used in (("--aa", args.aa > 1), ("--rings", args.rings),
+    for flag, used in (("--rings", args.rings),
                        ("--multihost", args.multihost),
                        ("--visibility", args.visibility is not None)):
         if used:
@@ -22,11 +23,33 @@ def cmd_shadow(args) -> int:
 
     scene = _scene_from(args)
     cfg = _render_cfg_from(args)
-    img, stats = render_shadow(scene, (args.size, args.size), cfg,
-                               analytic=args.analytic, device=args.device)
+    resolution = (args.size, args.size)
+    if args.aa > 1:
+        if args.analytic:
+            print("  note: --aa applies to the integrated shadow; "
+                  "ignoring --analytic")
+        if args.adaptive:
+            from light_path_tracer_tpu_torch.adaptive import (
+                render_shadow_adaptive)
+            img, stats = render_shadow_adaptive(
+                scene, resolution, cfg, aa_samples=args.aa,
+                refine_frac=args.refine_frac, device=args.device)
+            print(f"  adaptive AA: {stats['refined_pixels']:,} pixels "
+                  f"refined, {stats['total_rays']:,} rays vs "
+                  f"{stats['uniform_aa_rays']:,} uniform")
+        else:
+            from light_path_tracer_tpu_torch.aa import render_shadow_aa
+            img, stats = render_shadow_aa(scene, resolution, cfg,
+                                          aa_samples=args.aa,
+                                          device=args.device)
+    else:
+        img, stats = render_shadow(scene, resolution, cfg,
+                                   analytic=args.analytic,
+                                   device=args.device)
     save_gray_png(args.output, img)
     t = stats["timings"]
-    mode = "analytic threshold" if args.analytic else "integrated"
+    mode = (f"integrated, {args.aa}x AA" if args.aa > 1
+            else "analytic threshold" if args.analytic else "integrated")
     trace_t = t.get("precompute", 0.0)
     print(f"Shadow ({mode}): {args.size}x{args.size}, "
           f"alpha_crit={np.degrees(stats['alpha_crit']):.4f} deg, "
@@ -41,7 +64,14 @@ def cmd_shadow(args) -> int:
 def register(sub):
     p = sub.add_parser("shadow", help="black-hole shadow render")
     p.add_argument("--aa", type=int, default=1,
-                   help="jittered AA samples per pixel (not ported yet)")
+                   help="jittered AA samples per pixel (smooth shadow "
+                        "boundary)")
+    p.add_argument("--adaptive", action="store_true",
+                   help="adaptive AA: refine only shadow-boundary / "
+                        "photon-ring pixels at --aa samples (adaptive.py)")
+    p.add_argument("--refine-frac", type=float, default=0.05,
+                   help="adaptive-AA refinement budget (fraction of "
+                        "pixels, the highest edge scores)")
     _add_scene_args(p)
     _add_render_args(p)
     p.add_argument("--size", type=int, default=800)

@@ -1,15 +1,17 @@
-"""Batch tracing driver (whole-grid branch).
+"""Batch tracing driver: whole-grid, chunked and difficulty-sorted.
 
 Spherically symmetric metrics (Schwarzschild, Reissner-Nordstrom) go to
 the orbit-equation tracer, Kerr to the DP45 tracer: on the kernel in one
 pass or, for large batches, through the two-pass straggler driver; on the
 plain loop in one pass, as the JAX package's XLA branch ignores
-`two_pass`. The JAX package's
-`trace_batch` also chunks and difficulty-sorts large Kerr batches; that
-branch is not ported: here the whole batch goes to one call. The
-tensor's device picks the implementation — the hand-written CUDA kernel
-for a CUDA tensor, the plain PyTorch loop for a CPU tensor. Nothing moves
-a batch between devices or falls back from one path to the other.
+`two_pass`. A Kerr batch above `chunk_size` rays is traced in chunks of
+that size, optionally sorted by expected difficulty (|alpha -
+alpha_crit|, photon-ring grazers integrate longest) so that stragglers
+share chunks, then restored to the input order: the JAX package's
+chunked branch. The tensor's device picks the implementation — the
+hand-written CUDA kernel for a CUDA tensor, the plain PyTorch loop for a
+CPU tensor. Nothing moves a batch between devices or falls back from one
+path to the other.
 """
 
 from __future__ import annotations
@@ -36,12 +38,29 @@ def _backend(backend, alphas):
     raise ValueError(f"no tracer for device {alphas.device}")
 
 
+def _pad_to(x, n, fill):
+    pad = n - x.shape[0]
+    if pad == 0:
+        return x
+    return torch.cat([x, torch.full((pad,), fill, dtype=x.dtype,
+                                    device=x.device)])
+
+
+def difficulty_order(metric, r_obs, theta_obs, alphas):
+    """The chunked branch's ray order: by |alpha - alpha_crit| (photon-ring
+    grazers integrate longest), a stable sort so that ties keep their
+    input order, as jnp.argsort does."""
+    alpha_crit = metric.alpha_crit(float(r_obs), float(theta_obs))
+    return torch.argsort(torch.abs(alphas - alpha_crit), stable=True)
+
+
 def trace_batch(metric, r_obs, alphas, thetas=None, theta_obs=math.pi / 2,
-                axis_refine=None, *, chunk_size=None, lambda_max=None,
-                max_steps=200000, phi_max=50.0, h_max=0.05,
+                axis_refine=None, *, chunk_size=None, sort_by_difficulty=True,
+                lambda_max=None, max_steps=200000, phi_max=50.0, h_max=0.05,
                 backend="auto", integrator="dp45",
                 event_interp="hermite", two_pass="auto", pass1_steps=512,
-                formulation="theta", precision="fast"):
+                formulation="theta", precision="fast", progress=False,
+                chunk_store=None):
     """Trace N rays through `metric`; returns TraceResult of shape (N,).
 
     Spherically symmetric metrics trace the orbit equation in phi
@@ -50,10 +69,15 @@ def trace_batch(metric, r_obs, alphas, thetas=None, theta_obs=math.pi / 2,
     False — on the kernel (CUDA tensors, float32 or float64) the
     straggler driver (a `pass1_steps`-capped pass, then a full-depth
     re-trace of the rays still running); 'auto' turns it on above
-    2,000,000 rays, the JAX package's rule for its kernel path. The plain
-    loop (CPU tensors) ignores it, as the JAX package's XLA branch does.
-    Chunking, other integrators and interpolants, and the mu chart raise
-    until they are ported.
+    2,000,000 rays of the whole batch, the JAX package's rule for its
+    kernel path, and then drives each chunk. The plain loop (CPU tensors)
+    ignores it, as the JAX package's XLA branch does.
+    chunk_size: trace a Kerr batch of more rays in chunks of this many,
+    sorted by |alpha - alpha_crit| first when sort_by_difficulty (a
+    stable sort, so ties keep their input order) and padded with easy
+    far-field rays; n_steps sums the chunks' counts on the device.
+    Progress bars, chunk stores, other integrators and interpolants, and
+    the mu chart raise until they are ported.
     """
     n = int(alphas.shape[0])
     device = alphas.device
@@ -74,9 +98,10 @@ def trace_batch(metric, r_obs, alphas, thetas=None, theta_obs=math.pi / 2,
         return orbit_fn(metric, float(r_obs), alphas, phi_max=phi_max,
                         h_max=h_max)
 
-    if chunk_size is not None and chunk_size < n:
+    if progress or chunk_store is not None:
         raise NotImplementedError(
-            "chunked tracing is not ported yet; use chunk_size=None")
+            "chunk progress bars and chunk stores are not ported yet "
+            "(ROADMAP.md, Queue 1)")
     if integrator != "dp45":
         raise NotImplementedError(
             f"integrator={integrator!r} is not ported yet (dp45 only)")
@@ -94,9 +119,10 @@ def trace_batch(metric, r_obs, alphas, thetas=None, theta_obs=math.pi / 2,
         lambda_max = max(5000.0, 6.0 * float(r_obs))
 
     # 'auto' two-pass is batch-size dependent, as in the JAX package: the
-    # 2M-ray threshold was set on a TPU, where one straggler pins an
-    # 8192-lane tile; PERF.md records what it does on the H100. Only the
-    # kernel path takes it.
+    # 2M-ray threshold of the whole batch (which then drives each chunk)
+    # was set on a TPU, where one straggler pins an 8192-lane tile;
+    # PERF.md records what it does on the H100. Only the kernel path
+    # takes it.
     path = _backend(backend, alphas)
     use_two_pass = path == "cuda" and (two_pass if two_pass != "auto"
                                        else n > 2_000_000)
@@ -111,5 +137,37 @@ def trace_batch(metric, r_obs, alphas, thetas=None, theta_obs=math.pi / 2,
     else:
         from light_path_tracer_tpu_torch.ops.kerr_trace import (
             trace_rays_kerr as kerr_fn)
-    return kerr_fn(metric, float(r_obs), alphas, thetas, float(theta_obs),
-                   axis_refine, float(lambda_max), max_steps, **kwargs)
+
+    def trace(a, t, ar):
+        return kerr_fn(metric, float(r_obs), a, t, float(theta_obs), ar,
+                       float(lambda_max), max_steps, **kwargs)
+
+    if chunk_size is None or chunk_size >= n:
+        return trace(alphas, thetas, axis_refine)
+
+    if sort_by_difficulty:
+        order = difficulty_order(metric, r_obs, theta_obs, alphas)
+        inv_order = torch.empty_like(order)
+        inv_order[order] = torch.arange(n, device=device)
+        a_s, t_s, ar_s = alphas[order], thetas[order], axis_refine[order]
+    else:
+        inv_order = None
+        a_s, t_s, ar_s = alphas, thetas, axis_refine
+
+    n_pad = -(-n // chunk_size) * chunk_size
+    # Easy far-field rays, so padding lanes end at once.
+    a_s = _pad_to(a_s, n_pad, math.pi / 2)
+    t_s = _pad_to(t_s, n_pad, 0.0)
+    ar_s = _pad_to(ar_s, n_pad, False)
+
+    chunks = [trace(a_s[s:s + chunk_size], t_s[s:s + chunk_size],
+                    ar_s[s:s + chunk_size])
+              for s in range(0, n_pad, chunk_size)]
+    fa = torch.cat([c.final_alpha for c in chunks])[:n]
+    nh = torch.cat([c.n_half_orbits for c in chunks])[:n]
+    st = torch.cat([c.status for c in chunks])[:n]
+    # The step count stays on the device: no host sync per chunk.
+    steps = torch.stack([c.n_steps for c in chunks]).sum()
+    if inv_order is not None:
+        fa, nh, st = fa[inv_order], nh[inv_order], st[inv_order]
+    return TraceResult(fa, nh, st, steps)

@@ -332,6 +332,11 @@ trace_disk_rays_cuda.launches = 0
 trace_disk_rays_cuda.launches_f64 = 0
 
 
+# Re-trace slots of the Kerr and disk two-pass drivers (the JAX package's
+# default).
+SLOTS = 8192
+
+
 def _stragglers(unconv, slots):
     """(idx, dest): the first `slots` unconverged ray indices in index
     order, padded with ray 0 as JAX's nonzero(size=slots, fill_value=0)
@@ -379,7 +384,7 @@ def _two_pass(trace, pass1_steps, max_steps, slots):
 def trace_rays_kerr_two_pass(metric, r_obs, alphas, thetas, theta_obs,
                              axis_refine, lambda_max: float,
                              max_steps: int = 200000,
-                             pass1_steps: int = 512, slots: int = 8192,
+                             pass1_steps: int = 512, slots: int = SLOTS,
                              precision: str = "fast",
                              formulation: str = "theta", trace_fn=None):
     """Straggler-robust tracing: a pass capped at `pass1_steps` attempts
@@ -402,7 +407,7 @@ trace_rays_kerr_two_pass.launches = 0
 def trace_disk_rays_two_pass(metric, r_obs, alphas, thetas, theta_obs,
                              lambda_max: float, max_steps: int, disk_plane,
                              max_disk_hits: int = 2, pass1_steps: int = 512,
-                             slots: int = 8192, precision: str = "fast",
+                             slots: int = SLOTS, precision: str = "fast",
                              formulation: str = "theta",
                              record_momentum: bool = False, trace_fn=None):
     """trace_rays_kerr_two_pass's recipe over the disk variant: the

@@ -2,10 +2,11 @@
 lensed render.
 
 The shadow and lensed-render paths of `light_path_tracer_tpu.pipeline`:
-per-pixel (alpha, theta) grids, one whole-grid trace, the uint16 winding
-clip, and for Kerr the axis-refine column band and the top/bottom mirror
-fold (spherically symmetric metrics trace every pixel from alpha alone);
-then the shadow image, or the renderer's texture gather. This package is
+per-pixel (alpha, theta) grids, one trace (whole-grid, or chunked by
+`RenderConfig.chunk_size`), the uint16 winding clip, and for Kerr the
+axis-refine column band and the top/bottom mirror fold (spherically
+symmetric metrics trace every pixel from alpha alone); then the shadow
+image, or the renderer's texture gather. This package is
 eager, so `render_scene` runs its stages one after another with true
 per-stage times. The device is explicit and defaults to CUDA; nothing
 moves to another device by itself.
@@ -139,11 +140,13 @@ def _precompute_eager(scene: SceneConfig, cfg: RenderConfig,
 
     res = trace_batch(
         metric, scene.r_obs, alpha_t, theta_t, scene.theta_obs, refine_t,
-        chunk_size=cfg.chunk_size, max_steps=cfg.max_steps,
-        backend=cfg.backend, integrator=cfg.integrator,
-        event_interp=cfg.event_interp, two_pass=cfg.two_pass,
-        pass1_steps=cfg.pass1_steps,
-        formulation=cfg.formulation, precision=cfg.precision)
+        chunk_size=cfg.chunk_size,
+        sort_by_difficulty=cfg.sort_by_difficulty,
+        max_steps=cfg.max_steps, backend=cfg.backend,
+        integrator=cfg.integrator, event_interp=cfg.event_interp,
+        two_pass=cfg.two_pass, pass1_steps=cfg.pass1_steps,
+        formulation=cfg.formulation, precision=cfg.precision,
+        progress=cfg.progress)
 
     fa_rows = res.final_alpha.reshape(trace_rows, width).to(torch.float32)
     w_rows = _winding_clip(res.n_half_orbits, cfg).reshape(trace_rows, width)
@@ -263,7 +266,9 @@ def print_benchmark_summary(image_dimension, alpha_crit, total_rays,
     pixel_count = width * height
     render_time = max(timings.get("render", 0.0), 1e-12)
     total_time = max(timings.get("total", 0.0), 1e-12)
-    precompute_time = max(timings.get("precompute", 0.0), 1e-12)
+    # The AA renders time their trace and render as one stage.
+    precompute_time = max(timings.get(
+        "precompute", timings.get("precompute+render", 0.0)), 1e-12)
 
     print("\nBenchmark summary")
     print(f"  resolution: {width}x{height} ({pixel_count:,} pixels)")

@@ -81,12 +81,14 @@ class RenderConfig:
     # Tolerance tier: "fast" (f32 atol 3e-5), "precise" (f32 3e-6) or
     # "gate" (f32 1e-6; f64 1e-7) — ops/kerr_trace.py TOLS*.
     precision: str = "fast"
-    # Background-texture sampling of the lensed render (not ported yet).
+    # Background-texture sampling of the lensed render: "nearest" or
+    # "bilinear".
     sampling: str = "nearest"
     max_steps: int = 200000            # adaptive-step bound per ray
     phi_max: float = 50.0              # Schwarzschild orbit bound
     h_max: float = 0.05                # Schwarzschild fixed step
-    # None = one dispatch over the whole grid (the only ported branch).
+    # None = one dispatch over the whole grid; else Kerr rays are traced
+    # in chunks of this many (ops/batch.py).
     chunk_size: int | None = None
     sort_by_difficulty: bool = True    # chunked path only
     # Two-pass straggler retrace (ops/cuda/kerr_trace_kernel.py): "auto"
@@ -102,4 +104,4 @@ class RenderConfig:
     use_tb_symmetry: bool = True       # top/bottom mirror when applicable
     render_loop_around: bool = False
     winding_max: int = 65535           # uint16 winding clip
-    progress: bool | str = False       # chunked path only
+    progress: bool | str = False       # chunked path only; not ported

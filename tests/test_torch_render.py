@@ -289,6 +289,26 @@ def test_cli_lens_on_cpu(tmp_path, capsys):
     assert img.shape == (20, 20, 3) and (img == 0.0).all(axis=2).any()
 
 
+@pytest.mark.parametrize("flags,lines", [
+    (["--aa", "4"], ["total rays: 1,600", "traced rays: 880"]),
+    (["--aa", "4", "--adaptive", "--a", "0.9"],
+     ["adaptive AA: 20 pixels refined", "rays vs 1,600 uniform",
+      "traced rays: 460"])])
+def test_cli_lens_aa_on_cpu(tmp_path, capsys, flags, lines):
+    from light_path_tracer_tpu_torch.cli import main
+    src = tmp_path / "src.png"
+    save.write_png(src, (checkerboard(20, 20) * 255).astype(np.uint8))
+    out = tmp_path / "l.png"
+    rc = main(["lens", "--image", str(src), "--fov-v", "12", "--device",
+               "cpu", *flags, "--output", str(out)])
+    assert rc == 0
+    text = capsys.readouterr().out
+    for line in ("Image: 20x20", *lines, f"Saved: {out}"):
+        assert line in text
+    img = save.read_png(out)
+    assert img.shape == (20, 20, 3) and (img == 0.0).all(axis=2).any()
+
+
 def test_cli_shadow_schwarzschild_and_rn_on_cpu(tmp_path, capsys):
     from light_path_tracer_tpu_torch.cli import main
     out = tmp_path / "s.png"
@@ -302,7 +322,7 @@ def test_cli_shadow_schwarzschild_and_rn_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--disk"], ["--cache"], ["--aa", "4"], ["--adaptive"], ["--rings"],
+    ["--disk"], ["--cache"], ["--rings"],
     ["--magnification", "m.png"], ["--shear", "s.png"],
     ["--caustics", "c.png"], ["--microlens", "m.csv"],
     ["--time-delay", "t.png"], ["--find-images", "0.1,0.2"],
