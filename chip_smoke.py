@@ -9,8 +9,9 @@ points a user calls (the 1024^2 Kerr a=0.9 shadow, the 1024^2
 Schwarzschild shadow and the 512^2 Schwarzschild lensed render) and
 checks what they produce, then the config-4 thin-disk render, the 1024^2
 volumetric hot-flow and spectral renders, the polarized, flare-movie and
-order-decomposition renders, the card's arithmetic peak rates, and config
-5, the 4k Kerr shadow at 4 jittered samples a pixel.
+order-decomposition renders, the card's arithmetic peak rates, config
+5, the 4k Kerr shadow at 4 jittered samples a pixel, and the
+Kerr-Newman and Johannsen-Psaltis metrics through the Kerr kernel.
 Phases:
   1. machine: card name and power limit, torch and nvcc versions;
   2. build: nvcc for sm_90a without FMA contraction (-fmad=false), with
@@ -21,12 +22,16 @@ Phases:
      p99 |d final_alpha| < 2e-3 on stable escaped rays), a 128^2 image
      (shadow masks agree on >= 99.5% of pixels), and the main path's
      524,288 rays at 1024^2 (same gates), each with both times, the
-     kernel alone by torch.profiler, the mean attempts and the lane
-     efficiency (attempts over 32 x the warp step sum);
+     kernel alone by CUDA events (a spin kernel queued ahead hides the
+     host's dispatch), the mean attempts and the lane efficiency
+     (attempts over 32 x the warp step sum);
   4. main path: render_shadow once to warm up and 3 more times; the kernel
      launch counter must grow and the plain loop's stay at 0; the shadow
      must be the Kerr D inside the alpha_crit circle; then 3 frames under
-     torch.profiler: launches, device ms and busy share a frame.
+     torch.profiler: launches, device ms and busy share a frame (the
+     busy share only from a profile that kept a record of every Kerr
+     kernel launch the wrappers counted, taken up to 3 times; else
+     null).
   5. orbit kernel vs plain version, Schwarzschild and Reissner-Nordstrom
      Q=0.6: 4,096 random rays in [0.2, 4] alpha_crit plus an alpha = 0
      lane, then the 1,048,576 rays of the 1024^2 grid (status agreement
@@ -222,6 +227,30 @@ Phases:
      images equal on >= 99 %, lensed (bilinear) RMSE < 1e-3 on pixels of
      winding < 2 (for the adaptive render, on pixels refined on both
      sides or neither).
+ 21. Kerr-Newman (a = 0.6, Q = 0.6) and Johannsen-Psaltis (a = 0.9,
+     eps3 = 2; the JAX repo's chip smoke's scenes) through the Kerr
+     kernel's family instances: Johannsen-Psaltis's alpha_crit_traced on
+     the card as every JP frame runs it (16 azimuths, 26 iterations;
+     the float64 kernel, the whole call's time by CUDA events, its
+     launches and attempts) within 1e-9 rad of the same call on the
+     CPU's plain loop, which runs in a process of its own through the
+     phase; each family's
+     instance at full depth on 4,096 random rays in [0.2, 4] alpha_crit,
+     1,024 of them in float64 and the 524,288 main-path rays of its
+     1024^2 frame (both times, the kernel alone, attempts, lane
+     efficiency, slowest ray) against the plain loop by phase 3's gates in float32
+     and phase 17's in float64; Kerr-Newman at Q = 0 bitwise the
+     Kerr kernel on the main-path rays; the Kerr-Newman disk variant on
+     phase 8's kind of rays (phase 8's gates; float64 phase 17's). Then
+     the paths at 1024^2, each with its counts set to 0 before it: the
+     shadow of each family (warm-up and 3 runs, best rays/s by bench.py's
+     rule, 3 frames under torch.profiler), the lensed, AA and adaptive
+     renders, and config 4's disk with Q = 0.6 at a = 0.6 (warm-up and 3
+     runs): the kernel or its driver launched and no plain loop; the
+     Kerr-Newman shadow inside the same-spin Kerr shadow. Then 64^2
+     renders on the card against the CPU (shadow in float32 and float64,
+     lensed, 4x AA; the charged disk in float32 and float64), both
+     sides' Johannsen-Psaltis renders taking the card's alpha_crit.
 Each path's launch counters are set to 0 just before it and read just
 after (float32 and float64 instances count apart: `.launches`,
 `.launches_f64`). The second-to-last line is a JSON object of per-kernel
@@ -241,8 +270,14 @@ none), blocks an SM and block bound. The config-5 entries
 a pass-sized chunk; their plain_ms is the plain loop's on phase 20's
 sample (plain_rays, plain_max_steps), and their bounds count the
 attempts of every ray but the exit-ended lanes, which the exit books at
-200,000 without making them (attempts_booked counts them too). The last
-line is {"ok": true, "device": {...}}. Exit code 0 iff every phase passed;
+200,000 without making them (attempts_booked counts them too). Phase
+21's entries (kerr_dp45_kn, kerr_dp45_jp, trace_disk_rays_kn and their
+_f64 twins) count their launches on its paths (the float64 ones on the
+64^2 float64 renders) and their bounds with each family's operations
+(bounds.kerr_work); alpha_crit_jp_f64 is the bisection as the 1024^2
+JP shadow path runs it: its float64 launches there, the whole call's
+time, the CPU's plain loop on the same call as plain_ms (plain_on
+"cpu"), its bound from the attempts of all its launches. The last line is {"ok": true, "device": {...}}. Exit code 0 iff every phase passed;
 without a CUDA device it exits 1 and prints no result.
 """
 
@@ -306,44 +341,108 @@ def cuda_ms(fn, repeats):
     return start.elapsed_time(stop) / repeats, out
 
 
-def device_profile(fn, reps, key=""):
-    """Per call of fn, over `reps` calls after a warm-up, by torch.profiler:
-    the wall ms (host clock, the profiler included), the device ms of every
-    device activity, the kernel launches (copies and fills left out), the
+# Cycles of the spin kernel queued ahead of a timed launch (~5 ms at the
+# H100's 1.98 GHz), and the most that kernel_alone_ms spins.
+SPIN_CYCLES = 10_000_000
+SPIN_MAX = 640_000_000
+
+
+def kernel_alone_ms(fn, repeats):
+    """Mean device time of fn()'s own device work (one kernel launch and
+    its wrapper's fills), by CUDA events: a spin kernel (torch.cuda._sleep)
+    queued ahead of each call keeps the stream busy while the host
+    prepares the launch, so the events bracket the work and not the
+    host's dispatch. A call whose start event had already passed when fn
+    returned on the host is timed again with a spin four times longer.
+    (torch.profiler on the card can drop a launch's record.)"""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    spin, total, done = SPIN_CYCLES, 0.0, 0
+    while done < repeats:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(spin)
+        start.record()
+        fn()
+        stop.record()
+        hidden = not start.query()
+        torch.cuda.synchronize()
+        if hidden:
+            total += start.elapsed_time(stop)
+            done += 1
+        else:
+            require(spin < SPIN_MAX, "kernel_alone_ms: the host's dispatch "
+                    f"outlasts a spin of {spin} cycles")
+            spin *= 4
+    return total / repeats
+
+
+def kerr_launches():
+    """Launches of the Kerr kernel's shadow and disk variants counted by
+    their wrappers, both dtypes: the records torch.profiler names
+    kerr_dp45_kernel."""
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    return sum(f.launches + f.launches_f64 for f in (
+        kk.trace_rays_kerr_cuda, kk.trace_disk_rays_cuda))
+
+
+def device_profile(fn, reps, key="", count=None, tries=3):
+    """Per call of fn, over `reps` calls after a warm-up (itself under the
+    profiler, so that no profile carries the profiler's start), by
+    torch.profiler: the wall ms (host clock, the profiler included), the
+    device ms of every device activity, the kernel launches (copies and fills left out), the
     device's busy share of the wall time, and the launches of the kernels
-    whose name holds `key` with their mean device ms a launch (the
-    profiler on the card can drop a launch's record; the mean is over the
-    launches it kept)."""
+    whose name holds `key` with their mean device ms a launch.
+    count: a function returning the launches the wrappers counted of the
+    kernels `key` names. torch.profiler on the card can drop a launch's
+    record, and a dropped record leaves its time out of device_ms, so the
+    profile is taken again, up to `tries` times, until it keeps as many
+    `key` records as the wrappers counted ("complete"; without `count`,
+    at least one). Where it never does, busy is None (not measured); the
+    kernel's mean is over the records it kept, and None if it kept
+    none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities):
+        fn()       # the warm-up; a process's first session starts CUPTI
+    for attempt in range(1, tries + 1):
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - start) * 1e3 / reps
-    device_us = key_us = 0.0
-    launches = key_launches = 0
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", 0.0) or getattr(
-            ev, "cuda_time_total", 0.0)
-        if ev.device_type.name != "CUDA" or us <= 0.0:
-            continue
-        device_us += us
-        if "Memcpy" in ev.key or "Memset" in ev.key:
-            continue
-        launches += ev.count
-        if key and key in ev.key:
-            key_us += us
-            key_launches += ev.count
+        counted = count() if count else 0
+        start = time.perf_counter()
+        with profile(activities=activities) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3 / reps
+        counted = count() - counted if count else None
+        device_us = key_us = 0.0
+        launches = key_launches = 0
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total", 0.0) or getattr(
+                ev, "cuda_time_total", 0.0)
+            if ev.device_type.name != "CUDA" or us <= 0.0:
+                continue
+            device_us += us
+            if "Memcpy" in ev.key or "Memset" in ev.key:
+                continue
+            launches += ev.count
+            if key and key in ev.key:
+                key_us += us
+                key_launches += ev.count
+        complete = (key_launches == counted if count
+                    else key_launches > 0 or not key)
+        if complete:
+            break
     device_ms = device_us / 1e3 / reps
     return dict(wall_ms=wall_ms, device_ms=device_ms,
-                launches=launches / reps, busy=device_ms / wall_ms,
-                kernel_ms=key_us / 1e3 / max(key_launches, 1),
-                kernel_launches=key_launches / reps)
+                launches=launches / reps,
+                busy=device_ms / wall_ms if complete else None,
+                kernel_ms=(key_us / 1e3 / key_launches if key_launches
+                           else None),
+                kernel_launches=key_launches / reps,
+                counted_launches=None if counted is None else counted / reps,
+                complete=complete, tries=attempt)
 
 
 def compare(rk, rp, alphas, ac):
@@ -383,8 +482,8 @@ def both_versions(label, metric, alphas, thetas, refine, max_steps,
                n_steps_kernel=int(rk.n_steps), n_steps_plain=int(rp.n_steps))
     # The kernel alone (device time) beside the wrapper, and how busy its
     # lanes were: attempts over 32 x the warp step sum.
-    cmp["kernel_ms"] = device_profile(lambda: trace_rays_kerr_cuda(*args),
-                                      kernel_repeats, "kerr_dp45")["kernel_ms"]
+    cmp["kernel_ms"] = kernel_alone_ms(lambda: trace_rays_kerr_cuda(*args),
+                                       kernel_repeats)
     cmp["attempts_mean"] = cmp["attempts_sum"] / cmp["n"]
     cmp["lane_efficiency"] = cmp["attempts_sum"] / (32 * cmp["n_steps_kernel"])
     print(f"  {label}: {json.dumps(cmp)}", flush=True)
@@ -2324,7 +2423,7 @@ def config5_phase(dev, card, main):
             f"config 5: {lonely} fractional pixels inside a flat region, "
             f"fractional share {share:.5f}")
     del alpha
-    frame = device_profile(render, 3, "kerr_dp45")
+    frame = device_profile(render, 3, "kerr_dp45", kerr_launches)
     print(f"config 5 frame under torch.profiler (3 frames): "
           f"{json.dumps(frame)}", flush=True)
 
@@ -2651,6 +2750,423 @@ def config5_phase(dev, card, main):
     return launches, entries
 
 
+# Phase 21: Kerr-Newman and Johannsen-Psaltis through the Kerr kernel.
+# The scenes are the JAX repo's chip smoke's (scripts/chip_smoke.py:138,
+# :154) in config 3's frame, and config 4's disk with a charge.
+KN_ARGS = dict(M=1.0, a=0.6, Q=0.6)
+JP_ARGS = dict(M=1.0, a=0.9, eps3=2.0)
+
+
+class cpu_alpha_crit:
+    """Johannsen-Psaltis's alpha_crit (JP_ARGS, R_OBS, theta_obs 90 deg) at
+    the depth every frame runs it (16 azimuths, 26 iterations) on the
+    CPU's plain loop, in a process of its own beside the card's work (it
+    takes ~50 s); result() waits for (alpha_crit, seconds). Leaving the
+    block stops the process."""
+
+    CODE = ("import json, time, numpy as np, torch; "
+            "torch.set_num_threads(2); "
+            "from light_path_tracer_tpu_torch.models import JohannsenPsaltis; "
+            "m = JohannsenPsaltis(**{args}); t = time.perf_counter(); "
+            "v = m.alpha_crit({r_obs}, np.pi / 2, device='cpu'); "
+            "print(json.dumps([v, time.perf_counter() - t]))")
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", self.CODE.format(args=JP_ARGS,
+                                                    r_obs=R_OBS)],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        return self
+
+    def result(self):
+        out, err = self.proc.communicate(timeout=300)
+        require(self.proc.returncode == 0,
+                f"the CPU's JP alpha_crit failed: {err[-2000:]}")
+        value, seconds = json.loads(out.strip().splitlines()[-1])
+        return value, seconds
+
+    def __exit__(self, *exc):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.communicate()
+
+
+class card_alpha_crit:
+    """Within the block, JohannsenPsaltis.alpha_crit returns `value`: the
+    64^2 renders of the card-vs-CPU checks take the card's bisection of
+    step (a), on both sides (the full one on the CPU plain loop costs ~50
+    s a frame, and on the card it would join the float64 shadow's
+    launch count; the image does not depend on it, it orders chunks and
+    fills the stats)."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def __enter__(self):
+        from light_path_tracer_tpu_torch.models import JohannsenPsaltis
+        self.cls, self.orig = JohannsenPsaltis, JohannsenPsaltis.alpha_crit
+        JohannsenPsaltis.alpha_crit = lambda _self, *a, **k: self.value
+
+    def __exit__(self, *exc):
+        self.cls.alpha_crit = self.orig
+
+
+def families_phase(dev, card, cpu_ac):
+    """Phase 21: Kerr-Newman (a = 0.6, Q = 0.6) and Johannsen-Psaltis
+    (a = 0.9, eps3 = 2) through the Kerr kernel: each family's instance
+    against the plain loop (phase 3's gates in float32, phase 17's in
+    float64), the Kerr-Newman disk variant (phase 8's), Q = 0 bitwise the
+    Kerr kernel, Johannsen-Psaltis's bisection on the card against the
+    CPU, the 1024^2 shadow, lensed, AA and adaptive renders and the
+    charged thin disk through the entry points (each path with its
+    counts set to 0 before it and read after), and 64^2 card-vs-CPU
+    renders. Returns the kernels-line entries."""
+    import torch
+    from light_path_tracer_tpu_torch import aa, adaptive, camera, pipeline
+    from light_path_tracer_tpu_torch import disk as disk_mod
+    from light_path_tracer_tpu_torch.models import (JohannsenPsaltis, Kerr,
+                                                    KerrNewman)
+    from light_path_tracer_tpu_torch.models.numeric import alpha_crit_traced
+    from light_path_tracer_tpu_torch.ops import kerr_trace as tk
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    from light_path_tracer_tpu_torch.utils.config import (RenderConfig,
+                                                          SceneConfig)
+    kernel, disk_kernel = kk.trace_rays_kerr_cuda, kk.trace_disk_rays_cuda
+    drivers = (kk.trace_rays_kerr_two_pass, kk.trace_disk_rays_two_pass)
+    plains = (tk.trace_rays_kerr, tk.trace_disk_rays_kerr)
+    counters = (kernel, disk_kernel) + drivers + plains
+
+    def zero():
+        for c in counters:
+            c.launches = 0
+            if hasattr(c, "launches_f64"):
+                c.launches_f64 = 0
+
+    def counts():
+        return dict(kernel=kernel.launches, kernel_f64=kernel.launches_f64,
+                    disk=disk_kernel.launches,
+                    disk_f64=disk_kernel.launches_f64,
+                    kerr_driver=drivers[0].launches,
+                    disk_driver=drivers[1].launches,
+                    plain=sum(c.launches for c in plains))
+
+    t_phase = time.perf_counter()
+    kn, jp = KerrNewman(**KN_ARGS), JohannsenPsaltis(**JP_ARGS)
+    fams = {"kn": (kn, dict(a=0.6, Q=0.6)), "jp": (jp, dict(a=0.9,
+                                                          eps3=2.0))}
+    cfg = RenderConfig()
+    dim = (1024, 1024)
+    fov = camera.fov_from_vertical(np.radians(40.0), dim)
+    f32 = dict(dtype=torch.float32, device=dev)
+    print("Kerr-Newman and Johannsen-Psaltis through the Kerr kernel:",
+          flush=True)
+
+    # -- (a) Johannsen-Psaltis's alpha_crit: the float64 kernel -----------
+    # The bisection every JP frame runs, timed whole by CUDA events (27
+    # launches of 16 rays, a host sync each); a run with the probe gives
+    # its attempts. The CPU's value comes from cpu_ac at the phase's end.
+    zero()
+    ac_jp = jp.alpha_crit(R_OBS, np.pi / 2, device="cuda")
+    require(kernel.launches_f64 > 0 and kernel.launches == 0,
+            "JP alpha_crit did not run the float64 kernel")
+    ac_ms, _ = cuda_ms(lambda: jp.alpha_crit(R_OBS, np.pi / 2,
+                                             device="cuda"), 3)
+    launch_probes = []
+    alpha_crit_traced(jp, R_OBS, np.pi / 2, device="cuda",
+                      probe=launch_probes)
+    att = torch.cat([p["attempts"] for p in launch_probes]).to(torch.int64)
+    bis = dict(ms=ac_ms, n=int(att.numel()), launches=len(launch_probes),
+               attempts_sum=int(att.sum()), slowest_attempts=int(att.max()),
+               n_steps=sum(int(p["n_steps"]) for p in launch_probes))
+    bis.update(attempts_mean=bis["attempts_sum"] / bis["n"],
+               lane_efficiency=bis["attempts_sum"] / (32 * bis["n_steps"]))
+    print(f"  JP alpha_crit_traced on the card: {ac_jp:.15f} rad, "
+          f"{json.dumps(bis)} (16 azimuths, 26 iterations; a launch fills "
+          f"16 lanes of a warp, so lane efficiency is at most 0.5)",
+          flush=True)
+    acs = {"kn": kn.alpha_crit(R_OBS), "jp": ac_jp}
+
+    # -- (b) each family's instance against the plain loop ----------------
+    rows = {}
+    for name, (metric, kw) in fams.items():
+        ac = acs[name]
+        rng = np.random.default_rng(21)
+        n = 4096
+        al = torch.tensor(rng.uniform(0.2 * ac, 4 * ac, n), **f32)
+        th = torch.tensor(rng.uniform(-np.pi, np.pi, n), **f32)
+        rf = torch.tensor(rng.random(n) < 0.2, device=dev)
+        g = both_versions(f"{name} {n} random rays", metric, al, th, rf,
+                          GATE_STEPS, 5)
+        require(g["status_agree"] > 0.99 and g["p99"] < 2e-3,
+                f"{name} 4096-ray gate: {g}")
+        m = F64_RAYS
+        g64 = both_versions(f"{name} {m} random rays, float64", metric,
+                            al[:m].double(), th[:m].double(), rf[:m],
+                            GATE_STEPS, 3)
+        require(g64["status_agree"] > 0.999 and g64["p99"] < 1e-6,
+                f"{name} float64 gate: {g64}")
+        scene = SceneConfig(M=1.0, r_obs_mult=R_OBS, **kw)
+        al_m, th_m, rf_m, _rows = pipeline.trace_inputs(scene, cfg, dim, fov,
+                                                        dev)
+        gm = both_versions(f"{name} 1024^2 main-path rays", metric, al_m,
+                           th_m, rf_m, cfg.max_steps, 3)
+        require(gm["status_agree"] > 0.99 and gm["p99"] < 2e-3
+                and gm["mask_agree"] >= 0.995, f"{name} 1024^2 gate: {gm}")
+        rows[name] = dict(random=g, f64=g64, main=gm)
+
+    # -- (c) Kerr-Newman at Q = 0 is the Kerr kernel, bitwise -------------
+    scene_k = SceneConfig(M=1.0, a=0.9, r_obs_mult=R_OBS)
+    al_k, th_k, rf_k, _ = pipeline.trace_inputs(scene_k, cfg, dim, fov, dev)
+    pk, pq = {}, {}
+    args_k = (R_OBS, al_k, th_k, np.pi / 2, rf_k, LAMBDA_MAX, cfg.max_steps)
+    rk = kernel(Kerr(M=1.0, a=0.9), *args_k, probe=pk)
+    rq = kernel(KerrNewman(M=1.0, a=0.9, Q=0.0), *args_k, probe=pq)
+    same = (all(same_bits(a, b) for a, b in zip(rk, rq))
+            and same_bits(pk["state"], pq["state"])
+            and same_bits(pk["attempts"], pq["attempts"]))
+    print(f"  KN Q=0 on the 1024^2 main-path rays bitwise the Kerr kernel: "
+          f"{same}", flush=True)
+    require(same, "KN at Q = 0 differs from the Kerr kernel")
+    del al_k, th_k, rf_k, rk, rq, pk, pq
+
+    # -- (d) the Kerr-Newman disk variant -----------------------------------
+    rng = np.random.default_rng(8)
+    al_d = torch.tensor(rng.uniform(0.01, 0.12, 4096), **f32)
+    th_d = torch.tensor(rng.uniform(-np.pi, np.pi, 4096), **f32)
+    plane = (disk_mod.r_isco(1.0, 0.6, Q=0.6), 20.0, np.pi / 2, True)
+    gd = disk_both("kn disk, 4096 random rays, opaque", kn, al_d, th_d,
+                   GATE_STEPS, plane, 2, 5)
+    gd64 = disk_both(f"kn disk, {F64_RAYS} random rays, float64", kn,
+                     al_d[:F64_RAYS].double(), th_d[:F64_RAYS].double(),
+                     GATE_STEPS, plane, 2, 3)
+    require(gd64["status_agree"] > 0.999 and gd64["nhits_agree"] > 0.999
+            and gd64["median_dr"] < 1e-6, f"kn disk float64 gate: {gd64}")
+
+    # -- (e) the paths at 1024^2 through the entry points -----------------
+    src = np.random.default_rng(5).random(dim + (3,)).astype(np.float32)
+    paths, images = {}, {}
+    for name, (metric, kw) in fams.items():
+        scene = SceneConfig(M=1.0, r_obs_mult=R_OBS, **kw)
+        zero()
+        img, st = pipeline.render_shadow(scene, dim, cfg, device="cuda")
+        best = None
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img, st = pipeline.render_shadow(scene, dim, cfg, device="cuda")
+            frame_s = time.perf_counter() - t0
+            rps = st["traced_rays"] / st["timings"]["precompute"]
+            best = rps if best is None else max(best, rps)
+        c = counts()
+        require(c["kernel"] >= 4 and c["plain"] == 0,
+                f"{name} shadow path: {c}")
+        require(img.shape == dim and bool(torch.isfinite(img).all())
+                and st["traced_rays"] == 524288, f"{name} shadow image")
+        images[name] = img
+        frame = device_profile(lambda: pipeline.render_shadow(
+            scene, dim, cfg, device="cuda"), 3, "kerr_dp45", kerr_launches)
+        paths[f"{name} shadow"] = dict(
+            counts=c, best_rays_per_s=best, frame_s=frame_s,
+            timings=st["timings"], alpha_crit=st["alpha_crit"],
+            integrator_steps=st["integrator_steps"],
+            captured=int((img == 0).sum()), profile=frame)
+        print(f"  {name} 1024^2 shadow: {json.dumps(paths[name + ' shadow'])}"
+              f" on {card}", flush=True)
+        for label, render in (
+                ("lens", lambda: pipeline.render_scene(
+                    scene, src, RenderConfig(sampling="bilinear"),
+                    device="cuda")),
+                ("aa4", lambda: aa.render_shadow_aa(
+                    scene, dim, cfg, aa_samples=4, device="cuda")),
+                ("adaptive4", lambda: adaptive.render_shadow_adaptive(
+                    scene, dim, cfg, aa_samples=4, device="cuda"))):
+            zero()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = render()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            c = counts()
+            img_l = out.image if label == "lens" else out[0]
+            require(c["kernel"] >= 1 and c["plain"] == 0
+                    and bool(torch.isfinite(img_l).all()),
+                    f"{name} {label} path: {c}")
+            paths[f"{name} {label}"] = dict(counts=c, wall_s=wall)
+            print(f"  {name} 1024^2 {label}: {json.dumps(paths[name + ' ' + label])}",
+                  flush=True)
+    # The charged shadow lies inside the same-spin Kerr shadow.
+    img_k06, _ = pipeline.render_shadow(
+        SceneConfig(M=1.0, a=0.6, r_obs_mult=R_OBS), dim, cfg, device="cuda")
+    cap_kn, cap_k = images["kn"] == 0, img_k06 == 0
+    outside = int((cap_kn & ~cap_k).sum())
+    print(f"  KN shadow {int(cap_kn.sum())} px, Kerr a=0.6 shadow "
+          f"{int(cap_k.sum())} px, KN captured outside Kerr's: {outside}",
+          flush=True)
+    require(0 < int(cap_kn.sum()) < int(cap_k.sum()) and outside == 0,
+            "the KN shadow does not lie inside the same-spin Kerr shadow")
+
+    scene_d = SceneConfig(M=1.0, a=0.6, Q=0.6, r_obs_mult=R_OBS,
+                          theta_obs=THETA_DISK)
+    disk_cfg = disk_mod.DiskConfig()
+    zero()
+    img_d, st_d = disk_mod.render_disk(scene_d, dim, cfg, disk_cfg,
+                                       device="cuda")
+    best_d = None
+    for _ in range(3):
+        img_d, st_d = disk_mod.render_disk(scene_d, dim, cfg, disk_cfg,
+                                           device="cuda")
+        rps = st_d["traced_rays"] / st_d["timings"]["precompute"]
+        best_d = rps if best_d is None else max(best_d, rps)
+    c_disk = counts()
+    require(c_disk["disk"] >= 8 and c_disk["disk_driver"] >= 4
+            and c_disk["plain"] == 0, f"kn disk path: {c_disk}")
+    require(bool(torch.isfinite(img_d).all()) and st_d["disk_pixels"] > 0
+            and st_d["captured"] > 0, "kn disk image")
+    frame_d = device_profile(lambda: disk_mod.render_disk(
+        scene_d, dim, cfg, disk_cfg, device="cuda"), 3, "kerr_dp45",
+        kerr_launches)
+    paths["kn disk"] = dict(counts=c_disk, best_rays_per_s=best_d,
+                            r_isco=st_d["r_isco"],
+                            disk_pixels=st_d["disk_pixels"],
+                            captured=st_d["captured"], profile=frame_d)
+    print(f"  kn 1024^2 disk: {json.dumps(paths['kn disk'])} on {card}",
+          flush=True)
+
+    # -- (f) 64^2 renders on the card against the CPU ----------------------
+    d64 = (64, 64)
+    src64 = np.random.default_rng(6).random(d64 + (3,)).astype(np.float32)
+    cfg64 = RenderConfig(dtype="float64")
+    f64_counts = {}
+    for name, (metric, kw) in fams.items():
+        scene = SceneConfig(M=1.0, r_obs_mult=R_OBS, vertical_fov_deg=12.0,
+                            **kw)
+        checks = {}
+        for label, render, f64 in (
+                ("shadow", lambda d: pipeline.render_shadow(
+                    scene, d64, cfg, device=d)[0], False),
+                ("shadow f64", lambda d: pipeline.render_shadow(
+                    scene, d64, cfg64, device=d)[0], True),
+                ("lens", lambda d: pipeline.render_scene(
+                    scene, src64, RenderConfig(sampling="bilinear"),
+                    device=d), False),
+                ("aa4", lambda d: aa.render_shadow_aa(
+                    scene, d64, cfg, aa_samples=4, device=d)[0], False)):
+            zero()
+            with card_alpha_crit(acs[name]):
+                og = render("cuda")
+            torch.cuda.synchronize()
+            c = counts()
+            if f64:
+                f64_counts[name] = c["kernel_f64"]
+                require(c["kernel_f64"] > 0 and c["kernel"] == 0
+                        and c["plain"] == 0, f"{name} f64 64^2 path: {c}")
+            with card_alpha_crit(acs[name]):
+                oc = render("cpu")
+            if label == "lens":
+                wg = og.precompute.winding.to(torch.int32).cpu()
+                wc = oc.precompute.winding.to(torch.int32)
+                calm = (wg < 2) & (wc < 2)
+                diff = (og.image.cpu() - oc.image)[calm]
+                mask = float((torch.isnan(og.precompute.final_alpha.cpu())
+                              == torch.isnan(oc.precompute.final_alpha))
+                             .float().mean())
+                checks[label] = dict(mask_agree=mask, rmse=float(
+                    diff.double().pow(2).mean().sqrt()))
+                ok = mask >= 0.99 and checks[label]["rmse"] < 1e-3
+            else:
+                agree = float((og.cpu() == oc).float().mean())
+                checks[label] = dict(pixels_agree=agree)
+                ok = agree >= (0.999 if f64 else 0.99)
+            require(ok, f"{name} 64^2 {label} card vs CPU: {checks[label]}")
+        print(f"  {name} 64^2 card vs CPU: {json.dumps(checks)}", flush=True)
+    zero()
+    cfg_d64 = RenderConfig(dtype="float64")
+    og, _ = disk_mod.render_disk(scene_d, d64, cfg_d64, disk_cfg,
+                                 device="cuda")
+    f64_counts["kn disk"] = disk_kernel.launches_f64
+    require(disk_kernel.launches_f64 > 0 and disk_kernel.launches == 0,
+            f"kn disk f64 path: {counts()}")
+    oc, _ = disk_mod.render_disk(scene_d, d64, cfg_d64, disk_cfg,
+                                 device="cpu")
+    og32, _ = disk_mod.render_disk(scene_d, d64, cfg, disk_cfg,
+                                   device="cuda")
+    oc32, _ = disk_mod.render_disk(scene_d, d64, cfg, disk_cfg,
+                                   device="cpu")
+    on = (og32.cpu() > 0) & (oc32 > 0)
+    disk_check = dict(
+        f64_max=float((og.cpu() - oc).abs().max()),
+        f32_mask_agree=float(((og32.cpu() > 0) == (oc32 > 0)).float()
+                             .mean()),
+        f32_median=float((og32.cpu() - oc32).abs()[on].median()))
+    print(f"  kn disk 64^2 card vs CPU: {json.dumps(disk_check)}",
+          flush=True)
+    require(disk_check["f64_max"] < 1e-6
+            and disk_check["f32_mask_agree"] >= 0.99
+            and disk_check["f32_median"] < 1e-3,
+            f"kn disk 64^2 card vs CPU: {disk_check}")
+    # Johannsen-Psaltis's alpha_crit at full depth, card against CPU.
+    t0 = time.perf_counter()
+    ac_cpu, ac_cpu_s = cpu_ac.result()
+    d_ac = abs(ac_jp - ac_cpu)
+    print(f"  JP alpha_crit at full depth: card {ac_jp:.15f}, CPU "
+          f"{ac_cpu:.15f} ({ac_cpu_s:.1f} s in its own process, "
+          f"{time.perf_counter() - t0:.1f} s waited for), |d| {d_ac:.3e} "
+          f"rad", flush=True)
+    require(d_ac < 1e-9, f"JP alpha_crit card {ac_jp} vs CPU {ac_cpu}")
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # -- the kernels-line entries ------------------------------------------
+    # Bytes a ray as phases 3, 8 and 17 count them: the shadow's alpha,
+    # theta and refine byte in, final_alpha, n_half and status out; the
+    # disk's p_phi, n_hits and two slots of (r, phi) hits too.
+    shadow_bytes = {"float32": 9 + 12, "float64": 17 + 16}
+    disk_bytes = {"float32": 8 + 20 + 16, "float64": 16 + 28 + 32}
+
+    def entry(name, g, launches, family, dtype, disk=False):
+        source = (KERNEL_SOURCE if dtype == "float32"
+                  else F64_SOURCE.format("kerr_dp45"))
+        replaces = f"{JAX_KERNELS}:316" if disk else REPLACES
+        per_ray = (disk_bytes if disk else shadow_bytes)[dtype]
+        e = kernel_entry(name, source, replaces, launches,
+                         g["max_dr" if disk else "max_abs"], g["ms"],
+                         g["plain_ms"], g["n"], per_ray,
+                         g["attempts_sum"] * bounds.kerr_work(dtype, family),
+                         g)
+        e.update({k: g[k] for k in ("kernel_ms", "attempts_mean",
+                                    "lane_efficiency") if k in g})
+        return e
+
+    # The bisection as the JP shadow path runs it: its float64 launches on
+    # the 1024^2 path, the whole call's time, the CPU's plain loop on the
+    # same call (in cpu_ac's process), its bound from this run's attempts.
+    bisection = kernel_entry(
+        "alpha_crit_jp_f64", F64_SOURCE.format("kerr_dp45"), REPLACES,
+        paths["jp shadow"]["counts"]["kernel_f64"], d_ac, bis["ms"],
+        ac_cpu_s * 1e3, bis["n"], shadow_bytes["float64"],
+        bis["attempts_sum"] * bounds.kerr_work("float64",
+                                               "johannsen_psaltis"), bis)
+    bisection.update(plain_on="cpu", calls=bis["launches"],
+                     attempts_mean=bis["attempts_mean"],
+                     lane_efficiency=bis["lane_efficiency"])
+    return [
+        entry("kerr_dp45_kn", rows["kn"]["main"],
+              paths["kn shadow"]["counts"]["kernel"], "kerr_newman",
+              "float32"),
+        entry("kerr_dp45_jp", rows["jp"]["main"],
+              paths["jp shadow"]["counts"]["kernel"], "johannsen_psaltis",
+              "float32"),
+        entry("trace_disk_rays_kn", gd, c_disk["disk"], "kerr_newman",
+              "float32", disk=True),
+        entry("kerr_dp45_kn_f64", rows["kn"]["f64"], f64_counts["kn"],
+              "kerr_newman", "float64"),
+        entry("kerr_dp45_jp_f64", rows["jp"]["f64"], f64_counts["jp"],
+              "johannsen_psaltis", "float64"),
+        entry("trace_disk_rays_kn_f64", gd64, f64_counts["kn disk"],
+              "kerr_newman", "float64", disk=True),
+        bisection]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2780,7 +3296,7 @@ def main() -> int:
           f"on {card}", flush=True)
     frame = device_profile(lambda: render_shadow(scene, dim, cfg,
                                                  device="cuda"), 3,
-                           "kerr_dp45")
+                           "kerr_dp45", kerr_launches)
     print(f"main path frame under torch.profiler (3 frames): "
           f"{json.dumps(frame)}", flush=True)
 
@@ -3102,6 +3618,10 @@ def main() -> int:
     # -- 20. config 5: the 4k jittered-AA shadow -------------------------
     launches5, kernels5 = config5_phase(dev, card, main_rays)
 
+    # -- 21. Kerr-Newman and Johannsen-Psaltis ----------------------------
+    with cpu_alpha_crit() as cpu_ac:
+        family_kernels = families_phase(dev, card, cpu_ac)
+
     shadow_work = kerr_work()
     # Bytes a ray: alpha, theta (and the refine byte) in; final_alpha,
     # n_half and the status out, plus p_phi, n_hits and two slots of
@@ -3128,7 +3648,8 @@ def main() -> int:
                      g_k2["max_abs"], kerr_row["two_pass_ms"], plain2_ms,
                      gmain["n"], 9 + 12,
                      kerr_row["attempts_sum"] * shadow_work)]
-    kernels += kernels5 + vol_kernels + new_kernels + [probe_kernel] + f64_kernels
+    kernels += (kernels5 + vol_kernels + new_kernels + [probe_kernel]
+                + f64_kernels + family_kernels)
     # The counted bound: every operation by kind at the rate phase 16
     # measured for it (a flop at no less than the published rate).
     for k in kernels:

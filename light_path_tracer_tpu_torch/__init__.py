@@ -5,8 +5,8 @@ The JAX package `light_path_tracer_tpu` is the reference; this package
 mirrors its layout and names module by module, in plain PyTorch, with
 every TPU kernel on a ported path rewritten as a hand-written CUDA kernel
 for Hopper (csrc/). Ported so far: the shadow (`render_shadow`) and the
-lensed render (`render_scene`) for Kerr, Schwarzschild and
-Reissner-Nordstrom, through `trace_batch` (whole-grid, or chunked and
+lensed render (`render_scene`) for Kerr, Schwarzschild,
+Reissner-Nordstrom, Kerr-Newman and Johannsen-Psaltis, through `trace_batch` (whole-grid, or chunked and
 difficulty-sorted) to the CUDA DP45 kernel (`ops/cuda/kerr_trace_kernel.py`)
 or the CUDA RK4 orbit kernel (`ops/cuda/schwarzschild_kernel.py`) on a
 CUDA device, or to their plain PyTorch loops (`ops/kerr_trace.py`,
@@ -17,7 +17,8 @@ Config 5, the jittered-AA shadow and lensed render (`aa.py`:
 `render_shadow_adaptive`, `render_scene_adaptive`), traces the stacked
 AA passes through `trace_batch`, in pass-sized chunks above 8M rays.
 
-The accretion-disk still render (`render_disk`, config 4) traces
+The accretion-disk still render (`render_disk`, config 4; Kerr, or
+Kerr-Newman for a charged scene) traces
 through the kernel's disk variant (`trace_disk_rays_cuda`), by default
 inside the two-pass straggler driver (`trace_disk_rays_two_pass`).
 
@@ -35,7 +36,9 @@ This package imports torch and never jax.
 from light_path_tracer_tpu_torch.adaptive import (render_scene_adaptive,
                                                   render_shadow_adaptive)
 from light_path_tracer_tpu_torch.disk import DiskConfig, render_disk
-from light_path_tracer_tpu_torch.models import (Kerr, ReissnerNordstrom,
+from light_path_tracer_tpu_torch.models import (JohannsenPsaltis, Kerr,
+                                                KerrNewman,
+                                                ReissnerNordstrom,
                                                 Schwarzschild, make_metric)
 from light_path_tracer_tpu_torch.ops.batch import trace_batch
 from light_path_tracer_tpu_torch.ops.types import TraceResult
@@ -48,7 +51,8 @@ from light_path_tracer_tpu_torch.volumetric import (
     RIAFConfig, render_volumetric, render_volumetric_decomposed,
     render_volumetric_movie, render_volumetric_spectrum)
 
-__all__ = ["Kerr", "Schwarzschild", "ReissnerNordstrom", "make_metric",
+__all__ = ["Kerr", "KerrNewman", "JohannsenPsaltis", "Schwarzschild",
+           "ReissnerNordstrom", "make_metric",
            "trace_batch", "TraceResult", "RenderOutput",
            "precompute_final_alpha", "render_scene", "render_shadow",
            "RenderConfig", "SceneConfig", "DiskConfig", "render_disk",

@@ -181,7 +181,8 @@ def render_shadow_aa(scene: SceneConfig, resolution,
         img = (acc / aa_samples).to(torch.float32)
 
     stats = dict(
-        alpha_crit=metric.alpha_crit(scene.r_obs, scene.theta_obs),
+        alpha_crit=metric.alpha_crit(scene.r_obs, scene.theta_obs,
+                                    device=device),
         total_rays=resolution[0] * resolution[1] * aa_samples,
         traced_rays=traced,
         aa_samples=aa_samples,
@@ -203,7 +204,7 @@ def render_scene_aa(scene: SceneConfig, source_image,
     resolution = tuple(src.shape[:2])
     fov = camera.fov_from_vertical(scene.vertical_fov, resolution)
     offsets = aa_offsets(aa_samples)
-    alpha_crit = metric.alpha_crit(scene.r_obs)
+    alpha_crit = metric.alpha_crit(scene.r_obs, device=device)
 
     acc = torch.zeros(src.shape, dtype=src.dtype, device=src.device)
     with timer.stage("precompute+render"):

@@ -200,7 +200,8 @@ def render_shadow_adaptive(scene: SceneConfig, resolution,
         img = img.reshape(resolution)
 
     stats = dict(
-        alpha_crit=metric.alpha_crit(scene.r_obs, scene.theta_obs),
+        alpha_crit=metric.alpha_crit(scene.r_obs, scene.theta_obs,
+                                    device=device),
         total_rays=trace_rows * width + (aa_samples - 1) * k,
         traced_rays=trace_rows * width + (aa_samples - 1) * k,
         uniform_aa_rays=height * width * aa_samples,
@@ -236,7 +237,7 @@ def render_scene_adaptive(scene: SceneConfig, source_image,
     dtype = _dtype_of(cfg)
     n_px = resolution[0] * resolution[1]
     k = _refine_budget(resolution, refine_frac)
-    alpha_crit = metric.alpha_crit(scene.r_obs)
+    alpha_crit = metric.alpha_crit(scene.r_obs, device=device)
     symmetric = metric.is_spherically_symmetric
     grid = dict(psi=scene.psi, dtype=dtype, boost=scene.boost,
                 pixel_offset=tuple(offsets[0]), device=device)

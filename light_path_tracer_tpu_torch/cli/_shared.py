@@ -11,10 +11,14 @@ def _add_scene_args(p):
     p.add_argument("--a", type=float, default=0.0,
                    help="BH spin (|a| <= M, 0 = Schwarzschild)")
     p.add_argument("--Q", type=float, default=0.0,
-                   help="BH charge (Reissner-Nordstrom, with --a 0; "
-                        "Kerr-Newman, --a != 0, is not ported yet)")
+                   help="BH charge (Reissner-Nordstrom; with --a != 0: "
+                        "Kerr-Newman, needs a^2 + Q^2 <= M^2; the disk "
+                        "takes it at any spin; not the volumetric modes)")
     p.add_argument("--eps3", type=float, default=0.0,
-                   help="Johannsen-Psaltis deformation (not ported yet)")
+                   help="Johannsen-Psaltis deformation parameter "
+                        "(test-GR deformed Kerr; 0 = GR. Shadow and lens "
+                        "modes; mutually exclusive with --Q, not wired "
+                        "for disk orbital dynamics)")
     p.add_argument("--r-obs", type=float, default=100.0,
                    help="Observer distance in units of M (default: 100)")
     p.add_argument("--psi-y", type=float, default=0.0,
@@ -37,8 +41,8 @@ def _add_render_args(p):
                         "kernels, 'cpu' their plain PyTorch loops")
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "float64"],
-                   help="float64 runs on the CPU path only (the CUDA "
-                        "kernels are float32)")
+                   help="ray dtype: the CUDA kernels have float32 and "
+                        "float64 instances")
     p.add_argument("--chunk-size", type=int, default=0,
                    help="rays per chunk (0 = whole grid in one dispatch)")
     p.add_argument("--progress", default="off",

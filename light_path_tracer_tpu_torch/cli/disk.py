@@ -24,7 +24,6 @@ def _reject_unported(args):
                        ("--centroid", args.centroid),
                        ("--tilt", args.tilt != 0.0),
                        ("--warp-radius", args.warp_radius != 0.0),
-                       ("--Q", args.Q != 0.0),
                        ("--boost", any(b != 0.0 for b in args.boost))):
         if used:
             raise not_ported(f"disk {flag}")
@@ -42,7 +41,7 @@ def cmd_disk(args) -> int:
         print("  note: disk mode is not wired for --eps3 (orbital "
               "dynamics are Kerr/charged closed forms); ignoring")
     scene = SceneConfig(
-        M=args.M, a=args.a, r_obs_mult=args.r_obs,
+        M=args.M, a=args.a, Q=args.Q, r_obs_mult=args.r_obs,
         psi_y=float(np.radians(args.psi_y)),
         psi_x=float(np.radians(args.psi_x)),
         vertical_fov_deg=args.fov_v,
@@ -65,7 +64,8 @@ def cmd_disk(args) -> int:
     else:
         save_afmhot_png(args.output, img)
     t = stats["timings"]
-    print(f"Accretion disk: {args.size}x{args.size}, a={args.a}, "
+    charge = f", Q={args.Q}" if args.Q else ""
+    print(f"Accretion disk: {args.size}x{args.size}, a={args.a}{charge}, "
           f"inclination {args.inclination} deg, "
           f"r_isco={stats['r_isco']:.3f} M")
     print(f"  disk pixels: {stats['disk_pixels']:,}, "

@@ -60,7 +60,7 @@ def cmd_lens(args) -> int:
     print(f"Image: {width}x{height}")
 
     metric = scene.metric()
-    alpha_crit = metric.alpha_crit(scene.r_obs)
+    alpha_crit = metric.alpha_crit(scene.r_obs, device=args.device)
     print(f"r_obs = {scene.r_obs:.1f} M, "
           f"alpha_crit = {np.degrees(alpha_crit):.4f} deg")
 

@@ -60,8 +60,18 @@ def riaf_config_from_jax(riaf):
 
 
 def metric_from_jax(metric):
-    """light_path_tracer_tpu metric -> this package's metric, from its
-    (M, a, Q, eps3) parameters; families not ported yet raise."""
-    return make_metric(float(metric.M), float(getattr(metric, "a", 0.0)),
-                       float(getattr(metric, "Q", 0.0)),
+    """light_path_tracer_tpu metric -> this package's metric, with the
+    same floats. A Kerr-Newman or Johannsen-Psaltis instance keeps its
+    class (the JAX package builds Kerr-Newman at a = 0 for charged disks,
+    which make_metric would read as Reissner-Nordstrom); any other
+    family goes through make_metric from its (M, a, Q, eps3)."""
+    from light_path_tracer_tpu_torch.models import (JohannsenPsaltis,
+                                                    KerrNewman)
+    M, a = float(metric.M), float(getattr(metric, "a", 0.0))
+    kind = type(metric).__name__
+    if kind == "KerrNewman":
+        return KerrNewman(M=M, a=a, Q=float(metric.Q))
+    if kind == "JohannsenPsaltis":
+        return JohannsenPsaltis(M=M, a=a, eps3=float(metric.eps3))
+    return make_metric(M, a, float(getattr(metric, "Q", 0.0)),
                        float(getattr(metric, "eps3", 0.0)))

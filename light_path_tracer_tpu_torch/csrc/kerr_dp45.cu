@@ -7,6 +7,17 @@
 // PyTorch version is light_path_tracer_tpu_torch/ops/kerr_trace.py
 // (trace_rays_kerr); the wrapper is ops/cuda/kerr_trace_kernel.py.
 //
+// Like the Pallas kernel it traces three metric families: Kerr,
+// Kerr-Newman and Johannsen-Psaltis (KerrCall::family; a template
+// argument of every instance, so each family's loop is compiled alone and
+// Kerr's is the code it was before the others existed). Kerr-Newman
+// changes a few flops of the RHS and takes its plunge radius from the
+// host's numeric photon-orbit band; Johannsen-Psaltis has its own RHS
+// (170 flops and 23 divisions an evaluation against Kerr's 117 and 3:
+// 2.3 x Kerr's attempt at the card's measured rates, and so it runs,
+// PERF.md §6) and no plunge exit (no Carter constant), and has no disk
+// variant: its disk emission is not defined (the JAX package raises).
+//
 // Work: a lane takes a ray, computes its Bardeen initial conditions and
 // its certain-plunge radius (acosf exists here, so neither leaves the
 // kernel as it must under Mosaic), runs its adaptive DP45 + FSAL loop over
@@ -83,7 +94,7 @@ struct Attempt {
 // Hermite interpolant, and the step-size control (one pow serves both
 // shrink and grow). Shared by the shadow and disk variants; the caller
 // applies the result.
-template <class T>
+template <int F, class T>
 __device__ __forceinline__ void dp45_attempt(
     const T y[5], const T k1[5], T h, T lam, T lam_max, T p_t, T p_phi,
     T atol, T rtol, T r_capture, T r_escape, T r_plunge, const Params<T>& P,
@@ -94,33 +105,33 @@ __device__ __forceinline__ void dp45_attempt(
   T yt[5], k2[5], k3[5], k4[5], k5[5], k6[5], y5[5];
 #pragma unroll
   for (int c = 0; c < 5; ++c) yt[c] = y[c] + h_eff * (K::A21 * k1[c]);
-  rhs5(yt, p_t, p_phi, P, k2);
+  rhs5<F>(yt, p_t, p_phi, P, k2);
 #pragma unroll
   for (int c = 0; c < 5; ++c)
     yt[c] = y[c] + h_eff * (K::A31 * k1[c] + K::A32 * k2[c]);
-  rhs5(yt, p_t, p_phi, P, k3);
+  rhs5<F>(yt, p_t, p_phi, P, k3);
 #pragma unroll
   for (int c = 0; c < 5; ++c)
     yt[c] = y[c] + h_eff * (K::A41 * k1[c] + K::A42 * k2[c] +
                             K::A43 * k3[c]);
-  rhs5(yt, p_t, p_phi, P, k4);
+  rhs5<F>(yt, p_t, p_phi, P, k4);
 #pragma unroll
   for (int c = 0; c < 5; ++c)
     yt[c] = y[c] + h_eff * (K::A51 * k1[c] + K::A52 * k2[c] +
                             K::A53 * k3[c] + K::A54 * k4[c]);
-  rhs5(yt, p_t, p_phi, P, k5);
+  rhs5<F>(yt, p_t, p_phi, P, k5);
 #pragma unroll
   for (int c = 0; c < 5; ++c)
     yt[c] = y[c] + h_eff * (K::A61 * k1[c] + K::A62 * k2[c] +
                             K::A63 * k3[c] + K::A64 * k4[c] +
                             K::A65 * k5[c]);
-  rhs5(yt, p_t, p_phi, P, k6);
+  rhs5<F>(yt, p_t, p_phi, P, k6);
 #pragma unroll
   for (int c = 0; c < 5; ++c)
     y5[c] = y[c] + h_eff * (K::B1 * k1[c] + K::B3 * k3[c] + K::B4 * k4[c] +
                             K::B5 * k5[c] + K::B6 * k6[c]);
   T* k7 = A.k7;
-  rhs5(y5, p_t, p_phi, P, k7);
+  rhs5<F>(y5, p_t, p_phi, P, k7);
 
   const bool finite_ok = all_finite(y5) && (y5[0] > T(0.0));
 
@@ -213,22 +224,22 @@ struct KerrCall {
   int *raw_status, *steps, *census;
   unsigned long long* warp_steps;
   void* stream;
-  int n, max_steps, cycle_exit, max_hits, momentum, opaque;
+  int n, max_steps, cycle_exit, max_hits, momentum, opaque, family;
   T M, a, r_plus, r_obs, theta_obs, lambda_max, atol, rtol, atol_ref,
       rtol_ref, h_min, tiny_err, h_init, r_capture, r_reclass, r_in,
-      r_out_disk, plane_c;
+      r_out_disk, plane_c, q2, r_pro, eps3, r_freeze;
 };
 
 // The wrapper mirrors the struct with ctypes (natural alignment: the
 // pointers, the ints, then the scalars of T).
-static_assert(sizeof(KerrCall<float>) == 248, "KerrCall layout");
-static_assert(sizeof(KerrCall<double>) == 320, "KerrCall64 layout");
+static_assert(sizeof(KerrCall<float>) == 272, "KerrCall layout");
+static_assert(sizeof(KerrCall<double>) == 360, "KerrCall64 layout");
 
 // One ray in a lane's registers: its constants, its integration state and
 // (disk variant) its crossing records, with the steps of its life: start
 // (initial conditions and plunge radius), attempt (one DP45 attempt and
-// its bookkeeping), finish (extraction and outputs).
-template <class T, bool kDisk, int kMaxHits, bool kMomentum>
+// its bookkeeping), finish (extraction and outputs). F: the metric family.
+template <class T, int F, bool kDisk, int kMaxHits, bool kMomentum>
 struct Ray {
   static constexpr int kSlots = kDisk ? kMaxHits : 1;
   static constexpr int kMomSlots = kMomentum ? kMaxHits : 1;
@@ -253,29 +264,33 @@ struct Ray {
     }
 
     // ---- Bardeen initial conditions (models/kerr.py initial_conditions_5d)
-    const RayStart<T> S = initial_state(C.alpha[i], C.theta[i], P);
+    const RayStart<T> S = initial_state<F>(C.alpha[i], C.theta[i], P);
     p_t = S.p_t;
     p_phi = S.p_phi;
 
-    // ---- certain-plunge radius (models/kerr.py plunge_radii); radius 0,
-    // which no accepted step reaches, disables the exit in disk mode
+    // ---- certain-plunge radius (models/kerr.py and kerr_newman.py
+    // plunge_radii: Bardeen's prograde radius for Kerr, the host's numeric
+    // one for Kerr-Newman); radius 0, which no accepted step reaches,
+    // disables the exit in disk mode and for Johannsen-Psaltis
     r_plunge = T(0.0);
-    if constexpr (!kDisk) {
+    if constexpr (!kDisk && F != kJohannsenPsaltis) {
       const T rho_p = P.r_obs * S.sin_al * sqrt_(S.Sigma) /
                       sqrt_(jmax(S.Delta, T(1e-30)));
       const T as_p = -rho_p * S.sin_scr;
       const T bs_p = -rho_p * S.cos_scr;
       const T eta_p =
           bs_p * bs_p + S.cos_th * S.cos_th * (as_p * as_p - a * a);
-      const T ratio = jclip(-a / jmax(M, T(1e-30)), -T(1.0), T(1.0));
-      const T r_pro =
-          T(2.0) * M * (T(1.0) + cos_(T(2.0 / 3.0) * acos_(ratio)));
+      T r_pro = P.r_pro;
+      if constexpr (F == kKerr) {
+        const T ratio = jclip(-a / jmax(M, T(1e-30)), -T(1.0), T(1.0));
+        r_pro = T(2.0) * M * (T(1.0) + cos_(T(2.0 / 3.0) * acos_(ratio)));
+      }
       r_plunge = eta_p >= T(0.0) ? T(0.999) * r_pro : T(0.0);
     }
 
 #pragma unroll
     for (int c = 0; c < 5; ++c) y[c] = S.y[c];
-    rhs5(y, p_t, p_phi, P, k1);
+    rhs5<F>(y, p_t, p_phi, P, k1);
     h = P.h_init;
     lam = T(0.0);
     status = S.bad_obs ? kInvalid : kRunning;
@@ -301,8 +316,8 @@ struct Ray {
     const T lam_max = P.lambda_max;
     ++steps;
     Attempt<T> A;
-    dp45_attempt(y, k1, h, lam, lam_max, p_t, p_phi, atol, rtol, r_capture,
-                 r_escape, r_plunge, P, A);
+    dp45_attempt<F>(y, k1, h, lam, lam_max, p_t, p_phi, atol, rtol,
+                    r_capture, r_escape, r_plunge, P, A);
     const bool event = A.cap || A.esc;
 
     // disk plane: a sign change of cos(theta) - plane_c over the accepted
@@ -399,10 +414,11 @@ struct Ray {
   __device__ __forceinline__ void finish(const KerrCall<T>& C,
                                          const Params<T>& P, int i) {
     const int n = C.n;
-    const Final<T> F = finalize(y, p_t, p_phi, status, C.r_reclass, P);
-    C.final_alpha[i] = F.alpha;
-    C.n_half[i] = F.n_half;
-    C.status[i] = F.status;
+    const Final<T> Fin =
+        finalize<F>(y, p_t, p_phi, status, C.r_reclass, P);
+    C.final_alpha[i] = Fin.alpha;
+    C.n_half[i] = Fin.n_half;
+    C.status[i] = Fin.status;
     if (C.flags != nullptr)
       C.flags[i] = static_cast<unsigned char>(status == kRunning);
     if (C.state != nullptr) {
@@ -448,13 +464,13 @@ constexpr int kBlocksPerSm = 7;
 // adds its largest attempt count to the warp step sum: the warp is the
 // group of 32 consecutive rays that ops/types.py sums over (lanes past n
 // count 0).
-template <class T, bool kDisk, int kMaxHits, bool kMomentum>
+template <class T, int F, bool kDisk, int kMaxHits, bool kMomentum>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 kerr_dp45_kernel(KerrCall<T> C, Params<T> P, DiskParams<T> D) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   int steps = 0;
   if (i < C.n) {
-    Ray<T, kDisk, kMaxHits, kMomentum> R;
+    Ray<T, F, kDisk, kMaxHits, kMomentum> R;
     R.start(C, P, i);
     while (R.running(P)) R.attempt(P, D, C.cycle_exit);
     R.finish(C, P, i);
@@ -467,16 +483,34 @@ kerr_dp45_kernel(KerrCall<T> C, Params<T> P, DiskParams<T> D) {
 }
 
 // Zeroes the warp step sum and launches the instance on C.stream.
-template <bool kDisk, int kMaxHits, bool kMomentum>
+template <int F, bool kDisk, int kMaxHits, bool kMomentum>
 int launch(const KerrCall<Real>& C, const Params<Real>& P,
            const DiskParams<Real>& D) {
   const cudaStream_t s = static_cast<cudaStream_t>(C.stream);
   const cudaError_t err =
       cudaMemsetAsync(C.warp_steps, 0, sizeof(unsigned long long), s);
   if (err != cudaSuccess || C.n <= 0) return static_cast<int>(err);
-  kerr_dp45_kernel<Real, kDisk, kMaxHits, kMomentum>
+  kerr_dp45_kernel<Real, F, kDisk, kMaxHits, kMomentum>
       <<<(C.n + kThreads - 1) / kThreads, kThreads, 0, s>>>(C, P, D);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The shadow variant (disk = 0) or the disk variant of family F.
+template <int F>
+int launch_family(const KerrCall<Real>& C, const Params<Real>& P,
+                  const DiskParams<Real>& D, int disk) {
+  if (!disk) return launch<F, false, 1, false>(C, P, D);
+  switch (C.max_hits * 2 + (C.momentum != 0)) {
+    case 2: return launch<F, true, 1, false>(C, P, D);
+    case 3: return launch<F, true, 1, true>(C, P, D);
+    case 4: return launch<F, true, 2, false>(C, P, D);
+    case 5: return launch<F, true, 2, true>(C, P, D);
+    case 6: return launch<F, true, 3, false>(C, P, D);
+    case 7: return launch<F, true, 3, true>(C, P, D);
+    case 8: return launch<F, true, 4, false>(C, P, D);
+    case 9: return launch<F, true, 4, true>(C, P, D);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -484,26 +518,24 @@ int launch(const KerrCall<Real>& C, const Params<Real>& P,
 extern "C" {
 
 // Launches the shadow variant (disk = 0) or the disk variant (disk = 1:
-// max_hits 1..4, momentum 0 or 1) for the call `call` (a KerrCall of this
-// instance's Real: float here, double in the *_f64 entry) and returns a
-// cudaError_t (0 on success).
+// max_hits 1..4, momentum 0 or 1) of the call's family (kKerr,
+// kKerrNewman, kJohannsenPsaltis; the last has no disk variant) for the
+// call `call` (a KerrCall of this instance's Real: float here, double in
+// the *_f64 entry) and returns a cudaError_t (0 on success).
 int LPT_ENTRY(lpt_kerr_dp45)(const void* call, int disk) {
   const KerrCall<Real>& C = *static_cast<const KerrCall<Real>*>(call);
   const Params<Real> P{C.M,        C.a,         C.r_plus,    C.r_obs,
                        C.theta_obs, C.lambda_max, C.max_steps, C.atol,
                        C.rtol,     C.atol_ref,  C.rtol_ref,  C.h_min,
-                       C.tiny_err, C.h_init,    C.r_capture};
+                       C.tiny_err, C.h_init,    C.r_capture, C.q2,
+                       C.r_pro,    C.eps3,      C.r_freeze};
   const DiskParams<Real> D{C.r_in, C.r_out_disk, C.plane_c, C.opaque};
-  if (!disk) return launch<false, 1, false>(C, P, D);
-  switch (C.max_hits * 2 + (C.momentum != 0)) {
-    case 2: return launch<true, 1, false>(C, P, D);
-    case 3: return launch<true, 1, true>(C, P, D);
-    case 4: return launch<true, 2, false>(C, P, D);
-    case 5: return launch<true, 2, true>(C, P, D);
-    case 6: return launch<true, 3, false>(C, P, D);
-    case 7: return launch<true, 3, true>(C, P, D);
-    case 8: return launch<true, 4, false>(C, P, D);
-    case 9: return launch<true, 4, true>(C, P, D);
+  switch (C.family) {
+    case kKerr: return launch_family<kKerr>(C, P, D, disk);
+    case kKerrNewman: return launch_family<kKerrNewman>(C, P, D, disk);
+    case kJohannsenPsaltis:
+      if (disk) return static_cast<int>(cudaErrorInvalidValue);
+      return launch<kJohannsenPsaltis, false, 1, false>(C, P, D);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

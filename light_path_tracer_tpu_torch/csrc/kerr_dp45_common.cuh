@@ -7,6 +7,15 @@
 // extraction of a finished ray and the exact-cycle test of a frozen lane.
 // Every function is inlined into its caller.
 //
+// The metric family is a template argument F of the RHS, the initial
+// conditions and the extraction (kKerr, kKerrNewman, kJohannsenPsaltis;
+// Kerr by default, which is all the extras kernel instantiates). Each
+// family computes what its model in models/ computes: Kerr-Newman is
+// Kerr with Q^2 in Delta and W = 2Mr - Q^2 in place of 2Mr;
+// Johannsen-Psaltis has its own hand-derived RHS and inverse metric and
+// Kerr's Delta and extraction. The Kerr instances compile to the code
+// they compiled to before the other families existed.
+//
 // Everything is templated on the scalar type T, float or double, as the
 // plain loop (ops/kerr_trace.py) runs in its tensors' dtype. Numerics
 // follow the JAX package's dp45_integrate in that dtype: the tableau is
@@ -129,12 +138,22 @@ struct Tab {
                      E6 = T(22.0 / 525.0), E7 = T(-1.0 / 40.0);
 };
 
+// The metric families (models/kerr.py, kerr_newman.py,
+// johannsen_psaltis.py); the values are the wrapper's family codes.
+constexpr int kKerr = 0;
+constexpr int kKerrNewman = 1;
+constexpr int kJohannsenPsaltis = 2;
+
+// q2 (Kerr-Newman's Q^2) and r_pro (its numeric prograde photon-orbit
+// radius, for the plunge exit); eps3 and r_freeze (Johannsen-Psaltis's
+// deformation and RHS freeze radius). Zero where the family has none.
 template <class T>
 struct Params {
   T M, a, r_plus, r_obs, theta_obs, lambda_max;
   int max_steps;
   T atol, rtol, atol_ref, rtol_ref, h_min, tiny_err;
   T h_init, r_capture;
+  T q2, r_pro, eps3, r_freeze;
 };
 
 // NaN-propagating max/min/clip (jnp.maximum / jnp.minimum / jnp.clip).
@@ -178,14 +197,149 @@ __device__ __forceinline__ T error_scale(T y, T y5, T k1, T k7, T h_eff,
   return atol + rtol * mag;
 }
 
+// Johannsen-Psaltis's contravariant components at (r, theta) with s and c
+// the sine and cosine of theta (models/johannsen_psaltis.py _inv_terms):
+// the covariant metric, then the exact 2x2 inverse of its (t, phi) block.
+template <class T>
+struct InverseMetric {
+  T tt, tphi, rr, thth, phiphi;
+};
+
+template <class T>
+__device__ __forceinline__ T safe_det(T D) {
+  return abs_(D) < T(1e-30) ? T(1e-30) : D;
+}
+
+template <class T>
+__device__ __forceinline__ InverseMetric<T> inverse_metric_jp(
+    T r, T s, T c, const Params<T>& P) {
+  const T M = P.M, a = P.a, eps3 = P.eps3;
+  const T sin2 = jmax(s * s, Consts<T>::kSin2Floor);
+  const T r2 = r * r;
+  const T a2 = a * a;
+  const T Sigma = r2 + a2 * c * c;
+  const T Delta = r2 - T(2.0) * M * r + a2;
+  const T h = eps3 * (M * M * M) * r / (Sigma * Sigma);
+  const T two_Mr = T(2.0) * M * r;
+  const T g_tt = -(T(1.0) + h) * (T(1.0) - two_Mr / Sigma);
+  const T g_tphi = -(a * two_Mr * sin2 / Sigma) * (T(1.0) + h);
+  const T g_rr = Sigma * (T(1.0) + h) / (Delta + a2 * h * sin2);
+  const T g_phiphi = sin2 * (r2 + a2 + a2 * two_Mr * sin2 / Sigma) +
+                     h * a2 * sin2 * (Sigma + two_Mr) / Sigma;
+  const T D = safe_det(g_tt * g_phiphi - g_tphi * g_tphi);
+  InverseMetric<T> G;
+  G.tt = g_phiphi / D;
+  G.tphi = -g_tphi / D;
+  G.rr = T(1.0) / g_rr;
+  G.thth = T(1.0) / Sigma;
+  G.phiphi = g_tt / D;
+  return G;
+}
+
+// Johannsen-Psaltis's hand-derived RHS (models/johannsen_psaltis.py rhs5
+// and covariant_derivs_jp, term for term): closed-form r and theta
+// partials of the covariant components, pushed through the 2x2 block
+// inverse's derivative chain; hard-zeroed inside r <= r_freeze, where r
+// is parked at 10 r_freeze + 10. The sin^2 floor's derivative s2p is
+// zero where the floor binds.
+template <class T>
+__device__ __forceinline__ void rhs5_jp(const T y[5], T s, T c, T p_t,
+                                        T p_phi, const Params<T>& P,
+                                        T out[5]) {
+  const T M = P.M, a = P.a, eps3 = P.eps3;
+  const T r = y[0], p_r = y[3], p_th = y[4];
+  const bool frozen = r <= P.r_freeze;
+  const T r_s = frozen ? T(10.0) * P.r_freeze + T(10.0) : r;
+
+  const T s2_raw = s * s;
+  const T s2 = jmax(s2_raw, Consts<T>::kSin2Floor);
+  const T s2p = s2_raw >= Consts<T>::kSin2Floor ? T(2.0) * s * c : T(0.0);
+  const T r2 = r_s * r_s, a2 = a * a;
+  const T Sig = r2 + a2 * c * c;
+  const T Sig_r = T(2.0) * r_s;
+  const T Sig_t = -T(2.0) * a2 * s * c;
+  const T Del = r2 - T(2.0) * M * r_s + a2;
+  const T Del_r = T(2.0) * r_s - T(2.0) * M;
+  const T M3 = M * M * M;
+  const T h = eps3 * M3 * r_s / (Sig * Sig);
+  const T h_r = eps3 * M3 * (Sig - T(4.0) * r2) / (Sig * Sig * Sig);
+  const T h_t = -T(2.0) * eps3 * M3 * r_s * Sig_t / (Sig * Sig * Sig);
+  const T W = T(2.0) * M * r_s / Sig;
+  const T W_r = T(2.0) * M / Sig - W * Sig_r / Sig;
+  const T W_t = -W * Sig_t / Sig;
+  const T oh = T(1.0) + h;
+  const T g_tt = -oh * (T(1.0) - W);
+  const T g_tt_r = -h_r * (T(1.0) - W) + oh * W_r;
+  const T g_tt_t = -h_t * (T(1.0) - W) + oh * W_t;
+  const T g_tp = -a * W * s2 * oh;
+  const T g_tp_r = -a * s2 * (W_r * oh + W * h_r);
+  const T g_tp_t = -a * (s2p * W * oh + s2 * (W_t * oh + W * h_t));
+  const T B = Del + a2 * h * s2;
+  const T B_r = Del_r + a2 * h_r * s2;
+  const T B_t = a2 * (h_t * s2 + h * s2p);
+  const T g_rr = Sig * oh / B;
+  const T g_rr_r = (Sig_r * oh + Sig * h_r) / B - g_rr * B_r / B;
+  const T g_rr_t = (Sig_t * oh + Sig * h_t) / B - g_rr * B_t / B;
+  const T Pp = r2 + a2 + a2 * W * s2 + a2 * h * (T(1.0) + W);
+  const T Pp_r =
+      T(2.0) * r_s + a2 * W_r * s2 + a2 * (h_r * (T(1.0) + W) + h * W_r);
+  const T Pp_t =
+      a2 * (W_t * s2 + W * s2p) + a2 * (h_t * (T(1.0) + W) + h * W_t);
+  const T g_pp = s2 * Pp;
+  const T g_pp_r = s2 * Pp_r;
+  const T g_pp_t = s2p * Pp + s2 * Pp_t;
+
+  const T D = g_tt * g_pp - g_tp * g_tp;
+  const T D_r = g_tt_r * g_pp + g_tt * g_pp_r - T(2.0) * g_tp * g_tp_r;
+  const T D_t = g_tt_t * g_pp + g_tt * g_pp_t - T(2.0) * g_tp * g_tp_t;
+  const T Ds = safe_det(D);
+  const T i_tt = g_pp / Ds;
+  const T i_tp = -g_tp / Ds;
+  const T i_pp = g_tt / Ds;
+  const T i_tt_r = (g_pp_r - i_tt * D_r) / Ds;
+  const T i_tt_t = (g_pp_t - i_tt * D_t) / Ds;
+  const T i_tp_r = (-g_tp_r - i_tp * D_r) / Ds;
+  const T i_tp_t = (-g_tp_t - i_tp * D_t) / Ds;
+  const T i_pp_r = (g_tt_r - i_pp * D_r) / Ds;
+  const T i_pp_t = (g_tt_t - i_pp * D_t) / Ds;
+  const T i_rr = T(1.0) / g_rr;
+  const T i_rr_r = -g_rr_r * i_rr * i_rr;
+  const T i_rr_t = -g_rr_t * i_rr * i_rr;
+  const T i_hh = T(1.0) / Sig;
+  const T i_hh_r = -Sig_r * i_hh * i_hh;
+  const T i_hh_t = -Sig_t * i_hh * i_hh;
+
+  const T dr = i_rr * p_r;
+  const T dth = i_hh * p_th;
+  const T dphi = i_tp * p_t + i_pp * p_phi;
+  const T dHr = T(0.5) * (i_tt_r * p_t * p_t + T(2.0) * i_tp_r * p_t * p_phi +
+                          i_rr_r * p_r * p_r + i_hh_r * p_th * p_th +
+                          i_pp_r * p_phi * p_phi);
+  const T dHt = T(0.5) * (i_tt_t * p_t * p_t + T(2.0) * i_tp_t * p_t * p_phi +
+                          i_rr_t * p_r * p_r + i_hh_t * p_th * p_th +
+                          i_pp_t * p_phi * p_phi);
+  out[0] = frozen ? T(0.0) : dr;
+  out[1] = frozen ? T(0.0) : dth;
+  out[2] = frozen ? T(0.0) : dphi;
+  out[3] = frozen ? T(0.0) : -dHr;
+  out[4] = frozen ? T(0.0) : -dHt;
+}
+
 // Hamilton's equations on the reduced theta-state (models/kerr.py rhs5),
 // hard-zeroed inside r <= 1.001 r_+, with sin_th and cos_th the sine and
 // cosine of y[1] (the extras kernel hands them on to its transfer
-// function, which needs them too).
-template <class T>
+// function, which needs them too). Kerr-Newman adds Q^2 to Delta and
+// takes W = 2Mr - Q^2 for 2Mr in g^tphi and its derivatives (dW/dr =
+// 2M); Johannsen-Psaltis runs rhs5_jp.
+template <int F = kKerr, class T>
 __device__ __forceinline__ void rhs5_trig(const T y[5], T sin_th, T cos_th,
                                           T p_t, T p_phi, const Params<T>& P,
                                           T out[5]) {
+  if constexpr (F == kJohannsenPsaltis) {
+    rhs5_jp(y, sin_th, cos_th, p_t, p_phi, P, out);
+    return;
+  }
+  constexpr bool kCharged = F == kKerrNewman;
   const T M = P.M, a = P.a;
   const T r = y[0], p_r = y[3], p_th = y[4];
   const bool frozen = r <= P.r_plus * T(1.001);
@@ -195,9 +349,11 @@ __device__ __forceinline__ void rhs5_trig(const T y[5], T sin_th, T cos_th,
   const T a2 = a * a;
   const T r2 = r_s * r_s;
   const T Sigma = r2 + a2 * cos_th * cos_th;
-  const T Delta = r2 - T(2.0) * M * r_s + a2;
+  T Delta = r2 - T(2.0) * M * r_s + a2;
+  if constexpr (kCharged) Delta = Delta + P.q2;
   const T ra2 = r2 + a2;
   const T A = ra2 * ra2 - a2 * Delta * sin2;
+  const T W = kCharged ? T(2.0) * M * r_s - P.q2 : T(0.0);
 
   const T inv_Sigma = T(1.0) / Sigma;
   const T inv_Delta = T(1.0) / Delta;
@@ -208,7 +364,8 @@ __device__ __forceinline__ void rhs5_trig(const T y[5], T sin_th, T cos_th,
 
   const T g_rr = Delta * inv_Sigma;
   const T g_thth = inv_Sigma;
-  const T g_tphi = -T(2.0) * M * a * r_s * inv_SD;
+  const T g_tphi =
+      kCharged ? -a * W * inv_SD : -T(2.0) * M * a * r_s * inv_SD;
   const T g_phiphi = (Delta - a2 * sin2) * inv_SD * inv_sin2;
 
   const T dr = g_rr * p_r;
@@ -223,7 +380,9 @@ __device__ __forceinline__ void rhs5_trig(const T y[5], T sin_th, T cos_th,
   const T dSD_dr = dSigma_dr * Delta + Sigma * dDelta_dr;
 
   const T dg_tt_dr = -(dA_dr * SD - A * dSD_dr) * inv_SD2;
-  const T dg_tphi_dr = -(T(2.0) * M * a * (SD - r_s * dSD_dr)) * inv_SD2;
+  const T dg_tphi_dr =
+      kCharged ? -a * (T(2.0) * M * SD - W * dSD_dr) * inv_SD2
+               : -(T(2.0) * M * a * (SD - r_s * dSD_dr)) * inv_SD2;
   const T dg_rr_dr = (dDelta_dr * Sigma - Delta * dSigma_dr) * inv_S2;
   const T dg_thth_dr = -dSigma_dr * inv_S2;
   const T inv_den_phi = inv_SD * inv_sin2;
@@ -245,7 +404,8 @@ __device__ __forceinline__ void rhs5_trig(const T y[5], T sin_th, T cos_th,
 
   const T dg_tt_dth = -(dA_dth * SD - A * dSigma_dth * Delta) * inv_SD2;
   const T dg_tphi_dth =
-      (T(2.0) * M * a * r_s * dSigma_dth) * inv_S2 * inv_Delta;
+      kCharged ? a * W * dSigma_dth * inv_S2 * inv_Delta
+               : (T(2.0) * M * a * r_s * dSigma_dth) * inv_S2 * inv_Delta;
   const T dg_rr_dth = -Delta * dSigma_dth * inv_S2;
   const T dg_thth_dth = -dSigma_dth * inv_S2;
 
@@ -267,10 +427,10 @@ __device__ __forceinline__ void rhs5_trig(const T y[5], T sin_th, T cos_th,
   out[4] = frozen ? T(0.0) : dp_th;
 }
 
-template <class T>
+template <int F, class T>
 __device__ __forceinline__ void rhs5(const T y[5], T p_t, T p_phi,
                                      const Params<T>& P, T out[5]) {
-  rhs5_trig(y, sin_(y[1]), cos_(y[1]), p_t, p_phi, P, out);
+  rhs5_trig<F>(y, sin_(y[1]), cos_(y[1]), p_t, p_phi, P, out);
 }
 
 // Step fraction where the cubic Hermite interpolant of r crosses target:
@@ -301,7 +461,9 @@ __device__ __forceinline__ T hermite_crossing_frac(T r0, T r1, T fr0, T fr1,
 
 // A ray's start at the observer (models/kerr.py initial_conditions_5d):
 // the reduced state, the conserved momenta, and the observer terms the
-// shadow variant's plunge radius reuses.
+// shadow variant's plunge radius reuses. Delta is the family's (Kerr's
+// for Johannsen-Psaltis), the null normalisation of p_r takes the
+// family's inverse metric.
 template <class T>
 struct RayStart {
   T y[5];
@@ -311,16 +473,18 @@ struct RayStart {
 };
 
 // Bardeen initial conditions for screen angle al and azimuth scr.
-template <class T>
+template <int F = kKerr, class T>
 __device__ __forceinline__ RayStart<T> initial_state(T al, T scr,
                                                      const Params<T>& P) {
+  constexpr bool kCharged = F == kKerrNewman;
   const T M = P.M, a = P.a;
   RayStart<T> S;
   const T r = P.r_obs, th = P.theta_obs;
   const T sin_th = sin_(th), cos_th = cos_(th);
   const T sin2 = jmax(sin_th * sin_th, Consts<T>::kSin2Floor);
   const T Sigma = r * r + a * a * cos_th * cos_th;
-  const T Delta = r * r - T(2.0) * M * r + a * a;
+  T Delta = r * r - T(2.0) * M * r + a * a;
+  if constexpr (kCharged) Delta = Delta + P.q2;
   const bool bad_obs = (Delta <= T(0.0)) || (Sigma <= T(0.0));
 
   const T E = T(1.0);
@@ -341,17 +505,26 @@ __device__ __forceinline__ RayStart<T> initial_state(T al, T scr,
   const T p_th0 = (cos_scr > T(0.0) ? -T(1.0) : T(1.0)) * sqrt_(Theta);
 
   // inverse metric at the observer
-  const T r2 = r * r, a2 = a * a;
-  const T Sg = r2 + a2 * cos_th * cos_th;
-  const T Dl = r2 - T(2.0) * M * r + a2;
-  const T ra2 = r2 + a2;
-  const T A = ra2 * ra2 - a2 * Dl * sin2;
-  const T SD = Sg * Dl;
-  const T g_tt = -A / SD;
-  const T g_tphi = -T(2.0) * M * a * r / SD;
-  const T g_rr = Dl / Sg;
-  const T g_thth = T(1.0) / Sg;
-  const T g_phiphi = (Dl - a2 * sin2) / (SD * sin2);
+  InverseMetric<T> G;
+  if constexpr (F == kJohannsenPsaltis) {
+    G = inverse_metric_jp(r, sin_th, cos_th, P);
+  } else {
+    const T r2 = r * r, a2 = a * a;
+    const T Sg = r2 + a2 * cos_th * cos_th;
+    T Dl = r2 - T(2.0) * M * r + a2;
+    if constexpr (kCharged) Dl = Dl + P.q2;
+    const T ra2 = r2 + a2;
+    const T A = ra2 * ra2 - a2 * Dl * sin2;
+    const T SD = Sg * Dl;
+    G.tt = -A / SD;
+    G.tphi = kCharged ? -a * (T(2.0) * M * r - P.q2) / SD
+                      : -T(2.0) * M * a * r / SD;
+    G.rr = Dl / Sg;
+    G.thth = T(1.0) / Sg;
+    G.phiphi = (Dl - a2 * sin2) / (SD * sin2);
+  }
+  const T g_tt = G.tt, g_tphi = G.tphi, g_rr = G.rr, g_thth = G.thth,
+          g_phiphi = G.phiphi;
   const T other = g_tt * p_t * p_t + T(2.0) * g_tphi * p_t * p_phi +
                   g_thth * p_th0 * p_th0 + g_phiphi * p_phi * p_phi;
   const T p_r_sq = -other / g_rr;
@@ -380,18 +553,20 @@ __device__ __forceinline__ RayStart<T> initial_state(T al, T scr,
 // term by term in the same order, with M and a as values of T as the
 // torch version has them: status_f is the integration's raw status, and a
 // ray at or inside r_reclass (1.1 x the capture radius) counts as
-// captured. Shared by the shadow and disk kernel (kerr_dp45.cu) and the
-// extras kernel (kerr_dp45_extras.cuh).
+// captured. Kerr-Newman's Delta and W carry its charge; Johannsen-Psaltis
+// extracts as Kerr. Shared by the shadow and disk kernel (kerr_dp45.cu)
+// and the extras kernel (kerr_dp45_extras.cuh).
 template <class T>
 struct Final {
   T alpha;
   int n_half, status;
 };
 
-template <class T>
+template <int F = kKerr, class T>
 __device__ __forceinline__ Final<T> finalize(const T* y, T p_t, T p_phi,
                                              int status_f, T r_reclass,
                                              const Params<T>& P) {
+  constexpr bool kCharged = F == kKerrNewman;
   const T M = P.M, a = P.a;
   const T r_f = y[0], th_f = y[1], phi_f = y[2];
   int n_half = static_cast<int>(floor_(abs_(phi_f) / Consts<T>::kPi));
@@ -403,7 +578,8 @@ __device__ __forceinline__ Final<T> finalize(const T* y, T p_t, T p_phi,
   const T sin2 = jmax(sin_th * sin_th, Consts<T>::kSin2Floor);
   const T r_s = (bad_state || is_captured) ? T(10.0) * M + T(10.0) : r_f;
   const T Sigma_f = r_s * r_s + a * a * cos_th * cos_th;
-  const T Delta_f = r_s * r_s - T(2.0) * M * r_s + a * a;
+  T Delta_f = r_s * r_s - T(2.0) * M * r_s + a * a;
+  if constexpr (kCharged) Delta_f = Delta_f + P.q2;
   const bool degenerate =
       Sigma_f <= T(1e-15) || abs_(Delta_f) <= T(1e-15);
   const T S = degenerate ? T(1.0) : Sigma_f;
@@ -411,7 +587,9 @@ __device__ __forceinline__ Final<T> finalize(const T* y, T p_t, T p_phi,
 
   const T dr_dl = D / S * y[3];
   const T dth_dl = y[4] / S;
-  const T dphi_dl = -a * (T(2.0) * M * r_s) / (S * D) * p_t +
+  const T two_M_r =
+      kCharged ? T(2.0) * M * r_s - P.q2 : T(2.0) * M * r_s;
+  const T dphi_dl = -a * two_M_r / (S * D) * p_t +
                     (D - a * a * sin2) / (S * D * sin2) * p_phi;
   const T sin_phi = sin_(phi_f), cos_phi = cos_(phi_f);
   const T vx = sin_th * cos_phi * dr_dl + r_s * cos_th * cos_phi * dth_dl -
@@ -430,11 +608,11 @@ __device__ __forceinline__ Final<T> finalize(const T* y, T p_t, T p_phi,
 
   const bool invalid_f = status_f == kInvalid || ext_status == 0;
   const bool cap_f = !invalid_f && ext_status == -1;
-  Final<T> F;
-  F.status = invalid_f ? kInvalid : (cap_f ? kCaptured : kEscaped);
-  F.alpha = (F.status == kEscaped && !tiny_v) ? alpha : quiet_nan<T>();
-  F.n_half = (invalid_f && status_f == kInvalid) ? 0 : n_half;
-  return F;
+  Final<T> out;
+  out.status = invalid_f ? kInvalid : (cap_f ? kCaptured : kEscaped);
+  out.alpha = (out.status == kEscaped && !tiny_v) ? alpha : quiet_nan<T>();
+  out.n_half = (invalid_f && status_f == kInvalid) ? 0 : n_half;
+  return out;
 }
 
 // The exact-cycle test of a frozen lane. An attempt is a pure function of

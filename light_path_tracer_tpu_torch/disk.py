@@ -15,14 +15,16 @@ normalisation and xi = L/E the ray's conserved azimuthal impact
 parameter, so the redshift needs only the crossing radius and the ray's
 conserved momenta.
 
-The trace runs on the tensors' device: the hand-written CUDA kernel's
-disk variant on a CUDA device (through the two-pass driver by default),
-its plain PyTorch loop on the CPU. The emission and the tone map are
-plain PyTorch on the same device. The ISCO is host NumPy.
+The spacetime is Kerr, or Kerr-Newman when the scene is charged (a = 0
+included); the ISCO, the Keplerian Omega and the emitter redshift take
+the charge. The trace runs on the tensors' device: the hand-written CUDA
+kernel's disk variant on a CUDA device (through the two-pass driver by
+default), its plain PyTorch loop on the CPU. The emission and the tone
+map are plain PyTorch on the same device. The ISCO is host NumPy.
 
 Not ported yet (they raise, see ROADMAP.md): tilted and warped disks,
-the crossing-time recorder, charged (Kerr-Newman) spacetimes, a boosted
-camera, the decomposed, frame, AA, composite,
+the crossing-time recorder, a boosted camera, the decomposed, frame, AA,
+composite,
 multi-disk and multi-host renders, and the hot-spot and texture patterns.
 """
 
@@ -35,7 +37,7 @@ import numpy as np
 import torch
 
 from light_path_tracer_tpu_torch import camera
-from light_path_tracer_tpu_torch.models.kerr import Kerr
+from light_path_tracer_tpu_torch.models import Kerr, KerrNewman
 from light_path_tracer_tpu_torch.ops.batch import _backend
 from light_path_tracer_tpu_torch.ops.kerr_trace import CAPTURED
 from light_path_tracer_tpu_torch.ops.types import DiskTraceResult
@@ -77,10 +79,12 @@ class DiskConfig:
 
 
 def _scene_metric(scene: SceneConfig):
-    """Kerr of the scene (a = 0 included), for the disk and volumetric
-    renders. A deformed scene raises the JAX package's ValueError (the
-    orbital dynamics are Kerr/charged closed forms); a charged one is not
-    ported yet."""
+    """Kerr, or Kerr-Newman when the scene is charged, for the disk and
+    volumetric renders. A charged scene at a = 0 is Kerr-Newman too: the
+    crossing recorder lives in the 5-D trace, which the orbit-equation
+    Reissner-Nordstrom class does not carry (same geodesics). A deformed
+    scene raises the JAX package's ValueError (the orbital dynamics are
+    Kerr/charged closed forms)."""
     if scene.eps3:
         raise ValueError("this path is not wired for Johannsen-Psaltis "
                          "(eps3 != 0): disk orbital dynamics (ISCO, "
@@ -89,8 +93,7 @@ def _scene_metric(scene: SceneConfig):
                          "Deformed metrics support shadow/lens/"
                          "magnification/AA/trajectory surfaces.")
     if scene.Q:
-        raise _not_ported("a charged spacetime (Q != 0, Kerr-Newman) in "
-                          "the disk and volumetric renders")
+        return KerrNewman(M=scene.M, a=scene.a, Q=scene.Q)
     return Kerr(M=scene.M, a=scene.a)
 
 
@@ -183,12 +186,13 @@ def keplerian_redshift(M, a, r_c, xi, prograde: bool = True,
 def covariant_tphi_components(metric, r, c):
     """Covariant Boyer-Lindquist (g_tt, g_tphi, g_phiphi) off the
     equatorial plane at (r, cos theta = c), batched over tensors r, c:
-    the t-phi block of a circular emitter's redshift (volumetric flows).
-    Kerr (W = 2 M r); the charged form is not ported."""
+    the t-phi block of a circular emitter's redshift (volumetric flows),
+    read through the metric's charge hook: W = 2 M r for Kerr,
+    2 M r - Q^2 for Kerr-Newman."""
     M, a = float(metric.M), float(metric.a)
     s2 = torch.clamp(1.0 - c * c, min=1e-12)
     Sigma = r * r + a * a * c * c
-    W = 2.0 * M * r
+    W = metric._two_M_r(r, M)
     ra2 = r * r + a * a
     g_tt = -(1.0 - W / Sigma)
     g_tph = -a * W * s2 / Sigma
@@ -220,9 +224,9 @@ def keplerian_omega(M, a, r, prograde: bool = True, Q: float = 0.0):
     return -sqrt_m / (r ** 1.5 - a * sqrt_m)
 
 
-def _r_in_of(disk: DiskConfig, M, a) -> float:
+def _r_in_of(disk: DiskConfig, M, a, Q=0.0) -> float:
     return float(disk.r_in if disk.r_in is not None
-                 else r_isco(M, a, disk.prograde))
+                 else r_isco(M, a, disk.prograde, Q=Q))
 
 
 def trace_disk_rays(metric, r_obs, alphas, thetas, theta_obs,
@@ -252,10 +256,9 @@ def trace_disk_rays(metric, r_obs, alphas, thetas, theta_obs,
         raise _not_ported("tilted or warped disks")
     if record_time:
         raise _not_ported("the crossing-time recorder (record_time)")
-    if getattr(metric, "Q", 0.0):
-        raise _not_ported("the disk trace of a charged spacetime")
     _backend(backend, alphas)
-    plane = (_r_in_of(disk, metric.M, metric.a), float(disk.r_out),
+    plane = (_r_in_of(disk, metric.M, metric.a, getattr(metric, "Q", 0.0)),
+             float(disk.r_out),
              float(np.pi / 2), bool(disk.opaque))
     from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
         trace_disk_rays_cuda, trace_disk_rays_two_pass)
@@ -392,14 +395,15 @@ def render_disk(scene: SceneConfig, resolution,
             two_pass=cfg.two_pass, pass1_steps=cfg.pass1_steps)
 
     with timer.stage("render"):
-        r_in = _r_in_of(disk, scene.M, scene.a)
+        r_in = _r_in_of(disk, scene.M, scene.a, scene.Q)
         intensity, rgb = disk_emission(scene, disk, r_in, res.n_hits,
                                        res.r_hits, res.xi,
                                        xi_hits=res.xi_hits)
         img = _finish_image(intensity, rgb, resolution, disk.tone_map)
 
     stats = dict(
-        alpha_crit=metric.alpha_crit(scene.r_obs, scene.theta_obs),
+        alpha_crit=metric.alpha_crit(scene.r_obs, scene.theta_obs,
+                                    device=device),
         r_isco=r_isco(scene.M, scene.a, disk.prograde, Q=scene.Q),
         captured=int((res.status == CAPTURED).sum()),
         disk_pixels=int((res.n_hits > 0).sum()),

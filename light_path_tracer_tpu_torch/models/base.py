@@ -24,5 +24,7 @@ class Metric(abc.ABC):
         """Inner stopping radius for integration (host-side scalar)."""
 
     @abc.abstractmethod
-    def alpha_crit(self, r_obs, theta_obs=None) -> float:
-        """Critical viewing angle in radians (host-side scalar)."""
+    def alpha_crit(self, r_obs, theta_obs=None, device=None) -> float:
+        """Critical viewing angle in radians (host-side scalar). device:
+        where a family without a closed form traces its bisection (None:
+        the card); closed forms ignore it."""

@@ -108,7 +108,8 @@ class Kerr(Metric):
                * (4.0 * M * Delta - r_ph * (r_ph - M)**2))
         return xi, eta
 
-    def alpha_crit(self, r_obs, theta_obs=None, n_samples=50) -> float:
+    def alpha_crit(self, r_obs, theta_obs=None, n_samples=50,
+                   device=None) -> float:
         """Shadow-envelope critical viewing angle: the max impact
         parameter over sampled spherical photon orbits, clamped below by
         the Schwarzschild value, converted to a viewing angle at the
@@ -134,11 +135,27 @@ class Kerr(Metric):
 
     # ---- batched hot path (torch, structure-of-arrays) ----
 
+    # Metric-function hooks: Kerr-Newman overrides them (the charge
+    # enters only through Delta and the g^tphi numerator 2Mr - Q^2),
+    # Johannsen-Psaltis overrides _inv_terms alone.
+
+    @property
+    def _q2(self) -> float:
+        """Squared charge Q^2 as a Python float, 0 for Kerr: rhs5 adds the
+        charge terms only where it is nonzero, so Kerr's arithmetic is
+        unchanged."""
+        return 0.0
+
     def _Delta_b(self, r, M, a):
         return r * r - 2.0 * M * r + a * a
 
     def _inv_terms(self, r, th, M, a):
         return inverse_metric_terms(M, a, r, th)
+
+    def _two_M_r(self, r, M):
+        """The g^tphi numerator factor 2 M r (Kerr-Newman subtracts
+        Q^2); M is a Python float or a 0-dim tensor."""
+        return 2.0 * M * r
 
     def _observer(self, r_obs, theta_obs, like, M, a):
         """Observer-position scalars (r, th, sin, cos, Sigma, Delta) as
@@ -246,6 +263,9 @@ class Kerr(Metric):
         r2 = r_s * r_s
         Sigma = r2 + a2 * cos_th * cos_th
         Delta = r2 - 2.0 * M * r_s + a2
+        q2 = self._q2
+        if q2:
+            Delta = Delta + q2                 # Kerr-Newman
         ra2 = r2 + a2
         A = ra2 * ra2 - a2 * Delta * sin2
 
@@ -258,7 +278,13 @@ class Kerr(Metric):
 
         g_rr = Delta * inv_Sigma
         g_thth = inv_Sigma
-        g_tphi = -2.0 * M * a * r_s * inv_SD
+        if q2:
+            # g^tphi numerator W = 2Mr - Q^2 (identically r^2 + a^2 -
+            # Delta; this form keeps the Kerr limit's rounding).
+            W = 2.0 * M * r_s - q2
+            g_tphi = -a * W * inv_SD
+        else:
+            g_tphi = -2.0 * M * a * r_s * inv_SD
         g_phiphi = (Delta - a2 * sin2) * inv_SD * inv_sin2
 
         dr = g_rr * p_r
@@ -273,7 +299,11 @@ class Kerr(Metric):
         dSD_dr = dSigma_dr * Delta + Sigma * dDelta_dr
 
         dg_tt_dr = -(dA_dr * SD - A * dSD_dr) * inv_SD2
-        dg_tphi_dr = -(2.0 * M * a * (SD - r_s * dSD_dr)) * inv_SD2
+        if q2:
+            # d/dr of -a W / (Sigma Delta) with dW/dr = 2M.
+            dg_tphi_dr = -a * (2.0 * M * SD - W * dSD_dr) * inv_SD2
+        else:
+            dg_tphi_dr = -(2.0 * M * a * (SD - r_s * dSD_dr)) * inv_SD2
         dg_rr_dr = (dDelta_dr * Sigma - Delta * dSigma_dr) * inv_S2
         dg_thth_dr = -dSigma_dr * inv_S2
         inv_den_phi = inv_SD * inv_sin2
@@ -294,7 +324,11 @@ class Kerr(Metric):
         dA_dth = -2.0 * a2 * Delta * sc
 
         dg_tt_dth = -(dA_dth * SD - A * dSigma_dth * Delta) * inv_SD2
-        dg_tphi_dth = (2.0 * M * a * r_s * dSigma_dth) * inv_S2 * inv_Delta
+        if q2:
+            dg_tphi_dth = a * W * dSigma_dth * inv_S2 * inv_Delta
+        else:
+            dg_tphi_dth = ((2.0 * M * a * r_s * dSigma_dth) * inv_S2
+                           * inv_Delta)
         dg_rr_dth = -Delta * dSigma_dth * inv_S2
         dg_thth_dth = -dSigma_dth * inv_S2
 
@@ -351,7 +385,7 @@ class Kerr(Metric):
 
         dr_dl = Delta_safe / Sigma_safe * p_r_f
         dth_dl = p_th_f / Sigma_safe
-        dphi_dl = (-a * (2.0 * M * r_s)
+        dphi_dl = (-a * self._two_M_r(r_s, M)
                    / (Sigma_safe * Delta_safe) * p_t
                    + (Delta_safe - a * a * sin2)
                    / (Sigma_safe * Delta_safe * sin2) * p_phi)

@@ -65,7 +65,7 @@ class Schwarzschild(Metric):
     def capture_radius(self) -> float:
         return self.R_S * 1.01
 
-    def alpha_crit(self, r_obs, theta_obs=None) -> float:
+    def alpha_crit(self, r_obs, theta_obs=None, device=None) -> float:
         arg = self.B_CRIT * np.sqrt(self.f(r_obs)) / r_obs
         return float(np.arcsin(np.clip(arg, -1.0, 1.0)))
 

@@ -50,7 +50,8 @@ def difficulty_order(metric, r_obs, theta_obs, alphas):
     """The chunked branch's ray order: by |alpha - alpha_crit| (photon-ring
     grazers integrate longest), a stable sort so that ties keep their
     input order, as jnp.argsort does."""
-    alpha_crit = metric.alpha_crit(float(r_obs), float(theta_obs))
+    alpha_crit = metric.alpha_crit(float(r_obs), float(theta_obs),
+                                  device=alphas.device)
     return torch.argsort(torch.abs(alphas - alpha_crit), stable=True)
 
 

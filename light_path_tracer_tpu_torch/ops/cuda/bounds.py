@@ -40,7 +40,7 @@ from __future__ import annotations
 import dataclasses
 
 __all__ = ["PEAK_FP32", "PEAK_FP64", "PEAK_BYTES", "PUBLISHED_FLOP",
-           "RHS5_FLOPS",
+           "RHS5_FLOPS", "GEODESIC_FAMILIES",
            "SOURCE_FLOPS", "ORBIT_STEP_FLOPS", "KINDS", "RATE_FORMS",
            "GEODESIC", "Work", "form_flops", "attempt_flops", "source_ops",
            "transfer_ops", "rhs_ops", "attempt_ops", "extras_work",
@@ -118,6 +118,16 @@ def _times(n, ops):
 # rhs5_trig of kerr_dp45_common.cuh with its sin and cos (rhs5 computes
 # them; the extras kernel computes them once and hands them on).
 GEODESIC = _ops(flop=117, div=3, sin=1, cos=1)
+# The RHS of each metric family of the Kerr kernel: Kerr-Newman adds Q^2
+# to Delta, forms W = 2 M r - Q^2 (2 flops) and has one more product in
+# d g^tphi / dr; Johannsen-Psaltis runs rhs5_jp, the covariant partials
+# (52 flops, 12 divisions) and the 2x2 block-inverse chain with
+# Hamilton's equations (118 flops, 11 divisions).
+GEODESIC_FAMILIES = {
+    "kerr": GEODESIC,
+    "kerr_newman": _add(GEODESIC, _ops(flop=4)),
+    "johannsen_psaltis": _ops(flop=170, div=23, sin=1, cos=1),
+}
 
 # j_rest (kerr_dp45_extras.cuh) by profile.
 _EMISSIVITY = {
@@ -224,9 +234,13 @@ def extras_work(kind, width=0, absorbing=False, profile="torus",
         n, rhs_ops(kind, width, absorbing, profile, field), dtype), dtype)
 
 
-def kerr_work(dtype="float32"):
-    """One attempt of the Kerr shadow or disk kernel (kerr_dp45.cu)."""
-    return Work(attempt_flops(5), attempt_ops(5, GEODESIC, dtype), dtype)
+def kerr_work(dtype="float32", family="kerr"):
+    """One attempt of the Kerr shadow or disk kernel (kerr_dp45.cu) for a
+    metric family of GEODESIC_FAMILIES. The flops-only count adds the
+    family's flops and divisions beyond Kerr's to RHS5_FLOPS."""
+    geo = GEODESIC_FAMILIES[family]
+    extra = (geo["flop"] + geo["div"]) - (GEODESIC["flop"] + GEODESIC["div"])
+    return Work(attempt_flops(5, extra), attempt_ops(5, geo, dtype), dtype)
 
 
 def orbit_work(charged=False, dtype="float32"):

@@ -9,7 +9,10 @@ which writes final_alpha, n_half and the status (the JAX wrapper extracts
 the angle outside its kernel only because Mosaic cannot lower acos). Its
 disk variant (`trace_disk_rays_cuda`, `trace_disk_rays_pallas` in JAX)
 adds the plane-crossing recorder and writes p_phi and the hit records
-too. The kernel runs one thread a ray in index order.
+too. The kernel runs one thread a ray in index order. It computes three
+metric families, Kerr, Kerr-Newman and Johannsen-Psaltis (the shadow
+variant; the disk variant takes the first two), each named to the kernel
+by the metric's exact class: any other class raises, a subclass included.
 
 `trace_rays_kerr_cuda` and `trace_disk_rays_cuda` launch the kernel on
 CUDA float32 or float64 tensors (the float64 instances, entries `*_f64`,
@@ -53,7 +56,8 @@ import math
 
 import torch
 
-from light_path_tracer_tpu_torch.models.kerr import Kerr
+from light_path_tracer_tpu_torch.models import (JohannsenPsaltis, Kerr,
+                                                KerrNewman)
 from light_path_tracer_tpu_torch.ops.cuda._build import check, load_library
 from light_path_tracer_tpu_torch.ops.kerr_trace import _h_init_for, get_tols
 from light_path_tracer_tpu_torch.ops.kerr_trace import (
@@ -70,6 +74,25 @@ __all__ = ["trace_rays_kerr_cuda", "trace_rays_kerr_plain",
 
 # Crossing slots the disk variant is compiled for (csrc/kerr_dp45.cu).
 MAX_KERNEL_HITS = 4
+
+# The metric families of the Kerr kernels (csrc/kerr_dp45_common.cuh kKerr,
+# kKerrNewman, kJohannsenPsaltis), keyed by the class that models each.
+FAMILIES = {Kerr: 0, KerrNewman: 1, JohannsenPsaltis: 2}
+# The families of the disk variant and of the extras kernel.
+DISK_FAMILIES = (Kerr, KerrNewman)
+EXTRAS_FAMILIES = (Kerr,)
+
+
+def metric_family(metric, families=tuple(FAMILIES)) -> int:
+    """The kernel's family code of `metric`, by its exact class; TypeError
+    for a class outside `families`: the kernel computes no other metric,
+    and a subclass may change what its parent computes."""
+    if type(metric) not in families:
+        raise TypeError(
+            f"the CUDA kernel traces "
+            f"{', '.join(c.__name__ for c in families)}; got "
+            f"{type(metric).__name__}")
+    return FAMILIES[type(metric)]
 
 
 def entry_suffix(dtype) -> str:
@@ -112,9 +135,11 @@ def _check_inputs(tensors, alphas):
         raise ValueError("at most 2**31 - 1 rays per launch")
 
 
-def _check_call(alphas, metric, formulation, max_steps):
-    """Raise on what the kernel does not take; False for a CPU tensor
-    (the plain version runs), True for a CUDA tensor."""
+def _check_call(alphas, metric, formulation, max_steps,
+                families=tuple(FAMILIES)):
+    """Raise on what the kernel does not take (a metric outside
+    `families` among it); False for a CPU tensor (the plain version
+    runs), True for a CUDA tensor."""
     if alphas.device.type == "cpu":
         return False
     if alphas.device.type != "cuda":
@@ -123,9 +148,7 @@ def _check_call(alphas, metric, formulation, max_steps):
         raise NotImplementedError(
             f"formulation={formulation!r}: the CUDA kernel integrates the "
             f"theta chart only")
-    if not isinstance(metric, Kerr):
-        raise TypeError(f"the CUDA kernel traces Kerr, got "
-                        f"{type(metric).__name__}")
+    metric_family(metric, families)
     if max_steps >= 2**31:
         raise ValueError("max_steps must fit in int32")
     return True
@@ -142,11 +165,12 @@ def _kerr_call_fields(real):
         "stream")]
         + [(name, ctypes.c_int) for name in (
             "n", "max_steps", "cycle_exit", "max_hits", "momentum",
-            "opaque")]
+            "opaque", "family")]
         + [(name, real) for name in (
             "M", "a", "r_plus", "r_obs", "theta_obs", "lambda_max", "atol",
             "rtol", "atol_ref", "rtol_ref", "h_min", "tiny_err", "h_init",
-            "r_capture", "r_reclass", "r_in", "r_out_disk", "plane_c")])
+            "r_capture", "r_reclass", "r_in", "r_out_disk", "plane_c", "q2",
+            "r_pro", "eps3", "r_freeze")])
 
 
 class KerrCall(ctypes.Structure):
@@ -163,6 +187,24 @@ class KerrCall64(ctypes.Structure):
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def family_scalars(metric) -> dict:
+    """KerrCall's family fields of `metric`: the code, Kerr-Newman's Q^2
+    and numeric prograde photon-orbit radius (its plunge exit),
+    Johannsen-Psaltis's eps3 and RHS freeze radius; 0 where the family
+    has none. A Kerr-Newman metric with Q = 0 computes Kerr's batched
+    hot path bitwise (models/kerr_newman.py), so it launches the Kerr
+    instance."""
+    family = metric_family(metric)
+    kn, jp = type(metric) is KerrNewman, type(metric) is JohannsenPsaltis
+    if kn and not metric.Q:
+        family, kn = FAMILIES[Kerr], False
+    return dict(
+        family=family, q2=float(metric._q2),
+        r_pro=float(metric.unstable_photon_radii()[0]) if kn else 0.0,
+        eps3=float(metric.eps3) if jp else 0.0,
+        r_freeze=float(metric._freeze_radius()) if jp else 0.0)
 
 
 def _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
@@ -229,7 +271,8 @@ def _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
             h_init=_h_init_for(r_obs),
             r_capture=float(metric.capture_radius()),
             r_reclass=float(metric.capture_radius() * 1.1),
-            r_in=float(r_in), r_out_disk=float(r_out), plane_c=plane_c)
+            r_in=float(r_in), r_out_disk=float(r_out), plane_c=plane_c,
+            **family_scalars(metric))
         rc = getattr(lib, "lpt_kerr_dp45" + suffix)(
             ctypes.byref(call), int(disk is not None))
     check(lib, rc, f"kerr_dp45{suffix} launch")
@@ -244,7 +287,8 @@ def trace_rays_kerr_cuda(metric, r_obs, alphas, thetas, theta_obs,
                          return_unconverged: bool = False,
                          probe: dict | None = None,
                          _cycle_exit: bool = True):
-    """Trace N Kerr rays with the CUDA kernel; returns TraceResult.
+    """Trace N rays of a Kerr, Kerr-Newman or Johannsen-Psaltis metric
+    with the CUDA kernel; returns TraceResult.
 
     Same arguments and result as trace_rays_kerr_plain (with
     return_unconverged, (TraceResult, raw-RUNNING mask)). alphas/thetas:
@@ -287,9 +331,9 @@ def trace_disk_rays_cuda(metric, r_obs, alphas, thetas, theta_obs,
                          record_momentum: bool = False,
                          probe: dict | None = None,
                          _cycle_exit: bool = True):
-    """Trace N Kerr rays with the kernel's disk variant; returns
-    DiskTraceResult (with return_unconverged, (DiskTraceResult,
-    raw-RUNNING mask)).
+    """Trace N rays of a Kerr or Kerr-Newman metric with the kernel's
+    disk variant; returns DiskTraceResult (with return_unconverged,
+    (DiskTraceResult, raw-RUNNING mask)).
 
     Same arguments and result as trace_disk_rays_plain. disk_plane =
     (r_in, r_out, theta_plane, opaque); max_disk_hits 1..4. alphas/
@@ -298,7 +342,8 @@ def trace_disk_rays_cuda(metric, r_obs, alphas, thetas, theta_obs,
     stream, which does not synchronise. CPU tensors go to the plain
     version.
     """
-    if not _check_call(alphas, metric, formulation, max_steps):
+    if not _check_call(alphas, metric, formulation, max_steps,
+                       DISK_FAMILIES):
         return trace_disk_rays_plain(
             metric, r_obs, alphas, thetas, theta_obs, lambda_max,
             max_steps, disk_plane, max_disk_hits, precision=precision,

@@ -44,7 +44,7 @@ import torch
 from light_path_tracer_tpu_torch.ops import kerr_trace as tk
 from light_path_tracer_tpu_torch.ops.cuda._build import check, load_library
 from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
-    _check_call, _check_inputs, count_launch, entry_suffix)
+    EXTRAS_FAMILIES, _check_call, _check_inputs, count_launch, entry_suffix)
 from light_path_tracer_tpu_torch.ops.kerr_trace import (
     _h_init_for, get_tols, saturation_r_max, spectral_result,
     volumetric_result)
@@ -278,7 +278,8 @@ def _launch(entry, metric, r_obs, alphas, thetas, theta_obs, lambda_max,
 
 def _route(alphas, metric, method, max_steps):
     """True: launch the kernel (CUDA tensor); False: the plain loop."""
-    if not _check_call(alphas, metric, "theta", max_steps):
+    if not _check_call(alphas, metric, "theta", max_steps,
+                       EXTRAS_FAMILIES):
         return False
     if method != "dp45":
         raise NotImplementedError(

@@ -182,7 +182,8 @@ def render_shadow(scene: SceneConfig, resolution,
     timer = StageTimer(device)
     height, width = resolution
     fov = camera.fov_from_vertical(scene.vertical_fov, resolution)
-    alpha_crit = metric.alpha_crit(scene.r_obs, scene.theta_obs)
+    alpha_crit = metric.alpha_crit(scene.r_obs, scene.theta_obs,
+                                    device=device)
 
     if analytic:
         with timer.stage("render"):
@@ -231,7 +232,8 @@ def render_scene(scene: SceneConfig, source_image,
 
     height, width = tuple(source_image.shape[:2])
     fov = camera.fov_from_vertical(scene.vertical_fov, (height, width))
-    alpha_crit = metric.alpha_crit(scene.r_obs, scene.theta_obs)
+    alpha_crit = metric.alpha_crit(scene.r_obs, scene.theta_obs,
+                                    device=device)
 
     with timer.stage("load_image"):
         img = _source_tensor(source_image, device)

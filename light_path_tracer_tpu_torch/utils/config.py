@@ -19,8 +19,8 @@ class SceneConfig:
 
     M: float = 1.0
     a: float = 0.0
-    # Black-hole charge in units of M (Reissner-Nordstrom when != 0;
-    # mutually exclusive with a != 0 — models.make_metric).
+    # Black-hole charge in units of M (Reissner-Nordstrom when != 0 at
+    # a = 0, Kerr-Newman with a != 0 — models.make_metric).
     Q: float = 0.0
     # Johannsen-Psaltis deformation (test-GR deformed Kerr when != 0;
     # mutually exclusive with Q — models.make_metric).

@@ -170,11 +170,14 @@ def _jet_gamma(beta: float) -> float:
 
 
 def _scene_metric(scene: SceneConfig):
-    """Kerr of the scene (disk._scene_metric); a boosted camera is not
-    ported yet."""
+    """Kerr of the scene (disk._scene_metric); a charged scene and a
+    boosted camera are not ported yet."""
     if scene.boosted:
         raise _not_ported("a boosted camera (boost)")
-    return disk._scene_metric(scene)
+    metric = disk._scene_metric(scene)
+    if scene.Q:
+        raise _not_ported("the volumetric flow of a charged spacetime")
+    return metric
 
 
 @functools.lru_cache(maxsize=64)
@@ -643,7 +646,8 @@ def render_volumetric(scene: SceneConfig, resolution,
     emission = _host(res.emission)
     tau = _host(res.optical_depth, resolution)
     stats = dict(
-        alpha_crit=metric.alpha_crit(scene.r_obs, scene.theta_obs),
+        alpha_crit=metric.alpha_crit(scene.r_obs, scene.theta_obs,
+                                    device=device),
         captured=int((status == CAPTURED).sum()),
         invalid=int((status == INVALID).sum()),
         emission=emission.reshape(resolution),
@@ -779,7 +783,8 @@ def render_volumetric_decomposed(scene: SceneConfig, resolution,
     ratios = flux[1:] / np.maximum(flux[:-1], 1e-300)
     status = _host(res.status)
     stats = dict(
-        alpha_crit=metric.alpha_crit(scene.r_obs, scene.theta_obs),
+        alpha_crit=metric.alpha_crit(scene.r_obs, scene.theta_obs,
+                                    device=device),
         flux_per_order=flux.tolist(),
         flux_ratios=ratios.tolist(),
         gamma_estimates=(-np.log(np.maximum(ratios, 1e-300))).tolist(),

@@ -7,6 +7,7 @@ main path's Kerr kernel loses its time, on one NVIDIA GPU.
                                         [--blocks 7,0]
   python3 scripts/torch_kernel_study.py --sections extras --parent DIR
                                         [--extras-blocks 3,4,5,6]
+  python3 scripts/torch_kernel_study.py --sections kerr --parent DIR
 
 ab: builds the kernel library twice from the same sources, as the package
     builds it (ops/cuda/_build.py NVCC_FLAGS, with -fmad=false) and with
@@ -72,6 +73,24 @@ extras: the extras kernel (csrc/kerr_dp45_extras.cuh) against an earlier
     turns) and holds every output (extras, final alpha, half-orbits,
     status, flags, per-ray attempts, warp step sum) bitwise against the
     earlier commit's.
+kerr: the Kerr kernel (csrc/kerr_dp45.cu, shadow and disk variants)
+    against an earlier commit's, DIR as for extras. Builds
+    kerr_dp45.cu and kerr_dp45_f64.cu of DIR and of the package into a
+    library each (the earlier commit's KerrCall, which may lack the
+    family fields, is mirrored from the wrapper's by dropping them),
+    then in turns (the order reversed every other turn) after one
+    untimed turn runs both on the Kerr a = 0.9 cases: the main path's
+    524,288 rays and config 4's aligned 1024^2 grid (float32 and
+    float64), and every disk instance (1-4 hits, with and without
+    momenta) on 4,096 random rays in both types. Each call is timed by
+    CUDA events (mean of 3 after a warm-up; the summary gives the median
+    over turns) and the main-path and config-4 calls also alone (CUDA
+    events with a spin kernel queued ahead, chip_smoke.kernel_alone_ms) and
+    every output (status, final alpha, half-orbits, hits, the final
+    state, per-ray attempts, warp step sum) is held bitwise against the
+    earlier commit's; with the package's Kerr-Newman and
+    Johannsen-Psaltis shadow instances timed beside them on the main
+    path's rays.
 
 The first line is the card's name and power limit. Needs a CUDA device;
 imports nothing of JAX.
@@ -484,6 +503,20 @@ def main_section(dev, builds, X):
     return out
 
 
+def declare_kerr(lib):
+    """Declare the Kerr kernel's two entries (float32, float64) of a
+    library built from kerr_dp45.cu and kerr_dp45_f64.cu alone."""
+    import ctypes
+    from light_path_tracer_tpu_torch.ops.cuda import _build
+    for suffix in ("", "_f64"):
+        fn = getattr(lib, "lpt_kerr_dp45" + suffix)
+        fn.argtypes = [_build._P, _build._I]
+        fn.restype = _build._I
+    lib.lpt_cuda_error_string.argtypes = [_build._I]
+    lib.lpt_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def kerr_build(blocks):
     """Build (or load) csrc/kerr_dp45.cu and its float64 sibling alone,
     from a copy of csrc/ whose Kerr kernel asks for `blocks` blocks an SM
@@ -507,18 +540,9 @@ def kerr_build(blocks):
     (tmp / "kerr_dp45.cu").write_text(text)
     (tmp / "kerr_dp45_f64.cu").write_text(
         (src / "kerr_dp45_f64.cu").read_text())
-
-    def declare(lib):
-        for suffix in ("", "_f64"):
-            fn = getattr(lib, "lpt_kerr_dp45" + suffix)
-            fn.argtypes = [_build._P, _build._I]
-            fn.restype = _build._I
-        lib.lpt_cuda_error_string.argtypes = [_build._I]
-        lib.lpt_cuda_error_string.restype = _build.ctypes.c_char_p
-        return lib
     _build.CSRC = tmp
     _build._sources = lambda: [tmp / "kerr_dp45.cu", tmp / "kerr_dp45_f64.cu"]
-    _build._declare = declare
+    _build._declare = declare_kerr
     _build.load_library.cache_clear()
     t0 = time.perf_counter()
     lib = _build.load_library()
@@ -593,14 +617,57 @@ SCENE_INSTANCES = {
     "order absorbed": "Order<3,absorbing=1,{}>"}
 
 
+def parallel_builds(study, dirs, sources, declare, jobs=12):
+    """Compile `sources` (file names without .cu) of each csrc directory of
+    `dirs` ({build: directory}), at most `jobs` nvcc processes at a time,
+    link each build's objects into a library under the build directory's
+    `study` folder and load it; declare(lib, build, directory) declares
+    its entries and returns what the build keeps beside them. Returns
+    {build: (library, nvcc log, object directory, declared)}."""
+    import concurrent.futures
+    import ctypes
+    from light_path_tracer_tpu_torch.ops.cuda import _build
+    root = _build.BUILD_DIR / study
+    cmds = []
+    for name, d in dirs.items():
+        out = root / name.replace(":", "_")
+        out.mkdir(parents=True, exist_ok=True)
+        for src in sources:
+            cmds.append((name, out / f"{src}.o", [
+                _build._nvcc(), *_build.NVCC_FLAGS, "-c", "-o",
+                str(out / f"{src}.o"), str(d / f"{src}.cu")]))
+
+    def run(cmd):
+        return subprocess.run(cmd, capture_output=True, text=True)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(jobs) as pool:
+        done = list(pool.map(run, [c for _n, _o, c in cmds]))
+    logs = {name: "" for name in dirs}
+    for (name, _obj, cmd), proc in zip(cmds, done):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n"
+                               f"{proc.stdout}{proc.stderr}")
+        logs[name] += proc.stdout + proc.stderr
+    builds = {}
+    for name, d in dirs.items():
+        out = root / name.replace(":", "_")
+        so = out / f"lpt_{study}.so"
+        objs = [str(o) for n, o, _c in cmds if n == name]
+        subprocess.run([_build._nvcc(), *_build.LINK_FLAGS, "-o", str(so),
+                        *objs], check=True, capture_output=True)
+        lib = ctypes.CDLL(str(so))
+        builds[name] = (lib, logs[name], out, declare(lib, name, d))
+    print(f"{study} builds ({len(dirs)} x {len(sources)} sources, {jobs} "
+          f"at a time): {time.perf_counter() - t0:.1f} s", flush=True)
+    return builds
+
+
 def extras_builds(parent, blocks, jobs=12):
     """Build the extras sources of the earlier commit's csrc/ (`parent`),
     of the package's, and of one copy of the package's for each count in
     `blocks` with every instance built with that block bound; at most
     `jobs` nvcc processes at a time. Returns {build: (library, nvcc log,
     object directory)} with each library's extras entries declared."""
-    import concurrent.futures
-    import ctypes
     import shutil
     from pathlib import Path
     from light_path_tracer_tpu_torch.ops.cuda import _build
@@ -620,36 +687,8 @@ def extras_builds(parent, blocks, jobs=12):
         (d / "kerr_dp45_extras.cuh").write_text(text.replace(
             BOUND_EXPR, str(count)))
         dirs[name] = d
-    cmds = []
-    for name, d in dirs.items():
-        out = root / name.replace(":", "_")
-        out.mkdir(parents=True, exist_ok=True)
-        for src in EXTRAS_SOURCES:
-            for suffix in ("", "_f64"):
-                cmds.append((name, out / f"{src}{suffix}.o", [
-                    _build._nvcc(), *_build.NVCC_FLAGS, "-c", "-o",
-                    str(out / f"{src}{suffix}.o"),
-                    str(d / f"{src}{suffix}.cu")]))
 
-    def run(cmd):
-        return subprocess.run(cmd, capture_output=True, text=True)
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(jobs) as pool:
-        done = list(pool.map(run, [c for _n, _o, c in cmds]))
-    logs = {name: "" for name in dirs}
-    for (name, _obj, cmd), proc in zip(cmds, done):
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n"
-                               f"{proc.stdout}{proc.stderr}")
-        logs[name] += proc.stdout + proc.stderr
-    builds = {}
-    for name in dirs:
-        out = root / name.replace(":", "_")
-        so = out / "lpt_extras.so"
-        objs = [str(o) for n, o, _c in cmds if n == name]
-        subprocess.run([_build._nvcc(), *_build.LINK_FLAGS, "-o", str(so),
-                        *objs], check=True, capture_output=True)
-        lib = ctypes.CDLL(str(so))
+    def declare(lib, _name, _d):
         for entry in _build.EXTRAS_ENTRIES:
             for suffix in ("", "_f64"):
                 fn = getattr(lib, entry + suffix)
@@ -660,10 +699,11 @@ def extras_builds(parent, blocks, jobs=12):
                     fn.argtypes = [_build._I, _build._I, _build._P]
                     fn.restype = _build._I
         lib.lpt_cuda_error_string = lambda rc: b"see cudaError_t"
-        builds[name] = (lib, logs[name], out)
-    print(f"extras builds ({len(dirs)} x {2 * len(EXTRAS_SOURCES)} sources, "
-          f"{jobs} at a time): {time.perf_counter() - t0:.1f} s", flush=True)
-    return builds
+    sources = [src + suffix for src in EXTRAS_SOURCES
+               for suffix in ("", "_f64")]
+    return {name: (lib, log, out) for name, (lib, log, out, _) in
+            parallel_builds("extras_study", dirs, sources, declare,
+                            jobs).items()}
 
 
 def trig_reductions(obj_dir):
@@ -863,6 +903,163 @@ def extras_section(dev, X, parent, blocks, turns):
     return report
 
 
+# KerrCall's fields that an earlier commit's kernel may not have (the
+# metric family and its scalars, csrc/kerr_dp45.cu).
+FAMILY_FIELDS = ("family", "q2", "r_pro", "eps3", "r_freeze")
+
+
+def kerr_builds(parent):
+    """Build kerr_dp45.cu and kerr_dp45_f64.cu of the earlier commit's
+    csrc/ (`parent`) and of the package, four nvcc processes at once, a
+    library each. Returns {build: (library, KerrCall mirrors or None)}:
+    the earlier commit's mirrors drop FAMILY_FIELDS where its source
+    lacks them."""
+    import ctypes
+    from pathlib import Path
+    from light_path_tracer_tpu_torch.ops.cuda import _build
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+
+    def declare(lib, _name, d):
+        declare_kerr(lib)
+        if "family" in (d / "kerr_dp45.cu").read_text():
+            return None
+        return tuple(type(f"Old{c.__name__}", (ctypes.Structure,), {
+            "_fields_": [f for f in kk._kerr_call_fields(real)
+                         if f[0] not in FAMILY_FIELDS]})
+            for c, real in ((kk.KerrCall, ctypes.c_float),
+                            (kk.KerrCall64, ctypes.c_double)))
+    dirs = {"parent": Path(parent), "package": _build.CSRC}
+    return {name: (lib, mirrors) for name, (lib, _log, _out, mirrors) in
+            parallel_builds("kerr_study", dirs, ("kerr_dp45",
+                                                 "kerr_dp45_f64"),
+                            declare, jobs=4).items()}
+
+
+class use_kerr_build:
+    """Within the block the wrappers of ops/cuda/kerr_trace_kernel.py
+    launch `build` (kerr_builds), through its own KerrCall mirrors."""
+
+    def __init__(self, build):
+        self.lib, self.mirrors = build
+
+    def __enter__(self):
+        from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel
+        kk = self.kk = kerr_trace_kernel
+        self.saved = (kk.load_library, kk.KerrCall, kk.KerrCall64,
+                      kk.family_scalars)
+        kk.load_library = lambda: self.lib
+        if self.mirrors:
+            kk.KerrCall, kk.KerrCall64 = self.mirrors
+            kk.family_scalars = lambda metric: {}
+
+    def __exit__(self, *exc):
+        (self.kk.load_library, self.kk.KerrCall, self.kk.KerrCall64,
+         self.kk.family_scalars) = self.saved
+
+
+def kerr_cases(dev, X):
+    """label -> (fn(probe=None) -> outputs, profiler key): the Kerr
+    shadow and disk calls of the kerr section."""
+    import torch
+    from light_path_tracer_tpu_torch.models import Kerr
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    kerr = Kerr(M=1.0, a=0.9)
+    al, th, rf = X["main"]
+    ga, gt = X["aligned"]
+    rng = np.random.default_rng(8)
+    f64 = dict(dtype=torch.float64, device=dev)
+    ra = torch.tensor(rng.uniform(0.01, 0.12, 4096), **f64)
+    rt = torch.tensor(rng.uniform(-np.pi, np.pi, 4096), **f64)
+    cases = {}
+    for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        cases[f"main path {tag}"] = (
+            lambda a=al.to(dt), t=th.to(dt), **kw: kk.trace_rays_kerr_cuda(
+                kerr, R_OBS, a, t, np.pi / 2, rf, LAMBDA_MAX, 200000, **kw))
+        cases[f"config-4 aligned {tag}"] = (
+            lambda a=ga.to(dt), t=gt.to(dt), **kw: kk.trace_disk_rays_cuda(
+                kerr, R_OBS, a, t, THETA, LAMBDA_MAX, 200000, X["plane"], 2,
+                **kw))
+        for hits in (1, 2, 3, 4):
+            for mom in (False, True):
+                plane = X["plane"][:3] + (not mom,)
+                cases[f"disk {hits} hits{' momenta' if mom else ''} "
+                      f"4096 rays {tag}"] = (
+                    lambda a=ra.to(dt), t=rt.to(dt), h=hits, m=mom,
+                    pl=plane, **kw: kk.trace_disk_rays_cuda(
+                        kerr, R_OBS, a, t, THETA, LAMBDA_MAX, 200000, pl, h,
+                        record_momentum=m, **kw))
+    return cases
+
+
+def flat_outputs(res, probe):
+    return [y for x in res for y in (x if isinstance(x, tuple) else (x,))
+            ] + [probe["state"], probe["attempts"], probe["raw_status"]]
+
+
+def kerr_section(dev, X, parent, turns):
+    import torch
+    from chip_smoke import cuda_ms, kernel_alone_ms, same_bits
+    from light_path_tracer_tpu_torch.models import (JohannsenPsaltis,
+                                                    KerrNewman)
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    builds = kerr_builds(parent)
+    cases = kerr_cases(dev, X)
+    names = list(builds)
+    report = dict(cases={})
+    want = {}
+    for name in names:                     # one untimed turn
+        with use_kerr_build(builds[name]):
+            for fn in cases.values():
+                fn()
+    torch.cuda.synchronize()
+    for turn in range(turns):
+        for name in (names if turn % 2 == 0 else names[::-1]):
+            with use_kerr_build(builds[name]):
+                for label, fn in cases.items():
+                    probe = {}
+                    got = flat_outputs(fn(probe=probe), probe)
+                    if name == "parent" and label not in want:
+                        want[label] = got
+                    ms, _ = cuda_ms(fn, 3)
+                    row = report["cases"].setdefault(label, {}).setdefault(
+                        name, dict(ms=[], kernel_ms=[]))
+                    row["ms"].append(ms)
+                    if label.startswith(("main", "config-4")):
+                        row["kernel_ms"].append(kernel_alone_ms(fn, 3))
+                    if label in want:
+                        row["bitwise_equal"] = row.get(
+                            "bitwise_equal", True) and len(got) == len(
+                                want[label]) and all(
+                            same_bits(a, b) for a, b in zip(
+                                got, want[label]))
+                    print(f"turn {turn} [{name}] {label}: {ms:.3f} ms, "
+                          f"bitwise {row.get('bitwise_equal')}", flush=True)
+    # The other families' shadow instances on the main path's rays, in
+    # the package's build only.
+    al, th, rf = X["main"]
+    for metric in (KerrNewman(M=1.0, a=0.6, Q=0.6),
+                   JohannsenPsaltis(M=1.0, a=0.9, eps3=2.0)):
+        for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+            def fn(a=al.to(dt), t=th.to(dt), m=metric, **kw):
+                return kk.trace_rays_kerr_cuda(m, R_OBS, a, t, np.pi / 2, rf,
+                                               LAMBDA_MAX, 200000, **kw)
+            rows = dict(ms=[cuda_ms(fn, 3)[0] for _ in range(turns)],
+                        kernel_ms=[kernel_alone_ms(fn, 3)
+                                   for _ in range(turns)])
+            label = f"{type(metric).__name__} main path {tag}"
+            report["cases"][label] = dict(package=rows)
+            print(f"{label}: {json.dumps(rows)}", flush=True)
+    for label, by in report["cases"].items():
+        summary = {name: dict(
+            ms=float(np.median(r["ms"])),
+            kernel_ms=(float(np.median(r["kernel_ms"]))
+                       if r.get("kernel_ms") else r.get("kernel_ms")),
+            bitwise_equal=r.get("bitwise_equal")) for name, r in by.items()}
+        by["summary"] = summary
+        print(f"kerr {label}: {json.dumps(summary)}", flush=True)
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -874,7 +1071,8 @@ def main() -> int:
     parser.add_argument("--sections", default="ab,rays,main,regs")
     parser.add_argument("--blocks", default="7,0")
     parser.add_argument("--parent", default=None,
-                        help="the earlier commit's csrc/ (extras section)")
+                        help="the earlier commit's csrc/ (extras and kerr "
+                             "sections)")
     parser.add_argument("--extras-blocks", default="",
                         help="block bounds to build every extras instance "
                              "with, comma separated (extras section)")
@@ -903,6 +1101,10 @@ def main() -> int:
         blocks = [int(b) for b in args.extras_blocks.split(",") if b]
         report["extras"] = extras_section(dev, X, args.parent, blocks,
                                           args.turns)
+    if "kerr" in sections:
+        if not args.parent:
+            parser.error("the kerr section needs --parent")
+        report["kerr"] = kerr_section(dev, X, args.parent, args.turns)
     print(f"builds (s): {json.dumps(builds.build_s)}", flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

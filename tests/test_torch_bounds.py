@@ -112,6 +112,24 @@ def test_kerr_and_orbit_work():
     assert bounds.orbit_work().flops == bounds.ORBIT_STEP_FLOPS
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_kerr_work_of_each_family(dtype):
+    """Kerr-Newman is Kerr's attempt with 4 more flops an evaluation;
+    Johannsen-Psaltis's RHS has 170 flops and 23 divisions an evaluation,
+    the attempt's other work is Kerr's."""
+    k = bounds.kerr_work(dtype)
+    assert bounds.kerr_work(dtype, "kerr") == k
+    kn = bounds.kerr_work(dtype, "kerr_newman")
+    assert kn.ops == bounds._add(k.ops, ops(flop=6 * 4))
+    assert kn.flops == k.flops + 6 * 4
+    jp = bounds.kerr_work(dtype, "johannsen_psaltis")
+    assert jp.ops == bounds._add(k.ops, ops(flop=6 * (170 - 117),
+                                            div=6 * (23 - 3)))
+    assert jp.flops == k.flops + 6 * (170 + 23 - 117 - 3)
+    with pytest.raises(KeyError):
+        bounds.kerr_work(dtype, "custom")
+
+
 def test_geometry_mode_drops_the_redshift():
     full = bounds.rhs_ops("spectral", 2)
     geo = bounds.rhs_ops("spectral", 2, geometry=True)
@@ -122,6 +140,9 @@ def test_geometry_mode_drops_the_redshift():
 
 WORKS = [("kerr", bounds.kerr_work()), ("kerr f64",
                                         bounds.kerr_work("float64")),
+         ("kerr_newman", bounds.kerr_work(family="kerr_newman")),
+         ("johannsen_psaltis f64",
+          bounds.kerr_work("float64", "johannsen_psaltis")),
          ("orbit", bounds.orbit_work()),
          ("orbit f64", bounds.orbit_work(True, "float64"))]
 WORKS += [(f"{k} {w} {ab} {dt}", bounds.extras_work(k, w, ab, dtype=dt))

@@ -43,6 +43,12 @@ trace_batch, sorted and unsorted, bitwise equal to the whole batch on
 65,536 jittered rays; adaptive AA equal to uniform AA at 256^2; the AA
 renders at 48x64 on the card against the CPU (shadow images equal on
 >= 99 %, lensed bilinear RMSE < 1e-3 on pixels of winding < 2).
+Kerr-Newman and Johannsen-Psaltis through the Kerr kernel: each family's
+shadow instance against the plain loop in float32 (the Kerr gates) and
+float64 (phase 17's), the Kerr-Newman disk variant (the disk gates), a
+Kerr-Newman metric at Q = 0 bitwise the Kerr kernel, Johannsen-Psaltis's
+float64 alpha_crit bisection on the card within 1e-9 rad of the CPU's,
+and each family's shadow render on the card against the CPU.
 """
 
 import numpy as np
@@ -51,7 +57,9 @@ import torch
 
 from light_path_tracer_tpu_torch import (camera, disk, pipeline,
                                          polarization, volumetric)
-from light_path_tracer_tpu_torch.models import (Kerr, ReissnerNordstrom,
+from light_path_tracer_tpu_torch.models import (JohannsenPsaltis, Kerr,
+                                                KerrNewman,
+                                                ReissnerNordstrom,
                                                 Schwarzschild)
 from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
     trace_disk_rays_cuda, trace_disk_rays_plain, trace_disk_rays_two_pass,
@@ -1220,3 +1228,107 @@ def test_aa_on_card_matches_cpu(cuda):
     oc, _ = aa.render_scene_aa(scene, src, cfg_b, device="cpu")
     assert calm.float().mean().item() > 0.9
     assert ((og.cpu() - oc)[calm] ** 2).mean().sqrt().item() < 1e-3
+
+
+FAMILIES = {"kerr_newman": KerrNewman(M=1.0, a=0.6, Q=0.6),
+            "johannsen_psaltis": JohannsenPsaltis(M=1.0, a=0.9, eps3=2.0)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_family_kernel_matches_plain_version(cuda, family, dtype):
+    m = FAMILIES[family]
+    ac = 0.06
+    rng = np.random.default_rng(21)
+    n = 2048 if dtype == torch.float32 else 512
+    al = torch.tensor(rng.uniform(0.2 * ac, 4 * ac, n), dtype=dtype,
+                      device=cuda)
+    th = torch.tensor(rng.uniform(-np.pi, np.pi, n), dtype=dtype,
+                      device=cuda)
+    ref = torch.tensor(rng.random(n) < 0.2, device=cuda)
+    before = (trace_rays_kerr_cuda.launches, trace_rays_kerr_cuda.launches_f64)
+    args = (m, R_OBS, al, th, np.pi / 2, ref, 5000.0, 4000)
+    rk = trace_rays_kerr_cuda(*args)
+    torch.cuda.synchronize()
+    after = (trace_rays_kerr_cuda.launches, trace_rays_kerr_cuda.launches_f64)
+    f64 = dtype == torch.float64
+    assert after[int(f64)] == before[int(f64)] + 1
+    rp = trace_rays_kerr_plain(*args)
+    sk, sp = rk.status.cpu().numpy(), rp.status.cpu().numpy()
+    assert (sk == sp).mean() > (0.999 if f64 else 0.99)
+    a = al.cpu().numpy()
+    ac = m.alpha_crit(R_OBS)
+    stable = (sk == 1) & (sp == 1) & (np.abs(a - ac) > 0.05 * ac)
+    d = np.abs(rk.final_alpha.cpu().numpy()[stable]
+               - rp.final_alpha.cpu().numpy()[stable])
+    assert stable.sum() > n // 4
+    assert np.percentile(d, 99) < (1e-6 if f64 else 2e-3)
+    assert (sk == -1).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_kerr_newman_disk_kernel_matches_plain_version(cuda, dtype):
+    m = FAMILIES["kerr_newman"]
+    rng = np.random.default_rng(8)
+    n = 2048 if dtype == torch.float32 else 512
+    al = torch.tensor(rng.uniform(0.01, 0.12, n), dtype=dtype, device=cuda)
+    th = torch.tensor(rng.uniform(-np.pi, np.pi, n), dtype=dtype,
+                      device=cuda)
+    plane = (disk.r_isco(1.0, 0.6, Q=0.6), 20.0, np.pi / 2, True)
+    args = (m, R_OBS, al, th, np.radians(80.0), 5000.0, 4000, plane, 2)
+    rk = trace_disk_rays_cuda(*args)
+    rp = trace_disk_rays_plain(*args)
+    f64 = dtype == torch.float64
+    agree = (rk.status == rp.status).double().mean().item()
+    hits = (rk.n_hits == rp.n_hits).double().mean().item()
+    assert agree > (0.999 if f64 else 0.99) and hits > (0.999 if f64
+                                                        else 0.99)
+    both = (rk.n_hits > 0) & (rp.n_hits > 0)
+    d = (rk.r_hits[0] - rp.r_hits[0]).abs()[both].double()
+    assert int(both.sum()) > 50
+    assert float(d.median()) < (1e-6 if f64 else 1e-3)
+    with pytest.raises(TypeError):
+        trace_disk_rays_cuda(FAMILIES["johannsen_psaltis"], *args[1:])
+
+
+def test_kerr_newman_at_q0_is_the_kerr_kernel(cuda):
+    m, _ac, al, th, ref = _rays(4096, cuda)
+    args = (R_OBS, al, th, np.pi / 2, ref, 5000.0, 20000)
+    pk, pq = {}, {}
+    rk = trace_rays_kerr_cuda(m, *args, probe=pk)
+    rq = trace_rays_kerr_cuda(KerrNewman(M=1.0, a=0.9, Q=0.0), *args,
+                              probe=pq)
+    for a, b in list(zip(rk, rq)) + [(pk["state"], pq["state"]),
+                                     (pk["attempts"], pq["attempts"])]:
+        assert torch.equal(a.nan_to_num(9.0), b.nan_to_num(9.0))
+
+
+def test_johannsen_psaltis_alpha_crit_on_card_matches_cpu(cuda):
+    m = FAMILIES["johannsen_psaltis"]
+    kw = dict(n_azimuth=4, iters=10)
+    before = trace_rays_kerr_cuda.launches_f64
+    on_card = m.alpha_crit(R_OBS, device="cuda", **kw)
+    assert trace_rays_kerr_cuda.launches_f64 > before
+    assert abs(on_card - m.alpha_crit(R_OBS, device="cpu", **kw)) < 1e-9
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_family_render_shadow_on_card_matches_cpu(cuda, family,
+                                                  monkeypatch):
+    m = FAMILIES[family]
+    scene = SceneConfig(M=1.0, a=m.a, Q=getattr(m, "Q", 0.0),
+                        eps3=getattr(m, "eps3", 0.0), vertical_fov_deg=12.0)
+    # The CPU render takes the card's alpha_crit: the full bisection on
+    # the CPU plain loop costs ~50 s, and the image does not depend on it.
+    ac = m.alpha_crit(R_OBS, np.pi / 2, device="cuda")
+    monkeypatch.setattr(type(m), "alpha_crit", lambda self, *a, **k: ac)
+    before = trace_rays_kerr_cuda.launches
+    plain = kerr_trace.trace_rays_kerr.launches
+    og, _ = pipeline.render_shadow(scene, (48, 48), device="cuda")
+    assert trace_rays_kerr_cuda.launches > before
+    assert kerr_trace.trace_rays_kerr.launches == plain
+    oc, _ = pipeline.render_shadow(scene, (48, 48), device="cpu")
+    assert (og.cpu() == oc).double().mean().item() >= 0.99
+    assert 0 < int((og == 0).sum()) < og.numel()

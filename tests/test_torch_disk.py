@@ -288,8 +288,6 @@ def test_trace_disk_rays_rejects_modes_not_ported():
         disk.trace_disk_rays(*args, disk.DiskConfig(), backend="pallas")
     scene = scene_from_jax(JScene(M=1.0, a=0.9, Q=0.2))
     with pytest.raises(NotImplementedError):
-        disk.render_disk(scene, (4, 4), RenderConfig(), device="cpu")
-    with pytest.raises(NotImplementedError):
         disk.disk_emission(scene, disk.DiskConfig(), R_IN,
                            torch.zeros(4, dtype=torch.int32), (al, al), al,
                            doppler=al)
@@ -368,12 +366,34 @@ def test_cli_disk_on_cpu(tmp_path, capsys):
     assert read_png(out2).shape == (16, 16, 3)
 
 
+def test_cli_disk_charged_on_cpu(tmp_path, capsys):
+    """--Q renders the Kerr-Newman disk (at a = 0 too) and prints the
+    charge; --eps3 is ignored with the JAX package's note."""
+    from light_path_tracer_tpu_torch.cli import main
+    from light_path_tracer_tpu_torch.utils.save import read_png
+    for flags in (["--a", "0.6", "--Q", "0.6"], ["--Q", "0.5"]):
+        out = tmp_path / "q.png"
+        assert main(["disk", "--size", "16", "--device", "cpu",
+                     "--output", str(out), *flags]) == 0
+        text = capsys.readouterr().out
+        assert f"Q={flags[-1]}, inclination 80.0 deg" in text
+        isco = disk.r_isco(1.0, float(flags[1]) if len(flags) > 2 else 0.0,
+                           Q=float(flags[-1]))
+        assert f"r_isco={isco:.3f} M" in text
+        img = read_png(out)
+        assert img.shape == (16, 16, 3) and img.max() > 0.5
+    assert main(["disk", "--size", "8", "--a", "0.5", "--eps3", "1",
+                 "--device", "cpu", "--output",
+                 str(tmp_path / "e.png")]) == 0
+    assert "not wired for --eps3" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("flags", [
     ["--frames", "4"], ["--aa", "4"], ["--decompose", "x.png"],
     ["--polarization", "x.png"], ["--qu-loop", "x.png"],
     ["--line-profile", "x.png"], ["--light-curve", "x.png"], ["--disk2"],
     ["--multihost"], ["--visibility", "x.npz"], ["--centroid", "x.png"],
-    ["--tilt", "10"], ["--warp-radius", "8"], ["--Q", "0.3"],
+    ["--tilt", "10"], ["--warp-radius", "8"],
     ["--boost", "0.1", "0", "0"]])
 def test_cli_disk_rejects_modes_not_ported(tmp_path, flags):
     from light_path_tracer_tpu_torch.cli import main

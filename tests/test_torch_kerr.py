@@ -14,7 +14,9 @@ import torch
 from light_path_tracer_tpu.models import Kerr as JKerr
 from light_path_tracer_tpu.models import make_metric as jmake_metric
 from light_path_tracer_tpu_torch.convert import metric_from_jax
-from light_path_tracer_tpu_torch.models import (Kerr, ReissnerNordstrom,
+from light_path_tracer_tpu_torch.models import (JohannsenPsaltis, Kerr,
+                                                KerrNewman,
+                                                ReissnerNordstrom,
                                                 Schwarzschild, make_metric)
 
 R_OBS = 100.0
@@ -148,10 +150,24 @@ def test_make_metric_returns_spherical_families(kwargs):
 
 
 @pytest.mark.parametrize("kwargs", [dict(a=0.5, Q=0.5),
-                                    dict(a=0.9, eps3=1.0)])
+                                    dict(a=0.9, eps3=1.0),
+                                    dict(a=0.0, eps3=-2.0),
+                                    dict(a=-0.6, Q=0.7)])
 def test_make_metric_raises_for_families_not_ported(kwargs):
-    with pytest.raises(NotImplementedError):
-        make_metric(M=1.0, **kwargs)
+    """Kerr-Newman and Johannsen-Psaltis, once not ported: make_metric
+    returns each family as the JAX package's does, equal to
+    metric_from_jax of the JAX metric, with the same host floats; eps3
+    with a charge raises the JAX package's ValueError."""
+    got = make_metric(M=1.0, **kwargs)
+    ref = jmake_metric(M=1.0, **kwargs)
+    assert type(got).__name__ == type(ref).__name__
+    assert isinstance(got, KerrNewman if "Q" in kwargs
+                      else JohannsenPsaltis)
+    assert got == metric_from_jax(ref)
+    assert got.r_plus == ref.r_plus
+    assert got.capture_radius() == ref.capture_radius()
+    with pytest.raises(ValueError):
+        make_metric(M=1.0, a=0.5, Q=0.3, eps3=1.0)
     assert make_metric(M=1.0, a=0.9) == Kerr(M=1.0, a=0.9)
 
 

@@ -178,6 +178,9 @@ def test_port_imports_without_jax():
             "light_path_tracer_tpu_torch.render, "
             "light_path_tracer_tpu_torch.utils.save, "
             "light_path_tracer_tpu_torch.models.reissner_nordstrom, "
+            "light_path_tracer_tpu_torch.models.kerr_newman, "
+            "light_path_tracer_tpu_torch.models.johannsen_psaltis, "
+            "light_path_tracer_tpu_torch.models.numeric, "
             "light_path_tracer_tpu_torch.ops.schwarzschild_trace, "
             "light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel, "
             "light_path_tracer_tpu_torch.ops.cuda.schwarzschild_kernel, "
