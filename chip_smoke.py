@@ -10,14 +10,18 @@ Schwarzschild shadow and the 512^2 Schwarzschild lensed render) and
 checks what they produce, then the config-4 thin-disk render, the 1024^2
 volumetric hot-flow and spectral renders, the polarized, flare-movie and
 order-decomposition renders, the card's arithmetic peak rates, config
-5, the 4k Kerr shadow at 4 jittered samples a pixel, and the
-Kerr-Newman and Johannsen-Psaltis metrics through the Kerr kernel.
+5, the 4k Kerr shadow at 4 jittered samples a pixel, the Kerr-Newman
+and Johannsen-Psaltis metrics through the Kerr kernel, and Hairer's
+DOP853 pair and linear event location through the Kerr and extras
+kernels.
 Phases:
   1. machine: card name and power limit, torch and nvcc versions;
   2. build: nvcc for sm_90a without FMA contraction (-fmad=false), with
      the build time and each kernel instance's registers and spills; for
      each extras instance also the blocks of 128 threads an SM holds
-     (the runtime's occupancy query) and its functor's block bound;
+     (the runtime's occupancy query) and its functor's block bound (the
+     DOP853 library builds in a child process at the lowest CPU priority
+     beside phases 11 on, and phase 22 waits for it);
   3. kernel vs plain version: 4,096 random rays (status agreement > 0.99,
      p99 |d final_alpha| < 2e-3 on stable escaped rays), a 128^2 image
      (shadow masks agree on >= 99.5% of pixels), and the main path's
@@ -68,7 +72,7 @@ Phases:
      dimmer (Doppler beaming); then a 64^2 render on the card against the
      CPU (disk masks >= 99 %, median |d image| < 1e-3 on disk pixels).
  11. extras kernel vs plain version: 4,096 random rays (alpha in [0.3, 4]
-     alpha_crit, theta_obs = 80 deg, max_steps 2500, sat_window 2048), the
+     alpha_crit, theta_obs = 80 deg, max_steps 1500, sat_window 512), the
      thin, absorbed (alpha0 0.5), jet (beta 0.6, index -1), 2-band
      (0.5/2, q 2) and 3-band (0.1/1/10, q 3) spectral forms (status
      agreement > 0.99, p99 |d tau| < 1e-3, p99 |d emission| / max per
@@ -81,9 +85,10 @@ Phases:
      256-attempt one), the rays the saturation and frozen-state exits
      ended and the slowest rays; the plain loop against the kernel on the
      256^2 grid of the scene for each of phase 13's four paths, both
-     capped at 1,024 attempts (phase 11's gates; the float64 run that
+     capped at 512 attempts (phase 11's gates; the float64 run that
      widens a bar only for the 3-band form); both drivers (thin and
-     3-band) over the kernel and over the plain loop on phase 11's rays;
+     3-band) over the kernel and over the plain loop on phase 11's rays,
+     capped at 512;
  13. the four volumetric paths through render_volumetric and
      render_volumetric_spectrum at 1024^2 (thin, absorbed alpha0 0.3, jet
      beta 0.6, 3-band spectral 0.1/1/10), warm-up and 3 runs each: two
@@ -104,7 +109,7 @@ Phases:
      and absorbed order forms at the main path's window, both capped at
      2,048 attempts (the lanes that reach that cap again with sat_window
      512, where the exits must end them in both), the movie and thin
-     order forms with sat_window 512 capped at 1,024 (their plain loops
+     order forms with sat_window 256 capped at 512 (their plain loops
      take 60-105 s at 2,048 attempts);
      then each form's single pass on the 1024^2 scene (its time, the
      exits' counts and the slowest rays) with the two-pass driver
@@ -251,9 +256,49 @@ Phases:
      renders on the card against the CPU (shadow in float32 and float64,
      lensed, 4x AA; the charged disk in float32 and float64), both
      sides' Johannsen-Psaltis renders taking the card's alpha_crit.
+ 22. DOP853 (Hairer's 8(5,3) pair, csrc/kerr_dop853*.cu, built beside
+     phases 11 on) and linear event location: the DOP853 library's build
+     time and every instance's registers, spills and blocks an SM; every
+     DOP853 instance against the plain DOP853 loop on the card, the
+     random rays capped at 256 attempts in both: the Kerr shadow on phase
+     3's 4,096 random rays with Hermite and linear events (phase 3's
+     gates) and 1,024 of them in float64 (phase 17's), the
+     1024^2 main-path rays with both capped at 256 attempts (phase 3's),
+     the Kerr-Newman and Johannsen-Psaltis instances on phase 21's kinds
+     of rays, the disk variant on phase 8's rays (opaque; translucent
+     with momenta; float64; Kerr-Newman) and the config-4 grid capped at
+     256 (phase 8's gates), the extras forms of phases 11 and 14 (but
+     the jet, VolThin's instance again, the 2-band spectrum, on no path,
+     and the vertical-field Stokes) on 4,096 random rays capped at 128
+     attempts (sat_window 512, which the cap keeps from firing), float32 by
+     phases 11 and 14's gates (the plain loop's own float32 gap from its
+     float64 run raising a bar as there) and float64 by phase 17's (the
+     orders by their flux gates); the DOP853 launch and its DP45 twin
+     alone at full depth in turns on the main-path rays, config 4's grid
+     and the 1024^2 volumetric scene (thin and 3-band), with attempts a
+     ray, lane efficiency and the slowest ray (the main path's traced
+     alone in both pairs and dtypes); then the paths at 1024^2 with
+     integrator="dop853", each with its counts set to 0 before it and
+     read after (only DOP853 instances launch, no DP45 one and no plain
+     loop): the Kerr shadow (warm-up and 3 runs, phase 4's image gates
+     on its captured rays; its INVALID rays, black pixels too, must end
+     INVALID in the plain float32 loop on the card and not in float64: a
+     float32 DOP853 step can land within ~4e-5 rad of the polar axis,
+     whose next stages overflow until h falls below h_min, ROADMAP
+     Queue 3 #8; 3 frames under torch.profiler), the shadow with linear
+     events (its
+     pixels equal to Hermite's on 99.9 %), lensed, 4x AA and adaptive,
+     the Kerr-Newman and Johannsen-Psaltis shadows, config 4's disk
+     (warm-up and 3 runs, its Doppler ratio above 2, profiled), the
+     volumetric thin, absorbed, 3-band, 8-frame movie (thin and absorbed),
+     decomposed and polarized renders; and the 64^2 float64 renders
+     (shadow, disk, volumetric thin on the card against the CPU: shadow
+     pixels and masks equal on 99.9 %, median |d image| < 1e-6; the other
+     families on the card for their float64 launches).
 Each path's launch counters are set to 0 just before it and read just
 after (float32 and float64 instances count apart: `.launches`,
-`.launches_f64`). The second-to-last line is a JSON object of per-kernel
+`.launches_f64`; the DOP853 instances on `.launches_dop853` and
+`.launches_dop853_f64`). The second-to-last line is a JSON object of per-kernel
 results: beside each kernel's time stand its flops-only bound `bound_ms`
 (the larger of its flops over the H100's published 67 TFLOP/s float32
 rate, 34 TFLOP/s for the float64 instances, and its bytes over 3.35
@@ -277,8 +322,15 @@ _f64 twins) count their launches on its paths (the float64 ones on the
 (bounds.kerr_work); alpha_crit_jp_f64 is the bisection as the 1024^2
 JP shadow path runs it: its float64 launches there, the whole call's
 time, the CPU's plain loop on the same call as plain_ms (plain_on
-"cpu"), its bound from the attempts of all its launches. The last line is {"ok": true, "device": {...}}. Exit code 0 iff every phase passed;
-without a CUDA device it exits 1 and prints no result.
+"cpu"), its bound from the attempts of all its launches. Phase 22's
+entries (kerr_dop853*, trace_disk_rays_dop853*, kerr_dop853_extras_*,
+float64 twins *_f64) count their launches on its 1024^2 paths (the
+float64 ones on the 64^2 float64 renders) and their bounds with
+bounds.kerr_work / extras_work(method="dop853"); the main path's and
+config 4's entries time both versions capped at 256 attempts and carry
+the full-depth launch beside its DP45 twin (`full_depth`). The last
+line is {"ok": true, "device": {...}}. Exit code 0 iff every phase
+passed; without a CUDA device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -462,28 +514,30 @@ def compare(rk, rp, alphas, ac):
 
 
 def both_versions(label, metric, alphas, thetas, refine, max_steps,
-                  kernel_repeats):
-    """Run kernel and plain version on the same CUDA rays; print both."""
+                  kernel_repeats, **kw):
+    """Run kernel and plain version on the same CUDA rays; print both.
+    kw (method, event_interp) goes to both."""
     import torch
     from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
         trace_rays_kerr_cuda, trace_rays_kerr_plain)
     args = (metric, R_OBS, alphas, thetas, np.pi / 2, refine, LAMBDA_MAX,
             max_steps)
-    ms, rk = cuda_ms(lambda: trace_rays_kerr_cuda(*args), kernel_repeats)
-    plain_ms, rp = cuda_ms(lambda: trace_rays_kerr_plain(*args), 1)
+    ms, rk = cuda_ms(lambda: trace_rays_kerr_cuda(*args, **kw),
+                     kernel_repeats)
+    plain_ms, rp = cuda_ms(lambda: trace_rays_kerr_plain(*args, **kw), 1)
     cmp = compare(rk, rp, alphas, metric.alpha_crit(R_OBS))
     probe = {}
-    trace_rays_kerr_cuda(*args, probe=probe)
+    trace_rays_kerr_cuda(*args, probe=probe, **kw)
     cmp.update(attempts_stats(probe["attempts"], lambda i: (
         trace_rays_kerr_cuda(metric, R_OBS, alphas[i:i + 1],
                              thetas[i:i + 1], np.pi / 2, refine[i:i + 1],
-                             LAMBDA_MAX, max_steps))))
+                             LAMBDA_MAX, max_steps, **kw))))
     cmp.update(ms=ms, plain_ms=plain_ms, n=int(alphas.numel()),
                n_steps_kernel=int(rk.n_steps), n_steps_plain=int(rp.n_steps))
     # The kernel alone (device time) beside the wrapper, and how busy its
     # lanes were: attempts over 32 x the warp step sum.
-    cmp["kernel_ms"] = kernel_alone_ms(lambda: trace_rays_kerr_cuda(*args),
-                                       kernel_repeats)
+    cmp["kernel_ms"] = kernel_alone_ms(lambda: trace_rays_kerr_cuda(
+        *args, **kw), kernel_repeats)
     cmp["attempts_mean"] = cmp["attempts_sum"] / cmp["n"]
     cmp["lane_efficiency"] = cmp["attempts_sum"] / (32 * cmp["n_steps_kernel"])
     print(f"  {label}: {json.dumps(cmp)}", flush=True)
@@ -541,7 +595,7 @@ def disk_compare(rk, rp):
 
 
 def disk_both(label, metric, alphas, thetas, max_steps, plane, max_hits,
-              kernel_repeats, record_momentum=False):
+              kernel_repeats, record_momentum=False, method="dp45"):
     """Disk kernel and plain version on the same CUDA rays; print both,
     and require the phase-8 gates."""
     import torch
@@ -549,7 +603,7 @@ def disk_both(label, metric, alphas, thetas, max_steps, plane, max_hits,
         trace_disk_rays_cuda, trace_disk_rays_plain)
     args = (metric, R_OBS, alphas, thetas, THETA_DISK, LAMBDA_MAX,
             max_steps, plane, max_hits)
-    kw = dict(record_momentum=record_momentum)
+    kw = dict(record_momentum=record_momentum, method=method)
     ms, rk = cuda_ms(lambda: trace_disk_rays_cuda(*args, **kw),
                      kernel_repeats)
     plain_ms, rp = cuda_ms(lambda: trace_disk_rays_plain(*args, **kw), 1)
@@ -596,17 +650,19 @@ def kernel_label(mangled):
     """A short name for a kernel instance in ptxas's report."""
     import re
     real = {"f": "float", "d": "double"}
-    m = re.search(r"kerr_dp45_kernelI([fd])Lb(\d)ELi(\d)ELb(\d)E", mangled)
+    m = re.search(r"kerr_(dp45|dop853)_kernelI([fd])Li(\d)ELb(\d)ELi(\d)"
+                  r"ELb(\d)E", mangled)
     if m:
-        return (f"kerr_dp45<{real[m.group(1)]},disk={m.group(2)},"
-                f"hits={m.group(3)},momentum={m.group(4)}>")
-    m = re.search(r"kerr_dp45_extras_kernelINS_\d+([A-Za-z]+)I(\w*?)([fd])EE",
-                  mangled)
+        return (f"kerr_{m.group(1)}<{real[m.group(2)]},family={m.group(3)},"
+                f"disk={m.group(4)},hits={m.group(5)},"
+                f"momentum={m.group(6)}>")
+    m = re.search(r"kerr_(dp45|dop853)_extras_kernelINS_\d+([A-Za-z]+)I"
+                  r"(\w*?)([fd])EE", mangled)
     if m:
         args = [v if k == "i" else ("absorbing=" + v)
-                for k, v in re.findall(r"L([ib])(\d+)E", m.group(2))]
-        args.append(real[m.group(3)])
-        return f"kerr_dp45_extras<{m.group(1)}<{','.join(args)}>>"
+                for k, v in re.findall(r"L([ib])(\d+)E", m.group(3))]
+        args.append(real[m.group(4)])
+        return f"kerr_{m.group(1)}_extras<{m.group(2)}<{','.join(args)}>>"
     m = re.search(r"orbit_rk4_kernelILb(\d)E([fd])", mangled)
     if m:
         return f"orbit_rk4<charged={m.group(1)},{real[m.group(2)]}>"
@@ -622,19 +678,19 @@ def kernel_label(mangled):
     return mangled
 
 
-def extras_resources(report):
-    """Fill RESOURCES for every extras instance: what the runtime reports
-    for the card (volumetric_kernel.describe_instance: registers, local
-    memory, blocks an SM) and ptxas's spills (report: ptxas_report's rows
-    of the loaded library's build; the spill fields are None where that
-    build left no report); fails if an instance is missing or no block
-    fits an SM."""
+def extras_resources(report, method="dp45"):
+    """Fill RESOURCES for every extras instance of the pair: what the
+    runtime reports for the card (volumetric_kernel.describe_instance:
+    registers, local memory, blocks an SM) and ptxas's spills (report:
+    ptxas_report's rows of the loaded library's build; the spill fields
+    are None where that build left no report); fails if an instance is
+    missing or no block fits an SM."""
     import re
     from light_path_tracer_tpu_torch.ops.cuda import volumetric_kernel as vk
     ptx = {name: spill for name, _regs, spill in report}
-    for label, entry, form, variant, dtype in vk.extras_instances():
+    for label, entry, form, variant, dtype in vk.extras_instances(method):
         require(label in ptx or not ptx, f"ptxas reported no {label}")
-        d = vk.describe_instance(entry, form, variant, dtype)
+        d = vk.describe_instance(entry, form, variant, dtype, method)
         nums = dict((k, int(v)) for v, k in re.findall(
             r"(\d+) bytes (stack frame|spill stores|spill loads)",
             ptx.get(label, "")))
@@ -731,13 +787,15 @@ VOL_RAYS = 4096
 VOL_DIM = (1024, 1024)
 VOL_PLAIN_DIM = (256, 256)
 VOL_CHECK_DIM = (64, 64)
-# Attempt cap of phase 11 and of phase 12's driver check: above the
-# exits' ~2,150 attempts at sat_window 2048 (the plain loop costs ~10-30
-# ms an iteration, and a lane that never ends runs to the cap).
-VOL_STEPS = 2500
-DRIVER_STEPS = 2500
+# Attempt cap and exits' window of phase 11: the cap above the exits'
+# ~600 attempts at sat_window 512 (the plain loop costs ~10-40 ms an
+# iteration, and a lane that never ends runs to the cap); phase 12's
+# driver check runs without the exits, capped at DRIVER_STEPS.
+VOL_STEPS = 1500
+VOL_WINDOW = 512
+DRIVER_STEPS = 512
 # Attempt cap of phase 12's 256^2 grid, kernel and plain loop alike.
-GRID_STEPS = 1024
+GRID_STEPS = 512
 
 
 def volumetric_forms():
@@ -895,25 +953,26 @@ def volumetric_phases(dev, card):
     al = torch.tensor(rng.uniform(0.3 * ac, 4 * ac, VOL_RAYS), **f32)
     th = torch.tensor(rng.uniform(-np.pi, np.pi, VOL_RAYS), **f32)
     print(f"extras kernel vs plain version (f32 'fast', {VOL_RAYS} random "
-          f"rays, max_steps {VOL_STEPS}, sat_window 2048):", flush=True)
+          f"rays, max_steps {VOL_STEPS}, sat_window {VOL_WINDOW}):",
+          flush=True)
     g11, gap11, plain64 = {}, {}, {}
     for label, (riaf, freqs) in volumetric_forms().items():
         probe = {}
         ms, rk = cuda_ms(lambda: extras_trace(
-            kerr, riaf, freqs, al, th, VOL_STEPS, True, sat_window=2048,
-            probe=probe), 3)
+            kerr, riaf, freqs, al, th, VOL_STEPS, True,
+            sat_window=VOL_WINDOW, probe=probe), 3)
         plain_ms, rp = cuda_ms(lambda: extras_trace(
-            kerr, riaf, freqs, al, th, VOL_STEPS, False, sat_window=2048),
-            1)
+            kerr, riaf, freqs, al, th, VOL_STEPS, False,
+            sat_window=VOL_WINDOW), 1)
         g = extras_compare(rk, rp)
         g.update(ms=ms, plain_ms=plain_ms, n_steps_kernel=int(rk[0].n_steps),
                  n_steps_plain=int(rp[0].n_steps),
                  kernel_attempts=grinders(probe, VOL_RAYS)["slowest"][:2])
         g.update(attempts_stats(probe["attempts"], lambda i: extras_trace(
             kerr, riaf, freqs, al[i:i + 1], th[i:i + 1], VOL_STEPS, True,
-            sat_window=2048)))
+            sat_window=VOL_WINDOW)))
         gap11[label], plain64[label] = f32_gap(
-            kerr, riaf, freqs, al, th, VOL_STEPS, rp, sat_window=2048)
+            kerr, riaf, freqs, al, th, VOL_STEPS, rp, sat_window=VOL_WINDOW)
         g11[label] = g
         extras_gate(f"phase 11 {label}", g, gap11[label])
         print(f"  {label}: {json.dumps(g)}", flush=True)
@@ -992,8 +1051,8 @@ def volumetric_phases(dev, card):
         print(f"  {label}, {d256[0]}^2 grid, both capped at {GRID_STEPS}: "
               f"{json.dumps(g)}", flush=True)
     # Both drivers over the kernel and over the plain loop, on phase
-    # 11's 4,096 rays with a 64-attempt first pass, capped at 2,500
-    # attempts (the plain loop costs ~10 ms an iteration).
+    # 11's 4,096 rays with a 64-attempt first pass, capped at
+    # DRIVER_STEPS attempts (the plain loop costs ~10-30 ms an iteration).
     drv = {}
     for label in ("thin", "spectral 3-band"):
         riaf, freqs = volumetric_forms()[label]
@@ -1166,9 +1225,10 @@ AUX_WINDOW = 512
 # The 256^2 grid's forms with (attempt cap, sat_window): the main path's
 # window with the cap at 2,048, except the movie and thin order forms,
 # whose plain loops cost 30-50 ms an iteration (60-105 s at 2,048 on an
-# H100's host).
-GRID_FORMS = {"stokes toroidal": (2048, 2048), "movie thin": (1024, 512),
-              "movie absorbed": (1024, 512), "order thin": (1024, 512),
+# H100's host, 19-26 s at 1,024 or 768 with the exits' window at 512,
+# where most of their lanes end): capped at 512 with the window at 256.
+GRID_FORMS = {"stokes toroidal": (2048, 2048), "movie thin": (512, 256),
+              "movie absorbed": (512, 256), "order thin": (512, 256),
               "order absorbed": (2048, 2048)}
 N_FRAMES = 8
 N_ORDERS = 3
@@ -1326,11 +1386,11 @@ def aux_gate(what, g, gap=None):
 
 
 def aux_both(what, metric, label, form, al, th, max_steps, window,
-             f64=True, repeats=3):
+             f64=True, repeats=3, method="dp45"):
     """Kernel and plain loop (float32, and with f64 the float64 run that
     sets the bars) of one form on the same rays; prints and gates;
     returns the numbers with the kernel's per-ray attempts."""
-    kw = dict(sat_window=window)
+    kw = dict(sat_window=window, method=method)
     probe = {}
     ms, rk = cuda_ms(lambda: aux_trace(metric, form, al, th, max_steps, True,
                                        probe=probe, **kw), repeats)
@@ -1883,8 +1943,8 @@ def float64_phase(dev, card, ctx):
         rp64, plain_ms = st["plain64_11"][label]
         probe = {}
         ms, rk = cuda_ms(lambda: extras_trace(
-            kerr, riaf, freqs, al_v, th_v, VOL_STEPS, True, sat_window=2048,
-            probe=probe), 3)
+            kerr, riaf, freqs, al_v, th_v, VOL_STEPS, True,
+            sat_window=VOL_WINDOW, probe=probe), 3)
         g = extras_compare(rk, rp64)
         g.update(ms=ms, plain_ms=plain_ms,
                  attempts_sum=int(probe["attempts"].to(torch.int64).sum()),
@@ -3167,6 +3227,740 @@ def families_phase(dev, card, cpu_ac):
         bisection]
 
 
+# Phase 22: Hairer's DOP853 pair and linear event location through the Kerr
+# and extras kernels (csrc/kerr_dop853*.cu, the DOP853 library).
+D853_SOURCE = "light_path_tracer_tpu_torch/csrc/kerr_dop853{}.cu"
+# The plain loop's attempt cap on the 1024^2 grids (kernel and plain loop
+# alike): a float32 DOP853 lane of the main path runs ~8,800 attempts, and
+# the plain loop costs ~15-60 ms an iteration whatever the batch.
+D853_GRID_STEPS = 256
+# The attempt cap of phase 22's random rays, kernel and plain loop alike:
+# the Kerr and disk rays (their slowest DOP853 lanes take ~100-550
+# attempts) and the extras forms (mean ~22-30 attempts, slowest ~90-300,
+# the plain loop ~50-400 ms an iteration), whose exits' window (512) it
+# does not reach.
+D853_RAY_STEPS = 256
+D853_AUX_STEPS = 128
+
+
+class background_build:
+    """Builds a kernel library (ops/cuda/_build.py) in a child process at
+    the lowest CPU priority (nice 19, which its nvcc processes inherit),
+    from the moment it is made, so the earlier phases' host work keeps
+    its cores; result() waits for the child, loads the library it built
+    and returns (library, the child's build seconds). stop_all() ends
+    every child still running, with its nvcc processes."""
+
+    started = []
+    CODE = ("import json, sys; sys.path.insert(0, {root!r}); "
+            "from light_path_tracer_tpu_torch.ops.cuda import _build; "
+            "lib = _build.load_library({library!r}); "
+            "print(json.dumps(lib.build_seconds))")
+
+    def __init__(self, library):
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.library = library
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", self.CODE.format(root=root,
+                                                    library=library)],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, start_new_session=True,
+            preexec_fn=lambda: os.nice(19))
+        background_build.started.append(self)
+
+    def result(self):
+        from light_path_tracer_tpu_torch.ops.cuda import _build
+        out, err = self.proc.communicate()
+        require(self.proc.returncode == 0, f"the {self.library} library's "
+                f"build failed: {err[-4000:]}")
+        build_s = json.loads(out.strip().splitlines()[-1])
+        return _build.load_library(self.library), build_s
+
+    @classmethod
+    def stop_all(cls):
+        import signal
+        for b in cls.started:
+            if b.proc.poll() is None:
+                os.killpg(b.proc.pid, signal.SIGKILL)
+            b.proc.communicate()
+
+
+def d853_counters():
+    """The wrappers, drivers and plain loops whose counts phase 22 reads:
+    (kernel wrappers by name, drivers, plain loops)."""
+    from light_path_tracer_tpu_torch.ops import kerr_trace as tk
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    from light_path_tracer_tpu_torch.ops.cuda import volumetric_kernel as vk
+    kernels = dict(kerr=kk.trace_rays_kerr_cuda,
+                   disk=kk.trace_disk_rays_cuda,
+                   volumetric=vk.trace_rays_volumetric_cuda,
+                   aux=vk.trace_rays_aux_cuda)
+    drivers = dict(kerr_driver=kk.trace_rays_kerr_two_pass,
+                   disk_driver=kk.trace_disk_rays_two_pass,
+                   volumetric_driver=kk.trace_rays_volumetric_two_pass,
+                   aux_driver=kk.trace_rays_aux_two_pass,
+                   spectral_driver=kk.trace_rays_spectral_two_pass)
+    plains = (tk.trace_rays_kerr, tk.trace_disk_rays_kerr,
+              tk.trace_rays_volumetric, tk.trace_rays_spectral,
+              tk.trace_rays_aux)
+    return kernels, drivers, plains
+
+
+def d853_zero():
+    from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
+        zero_counters)
+    kernels, drivers, plains = d853_counters()
+    for c in kernels.values():
+        zero_counters(c)
+    for c in (*drivers.values(), *plains):
+        c.launches = 0
+
+
+def d853_counts():
+    """Each kernel's DOP853 launches (float32, float64) and DP45 ones, the
+    drivers' calls and the plain loops' calls since d853_zero."""
+    kernels, drivers, plains = d853_counters()
+    out = {}
+    for name, c in kernels.items():
+        out[name] = c.launches_dop853
+        out[name + "_f64"] = c.launches_dop853_f64
+        out[name + "_dp45"] = c.launches + c.launches_f64
+    out.update({name: c.launches for name, c in drivers.items()})
+    out["plain"] = sum(c.launches for c in plains)
+    return out
+
+
+def d853_path(label, render, want, runs=1, card=""):
+    """Drive one path with integrator="dop853": counts set to 0, a warm-up
+    and `runs` timed calls (CUDA-synchronised wall seconds), counts read;
+    want: the counter that must have grown (every DP45 launch and plain
+    call must stay 0). Returns (last output, row)."""
+    import torch
+    d853_zero()
+    out = render()
+    walls = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = render()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    c = d853_counts()
+    dp45 = sum(v for k, v in c.items() if k.endswith("_dp45"))
+    require(c[want] >= 1 + runs and dp45 == 0 and c["plain"] == 0,
+            f"phase 22 {label}: {c}")
+    row = dict(counts=c, wall_s=min(walls))
+    print(f"  {label}: {json.dumps(row)} on {card}", flush=True)
+    return out, row
+
+
+def d853_grid(label, trace, n, probe_key="attempts"):
+    """A DOP853 launch and its DP45 twin on the same 1024^2 rays, in turns
+    (DP45, DOP853, DOP853, DP45), each alone by CUDA events behind the spin
+    kernel: their times, attempts a ray, slowest ray and lane efficiency
+    (attempts over 32 x the warp step sum). trace(method, **kw) -> result
+    with n_steps."""
+    import torch
+    rows = {"dp45": dict(ms=[]), "dop853": dict(ms=[])}
+    for method in ("dp45", "dop853", "dop853", "dp45"):
+        rows[method]["ms"].append(kernel_alone_ms(
+            lambda: trace(method), 1))
+    for method, row in rows.items():
+        probe = {}
+        res = trace(method, probe=probe)
+        a = probe[probe_key].to(torch.int64)
+        row.update(ms=float(np.median(row["ms"])), n=n,
+                   attempts_sum=int(a.sum()),
+                   attempts_mean=float(a.double().mean()),
+                   slowest_attempts=int(a.max()),
+                   slowest_ray=int(a.argmax()),
+                   n_steps=int(res.n_steps),
+                   lane_efficiency=int(a.sum()) / (32 * int(res.n_steps)))
+    print(f"  {label}, each alone (median of 2 turns): "
+          f"{json.dumps(rows)}", flush=True)
+    return rows
+
+
+def dop853_phase(dev, card, ctx):
+    """Phase 22: the DOP853 library's build and resources; every DOP853
+    instance against the plain loop on the card (the Kerr shadow on phase
+    3's kinds of rays, its Kerr-Newman and Johannsen-Psaltis instances,
+    linear event location, the disk variant on phase 8's, the extras forms
+    on phases 11's and 14's) in float32 and float64 by phases 3, 8, 11,
+    14 and 17's gates; the DOP853 and DP45 launches side by side on the
+    main-path, config-4 and volumetric grids; the paths at 1024^2 through
+    the entry points with integrator="dop853" (each with its counts set to
+    0 before it and read after: only DOP853 instances launch, no DP45 one
+    and no plain loop); 64^2 renders on the card against the CPU in
+    float64. Returns the kernels-line entries."""
+    import torch
+    from light_path_tracer_tpu_torch import (aa, adaptive, camera, disk,
+                                             pipeline, polarization,
+                                             volumetric)
+    from light_path_tracer_tpu_torch.models import (JohannsenPsaltis, Kerr,
+                                                    KerrNewman)
+    from light_path_tracer_tpu_torch.ops import kerr_trace as tk
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    from light_path_tracer_tpu_torch.utils.config import (RenderConfig,
+                                                          SceneConfig)
+    t_phase = time.perf_counter()
+    D = dict(method="dop853")
+    f32 = dict(dtype=torch.float32, device=dev)
+    print(f"DOP853 and linear event location (phase 22) on {card}:",
+          flush=True)
+
+    # -- (a) the DOP853 library: its build and every instance's resources
+    lib, build_s = ctx["build"].result()
+    print(f"  DOP853 library: built in {build_s:.2f} s by a child process "
+          f"at nice 19 beside phases 11 on -> "
+          f"{os.path.basename(lib._name)}", flush=True)
+    report = ptxas_report(lib.build_log)
+    extras_resources(report, "dop853")
+    for name, regs, spill in report:
+        r = RESOURCES.get(name)
+        more = (f"; {r['blocks_per_sm']} blocks an SM (block bound "
+                f"{r['min_blocks']})" if r else "")
+        print(f"  ptxas: {name}: {regs} registers; {spill}{more}",
+              flush=True)
+    kerr_res = {name: dict(registers=regs, spill=spill)
+                for name, regs, spill in report
+                if name.startswith("kerr_dop853<")}
+
+    # -- (b) the Kerr instances against the plain loop --------------------
+    kerr = Kerr(M=1.0, a=0.9)
+    ac = kerr.alpha_crit(R_OBS)
+    alphas, thetas, refine = ctx["kerr_rays"]
+    g = {}
+    for label, kw in (("hermite", D), ("linear",
+                                       dict(D, event_interp="linear"))):
+        g[label] = both_versions(f"DOP853 {label}, 4096 random rays",
+                                 kerr, alphas, thetas, refine, D853_RAY_STEPS,
+                                 5, **kw)
+        require(g[label]["status_agree"] > 0.99 and g[label]["p99"] < 2e-3,
+                f"phase 22 DOP853 {label} 4096-ray gate: {g[label]}")
+        m = F64_RAYS
+        g[label + " f64"] = both_versions(
+            f"DOP853 {label}, {m} random rays, float64", kerr,
+            alphas[:m].double(), thetas[:m].double(), refine[:m],
+            D853_RAY_STEPS, 3, **kw)
+        require(g[label + " f64"]["status_agree"] > 0.999
+                and g[label + " f64"]["p99"] < 1e-6,
+                f"phase 22 DOP853 {label} float64 gate: {g[label + ' f64']}")
+    scene = SceneConfig(M=1.0, a=0.9, r_obs_mult=R_OBS)
+    cfg = RenderConfig()
+    dim = ctx["main_dim"]
+    fov = camera.fov_from_vertical(scene.vertical_fov, dim)
+    al_m, th_m, rf_m, _rows = pipeline.trace_inputs(scene, cfg, dim, fov,
+                                                    dev)
+    g["main"] = both_versions(
+        f"DOP853 1024^2 main-path rays, both capped at {D853_GRID_STEPS}",
+        kerr, al_m, th_m, rf_m, D853_GRID_STEPS, 3, **D)
+    require(g["main"]["status_agree"] > 0.99 and g["main"]["p99"] < 2e-3
+            and g["main"]["mask_agree"] >= 0.995,
+            f"phase 22 DOP853 main-path gate: {g['main']}")
+    main_args = (kerr, R_OBS, al_m, th_m, np.pi / 2, rf_m, LAMBDA_MAX,
+                 cfg.max_steps)
+    grid_main = d853_grid("Kerr shadow, 1024^2 main-path rays, full depth",
+                          lambda method, **kw: kk.trace_rays_kerr_cuda(
+                              *main_args, method=method, **kw),
+                          int(al_m.numel()))
+    slow = grid_main["dop853"]["slowest_ray"]
+    one = dict(alpha=float(al_m[slow]), theta=float(th_m[slow]),
+               refine=bool(rf_m[slow]))
+    for dtype in (torch.float32, torch.float64):
+        for method in ("dp45", "dop853"):
+            probe = {}
+            kk.trace_rays_kerr_cuda(
+                kerr, R_OBS, al_m[slow:slow + 1].to(dtype),
+                th_m[slow:slow + 1].to(dtype), np.pi / 2,
+                rf_m[slow:slow + 1], LAMBDA_MAX, cfg.max_steps,
+                method=method, probe=probe)
+            one[f"{method} {str(dtype)[6:]}"] = dict(
+                attempts=int(probe["attempts"][0]),
+                status=int(probe["raw_status"][0]),
+                cycles=int(probe["cycles"][0]))
+    one["alone_ms"] = cuda_ms(lambda: kk.trace_rays_kerr_cuda(
+        kerr, R_OBS, al_m[slow:slow + 1], th_m[slow:slow + 1], np.pi / 2,
+        rf_m[slow:slow + 1], LAMBDA_MAX, cfg.max_steps, **D), 3)[0]
+    print(f"  the main path's slowest DOP853 ray, alone: {json.dumps(one)}",
+          flush=True)
+
+    fam = {"kn": (KerrNewman(**KN_ARGS), "kerr_newman"),
+           "jp": (JohannsenPsaltis(**JP_ARGS), "johannsen_psaltis")}
+    # Johannsen-Psaltis's alpha_crit as phase 21 takes it (the card's DP45
+    # bisection, outside every counted path); Kerr-Newman's is the host's.
+    acs = {"kn": fam["kn"][0].alpha_crit(R_OBS),
+           "jp": fam["jp"][0].alpha_crit(R_OBS, np.pi / 2, device="cuda")}
+    for name, (metric, _family) in fam.items():
+        acf = acs[name]
+        rng = np.random.default_rng(21)
+        al = torch.tensor(rng.uniform(0.2 * acf, 4 * acf, 4096), **f32)
+        th = torch.tensor(rng.uniform(-np.pi, np.pi, 4096), **f32)
+        rf = torch.tensor(rng.random(4096) < 0.2, device=dev)
+        g[name] = both_versions(f"DOP853 {name} 4096 random rays", metric,
+                                al, th, rf, D853_RAY_STEPS, 5, **D)
+        require(g[name]["status_agree"] > 0.99 and g[name]["p99"] < 2e-3,
+                f"phase 22 DOP853 {name} gate: {g[name]}")
+        g[name + " f64"] = both_versions(
+            f"DOP853 {name} {F64_RAYS} random rays, float64", metric,
+            al[:F64_RAYS].double(), th[:F64_RAYS].double(), rf[:F64_RAYS],
+            D853_RAY_STEPS, 3, **D)
+        require(g[name + " f64"]["status_agree"] > 0.999
+                and g[name + " f64"]["p99"] < 1e-6,
+                f"phase 22 DOP853 {name} float64 gate: {g[name + ' f64']}")
+
+    # -- (c) the disk variant against the plain loop ----------------------
+    al_d, th_d = ctx["disk_rays"]
+    gd = {}
+    gd["opaque"] = disk_both("DOP853 disk, 4096 random rays, opaque", kerr,
+                             al_d, th_d, D853_RAY_STEPS, ctx["opaque"], 2, 5,
+                             **D)
+    translucent = ctx["opaque"][:3] + (False,)
+    gd["momenta"] = disk_both(
+        "DOP853 disk, 4096 random rays, translucent, momenta", kerr, al_d,
+        th_d, D853_RAY_STEPS, translucent, 2, 5, record_momentum=True, **D)
+    gd["f64"] = disk_both(f"DOP853 disk, {F64_RAYS} random rays, float64",
+                          kerr, al_d[:F64_RAYS].double(),
+                          th_d[:F64_RAYS].double(), D853_RAY_STEPS,
+                          ctx["opaque"], 2, 3, **D)
+    require(gd["f64"]["status_agree"] > 0.999
+            and gd["f64"]["nhits_agree"] > 0.999
+            and gd["f64"]["median_dr"] < 1e-6,
+            f"phase 22 DOP853 disk float64 gate: {gd['f64']}")
+    kn = fam["kn"][0]
+    plane_kn = (disk.r_isco(1.0, 0.6, Q=0.6), 20.0, np.pi / 2, True)
+    gd["kn"] = disk_both("DOP853 kn disk, 4096 random rays, opaque", kn,
+                         al_d, th_d, D853_RAY_STEPS, plane_kn, 2, 5, **D)
+    scene4 = SceneConfig(M=1.0, a=0.9, r_obs_mult=R_OBS,
+                         theta_obs=THETA_DISK)
+    fov4 = camera.fov_from_vertical(scene4.vertical_fov, dim)
+    al4 = camera.build_alpha_lookup(dim, fov4, **f32).reshape(-1)
+    th4 = camera.build_theta_lookup(dim, fov4, **f32).reshape(-1)
+    gd["grid"] = disk_both(
+        f"DOP853 1024^2 config-4 grid, max_steps {D853_GRID_STEPS}", kerr,
+        al4, th4, D853_GRID_STEPS, ctx["opaque"], 2, 3, **D)
+    disk_args = (kerr, R_OBS, al4, th4, THETA_DISK, LAMBDA_MAX,
+                 cfg.max_steps, ctx["opaque"], 2)
+    grid_disk = d853_grid("disk, 1024^2 config-4 grid, full depth",
+                          lambda method, **kw: kk.trace_disk_rays_cuda(
+                              *disk_args, method=method, **kw),
+                          int(al4.numel()))
+    del al4, th4
+
+    # -- (d) the extras forms against the plain loop ----------------------
+    acv = kerr.alpha_crit(R_OBS, THETA_VOL)
+    rng = np.random.default_rng(0)
+    al_v = torch.tensor(rng.uniform(0.3 * acv, 4 * acv, VOL_RAYS), **f32)
+    th_v = torch.tensor(rng.uniform(-np.pi, np.pi, VOL_RAYS), **f32)
+    print(f"  DOP853 extras kernel vs plain loop ({VOL_RAYS} random rays, "
+          f"max_steps {D853_AUX_STEPS}, sat_window {AUX_WINDOW}; float32, "
+          f"then float64 on the same rays):", flush=True)
+    ge = {}
+    forms11 = volumetric_forms()
+    forms11.pop("jet")      # VolThin's instance, as the thin form
+    forms11.pop("spectral 2-band")   # on no path; the card tests hold it
+    for label, (riaf, freqs) in forms11.items():
+        kw = dict(sat_window=AUX_WINDOW, **D)
+        probe = {}
+        ms, rk = cuda_ms(lambda: extras_trace(
+            kerr, riaf, freqs, al_v, th_v, D853_AUX_STEPS, True, probe=probe,
+            **kw), 3)
+        plain_ms, rp = cuda_ms(lambda: extras_trace(
+            kerr, riaf, freqs, al_v, th_v, D853_AUX_STEPS, False, **kw), 1)
+        e = extras_compare(rk, rp)
+        e.update(ms=ms, plain_ms=plain_ms, n_steps_kernel=int(rk[0].n_steps))
+        e.update(attempts_stats(probe["attempts"], lambda i: extras_trace(
+            kerr, riaf, freqs, al_v[i:i + 1], th_v[i:i + 1], D853_AUX_STEPS,
+            True, **kw)))
+        gap, (rp64, plain64_ms) = f32_gap(kerr, riaf, freqs, al_v, th_v,
+                                          D853_AUX_STEPS, rp, **kw)
+        extras_gate(f"phase 22 DOP853 {label}", e, gap)
+        p64 = {}
+        ms64, rk64 = cuda_ms(lambda: extras_trace(
+            kerr, riaf, freqs, al_v.double(), th_v.double(), D853_AUX_STEPS,
+            True, probe=p64, **kw), 3)
+        e64 = extras_compare(rk64, rp64)
+        e64.update(ms=ms64, plain_ms=plain64_ms, attempts_sum=int(
+            p64["attempts"].to(torch.int64).sum()))
+        tau = max(float(t.abs().max()) for t in rp64[2])
+        f64_extras_gate(f"DOP853 {label}", e64, tau)
+        ge[label], ge[label + " f64"] = e, e64
+        print(f"    {label}: {json.dumps(e)}\n    {label} float64: "
+              f"{json.dumps(e64)}", flush=True)
+    forms = aux_forms(kerr, al_v, th_v)
+    forms.pop("stokes vertical")
+    for label, form in forms.items():
+        e = aux_both("phase 22 DOP853", kerr, label, form, al_v, th_v,
+                     D853_AUX_STEPS, AUX_WINDOW, **D)
+        p64 = {}
+        ms64, rk64 = cuda_ms(lambda: aux_trace(
+            kerr, form, al_v.double(), th_v.double(), D853_AUX_STEPS, True,
+            sat_window=AUX_WINDOW, probe=p64, **D), 3)
+        e64 = aux_compare(rk64, e["plain64"][1], label, len(form[3]))
+        e64.update(ms=ms64, plain_ms=e["plain64"][0], attempts_sum=int(
+            p64["attempts"].to(torch.int64).sum()))
+        if label.startswith("order"):
+            require(e64["status_agree"] > 0.999 and order_gate(e64),
+                    f"phase 22 DOP853 {label} float64 gate: {e64}")
+        else:
+            f64_extras_gate(f"DOP853 {label}", e64)
+        e.pop("plain64")
+        ge[label], ge[label + " f64"] = e, e64
+        print(f"    {label} float64: {json.dumps(e64)}", flush=True)
+    del al_v, th_v
+
+    scene_v = SceneConfig(M=1.0, a=0.9, r_obs_mult=R_OBS,
+                          theta_obs=THETA_VOL, vertical_fov_deg=16.0)
+    fov_v = camera.fov_from_vertical(scene_v.vertical_fov, VOL_DIM)
+    al12 = camera.build_alpha_lookup(VOL_DIM, fov_v, **f32).reshape(-1)
+    th12 = camera.build_theta_lookup(VOL_DIM, fov_v, **f32).reshape(-1)
+    thin = scene_forms()["volumetric thin"]
+    grid_vol = d853_grid(
+        "volumetric thin, 1024^2 scene, one pass, full depth",
+        lambda method, **kw: extras_trace(
+            kerr, thin[0], None, al12, th12, 200000, True, method=method,
+            sat_window=2048, **kw)[0], int(al12.numel()))
+    riaf3, freqs3 = scene_forms()["spectral 3-band"]
+    grid_aux = d853_grid(
+        "spectral 3-band (the aux entry), 1024^2 scene, one pass",
+        lambda method, **kw: extras_trace(
+            kerr, riaf3, freqs3, al12, th12, 200000, True, method=method,
+            sat_window=2048, **kw)[0], int(al12.numel()))
+    del al12, th12
+
+    # -- (e) the paths at 1024^2 through the entry points ----------------
+    cfg_d = RenderConfig(integrator="dop853")
+    paths = {}
+    img, row = d853_path("1024^2 Kerr a=0.9 shadow", lambda:
+                         pipeline.render_shadow(scene, dim, cfg_d,
+                                                device="cuda"),
+                         "kerr", runs=3, card=card)
+    img, st = img
+    black = img == 0.0
+    alpha = camera.build_alpha_lookup(dim, fov, device=dev)
+    n_disk = int((alpha < ac).sum())
+    ratio = int(black.sum()) / max(n_disk, 1)
+    # The image's black pixels are the rays not escaped: captured, or
+    # INVALID. Phase 4's gate counts every black pixel outside 1.01
+    # alpha_crit; here the captured rays are held to it, and each INVALID
+    # ray must end INVALID in the plain float32 loop too (the kernel
+    # computes what its plain version does) and not in float64: a float32
+    # DOP853 step can land within ~4e-5 rad of the polar axis, its next
+    # stages overflow and the hard rejects shrink h below h_min (ROADMAP
+    # Queue 3 #8).
+    st_rays = kk.trace_rays_kerr_cuda(*main_args, **D).status
+    outside_rays = al_m >= 1.01 * ac
+    invalid = st_rays == 0
+    inv_idx = torch.nonzero(invalid)[:64, 0]
+    inv_args = (kerr, R_OBS, al_m[inv_idx], th_m[inv_idx], np.pi / 2,
+                rf_m[inv_idx], LAMBDA_MAX, cfg.max_steps)
+    inv_plain = tk.trace_rays_kerr(*inv_args, **D).status
+    inv_f64 = kk.trace_rays_kerr_cuda(
+        kerr, R_OBS, al_m[inv_idx].double(), th_m[inv_idx].double(),
+        *inv_args[4:], **D).status
+    row.update(traced_rays=st["traced_rays"],
+               integrator_steps=st["integrator_steps"],
+               rays_per_s=st["traced_rays"] / st["timings"]["precompute"],
+               black_ratio=ratio,
+               black_outside=int((black & (alpha >= 1.01 * ac)).sum()),
+               captured_outside_rays=int(((st_rays == -1)
+                                          & outside_rays).sum()),
+               invalid_rays=int(invalid.sum()),
+               invalid_in_refine_band=int((invalid & rf_m).sum()),
+               invalid_plain_status=inv_plain.tolist(),
+               invalid_f64_status=inv_f64.tolist(),
+               invalid_alpha_over_ac=(al_m[inv_idx].double() / ac).tolist(),
+               invalid_theta=th_m[inv_idx].tolist(),
+               profile=device_profile(lambda: pipeline.render_shadow(
+                   scene, dim, cfg_d, device="cuda"), 3, "kerr_dop853",
+                   lambda: kk.trace_rays_kerr_cuda.launches_dop853))
+    print(f"  main path with DOP853: {json.dumps(row)}", flush=True)
+    require(st["traced_rays"] == 524288 and bool(torch.isfinite(img).all())
+            and 0.45 <= ratio <= 0.65 and row["captured_outside_rays"] == 0
+            and all(v == 0 for v in row["invalid_plain_status"])
+            and all(v != 0 for v in row["invalid_f64_status"]),
+            f"phase 22 DOP853 shadow image: {row}")
+    del al_m, th_m, rf_m
+    paths["shadow"] = row
+    img_lin, row = d853_path(
+        "1024^2 shadow, linear events", lambda: pipeline.render_shadow(
+            scene, dim, RenderConfig(integrator="dop853",
+                                     event_interp="linear"),
+            device="cuda"), "kerr", card=card)
+    paths["shadow linear"] = row
+    agree = float((img_lin[0] == img).float().mean())
+    print(f"  linear against Hermite events, shadow pixels equal: {agree}",
+          flush=True)
+    require(agree >= 0.999, f"phase 22 linear shadow: {agree}")
+    src = np.random.default_rng(5).random(dim + (3,)).astype(np.float32)
+    for label, render in (
+            ("lens", lambda: pipeline.render_scene(
+                scene, src, RenderConfig(integrator="dop853",
+                                         sampling="bilinear"),
+                device="cuda")),
+            ("aa4", lambda: aa.render_shadow_aa(
+                scene, dim, cfg_d, aa_samples=4, device="cuda")),
+            ("adaptive4", lambda: adaptive.render_shadow_adaptive(
+                scene, dim, cfg_d, aa_samples=4, device="cuda"))):
+        out, row = d853_path(f"1024^2 {label}", render, "kerr", card=card)
+        img_l = out.image if label == "lens" else out[0]
+        require(bool(torch.isfinite(img_l).all()), f"phase 22 {label}")
+        paths[label] = row
+    for name, (metric, _family) in fam.items():
+        kw = dict(KN_ARGS) if name == "kn" else dict(JP_ARGS)
+        scene_f = SceneConfig(r_obs_mult=R_OBS, **kw)
+        with card_alpha_crit(acs[name]):
+            out, row = d853_path(f"1024^2 {name} shadow", lambda:
+                                 pipeline.render_shadow(
+                                     scene_f, dim, cfg_d, device="cuda"),
+                                 "kerr", card=card)
+        require(bool(torch.isfinite(out[0]).all()), f"phase 22 {name}")
+        paths[name] = row
+    disk_cfg = disk.DiskConfig()
+    out, row = d853_path("config 4, 1024^2 disk", lambda: disk.render_disk(
+        scene4, dim, cfg_d, disk_cfg, device="cuda"), "disk", runs=3,
+        card=card)
+    img4, st4 = out
+    left = float(img4[:, :512].double().sum())
+    right = float(img4[:, 512:].double().sum())
+    row.update(rays_per_s=st4["traced_rays"] / st4["timings"]["precompute"],
+               disk_pixels=st4["disk_pixels"], captured=st4["captured"],
+               half_ratio=max(left, right) / max(min(left, right), 1e-9),
+               profile=device_profile(lambda: disk.render_disk(
+                   scene4, dim, cfg_d, disk_cfg, device="cuda"), 3,
+                   "kerr_dop853",
+                   lambda: kk.trace_disk_rays_cuda.launches_dop853))
+    require(row["counts"]["disk_driver"] >= 2 and row["half_ratio"] > 2.0
+            and bool(torch.isfinite(img4).all())
+            and float(img4.min()) >= 0.0 and float(img4.max()) <= 1.0,
+            f"phase 22 DOP853 config 4: {row}")
+    paths["disk"] = row
+    print(f"  config 4 with DOP853: {json.dumps(row)}", flush=True)
+    period = 2.0 * np.pi / abs(volumetric.keplerian_omega(1.0, 0.9, 6.0,
+                                                           True))
+    times = tuple(period * k / N_FRAMES for k in range(N_FRAMES))
+    for label, want, render in (
+            ("volumetric thin", "volumetric", lambda: (
+                volumetric.render_volumetric(scene_v, VOL_DIM, cfg_d,
+                                             device="cuda"))),
+            ("volumetric absorbed", "volumetric", lambda: (
+                volumetric.render_volumetric(
+                    scene_v, VOL_DIM, cfg_d, volumetric.RIAFConfig(
+                        alpha0=0.3), device="cuda"))),
+            ("spectrum 3-band", "aux", lambda: (
+                volumetric.render_volumetric_spectrum(
+                    scene_v, VOL_DIM, freqs3, cfg_d, riaf3,
+                    device="cuda"))),
+            ("movie 8-frame", "aux", lambda: (
+                volumetric.render_volumetric_movie(
+                    scene_v, VOL_DIM, times, cfg_d,
+                    volumetric.RIAFConfig(spot_amp=8.0), device="cuda"))),
+            ("movie 8-frame absorbed", "aux", lambda: (
+                volumetric.render_volumetric_movie(
+                    scene_v, VOL_DIM, times, cfg_d,
+                    volumetric.RIAFConfig(spot_amp=8.0, alpha0=0.3),
+                    device="cuda"))),
+            ("decomposed x3", "aux", lambda: (
+                volumetric.render_volumetric_decomposed(
+                    scene_v, VOL_DIM, cfg_d, n_orders=N_ORDERS,
+                    device="cuda"))),
+            ("polarized", "aux", lambda: (
+                polarization.render_polarized_volumetric(
+                    scene_v, VOL_DIM, cfg_d, p0=P0, device="cuda")))):
+        out, row = d853_path(f"1024^2 {label}", render, want, card=card)
+        paths[label] = row
+
+    # -- (f) 64^2 renders on the card against the CPU, float64 -----------
+    d64 = (64, 64)
+    cfg64 = RenderConfig(dtype="float64", integrator="dop853")
+    scene_s = SceneConfig(M=1.0, a=0.9, r_obs_mult=R_OBS,
+                          vertical_fov_deg=12.0)
+    checks, f64_launches = {}, {}
+    times3 = times[:3]
+    f64_paths = [
+        ("shadow", "kerr_f64", True, lambda d: pipeline.render_shadow(
+            scene_s, d64, cfg64, device=d)[0]),
+        ("disk", "disk_f64", True, lambda d: disk.render_disk(
+            scene4, d64, cfg64, device=d)[0]),
+        ("volumetric thin", "volumetric_f64", True, lambda d: (
+            volumetric.render_volumetric(scene_v, d64, cfg64,
+                                         device=d)[0])),
+        ("volumetric absorbed", "volumetric_f64", False, lambda d: (
+            volumetric.render_volumetric(
+                scene_v, d64, cfg64, volumetric.RIAFConfig(alpha0=0.3),
+                device=d))),
+        ("spectrum 3-band", "aux_f64", False, lambda d: (
+            volumetric.render_volumetric_spectrum(
+                scene_v, d64, freqs3, cfg64, riaf3, device=d))),
+        ("movie 8-frame", "aux_f64", False, lambda d: (
+            volumetric.render_volumetric_movie(
+                scene_v, d64, times3, cfg64,
+                volumetric.RIAFConfig(spot_amp=8.0), device=d))),
+        ("movie 8-frame absorbed", "aux_f64", False, lambda d: (
+            volumetric.render_volumetric_movie(
+                scene_v, d64, times3, cfg64,
+                volumetric.RIAFConfig(spot_amp=8.0, alpha0=0.3),
+                device=d))),
+        ("decomposed x3", "aux_f64", False, lambda d: (
+            volumetric.render_volumetric_decomposed(
+                scene_v, d64, cfg64, n_orders=N_ORDERS, device=d))),
+        ("polarized", "aux_f64", False, lambda d: (
+            polarization.render_polarized_volumetric(
+                scene_v, d64, cfg64, p0=P0, device=d)))]
+    for name in fam:
+        kw = dict(KN_ARGS) if name == "kn" else dict(JP_ARGS)
+        scene_f = SceneConfig(r_obs_mult=R_OBS, vertical_fov_deg=12.0, **kw)
+        f64_paths.append((name, "kerr_f64", False, lambda d, s=scene_f: (
+            pipeline.render_shadow(s, d64, cfg64, device=d))))
+    for label, want, on_cpu, render in f64_paths:
+        d853_zero()
+        with card_alpha_crit(acs["jp"]):
+            og = render("cuda")
+        torch.cuda.synchronize()
+        c = d853_counts()
+        f64_launches[label] = c[want]
+        n32 = sum(v for k, v in c.items() if k in ("kerr", "disk",
+                                                     "volumetric", "aux"))
+        require(c[want] > 0 and n32 == 0 and c["plain"] == 0
+                and all(v == 0 for k, v in c.items()
+                        if k.endswith("_dp45")),
+                f"phase 22 float64 64^2 {label}: {c}")
+        if not on_cpu:
+            continue
+        oc = render("cpu")
+        if label == "shadow":
+            checks[label] = dict(pixels_equal=float(
+                (og.cpu() == oc).float().mean()))
+            ok = checks[label]["pixels_equal"] >= 0.999
+        else:
+            mg, mc = og.cpu() > 0, oc > 0
+            both = mg & mc
+            checks[label] = dict(
+                mask_agree=float((mg == mc).float().mean()),
+                median=float((og.cpu() - oc).abs()[both].median()))
+            ok = (checks[label]["mask_agree"] >= 0.999
+                  and checks[label]["median"] < 1e-6)
+        require(ok, f"phase 22 64^2 {label} card vs CPU: {checks[label]}")
+    print(f"  64^2 float64 renders with DOP853, card vs CPU: "
+          f"{json.dumps(checks)}; float64 launches of every 64^2 path "
+          f"{json.dumps(f64_launches)}", flush=True)
+    print(f"phase 22: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # -- the kernels-line entries -----------------------------------------
+    shadow_bytes = {"float32": 9 + 12, "float64": 17 + 16}
+    disk_bytes = {"float32": 8 + 20 + 16, "float64": 16 + 28 + 32}
+
+    codes = {"kerr": 0, "kerr_newman": 1, "johannsen_psaltis": 2}
+
+    def kerr_entry(name, gg, launches, dtype, family="kerr", disk_=False,
+                   grid=None, hits=(1, 0)):
+        source = D853_SOURCE.format("" if dtype == "float32" else "_f64")
+        replaces = f"{JAX_KERNELS}:316" if disk_ else REPLACES
+        per_ray = (disk_bytes if disk_ else shadow_bytes)[dtype]
+        work = bounds.kerr_work(dtype, family, "dop853")
+        inst = (f"kerr_dop853<{'float' if dtype == 'float32' else 'double'},"
+                f"family={codes[family]},disk={int(disk_)},hits={hits[0]},"
+                f"momentum={hits[1]}>")
+        e = _kerr_entry(name, source, replaces, gg, launches, per_ray, work,
+                        grid, disk_)
+        e.update(instance=inst, **kerr_res.get(inst, {}))
+        return e
+
+    def _kerr_entry(name, source, replaces, gg, launches, per_ray, work,
+                    grid, disk_):
+        # ms, plain_ms and the bounds of the kernel-vs-plain call gg (on
+        # the 1024^2 grids both capped at D853_GRID_STEPS); grid: the same
+        # rays at full depth, the DOP853 launch and its DP45 twin alone
+        e = kernel_entry(name, source, replaces, launches,
+                         gg["max_dr" if disk_ else "max_abs"], gg["ms"],
+                         gg["plain_ms"], gg["n"], per_ray,
+                         gg["attempts_sum"] * work, gg)
+        e.update({k: gg[k] for k in ("kernel_ms", "attempts_mean",
+                                     "lane_efficiency") if k in gg})
+        if grid is not None:
+            e.update(max_steps=D853_GRID_STEPS, full_depth=grid,
+                     full_depth_bound_ms=bounds.flops_bound_ms(
+                         grid["dop853"]["attempts_sum"] * work,
+                         gg["n"] * per_ray)[0])
+        return e
+
+    kernels = [
+        kerr_entry("kerr_dop853", g["main"], paths["shadow"]["counts"]
+                   ["kerr"], "float32", grid=grid_main),
+        kerr_entry("kerr_dop853_linear", g["linear"],
+                   paths["shadow linear"]["counts"]["kerr"], "float32"),
+        kerr_entry("kerr_dop853_f64", g["hermite f64"],
+                   f64_launches["shadow"], "float64"),
+        kerr_entry("kerr_dop853_kn", g["kn"], paths["kn"]["counts"]["kerr"],
+                   "float32", "kerr_newman"),
+        kerr_entry("kerr_dop853_jp", g["jp"], paths["jp"]["counts"]["kerr"],
+                   "float32", "johannsen_psaltis"),
+        kerr_entry("kerr_dop853_kn_f64", g["kn f64"], f64_launches["kn"],
+                   "float64", "kerr_newman"),
+        kerr_entry("kerr_dop853_jp_f64", g["jp f64"], f64_launches["jp"],
+                   "float64", "johannsen_psaltis"),
+        kerr_entry("trace_disk_rays_dop853", gd["grid"],
+                   paths["disk"]["counts"]["disk"], "float32", disk_=True,
+                   grid=grid_disk, hits=(2, 0)),
+        kerr_entry("trace_disk_rays_dop853_f64", gd["f64"],
+                   f64_launches["disk"], "float64", disk_=True,
+                   hits=(2, 0))]
+    kernels[0]["dp45_main_path_ms"] = grid_main["dp45"]["ms"]
+    labels = {"thin": ("volumetric thin", "VolThin<{}>", "thin", 0, False),
+              "absorbed": ("volumetric absorbed", "VolAbsorbed<{}>",
+                           "absorbed", 0, False),
+              "spectral 3-band": ("spectrum 3-band", "Spectral<3,{}>",
+                                  "spectral", 3, False),
+              "stokes toroidal": ("polarized", "Stokes<{}>", "stokes", 0,
+                                  False),
+              "movie thin": ("movie 8-frame", "Movie<8,absorbing=0,{}>",
+                             "movie", N_FRAMES, False),
+              "movie absorbed": ("movie 8-frame absorbed",
+                                 "Movie<8,absorbing=1,{}>", "movie",
+                                 N_FRAMES, True),
+              "order thin": ("decomposed x3", "Order<3,absorbing=0,{}>",
+                             "order", N_ORDERS, False),
+              "order absorbed": (None, "Order<3,absorbing=1,{}>", "order",
+                                 N_ORDERS, True)}
+    for label, (path, inst, kind, width, ab) in labels.items():
+        if path is None:
+            continue
+        for dtype, real, suffix in (("float32", "float", ""),
+                                    ("float64", "double", " f64")):
+            e = ge[label + suffix]
+            src = D853_SOURCE.format(
+                {"stokes": "_stokes", "order": "_orders",
+                 "movie": "_movie_absorbed" if ab else "_movie_thin"}.get(
+                     kind, "_extras") + ("_f64" if dtype == "float64"
+                                         else ""))
+            replaces = (f"{VOL_JAX}:53" if kind in ("thin", "absorbed")
+                        else f"{VOL_JAX}:276")
+            counter = "volumetric" if kind in ("thin", "absorbed") else "aux"
+            launches = (paths[path]["counts"][counter] if dtype == "float32"
+                        else f64_launches[path])
+            n_extras = bounds.components(kind, width, ab) - 5
+            work = bounds.extras_work(kind, width, ab, dtype=dtype,
+                                      method="dop853")
+            k = kernel_entry(
+                f"kerr_dop853_extras_{label.replace(' ', '_')}"
+                + ("_f64" if dtype == "float64" else ""), src, replaces,
+                launches, e.get("max_abs_em", e.get("max_abs")), e["ms"],
+                e["plain_ms"], VOL_RAYS,
+                (8 if dtype == "float32" else 16) + (4 + n_extras) * (
+                    4 if dtype == "float32" else 8),
+                e["attempts_sum"] * work, e,
+                instance=f"kerr_dop853_extras<{inst.format(real)}>")
+            k["attempts_mean"] = e["attempts_sum"] / VOL_RAYS
+            kernels.append(k)
+    vol_main = kernels[[k["name"] for k in kernels].index(
+        "kerr_dop853_extras_thin")]
+    vol_main["scene_1024"] = grid_vol
+    aux_main = kernels[[k["name"] for k in kernels].index(
+        "kerr_dop853_extras_spectral_3-band")]
+    aux_main["scene_1024"] = grid_aux
+    return kernels
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3189,6 +3983,11 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    t_start = time.perf_counter()
+
+    def stamp(phase):
+        print(f"[{time.perf_counter() - t_start:.0f} s] phase {phase}",
+              flush=True)
 
     # -- 1. machine ------------------------------------------------------
     card = card_line()
@@ -3201,6 +4000,7 @@ def main() -> int:
           f"{nvcc_ver}", flush=True)
 
     # -- 2. build --------------------------------------------------------
+    stamp(2)
     t0 = time.perf_counter()
     lib = _build.load_library()
     build_s = time.perf_counter() - t0
@@ -3215,6 +4015,7 @@ def main() -> int:
               flush=True)
 
     # -- 3. kernel vs plain version ---------------------------------------
+    stamp(3)
     metric = Kerr(M=1.0, a=0.9)
     ac = metric.alpha_crit(R_OBS)
     rng = np.random.default_rng(0)
@@ -3251,6 +4052,7 @@ def main() -> int:
     del al, th, rf
 
     # -- 4. main path ------------------------------------------------------
+    stamp(4)
     kerr_trace_kernel.trace_rays_kerr_cuda.launches = 0
     kerr_trace.trace_rays_kerr.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3301,6 +4103,7 @@ def main() -> int:
           f"{json.dumps(frame)}", flush=True)
 
     # -- 5. orbit kernel vs plain version --------------------------------
+    stamp(5)
     orbit_launch = schwarzschild_kernel.trace_rays_schwarzschild_cuda
     orbit_plain = schwarzschild_trace.trace_rays_schwarzschild
     print("orbit kernel vs plain version (f32):", flush=True)
@@ -3324,6 +4127,7 @@ def main() -> int:
     del al_grid
 
     # -- 6. config 1: 1024^2 Schwarzschild shadow ---------------------------
+    stamp(6)
     scene1 = SceneConfig(M=1.0, r_obs_mult=R_OBS)
     orbit_launch.launches = 0
     orbit_plain.launches = 0
@@ -3360,6 +4164,7 @@ def main() -> int:
     del img1, alpha1, cap1
 
     # -- 7. config 2: 512^2 Schwarzschild lensed render ---------------------
+    stamp(7)
     src = np.random.default_rng(3).random((512, 512, 3)).astype(np.float32)
     orbit_launch.launches = 0
     orbit_plain.launches = 0
@@ -3411,6 +4216,7 @@ def main() -> int:
             f"64^2 card vs CPU: masks {mask_agree:.4f}, RMSE {rmse:.3e}")
 
     # -- 8. disk kernel vs plain version ---------------------------------
+    stamp(8)
     from light_path_tracer_tpu_torch import disk as disk_mod
     from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
         trace_disk_rays_cuda, trace_disk_rays_plain, trace_disk_rays_two_pass,
@@ -3441,6 +4247,7 @@ def main() -> int:
                       th4, 512, opaque, 2, 3)
 
     # -- 9. two-pass drivers -----------------------------------------------
+    stamp(9)
     print("two-pass drivers (pass1_steps 512, slots 8192 unless stated):",
           flush=True)
     drv = {}
@@ -3531,6 +4338,7 @@ def main() -> int:
             "render_shadow two_pass=True differs from the single pass")
 
     # -- 10. config 4: 1024^2 thin-disk render ------------------------------
+    stamp(10)
     trace_disk_rays_cuda.launches = 0
     trace_disk_rays_two_pass.launches = 0
     kerr_trace.trace_disk_rays_kerr.launches = 0
@@ -3596,31 +4404,49 @@ def main() -> int:
             f"64^2 disk card vs CPU: masks {mask_agree:.4f}, median {d64}")
 
     # -- 11-13. the volumetric and spectral paths ------------------------
+    stamp(11)
+    # The DOP853 library builds beside phases 11 on (whose kernel-versus-
+    # plain comparisons come first; the main-path, config 1, 2 and 4
+    # timings are behind); phase 22 waits for it.
+    dop853_build = background_build("dop853")
     vol_kernels, state = volumetric_phases(dev, card)
 
     # -- 14-15. the Stokes, movie and order forms and their renders -------
+    stamp(14)
     new_kernels = new_mode_phases(dev, card, state)
 
     # -- 16. the peak probe ------------------------------------------------
+    stamp(16)
     probe_kernel, rates = probe_phase(dev, card)
 
     # -- 17. the float64 instances ----------------------------------------
+    stamp(17)
     f64_kernels = float64_phase(dev, card, dict(
         kerr_rays=(alphas, thetas, refine), disk_rays=(al_d, th_d),
         opaque=opaque, state=state, main_dim=dim))
 
     # -- 18. the exact-cycle exit -------------------------------------------
+    stamp(18)
     cycle_phase(card)
 
     # -- 19. the rays of the reference; the Kerr kernel's booking --------
+    stamp(19)
     reference_phase(dev, card)
 
     # -- 20. config 5: the 4k jittered-AA shadow -------------------------
+    stamp(20)
     launches5, kernels5 = config5_phase(dev, card, main_rays)
 
     # -- 21. Kerr-Newman and Johannsen-Psaltis ----------------------------
+    stamp(21)
     with cpu_alpha_crit() as cpu_ac:
         family_kernels = families_phase(dev, card, cpu_ac)
+
+    # -- 22. DOP853 and linear event location -----------------------------
+    stamp(22)
+    d853_kernels = dop853_phase(dev, card, dict(
+        build=dop853_build, kerr_rays=(alphas, thetas, refine),
+        disk_rays=(al_d, th_d), opaque=opaque, main_dim=dim))
 
     shadow_work = kerr_work()
     # Bytes a ray: alpha, theta (and the refine byte) in; final_alpha,
@@ -3649,7 +4475,7 @@ def main() -> int:
                      gmain["n"], 9 + 12,
                      kerr_row["attempts_sum"] * shadow_work)]
     kernels += (kernels5 + vol_kernels + new_kernels + [probe_kernel]
-                + f64_kernels + family_kernels)
+                + f64_kernels + family_kernels + d853_kernels)
     # The counted bound: every operation by kind at the rate phase 16
     # measured for it (a flop at no less than the published rate).
     for k in kernels:
@@ -3674,3 +4500,5 @@ if __name__ == "__main__":
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr, flush=True)
         sys.exit(1)
+    finally:
+        background_build.stop_all()

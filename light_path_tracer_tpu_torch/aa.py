@@ -18,6 +18,11 @@ by the scene's symmetry, so the average is a true n-sample render at
 about half the traced rays. (The non-AA fold of `pipeline` mirrors about
 the grid centre instead, as the reference does.)
 
+The passes trace with cfg.integrator and cfg.event_interp (DOP853 and
+linear event location included), as the single-sample render does; the
+JAX package's AA trace passes neither and runs DP45 with Hermite events
+whatever the config says.
+
 Single device only: a mesh raises until multi-GPU is ported.
 """
 
@@ -124,6 +129,7 @@ def _trace_all_passes(metric, scene, cfg, resolution, fov, offsets,
         None if theta is None else theta.reshape(-1), scene.theta_obs,
         chunk_size=chunk, sort_by_difficulty=False,
         max_steps=cfg.max_steps, backend=cfg.backend,
+        integrator=cfg.integrator, event_interp=cfg.event_interp,
         precision=cfg.precision)
 
     shape = (n_s, trace_rows, width)

@@ -23,7 +23,9 @@ Refined pixels carry exactly the sample set uniform AA gives them;
 unrefined ones keep their single sample. Cost: H*W + (S-1)*K rays
 against S*H*W. Both passes take the two-pass straggler driver on the
 card ("auto" resolves to on: subpixel grids are jittered, so near-axis
-stragglers come at any batch size).
+stragglers come at any batch size). Both trace with cfg.integrator and
+cfg.event_interp, as aa.py does (the JAX package's adaptive passes
+neither).
 """
 
 from __future__ import annotations
@@ -127,6 +129,7 @@ def _trace(metric, scene, cfg, alphas, thetas):
         metric, scene.r_obs, alphas.reshape(-1),
         None if thetas is None else thetas.reshape(-1), scene.theta_obs,
         max_steps=cfg.max_steps, backend=cfg.backend,
+        integrator=cfg.integrator, event_interp=cfg.event_interp,
         precision=cfg.precision, two_pass=_two_pass(cfg),
         pass1_steps=cfg.pass1_steps)
 

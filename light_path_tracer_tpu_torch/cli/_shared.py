@@ -60,7 +60,9 @@ def _add_render_args(p):
                         "gate (accuracy tier)")
     p.add_argument("--integrator", default="dp45",
                    choices=["dp45", "dop853", "rk4"],
-                   help="Kerr integrator (only dp45 is ported)")
+                   help="Kerr integrator: dp45 (Dormand-Prince 4(5)) or "
+                        "dop853 (Hairer's 8(5,3)); rk4 is not ported and "
+                        "raises")
     p.add_argument("--max-steps", type=int, default=200000,
                    help="adaptive-step budget per ray")
     p.add_argument("--sampling", default="nearest",

@@ -1,0 +1,6 @@
+// The float64 DOP853 instances of the self-absorbed flare-movie forms of the
+// Kerr extras kernel (entries lpt_kerr_dp45_movie_absorbed_dop853_f64): see
+// kerr_dop853_movie_absorbed.cu.
+
+#define LPT_DOUBLE 1
+#include "kerr_dop853_movie_absorbed.cu"

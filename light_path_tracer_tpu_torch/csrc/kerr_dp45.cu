@@ -67,8 +67,22 @@
 // whichever lane runs it and when; it still differs from the plain
 // version's on the CPU where the math libraries round sin, cos or pow
 // otherwise.
+//
+// Two embedded pairs, as the Pallas kernel's `method`: this file builds the
+// DP45 instances; kerr_dop853.cu and kerr_dop853_f64.cu include it with
+// LPT_DOP853 and build the DOP853 ones (kernels kerr_dop853_kernel,
+// entries lpt_kerr_dp45_dop853 and lpt_kerr_dp45_dop853_f64, linked into
+// their own library): there the attempt's stages and error norm are
+// kerr_dop853.cuh's (eleven new stages and the end stage, so 12 RHS
+// evaluations an attempt against DP45's 6), and everything else is this
+// file's. The shadow variant also takes the JAX package's event_interp
+// (KerrCall::event_interp): capture and escape on the Hermite interpolant,
+// or at the linear crossing fraction. It is read only on an attempt that
+// found an event; the disk variant is Hermite only, as the Pallas disk
+// wrapper is.
 
 #include "kerr_dp45_common.cuh"
+#include "kerr_dop853.cuh"
 
 namespace {
 
@@ -89,16 +103,80 @@ struct Attempt {
   bool accept, cap, esc, underflow;
 };
 
-// One adaptive DP45 attempt from (y, k1) with step h: the six new stages,
-// the embedded error norm, capture/escape located on the step's cubic
-// Hermite interpolant, and the step-size control (one pow serves both
-// shrink and grow). Shared by the shadow and disk variants; the caller
-// applies the result.
+// The rest of an attempt whose stages made y5, the end stage A.k7 and the
+// error norm: capture/escape located on the step's cubic Hermite
+// interpolant (or, with `linear`, at the linear crossing fraction) and the
+// step-size control, 0.9 err^exponent (one pow serves both shrink and
+// grow). Shared by both pairs.
+template <class T>
+__device__ __forceinline__ void close_attempt(
+    const T y[5], const T k1[5], const T y5[5], T h, T h_eff, T err_norm,
+    bool finite_ok, T exponent, T r_capture, T r_escape, T r_plunge,
+    bool linear, const Params<T>& P, Attempt<T>& A) {
+  const T* k7 = A.k7;
+  const bool accept = finite_ok && (err_norm <= T(1.0));
+  const bool reject = finite_ok && (err_norm > T(1.0));
+  const bool blowup = !finite_ok;
+
+  // events on accepted steps (capture has priority over escape)
+  const T r_prev = y[0], r_next = y5[0];
+  const bool cap = accept && ((r_prev > r_capture && r_next <= r_capture) ||
+                              (r_next <= r_plunge && r_next < r_prev));
+  const bool esc =
+      accept && r_prev < r_escape && r_next >= r_escape && !cap;
+  const bool event = cap || esc;
+
+  T frac = T(1.0);
+#pragma unroll
+  for (int c = 0; c < 5; ++c) A.y_acc[c] = y5[c];
+  if (event) {
+    const T denom = r_next - r_prev;
+    const T target = cap ? r_capture : r_escape;
+    const T frac_lin = denom == T(0.0)
+                           ? T(1.0)
+                           : jclip((target - r_prev) / denom, T(0.0), T(1.0));
+    if (linear) {
+      frac = frac_lin;
+#pragma unroll
+      for (int c = 0; c < 5; ++c) A.y_acc[c] = y[c] + frac * (y5[c] - y[c]);
+    } else {
+      frac = hermite_crossing_frac(r_prev, r_next, k1[0], k7[0], h_eff,
+                                   target, frac_lin);
+      const T s2 = frac * frac, s3 = s2 * frac;
+      const T h00 = T(2.0) * s3 - T(3.0) * s2 + T(1.0);
+      const T h10 = s3 - T(2.0) * s2 + frac;
+      const T h01 = -T(2.0) * s3 + T(3.0) * s2;
+      const T h11 = s3 - s2;
+#pragma unroll
+      for (int c = 0; c < 5; ++c)
+        A.y_acc[c] = h00 * y[c] + h10 * h_eff * k1[c] + h01 * y5[c] +
+                     h11 * h_eff * k7[c];
+    }
+  }
+
+  const T factor = T(0.9) * pow_(jmax(err_norm, T(1e-30)), exponent);
+  const T shrink = jmax(T(0.2), factor);
+  const T grow = err_norm < P.tiny_err ? T(5.0) : jmin(T(5.0), factor);
+  const T h_new = accept ? h * grow
+                         : (reject ? h * shrink : (blowup ? h * T(0.25) : h));
+
+  A.h_eff = h_eff;
+  A.frac = frac;
+  A.h_new = h_new;
+  A.accept = accept;
+  A.cap = cap;
+  A.esc = esc;
+  A.underflow = (reject || blowup) && (h_new < P.h_min);
+}
+
+// One adaptive DP45 attempt from (y, k1) with step h: the six new stages
+// and the embedded error norm, then close_attempt. Shared by the shadow
+// and disk variants; the caller applies the result.
 template <int F, class T>
 __device__ __forceinline__ void dp45_attempt(
-    const T y[5], const T k1[5], T h, T lam, T lam_max, T p_t, T p_phi,
-    T atol, T rtol, T r_capture, T r_escape, T r_plunge, const Params<T>& P,
-    Attempt<T>& A) {
+    const T (&y)[5], const T (&k1)[5], T h, T lam, T lam_max, T p_t,
+    T p_phi, T atol, T rtol, T r_capture, T r_escape, T r_plunge,
+    bool linear, const Params<T>& P, Attempt<T>& A) {
   using K = Tab<T>;
   const T h_eff = jmax(jmin(h, lam_max - lam), T(0.0));
 
@@ -147,54 +225,26 @@ __device__ __forceinline__ void dp45_attempt(
     err_sq = err_sq + q * q;
   }
   const T err_norm = sqrt_(err_sq / T(5.0));
+  close_attempt(y, k1, y5, h, h_eff, err_norm, finite_ok, T(-0.2),
+                r_capture, r_escape, r_plunge, linear, P, A);
+}
 
-  const bool accept = finite_ok && (err_norm <= T(1.0));
-  const bool reject = finite_ok && (err_norm > T(1.0));
-  const bool blowup = !finite_ok;
-
-  // events on accepted steps (capture has priority over escape)
-  const T r_prev = y[0], r_next = y5[0];
-  const bool cap = accept && ((r_prev > r_capture && r_next <= r_capture) ||
-                              (r_next <= r_plunge && r_next < r_prev));
-  const bool esc =
-      accept && r_prev < r_escape && r_next >= r_escape && !cap;
-  const bool event = cap || esc;
-
-  T frac = T(1.0);
-#pragma unroll
-  for (int c = 0; c < 5; ++c) A.y_acc[c] = y5[c];
-  if (event) {
-    const T denom = r_next - r_prev;
-    const T target = cap ? r_capture : r_escape;
-    const T frac_lin = denom == T(0.0)
-                           ? T(1.0)
-                           : jclip((target - r_prev) / denom, T(0.0), T(1.0));
-    frac = hermite_crossing_frac(r_prev, r_next, k1[0], k7[0], h_eff, target,
-                                 frac_lin);
-    const T s2 = frac * frac, s3 = s2 * frac;
-    const T h00 = T(2.0) * s3 - T(3.0) * s2 + T(1.0);
-    const T h10 = s3 - T(2.0) * s2 + frac;
-    const T h01 = -T(2.0) * s3 + T(3.0) * s2;
-    const T h11 = s3 - s2;
-#pragma unroll
-    for (int c = 0; c < 5; ++c)
-      A.y_acc[c] = h00 * y[c] + h10 * h_eff * k1[c] + h01 * y5[c] +
-                   h11 * h_eff * k7[c];
-  }
-
-  const T factor = T(0.9) * pow_(jmax(err_norm, T(1e-30)), T(-0.2));
-  const T shrink = jmax(T(0.2), factor);
-  const T grow = err_norm < P.tiny_err ? T(5.0) : jmin(T(5.0), factor);
-  const T h_new = accept ? h * grow
-                         : (reject ? h * shrink : (blowup ? h * T(0.25) : h));
-
-  A.h_eff = h_eff;
-  A.frac = frac;
-  A.h_new = h_new;
-  A.accept = accept;
-  A.cap = cap;
-  A.esc = esc;
-  A.underflow = (reject || blowup) && (h_new < P.h_min);
+// One adaptive DOP853 attempt: dop853_stages (kerr_dop853.cuh), then
+// close_attempt with the exponent -1/8 of its 7th-order control.
+template <int F, class T>
+__device__ __forceinline__ void dop853_attempt(
+    const T (&y)[5], const T (&k1)[5], T h, T lam, T lam_max, T p_t,
+    T p_phi, T atol, T rtol, T r_capture, T r_escape, T r_plunge,
+    bool linear, const Params<T>& P, Attempt<T>& A) {
+  const T h_eff = jmax(jmin(h, lam_max - lam), T(0.0));
+  T y5[5];
+  bool finite_ok;
+  const T err_norm = dop853_stages(
+      y, k1, h_eff, atol, rtol,
+      [&](const T(&yt)[5], T(&out)[5]) { rhs5<F>(yt, p_t, p_phi, P, out); },
+      y5, A.k7, finite_ok);
+  close_attempt(y, k1, y5, h, h_eff, err_norm, finite_ok, T(-0.125),
+                r_capture, r_escape, r_plunge, linear, P, A);
 }
 
 // One call of a C entry point, filled by the Python wrapper
@@ -209,7 +259,9 @@ __device__ __forceinline__ void dp45_attempt(
 // probe's outputs may be null: state (5, n), raw_status, steps
 // (attempts), census (CycleWatch::census), and p_phi in the shadow
 // variant. warp_steps: the warp step sum, zeroed by the entry.
-// cycle_exit = 0 grinds exact cycles instead of counting them.
+// cycle_exit = 0 grinds exact cycles instead of counting them;
+// event_interp = 1 locates capture and escape at the linear crossing
+// fraction instead of on the Hermite interpolant (shadow variant only).
 template <class T>
 struct KerrCall {
   const T *alpha, *theta;
@@ -224,7 +276,8 @@ struct KerrCall {
   int *raw_status, *steps, *census;
   unsigned long long* warp_steps;
   void* stream;
-  int n, max_steps, cycle_exit, max_hits, momentum, opaque, family;
+  int n, max_steps, cycle_exit, max_hits, momentum, opaque, family,
+      event_interp;
   T M, a, r_plus, r_obs, theta_obs, lambda_max, atol, rtol, atol_ref,
       rtol_ref, h_min, tiny_err, h_init, r_capture, r_reclass, r_in,
       r_out_disk, plane_c, q2, r_pro, eps3, r_freeze;
@@ -310,14 +363,18 @@ struct Ray {
 
   __device__ __forceinline__ void attempt(const Params<T>& P,
                                           const DiskParams<T>& D,
-                                          int cycle_exit) {
+                                          int cycle_exit, bool linear) {
     const T r_capture = P.r_capture;
     const T r_escape = P.r_obs * T(2.0);
     const T lam_max = P.lambda_max;
     ++steps;
     Attempt<T> A;
-    dp45_attempt<F>(y, k1, h, lam, lam_max, p_t, p_phi, atol, rtol,
-                    r_capture, r_escape, r_plunge, P, A);
+    if constexpr (kDop853)
+      dop853_attempt<F>(y, k1, h, lam, lam_max, p_t, p_phi, atol, rtol,
+                        r_capture, r_escape, r_plunge, linear, P, A);
+    else
+      dp45_attempt<F>(y, k1, h, lam, lam_max, p_t, p_phi, atol, rtol,
+                      r_capture, r_escape, r_plunge, linear, P, A);
     const bool event = A.cap || A.esc;
 
     // disk plane: a sign change of cos(theta) - plane_c over the accepted
@@ -466,13 +523,14 @@ constexpr int kBlocksPerSm = 7;
 // count 0).
 template <class T, int F, bool kDisk, int kMaxHits, bool kMomentum>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
-kerr_dp45_kernel(KerrCall<T> C, Params<T> P, DiskParams<T> D) {
+LPT_KERNEL(kernel)(KerrCall<T> C, Params<T> P, DiskParams<T> D) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   int steps = 0;
   if (i < C.n) {
     Ray<T, F, kDisk, kMaxHits, kMomentum> R;
     R.start(C, P, i);
-    while (R.running(P)) R.attempt(P, D, C.cycle_exit);
+    const bool linear = C.event_interp != 0;
+    while (R.running(P)) R.attempt(P, D, C.cycle_exit, linear);
     R.finish(C, P, i);
     steps = R.steps;
   }
@@ -490,7 +548,7 @@ int launch(const KerrCall<Real>& C, const Params<Real>& P,
   const cudaError_t err =
       cudaMemsetAsync(C.warp_steps, 0, sizeof(unsigned long long), s);
   if (err != cudaSuccess || C.n <= 0) return static_cast<int>(err);
-  kerr_dp45_kernel<Real, F, kDisk, kMaxHits, kMomentum>
+  LPT_KERNEL(kernel)<Real, F, kDisk, kMaxHits, kMomentum>
       <<<(C.n + kThreads - 1) / kThreads, kThreads, 0, s>>>(C, P, D);
   return static_cast<int>(cudaGetLastError());
 }
@@ -530,6 +588,8 @@ int LPT_ENTRY(lpt_kerr_dp45)(const void* call, int disk) {
                        C.tiny_err, C.h_init,    C.r_capture, C.q2,
                        C.r_pro,    C.eps3,      C.r_freeze};
   const DiskParams<Real> D{C.r_in, C.r_out_disk, C.plane_c, C.opaque};
+  // the disk variant locates its events on the Hermite interpolant only
+  if (disk && C.event_interp) return static_cast<int>(cudaErrorInvalidValue);
   switch (C.family) {
     case kKerr: return launch_family<kKerr>(C, P, D, disk);
     case kKerrNewman: return launch_family<kKerrNewman>(C, P, D, disk);
@@ -541,6 +601,7 @@ int LPT_ENTRY(lpt_kerr_dp45)(const void* call, int disk) {
 }
 
 #ifndef LPT_DOUBLE
+// One a library: kerr_dp45.cu's DP45 build, or kerr_dop853.cu's.
 const char* lpt_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -35,8 +35,13 @@
 // A source file compiles one scalar type: float by default, double when
 // it defines LPT_DOUBLE before including this header (the *_f64.cu files,
 // each of which includes its float sibling), so the two instances build
-// in separate nvcc processes. LPT_ENTRY names the C entry points of the
-// instance (name, or name_f64).
+// in separate nvcc processes. It also compiles one embedded pair: the
+// DP45 of this header by default, Hairer's DOP853 (kerr_dop853.cuh) when
+// it defines LPT_DOP853 (the kerr_dop853*.cu files, each of which includes
+// its DP45 sibling; ops/cuda/_build.py links them into a library of their
+// own). LPT_ENTRY names the C entry points of the instance (name,
+// name_f64, name_dop853 or name_dop853_f64), LPT_KERNEL its kernels
+// (kerr_dp45_... or kerr_dop853_...).
 
 #pragma once
 
@@ -44,13 +49,33 @@
 
 #ifdef LPT_DOUBLE
 typedef double Real;
-#define LPT_ENTRY(name) name##_f64
 #else
 typedef float Real;
+#endif
+
+#if defined(LPT_DOP853) && defined(LPT_DOUBLE)
+#define LPT_ENTRY(name) name##_dop853_f64
+#elif defined(LPT_DOP853)
+#define LPT_ENTRY(name) name##_dop853
+#elif defined(LPT_DOUBLE)
+#define LPT_ENTRY(name) name##_f64
+#else
 #define LPT_ENTRY(name) name
 #endif
 
+#ifdef LPT_DOP853
+#define LPT_KERNEL(name) kerr_dop853_##name
+#else
+#define LPT_KERNEL(name) kerr_dp45_##name
+#endif
+
 namespace {
+
+#ifdef LPT_DOP853
+constexpr bool kDop853 = true;
+#else
+constexpr bool kDop853 = false;
+#endif
 
 constexpr int kThreads = 128;
 constexpr unsigned int kFullMask = 0xffffffffu;

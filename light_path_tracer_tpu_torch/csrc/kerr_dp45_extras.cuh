@@ -47,10 +47,19 @@
 // functions arrives here formed in double (the wrapper computes RiafParams
 // in double; the float instance gets it rounded once), r^1.5 and g^p are
 // pow, sigmoid is 1 / (1 + exp(-x)).
+//
+// Embedded pair: DP45 in the kerr_dp45_*.cu sources; the kerr_dop853_*.cu
+// sources include their DP45 siblings with LPT_DOP853 and build every
+// functor with Hairer's DOP853 instead (kerr_dop853.cuh: 12 RHS
+// evaluations an attempt, the same error control over all N components,
+// kernels kerr_dop853_extras_kernel, entries *_dop853 and *_dop853_f64),
+// each instance under its DP45 twin's block bound. Events are Hermite in
+// both, as in the JAX package's volumetric traces.
 
 #pragma once
 
 #include "kerr_dp45_common.cuh"
+#include "kerr_dop853.cuh"
 
 namespace {
 
@@ -278,8 +287,8 @@ __device__ __forceinline__ void window_exit(const SatParams<T>& S,
 // functor's kMinBlocks of its blocks at once (see the head of this file).
 template <class F, class T>
 __global__ void __launch_bounds__(kThreads, F::kMinBlocks)
-kerr_dp45_extras_kernel(ExtrasCall<T> C, Params<T> P, RiafParams<T> R,
-                        SatParams<T> S) {
+LPT_KERNEL(extras_kernel)(ExtrasCall<T> C, Params<T> P, RiafParams<T> R,
+                          SatParams<T> S) {
   using K = Tab<T>;
   constexpr int N = 5 + F::kExtras;
   const int n = C.n;
@@ -309,11 +318,27 @@ kerr_dp45_extras_kernel(ExtrasCall<T> C, Params<T> P, RiafParams<T> R,
     unsigned int flags = 0;
     CycleWatch<T> watch;
 
-    // ---- adaptive DP45 + FSAL loop (ops/kerr_trace.py dp45_integrate)
+    // ---- adaptive DP45 + FSAL loop (ops/kerr_trace.py dp45_integrate),
+    // or DOP853 where the source defines LPT_DOP853. A preprocessor
+    // switch, not if constexpr: with both pairs in one body nvcc scheduled
+    // a DP45 instance otherwise (Movie<8> absorbed 13 % slower, PERF.md
+    // §6), and the DP45 instances must stay as they are.
     while (steps < P.max_steps && status == kRunning && lam < lam_max) {
       ++steps;
       const T h_eff = jmax(jmin(h, lam_max - lam), T(0.0));
 
+#ifdef LPT_DOP853
+      // DOP853 (kerr_dop853.cuh): k7 is the end stage, yt the event
+      // point's scratch
+      T yt[N], y5[N], k7[N];
+      bool finite_ok;
+      const T err_norm = dop853_stages(
+          y, k1, h_eff, P.atol, P.rtol,
+          [&](const T(&ys)[N], T(&out)[N]) {
+            rhs_full<F>(ys, p_t, p_phi, P, R, aux, out);
+          },
+          y5, k7, finite_ok);
+#else
       T yt[N], k2[N], k3[N], k4[N], k5[N], k6[N], y5[N], k7[N];
 #pragma unroll
       for (int c = 0; c < N; ++c) yt[c] = y[c] + h_eff * (K::A21 * k1[c]);
@@ -360,6 +385,7 @@ kerr_dp45_extras_kernel(ExtrasCall<T> C, Params<T> P, RiafParams<T> R,
         err_sq = err_sq + q * q;
       }
       const T err_norm = sqrt_(err_sq / static_cast<T>(N));
+#endif
 
       const bool accept = finite_ok && (err_norm <= T(1.0));
       const bool reject = finite_ok && (err_norm > T(1.0));
@@ -397,8 +423,13 @@ kerr_dp45_extras_kernel(ExtrasCall<T> C, Params<T> P, RiafParams<T> R,
                      h11 * h_eff * k7[c];
       }
 
-      // step-size control (one pow serves both shrink and grow)
+      // step-size control (one pow serves both shrink and grow; the
+      // exponent is -1/(q + 1) for the pair's error order q)
+#ifdef LPT_DOP853
+      const T factor = T(0.9) * pow_(jmax(err_norm, T(1e-30)), T(-0.125));
+#else
       const T factor = T(0.9) * pow_(jmax(err_norm, T(1e-30)), T(-0.2));
+#endif
       const T shrink = jmax(T(0.2), factor);
       const T grow = err_norm < P.tiny_err ? T(5.0) : jmin(T(5.0), factor);
       const T h_new = accept ? h * grow
@@ -503,7 +534,7 @@ inline bool begin(const ExtrasCall<Real>& C, const void* riaf, Prepared* out,
 
 template <class F>
 int launch(const ExtrasCall<Real>& C, const Prepared& K) {
-  kerr_dp45_extras_kernel<F, Real>
+  LPT_KERNEL(extras_kernel)<F, Real>
       <<<(C.n + kThreads - 1) / kThreads, kThreads, 0,
          static_cast<cudaStream_t>(C.stream)>>>(C, K.P, K.R, K.S);
   return static_cast<int>(cudaGetLastError());
@@ -517,11 +548,11 @@ template <class F>
 int describe(int* out) {
   cudaFuncAttributes attr;
   cudaError_t err =
-      cudaFuncGetAttributes(&attr, kerr_dp45_extras_kernel<F, Real>);
+      cudaFuncGetAttributes(&attr, LPT_KERNEL(extras_kernel)<F, Real>);
   int blocks = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, kerr_dp45_extras_kernel<F, Real>, kThreads, 0);
+        &blocks, LPT_KERNEL(extras_kernel)<F, Real>, kThreads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = blocks;
   out[1] = attr.numRegs;

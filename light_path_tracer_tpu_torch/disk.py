@@ -250,8 +250,6 @@ def trace_disk_rays(metric, r_obs, alphas, thetas, theta_obs,
             f"disk mode supports integrator 'dp45' or 'dop853' (the "
             f"crossing recorder lives in the adaptive loop), got "
             f"{method!r}")
-    if method != "dp45":
-        raise _not_ported(f"integrator {method!r}")
     if disk.tilt != 0.0 or disk.warp_radius is not None:
         raise _not_ported("tilted or warped disks")
     if record_time:
@@ -267,9 +265,10 @@ def trace_disk_rays(metric, r_obs, alphas, thetas, theta_obs,
     if two_pass if two_pass != "auto" else True:
         return trace_disk_rays_two_pass(
             *args, pass1_steps=pass1_steps, precision=precision,
-            record_momentum=record_momentum)
+            record_momentum=record_momentum, method=method)
     return trace_disk_rays_cuda(*args, precision=precision,
-                                record_momentum=record_momentum)
+                                record_momentum=record_momentum,
+                                method=method)
 
 
 def _pow4(x):

@@ -1,7 +1,8 @@
 """Batch tracing driver: whole-grid, chunked and difficulty-sorted.
 
 Spherically symmetric metrics (Schwarzschild, Reissner-Nordstrom) go to
-the orbit-equation tracer, Kerr to the DP45 tracer: on the kernel in one
+the orbit-equation tracer, Kerr to the adaptive tracer (DP45 or DOP853,
+with Hermite or linear event location): on the kernel in one
 pass or, for large batches, through the two-pass straggler driver; on the
 plain loop in one pass, as the JAX package's XLA branch ignores
 `two_pass`. A Kerr batch above `chunk_size` rays is traced in chunks of
@@ -20,6 +21,7 @@ import math
 
 import torch
 
+from light_path_tracer_tpu_torch.ops.kerr_trace import check_method
 from light_path_tracer_tpu_torch.ops.types import TraceResult
 
 
@@ -77,8 +79,10 @@ def trace_batch(metric, r_obs, alphas, thetas=None, theta_obs=math.pi / 2,
     sorted by |alpha - alpha_crit| first when sort_by_difficulty (a
     stable sort, so ties keep their input order) and padded with easy
     far-field rays; n_steps sums the chunks' counts on the device.
-    Progress bars, chunk stores, other integrators and interpolants, and
-    the mu chart raise until they are ported.
+    integrator: "dp45" or "dop853"; event_interp: "hermite" or "linear";
+    any other value raises ValueError. Progress bars, chunk stores, the
+    fixed-step "rk4" and the mu chart raise NotImplementedError until they
+    are ported.
     """
     n = int(alphas.shape[0])
     device = alphas.device
@@ -103,13 +107,7 @@ def trace_batch(metric, r_obs, alphas, thetas=None, theta_obs=math.pi / 2,
         raise NotImplementedError(
             "chunk progress bars and chunk stores are not ported yet "
             "(ROADMAP.md, Queue 1)")
-    if integrator != "dp45":
-        raise NotImplementedError(
-            f"integrator={integrator!r} is not ported yet (dp45 only)")
-    if event_interp != "hermite":
-        raise NotImplementedError(
-            f"event_interp={event_interp!r} is not ported yet "
-            f"(hermite only)")
+    check_method(integrator, event_interp)
 
     if thetas is None:
         thetas = torch.zeros_like(alphas)
@@ -127,7 +125,8 @@ def trace_batch(metric, r_obs, alphas, thetas=None, theta_obs=math.pi / 2,
     path = _backend(backend, alphas)
     use_two_pass = path == "cuda" and (two_pass if two_pass != "auto"
                                        else n > 2_000_000)
-    kwargs = dict(precision=precision, formulation=formulation)
+    kwargs = dict(precision=precision, formulation=formulation,
+                  method=integrator, event_interp=event_interp)
     if use_two_pass:
         from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
             trace_rays_kerr_two_pass as kerr_fn)

@@ -2,11 +2,16 @@
 
 The sources in `light_path_tracer_tpu_torch/csrc/*.cu` have a plain C
 interface; each `*_f64.cu` builds the float64 instances of its float
-sibling. At first use each is compiled by its own `nvcc` for Hopper
-(`sm_90a`), all at once, and the objects are linked into one shared
-library under `build/light_path_tracer_tpu_torch/` beside the package,
-named by a hash of the sources, headers and flags, and loaded with
-`ctypes`. A later process with the same sources loads the existing file.
+sibling. They form two libraries, one an embedded pair: "dp45", every
+source but the `kerr_dop853*.cu` ones (the DP45 Kerr and extras kernels,
+the orbit kernel and the peak probe), and "dop853", those (the DOP853
+instances of the Kerr and extras kernels). At the first use of a library
+each of its sources is compiled by its own `nvcc` for Hopper (`sm_90a`),
+all at once, and the objects are linked into one shared library under
+`build/light_path_tracer_tpu_torch/` beside the package, named by the
+library and a hash of the sources, headers and flags, and loaded with
+`ctypes`; so a run that traces DP45 only never builds the DOP853
+instances. A later process with the same sources loads the existing file.
 Nothing is compiled when a module is imported, and a missing `nvcc` or a
 failed build raises with the compiler's output.
 """
@@ -20,6 +25,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
@@ -61,21 +67,31 @@ def _nvcc() -> str:
         "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
-def _sources():
-    srcs = sorted(CSRC.glob("*.cu"))
+# The libraries: name -> (file name prefix, whether a source belongs).
+LIBRARIES = {
+    "dp45": ("lpt_kernels", lambda name: not name.startswith("kerr_dop853")),
+    "dop853": ("lpt_dop853", lambda name: name.startswith("kerr_dop853")),
+}
+
+
+def _sources(library="dp45"):
+    belongs = LIBRARIES[library][1]
+    srcs = [s for s in sorted(CSRC.glob("*.cu")) if belongs(s.name)]
     if not srcs:
-        raise RuntimeError(f"no CUDA sources in {CSRC}")
+        raise RuntimeError(f"no CUDA sources of the {library} library in "
+                           f"{CSRC}")
     return srcs
 
 
-def library_path() -> Path:
-    """Where the library for the current sources, headers and flags
-    lives."""
+def library_path(library="dp45") -> Path:
+    """Where the library `library` ("dp45" or "dop853") for the current
+    sources, headers and flags lives. The hash covers every source and
+    header (a DOP853 source includes its DP45 sibling)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for src in _sources() + sorted(CSRC.glob("*.cuh")):
+    for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"lpt_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{LIBRARIES[library][0]}_{h.hexdigest()[:16]}.so"
 
 
 def log_path(lib: Path) -> Path:
@@ -103,15 +119,16 @@ def _start(cmd):
                                  stderr=subprocess.STDOUT, text=True)
 
 
-def _compile(out: Path) -> str:
-    """Compile every source into `out`, one nvcc per source, all started
-    together, then link; returns nvcc's output."""
+def _compile(out: Path, library: str) -> str:
+    """Compile every source of `library` into `out`, one nvcc per source,
+    all started together, then link; returns nvcc's output."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    srcs = _sources(library)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        objs = [Path(tmp) / f"{src.stem}.o" for src in srcs]
         log = _run([_start([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
                             str(src)])
-                    for src, obj in zip(_sources(), objs)])
+                    for src, obj in zip(srcs, objs)])
         lib = Path(tmp) / out.name
         log += _run([_start([_nvcc(), *LINK_FLAGS, "-o", str(lib),
                              *(str(o) for o in objs)])])
@@ -120,45 +137,71 @@ def _compile(out: Path) -> str:
     return log
 
 
-def _declare(lib):
+def _declare(lib, library):
     # Each entry has a float instance and a float64 one (name + "_f64")
-    # whose scalars are doubles.
+    # whose scalars are doubles; the DOP853 library's entries carry
+    # "_dop853" before that suffix and are the Kerr and extras ones.
+    if library == "dop853":
+        for suffix in ("_dop853", "_dop853_f64"):
+            fn = getattr(lib, "lpt_kerr_dp45" + suffix)
+            fn.argtypes = [_P, _I]
+            fn.restype = _I
+            for name in EXTRAS_ENTRIES:
+                _declare_extras(lib, name + suffix, name + "_describe"
+                                + suffix)
+        return _declare_error_string(lib)
     for suffix, real in (("", _F), ("_f64", _D)):
         fn = getattr(lib, "lpt_kerr_dp45" + suffix)
         fn.argtypes = [_P, _I]
         fn.restype = _I
         for name in EXTRAS_ENTRIES:
-            fn = getattr(lib, name + suffix)
-            fn.argtypes = [_P, _P]
-            fn.restype = _I
-            fn = getattr(lib, name + "_describe" + suffix)
-            fn.argtypes = [_I, _I, _P]
-            fn.restype = _I
+            _declare_extras(lib, name + suffix, name + "_describe" + suffix)
         fn = getattr(lib, "lpt_orbit_rk4" + suffix)
         fn.argtypes = [_P] * 6 + [_I] * 2 + [real] * 13 + [_I] * 2 + [_P]
         fn.restype = _I
     fn = lib.lpt_peak_probe
     fn.argtypes = [_I, _P, _P, _I, _I, ctypes.c_double, ctypes.c_double, _P]
     fn.restype = _I
+    return _declare_error_string(lib)
+
+
+def _declare_extras(lib, entry, describe):
+    fn = getattr(lib, entry)
+    fn.argtypes = [_P, _P]
+    fn.restype = _I
+    fn = getattr(lib, describe)
+    fn.argtypes = [_I, _I, _P]
+    fn.restype = _I
+
+
+def _declare_error_string(lib):
     lib.lpt_cuda_error_string.argtypes = [_I]
     lib.lpt_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
 @functools.cache
-def load_library():
-    """The compiled kernel library, built on first use. Its `build_log`
-    attribute holds nvcc's resource report of the build that made it (''
-    where that build kept none)."""
-    path = library_path()
-    if not path.exists():
-        log = _compile(path)
+def load_library(library="dp45"):
+    """The compiled kernel library `library` ("dp45" or "dop853"), built
+    on first use. Its `build_log` attribute holds nvcc's resource report
+    of the build that made it ('' where that build kept none), and
+    `build_seconds` the seconds this process spent building it (0.0 when
+    it loaded an existing file)."""
+    if library not in LIBRARIES:
+        raise ValueError(f"no kernel library {library!r}; expected one of "
+                         f"{', '.join(LIBRARIES)}")
+    path = library_path(library)
+    t0 = time.perf_counter()
+    built = not path.exists()
+    if built:
+        log = _compile(path, library)
     elif log_path(path).exists():
         log = log_path(path).read_text()
     else:
         log = ""
-    lib = _declare(ctypes.CDLL(str(path)))
+    lib = _declare(ctypes.CDLL(str(path)), library)
     lib.build_log = log
+    lib.build_seconds = time.perf_counter() - t0 if built else 0.0
     return lib
 
 

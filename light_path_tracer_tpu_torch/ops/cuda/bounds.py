@@ -33,15 +33,23 @@ variant's plane test) happen on few attempts and are left out. So the
 counted bound leaves work out and stays a lower bound, unless the
 compiler merges more of what two functions repeat than these counts
 allow for.
+
+Both embedded pairs are counted (`method`): a DP45 attempt makes six new
+RHS evaluations, a DOP853 attempt twelve (eleven stages and the end
+stage, csrc/kerr_dop853.cuh), whose stage and estimator sums are read
+from the nonzeros of the DOP853 tableau (`dop853_sum_flops`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from light_path_tracer_tpu_torch.ops import tableau as tb
+
 __all__ = ["PEAK_FP32", "PEAK_FP64", "PEAK_BYTES", "PUBLISHED_FLOP",
            "RHS5_FLOPS", "GEODESIC_FAMILIES",
            "SOURCE_FLOPS", "ORBIT_STEP_FLOPS", "KINDS", "RATE_FORMS",
+           "DP45_SUM_FLOPS", "dop853_sum_flops", "rhs_evaluations",
            "GEODESIC", "Work", "form_flops", "attempt_flops", "source_ops",
            "transfer_ops", "rhs_ops", "attempt_ops", "extras_work",
            "kerr_work", "orbit_work", "components", "flops_bound_ms",
@@ -78,12 +86,41 @@ def form_flops(kind, width=0, absorbing=False):
     return SOURCE_FLOPS + extra
 
 
-def attempt_flops(components, rhs_extra=0):
-    """Flops of one DP45 attempt over `components` state components: six
-    new RHS evaluations plus the stage sums, the error norm, the event
-    root and the controller (86 C + 55, the structure
-    scripts/roofline.py documents)."""
-    return 6 * (RHS5_FLOPS + rhs_extra) + 86 * components + 55
+# DP45's stage and solution sums a component: its five rows' left folds,
+# each times h plus y, and y5's (attempt_ops' 46).
+DP45_SUM_FLOPS = 46
+
+
+def dop853_sum_flops():
+    """Flops of one DOP853 attempt's sums a component, from the nonzeros
+    of the tableau: each stage row's left fold (m products, m - 1 sums),
+    times h, plus y; the solution's and both estimators' running sums
+    (a product a weight, a sum a weight after the first); y + h times the
+    solution's. 158 for ops/tableau.py's D853_A, D853_B, D853_E5 and
+    D853_E3."""
+    rows = sum(2 * len(row) + 1 for row in tb.D853_A[1:])
+    sums = sum(2 * len(w) - 1 for w in (tb.D853_B, tb.D853_E5, tb.D853_E3))
+    return rows + sums + 2
+
+
+def rhs_evaluations(method="dp45"):
+    """New RHS evaluations of one attempt: DP45's six stages, DOP853's
+    eleven stages and its end stage (FSAL keeps the first of both)."""
+    return {"dp45": 6, "dop853": len(tb.D853_A) - 1 + 1}[method]
+
+
+def attempt_flops(components, rhs_extra=0, method="dp45"):
+    """Flops of one attempt over `components` state components: the
+    pair's new RHS evaluations plus the stage sums, the error norm, the
+    event root and the controller (DP45: 86 C + 55, the structure
+    scripts/roofline.py documents; DOP853: its own sums in place of
+    DP45's, and a second estimator's division and square a component and
+    the combined norm's 4 flops)."""
+    rhs = rhs_evaluations(method) * (RHS5_FLOPS + rhs_extra)
+    if method == "dop853":
+        return (rhs + (86 - DP45_SUM_FLOPS + dop853_sum_flops() + 3)
+                * components + 55 + 4)
+    return rhs + 86 * components + 55
 
 
 # ---- the counted bound ---------------------------------------------------
@@ -190,15 +227,26 @@ def rhs_ops(kind, width=0, absorbing=False, profile="torus",
                 transfer_ops(kind, width, absorbing, field, geometry))
 
 
-def attempt_ops(n_components, rhs, dtype="float32"):
-    """One DP45 attempt over n_components state components with `rhs` the
-    operations of one evaluation: six new evaluations; per component the
-    stage sums (46 flops), the error scale (4 in float32, whose scale is
-    increment-aware, 2 in float64), the error estimate (12), its ratio to
-    the scale (a division) and its square's sum (2); then the norm (a
-    division and a sqrt), h_eff, the controller's pow and its three
-    candidate steps, and lambda's update (7 flops)."""
-    per = 64 if dtype == "float32" else 62
+def attempt_ops(n_components, rhs, dtype="float32", method="dp45"):
+    """One attempt over n_components state components with `rhs` the
+    operations of one evaluation. DP45: six new evaluations; per
+    component the stage sums (46 flops), the error scale (4 in float32,
+    whose scale is increment-aware, 2 in float64), the error estimate
+    (12), its ratio to the scale (a division) and its square's sum (2);
+    then the norm (a division and a sqrt), h_eff, the controller's pow
+    and its three candidate steps, and lambda's update (7 flops). DOP853:
+    twelve new evaluations; per component its sums (dop853_sum_flops),
+    the error scale (float32's running maximum over the stages counts
+    nothing), both estimators' ratios (two divisions) and squares' sums
+    (4); then the combined norm (4 flops, a division and a sqrt) and the
+    same controller and lambda update."""
+    scale = 4 if dtype == "float32" else 2
+    if method == "dop853":
+        per = _ops(flop=dop853_sum_flops() + scale + 4, div=2)
+        return _add(_times(rhs_evaluations(method), rhs),
+                    _times(n_components, per),
+                    _ops(flop=7 + 4, div=1, sqrt=1, pow=1))
+    per = DP45_SUM_FLOPS + scale + 12 + 2
     return _add(_times(6, rhs), _times(n_components, _ops(flop=per, div=1)),
                 _ops(flop=7, div=1, sqrt=1, pow=1))
 
@@ -225,22 +273,26 @@ class Work:
 
 
 def extras_work(kind, width=0, absorbing=False, profile="torus",
-                field="toroidal", dtype="float32"):
-    """One attempt of the extras kernel for a transfer form. The
-    flops-only count takes the jet as the thin form, as it always did."""
+                field="toroidal", dtype="float32", method="dp45"):
+    """One attempt of the extras kernel for a transfer form and embedded
+    pair. The flops-only count takes the jet as the thin form, as it
+    always did."""
     n = components(kind, width, absorbing)
-    flops = attempt_flops(n, form_flops(kind, width, absorbing))
+    flops = attempt_flops(n, form_flops(kind, width, absorbing), method)
     return Work(flops, attempt_ops(
-        n, rhs_ops(kind, width, absorbing, profile, field), dtype), dtype)
+        n, rhs_ops(kind, width, absorbing, profile, field), dtype, method),
+        dtype)
 
 
-def kerr_work(dtype="float32", family="kerr"):
-    """One attempt of the Kerr shadow or disk kernel (kerr_dp45.cu) for a
-    metric family of GEODESIC_FAMILIES. The flops-only count adds the
-    family's flops and divisions beyond Kerr's to RHS5_FLOPS."""
+def kerr_work(dtype="float32", family="kerr", method="dp45"):
+    """One attempt of the Kerr shadow or disk kernel (kerr_dp45.cu, and
+    its DOP853 instances) for a metric family of GEODESIC_FAMILIES and an
+    embedded pair. The flops-only count adds the family's flops and
+    divisions beyond Kerr's to RHS5_FLOPS."""
     geo = GEODESIC_FAMILIES[family]
     extra = (geo["flop"] + geo["div"]) - (GEODESIC["flop"] + GEODESIC["div"])
-    return Work(attempt_flops(5, extra), attempt_ops(5, geo, dtype), dtype)
+    return Work(attempt_flops(5, extra, method),
+                attempt_ops(5, geo, dtype, method), dtype)
 
 
 def orbit_work(charged=False, dtype="float32"):

@@ -1,5 +1,5 @@
-"""Wrapper of the hand-written CUDA Kerr DP45 kernel (csrc/kerr_dp45.cu),
-and the two-pass straggler drivers over it.
+"""Wrapper of the hand-written CUDA Kerr kernel (csrc/kerr_dp45.cu), and
+the two-pass straggler drivers over it.
 
 The counterpart of `light_path_tracer_tpu.ops.pallas.kerr_trace_kernel`.
 A call is one kernel launch: each ray's initial conditions, plunge
@@ -13,12 +13,19 @@ too. The kernel runs one thread a ray in index order. It computes three
 metric families, Kerr, Kerr-Newman and Johannsen-Psaltis (the shadow
 variant; the disk variant takes the first two), each named to the kernel
 by the metric's exact class: any other class raises, a subclass included.
+It runs either embedded pair of the JAX kernel's `method`: "dp45" launches
+the DP45 instances, "dop853" the DOP853 ones (csrc/kerr_dop853.cu, in the
+library `_build.load_library("dop853")` builds at their first launch), and
+any other method raises on a CUDA tensor. The shadow variant also takes
+`event_interp` ("hermite" or "linear"); the disk variant is Hermite only,
+as the JAX package's Pallas disk wrapper is.
 
 `trace_rays_kerr_cuda` and `trace_disk_rays_cuda` launch the kernel on
 CUDA float32 or float64 tensors (the float64 instances, entries `*_f64`,
 with the float64 tolerance presets) and raise on any other CUDA input;
-they never fall back. Each wrapper counts its launches per dtype
-(`.launches` float32, `.launches_f64` float64). Given CPU tensors they run
+they never fall back. Each wrapper counts its launches per pair and dtype
+(`.launches` DP45 float32, `.launches_f64` DP45 float64,
+`.launches_dop853` and `.launches_dop853_f64`). Given CPU tensors they run
 the kernel's plain version, the PyTorch loop (`trace_rays_kerr_plain`,
 `trace_disk_rays_plain`, ops/kerr_trace.py), because there is no kernel to
 run there; the tests and the chip smoke test compare the two.
@@ -59,7 +66,8 @@ import torch
 from light_path_tracer_tpu_torch.models import (JohannsenPsaltis, Kerr,
                                                 KerrNewman)
 from light_path_tracer_tpu_torch.ops.cuda._build import check, load_library
-from light_path_tracer_tpu_torch.ops.kerr_trace import _h_init_for, get_tols
+from light_path_tracer_tpu_torch.ops.kerr_trace import (
+    _h_init_for, check_method, get_tols)
 from light_path_tracer_tpu_torch.ops.kerr_trace import (
     trace_disk_rays_kerr as trace_disk_rays_plain)
 from light_path_tracer_tpu_torch.ops.kerr_trace import (
@@ -106,12 +114,39 @@ def entry_suffix(dtype) -> str:
                      f"{dtype}")
 
 
-def count_launch(fn, dtype):
-    """One launch of a kernel wrapper, on its counter for the dtype."""
-    if dtype == torch.float64:
-        fn.launches_f64 += 1
-    else:
-        fn.launches += 1
+def method_suffix(method) -> str:
+    """The C entry points' infix for an embedded pair: '' for "dp45",
+    '_dop853' for "dop853" (the entry is name + infix + entry_suffix);
+    ValueError for any other method, NotImplementedError for "rk4"."""
+    check_method(method)
+    return "_dop853" if method == "dop853" else ""
+
+
+def library_of(method) -> str:
+    """The kernel library (ops/cuda/_build.py) that holds `method`'s
+    instances."""
+    return "dop853" if method_suffix(method) else "dp45"
+
+
+def counter_name(dtype, method="dp45") -> str:
+    """A wrapper's launch counter for the pair and dtype: "launches",
+    "launches_f64", "launches_dop853" or "launches_dop853_f64"."""
+    return "launches" + method_suffix(method) + (
+        "_f64" if dtype == torch.float64 else "")
+
+
+def count_launch(fn, dtype, method="dp45"):
+    """One launch of a kernel wrapper, on its counter for the pair and
+    dtype."""
+    name = counter_name(dtype, method)
+    setattr(fn, name, getattr(fn, name) + 1)
+
+
+def zero_counters(fn):
+    """Set every launch counter of a kernel wrapper to 0."""
+    for dtype in (torch.float32, torch.float64):
+        for method in ("dp45", "dop853"):
+            setattr(fn, counter_name(dtype, method), 0)
 
 
 def _check_inputs(tensors, alphas):
@@ -165,7 +200,7 @@ def _kerr_call_fields(real):
         "stream")]
         + [(name, ctypes.c_int) for name in (
             "n", "max_steps", "cycle_exit", "max_hits", "momentum",
-            "opaque", "family")]
+            "opaque", "family", "event_interp")]
         + [(name, real) for name in (
             "M", "a", "r_plus", "r_obs", "theta_obs", "lambda_max", "atol",
             "rtol", "atol_ref", "rtol_ref", "h_min", "tiny_err", "h_init",
@@ -208,10 +243,12 @@ def family_scalars(metric) -> dict:
 
 
 def _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
-            max_steps, precision, refine, disk, flags, probe, cycle_exit):
+            max_steps, precision, refine, disk, flags, probe, cycle_exit,
+            method="dp45", event_interp="hermite"):
     """One launch of the kernel through its C entry point (the instance of
-    the rays' dtype): the shadow variant, or the disk variant when `disk`
-    holds (r_in, r_out, theta_plane, opaque, max_hits, momentum). Returns
+    the pair and the rays' dtype): the shadow variant, or the disk variant
+    when `disk` holds (r_in, r_out, theta_plane, opaque, max_hits,
+    momentum). Returns
     the per-ray outputs by name, "n_steps" the warp step sum (0-dim
     int64); "flags", the rays whose raw status is still RUNNING (bool),
     only when asked for."""
@@ -242,7 +279,8 @@ def _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
         for k in ("r", "phi") + (("pr", "pth") if momentum else ()):
             out[k] = empty(max_hits, n)
     tols = get_tols(dtype, precision)
-    lib = load_library()
+    entry = "lpt_kerr_dp45" + method_suffix(method) + suffix
+    lib = load_library(library_of(method))
     with torch.cuda.device(dev):
         call = (KerrCall64 if suffix else KerrCall)(
             alpha=alphas.data_ptr(), theta=thetas.data_ptr(),
@@ -262,6 +300,7 @@ def _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
             n=n, max_steps=int(max_steps), cycle_exit=int(bool(cycle_exit)),
             max_hits=int(max_hits), momentum=int(bool(momentum)),
             opaque=int(bool(opaque)),
+            event_interp=int(event_interp == "linear"),
             M=float(metric.M), a=float(metric.a),
             r_plus=float(metric.r_plus), r_obs=float(r_obs),
             theta_obs=float(theta_obs), lambda_max=float(lambda_max),
@@ -273,9 +312,8 @@ def _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
             r_reclass=float(metric.capture_radius() * 1.1),
             r_in=float(r_in), r_out_disk=float(r_out), plane_c=plane_c,
             **family_scalars(metric))
-        rc = getattr(lib, "lpt_kerr_dp45" + suffix)(
-            ctypes.byref(call), int(disk is not None))
-    check(lib, rc, f"kerr_dp45{suffix} launch")
+        rc = getattr(lib, entry)(ctypes.byref(call), int(disk is not None))
+    check(lib, rc, f"{entry} launch")
     out["n_steps"] = warp_steps
     return out
 
@@ -286,12 +324,14 @@ def trace_rays_kerr_cuda(metric, r_obs, alphas, thetas, theta_obs,
                          formulation: str = "theta",
                          return_unconverged: bool = False,
                          probe: dict | None = None,
-                         _cycle_exit: bool = True):
+                         _cycle_exit: bool = True, method: str = "dp45",
+                         event_interp: str = "hermite"):
     """Trace N rays of a Kerr, Kerr-Newman or Johannsen-Psaltis metric
     with the CUDA kernel; returns TraceResult.
 
     Same arguments and result as trace_rays_kerr_plain (with
-    return_unconverged, (TraceResult, raw-RUNNING mask)). alphas/thetas:
+    return_unconverged, (TraceResult, raw-RUNNING mask)). method: "dp45"
+    or "dop853"; event_interp: "hermite" or "linear". alphas/thetas:
     (N,) contiguous CUDA tensors, both float32 or both float64 (the
     instance and the tolerance preset follow); axis_refine: (N,) bool on
     the same device. probe: a dict that receives the per-ray raw final
@@ -303,13 +343,16 @@ def trace_rays_kerr_cuda(metric, r_obs, alphas, thetas, theta_obs,
         return trace_rays_kerr_plain(
             metric, r_obs, alphas, thetas, theta_obs, axis_refine,
             lambda_max, max_steps, precision=precision,
-            formulation=formulation, return_unconverged=return_unconverged)
+            formulation=formulation, return_unconverged=return_unconverged,
+            method=method, event_interp=event_interp)
+    check_method(method, event_interp)
     _check_inputs((("alphas", alphas, None), ("thetas", thetas, None),
                    ("axis_refine", axis_refine, torch.bool)), alphas)
     out = _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
                   max_steps, precision, axis_refine, None,
-                  return_unconverged, probe, _cycle_exit)
-    count_launch(trace_rays_kerr_cuda, alphas.dtype)
+                  return_unconverged, probe, _cycle_exit, method,
+                  event_interp)
+    count_launch(trace_rays_kerr_cuda, alphas.dtype, method)
     result = TraceResult(out["final_alpha"], out["n_half"], out["status"],
                          out["n_steps"])
     if return_unconverged:
@@ -317,10 +360,9 @@ def trace_rays_kerr_cuda(metric, r_obs, alphas, thetas, theta_obs,
     return result
 
 
-# Kernel launches per dtype, so a run can show that it went through the
-# kernel.
-trace_rays_kerr_cuda.launches = 0
-trace_rays_kerr_cuda.launches_f64 = 0
+# Kernel launches per pair and dtype, so a run can show that it went
+# through the kernel.
+zero_counters(trace_rays_kerr_cuda)
 
 
 def trace_disk_rays_cuda(metric, r_obs, alphas, thetas, theta_obs,
@@ -330,12 +372,13 @@ def trace_disk_rays_cuda(metric, r_obs, alphas, thetas, theta_obs,
                          return_unconverged: bool = False,
                          record_momentum: bool = False,
                          probe: dict | None = None,
-                         _cycle_exit: bool = True):
+                         _cycle_exit: bool = True, method: str = "dp45"):
     """Trace N rays of a Kerr or Kerr-Newman metric with the kernel's
     disk variant; returns DiskTraceResult (with return_unconverged,
     (DiskTraceResult, raw-RUNNING mask)).
 
-    Same arguments and result as trace_disk_rays_plain. disk_plane =
+    Same arguments and result as trace_disk_rays_plain, whose events are
+    then Hermite too; method "dp45" or "dop853". disk_plane =
     (r_in, r_out, theta_plane, opaque); max_disk_hits 1..4. alphas/
     thetas: (N,) contiguous CUDA tensors, both float32 or both float64.
     probe: as trace_rays_kerr_cuda's. One kernel launch on the current
@@ -348,7 +391,8 @@ def trace_disk_rays_cuda(metric, r_obs, alphas, thetas, theta_obs,
             metric, r_obs, alphas, thetas, theta_obs, lambda_max,
             max_steps, disk_plane, max_disk_hits, precision=precision,
             return_unconverged=return_unconverged,
-            record_momentum=record_momentum)
+            record_momentum=record_momentum, method=method)
+    check_method(method)
     _check_inputs((("alphas", alphas, None), ("thetas", thetas, None)),
                   alphas)
     if not 1 <= max_disk_hits <= MAX_KERNEL_HITS:
@@ -359,8 +403,8 @@ def trace_disk_rays_cuda(metric, r_obs, alphas, thetas, theta_obs,
                   max_steps, precision, None,
                   (r_in, r_out, theta_plane, opaque, max_disk_hits,
                    record_momentum),
-                  return_unconverged, probe, _cycle_exit)
-    count_launch(trace_disk_rays_cuda, alphas.dtype)
+                  return_unconverged, probe, _cycle_exit, method)
+    count_launch(trace_disk_rays_cuda, alphas.dtype, method)
 
     def rows(k):
         return tuple(out[k].unbind(0)) if k in out else ()
@@ -373,8 +417,7 @@ def trace_disk_rays_cuda(metric, r_obs, alphas, thetas, theta_obs,
     return result
 
 
-trace_disk_rays_cuda.launches = 0
-trace_disk_rays_cuda.launches_f64 = 0
+zero_counters(trace_disk_rays_cuda)
 
 
 # Re-trace slots of the Kerr and disk two-pass drivers (the JAX package's
@@ -431,7 +474,9 @@ def trace_rays_kerr_two_pass(metric, r_obs, alphas, thetas, theta_obs,
                              max_steps: int = 200000,
                              pass1_steps: int = 512, slots: int = SLOTS,
                              precision: str = "fast",
-                             formulation: str = "theta", trace_fn=None):
+                             formulation: str = "theta", trace_fn=None,
+                             method: str = "dp45",
+                             event_interp: str = "hermite"):
     """Straggler-robust tracing: a pass capped at `pass1_steps` attempts
     per ray, then a full-depth re-trace of the first `slots` rays still
     running. Returns TraceResult; see the module docstring. trace_fn:
@@ -442,7 +487,8 @@ def trace_rays_kerr_two_pass(metric, r_obs, alphas, thetas, theta_obs,
     return _two_pass(lambda pick, steps, **kw: trace_fn(
         metric, r_obs, pick(alphas), pick(thetas), theta_obs,
         pick(axis_refine), lambda_max, steps, precision=precision,
-        formulation=formulation, **kw), pass1_steps, max_steps, slots)
+        formulation=formulation, method=method, event_interp=event_interp,
+        **kw), pass1_steps, max_steps, slots)
 
 
 # Driver calls, so a run can show which path it took.
@@ -454,7 +500,8 @@ def trace_disk_rays_two_pass(metric, r_obs, alphas, thetas, theta_obs,
                              max_disk_hits: int = 2, pass1_steps: int = 512,
                              slots: int = SLOTS, precision: str = "fast",
                              formulation: str = "theta",
-                             record_momentum: bool = False, trace_fn=None):
+                             record_momentum: bool = False, trace_fn=None,
+                             method: str = "dp45"):
     """trace_rays_kerr_two_pass's recipe over the disk variant: the
     re-traced rays bring back their whole record (status, hits, heading).
     Returns DiskTraceResult. trace_fn: the single-pass tracer,
@@ -464,8 +511,8 @@ def trace_disk_rays_two_pass(metric, r_obs, alphas, thetas, theta_obs,
     return _two_pass(lambda pick, steps, **kw: trace_fn(
         metric, r_obs, pick(alphas), pick(thetas), theta_obs, lambda_max,
         steps, disk_plane, max_disk_hits, precision=precision,
-        formulation=formulation, record_momentum=record_momentum, **kw),
-        pass1_steps, max_steps, slots)
+        formulation=formulation, record_momentum=record_momentum,
+        method=method, **kw), pass1_steps, max_steps, slots)
 
 
 trace_disk_rays_two_pass.launches = 0

@@ -19,8 +19,11 @@ every constant. `KernelTransfer.constants` forms the constants in double,
 as the JAX package's closures form them; `riaf_params` packs them for the
 float32 instances, each rounded once (`RiafParams`), or unrounded for the
 float64 ones (`RiafParams64`). A CUDA float32 or float64 tensor launches
-the kernel instance of its dtype (the launch counters count per dtype:
-`.launches`, `.launches_f64`), and any other CUDA input raises (another
+the kernel instance of its dtype and of the call's `method`, "dp45" or
+"dop853" (the DOP853 instances of csrc/kerr_dop853_*.cu, in the library
+built at their first launch); the launch counters count per pair and
+dtype (`.launches`, `.launches_f64`, `.launches_dop853`,
+`.launches_dop853_f64`), and any other CUDA input raises (another
 dtype, a transfer function without a description, more than 8 bands or
 frames, more than 4 orders, aux inputs the transfer function does not
 take); CPU tensors run the plain loop (`ops/kerr_trace.py`). As in
@@ -44,7 +47,9 @@ import torch
 from light_path_tracer_tpu_torch.ops import kerr_trace as tk
 from light_path_tracer_tpu_torch.ops.cuda._build import check, load_library
 from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
-    EXTRAS_FAMILIES, _check_call, _check_inputs, count_launch, entry_suffix)
+    EXTRAS_FAMILIES, _check_call, _check_inputs, count_launch, entry_suffix,
+    library_of, method_suffix, zero_counters)
+from light_path_tracer_tpu_torch.ops.kerr_trace import check_method
 from light_path_tracer_tpu_torch.ops.kerr_trace import (
     _h_init_for, get_tols, saturation_r_max, spectral_result,
     volumetric_result)
@@ -149,11 +154,15 @@ def riaf_params(spec, dtype=torch.float32):
     return p
 
 
-def extras_instances():
-    """Every compiled instance of the extras kernel, in float32 then
-    float64: (label, C entry point, form, variant, dtype), the label as
-    ptxas's report names the kernel (chip_smoke.kernel_label), e.g.
-    "kerr_dp45_extras<Movie<8,absorbing=1,float>>"."""
+def extras_instances(method="dp45"):
+    """Every compiled instance of the extras kernel for an embedded pair,
+    in float32 then float64: (label, C entry point, form, variant, dtype),
+    the label as ptxas's report names the kernel (chip_smoke.kernel_label),
+    e.g. "kerr_dp45_extras<Movie<8,absorbing=1,float>>" or
+    "kerr_dop853_extras<...>", and the entry without the pair's and the
+    dtype's suffixes."""
+    kernel = "kerr_dop853_extras" if method_suffix(method) else (
+        "kerr_dp45_extras")
     rows = [("VolThin<{}>", "lpt_kerr_dp45_extras", 0, 0),
             ("VolAbsorbed<{}>", "lpt_kerr_dp45_extras", 1, 0)]
     rows += [(f"Spectral<{b},{{}}>", "lpt_kerr_dp45_extras", 2, b)
@@ -166,25 +175,25 @@ def extras_instances():
                  for f in range(1, MAX_FRAMES + 1)]
     rows += [(f"Order<{o},absorbing={ab},{{}}>", "lpt_kerr_dp45_orders", ab,
               o) for ab in (0, 1) for o in range(2, MAX_ORDERS + 1)]
-    return [(f"kerr_dp45_extras<{label.format(real)}>", entry, form, variant,
-             dtype)
+    return [(f"{kernel}<{label.format(real)}>", entry, form, variant, dtype)
             for dtype, real in ((torch.float32, "float"),
                                 (torch.float64, "double"))
             for label, entry, form, variant in rows]
 
 
-def describe_instance(entry, form, variant, dtype=torch.float32):
+def describe_instance(entry, form, variant, dtype=torch.float32,
+                      method="dp45"):
     """The resources of one extras instance on the current CUDA device, as
     the runtime reports them: blocks_per_sm (resident 128-thread blocks an
     SM), registers (a thread), local_bytes (a thread: spills and stack
     frame) and min_blocks (its __launch_bounds__ block bound). Builds the
-    library on first use."""
+    pair's library on first use."""
     if not torch.cuda.is_available():
         raise RuntimeError("describe_instance queries the CUDA runtime; it "
                            "needs a CUDA device")
-    lib = load_library()
+    lib = load_library(library_of(method))
     out = (ctypes.c_int * 4)()
-    suffix = entry_suffix(dtype)
+    suffix = method_suffix(method) + entry_suffix(dtype)
     rc = getattr(lib, f"{entry}_describe{suffix}")(int(form), int(variant),
                                                     out)
     check(lib, rc, f"{entry}_describe{suffix}")
@@ -213,9 +222,11 @@ def _kernel_transfer(fn, kinds, metric):
 
 def _launch(entry, metric, r_obs, alphas, thetas, theta_obs, lambda_max,
             max_steps, precision, form, variant, n_extras, spec,
-            sat_window, sat_monitor, probe, cycle_exit, aux=()):
+            sat_window, sat_monitor, probe, cycle_exit, aux=(),
+            method="dp45"):
     """One kernel launch through the C entry point `entry` (the instance
-    of the rays' dtype); returns (ExtrasResult, unconverged mask)."""
+    of the pair and the rays' dtype); returns (ExtrasResult, unconverged
+    mask)."""
     _check_inputs((("alphas", alphas, None), ("thetas", thetas, None))
                   + tuple((f"aux[{i}]", a, None)
                           for i, a in enumerate(aux)), alphas)
@@ -229,6 +240,7 @@ def _launch(entry, metric, r_obs, alphas, thetas, theta_obs, lambda_max,
     n = alphas.numel()
     dtype, dev = alphas.dtype, alphas.device
     suffix = entry_suffix(dtype)
+    entry = entry + method_suffix(method)
     extras = torch.empty((n_extras, n), dtype=dtype, device=dev)
     final_alpha = torch.empty(n, dtype=dtype, device=dev)
     n_half = torch.empty(n, dtype=torch.int32, device=dev)
@@ -240,7 +252,7 @@ def _launch(entry, metric, r_obs, alphas, thetas, theta_obs, lambda_max,
                      if probe is not None else (None, None))
     tols = get_tols(dtype, precision)
     params = riaf_params(spec, dtype)
-    lib = load_library()
+    lib = load_library(library_of(method))
     with torch.cuda.device(dev):
         call = (ExtrasCall64 if suffix else ExtrasCall)(
             alpha=alphas.data_ptr(), theta=thetas.data_ptr(),
@@ -277,13 +289,12 @@ def _launch(entry, metric, r_obs, alphas, thetas, theta_obs, lambda_max,
 
 
 def _route(alphas, metric, method, max_steps):
-    """True: launch the kernel (CUDA tensor); False: the plain loop."""
+    """True: launch the kernel (CUDA tensor); False: the plain loop. A
+    CUDA tensor with a method the kernel has no instances of raises."""
     if not _check_call(alphas, metric, "theta", max_steps,
                        EXTRAS_FAMILIES):
         return False
-    if method != "dp45":
-        raise NotImplementedError(
-            f"method={method!r}: the CUDA extras kernel integrates dp45")
+    check_method(method)
     return True
 
 
@@ -325,16 +336,16 @@ def trace_rays_volumetric_cuda(metric, r_obs, alphas, thetas, theta_obs,
     res, unconv = _launch(
         "lpt_kerr_dp45_extras", metric, r_obs, alphas, thetas, theta_obs,
         lambda_max, max_steps, precision, int(absorbing), 0,
-        2 if absorbing else 1, spec, sat_window, (0,), probe, _cycle_exit)
-    count_launch(trace_rays_volumetric_cuda, alphas.dtype)
+        2 if absorbing else 1, spec, sat_window, (0,), probe, _cycle_exit,
+        method=method)
+    count_launch(trace_rays_volumetric_cuda, alphas.dtype, method)
     result = volumetric_result(res, absorbing)
     return (result, unconv) if return_unconverged else result
 
 
-# Kernel launches per dtype, so a run can show that it went through the
-# kernel.
-trace_rays_volumetric_cuda.launches = 0
-trace_rays_volumetric_cuda.launches_f64 = 0
+# Kernel launches per pair and dtype, so a run can show that it went
+# through the kernel.
+zero_counters(trace_rays_volumetric_cuda)
 
 
 def _family(spec, n_extras, n_aux):
@@ -406,13 +417,12 @@ def trace_rays_aux_cuda(metric, r_obs, alphas, thetas, theta_obs,
     res, unconv = _launch(
         entry, metric, r_obs, alphas, thetas, theta_obs, lambda_max,
         max_steps, precision, form, variant, n_extras, spec, sat_window,
-        sat_monitor, probe, _cycle_exit, aux)
-    count_launch(trace_rays_aux_cuda, alphas.dtype)
+        sat_monitor, probe, _cycle_exit, aux, method)
+    count_launch(trace_rays_aux_cuda, alphas.dtype, method)
     return (res, unconv) if return_unconverged else res
 
 
-trace_rays_aux_cuda.launches = 0
-trace_rays_aux_cuda.launches_f64 = 0
+zero_counters(trace_rays_aux_cuda)
 
 
 def trace_rays_spectral_cuda(metric, r_obs, alphas, thetas, theta_obs,

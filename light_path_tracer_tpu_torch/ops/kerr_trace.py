@@ -1,20 +1,27 @@
-"""Batched adaptive Dormand-Prince 4(5) Kerr tracer, plain PyTorch.
+"""Batched adaptive Dormand-Prince Kerr tracer, plain PyTorch.
 
 The plain version of the CUDA kernel (ops/cuda/kerr_trace_kernel.py) and
 the counterpart of `light_path_tracer_tpu.ops.kerr_trace` for the shadow
 main path. One masked loop advances the whole batch: each iteration makes
-one DP45 attempt per running lane (six new RHS evaluations plus the FSAL
-stage), then a per-lane masked accept/reject:
+one attempt per running lane, then a per-lane masked accept/reject. The
+embedded pair is `method`'s: "dp45", Dormand-Prince 4(5) (six new RHS
+evaluations plus the FSAL stage), or "dop853", Hairer's DOP853 8(5,3)
+(eleven new stages plus the FSAL end stage):
 
-  * error norm: mixed abs/rel RMS over the 5 state components, with
-    per-lane tolerances (the axis-refine band); in float32 the scale is
-    increment-aware, |y| + h max(|k1|, |k7|);
-  * reject: h *= max(0.2, 0.9 err^-0.2); non-finite proposal: h *= 0.25;
-    h below h_min -> INVALID;
+  * error norm: mixed abs/rel over every state component, with per-lane
+    tolerances (the axis-refine band); in float32 the scale is
+    increment-aware, |y| + h max|k| (DP45: over k1 and k7; DOP853: over
+    all 13 stages). DP45 takes the RMS of the 4th-order estimate, DOP853
+    Hairer's combined h |e5|^2 / sqrt(n (|e5|^2 + 0.01 |e3|^2)), a
+    non-finite value of which is a hard reject;
+  * reject: h *= max(0.2, 0.9 err^-1/(q+1)) (q = 4 for DP45, 7 for
+    DOP853); non-finite proposal: h *= 0.25; h below h_min -> INVALID;
   * accept: capture (r <= 1.01 r_+), escape (r >= 2 r_obs) and the
     certain-plunge exit are located on the step's cubic Hermite
-    interpolant; FSAL reuses stage 7 as the next stage 1 (not after an
-    event step); growth h *= 5 (tiny error) or min(5, 0.9 err^-0.2).
+    interpolant (event_interp="hermite") or at the linear crossing
+    fraction ("linear"); FSAL reuses the end stage as the next stage 1
+    (not after an event step); growth h *= 5 (tiny error) or
+    min(5, 0.9 err^-1/(q+1)).
 
 The state is a (5, N) tensor, (5 + n_extras, N) with error-controlled
 path-integral components (the volumetric and spectral transfer), so the
@@ -76,6 +83,10 @@ TOLS_GATE = {
 _SYNC_EVERY = 8
 
 WARP = 32
+
+# The embedded pairs and event interpolants the loop runs.
+METHODS = ("dp45", "dop853")
+EVENT_INTERPS = ("hermite", "linear")
 
 
 def get_tols(dtype, precision: str = "fast"):
@@ -180,19 +191,35 @@ def _not_ported(what):
         f"(ROADMAP.md, Queue 1)")
 
 
+def check_method(method, event_interp="hermite"):
+    """ValueError for an embedded pair or event interpolant that no
+    adaptive loop of the JAX package runs; NotImplementedError for the
+    fixed-step RK4, which runs outside it there and is not ported."""
+    if method == "rk4":
+        raise _not_ported("integrator='rk4'")
+    if method not in METHODS:
+        raise ValueError(f"unknown integrator {method!r}; the adaptive loop "
+                         f"runs {' or '.join(METHODS)}")
+    if event_interp not in EVENT_INTERPS:
+        raise ValueError(f"unknown event_interp {event_interp!r}; expected "
+                         f"{' or '.join(EVENT_INTERPS)}")
+
+
 def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
                    tiny_err, r_capture, r_escape, lambda_max, h_init,
                    max_steps, r_plunge=None, formulation="theta",
-                   method="dp45", disk_plane=None, max_disk_hits=2,
-                   record_momentum=False, disk_normal=None,
+                   method="dp45", event_interp="hermite", disk_plane=None,
+                   max_disk_hits=2, record_momentum=False, disk_normal=None,
                    extra_disks=None, extra_rhs=None, record_time=False,
                    sat_window=0, sat_monitor=(), sat_r_max=None):
-    """The masked whole-batch adaptive DP45 loop.
+    """The masked whole-batch adaptive loop (DP45 or DOP853).
 
     y0: (5, N) state, or (5 + n_extras, N) with extra_rhs; p_t, p_phi,
     atol, rtol, r_plunge: (N,); r_capture, r_escape, h_min: 0-dim
     tensors. Returns (y_final, status, lambda, attempts) with `attempts`
-    the per-ray int32 attempt count.
+    the per-ray int32 attempt count. method: "dp45" or "dop853" (module
+    docstring); event_interp: "hermite" or "linear", how capture, escape
+    and the plane crossing are located on an accepted step.
 
     extra_rhs(y, p_t, p_phi) -> tuple of n_extras (N,) derivatives of
     the extra components (y is the whole state): path integrals such as
@@ -215,19 +242,18 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
     cos(theta) - cos(theta_plane) over [y, y_acc] (or landing on the
     plane) is located at the linear root of that difference on the
     step's Hermite interpolant (linear interpolation on lanes whose step
-    an event shortened); a crossing with r_in <= r <= r_out fills slot n
+    an event shortened, and on every lane with event_interp="linear"); a
+    crossing with r_in <= r <= r_out fills slot n
     and increments n up to max_disk_hits, with the physical azimuth
     (phi + pi where sin(theta) < 0). An opaque plane parks a ray that is
     still running at its first such crossing, as ESCAPED.
 
-    The mu chart, DOP853, tilted or warped planes (disk_normal), further
-    planes (extra_disks) and the time recorder are later slices of the
-    port.
+    The mu chart, tilted or warped planes (disk_normal), further planes
+    (extra_disks) and the time recorder are later slices of the port.
     """
     if formulation != "theta":
         raise _not_ported(f"formulation={formulation!r}")
-    if method != "dp45":
-        raise _not_ported(f"method={method!r}")
+    check_method(method, event_interp)
     if disk_normal is not None:
         raise _not_ported("tilted or warped disk planes (disk_normal)")
     if extra_disks:
@@ -285,17 +311,28 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
         h_eff = torch.clamp(torch.minimum(h, lam_max - lam), min=0.0)
 
         # -- RK stages (k1 via FSAL) --
-        k2 = rhs(_axpy(y, _wsum(h_eff, [k1], [tb.A21])))
-        k3 = rhs(_axpy(y, _wsum(h_eff, [k1, k2], [tb.A31, tb.A32])))
-        k4 = rhs(_axpy(y, _wsum(h_eff, [k1, k2, k3],
-                                [tb.A41, tb.A42, tb.A43])))
-        k5 = rhs(_axpy(y, _wsum(h_eff, [k1, k2, k3, k4],
-                                [tb.A51, tb.A52, tb.A53, tb.A54])))
-        k6 = rhs(_axpy(y, _wsum(h_eff, [k1, k2, k3, k4, k5],
-                                [tb.A61, tb.A62, tb.A63, tb.A64, tb.A65])))
-        y5 = _axpy(y, _wsum(h_eff, [k1, k3, k4, k5, k6],
-                            [tb.B1, tb.B3, tb.B4, tb.B5, tb.B6]))
-        k7 = rhs(y5)
+        if method == "dop853":
+            ks = [k1]
+            for row in tb.D853_A[1:]:
+                ks.append(rhs(_axpy(y, _wsum(h_eff, [ks[j] for j, _ in row],
+                                             [v for _, v in row]))))
+            y5 = _axpy(y, _wsum(h_eff, [ks[j] for j, _ in tb.D853_B],
+                                [v for _, v in tb.D853_B]))
+            k7 = rhs(y5)          # the FSAL end stage
+            ks.append(k7)
+        else:
+            k2 = rhs(_axpy(y, _wsum(h_eff, [k1], [tb.A21])))
+            k3 = rhs(_axpy(y, _wsum(h_eff, [k1, k2], [tb.A31, tb.A32])))
+            k4 = rhs(_axpy(y, _wsum(h_eff, [k1, k2, k3],
+                                    [tb.A41, tb.A42, tb.A43])))
+            k5 = rhs(_axpy(y, _wsum(h_eff, [k1, k2, k3, k4],
+                                    [tb.A51, tb.A52, tb.A53, tb.A54])))
+            k6 = rhs(_axpy(y, _wsum(h_eff, [k1, k2, k3, k4, k5],
+                                    [tb.A61, tb.A62, tb.A63, tb.A64,
+                                     tb.A65])))
+            y5 = _axpy(y, _wsum(h_eff, [k1, k3, k4, k5, k6],
+                                [tb.B1, tb.B3, tb.B4, tb.B5, tb.B6]))
+            k7 = rhs(y5)
 
         finite_ok = _all_finite(y5) & (y5[0] > 0.0)
 
@@ -303,21 +340,53 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
         mag = torch.maximum(torch.abs(y), torch.abs(y5))
         if dtype == torch.float32:
             # Increment-aware scale: in float32 the estimator's own
-            # roundoff is ~eps h max|k|, which exceeds atol + rtol|y|
-            # where the derivatives spike (the 1/sin^2-stiff polar axis),
-            # and the controller would reject forever. float64 keeps the
-            # |y|-only scale.
-            mag = mag + h_eff * torch.maximum(torch.abs(k1), torch.abs(k7))
+            # roundoff is ~eps h max|k|, which exceeds atol + rtol|y| where
+            # the derivatives spike (the 1/sin^2-stiff polar axis), and the
+            # controller would reject forever. DOP853's larger steps can
+            # hold the whole spike inside the step, so it takes the maximum
+            # over every stage. float64 keeps the |y|-only scale.
+            if method == "dop853":
+                kmag = torch.abs(k1)
+                for kj in ks[1:]:
+                    kmag = torch.maximum(kmag, torch.abs(kj))
+            else:
+                kmag = torch.maximum(torch.abs(k1), torch.abs(k7))
+            mag = mag + h_eff * kmag
         scales = atol + rtol * mag
 
         # -- embedded error norm over every component --
-        err = _wsum(h_eff, [k1, k3, k4, k5, k6, k7],
-                    [tb.E1, tb.E3, tb.E4, tb.E5, tb.E6, tb.E7])
-        ratio = torch.where(finite_ok, err / scales, torch.zeros_like(err))
-        err_sq = torch.zeros_like(h_eff)
-        for i in range(n_comp):
-            err_sq = err_sq + ratio[i] * ratio[i]
-        err_norm = torch.sqrt(err_sq / float(n_comp))
+        if method == "dop853":
+            # Hairer's combined 5th/3rd-order estimator (dop853.f).
+            one = torch.ones_like(h_eff)
+            e5 = _wsum(one, [ks[j] for j, _ in tb.D853_E5],
+                       [v for _, v in tb.D853_E5])
+            e3 = _wsum(one, [ks[j] for j, _ in tb.D853_E3],
+                       [v for _, v in tb.D853_E3])
+            r5 = torch.where(finite_ok, e5 / scales, torch.zeros_like(e5))
+            r3 = torch.where(finite_ok, e3 / scales, torch.zeros_like(e3))
+            e5_sq = torch.zeros_like(h_eff)
+            e3_sq = torch.zeros_like(h_eff)
+            for i in range(n_comp):
+                e5_sq = e5_sq + r5[i] * r5[i]
+                e3_sq = e3_sq + r3[i] * r3[i]
+            denom = e5_sq + 0.01 * e3_sq
+            err_norm = (h_eff * e5_sq
+                        / torch.sqrt(torch.clamp(float(n_comp) * denom,
+                                                 min=1e-30)))
+            # A stage can overflow where y5 stays finite (the large A
+            # coefficients probe far from y): the attempt probed garbage,
+            # so a non-finite error is a hard reject (shrink 0.2).
+            err_norm = torch.where(torch.isfinite(err_norm), err_norm,
+                                   torch.full_like(err_norm, math.inf))
+        else:
+            err = _wsum(h_eff, [k1, k3, k4, k5, k6, k7],
+                        [tb.E1, tb.E3, tb.E4, tb.E5, tb.E6, tb.E7])
+            ratio = torch.where(finite_ok, err / scales,
+                                torch.zeros_like(err))
+            err_sq = torch.zeros_like(h_eff)
+            for i in range(n_comp):
+                err_sq = err_sq + ratio[i] * ratio[i]
+            err_norm = torch.sqrt(err_sq / float(n_comp))
 
         accept = running & finite_ok & (err_norm <= 1.0)
         reject = running & finite_ok & (err_norm > 1.0)
@@ -339,18 +408,24 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
         frac_lin = torch.where(
             denom == 0.0, one,
             torch.where(cap, frac_cap, torch.where(esc, frac_esc, one)))
-        target = torch.where(cap, r_capture, r_escape)
-        frac = torch.where(
-            event,
-            _hermite_crossing_frac(r_prev, r_next, k1[0], k7[0], h_eff,
-                                   target, frac_lin),
-            frac_lin)
-        y_event = _hermite_eval(y, y5, k1, k7, h_eff, frac)
+        if event_interp == "hermite":
+            target = torch.where(cap, r_capture, r_escape)
+            frac = torch.where(
+                event,
+                _hermite_crossing_frac(r_prev, r_next, k1[0], k7[0], h_eff,
+                                       target, frac_lin),
+                frac_lin)
+            y_event = _hermite_eval(y, y5, k1, k7, h_eff, frac)
+        else:
+            frac = frac_lin
+            y_event = _lerp(y, y5, frac)
         y_acc = _select(event, y_event, y5)
         lam_acc = lam + frac * h_eff
 
         # -- step-size control (one pow serves both shrink and grow) --
-        factor = 0.9 * torch.clamp(err_norm, min=1e-30) ** -0.2
+        # The exponent is -1/(q + 1) for the pair's error order q.
+        exponent = -0.125 if method == "dop853" else -0.2
+        factor = 0.9 * torch.clamp(err_norm, min=1e-30) ** exponent
         shrink = torch.clamp(factor, min=0.2)
         grow = torch.where(err_norm < tiny_err, 5.0 * one,
                            torch.clamp(factor, max=5.0))
@@ -369,9 +444,12 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
             frac_c = torch.clamp(-d_prev / den, 0.0, 1.0)
             # k7 is the derivative at y5, so an event-shortened step
             # interpolates linearly.
-            y_cross = _select(
-                event, _lerp(y, y_acc, frac_c),
-                _hermite_eval(y, y_acc, k1, k7, frac * h_eff, frac_c))
+            if event_interp == "hermite":
+                y_cross = _select(
+                    event, _lerp(y, y_acc, frac_c),
+                    _hermite_eval(y, y_acc, k1, k7, frac * h_eff, frac_c))
+            else:
+                y_cross = _lerp(y, y_acc, frac_c)
             r_c = y_cross[0]
             in_disk = crossed & (r_c >= r_in) & (r_c <= r_out)
             phi_c = torch.where(torch.sin(y_cross[1]) < 0.0,
@@ -390,7 +468,8 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
         # -- state/status update (masked) --
         y_prev = y
         y = _select(accept, y_acc, y)
-        # FSAL: stage 7 seeds the next step's stage 1 on plain accepts.
+        # FSAL: the end stage seeds the next step's stage 1 on plain
+        # accepts.
         k1 = _select(accept & ~event, k7, k1)
         lam = torch.where(accept, lam_acc, lam)
         corrupt = accept & ~_all_finite(y_acc)
@@ -432,12 +511,14 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
 def trace_rays_kerr(metric, r_obs, alphas, thetas, theta_obs, axis_refine,
                     lambda_max: float, max_steps: int = 200000,
                     precision: str = "fast", formulation: str = "theta",
-                    method: str = "dp45", return_unconverged: bool = False):
+                    method: str = "dp45", return_unconverged: bool = False,
+                    event_interp: str = "hermite"):
     """Trace a batch of Kerr rays adaptively; returns TraceResult.
 
     alphas/thetas: (N,) screen viewing angle / azimuth; theta_obs scalar;
     axis_refine: (N,) bool tolerance-tightening mask. Runs on the
     tensors' own device; call sites pass lambda_max = max(5000, 6 r_obs).
+    method: "dp45" or "dop853"; event_interp: "hermite" or "linear".
     return_unconverged=True returns (TraceResult, mask) with mask the
     rays whose raw status is still RUNNING after the loop: neither event
     fired within max_steps attempts and lambda was not spent, or it was.
@@ -467,7 +548,7 @@ def trace_rays_kerr(metric, r_obs, alphas, thetas, theta_obs, axis_refine,
         r_escape=scalar(float(r_obs) * 2.0),
         lambda_max=lambda_max, h_init=_h_init_for(r_obs),
         max_steps=max_steps, r_plunge=r_plunge,
-        formulation=formulation, method=method)
+        formulation=formulation, method=method, event_interp=event_interp)
 
     final_alpha, n_half, status_out = finalize_angles(
         metric, y_f, p_t, p_phi, status_f)
@@ -501,14 +582,16 @@ def trace_disk_rays_kerr(metric, r_obs, alphas, thetas, theta_obs,
                          max_disk_hits: int = 2, precision: str = "fast",
                          formulation: str = "theta",
                          return_unconverged: bool = False,
-                         record_momentum: bool = False):
+                         record_momentum: bool = False,
+                         method: str = "dp45"):
     """Trace rays recording disk-plane crossings; returns DiskTraceResult.
 
     The plain version of the CUDA disk kernel and the counterpart of the
     JAX package's disk-mode trace: base tolerances on every ray (no
-    axis-refine band), no certain-plunge exit, Hermite events.
-    disk_plane = (r_in, r_out, theta_plane, opaque). return_unconverged
-    as in trace_rays_kerr.
+    axis-refine band), no certain-plunge exit. disk_plane = (r_in, r_out,
+    theta_plane, opaque). method: "dp45" or "dop853"; events are
+    Hermite, as in the disk kernel and every JAX entry point.
+    return_unconverged as in trace_rays_kerr.
     """
     trace_disk_rays_kerr.launches += 1
     if formulation != "theta":
@@ -531,7 +614,8 @@ def trace_disk_rays_kerr(metric, r_obs, alphas, thetas, theta_obs,
         r_escape=scalar(float(r_obs) * 2.0),
         lambda_max=lambda_max, h_init=_h_init_for(r_obs),
         max_steps=max_steps, disk_plane=disk_plane,
-        max_disk_hits=max_disk_hits, record_momentum=record_momentum)
+        max_disk_hits=max_disk_hits, record_momentum=record_momentum,
+        method=method)
     result = disk_result(metric, p_t, p_phi, y_f, status_f, attempts, hits)
     if return_unconverged:
         return result, status_f == RUNNING

@@ -69,12 +69,14 @@ class RenderConfig:
     """Numerics + performance knobs."""
 
     dtype: str = "float32"             # "float32" | "float64"
-    # Kerr integrator: only "dp45" (Dormand-Prince 4(5)) is ported.
+    # Kerr integrator: "dp45" (Dormand-Prince 4(5)) or "dop853" (Hairer's
+    # 8(5,3)); the fixed-step "rk4" is not ported.
     integrator: str = "dp45"
     # Only "auto": the tensor's device picks the path (CUDA -> the
     # hand-written kernel, CPU -> the plain PyTorch loop).
     backend: str = "auto"
-    # Boundary-crossing interpolation; only "hermite" is ported.
+    # Boundary-crossing interpolation of the shadow and lensed traces:
+    # "hermite" (cubic, from the step's end derivatives) or "linear".
     event_interp: str = "hermite"
     # Polar-coordinate formulation; only "theta" is ported.
     formulation: str = "theta"

@@ -261,7 +261,7 @@ def contracted_ray(dev):
     saved = _build.NVCC_FLAGS, _build._sources, _build._declare
     csrc = _build.CSRC
 
-    def declare(lib):
+    def declare(lib, _library="dp45"):
         lib.lpt_kerr_dp45.argtypes = [_build._P, _build._I]
         lib.lpt_kerr_dp45.restype = _build._I
         lib.lpt_cuda_error_string.argtypes = [_build._I]
@@ -269,7 +269,7 @@ def contracted_ray(dev):
         return lib
     try:
         _build.NVCC_FLAGS = tuple(f for f in saved[0] if f != "-fmad=false")
-        _build._sources = lambda: [csrc / "kerr_dp45.cu"]
+        _build._sources = lambda _library="dp45": [csrc / "kerr_dp45.cu"]
         _build._declare = declare
         _build.load_library.cache_clear()
         row, _al, _th = ray_run(dev, "kernel built with contraction "

@@ -503,7 +503,7 @@ def main_section(dev, builds, X):
     return out
 
 
-def declare_kerr(lib):
+def declare_kerr(lib, _library="dp45"):
     """Declare the Kerr kernel's two entries (float32, float64) of a
     library built from kerr_dp45.cu and kerr_dp45_f64.cu alone."""
     import ctypes
@@ -541,7 +541,8 @@ def kerr_build(blocks):
     (tmp / "kerr_dp45_f64.cu").write_text(
         (src / "kerr_dp45_f64.cu").read_text())
     _build.CSRC = tmp
-    _build._sources = lambda: [tmp / "kerr_dp45.cu", tmp / "kerr_dp45_f64.cu"]
+    _build._sources = lambda _library="dp45": [tmp / "kerr_dp45.cu",
+                                               tmp / "kerr_dp45_f64.cu"]
     _build._declare = declare_kerr
     _build.load_library.cache_clear()
     t0 = time.perf_counter()
@@ -823,7 +824,7 @@ def extras_section(dev, X, parent, blocks, turns):
     report = dict(builds={}, scenes={})
     try:
         for name, (lib, log, obj_dir) in builds.items():
-            vk.load_library = lambda lib=lib: lib
+            vk.load_library = lambda _library="dp45", lib=lib: lib
             rows = {}
             for mangled_label, regs, spill in ptxas_report(log):
                 rows[mangled_label] = dict(registers=regs, spill=spill)
@@ -844,14 +845,16 @@ def extras_section(dev, X, parent, blocks, turns):
         # One untimed turn first: the card settles its clocks and the
         # allocator its cache before any reading counts.
         for name in names:
-            vk.load_library = lambda lib=builds[name][0]: lib
+            vk.load_library = (
+                lambda _library="dp45", lib=builds[name][0]: lib)
             for _label, kind, args, al, th, _inst in scenes:
                 vol_call(kerr, kind, args, al, th)
         torch.cuda.synchronize()
         for turn in range(turns):
             order = names if turn % 2 == 0 else names[::-1]
             for name in order:
-                vk.load_library = lambda lib=builds[name][0]: lib
+                vk.load_library = (
+                    lambda _library="dp45", lib=builds[name][0]: lib)
                 for label, kind, args, al, th, inst in scenes:
                     def call(**kw):
                         return vol_call(kerr, kind, args, al, th, **kw)
@@ -903,17 +906,20 @@ def extras_section(dev, X, parent, blocks, turns):
     return report
 
 
-# KerrCall's fields that an earlier commit's kernel may not have (the
-# metric family and its scalars, csrc/kerr_dp45.cu).
-FAMILY_FIELDS = ("family", "q2", "r_pro", "eps3", "r_freeze")
+# KerrCall's fields that an earlier commit's kernel may not have, keyed by
+# the word whose absence from its csrc/kerr_dp45.cu shows it: the metric
+# family and its scalars, and the event interpolant (which took what was
+# padding after the ints, so without it the float scalars start 4 bytes
+# sooner).
+NEWER_FIELDS = {"family": ("family", "q2", "r_pro", "eps3", "r_freeze"),
+                "event_interp": ("event_interp",)}
 
 
 def kerr_builds(parent):
     """Build kerr_dp45.cu and kerr_dp45_f64.cu of the earlier commit's
     csrc/ (`parent`) and of the package, four nvcc processes at once, a
     library each. Returns {build: (library, KerrCall mirrors or None)}:
-    the earlier commit's mirrors drop FAMILY_FIELDS where its source
-    lacks them."""
+    the earlier commit's mirrors drop the NEWER_FIELDS its source lacks."""
     import ctypes
     from pathlib import Path
     from light_path_tracer_tpu_torch.ops.cuda import _build
@@ -921,11 +927,14 @@ def kerr_builds(parent):
 
     def declare(lib, _name, d):
         declare_kerr(lib)
-        if "family" in (d / "kerr_dp45.cu").read_text():
+        text = (d / "kerr_dp45.cu").read_text()
+        drop = {f for word, fields in NEWER_FIELDS.items()
+                if word not in text for f in fields}
+        if not drop:
             return None
         return tuple(type(f"Old{c.__name__}", (ctypes.Structure,), {
             "_fields_": [f for f in kk._kerr_call_fields(real)
-                         if f[0] not in FAMILY_FIELDS]})
+                         if f[0] not in drop]})
             for c, real in ((kk.KerrCall, ctypes.c_float),
                             (kk.KerrCall64, ctypes.c_double)))
     dirs = {"parent": Path(parent), "package": _build.CSRC}
@@ -947,10 +956,12 @@ class use_kerr_build:
         kk = self.kk = kerr_trace_kernel
         self.saved = (kk.load_library, kk.KerrCall, kk.KerrCall64,
                       kk.family_scalars)
-        kk.load_library = lambda: self.lib
+        kk.load_library = lambda _library="dp45": self.lib
         if self.mirrors:
             kk.KerrCall, kk.KerrCall64 = self.mirrors
-            kk.family_scalars = lambda metric: {}
+            names = {f for f, _t in kk.KerrCall._fields_}
+            if "family" not in names:
+                kk.family_scalars = lambda metric: {}
 
     def __exit__(self, *exc):
         (self.kk.load_library, self.kk.KerrCall, self.kk.KerrCall64,

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from light_path_tracer_tpu_torch.ops import tableau as tb
 from light_path_tracer_tpu_torch.ops.cuda import _build, bounds, peak_probe
 from light_path_tracer_tpu_torch.ops.cuda import volumetric_kernel as vk
 
@@ -138,17 +139,95 @@ def test_geometry_mode_drops_the_redshift():
         bounds._add(bounds.GEODESIC, ops(flop=5, div=4, exp=2))
 
 
+def test_dop853_sums_derive_from_the_tableau():
+    """One DOP853 attempt's sums a component, counted from the tableau's
+    nonzeros: 50 stage weights in 11 rows, each row a left fold times h
+    plus y (2 m + 1 flops for m weights), and 8 weights each in the
+    solution and the two estimators (2 m - 1 each, the first weight a
+    product alone), then y + h times the solution (2)."""
+    rows = [len(r) for r in tb.D853_A]
+    assert rows[0] == 0 and sum(rows) == 50 and len(rows) == 12
+    assert [len(w) for w in (tb.D853_B, tb.D853_E5, tb.D853_E3)] == [8] * 3
+    assert bounds.dop853_sum_flops() == (2 * 50 + 11) + 3 * (2 * 8 - 1) + 2
+    assert bounds.dop853_sum_flops() == 158
+    assert bounds.rhs_evaluations("dop853") == 12
+    assert bounds.rhs_evaluations("dp45") == 6
+    # Every row reads only earlier stages, and the three sums read
+    # stages 0 and 5..11: each can run as its stages are made (the
+    # kernel's live-stage plan).
+    for r, row in enumerate(tb.D853_A):
+        assert all(j < r for j, _ in row)
+    for w in (tb.D853_B, tb.D853_E5, tb.D853_E3):
+        assert [j for j, _ in w] == [0, 5, 6, 7, 8, 9, 10, 11]
+    last = {}
+    for r, row in enumerate(tb.D853_A):
+        for j, _ in row:
+            last[j] = r
+    assert last[1] == 2 and last[2] == 4
+    assert all(last[j] == 11 for j in (0, 3, 4, 5, 6, 7, 8, 9, 10))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("family", ["kerr", "kerr_newman",
+                                    "johannsen_psaltis"])
+def test_kerr_work_dop853(dtype, family):
+    """Twelve evaluations of the family's RHS; per component the sums,
+    the error scale (4 flops in float32, 2 in float64), two ratios (two
+    divisions) and two squares' sums (4); then the combined norm (4
+    flops, a division, a sqrt) and DP45's controller and lambda update
+    (7 flops and the pow)."""
+    geo = bounds.GEODESIC_FAMILIES[family]
+    scale = 4 if dtype == "float32" else 2
+    want = bounds._add(bounds._times(12, geo),
+                       ops(flop=5 * (158 + scale + 4) + 11, div=5 * 2 + 1,
+                           sqrt=1, pow=1))
+    work = bounds.kerr_work(dtype, family, method="dop853")
+    assert work.ops == want and work.dtype == dtype
+    dp45 = bounds.kerr_work(dtype, family)
+    extra = (geo["flop"] + geo["div"]) - (bounds.GEODESIC["flop"]
+                                          + bounds.GEODESIC["div"])
+    assert dp45.flops == 6 * (bounds.RHS5_FLOPS + extra) + 86 * 5 + 55
+    assert work.flops == (12 * (bounds.RHS5_FLOPS + extra)
+                          + (86 - 46 + 158 + 3) * 5 + 59)
+
+
+@pytest.mark.parametrize("key", [k for k in RHS if k[1] in (0, 2, 8)],
+                         ids=lambda k: "-".join(str(x) for x in k
+                                                if x != ""))
+def test_extras_work_dop853_of_each_form(key):
+    kind, width, absorbing, profile, field = key
+    n = bounds.components(kind, width, absorbing)
+    for dtype, scale in (("float32", 4), ("float64", 2)):
+        work = bounds.extras_work(kind, width, absorbing, profile,
+                                  field or "toroidal", dtype, "dop853")
+        want = {k: 12 * RHS[key][k] for k in bounds.KINDS}
+        want["flop"] += (158 + scale + 4) * n + 11
+        want["div"] += 2 * n + 1
+        want["sqrt"] += 1
+        want["pow"] += 1
+        assert work.ops == want
+        assert work.flops == bounds.attempt_flops(
+            n, bounds.form_flops(kind, width, absorbing), "dop853")
+
+
 WORKS = [("kerr", bounds.kerr_work()), ("kerr f64",
                                         bounds.kerr_work("float64")),
          ("kerr_newman", bounds.kerr_work(family="kerr_newman")),
          ("johannsen_psaltis f64",
           bounds.kerr_work("float64", "johannsen_psaltis")),
          ("orbit", bounds.orbit_work()),
-         ("orbit f64", bounds.orbit_work(True, "float64"))]
+         ("orbit f64", bounds.orbit_work(True, "float64")),
+         ("kerr dop853", bounds.kerr_work(method="dop853")),
+         ("johannsen_psaltis dop853 f64",
+          bounds.kerr_work("float64", "johannsen_psaltis", "dop853"))]
 WORKS += [(f"{k} {w} {ab} {dt}", bounds.extras_work(k, w, ab, dtype=dt))
           for k, w, ab in (("thin", 0, False), ("absorbed", 0, False),
                            ("spectral", 8, False), ("stokes", 0, False),
                            ("movie", 8, True), ("order", 4, True))
+          for dt in ("float32", "float64")]
+WORKS += [(f"{k} dop853 {dt}", bounds.extras_work(k, w, ab, dtype=dt,
+                                                  method="dop853"))
+          for k, w, ab in (("thin", 0, False), ("movie", 8, True))
           for dt in ("float32", "float64")]
 
 
@@ -244,6 +323,32 @@ def test_instances_listed_are_the_instances_built():
             vals = (vals[0], "true" if vals[1] == "1" else "false")
         assert (fun, vals) in tags, (label, sorted(tags))
     assert {e for _l, e, *_r in listed} == set(_build.EXTRAS_ENTRIES)
+
+
+def test_dop853_instances_are_the_dp45_ones_with_the_other_pair():
+    """Each DOP853 source builds its DP45 sibling with LPT_DOP853 (the
+    _f64 twin includes the float one), so the DOP853 library holds the
+    same functors, labelled kerr_dop853_extras, under the same entries
+    with "_dop853" before the dtype's suffix."""
+    dp45 = vk.extras_instances()
+    dop = vk.extras_instances("dop853")
+    assert [x[1:] for x in dop] == [x[1:] for x in dp45]
+    assert [x[0] for x in dop] == [
+        x[0].replace("kerr_dp45_extras", "kerr_dop853_extras") for x in dp45]
+    for name in ["kerr_dp45"] + [e[len("lpt_"):] for e in
+                                 _build.EXTRAS_ENTRIES]:
+        stem = name.replace("kerr_dp45", "kerr_dop853")
+        text = (CSRC / f"{stem}.cu").read_text()
+        assert "#define LPT_DOP853 1" in text
+        assert f'#include "{name}.cu"' in text
+        f64 = (CSRC / f"{stem}_f64.cu").read_text()
+        assert "#define LPT_DOUBLE 1" in f64
+        assert f'#include "{stem}.cu"' in f64
+    srcs = {s.name for s in _build._sources("dop853")}
+    assert srcs == {s.name for s in CSRC.glob("kerr_dop853*.cu")}
+    assert not srcs & {s.name for s in _build._sources("dp45")}
+    assert _build.library_path("dop853").name.startswith("lpt_dop853_")
+    assert _build.library_path("dp45").name.startswith("lpt_kernels_")
 
 
 @pytest.mark.parametrize("source", ["kerr_dp45_extras.cu",

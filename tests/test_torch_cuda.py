@@ -48,7 +48,15 @@ shadow instance against the plain loop in float32 (the Kerr gates) and
 float64 (phase 17's), the Kerr-Newman disk variant (the disk gates), a
 Kerr-Newman metric at Q = 0 bitwise the Kerr kernel, Johannsen-Psaltis's
 float64 alpha_crit bisection on the card within 1e-9 rad of the CPU's,
-and each family's shadow render on the card against the CPU.
+and each family's shadow render on the card against the CPU. DOP853
+(csrc/kerr_dop853*.cu): each family's Kerr instance (Kerr with Hermite
+and linear events, Kerr-Newman, Johannsen-Psaltis), the disk variant
+and each extras functor at its main path's width (and the 2-band
+spectrum, which phase 22 of chip_smoke.py leaves out), in float32 and
+float64, against the plain DOP853 loop by its DP45 twin's gates, every
+DOP853 extras instance at its block bound, a 64^2 float64 DOP853 render
+on the card against the CPU, and a CUDA tensor with an unknown pair or
+interpolant raising without falling back.
 """
 
 import numpy as np
@@ -727,6 +735,14 @@ def test_every_extras_instance_matches_plain_version(cuda, family, width,
     band about the critical curve, whose rays carry up to the third
     order: the fourth, which no ray of the band reaches, must stay empty
     in both."""
+    _check_extras_instance(cuda, family, width, dtype)
+
+
+def _check_extras_instance(cuda, family, width, dtype, method="dp45"):
+    """test_every_extras_instance_matches_plain_version's body for one
+    instance of the embedded pair `method`."""
+    from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
+        counter_name)
     if family.startswith("order"):
         lo, hi = (0.97, 1.06) if width == 4 else (0.3, 4.0)
         m, al, th = _extras_rays(2048, cuda, lo, hi, seed=5)
@@ -738,10 +754,11 @@ def test_every_extras_instance_matches_plain_version(cuda, family, width,
     tf, n_extras, aux, monitor = _width_form(family, width, m, al, th)
     aux = tuple(a.to(dtype) for a in aux)
     f64 = dtype == torch.float64
-    kw = dict(sat_window=window)
+    kw = dict(sat_window=window, method=method)
+    name = counter_name(dtype, method)
     if isinstance(tf, tuple):
         counter = vk.trace_rays_volumetric_cuda
-        before = (counter.launches, counter.launches_f64)
+        before = getattr(counter, name)
         rk = counter(m, R_OBS, al, th, THETA_DISK, tf[0], 5000.0, max_steps,
                      absorption_fn=tf[1] if n_extras == 2 else None, **kw)
         rp = kerr_trace.trace_rays_volumetric(
@@ -751,7 +768,7 @@ def test_every_extras_instance_matches_plain_version(cuda, family, width,
         xp = [rp.emission, rp.optical_depth][:n_extras]
     else:
         counter = vk.trace_rays_aux_cuda
-        before = (counter.launches, counter.launches_f64)
+        before = getattr(counter, name)
         rk = counter(m, R_OBS, al, th, THETA_DISK, tf, n_extras, aux,
                      5000.0, max_steps, sat_monitor=monitor, **kw)
         extra = tf if aux else (lambda y, pt, pp, _aux: tf(y, pt, pp))
@@ -760,8 +777,7 @@ def test_every_extras_instance_matches_plain_version(cuda, family, width,
                                        sat_monitor=monitor, **kw)
         xk, xp = list(rk.extras), list(rp.extras)
     torch.cuda.synchronize()
-    assert (counter.launches, counter.launches_f64) == (
-        (before[0], before[1] + 1) if f64 else (before[0] + 1, before[1]))
+    assert getattr(counter, name) == before + 1
     sk, sp = rk.status.cpu().numpy(), rp.status.cpu().numpy()
     ok = sk == sp
     if f64:
@@ -1332,3 +1348,150 @@ def test_family_render_shadow_on_card_matches_cpu(cuda, family,
     oc, _ = pipeline.render_shadow(scene, (48, 48), device="cpu")
     assert (og.cpu() == oc).double().mean().item() >= 0.99
     assert 0 < int((og == 0).sum()) < og.numel()
+
+
+# ---- DOP853 and linear event location (csrc/kerr_dop853*.cu) -------------
+
+D853_KERR_CASES = [("kerr", "hermite"), ("kerr", "linear"),
+                   ("kerr_newman", "hermite"), ("johannsen_psaltis",
+                                                "hermite")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("family,event_interp", D853_KERR_CASES,
+                         ids=[f"{f} {e}" for f, e in D853_KERR_CASES])
+def test_dop853_kernel_matches_plain_version(cuda, family, event_interp,
+                                             dtype):
+    """The DOP853 instance of each family (and linear event location)
+    against the plain DOP853 loop on the same rays, by the DP45 twin's
+    gates: float32 status agreement above 0.99 and p99 |d final_alpha|
+    < 2e-3 on stable escaped rays, float64 0.999 and 1e-6. Only the
+    DOP853 counter of the dtype moves."""
+    from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
+        counter_name)
+    m = Kerr(M=1.0, a=0.9) if family == "kerr" else FAMILIES[family]
+    ac = m.alpha_crit(R_OBS) if family != "johannsen_psaltis" else 0.0668
+    rng = np.random.default_rng(21)
+    f64 = dtype == torch.float64
+    n = 512 if f64 else 2048
+    kw = dict(dtype=dtype, device=cuda)
+    al = torch.tensor(rng.uniform(0.2 * ac, 4 * ac, n), **kw)
+    th = torch.tensor(rng.uniform(-np.pi, np.pi, n), **kw)
+    ref = torch.tensor(rng.random(n) < 0.2, device=cuda)
+    args = (m, R_OBS, al, th, np.pi / 2, ref, 5000.0, 20000)
+    d853 = dict(method="dop853", event_interp=event_interp)
+    counts = {c: getattr(trace_rays_kerr_cuda, counter_name(t, meth))
+              for c, t, meth in (("want", dtype, "dop853"),
+                                 ("dp45", dtype, "dp45"))}
+    rk = trace_rays_kerr_cuda(*args, **d853)
+    torch.cuda.synchronize()
+    assert getattr(trace_rays_kerr_cuda,
+                   counter_name(dtype, "dop853")) == counts["want"] + 1
+    assert getattr(trace_rays_kerr_cuda,
+                   counter_name(dtype, "dp45")) == counts["dp45"]
+    rp = trace_rays_kerr_plain(*args, **d853)
+    sk, sp = rk.status.cpu().numpy(), rp.status.cpu().numpy()
+    assert (sk == sp).mean() > (0.999 if f64 else 0.99)
+    a = al.cpu().numpy()
+    stable = (sk == 1) & (sp == 1) & (np.abs(a - ac) > 0.05 * ac)
+    d = np.abs(rk.final_alpha.cpu().numpy()[stable]
+               - rp.final_alpha.cpu().numpy()[stable])
+    assert stable.sum() > n // 4 and (sk == -1).any()
+    assert np.percentile(d, 99) < (1e-6 if f64 else 2e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("family,momentum", [("kerr", False),
+                                             ("kerr", True),
+                                             ("kerr_newman", False)])
+def test_dop853_disk_kernel_matches_plain_version(cuda, family, momentum,
+                                                  dtype):
+    """The DOP853 disk variant against the plain DOP853 loop, by the DP45
+    disk gates (float64: 0.999 and 1e-6)."""
+    if family == "kerr":
+        m, plane = Kerr(M=1.0, a=0.9), (disk.r_isco(1.0, 0.9), 20.0,
+                                        np.pi / 2, not momentum)
+    else:
+        m = FAMILIES[family]
+        plane = (disk.r_isco(1.0, 0.6, Q=0.6), 20.0, np.pi / 2, True)
+    rng = np.random.default_rng(8)
+    f64 = dtype == torch.float64
+    n = 512 if f64 else 2048
+    al = torch.tensor(rng.uniform(0.01, 0.12, n), dtype=dtype, device=cuda)
+    th = torch.tensor(rng.uniform(-np.pi, np.pi, n), dtype=dtype,
+                      device=cuda)
+    args = (m, R_OBS, al, th, np.radians(80.0), 5000.0, 4000, plane, 2)
+    kw = dict(method="dop853", record_momentum=momentum)
+    rk = trace_disk_rays_cuda(*args, **kw)
+    rp = trace_disk_rays_plain(*args, **kw)
+    agree = (rk.status == rp.status).double().mean().item()
+    hits = (rk.n_hits == rp.n_hits).double().mean().item()
+    assert agree > (0.999 if f64 else 0.99) and hits > (0.999 if f64
+                                                        else 0.99)
+    both = (rk.n_hits > 0) & (rp.n_hits > 0)
+    assert int(both.sum()) > 50
+    for key in ("r_hits",) + (("pr_hits",) if momentum else ()):
+        d = (getattr(rk, key)[0] - getattr(rp, key)[0]).abs()[both]
+        assert float(d.double().median()) < (1e-6 if f64 else 1e-3)
+
+
+D853_EXTRAS_CASES = [("thin", 0), ("absorbed", 0), ("stokes", 0),
+                     ("spectral", 2), ("spectral", 3), ("movie thin", 8),
+                     ("movie absorbed", 8), ("order thin", 3),
+                     ("order absorbed", 3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("family,width", D853_EXTRAS_CASES,
+                         ids=[f"{f} {w}" for f, w in D853_EXTRAS_CASES])
+def test_dop853_extras_instance_matches_plain_version(cuda, family, width,
+                                                      dtype):
+    """Each extras functor's DOP853 instance at the main paths' width,
+    against the plain DOP853 loop by test_every_extras_instance_matches_
+    plain_version's gates."""
+    _check_extras_instance(cuda, family, width, dtype, "dop853")
+
+
+def test_every_dop853_extras_instance_fits_an_sm(cuda):
+    """Every DOP853 extras instance meets its DP45 twin's block bound."""
+    for label, entry, form, variant, dtype in vk.extras_instances("dop853"):
+        d = vk.describe_instance(entry, form, variant, dtype, "dop853")
+        assert d["blocks_per_sm"] >= d["min_blocks"] >= 1, (label, d)
+
+
+def test_unknown_method_raises_on_a_cuda_tensor(cuda):
+    """A CUDA tensor with a pair or interpolant the kernels have no
+    instance of raises; nothing falls back to the plain loop."""
+    m, _ac, al, th, ref = _rays(64, cuda)
+    plain = kerr_trace.trace_rays_kerr.launches
+    for kw, err in ((dict(method="rk45"), ValueError),
+                    (dict(method="rk4"), NotImplementedError),
+                    (dict(event_interp="cubic"), ValueError)):
+        with pytest.raises(err):
+            trace_rays_kerr_cuda(m, R_OBS, al, th, np.pi / 2, ref, 5000.0,
+                                 100, **kw)
+    with pytest.raises(ValueError):
+        trace_disk_rays_cuda(m, R_OBS, al, th, np.pi / 2, 5000.0, 100,
+                             (6.0, 20.0, np.pi / 2, True), method="rk45")
+    em, _ab = volumetric.make_transfer_fns(m, volumetric.RIAFConfig())
+    with pytest.raises(ValueError):
+        vk.trace_rays_volumetric_cuda(m, R_OBS, al, th, np.pi / 2, em,
+                                      5000.0, 100, method="rk45")
+    assert kerr_trace.trace_rays_kerr.launches == plain
+
+
+def test_dop853_render_shadow_on_card_matches_cpu(cuda):
+    """render_shadow with integrator="dop853" at 64^2 in float64: the
+    DOP853 float64 instance on the card against the plain loop on the
+    CPU, pixels equal on 99.9 %."""
+    scene = SceneConfig(M=1.0, a=0.9, vertical_fov_deg=12.0)
+    cfg = RenderConfig(dtype="float64", integrator="dop853")
+    before = trace_rays_kerr_cuda.launches_dop853_f64
+    ig, sg = pipeline.render_shadow(scene, (64, 64), cfg, device=cuda)
+    ic, _sc = pipeline.render_shadow(scene, (64, 64), cfg, device="cpu")
+    assert trace_rays_kerr_cuda.launches_dop853_f64 > before
+    assert (ig.cpu() == ic).float().mean().item() >= 0.999
+    assert (ic == 0).any() and sg["integrator_steps"] > 0

@@ -276,7 +276,7 @@ def test_trace_disk_rays_rejects_modes_not_ported():
     m = Kerr(M=1.0, a=0.9)
     al = torch.full((4,), 0.05, dtype=torch.float64)
     args = (m, R_OBS, al, al, THETA, 5000.0, 100)
-    for kwargs in (dict(record_time=True), dict(method="dop853")):
+    for kwargs in (dict(record_time=True),):
         with pytest.raises(NotImplementedError):
             disk.trace_disk_rays(*args, disk.DiskConfig(), **kwargs)
     for cfg in (disk.DiskConfig(tilt=0.1), disk.DiskConfig(warp_radius=5.0)):

@@ -227,22 +227,24 @@ def test_trace_batch_rejects_branches_not_ported():
     al = torch.full((8,), 0.1)
     for kwargs in (dict(chunk_size=4, progress=True),
                    dict(chunk_size=4, chunk_store={}), dict(progress="live"),
-                   dict(integrator="dop853"), dict(event_interp="linear"),
-                   dict(formulation="mu")):
+                   dict(integrator="rk4"), dict(formulation="mu")):
         with pytest.raises(NotImplementedError):
             trace_batch(tm, R_OBS, al, **kwargs)
-    with pytest.raises(ValueError):
-        trace_batch(tm, R_OBS, al, backend="pallas")
+    for kwargs in (dict(backend="pallas"), dict(integrator="rk45"),
+                   dict(event_interp="cubic")):
+        with pytest.raises(ValueError):
+            trace_batch(tm, R_OBS, al, **kwargs)
     empty = trace_batch(tm, R_OBS, torch.zeros(0))
     assert empty.final_alpha.shape == (0,) and int(empty.n_steps) == 0
-    # The loop itself: extra state components and the saturation exits
-    # are ported; the mu chart, DOP853, tilted or further disk planes and
-    # the time recorder still raise.
+    # The loop itself: extra state components, the saturation exits,
+    # DOP853 and linear events are ported; the mu chart, tilted or further
+    # disk planes and the time recorder still raise, and an unknown pair
+    # is a ValueError.
     one = torch.ones(8)
     loop = dict(atol=one, rtol=one, h_min=torch.tensor(1e-7), tiny_err=1e-8,
                 r_capture=torch.tensor(2.0), r_escape=torch.tensor(200.0),
                 lambda_max=10.0, h_init=1.0, max_steps=2)
-    for kwargs in (dict(formulation="mu"), dict(method="dop853"),
+    for kwargs in (dict(formulation="mu"),
                    dict(disk_normal=(0.0, 0.0, 1.0)),
                    dict(extra_disks=[((2.0, 9.0, 1.0, True), None)]),
                    dict(record_time=True)):
