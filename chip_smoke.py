@@ -11,9 +11,10 @@ checks what they produce, then the config-4 thin-disk render, the 1024^2
 volumetric hot-flow and spectral renders, the polarized, flare-movie and
 order-decomposition renders, the card's arithmetic peak rates, config
 5, the 4k Kerr shadow at 4 jittered samples a pixel, the Kerr-Newman
-and Johannsen-Psaltis metrics through the Kerr kernel, and Hairer's
+and Johannsen-Psaltis metrics through the Kerr kernel, Hairer's
 DOP853 pair and linear event location through the Kerr and extras
-kernels.
+kernels, and the mu chart's hybrid tracer and charged volumetric
+scenes.
 Phases:
   1. machine: card name and power limit, torch and nvcc versions;
   2. build: nvcc for sm_90a without FMA contraction (-fmad=false), with
@@ -260,14 +261,14 @@ Phases:
      phases 11 on) and linear event location: the DOP853 library's build
      time and every instance's registers, spills and blocks an SM; every
      DOP853 instance against the plain DOP853 loop on the card, the
-     random rays capped at 256 attempts in both: the Kerr shadow on phase
+     random rays capped at 64 attempts in both: the Kerr shadow on phase
      3's 4,096 random rays with Hermite and linear events (phase 3's
      gates) and 1,024 of them in float64 (phase 17's), the
-     1024^2 main-path rays with both capped at 256 attempts (phase 3's),
+     1024^2 main-path rays with both capped at 64 attempts (phase 3's),
      the Kerr-Newman and Johannsen-Psaltis instances on phase 21's kinds
      of rays, the disk variant on phase 8's rays (opaque; translucent
      with momenta; float64; Kerr-Newman) and the config-4 grid capped at
-     256 (phase 8's gates), the extras forms of phases 11 and 14 (but
+     64 (phase 8's gates), the extras forms of phases 11 and 14 (but
      the jet, VolThin's instance again, the 2-band spectrum, on no path,
      and the vertical-field Stokes) on 4,096 random rays capped at 128
      attempts (sat_window 512, which the cap keeps from firing), float32 by
@@ -295,6 +296,41 @@ Phases:
      (shadow, disk, volumetric thin on the card against the CPU: shadow
      pixels and masks equal on 99.9 %, median |d image| < 1e-6; the other
      families on the card for their float64 launches).
+ 23. the mu = cos(theta) chart and charged volumetric scenes: each mu
+     instance of the Kerr kernel (csrc/kerr_dp45_mu.cu and its f64 and
+     DOP853 siblings; Kerr a = 0.9 and Kerr-Newman a = 0.6, Q = 0.6) on
+     4,096 random rays in float32 and 1,024 in float64, both capped at
+     256 attempts, with the hybrid's poison mask, bitwise equal to the
+     plain mu loop on the card (every output and the unconverged flags);
+     the CUDA hybrid (trace_rays_kerr_hybrid, the Pallas backend's
+     semantics) on config 3's 1024^2 main-path rays and a Kerr-Newman
+     frame, capped at 256, bitwise equal to the same driver over the plain
+     loop, and (Kerr) equal to the plain hybrid with the XLA semantics on
+     every ray its first pass left converged, with its poison and
+     re-trace counts and pass A/B times; render_shadow with
+     formulation="mu" at 1024^2 (warm-up and 3 runs: best rays/s, the mu
+     instance, the theta instance and the hybrid launched, no plain loop)
+     held to the theta render by the JAX package's rule (statuses equal
+     on > 99 % of the rays, p99 |d final_alpha| < 1e-3 on stable escaped
+     rays; pixels equal on > 99 %), and the mu and theta kernels alone
+     at full depth on the same work (the main-path rays pass A
+     integrates in mu, neither poisoned nor booked) with their warp step
+     sums, lane efficiency and both bounds; every Kerr-Newman extras
+     instance of a main path (thin, absorbed, 3-band spectral, 8-frame
+     movie thin and absorbed, 3 orders thin and absorbed; float32 and
+     float64; DP45 and DOP853) on 4,096 random rays capped at 128, its
+     inputs built before the timed calls, bitwise equal to its plain loop
+     on the card in float32 and held by phase 17's float64 gate in
+     float64 (the float64 pow of CUDA's library rounds otherwise in
+     PyTorch's build, ROADMAP Queue 3 #9); the 1024^2 charged
+     volumetric renders (thin, absorbed, jet, 3-band, 8-frame movie thin
+     and absorbed, 3 orders; each with its counts set to 0 before it: the
+     extras kernel launched and no plain loop; the movie's spot period
+     the charged Keplerian one), each timed; the 64^2 float64 mu shadow
+     and charged thin image on the card against the CPU (pixels equal on
+     99.9 %; masks 99.9 %, median |d image| < 1e-6). The plain loops and
+     the CPU renders run in P23_WORKERS child processes side by side,
+     after every timed kernel run of the phase.
 Each path's launch counters are set to 0 just before it and read just
 after (float32 and float64 instances count apart: `.launches`,
 `.launches_f64`; the DOP853 instances on `.launches_dop853` and
@@ -327,9 +363,18 @@ entries (kerr_dop853*, trace_disk_rays_dop853*, kerr_dop853_extras_*,
 float64 twins *_f64) count their launches on its 1024^2 paths (the
 float64 ones on the 64^2 float64 renders) and their bounds with
 bounds.kerr_work / extras_work(method="dop853"); the main path's and
-config 4's entries time both versions capped at 256 attempts and carry
-the full-depth launch beside its DP45 twin (`full_depth`). The last
-line is {"ok": true, "device": {...}}. Exit code 0 iff every phase
+config 4's entries time both versions capped at 64 attempts and carry
+the full-depth launch beside its DP45 twin (`full_depth`). Phase 23's
+entries (kerr_dp45_mu, kerr_dop853_mu and their _kn and _f64 twins,
+kerr_dp45_extras_kn_* and kerr_dop853_extras_kn_* for each main-path
+form and dtype, trace_rays_kerr_hybrid) count their launches on the path
+that runs each (the float32 mu and charged paths at 1024^2 and 256^2,
+the float64 ones at 64^2; mu with integrator="dop853" where the pair is
+DOP853), time the kernel on (a) and (d)'s random rays against the plain
+loop's time in its child process, and carry bitwise_plain; the
+kerr_dp45_mu entry also the mu and theta kernels alone at full depth on
+the same main-path rays with both bounds and their ratios. The last line is {"ok": true,
+"device": {...}}. Exit code 0 iff every phase
 passed; without a CUDA device it exits 1 and prints no result.
 """
 
@@ -651,18 +696,24 @@ def kernel_label(mangled):
     import re
     real = {"f": "float", "d": "double"}
     m = re.search(r"kerr_(dp45|dop853)_kernelI([fd])Li(\d)ELb(\d)ELi(\d)"
-                  r"ELb(\d)E", mangled)
+                  r"ELb(\d)E(?:Lb(\d)E)?", mangled)
     if m:
+        # the mu chart's instances (csrc/kerr_dp45_mu.cu) carry ",mu=1"
+        mu = ",mu=1" if m.group(7) == "1" else ""
         return (f"kerr_{m.group(1)}<{real[m.group(2)]},family={m.group(3)},"
                 f"disk={m.group(4)},hits={m.group(5)},"
-                f"momentum={m.group(6)}>")
+                f"momentum={m.group(6)}{mu}>")
     m = re.search(r"kerr_(dp45|dop853)_extras_kernelINS_\d+([A-Za-z]+)I"
                   r"(\w*?)([fd])EE", mangled)
     if m:
         args = [v if k == "i" else ("absorbing=" + v)
                 for k, v in re.findall(r"L([ib])(\d+)E", m.group(3))]
         args.append(real[m.group(4)])
-        return f"kerr_{m.group(1)}_extras<{m.group(2)}<{','.join(args)}>>"
+        # the Kerr-Newman instances (csrc/*_kn.cu): family 1
+        fam = re.search(r"EE[fd]Li(\d)E", mangled[m.start(3):])
+        kn = "_kn" if fam and fam.group(1) == "1" else ""
+        return (f"kerr_{m.group(1)}_extras{kn}<{m.group(2)}"
+                f"<{','.join(args)}>>")
     m = re.search(r"orbit_rk4_kernelILb(\d)E([fd])", mangled)
     if m:
         return f"orbit_rk4<charged={m.group(1)},{real[m.group(2)]}>"
@@ -678,8 +729,9 @@ def kernel_label(mangled):
     return mangled
 
 
-def extras_resources(report, method="dp45"):
-    """Fill RESOURCES for every extras instance of the pair: what the
+def extras_resources(report, method="dp45", families=("", "_kn")):
+    """Fill RESOURCES for every extras instance of the pair and of
+    `families` ("" Kerr, "_kn" Kerr-Newman): what the
     runtime reports for the card (volumetric_kernel.describe_instance:
     registers, local memory, blocks an SM) and ptxas's spills (report:
     ptxas_report's rows of the loaded library's build; the spill fields
@@ -688,7 +740,8 @@ def extras_resources(report, method="dp45"):
     import re
     from light_path_tracer_tpu_torch.ops.cuda import volumetric_kernel as vk
     ptx = {name: spill for name, _regs, spill in report}
-    for label, entry, form, variant, dtype in vk.extras_instances(method):
+    for label, entry, form, variant, dtype in [
+            x for fam in families for x in vk.extras_instances(method, fam)]:
         require(label in ptx or not ptx, f"ptxas reported no {label}")
         d = vk.describe_instance(entry, form, variant, dtype, method)
         nums = dict((k, int(v)) for v, k in re.findall(
@@ -1235,16 +1288,18 @@ N_ORDERS = 3
 P0 = 0.7
 
 
-def aux_forms(metric, al, th):
+def aux_forms(metric, al, th, stokes=True):
     """Phase 14's forms on rays (al, th): label -> (transfer_fn, n_extras,
-    aux, sat_monitor, the form as bounds.extras_work takes it)."""
+    aux, sat_monitor, the form as bounds.extras_work takes it); without
+    the Stokes forms (Kerr-only) when not `stokes`."""
     from light_path_tracer_tpu_torch import polarization, volumetric
     from light_path_tracer_tpu_torch.disk import keplerian_omega
     period = 2.0 * np.pi / abs(keplerian_omega(1.0, 0.9, 6.0, True))
     times = tuple(period * k / N_FRAMES for k in range(N_FRAMES))
     forms = {}
-    aux = polarization.camera_constants(metric, R_OBS, THETA_VOL, al, th)
-    for field in ("toroidal", "vertical"):
+    aux = (polarization.camera_constants(metric, R_OBS, THETA_VOL, al, th)
+           if stokes else ())
+    for field in ("toroidal", "vertical") if stokes else ():
         forms[f"stokes {field}"] = (
             polarization.make_polarized_volumetric_transfer(
                 metric, volumetric.RIAFConfig(), field, P0), 3, aux,
@@ -3233,13 +3288,13 @@ D853_SOURCE = "light_path_tracer_tpu_torch/csrc/kerr_dop853{}.cu"
 # The plain loop's attempt cap on the 1024^2 grids (kernel and plain loop
 # alike): a float32 DOP853 lane of the main path runs ~8,800 attempts, and
 # the plain loop costs ~15-60 ms an iteration whatever the batch.
-D853_GRID_STEPS = 256
+D853_GRID_STEPS = 64
 # The attempt cap of phase 22's random rays, kernel and plain loop alike:
 # the Kerr and disk rays (their slowest DOP853 lanes take ~100-550
 # attempts) and the extras forms (mean ~22-30 attempts, slowest ~90-300,
 # the plain loop ~50-400 ms an iteration), whose exits' window (512) it
 # does not reach.
-D853_RAY_STEPS = 256
+D853_RAY_STEPS = 64
 D853_AUX_STEPS = 128
 
 
@@ -3961,6 +4016,794 @@ def dop853_phase(dev, card, ctx):
     return kernels
 
 
+
+# Phase 23: the mu = cos(theta) chart (the hybrid tracer) through the Kerr
+# kernel, and charged (Kerr-Newman) volumetric scenes through the extras
+# kernel.
+MU_SOURCE = "light_path_tracer_tpu_torch/csrc/kerr_{}_mu{}.cu"
+KN_SOURCE = "light_path_tracer_tpu_torch/csrc/kerr_{}_{}_kn{}.cu"
+HYBRID_REPLACES = "light_path_tracer_tpu/ops/kerr_trace.py:1269"
+# The random rays of (a): float32, float64, and the attempt cap of both
+# versions; (d)'s cap (the extras plain loop costs ~50-400 ms an
+# iteration); the cap of (b)'s 1024^2 hybrid against the plain loop.
+MU_RAYS, MU_RAYS_F64, MU_STEPS = 4096, 1024, 256
+KN_STEPS = 128
+HYB_STEPS = 256
+# The children that run phase 23's plain loops on the card (and its CPU
+# renders) side by side once its kernels are timed: the plain loop is
+# host-bound, one process a core (the card's host has 8).
+P23_WORKERS = 8
+MU_FAMILIES = {"kerr": dict(M=1.0, a=0.9), "kerr_newman": KN_ARGS}
+KN_FORMS = ("thin", "absorbed", "spectral 3-band", "movie thin",
+            "movie absorbed", "order thin", "order absorbed")
+
+
+def p23_metric(family):
+    from light_path_tracer_tpu_torch.models import Kerr, KerrNewman
+    if family == "kerr":
+        return Kerr(**MU_FAMILIES["kerr"])
+    return KerrNewman(**MU_FAMILIES["kerr_newman"])
+
+
+def p23_mu_rays(family, dtype, dev):
+    """(a)'s rays of a family: uniform in [0.3, 4] alpha_crit and over the
+    screen azimuth, 20 % in the axis-refine band, with the hybrid's poison
+    mask (the first pole-risk rays, which the mu instance starts
+    INVALID)."""
+    import torch
+    from light_path_tracer_tpu_torch.ops import kerr_trace as tk
+    m = p23_metric(family)
+    ac = m.alpha_crit(R_OBS)
+    n = MU_RAYS if dtype == "float32" else MU_RAYS_F64
+    rng = np.random.default_rng(23)
+    t = dict(dtype=getattr(torch, dtype), device=dev)
+    al = torch.tensor(rng.uniform(0.3 * ac, 4 * ac, MU_RAYS)[:n], **t)
+    th = torch.tensor(rng.uniform(-np.pi, np.pi, MU_RAYS)[:n], **t)
+    rf = torch.tensor(rng.random(MU_RAYS)[:n] < 0.2, device=dev)
+    poison = tk.hybrid_poison(m, R_OBS, al, th, np.pi / 2,
+                              tk.hybrid_slots(n))
+    return m, (m, R_OBS, al, th, np.pi / 2, rf, LAMBDA_MAX, MU_STEPS), poison
+
+
+def p23_kn_rays(dtype, dev):
+    """(d)'s 4,096 random rays of the charged scene (theta_obs 80 deg),
+    in [0.3, 4] alpha_crit."""
+    import torch
+    m = p23_metric("kerr_newman")
+    ac = m.alpha_crit(R_OBS, THETA_VOL)
+    rng = np.random.default_rng(231)
+    t = dict(dtype=getattr(torch, dtype), device=dev)
+    return (m, torch.tensor(rng.uniform(0.3 * ac, 4 * ac, VOL_RAYS), **t),
+            torch.tensor(rng.uniform(-np.pi, np.pi, VOL_RAYS), **t))
+
+
+def p23_kn_call(form, dtype, method, kernel, dev):
+    """One of (d)'s Kerr-Newman traces with its rays, metric, transfer and
+    aux built once: returns call(**kw), which runs the kernel wrapper
+    (kernel=True) or the plain loop alone (kw: probe) and returns the
+    outputs as a list, the status first."""
+    from light_path_tracer_tpu_torch import volumetric
+    from light_path_tracer_tpu_torch.ops import kerr_trace
+    from light_path_tracer_tpu_torch.ops.cuda import volumetric_kernel as vk
+    m, al, th = p23_kn_rays(dtype, dev)
+    base = dict(sat_window=AUX_WINDOW, method=method)
+    args = (m, R_OBS, al, th, THETA_VOL)
+
+    def flat(res):
+        return [res.status] + [y for x in res for y in (
+            x if isinstance(x, tuple) else (x,))]
+
+    if form in ("thin", "absorbed", "spectral 3-band"):
+        riaf, freqs = volumetric_forms()[form]
+        if freqs:
+            tf = volumetric.make_spectral_transfer(m, riaf, freqs)
+            fn = (vk.trace_rays_spectral_cuda if kernel
+                  else kerr_trace.trace_rays_spectral)
+            return lambda **kw: flat(fn(*args, tf, len(freqs), LAMBDA_MAX,
+                                        KN_STEPS, **base, **kw))
+        em, ab = volumetric.make_transfer_fns(m, riaf)
+        fn = (vk.trace_rays_volumetric_cuda if kernel
+              else kerr_trace.trace_rays_volumetric)
+        return lambda **kw: flat(fn(*args, em, LAMBDA_MAX, KN_STEPS,
+                                    absorption_fn=ab, **base, **kw))
+    aux = aux_forms(m, al, th, stokes=False)[form]
+    return lambda **kw: flat(aux_trace(m, aux, al, th, KN_STEPS, kernel,
+                                       **base, **kw))
+
+
+def p23_main_rays(family, dev):
+    """The 1024^2 main-path rays (config 3's frame, the mirror fold) of a
+    family."""
+    from light_path_tracer_tpu_torch import camera, pipeline
+    from light_path_tracer_tpu_torch.utils.config import (RenderConfig,
+                                                          SceneConfig)
+    scene = SceneConfig(r_obs_mult=R_OBS, **MU_FAMILIES[family])
+    dim = (1024, 1024)
+    fov = camera.fov_from_vertical(scene.vertical_fov, dim)
+    al, th, rf, _rows = pipeline.trace_inputs(scene, RenderConfig(), dim,
+                                              fov, dev)
+    return (p23_metric(family), R_OBS, al, th, np.pi / 2, rf, LAMBDA_MAX,
+            HYB_STEPS)
+
+
+def p23_renders64(dev):
+    """(e)'s 64^2 float64 renders on `dev`: the Kerr shadow with
+    formulation="mu" and the charged thin volumetric image."""
+    from light_path_tracer_tpu_torch import pipeline, volumetric
+    from light_path_tracer_tpu_torch.utils.config import (RenderConfig,
+                                                          SceneConfig)
+    d64 = (64, 64)
+    shadow = pipeline.render_shadow(
+        SceneConfig(M=1.0, a=0.9, r_obs_mult=R_OBS, vertical_fov_deg=12.0),
+        d64, RenderConfig(dtype="float64", formulation="mu"), device=dev)[0]
+    vol = volumetric.render_volumetric(
+        SceneConfig(r_obs_mult=R_OBS, theta_obs=THETA_VOL,
+                    vertical_fov_deg=16.0, **KN_ARGS), d64,
+        RenderConfig(dtype="float64"), device=dev)[0]
+    return [shadow, vol]
+
+
+def p23_job(job, dev):
+    """One plain-side job of phase 23 on `dev`: its outputs (a list of
+    tensors) and the seconds of the plain call alone (its inputs built
+    before the clock starts). The kernel side computes the same inputs
+    with the same functions."""
+    import torch
+    from light_path_tracer_tpu_torch.ops import kerr_trace as tk
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    kind = job[0]
+    if kind == "mu":
+        _family, dtype, method = job[1:]
+        _m, args, poison = p23_mu_rays(_family, dtype, dev)
+
+        def run():
+            res, unc = tk.trace_rays_kerr(
+                *args, formulation="mu", force_invalid=poison,
+                method=method, return_unconverged=True)
+            return list(res) + [unc]
+    elif kind == "kn":
+        run = p23_kn_call(*job[1:], False, dev)
+    elif kind == "hybrid":
+        args = p23_main_rays(job[1], dev)
+
+        def run():
+            out = list(kk.trace_rays_kerr_hybrid(
+                *args, trace_fn=tk.trace_rays_kerr))
+            if job[1] == "kerr":
+                out += list(tk.trace_rays_kerr_hybrid(*args))
+            return out
+    else:
+        def run():
+            return p23_renders64("cpu")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return [o.cpu() for o in out], time.perf_counter() - t0
+
+
+def p23_child(jobs_json, out_path):
+    """A child's part of phase 23's plain loops: run each job on the card
+    (the 64^2 renders on the CPU) and save {job index: (outputs,
+    seconds)}."""
+    import torch
+    torch.set_num_threads(1)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    done = {}
+    for i, job in json.loads(jobs_json):
+        done[i] = p23_job(tuple(job), dev)
+    torch.save(done, out_path)
+
+
+class p23_plain:
+    """Runs phase 23's plain-side jobs in P23_WORKERS child processes,
+    each job's outputs saved to a file of a temporary directory; result()
+    waits and returns [(outputs, seconds)] in job order. Leaving the
+    block stops every child still running."""
+
+    def __init__(self, jobs):
+        import tempfile
+        self.jobs = jobs
+        self.dir = tempfile.mkdtemp(prefix="lpt_p23_")
+        root = os.path.dirname(os.path.abspath(__file__))
+        parts = [[] for _ in range(P23_WORKERS)]
+        for i, job in enumerate(jobs):
+            parts[i % P23_WORKERS].append((i, job))
+        self.procs = []
+        for k, part in enumerate(parts):
+            out = os.path.join(self.dir, f"part{k}.pt")
+            code = (f"import sys; sys.path.insert(0, {root!r}); "
+                    f"import chip_smoke; chip_smoke.p23_child("
+                    f"{json.dumps(part)!r}, {out!r})")
+            self.procs.append((out, subprocess.Popen(
+                [sys.executable, "-c", code], cwd=root,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                start_new_session=True)))
+
+    def __enter__(self):
+        return self
+
+    def result(self):
+        import torch
+        got = {}
+        for out, proc in self.procs:
+            _o, err = proc.communicate()
+            require(proc.returncode == 0,
+                    f"phase 23 plain-loop child failed: {err[-4000:]}")
+            got.update(torch.load(out))
+        return [got[i] for i in range(len(self.jobs))]
+
+    def __exit__(self, *exc):
+        import shutil
+        import signal
+        for _out, proc in self.procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def bitwise_list(a, b):
+    """Every tensor of two output lists bitwise equal (NaN where NaN)."""
+    return len(a) == len(b) and all(same_bits(x.cpu(), y.cpu())
+                                    for x, y in zip(a, b))
+
+
+def max_abs_list(a, b):
+    """The largest |a - b| over the floating tensors of two output lists
+    where both are finite (0.0 where they are bitwise equal)."""
+    import torch
+    worst = 0.0
+    for x, y in zip(a, b):
+        x, y = x.cpu(), y.cpu()
+        if x.dtype.is_floating_point and x.numel():
+            ok = torch.isfinite(x) & torch.isfinite(y)
+            if ok.any():
+                worst = max(worst, float((x[ok].double()
+                                          - y[ok].double()).abs().max()))
+    return worst
+
+
+def p23_path(render, counters):
+    """One path of phase 23 driven once with its counts set to 0 just
+    before it: render() on the card, then {name: launches} of
+    `counters` ({name: (wrapper, counter attribute)}) and the plain loops'
+    calls ("plain")."""
+    import torch
+    from light_path_tracer_tpu_torch.ops import kerr_trace as tk
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    plains = (tk.trace_rays_kerr, tk.trace_rays_volumetric,
+              tk.trace_rays_spectral, tk.trace_rays_aux)
+    for fn, _attr in counters.values():
+        kk.zero_counters(fn)
+    for fn in plains:
+        fn.launches = 0
+    out = render()
+    torch.cuda.synchronize()
+    got = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+    got["plain"] = sum(fn.launches for fn in plains)
+    require(got["plain"] == 0 and all(v > 0 for k, v in got.items()
+                                      if k != "plain"),
+            f"phase 23 path: {got}")
+    return out, got
+
+
+def mu_theta_same_work(margs, rates):
+    """The mu kernel and the theta kernel alone at full depth on the same
+    work: of the rays `margs` (trace_rays_kerr_cuda's first seven
+    arguments), those that pass A integrates in mu to their end, neither
+    poisoned nor booked by the exact-cycle exit (a booked lane's attempts
+    are booked, not made; the hybrid re-traces both sets in theta), in
+    their order. A launch's time follows each warp's slowest lane, so the
+    warp step sum and the lane efficiency stand beside the attempts, and
+    the ratios mu / theta of the time, the warp steps, the time a warp
+    step and the counted bound (a whole, and an attempt) are returned
+    with them."""
+    import torch
+    from light_path_tracer_tpu_torch.ops import kerr_trace as tk
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    poison_m = tk.hybrid_poison(margs[0], R_OBS, margs[2], margs[3],
+                                np.pi / 2, tk.hybrid_slots(
+                                    int(margs[2].numel())))
+    probe = {}
+    kk.trace_rays_kerr_cuda(*margs, 200000, formulation="mu",
+                            force_invalid=poison_m, probe=probe)
+    booked = probe["attempts"] >= 200000
+    keep = ~poison_m & ~booked
+    sargs = (margs[0], margs[1], margs[2][keep].contiguous(),
+             margs[3][keep].contiguous(), margs[4],
+             margs[5][keep].contiguous(), margs[6], 200000)
+    n_keep = int(keep.sum())
+    side = dict(rays=n_keep, poisoned=int(poison_m.sum()),
+                booked=int((booked & ~poison_m).sum()))
+    for chart, kw in (("theta", {}), ("mu", dict(formulation="mu"))):
+        probe = {}
+        res = kk.trace_rays_kerr_cuda(*sargs, probe=probe, **kw)
+        att = probe["attempts"].to(torch.int64)
+        a, ws = int(att.sum()), int(res.n_steps)
+        work = a * kerr_work(chart=chart)
+        nb = n_keep * (9 + 12)
+        ms = kernel_alone_ms(lambda: kk.trace_rays_kerr_cuda(*sargs, **kw),
+                             3)
+        side[chart] = dict(
+            kernel_ms=ms, attempts=a, booked_lanes=int((att >= 200000)
+                                                       .sum()),
+            warp_steps=ws, lane_efficiency=a / (32 * ws),
+            ns_per_warp_step=1e6 * ms / ws,
+            bound_ms=bounds.flops_bound_ms(work, nb)[0],
+            bound_counted_ms=bounds.counted_bound_ms(work, nb, rates)[0])
+    t, m_ = side["theta"], side["mu"]
+    side["mu_over_theta"] = {
+        k: m_[k] / t[k] for k in ("kernel_ms", "attempts", "warp_steps",
+                                  "ns_per_warp_step", "bound_counted_ms")}
+    side["mu_over_theta"]["bound_counted_per_attempt"] = (
+        side["mu_over_theta"]["bound_counted_ms"]
+        / side["mu_over_theta"]["attempts"])
+    return side
+
+
+def mu_phase(dev, card, ctx):
+    """Phase 23: the mu chart's instances (Kerr and Kerr-Newman, float32
+    and float64, DP45 and DOP853) bitwise against the plain mu loop on the
+    card; the CUDA hybrid on the 1024^2 main path and a Kerr-Newman shadow
+    against the plain loop through the same driver (and the plain hybrid
+    with the XLA semantics), with its poison and re-trace counts and pass
+    A/B times; render_shadow with formulation="mu" at 1024^2 against the
+    theta render by the JAX package's rule; every Kerr-Newman extras
+    instance of a main path (thin, absorbed, 3-band, 8-frame movie thin
+    and absorbed, 3 orders thin and absorbed; float32 and float64; DP45
+    and DOP853) bitwise against its plain loop on the card; the 1024^2
+    charged volumetric renders; 64^2 float64 renders on the card against
+    the CPU. The plain loops (and the CPU renders) run in child processes
+    side by side after every timed kernel run. Returns the kernels-line
+    entries."""
+    import torch
+    from light_path_tracer_tpu_torch import camera, pipeline, volumetric
+    from light_path_tracer_tpu_torch.ops import kerr_trace as tk
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    from light_path_tracer_tpu_torch.ops.cuda import volumetric_kernel as vk
+    from light_path_tracer_tpu_torch.utils.config import (RenderConfig,
+                                                          SceneConfig)
+    t_phase = time.perf_counter()
+    print(f"the mu chart and charged volumetric scenes (phase 23) on "
+          f"{card}:", flush=True)
+    rates = ctx["rates"]
+    lib, build_s = ctx["build"].result()
+    print(f"  the DP45 mu and Kerr-Newman extras library: built in "
+          f"{build_s:.2f} s by a child process at nice 19 beside phases 3 on"
+          f" -> {os.path.basename(lib._name)}", flush=True)
+    report = ptxas_report(lib.build_log)
+    extras_resources(report, families=("_kn",))
+    for name, regs, spill in report:
+        r = RESOURCES.get(name)
+        more = (f"; {r['blocks_per_sm']} blocks an SM (block bound "
+                f"{r['min_blocks']})" if r else "")
+        print(f"  ptxas: {name}: {regs} registers; {spill}{more}",
+              flush=True)
+    # Why the plain loops divide by (and raise to) tensors on the card:
+    # PyTorch multiplies a CUDA tensor by the reciprocal of a Python-number
+    # divisor and expands small integer powers into products, where the
+    # kernels divide and call pow. Counted on 2^20 values in [0, 100).
+    x = torch.rand(1 << 20, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(23)) * 100.0
+    rewrites = {}
+    for c in (5.0, float(np.pi)):
+        k = torch.full((), c, device=dev)
+        rewrites[f"x / {c:g}"] = dict(
+            differ_from_tensor_divisor=int((x / c != x / k).sum()),
+            differ_from_reciprocal_product=int((x / c != x * (1.0 / k))
+                                               .sum()))
+    for e in (3.0, 2.0, -1.0, 1.5):
+        k = torch.full((), e, device=dev)
+        rewrites[f"x ** {e:g}"] = dict(
+            differ_from_tensor_exponent=int((x ** e != x ** k).sum()))
+    print(f"  PyTorch's Python-number operands on the card: "
+          f"{json.dumps(rewrites)}", flush=True)
+
+    # -- (a) the mu instances: the kernel side, timed --------------------
+    jobs, kern = [], {}
+    for family in MU_FAMILIES:
+        for dtype in ("float32", "float64"):
+            for method in ("dp45", "dop853"):
+                _m, args, poison = p23_mu_rays(family, dtype, dev)
+                kw = dict(formulation="mu", force_invalid=poison,
+                          method=method, return_unconverged=True)
+                probe = {}
+                res, unc = kk.trace_rays_kerr_cuda(*args, probe=probe, **kw)
+                ms, _ = cuda_ms(lambda: kk.trace_rays_kerr_cuda(*args, **kw),
+                                3)
+                kern[("mu", family, dtype, method)] = dict(
+                    out=[x for x in res] + [unc], ms=ms,
+                    attempts=int(probe["attempts"].to(torch.int64).sum()),
+                    n=int(args[2].numel()), poison=int(poison.sum()))
+                jobs.append(("mu", family, dtype, method))
+
+    # -- (d) the Kerr-Newman extras instances: the kernel side, timed -----
+    for form in KN_FORMS:
+        for dtype in ("float32", "float64"):
+            for method in ("dp45", "dop853"):
+                # the inputs built once, outside the timed calls
+                call = p23_kn_call(form, dtype, method, True, dev)
+                probe = {}
+                out = call(probe=probe)
+                ms, _ = cuda_ms(call, 3)
+                kern[("kn", form, dtype, method)] = dict(
+                    out=out, ms=ms, n=VOL_RAYS,
+                    attempts=int(probe["attempts"].to(torch.int64).sum()))
+                jobs.append(("kn", form, dtype, method))
+
+    # -- (b) the CUDA hybrid on the 1024^2 main path ----------------------
+    hyb = {}
+    for family in MU_FAMILIES:
+        args = p23_main_rays(family, dev)
+        probe = {}
+        res = kk.trace_rays_kerr_hybrid(*args, probe=probe)
+        n = int(args[2].numel())
+        poison, redo = probe["poison"], probe["redo"]
+        idx, _dest = tk.stragglers(redo, tk.hybrid_slots(n))
+        pa = {}
+        ms_a = kernel_alone_ms(lambda: kk.trace_rays_kerr_cuda(
+            *args, formulation="mu", force_invalid=poison,
+            return_unconverged=True, probe=pa), 3)
+        pb = {}
+        ms_b = kernel_alone_ms(lambda: kk.trace_rays_kerr_cuda(
+            args[0], R_OBS, args[2][idx], args[3][idx], np.pi / 2,
+            args[5][idx], LAMBDA_MAX, HYB_STEPS, probe=pb), 3)
+        ms, _ = cuda_ms(lambda: kk.trace_rays_kerr_hybrid(*args), 3)
+        hyb[family] = dict(
+            out=list(res), unconverged=probe["unconverged"].cpu(),
+            row=dict(n=n, max_steps=HYB_STEPS, poison=int(poison.sum()),
+                     retrace=int(redo.sum()),
+                     unconverged=int(probe["unconverged"].sum()),
+                     slots=tk.hybrid_slots(n), ms=ms, pass_a_ms=ms_a,
+                     pass_b_ms=ms_b, attempts_a=int(pa["attempts"].to(
+                         torch.int64).sum()),
+                     attempts_b=int(pb["attempts"].to(torch.int64).sum()),
+                     n_steps=int(res.n_steps)))
+        jobs.append(("hybrid", family))
+        print(f"  CUDA hybrid, {family} 1024^2 main-path rays, capped at "
+              f"{HYB_STEPS}: {json.dumps(hyb[family]['row'])}", flush=True)
+
+    # -- (c) render_shadow with formulation="mu" at 1024^2 ---------------
+    scene = SceneConfig(M=1.0, a=0.9, r_obs_mult=R_OBS)
+    dim = (1024, 1024)
+    cfg_mu = RenderConfig(formulation="mu")
+
+    def zero():
+        kk.zero_counters(kk.trace_rays_kerr_cuda)
+        kk.trace_rays_kerr_hybrid.launches = 0
+        tk.trace_rays_kerr.launches = 0
+
+    zero()
+    img_mu, st = pipeline.render_shadow(scene, dim, cfg_mu, device="cuda")
+    best = 0.0
+    for _ in range(3):
+        img_mu, st = pipeline.render_shadow(scene, dim, cfg_mu,
+                                            device="cuda")
+        best = max(best, st["traced_rays"] / st["timings"]["precompute"])
+    f = kk.trace_rays_kerr_cuda
+    path_mu = dict(mu_launches=f.launches_mu, theta_launches=f.launches,
+                   hybrid_calls=kk.trace_rays_kerr_hybrid.launches,
+                   plain=tk.trace_rays_kerr.launches, rays_per_s=best,
+                   traced_rays=st["traced_rays"],
+                   integrator_steps=st["integrator_steps"])
+    require(path_mu["mu_launches"] >= 4 and path_mu["theta_launches"] >= 4
+            and path_mu["hybrid_calls"] >= 4 and path_mu["plain"] == 0
+            and st["traced_rays"] == 524288
+            and bool(torch.isfinite(img_mu).all()),
+            f"phase 23 mu shadow path: {path_mu}")
+    img_th, _st = pipeline.render_shadow(scene, dim, RenderConfig(),
+                                         device="cuda")
+    # The JAX package's rule for the mu chart against theta
+    # (tests/test_pallas.py:206-240): statuses equal on > 99 % of the rays,
+    # p99 |d final_alpha| < 1e-3 on the stable escaped rays.
+    margs = p23_main_rays("kerr", dev)[:7]
+    r_mu = kk.trace_rays_kerr_hybrid(*margs, 200000)
+    r_th = kk.trace_rays_kerr_cuda(*margs, 200000)
+    cmp = compare(r_mu, r_th, margs[2], scene.metric().alpha_crit(R_OBS))
+    path_mu.update(vs_theta=cmp, pixels_equal=float(
+        (img_mu == img_th).float().mean()))
+    print(f"  1024^2 shadow with formulation='mu': {json.dumps(path_mu)} on "
+          f"{card}", flush=True)
+    require(cmp["status_agree"] > 0.99 and cmp["p99"] < 1e-3
+            and path_mu["pixels_equal"] > 0.99,
+            f"phase 23 mu against theta: {path_mu}")
+    side = mu_theta_same_work(margs, rates)
+    print(f"  mu and theta kernels alone at full depth on the "
+          f"{side['rays']} main-path rays pass A integrates in mu: "
+          f"{json.dumps(side)}", flush=True)
+
+    # -- (d') the 1024^2 charged volumetric renders ------------------------
+    scene_kn = SceneConfig(r_obs_mult=R_OBS, theta_obs=THETA_VOL,
+                           vertical_fov_deg=16.0, **KN_ARGS)
+    period = 2.0 * np.pi / abs(volumetric.keplerian_omega(
+        1.0, KN_ARGS["a"], 6.0, True, Q=KN_ARGS["Q"]))
+    times = tuple(period * k / N_FRAMES for k in range(N_FRAMES))
+    riaf3, freqs3 = scene_forms()["spectral 3-band"]
+    R = volumetric.RIAFConfig
+    paths = {}
+    for label, render in (
+            ("thin", lambda: volumetric.render_volumetric(
+                scene_kn, VOL_DIM, RenderConfig(), device="cuda")),
+            ("absorbed", lambda: volumetric.render_volumetric(
+                scene_kn, VOL_DIM, RenderConfig(), R(alpha0=0.3),
+                device="cuda")),
+            ("jet", lambda: volumetric.render_volumetric(
+                scene_kn, VOL_DIM, RenderConfig(),
+                R(profile="jet", jet_beta=0.6, index=-1.0), device="cuda")),
+            ("spectrum 3-band", lambda: (
+                volumetric.render_volumetric_spectrum(
+                    scene_kn, VOL_DIM, freqs3, RenderConfig(), riaf3,
+                    device="cuda"))),
+            ("movie 8-frame", lambda: volumetric.render_volumetric_movie(
+                scene_kn, VOL_DIM, times, RenderConfig(), R(spot_amp=8.0),
+                device="cuda")),
+            ("movie 8-frame absorbed", lambda: (
+                volumetric.render_volumetric_movie(
+                    scene_kn, VOL_DIM, times, RenderConfig(),
+                    R(spot_amp=8.0, alpha0=0.3), device="cuda"))),
+            ("decomposed x3", lambda: (
+                volumetric.render_volumetric_decomposed(
+                    scene_kn, VOL_DIM, RenderConfig(), n_orders=N_ORDERS,
+                    device="cuda")))):
+        for c in (vk.trace_rays_volumetric_cuda, vk.trace_rays_aux_cuda):
+            kk.zero_counters(c)
+        plain0 = sum(c.launches for c in (tk.trace_rays_volumetric,
+                                          tk.trace_rays_spectral,
+                                          tk.trace_rays_aux))
+        out = render()
+        best = 0.0
+        for _ in range(2):
+            out = render()
+            best = max(best, VOL_DIM[0] * VOL_DIM[1]
+                       / out[1]["timings"]["precompute"])
+        row = dict(volumetric=vk.trace_rays_volumetric_cuda.launches,
+                   aux=vk.trace_rays_aux_cuda.launches,
+                   plain=sum(c.launches for c in (
+                       tk.trace_rays_volumetric, tk.trace_rays_spectral,
+                       tk.trace_rays_aux)) - plain0, rays_per_s=best)
+        img = out[0]
+        require(row["volumetric"] + row["aux"] >= 6 and row["plain"] == 0
+                and bool(torch.isfinite(img).all()),
+                f"phase 23 charged {label}: {row}")
+        if label == "movie 8-frame":
+            row["spot_period"] = out[1]["spot_period"]
+            require(abs(row["spot_period"] - period) < 1e-9 * period,
+                    f"phase 23 charged movie period: {row}")
+        paths[label] = row
+        print(f"  1024^2 charged {label}: {json.dumps(row)} on {card}",
+              flush=True)
+
+    # -- (e) the other instances' paths, each counted; 64^2 float64 renders
+    # on the card (against the CPU below)
+    mu_paths = {}
+    f = kk.trace_rays_kerr_cuda
+    scene_kn_shadow = SceneConfig(r_obs_mult=R_OBS, **KN_ARGS)
+    scene64 = dict(vertical_fov_deg=12.0, r_obs_mult=R_OBS)
+    for family, sc in (("kerr", dict(M=1.0, a=0.9)), ("kerr_newman",
+                                                      KN_ARGS)):
+        for method in ("dp45", "dop853"):
+            for dtype in ("float32", "float64"):
+                key = (family, dtype, method)
+                if key == ("kerr", "float32", "dp45"):
+                    continue            # (c)'s path
+                attr = kk.counter_name(getattr(torch, dtype), method, "mu")
+                d = dim if dtype == "float32" else (64, 64)
+                sce = (SceneConfig(r_obs_mult=R_OBS, **sc) if dtype ==
+                       "float32" else SceneConfig(**scene64, **sc))
+                cfg_p = RenderConfig(formulation="mu", integrator=method,
+                                     dtype=dtype)
+                out, got = p23_path(lambda: pipeline.render_shadow(
+                    sce, d, cfg_p, device="cuda"), {"mu": (f, attr)})
+                require(bool(torch.isfinite(out[0]).all()),
+                        f"phase 23 mu path {key}")
+                mu_paths[key] = got["mu"]
+    mu_paths[("kerr", "float32", "dp45")] = path_mu["mu_launches"]
+    card64 = p23_renders64("cuda")
+    kn_paths = {}
+    R = volumetric.RIAFConfig
+    scene_kn64 = SceneConfig(r_obs_mult=R_OBS, theta_obs=THETA_VOL,
+                             vertical_fov_deg=16.0, **KN_ARGS)
+    forms = {"thin": ("volumetric", lambda sc, d, c: (
+                 volumetric.render_volumetric(sc, d, c, device="cuda"))),
+             "absorbed": ("volumetric", lambda sc, d, c: (
+                 volumetric.render_volumetric(sc, d, c, R(alpha0=0.3),
+                                              device="cuda"))),
+             "spectral 3-band": ("aux", lambda sc, d, c: (
+                 volumetric.render_volumetric_spectrum(
+                     sc, d, freqs3, c, riaf3, device="cuda"))),
+             "movie thin": ("aux", lambda sc, d, c: (
+                 volumetric.render_volumetric_movie(
+                     sc, d, times, c, R(spot_amp=8.0), device="cuda"))),
+             "movie absorbed": ("aux", lambda sc, d, c: (
+                 volumetric.render_volumetric_movie(
+                     sc, d, times, c, R(spot_amp=8.0, alpha0=0.3),
+                     device="cuda"))),
+             "order thin": ("aux", lambda sc, d, c: (
+                 volumetric.render_volumetric_decomposed(
+                     sc, d, c, n_orders=N_ORDERS, device="cuda"))),
+             "order absorbed": ("aux", lambda sc, d, c: (
+                 volumetric.render_volumetric_decomposed(
+                     sc, d, c, R(alpha0=0.3), n_orders=N_ORDERS,
+                     device="cuda")))}
+    wrappers = {"volumetric": vk.trace_rays_volumetric_cuda,
+                "aux": vk.trace_rays_aux_cuda}
+    for form, (which, render) in forms.items():
+        for method in ("dp45", "dop853"):
+            for dtype in ("float32", "float64"):
+                # float32: 256^2 of the 1024^2 scene's frame (DP45's
+                # 1024^2 paths are (d')'s, counted again here); float64
+                # at 64^2
+                d = (256, 256) if dtype == "float32" else (64, 64)
+                cfg_p = RenderConfig(integrator=method, dtype=dtype)
+                attr = kk.counter_name(getattr(torch, dtype), method)
+                out, got = p23_path(lambda: render(scene_kn64, d, cfg_p),
+                                    {"kn": (wrappers[which], attr)})
+                require(bool(torch.isfinite(out[0]).all()),
+                        f"phase 23 charged path {form} {method} {dtype}")
+                kn_paths[(form, dtype, method)] = got["kn"]
+    print(f"  mu and Kerr-Newman extras launches on their paths (float32 "
+          f"at 1024^2 (mu) and 256^2 (extras), float64 at 64^2): "
+          f"{json.dumps({' '.join(k): v for k, v in mu_paths.items()})}; "
+          f"{json.dumps({' '.join(k): v for k, v in kn_paths.items()})}",
+          flush=True)
+    f64_launches = dict(mu=mu_paths[("kerr", "float64", "dp45")],
+                        volumetric=kn_paths[("thin", "float64", "dp45")])
+    jobs.append(("cpu64",))
+
+    # -- the plain side, in child processes --------------------------------
+    t_plain = time.perf_counter()
+    with p23_plain(jobs) as plain:
+        got = plain.result()
+    plain_wall = time.perf_counter() - t_plain
+    res = {}
+    for job, (out, secs) in zip(jobs, got):
+        res[job] = dict(out=out, s=secs)
+    bad = []
+    for key, k in kern.items():
+        p = res[key]
+        k["bitwise"] = bitwise_list(k["out"], p["out"])
+        k["max_abs"] = max_abs_list(k["out"], p["out"])
+        k["plain_ms"] = 1e3 * p["s"]
+        if k["bitwise"]:
+            continue
+        if key[0] == "kn" and key[2] == "float64":
+            # The float64 extras instances are held by phase 17's float64
+            # gate: statuses equal on > 99.9 % of the rays and every
+            # output within 1e-6 of its largest value. The plain float64
+            # loop on the card parts from them in the last bits through
+            # CUDA's float64 pow alone, whose library code PyTorch's
+            # build contracts into FMAs and the kernels' does not (1 ulp
+            # on ~1e-5 of values; scripts/torch_f64_parity.py, ROADMAP
+            # Queue 3 #9), as the Kerr float64 instances do.
+            st_k, st_p = k["out"][0].cpu(), p["out"][0].cpu()
+            scale = max(float(t.abs().max()) for t in p["out"]
+                        if t.dtype.is_floating_point and t.numel() > 1
+                        and bool(torch.isfinite(t).all()))
+            k["f64_gate"] = dict(status_agree=float(
+                (st_k == st_p).float().mean()), rel=k["max_abs"] / scale)
+            if (k["f64_gate"]["status_agree"] > 0.999
+                    and k["f64_gate"]["rel"] < 1e-6):
+                continue
+        bad.append(key)
+    rows = {" ".join(key[1:]): dict(bitwise=k["bitwise"],
+                                    max_abs=k["max_abs"], ms=k["ms"],
+                                    plain_ms=k["plain_ms"],
+                                    attempts=k["attempts"],
+                                    f64_gate=k.get("f64_gate"))
+            for key, k in kern.items()}
+    print(f"  mu and Kerr-Newman extras instances against their plain "
+          f"loops on the card (mu: {MU_RAYS} rays float32, {MU_RAYS_F64} "
+          f"float64, capped at {MU_STEPS}; extras: {VOL_RAYS} rays capped "
+          f"at {KN_STEPS}): {json.dumps(rows)}", flush=True)
+    require(not bad, f"phase 23: off their plain loop: {bad}")
+    for family, h in hyb.items():
+        p = res[("hybrid", family)]["out"]
+        same = bitwise_list(h["out"], p[:4])
+        h["row"].update(bitwise_plain_driver=same, plain_ms=1e3 * res[
+            ("hybrid", family)]["s"])
+        ok = same
+        if family == "kerr":
+            # the plain hybrid with the XLA semantics re-traces no
+            # unconverged ray of pass A: equal on every other ray
+            keep = ~h["unconverged"]
+            h["row"]["equal_xla_off_unconverged"] = all(
+                same_bits(a.cpu()[keep], b.cpu()[keep])
+                for a, b in zip(h["out"][:3], p[4:7]))
+            ok = ok and h["row"]["equal_xla_off_unconverged"]
+        print(f"  CUDA hybrid against the plain loop through it, {family}: "
+              f"{json.dumps(h['row'])}", flush=True)
+        require(ok, f"phase 23 hybrid {family}: {h['row']}")
+    cpu64 = res[("cpu64",)]["out"]
+    shadow_eq = float((card64[0].cpu() == cpu64[0]).float().mean())
+    mg, mc = card64[1].cpu() > 0, cpu64[1] > 0
+    both = mg & mc
+    vol_med = float((card64[1].cpu() - cpu64[1]).abs()[both].median())
+    checks = dict(mu_shadow_pixels_equal=shadow_eq,
+                  charged_thin_mask_agree=float((mg == mc).float().mean()),
+                  charged_thin_median=vol_med, launches=f64_launches)
+    print(f"  64^2 float64 renders, card vs CPU: {json.dumps(checks)}",
+          flush=True)
+    require(shadow_eq >= 0.999 and checks["charged_thin_mask_agree"] >= 0.999
+            and vol_med < 1e-6, f"phase 23 64^2: {checks}")
+    print(f"phase 23: {time.perf_counter() - t_phase:.1f} s (the plain side "
+          f"in {P23_WORKERS} children: {plain_wall:.1f} s)", flush=True)
+
+    # -- the kernels-line entries -----------------------------------------
+    kernels = []
+    short = {"kerr": "", "kerr_newman": "_kn"}
+    for (kind, *rest), k in kern.items():
+        if kind == "mu":
+            family, dtype, method = rest
+            pair = "dop853" if method == "dop853" else "dp45"
+            name = (f"kerr_{pair}_mu{short[family]}"
+                    + ("_f64" if dtype == "float64" else ""))
+            src = MU_SOURCE.format(pair, "_f64" if dtype == "float64"
+                                   else "")
+            work = k["attempts"] * kerr_work(dtype, family, method, "mu")
+            per_ray = 9 + 12 + 1 if dtype == "float32" else 17 + 16 + 1
+            e = kernel_entry(name, src, REPLACES,
+                             mu_paths[(family, dtype, method)], k["max_abs"],
+                             k["ms"], k["plain_ms"], k["n"], per_ray, work)
+            e.update(bitwise_plain=k["bitwise"], max_steps=MU_STEPS,
+                     poisoned=k["poison"])
+            if name == "kerr_dp45_mu":
+                e.update(main_path=side["mu"], theta_main_path=side["theta"],
+                         main_path_rays=side["rays"],
+                         mu_over_theta=side["mu_over_theta"])
+            kernels.append(e)
+        else:
+            form, dtype, method = rest
+            pair = "dop853" if method == "dop853" else "dp45"
+            kind_, width, ab = {
+                "thin": ("thin", 0, False), "absorbed": ("absorbed", 0,
+                                                         False),
+                "spectral 3-band": ("spectral", 3, False),
+                "movie thin": ("movie", N_FRAMES, False),
+                "movie absorbed": ("movie", N_FRAMES, True),
+                "order thin": ("order", N_ORDERS, False),
+                "order absorbed": ("order", N_ORDERS, True)}[form]
+            srcname = {"thin": "extras", "absorbed": "extras",
+                       "spectral": "extras", "order": "orders",
+                       "movie": "movie_absorbed" if ab else "movie_thin"}[
+                           kind_]
+            src = KN_SOURCE.format(pair, srcname,
+                                   "_f64" if dtype == "float64" else "")
+            replaces = (f"{VOL_JAX}:53" if kind_ in ("thin", "absorbed")
+                        else f"{VOL_JAX}:276")
+            launches = kn_paths[(form, dtype, method)]
+            n_extras = bounds.components(kind_, width, ab) - 5
+            size = 4 if dtype == "float32" else 8
+            work = k["attempts"] * bounds.extras_work(
+                kind_, width, ab, dtype=dtype, method=method,
+                family="kerr_newman")
+            real = "float" if dtype == "float32" else "double"
+            inst = {"thin": "VolThin<{}>", "absorbed": "VolAbsorbed<{}>",
+                    "spectral 3-band": "Spectral<3,{}>",
+                    "movie thin": "Movie<8,absorbing=0,{}>",
+                    "movie absorbed": "Movie<8,absorbing=1,{}>",
+                    "order thin": "Order<3,absorbing=0,{}>",
+                    "order absorbed": "Order<3,absorbing=1,{}>"}[form]
+            e = kernel_entry(
+                f"kerr_{pair}_extras_kn_{form.replace(' ', '_')}"
+                + ("_f64" if dtype == "float64" else ""), src, replaces,
+                launches, k["max_abs"], k["ms"], k["plain_ms"], VOL_RAYS,
+                2 * size + (4 + n_extras) * size, work,
+                instance=f"kerr_{pair}_extras_kn<{inst.format(real)}>")
+            e.update(bitwise_plain=k["bitwise"], max_steps=KN_STEPS)
+            kernels.append(e)
+    h = hyb["kerr"]["row"]
+    hk = kernel_entry("trace_rays_kerr_hybrid", DRIVER_SOURCE,
+                      HYBRID_REPLACES, path_mu["hybrid_calls"], 0.0, h["ms"],
+                      h["plain_ms"], h["n"], 9 + 12,
+                      h["attempts_a"] * kerr_work(chart="mu")
+                      + h["attempts_b"] * kerr_work())
+    hk.update(hybrid=h, kerr_newman=hyb["kerr_newman"]["row"])
+    kernels.append(hk)
+    return kernels
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4006,13 +4849,16 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.2f} s -> {_build.library_path().name}",
           flush=True)
-    extras_resources(ptxas_report(lib.build_log))
+    extras_resources(ptxas_report(lib.build_log), families=("",))
     for name, regs, spill in ptxas_report(lib.build_log):
         r = RESOURCES.get(name)
         more = (f"; {r['blocks_per_sm']} blocks an SM (block bound "
                 f"{r['min_blocks']})" if r else "")
         print(f"  ptxas: {name}: {regs} registers; {spill}{more}",
               flush=True)
+    # The DP45 mu-chart and Kerr-Newman-extras instances (the "more"
+    # library) build beside phases 3 on; phase 23 waits for them.
+    more_build = background_build("more")
 
     # -- 3. kernel vs plain version ---------------------------------------
     stamp(3)
@@ -4448,6 +5294,10 @@ def main() -> int:
         build=dop853_build, kerr_rays=(alphas, thetas, refine),
         disk_rays=(al_d, th_d), opaque=opaque, main_dim=dim))
 
+    # -- 23. the mu chart and charged volumetric scenes -------------------
+    stamp(23)
+    mu_kernels = mu_phase(dev, card, dict(rates=rates, build=more_build))
+
     shadow_work = kerr_work()
     # Bytes a ray: alpha, theta (and the refine byte) in; final_alpha,
     # n_half and the status out, plus p_phi, n_hits and two slots of
@@ -4475,7 +5325,7 @@ def main() -> int:
                      gmain["n"], 9 + 12,
                      kerr_row["attempts_sum"] * shadow_work)]
     kernels += (kernels5 + vol_kernels + new_kernels + [probe_kernel]
-                + f64_kernels + family_kernels + d853_kernels)
+                + f64_kernels + family_kernels + d853_kernels + mu_kernels)
     # The counted bound: every operation by kind at the rate phase 16
     # measured for it (a flop at no less than the published rate).
     for k in kernels:

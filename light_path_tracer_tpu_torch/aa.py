@@ -21,7 +21,8 @@ the grid centre instead, as the reference does.)
 The passes trace with cfg.integrator and cfg.event_interp (DOP853 and
 linear event location included), as the single-sample render does; the
 JAX package's AA trace passes neither and runs DP45 with Hermite events
-whatever the config says.
+whatever the config says. Neither package's AA trace passes
+cfg.formulation: the passes integrate the theta chart whatever it says.
 
 Single device only: a mesh raises until multi-GPU is ported.
 """

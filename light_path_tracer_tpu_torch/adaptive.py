@@ -25,7 +25,8 @@ against S*H*W. Both passes take the two-pass straggler driver on the
 card ("auto" resolves to on: subpixel grids are jittered, so near-axis
 stragglers come at any batch size). Both trace with cfg.integrator and
 cfg.event_interp, as aa.py does (the JAX package's adaptive passes
-neither).
+neither), and in the theta chart whatever cfg.formulation says, as in
+the JAX package.
 """
 
 from __future__ import annotations

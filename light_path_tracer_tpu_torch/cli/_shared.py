@@ -13,7 +13,8 @@ def _add_scene_args(p):
     p.add_argument("--Q", type=float, default=0.0,
                    help="BH charge (Reissner-Nordstrom; with --a != 0: "
                         "Kerr-Newman, needs a^2 + Q^2 <= M^2; the disk "
-                        "takes it at any spin; not the volumetric modes)")
+                        "and volumetric modes take it at any spin, all but "
+                        "--polarization, which is Kerr-only)")
     p.add_argument("--eps3", type=float, default=0.0,
                    help="Johannsen-Psaltis deformation parameter "
                         "(test-GR deformed Kerr; 0 = GR. Shadow and lens "

@@ -125,8 +125,9 @@ __device__ __forceinline__ T inf_() {
 // new stages, y5 (the 8th-order solution) and the FSAL end stage kend =
 // rhs(y5); returns the error norm and sets finite_ok (y5 finite with
 // r > 0). rhs(y, out) is the right-hand side over the N components;
-// atol and rtol the lane's tolerances.
-template <class T, int N, class Rhs>
+// atol and rtol the lane's tolerances. kMu: the mu chart, whose component
+// 1 takes mu_scale_floor in the error scale.
+template <bool kMu = false, class T, int N, class Rhs>
 __device__ __forceinline__ T dop853_stages(const T (&y)[N], const T (&k1)[N],
                                            T h, T atol, T rtol, Rhs&& rhs,
                                            T (&y5)[N], T (&kend)[N],
@@ -246,6 +247,7 @@ __device__ __forceinline__ T dop853_stages(const T (&y)[N], const T (&k1)[N],
 #pragma unroll
   for (int c = 0; c < N; ++c) {
     T mag = jmax(abs_(y[c]), abs_(y5[c]));
+    if (kMu && c == 1) mag = mu_scale_floor(mag);
     if constexpr (kSingle<T>) mag = mag + h * jmax(kmag[c], abs_(kend[c]));
     const T scale = atol + rtol * mag;
     const T r5 = finite_ok ? e5[c] / scale : T(0.0);

@@ -1,0 +1,7 @@
+// The float64 DOP853 Kerr-Newman instances of the volumetric (thin,
+// self-absorbed) and spectral forms of the extras kernel (entries
+// lpt_kerr_dp45_extras_kn_dop853_f64 and its _describe twin): see
+// kerr_dop853_extras_kn.cu.
+
+#define LPT_DOUBLE 1
+#include "kerr_dop853_extras_kn.cu"

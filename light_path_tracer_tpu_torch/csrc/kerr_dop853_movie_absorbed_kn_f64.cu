@@ -1,0 +1,7 @@
+// The float64 DOP853 Kerr-Newman instances of the self-absorbed flare-movie
+// forms of the extras kernel (entries
+// lpt_kerr_dp45_movie_absorbed_kn_dop853_f64 and its _describe twin): see
+// kerr_dop853_movie_absorbed_kn.cu.
+
+#define LPT_DOUBLE 1
+#include "kerr_dop853_movie_absorbed_kn.cu"

@@ -80,6 +80,18 @@
 // or at the linear crossing fraction. It is read only on an attempt that
 // found an event; the disk variant is Hermite only, as the Pallas disk
 // wrapper is.
+//
+// Two charts, as the Pallas kernel's `formulation`: theta, built here, and
+// mu = cos(theta), built by kerr_dp45_mu.cu and its f64 and DOP853
+// siblings, which include this file with LPT_MU (entries lpt_kerr_dp45_mu,
+// _mu_f64, _mu_dop853, _mu_dop853_f64). The mu instances are shadow
+// variants of Kerr and Kerr-Newman only (the disk variant refuses the
+// chart, as the JAX package does, and Johannsen-Psaltis has no mu RHS):
+// the lane converts its start to (r, mu, phi, p_r, p_mu) (state_to_mu),
+// integrates with rhs5_mu, which calls no sin or cos, weighs mu's error
+// on the theta scale, and converts back (state_from_mu, an acosf and a
+// sqrtf) before its extraction. They also take the hybrid tracer's
+// force_invalid mask: a masked ray starts INVALID and makes no attempt.
 
 #include "kerr_dp45_common.cuh"
 #include "kerr_dop853.cuh"
@@ -172,7 +184,7 @@ __device__ __forceinline__ void close_attempt(
 // One adaptive DP45 attempt from (y, k1) with step h: the six new stages
 // and the embedded error norm, then close_attempt. Shared by the shadow
 // and disk variants; the caller applies the result.
-template <int F, class T>
+template <int F, bool kMu, class T>
 __device__ __forceinline__ void dp45_attempt(
     const T (&y)[5], const T (&k1)[5], T h, T lam, T lam_max, T p_t,
     T p_phi, T atol, T rtol, T r_capture, T r_escape, T r_plunge,
@@ -183,33 +195,33 @@ __device__ __forceinline__ void dp45_attempt(
   T yt[5], k2[5], k3[5], k4[5], k5[5], k6[5], y5[5];
 #pragma unroll
   for (int c = 0; c < 5; ++c) yt[c] = y[c] + h_eff * (K::A21 * k1[c]);
-  rhs5<F>(yt, p_t, p_phi, P, k2);
+  rhs5_chart<F, kMu>(yt, p_t, p_phi, P, k2);
 #pragma unroll
   for (int c = 0; c < 5; ++c)
     yt[c] = y[c] + h_eff * (K::A31 * k1[c] + K::A32 * k2[c]);
-  rhs5<F>(yt, p_t, p_phi, P, k3);
+  rhs5_chart<F, kMu>(yt, p_t, p_phi, P, k3);
 #pragma unroll
   for (int c = 0; c < 5; ++c)
     yt[c] = y[c] + h_eff * (K::A41 * k1[c] + K::A42 * k2[c] +
                             K::A43 * k3[c]);
-  rhs5<F>(yt, p_t, p_phi, P, k4);
+  rhs5_chart<F, kMu>(yt, p_t, p_phi, P, k4);
 #pragma unroll
   for (int c = 0; c < 5; ++c)
     yt[c] = y[c] + h_eff * (K::A51 * k1[c] + K::A52 * k2[c] +
                             K::A53 * k3[c] + K::A54 * k4[c]);
-  rhs5<F>(yt, p_t, p_phi, P, k5);
+  rhs5_chart<F, kMu>(yt, p_t, p_phi, P, k5);
 #pragma unroll
   for (int c = 0; c < 5; ++c)
     yt[c] = y[c] + h_eff * (K::A61 * k1[c] + K::A62 * k2[c] +
                             K::A63 * k3[c] + K::A64 * k4[c] +
                             K::A65 * k5[c]);
-  rhs5<F>(yt, p_t, p_phi, P, k6);
+  rhs5_chart<F, kMu>(yt, p_t, p_phi, P, k6);
 #pragma unroll
   for (int c = 0; c < 5; ++c)
     y5[c] = y[c] + h_eff * (K::B1 * k1[c] + K::B3 * k3[c] + K::B4 * k4[c] +
                             K::B5 * k5[c] + K::B6 * k6[c]);
   T* k7 = A.k7;
-  rhs5<F>(y5, p_t, p_phi, P, k7);
+  rhs5_chart<F, kMu>(y5, p_t, p_phi, P, k7);
 
   const bool finite_ok = all_finite(y5) && (y5[0] > T(0.0));
 
@@ -218,7 +230,7 @@ __device__ __forceinline__ void dp45_attempt(
 #pragma unroll
   for (int c = 0; c < 5; ++c) {
     const T scale = error_scale(y[c], y5[c], k1[c], k7[c], h_eff, atol,
-                                rtol);
+                                rtol, kMu && c == 1);
     const T err = h_eff * (K::E1 * k1[c] + K::E3 * k3[c] + K::E4 * k4[c] +
                            K::E5 * k5[c] + K::E6 * k6[c] + K::E7 * k7[c]);
     const T q = finite_ok ? err / scale : T(0.0);
@@ -231,7 +243,7 @@ __device__ __forceinline__ void dp45_attempt(
 
 // One adaptive DOP853 attempt: dop853_stages (kerr_dop853.cuh), then
 // close_attempt with the exponent -1/8 of its 7th-order control.
-template <int F, class T>
+template <int F, bool kMu, class T>
 __device__ __forceinline__ void dop853_attempt(
     const T (&y)[5], const T (&k1)[5], T h, T lam, T lam_max, T p_t,
     T p_phi, T atol, T rtol, T r_capture, T r_escape, T r_plunge,
@@ -239,9 +251,11 @@ __device__ __forceinline__ void dop853_attempt(
   const T h_eff = jmax(jmin(h, lam_max - lam), T(0.0));
   T y5[5];
   bool finite_ok;
-  const T err_norm = dop853_stages(
+  const T err_norm = dop853_stages<kMu>(
       y, k1, h_eff, atol, rtol,
-      [&](const T(&yt)[5], T(&out)[5]) { rhs5<F>(yt, p_t, p_phi, P, out); },
+      [&](const T(&yt)[5], T(&out)[5]) {
+        rhs5_chart<F, kMu>(yt, p_t, p_phi, P, out);
+      },
       y5, A.k7, finite_ok);
   close_attempt(y, k1, y5, h, h_eff, err_norm, finite_ok, T(-0.125),
                 r_capture, r_escape, r_plunge, linear, P, A);
@@ -250,22 +264,26 @@ __device__ __forceinline__ void dop853_attempt(
 // One call of a C entry point, filled by the Python wrapper
 // (ops/cuda/kerr_trace_kernel.py KerrCall and KerrCall64, field for
 // field): device pointers, the stream, and the launch's scalars.
-// refine: one byte a ray (shadow; null in disk mode). Per ray the kernel
-// writes final_alpha, n_half and
+// refine: one byte a ray (shadow; null in disk mode); force_invalid: one
+// byte a ray, read by the mu instances only (may be null there): a
+// nonzero byte starts the ray INVALID. Per ray the kernel writes
+// final_alpha, n_half and
 // the folded status; flags (may be null) marks a ray whose raw status is
 // still RUNNING (the two-pass drivers re-trace it); the disk variant also
 // writes p_phi and the hit records (hits: int32 a ray; r_hits, phi_hits
 // and, with momentum, pr_hits, pth_hits: (max_hits, n), slot-major). The
 // probe's outputs may be null: state (5, n), raw_status, steps
 // (attempts), census (CycleWatch::census), and p_phi in the shadow
-// variant. warp_steps: the warp step sum, zeroed by the entry.
+// variant (the mu instances write the state converted back to theta).
+// warp_steps: the warp step sum, zeroed by the entry. chart: 0 theta, 1
+// mu, the chart of the entry it is handed to.
 // cycle_exit = 0 grinds exact cycles instead of counting them;
 // event_interp = 1 locates capture and escape at the linear crossing
 // fraction instead of on the Hermite interpolant (shadow variant only).
 template <class T>
 struct KerrCall {
   const T *alpha, *theta;
-  const unsigned char* refine;
+  const unsigned char *refine, *force_invalid;
   T* final_alpha;
   int *n_half, *status;
   unsigned char* flags;
@@ -277,7 +295,7 @@ struct KerrCall {
   unsigned long long* warp_steps;
   void* stream;
   int n, max_steps, cycle_exit, max_hits, momentum, opaque, family,
-      event_interp;
+      event_interp, chart;
   T M, a, r_plus, r_obs, theta_obs, lambda_max, atol, rtol, atol_ref,
       rtol_ref, h_min, tiny_err, h_init, r_capture, r_reclass, r_in,
       r_out_disk, plane_c, q2, r_pro, eps3, r_freeze;
@@ -285,14 +303,17 @@ struct KerrCall {
 
 // The wrapper mirrors the struct with ctypes (natural alignment: the
 // pointers, the ints, then the scalars of T).
-static_assert(sizeof(KerrCall<float>) == 272, "KerrCall layout");
-static_assert(sizeof(KerrCall<double>) == 360, "KerrCall64 layout");
+static_assert(sizeof(KerrCall<float>) == 288, "KerrCall layout");
+static_assert(sizeof(KerrCall<double>) == 376, "KerrCall64 layout");
 
 // One ray in a lane's registers: its constants, its integration state and
 // (disk variant) its crossing records, with the steps of its life: start
 // (initial conditions and plunge radius), attempt (one DP45 attempt and
-// its bookkeeping), finish (extraction and outputs). F: the metric family.
-template <class T, int F, bool kDisk, int kMaxHits, bool kMomentum>
+// its bookkeeping), finish (extraction and outputs). F: the metric family;
+// kMu: the mu chart (y holds (r, mu, phi, p_r, p_mu) between start and
+// finish).
+template <class T, int F, bool kDisk, int kMaxHits, bool kMomentum,
+          bool kMu>
 struct Ray {
   static constexpr int kSlots = kDisk ? kMaxHits : 1;
   static constexpr int kMomSlots = kMomentum ? kMaxHits : 1;
@@ -343,10 +364,15 @@ struct Ray {
 
 #pragma unroll
     for (int c = 0; c < 5; ++c) y[c] = S.y[c];
-    rhs5<F>(y, p_t, p_phi, P, k1);
+    bool invalid = S.bad_obs;
+    if constexpr (kMu) {
+      state_to_mu(y);
+      if (C.force_invalid != nullptr) invalid = invalid || C.force_invalid[i];
+    }
+    rhs5_chart<F, kMu>(y, p_t, p_phi, P, k1);
     h = P.h_init;
     lam = T(0.0);
-    status = S.bad_obs ? kInvalid : kRunning;
+    status = invalid ? kInvalid : kRunning;
     steps = 0;
     watch = CycleWatch<T>();
     n_hits = 0;
@@ -370,11 +396,12 @@ struct Ray {
     ++steps;
     Attempt<T> A;
     if constexpr (kDop853)
-      dop853_attempt<F>(y, k1, h, lam, lam_max, p_t, p_phi, atol, rtol,
-                        r_capture, r_escape, r_plunge, linear, P, A);
+      dop853_attempt<F, kMu>(y, k1, h, lam, lam_max, p_t, p_phi, atol,
+                             rtol, r_capture, r_escape, r_plunge, linear, P,
+                             A);
     else
-      dp45_attempt<F>(y, k1, h, lam, lam_max, p_t, p_phi, atol, rtol,
-                      r_capture, r_escape, r_plunge, linear, P, A);
+      dp45_attempt<F, kMu>(y, k1, h, lam, lam_max, p_t, p_phi, atol, rtol,
+                           r_capture, r_escape, r_plunge, linear, P, A);
     const bool event = A.cap || A.esc;
 
     // disk plane: a sign change of cos(theta) - plane_c over the accepted
@@ -471,6 +498,7 @@ struct Ray {
   __device__ __forceinline__ void finish(const KerrCall<T>& C,
                                          const Params<T>& P, int i) {
     const int n = C.n;
+    if constexpr (kMu) state_from_mu(y);
     const Final<T> Fin =
         finalize<F>(y, p_t, p_phi, status, C.r_reclass, P);
     C.final_alpha[i] = Fin.alpha;
@@ -521,13 +549,14 @@ constexpr int kBlocksPerSm = 7;
 // adds its largest attempt count to the warp step sum: the warp is the
 // group of 32 consecutive rays that ops/types.py sums over (lanes past n
 // count 0).
-template <class T, int F, bool kDisk, int kMaxHits, bool kMomentum>
+template <class T, int F, bool kDisk, int kMaxHits, bool kMomentum,
+          bool kMu>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 LPT_KERNEL(kernel)(KerrCall<T> C, Params<T> P, DiskParams<T> D) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   int steps = 0;
   if (i < C.n) {
-    Ray<T, F, kDisk, kMaxHits, kMomentum> R;
+    Ray<T, F, kDisk, kMaxHits, kMomentum, kMu> R;
     R.start(C, P, i);
     const bool linear = C.event_interp != 0;
     while (R.running(P)) R.attempt(P, D, C.cycle_exit, linear);
@@ -541,14 +570,14 @@ LPT_KERNEL(kernel)(KerrCall<T> C, Params<T> P, DiskParams<T> D) {
 }
 
 // Zeroes the warp step sum and launches the instance on C.stream.
-template <int F, bool kDisk, int kMaxHits, bool kMomentum>
+template <int F, bool kDisk, int kMaxHits, bool kMomentum, bool kMu = false>
 int launch(const KerrCall<Real>& C, const Params<Real>& P,
            const DiskParams<Real>& D) {
   const cudaStream_t s = static_cast<cudaStream_t>(C.stream);
   const cudaError_t err =
       cudaMemsetAsync(C.warp_steps, 0, sizeof(unsigned long long), s);
   if (err != cudaSuccess || C.n <= 0) return static_cast<int>(err);
-  LPT_KERNEL(kernel)<Real, F, kDisk, kMaxHits, kMomentum>
+  LPT_KERNEL(kernel)<Real, F, kDisk, kMaxHits, kMomentum, kMu>
       <<<(C.n + kThreads - 1) / kThreads, kThreads, 0, s>>>(C, P, D);
   return static_cast<int>(cudaGetLastError());
 }
@@ -575,11 +604,33 @@ int launch_family(const KerrCall<Real>& C, const Params<Real>& P,
 
 extern "C" {
 
+#ifdef LPT_MU
+// Launches the mu chart's shadow instance of the call's family (kKerr or
+// kKerrNewman; disk must be 0 and call->chart 1) for the call `call` (a
+// KerrCall of this instance's Real) and returns a cudaError_t (0 on
+// success).
+int LPT_ENTRY(lpt_kerr_dp45)(const void* call, int disk) {
+  const KerrCall<Real>& C = *static_cast<const KerrCall<Real>*>(call);
+  const Params<Real> P{C.M,        C.a,         C.r_plus,    C.r_obs,
+                       C.theta_obs, C.lambda_max, C.max_steps, C.atol,
+                       C.rtol,     C.atol_ref,  C.rtol_ref,  C.h_min,
+                       C.tiny_err, C.h_init,    C.r_capture, C.q2,
+                       C.r_pro,    C.eps3,      C.r_freeze};
+  const DiskParams<Real> D{C.r_in, C.r_out_disk, C.plane_c, C.opaque};
+  if (disk || C.chart != 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (C.family) {
+    case kKerr: return launch<kKerr, false, 1, false, true>(C, P, D);
+    case kKerrNewman:
+      return launch<kKerrNewman, false, 1, false, true>(C, P, D);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+#else
 // Launches the shadow variant (disk = 0) or the disk variant (disk = 1:
 // max_hits 1..4, momentum 0 or 1) of the call's family (kKerr,
 // kKerrNewman, kJohannsenPsaltis; the last has no disk variant) for the
 // call `call` (a KerrCall of this instance's Real: float here, double in
-// the *_f64 entry) and returns a cudaError_t (0 on success).
+// the *_f64 entry; chart 0) and returns a cudaError_t (0 on success).
 int LPT_ENTRY(lpt_kerr_dp45)(const void* call, int disk) {
   const KerrCall<Real>& C = *static_cast<const KerrCall<Real>*>(call);
   const Params<Real> P{C.M,        C.a,         C.r_plus,    C.r_obs,
@@ -590,6 +641,7 @@ int LPT_ENTRY(lpt_kerr_dp45)(const void* call, int disk) {
   const DiskParams<Real> D{C.r_in, C.r_out_disk, C.plane_c, C.opaque};
   // the disk variant locates its events on the Hermite interpolant only
   if (disk && C.event_interp) return static_cast<int>(cudaErrorInvalidValue);
+  if (C.chart != 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (C.family) {
     case kKerr: return launch_family<kKerr>(C, P, D, disk);
     case kKerrNewman: return launch_family<kKerrNewman>(C, P, D, disk);
@@ -600,8 +652,11 @@ int LPT_ENTRY(lpt_kerr_dp45)(const void* call, int disk) {
   }
 }
 
-#ifndef LPT_DOUBLE
-// One a library: kerr_dp45.cu's DP45 build, or kerr_dop853.cu's.
+#endif  // LPT_MU
+
+#if !defined(LPT_DOUBLE) && !(defined(LPT_MU) && defined(LPT_DOP853))
+// One a library: kerr_dp45.cu's DP45 build, kerr_dp45_mu.cu's (the
+// library of the mu and Kerr-Newman-extras instances) or kerr_dop853.cu's.
 const char* lpt_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -39,8 +39,12 @@
 // DP45 of this header by default, Hairer's DOP853 (kerr_dop853.cuh) when
 // it defines LPT_DOP853 (the kerr_dop853*.cu files, each of which includes
 // its DP45 sibling; ops/cuda/_build.py links them into a library of their
-// own). LPT_ENTRY names the C entry points of the instance (name,
-// name_f64, name_dop853 or name_dop853_f64), LPT_KERNEL its kernels
+// own). A source that builds another set of instances of the same kernel
+// (the mu chart of the Kerr kernel, *_mu.cu; the Kerr-Newman flow of the
+// extras kernel, *_kn.cu) defines LPT_INFIX (_mu, _kn) first. LPT_ENTRY
+// names the C entry points of the instance (name, then the infix, then
+// _dop853 for the DOP853 pair, then _f64 for double: lpt_kerr_dp45_mu_f64,
+// lpt_kerr_dp45_extras_kn_dop853, ...), LPT_KERNEL its kernels
 // (kerr_dp45_... or kerr_dop853_...).
 
 #pragma once
@@ -53,15 +57,21 @@ typedef double Real;
 typedef float Real;
 #endif
 
-#if defined(LPT_DOP853) && defined(LPT_DOUBLE)
-#define LPT_ENTRY(name) name##_dop853_f64
-#elif defined(LPT_DOP853)
-#define LPT_ENTRY(name) name##_dop853
-#elif defined(LPT_DOUBLE)
-#define LPT_ENTRY(name) name##_f64
-#else
-#define LPT_ENTRY(name) name
+#ifndef LPT_INFIX
+#define LPT_INFIX
 #endif
+#if defined(LPT_DOP853) && defined(LPT_DOUBLE)
+#define LPT_SUFFIX _dop853_f64
+#elif defined(LPT_DOP853)
+#define LPT_SUFFIX _dop853
+#elif defined(LPT_DOUBLE)
+#define LPT_SUFFIX _f64
+#else
+#define LPT_SUFFIX
+#endif
+#define LPT_CAT_(a, b) a##b
+#define LPT_CAT(a, b) LPT_CAT_(a, b)
+#define LPT_ENTRY(name) LPT_CAT(LPT_CAT(name, LPT_INFIX), LPT_SUFFIX)
 
 #ifdef LPT_DOP853
 #define LPT_KERNEL(name) kerr_dop853_##name
@@ -209,15 +219,27 @@ __device__ __forceinline__ bool all_finite(const T (&y)[N]) {
   return ok;
 }
 
+// The mu chart's floor of its mu component's magnitude in the error scale:
+// mu spans [-1, 1] and sits near 0 where theta sits near pi/2, so its
+// error is weighed on the theta scale (|d mu| <= |d theta|).
+template <class T>
+__device__ __forceinline__ T mu_scale_floor(T mag) {
+  return jmax(mag, T(1.5707963267948966));
+}
+
 // The error scale of one component (ops/kerr_trace.py dp45_integrate):
 // in float32 increment-aware, max(|y|, |y5|) + h max(|k1|, |k7|), since
 // there the estimator's own roundoff ~eps h max|k| exceeds atol + rtol |y|
 // where the derivatives spike (the 1/sin^2-stiff polar axis) and the
 // controller would reject forever; float64 keeps the |y|-only scale.
+// mu_floor: the mu chart's mu component (mu_scale_floor before the
+// increment).
 template <class T>
 __device__ __forceinline__ T error_scale(T y, T y5, T k1, T k7, T h_eff,
-                                         T atol, T rtol) {
+                                         T atol, T rtol,
+                                         bool mu_floor = false) {
   T mag = jmax(abs_(y), abs_(y5));
+  if (mu_floor) mag = mu_scale_floor(mag);
   if constexpr (kSingle<T>) mag = mag + h_eff * jmax(abs_(k1), abs_(k7));
   return atol + rtol * mag;
 }
@@ -456,6 +478,135 @@ template <int F, class T>
 __device__ __forceinline__ void rhs5(const T y[5], T p_t, T p_phi,
                                      const Params<T>& P, T out[5]) {
   rhs5_trig<F>(y, sin_(y[1]), cos_(y[1]), p_t, p_phi, P, out);
+}
+
+// Hamilton's equations on the reduced mu-state (r, mu = cos(theta), phi,
+// p_r, p_mu) of Kerr and Kerr-Newman (models/kerr.py rhs5_mu, term for
+// term): the same Hamiltonian after the canonical point transformation,
+// with s = sin^2 = (1 - mu)(1 + mu) floored at 1e-15, so every component
+// is a rational function of (r, mu) and no sin or cos is called.
+// Hard-zeroed inside r <= 1.001 r_+ like rhs5_trig.
+template <int F, class T>
+__device__ __forceinline__ void rhs5_mu(const T y[5], T p_t, T p_phi,
+                                        const Params<T>& P, T out[5]) {
+  static_assert(F == kKerr || F == kKerrNewman,
+                "the mu chart has Kerr's and Kerr-Newman's RHS only");
+  constexpr bool kCharged = F == kKerrNewman;
+  const T M = P.M, a = P.a;
+  const T r = y[0], mu = y[1], p_r = y[3], p_mu = y[4];
+  const bool frozen = r <= P.r_plus * T(1.001);
+  const T r_s = frozen ? T(10.0) * P.r_plus + T(10.0) : r;
+
+  const T a2 = a * a;
+  const T r2 = r_s * r_s;
+  const T s = jmax((T(1.0) - mu) * (T(1.0) + mu), Consts<T>::kSin2Floor);
+  const T Sigma = r2 + a2 * mu * mu;
+  T Delta = r2 - T(2.0) * M * r_s + a2;
+  if constexpr (kCharged) Delta = Delta + P.q2;
+  const T ra2 = r2 + a2;
+  const T A = ra2 * ra2 - a2 * Delta * s;
+  const T W = kCharged ? T(2.0) * M * r_s - P.q2 : T(0.0);
+
+  const T inv_Sigma = T(1.0) / Sigma;
+  const T inv_Delta = T(1.0) / Delta;
+  const T inv_s = T(1.0) / s;
+  const T inv_SD = inv_Sigma * inv_Delta;
+  const T inv_SD2 = inv_SD * inv_SD;
+  const T inv_S2 = inv_Sigma * inv_Sigma;
+
+  const T g_rr = Delta * inv_Sigma;
+  const T g_mumu = s * inv_Sigma;
+  const T g_tphi =
+      kCharged ? -a * W * inv_SD : -T(2.0) * M * a * r_s * inv_SD;
+  const T g_phiphi = (Delta - a2 * s) * inv_SD * inv_s;
+
+  const T dr = g_rr * p_r;
+  const T dmu = g_mumu * p_mu;
+  const T dphi = g_tphi * p_t + g_phiphi * p_phi;
+
+  // radial derivatives (s does not depend on r)
+  const T SD = Sigma * Delta;
+  const T dSigma_dr = T(2.0) * r_s;
+  const T dDelta_dr = T(2.0) * r_s - T(2.0) * M;
+  const T dA_dr = T(4.0) * r_s * ra2 - a2 * dDelta_dr * s;
+  const T dSD_dr = dSigma_dr * Delta + Sigma * dDelta_dr;
+
+  const T dg_tt_dr = -(dA_dr * SD - A * dSD_dr) * inv_SD2;
+  const T dg_tphi_dr =
+      kCharged ? -a * (T(2.0) * M * SD - W * dSD_dr) * inv_SD2
+               : -(T(2.0) * M * a * (SD - r_s * dSD_dr)) * inv_SD2;
+  const T dg_rr_dr = (dDelta_dr * Sigma - Delta * dSigma_dr) * inv_S2;
+  const T dg_mumu_dr = -s * dSigma_dr * inv_S2;
+  const T inv_den_phi = inv_SD * inv_s;
+  const T inv_den_phi2 = inv_den_phi * inv_den_phi;
+  const T den_phi = SD * s;
+  const T num = Delta - a2 * s;
+  const T dg_phiphi_dr =
+      (dDelta_dr * den_phi - num * dSD_dr * s) * inv_den_phi2;
+
+  const T dp_r =
+      -T(0.5) * (dg_tt_dr * p_t * p_t + T(2.0) * dg_tphi_dr * p_t * p_phi +
+                 dg_rr_dr * p_r * p_r + dg_mumu_dr * p_mu * p_mu +
+                 dg_phiphi_dr * p_phi * p_phi);
+
+  // polar (mu) derivatives, all polynomial in mu
+  const T ds_dmu = -T(2.0) * mu;
+  const T dSigma_dmu = T(2.0) * a2 * mu;
+  const T dA_dmu = T(2.0) * a2 * Delta * mu;
+  const T dSD_dmu = dSigma_dmu * Delta;
+
+  const T dg_tt_dmu = -(dA_dmu * SD - A * dSD_dmu) * inv_SD2;
+  const T dg_tphi_dmu = kCharged
+                            ? a * W * dSD_dmu * inv_SD2
+                            : T(2.0) * M * a * r_s * dSD_dmu * inv_SD2;
+  const T dg_rr_dmu = -Delta * dSigma_dmu * inv_S2;
+  const T dg_mumu_dmu = (ds_dmu * Sigma - s * dSigma_dmu) * inv_S2;
+  const T dnum_dmu = T(2.0) * a2 * mu;
+  const T dden_dmu = dSD_dmu * s + SD * ds_dmu;
+  const T dg_phiphi_dmu =
+      (dnum_dmu * den_phi - num * dden_dmu) * inv_den_phi2;
+
+  const T dp_mu =
+      -T(0.5) * (dg_tt_dmu * p_t * p_t + T(2.0) * dg_tphi_dmu * p_t * p_phi +
+                 dg_rr_dmu * p_r * p_r + dg_mumu_dmu * p_mu * p_mu +
+                 dg_phiphi_dmu * p_phi * p_phi);
+
+  out[0] = frozen ? T(0.0) : dr;
+  out[1] = frozen ? T(0.0) : dmu;
+  out[2] = frozen ? T(0.0) : dphi;
+  out[3] = frozen ? T(0.0) : dp_r;
+  out[4] = frozen ? T(0.0) : dp_mu;
+}
+
+// The RHS of a chart: rhs5 (theta) or rhs5_mu (kMu).
+template <int F, bool kMu, class T>
+__device__ __forceinline__ void rhs5_chart(const T y[5], T p_t, T p_phi,
+                                           const Params<T>& P, T out[5]) {
+  if constexpr (kMu) rhs5_mu<F>(y, p_t, p_phi, P, out);
+  else rhs5<F>(y, p_t, p_phi, P, out);
+}
+
+// The canonical point transformations of models/kerr.py: state_to_mu,
+// (r, theta, phi, p_r, p_theta) -> (r, mu, phi, p_r, p_mu) with
+// p_mu = -p_theta / max(sin(theta), sqrt(1e-15)), and state_from_mu, back
+// with theta = acos(clip(mu)) and sin(theta) from (1 - mu)(1 + mu), in
+// place.
+template <class T>
+__device__ __forceinline__ void state_to_mu(T y[5]) {
+  const T sin_th = sin_(y[1]);
+  const T mu = cos_(y[1]);
+  const T sin_safe = jmax(sin_th, T(3.1622776601683794e-08));
+  y[1] = mu;
+  y[4] = -y[4] / sin_safe;
+}
+
+template <class T>
+__device__ __forceinline__ void state_from_mu(T y[5]) {
+  const T mu_c = jclip(y[1], -T(1.0), T(1.0));
+  const T sin_th =
+      sqrt_(jmax((T(1.0) - mu_c) * (T(1.0) + mu_c), Consts<T>::kSin2Floor));
+  y[1] = acos_(mu_c);
+  y[4] = -sin_th * y[4];
 }
 
 // Step fraction where the cubic Hermite interpolant of r crosses target:

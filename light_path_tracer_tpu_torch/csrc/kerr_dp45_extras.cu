@@ -50,10 +50,11 @@ struct VolThin {
   static constexpr int kExtras = 1;
   static constexpr int kAux = 0;
   static constexpr int kMinBlocks = kSingle<T> ? 6 : 7;
+  template <int Fam>
   __device__ static void eval(const T* y, Trig<T> tr, T p_t, T p_phi,
-                              const Params<T>&, const RiafParams<T>& R,
+                              const Params<T>& P, const RiafParams<T>& R,
                               const T*, T* d) {
-    d[0] = source(y, tr.c, p_t, p_phi, R).em;
+    d[0] = source<Fam>(y, tr.c, p_t, p_phi, P, R).em;
   }
 };
 
@@ -63,10 +64,11 @@ struct VolAbsorbed {
   static constexpr int kExtras = 2;
   static constexpr int kAux = 0;
   static constexpr int kMinBlocks = kSingle<T> ? 6 : 7;
+  template <int Fam>
   __device__ static void eval(const T* y, Trig<T> tr, T p_t, T p_phi,
-                              const Params<T>&, const RiafParams<T>& R,
+                              const Params<T>& P, const RiafParams<T>& R,
                               const T*, T* d) {
-    const Source<T> s = source(y, tr.c, p_t, p_phi, R);
+    const Source<T> s = source<Fam>(y, tr.c, p_t, p_phi, P, R);
     d[0] = exp_(-jmax(y[6], T(-30.0))) * s.em;
     d[1] = opacity(s, R);
   }
@@ -78,10 +80,11 @@ struct Spectral {
   static constexpr int kExtras = 1 + kBands;
   static constexpr int kAux = 0;
   static constexpr int kMinBlocks = kSingle<T> ? (kBands <= 3 ? 5 : 8) : 3;
+  template <int Fam>
   __device__ static void eval(const T* y, Trig<T> tr, T p_t, T p_phi,
-                              const Params<T>&, const RiafParams<T>& R,
+                              const Params<T>& P, const RiafParams<T>& R,
                               const T*, T* d) {
-    const Source<T> s = source(y, tr.c, p_t, p_phi, R);
+    const Source<T> s = source<Fam>(y, tr.c, p_t, p_phi, P, R);
     d[0] = R.geometry
                ? R.alpha0 * s.j
                : R.alpha0 * s.j * pow_(jmax(s.g, T(0.1)), R.q_minus_1);

@@ -12,7 +12,8 @@
 // saturation and frozen-state exits, the exact-cycle exit, the angle
 // extraction of kerr_dp45_common.cuh), and the launch helpers. A functor is
 //   template <class T> struct F { static constexpr int kExtras, kAux,
-//     kMinBlocks; static void eval(y, tr, p_t, p_phi, P, R, aux, d); }
+//     kMinBlocks; template <int Fam> static void eval(y, tr, p_t, p_phi,
+//     P, R, aux, d); }
 // with d the kExtras derivatives at state y, tr the sine and cosine of
 // y[1] (computed once an evaluation for the geodesic and the transfer
 // function alike) and aux the ray's kAux per-ray constants (read once
@@ -48,6 +49,18 @@
 // in double; the float instance gets it rounded once), r^1.5 and g^p are
 // pow, sigmoid is 1 / (1 + exp(-x)).
 //
+// Metric family: Kerr, or Kerr-Newman in the sources that define LPT_KN
+// (kerr_dp45_extras_kn.cu, _movie_thin_kn, _movie_absorbed_kn, _orders_kn
+// and their _f64 and DOP853 siblings; entries *_kn*): a template argument
+// Fam of the kernel, handed to the geodesic (rhs5_trig, initial_state,
+// finalize) and to the functor's eval, whose flow then takes W = 2Mr -
+// Q^2 and Delta + Q^2, and the charged Keplerian Omega = +-x / (r^2 +- a
+// x), x = sqrt(Mr - Q^2) (volumetric._profile_fns; disk.keplerian_omega),
+// in place of kep_num / (r^1.5 + kep_add). The Kerr instances compile to
+// the code they compiled to before the family existed. The Stokes form
+// has no Kerr-Newman instances (the JAX package's polarized volumetric
+// transfer is Kerr-only).
+//
 // Embedded pair: DP45 in the kerr_dp45_*.cu sources; the kerr_dop853_*.cu
 // sources include their DP45 siblings with LPT_DOP853 and build every
 // functor with Hairer's DOP853 instead (kerr_dop853.cuh: 12 RHS
@@ -67,6 +80,12 @@ constexpr int kMaxBands = 8;
 constexpr int kMaxFrames = 8;
 constexpr int kMaxAux = 4;
 
+#ifdef LPT_KN
+constexpr int kExtrasFamily = kKerrNewman;
+#else
+constexpr int kExtrasFamily = kKerr;
+#endif
+
 enum Profile { kTorus = 0, kPowerlaw = 1, kShell = 2, kJet = 3 };
 enum Field { kVertical = 0, kToroidal = 1, kRadial = 2 };
 
@@ -77,7 +96,9 @@ struct RiafParams {
   int profile;     // Profile
   int geometry;    // 1: g_power == 0, path length only (no redshift)
   T two_M, a, a2;       // 2 M, a, a^2
-  T kep_num, kep_add;   // Omega_K = kep_num / (r^1.5 + kep_add)
+  // Omega_K = kep_num / (r^1.5 + kep_add); Kerr-Newman: kep_num x /
+  // (r^2 + kep_add x) with kep_num = +-1, kep_add = +-a
+  T kep_num, kep_add;
   T r_peak, two_sig_r2, two_h2, index;
   T shell_in, shell_out, edge_width;
   T jet_cos, two_jet_sig2, jet_r_base, jet_beta, jet_gamma;
@@ -134,14 +155,44 @@ __device__ __forceinline__ T j_rest(T r, T c, const RiafParams<T>& R) {
   }
 }
 
+// The family's g^tphi numerator W = 2Mr (Kerr-Newman: 2Mr - Q^2) and
+// Delta = r^2 - 2Mr + a^2 (+ Q^2), and the Keplerian angular velocity of
+// the flow at r (disk.keplerian_omega).
+template <int Fam, class T>
+__device__ __forceinline__ T flow_W(T r, const Params<T>& P,
+                                    const RiafParams<T>& R) {
+  if constexpr (Fam == kKerrNewman) return R.two_M * r - P.q2;
+  else return R.two_M * r;
+}
+
+template <int Fam, class T>
+__device__ __forceinline__ T flow_Delta(T r, const Params<T>& P,
+                                        const RiafParams<T>& R) {
+  if constexpr (Fam == kKerrNewman)
+    return r * r - R.two_M * r + R.a2 + P.q2;
+  else return r * r - R.two_M * r + R.a2;
+}
+
+template <int Fam, class T>
+__device__ __forceinline__ T kepler_omega(T r, const Params<T>& P,
+                                          const RiafParams<T>& R) {
+  if constexpr (Fam == kKerrNewman) {
+    const T x = sqrt_(jmax(P.M * r - P.q2, T(0.0)));
+    return R.kep_num * x / (r * r + R.kep_add * x);
+  } else {
+    return R.kep_num / (pow_(r, T(1.5)) + R.kep_add);
+  }
+}
+
 // Circular-emitter redshift g = nu_obs / nu_em off the plane, clipped to
 // [0, 10]: Keplerian where that orbit is timelike, ZAMO inside.
-template <class T>
+template <int Fam, class T>
 __device__ __forceinline__ T g_circular(T r, T c, T p_t, T p_phi,
+                                        const Params<T>& P,
                                         const RiafParams<T>& R) {
   const T s2 = jmax(T(1.0) - c * c, T(1e-12));
-  const T W = R.two_M * r;
-  const T Delta = r * r - R.two_M * r + R.a2;
+  const T W = flow_W<Fam>(r, P, R);
+  const T Delta = flow_Delta<Fam>(r, P, R);
   const T ra2 = r * r + R.a2;
   const T A = ra2 * ra2 - R.a2 * Delta * s2;
   // covariant t-phi block (disk.covariant_tphi_components)
@@ -149,7 +200,7 @@ __device__ __forceinline__ T g_circular(T r, T c, T p_t, T p_phi,
   const T g_tt = -(T(1.0) - W / Sigma);
   const T g_tph = -R.a * W * s2 / Sigma;
   const T g_pp = (ra2 + R.a2 * W * s2 / Sigma) * s2;
-  const T om_k = R.kep_num / (pow_(r, T(1.5)) + R.kep_add);
+  const T om_k = kepler_omega<Fam>(r, P, R);
   const T om_z = R.a * W / jmax(A, T(1e-30));
   const T tl_k = -(g_tt + T(2.0) * om_k * g_tph + om_k * om_k * g_pp);
   const T om = tl_k > T(1e-3) ? om_k : om_z;
@@ -162,12 +213,13 @@ __device__ __forceinline__ T g_circular(T r, T c, T p_t, T p_phi,
 
 // Redshift of the jet's emitter, moving radially outward at jet_beta in
 // the ZAMO frame (p_r is the traced radial momentum), clipped to [0, 10].
-template <class T>
+template <int Fam, class T>
 __device__ __forceinline__ T g_jet(T r, T c, T p_r, T p_t, T p_phi,
+                                   const Params<T>& P,
                                    const RiafParams<T>& R) {
   const T s2 = jmax(T(1.0) - c * c, T(1e-12));
-  const T W = R.two_M * r;
-  const T Delta = jmax(r * r - R.two_M * r + R.a2, T(1e-12));
+  const T W = flow_W<Fam>(r, P, R);
+  const T Delta = jmax(flow_Delta<Fam>(r, P, R), T(1e-12));
   const T Sigma = jmax(r * r + R.a2 * c * c, T(1e-12));
   const T ra2 = r * r + R.a2;
   const T A = jmax(ra2 * ra2 - R.a2 * Delta * s2, T(1e-30));
@@ -183,15 +235,16 @@ __device__ __forceinline__ T g_jet(T r, T c, T p_r, T p_t, T p_phi,
 }
 
 // The rest-frame emissivity j, the emitter redshift g, the redshift
-// weight w = g^p and the emission em = j w at state y with c = cos(y[1]);
-// g and w are 1 in the pure-geometry mode.
+// weight w = g^p and the emission em = j w at state y with c = cos(y[1])
+// in family Fam's flow; g and w are 1 in the pure-geometry mode.
 template <class T>
 struct Source {
   T j, g, w, em;
 };
 
-template <class T>
+template <int Fam, class T>
 __device__ __forceinline__ Source<T> source(const T* y, T c, T p_t, T p_phi,
+                                            const Params<T>& P,
                                             const RiafParams<T>& R) {
   Source<T> s;
   s.j = j_rest(y[0], c, R);
@@ -200,8 +253,8 @@ __device__ __forceinline__ Source<T> source(const T* y, T c, T p_t, T p_phi,
     s.w = T(1.0);
     s.em = s.j;
   } else {
-    s.g = R.profile == kJet ? g_jet(y[0], c, y[3], p_t, p_phi, R)
-                            : g_circular(y[0], c, p_t, p_phi, R);
+    s.g = R.profile == kJet ? g_jet<Fam>(y[0], c, y[3], p_t, p_phi, P, R)
+                            : g_circular<Fam>(y[0], c, p_t, p_phi, P, R);
     s.w = pow_(s.g, R.g_power);
     s.em = s.j * s.w;
   }
@@ -222,16 +275,17 @@ struct Trig {
   T s, c;
 };
 
-// The full right-hand side: the geodesic's five components, then the
-// functor's extras. aux holds the ray's F::kAux per-ray constants.
-template <class F, class T, int N>
+// The full right-hand side of family Fam: the geodesic's five
+// components, then the functor's extras. aux holds the ray's F::kAux
+// per-ray constants.
+template <class F, int Fam, class T, int N>
 __device__ __forceinline__ void rhs_full(const T (&y)[N], T p_t, T p_phi,
                                          const Params<T>& P,
                                          const RiafParams<T>& R,
                                          const T* aux, T (&out)[N]) {
   const Trig<T> tr{sin_(y[1]), cos_(y[1])};
-  rhs5_trig(y, tr.s, tr.c, p_t, p_phi, P, out);
-  F::eval(y, tr, p_t, p_phi, P, R, aux, out + 5);
+  rhs5_trig<Fam>(y, tr.s, tr.c, p_t, p_phi, P, out);
+  F::template eval<Fam>(y, tr, p_t, p_phi, P, R, aux, out + 5);
 }
 
 // One call of a C entry point, filled by the Python wrapper
@@ -244,7 +298,9 @@ __device__ __forceinline__ void rhs_full(const T (&y)[N], T p_t, T p_phi,
 // bit 2 the frozen-state exit; steps (the per-ray attempts) and census
 // (CycleWatch::census) may be null; warp_steps is one int64, zeroed before
 // the launch. form and variant pick the functor within a source file;
-// cycle_exit = 0 grinds exact cycles instead of counting them.
+// cycle_exit = 0 grinds exact cycles instead of counting them; family is
+// the metric family (kKerr, or kKerrNewman for the *_kn entries) and q2
+// Kerr-Newman's Q^2.
 template <class T>
 struct ExtrasCall {
   const T *alpha, *theta;
@@ -256,17 +312,17 @@ struct ExtrasCall {
   void* stream;
   int n, form, variant, max_steps, sat_window;
   unsigned int sat_monitor;
-  int cycle_exit;
+  int cycle_exit, family;
   T M, a, r_plus, r_obs, theta_obs, lambda_max, atol, rtol, h_min,
-      tiny_err, h_init, r_capture, r_reclass, sat_r_max;
+      tiny_err, h_init, r_capture, r_reclass, sat_r_max, q2;
 };
 
 // The wrapper mirrors both structs with ctypes (natural alignment:
 // pointers first, then the 4-byte members, then the scalars of T).
 static_assert(sizeof(RiafParams<float>) == 240, "RiafParams layout");
 static_assert(sizeof(RiafParams<double>) == 472, "RiafParams64 layout");
-static_assert(sizeof(ExtrasCall<float>) == 208, "ExtrasCall layout");
-static_assert(sizeof(ExtrasCall<double>) == 264, "ExtrasCall64 layout");
+static_assert(sizeof(ExtrasCall<float>) == 216, "ExtrasCall layout");
+static_assert(sizeof(ExtrasCall<double>) == 272, "ExtrasCall64 layout");
 
 // The window test of the saturation and frozen-state exits after the
 // counters moved: ends the lane (lambda = lambda_max) and flags the exit.
@@ -283,9 +339,10 @@ __device__ __forceinline__ void window_exit(const SatParams<T>& S,
   }
 }
 
-// The ray kernel, one thread per ray; an SM must be able to hold the
-// functor's kMinBlocks of its blocks at once (see the head of this file).
-template <class F, class T>
+// The ray kernel of family Fam, one thread per ray; an SM must be able
+// to hold the functor's kMinBlocks of its blocks at once (see the head of
+// this file).
+template <class F, class T, int Fam>
 __global__ void __launch_bounds__(kThreads, F::kMinBlocks)
 LPT_KERNEL(extras_kernel)(ExtrasCall<T> C, Params<T> P, RiafParams<T> R,
                           SatParams<T> S) {
@@ -296,7 +353,7 @@ LPT_KERNEL(extras_kernel)(ExtrasCall<T> C, Params<T> P, RiafParams<T> R,
   int steps = 0;
 
   if (i < n) {
-    const RayStart<T> S0 = initial_state(C.alpha[i], C.theta[i], P);
+    const RayStart<T> S0 = initial_state<Fam>(C.alpha[i], C.theta[i], P);
     // The ray's auxiliary constants, read once into registers.
     T aux[F::kAux > 0 ? F::kAux : 1];
 #pragma unroll
@@ -310,7 +367,7 @@ LPT_KERNEL(extras_kernel)(ExtrasCall<T> C, Params<T> P, RiafParams<T> R,
 #pragma unroll
     for (int c = 0; c < N; ++c) y[c] = c < 5 ? S0.y[c] : T(0.0);
     T k1[N];
-    rhs_full<F>(y, p_t, p_phi, P, R, aux, k1);
+    rhs_full<F, Fam>(y, p_t, p_phi, P, R, aux, k1);
     T h = P.h_init;
     T lam = T(0.0);
     int status = S0.bad_obs ? kInvalid : kRunning;
@@ -335,40 +392,40 @@ LPT_KERNEL(extras_kernel)(ExtrasCall<T> C, Params<T> P, RiafParams<T> R,
       const T err_norm = dop853_stages(
           y, k1, h_eff, P.atol, P.rtol,
           [&](const T(&ys)[N], T(&out)[N]) {
-            rhs_full<F>(ys, p_t, p_phi, P, R, aux, out);
+            rhs_full<F, Fam>(ys, p_t, p_phi, P, R, aux, out);
           },
           y5, k7, finite_ok);
 #else
       T yt[N], k2[N], k3[N], k4[N], k5[N], k6[N], y5[N], k7[N];
 #pragma unroll
       for (int c = 0; c < N; ++c) yt[c] = y[c] + h_eff * (K::A21 * k1[c]);
-      rhs_full<F>(yt, p_t, p_phi, P, R, aux, k2);
+      rhs_full<F, Fam>(yt, p_t, p_phi, P, R, aux, k2);
 #pragma unroll
       for (int c = 0; c < N; ++c)
         yt[c] = y[c] + h_eff * (K::A31 * k1[c] + K::A32 * k2[c]);
-      rhs_full<F>(yt, p_t, p_phi, P, R, aux, k3);
+      rhs_full<F, Fam>(yt, p_t, p_phi, P, R, aux, k3);
 #pragma unroll
       for (int c = 0; c < N; ++c)
         yt[c] = y[c] + h_eff * (K::A41 * k1[c] + K::A42 * k2[c] +
                                 K::A43 * k3[c]);
-      rhs_full<F>(yt, p_t, p_phi, P, R, aux, k4);
+      rhs_full<F, Fam>(yt, p_t, p_phi, P, R, aux, k4);
 #pragma unroll
       for (int c = 0; c < N; ++c)
         yt[c] = y[c] + h_eff * (K::A51 * k1[c] + K::A52 * k2[c] +
                                 K::A53 * k3[c] + K::A54 * k4[c]);
-      rhs_full<F>(yt, p_t, p_phi, P, R, aux, k5);
+      rhs_full<F, Fam>(yt, p_t, p_phi, P, R, aux, k5);
 #pragma unroll
       for (int c = 0; c < N; ++c)
         yt[c] = y[c] + h_eff * (K::A61 * k1[c] + K::A62 * k2[c] +
                                 K::A63 * k3[c] + K::A64 * k4[c] +
                                 K::A65 * k5[c]);
-      rhs_full<F>(yt, p_t, p_phi, P, R, aux, k6);
+      rhs_full<F, Fam>(yt, p_t, p_phi, P, R, aux, k6);
 #pragma unroll
       for (int c = 0; c < N; ++c)
         y5[c] = y[c] + h_eff * (K::B1 * k1[c] + K::B3 * k3[c] +
                                 K::B4 * k4[c] + K::B5 * k5[c] +
                                 K::B6 * k6[c]);
-      rhs_full<F>(y5, p_t, p_phi, P, R, aux, k7);
+      rhs_full<F, Fam>(y5, p_t, p_phi, P, R, aux, k7);
 
       const bool finite_ok = all_finite(y5) && (y5[0] > T(0.0));
 
@@ -488,7 +545,8 @@ LPT_KERNEL(extras_kernel)(ExtrasCall<T> C, Params<T> P, RiafParams<T> R,
     }
 
     if (status == kRunning && lam < lam_max) flags |= 1u;
-    const Final<T> Fin = finalize(y, p_t, p_phi, status, C.r_reclass, P);
+    const Final<T> Fin =
+        finalize<Fam>(y, p_t, p_phi, status, C.r_reclass, P);
 #pragma unroll
     for (int e = 0; e < F::kExtras; ++e)
       C.extras[static_cast<size_t>(e) * n + i] =
@@ -521,12 +579,17 @@ struct Prepared {
 
 inline bool begin(const ExtrasCall<Real>& C, const void* riaf, Prepared* out,
                   cudaError_t* err) {
+  if (C.family != kExtrasFamily) {
+    *err = cudaErrorInvalidValue;
+    return false;
+  }
   *err = cudaMemsetAsync(C.warp_steps, 0, sizeof(unsigned long long),
                          static_cast<cudaStream_t>(C.stream));
   if (*err != cudaSuccess || C.n <= 0) return false;
   out->P = Params<Real>{C.M,    C.a,    C.r_plus, C.r_obs, C.theta_obs,
                         C.lambda_max, C.max_steps, C.atol, C.rtol, C.atol,
-                        C.rtol, C.h_min, C.tiny_err, C.h_init, C.r_capture};
+                        C.rtol, C.h_min, C.tiny_err, C.h_init, C.r_capture,
+                        C.q2};
   out->R = *static_cast<const RiafParams<Real>*>(riaf);
   out->S = SatParams<Real>{C.sat_window, C.sat_monitor, C.sat_r_max};
   return true;
@@ -534,7 +597,7 @@ inline bool begin(const ExtrasCall<Real>& C, const void* riaf, Prepared* out,
 
 template <class F>
 int launch(const ExtrasCall<Real>& C, const Prepared& K) {
-  LPT_KERNEL(extras_kernel)<F, Real>
+  LPT_KERNEL(extras_kernel)<F, Real, kExtrasFamily>
       <<<(C.n + kThreads - 1) / kThreads, kThreads, 0,
          static_cast<cudaStream_t>(C.stream)>>>(C, K.P, K.R, K.S);
   return static_cast<int>(cudaGetLastError());
@@ -548,11 +611,13 @@ template <class F>
 int describe(int* out) {
   cudaFuncAttributes attr;
   cudaError_t err =
-      cudaFuncGetAttributes(&attr, LPT_KERNEL(extras_kernel)<F, Real>);
+      cudaFuncGetAttributes(&attr,
+                            LPT_KERNEL(extras_kernel)<F, Real, kExtrasFamily>);
   int blocks = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, LPT_KERNEL(extras_kernel)<F, Real>, kThreads, 0);
+        &blocks, LPT_KERNEL(extras_kernel)<F, Real, kExtrasFamily>, kThreads,
+        0);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = blocks;
   out[1] = attr.numRegs;

@@ -43,22 +43,33 @@ struct Movie {
   static constexpr int kMinBlocks =
       kSingle<T> ? (kAbsorbing ? 7 : (kFrames <= 5 ? 5 : 4))
                  : (kAbsorbing && kFrames > 5 ? 7 : 3);
-  __device__ static void eval(const T* y, Trig<T> tr, T p_t, T p_phi,
-                              const Params<T>& P, const RiafParams<T>& R,
-                              const T*, T* d) {
+  // Forced inline: the Kerr Movie<8> absorbed instance, the one with the
+  // most spill traffic, changes its time with nvcc's code placement alone
+  // at the same registers and spills (PERF.md §6).
+  template <int Fam>
+  __device__ __forceinline__ static void eval(const T* y, Trig<T> tr,
+                                              T p_t, T p_phi,
+                                              const Params<T>& P,
+                                              const RiafParams<T>& R,
+                                              const T*, T* d) {
     const T r = y[0], phi = y[2], t = y[5];
     const T sin_th = tr.s, cos_th = tr.c;
-    const Source<T> s = source(y, cos_th, p_t, p_phi, R);
+    const Source<T> s = source<Fam>(y, cos_th, p_t, p_phi, P, R);
 
-    // dt/dlambda from the contravariant metric (models/kerr.py tdot)
+    // dt/dlambda from the contravariant metric (models/kerr.py tdot;
+    // Kerr-Newman's Delta and g^tphi carry Q^2, kerr_newman.py)
     const T sin2 = jmax(sin_th * sin_th, Consts<T>::kSin2Floor);
     const T r2 = r * r, a2 = P.a * P.a;
     const T Sigma = r2 + a2 * cos_th * cos_th;
-    const T Delta = r2 - T(2.0) * P.M * r + a2;
+    T Delta = r2 - T(2.0) * P.M * r + a2;
+    if constexpr (Fam == kKerrNewman) Delta = Delta + P.q2;
     const T ra2 = r2 + a2;
     const T A = ra2 * ra2 - a2 * Delta * sin2;
     const T SD = Sigma * Delta;
-    d[0] = -A / SD * p_t + -T(2.0) * P.M * P.a * r / SD * p_phi;
+    if constexpr (Fam == kKerrNewman)
+      d[0] = -A / SD * p_t + -P.a * (T(2.0) * P.M * r - P.q2) / SD * p_phi;
+    else
+      d[0] = -A / SD * p_t + -T(2.0) * P.M * P.a * r / SD * p_phi;
 
     T weight = s.w;
     if (kAbsorbing) {

@@ -34,12 +34,13 @@ struct Order {
   static constexpr int kAux = 0;
   static constexpr int kMinBlocks =
       kSingle<T> ? (kAbsorbing ? 7 : 6) : (kAbsorbing ? 6 : 3);
+  template <int Fam>
   __device__ static void eval(const T* y, Trig<T> tr, T p_t, T p_phi,
-                              const Params<T>&, const RiafParams<T>& R,
+                              const Params<T>& P, const RiafParams<T>& R,
                               const T*, T* d) {
     const T r = y[0];
     const T c = tr.c;
-    const Source<T> s = source(y, c, p_t, p_phi, R);
+    const Source<T> s = source<Fam>(y, c, p_t, p_phi, P, R);
     const T sigma_bl = r * r + R.a2 * c * c;
     d[0] = R.order_norm * exp_(-c * c * R.order_inv_two_sig2) *
            abs_(tr.s) * abs_(y[4]) / sigma_bl;

@@ -40,12 +40,14 @@ struct Stokes {
   static constexpr int kExtras = 3;
   static constexpr int kAux = 4;
   static constexpr int kMinBlocks = kSingle<T> ? 4 : 3;
+  template <int Fam>
   __device__ static void eval(const T* y, Trig<T> tr, T p_t, T p_phi,
-                              const Params<T>&, const RiafParams<T>& R,
+                              const Params<T>& P, const RiafParams<T>& R,
                               const T* aux, T* d) {
+    static_assert(Fam == kKerr, "the Stokes transfer is Kerr-only");
     const T r = y[0], p_r = y[3], p_th = y[4];
     const T sin_th = tr.s, cos_th = tr.c;
-    const Source<T> s = source(y, cos_th, p_t, p_phi, R);
+    const Source<T> s = source<Fam>(y, cos_th, p_t, p_phi, P, R);
     const T r2 = r * r;
 
     // photon k^mu from the contravariant metric (E = 1, L = p_phi)

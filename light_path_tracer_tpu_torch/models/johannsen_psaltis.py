@@ -225,6 +225,11 @@ class JohannsenPsaltis(Kerr):
         out = torch.stack((dr, dth, dphi, -dHr, -dHt))
         return torch.where(frozen, torch.zeros_like(out), out)
 
+    def rhs5_mu(self, state5, p_t, p_phi):
+        raise NotImplementedError(
+            "the mu = cos(theta) chart is wired for the hand-derived "
+            "Kerr/Kerr-Newman RHS only; JP integrates in theta form")
+
     def plunge_radii(self, r_obs, alphas, thetas, theta_obs):
         """The certain-plunge exit is off (radius 0 on every ray): its
         photon-orbit band argument needs Carter separability."""

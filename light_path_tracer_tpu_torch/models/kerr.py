@@ -8,7 +8,12 @@ the shadow main path:
   * the batched hot path over torch tensors: screen -> conserved-quantity
     initial conditions, Hamilton's equations on the reduced 5-D state
     [r, theta, phi, p_r, p_theta] (`rhs5`), the coordinate-time rate
-    (`tdot`), the certain-plunge radius, and the final-angle extraction.
+    (`tdot`), the certain-plunge radius, and the final-angle extraction;
+  * the mu = cos(theta) chart: the canonical point transformation to and
+    from [r, mu, phi, p_r, p_mu] (`state_to_mu`, `state_from_mu`), its
+    transcendental-free RHS (`rhs5_mu`), and the launch-time mask of rays
+    that pass near the polar axis, where that chart is ill-conditioned
+    (`pole_risk`; the hybrid tracer re-traces them in theta).
 
 Every batched method computes in the dtype of its input tensors, with the
 metric parameters as 0-dim tensors of that dtype, in the same operation
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from light_path_tracer_tpu_torch.models.base import Metric
+from light_path_tracer_tpu_torch.operands import kernel_operand
 
 _SIN2_FLOOR = 1e-15
 
@@ -188,6 +194,33 @@ class Kerr(Metric):
         return torch.where(eta >= 0.0, 0.999 * r_pro,
                            torch.zeros_like(eta)).to(alphas.dtype)
 
+    def pole_risk(self, r_obs, alphas, thetas, theta_obs, s_thresh=1e-4):
+        """Per-ray mask: will this ray approach the polar axis?
+
+        The polar potential turns at sin^2(theta)_min ~ L^2 / (Q + a^2
+        E^2), so rays of small conserved L pass close to the axis, where
+        p_mu diverges like 1/sin(theta): the one place the mu chart is
+        ill-conditioned. Vortical rays (Q <= 0) are flagged too. Delta is
+        Kerr's r^2 - 2Mr + a^2 for every subclass, as in the JAX package
+        (Kerr-Newman inherits this method there unchanged).
+        """
+        M, a = _scalar(self.M, alphas), _scalar(self.a, alphas)
+        th = _scalar(theta_obs, alphas)
+        sin_th, cos_th = torch.sin(th), torch.cos(th)
+        r = _scalar(r_obs, alphas)
+        Sigma = r * r + a * a * cos_th * cos_th
+        Delta = r * r - 2.0 * M * r + a * a
+        rho = r * torch.sin(alphas) * torch.sqrt(Sigma) / torch.sqrt(
+            torch.clamp(Delta, min=1e-30))
+        alpha_s = -rho * torch.sin(thetas)
+        beta_s = -rho * torch.cos(thetas)
+        L = -alpha_s * sin_th
+        Q = (beta_s * beta_s
+             + cos_th * cos_th * (alpha_s * alpha_s - a * a))
+        L2 = L * L
+        denom = torch.clamp(Q + a * a + L2, min=1e-30)
+        return (Q <= 0.0) | (L2 < s_thresh * denom)
+
     def initial_conditions_5d(self, r_obs, alphas, thetas, theta_obs):
         """Screen angles -> reduced 5-D state + conserved momenta.
 
@@ -240,6 +273,30 @@ class Kerr(Metric):
         phi0 = torch.zeros_like(alphas)
         p_t_b = p_t.expand(alphas.shape)
         return (r0, th0, phi0, p_r, p_th), p_t_b, p_phi, invalid
+
+    @staticmethod
+    def state_to_mu(y):
+        """(r, theta, phi, p_r, p_theta) -> (r, mu, phi, p_r, p_mu), a
+        tuple of tensors or a (5, N) tensor: mu = cos(theta), p_mu =
+        -p_theta / sin(theta) (an exact canonical point transformation, so
+        the same geodesics), sin(theta) floored at sqrt(1e-15)."""
+        r, th, phi, p_r, p_th = y
+        sin_th = torch.sin(th)
+        mu = torch.cos(th)
+        sin_safe = torch.clamp(sin_th, min=math.sqrt(_SIN2_FLOOR))
+        return (r, mu, phi, p_r, -p_th / sin_safe)
+
+    @staticmethod
+    def state_from_mu(y):
+        """(r, mu, phi, p_r, p_mu) -> (r, theta, phi, p_r, p_theta), with
+        sin(theta) from (1 - mu)(1 + mu), which is better conditioned than
+        1 - mu^2 near the poles."""
+        r, mu, phi, p_r, p_mu = y
+        mu_c = torch.clamp(mu, -1.0, 1.0)
+        th = torch.arccos(mu_c)
+        sin_th = torch.sqrt(torch.clamp((1.0 - mu_c) * (1.0 + mu_c),
+                                        min=_SIN2_FLOOR))
+        return (r, th, phi, p_r, -sin_th * p_mu)
 
     def rhs5(self, state5, p_t, p_phi):
         """Hamilton's equations on the reduced 5-D theta-state, batched.
@@ -346,6 +403,108 @@ class Kerr(Metric):
         out = torch.stack((dr, dth, dphi, dp_r, dp_th))
         return torch.where(frozen, torch.zeros_like(out), out)
 
+    def rhs5_mu(self, state5, p_t, p_phi):
+        """Hamilton's equations on the reduced 5-D mu-state, batched.
+
+        state5 = (r, mu, phi, p_r, p_mu) with mu = cos(theta): the same
+        Hamiltonian as `rhs5` after the canonical transformation (g^mumu
+        = s / Sigma with s = sin^2 = (1 - mu)(1 + mu)), so every component
+        is a rational function of (r, mu), with no transcendental
+        function. Hard-zeroed inside r <= 1.001 r_+ like rhs5; returns a
+        (5, N) tensor.
+        """
+        r, mu, _phi, p_r, p_mu = state5
+        M, a = _scalar(self.M, r), _scalar(self.a, r)
+        r_plus = _scalar(self.r_plus, r)
+
+        frozen = r <= r_plus * 1.001
+        r_s = torch.where(frozen, 10.0 * r_plus + 10.0, r)
+
+        a2 = a * a
+        r2 = r_s * r_s
+        s = torch.clamp((1.0 - mu) * (1.0 + mu), min=_SIN2_FLOOR)
+        Sigma = r2 + a2 * mu * mu
+        Delta = r2 - 2.0 * M * r_s + a2
+        q2 = self._q2
+        if q2:
+            Delta = Delta + q2                 # Kerr-Newman
+        ra2 = r2 + a2
+        A = ra2 * ra2 - a2 * Delta * s
+
+        inv_Sigma = 1.0 / Sigma
+        inv_Delta = 1.0 / Delta
+        inv_s = 1.0 / s
+        inv_SD = inv_Sigma * inv_Delta
+        inv_SD2 = inv_SD * inv_SD
+        inv_S2 = inv_Sigma * inv_Sigma
+
+        g_rr = Delta * inv_Sigma
+        g_mumu = s * inv_Sigma
+        if q2:
+            W = 2.0 * M * r_s - q2
+            g_tphi = -a * W * inv_SD
+        else:
+            g_tphi = -2.0 * M * a * r_s * inv_SD
+        g_phiphi = (Delta - a2 * s) * inv_SD * inv_s
+
+        dr = g_rr * p_r
+        dmu = g_mumu * p_mu
+        dphi = g_tphi * p_t + g_phiphi * p_phi
+
+        # -- radial derivatives (s does not depend on r) --
+        SD = Sigma * Delta
+        dSigma_dr = 2.0 * r_s
+        dDelta_dr = 2.0 * r_s - 2.0 * M
+        dA_dr = 4.0 * r_s * ra2 - a2 * dDelta_dr * s
+        dSD_dr = dSigma_dr * Delta + Sigma * dDelta_dr
+
+        dg_tt_dr = -(dA_dr * SD - A * dSD_dr) * inv_SD2
+        if q2:
+            dg_tphi_dr = -a * (2.0 * M * SD - W * dSD_dr) * inv_SD2
+        else:
+            dg_tphi_dr = -(2.0 * M * a * (SD - r_s * dSD_dr)) * inv_SD2
+        dg_rr_dr = (dDelta_dr * Sigma - Delta * dSigma_dr) * inv_S2
+        dg_mumu_dr = -s * dSigma_dr * inv_S2
+        inv_den_phi = inv_SD * inv_s
+        inv_den_phi2 = inv_den_phi * inv_den_phi
+        den_phi = SD * s
+        num = Delta - a2 * s
+        dg_phiphi_dr = (dDelta_dr * den_phi
+                        - num * dSD_dr * s) * inv_den_phi2
+
+        dp_r = -0.5 * (dg_tt_dr * p_t * p_t
+                       + 2.0 * dg_tphi_dr * p_t * p_phi
+                       + dg_rr_dr * p_r * p_r
+                       + dg_mumu_dr * p_mu * p_mu
+                       + dg_phiphi_dr * p_phi * p_phi)
+
+        # -- polar (mu) derivatives, all polynomial in mu --
+        ds_dmu = -2.0 * mu
+        dSigma_dmu = 2.0 * a2 * mu
+        dA_dmu = 2.0 * a2 * Delta * mu
+        dSD_dmu = dSigma_dmu * Delta
+
+        dg_tt_dmu = -(dA_dmu * SD - A * dSD_dmu) * inv_SD2
+        if q2:
+            dg_tphi_dmu = a * W * dSD_dmu * inv_SD2
+        else:
+            dg_tphi_dmu = 2.0 * M * a * r_s * dSD_dmu * inv_SD2
+        dg_rr_dmu = -Delta * dSigma_dmu * inv_S2
+        dg_mumu_dmu = (ds_dmu * Sigma - s * dSigma_dmu) * inv_S2
+        dnum_dmu = 2.0 * a2 * mu
+        dden_dmu = dSD_dmu * s + SD * ds_dmu
+        dg_phiphi_dmu = (dnum_dmu * den_phi
+                         - num * dden_dmu) * inv_den_phi2
+
+        dp_mu = -0.5 * (dg_tt_dmu * p_t * p_t
+                        + 2.0 * dg_tphi_dmu * p_t * p_phi
+                        + dg_rr_dmu * p_r * p_r
+                        + dg_mumu_dmu * p_mu * p_mu
+                        + dg_phiphi_dmu * p_phi * p_phi)
+
+        out = torch.stack((dr, dmu, dphi, dp_r, dp_mu))
+        return torch.where(frozen, torch.zeros_like(out), out)
+
     def tdot(self, state5, p_t, p_phi):
         """Coordinate-time rate dt/dlambda = g^tt p_t + g^tphi p_phi
         along the reduced flow: the t-row of the full Hamiltonian system
@@ -366,7 +525,9 @@ class Kerr(Metric):
         M, a = _scalar(self.M, r_f), _scalar(self.a, r_f)
         r_capture = self.capture_radius()
 
-        n_half = torch.floor(torch.abs(phi_f) / math.pi).to(torch.int32)
+        # the kernel divides by pi (light_path_tracer_tpu_torch/operands.py)
+        n_half = torch.floor(torch.abs(phi_f)
+                             / kernel_operand(math.pi, phi_f)).to(torch.int32)
         is_captured = captured | (r_f <= r_capture * 1.1)
         bad_state = ~(torch.isfinite(r_f) & torch.isfinite(th_f)
                       & torch.isfinite(phi_f))

@@ -80,8 +80,13 @@ def trace_batch(metric, r_obs, alphas, thetas=None, theta_obs=math.pi / 2,
     stable sort, so ties keep their input order) and padded with easy
     far-field rays; n_steps sums the chunks' counts on the device.
     integrator: "dp45" or "dop853"; event_interp: "hermite" or "linear";
-    any other value raises ValueError. Progress bars, chunk stores, the
-    fixed-step "rk4" and the mu chart raise NotImplementedError until they
+    any other value raises ValueError. formulation="mu" traces each batch
+    (or chunk) through the hybrid tracer: the mu chart in bulk, the rays
+    near the polar axis re-traced in theta; on the kernel with the JAX
+    Pallas backend's semantics (ops/cuda/kerr_trace_kernel.py, its first
+    pass capped at `pass1_steps` when two-pass is on), on the plain loop
+    with its XLA backend's (ops/kerr_trace.py). Progress bars, chunk
+    stores and the fixed-step "rk4" raise NotImplementedError until they
     are ported.
     """
     n = int(alphas.shape[0])
@@ -127,7 +132,19 @@ def trace_batch(metric, r_obs, alphas, thetas=None, theta_obs=math.pi / 2,
                                        else n > 2_000_000)
     kwargs = dict(precision=precision, formulation=formulation,
                   method=integrator, event_interp=event_interp)
-    if use_two_pass:
+    if formulation == "mu":
+        # The mu bulk with the theta pole re-trace, as the JAX package's
+        # production branch (ops/batch.py there).
+        kwargs = dict(precision=precision, method=integrator,
+                      event_interp=event_interp)
+        if path == "cuda":
+            from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel \
+                import trace_rays_kerr_hybrid as kerr_fn
+            kwargs["pass1_steps"] = pass1_steps if use_two_pass else None
+        else:
+            from light_path_tracer_tpu_torch.ops.kerr_trace import (
+                trace_rays_kerr_hybrid as kerr_fn)
+    elif use_two_pass:
         from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
             trace_rays_kerr_two_pass as kerr_fn)
         kwargs["pass1_steps"] = pass1_steps

@@ -2,10 +2,13 @@
 
 The sources in `light_path_tracer_tpu_torch/csrc/*.cu` have a plain C
 interface; each `*_f64.cu` builds the float64 instances of its float
-sibling. They form two libraries, one an embedded pair: "dp45", every
-source but the `kerr_dop853*.cu` ones (the DP45 Kerr and extras kernels,
-the orbit kernel and the peak probe), and "dop853", those (the DOP853
-instances of the Kerr and extras kernels). At the first use of a library
+sibling, each `*_mu*.cu` the Kerr kernel's mu-chart instances and each
+`*_kn*.cu` the extras kernel's Kerr-Newman ones. They form three
+libraries: "dp45", the DP45 Kerr and extras kernels' theta and Kerr
+instances, the orbit kernel and the peak probe; "more", the DP45 mu-chart
+and Kerr-Newman-extras instances (`kerr_dp45_*mu*.cu`, `kerr_dp45_*_kn*.cu`);
+and "dop853", every `kerr_dop853*.cu` source (the DOP853 instances of the
+Kerr and extras kernels, every chart and family). At the first use of a library
 each of its sources is compiled by its own `nvcc` for Hopper (`sm_90a`),
 all at once, and the objects are linked into one shared library under
 `build/light_path_tracer_tpu_torch/` beside the package, named by the
@@ -42,10 +45,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 # The extras kernel's C entry points, one a transfer family; each has a
-# *_describe twin that reports an instance's resources.
+# *_describe twin that reports an instance's resources. Each but the
+# Stokes one also has Kerr-Newman instances, entries name + "_kn" (the
+# describe twin name + "_describe_kn"), before the pair's and the dtype's
+# suffixes.
 EXTRAS_ENTRIES = ("lpt_kerr_dp45_extras", "lpt_kerr_dp45_stokes",
                   "lpt_kerr_dp45_movie_thin", "lpt_kerr_dp45_movie_absorbed",
                   "lpt_kerr_dp45_orders")
+KN_EXTRAS_ENTRIES = tuple(e for e in EXTRAS_ENTRIES
+                          if e != "lpt_kerr_dp45_stokes")
+# The Kerr kernel's C entry points: the theta chart and the mu chart.
+KERR_ENTRIES = ("lpt_kerr_dp45", "lpt_kerr_dp45_mu")
+
+
+def _variant_source(name):
+    """A source of the mu chart's or the Kerr-Newman extras' instances."""
+    stem = name[:-len(".cu")]
+    return "_mu" in stem or stem.endswith(("_kn", "_kn_f64"))
 
 _P = ctypes.c_void_p
 _F = ctypes.c_float
@@ -69,7 +85,10 @@ def _nvcc() -> str:
 
 # The libraries: name -> (file name prefix, whether a source belongs).
 LIBRARIES = {
-    "dp45": ("lpt_kernels", lambda name: not name.startswith("kerr_dop853")),
+    "dp45": ("lpt_kernels", lambda name: not name.startswith("kerr_dop853")
+             and not _variant_source(name)),
+    "more": ("lpt_more", lambda name: not name.startswith("kerr_dop853")
+             and _variant_source(name)),
     "dop853": ("lpt_dop853", lambda name: name.startswith("kerr_dop853")),
 }
 
@@ -84,7 +103,8 @@ def _sources(library="dp45"):
 
 
 def library_path(library="dp45") -> Path:
-    """Where the library `library` ("dp45" or "dop853") for the current
+    """Where the library `library` ("dp45", "more" or "dop853") for the
+    current
     sources, headers and flags lives. The hash covers every source and
     header (a DOP853 source includes its DP45 sibling)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
@@ -137,25 +157,37 @@ def _compile(out: Path, library: str) -> str:
     return log
 
 
+def _declare_pair(lib, suffix, base=True, variants=True):
+    """The Kerr and extras entries of one pair and dtype (suffix: "",
+    "_f64", "_dop853" or "_dop853_f64"): the theta and Kerr ones (base),
+    the mu chart's and the Kerr-Newman extras' ones (variants)."""
+    kerr = ((KERR_ENTRIES[0],) if base else ()) + (
+        KERR_ENTRIES[1:] if variants else ())
+    for name in kerr:
+        fn = getattr(lib, name + suffix)
+        fn.argtypes = [_P, _I]
+        fn.restype = _I
+    for name in EXTRAS_ENTRIES if base else ():
+        _declare_extras(lib, name + suffix, name + "_describe" + suffix)
+    for name in KN_EXTRAS_ENTRIES if variants else ():
+        _declare_extras(lib, name + "_kn" + suffix,
+                        name + "_describe_kn" + suffix)
+
+
 def _declare(lib, library):
     # Each entry has a float instance and a float64 one (name + "_f64")
     # whose scalars are doubles; the DOP853 library's entries carry
     # "_dop853" before that suffix and are the Kerr and extras ones.
     if library == "dop853":
         for suffix in ("_dop853", "_dop853_f64"):
-            fn = getattr(lib, "lpt_kerr_dp45" + suffix)
-            fn.argtypes = [_P, _I]
-            fn.restype = _I
-            for name in EXTRAS_ENTRIES:
-                _declare_extras(lib, name + suffix, name + "_describe"
-                                + suffix)
+            _declare_pair(lib, suffix)
+        return _declare_error_string(lib)
+    if library == "more":
+        for suffix in ("", "_f64"):
+            _declare_pair(lib, suffix, base=False)
         return _declare_error_string(lib)
     for suffix, real in (("", _F), ("_f64", _D)):
-        fn = getattr(lib, "lpt_kerr_dp45" + suffix)
-        fn.argtypes = [_P, _I]
-        fn.restype = _I
-        for name in EXTRAS_ENTRIES:
-            _declare_extras(lib, name + suffix, name + "_describe" + suffix)
+        _declare_pair(lib, suffix, variants=False)
         fn = getattr(lib, "lpt_orbit_rk4" + suffix)
         fn.argtypes = [_P] * 6 + [_I] * 2 + [real] * 13 + [_I] * 2 + [_P]
         fn.restype = _I
@@ -182,8 +214,8 @@ def _declare_error_string(lib):
 
 @functools.cache
 def load_library(library="dp45"):
-    """The compiled kernel library `library` ("dp45" or "dop853"), built
-    on first use. Its `build_log` attribute holds nvcc's resource report
+    """The compiled kernel library `library` ("dp45", "more" or "dop853"),
+    built on first use. Its `build_log` attribute holds nvcc's resource report
     of the build that made it ('' where that build kept none), and
     `build_seconds` the seconds this process spent building it (0.0 when
     it loaded an existing file)."""

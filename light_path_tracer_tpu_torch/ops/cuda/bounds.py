@@ -37,7 +37,12 @@ allow for.
 Both embedded pairs are counted (`method`): a DP45 attempt makes six new
 RHS evaluations, a DOP853 attempt twelve (eleven stages and the end
 stage, csrc/kerr_dop853.cuh), whose stage and estimator sums are read
-from the nonzeros of the DOP853 tableau (`dop853_sum_flops`).
+from the nonzeros of the DOP853 tableau (`dop853_sum_flops`). Both charts
+of the Kerr kernel are counted (`chart`): the mu chart's RHS (rhs5_mu)
+calls no sin or cos; its state conversions run once a ray, as the
+initial conditions do, and are left out. The extras kernel's Kerr-Newman
+flow (`family`) adds the charge to W and Delta and takes the charged
+Keplerian Omega, a sqrt in place of the pow.
 """
 
 from __future__ import annotations
@@ -50,7 +55,8 @@ __all__ = ["PEAK_FP32", "PEAK_FP64", "PEAK_BYTES", "PUBLISHED_FLOP",
            "RHS5_FLOPS", "GEODESIC_FAMILIES",
            "SOURCE_FLOPS", "ORBIT_STEP_FLOPS", "KINDS", "RATE_FORMS",
            "DP45_SUM_FLOPS", "dop853_sum_flops", "rhs_evaluations",
-           "GEODESIC", "Work", "form_flops", "attempt_flops", "source_ops",
+           "GEODESIC", "MU_GEODESIC_FAMILIES", "Work", "form_flops",
+           "attempt_flops", "source_ops",
            "transfer_ops", "rhs_ops", "attempt_ops", "extras_work",
            "kerr_work", "orbit_work", "components", "flops_bound_ms",
            "counted_bound_ms"]
@@ -166,6 +172,15 @@ GEODESIC_FAMILIES = {
     "johannsen_psaltis": _ops(flop=170, div=23, sin=1, cos=1),
 }
 
+# rhs5_mu of kerr_dp45_common.cuh, the mu chart's RHS (Kerr and
+# Kerr-Newman): 28 flops and three reciprocals for the metric terms and
+# the velocities, 49 for the radial and 41 for the polar derivatives, no
+# sin or cos; Kerr-Newman adds what it adds to rhs5_trig.
+MU_GEODESIC_FAMILIES = {
+    "kerr": _ops(flop=118, div=3),
+    "kerr_newman": _ops(flop=122, div=3),
+}
+
 # j_rest (kerr_dp45_extras.cuh) by profile.
 _EMISSIVITY = {
     "torus": _ops(flop=4, div=2, exp=1),
@@ -173,28 +188,36 @@ _EMISSIVITY = {
     "jet": _ops(flop=6, div=4, exp=2, pow=1),
     "shell": _ops(flop=5, div=4, exp=2),
 }
-# g_circular and g_jet: the emitter's redshift.
-_G_CIRCULAR = _ops(flop=37, div=7, pow=1, sqrt=1)
-_G_JET = _ops(flop=22, div=7, sqrt=2)
+# g_circular and g_jet: the emitter's redshift, by family. Kerr-Newman's
+# flow subtracts Q^2 from W and adds it to Delta (flow_W, flow_Delta: 2
+# flops), and its Keplerian Omega (kepler_omega) is kep_num x / (r^2 +
+# kep_add x) with x = sqrt(max(M r - Q^2, 0)): 5 flops, a sqrt and a
+# division against Kerr's add, pow and division.
+_G_CIRCULAR = {"kerr": _ops(flop=37, div=7, pow=1, sqrt=1),
+               "kerr_newman": _ops(flop=43, div=7, sqrt=2)}
+_G_JET = {"kerr": _ops(flop=22, div=7, sqrt=2),
+          "kerr_newman": _ops(flop=24, div=7, sqrt=2)}
 
 
-def source_ops(profile="torus", geometry=False):
+def source_ops(profile="torus", geometry=False, family="kerr"):
     """source() of one evaluation: the emissivity, and unless in the pure
     geometry mode (g_power 0) the redshift (the jet's own flow for the jet
-    profile, the circular one otherwise), w = g^p and em = j w."""
+    profile, the circular one otherwise) of the family's flow, w = g^p and
+    em = j w."""
     ops = _EMISSIVITY[profile]
     if geometry:
         return dict(ops)
-    g = _G_JET if profile == "jet" else _G_CIRCULAR
+    g = (_G_JET if profile == "jet" else _G_CIRCULAR)[family]
     return _add(ops, g, _ops(flop=1, pow=1))
 
 
 def transfer_ops(kind, width=0, absorbing=False, field="toroidal",
-                 geometry=False):
+                 geometry=False, family="kerr"):
     """What a transfer functor adds to source() in one evaluation (the
     functors of kerr_dp45_extras.cu, kerr_dp45_stokes.cu,
     kerr_dp45_movie.cuh and kerr_dp45_orders.cu); width is the bands,
-    frames or orders."""
+    frames or orders. Kerr-Newman's movie adds Q^2 to its tdot's Delta
+    and subtracts it from 2 M r (2 flops)."""
     opacity = _ops(flop=1) if geometry else _ops(flop=1, div=1)
     screen = _ops(flop=1, exp=1)        # exp(-max(tau, -30)) times a term
     if kind == "thin":
@@ -205,7 +228,7 @@ def transfer_ops(kind, width=0, absorbing=False, field="toroidal",
         d0 = _ops(flop=1) if geometry else _ops(flop=2, pow=1)
         return _add(d0, _times(width, _ops(flop=3, exp=1)))
     if kind == "movie":
-        base = _ops(flop=22, div=2)
+        base = _ops(flop=22 + (2 if family == "kerr_newman" else 0), div=2)
         frames = _times(width, _ops(flop=9, div=1, exp=1, cos=1))
         return _add(base, frames, *((screen, opacity) if absorbing else ()))
     if kind == "order":
@@ -219,12 +242,14 @@ def transfer_ops(kind, width=0, absorbing=False, field="toroidal",
 
 
 def rhs_ops(kind, width=0, absorbing=False, profile="torus",
-            field="toroidal", geometry=False):
-    """One evaluation of the extras kernel's right-hand side: the geodesic
-    (its sin and cos shared with the transfer function), source() and the
-    functor."""
-    return _add(GEODESIC, source_ops(profile, geometry),
-                transfer_ops(kind, width, absorbing, field, geometry))
+            field="toroidal", geometry=False, family="kerr"):
+    """One evaluation of the extras kernel's right-hand side in a family
+    ("kerr" or "kerr_newman"): the geodesic (its sin and cos shared with
+    the transfer function), source() and the functor."""
+    return _add(GEODESIC_FAMILIES[family],
+                source_ops(profile, geometry, family),
+                transfer_ops(kind, width, absorbing, field, geometry,
+                             family))
 
 
 def attempt_ops(n_components, rhs, dtype="float32", method="dp45"):
@@ -271,27 +296,46 @@ class Work:
     def __rmul__(self, count):
         return Work(count * self.flops, _times(count, self.ops), self.dtype)
 
+    def __add__(self, other):
+        """The work of two launches in one scalar type (a driver's two
+        passes)."""
+        if other.dtype != self.dtype:
+            raise ValueError(f"adding {other.dtype} work to {self.dtype}")
+        return Work(self.flops + other.flops, _add(self.ops, other.ops),
+                    self.dtype)
+
+
+def _extra_flops(ops, base):
+    """The flops and divisions of `ops` beyond `base`'s (the flops-only
+    count's share of a family or chart)."""
+    return (ops["flop"] + ops["div"]) - (base["flop"] + base["div"])
+
 
 def extras_work(kind, width=0, absorbing=False, profile="torus",
-                field="toroidal", dtype="float32", method="dp45"):
-    """One attempt of the extras kernel for a transfer form and embedded
-    pair. The flops-only count takes the jet as the thin form, as it
-    always did."""
+                field="toroidal", dtype="float32", method="dp45",
+                family="kerr"):
+    """One attempt of the extras kernel for a transfer form, embedded pair
+    and family ("kerr" or "kerr_newman"). The flops-only count takes the
+    jet as the thin form, as it always did, and adds a family's flops and
+    divisions beyond Kerr's."""
     n = components(kind, width, absorbing)
-    flops = attempt_flops(n, form_flops(kind, width, absorbing), method)
-    return Work(flops, attempt_ops(
-        n, rhs_ops(kind, width, absorbing, profile, field), dtype, method),
-        dtype)
+    rhs = rhs_ops(kind, width, absorbing, profile, field, family=family)
+    extra = _extra_flops(rhs, rhs_ops(kind, width, absorbing, profile,
+                                      field))
+    flops = attempt_flops(n, form_flops(kind, width, absorbing) + extra,
+                          method)
+    return Work(flops, attempt_ops(n, rhs, dtype, method), dtype)
 
 
-def kerr_work(dtype="float32", family="kerr", method="dp45"):
+def kerr_work(dtype="float32", family="kerr", method="dp45", chart="theta"):
     """One attempt of the Kerr shadow or disk kernel (kerr_dp45.cu, and
-    its DOP853 instances) for a metric family of GEODESIC_FAMILIES and an
-    embedded pair. The flops-only count adds the family's flops and
-    divisions beyond Kerr's to RHS5_FLOPS."""
-    geo = GEODESIC_FAMILIES[family]
-    extra = (geo["flop"] + geo["div"]) - (GEODESIC["flop"] + GEODESIC["div"])
-    return Work(attempt_flops(5, extra, method),
+    its DOP853 instances) for a metric family of GEODESIC_FAMILIES, an
+    embedded pair and a chart ("theta", or "mu" for the families of
+    MU_GEODESIC_FAMILIES). The flops-only count adds the family's and
+    chart's flops and divisions beyond Kerr's theta RHS to RHS5_FLOPS."""
+    geo = (MU_GEODESIC_FAMILIES if chart == "mu"
+           else GEODESIC_FAMILIES)[family]
+    return Work(attempt_flops(5, _extra_flops(geo, GEODESIC), method),
                 attempt_ops(5, geo, dtype, method), dtype)
 
 

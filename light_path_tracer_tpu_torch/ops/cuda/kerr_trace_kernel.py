@@ -18,14 +18,23 @@ the DP45 instances, "dop853" the DOP853 ones (csrc/kerr_dop853.cu, in the
 library `_build.load_library("dop853")` builds at their first launch), and
 any other method raises on a CUDA tensor. The shadow variant also takes
 `event_interp` ("hermite" or "linear"); the disk variant is Hermite only,
-as the JAX package's Pallas disk wrapper is.
+as the JAX package's Pallas disk wrapper is. The shadow variant integrates
+either chart of the JAX kernel's `formulation`: "theta", or "mu" (mu =
+cos(theta), the instances of csrc/kerr_dp45_mu.cu and its siblings, Kerr
+and Kerr-Newman only; the DP45 ones in the library
+`_build.load_library("more")` builds at their first launch), which also
+takes the hybrid tracer's
+`force_invalid` mask; a Johannsen-Psaltis metric or a disk trace with
+"mu" raises, as in the JAX package.
 
 `trace_rays_kerr_cuda` and `trace_disk_rays_cuda` launch the kernel on
 CUDA float32 or float64 tensors (the float64 instances, entries `*_f64`,
 with the float64 tolerance presets) and raise on any other CUDA input;
 they never fall back. Each wrapper counts its launches per pair and dtype
 (`.launches` DP45 float32, `.launches_f64` DP45 float64,
-`.launches_dop853` and `.launches_dop853_f64`). Given CPU tensors they run
+`.launches_dop853` and `.launches_dop853_f64`), the mu instances on
+counters of their own (`.launches_mu`, `.launches_mu_f64`,
+`.launches_mu_dop853`, `.launches_mu_dop853_f64`). Given CPU tensors they run
 the kernel's plain version, the PyTorch loop (`trace_rays_kerr_plain`,
 `trace_disk_rays_plain`, ops/kerr_trace.py), because there is no kernel to
 run there; the tests and the chip smoke test compare the two.
@@ -39,14 +48,15 @@ bit 20 set where lambda moved along it, the first cycle's period in bits
 21-30), beside the raw final "state", "raw_status", "attempts" and the
 ray's "p_phi" (what `finalize_angles` needs to redo the extraction).
 
-`trace_rays_kerr_two_pass` and `trace_disk_rays_two_pass`, and the
-drivers over the extras kernel (`volumetric_kernel.py`):
-`trace_rays_volumetric_two_pass`, `trace_rays_aux_two_pass` and
-`trace_rays_spectral_two_pass` (pass 1 capped at 4,096 attempts, 1,024
-slots), keep the JAX drivers' semantics on either device: a first pass
-capped at `pass1_steps` attempts per ray, then the first `slots` rays
-still running, in index order, re-traced from scratch with the full
-budget and scattered back; rays beyond `slots` keep their first-pass
+`trace_rays_kerr_hybrid` is the mu chart's driver with the JAX Pallas
+backend's semantics (its docstring). `trace_rays_kerr_two_pass` and
+`trace_disk_rays_two_pass`, and the drivers over the extras kernel
+(`volumetric_kernel.py`): `trace_rays_volumetric_two_pass`,
+`trace_rays_aux_two_pass` and `trace_rays_spectral_two_pass` (pass 1
+capped at 4,096 attempts, 1,024 slots), keep the JAX drivers' semantics
+on either device: a first pass capped at `pass1_steps` attempts per ray,
+then the first `slots` rays still running, in index order, re-traced
+from scratch with the full budget and scattered back; rays beyond `slots` keep their first-pass
 result, and n_steps is the sum of both passes. The kernel computes every
 ray on its own thread, so the result equals a single pass bitwise
 whenever at most `slots` rays are unconverged. (The plain
@@ -67,7 +77,8 @@ from light_path_tracer_tpu_torch.models import (JohannsenPsaltis, Kerr,
                                                 KerrNewman)
 from light_path_tracer_tpu_torch.ops.cuda._build import check, load_library
 from light_path_tracer_tpu_torch.ops.kerr_trace import (
-    _h_init_for, check_method, get_tols)
+    INVALID, POLAR_OBSERVER_SIN, _h_init_for, check_method, get_tols,
+    hybrid_poison, hybrid_slots, merge_results, stragglers)
 from light_path_tracer_tpu_torch.ops.kerr_trace import (
     trace_disk_rays_kerr as trace_disk_rays_plain)
 from light_path_tracer_tpu_torch.ops.kerr_trace import (
@@ -77,6 +88,7 @@ from light_path_tracer_tpu_torch.ops.types import DiskTraceResult, TraceResult
 __all__ = ["trace_rays_kerr_cuda", "trace_rays_kerr_plain",
            "trace_disk_rays_cuda", "trace_disk_rays_plain",
            "trace_rays_kerr_two_pass", "trace_disk_rays_two_pass",
+           "trace_rays_kerr_hybrid",
            "trace_rays_volumetric_two_pass", "trace_rays_aux_two_pass",
            "trace_rays_spectral_two_pass"]
 
@@ -86,9 +98,13 @@ MAX_KERNEL_HITS = 4
 # The metric families of the Kerr kernels (csrc/kerr_dp45_common.cuh kKerr,
 # kKerrNewman, kJohannsenPsaltis), keyed by the class that models each.
 FAMILIES = {Kerr: 0, KerrNewman: 1, JohannsenPsaltis: 2}
-# The families of the disk variant and of the extras kernel.
+# The families of the disk variant, of the mu chart's instances and of
+# the extras kernel.
 DISK_FAMILIES = (Kerr, KerrNewman)
-EXTRAS_FAMILIES = (Kerr,)
+MU_FAMILIES = (Kerr, KerrNewman)
+EXTRAS_FAMILIES = (Kerr, KerrNewman)
+# The charts of the shadow variant (KerrCall::chart).
+CHARTS = ("theta", "mu")
 
 
 def metric_family(metric, families=tuple(FAMILIES)) -> int:
@@ -122,23 +138,29 @@ def method_suffix(method) -> str:
     return "_dop853" if method == "dop853" else ""
 
 
-def library_of(method) -> str:
+def library_of(method, variant=False) -> str:
     """The kernel library (ops/cuda/_build.py) that holds `method`'s
-    instances."""
-    return "dop853" if method_suffix(method) else "dp45"
+    instances: "dop853" for every DOP853 one; for DP45, "more" for the mu
+    chart's and the Kerr-Newman extras' (variant), "dp45" for the rest."""
+    if method_suffix(method):
+        return "dop853"
+    return "more" if variant else "dp45"
 
 
-def counter_name(dtype, method="dp45") -> str:
-    """A wrapper's launch counter for the pair and dtype: "launches",
-    "launches_f64", "launches_dop853" or "launches_dop853_f64"."""
-    return "launches" + method_suffix(method) + (
-        "_f64" if dtype == torch.float64 else "")
+def counter_name(dtype, method="dp45", chart="theta") -> str:
+    """A wrapper's launch counter for the pair, dtype and chart:
+    "launches", "launches_f64", "launches_dop853" or
+    "launches_dop853_f64", with "_mu" after "launches" for the mu
+    chart's instances."""
+    return ("launches" + ("_mu" if chart == "mu" else "")
+            + method_suffix(method)
+            + ("_f64" if dtype == torch.float64 else ""))
 
 
-def count_launch(fn, dtype, method="dp45"):
-    """One launch of a kernel wrapper, on its counter for the pair and
-    dtype."""
-    name = counter_name(dtype, method)
+def count_launch(fn, dtype, method="dp45", chart="theta"):
+    """One launch of a kernel wrapper, on its counter for the pair, dtype
+    and chart."""
+    name = counter_name(dtype, method, chart)
     setattr(fn, name, getattr(fn, name) + 1)
 
 
@@ -146,7 +168,8 @@ def zero_counters(fn):
     """Set every launch counter of a kernel wrapper to 0."""
     for dtype in (torch.float32, torch.float64):
         for method in ("dp45", "dop853"):
-            setattr(fn, counter_name(dtype, method), 0)
+            for chart in CHARTS:
+                setattr(fn, counter_name(dtype, method, chart), 0)
 
 
 def _check_inputs(tensors, alphas):
@@ -171,19 +194,26 @@ def _check_inputs(tensors, alphas):
 
 
 def _check_call(alphas, metric, formulation, max_steps,
-                families=tuple(FAMILIES)):
+                families=tuple(FAMILIES), charts=("theta",)):
     """Raise on what the kernel does not take (a metric outside
-    `families` among it); False for a CPU tensor (the plain version
-    runs), True for a CUDA tensor."""
+    `families`, a chart outside `charts`, a mu chart of a family without
+    one); False for a CPU tensor (the plain version runs), True for a
+    CUDA tensor."""
     if alphas.device.type == "cpu":
         return False
     if alphas.device.type != "cuda":
         raise ValueError(f"no Kerr kernel for device {alphas.device}")
-    if formulation != "theta":
-        raise NotImplementedError(
-            f"formulation={formulation!r}: the CUDA kernel integrates the "
-            f"theta chart only")
+    if formulation not in CHARTS:
+        raise ValueError(f"formulation must be 'theta' or 'mu', got "
+                         f"{formulation!r}")
+    if formulation not in charts:
+        raise ValueError(f"formulation={formulation!r}: this kernel "
+                         f"integrates the theta chart only")
     metric_family(metric, families)
+    if formulation == "mu" and type(metric) not in MU_FAMILIES:
+        raise NotImplementedError(
+            f"the mu chart is wired for the Kerr and Kerr-Newman RHS only; "
+            f"{type(metric).__name__} integrates in theta")
     if max_steps >= 2**31:
         raise ValueError("max_steps must fit in int32")
     return True
@@ -194,13 +224,14 @@ def _kerr_call_fields(real):
     of T: the device pointers and the stream, the ints, then the
     scalars."""
     return ([(name, ctypes.c_void_p) for name in (
-        "alpha", "theta", "refine", "final_alpha", "n_half", "status",
+        "alpha", "theta", "refine", "force_invalid", "final_alpha",
+        "n_half", "status",
         "flags", "p_phi", "hits", "r_hits", "phi_hits", "pr_hits",
         "pth_hits", "state", "raw_status", "steps", "census", "warp_steps",
         "stream")]
         + [(name, ctypes.c_int) for name in (
             "n", "max_steps", "cycle_exit", "max_hits", "momentum",
-            "opaque", "family", "event_interp")]
+            "opaque", "family", "event_interp", "chart")]
         + [(name, real) for name in (
             "M", "a", "r_plus", "r_obs", "theta_obs", "lambda_max", "atol",
             "rtol", "atol_ref", "rtol_ref", "h_min", "tiny_err", "h_init",
@@ -244,11 +275,12 @@ def family_scalars(metric) -> dict:
 
 def _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
             max_steps, precision, refine, disk, flags, probe, cycle_exit,
-            method="dp45", event_interp="hermite"):
+            method="dp45", event_interp="hermite", chart="theta",
+            force_invalid=None):
     """One launch of the kernel through its C entry point (the instance of
-    the pair and the rays' dtype): the shadow variant, or the disk variant
-    when `disk` holds (r_in, r_out, theta_plane, opaque, max_hits,
-    momentum). Returns
+    the chart, the pair and the rays' dtype): the shadow variant, or the
+    disk variant when `disk` holds (r_in, r_out, theta_plane, opaque,
+    max_hits, momentum). Returns
     the per-ray outputs by name, "n_steps" the warp step sum (0-dim
     int64); "flags", the rays whose raw status is still RUNNING (bool),
     only when asked for."""
@@ -279,12 +311,13 @@ def _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
         for k in ("r", "phi") + (("pr", "pth") if momentum else ()):
             out[k] = empty(max_hits, n)
     tols = get_tols(dtype, precision)
-    entry = "lpt_kerr_dp45" + method_suffix(method) + suffix
-    lib = load_library(library_of(method))
+    entry = ("lpt_kerr_dp45" + ("_mu" if chart == "mu" else "")
+             + method_suffix(method) + suffix)
+    lib = load_library(library_of(method, chart == "mu"))
     with torch.cuda.device(dev):
         call = (KerrCall64 if suffix else KerrCall)(
             alpha=alphas.data_ptr(), theta=thetas.data_ptr(),
-            refine=_ptr(refine),
+            refine=_ptr(refine), force_invalid=_ptr(force_invalid),
             final_alpha=out["final_alpha"].data_ptr(),
             n_half=out["n_half"].data_ptr(),
             status=out["status"].data_ptr(), flags=_ptr(out.get("flags")),
@@ -301,6 +334,7 @@ def _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
             max_hits=int(max_hits), momentum=int(bool(momentum)),
             opaque=int(bool(opaque)),
             event_interp=int(event_interp == "linear"),
+            chart=CHARTS.index(chart),
             M=float(metric.M), a=float(metric.a),
             r_plus=float(metric.r_plus), r_obs=float(r_obs),
             theta_obs=float(theta_obs), lambda_max=float(lambda_max),
@@ -325,34 +359,46 @@ def trace_rays_kerr_cuda(metric, r_obs, alphas, thetas, theta_obs,
                          return_unconverged: bool = False,
                          probe: dict | None = None,
                          _cycle_exit: bool = True, method: str = "dp45",
-                         event_interp: str = "hermite"):
+                         event_interp: str = "hermite", force_invalid=None):
     """Trace N rays of a Kerr, Kerr-Newman or Johannsen-Psaltis metric
     with the CUDA kernel; returns TraceResult.
 
     Same arguments and result as trace_rays_kerr_plain (with
     return_unconverged, (TraceResult, raw-RUNNING mask)). method: "dp45"
-    or "dop853"; event_interp: "hermite" or "linear". alphas/thetas:
+    or "dop853"; event_interp: "hermite" or "linear"; formulation:
+    "theta", or "mu" (Kerr and Kerr-Newman), whose instances also take
+    force_invalid, an (N,) bool mask of rays started INVALID (the theta
+    instances do not read it: a mask with "theta" raises). alphas/thetas:
     (N,) contiguous CUDA tensors, both float32 or both float64 (the
     instance and the tolerance preset follow); axis_refine: (N,) bool on
     the same device. probe: a dict that receives the per-ray raw final
-    "state" (5, N), "raw_status", "attempts", "cycles" and "p_phi" (the
-    module docstring). One kernel launch on the current stream, which does not
+    "state" (5, N; in theta, the mu instances convert it back),
+    "raw_status", "attempts", "cycles" and "p_phi" (the module
+    docstring). One kernel launch on the current stream, which does not
     synchronise. CPU tensors go to the plain version; other devices raise.
     """
-    if not _check_call(alphas, metric, formulation, max_steps):
+    if not _check_call(alphas, metric, formulation, max_steps,
+                       charts=CHARTS):
         return trace_rays_kerr_plain(
             metric, r_obs, alphas, thetas, theta_obs, axis_refine,
             lambda_max, max_steps, precision=precision,
             formulation=formulation, return_unconverged=return_unconverged,
-            method=method, event_interp=event_interp)
+            method=method, event_interp=event_interp,
+            force_invalid=force_invalid)
     check_method(method, event_interp)
-    _check_inputs((("alphas", alphas, None), ("thetas", thetas, None),
-                   ("axis_refine", axis_refine, torch.bool)), alphas)
+    inputs = (("alphas", alphas, None), ("thetas", thetas, None),
+              ("axis_refine", axis_refine, torch.bool))
+    if force_invalid is not None:
+        if formulation != "mu":
+            raise ValueError("force_invalid is read by the mu chart's "
+                             "instances only")
+        inputs += (("force_invalid", force_invalid, torch.bool),)
+    _check_inputs(inputs, alphas)
     out = _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
                   max_steps, precision, axis_refine, None,
                   return_unconverged, probe, _cycle_exit, method,
-                  event_interp)
-    count_launch(trace_rays_kerr_cuda, alphas.dtype, method)
+                  event_interp, formulation, force_invalid)
+    count_launch(trace_rays_kerr_cuda, alphas.dtype, method, formulation)
     result = TraceResult(out["final_alpha"], out["n_half"], out["status"],
                          out["n_steps"])
     if return_unconverged:
@@ -387,6 +433,8 @@ def trace_disk_rays_cuda(metric, r_obs, alphas, thetas, theta_obs,
     """
     if not _check_call(alphas, metric, formulation, max_steps,
                        DISK_FAMILIES):
+        if formulation != "theta":
+            raise ValueError("disk mode supports formulation='theta' only")
         return trace_disk_rays_plain(
             metric, r_obs, alphas, thetas, theta_obs, lambda_max,
             max_steps, disk_plane, max_disk_hits, precision=precision,
@@ -425,48 +473,14 @@ zero_counters(trace_disk_rays_cuda)
 SLOTS = 8192
 
 
-def _stragglers(unconv, slots):
-    """(idx, dest): the first `slots` unconverged ray indices in index
-    order, padded with ray 0 as JAX's nonzero(size=slots, fill_value=0)
-    pads them, and the scatter destination of each slot, with the
-    padding sent to a spare row past the end. No host sync."""
-    n = unconv.numel()
-    slots = min(int(slots), n)
-    idx = torch.nonzero_static(unconv, size=slots, fill_value=0)[:, 0]
-    real = torch.arange(slots, device=unconv.device) < unconv.sum()
-    return idx, torch.where(real, idx, n)
-
-
-def _scatter(a1, a2, dest):
-    """a1 with row dest[j] replaced by a2[j] (dest == len(a1) drops j)."""
-    out = torch.cat([a1, a1[:1]])
-    out[dest] = a2
-    return out[:-1]
-
-
-def _merge(res1, res2, dest):
-    """res1 with the re-traced rays' fields from res2 (two results of one
-    NamedTuple type, tuple fields taken element by element); n_steps
-    counts both passes."""
-    fields = []
-    for name, a, b in zip(res1._fields, res1, res2):
-        if name == "n_steps":
-            fields.append(a + b)
-        elif isinstance(a, tuple):
-            fields.append(tuple(_scatter(x, y, dest) for x, y in zip(a, b)))
-        else:
-            fields.append(_scatter(a, b, dest))
-    return type(res1)(*fields)
-
-
 def _two_pass(trace, pass1_steps, max_steps, slots):
     """The recipe of every driver below. trace(pick, steps, **kw) is one
     single pass, capped at `steps` attempts, over pick(t) of each per-ray
     input t; the first pass also returns the mask of rays to re-trace."""
     res1, unconv = trace(lambda t: t, pass1_steps, return_unconverged=True)
-    idx, dest = _stragglers(unconv, slots)
+    idx, dest = stragglers(unconv, slots)
     res2 = trace(lambda t: t[idx], max_steps)
-    return _merge(res1, res2, dest)
+    return merge_results(res1, res2, dest)
 
 
 def trace_rays_kerr_two_pass(metric, r_obs, alphas, thetas, theta_obs,
@@ -493,6 +507,62 @@ def trace_rays_kerr_two_pass(metric, r_obs, alphas, thetas, theta_obs,
 
 # Driver calls, so a run can show which path it took.
 trace_rays_kerr_two_pass.launches = 0
+
+
+def trace_rays_kerr_hybrid(metric, r_obs, alphas, thetas, theta_obs,
+                           axis_refine, lambda_max: float,
+                           max_steps: int = 200000,
+                           event_interp: str = "hermite",
+                           s_thresh: float = 1e-3, slots: int | None = None,
+                           pass1_steps: int | None = None,
+                           precision: str = "fast", method: str = "dp45",
+                           trace_fn=None, probe: dict | None = None):
+    """The mu-chart tracer with the JAX Pallas backend's semantics (its
+    trace_rays_kerr_hybrid with backend="pallas"); returns TraceResult.
+
+      1. the first `slots` pole-risk rays (metric.pole_risk at s_thresh;
+         slots as ops.kerr_trace.hybrid_slots sizes them) are poisoned:
+         pass A starts them INVALID (force_invalid);
+      2. pass A traces every ray in mu, capped at pass1_steps attempts
+         (max_steps when None), returning its unconverged rays;
+      3. the poisoned, INVALID and unconverged rays, the first `slots` of
+         them in index order, are gathered, re-traced in theta at full
+         depth (pass B, the theta instance) and scattered back.
+
+    n_steps is the sum of both passes. A nearly polar observer
+    (|sin theta_obs| < 0.1) is one full-depth theta trace. trace_fn: the
+    single-pass tracer, trace_rays_kerr_cuda by default, so CPU tensors
+    run the plain loop with these semantics (the chip smoke test drives
+    the plain loop on the card through it too). probe: a dict that
+    receives the "poison", "redo" and pass A's "unconverged" masks
+    (device tensors, no sync).
+    The plain version with the XLA backend's semantics (no cap, no
+    unconverged set) is ops.kerr_trace.trace_rays_kerr_hybrid.
+    """
+    trace_rays_kerr_hybrid.launches += 1
+    trace_fn = trace_fn or trace_rays_kerr_cuda
+    kw = dict(precision=precision, method=method, event_interp=event_interp)
+    if abs(math.sin(float(theta_obs))) < POLAR_OBSERVER_SIN:
+        return trace_fn(metric, r_obs, alphas, thetas, theta_obs,
+                        axis_refine, lambda_max, max_steps, **kw)
+    slots = hybrid_slots(alphas.numel(), slots)
+    poison = hybrid_poison(metric, r_obs, alphas, thetas, theta_obs, slots,
+                           s_thresh)
+    p1 = max_steps if pass1_steps is None else min(pass1_steps, max_steps)
+    res_a, unconv = trace_fn(metric, r_obs, alphas, thetas, theta_obs,
+                             axis_refine, lambda_max, p1, formulation="mu",
+                             force_invalid=poison, return_unconverged=True,
+                             **kw)
+    redo = poison | (res_a.status == INVALID) | unconv
+    idx, dest = stragglers(redo, slots)
+    res_b = trace_fn(metric, r_obs, alphas[idx], thetas[idx], theta_obs,
+                     axis_refine[idx], lambda_max, max_steps, **kw)
+    if probe is not None:
+        probe.update(poison=poison, redo=redo, unconverged=unconv)
+    return merge_results(res_a, res_b, dest)
+
+
+trace_rays_kerr_hybrid.launches = 0
 
 
 def trace_disk_rays_two_pass(metric, r_obs, alphas, thetas, theta_obs,

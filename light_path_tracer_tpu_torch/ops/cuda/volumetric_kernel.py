@@ -31,6 +31,15 @@ take); CPU tensors run the plain loop (`ops/kerr_trace.py`). As in
 cycles the kernel otherwise counts at once, and `probe` receives their
 census.
 
+The kernel traces Kerr and Kerr-Newman, each named by the metric's exact
+class (a Kerr-Newman metric at Q = 0 launches the Kerr instance, as the
+Kerr kernel does): a Kerr-Newman metric launches the instances of the
+*_kn entries (csrc/*_kn.cu; the DP45 ones in the library
+`_build.load_library("more")` builds at their first launch), whose
+geodesic and flow carry the charge.
+The Stokes form has no Kerr-Newman instances: the polarized transfer is
+Kerr-only in both packages.
+
 Each instance is built with its functor's block bound (kMinBlocks in
 csrc/kerr_dp45_extras.cuh: the 128-thread blocks an SM must hold, which
 caps its registers). `extras_instances` lists every compiled instance and
@@ -47,8 +56,9 @@ import torch
 from light_path_tracer_tpu_torch.ops import kerr_trace as tk
 from light_path_tracer_tpu_torch.ops.cuda._build import check, load_library
 from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
-    EXTRAS_FAMILIES, _check_call, _check_inputs, count_launch, entry_suffix,
-    library_of, method_suffix, zero_counters)
+    EXTRAS_FAMILIES, FAMILIES, _check_call, _check_inputs, count_launch,
+    entry_suffix, family_scalars, library_of, method_suffix, zero_counters)
+from light_path_tracer_tpu_torch.models import KerrNewman
 from light_path_tracer_tpu_torch.ops.kerr_trace import check_method
 from light_path_tracer_tpu_torch.ops.kerr_trace import (
     _h_init_for, get_tols, saturation_r_max, spectral_result,
@@ -103,11 +113,12 @@ def _call_fields(real):
                 "census", "flags", "warp_steps", "stream")]
             + [(name, ctypes.c_int) for name in (
                 "n", "form", "variant", "max_steps", "sat_window")]
-            + [("sat_monitor", ctypes.c_uint), ("cycle_exit", ctypes.c_int)]
+            + [("sat_monitor", ctypes.c_uint), ("cycle_exit", ctypes.c_int),
+               ("family", ctypes.c_int)]
             + [(name, real) for name in (
                 "M", "a", "r_plus", "r_obs", "theta_obs", "lambda_max",
                 "atol", "rtol", "h_min", "tiny_err", "h_init", "r_capture",
-                "r_reclass", "sat_r_max")])
+                "r_reclass", "sat_r_max", "q2")])
 
 
 class RiafParams(ctypes.Structure):
@@ -154,20 +165,32 @@ def riaf_params(spec, dtype=torch.float32):
     return p
 
 
-def extras_instances(method="dp45"):
-    """Every compiled instance of the extras kernel for an embedded pair,
-    in float32 then float64: (label, C entry point, form, variant, dtype),
-    the label as ptxas's report names the kernel (chip_smoke.kernel_label),
-    e.g. "kerr_dp45_extras<Movie<8,absorbing=1,float>>" or
-    "kerr_dop853_extras<...>", and the entry without the pair's and the
-    dtype's suffixes."""
-    kernel = "kerr_dop853_extras" if method_suffix(method) else (
-        "kerr_dp45_extras")
+def family_infix(metric) -> str:
+    """The extras entries' family infix of `metric`: "_kn" for a charged
+    Kerr-Newman metric (csrc/*_kn.cu), "" for Kerr (and Kerr-Newman at
+    Q = 0, which launches the Kerr instance)."""
+    return "_kn" if family_scalars(metric)["family"] == FAMILIES[
+        KerrNewman] else ""
+
+
+def extras_instances(method="dp45", family=""):
+    """Every compiled instance of the extras kernel for an embedded pair
+    and family ("" Kerr, "_kn" Kerr-Newman, which has no Stokes
+    instance), in float32 then float64: (label, C entry point, form,
+    variant, dtype), the label as ptxas's report names the kernel
+    (chip_smoke.kernel_label), e.g.
+    "kerr_dp45_extras<Movie<8,absorbing=1,float>>",
+    "kerr_dp45_extras_kn<...>" or "kerr_dop853_extras<...>", and the
+    entry with the family infix but without the pair's and the dtype's
+    suffixes."""
+    kernel = ("kerr_dop853_extras" if method_suffix(method) else
+              "kerr_dp45_extras") + family
     rows = [("VolThin<{}>", "lpt_kerr_dp45_extras", 0, 0),
             ("VolAbsorbed<{}>", "lpt_kerr_dp45_extras", 1, 0)]
     rows += [(f"Spectral<{b},{{}}>", "lpt_kerr_dp45_extras", 2, b)
              for b in range(1, MAX_BANDS + 1)]
-    rows.append(("Stokes<{}>", "lpt_kerr_dp45_stokes", 0, 0))
+    if not family:
+        rows.append(("Stokes<{}>", "lpt_kerr_dp45_stokes", 0, 0))
     for ab in (0, 1):
         entry = ("lpt_kerr_dp45_movie_absorbed" if ab
                  else "lpt_kerr_dp45_movie_thin")
@@ -175,7 +198,8 @@ def extras_instances(method="dp45"):
                  for f in range(1, MAX_FRAMES + 1)]
     rows += [(f"Order<{o},absorbing={ab},{{}}>", "lpt_kerr_dp45_orders", ab,
               o) for ab in (0, 1) for o in range(2, MAX_ORDERS + 1)]
-    return [(f"{kernel}<{label.format(real)}>", entry, form, variant, dtype)
+    return [(f"{kernel}<{label.format(real)}>", entry + family, form,
+             variant, dtype)
             for dtype, real in ((torch.float32, "float"),
                                 (torch.float64, "double"))
             for label, entry, form, variant in rows]
@@ -186,17 +210,20 @@ def describe_instance(entry, form, variant, dtype=torch.float32,
     """The resources of one extras instance on the current CUDA device, as
     the runtime reports them: blocks_per_sm (resident 128-thread blocks an
     SM), registers (a thread), local_bytes (a thread: spills and stack
-    frame) and min_blocks (its __launch_bounds__ block bound). Builds the
-    pair's library on first use."""
+    frame) and min_blocks (its __launch_bounds__ block bound). entry as
+    extras_instances gives it (with the family infix). Builds the pair's
+    library on first use."""
     if not torch.cuda.is_available():
         raise RuntimeError("describe_instance queries the CUDA runtime; it "
                            "needs a CUDA device")
-    lib = load_library(library_of(method))
     out = (ctypes.c_int * 4)()
     suffix = method_suffix(method) + entry_suffix(dtype)
-    rc = getattr(lib, f"{entry}_describe{suffix}")(int(form), int(variant),
-                                                    out)
-    check(lib, rc, f"{entry}_describe{suffix}")
+    base, kn = ((entry[:-3], "_kn") if entry.endswith("_kn")
+                else (entry, ""))
+    lib = load_library(library_of(method, bool(kn)))
+    name = f"{base}_describe{kn}{suffix}"
+    rc = getattr(lib, name)(int(form), int(variant), out)
+    check(lib, rc, name)
     keys = ("blocks_per_sm", "registers", "local_bytes", "min_blocks")
     return dict(zip(keys, list(out)))
 
@@ -240,7 +267,8 @@ def _launch(entry, metric, r_obs, alphas, thetas, theta_obs, lambda_max,
     n = alphas.numel()
     dtype, dev = alphas.dtype, alphas.device
     suffix = entry_suffix(dtype)
-    entry = entry + method_suffix(method)
+    fam = family_scalars(metric)
+    entry = entry + family_infix(metric) + method_suffix(method)
     extras = torch.empty((n_extras, n), dtype=dtype, device=dev)
     final_alpha = torch.empty(n, dtype=dtype, device=dev)
     n_half = torch.empty(n, dtype=torch.int32, device=dev)
@@ -252,7 +280,7 @@ def _launch(entry, metric, r_obs, alphas, thetas, theta_obs, lambda_max,
                      if probe is not None else (None, None))
     tols = get_tols(dtype, precision)
     params = riaf_params(spec, dtype)
-    lib = load_library(library_of(method))
+    lib = load_library(library_of(method, bool(family_infix(metric))))
     with torch.cuda.device(dev):
         call = (ExtrasCall64 if suffix else ExtrasCall)(
             alpha=alphas.data_ptr(), theta=thetas.data_ptr(),
@@ -265,8 +293,8 @@ def _launch(entry, metric, r_obs, alphas, thetas, theta_obs, lambda_max,
             n=n, form=int(form), variant=int(variant),
             max_steps=int(max_steps), sat_window=int(sat_window),
             sat_monitor=sum(1 << int(i) for i in sat_monitor),
-            cycle_exit=int(bool(cycle_exit)),
-            M=float(metric.M), a=float(metric.a),
+            cycle_exit=int(bool(cycle_exit)), family=fam["family"],
+            q2=fam["q2"], M=float(metric.M), a=float(metric.a),
             r_plus=float(metric.r_plus), r_obs=float(r_obs),
             theta_obs=float(theta_obs), lambda_max=float(lambda_max),
             atol=tols["atol"], rtol=tols["rtol"], h_min=tols["h_min"],
@@ -372,6 +400,9 @@ def _family(spec, n_extras, n_aux):
     if n_aux != want_aux:
         raise ValueError(f"the {spec.kind} transfer takes {want_aux} "
                          f"per-ray aux inputs, got {n_aux}")
+    if spec.kind == "stokes" and family_infix(spec.metric):
+        raise ValueError("polarized volumetric rendering supports "
+                         "uncharged Kerr scenes only")
     if width > limit:
         raise NotImplementedError(
             f"{width} {what}: the CUDA {spec.kind} kernel is built for up "

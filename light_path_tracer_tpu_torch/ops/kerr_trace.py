@@ -38,6 +38,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from light_path_tracer_tpu_torch.operands import kernel_operand
 from light_path_tracer_tpu_torch.ops import tableau as tb
 from light_path_tracer_tpu_torch.ops.types import (
     DiskTraceResult, ExtrasResult, SpectralResult, TraceResult,
@@ -248,11 +249,29 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
     (phi + pi where sin(theta) < 0). An opaque plane parks a ray that is
     still running at its first such crossing, as ESCAPED.
 
-    The mu chart, tilted or warped planes (disk_normal), further planes
-    (extra_disks) and the time recorder are later slices of the port.
+    formulation: "theta" integrates (r, theta, phi, p_r, p_theta) with
+    metric.rhs5; "mu" integrates (r, mu = cos(theta), phi, p_r, p_mu)
+    with the transcendental-free metric.rhs5_mu (the caller converts y0
+    with metric.state_to_mu and the result back with
+    metric.state_from_mu), with mu's error weighed on the theta scale:
+    its magnitude is floored at pi/2. The mu chart takes no extras, time
+    recorder or disk plane, as in the JAX package.
+
+    Tilted or warped planes (disk_normal), further planes (extra_disks)
+    and the time recorder are later slices of the port.
     """
-    if formulation != "theta":
-        raise _not_ported(f"formulation={formulation!r}")
+    if formulation not in ("theta", "mu"):
+        raise ValueError(f"formulation must be 'theta' or 'mu', got "
+                         f"{formulation!r}")
+    mu = formulation == "mu"
+    if mu and extra_rhs is not None:
+        raise ValueError("extra_rhs requires formulation='theta' (the "
+                         "emissivity evaluates the theta chart)")
+    if mu and record_time:
+        raise ValueError("record_time requires formulation='theta' (tdot "
+                         "evaluates the theta chart)")
+    if mu and disk_plane is not None:
+        raise ValueError("disk mode supports formulation='theta' only")
     check_method(method, event_interp)
     if disk_normal is not None:
         raise _not_ported("tilted or warped disk planes (disk_normal)")
@@ -269,7 +288,10 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
     lam_max = torch.full((), float(lambda_max), dtype=dtype,
                          device=y0.device)
 
-    if extra_rhs is None:
+    if mu:
+        def rhs(y):
+            return metric.rhs5_mu(y, p_t, p_phi)
+    elif extra_rhs is None:
         def rhs(y):
             return metric.rhs5(y, p_t, p_phi)
     else:
@@ -279,6 +301,7 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
 
     y = y0
     n_comp = y0.shape[0]
+    n_div = kernel_operand(n_comp, y0)
     k1 = rhs(y)
     h = torch.full_like(y[0], h_init)
     lam = torch.zeros_like(y[0])
@@ -338,6 +361,12 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
 
         # -- per-component error scale --
         mag = torch.maximum(torch.abs(y), torch.abs(y5))
+        if mu:
+            # mu spans [-1, 1] and sits near 0 where theta sits near pi/2,
+            # so its relative term would vanish at the equator: weigh its
+            # error on the theta scale (|d mu| <= |d theta|).
+            mag = torch.cat((mag[:1], torch.clamp(mag[1:2], min=math.pi / 2),
+                             mag[2:]))
         if dtype == torch.float32:
             # Increment-aware scale: in float32 the estimator's own
             # roundoff is ~eps h max|k|, which exceeds atol + rtol|y| where
@@ -386,7 +415,8 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
             err_sq = torch.zeros_like(h_eff)
             for i in range(n_comp):
                 err_sq = err_sq + ratio[i] * ratio[i]
-            err_norm = torch.sqrt(err_sq / float(n_comp))
+            # the kernel divides (light_path_tracer_tpu_torch/operands.py)
+            err_norm = torch.sqrt(err_sq / n_div)
 
         accept = running & finite_ok & (err_norm <= 1.0)
         reject = running & finite_ok & (err_norm > 1.0)
@@ -512,17 +542,22 @@ def trace_rays_kerr(metric, r_obs, alphas, thetas, theta_obs, axis_refine,
                     lambda_max: float, max_steps: int = 200000,
                     precision: str = "fast", formulation: str = "theta",
                     method: str = "dp45", return_unconverged: bool = False,
-                    event_interp: str = "hermite"):
+                    event_interp: str = "hermite", force_invalid=None):
     """Trace a batch of Kerr rays adaptively; returns TraceResult.
 
     alphas/thetas: (N,) screen viewing angle / azimuth; theta_obs scalar;
     axis_refine: (N,) bool tolerance-tightening mask. Runs on the
     tensors' own device; call sites pass lambda_max = max(5000, 6 r_obs).
     method: "dp45" or "dop853"; event_interp: "hermite" or "linear".
-    return_unconverged=True returns (TraceResult, mask) with mask the
-    rays whose raw status is still RUNNING after the loop: neither event
-    fired within max_steps attempts and lambda was not spent, or it was.
-    The two-pass drivers re-trace those.
+    formulation: "theta" or "mu" (dp45_integrate; the same geodesics, but
+    mu alone is ill-conditioned for rays near the polar axis, which
+    trace_rays_kerr_hybrid re-traces in theta). force_invalid: an (N,)
+    bool mask of rays frozen INVALID before their first attempt (the
+    hybrid tracer's poisoning). return_unconverged=True returns
+    (TraceResult, mask) with mask the rays whose raw status is still
+    RUNNING after the loop: neither event fired within max_steps attempts
+    and lambda was not spent, or it was. The two-pass drivers re-trace
+    those.
     """
     trace_rays_kerr.launches += 1
     dtype = alphas.dtype
@@ -537,6 +572,10 @@ def trace_rays_kerr(metric, r_obs, alphas, thetas, theta_obs, axis_refine,
 
     y0, p_t, p_phi, invalid0 = metric.initial_conditions_5d(
         r_obs, alphas, thetas, theta_obs)
+    if formulation == "mu":
+        y0 = metric.state_to_mu(y0)
+    if force_invalid is not None:
+        invalid0 = invalid0 | force_invalid
     status0 = torch.where(invalid0, INVALID, RUNNING).to(torch.int32)
     r_plunge = metric.plunge_radii(r_obs, alphas, thetas, theta_obs)
 
@@ -549,6 +588,8 @@ def trace_rays_kerr(metric, r_obs, alphas, thetas, theta_obs, axis_refine,
         lambda_max=lambda_max, h_init=_h_init_for(r_obs),
         max_steps=max_steps, r_plunge=r_plunge,
         formulation=formulation, method=method, event_interp=event_interp)
+    if formulation == "mu":
+        y_f = torch.stack(metric.state_from_mu(y_f))
 
     final_alpha, n_half, status_out = finalize_angles(
         metric, y_f, p_t, p_phi, status_f)
@@ -561,6 +602,116 @@ def trace_rays_kerr(metric, r_obs, alphas, thetas, theta_obs, axis_refine,
 
 # Calls of the plain loop, so a run can show which path it took.
 trace_rays_kerr.launches = 0
+
+
+# The hybrid tracer's pole threshold (Kerr.pole_risk's s_thresh) and the
+# observer inclination below which it traces everything in theta.
+HYBRID_S_THRESH = 1e-3
+POLAR_OBSERVER_SIN = 0.1
+
+
+def hybrid_slots(n, slots=None) -> int:
+    """Re-trace slots of the hybrid tracer for n rays: by default
+    min(n, max(8192, ceil(n / 32))), the JAX package's sizing (about
+    twice the pole-risk share of an equatorial observer's grid); never
+    more than n."""
+    if slots is None:
+        slots = min(n, max(8192, -(-n // 32)))
+    return min(int(slots), n)
+
+
+def hybrid_poison(metric, r_obs, alphas, thetas, theta_obs, slots,
+                  s_thresh=HYBRID_S_THRESH):
+    """The hybrid's poison mask: the first `slots` pole-risk rays in index
+    order (the ones pass B is sure to pick up; any further risk rays
+    integrate in mu). No host sync."""
+    n = alphas.numel()
+    risk = metric.pole_risk(r_obs, alphas, thetas, theta_obs, s_thresh)
+    idx_r = torch.nonzero_static(risk, size=slots, fill_value=n)[:, 0]
+    poison = torch.zeros(n + 1, dtype=torch.bool, device=alphas.device)
+    poison[idx_r] = True
+    return poison[:n]
+
+
+def stragglers(mask, slots):
+    """(idx, dest): the first `slots` ray indices where `mask` holds, in
+    index order, padded with ray 0 as JAX's nonzero(size=slots,
+    fill_value=0) pads them, and the scatter destination of each slot,
+    with the padding sent to a spare row past the end. No host sync."""
+    n = mask.numel()
+    slots = min(int(slots), n)
+    idx = torch.nonzero_static(mask, size=slots, fill_value=0)[:, 0]
+    real = torch.arange(slots, device=mask.device) < mask.sum()
+    return idx, torch.where(real, idx, n)
+
+
+def _scatter(a1, a2, dest):
+    """a1 with row dest[j] replaced by a2[j] (dest == len(a1) drops j)."""
+    out = torch.cat([a1, a1[:1]])
+    out[dest] = a2
+    return out[:-1]
+
+
+def merge_results(res1, res2, dest):
+    """res1 with the re-traced rays' fields from res2 (two results of one
+    NamedTuple type, tuple fields taken element by element, slot j of
+    res2 going to ray dest[j]); n_steps counts both passes."""
+    fields = []
+    for name, a, b in zip(res1._fields, res1, res2):
+        if name == "n_steps":
+            fields.append(a + b)
+        elif isinstance(a, tuple):
+            fields.append(tuple(_scatter(x, y, dest) for x, y in zip(a, b)))
+        else:
+            fields.append(_scatter(a, b, dest))
+    return type(res1)(*fields)
+
+
+def trace_rays_kerr_hybrid(metric, r_obs, alphas, thetas, theta_obs,
+                           axis_refine, lambda_max: float,
+                           max_steps: int = 200000,
+                           event_interp: str = "hermite",
+                           s_thresh: float = HYBRID_S_THRESH,
+                           slots: int | None = None,
+                           pass1_steps: int | None = None,
+                           dynamic_params=None, precision: str = "fast",
+                           method: str = "dp45"):
+    """The mu-chart tracer: mu bulk, theta re-trace of the pole lanes;
+    returns TraceResult. The plain version, with the JAX package's XLA
+    backend's semantics:
+
+      1. the first `slots` pole-risk rays (metric.pole_risk at s_thresh)
+         are poisoned, frozen INVALID before their first attempt;
+      2. every ray is traced in mu at full depth (max_steps; pass1_steps
+         is ignored, as the XLA branch ignores it, and nothing is left
+         unconverged);
+      3. the poisoned rays and those that ended INVALID, the first
+         `slots` of them in index order (padded with ray 0), are
+         re-traced in theta at full depth and scattered back.
+
+    n_steps is the sum of both passes. A nearly polar observer
+    (|sin theta_obs| < 0.1) traces everything in theta. The CUDA driver
+    with the Pallas backend's semantics is
+    ops/cuda/kerr_trace_kernel.trace_rays_kerr_hybrid. dynamic_params
+    (traced sequences) is not ported.
+    """
+    if dynamic_params is not None:
+        raise _not_ported("dynamic_params (traced parameter sequences)")
+    kw = dict(precision=precision, method=method, event_interp=event_interp)
+    if abs(math.sin(float(theta_obs))) < POLAR_OBSERVER_SIN:
+        return trace_rays_kerr(metric, r_obs, alphas, thetas, theta_obs,
+                               axis_refine, lambda_max, max_steps, **kw)
+    slots = hybrid_slots(alphas.numel(), slots)
+    poison = hybrid_poison(metric, r_obs, alphas, thetas, theta_obs, slots,
+                           s_thresh)
+    res_a = trace_rays_kerr(metric, r_obs, alphas, thetas, theta_obs,
+                            axis_refine, lambda_max, max_steps,
+                            formulation="mu", force_invalid=poison, **kw)
+    idx, dest = stragglers(poison | (res_a.status == INVALID), slots)
+    res_b = trace_rays_kerr(metric, r_obs, alphas[idx], thetas[idx],
+                            theta_obs, axis_refine[idx], lambda_max,
+                            max_steps, **kw)
+    return merge_results(res_a, res_b, dest)
 
 
 def disk_result(metric, p_t, p_phi, y_f, status_f, attempts, hits):

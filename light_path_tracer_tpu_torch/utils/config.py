@@ -78,7 +78,9 @@ class RenderConfig:
     # Boundary-crossing interpolation of the shadow and lensed traces:
     # "hermite" (cubic, from the step's end derivatives) or "linear".
     event_interp: str = "hermite"
-    # Polar-coordinate formulation; only "theta" is ported.
+    # Polar-coordinate formulation of the Kerr trace: "theta" or "mu"
+    # (mu = cos(theta), the transcendental-free RHS, with the rays near
+    # the polar axis re-traced in theta: ops/batch.py, the hybrid tracer).
     formulation: str = "theta"
     # Tolerance tier: "fast" (f32 atol 3e-5), "precise" (f32 3e-6) or
     # "gate" (f32 1e-6; f64 1e-7) — ops/kerr_trace.py TOLS*.

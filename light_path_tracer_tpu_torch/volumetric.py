@@ -19,8 +19,11 @@ error-controlled extra state components:
 
 with g the redshift of a Keplerian circular flow (ZAMO inside the photon
 region), or of a radial outflow in the jet profile; the JAX module's
-docstring derives each. The emissivity profiles are the torus, the
-power law, the smoothed shell and the bipolar jet cone.
+docstring derives each. In a charged (Kerr-Newman) spacetime the flow
+reads the charge as the JAX package's does: W = 2Mr - Q^2 in the t-phi
+block, Q^2 in Delta, and the charged Keplerian Omega. The emissivity
+profiles are the torus, the power law, the smoothed shell and the bipolar
+jet cone.
 
 The trace runs on the tensors' device: the hand-written CUDA kernel
 (`ops/cuda/volumetric_kernel.py`, `csrc/kerr_dp45_extras.cu`) on a CUDA
@@ -29,8 +32,8 @@ PyTorch loop (`ops/kerr_trace.py`) on the CPU. The transfer functions
 below are the plain loop's; each carries the description (`.kernel`) from
 which the kernel evaluates the same function in registers.
 
-Not ported yet (they raise, see ROADMAP.md Queue 1): charged
-(Kerr-Newman) scenes, a boosted camera and the multi-device `mesh=` path.
+Not ported yet (they raise, see ROADMAP.md Queue 1): a boosted camera
+and the multi-device `mesh=` path.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from light_path_tracer_tpu_torch.disk import (_tone_map,
                                               keplerian_omega)
 from light_path_tracer_tpu_torch.ops.batch import _backend
 from light_path_tracer_tpu_torch.ops.kerr_trace import CAPTURED, INVALID
+from light_path_tracer_tpu_torch.operands import kernel_operand as _k
 from light_path_tracer_tpu_torch.utils.config import RenderConfig, SceneConfig
 from light_path_tracer_tpu_torch.utils.timing import StageTimer
 
@@ -122,13 +126,15 @@ class KernelTransfer:
         crossing bump of the order decomposition."""
         riaf = self.riaf
         M, a = float(self.metric.M), float(self.metric.a)
+        Q = _charge(self.metric)
         sign = 1.0 if riaf.prograde else -1.0
         c, band_scale, floor = (spectral_constants(riaf, self.freqs)
                                 if self.freqs else ((), (), 0.0))
         return dict(
             two_M=2.0 * M, a=a, a2=a * a,
-            kep_num=sign * float(np.sqrt(M)),
-            kep_add=sign * (a * float(np.sqrt(M))),
+            # the charged Keplerian +-x / (r^2 +- a x) takes +-1 and +-a
+            kep_num=sign if Q else sign * float(np.sqrt(M)),
+            kep_add=sign * a if Q else sign * (a * float(np.sqrt(M))),
             r_peak=riaf.r_peak, two_sig_r2=_two_sq(riaf.sigma_r),
             two_h2=_two_sq(riaf.h_cos), index=riaf.index,
             shell_in=riaf.shell_in, shell_out=riaf.shell_out,
@@ -139,7 +145,8 @@ class KernelTransfer:
             alpha0=riaf.alpha0, q_minus_1=riaf.opacity_index - 1.0,
             tau_floor=floor, c=c, band_scale=band_scale,
             spot_amp=riaf.spot_amp, spot_phase=riaf.spot_phase,
-            spot_omega=keplerian_omega(M, a, riaf.spot_r, riaf.prograde),
+            spot_omega=keplerian_omega(M, a, riaf.spot_r, riaf.prograde,
+                                       Q=Q),
             spot_r=riaf.spot_r, spot_r2=riaf.spot_r * riaf.spot_r,
             two_spot_sig2=_two_sq(riaf.spot_sigma),
             order_norm=_ORDER_NORM, order_inv_two_sig2=_ORDER_INV_TWO_SIG2,
@@ -169,15 +176,17 @@ def _jet_gamma(beta: float) -> float:
     return float(1.0 / np.sqrt(max(1.0 - beta * beta, 1e-12)))
 
 
+def _charge(metric) -> float:
+    """The metric's charge Q as a Python float (0 for Kerr)."""
+    return float(getattr(metric, "Q", 0.0))
+
+
 def _scene_metric(scene: SceneConfig):
-    """Kerr of the scene (disk._scene_metric); a charged scene and a
-    boosted camera are not ported yet."""
+    """Kerr or Kerr-Newman of the scene (disk._scene_metric); a boosted
+    camera is not ported yet."""
     if scene.boosted:
         raise _not_ported("a boosted camera (boost)")
-    metric = disk._scene_metric(scene)
-    if scene.Q:
-        raise _not_ported("the volumetric flow of a charged spacetime")
-    return metric
+    return disk._scene_metric(scene)
 
 
 @functools.lru_cache(maxsize=64)
@@ -186,27 +195,33 @@ def _profile_fns(metric, riaf: RIAFConfig):
     (r, cos theta) and the emitter redshift clipped to [0, 10] (circular
     flow, or the radial outflow for the jet), batched over tensors. The
     same operations in the same order as the JAX closures, with every
-    Python-float constant formed in double and rounded once."""
+    Python-float constant formed in double and rounded once. W and Delta
+    come from the metric's charge hooks (2Mr - Q^2 and Delta + Q^2 for
+    Kerr-Newman), Omega_K from the charged form where Q != 0."""
     M = float(metric.M)
     a = float(metric.a)
+    Q = _charge(metric)
 
     def _j_rest(r, c):
         if riaf.profile == "torus":
             return torch.exp(-(r - riaf.r_peak) ** 2
-                             / _two_sq(riaf.sigma_r)
-                             - c * c / _two_sq(riaf.h_cos))
+                             / _k(_two_sq(riaf.sigma_r), r)
+                             - c * c / _k(_two_sq(riaf.h_cos), r))
         if riaf.profile == "powerlaw":
-            return ((torch.clamp(r, min=1e-3) / riaf.r_peak) ** riaf.index
-                    * torch.exp(-c * c / _two_sq(riaf.h_cos)))
+            return ((torch.clamp(r, min=1e-3) / _k(riaf.r_peak, r))
+                    ** _k(riaf.index, r)
+                    * torch.exp(-c * c / _k(_two_sq(riaf.h_cos), r)))
         if riaf.profile == "jet":
             c_abs = torch.abs(c)
             return (torch.exp(-(c_abs - riaf.jet_cos) ** 2
-                              / _two_sq(riaf.jet_sigma))
-                    * (torch.clamp(r, min=1e-3) / riaf.r_peak) ** riaf.index
+                              / _k(_two_sq(riaf.jet_sigma), r))
+                    * (torch.clamp(r, min=1e-3) / _k(riaf.r_peak, r))
+                    ** _k(riaf.index, r)
                     * torch.sigmoid((r - riaf.jet_r_base)
-                                    / riaf.edge_width))
-        return (torch.sigmoid((r - riaf.shell_in) / riaf.edge_width)
-                * torch.sigmoid((riaf.shell_out - r) / riaf.edge_width))
+                                    / _k(riaf.edge_width, r)))
+        return (torch.sigmoid((r - riaf.shell_in) / _k(riaf.edge_width, r))
+                * torch.sigmoid((riaf.shell_out - r)
+                                / _k(riaf.edge_width, r)))
 
     def _g_clipped(y5, p_t, p_phi):
         """Circular-emitter redshift off the plane: Keplerian where that
@@ -214,12 +229,12 @@ def _profile_fns(metric, riaf: RIAFConfig):
         r, th = y5[0], y5[1]
         c = torch.cos(th)
         s2 = torch.clamp(1.0 - c * c, min=1e-12)
-        W = 2.0 * M * r
-        Delta = r * r - 2.0 * M * r + a * a
+        W = metric._two_M_r(r, M)
+        Delta = metric._Delta_b(r, M, a)
         ra2 = r * r + a * a
         A = ra2 * ra2 - a * a * Delta * s2
         g_tt, g_tph, g_pp = covariant_tphi_components(metric, r, c)
-        om_k = keplerian_omega(M, a, r, riaf.prograde)
+        om_k = keplerian_omega(M, a, r, riaf.prograde, Q=Q)
         om_z = a * W / torch.clamp(A, min=1e-30)
 
         def timelike(om):
@@ -239,8 +254,8 @@ def _profile_fns(metric, riaf: RIAFConfig):
         p_r = y5[3]
         c = torch.cos(th)
         s2 = torch.clamp(1.0 - c * c, min=1e-12)
-        W = 2.0 * M * r
-        Delta = torch.clamp(r * r - 2.0 * M * r + a * a, min=1e-12)
+        W = metric._two_M_r(r, M)
+        Delta = torch.clamp(metric._Delta_b(r, M, a), min=1e-12)
         Sigma = torch.clamp(r * r + a * a * c * c, min=1e-12)
         ra2 = r * r + a * a
         A = torch.clamp(ra2 * ra2 - a * a * Delta * s2, min=1e-30)
@@ -268,8 +283,6 @@ def _validate(metric, riaf: RIAFConfig):
                          "Johannsen-Psaltis (eps3 != 0): the flow "
                          "field (Keplerian Omega, circular-emitter "
                          "redshift) is a Kerr/charged closed form")
-    if getattr(metric, "Q", 0.0):
-        raise _not_ported("the volumetric flow of a charged spacetime")
     if riaf.profile not in ("torus", "powerlaw", "shell", "jet"):
         raise ValueError(f"profile must be 'torus', 'powerlaw', "
                          f"'shell' or 'jet', got {riaf.profile!r}")
@@ -304,7 +317,8 @@ def make_transfer_fns(metric, riaf: RIAFConfig):
     else:
         def emission_fn(y5, p_t, p_phi):
             j = _j_rest(y5[0], torch.cos(y5[1]))
-            return j * _g_clipped(y5, p_t, p_phi) ** riaf.g_power
+            g = _g_clipped(y5, p_t, p_phi)
+            return j * g ** _k(riaf.g_power, g)
 
         def absorption_fn(y5, p_t, p_phi):
             j = _j_rest(y5[0], torch.cos(y5[1]))
@@ -354,9 +368,9 @@ def make_spectral_transfer(metric, riaf: RIAFConfig, freqs: tuple):
             chi_hat = riaf.alpha0 * j
         else:
             g = _g_clipped(y[:5], p_t, p_phi)
-            em = j * g ** riaf.g_power
+            em = j * g ** _k(riaf.g_power, g)
             chi_hat = (riaf.alpha0 * j
-                       * torch.clamp(g, min=0.1) ** (q - 1.0))
+                       * torch.clamp(g, min=0.1) ** _k(q - 1.0, g))
         tau_hat = torch.clamp(y[5], min=floor)
         d_i = tuple(bs * em * torch.exp(-ci * tau_hat)
                     for bs, ci in zip(band_scale, c))
@@ -375,7 +389,7 @@ def _weights(riaf, _j_rest, _g_clipped, y, p_t, p_phi):
     if riaf.g_power == 0.0:
         return j, 1.0, riaf.alpha0 * j
     g = _g_clipped(y[:5], p_t, p_phi)
-    return (j, g ** riaf.g_power,
+    return (j, g ** _k(riaf.g_power, g),
             riaf.alpha0 * j / torch.clamp(g, min=0.1))
 
 
@@ -401,7 +415,7 @@ def make_movie_transfer(metric, riaf: RIAFConfig, times: tuple):
     make_transfer_fns(metric, riaf)               # validates the config
     _j_rest, _g_clipped = _profile_fns(metric, riaf)
     om_spot = keplerian_omega(float(metric.M), float(metric.a),
-                              riaf.spot_r, riaf.prograde)
+                              riaf.spot_r, riaf.prograde, Q=_charge(metric))
     R = riaf.spot_r
     two_sig2 = _two_sq(riaf.spot_sigma)
     absorbing = riaf.alpha0 > 0.0
@@ -419,7 +433,7 @@ def make_movie_transfer(metric, riaf: RIAFConfig, times: tuple):
             phi_s = riaf.spot_phase + om_spot * (t_k - t)
             d2 = (r * r + R * R
                   - 2.0 * r * R * s * torch.cos(phi - phi_s))
-            return riaf.spot_amp * torch.exp(-d2 / two_sig2)
+            return riaf.spot_amp * torch.exp(-d2 / _k(two_sig2, d2))
 
         tdot = metric.tdot(y[:5], p_t, p_phi)
         if absorbing:
@@ -725,7 +739,8 @@ def render_volumetric_movie(scene: SceneConfig, resolution, times,
         optical_depth=tau,
         t_max=float(_host(res.tau_hat).max()),
         spot_period=2.0 * np.pi / abs(keplerian_omega(
-            float(metric.M), float(metric.a), riaf.spot_r, riaf.prograde)),
+            float(metric.M), float(metric.a), riaf.spot_r, riaf.prograde,
+            Q=_charge(metric))),
         captured=int((status == CAPTURED).sum()),
         invalid=int((status == INVALID).sum()),
         integrator_steps=int(res.n_steps),

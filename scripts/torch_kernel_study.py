@@ -72,7 +72,19 @@ extras: the extras kernel (csrc/kerr_dp45_extras.cuh) against an earlier
     events, mean of 3 after a warm-up; the summary gives the median over
     turns) and holds every output (extras, final alpha, half-orbits,
     status, flags, per-ray attempts, warp step sum) bitwise against the
-    earlier commit's.
+    earlier commit's. The DOP853 sources (kerr_dop853_*.cu) of DIR and of
+    the package build into a second library each and run the forms on the
+    4,096 random rays (float32 and float64) and the 1024^2 thin and
+    movie-absorbed scenes in float32 with method="dop853", held the same
+    way. An earlier commit whose ExtrasCall lacks the metric family and
+    Q^2 is launched through a mirror without them. A third DP45 build,
+    "runtime family", is the package's csrc/ with the Kerr-Newman flow's
+    compile-time branches turned into one branch on Q^2 at run time
+    (RUNTIME_FAMILY), the design the package did not keep: it runs every
+    Kerr scene beside the others, and on the 1024^2 thin and
+    movie-absorbed scenes with a = 0.6, Q = 0.6 (float32) it is timed in
+    turns against the package's template family (its *_kn instances),
+    the two held bitwise (family_designs).
 kerr: the Kerr kernel (csrc/kerr_dp45.cu, shadow and disk variants)
     against an earlier commit's, DIR as for extras. Builds
     kerr_dp45.cu and kerr_dp45_f64.cu of DIR and of the package into a
@@ -88,9 +100,14 @@ kerr: the Kerr kernel (csrc/kerr_dp45.cu, shadow and disk variants)
     events with a spin kernel queued ahead, chip_smoke.kernel_alone_ms) and
     every output (status, final alpha, half-orbits, hits, the final
     state, per-ray attempts, warp step sum) is held bitwise against the
-    earlier commit's; with the package's Kerr-Newman and
-    Johannsen-Psaltis shadow instances timed beside them on the main
-    path's rays.
+    earlier commit's; the DOP853 sources (kerr_dop853.cu and its f64
+    sibling) of both build into a second library each and run the main
+    path's rays and config 4's grid (float32 and float64) and the
+    two-hit disk instances on the random rays with method="dop853", held
+    the same way; with the package's Kerr-Newman and Johannsen-Psaltis
+    shadow instances, and the mu chart's Kerr and Kerr-Newman instances
+    (the main path's rays with the hybrid's poison mask, DP45 and DOP853,
+    float32 and float64), timed beside them.
 
 The first line is the card's name and power limit. Needs a CUDA device;
 imports nothing of JAX.
@@ -503,12 +520,14 @@ def main_section(dev, builds, X):
     return out
 
 
-def declare_kerr(lib, _library="dp45"):
+def declare_kerr(lib, library="dp45"):
     """Declare the Kerr kernel's two entries (float32, float64) of a
-    library built from kerr_dp45.cu and kerr_dp45_f64.cu alone."""
+    library built from kerr_dp45.cu and kerr_dp45_f64.cu alone (or, for
+    library "dop853", from kerr_dop853.cu and kerr_dop853_f64.cu)."""
     import ctypes
     from light_path_tracer_tpu_torch.ops.cuda import _build
-    for suffix in ("", "_f64"):
+    pair = "_dop853" if library == "dop853" else ""
+    for suffix in (pair, pair + "_f64"):
         fn = getattr(lib, "lpt_kerr_dp45" + suffix)
         fn.argtypes = [_build._P, _build._I]
         fn.restype = _build._I
@@ -663,6 +682,41 @@ def parallel_builds(study, dirs, sources, declare, jobs=12):
     return builds
 
 
+# The runtime-branch variant of the extras kernel's metric family: the
+# package's csrc/ with the family's compile-time branches turned into one
+# branch on Q^2 at run time, so the Kerr instances serve Kerr-Newman too
+# (the design the package did not keep: it builds the family as a
+# template argument, *_kn.cu). (file, text, replacement) of each rewrite.
+RUNTIME_FAMILY = (
+    ("kerr_dp45_common.cuh", "constexpr bool kCharged = F == kKerrNewman;",
+     "const bool kCharged = F == kKerrNewman || P.q2 != T(0.0);"),
+    ("kerr_dp45_common.cuh", "if constexpr (kCharged)", "if (kCharged)"),
+    ("kerr_dp45_extras.cuh", "if constexpr (Fam == kKerrNewman)",
+     "if (P.q2 != T(0.0))"),
+    ("kerr_dp45_extras.cuh", "C.family != kExtrasFamily",
+     "C.family != kExtrasFamily && C.family != kKerrNewman"),
+    ("kerr_dp45_movie.cuh", "if constexpr (Fam == kKerrNewman)",
+     "if (P.q2 != T(0.0))"),
+)
+
+
+def runtime_family_csrc(root):
+    """A copy of the package's csrc/ under `root` with RUNTIME_FAMILY's
+    rewrites; raises if a rewritten text is gone from the sources."""
+    import shutil
+    from light_path_tracer_tpu_torch.ops.cuda import _build
+    d = root / "runtime_family" / "csrc"
+    d.mkdir(parents=True, exist_ok=True)
+    for f in list(_build.CSRC.glob("*.cu")) + list(_build.CSRC.glob("*.cuh")):
+        shutil.copyfile(f, d / f.name)
+    for name, old, new in RUNTIME_FAMILY:
+        text = (d / name).read_text()
+        if old not in text:
+            raise RuntimeError(f"csrc/{name} no longer holds {old!r}")
+        (d / name).write_text(text.replace(old, new))
+    return d
+
+
 def extras_builds(parent, blocks, jobs=12):
     """Build the extras sources of the earlier commit's csrc/ (`parent`),
     of the package's, and of one copy of the package's for each count in
@@ -673,7 +727,8 @@ def extras_builds(parent, blocks, jobs=12):
     from pathlib import Path
     from light_path_tracer_tpu_torch.ops.cuda import _build
     root = _build.BUILD_DIR / "extras_study"
-    dirs = {"parent": Path(parent), "package": _build.CSRC}
+    dirs = {"parent": Path(parent), "package": _build.CSRC,
+            "runtime family": runtime_family_csrc(root)}
     for count in blocks:
         name = f"blocks:{count}"
         d = root / name.replace(":", "_") / "csrc"
@@ -689,9 +744,9 @@ def extras_builds(parent, blocks, jobs=12):
             BOUND_EXPR, str(count)))
         dirs[name] = d
 
-    def declare(lib, _name, _d):
+    def declare(lib, _name, _d, pair=""):
         for entry in _build.EXTRAS_ENTRIES:
-            for suffix in ("", "_f64"):
+            for suffix in (pair, pair + "_f64"):
                 fn = getattr(lib, entry + suffix)
                 fn.argtypes = [_build._P, _build._P]
                 fn.restype = _build._I
@@ -702,9 +757,58 @@ def extras_builds(parent, blocks, jobs=12):
         lib.lpt_cuda_error_string = lambda rc: b"see cudaError_t"
     sources = [src + suffix for src in EXTRAS_SOURCES
                for suffix in ("", "_f64")]
-    return {name: (lib, log, out) for name, (lib, log, out, _) in
-            parallel_builds("extras_study", dirs, sources, declare,
-                            jobs).items()}
+    builds = {name: (lib, log, out) for name, (lib, log, out, _) in
+              parallel_builds("extras_study", dirs, sources, declare,
+                              jobs).items()}
+    # The DOP853 instances of the parent and the package, a second
+    # library each.
+    d853 = [src.replace("kerr_dp45", "kerr_dop853") + suffix
+            for src in EXTRAS_SOURCES for suffix in ("", "_f64")]
+    d853_dirs = {name: dirs[name] for name in ("parent", "package")}
+    for name, (lib, log, out, _) in parallel_builds(
+            "extras_dop853_study", d853_dirs, d853,
+            lambda lib, n, d: declare(lib, n, d, "_dop853"), jobs).items():
+        builds[name + ":dop853"] = (lib, log, out)
+    return builds
+
+
+def extras_mirrors(parent):
+    """The ExtrasCall mirrors an earlier commit's extras kernel takes: the
+    package's without the metric family and Q^2 where its
+    csrc/kerr_dp45_extras.cuh has neither (its float scalars then start 4
+    bytes sooner), else None."""
+    import ctypes
+    from pathlib import Path
+    from light_path_tracer_tpu_torch.ops.cuda import volumetric_kernel as vk
+    text = (Path(parent) / "kerr_dp45_extras.cuh").read_text()
+    if "cycle_exit, family" in text:
+        return None
+    return tuple(type(f"Old{c.__name__}", (ctypes.Structure,), {
+        "_fields_": [f for f in vk._call_fields(real)
+                     if f[0] not in ("family", "q2")]})
+        for c, real in ((vk.ExtrasCall, ctypes.c_float),
+                        (vk.ExtrasCall64, ctypes.c_double)))
+
+
+class use_extras_build:
+    """Within the block the extras wrappers launch the library `lib` of a
+    build (its pair's library for every name), through `mirrors` (the
+    ExtrasCall mirrors of an earlier commit) when given."""
+
+    def __init__(self, lib, mirrors=None):
+        self.lib, self.mirrors = lib, mirrors
+
+    def __enter__(self):
+        from light_path_tracer_tpu_torch.ops.cuda import volumetric_kernel
+        vk = self.vk = volumetric_kernel
+        self.saved = (vk.load_library, vk.ExtrasCall, vk.ExtrasCall64)
+        vk.load_library = lambda _library="dp45", lib=self.lib: lib
+        if self.mirrors:
+            vk.ExtrasCall, vk.ExtrasCall64 = self.mirrors
+
+    def __exit__(self, *exc):
+        (self.vk.load_library, self.vk.ExtrasCall,
+         self.vk.ExtrasCall64) = self.saved
 
 
 def trig_reductions(obj_dir):
@@ -784,7 +888,18 @@ def extras_scenes(dev, X):
         for name, (kind, args, inst) in forms.items():
             rows.append((f"{name}, {tag}", kind, args, al, th,
                          f"kerr_dp45_extras<{inst.format(real)}>"))
+            # DOP853: every form on the random rays, the thin and
+            # movie-absorbed forms on the float32 1024^2 scene
+            if "4,096" in tag or (tag == "f32 1024^2" and name in (
+                    "thin", "movie absorbed")):
+                rows.append((f"{name}, {tag}, dop853", kind, args, al, th,
+                             f"kerr_dop853_extras<{inst.format(real)}>"))
     return kerr, rows
+
+
+def scene_method(label):
+    """The embedded pair of an extras scene row, by its label."""
+    return "dop853" if label.endswith(", dop853") else "dp45"
 
 
 def scene_work(name, dtype):
@@ -797,7 +912,8 @@ def scene_work(name, dtype):
                  {"spectral": 3, "movie": 8, "order": 3}.get(kind, 0))
     return extras_work(kind, width, "absorbed" in words[1:],
                        "jet" if words[0] == "jet" else "torus",
-                       dtype=str(dtype).replace("torch.", ""))
+                       dtype=str(dtype).replace("torch.", ""),
+                       method="dop853" if "dop853" in words else "dp45")
 
 
 def extras_outputs(res, probe):
@@ -819,52 +935,64 @@ def extras_section(dev, X, parent, blocks, turns):
     from chip_smoke import cuda_ms, ptxas_report, same_bits
     from light_path_tracer_tpu_torch.ops.cuda import volumetric_kernel as vk
     builds = extras_builds(parent, blocks)
+    mirrors = extras_mirrors(parent)
     kerr, scenes = extras_scenes(dev, X)
-    saved = vk.load_library
     report = dict(builds={}, scenes={})
-    try:
-        for name, (lib, log, obj_dir) in builds.items():
-            vk.load_library = lambda _library="dp45", lib=lib: lib
-            rows = {}
-            for mangled_label, regs, spill in ptxas_report(log):
-                rows[mangled_label] = dict(registers=regs, spill=spill)
-            for label, count in trig_reductions(obj_dir).items():
-                rows.setdefault(label, {})["trig_reductions"] = count
-            if name != "parent":
+
+    def use(name):
+        lib = builds[name][0]
+        return use_extras_build(lib, mirrors if name.startswith("parent")
+                                else None)
+
+    def runs(name):
+        """The scene rows a build runs: its pair's."""
+        d853 = name.endswith(":dop853")
+        return [row for row in scenes
+                if (scene_method(row[0]) == "dop853") == d853]
+
+    for name, (lib, log, obj_dir) in builds.items():
+        rows = {}
+        for mangled_label, regs, spill in ptxas_report(log):
+            rows[mangled_label] = dict(registers=regs, spill=spill)
+        for label, count in trig_reductions(obj_dir).items():
+            rows.setdefault(label, {})["trig_reductions"] = count
+        if not name.startswith("parent"):
+            method = "dop853" if name.endswith(":dop853") else "dp45"
+            with use(name):
                 for label, entry, form, variant, dtype in (
-                        vk.extras_instances()):
+                        vk.extras_instances(method)):
                     rows.setdefault(label, {}).update(vk.describe_instance(
-                        entry, form, variant, dtype))
-            report["builds"][name] = rows
-            for label, row in rows.items():
-                if label.startswith("kerr_dp45_extras"):
-                    print(f"  [{name}] {label}: {json.dumps(row)}",
-                          flush=True)
-        want = {}
-        names = list(builds)
-        # One untimed turn first: the card settles its clocks and the
-        # allocator its cache before any reading counts.
-        for name in names:
-            vk.load_library = (
-                lambda _library="dp45", lib=builds[name][0]: lib)
-            for _label, kind, args, al, th, _inst in scenes:
-                vol_call(kerr, kind, args, al, th)
-        torch.cuda.synchronize()
-        for turn in range(turns):
-            order = names if turn % 2 == 0 else names[::-1]
-            for name in order:
-                vk.load_library = (
-                    lambda _library="dp45", lib=builds[name][0]: lib)
-                for label, kind, args, al, th, inst in scenes:
+                        entry, form, variant, dtype, method))
+        report["builds"][name] = rows
+        for label, row in rows.items():
+            if label.startswith(("kerr_dp45_extras", "kerr_dop853_extras")):
+                print(f"  [{name}] {label}: {json.dumps(row)}", flush=True)
+    want = {}
+    names = list(builds)
+    # One untimed turn first: the card settles its clocks and the
+    # allocator its cache before any reading counts.
+    for name in names:
+        with use(name):
+            for label, kind, args, al, th, _inst in runs(name):
+                vol_call(kerr, kind, args, al, th,
+                         method=scene_method(label))
+    torch.cuda.synchronize()
+    for turn in range(turns):
+        order = names if turn % 2 == 0 else names[::-1]
+        for name in order:
+            with use(name):
+                for label, kind, args, al, th, inst in runs(name):
                     def call(**kw):
-                        return vol_call(kerr, kind, args, al, th, **kw)
+                        return vol_call(kerr, kind, args, al, th,
+                                        method=scene_method(label), **kw)
                     probe = {}
                     got = extras_outputs(call(probe=probe), probe)
-                    if name == "parent" and label not in want:
+                    if name.startswith("parent") and label not in want:
                         want[label] = got
                     ms, _ = cuda_ms(call, 3)
+                    key = name.replace(":dop853", "")
                     row = report["scenes"].setdefault(label, dict(
-                        instance=inst)).setdefault(name, dict(ms=[]))
+                        instance=inst)).setdefault(key, dict(ms=[]))
                     row["ms"].append(ms)
                     if label in want:
                         row["bitwise_equal"] = row.get(
@@ -875,8 +1003,7 @@ def extras_section(dev, X, parent, blocks, turns):
                     print(f"turn {turn} [{name}] {label}: {ms:.3f} ms, "
                           f"bitwise {row.get('bitwise_equal')}",
                           flush=True)
-    finally:
-        vk.load_library = saved
+    report["family_designs"] = family_designs(dev, X, builds, turns)
     # Both bounds of every scene, from its per-ray attempts (the same in
     # every build: the outputs are bitwise equal) and this card's rates.
     from light_path_tracer_tpu_torch.ops.cuda import bounds, peak_probe
@@ -884,7 +1011,9 @@ def extras_section(dev, X, parent, blocks, turns):
     report["rates"] = rates
     for label, kind, args, al, _th, _inst in scenes:
         attempts = int(want[label][-1].sum())
-        work = attempts * scene_work(label.split(", ")[0], al.dtype)
+        work = attempts * scene_work(
+            label.split(", ")[0] + (" dop853" if scene_method(label) ==
+                                    "dop853" else ""), al.dtype)
         n_aux = 0 if kind == "vol" else len(args[2])
         n_extras = (2 if args[1] is not None else 1) if kind == "vol" \
             else args[1]
@@ -906,27 +1035,94 @@ def extras_section(dev, X, parent, blocks, turns):
     return report
 
 
+def family_designs(dev, X, builds, turns):
+    """The two designs of the extras kernel's Kerr-Newman flow on the
+    1024^2 thin and movie-absorbed scenes with a = 0.6, Q = 0.6, float32:
+    the package's template family (the *_kn instances of its "more"
+    library) against the
+    runtime-branch variant (the "runtime family" build's Kerr instances
+    launched with the charge), in turns; each call timed by CUDA events
+    (mean of 3 after a warm-up; the median over turns) and the two held
+    bitwise. Returns {scene: {design: {ms, bitwise_equal}}}."""
+    import torch
+    from chip_smoke import cuda_ms, same_bits
+    from light_path_tracer_tpu_torch.models import KerrNewman
+    from light_path_tracer_tpu_torch.ops.cuda import volumetric_kernel as vk
+    from light_path_tracer_tpu_torch import volumetric
+    kn = KerrNewman(M=1.0, a=0.6, Q=0.6)
+    al, th = X["vol"]
+    R = volumetric.RIAFConfig
+    period = 2.0 * np.pi / abs(volumetric.keplerian_omega(
+        1.0, 0.6, 6.0, True, Q=0.6))
+    times = tuple(period * k / 8 for k in range(8))
+    rows = {"thin": ("vol", volumetric.make_transfer_fns(kn, R())),
+            "movie absorbed": ("aux", (volumetric.make_movie_transfer(
+                kn, R(spot_amp=8.0, alpha0=0.3), times), 10, (),
+                tuple(range(2, 10))))}
+    designs = {"template": (vk.load_library("more"), False),
+               "runtime": (builds["runtime family"][0], True)}
+    out = {}
+    saved = vk.family_infix
+    try:
+        for turn in range(turns + 1):
+            order = list(designs) if turn % 2 == 0 else list(designs)[::-1]
+            for design in order:
+                lib, runtime = designs[design]
+                if runtime:
+                    vk.family_infix = lambda _m: ""
+                with use_extras_build(lib):
+                    for name, (kind, args) in rows.items():
+                        def call(**kw):
+                            return vol_call(kn, kind, args, al, th, **kw)
+                        probe = {}
+                        got = extras_outputs(call(probe=probe), probe)
+                        ms, _ = cuda_ms(call, 3)
+                        if turn == 0:        # the untimed turn
+                            out.setdefault(name, {})[design] = dict(
+                                ms=[], got=got)
+                            continue
+                        row = out[name][design]
+                        row["ms"].append(ms)
+                vk.family_infix = saved
+        torch.cuda.synchronize()
+    finally:
+        vk.family_infix = saved
+    for name, by in out.items():
+        same = all(same_bits(a, b) for a, b in zip(by["template"]["got"],
+                                                   by["runtime"]["got"]))
+        for design, row in by.items():
+            row.pop("got")
+            row["ms"] = float(np.median(row["ms"]))
+            row["bitwise_equal_designs"] = same
+        print(f"family design, {name} 1024^2 f32 Kerr-Newman: "
+              f"{json.dumps(by)}", flush=True)
+    return out
+
+
 # KerrCall's fields that an earlier commit's kernel may not have, keyed by
 # the word whose absence from its csrc/kerr_dp45.cu shows it: the metric
 # family and its scalars, and the event interpolant (which took what was
 # padding after the ints, so without it the float scalars start 4 bytes
 # sooner).
 NEWER_FIELDS = {"family": ("family", "q2", "r_pro", "eps3", "r_freeze"),
-                "event_interp": ("event_interp",)}
+                "event_interp": ("event_interp",),
+                "force_invalid": ("force_invalid", "chart")}
 
 
 def kerr_builds(parent):
     """Build kerr_dp45.cu and kerr_dp45_f64.cu of the earlier commit's
     csrc/ (`parent`) and of the package, four nvcc processes at once, a
-    library each. Returns {build: (library, KerrCall mirrors or None)}:
-    the earlier commit's mirrors drop the NEWER_FIELDS its source lacks."""
+    library each, and kerr_dop853.cu and its f64 sibling likewise.
+    Returns {build: ({"dp45": library, "dop853": library}, KerrCall
+    mirrors or None)}: the earlier commit's mirrors drop the NEWER_FIELDS
+    its source lacks."""
     import ctypes
     from pathlib import Path
     from light_path_tracer_tpu_torch.ops.cuda import _build
     from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
 
-    def declare(lib, _name, d):
-        declare_kerr(lib)
+    def declare(lib, _name, d, library="dp45"):
+        declare_kerr(lib, library)
         text = (d / "kerr_dp45.cu").read_text()
         drop = {f for word, fields in NEWER_FIELDS.items()
                 if word not in text for f in fields}
@@ -938,10 +1134,14 @@ def kerr_builds(parent):
             for c, real in ((kk.KerrCall, ctypes.c_float),
                             (kk.KerrCall64, ctypes.c_double)))
     dirs = {"parent": Path(parent), "package": _build.CSRC}
-    return {name: (lib, mirrors) for name, (lib, _log, _out, mirrors) in
-            parallel_builds("kerr_study", dirs, ("kerr_dp45",
-                                                 "kerr_dp45_f64"),
-                            declare, jobs=4).items()}
+    dp45 = parallel_builds("kerr_study", dirs, ("kerr_dp45",
+                                                "kerr_dp45_f64"),
+                           declare, jobs=4)
+    dop853 = parallel_builds(
+        "kerr_dop853_study", dirs, ("kerr_dop853", "kerr_dop853_f64"),
+        lambda lib, n, d: declare(lib, n, d, "dop853"), jobs=4)
+    return {name: (dict(dp45=lib, dop853=dop853[name][0]), mirrors)
+            for name, (lib, _log, _out, mirrors) in dp45.items()}
 
 
 class use_kerr_build:
@@ -949,14 +1149,14 @@ class use_kerr_build:
     launch `build` (kerr_builds), through its own KerrCall mirrors."""
 
     def __init__(self, build):
-        self.lib, self.mirrors = build
+        self.libs, self.mirrors = build
 
     def __enter__(self):
         from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel
         kk = self.kk = kerr_trace_kernel
         self.saved = (kk.load_library, kk.KerrCall, kk.KerrCall64,
                       kk.family_scalars)
-        kk.load_library = lambda _library="dp45": self.lib
+        kk.load_library = lambda library="dp45": self.libs[library]
         if self.mirrors:
             kk.KerrCall, kk.KerrCall64 = self.mirrors
             names = {f for f, _t in kk.KerrCall._fields_}
@@ -999,6 +1199,24 @@ def kerr_cases(dev, X):
                     pl=plane, **kw: kk.trace_disk_rays_cuda(
                         kerr, R_OBS, a, t, THETA, LAMBDA_MAX, 200000, pl, h,
                         record_momentum=m, **kw))
+        # the DOP853 instances (the second library of each build)
+        d = dict(method="dop853")
+        cases[f"main path {tag} dop853"] = (
+            lambda a=al.to(dt), t=th.to(dt), **kw: kk.trace_rays_kerr_cuda(
+                kerr, R_OBS, a, t, np.pi / 2, rf, LAMBDA_MAX, 200000, **d,
+                **kw))
+        cases[f"config-4 aligned {tag} dop853"] = (
+            lambda a=ga.to(dt), t=gt.to(dt), **kw: kk.trace_disk_rays_cuda(
+                kerr, R_OBS, a, t, THETA, LAMBDA_MAX, 200000, X["plane"], 2,
+                **d, **kw))
+        for mom in (False, True):
+            plane = X["plane"][:3] + (not mom,)
+            cases[f"disk 2 hits{' momenta' if mom else ''} 4096 rays {tag}"
+                  f" dop853"] = (
+                lambda a=ra.to(dt), t=rt.to(dt), m=mom, pl=plane,
+                **kw: kk.trace_disk_rays_cuda(
+                    kerr, R_OBS, a, t, THETA, LAMBDA_MAX, 200000, pl, 2,
+                    record_momentum=m, **d, **kw))
     return cases
 
 
@@ -1060,6 +1278,27 @@ def kerr_section(dev, X, parent, turns):
             label = f"{type(metric).__name__} main path {tag}"
             report["cases"][label] = dict(package=rows)
             print(f"{label}: {json.dumps(rows)}", flush=True)
+    # The mu chart's instances on the main path's rays, with the hybrid's
+    # poison mask (the package's full build: its mu entries).
+    from light_path_tracer_tpu_torch.models import Kerr
+    from light_path_tracer_tpu_torch.ops import kerr_trace as tk
+    for metric in (Kerr(M=1.0, a=0.9), KerrNewman(M=1.0, a=0.6, Q=0.6)):
+        for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+            a32, t32 = al.to(dt), th.to(dt)
+            poison = tk.hybrid_poison(metric, R_OBS, a32, t32, np.pi / 2,
+                                      tk.hybrid_slots(a32.numel()))
+            for method in ("dp45", "dop853"):
+                def fn(a=a32, t=t32, m=metric, p=poison, me=method, **kw):
+                    return kk.trace_rays_kerr_cuda(
+                        m, R_OBS, a, t, np.pi / 2, rf, LAMBDA_MAX, 200000,
+                        formulation="mu", force_invalid=p, method=me, **kw)
+                rows = dict(ms=[cuda_ms(fn, 3)[0] for _ in range(turns)],
+                            kernel_ms=[kernel_alone_ms(fn, 3)
+                                       for _ in range(turns)])
+                label = (f"{type(metric).__name__} mu main path {tag}"
+                         f"{' dop853' if method == 'dop853' else ''}")
+                report["cases"][label] = dict(package=rows)
+                print(f"{label}: {json.dumps(rows)}", flush=True)
     for label, by in report["cases"].items():
         summary = {name: dict(
             ms=float(np.median(r["ms"])),

@@ -210,6 +210,76 @@ def test_extras_work_dop853_of_each_form(key):
             n, bounds.form_flops(kind, width, absorbing), "dop853")
 
 
+@pytest.mark.parametrize("method", ["dp45", "dop853"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("family", ["kerr", "kerr_newman"])
+def test_kerr_work_mu_chart(family, dtype, method):
+    """The mu chart's attempt is the theta chart's with rhs5_mu for
+    rhs5_trig: 118 flops and three reciprocals an evaluation for Kerr
+    (Kerr-Newman 4 more), no sin and no cos; the rest of the attempt is
+    the pair's. Johannsen-Psaltis has no mu chart."""
+    k = 6 if method == "dp45" else 12
+    theta = bounds.kerr_work(dtype, family, method)
+    mu = bounds.kerr_work(dtype, family, method, chart="mu")
+    geo = bounds.MU_GEODESIC_FAMILIES[family]
+    assert geo == ops(flop=118 + (4 if family == "kerr_newman" else 0),
+                      div=3)
+    want = bounds._add(theta.ops, bounds._times(k, geo),
+                       bounds._times(-k, bounds.GEODESIC_FAMILIES[family]))
+    assert mu.ops == want
+    assert mu.ops["sin"] == mu.ops["cos"] == 0
+    theta_geo = bounds.GEODESIC_FAMILIES[family]
+    assert mu.flops == theta.flops + k * (geo["flop"] - theta_geo["flop"])
+    assert bounds.counted_bound_ms(1000 * mu, 0, RATES)[0] < \
+        bounds.counted_bound_ms(1000 * theta, 0, RATES)[0]
+    with pytest.raises(KeyError):
+        bounds.kerr_work(dtype, "johannsen_psaltis", method, chart="mu")
+
+
+def test_work_of_two_launches_adds():
+    """A driver's two passes: the work adds kind by kind in one scalar
+    type, and work of two types does not add."""
+    a, b = bounds.kerr_work(chart="mu"), bounds.kerr_work()
+    both = 3 * a + 2 * b
+    assert both.flops == 3 * a.flops + 2 * b.flops
+    assert both.ops == bounds._add(bounds._times(3, a.ops),
+                                   bounds._times(2, b.ops))
+    with pytest.raises(ValueError):
+        a + bounds.kerr_work("float64")
+
+
+# The Kerr-Newman flow against Kerr's in one RHS evaluation: the
+# geodesic's 4 flops, W and Delta's 2, and the circular flow's charged
+# Keplerian Omega (4 flops and a sqrt more, no pow); the jet has no
+# Keplerian Omega; the movie's tdot adds 2.
+KN_EXTRA = {
+    ("thin", 0, False, "torus"): ops(flop=4 + 2 + 4, sqrt=1, pow=-1),
+    ("absorbed", 0, False, "torus"): ops(flop=4 + 2 + 4, sqrt=1, pow=-1),
+    ("thin", 0, False, "jet"): ops(flop=4 + 2),
+    ("spectral", 3, False, "torus"): ops(flop=4 + 2 + 4, sqrt=1, pow=-1),
+    ("movie", 8, True, "torus"): ops(flop=4 + 2 + 4 + 2, sqrt=1, pow=-1),
+    ("order", 2, False, "torus"): ops(flop=4 + 2 + 4, sqrt=1, pow=-1),
+}
+
+
+@pytest.mark.parametrize("key", list(KN_EXTRA), ids=lambda k: "-".join(
+    str(x) for x in k))
+def test_extras_work_kerr_newman(key):
+    kind, width, absorbing, profile = key
+    kerr = bounds.rhs_ops(kind, width, absorbing, profile)
+    kn = bounds.rhs_ops(kind, width, absorbing, profile,
+                        family="kerr_newman")
+    assert kn == bounds._add(kerr, KN_EXTRA[key])
+    for method, k in (("dp45", 6), ("dop853", 12)):
+        wk = bounds.extras_work(kind, width, absorbing, profile,
+                                method=method)
+        wn = bounds.extras_work(kind, width, absorbing, profile,
+                                method=method, family="kerr_newman")
+        assert wn.ops == bounds._add(wk.ops, bounds._times(k, KN_EXTRA[key]))
+        extra = KN_EXTRA[key]["flop"] + KN_EXTRA[key]["div"]
+        assert wn.flops == wk.flops + k * extra
+
+
 WORKS = [("kerr", bounds.kerr_work()), ("kerr f64",
                                         bounds.kerr_work("float64")),
          ("kerr_newman", bounds.kerr_work(family="kerr_newman")),
@@ -219,7 +289,15 @@ WORKS = [("kerr", bounds.kerr_work()), ("kerr f64",
          ("orbit f64", bounds.orbit_work(True, "float64")),
          ("kerr dop853", bounds.kerr_work(method="dop853")),
          ("johannsen_psaltis dop853 f64",
-          bounds.kerr_work("float64", "johannsen_psaltis", "dop853"))]
+          bounds.kerr_work("float64", "johannsen_psaltis", "dop853")),
+         ("kerr mu", bounds.kerr_work(chart="mu")),
+         ("kerr_newman mu dop853 f64",
+          bounds.kerr_work("float64", "kerr_newman", "dop853", "mu")),
+         ("thin kerr_newman", bounds.extras_work("thin",
+                                                 family="kerr_newman")),
+         ("movie kerr_newman dop853 f64", bounds.extras_work(
+             "movie", 8, True, dtype="float64", method="dop853",
+             family="kerr_newman"))]
 WORKS += [(f"{k} {w} {ab} {dt}", bounds.extras_work(k, w, ab, dtype=dt))
           for k, w, ab in (("thin", 0, False), ("absorbed", 0, False),
                            ("spectral", 8, False), ("stokes", 0, False),
@@ -323,6 +401,70 @@ def test_instances_listed_are_the_instances_built():
             vals = (vals[0], "true" if vals[1] == "1" else "false")
         assert (fun, vals) in tags, (label, sorted(tags))
     assert {e for _l, e, *_r in listed} == set(_build.EXTRAS_ENTRIES)
+
+
+def test_kerr_newman_instances_are_the_kerr_ones_but_stokes():
+    """Each *_kn source builds its Kerr sibling with LPT_KN and the _kn
+    infix (its _f64 and DOP853 twins include it), so the Kerr-Newman
+    instances are the Kerr functors but Stokes, under the entries with
+    "_kn", labelled kerr_dp45_extras_kn."""
+    kerr = [x for x in vk.extras_instances() if "Stokes" not in x[0]]
+    for method, kernel in (("dp45", "kerr_dp45_extras"),
+                           ("dop853", "kerr_dop853_extras")):
+        kn = vk.extras_instances(method, "_kn")
+        assert [x[2:] for x in kn] == [x[2:] for x in kerr]
+        assert [x[1] for x in kn] == [x[1] + "_kn" for x in kerr]
+        assert [x[0] for x in kn] == [
+            x[0].replace("kerr_dp45_extras", kernel + "_kn") for x in kerr]
+    for entry in _build.KN_EXTRAS_ENTRIES:
+        name = entry[len("lpt_"):]
+        text = (CSRC / f"{name}_kn.cu").read_text()
+        assert "#define LPT_KN 1" in text and "#define LPT_INFIX _kn" in text
+        assert f'#include "{name}.cu"' in text
+        assert f'#include "{name}_kn.cu"' in (CSRC / f"{name}_kn_f64.cu"
+                                               ).read_text()
+        stem = name.replace("kerr_dp45", "kerr_dop853")
+        assert f'#include "{name}_kn.cu"' in (CSRC / f"{stem}_kn.cu"
+                                               ).read_text()
+        assert f'#include "{stem}_kn.cu"' in (CSRC / f"{stem}_kn_f64.cu"
+                                               ).read_text()
+    assert not (CSRC / "kerr_dp45_stokes_kn.cu").exists()
+
+
+def test_mu_sources_build_the_mu_chart():
+    text = (CSRC / "kerr_dp45_mu.cu").read_text()
+    assert "#define LPT_MU 1" in text and "#define LPT_INFIX _mu" in text
+    assert '#include "kerr_dp45.cu"' in text
+    for name, inc in (("kerr_dp45_mu_f64", "kerr_dp45_mu"),
+                      ("kerr_dop853_mu", "kerr_dp45_mu"),
+                      ("kerr_dop853_mu_f64", "kerr_dop853_mu")):
+        assert f'#include "{inc}.cu"' in (CSRC / f"{name}.cu").read_text()
+    assert _build.KERR_ENTRIES == ("lpt_kerr_dp45", "lpt_kerr_dp45_mu")
+    assert {"kerr_dop853_mu.cu", "kerr_dop853_mu_f64.cu"} <= {
+        s.name for s in _build._sources("dop853")}
+
+
+def test_three_libraries_split_the_sources():
+    """The DP45 mu-chart and Kerr-Newman-extras sources form the "more"
+    library (built apart, so the first DP45 launch builds no instance of
+    either), every DOP853 source the "dop853" one, the rest "dp45"; each
+    source belongs to exactly one."""
+    libs = {name: {s.name for s in _build._sources(name)}
+            for name in _build.LIBRARIES}
+    every = {s.name for s in CSRC.glob("*.cu")}
+    assert set().union(*libs.values()) == every
+    assert sum(len(v) for v in libs.values()) == len(every)
+    assert libs["more"] == {
+        "kerr_dp45_mu.cu", "kerr_dp45_mu_f64.cu"} | {
+        f"{e[len('lpt_'):]}_kn{d}.cu" for e in _build.KN_EXTRAS_ENTRIES
+        for d in ("", "_f64")}
+    assert "kerr_dp45.cu" in libs["dp45"] and all(
+        n.startswith("kerr_dop853") for n in libs["dop853"])
+    from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
+        library_of)
+    assert [library_of(m, v) for m in ("dp45", "dop853")
+            for v in (False, True)] == ["dp45", "more", "dop853", "dop853"]
+    assert _build.library_path("more").name.startswith("lpt_more_")
 
 
 def test_dop853_instances_are_the_dp45_ones_with_the_other_pair():

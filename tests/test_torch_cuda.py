@@ -56,7 +56,15 @@ spectrum, which phase 22 of chip_smoke.py leaves out), in float32 and
 float64, against the plain DOP853 loop by its DP45 twin's gates, every
 DOP853 extras instance at its block bound, a 64^2 float64 DOP853 render
 on the card against the CPU, and a CUDA tensor with an unknown pair or
-interpolant raising without falling back.
+interpolant raising without falling back. The mu chart: each mu instance
+(Kerr, Kerr-Newman; float32, float64; DP45, DOP853) bitwise the plain mu
+loop on the card with the poison mask, the CUDA hybrid bitwise the same
+driver over the plain loop, a 64^2 float64 mu render on the card against
+the CPU, and the chart raising where it has no instance. The Kerr-Newman
+flow of the extras kernel: its instances at the main paths' widths
+against the plain loop (both pairs and dtypes), each at its block bound,
+and a 64^2 float64 charged volumetric render on the card against the
+CPU.
 """
 
 import numpy as np
@@ -334,8 +342,8 @@ VOLUMETRIC_FORMS = {
 }
 
 
-def _extras_rays(n, device, lo=0.3, hi=4.0, seed=0):
-    m = Kerr(M=1.0, a=0.9)
+def _extras_rays(n, device, lo=0.3, hi=4.0, seed=0, metric=None):
+    m = metric or Kerr(M=1.0, a=0.9)
     ac = m.alpha_crit(R_OBS, THETA_DISK)
     rng = np.random.default_rng(seed)
     f32 = dict(dtype=torch.float32, device=device)
@@ -738,17 +746,19 @@ def test_every_extras_instance_matches_plain_version(cuda, family, width,
     _check_extras_instance(cuda, family, width, dtype)
 
 
-def _check_extras_instance(cuda, family, width, dtype, method="dp45"):
+def _check_extras_instance(cuda, family, width, dtype, method="dp45",
+                           metric=None):
     """test_every_extras_instance_matches_plain_version's body for one
-    instance of the embedded pair `method`."""
+    instance of the embedded pair `method` (of `metric`'s family, Kerr by
+    default)."""
     from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
         counter_name)
     if family.startswith("order"):
         lo, hi = (0.97, 1.06) if width == 4 else (0.3, 4.0)
-        m, al, th = _extras_rays(2048, cuda, lo, hi, seed=5)
+        m, al, th = _extras_rays(2048, cuda, lo, hi, seed=5, metric=metric)
         max_steps, window = 4000, 2048
     else:
-        m, al, th = _extras_rays(1024, cuda, 1.3, 4.0, seed=5)
+        m, al, th = _extras_rays(1024, cuda, 1.3, 4.0, seed=5, metric=metric)
         max_steps, window = 1500, 512
     al, th = al.to(dtype), th.to(dtype)
     tf, n_extras, aux, monitor = _width_form(family, width, m, al, th)
@@ -1495,3 +1505,171 @@ def test_dop853_render_shadow_on_card_matches_cpu(cuda):
     assert trace_rays_kerr_cuda.launches_dop853_f64 > before
     assert (ig.cpu() == ic).float().mean().item() >= 0.999
     assert (ic == 0).any() and sg["integrator_steps"] > 0
+
+
+# The mu chart (csrc/kerr_dp45_mu.cu and siblings) and the Kerr-Newman
+# flow of the extras kernel (csrc/*_kn.cu).
+
+MU_METRICS = {"kerr": Kerr(M=1.0, a=0.9),
+              "kerr_newman": KerrNewman(M=1.0, a=0.6, Q=0.6)}
+
+
+@pytest.mark.parametrize("method", ["dp45", "dop853"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("family", list(MU_METRICS))
+def test_mu_kernel_matches_plain_mu_loop_bitwise(cuda, family, dtype,
+                                                 method):
+    """Each mu instance against the plain mu loop on the card, both capped
+    at 256 attempts, with the hybrid's poison mask: every output bitwise
+    (the kernel calls the same libdevice functions as torch, in the same
+    order, without FMA contraction)."""
+    from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
+        counter_name)
+    m = MU_METRICS[family]
+    ac = m.alpha_crit(R_OBS)
+    rng = np.random.default_rng(11)
+    n = 1024
+    kw = dict(dtype=dtype, device=cuda)
+    al = torch.tensor(rng.uniform(0.3 * ac, 4 * ac, n), **kw)
+    th = torch.tensor(rng.uniform(-np.pi, np.pi, n), **kw)
+    ref = torch.tensor(rng.random(n) < 0.2, device=cuda)
+    fi = torch.tensor(rng.random(n) < 0.05, device=cuda)
+    name = counter_name(dtype, method, "mu")
+    before = getattr(trace_rays_kerr_cuda, name)
+    args = (m, R_OBS, al, th, np.pi / 2, ref, 5000.0, 256)
+    kw = dict(formulation="mu", method=method, force_invalid=fi,
+              return_unconverged=True)
+    rk, uk = trace_rays_kerr_cuda(*args, **kw)
+    rp, up = kerr_trace.trace_rays_kerr(*args, **kw)
+    assert getattr(trace_rays_kerr_cuda, name) == before + 1
+    for a, b in zip(rk, rp):
+        assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+    assert torch.equal(uk, up)
+    assert (rk.status[fi] == kerr_trace.INVALID).all()
+    assert (rk.status == 1).sum() > n // 2
+
+
+def test_cuda_hybrid_matches_plain_loop_through_it(cuda):
+    """The CUDA hybrid (Pallas semantics) on a 64^2 camera grid with its
+    pole column, first pass capped at 64: the same driver over the plain
+    loop gives every output bitwise; the poisoned rays are the pole
+    column's and each was traced in theta."""
+    from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
+        trace_rays_kerr_hybrid)
+    m = Kerr(M=1.0, a=0.9)
+    res = (64, 64)
+    fov = camera.fov_from_vertical(np.radians(40.0), res)
+    al = camera.build_alpha_lookup(res, fov, device=cuda).reshape(-1)
+    th = camera.build_theta_lookup(res, fov, device=cuda).reshape(-1)
+    ref = torch.zeros(al.shape, dtype=torch.bool, device=cuda)
+    args = (m, R_OBS, al, th, np.pi / 2, ref, 5000.0, 2000)
+    probe = {}
+    rk = trace_rays_kerr_hybrid(*args, pass1_steps=64, probe=probe)
+    rp = trace_rays_kerr_hybrid(*args, pass1_steps=64,
+                                trace_fn=kerr_trace.trace_rays_kerr)
+    for a, b in zip(rk, rp):
+        assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+    poison = probe["poison"].reshape(res)
+    assert poison[:, res[1] // 2].all() and 0 < int(poison.sum()) < 8 * 64
+    assert int(probe["redo"].sum()) >= int(poison.sum())
+
+
+def test_mu_chart_raises_where_it_has_no_instance(cuda):
+    m, _ac, al, th, ref = _rays(64, cuda)
+    jp = JohannsenPsaltis(M=1.0, a=0.9, eps3=2.0)
+    plain = kerr_trace.trace_rays_kerr.launches
+    with pytest.raises(NotImplementedError):
+        trace_rays_kerr_cuda(jp, R_OBS, al, th, np.pi / 2, ref, 5000.0, 10,
+                             formulation="mu")
+    with pytest.raises(ValueError):
+        trace_disk_rays_cuda(m, R_OBS, al, th, np.pi / 2, 5000.0, 10,
+                             (6.0, 20.0, np.pi / 2, True), formulation="mu")
+    with pytest.raises(ValueError):
+        trace_rays_kerr_cuda(m, R_OBS, al, th, np.pi / 2, ref, 5000.0, 10,
+                             force_invalid=ref)
+    with pytest.raises(ValueError):
+        trace_rays_kerr_cuda(m, R_OBS, al, th, np.pi / 2, ref, 5000.0, 10,
+                             formulation="cos")
+    assert kerr_trace.trace_rays_kerr.launches == plain
+
+
+@pytest.mark.parametrize("family", list(MU_METRICS))
+def test_render_shadow_mu_on_card_matches_cpu(cuda, family):
+    """render_shadow with formulation="mu" at 64^2 in float64: the CUDA
+    hybrid on the card against the plain hybrid on the CPU, pixels equal
+    on 99.9 %; the mu instance launched."""
+    m = MU_METRICS[family]
+    scene = SceneConfig(M=1.0, a=m.a, Q=getattr(m, "Q", 0.0),
+                        vertical_fov_deg=12.0)
+    cfg = RenderConfig(dtype="float64", formulation="mu")
+    before = trace_rays_kerr_cuda.launches_mu_f64
+    ig, _sg = pipeline.render_shadow(scene, (64, 64), cfg, device=cuda)
+    ic, _sc = pipeline.render_shadow(scene, (64, 64), cfg, device="cpu")
+    assert trace_rays_kerr_cuda.launches_mu_f64 > before
+    assert (ig.cpu() == ic).float().mean().item() >= 0.999
+
+
+# Every Kerr-Newman extras instance (no Stokes: the polarized form is
+# Kerr-only), as vk.extras_instances(method, "_kn") lists them.
+KN_EXTRAS_CASES = [c for c in WIDTH_CASES if c[0] != "stokes"]
+
+
+def _instance_form(family, width):
+    """The functor of an extras instance's label that a case launches."""
+    if family in ("thin", "absorbed"):
+        return f"Vol{family.capitalize()}<"
+    if family == "spectral":
+        return f"Spectral<{width},"
+    kind, which = family.split()
+    return f"{kind.capitalize()}<{width},absorbing={int(which == 'absorbed')},"
+
+
+@pytest.mark.parametrize("method", ["dp45", "dop853"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("family,width", KN_EXTRAS_CASES,
+                         ids=[f"{f} {w}" for f, w in KN_EXTRAS_CASES])
+def test_kerr_newman_extras_instance_matches_plain_version(
+        cuda, family, width, dtype, method):
+    """Every Kerr-Newman instance (a = 0.6, Q = 0.6), both pairs and both
+    dtypes, against the plain loop by
+    test_every_extras_instance_matches_plain_version's gates."""
+    _check_extras_instance(cuda, family, width, dtype, method,
+                           metric=KerrNewman(M=1.0, a=0.6, Q=0.6))
+
+
+def test_every_kerr_newman_extras_instance_fits_an_sm(cuda):
+    """Every Kerr-Newman instance meets its block bound, and the cases of
+    test_kerr_newman_extras_instance_matches_plain_version launch every
+    one of them."""
+    cases = sorted(_instance_form(f, w) for f, w in KN_EXTRAS_CASES)
+    for method in ("dp45", "dop853"):
+        rows = vk.extras_instances(method, "_kn")
+        for dtype in (torch.float32, torch.float64):
+            forms = sorted(label.split("<", 1)[1].rsplit(
+                "float" if dtype == torch.float32 else "double", 1)[0]
+                for label, _e, _f, _v, d in rows if d == dtype)
+            assert forms == cases, (method, dtype)
+        for label, entry, form, variant, dtype in rows:
+            d = vk.describe_instance(entry, form, variant, dtype, method)
+            assert d["blocks_per_sm"] >= d["min_blocks"] >= 1, (label, d)
+
+
+def test_charged_volumetric_render_on_card_matches_cpu(cuda):
+    """render_volumetric of a charged scene at 64^2 in float64, the card
+    against the CPU (median |d image| < 1e-6); the polarized form with a
+    charge raises as on the CPU."""
+    scene = SceneConfig(M=1.0, a=0.6, Q=0.6, theta_obs=THETA_DISK,
+                        vertical_fov_deg=16.0)
+    cfg = RenderConfig(dtype="float64")
+    before = vk.trace_rays_volumetric_cuda.launches_f64
+    ig, _sg = volumetric.render_volumetric(scene, (64, 64), cfg,
+                                           device=cuda)
+    ic, _sc = volumetric.render_volumetric(scene, (64, 64), cfg,
+                                           device="cpu")
+    assert vk.trace_rays_volumetric_cuda.launches_f64 > before
+    assert np.median(np.abs(ig.cpu().numpy() - ic.numpy())) < 1e-6
+    with pytest.raises(ValueError, match="uncharged Kerr"):
+        polarization.render_polarized_volumetric(scene, (8, 8), cfg,
+                                                 device=cuda)

@@ -227,28 +227,35 @@ def test_trace_batch_rejects_branches_not_ported():
     al = torch.full((8,), 0.1)
     for kwargs in (dict(chunk_size=4, progress=True),
                    dict(chunk_size=4, chunk_store={}), dict(progress="live"),
-                   dict(integrator="rk4"), dict(formulation="mu")):
+                   dict(integrator="rk4")):
         with pytest.raises(NotImplementedError):
             trace_batch(tm, R_OBS, al, **kwargs)
+    # formulation="mu" is ported (tests/test_torch_mu.py); an unknown
+    # chart is a ValueError.
     for kwargs in (dict(backend="pallas"), dict(integrator="rk45"),
-                   dict(event_interp="cubic")):
+                   dict(event_interp="cubic"), dict(formulation="cos")):
         with pytest.raises(ValueError):
             trace_batch(tm, R_OBS, al, **kwargs)
     empty = trace_batch(tm, R_OBS, torch.zeros(0))
     assert empty.final_alpha.shape == (0,) and int(empty.n_steps) == 0
     # The loop itself: extra state components, the saturation exits,
-    # DOP853 and linear events are ported; the mu chart, tilted or further
+    # DOP853, linear events and the mu chart are ported; tilted or further
     # disk planes and the time recorder still raise, and an unknown pair
-    # is a ValueError.
+    # or chart is a ValueError, as is the mu chart with a disk plane.
     one = torch.ones(8)
     loop = dict(atol=one, rtol=one, h_min=torch.tensor(1e-7), tiny_err=1e-8,
                 r_capture=torch.tensor(2.0), r_escape=torch.tensor(200.0),
                 lambda_max=10.0, h_init=1.0, max_steps=2)
-    for kwargs in (dict(formulation="mu"),
-                   dict(disk_normal=(0.0, 0.0, 1.0)),
+    for kwargs in (dict(disk_normal=(0.0, 0.0, 1.0)),
                    dict(extra_disks=[((2.0, 9.0, 1.0, True), None)]),
                    dict(record_time=True)):
         with pytest.raises(NotImplementedError):
+            tk.dp45_integrate(tm, torch.ones((5, 8)), -one, one,
+                              torch.full((8,), 2, dtype=torch.int32),
+                              **loop, **kwargs)
+    for kwargs in (dict(formulation="cos"),
+                   dict(formulation="mu", disk_plane=(2.0, 9.0, 1.0, True))):
+        with pytest.raises(ValueError):
             tk.dp45_integrate(tm, torch.ones((5, 8)), -one, one,
                               torch.full((8,), 2, dtype=torch.int32),
                               **loop, **kwargs)

@@ -317,15 +317,15 @@ def test_render_polarized_refusals(bad, error):
 
 
 def test_stokes_kernel_constants_and_layout():
-    """The kernel's structs mirror csrc/kerr_dp45_extras.cuh (240 and 208
-    bytes for the float instances, 472 and 264 for the float64 ones), and
-    the Stokes constants are Python floats formed in double and rounded
-    once."""
+    """The kernel's structs mirror csrc/kerr_dp45_extras.cuh (240 and 216
+    bytes for the float instances, 472 and 272 for the float64 ones:
+    ExtrasCall carries the metric family and Q^2), and the Stokes
+    constants are Python floats formed in double and rounded once."""
     import ctypes
     assert ctypes.sizeof(vk.RiafParams) == 240
-    assert ctypes.sizeof(vk.ExtrasCall) == 208
+    assert ctypes.sizeof(vk.ExtrasCall) == 216
     assert ctypes.sizeof(vk.RiafParams64) == 472
-    assert ctypes.sizeof(vk.ExtrasCall64) == 264
+    assert ctypes.sizeof(vk.ExtrasCall64) == 272
     m = Kerr(M=2.0, a=0.6)
     tt = polarization.make_polarized_volumetric_transfer(
         m, volumetric.RIAFConfig(prograde=False), "radial", 0.65)

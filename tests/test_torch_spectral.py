@@ -272,14 +272,34 @@ def test_cli_volumetric_on_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--movie", "4", "--centroid", "x.png"],
-    ["--decompose", "x.png", "--Q", "0.3"],
     ["--polarization", "x.png", "--visibility", "x.npz"],
-    ["--visibility", "x.npz"], ["--centroid", "x.png"], ["--Q", "0.3"]])
+    ["--visibility", "x.npz"], ["--centroid", "x.png"]])
 def test_cli_volumetric_rejects_modes_not_ported(tmp_path, flags):
     from light_path_tracer_tpu_torch.cli import main
     with pytest.raises(NotImplementedError, match="not ported"):
         main(["volumetric", "--size", "8", "--device", "cpu",
               "--output", str(tmp_path / "v.png"), *flags])
+
+
+@pytest.mark.parametrize("mode", ["thin", "decompose"])
+def test_cli_volumetric_charged(tmp_path, capsys, mode):
+    """--Q runs the charged (Kerr-Newman) flow: the still image and the
+    order decomposition at 8^2 on the CPU."""
+    from light_path_tracer_tpu_torch.cli import main
+    from light_path_tracer_tpu_torch.utils.save import read_png
+    out = tmp_path / "v.png"
+    extra = (["--decompose", str(tmp_path / "d.png")] if mode == "decompose"
+             else [])
+    assert main(["volumetric", "--size", "8", "--device", "cpu", "--Q",
+                 "0.3", "--output", str(out), *extra]) == 0
+    text = capsys.readouterr().out
+    if mode == "decompose":
+        assert (tmp_path / "d_composite.png").exists()
+        layers = np.load(tmp_path / "d.npz")
+        assert all(np.isfinite(layers[k]).all() for k in layers.files)
+    else:
+        assert f"Saved: {out}" in text
+        assert read_png(out).shape == (8, 8, 3)
 
 
 def test_volumetric_parser_defaults_match_jax():
