@@ -158,11 +158,13 @@ Phases:
      disk kernels on 1,024 of phases 3's and 8's rays, the orbit kernel
      on 1,024 rays and the alpha = 0 lane (Schwarzschild and RN), every
      extras form on phase 11's and 14's 4,096 rays against the float64
-     plain runs those phases made (the orders' made here). Gates:
-     statuses > 0.999; p99 |d final_alpha| < 1e-6 rad on stable escaped
-     rays (orbit < 1e-8); disk median |d r_hits[0]| < 1e-6 M; extras p99
-     |d| / max < 1e-6 (tau against max(1, max |tau|)); the orders by
-     phase 14's flux gates. Then every entry-point family in float64 at
+     plain runs those phases queued. Gates: statuses > 0.999; p99 |d
+     final_alpha| < 1e-6 rad on stable escaped rays (orbit < 1e-8);
+     disk median |d r_hits[0]| < 1e-6 M; extras p99 |d| / max < 1e-6
+     (tau against max(1, max |tau|)); the orders by phase 14's flux
+     gates; and every extras form but Stokes bitwise its plain loop (its
+     kernel sums the Levi-Civita contraction in another order; phase 22
+     holds the DOP853 ones alike). Then every entry-point family in float64 at
      64^2 on the card against the CPU (render_shadow, render_scene,
      render_shadow_aa, render_disk, render_volumetric, _spectrum, _movie
      thin and absorbed, _decomposed, render_polarized_volumetric): only
@@ -320,9 +322,9 @@ Phases:
      movie thin and absorbed, 3 orders thin and absorbed; float32 and
      float64; DP45 and DOP853) on 4,096 random rays capped at 128, its
      inputs built before the timed calls, bitwise equal to its plain loop
-     on the card in float32 and held by phase 17's float64 gate in
-     float64 (the float64 pow of CUDA's library rounds otherwise in
-     PyTorch's build, ROADMAP Queue 3 #9); the 1024^2 charged
+     on the card in float32 and float64 (the float64 instances' pow,
+     csrc/lpt_pow_f64.cu, is built with contraction, as PyTorch builds
+     its own); the 1024^2 charged
      volumetric renders (thin, absorbed, jet, 3-band, 8-frame movie thin
      and absorbed, 3 orders; each with its counts set to 0 before it: the
      extras kernel launched and no plain loop; the movie's spot period
@@ -330,7 +332,47 @@ Phases:
      and charged thin image on the card against the CPU (pixels equal on
      99.9 %; masks 99.9 %, median |d image| < 1e-6). The plain loops and
      the CPU renders run in P23_WORKERS child processes side by side,
-     after every timed kernel run of the phase.
+     after every timed kernel run of the phase;
+ 24. the rest of the disk family through the disk kernel: the wide
+     instances (5-8 crossing slots, csrc/kerr_dp45_wide.cu and its f64
+     and DOP853 siblings; each pair, dtype, family and momentum) on
+     phase 8's 4,096 rays, their last 1,024 moved just outside the
+     critical curve (bisection on the shadow kernel, then 1 + eps), with
+     the decomposition's recorder (every plane crossing): slots 0-3,
+     the status, final_alpha and min(n_hits, 4) bitwise the 4-slot
+     instance's, then against the plain loop on the card by phase 8's
+     gates on every slot (bitwise reported), 9 slots raising before a
+     launch; the 1024^2 config-4 grid with the decomposition's recorder
+     and 6 slots, kernel against the plain loop (in its child), both
+     capped at GRID_STEPS: phase 8's gates on every slot, bitwise
+     reported; the 1024^2 translucent grid with 4, 6 and 8 slots (time,
+     launches, attempts a ray); every disk render at 1024^2 through its
+     entry point, warm-up and 3 runs (decomposed 3 and 6 orders, 32
+     frames over an orbit, disk AA x4, composite and composite AA x4,
+     line profile, light curve of 64 samples, polarization, Q-U loop of
+     32), the disk kernel counted and the plain loop not, each with its
+     rays/s and a frame's device time and launches, and the JAX
+     package's own physics checks (decomposed total against the
+     translucent trace, periodic frames, the opaque composite blocking
+     and the translucent one adding, the stacked composite AA equal to
+     its loop, Doppler horns and the flat-law total under supersampling,
+     a periodic and beamed light curve, a closed Q-U loop); then each
+     mode at 64^2 on the card against the CPU (masks >= 99 %, median
+     |d| < 1e-3 on disk pixels; 1-D outputs within 1e-3 of their
+     largest value, the Q-U loop's Q and U of the largest I, each curve
+     read against I's largest value and its own), and the Q-U loop
+     pixel by pixel (where the curves part, how far Q cancels, the
+     pixels that carry the gap, and how far a loop rotated by chi in
+     place of 2 chi would sit: it must exceed 1e-2 of I's largest).
+The plain loops of phases 11-15, 17, 21, 22 and 24 and their CPU renders
+run in PLAIN_WORKERS child processes (PlainPool), queued at the start of
+phase 11 (phases 11-15) and of phases 17, 21, 22 and 24, while the
+parent runs its kernels; the plain_ms of those phases is the call's time
+in its child, beside the other children's work on the card. A kernel
+time that cuda_ms takes while a child has a call on the card is taken
+again for the kernels line by the same call once the pool is closed
+(retime_entries: "ms" the quiet time, "ms_beside_plain_loops" the
+first).
 Each path's launch counters are set to 0 just before it and read just
 after (float32 and float64 instances count apart: `.launches`,
 `.launches_f64`; the DOP853 instances on `.launches_dop853` and
@@ -373,13 +415,18 @@ the float64 ones at 64^2; mu with integrator="dop853" where the pair is
 DOP853), time the kernel on (a) and (d)'s random rays against the plain
 loop's time in its child process, and carry bitwise_plain; the
 kerr_dp45_mu entry also the mu and theta kernels alone at full depth on
-the same main-path rays with both bounds and their ratios. The last line is {"ok": true,
+the same main-path rays with both bounds and their ratios. Phase 24's
+entry (kerr_dp45_disk_wide) counts the wide instance's launches on its
+renders and times it on the random rays (float32 DP45, Kerr, momenta)
+against the plain loop in its child. The last line is {"ok": true,
 "device": {...}}. Exit code 0 iff every phase
 passed; without a CUDA device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -424,9 +471,41 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0].strip()
 
 
+class LateMs(float):
+    """A time that cuda_ms took while PlainPool children had plain loops
+    on the card: the milliseconds, with the call and its repeats, so that
+    kernel_entry can have the call timed again once the card is quiet
+    (retime_entries)."""
+
+    def __new__(cls, ms, fn, repeats):
+        obj = super().__new__(cls, ms)
+        obj.fn, obj.repeats = fn, repeats
+        return obj
+
+
+def _frozen(fn):
+    """fn with the values its free variables hold now (a lambda made in a
+    loop reads the loop's variables when it runs, not when it was made)."""
+    import types
+    if not getattr(fn, "__closure__", None):
+        return fn
+    cells = []
+    for cell in fn.__closure__:
+        try:
+            cells.append(types.CellType(cell.cell_contents))
+        except ValueError:                     # a variable not yet bound
+            cells.append(cell)
+    out = types.FunctionType(fn.__code__, fn.__globals__, fn.__name__,
+                             fn.__defaults__, tuple(cells))
+    out.__kwdefaults__ = fn.__kwdefaults__
+    return out
+
+
 def cuda_ms(fn, repeats):
-    """Mean device time of fn() over `repeats` calls, by CUDA events."""
+    """Mean device time of fn() over `repeats` calls, by CUDA events; a
+    LateMs when PlainPool children have plain loops on the card."""
     import torch
+    beside = PlainPool.card_busy()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -435,7 +514,8 @@ def cuda_ms(fn, repeats):
         out = fn()
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / repeats, out
+    ms = start.elapsed_time(stop) / repeats
+    return (LateMs(ms, _frozen(fn), repeats) if beside else ms), out
 
 
 # Cycles of the spin kernel queued ahead of a timed launch (~5 ms at the
@@ -542,6 +622,128 @@ def device_profile(fn, reps, key="", count=None, tries=3):
                 complete=complete, tries=attempt)
 
 
+# The child processes that run the plain loops of phases 11-15, 17, 21,
+# 22 and 24 (and their CPU renders) beside the parent: the plain loop is
+# host-bound, one process a core; two of the card's host's 8 cores stay
+# with the parent and the libraries that build at nice 19.
+PLAIN_WORKERS = 6
+
+
+def _moved(x, device):
+    """x with every tensor in it (nested in tuples, named tuples, lists
+    and dicts) moved to `device`."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_moved(v, device) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_moved(v, device) for v in x)
+    if isinstance(x, dict):
+        return {k: _moved(v, device) for k, v in x.items()}
+    return x
+
+
+def _plain_init():
+    import torch
+    torch.set_num_threads(1)
+    if torch.cuda.is_available():
+        torch.cuda.set_device(0)
+
+
+def _sync():
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _plain_job(name, args, kw, device):
+    """In a child of PlainPool: `name` (a function of this file, or
+    "module:function") called with the arguments' tensors moved to
+    `device`; returns (seconds of the call, synchronised, outputs with
+    their tensors on the CPU)."""
+    import importlib
+    if ":" in name:
+        module, _, attr = name.partition(":")
+        fn = getattr(importlib.import_module(module), attr)
+    else:
+        fn = globals()[name]
+    args, kw = _moved(args, device), _moved(kw, device)
+    _sync()
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    _sync()
+    return time.perf_counter() - t0, _moved(out, "cpu")
+
+
+class PlainPool:
+    """PLAIN_WORKERS child processes (spawned, one thread each) that run
+    plain-loop calls on the card, or CPU renders, while the parent times
+    its kernels: submit() queues a call with its arguments' tensors copied
+    to the CPU and returns a job; result(job, dev) waits and returns (the
+    call's milliseconds in its child, its outputs on `dev`). The
+    arguments travel by pickle, so a call names its transfer functions by
+    what builds them. close() ends every child."""
+
+    started = []
+
+    def __init__(self, workers=PLAIN_WORKERS):
+        import concurrent.futures
+        import multiprocessing
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_plain_init)
+        self.card_jobs = []
+        PlainPool.started.append(self)
+
+    def submit(self, name, *args, on="cuda", **kw):
+        """Queue name(*args, **kw) with the tensors on `on` ("cuda", or
+        "cpu" for a CPU render)."""
+        job = self.pool.submit(_plain_job, name, _moved(args, "cpu"),
+                               _moved(kw, "cpu"), on)
+        if on != "cpu":
+            self.card_jobs.append(job)
+        return job
+
+    @classmethod
+    def card_busy(cls):
+        """Whether a child runs, or has queued, a call on the card."""
+        return any(not job.done() for pool in cls.started
+                   for job in pool.card_jobs)
+
+    @staticmethod
+    def result(job, dev):
+        seconds, out = job.result()
+        return seconds * 1e3, _moved(out, dev)
+
+    def close(self):
+        procs = list((self.pool._processes or {}).values())
+        self.pool.shutdown(wait=False, cancel_futures=True)
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+
+    @classmethod
+    def stop_all(cls):
+        for pool in cls.started:
+            pool.close()
+
+
+def plain_job(pool, kind, metric, *args, **kw):
+    """Queue the plain loop of both_versions (kind "kerr"), disk_both
+    ("disk") or orbit_both ("orbit") on the same arguments to `pool`."""
+    name = {"kerr": "kerr_trace_kernel:trace_rays_kerr_plain",
+            "disk": "kerr_trace_kernel:trace_disk_rays_plain",
+            "orbit": "schwarzschild_kernel:trace_rays_schwarzschild_plain"}
+    lead = ((R_OBS,) + args[:2] + (np.pi / 2,) + args[2:3]
+            + (LAMBDA_MAX,) + args[3:] if kind == "kerr"
+            else (R_OBS,) + args[:2] + (THETA_DISK, LAMBDA_MAX) + args[2:]
+            if kind == "disk" else (R_OBS,) + args)
+    return pool.submit("light_path_tracer_tpu_torch.ops.cuda." + name[kind],
+                       metric, *lead, **kw)
+
+
 def compare(rk, rp, alphas, ac):
     """Kernel result rk against plain result rp on the same rays: status
     agreement, and |d final_alpha| on stable escaped rays (escaped in
@@ -559,9 +761,10 @@ def compare(rk, rp, alphas, ac):
 
 
 def both_versions(label, metric, alphas, thetas, refine, max_steps,
-                  kernel_repeats, **kw):
+                  kernel_repeats, job=None, **kw):
     """Run kernel and plain version on the same CUDA rays; print both.
-    kw (method, event_interp) goes to both."""
+    kw (method, event_interp) goes to both; job: the plain run queued to
+    a PlainPool (plain_job's), else it runs here."""
     import torch
     from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
         trace_rays_kerr_cuda, trace_rays_kerr_plain)
@@ -569,7 +772,9 @@ def both_versions(label, metric, alphas, thetas, refine, max_steps,
             max_steps)
     ms, rk = cuda_ms(lambda: trace_rays_kerr_cuda(*args, **kw),
                      kernel_repeats)
-    plain_ms, rp = cuda_ms(lambda: trace_rays_kerr_plain(*args, **kw), 1)
+    plain_ms, rp = (PlainPool.result(job, alphas.device) if job is not None
+                    else cuda_ms(lambda: trace_rays_kerr_plain(*args, **kw),
+                                 1))
     cmp = compare(rk, rp, alphas, metric.alpha_crit(R_OBS))
     probe = {}
     trace_rays_kerr_cuda(*args, probe=probe, **kw)
@@ -591,16 +796,18 @@ def both_versions(label, metric, alphas, thetas, refine, max_steps,
     return cmp
 
 
-def orbit_both(label, metric, alphas, kernel_repeats):
+def orbit_both(label, metric, alphas, kernel_repeats, job=None):
     """Orbit kernel and plain version on the same CUDA rays; print both,
-    with the kernel's per-ray step statistics."""
+    with the kernel's per-ray step statistics; job: the plain run queued
+    to a PlainPool, else it runs here."""
     import torch
     from light_path_tracer_tpu_torch.ops.cuda.schwarzschild_kernel import (
         trace_rays_schwarzschild_cuda, trace_rays_schwarzschild_plain)
     ms, rk = cuda_ms(lambda: trace_rays_schwarzschild_cuda(
         metric, R_OBS, alphas), kernel_repeats)
-    plain_ms, rp = cuda_ms(lambda: trace_rays_schwarzschild_plain(
-        metric, R_OBS, alphas), 1)
+    plain_ms, rp = (PlainPool.result(job, alphas.device) if job is not None
+                    else cuda_ms(lambda: trace_rays_schwarzschild_plain(
+                        metric, R_OBS, alphas), 1))
     _, steps = trace_rays_schwarzschild_cuda(metric, R_OBS, alphas,
                                              return_steps=True)
     st = steps.cpu().numpy()
@@ -640,9 +847,11 @@ def disk_compare(rk, rp):
 
 
 def disk_both(label, metric, alphas, thetas, max_steps, plane, max_hits,
-              kernel_repeats, record_momentum=False, method="dp45"):
+              kernel_repeats, record_momentum=False, method="dp45",
+              job=None):
     """Disk kernel and plain version on the same CUDA rays; print both,
-    and require the phase-8 gates."""
+    and require the phase-8 gates; job: the plain run queued to a
+    PlainPool (plain_job's), else it runs here."""
     import torch
     from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
         trace_disk_rays_cuda, trace_disk_rays_plain)
@@ -651,7 +860,9 @@ def disk_both(label, metric, alphas, thetas, max_steps, plane, max_hits,
     kw = dict(record_momentum=record_momentum, method=method)
     ms, rk = cuda_ms(lambda: trace_disk_rays_cuda(*args, **kw),
                      kernel_repeats)
-    plain_ms, rp = cuda_ms(lambda: trace_disk_rays_plain(*args, **kw), 1)
+    plain_ms, rp = (PlainPool.result(job, alphas.device) if job is not None
+                    else cuda_ms(lambda: trace_disk_rays_plain(*args, **kw),
+                                 1))
     cmp = disk_compare(rk, rp)
     if record_momentum:
         both = ((rk.n_hits > 0) & (rp.n_hits > 0)).cpu()
@@ -827,7 +1038,35 @@ def kernel_entry(name, source, replaces, launches, max_abs_err, ms,
                       if k in stats})
     if instance:
         entry.update(instance=instance, **RESOURCES.get(instance, {}))
+    if isinstance(ms, LateMs):
+        LATE_ENTRIES.append((entry, ms))
     return entry
+
+
+# The kernels-line entries whose ms was taken beside the children's plain
+# loops on the card, with that time's call: retime_entries times each
+# again once the pool is closed.
+LATE_ENTRIES = []
+
+
+def retime_entries(card):
+    """Each entry of LATE_ENTRIES timed again by the same call and the
+    same number of repeats on the quiet card: "ms" is the new time and
+    "ms_beside_plain_loops" the one taken beside the children."""
+    import concurrent.futures
+    concurrent.futures.wait([job for pool in PlainPool.started
+                             for job in pool.card_jobs], timeout=60)
+    require(not PlainPool.card_busy(), "retime_entries: the children "
+            "still have calls on the card")
+    rows = {}
+    for entry, late in LATE_ENTRIES:
+        ms, _out = cuda_ms(late.fn, late.repeats)
+        del _out
+        entry.update(ms=ms, ms_beside_plain_loops=float(late))
+        rows[entry["name"]] = [ms, float(late)]
+    print(f"kernels-line times taken again on the quiet card (ms, then "
+          f"beside the plain loops): {json.dumps(rows)} on {card}",
+          flush=True)
 
 
 THETA_VOL = float(np.radians(80.0))
@@ -929,13 +1168,18 @@ def extras_compare(a, b):
     return out
 
 
-def f32_gap(metric, riaf, freqs, alphas, thetas, max_steps, plain32, **kw):
+def f32_gap(metric, riaf, freqs, alphas, thetas, max_steps, plain32,
+            job64=None, **kw):
     """The plain loop's own float32 result plain32 against its float64
     result on the same rays (extras_compare's numbers), and that float64
-    result with its time (phase 17 holds the float64 kernel against it)."""
-    ms, rp64 = cuda_ms(lambda: extras_trace(
-        metric, riaf, freqs, alphas.double(), thetas.double(), max_steps,
-        False, **kw), 1)
+    result with its time (phase 17 holds the float64 kernel against it);
+    job64: that float64 run queued to a PlainPool, else it runs here."""
+    if job64 is not None:
+        ms, rp64 = PlainPool.result(job64, alphas.device)
+    else:
+        ms, rp64 = cuda_ms(lambda: extras_trace(
+            metric, riaf, freqs, alphas.double(), thetas.double(),
+            max_steps, False, **kw), 1)
     return extras_compare(plain32, rp64), (rp64, ms)
 
 
@@ -986,9 +1230,10 @@ def grinders(probe, width):
                  for i in top])
 
 
-def volumetric_phases(dev, card):
+def volumetric_phases(dev, card, pool):
     """Phases 11-13; returns the kernels-line entries of the extras kernel
-    and its drivers."""
+    and its drivers. Their plain loops and CPU renders run in `pool`'s
+    children, queued at the start."""
     import torch
     from light_path_tracer_tpu_torch import camera, volumetric
     from light_path_tracer_tpu_torch.models import Kerr
@@ -1005,6 +1250,41 @@ def volumetric_phases(dev, card):
     f32 = dict(dtype=torch.float32, device=dev)
     al = torch.tensor(rng.uniform(0.3 * ac, 4 * ac, VOL_RAYS), **f32)
     th = torch.tensor(rng.uniform(-np.pi, np.pi, VOL_RAYS), **f32)
+    scene = SceneConfig(M=1.0, a=0.9, r_obs_mult=R_OBS, theta_obs=THETA_VOL,
+                        vertical_fov_deg=16.0)
+    cfg = RenderConfig()
+    d256 = VOL_PLAIN_DIM
+    fov256 = camera.fov_from_vertical(scene.vertical_fov, d256)
+    al256 = camera.build_alpha_lookup(d256, fov256, **f32).reshape(-1)
+    th256 = camera.build_theta_lookup(d256, fov256, **f32).reshape(-1)
+    d64 = VOL_CHECK_DIM
+    freqs3 = scene_forms()["spectral 3-band"][1]
+    riaf3 = scene_forms()["spectral 3-band"][0]
+    jobs = {}
+    for label, (riaf, freqs) in volumetric_forms().items():
+        for k, (a, t) in enumerate(((al, th), (al.double(), th.double()))):
+            jobs[11, label, k] = pool.submit(
+                "extras_trace", kerr, riaf, freqs, a, t, VOL_STEPS, False,
+                sat_window=VOL_WINDOW)
+    for label, (riaf, freqs) in scene_forms().items():
+        for k, (a, t) in enumerate(((al256, th256), (al256.double(),
+                                                      th256.double()))):
+            if k == 0 or freqs:
+                jobs[12, label, k] = pool.submit(
+                    "extras_trace", kerr, riaf, freqs, a, t, GRID_STEPS,
+                    False, sat_window=2048)
+    for label in ("thin", "spectral 3-band"):
+        riaf, freqs = volumetric_forms()[label]
+        jobs["driver", label] = pool.submit(
+            "extras_trace", kerr, riaf, freqs, al, th, DRIVER_STEPS, False,
+            driver=True, pass1_steps=64)
+    volumetric_module = "light_path_tracer_tpu_torch.volumetric:"
+    jobs["vol64"] = pool.submit(volumetric_module + "render_volumetric",
+                                scene, d64, cfg, device="cpu", on="cpu")
+    jobs["spec64"] = pool.submit(
+        volumetric_module + "render_volumetric_spectrum", scene, d64,
+        freqs3, cfg, riaf3, device="cpu", on="cpu")
+    jobs14 = queue_phase14(pool, kerr, al, th, al256, th256)
     print(f"extras kernel vs plain version (f32 'fast', {VOL_RAYS} random "
           f"rays, max_steps {VOL_STEPS}, sat_window {VOL_WINDOW}):",
           flush=True)
@@ -1014,9 +1294,7 @@ def volumetric_phases(dev, card):
         ms, rk = cuda_ms(lambda: extras_trace(
             kerr, riaf, freqs, al, th, VOL_STEPS, True,
             sat_window=VOL_WINDOW, probe=probe), 3)
-        plain_ms, rp = cuda_ms(lambda: extras_trace(
-            kerr, riaf, freqs, al, th, VOL_STEPS, False,
-            sat_window=VOL_WINDOW), 1)
+        plain_ms, rp = PlainPool.result(jobs[11, label, 0], dev)
         g = extras_compare(rk, rp)
         g.update(ms=ms, plain_ms=plain_ms, n_steps_kernel=int(rk[0].n_steps),
                  n_steps_plain=int(rp[0].n_steps),
@@ -1025,15 +1303,14 @@ def volumetric_phases(dev, card):
             kerr, riaf, freqs, al[i:i + 1], th[i:i + 1], VOL_STEPS, True,
             sat_window=VOL_WINDOW)))
         gap11[label], plain64[label] = f32_gap(
-            kerr, riaf, freqs, al, th, VOL_STEPS, rp, sat_window=VOL_WINDOW)
+            kerr, riaf, freqs, al, th, VOL_STEPS, rp,
+            job64=jobs[11, label, 1])
         g11[label] = g
         extras_gate(f"phase 11 {label}", g, gap11[label])
         print(f"  {label}: {json.dumps(g)}", flush=True)
         g["attempts"] = probe["attempts"]
 
     # -- 12. the 1024^2 scene: single pass vs drivers --------------------
-    scene = SceneConfig(M=1.0, a=0.9, r_obs_mult=R_OBS, theta_obs=THETA_VOL,
-                        vertical_fov_deg=16.0)
     dim = VOL_DIM
     fov = camera.fov_from_vertical(scene.vertical_fov, dim)
     al12 = camera.build_alpha_lookup(dim, fov, **f32).reshape(-1)
@@ -1080,18 +1357,12 @@ def volumetric_phases(dev, card):
     # attempts, below the exits' ~2,150 (the plain loop costs 10-50 ms an
     # iteration, so it never runs the 1024^2 grid in full; phase 11 and
     # the drivers check the exits).
-    d256 = VOL_PLAIN_DIM
-    fov256 = camera.fov_from_vertical(scene.vertical_fov, d256)
-    al256 = camera.build_alpha_lookup(d256, fov256, **f32).reshape(-1)
-    th256 = camera.build_theta_lookup(d256, fov256, **f32).reshape(-1)
     g256 = {}
     for label, (riaf, freqs) in scene_forms().items():
         ms256, rk = cuda_ms(lambda: extras_trace(
             kerr, riaf, freqs, al256, th256, GRID_STEPS, True,
             sat_window=2048), 3)
-        plain256, rp = cuda_ms(lambda: extras_trace(
-            kerr, riaf, freqs, al256, th256, GRID_STEPS, False,
-            sat_window=2048), 1)
+        plain256, rp = PlainPool.result(jobs[12, label, 0], dev)
         g = extras_compare(rk, rp)
         g.update(ms=ms256, plain_ms=plain256,
                  n_steps_kernel=int(rk[0].n_steps),
@@ -1099,7 +1370,7 @@ def volumetric_phases(dev, card):
         g256[label] = g
         # The float64 run only where a bar needs it: the 3-band form.
         gap = (f32_gap(kerr, riaf, freqs, al256, th256, GRID_STEPS, rp,
-                       sat_window=2048)[0] if freqs else None)
+                       job64=jobs[12, label, 1])[0] if freqs else None)
         extras_gate(f"phase 12 256^2 {label}", g, gap)
         print(f"  {label}, {d256[0]}^2 grid, both capped at {GRID_STEPS}: "
               f"{json.dumps(g)}", flush=True)
@@ -1112,9 +1383,7 @@ def volumetric_phases(dev, card):
         k_ms, rk = cuda_ms(lambda: extras_trace(
             kerr, riaf, freqs, al, th, DRIVER_STEPS, True, driver=True,
             pass1_steps=64), 3)
-        p_ms, rp = cuda_ms(lambda: extras_trace(
-            kerr, riaf, freqs, al, th, DRIVER_STEPS, False, driver=True,
-            pass1_steps=64), 1)
+        p_ms, rp = PlainPool.result(jobs["driver", label], dev)
         probe = {}
         single = extras_trace(kerr, riaf, freqs, al, th, DRIVER_STEPS, True,
                               probe=probe)
@@ -1131,9 +1400,7 @@ def volumetric_phases(dev, card):
     del al12, th12, rk, rp
 
     # -- 13. the four paths through the entry points ----------------------
-    cfg = RenderConfig()
     paths = {label: riaf for label, (riaf, _f) in scene_forms().items()}
-    freqs3 = scene_forms()["spectral 3-band"][1]
     counters = (vk.trace_rays_volumetric_cuda, vk.trace_rays_aux_cuda,
                 kk.trace_rays_volumetric_two_pass,
                 kk.trace_rays_spectral_two_pass,
@@ -1208,20 +1475,17 @@ def volumetric_phases(dev, card):
             f"absorbed emission {totals['volumetric absorbed']} is not "
             f"below the thin {totals['volumetric thin']}")
 
-    d64 = VOL_CHECK_DIM
     og, sg = volumetric.render_volumetric(scene, d64, cfg, device="cuda")
-    oc, sc = volumetric.render_volumetric(scene, d64, cfg, device="cpu")
+    oc, sc = PlainPool.result(jobs["vol64"], "cpu")[1]
     mask_agree = float(((sg["emission"] > 0) == (sc["emission"] > 0)).mean())
     d = float((og.cpu() - oc).abs().median())
     print(f"volumetric check, 64^2 card vs CPU: emission masks agree "
           f"{mask_agree:.4f}, median |d image| {d:.3e}", flush=True)
     require(mask_agree >= 0.99 and d < 1e-4,
             f"64^2 volumetric card vs CPU: masks {mask_agree}, median {d}")
-    riaf3 = paths["spectral 3-band"]
     og, sg = volumetric.render_volumetric_spectrum(scene, d64, freqs3, cfg,
                                                    riaf3, device="cuda")
-    oc, sc = volumetric.render_volumetric_spectrum(scene, d64, freqs3, cfg,
-                                                   riaf3, device="cpu")
+    oc, sc = PlainPool.result(jobs["spec64"], "cpu")[1]
     masks = [float(((sg["emission"][b] > 0) == (sc["emission"][b] > 0))
                    .mean()) for b in range(len(freqs3))]
     meds = [float((og[b].cpu() - oc[b]).abs().median())
@@ -1239,7 +1503,8 @@ def volumetric_phases(dev, card):
     spec_inst = f"kerr_dp45_extras<Spectral<{n_bands},float>>"
     state = dict(kerr=kerr, al=al, th=th, scene=scene, cfg=cfg,
                  thin_emission=thin_map, thin_exited=thin_exited,
-                 plain64_11=plain64)
+                 plain64_11=plain64, al256=al256, th256=th256,
+                 jobs14=jobs14)
     return [
         kernel_entry("kerr_dp45_extras", VOL_SOURCE, f"{VOL_JAX}:53",
                      launches["volumetric"], thin["max_abs_em"], thin["ms"],
@@ -1320,6 +1585,82 @@ def aux_forms(metric, al, th, stokes=True):
             tuple(range(1 + ab, 1 + ab + N_ORDERS)),
             dict(kind="order", width=N_ORDERS, absorbing=bool(ab)))
     return forms
+
+
+def order2_form(metric):
+    """Phase 14's two-order form: the open-ended last bucket takes every
+    later crossing."""
+    from light_path_tracer_tpu_torch import volumetric
+    return (volumetric.make_order_transfer(metric, volumetric.RIAFConfig(),
+                                           2),
+            3, (), (1, 2), dict(kind="order", width=2))
+
+
+def aux_plain(metric, label, al, th, max_steps, f64=False, **kw):
+    """A phase-14 form's plain loop as a PlainPool job: the form built
+    from the float32 rays (al, th) as aux_forms builds it (its camera
+    constants in float32), traced on those rays or, with f64, on their
+    float64 copies."""
+    form = (order2_form(metric) if label == "order x2 thin"
+            else aux_forms(metric, al, th)[label])
+    if f64:
+        al, th = al.double(), th.double()
+    return aux_trace(metric, form, al, th, max_steps, False, **kw)
+
+
+def queue_phase14(pool, kerr, al, th, al256, th256):
+    """Phase 14's and 15's plain loops and CPU renders, queued to `pool`;
+    returns the jobs by key."""
+    jobs = {}
+    for label in aux_forms(kerr, al, th):
+        kw = dict(sat_window=AUX_WINDOW)
+        jobs[14, label, 0] = pool.submit("aux_plain", kerr, label, al, th,
+                                         AUX_STEPS, **kw)
+        # float64: phase 14's bars, and phase 17's reference.
+        jobs[14, label, 1] = pool.submit("aux_plain", kerr, label, al, th,
+                                         AUX_STEPS, f64=True, **kw)
+    jobs[14, "order x2 thin", 0] = pool.submit(
+        "aux_plain", kerr, "order x2 thin", al, th, AUX_STEPS,
+        sat_window=AUX_WINDOW)
+    for label, (cap, window) in GRID_FORMS.items():
+        jobs[14, "256", label] = pool.submit("aux_plain", kerr, label, al256,
+                                             th256, cap, sat_window=window)
+    jobs[14, "driver"] = pool.submit("aux_plain", kerr, "stokes toroidal",
+                                     al, th, AUX_STEPS, driver=True,
+                                     pass1_steps=64)
+    for label in P15_PATHS + ("decomposed x3 absorbed",):
+        jobs[15, label] = pool.submit("p15_render", label, VOL_CHECK_DIM,
+                                      "cpu", on="cpu")
+    return jobs
+
+
+P15_PATHS = ("polarized", "movie 8-frame", "movie 8-frame absorbed",
+             "decomposed x3")
+
+
+def p15_render(label, dim, device):
+    """Phase 15's render `label` of the 1024^2 scene's frame at `dim` on
+    `device`."""
+    from light_path_tracer_tpu_torch import polarization, volumetric
+    from light_path_tracer_tpu_torch.utils.config import (RenderConfig,
+                                                          SceneConfig)
+    scene = SceneConfig(M=1.0, a=0.9, r_obs_mult=R_OBS, theta_obs=THETA_VOL,
+                        vertical_fov_deg=16.0)
+    cfg = RenderConfig()
+    R = volumetric.RIAFConfig
+    alpha0 = 0.3 if label.endswith("absorbed") else 0.0
+    if label == "polarized":
+        return polarization.render_polarized_volumetric(
+            scene, dim, cfg, R(), p0=P0, device=device)
+    if label.startswith("movie"):
+        period = 2.0 * np.pi / abs(volumetric.keplerian_omega(
+            1.0, 0.9, 6.0, True))
+        times = tuple(period * k / N_FRAMES for k in range(N_FRAMES))
+        return volumetric.render_volumetric_movie(
+            scene, dim, times, cfg, R(spot_amp=8.0, alpha0=alpha0),
+            device=device)
+    return volumetric.render_volumetric_decomposed(
+        scene, dim, cfg, R(alpha0=alpha0), n_orders=N_ORDERS, device=device)
 
 
 def extras_label(desc, real="float"):
@@ -1441,16 +1782,21 @@ def aux_gate(what, g, gap=None):
 
 
 def aux_both(what, metric, label, form, al, th, max_steps, window,
-             f64=True, repeats=3, method="dp45"):
+             f64=True, repeats=3, method="dp45", jobs=None):
     """Kernel and plain loop (float32, and with f64 the float64 run that
     sets the bars) of one form on the same rays; prints and gates;
-    returns the numbers with the kernel's per-ray attempts."""
+    returns the numbers with the kernel's per-ray attempts. jobs: the
+    plain runs (float32, float64 or None) queued to a PlainPool, else
+    they run here."""
     kw = dict(sat_window=window, method=method)
     probe = {}
     ms, rk = cuda_ms(lambda: aux_trace(metric, form, al, th, max_steps, True,
                                        probe=probe, **kw), repeats)
-    plain_ms, rp = cuda_ms(lambda: aux_trace(metric, form, al, th, max_steps,
-                                             False, **kw), 1)
+    if jobs is not None:
+        plain_ms, rp = PlainPool.result(jobs[0], al.device)
+    else:
+        plain_ms, rp = cuda_ms(lambda: aux_trace(
+            metric, form, al, th, max_steps, False, **kw), 1)
     width = len(form[3])
     g = aux_compare(rk, rp, label, width)
     g.update(ms=ms, plain_ms=plain_ms, n_steps_kernel=int(rk.n_steps),
@@ -1462,9 +1808,10 @@ def aux_both(what, metric, label, form, al, th, max_steps, window,
         True, **kw)))
     gap = plain64 = None
     if f64:
-        plain64 = cuda_ms(lambda: aux_trace(metric, form, al.double(),
-                                            th.double(), max_steps, False,
-                                            **kw), 1)
+        plain64 = (PlainPool.result(jobs[1], al.device) if jobs is not None
+                   else cuda_ms(lambda: aux_trace(
+                       metric, form, al.double(), th.double(), max_steps,
+                       False, **kw), 1))
         gap = aux_compare(rp, plain64[1], label, width)
     aux_gate(f"{what} {label}", g, gap)
     print(f"  {label}: {json.dumps(g)}", flush=True)
@@ -1551,6 +1898,7 @@ def new_mode_phases(dev, card, state):
 
     kerr, al, th = state["kerr"], state["al"], state["th"]
     scene, cfg = state["scene"], state["cfg"]
+    jobs = state["jobs14"]
     f32 = dict(dtype=torch.float32, device=dev)
 
     # -- 14. Stokes, movie and order forms vs the plain loop -------------
@@ -1559,26 +1907,25 @@ def new_mode_phases(dev, card, state):
           f"{AUX_WINDOW}):", flush=True)
     forms = aux_forms(kerr, al, th)
     g14 = {label: aux_both("phase 14", kerr, label, form, al, th, AUX_STEPS,
-                           AUX_WINDOW, f64=not label.startswith("order"))
+                           AUX_WINDOW, f64=not label.startswith("order"),
+                           jobs=(jobs[14, label, 0], jobs[14, label, 1]))
            for label, form in forms.items()}
     state.update(g14=g14, forms14=forms)
     # Two orders: the open-ended last bucket takes every later crossing
     # (2 % of the flux), so a last bucket that is closed breaks the sum.
-    aux_both("phase 14", kerr, "order x2 thin", (
-        volumetric.make_order_transfer(kerr, volumetric.RIAFConfig(), 2),
-        3, (), (1, 2), dict(kind="order", width=2)),
-        al, th, AUX_STEPS, AUX_WINDOW, f64=False)
+    aux_both("phase 14", kerr, "order x2 thin", order2_form(kerr), al, th,
+             AUX_STEPS, AUX_WINDOW, f64=False,
+             jobs=(jobs[14, "order x2 thin", 0], None))
     d256 = VOL_PLAIN_DIM
-    fov256 = camera.fov_from_vertical(scene.vertical_fov, d256)
-    al256 = camera.build_alpha_lookup(d256, fov256, **f32).reshape(-1)
-    th256 = camera.build_theta_lookup(d256, fov256, **f32).reshape(-1)
+    al256, th256 = state["al256"], state["th256"]
     forms256 = aux_forms(kerr, al256, th256)
     print(f"  the scene's {d256[0]}^2 grid, kernel and plain loop capped "
           f"alike (attempt cap, sat_window): {json.dumps(GRID_FORMS)}",
           flush=True)
     for label, (cap, window) in GRID_FORMS.items():
         g = aux_both(f"phase 14 {d256[0]}^2", kerr, label, forms256[label],
-                     al256, th256, cap, window, f64=False)
+                     al256, th256, cap, window, f64=False,
+                     jobs=(jobs[14, "256", label], None))
         if window > AUX_WINDOW:
             aux_exits(kerr, label, forms256[label], al256, th256,
                       g["attempts"].ge(cap).nonzero().reshape(-1))
@@ -1628,9 +1975,7 @@ def new_mode_phases(dev, card, state):
     k_ms, rk = cuda_ms(lambda: aux_trace(kerr, stokes, al, th, AUX_STEPS,
                                          True, driver=True, pass1_steps=64),
                        3)
-    p_ms, rp = cuda_ms(lambda: aux_trace(kerr, stokes, al, th, AUX_STEPS,
-                                         False, driver=True, pass1_steps=64),
-                       1)
+    p_ms, rp = PlainPool.result(jobs[14, "driver"], dev)
     probe = {}
     single = aux_trace(kerr, stokes, al, th, AUX_STEPS, True, probe=probe)
     _r, unc = aux_trace(kerr, stokes, al, th, 64, True,
@@ -1654,24 +1999,8 @@ def new_mode_phases(dev, card, state):
     period = 2.0 * np.pi / abs(volumetric.keplerian_omega(1.0, 0.9, 6.0,
                                                            True))
     times = tuple(period * k / N_FRAMES for k in range(N_FRAMES))
-    blob = volumetric.RIAFConfig(spot_amp=8.0)
-    paths = {
-        "polarized": lambda d, device: (
-            polarization.render_polarized_volumetric(
-                scene, d, cfg, volumetric.RIAFConfig(), p0=P0,
-                device=device)),
-        "movie 8-frame": lambda d, device: (
-            volumetric.render_volumetric_movie(scene, d, times, cfg, blob,
-                                               device=device)),
-        "movie 8-frame absorbed": lambda d, device: (
-            volumetric.render_volumetric_movie(
-                scene, d, times, cfg,
-                volumetric.RIAFConfig(spot_amp=8.0, alpha0=0.3),
-                device=device)),
-        "decomposed x3": lambda d, device: (
-            volumetric.render_volumetric_decomposed(
-                scene, d, cfg, volumetric.RIAFConfig(), n_orders=N_ORDERS,
-                device=device))}
+    paths = {label: functools.partial(p15_render, label)
+             for label in P15_PATHS}
     drivers = (kk.trace_rays_aux_two_pass, kk.trace_rays_spectral_two_pass)
     plains = (kerr_trace.trace_rays_aux, kerr_trace.trace_rays_spectral)
     launches, outs = {}, {}
@@ -1805,12 +2134,11 @@ def new_mode_phases(dev, card, state):
 
     d64 = VOL_CHECK_DIM
     checks = {}
-    paths["decomposed x3 absorbed"] = lambda d, device: (
-        volumetric.render_volumetric_decomposed(
-            scene, d, cfg, volumetric.RIAFConfig(alpha0=0.3),
-            n_orders=N_ORDERS, device=device))
+    paths["decomposed x3 absorbed"] = functools.partial(
+        p15_render, "decomposed x3 absorbed")
     for label, render in paths.items():
-        og, oc = render(d64, "cuda"), render(d64, "cpu")
+        og = render(d64, "cuda")
+        oc = PlainPool.result(jobs[15, label], "cpu")[1]
         if label == "polarized":
             peak = oc[2].max()
             checks[label] = {k: float(np.median(np.abs(og[3][k] - oc[3][k]))
@@ -1927,6 +2255,24 @@ def f64_extras_gate(what, g, tau_scale=1.0):
             f"phase 17 {what} gate: {g}")
 
 
+def aux_outputs(res):
+    """An aux-form result's outputs for a bitwise comparison."""
+    return [res.status, res.final_alpha, *res.extras]
+
+
+def f64_bitwise_gate(what, label, g, same):
+    """Every float64 extras instance equals its plain float64 loop bit for
+    bit (their float64 pow, csrc/lpt_pow_f64.cu, is built as PyTorch
+    builds its own), but
+    the Stokes form, whose kernel sums the Levi-Civita contraction in
+    another order than the plain loop (float32 differs too): it stays on
+    f64_extras_gate's bars."""
+    g["bitwise_plain"] = same
+    require(same or label.startswith("stokes"),
+            f"{what} {label}: the float64 kernel is not bitwise its plain "
+            f"loop: {g}")
+
+
 def f64_counters():
     """Every kernel wrapper and plain loop whose counts phase 17 reads."""
     from light_path_tracer_tpu_torch.ops import kerr_trace as tk
@@ -1966,26 +2312,39 @@ def float64_phase(dev, card, ctx):
           f"status > 0.999; p99 |d final_alpha| < 1e-6 rad, orbit 1e-8; "
           f"extras p99 |d| / max < 1e-6; disk median |d r_hits[0]| < 1e-6 "
           f"M; orders by flux):", flush=True)
+    # The plain float64 loops of the Kerr, disk and orbit checks, queued
+    # to the children first.
+    pool = ctx["pool"]
     al, th, rf = (x[:n] for x in ctx["kerr_rays"])
-    g = both_versions(f"Kerr, {n} random rays", kerr, al.double(),
-                      th.double(), rf, GATE_STEPS, 5)
-    require(g["status_agree"] > 0.999 and g["p99"] < 1e-6,
-            f"phase 17 Kerr gate: {g}")
-    rows["kerr"] = g
     al_d, th_d = (x[:n].double() for x in ctx["disk_rays"])
-    g = disk_both(f"disk, {n} random rays, opaque", kerr, al_d, th_d,
-                  GATE_STEPS, ctx["opaque"], 2, 5)
-    require(g["status_agree"] > 0.999 and g["nhits_agree"] > 0.999
-            and g["median_dr"] < 1e-6, f"phase 17 disk gate: {g}")
-    rows["disk"] = g
+    orbits = {}
     for metric in (Schwarzschild(M=1.0), ReissnerNordstrom(M=1.0, Q=0.6)):
         ac_o = metric.alpha_crit(R_OBS)
         rng = np.random.default_rng(1)
-        al_o = torch.tensor(np.concatenate(
+        orbits[metric] = torch.tensor(np.concatenate(
             [[0.0], rng.uniform(0.2 * ac_o, 4 * ac_o, n)]),
             dtype=torch.float64, device=dev)
+    jobs = dict(
+        kerr=plain_job(pool, "kerr", kerr, al.double(), th.double(), rf,
+                       GATE_STEPS),
+        disk=plain_job(pool, "disk", kerr, al_d, th_d, GATE_STEPS,
+                       ctx["opaque"], 2),
+        **{type(mt).__name__: plain_job(pool, "orbit", mt, a)
+           for mt, a in orbits.items()})
+    g = both_versions(f"Kerr, {n} random rays", kerr, al.double(),
+                      th.double(), rf, GATE_STEPS, 5, job=jobs["kerr"])
+    require(g["status_agree"] > 0.999 and g["p99"] < 1e-6,
+            f"phase 17 Kerr gate: {g}")
+    rows["kerr"] = g
+    g = disk_both(f"disk, {n} random rays, opaque", kerr, al_d, th_d,
+                  GATE_STEPS, ctx["opaque"], 2, 5, job=jobs["disk"])
+    require(g["status_agree"] > 0.999 and g["nhits_agree"] > 0.999
+            and g["median_dr"] < 1e-6, f"phase 17 disk gate: {g}")
+    rows["disk"] = g
+    for metric, al_o in orbits.items():
         label = type(metric).__name__
-        g, rk = orbit_both(f"{label} {n + 1} rays", metric, al_o, 20)
+        g, rk = orbit_both(f"{label} {n + 1} rays", metric, al_o, 20,
+                           job=jobs[label])
         require(g["status_agree"] > 0.999 and g["p99"] < 1e-8
                 and int(rk.status[0]) == 0, f"phase 17 {label} gate: {g}")
         rows.setdefault("orbit", g)
@@ -2005,8 +2364,10 @@ def float64_phase(dev, card, ctx):
                  attempts_sum=int(probe["attempts"].to(torch.int64).sum()),
                  slowest_attempts=int(probe["attempts"].max()))
         tau = max((float(t.abs().max()) for t in rp64[2]), default=1.0)
+        g["bitwise_plain"] = extras_bitwise(rk, rp64)
         print(f"  {label}, {VOL_RAYS} rays: {json.dumps(g)}", flush=True)
         f64_extras_gate(label, g, tau)
+        f64_bitwise_gate("phase 17", label, g, g["bitwise_plain"])
         rows[label] = g
     forms = ctx["state"]["forms14"]
     for label, form in forms.items():
@@ -2016,8 +2377,7 @@ def float64_phase(dev, card, ctx):
         kw = dict(sat_window=AUX_WINDOW)
         plain64 = st["g14"][label]["plain64"]
         if plain64 is None:
-            plain64 = cuda_ms(lambda: aux_trace(kerr, form, al_v, th_v,
-                                                AUX_STEPS, False, **kw), 1)
+            plain64 = PlainPool.result(st["jobs14"][14, label, 1], dev)
         plain_ms, rp64 = plain64
         probe = {}
         ms, rk = cuda_ms(lambda: aux_trace(kerr, form, al_v, th_v, AUX_STEPS,
@@ -2025,13 +2385,16 @@ def float64_phase(dev, card, ctx):
         g = aux_compare(rk, rp64, label, width)
         g.update(ms=ms, plain_ms=plain_ms,
                  attempts_sum=int(probe["attempts"].to(torch.int64).sum()),
-                 slowest_attempts=int(probe["attempts"].max()))
+                 slowest_attempts=int(probe["attempts"].max()),
+                 bitwise_plain=bitwise_list(aux_outputs(rk),
+                                            aux_outputs(rp64)))
         print(f"  {label}, {VOL_RAYS} rays: {json.dumps(g)}", flush=True)
         if label.startswith("order"):
             require(g["status_agree"] > 0.999 and order_gate(g)
                     and g["p95_m"] < 5e-3, f"phase 17 {label} gate: {g}")
         else:
             f64_extras_gate(label, g)
+        f64_bitwise_gate("phase 17", label, g, g["bitwise_plain"])
         rows[label] = g
 
     # The entry points in float64 at 64^2, on the card and on the CPU:
@@ -2927,7 +3290,7 @@ class card_alpha_crit:
         self.cls.alpha_crit = self.orig
 
 
-def families_phase(dev, card, cpu_ac):
+def families_phase(dev, card, cpu_ac, pool):
     """Phase 21: Kerr-Newman (a = 0.6, Q = 0.6) and Johannsen-Psaltis
     (a = 0.9, eps3 = 2) through the Kerr kernel: each family's instance
     against the plain loop (phase 3's gates in float32, phase 17's in
@@ -3003,29 +3366,45 @@ def families_phase(dev, card, cpu_ac):
     acs = {"kn": kn.alpha_crit(R_OBS), "jp": ac_jp}
 
     # -- (b) each family's instance against the plain loop ----------------
-    rows = {}
+    # The plain loops of (b) and (d), queued to the children first.
+    n, m = 4096, F64_RAYS
+    rays, jobs = {}, {}
     for name, (metric, kw) in fams.items():
         ac = acs[name]
         rng = np.random.default_rng(21)
-        n = 4096
         al = torch.tensor(rng.uniform(0.2 * ac, 4 * ac, n), **f32)
         th = torch.tensor(rng.uniform(-np.pi, np.pi, n), **f32)
         rf = torch.tensor(rng.random(n) < 0.2, device=dev)
+        scene = SceneConfig(M=1.0, r_obs_mult=R_OBS, **kw)
+        main = pipeline.trace_inputs(scene, cfg, dim, fov, dev)[:3]
+        rays[name] = (al, th, rf, main)
+        jobs[name] = (
+            plain_job(pool, "kerr", metric, al, th, rf, GATE_STEPS),
+            plain_job(pool, "kerr", metric, al[:m].double(),
+                      th[:m].double(), rf[:m], GATE_STEPS),
+            plain_job(pool, "kerr", metric, *main, cfg.max_steps))
+    rng = np.random.default_rng(8)
+    al_d = torch.tensor(rng.uniform(0.01, 0.12, 4096), **f32)
+    th_d = torch.tensor(rng.uniform(-np.pi, np.pi, 4096), **f32)
+    plane = (disk_mod.r_isco(1.0, 0.6, Q=0.6), 20.0, np.pi / 2, True)
+    disk_jobs = (
+        plain_job(pool, "disk", kn, al_d, th_d, GATE_STEPS, plane, 2),
+        plain_job(pool, "disk", kn, al_d[:F64_RAYS].double(),
+                  th_d[:F64_RAYS].double(), GATE_STEPS, plane, 2))
+    rows = {}
+    for name, (metric, kw) in fams.items():
+        al, th, rf, (al_m, th_m, rf_m) = rays[name]
         g = both_versions(f"{name} {n} random rays", metric, al, th, rf,
-                          GATE_STEPS, 5)
+                          GATE_STEPS, 5, job=jobs[name][0])
         require(g["status_agree"] > 0.99 and g["p99"] < 2e-3,
                 f"{name} 4096-ray gate: {g}")
-        m = F64_RAYS
         g64 = both_versions(f"{name} {m} random rays, float64", metric,
                             al[:m].double(), th[:m].double(), rf[:m],
-                            GATE_STEPS, 3)
+                            GATE_STEPS, 3, job=jobs[name][1])
         require(g64["status_agree"] > 0.999 and g64["p99"] < 1e-6,
                 f"{name} float64 gate: {g64}")
-        scene = SceneConfig(M=1.0, r_obs_mult=R_OBS, **kw)
-        al_m, th_m, rf_m, _rows = pipeline.trace_inputs(scene, cfg, dim, fov,
-                                                        dev)
         gm = both_versions(f"{name} 1024^2 main-path rays", metric, al_m,
-                           th_m, rf_m, cfg.max_steps, 3)
+                           th_m, rf_m, cfg.max_steps, 3, job=jobs[name][2])
         require(gm["status_agree"] > 0.99 and gm["p99"] < 2e-3
                 and gm["mask_agree"] >= 0.995, f"{name} 1024^2 gate: {gm}")
         rows[name] = dict(random=g, f64=g64, main=gm)
@@ -3046,15 +3425,11 @@ def families_phase(dev, card, cpu_ac):
     del al_k, th_k, rf_k, rk, rq, pk, pq
 
     # -- (d) the Kerr-Newman disk variant -----------------------------------
-    rng = np.random.default_rng(8)
-    al_d = torch.tensor(rng.uniform(0.01, 0.12, 4096), **f32)
-    th_d = torch.tensor(rng.uniform(-np.pi, np.pi, 4096), **f32)
-    plane = (disk_mod.r_isco(1.0, 0.6, Q=0.6), 20.0, np.pi / 2, True)
     gd = disk_both("kn disk, 4096 random rays, opaque", kn, al_d, th_d,
-                   GATE_STEPS, plane, 2, 5)
+                   GATE_STEPS, plane, 2, 5, job=disk_jobs[0])
     gd64 = disk_both(f"kn disk, {F64_RAYS} random rays, float64", kn,
                      al_d[:F64_RAYS].double(), th_d[:F64_RAYS].double(),
-                     GATE_STEPS, plane, 2, 3)
+                     GATE_STEPS, plane, 2, 3, job=disk_jobs[1])
     require(gd64["status_agree"] > 0.999 and gd64["nhits_agree"] > 0.999
             and gd64["median_dr"] < 1e-6, f"kn disk float64 gate: {gd64}")
 
@@ -3463,6 +3838,29 @@ def dop853_phase(dev, card, ctx):
     f32 = dict(dtype=torch.float32, device=dev)
     print(f"DOP853 and linear event location (phase 22) on {card}:",
           flush=True)
+    # (d)'s plain loops, queued to the children first: phase 11's rays.
+    kerr_v = Kerr(M=1.0, a=0.9)
+    acv = kerr_v.alpha_crit(R_OBS, THETA_VOL)
+    rng = np.random.default_rng(0)
+    al_v = torch.tensor(rng.uniform(0.3 * acv, 4 * acv, VOL_RAYS), **f32)
+    th_v = torch.tensor(rng.uniform(-np.pi, np.pi, VOL_RAYS), **f32)
+    forms11 = volumetric_forms()
+    forms11.pop("jet")      # VolThin's instance, as the thin form
+    forms11.pop("spectral 2-band")   # on no path; the card tests hold it
+    pool, jobs = ctx["pool"], {}
+    for label, (riaf, freqs) in forms11.items():
+        for k, (a, t) in enumerate(((al_v, th_v),
+                                    (al_v.double(), th_v.double()))):
+            jobs[label, k] = pool.submit(
+                "extras_trace", kerr_v, riaf, freqs, a, t, D853_AUX_STEPS,
+                False, sat_window=AUX_WINDOW, **D)
+    aux_labels = [label for label in aux_forms(kerr_v, al_v, th_v)
+                  if label != "stokes vertical"]
+    for label in aux_labels:
+        for k in (0, 1):
+            jobs[label, k] = pool.submit(
+                "aux_plain", kerr_v, label, al_v, th_v, D853_AUX_STEPS,
+                f64=bool(k), sat_window=AUX_WINDOW, **D)
 
     # -- (a) the DOP853 library: its build and every instance's resources
     lib, build_s = ctx["build"].result()
@@ -3603,32 +4001,25 @@ def dop853_phase(dev, card, ctx):
     del al4, th4
 
     # -- (d) the extras forms against the plain loop ----------------------
-    acv = kerr.alpha_crit(R_OBS, THETA_VOL)
-    rng = np.random.default_rng(0)
-    al_v = torch.tensor(rng.uniform(0.3 * acv, 4 * acv, VOL_RAYS), **f32)
-    th_v = torch.tensor(rng.uniform(-np.pi, np.pi, VOL_RAYS), **f32)
     print(f"  DOP853 extras kernel vs plain loop ({VOL_RAYS} random rays, "
           f"max_steps {D853_AUX_STEPS}, sat_window {AUX_WINDOW}; float32, "
           f"then float64 on the same rays):", flush=True)
     ge = {}
-    forms11 = volumetric_forms()
-    forms11.pop("jet")      # VolThin's instance, as the thin form
-    forms11.pop("spectral 2-band")   # on no path; the card tests hold it
     for label, (riaf, freqs) in forms11.items():
         kw = dict(sat_window=AUX_WINDOW, **D)
         probe = {}
         ms, rk = cuda_ms(lambda: extras_trace(
             kerr, riaf, freqs, al_v, th_v, D853_AUX_STEPS, True, probe=probe,
             **kw), 3)
-        plain_ms, rp = cuda_ms(lambda: extras_trace(
-            kerr, riaf, freqs, al_v, th_v, D853_AUX_STEPS, False, **kw), 1)
+        plain_ms, rp = PlainPool.result(jobs[label, 0], dev)
         e = extras_compare(rk, rp)
         e.update(ms=ms, plain_ms=plain_ms, n_steps_kernel=int(rk[0].n_steps))
         e.update(attempts_stats(probe["attempts"], lambda i: extras_trace(
             kerr, riaf, freqs, al_v[i:i + 1], th_v[i:i + 1], D853_AUX_STEPS,
             True, **kw)))
         gap, (rp64, plain64_ms) = f32_gap(kerr, riaf, freqs, al_v, th_v,
-                                          D853_AUX_STEPS, rp, **kw)
+                                          D853_AUX_STEPS, rp,
+                                          job64=jobs[label, 1])
         extras_gate(f"phase 22 DOP853 {label}", e, gap)
         p64 = {}
         ms64, rk64 = cuda_ms(lambda: extras_trace(
@@ -3639,6 +4030,8 @@ def dop853_phase(dev, card, ctx):
             p64["attempts"].to(torch.int64).sum()))
         tau = max(float(t.abs().max()) for t in rp64[2])
         f64_extras_gate(f"DOP853 {label}", e64, tau)
+        f64_bitwise_gate("phase 22 DOP853", label, e64,
+                         extras_bitwise(rk64, rp64))
         ge[label], ge[label + " f64"] = e, e64
         print(f"    {label}: {json.dumps(e)}\n    {label} float64: "
               f"{json.dumps(e64)}", flush=True)
@@ -3646,7 +4039,8 @@ def dop853_phase(dev, card, ctx):
     forms.pop("stokes vertical")
     for label, form in forms.items():
         e = aux_both("phase 22 DOP853", kerr, label, form, al_v, th_v,
-                     D853_AUX_STEPS, AUX_WINDOW, **D)
+                     D853_AUX_STEPS, AUX_WINDOW,
+                     jobs=(jobs[label, 0], jobs[label, 1]), **D)
         p64 = {}
         ms64, rk64 = cuda_ms(lambda: aux_trace(
             kerr, form, al_v.double(), th_v.double(), D853_AUX_STEPS, True,
@@ -3659,6 +4053,8 @@ def dop853_phase(dev, card, ctx):
                     f"phase 22 DOP853 {label} float64 gate: {e64}")
         else:
             f64_extras_gate(f"DOP853 {label}", e64)
+        f64_bitwise_gate("phase 22 DOP853", label, e64, bitwise_list(
+            aux_outputs(rk64), aux_outputs(e["plain64"][1])))
         e.pop("plain64")
         ge[label], ge[label + " f64"] = e, e64
         print(f"    {label} float64: {json.dumps(e64)}", flush=True)
@@ -4666,32 +5062,14 @@ def mu_phase(dev, card, ctx):
         k["bitwise"] = bitwise_list(k["out"], p["out"])
         k["max_abs"] = max_abs_list(k["out"], p["out"])
         k["plain_ms"] = 1e3 * p["s"]
-        if k["bitwise"]:
-            continue
-        if key[0] == "kn" and key[2] == "float64":
-            # The float64 extras instances are held by phase 17's float64
-            # gate: statuses equal on > 99.9 % of the rays and every
-            # output within 1e-6 of its largest value. The plain float64
-            # loop on the card parts from them in the last bits through
-            # CUDA's float64 pow alone, whose library code PyTorch's
-            # build contracts into FMAs and the kernels' does not (1 ulp
-            # on ~1e-5 of values; scripts/torch_f64_parity.py, ROADMAP
-            # Queue 3 #9), as the Kerr float64 instances do.
-            st_k, st_p = k["out"][0].cpu(), p["out"][0].cpu()
-            scale = max(float(t.abs().max()) for t in p["out"]
-                        if t.dtype.is_floating_point and t.numel() > 1
-                        and bool(torch.isfinite(t).all()))
-            k["f64_gate"] = dict(status_agree=float(
-                (st_k == st_p).float().mean()), rel=k["max_abs"] / scale)
-            if (k["f64_gate"]["status_agree"] > 0.999
-                    and k["f64_gate"]["rel"] < 1e-6):
-                continue
-        bad.append(key)
+        # Every instance bitwise, the float64 Kerr-Newman extras too:
+        # their pow is built as PyTorch builds its own.
+        if not k["bitwise"]:
+            bad.append(key)
     rows = {" ".join(key[1:]): dict(bitwise=k["bitwise"],
                                     max_abs=k["max_abs"], ms=k["ms"],
                                     plain_ms=k["plain_ms"],
-                                    attempts=k["attempts"],
-                                    f64_gate=k.get("f64_gate"))
+                                    attempts=k["attempts"])
             for key, k in kern.items()}
     print(f"  mu and Kerr-Newman extras instances against their plain "
           f"loops on the card (mu: {MU_RAYS} rays float32, {MU_RAYS_F64} "
@@ -4802,6 +5180,636 @@ def mu_phase(dev, card, ctx):
     hk.update(hybrid=h, kerr_newman=hyb["kerr_newman"]["row"])
     kernels.append(hk)
     return kernels
+
+
+# Phase 24: the rest of the disk family through the disk kernel: the
+# wide instances (5-8 crossing slots, csrc/kerr_dp45_wide.cu and its
+# siblings) and every render of the JAX package's disk kernel path.
+WIDE_SOURCE = "light_path_tracer_tpu_torch/csrc/kerr_dp45_wide.cu"
+WIDE_SLOTS = 8
+WIDE_COMBOS = tuple((method, dtype, family, momentum)
+                    for method in ("dp45", "dop853")
+                    for dtype in ("float32", "float64")
+                    for family in ("kerr", "kerr_newman")
+                    for momentum in (False, True))
+# The random rays' attempt cap, kernel and plain loop alike: a float32
+# lane just outside the critical curve can freeze in an exact cycle,
+# which the kernel books at once and the plain loop (~15 ms an
+# iteration) grinds to the cap; the others end within ~430 attempts.
+WIDE_STEPS = 1000
+P24_DIM = (1024, 1024)
+P24_CHECK = (64, 64)
+P24_MODES = ("decomposed x3", "decomposed x6", "frames", "disk aa x4",
+             "composite", "composite aa x4", "line profile", "light curve",
+             "polarization", "qu loop")
+# Frames over one orbit, light-curve samples over two, Q-U samples over
+# one (both ends), and the line profile's bins (the 64^2 check's range
+# fixed, so both devices bin alike).
+P24_FRAMES, P24_CURVE, P24_QU = 32, 64, 32
+P24_BINS, P24_CHECK_BINS, P24_CHECK_GLIM = 200, 40, (0.2, 1.6)
+
+
+def p24_metric(family):
+    from light_path_tracer_tpu_torch.models import Kerr, KerrNewman
+    if family == "kerr":
+        return Kerr(M=1.0, a=0.9)
+    return KerrNewman(**KN_ARGS)
+
+
+def p24_plane(_metric=None):
+    """The photon-ring decomposition's recorder: translucent, every
+    equatorial crossing out to the escape radius (r_in = 0), so near
+    critical rays fill slots 5 and up."""
+    return (0.0, 2.0 * R_OBS, float(np.pi / 2), False)
+
+
+def p24_wide_rays(family, al_d, th_d, n_critical=1024):
+    """Phase 8's random rays, the last n_critical of them moved just
+    outside the family's critical curve: its boundary found at each
+    screen angle by bisection on the shadow kernel's capture (32 steps
+    from 0.3 to 3 alpha_crit), then raised by a factor 1 + eps, eps
+    log-uniform in [1e-7, 1e-3] (a seed), so the rays wind before they
+    escape and cross the plane up to 8 times."""
+    import torch
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    m = p24_metric(family)
+    ac = m.alpha_crit(R_OBS, THETA_DISK)
+    th = th_d[-n_critical:]
+    lo, hi = torch.full_like(th, 0.3 * ac), torch.full_like(th, 3.0 * ac)
+    refine = torch.zeros_like(th, dtype=torch.bool)
+    for _ in range(32):
+        mid = 0.5 * (lo + hi)
+        cap = kk.trace_rays_kerr_cuda(m, R_OBS, mid, th, THETA_DISK, refine,
+                                      LAMBDA_MAX, GATE_STEPS).status == -1
+        lo, hi = torch.where(cap, mid, lo), torch.where(cap, hi, mid)
+    eps = np.random.default_rng(24).uniform(-7.0, -3.0, n_critical)
+    al = hi * torch.tensor(1.0 + 10.0 ** eps, dtype=th.dtype,
+                           device=th.device)
+    return (torch.cat([al_d[:-n_critical], al]).contiguous(),
+            th_d.contiguous())
+
+
+def p24_wide_trace(family, al, th, slots, momentum, method, kernel=True,
+                   **kw):
+    """The translucent disk trace of phase 8's rays with `slots` slots,
+    through the kernel wrapper or the plain loop (a PlainPool job)."""
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    m = p24_metric(family)
+    fn = kk.trace_disk_rays_cuda if kernel else kk.trace_disk_rays_plain
+    return fn(m, R_OBS, al, th, THETA_DISK, LAMBDA_MAX, WIDE_STEPS,
+              p24_plane(m), slots, record_momentum=momentum, method=method,
+              **kw)
+
+
+def p24_scene():
+    from light_path_tracer_tpu_torch.utils.config import SceneConfig
+    return SceneConfig(M=1.0, a=0.9, r_obs_mult=R_OBS, theta_obs=THETA_DISK)
+
+
+def p24_period():
+    from light_path_tracer_tpu_torch.disk import HotSpot, keplerian_omega
+    return abs(2.0 * np.pi / keplerian_omega(1.0, 0.9, HotSpot().r0, True))
+
+
+def p24_background(dim):
+    """The composite's background, made from a seed."""
+    return np.random.default_rng(24).integers(0, 256, tuple(dim) + (3,),
+                                              dtype=np.uint8)
+
+
+def p24_render(mode, dim, device, check=False):
+    """Phase 24's render `mode` of the config-4 scene at `dim` on `device`
+    (check: the 64^2 comparison's line-profile bins); returns what the
+    entry point returns."""
+    from light_path_tracer_tpu_torch import disk as dm
+    from light_path_tracer_tpu_torch import polarization, spectra
+    from light_path_tracer_tpu_torch.utils.config import RenderConfig
+    scene, cfg, P = p24_scene(), RenderConfig(), p24_period()
+    kw = dict(device=device)
+    if mode.startswith("decomposed"):
+        return dm.render_disk_decomposed(scene, dim, cfg, dm.DiskConfig(),
+                                         n_orders=int(mode[-1]), **kw)
+    if mode == "frames":
+        return dm.render_disk_frames(
+            scene, dim, [P * k / P24_FRAMES for k in range(P24_FRAMES)],
+            cfg, dm.DiskConfig(), **kw)
+    if mode == "disk aa x4":
+        return dm.render_disk_aa(scene, dim, cfg, dm.DiskConfig(),
+                                 aa_samples=4, **kw)
+    if mode.startswith("composite"):
+        disk = dm.DiskConfig(spectrum="blackbody",
+                             opaque="translucent" not in mode)
+        if "aa" in mode:
+            return dm.render_scene_with_disk_aa(
+                scene, p24_background(dim), cfg, disk, aa_samples=4,
+                display_encode=True, stacked="loop" not in mode, **kw)
+        if "empty" in mode:
+            disk = dataclasses.replace(disk, r_in=8.0, r_out=7.0)
+        return dm.render_scene_with_disk(scene, p24_background(dim), cfg,
+                                         disk, **kw)
+    if mode.startswith("line profile"):
+        flat = "flat" in mode
+        disk = (dm.DiskConfig(emissivity_index=0.0, g_power=0.0) if flat
+                else dm.DiskConfig())
+        return spectra.line_profile(
+            scene, dim, cfg, disk,
+            n_bins=P24_CHECK_BINS if check or flat else P24_BINS,
+            g_lim=P24_CHECK_GLIM if check or flat else None,
+            rest_energy=1.0, aa_samples=4 if "x4" in mode else 1, **kw)
+    if mode == "light curve":
+        return spectra.hotspot_light_curve(
+            scene, dim, [2.0 * P * k / P24_CURVE for k in range(P24_CURVE)],
+            cfg, dm.DiskConfig(), **kw)
+    if mode == "polarization":
+        return polarization.render_polarization(scene, dim, cfg,
+                                                dm.DiskConfig(), **kw)
+    if mode == "qu loop":
+        return polarization.hotspot_qu_loop(
+            scene, dim, np.linspace(0.0, P, P24_QU), cfg, dm.DiskConfig(),
+            **kw)
+    raise ValueError(mode)
+
+
+def p24_counters():
+    """The disk kernel's wrapper, its driver and its plain loop."""
+    from light_path_tracer_tpu_torch.ops import kerr_trace as tk
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    return kk.trace_disk_rays_cuda, kk.trace_disk_rays_two_pass, \
+        tk.trace_disk_rays_kerr
+
+
+def disk_launches():
+    """Every launch of the disk kernel's wrapper counted so far (all
+    pairs, dtypes and widths)."""
+    import torch
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    fn = kk.trace_disk_rays_cuda
+    return sum(getattr(fn, kk.counter_name(dtype, method, variant))
+               for dtype in (torch.float32, torch.float64)
+               for method in ("dp45", "dop853") for variant in kk.VARIANTS)
+
+
+def p24_images(mode, out):
+    """(image-like tensors, disk mask) of a render's output, for the 64^2
+    comparison: the layers, frames or image, and where the disk is."""
+    import torch
+    if mode.startswith("decomposed"):
+        return out[0], out[0].sum(dim=0) > 0
+    if mode == "frames":
+        return out[0], out[1]["emission"].sum(dim=0) > 0
+    if mode == "polarization":
+        inten = torch.from_numpy(out[2])
+        return inten, inten > 0
+    img = out[0]
+    mask = (torch.as_tensor(out[1]["disk_mask"]) if "disk_mask" in out[1]
+            else (img.sum(dim=-1) if img.dim() == 3 else img) > 0)
+    return img, mask
+
+
+def p24_check(mode, og, oc):
+    """Phase 24's 64^2 gates, card output og against CPU output oc: the
+    disk masks agree on >= 99 % and the median |d image| on disk pixels
+    is < 1e-3 (EVPA modulo pi where both define it); the 1-D outputs
+    within 1e-3 of their largest value, sample by sample (the Q-U loop's
+    Q and U against the largest I, their flux scale: Q + iU sums I p
+    exp(2 i chi), so |Q|, |U| <= I; each curve's gap is also reported
+    against its own largest value)."""
+    import torch
+    if mode in ("line profile", "light curve", "qu loop"):
+        names = ("I", "Q", "U") if mode == "qu loop" else ("flux",)
+        scale = max(float(np.abs(oc[1]).max()), 1e-30)
+        row = {}
+        for name, a, b in zip(names, og[1:], oc[1:]):
+            d = float(np.abs(a - b).max())
+            row[f"{name}_rel_I"] = d / scale
+            row[f"{name}_rel_own"] = d / max(float(np.abs(b).max()), 1e-30)
+        row["max_rel"] = worst = max(row[f"{n}_rel_I"] for n in names)
+        return row, worst < 1e-3
+    ig, mg = p24_images(mode, og)
+    ic, mc = p24_images(mode, oc)
+    ig, mg = ig.cpu(), mg.cpu()
+    agree = float((mg == mc).float().mean())
+    both = mg & mc
+    d = (ig.double() - ic.double()).abs()
+    if mode.startswith("decomposed") or mode == "frames":
+        d = d.amax(dim=0)
+    if d.dim() == 3:
+        d = d.amax(dim=-1)
+    med = float(d[both].median()) if both.any() else 0.0
+    row = dict(mask_agree=agree, median=med)
+    if mode == "polarization":
+        ok_ = np.isfinite(og[0]) & np.isfinite(oc[0])
+        dev_ = np.abs(np.remainder(og[0][ok_] - oc[0][ok_] + np.pi / 2,
+                                   np.pi) - np.pi / 2)
+        row["evpa_median"] = float(np.median(dev_))
+        med = max(med, row["evpa_median"])
+    return row, agree >= 0.99 and med < 1e-3
+
+
+def p24_qu_terms(dim, device):
+    """The 64^2 Q-U loop's per-pixel terms as hotspot_qu_loop forms them
+    (float64 NumPy arrays): I, the (samples, pixels) intensities; the
+    weights p cos 2chi and p sin 2chi, and p cos chi and p sin chi (what a
+    kernel that rotated by chi where it should by 2 chi would weigh with);
+    each pixel's crossings and first crossing radius."""
+    import torch
+    from light_path_tracer_tpu_torch import disk as dm
+    from light_path_tracer_tpu_torch import polarization as pol
+    from light_path_tracer_tpu_torch.utils.config import RenderConfig
+    from light_path_tracer_tpu_torch.utils.timing import StageTimer
+    scene, cfg, disk = p24_scene(), RenderConfig(), dm.DiskConfig()
+    res, r_in, hit, sin_xi, x, y, ok = pol._disk_polarization(
+        scene, cfg, disk, "toroidal", dim, None, device,
+        StageTimer(device), "p24_qu_terms")
+    evpa, good = torch.atan2(x, -y), hit & ok
+    terms = {f"{f.__name__}{n}": torch.where(
+        good, sin_xi ** 2 * f(n * evpa), 0.0)
+        for f in (torch.cos, torch.sin) for n in (2.0, 1.0)}
+    pattern = dm.hotspot_pattern(dm.HotSpot(), scene.M, scene.a,
+                                 disk.prograde)
+    ts = torch.tensor(list(np.linspace(0.0, p24_period(), P24_QU)),
+                      dtype=torch.float32, device=device)
+    terms["I"] = torch.stack([dm.disk_emission(
+        scene, disk, r_in, res.n_hits, res.r_hits, res.xi, pattern=pattern,
+        phi_hits=res.phi_hits, t=t, xi_hits=res.xi_hits)[0] for t in ts])
+    terms.update(n_hits=res.n_hits, r0=res.r_hits[0])
+    return {k: v.double().cpu().numpy() for k, v in terms.items()}
+
+
+def p24_qu_diagnosis(tg, tc):
+    """Where the 64^2 Q-U loop's card terms tg and CPU terms tc part: at
+    the sample where Q parts most, Q's, U's and I's gaps against I's
+    largest value and against their own; how far Q cancels there (sum
+    |q_px| / |Q|); the share of sum |d q_px| that its 4 largest pixels
+    carry, with their crossings, |d r| and relative |d I|; and how far
+    the loop of a kernel that rotated by chi in place of 2 chi would sit
+    from the right one, against I's largest value (the gate's bar is
+    1e-3)."""
+    curves = {d: dict(I=t["I"].sum(1), Q=t["I"] @ t["cos2.0"],
+                      U=t["I"] @ t["sin2.0"]) for d, t in (("g", tg),
+                                                          ("c", tc))}
+    i_max = float(np.abs(curves["c"]["I"]).max())
+    k = int(np.argmax(np.abs(curves["g"]["Q"] - curves["c"]["Q"])))
+    row = dict(sample=k)
+    for name in ("I", "Q", "U"):
+        gap = float(np.abs(curves["g"][name] - curves["c"][name]).max())
+        row[f"{name}_rel_I"] = gap / i_max
+        row[f"{name}_rel_own"] = gap / float(
+            np.abs(curves["c"][name]).max())
+    q_g, q_c = tg["I"][k] * tg["cos2.0"], tc["I"][k] * tc["cos2.0"]
+    dq = np.abs(q_g - q_c)
+    top = np.argsort(-dq)[:4]
+    row.update(q_cancellation=float(np.abs(q_c).sum()
+                                    / max(abs(q_c.sum()), 1e-30)),
+               top4_share=float(dq[top].sum() / max(dq.sum(), 1e-30)),
+               top4=[dict(pixel=int(p), n_hits=[int(tg["n_hits"][p]),
+                                                int(tc["n_hits"][p])],
+                          d_r0=float(abs(tg["r0"][p] - tc["r0"][p])),
+                          d_I_rel=float(abs(tg["I"][k, p] - tc["I"][k, p])
+                                        / max(tc["I"][k, p], 1e-30)))
+                     for p in top])
+    wrong = max(float(np.abs(tc["I"] @ tc[f"{f}1.0"]
+                             - curves["c"][n]).max())
+                for f, n in (("cos", "Q"), ("sin", "U")))
+    row["chi_for_2chi_rel_I"] = wrong / i_max
+    return row
+
+
+def p24_grid_trace(al, th, slots, max_steps, kernel=True):
+    """The decomposition's translucent recorder on the 1024^2 config-4
+    grid, through the kernel wrapper or the plain loop (a PlainPool
+    job)."""
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    kerr = p24_metric("kerr")
+    fn = kk.trace_disk_rays_cuda if kernel else kk.trace_disk_rays_plain
+    return fn(kerr, R_OBS, al, th, THETA_DISK, LAMBDA_MAX, max_steps,
+              p24_plane(kerr), slots)
+
+
+def disk_family_phase(dev, card, pool, ctx):
+    """Phase 24; returns the kernels-line entry of the wide instances."""
+    import torch
+    t_phase = time.perf_counter()
+    from light_path_tracer_tpu_torch import camera
+    from light_path_tracer_tpu_torch import disk as dm
+    from light_path_tracer_tpu_torch.ops.cuda import _build
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    al_d, th_d = ctx["disk_rays"]
+    scene = p24_scene()
+    fov = camera.fov_from_vertical(scene.vertical_fov, P24_DIM)
+    grid = dict(dtype=torch.float32, device=dev)
+    al4 = camera.build_alpha_lookup(P24_DIM, fov, **grid).reshape(-1)
+    th4 = camera.build_theta_lookup(P24_DIM, fov, **grid).reshape(-1)
+    # The plain loop on the 1024^2 grid with the decomposition's 6 slots,
+    # capped as phase 8 caps its grid (the plain loop costs ~4 ms an
+    # iteration at 1M rays), queued first.
+    jobs = {"grid": pool.submit("p24_grid_trace", al4, th4, 6, GRID_STEPS,
+                                kernel=False)}
+    rays = {}
+    for family in ("kerr", "kerr_newman"):
+        al, th = p24_wide_rays(family, al_d, th_d)
+        rays[family, "float32"] = (al, th)
+        rays[family, "float64"] = (al.double(), th.double())
+    jobs.update({combo: pool.submit("p24_wide_trace", combo[2],
+                                    *rays[combo[2], combo[1]], WIDE_SLOTS,
+                                    combo[3], combo[0], kernel=False)
+                 for combo in WIDE_COMBOS})
+    jobs.update({("cpu", mode): pool.submit("p24_render", mode, P24_CHECK,
+                                            "cpu", check=True, on="cpu")
+                 for mode in P24_MODES})
+    jobs["cpu", "qu terms"] = pool.submit("p24_qu_terms", P24_CHECK, "cpu",
+                                          on="cpu")
+    for library in ("more", "dop853"):
+        for name, regs, spill in ptxas_report(
+                _build.load_library(library).build_log):
+            if "hits=8" in name:
+                print(f"  ptxas: {name}: {regs} registers; {spill} "
+                      f"(block bound {5})", flush=True)
+
+    # -- (a) the wide instances against the narrow ones and the plain loop
+    print(f"wide disk instances ({WIDE_SLOTS} slots, the decomposition's "
+          f"translucent recorder, {al_d.numel()} random rays, 1024 of them "
+          f"just outside the critical curve): slots 0-3 against the 4-slot "
+          f"instance, and against the plain loop (phase 8's gates):",
+          flush=True)
+    wide = {}
+    for combo in WIDE_COMBOS:
+        method, dtype, family, momentum = combo
+        al, th = rays[family, dtype]
+        args = (family, al, th)
+        kw = dict(momentum=momentum, method=method)
+        narrow = p24_wide_trace(*args, 4, **kw)
+        probe = {}
+        rk = p24_wide_trace(*args, WIDE_SLOTS, probe=probe, **kw)
+        pairs = [(rk.status, narrow.status),
+                 (rk.final_alpha, narrow.final_alpha),
+                 (rk.n_hits.clamp(max=4), narrow.n_hits)]
+        for field in ("r_hits", "phi_hits", "pr_hits", "pth_hits"):
+            pairs += list(zip(getattr(rk, field)[:4],
+                              getattr(narrow, field)))
+        first4 = all(same_bits(a, b) for a, b in pairs)
+        plain_ms, rp = PlainPool.result(jobs[combo], dev)
+        g = disk_compare(rk, rp)
+        g.update(first_slots_bitwise=first4,
+                 plain_ms=plain_ms, bitwise_plain=disk_bitwise(rk, rp),
+                 five_plus=int((rk.n_hits > 4).sum()),
+                 max_n_hits=int(rk.n_hits.max()),
+                 attempts_sum=int(probe["attempts"].to(torch.int64).sum()),
+                 slowest_attempts=int(probe["attempts"].max()))
+        label = f"{method} {dtype} {family}" + (" momenta" if momentum
+                                                 else "")
+        wide[combo] = g
+        print(f"  {label}: {json.dumps(g)}", flush=True)
+        require(first4 and g["status_agree"] > 0.99
+                and g["nhits_agree"] > 0.99 and g["median_dr"] < 1e-3
+                and g["p99_dr"] < 0.1 and g["median_dfa"] < 1e-4
+                and g["five_plus"] > 0, f"phase 24 wide {label}: {g}")
+        # Every slot, not only the first: the recorded radii of rays that
+        # hit in both versions, slot by slot.
+        for k in range(4, WIDE_SLOTS):
+            hit = ((rk.n_hits > k) & (rp.n_hits > k)).cpu()
+            if hit.any():
+                dk = (rk.r_hits[k].cpu() - rp.r_hits[k].cpu()).abs()[hit]
+                require(float(dk.double().median()) < 1e-3,
+                        f"phase 24 wide {label} slot {k}: median |d r| "
+                        f"{float(dk.double().median())}")
+    # The 1024^2 grid with the decomposition's 6 slots (the path's own
+    # rays and width) against the plain loop, both capped at GRID_STEPS
+    # (every ray of this grid ends within ~180 attempts, so the cap
+    # leaves the trace whole): phase 8's gates on every slot.
+    rk = p24_grid_trace(al4, th4, 6, GRID_STEPS)
+    grid_plain_ms, rp = PlainPool.result(jobs["grid"], dev)
+    gg = disk_compare(rk, rp)
+    nk, npl = rk.n_hits.cpu().numpy(), rp.n_hits.cpu().numpy()
+    slot_rows = []
+    for k in range(6):
+        both = (nk > k) & (npl > k)
+        d = np.abs(rk.r_hits[k].cpu().numpy()[both]
+                   - rp.r_hits[k].cpu().numpy()[both]).astype(np.float64)
+        slot_rows.append(dict(
+            hit=int(both.sum()),
+            median_dr=float(np.median(d)) if d.size else 0.0,
+            p99_dr=float(np.percentile(d, 99)) if d.size else 0.0,
+            max_dr=float(d.max()) if d.size else 0.0))
+    gg.update(plain_ms=grid_plain_ms, bitwise_plain=disk_bitwise(rk, rp),
+              slots=slot_rows, max_n_hits=int(rk.n_hits.max()),
+              n=int(al4.numel()), max_steps=GRID_STEPS)
+    print(f"  1024^2 translucent grid, 6 slots, both capped at "
+          f"{GRID_STEPS}, kernel vs plain loop: {json.dumps(gg)}",
+          flush=True)
+    require(gg["status_agree"] > 0.99 and gg["nhits_agree"] > 0.99
+            and gg["median_dfa"] < 1e-4
+            and all(r["median_dr"] < 1e-3 and r["p99_dr"] < 0.1
+                    for r in slot_rows), f"phase 24 1024^2 grid: {gg}")
+    del rk, rp
+    # Each wide instance against the 4-slot one on the same rays, timed
+    # once the children have left the card (their plain loops would
+    # share it).
+    for combo, g in wide.items():
+        method, dtype, family, momentum = combo
+        args = (family, *rays[family, dtype])
+        kw = dict(momentum=momentum, method=method)
+        g["narrow_ms"] = kernel_alone_ms(
+            lambda: p24_wide_trace(*args, 4, **kw), 3)
+        g["ms"] = kernel_alone_ms(
+            lambda: p24_wide_trace(*args, WIDE_SLOTS, **kw), 3)
+    times = {" ".join(map(str, k)): [g["ms"], g["narrow_ms"]]
+             for k, g in wide.items()}
+    print(f"  kernel alone, wide (8 slots) against 4-slot, ms: "
+          f"{json.dumps(times)}", flush=True)
+    fn = kk.trace_disk_rays_cuda
+    before = disk_launches()
+    try:
+        p24_wide_trace("kerr", al_d, th_d, WIDE_SLOTS + 1, False, "dp45")
+        raised = False
+    except NotImplementedError:
+        raised = True
+    require(raised and disk_launches() == before,
+            "max_hits above 8 on a CUDA tensor did not raise before a "
+            "launch")
+
+    # The 1024^2 translucent config-4 grid: 4, 6 and 8 slots.
+    kerr = p24_metric("kerr")
+    grid_rows = {}
+    for slots in (4, 6, 8):
+        call = functools.partial(
+            fn, kerr, R_OBS, al4, th4, THETA_DISK, LAMBDA_MAX, 200000,
+            p24_plane(kerr), slots)
+        n0 = disk_launches()
+        call()
+        probe = {}
+        res = call(probe=probe)
+        grid_rows[slots] = dict(
+            ms=kernel_alone_ms(call, 3), launches=disk_launches() - n0,
+            attempts_per_ray=float(probe["attempts"].double().mean()),
+            attempts_max=int(probe["attempts"].max()),
+            n_hits_max=int(res.n_hits.max()),
+            rays_with_5_plus=int((res.n_hits > 4).sum()))
+    print(f"  1024^2 translucent grid, slots 4/6/8: "
+          f"{json.dumps(grid_rows)} on {card}", flush=True)
+
+    # -- (b) every render at 1024^2, warm-up and 3 runs ------------------
+    wrapper, driver, plain = p24_counters()
+    outs, rows = {}, {}
+    for mode in P24_MODES:
+        kk.zero_counters(wrapper)
+        driver.launches = plain.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        render = functools.partial(p24_render, mode, P24_DIM, dev)
+        out = render()
+        runs = []
+        for _ in range(3):
+            out = render()
+            runs.append(dict(out[-1]["timings"]))
+        st = out[-1]
+        row = dict(disk_launches=disk_launches(),
+                   wide_launches=wrapper.launches_wide,
+                   driver_calls=driver.launches,
+                   plain_loop_calls=plain.launches,
+                   best_rays_per_s=max(st["traced_rays"] / t["precompute"]
+                                       for t in runs),
+                   peak_mib=torch.cuda.max_memory_allocated(dev) / 2**20,
+                   integrator_steps=st.get("integrator_steps"),
+                   disk_pixels=st.get("disk_pixels"), timings=runs)
+        require(row["disk_launches"] > 0 and row["plain_loop_calls"] == 0,
+                f"phase 24 {mode}: {row}")
+        if mode == "decomposed x6":
+            require(row["wide_launches"] > 0, f"phase 24 {mode}: {row}")
+        row["profile"] = device_profile(render, 1, "kerr_d", disk_launches)
+        outs[mode], rows[mode] = out, row
+        print(f"{mode} {P24_DIM[0]}^2: {json.dumps(row)}; best "
+              f"{row['best_rays_per_s']:,.0f} rays/s on {card}", flush=True)
+    path_wide = sum(r["wide_launches"] for r in rows.values())
+
+    # The physics checks of the JAX package's own tests.
+    checks = {}
+    for n in (3, 6):
+        layers, st = outs[f"decomposed x{n}"]
+        flux = np.asarray(st["flux_per_order"])
+        res = dm.trace_disk_rays(kerr, R_OBS, al4, th4, THETA_DISK,
+                                 LAMBDA_MAX, 200000,
+                                 dm.DiskConfig(opaque=False, max_hits=n))
+        tot, _ = dm.disk_emission(scene, dm.DiskConfig(opaque=False,
+                                                       max_hits=n),
+                                  dm.r_isco(1.0, 0.9), res.n_hits,
+                                  res.r_hits, res.xi)
+        nz = flux[flux > 0]
+        checks[f"decomposed x{n}"] = c = dict(
+            flux=flux.tolist(), captured=st["captured"],
+            captured_translucent=int((res.status == -1).sum()),
+            total_rel=float(abs(flux.sum() / float(tot.double().sum())
+                                - 1.0)),
+            finite=bool(torch.isfinite(layers).all()))
+        # The recorders differ where a ray's slots fill before its last
+        # in-disk crossing: the decomposition's with crossings outside
+        # the annulus (JAX's test allows for those critical-curve rays).
+        require(c["finite"] and c["captured"] == c["captured_translucent"]
+                and nz.size >= 2 and np.all(nz[:-1] > nz[1:])
+                and c["total_rel"] < 5e-3, f"phase 24 decomposed: {c}")
+    P = p24_period()
+    cfg64 = dataclasses.replace(ctx["cfg"], dtype="float64")
+    fr, _st = dm.render_disk_frames(scene, P24_DIM, [0.0, P / 2, P], cfg64,
+                                    dm.DiskConfig(), device=dev)
+    checks["frames"] = c = dict(
+        half_orbit=float((fr[1] - fr[0]).abs().max()),
+        full_orbit=float((fr[2] - fr[0]).abs().max()))
+    require(c["half_orbit"] > 0.05 and c["full_orbit"] < 1e-6,
+            f"phase 24 frames: {c}")
+    img, st = outs["disk aa x4"]
+    checks["disk aa x4"] = c = dict(traced=st["traced_rays"],
+                                    disk_pixels=st["disk_pixels"])
+    require(bool(torch.isfinite(img).all()) and float(img.min()) >= 0.0
+            and float(img.max()) <= 1.0
+            and st["traced_rays"] == 4 * P24_DIM[0] * P24_DIM[1],
+            f"phase 24 disk aa: {c}")
+    comp, st = outs["composite"]
+    empty, _ = p24_render("composite empty", P24_DIM, dev)
+    free = torch.as_tensor(~st["disk_mask"], device=dev)
+    d = (comp - empty).abs().amax(dim=-1)
+    trans, st_t = p24_render("composite translucent", P24_DIM, dev)
+    base, _ = p24_render("composite translucent empty", P24_DIM, dev)
+    checks["composite"] = c = dict(
+        disk_pixels=st["disk_pixels"],
+        free_unchanged=float((d[free] < 1e-6).float().mean()),
+        translucent_adds=float((trans >= base - 1e-6).float().mean()))
+    require(st["disk_pixels"] > 1000 and c["free_unchanged"] > 0.98
+            and c["translucent_adds"] > 0.99, f"phase 24 composite: {c}")
+    img_s, st_s = outs["composite aa x4"]
+    img_l, st_l = p24_render("composite aa x4 loop", P24_DIM, dev)
+    checks["composite aa x4"] = c = dict(
+        max_abs_loop=float((img_s - img_l).abs().max()),
+        masks_equal=bool(np.array_equal(st_s["disk_mask"],
+                                        st_l["disk_mask"])),
+        captured=[st_s["captured"], st_l["captured"]])
+    require(c["max_abs_loop"] < 1e-6 and c["masks_equal"]
+            and st_s["captured"] == st_l["captured"],
+            f"phase 24 composite aa: {c}")
+    g, f, st = outs["line profile"]
+    seen = g[f > 0.01 * f.max()]
+    _g1, f1, _s1 = p24_render("line profile flat", P24_DIM, dev)
+    _g4, f4, _s4 = p24_render("line profile flat x4", P24_DIM, dev)
+    checks["line profile"] = c = dict(
+        blue=float(seen.max()), red=float(seen.min()),
+        peak_g=float(g[np.argmax(f)]),
+        flat_total_x4_rel=float(abs(f4.sum() / f1.sum() - 1.0)))
+    require(c["blue"] > 1.15 and c["red"] < 0.65 and c["peak_g"] > 1.0
+            and c["flat_total_x4_rel"] < 0.05, f"phase 24 line: {c}")
+    _t, f, st = outs["light curve"]
+    half = P24_CURVE // 2
+    checks["light curve"] = c = dict(
+        periodic_rel=float(np.abs(f[:half] / f[half:] - 1.0).max()),
+        modulation=float(f.max() / f.min()))
+    require(np.isfinite(f).all() and (f > 0).all()
+            and c["periodic_rel"] < 1e-4 and c["modulation"] > 1.2,
+            f"phase 24 light curve: {c}")
+    evpa, frac, inten, st = outs["polarization"]
+    good = np.isfinite(evpa)
+    checks["polarization"] = c = dict(
+        polarized_pixels=st["polarized_pixels"],
+        evpa_range=[float(evpa[good].min()), float(evpa[good].max())],
+        pol_frac_max=float(frac.max()))
+    require(st["polarized_pixels"] > 1000
+            and c["evpa_range"][0] > -np.pi / 2 - 1e-6
+            and c["evpa_range"][1] <= np.pi / 2 + 1e-6
+            and 0.0 <= float(frac.min()) and c["pol_frac_max"] <= 1.0,
+            f"phase 24 polarization: {c}")
+    _t, I, Q, U, st = outs["qu loop"]
+    area = 0.5 * abs(np.sum(Q[:-1] * U[1:] - Q[1:] * U[:-1]))
+    scale = max(Q.max() - Q.min(), U.max() - U.min())
+    checks["qu loop"] = c = dict(
+        closure_rel=float(max(abs(Q[0] - Q[-1]), abs(U[0] - U[-1]))
+                          / max(abs(Q).max(), abs(U).max())),
+        area_over_scale2=float(area / max(scale, 1e-30) ** 2))
+    require((I > 0).all() and c["closure_rel"] < 1e-4
+            and c["area_over_scale2"] > 0.05, f"phase 24 qu loop: {c}")
+    print(f"phase 24 physics checks: {json.dumps(checks)}", flush=True)
+
+    # -- (c) the same modes at 64^2 on the card against the CPU ---------
+    check64 = {}
+    for mode in P24_MODES:
+        og = p24_render(mode, P24_CHECK, dev, check=True)
+        oc = PlainPool.result(jobs["cpu", mode], "cpu")[1]
+        check64[mode], ok = p24_check(mode, og, oc)
+        require(ok, f"phase 24 64^2 {mode} card vs CPU: {check64[mode]}")
+    print(f"phase 24 check, 64^2 card vs CPU: {json.dumps(check64)}",
+          flush=True)
+    qu = p24_qu_diagnosis(p24_qu_terms(P24_CHECK, dev),
+                          PlainPool.result(jobs["cpu", "qu terms"],
+                                           "cpu")[1])
+    print(f"phase 24 Q-U loop, 64^2 card vs CPU, pixel by pixel: "
+          f"{json.dumps(qu)}", flush=True)
+    require(qu["chi_for_2chi_rel_I"] > 1e-2, f"phase 24 Q-U loop: the "
+            f"gate would not tell chi from 2 chi: {qu}")
+    print(f"phase 24: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    g = wide["dp45", "float32", "kerr", True]
+    entry = kernel_entry(
+        "kerr_dp45_disk_wide", WIDE_SOURCE, f"{JAX_KERNELS}:316", path_wide,
+        max(g["max_dr"], max(r["max_dr"] for r in gg["slots"])), g["ms"],
+        g["plain_ms"], int(al_d.numel()), 8 + 20 + 4 * 4 * WIDE_SLOTS,
+        g["attempts_sum"] * kerr_work(), g)
+    entry["grid_1024_6_slots"] = gg
+    return [entry]
 
 
 def main() -> int:
@@ -5255,7 +6263,8 @@ def main() -> int:
     # plain comparisons come first; the main-path, config 1, 2 and 4
     # timings are behind); phase 22 waits for it.
     dop853_build = background_build("dop853")
-    vol_kernels, state = volumetric_phases(dev, card)
+    pool = PlainPool()
+    vol_kernels, state = volumetric_phases(dev, card, pool)
 
     # -- 14-15. the Stokes, movie and order forms and their renders -------
     stamp(14)
@@ -5268,7 +6277,8 @@ def main() -> int:
     # -- 17. the float64 instances ----------------------------------------
     stamp(17)
     f64_kernels = float64_phase(dev, card, dict(
-        kerr_rays=(alphas, thetas, refine), disk_rays=(al_d, th_d),
+        pool=pool, kerr_rays=(alphas, thetas, refine),
+        disk_rays=(al_d, th_d),
         opaque=opaque, state=state, main_dim=dim))
 
     # -- 18. the exact-cycle exit -------------------------------------------
@@ -5286,17 +6296,26 @@ def main() -> int:
     # -- 21. Kerr-Newman and Johannsen-Psaltis ----------------------------
     stamp(21)
     with cpu_alpha_crit() as cpu_ac:
-        family_kernels = families_phase(dev, card, cpu_ac)
+        family_kernels = families_phase(dev, card, cpu_ac, pool)
 
     # -- 22. DOP853 and linear event location -----------------------------
     stamp(22)
     d853_kernels = dop853_phase(dev, card, dict(
-        build=dop853_build, kerr_rays=(alphas, thetas, refine),
+        build=dop853_build, pool=pool, kerr_rays=(alphas, thetas, refine),
         disk_rays=(al_d, th_d), opaque=opaque, main_dim=dim))
 
     # -- 23. the mu chart and charged volumetric scenes -------------------
     stamp(23)
     mu_kernels = mu_phase(dev, card, dict(rates=rates, build=more_build))
+
+    # -- 24. the disk family: wide instances and every disk render --------
+    stamp(24)
+    disk_kernels = disk_family_phase(dev, card, pool, dict(
+        disk_rays=(al_d, th_d), cfg=cfg, dop853_build=dop853_build))
+    pool.close()
+    stamp("retime")
+    retime_entries(card)
+    stamp("end")
 
     shadow_work = kerr_work()
     # Bytes a ray: alpha, theta (and the refine byte) in; final_alpha,
@@ -5325,7 +6344,8 @@ def main() -> int:
                      gmain["n"], 9 + 12,
                      kerr_row["attempts_sum"] * shadow_work)]
     kernels += (kernels5 + vol_kernels + new_kernels + [probe_kernel]
-                + f64_kernels + family_kernels + d853_kernels + mu_kernels)
+                + f64_kernels + family_kernels + d853_kernels + mu_kernels
+                + disk_kernels)
     # The counted bound: every operation by kind at the rate phase 16
     # measured for it (a flop at no less than the published rate).
     for k in kernels:
@@ -5351,4 +6371,5 @@ if __name__ == "__main__":
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr, flush=True)
         sys.exit(1)
     finally:
+        PlainPool.stop_all()
         background_build.stop_all()

@@ -18,9 +18,16 @@ Config 5, the jittered-AA shadow and lensed render (`aa.py`:
 AA passes through `trace_batch`, in pass-sized chunks above 8M rays.
 
 The accretion-disk still render (`render_disk`, config 4; Kerr, or
-Kerr-Newman for a charged scene) traces
-through the kernel's disk variant (`trace_disk_rays_cuda`), by default
-inside the two-pass straggler driver (`trace_disk_rays_two_pass`).
+Kerr-Newman for a charged scene), the photon-ring decomposition
+(`render_disk_decomposed`), the hot-spot frames (`render_disk_frames`),
+the jittered-AA render (`render_disk_aa`), the lensed composite with the
+disk (`render_scene_with_disk`, `render_scene_with_disk_aa`), the
+emission-line profile and hot-spot light curve (`spectra.py`:
+`line_profile`, `hotspot_light_curve`) and the polarized disk
+(`render_polarization`, `polarization.hotspot_qu_loop`) trace through the
+kernel's disk variant (`trace_disk_rays_cuda`; 5 to 8 crossing slots
+through its wide instances), by default inside the two-pass straggler
+driver (`trace_disk_rays_two_pass`).
 
 The volumetric hot-flow image (`render_volumetric`, optically thin or
 self-absorbed), the multi-frequency spectral image
@@ -35,7 +42,9 @@ This package imports torch and never jax.
 
 from light_path_tracer_tpu_torch.adaptive import (render_scene_adaptive,
                                                   render_shadow_adaptive)
-from light_path_tracer_tpu_torch.disk import DiskConfig, render_disk
+from light_path_tracer_tpu_torch.disk import (
+    DiskConfig, render_disk, render_disk_aa, render_disk_decomposed,
+    render_disk_frames, render_scene_with_disk, render_scene_with_disk_aa)
 from light_path_tracer_tpu_torch.models import (JohannsenPsaltis, Kerr,
                                                 KerrNewman,
                                                 ReissnerNordstrom,
@@ -45,7 +54,9 @@ from light_path_tracer_tpu_torch.ops.types import TraceResult
 from light_path_tracer_tpu_torch.pipeline import (
     RenderOutput, precompute_final_alpha, render_scene, render_shadow)
 from light_path_tracer_tpu_torch.polarization import (
-    render_polarized_volumetric)
+    render_polarization, render_polarized_volumetric)
+from light_path_tracer_tpu_torch.spectra import (hotspot_light_curve,
+                                                 line_profile)
 from light_path_tracer_tpu_torch.utils.config import RenderConfig, SceneConfig
 from light_path_tracer_tpu_torch.volumetric import (
     RIAFConfig, render_volumetric, render_volumetric_decomposed,
@@ -56,6 +67,9 @@ __all__ = ["Kerr", "KerrNewman", "JohannsenPsaltis", "Schwarzschild",
            "trace_batch", "TraceResult", "RenderOutput",
            "precompute_final_alpha", "render_scene", "render_shadow",
            "RenderConfig", "SceneConfig", "DiskConfig", "render_disk",
+           "render_disk_aa", "render_disk_decomposed", "render_disk_frames",
+           "render_scene_with_disk", "render_scene_with_disk_aa",
+           "line_profile", "hotspot_light_curve", "render_polarization",
            "RIAFConfig", "render_volumetric", "render_volumetric_spectrum",
            "render_volumetric_movie", "render_volumetric_decomposed",
            "render_polarized_volumetric", "render_shadow_adaptive",

@@ -89,6 +89,17 @@ def _add_multihost_args(p):
                         "(--multihost)")
 
 
+def _stem(path, suffix):
+    """`path` with its extension replaced by `suffix`; an animated or
+    vector format is refused (this package writes PNG only)."""
+    base, _, ext = path.rpartition(".")
+    if not base or ext.lower() != "png":
+        raise ValueError(
+            f"{path!r}: the PyTorch package writes PNG files (one per "
+            f"frame or order) and .npz arrays; give a .png path")
+    return base + suffix
+
+
 def not_ported(what: str):
     """The error a flag or mode that is not ported yet raises."""
     return NotImplementedError(

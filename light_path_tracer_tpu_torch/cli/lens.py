@@ -3,10 +3,13 @@
 The plain and AA renders of the JAX package's `lens`: load the image,
 print the metric, alpha_crit and the BH's screen offset, `render_scene`
 (or with `--aa N` `render_scene_aa`, with `--adaptive` too
-`render_scene_adaptive`), save the PNG and print the benchmark summary.
-Every flag of the JAX parser is registered with its default; the modes
-not ported yet (disk composite, lookup cache, ring layers, the map-level
-products, multihost) raise NotImplementedError.
+`render_scene_adaptive`; with `--disk` the composite with an accretion
+disk, `render_scene_with_disk` or with `--aa N` the stacked
+`render_scene_with_disk_aa`, blackbody disk pixels display-encoded), save
+the PNG and print the benchmark summary. Every flag of the JAX parser is
+registered with its default; the modes not ported yet (lookup cache,
+ring layers, the map-level products, multihost) raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -29,6 +32,37 @@ def _metric_line(args) -> str:
             + (f", Q={args.Q}" if args.Q else "") + ")")
 
 
+def _composite(args, scene, cfg, img):
+    """The lensed background with the accretion disk of the flags, the
+    linear-light blackbody disk pixels display-encoded for the PNG."""
+    from light_path_tracer_tpu_torch.disk import (
+        DiskConfig, composite_gamma_encode, render_scene_with_disk,
+        render_scene_with_disk_aa)
+    disk = DiskConfig(r_out=args.r_out, emissivity_index=args.emissivity_q,
+                      g_power=args.g_power, opaque=not args.translucent,
+                      spectrum=args.spectrum, t_peak=args.t_peak)
+    if args.adaptive:
+        print("  note: --adaptive is not supported with --disk (the "
+              "composite needs every pixel's crossing record); using "
+              "stacked uniform AA")
+    if args.aa > 1:
+        # Each pass display-encoded before the average: exact AA in
+        # display space.
+        result, stats = render_scene_with_disk_aa(
+            scene, img, cfg, disk, disk_gain=args.disk_gain,
+            aa_samples=args.aa, display_encode=True, device=args.device)
+    else:
+        result, stats = render_scene_with_disk(
+            scene, img, cfg, disk, disk_gain=args.disk_gain,
+            device=args.device)
+    if args.spectrum == "blackbody" and not stats.get("display_encoded"):
+        result = composite_gamma_encode(result, stats["disk_mask"])
+    print(f"  disk pixels: {stats['disk_pixels']:,}, "
+          f"captured: {stats['captured']:,}, "
+          f"r_isco={stats['r_isco']:.3f} M")
+    return result, stats
+
+
 def cmd_lens(args) -> int:
     """Lensed background-image render (image_lens.main parity)."""
     from light_path_tracer_tpu_torch import camera
@@ -37,7 +71,7 @@ def cmd_lens(args) -> int:
     from light_path_tracer_tpu_torch.utils.save import read_png, save_png
 
     for flag, used in (
-            ("--disk", args.disk), ("--cache", args.cache),
+            ("--cache", args.cache),
             ("--rings", args.rings),
             ("--magnification", args.magnification is not None),
             ("--shear", args.shear is not None),
@@ -73,7 +107,12 @@ def cmd_lens(args) -> int:
     print(f"BH screen offset: psi_y={args.psi_y:.4f} deg, "
           f"psi_x={args.psi_x:.4f} deg ({status})")
 
-    if args.aa > 1:
+    if args.disk:
+        result, stats = _composite(args, scene, cfg, img)
+        timings = stats["timings"]
+        timings["load_image"] = timings.get("load_image", 0.0) + load_time
+        total, traced = stats["total_rays"], stats["traced_rays"]
+    elif args.aa > 1:
         if args.adaptive:
             from light_path_tracer_tpu_torch.adaptive import (
                 render_scene_adaptive)
@@ -119,7 +158,9 @@ def register(sub):
                    help="background image (8-bit PNG)")
     p.add_argument("--output", default="lensed_image.png")
     p.add_argument("--disk", action="store_true",
-                   help="composite an accretion disk (not ported yet)")
+                   help="composite an accretion disk over the lensed "
+                        "image (one trace a pixel; with --aa N the "
+                        "stacked AA composite)")
     p.add_argument("--r-out", type=float, default=20.0)
     p.add_argument("--emissivity-q", type=float, default=3.0)
     p.add_argument("--g-power", type=float, default=3.0)

@@ -15,7 +15,7 @@ import numpy as np
 
 from light_path_tracer_tpu_torch.cli._shared import (
     _add_render_args, _add_scene_args, _render_cfg_from, _scene_from,
-    not_ported)
+    _stem, not_ported)
 
 
 def _reject_unported(args):
@@ -23,17 +23,6 @@ def _reject_unported(args):
                        ("--centroid", args.centroid)):
         if used:
             raise not_ported(f"volumetric {flag}")
-
-
-def _stem(path, suffix):
-    """`path` with its extension replaced by `suffix`; an animated or
-    vector format is refused (this package writes PNG only)."""
-    base, _, ext = path.rpartition(".")
-    if not base or ext.lower() != "png":
-        raise ValueError(
-            f"{path!r}: the PyTorch package writes PNG files (one per "
-            f"frame or order) and .npz arrays; give a .png path")
-    return base + suffix
 
 
 def _polarization(args, scene, cfg, riaf) -> int:

@@ -1,7 +1,8 @@
 """Carry the JAX package's state into this package.
 
-The tracer has no weights: a scene, a render configuration, a disk or
-hot-flow configuration and the metric's parameters are its whole state. These functions read the JAX
+The tracer has no weights: a scene, a render configuration, a disk, hot
+spot or hot-flow configuration and the metric's parameters are its whole
+state. These functions read the JAX
 package's frozen dataclasses field by field, as plain Python floats, ints
 and strings, and build this package's objects from them. They import
 nothing of JAX; any object with the same fields works.
@@ -49,6 +50,14 @@ def disk_config_from_jax(disk):
     from light_path_tracer_tpu_torch.disk import DiskConfig
     return DiskConfig(**{f.name: getattr(disk, f.name)
                          for f in dataclasses.fields(DiskConfig)})
+
+
+def hotspot_from_jax(spot):
+    """light_path_tracer_tpu.disk.HotSpot -> this package's HotSpot,
+    field by field."""
+    from light_path_tracer_tpu_torch.disk import HotSpot
+    return HotSpot(**{f.name: float(getattr(spot, f.name))
+                      for f in dataclasses.fields(HotSpot)})
 
 
 def riaf_config_from_jax(riaf):

@@ -54,6 +54,15 @@
 // on the step's interpolant and keeps the first kMaxHits in-disk
 // crossings in registers (5 to 17 more live values). A frozen state
 // cannot cross the plane, so the cycle exit leaves the hit record alone.
+// This file's disk instances hold 1 to 4 slots, one instance a count. The
+// wide instances, for 5 to 8 slots, are one instance of capacity
+// kWideSlots that takes the count at run time (DiskParams::max_hits): the
+// sources kerr_dp45_wide.cu and its f64 and DOP853 siblings include this
+// file with LPT_WIDE (entries lpt_kerr_dp45_wide, _wide_f64,
+// _wide_dop853, _wide_dop853_f64) and build nothing else, in the lazily
+// built "more" and "dop853" libraries. A ray's attempts do not depend on
+// its slots, so the first slots of a wide record are the narrow
+// instance's.
 //
 // Numerics follow the JAX package's dp45_integrate in the scalar type of
 // the instance (kerr_dp45_common.cuh): this file builds the float
@@ -99,12 +108,17 @@
 namespace {
 
 // Disk-plane settings of the disk variant: the annulus r_in <= r <= r_out
-// of the plane cos(theta) = plane_c, and whether it stops rays.
+// of the plane cos(theta) = plane_c, whether it stops rays, and the slots
+// a ray records (read by the wide instances; the others hold their count
+// as kMaxHits).
 template <class T>
 struct DiskParams {
   T r_in, r_out, plane_c;
-  int opaque;
+  int opaque, max_hits;
 };
+
+// Slots of the wide disk instances, the most a launch can record.
+constexpr int kWideSlots = 8;
 
 // What one DP45 attempt produced.
 template <class T>
@@ -317,6 +331,8 @@ template <class T, int F, bool kDisk, int kMaxHits, bool kMomentum,
 struct Ray {
   static constexpr int kSlots = kDisk ? kMaxHits : 1;
   static constexpr int kMomSlots = kMomentum ? kMaxHits : 1;
+  // The wide instance records the launch's count of slots, at most kSlots.
+  static constexpr bool kRuntimeSlots = kDisk && kMaxHits == kWideSlots;
 
   T atol, rtol, r_plunge, p_t, p_phi;
   T y[5], k1[5];
@@ -449,7 +465,9 @@ struct Ray {
                 }
               }
             }
-            n_hits = n_hits + 1 < kSlots ? n_hits + 1 : kSlots;
+            int cap = kSlots;
+            if constexpr (kRuntimeSlots) cap = D.max_hits;
+            n_hits = n_hits + 1 < cap ? n_hits + 1 : cap;
             park = D.opaque != 0 && n_hits == 1;
             recorded = true;
           }
@@ -519,6 +537,9 @@ struct Ray {
       C.hits[i] = n_hits;
 #pragma unroll
       for (int s = 0; s < kSlots; ++s) {
+        if constexpr (kRuntimeSlots) {
+          if (s >= C.max_hits) break;
+        }
         const size_t k = static_cast<size_t>(s) * n + i;
         C.r_hits[k] = r_hits[s];
         C.phi_hits[k] = phi_hits[s];
@@ -537,8 +558,10 @@ struct Ray {
 // shadow instance 88 registers (5 blocks an SM) and the double ones
 // 158-166; at 7 blocks, with some spilled to L1, the double disk instance
 // runs 6 % faster, both shadow instances within 1 % and the float disk
-// one slower (PERF.md §6).
+// one slower (PERF.md §6). The wide disk instances hold 32 more values
+// a thread with momentum and ask for fewer blocks (kWideBlocksPerSm).
 constexpr int kBlocksPerSm = 7;
+constexpr int kWideBlocksPerSm = 5;
 
 // The ray kernel, one thread a ray. kDisk = false is the shadow variant
 // (the per-ray axis-refine tolerances, the certain-plunge exit). kDisk =
@@ -551,7 +574,8 @@ constexpr int kBlocksPerSm = 7;
 // count 0).
 template <class T, int F, bool kDisk, int kMaxHits, bool kMomentum,
           bool kMu>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+__global__ void __launch_bounds__(
+    kThreads, kMaxHits == kWideSlots ? kWideBlocksPerSm : kBlocksPerSm)
 LPT_KERNEL(kernel)(KerrCall<T> C, Params<T> P, DiskParams<T> D) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   int steps = 0;
@@ -582,10 +606,17 @@ int launch(const KerrCall<Real>& C, const Params<Real>& P,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The shadow variant (disk = 0) or the disk variant of family F.
+// The shadow variant (disk = 0) or the disk variant of family F; in the
+// wide build, the wide disk instance for 5 to kWideSlots slots.
 template <int F>
 int launch_family(const KerrCall<Real>& C, const Params<Real>& P,
                   const DiskParams<Real>& D, int disk) {
+#ifdef LPT_WIDE
+  if (!disk || C.max_hits <= 4 || C.max_hits > kWideSlots)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (C.momentum) return launch<F, true, kWideSlots, true>(C, P, D);
+  return launch<F, true, kWideSlots, false>(C, P, D);
+#else
   if (!disk) return launch<F, false, 1, false>(C, P, D);
   switch (C.max_hits * 2 + (C.momentum != 0)) {
     case 2: return launch<F, true, 1, false>(C, P, D);
@@ -598,6 +629,7 @@ int launch_family(const KerrCall<Real>& C, const Params<Real>& P,
     case 9: return launch<F, true, 4, true>(C, P, D);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#endif
 }
 
 }  // namespace
@@ -616,7 +648,8 @@ int LPT_ENTRY(lpt_kerr_dp45)(const void* call, int disk) {
                        C.rtol,     C.atol_ref,  C.rtol_ref,  C.h_min,
                        C.tiny_err, C.h_init,    C.r_capture, C.q2,
                        C.r_pro,    C.eps3,      C.r_freeze};
-  const DiskParams<Real> D{C.r_in, C.r_out_disk, C.plane_c, C.opaque};
+  const DiskParams<Real> D{C.r_in, C.r_out_disk, C.plane_c, C.opaque,
+                           C.max_hits};
   if (disk || C.chart != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (C.family) {
     case kKerr: return launch<kKerr, false, 1, false, true>(C, P, D);
@@ -630,7 +663,9 @@ int LPT_ENTRY(lpt_kerr_dp45)(const void* call, int disk) {
 // max_hits 1..4, momentum 0 or 1) of the call's family (kKerr,
 // kKerrNewman, kJohannsenPsaltis; the last has no disk variant) for the
 // call `call` (a KerrCall of this instance's Real: float here, double in
-// the *_f64 entry; chart 0) and returns a cudaError_t (0 on success).
+// the *_f64 entry; chart 0) and returns a cudaError_t (0 on success). The
+// wide entries (LPT_WIDE) launch the disk variant of Kerr and Kerr-Newman
+// only, for max_hits 5..8.
 int LPT_ENTRY(lpt_kerr_dp45)(const void* call, int disk) {
   const KerrCall<Real>& C = *static_cast<const KerrCall<Real>*>(call);
   const Params<Real> P{C.M,        C.a,         C.r_plus,    C.r_obs,
@@ -638,25 +673,30 @@ int LPT_ENTRY(lpt_kerr_dp45)(const void* call, int disk) {
                        C.rtol,     C.atol_ref,  C.rtol_ref,  C.h_min,
                        C.tiny_err, C.h_init,    C.r_capture, C.q2,
                        C.r_pro,    C.eps3,      C.r_freeze};
-  const DiskParams<Real> D{C.r_in, C.r_out_disk, C.plane_c, C.opaque};
+  const DiskParams<Real> D{C.r_in, C.r_out_disk, C.plane_c, C.opaque,
+                           C.max_hits};
   // the disk variant locates its events on the Hermite interpolant only
   if (disk && C.event_interp) return static_cast<int>(cudaErrorInvalidValue);
   if (C.chart != 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (C.family) {
     case kKerr: return launch_family<kKerr>(C, P, D, disk);
     case kKerrNewman: return launch_family<kKerrNewman>(C, P, D, disk);
+#ifndef LPT_WIDE
     case kJohannsenPsaltis:
       if (disk) return static_cast<int>(cudaErrorInvalidValue);
       return launch<kJohannsenPsaltis, false, 1, false>(C, P, D);
+#endif
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 #endif  // LPT_MU
 
-#if !defined(LPT_DOUBLE) && !(defined(LPT_MU) && defined(LPT_DOP853))
+#if !defined(LPT_DOUBLE) && !defined(LPT_WIDE) && \
+    !(defined(LPT_MU) && defined(LPT_DOP853))
 // One a library: kerr_dp45.cu's DP45 build, kerr_dp45_mu.cu's (the
-// library of the mu and Kerr-Newman-extras instances) or kerr_dop853.cu's.
+// library of the mu, Kerr-Newman-extras and wide instances) or
+// kerr_dop853.cu's.
 const char* lpt_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -79,6 +79,16 @@ typedef float Real;
 #define LPT_KERNEL(name) kerr_dp45_##name
 #endif
 
+#ifdef LPT_EXTERN_POW_F64
+// The float64 extras instances raise through lpt_pow_f64.cu's pow, built
+// with contraction as PyTorch builds its own: the plain loops' float64
+// powers are PyTorch's, and the library pow built under -fmad=false
+// rounds 1 ulp otherwise on a few arguments in a million
+// (scripts/torch_f64_parity.py). ops/cuda/_build.py defines the macro and
+// links the call by relocatable device code.
+extern __device__ double lpt_pow_f64(double x, double y);
+#endif
+
 namespace {
 
 #ifdef LPT_DOP853
@@ -107,9 +117,15 @@ __device__ __forceinline__ double cos_(double x) { return cos(x); }
 __device__ __forceinline__ float sqrt_(float x) { return sqrtf(x); }
 __device__ __forceinline__ double sqrt_(double x) { return sqrt(x); }
 __device__ __forceinline__ float pow_(float x, float y) { return powf(x, y); }
+#ifdef LPT_EXTERN_POW_F64
+__device__ __forceinline__ double pow_(double x, double y) {
+  return ::lpt_pow_f64(x, y);
+}
+#else
 __device__ __forceinline__ double pow_(double x, double y) {
   return pow(x, y);
 }
+#endif
 __device__ __forceinline__ float exp_(float x) { return expf(x); }
 __device__ __forceinline__ double exp_(double x) { return exp(x); }
 __device__ __forceinline__ float abs_(float x) { return fabsf(x); }

@@ -1,10 +1,15 @@
 """Thin accretion-disk rendering with gravitational redshift and Doppler
 beaming (BASELINE.json config 4).
 
-The counterpart of `light_path_tracer_tpu.disk` for the still render
-(`render_disk`). Model: a geometrically thin equatorial disk of Keplerian
-circular orbits between r_in (default r_isco) and r_out, power-law
-emissivity eps(r) ~ r^-q or a Shakura-Sunyaev blackbody. The trace
+The counterpart of `light_path_tracer_tpu.disk`: the still render
+(`render_disk`), the photon-ring decomposition (`render_disk_decomposed`),
+the hot-spot and textured-disk frames of one trace (`render_disk_frames`
+with `HotSpot`, `hotspot_pattern`, `texture_pattern`), the jittered-AA
+render (`render_disk_aa`) and the composite of the lensed background and
+the disk (`render_scene_with_disk`, `render_scene_with_disk_aa`).
+Model: a geometrically thin equatorial disk of Keplerian circular
+orbits between r_in (default r_isco) and r_out, power-law emissivity
+eps(r) ~ r^-q or a Shakura-Sunyaev blackbody. The trace
 records each ray's first max_hits in-disk equatorial crossings; each
 contributes
 
@@ -23,9 +28,8 @@ default), its plain PyTorch loop on the CPU. The emission and the tone
 map are plain PyTorch on the same device. The ISCO is host NumPy.
 
 Not ported yet (they raise, see ROADMAP.md): tilted and warped disks,
-the crossing-time recorder, a boosted camera, the decomposed, frame, AA,
-composite,
-multi-disk and multi-host renders, and the hot-spot and texture patterns.
+the crossing-time recorder, a boosted camera, the multi-disk and
+multi-host renders.
 """
 
 from __future__ import annotations
@@ -41,13 +45,19 @@ from light_path_tracer_tpu_torch.models import Kerr, KerrNewman
 from light_path_tracer_tpu_torch.ops.batch import _backend
 from light_path_tracer_tpu_torch.ops.kerr_trace import CAPTURED
 from light_path_tracer_tpu_torch.ops.types import DiskTraceResult
+from light_path_tracer_tpu_torch.pipeline import _dtype_of, _source_tensor
+from light_path_tracer_tpu_torch.render import render_lensed_image
 from light_path_tracer_tpu_torch.utils.config import RenderConfig, SceneConfig
 from light_path_tracer_tpu_torch.utils.timing import StageTimer
 
-__all__ = ["DiskConfig", "DiskTraceResult", "r_isco", "disk_temperature",
-           "keplerian_omega", "keplerian_redshift",
-           "covariant_tphi_components", "trace_disk_rays", "disk_emission",
-           "decomposed_display", "render_disk"]
+__all__ = ["DiskConfig", "DiskTraceResult", "HotSpot", "r_isco",
+           "disk_temperature", "keplerian_omega", "keplerian_redshift",
+           "covariant_tphi_components", "hotspot_pattern",
+           "texture_pattern", "trace_disk_rays", "disk_emission",
+           "decomposed_display", "composite_gamma_encode", "render_disk",
+           "render_disk_decomposed", "render_disk_frames",
+           "render_disk_aa", "render_scene_with_disk",
+           "render_scene_with_disk_aa"]
 
 
 def _not_ported(what):
@@ -224,6 +234,85 @@ def keplerian_omega(M, a, r, prograde: bool = True, Q: float = 0.0):
     return -sqrt_m / (r ** 1.5 - a * sqrt_m)
 
 
+@dataclasses.dataclass(frozen=True)
+class HotSpot:
+    """Orbiting Gaussian brightness feature on the disk surface (the JAX
+    package's HotSpot, field for field)."""
+
+    r0: float = 6.0         # orbit radius [M]
+    phi0: float = 0.0       # azimuth at t = 0 [rad]
+    sigma_r: float = 0.6    # radial Gaussian width [M]
+    sigma_phi: float = 0.5  # azimuthal Gaussian width [rad]
+    amplitude: float = 6.0  # peak emission multiplier - 1
+
+    @property
+    def period(self):
+        """Coordinate-time orbital period at r0 for M = 1, a = 0 (other
+        scenes scale by their own keplerian_omega)."""
+        return 2.0 * np.pi / keplerian_omega(1.0, 0.0, self.r0)
+
+
+def hotspot_pattern(spot: HotSpot, M, a, prograde: bool = True,
+                    Q: float = 0.0):
+    """Emission multiplier pattern(r, phi, t) of an orbiting Gaussian hot
+    spot: a rigid blob at radius spot.r0 and azimuth spot.phi0 + Omega_K
+    (spot.r0) t (coordinate time t in M, a tensor in the trace dtype or a
+    Python number). The azimuth offset wraps to [-pi, pi) with floor
+    semantics (torch.remainder, as jnp's %). The crossing azimuth is
+    recorded at trace time, so frames at any t re-render one trace."""
+    omega = float(keplerian_omega(M, a, spot.r0, prograde, Q=Q))
+
+    def pattern(r, phi, t):
+        dphi = phi - (spot.phi0 + omega * t)
+        dphi = torch.remainder(dphi + np.pi, 2.0 * np.pi) - np.pi
+        dr = r - spot.r0
+        blob = torch.exp(-0.5 * ((dr / spot.sigma_r) ** 2
+                                 + (dphi / spot.sigma_phi) ** 2))
+        return 1.0 + spot.amplitude * blob
+
+    return pattern
+
+
+def texture_pattern(tex, r_in, r_out, M, a, shear: bool = True,
+                    Q: float = 0.0, prograde: bool = True):
+    """Emission multiplier pattern(r, phi, t) from an (Nr, Nphi) texture
+    covering r in [r_in, r_out] (rows, linear) x phi in [0, 2 pi)
+    (columns, periodic), sampled bilinearly. shear=True advects each
+    annulus at its own Keplerian rate (a straight stripe winds into a
+    trailing spiral); shear=False rotates it rigidly at Omega(r_in). The
+    texture is float32 and is read on the rays' device."""
+    tex = torch.as_tensor(np.asarray(tex, np.float32))
+    n_r, n_phi = tex.shape
+    omega_ref = float(keplerian_omega(M, a, r_in, prograde, Q=Q))
+    two_pi = 2.0 * np.pi
+    on_device = {}
+
+    def pattern(r, phi, t):
+        if r.device not in on_device:
+            on_device[r.device] = tex.to(r.device)
+        dev_tex = on_device[r.device]
+        omega = (keplerian_omega(M, a, torch.clamp(r, min=r_in), prograde,
+                                 Q=Q)
+                 if shear else omega_ref)
+        phi_m = torch.remainder(phi - omega * t, two_pi)
+        pr = torch.clamp((r - r_in) / max(r_out - r_in, 1e-9), 0.0,
+                         1.0) * (n_r - 1)
+        pp = phi_m / two_pi * n_phi
+        i0 = torch.clamp(pr.to(torch.int32), 0, n_r - 2).long()
+        j0 = torch.remainder(pp.to(torch.int32), n_phi).long()
+        j1 = torch.remainder(j0 + 1, n_phi)
+        fr = pr - i0.to(pr.dtype)
+        fp = pp - torch.floor(pp)
+        v00 = dev_tex[i0, j0]
+        v01 = dev_tex[i0, j1]
+        v10 = dev_tex[i0 + 1, j0]
+        v11 = dev_tex[i0 + 1, j1]
+        return ((1 - fr) * ((1 - fp) * v00 + fp * v01)
+                + fr * ((1 - fp) * v10 + fp * v11))
+
+    return pattern
+
+
 def _r_in_of(disk: DiskConfig, M, a, Q=0.0) -> float:
     return float(disk.r_in if disk.r_in is not None
                  else r_isco(M, a, disk.prograde, Q=Q))
@@ -373,25 +462,14 @@ def render_disk(scene: SceneConfig, resolution,
     with the CUDA device synchronised at its end.
     """
     metric = _scene_metric(scene)
-    if scene.boosted:
-        raise _not_ported("a boosted camera (boost)")
     timer = StageTimer(device)
     height, width = resolution
-    fov = camera.fov_from_vertical(scene.vertical_fov, resolution)
-    dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
 
     with timer.stage("build_lookup"):
-        grid = dict(psi=scene.psi, dtype=dtype, device=device)
-        alpha = camera.build_alpha_lookup(resolution, fov, **grid)
-        theta = camera.build_theta_lookup(resolution, fov, **grid)
+        _fov, alpha, theta = _grids(scene, cfg, resolution, device)
 
     with timer.stage("precompute"):
-        res = trace_disk_rays(
-            metric, scene.r_obs, alpha.reshape(-1), theta.reshape(-1),
-            scene.theta_obs, max(5000.0, 6.0 * scene.r_obs),
-            cfg.max_steps, disk, backend=cfg.backend,
-            precision=cfg.precision, method=cfg.integrator,
-            two_pass=cfg.two_pass, pass1_steps=cfg.pass1_steps)
+        res = _trace_grid(metric, scene, cfg, disk, alpha, theta)
 
     with timer.stage("render"):
         r_in = _r_in_of(disk, scene.M, scene.a, scene.Q)
@@ -403,11 +481,482 @@ def render_disk(scene: SceneConfig, resolution,
     stats = dict(
         alpha_crit=metric.alpha_crit(scene.r_obs, scene.theta_obs,
                                     device=device),
+        disk_pixels=int((res.n_hits > 0).sum()),
+        timings=timer.finish(),
+        **_common_stats(scene, disk, res, height * width))
+    return img, stats
+
+
+def _lambda_max(scene) -> float:
+    return max(5000.0, 6.0 * scene.r_obs)
+
+
+def _trace_grid(metric, scene, cfg, disk, alpha, theta, two_pass=None,
+                record_momentum=False) -> DiskTraceResult:
+    """The disk trace of the camera grids (alpha, theta), raveled."""
+    return trace_disk_rays(
+        metric, scene.r_obs, alpha.reshape(-1), theta.reshape(-1),
+        scene.theta_obs, _lambda_max(scene), cfg.max_steps, disk,
+        backend=cfg.backend, precision=cfg.precision, method=cfg.integrator,
+        two_pass=cfg.two_pass if two_pass is None else two_pass,
+        pass1_steps=cfg.pass1_steps, record_momentum=record_momentum)
+
+
+def _grids(scene, cfg, resolution, device, pixel_offset=(0.0, 0.0)):
+    """(fov, alpha, theta) of the scene's camera at `resolution`."""
+    if scene.boosted:
+        raise _not_ported("a boosted camera (boost)")
+    fov = camera.fov_from_vertical(scene.vertical_fov, resolution)
+    grid = dict(psi=scene.psi, dtype=_dtype_of(cfg), device=device,
+                pixel_offset=tuple(pixel_offset))
+    return (fov, camera.build_alpha_lookup(resolution, fov, **grid),
+            camera.build_theta_lookup(resolution, fov, **grid))
+
+
+def _common_stats(scene, disk, res, rays):
+    return dict(r_isco=r_isco(scene.M, scene.a, disk.prograde, Q=scene.Q),
+                captured=int((res.status == CAPTURED).sum()),
+                integrator_steps=int(res.n_steps), total_rays=rays,
+                traced_rays=rays)
+
+
+def render_disk_decomposed(scene: SceneConfig, resolution,
+                           cfg: RenderConfig = RenderConfig(),
+                           disk: DiskConfig = DiskConfig(),
+                           n_orders: int = 3, device="cuda"):
+    """Photon-ring decomposition: the disk image split by image order.
+
+    One trace records each ray's first n_orders equatorial crossings
+    anywhere on the plane (a translucent recorder with r_in = 0 and r_out
+    at the escape radius), so slot k is image order k; order k's layer is
+    the emission of that crossing where it lands in [r_in, r_out]. The
+    layers sum to the translucent render_disk intensity. n_orders above
+    4 traces through the kernel's wide instances (up to 8).
+
+    Returns (layers, stats): layers (n_orders, H, W) linear intensity, or
+    (n_orders, H, W, 3) linear sRGB for the blackbody spectrum, float32 on
+    `device`; stats adds to render_disk's flux_per_order, flux_ratios,
+    gamma_estimates (-ln ratio), mean_radius_rad and pixels_per_order,
+    summed in float64 on the host as the JAX package sums them.
+    """
+    metric = _scene_metric(scene)
+    rec = dataclasses.replace(disk, opaque=False, max_hits=n_orders,
+                              r_in=0.0, r_out=2.0 * scene.r_obs)
+    timer = StageTimer(device)
+    height, width = resolution
+
+    with timer.stage("build_lookup"):
+        _fov, alpha, theta = _grids(scene, cfg, resolution, device)
+
+    with timer.stage("precompute"):
+        res = _trace_grid(metric, scene, cfg, rec, alpha, theta)
+
+    with timer.stage("render"):
+        r_in = _r_in_of(disk, scene.M, scene.a, scene.Q)
+        slot_i, slot_rgb = disk_emission(
+            scene, rec, r_in, res.n_hits, res.r_hits, res.xi,
+            xi_hits=res.xi_hits, per_slot=True, annulus=(r_in, disk.r_out))
+        shape = (n_orders,) + tuple(resolution)
+        layers = (slot_i.reshape(shape) if slot_rgb is None
+                  else slot_rgb.reshape(shape + (3,))).to(torch.float32)
+
+    slot_np = slot_i.detach().cpu().numpy().astype(np.float64)
+    flux = slot_np.sum(axis=1)
+    alpha_flat = alpha.detach().cpu().numpy().astype(np.float64).ravel()
+    mean_radius = (slot_np @ alpha_flat) / np.maximum(flux, 1e-300)
+    ratios = flux[1:] / np.maximum(flux[:-1], 1e-300)
+    stats = dict(
+        alpha_crit=metric.alpha_crit(scene.r_obs, scene.theta_obs,
+                                    device=device),
+        disk_pixels=int((slot_np.sum(axis=0) > 0.0).sum()),
+        pixels_per_order=[int((slot_np[k] > 0.0).sum())
+                          for k in range(n_orders)],
+        flux_per_order=flux.tolist(),
+        flux_ratios=ratios.tolist(),
+        gamma_estimates=(-np.log(np.maximum(ratios, 1e-300))).tolist(),
+        mean_radius_rad=mean_radius.tolist(),
+        timings=timer.finish(),
+        **_common_stats(scene, disk, res, height * width))
+    return layers, stats
+
+
+def render_disk_frames(scene: SceneConfig, resolution, times,
+                       cfg: RenderConfig = RenderConfig(),
+                       disk: DiskConfig = DiskConfig(),
+                       spot: HotSpot = HotSpot(), pattern=None,
+                       device="cuda"):
+    """Hot-spot or textured-disk frames from one trace.
+
+    The trace records each crossing's (r, phi); a frame at coordinate
+    time t re-evaluates the pattern (hotspot_pattern(spot) by default, or
+    any pattern(r, phi, t) such as texture_pattern) at the advected
+    azimuth, so the integration is paid once for the sequence. The times
+    enter in the trace dtype; the frames share one tone-map peak, the
+    largest emission of any frame.
+
+    Returns (frames (T, H, W) or (T, H, W, 3) float32, stats); stats
+    ["emission"] is the raw (T, H, W) float32 intensity. One orbit at
+    spot.r0 is stats["orbit_period"] in M.
+    """
+    metric = _scene_metric(scene)
+    timer = StageTimer(device)
+    height, width = resolution
+    times = list(times)
+    dtype = _dtype_of(cfg)
+
+    with timer.stage("build_lookup"):
+        _fov, alpha, theta = _grids(scene, cfg, resolution, device)
+
+    with timer.stage("precompute"):
+        res = _trace_grid(metric, scene, cfg, disk, alpha, theta)
+
+    with timer.stage("render"):
+        r_in = _r_in_of(disk, scene.M, scene.a, scene.Q)
+        if pattern is None:
+            pattern = hotspot_pattern(spot, scene.M, scene.a, disk.prograde,
+                                      Q=scene.Q)
+        ts = torch.tensor(times, dtype=dtype, device=device)
+        color = disk.spectrum == "blackbody"
+        intensity, rgb = [], []
+        for t in ts:
+            i_t, rgb_t = disk_emission(scene, disk, r_in, res.n_hits,
+                                       res.r_hits, res.xi, pattern=pattern,
+                                       phi_hits=res.phi_hits, t=t,
+                                       xi_hits=res.xi_hits)
+            intensity.append(i_t)
+            rgb.append(rgb_t)
+        shape = (len(times),) + tuple(resolution)
+        intensity = torch.stack(intensity)              # (T, N)
+        lum = _tone_map(intensity, disk.tone_map, torch.max(intensity))
+        emission = intensity.reshape(shape).to(torch.float32)
+        if color:
+            chroma = torch.stack(rgb) / torch.clamp(intensity,
+                                                    min=1e-12)[..., None]
+            frames = (chroma * lum[..., None]).reshape(shape + (3,))
+        else:
+            frames = lum.reshape(shape)
+        frames = frames.to(torch.float32)
+
+    stats = dict(
         r_isco=r_isco(scene.M, scene.a, disk.prograde, Q=scene.Q),
-        captured=int((res.status == CAPTURED).sum()),
         disk_pixels=int((res.n_hits > 0).sum()),
         integrator_steps=int(res.n_steps),
+        emission=emission,
+        n_frames=len(times),
+        orbit_period=abs(2.0 * np.pi / keplerian_omega(
+            scene.M, scene.a, spot.r0, disk.prograde, Q=scene.Q)),
         total_rays=height * width,
         traced_rays=height * width,
         timings=timer.finish())
+    return frames, stats
+
+
+def _disk_pixels(lum, intensity, rgb, resolution, grayscale: bool,
+                 channels):
+    """Tone-mapped disk layer shaped like the background image: the
+    blackbody chromaticity carries the tone-mapped luminance (Rec. 601
+    luma on a gray background, alpha channels padded with 1); power-law
+    luminance is broadcast over the background's channels."""
+    resolution = tuple(resolution)
+    if rgb is not None:
+        disk_px = rgb / torch.clamp(intensity, min=1e-12)[:, None] \
+            * lum[:, None]
+        if grayscale:
+            luma = torch.tensor([0.299, 0.587, 0.114], dtype=disk_px.dtype,
+                                device=disk_px.device)
+            return (disk_px @ luma).reshape(resolution)
+        if channels >= 3:
+            pad = torch.ones((disk_px.shape[0], channels - 3),
+                             dtype=disk_px.dtype, device=disk_px.device)
+            disk_px = torch.cat([disk_px, pad], dim=1)
+        else:
+            disk_px = disk_px[:, :channels]
+        return disk_px.reshape(resolution + (channels,))
+    if grayscale:
+        return lum.reshape(resolution)
+    return lum.reshape(resolution)[..., None].expand(
+        resolution + (channels,))
+
+
+def _composite(background, disk_px, hit, opaque: bool):
+    """The opaque disk replaces the background where a ray hit it; the
+    translucent one adds to it and clips to [0, 1]. Returns float32."""
+    hit_b = hit if background.dim() == 2 else hit[..., None]
+    disk_px = disk_px.to(background.dtype)
+    if opaque:
+        out = torch.where(hit_b, disk_px, background)
+    else:
+        out = torch.clamp(background + disk_px, 0.0, 1.0)
+    return out.to(torch.float32)
+
+
+def _background(img, alpha, theta, res, rays, resolution, alpha_crit, fov,
+                scene, cfg):
+    """The lensed background of the rays `rays` (a slice) of a disk
+    trace, from their final_alpha and half-orbit counts."""
+    fa = res.final_alpha[rays].reshape(resolution).to(torch.float32)
+    wind = torch.clamp(res.n_half[rays], 0, cfg.winding_max).to(
+        torch.int32).reshape(resolution)
+    return render_lensed_image(img, alpha, fa, wind, alpha_crit, fov,
+                               cfg.render_loop_around, psi=scene.psi,
+                               theta_lookup=theta, sampling=cfg.sampling)
+
+
+def render_scene_with_disk(scene: SceneConfig, source_image,
+                           cfg: RenderConfig = RenderConfig(),
+                           disk: DiskConfig = DiskConfig(),
+                           disk_gain: float = 1.0,
+                           pixel_offset=(0.0, 0.0), device="cuda"):
+    """Composite render: the lensed background image and the accretion
+    disk from one trace a pixel (the disk trace's final heading drives the
+    background gather). An opaque disk replaces the background where a
+    ray met it; a translucent one adds its emission and clips. disk_gain
+    scales the tone-mapped disk against the [0, 1] background. Returns
+    (image float32 in the source's shape on `device`, stats); stats
+    ["disk_mask"] is the (H, W) NumPy mask of disk pixels."""
+    metric = _scene_metric(scene)
+    timer = StageTimer(device)
+    height, width = np.shape(source_image)[:2]
+    resolution = (height, width)
+
+    with timer.stage("load_image"):
+        img = _source_tensor(source_image, device)
+
+    with timer.stage("build_lookup"):
+        fov, alpha, theta = _grids(scene, cfg, resolution, device,
+                                   pixel_offset)
+    alpha_crit = metric.alpha_crit(scene.r_obs, scene.theta_obs,
+                                   device=device)
+
+    with timer.stage("precompute"):
+        res = _trace_grid(metric, scene, cfg, disk, alpha, theta)
+
+    with timer.stage("render"):
+        r_in = _r_in_of(disk, scene.M, scene.a, scene.Q)
+        everything = slice(None)
+        background = _background(img, alpha, theta, res, everything,
+                                 resolution, alpha_crit, fov, scene, cfg)
+        intensity, rgb = disk_emission(scene, disk, r_in, res.n_hits,
+                                       res.r_hits, res.xi,
+                                       xi_hits=res.xi_hits)
+        lum = _tone_map(intensity, disk.tone_map) * disk_gain
+        grayscale = background.dim() == 2
+        disk_px = _disk_pixels(lum, intensity, rgb, resolution, grayscale,
+                               None if grayscale else background.shape[2])
+        hit = (res.n_hits > 0).reshape(resolution)
+        composite = _composite(background, disk_px, hit, disk.opaque)
+
+    mask = hit.cpu().numpy()
+    stats = dict(
+        alpha_crit=alpha_crit,
+        disk_pixels=int(mask.sum()),
+        disk_mask=mask,
+        timings=timer.finish(),
+        **_common_stats(scene, disk, res, height * width))
+    return composite, stats
+
+
+def composite_gamma_encode(image, disk_mask, gamma: float = 2.2):
+    """Display-encode the disk pixels of a composite: clip(x, 0, 1)^(1 /
+    gamma) where disk_mask holds (the background came display-encoded
+    from its file; the disk layer is linear light). Approximate for a
+    translucent disk, whose masked pixels mix both layers."""
+    img = torch.as_tensor(image)
+    mask = torch.as_tensor(np.asarray(disk_mask) if not isinstance(
+        disk_mask, torch.Tensor) else disk_mask, device=img.device)
+    enc = torch.clamp(img, 0.0, 1.0) ** (1.0 / gamma)
+    m = mask if img.dim() == 2 else mask[..., None]
+    return torch.where(m, enc, img)
+
+
+def render_disk_aa(scene: SceneConfig, resolution,
+                   cfg: RenderConfig = RenderConfig(),
+                   disk: DiskConfig = DiskConfig(), aa_samples: int = 4,
+                   device="cuda"):
+    """Anti-aliased disk render: the jittered passes of aa.aa_offsets,
+    stacked on the row axis and traced as one batch, averaged in linear
+    emission space, then tone-mapped once. Returns (image, stats) as
+    render_disk."""
+    from light_path_tracer_tpu_torch.aa import _stacked_grids, aa_offsets
+
+    metric = _scene_metric(scene)
+    if scene.boosted:
+        raise _not_ported("a boosted camera (boost)")
+    timer = StageTimer(device)
+    height, width = resolution
+    fov = camera.fov_from_vertical(scene.vertical_fov, resolution)
+    offsets = aa_offsets(aa_samples)
+    n_s = len(offsets)
+
+    with timer.stage("build_lookup"):
+        alpha, theta = _stacked_grids(metric, scene, cfg, resolution, fov,
+                                      offsets, device=device)
+
+    with timer.stage("precompute"):
+        res = _trace_grid(metric, scene, cfg, disk, alpha, theta)
+
+    with timer.stage("render"):
+        r_in = _r_in_of(disk, scene.M, scene.a, scene.Q)
+        intensity, rgb = disk_emission(scene, disk, r_in, res.n_hits,
+                                       res.r_hits, res.xi,
+                                       xi_hits=res.xi_hits)
+        intensity = intensity.reshape(n_s, height * width).mean(dim=0)
+        if rgb is not None:
+            rgb = rgb.reshape(n_s, height * width, 3).mean(dim=0)
+        img = _finish_image(intensity, rgb, resolution, disk.tone_map)
+
+    stats = dict(
+        disk_pixels=int((res.n_hits.reshape(n_s, -1) > 0).any(dim=0).sum()),
+        aa_samples=n_s,
+        timings=timer.finish(),
+        **_common_stats(scene, disk, res, n_s * height * width))
     return img, stats
+
+
+def _concat_disk_results(results):
+    """Per-group DiskTraceResults concatenated along the ray axis (the
+    hit tuples slot by slot; n_steps summed)."""
+    if len(results) == 1:
+        return results[0]
+
+    def cat(field):
+        first = getattr(results[0], field)
+        if isinstance(first, tuple):
+            return tuple(torch.cat([getattr(r, field)[i] for r in results])
+                         for i in range(len(first)))
+        return torch.cat([getattr(r, field) for r in results])
+
+    return DiskTraceResult(**{
+        f: (sum(r.n_steps for r in results) if f == "n_steps" else cat(f))
+        for f in DiskTraceResult._fields})
+
+
+def render_scene_with_disk_aa(scene: SceneConfig, source_image,
+                              cfg: RenderConfig = RenderConfig(),
+                              disk: DiskConfig = DiskConfig(),
+                              disk_gain: float = 1.0, aa_samples: int = 4,
+                              display_encode: bool = False,
+                              stacked: bool = True, device="cuda"):
+    """Anti-aliased composite: the average of jittered-subpixel
+    composites, in display space (each pass's pixel is wholly disk or
+    wholly background; with display_encode, blackbody passes are
+    gamma-encoded before the average). Each pass tone-maps to its own
+    peak; stats["disk_mask"] is the union of the passes' masks.
+
+    stacked=True traces every pass's rays together, all in one batch up
+    to aa._CHUNK_ABOVE rays and in pass-sized groups above (aa.py's
+    rule; one ray's result does not depend on its batch), and renders on
+    the device; stacked=False runs render_scene_with_disk once an
+    offset, the equivalence reference. Returns (image, stats).
+    """
+    if stacked:
+        return _render_scene_with_disk_aa_stacked(
+            scene, source_image, cfg, disk, disk_gain, aa_samples,
+            display_encode, device)
+    return _render_scene_with_disk_aa_loop(
+        scene, source_image, cfg, disk, disk_gain, aa_samples,
+        display_encode, device)
+
+
+def _render_scene_with_disk_aa_stacked(scene, source_image, cfg, disk,
+                                       disk_gain, aa_samples,
+                                       display_encode, device):
+    from light_path_tracer_tpu_torch import aa
+
+    metric = _scene_metric(scene)
+    timer = StageTimer(device)
+    height, width = np.shape(source_image)[:2]
+    resolution = (height, width)
+    offsets = aa.aa_offsets(aa_samples)
+    n_s = len(offsets)
+    n_px = height * width
+
+    with timer.stage("load_image"):
+        img = _source_tensor(source_image, device)
+
+    with timer.stage("build_lookup"):
+        grids = [_grids(scene, cfg, resolution, device, off)
+                 for off in offsets]
+        fov = grids[0][0]
+        alphas = torch.stack([g[1] for g in grids])
+        thetas = torch.stack([g[2] for g in grids])
+    alpha_crit = metric.alpha_crit(scene.r_obs, scene.theta_obs,
+                                   device=device)
+
+    with timer.stage("precompute"):
+        step = n_s if n_s * n_px <= aa._CHUNK_ABOVE else 1
+        res = _concat_disk_results([
+            _trace_grid(metric, scene, cfg, disk, alphas[s:s + step],
+                        thetas[s:s + step])
+            for s in range(0, n_s, step)])
+
+    with timer.stage("render"):
+        r_in = _r_in_of(disk, scene.M, scene.a, scene.Q)
+        intensity, rgb = disk_emission(scene, disk, r_in, res.n_hits,
+                                       res.r_hits, res.xi,
+                                       xi_hits=res.xi_hits)
+        per_pass = intensity.reshape(n_s, n_px)
+        peaks = per_pass.max(dim=1, keepdim=True).values
+        lum = (_tone_map(per_pass, disk.tone_map, peaks)
+               * disk_gain).reshape(-1)
+        grayscale = img.dim() == 2
+        channels = None if grayscale else img.shape[2]
+        hit = (res.n_hits > 0).reshape(n_s, height, width)
+        encode = bool(display_encode and disk.spectrum == "blackbody")
+        acc = None
+        for s in range(n_s):
+            rays = slice(s * n_px, (s + 1) * n_px)
+            background = _background(img, alphas[s], thetas[s], res, rays,
+                                     resolution, alpha_crit, fov, scene,
+                                     cfg)
+            disk_px = _disk_pixels(lum[rays], intensity[rays],
+                                   None if rgb is None else rgb[rays],
+                                   resolution, grayscale, channels)
+            comp = _composite(background, disk_px, hit[s], disk.opaque)
+            if encode:
+                comp = composite_gamma_encode(comp, hit[s])
+            acc = comp if acc is None else acc + comp
+        image = (acc / n_s).to(torch.float32)
+
+    mask = hit.any(dim=0).cpu().numpy()
+    stats = dict(
+        alpha_crit=alpha_crit,
+        disk_pixels=int(mask.sum()),
+        disk_mask=mask,
+        aa_samples=n_s,
+        display_encoded=encode,
+        timings=timer.finish(),
+        **_common_stats(scene, disk, res, n_s * n_px))
+    return image, stats
+
+
+def _render_scene_with_disk_aa_loop(scene, source_image, cfg, disk,
+                                    disk_gain, aa_samples, display_encode,
+                                    device):
+    from light_path_tracer_tpu_torch.aa import aa_offsets
+
+    offsets = aa_offsets(aa_samples)
+    encode = bool(display_encode and disk.spectrum == "blackbody")
+    acc = mask = agg = None
+    for off in offsets:
+        img, stats = render_scene_with_disk(
+            scene, source_image, cfg, disk, disk_gain=disk_gain,
+            pixel_offset=tuple(off), device=device)
+        if encode:
+            img = composite_gamma_encode(img, stats["disk_mask"])
+        acc = img if acc is None else acc + img
+        mask = (stats["disk_mask"] if mask is None
+                else mask | stats["disk_mask"])
+        if agg is None:
+            agg = dict(stats, timings=dict(stats["timings"]))
+        else:
+            agg["captured"] += stats["captured"]
+            agg["integrator_steps"] += stats["integrator_steps"]
+            for key, val in stats["timings"].items():
+                agg["timings"][key] = agg["timings"].get(key, 0.0) + val
+    agg.update(aa_samples=len(offsets),
+               total_rays=agg["total_rays"] * len(offsets),
+               traced_rays=agg["traced_rays"] * len(offsets),
+               display_encoded=encode, disk_mask=mask,
+               disk_pixels=int(mask.sum()))
+    return (acc / len(offsets)).to(torch.float32), agg

@@ -2,13 +2,15 @@
 
 The sources in `light_path_tracer_tpu_torch/csrc/*.cu` have a plain C
 interface; each `*_f64.cu` builds the float64 instances of its float
-sibling, each `*_mu*.cu` the Kerr kernel's mu-chart instances and each
-`*_kn*.cu` the extras kernel's Kerr-Newman ones. They form three
+sibling, each `*_mu*.cu` the Kerr kernel's mu-chart instances, each
+`*_wide*.cu` its disk variant's instances for 5 to 8 crossing slots and
+each `*_kn*.cu` the extras kernel's Kerr-Newman ones. They form three
 libraries: "dp45", the DP45 Kerr and extras kernels' theta and Kerr
-instances, the orbit kernel and the peak probe; "more", the DP45 mu-chart
-and Kerr-Newman-extras instances (`kerr_dp45_*mu*.cu`, `kerr_dp45_*_kn*.cu`);
-and "dop853", every `kerr_dop853*.cu` source (the DOP853 instances of the
-Kerr and extras kernels, every chart and family). At the first use of a library
+instances, the orbit kernel and the peak probe; "more", the DP45 mu-chart,
+wide and Kerr-Newman-extras instances (`kerr_dp45_*mu*.cu`,
+`kerr_dp45_wide*.cu`, `kerr_dp45_*_kn*.cu`); and "dop853", every
+`kerr_dop853*.cu` source (the DOP853 instances of the Kerr and extras
+kernels, every chart, width and family). At the first use of a library
 each of its sources is compiled by its own `nvcc` for Hopper (`sm_90a`),
 all at once, and the objects are linked into one shared library under
 `build/light_path_tracer_tpu_torch/` beside the package, named by the
@@ -17,6 +19,12 @@ library and a hash of the sources, headers and flags, and loaded with
 instances. A later process with the same sources loads the existing file.
 Nothing is compiled when a module is imported, and a missing `nvcc` or a
 failed build raises with the compiler's output.
+
+The float64 extras sources (`*_{extras,stokes,movie,orders}*_f64.cu`) are
+built as relocatable device code and call the float64 pow of
+`csrc/lpt_pow_f64.cu`, a translation unit built with nvcc's default
+contraction, as PyTorch builds its own pow: each library that holds such
+sources compiles that file too and device-links them before the link.
 """
 
 from __future__ import annotations
@@ -43,6 +51,15 @@ BUILD_DIR = _PKG.parent / "build" / "light_path_tracer_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
+# The float64 extras sources: relocatable device code whose pow_ calls
+# lpt_pow_f64 (csrc/kerr_dp45_common.cuh), and that pow's own source,
+# built with contraction (nvcc's default) in place of -fmad=false.
+RDC_FLAGS = ("-rdc=true", "-DLPT_EXTERN_POW_F64=1")
+POW_SOURCE = "lpt_pow_f64.cu"
+POW_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-fmad=false") + (
+    "-fmad=true", "-rdc=true")
+DLINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-Xcompiler",
+               "-fPIC", "-dlink")
 
 # The extras kernel's C entry points, one a transfer family; each has a
 # *_describe twin that reports an instance's resources. Each but the
@@ -54,14 +71,25 @@ EXTRAS_ENTRIES = ("lpt_kerr_dp45_extras", "lpt_kerr_dp45_stokes",
                   "lpt_kerr_dp45_orders")
 KN_EXTRAS_ENTRIES = tuple(e for e in EXTRAS_ENTRIES
                           if e != "lpt_kerr_dp45_stokes")
-# The Kerr kernel's C entry points: the theta chart and the mu chart.
-KERR_ENTRIES = ("lpt_kerr_dp45", "lpt_kerr_dp45_mu")
+# The Kerr kernel's C entry points: the theta chart, the mu chart and the
+# wide disk instances.
+KERR_ENTRIES = ("lpt_kerr_dp45", "lpt_kerr_dp45_mu", "lpt_kerr_dp45_wide")
 
 
 def _variant_source(name):
-    """A source of the mu chart's or the Kerr-Newman extras' instances."""
+    """A source of the mu chart's, the wide disk or the Kerr-Newman
+    extras' instances."""
     stem = name[:-len(".cu")]
-    return "_mu" in stem or stem.endswith(("_kn", "_kn_f64"))
+    return ("_mu" in stem or "_wide" in stem
+            or stem.endswith(("_kn", "_kn_f64")))
+
+
+def _rdc_source(name):
+    """A float64 source of the extras kernel (it calls lpt_pow_f64)."""
+    stem = name[:-len(".cu")]
+    form = stem.removeprefix("kerr_dp45_").removeprefix("kerr_dop853_")
+    return stem.endswith("_f64") and form.startswith(
+        ("extras", "stokes", "movie", "orders"))
 
 _P = ctypes.c_void_p
 _F = ctypes.c_float
@@ -86,7 +114,7 @@ def _nvcc() -> str:
 # The libraries: name -> (file name prefix, whether a source belongs).
 LIBRARIES = {
     "dp45": ("lpt_kernels", lambda name: not name.startswith("kerr_dop853")
-             and not _variant_source(name)),
+             and not _variant_source(name) and name != POW_SOURCE),
     "more": ("lpt_more", lambda name: not name.startswith("kerr_dop853")
              and _variant_source(name)),
     "dop853": ("lpt_dop853", lambda name: name.startswith("kerr_dop853")),
@@ -107,7 +135,8 @@ def library_path(library="dp45") -> Path:
     current
     sources, headers and flags lives. The hash covers every source and
     header (a DOP853 source includes its DP45 sibling)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS + RDC_FLAGS
+                                + POW_FLAGS + DLINK_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -141,14 +170,26 @@ def _start(cmd):
 
 def _compile(out: Path, library: str) -> str:
     """Compile every source of `library` into `out`, one nvcc per source,
-    all started together, then link; returns nvcc's output."""
+    all started together (with lpt_pow_f64.cu where a float64 extras
+    source is among them), device-link the relocatable objects, then
+    link; returns nvcc's output."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     srcs = _sources(library)
+    flags = [NVCC_FLAGS + (RDC_FLAGS if _rdc_source(s.name) else ())
+             for s in srcs]
+    if any(_rdc_source(s.name) for s in srcs):
+        srcs.append(CSRC / POW_SOURCE)
+        flags.append(POW_FLAGS)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / f"{src.stem}.o" for src in srcs]
-        log = _run([_start([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
-                            str(src)])
-                    for src, obj in zip(srcs, objs)])
+        log = _run([_start([_nvcc(), *f, "-c", "-o", str(obj), str(src)])
+                    for src, obj, f in zip(srcs, objs, flags)])
+        rdc = [str(o) for o, f in zip(objs, flags) if "-rdc=true" in f]
+        if rdc:
+            dlink = Path(tmp) / "dlink.o"
+            log += _run([_start([_nvcc(), *DLINK_FLAGS, "-o", str(dlink),
+                                 *rdc])])
+            objs.append(dlink)
         lib = Path(tmp) / out.name
         log += _run([_start([_nvcc(), *LINK_FLAGS, "-o", str(lib),
                              *(str(o) for o in objs)])])

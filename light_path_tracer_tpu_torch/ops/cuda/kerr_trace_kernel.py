@@ -9,7 +9,12 @@ which writes final_alpha, n_half and the status (the JAX wrapper extracts
 the angle outside its kernel only because Mosaic cannot lower acos). Its
 disk variant (`trace_disk_rays_cuda`, `trace_disk_rays_pallas` in JAX)
 adds the plane-crossing recorder and writes p_phi and the hit records
-too. The kernel runs one thread a ray in index order. It computes three
+too: 1 to 4 slots through the instances of csrc/kerr_dp45.cu, 5 to 8
+through its wide instances (csrc/kerr_dp45_wide.cu and siblings; the DP45
+ones in the library `_build.load_library("more")` builds at their first
+launch); more than 8 raises NotImplementedError on a CUDA tensor before
+any launch (ROADMAP.md, Queue 2). The kernel runs one thread a ray in
+index order. It computes three
 metric families, Kerr, Kerr-Newman and Johannsen-Psaltis (the shadow
 variant; the disk variant takes the first two), each named to the kernel
 by the metric's exact class: any other class raises, a subclass included.
@@ -32,12 +37,13 @@ CUDA float32 or float64 tensors (the float64 instances, entries `*_f64`,
 with the float64 tolerance presets) and raise on any other CUDA input;
 they never fall back. Each wrapper counts its launches per pair and dtype
 (`.launches` DP45 float32, `.launches_f64` DP45 float64,
-`.launches_dop853` and `.launches_dop853_f64`), the mu instances on
-counters of their own (`.launches_mu`, `.launches_mu_f64`,
-`.launches_mu_dop853`, `.launches_mu_dop853_f64`). Given CPU tensors they run
-the kernel's plain version, the PyTorch loop (`trace_rays_kerr_plain`,
-`trace_disk_rays_plain`, ops/kerr_trace.py), because there is no kernel to
-run there; the tests and the chip smoke test compare the two.
+`.launches_dop853` and `.launches_dop853_f64`), the mu and wide
+instances on counters of their own (`.launches_mu`, `.launches_mu_f64`,
+`.launches_mu_dop853`, `.launches_mu_dop853_f64`; `.launches_wide`,
+...). Given CPU tensors they run the kernel's plain version, the PyTorch
+loop (`trace_rays_kerr_plain`, `trace_disk_rays_plain`,
+ops/kerr_trace.py), because there is no kernel to run there; the tests
+and the chip smoke test compare the two.
 
 The kernels end a lane frozen in an exact cycle at once
 (csrc/kerr_dp45_common.cuh, CycleWatch), which changes no output. The
@@ -92,8 +98,11 @@ __all__ = ["trace_rays_kerr_cuda", "trace_rays_kerr_plain",
            "trace_rays_volumetric_two_pass", "trace_rays_aux_two_pass",
            "trace_rays_spectral_two_pass"]
 
-# Crossing slots the disk variant is compiled for (csrc/kerr_dp45.cu).
-MAX_KERNEL_HITS = 4
+# Crossing slots of the disk variant: 1..NARROW_KERNEL_HITS through an
+# instance a count (csrc/kerr_dp45.cu), up to MAX_KERNEL_HITS through the
+# wide instances (csrc/kerr_dp45_wide.cu).
+NARROW_KERNEL_HITS = 4
+MAX_KERNEL_HITS = 8
 
 # The metric families of the Kerr kernels (csrc/kerr_dp45_common.cuh kKerr,
 # kKerrNewman, kJohannsenPsaltis), keyed by the class that models each.
@@ -105,6 +114,9 @@ MU_FAMILIES = (Kerr, KerrNewman)
 EXTRAS_FAMILIES = (Kerr, KerrNewman)
 # The charts of the shadow variant (KerrCall::chart).
 CHARTS = ("theta", "mu")
+# The sets of instances with launch counters of their own: the theta
+# chart's (no infix), the mu chart's and the wide disk instances.
+VARIANTS = CHARTS + ("wide",)
 
 
 def metric_family(metric, families=tuple(FAMILIES)) -> int:
@@ -141,18 +153,19 @@ def method_suffix(method) -> str:
 def library_of(method, variant=False) -> str:
     """The kernel library (ops/cuda/_build.py) that holds `method`'s
     instances: "dop853" for every DOP853 one; for DP45, "more" for the mu
-    chart's and the Kerr-Newman extras' (variant), "dp45" for the rest."""
+    chart's, the wide disk and the Kerr-Newman extras' (variant), "dp45"
+    for the rest."""
     if method_suffix(method):
         return "dop853"
     return "more" if variant else "dp45"
 
 
 def counter_name(dtype, method="dp45", chart="theta") -> str:
-    """A wrapper's launch counter for the pair, dtype and chart:
-    "launches", "launches_f64", "launches_dop853" or
-    "launches_dop853_f64", with "_mu" after "launches" for the mu
-    chart's instances."""
-    return ("launches" + ("_mu" if chart == "mu" else "")
+    """A wrapper's launch counter for the pair, dtype and set of
+    instances (VARIANTS): "launches", "launches_f64", "launches_dop853"
+    or "launches_dop853_f64", with "_mu" or "_wide" after "launches" for
+    the mu chart's or the wide disk instances."""
+    return ("launches" + ("" if chart == "theta" else "_" + chart)
             + method_suffix(method)
             + ("_f64" if dtype == torch.float64 else ""))
 
@@ -168,7 +181,7 @@ def zero_counters(fn):
     """Set every launch counter of a kernel wrapper to 0."""
     for dtype in (torch.float32, torch.float64):
         for method in ("dp45", "dop853"):
-            for chart in CHARTS:
+            for chart in VARIANTS:
                 setattr(fn, counter_name(dtype, method, chart), 0)
 
 
@@ -280,7 +293,8 @@ def _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
     """One launch of the kernel through its C entry point (the instance of
     the chart, the pair and the rays' dtype): the shadow variant, or the
     disk variant when `disk` holds (r_in, r_out, theta_plane, opaque,
-    max_hits, momentum). Returns
+    max_hits, momentum; the wide instances above NARROW_KERNEL_HITS).
+    Returns
     the per-ray outputs by name, "n_steps" the warp step sum (0-dim
     int64); "flags", the rays whose raw status is still RUNNING (bool),
     only when asked for."""
@@ -311,9 +325,10 @@ def _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
         for k in ("r", "phi") + (("pr", "pth") if momentum else ()):
             out[k] = empty(max_hits, n)
     tols = get_tols(dtype, precision)
+    wide = max_hits > NARROW_KERNEL_HITS
     entry = ("lpt_kerr_dp45" + ("_mu" if chart == "mu" else "")
-             + method_suffix(method) + suffix)
-    lib = load_library(library_of(method, chart == "mu"))
+             + ("_wide" if wide else "") + method_suffix(method) + suffix)
+    lib = load_library(library_of(method, chart == "mu" or wide))
     with torch.cuda.device(dev):
         call = (KerrCall64 if suffix else KerrCall)(
             alpha=alphas.data_ptr(), theta=thetas.data_ptr(),
@@ -425,7 +440,9 @@ def trace_disk_rays_cuda(metric, r_obs, alphas, thetas, theta_obs,
 
     Same arguments and result as trace_disk_rays_plain, whose events are
     then Hermite too; method "dp45" or "dop853". disk_plane =
-    (r_in, r_out, theta_plane, opaque); max_disk_hits 1..4. alphas/
+    (r_in, r_out, theta_plane, opaque); max_disk_hits 1..8 (5..8 through
+    the wide instances; more raises NotImplementedError before any
+    launch, fewer than 1 ValueError). alphas/
     thetas: (N,) contiguous CUDA tensors, both float32 or both float64.
     probe: as trace_rays_kerr_cuda's. One kernel launch on the current
     stream, which does not synchronise. CPU tensors go to the plain
@@ -443,16 +460,22 @@ def trace_disk_rays_cuda(metric, r_obs, alphas, thetas, theta_obs,
     check_method(method)
     _check_inputs((("alphas", alphas, None), ("thetas", thetas, None)),
                   alphas)
-    if not 1 <= max_disk_hits <= MAX_KERNEL_HITS:
-        raise ValueError(f"the CUDA disk kernel records 1..{MAX_KERNEL_HITS}"
-                         f" crossings, got max_disk_hits={max_disk_hits}")
+    if max_disk_hits > MAX_KERNEL_HITS:
+        raise NotImplementedError(
+            f"the CUDA disk kernel records at most {MAX_KERNEL_HITS} "
+            f"crossings a ray, got max_disk_hits={max_disk_hits}; more "
+            f"slots are not ported yet (ROADMAP.md, Queue 2)")
+    if max_disk_hits < 1:
+        raise ValueError(f"max_disk_hits must be at least 1, got "
+                         f"{max_disk_hits}")
     r_in, r_out, theta_plane, opaque = disk_plane
     out = _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
                   max_steps, precision, None,
                   (r_in, r_out, theta_plane, opaque, max_disk_hits,
                    record_momentum),
                   return_unconverged, probe, _cycle_exit, method)
-    count_launch(trace_disk_rays_cuda, alphas.dtype, method)
+    count_launch(trace_disk_rays_cuda, alphas.dtype, method,
+                 "wide" if max_disk_hits > NARROW_KERNEL_HITS else "theta")
 
     def rows(k):
         return tuple(out[k].unbind(0)) if k in out else ()

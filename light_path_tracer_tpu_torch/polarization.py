@@ -30,9 +30,15 @@ tensors' device: the hand-written CUDA kernel
 (`ops/cuda/volumetric_kernel.py`, `csrc/kerr_dp45_stokes.cu`) on a CUDA
 device, the plain PyTorch loop on the CPU.
 
-The disk-polarization half of the JAX module (per-crossing algebra on the
-thin disk, the EVPA tick figure, the hot-spot Q-U loop) is not ported
-yet.
+The disk half (`render_polarization`, `hotspot_qu_loop`) applies the same
+algebra once a ray, at its first disk crossing: the thin disk's Keplerian
+emitter (`keplerian_u`) in the field geometry of `field_vector`, the
+emitted f and pitch factor (`emission_polarization`) from the crossing
+momenta the disk trace records (record_momentum), inverted at the camera
+(`observed_polarization`). The disk trace runs through the CUDA kernel's
+disk variant on a CUDA device. The JAX module's EVPA tick figure
+(`save_polarization_figure`) needs matplotlib and is not ported; the CLI
+writes the maps as PNGs and a .npz instead.
 """
 
 from __future__ import annotations
@@ -44,15 +50,24 @@ import math
 import numpy as np
 import torch
 
+from light_path_tracer_tpu_torch import camera
+from light_path_tracer_tpu_torch.disk import (DiskConfig, HotSpot,
+                                              _trace_grid, disk_emission,
+                                              hotspot_pattern, keplerian_omega,
+                                              r_isco)
 from light_path_tracer_tpu_torch.models import Kerr
 from light_path_tracer_tpu_torch.models.kerr import inverse_metric_terms
 from light_path_tracer_tpu_torch.ops.batch import _backend
 from light_path_tracer_tpu_torch.ops.kerr_trace import CAPTURED, INVALID
+from light_path_tracer_tpu_torch.pipeline import _dtype_of
 from light_path_tracer_tpu_torch.utils.config import RenderConfig, SceneConfig
 from light_path_tracer_tpu_torch.utils.timing import StageTimer
 
 __all__ = ["covariant_metric", "k_contravariant", "walker_penrose",
-           "observer_basis", "make_polarized_volumetric_transfer",
+           "observer_basis", "keplerian_u", "field_vector",
+           "emission_polarization", "observed_polarization",
+           "render_polarization", "hotspot_qu_loop",
+           "make_polarized_volumetric_transfer",
            "render_polarized_volumetric"]
 
 _FIELDS = ("vertical", "toroidal", "radial")
@@ -164,6 +179,227 @@ def observer_basis(M, a, r_obs, theta_obs, k_cam):
     e1 = perp((zero, zero, one, zero), n_hat)
     e2 = perp((zero, zero, zero, one), n_hat, e1)
     return e1, e2
+
+
+def keplerian_u(M, a, r, prograde=True):
+    """Keplerian circular-orbit 4-velocity u^mu at equatorial radius r
+    (M and a 0-dim tensors of r's dtype)."""
+    sqrtM = _sqrt(M)
+    omega = (sqrtM / (r ** 1.5 + a * sqrtM) if prograde
+             else -sqrtM / (r ** 1.5 - a * sqrtM))
+    th = torch.full_like(r, np.pi / 2)
+    g_tt, g_tphi, _g_rr, _g_thth, g_phiphi = covariant_metric(M, a, r, th)
+    norm = -(g_tt + 2.0 * omega * g_tphi + omega * omega * g_phiphi)
+    u_t = 1.0 / torch.sqrt(torch.clamp(norm, min=1e-12))
+    zero = torch.zeros_like(r)
+    return (u_t, zero, zero, u_t * omega)
+
+
+def field_vector(field, r, prograde=True):
+    """Coordinate-frame magnetic-field direction b^mu at the equator:
+    vertical = -theta-hat (+z), toroidal = phi-hat, radial = r-hat (only
+    the direction matters)."""
+    zero = torch.zeros_like(r)
+    one = torch.ones_like(r)
+    if field == "vertical":
+        return (zero, zero, -one, zero)
+    if field == "toroidal":
+        sign = 1.0 if prograde else -1.0
+        return (zero, zero, zero, sign * one)
+    if field == "radial":
+        return (zero, one, zero, zero)
+    raise ValueError(f"b-field must be one of {_FIELDS}, got {field!r}")
+
+
+def emission_polarization(M, a, r_c, p_r, p_th, L, field="toroidal",
+                          prograde=True):
+    """Emitted polarization f^mu ~ eps(u, k, b) (unnormalised) and the
+    fluid-frame pitch factor sin_xi = |f| / (omega_fluid |b_perp|) in
+    [0, 1] at an equatorial crossing (sqrt(-det g) = r^2 there)."""
+    th = torch.full_like(r_c, np.pi / 2)
+    k = k_contravariant(M, a, r_c, th, p_r, p_th, L)
+    u = keplerian_u(M, a, r_c, prograde)
+    b = field_vector(field, r_c, prograde)
+    g = covariant_metric(M, a, r_c, th)
+
+    u_l, k_l, b_l = _lower(g, u), _lower(g, k), _lower(g, b)
+    sqrtg = r_c * r_c
+    f = [torch.zeros_like(r_c) for _ in range(4)]
+    for (mu, nu, rho, sig), sgn in _PERMS:
+        f[mu] = f[mu] + sgn * u_l[nu] * k_l[rho] * b_l[sig] / sqrtg
+    f = tuple(f)
+
+    omega_fluid = -_dot(g, k, u)
+    b_perp = tuple(b[i] + _dot(g, b, u) * u[i] for i in range(4))
+    b_norm = torch.sqrt(torch.clamp(_dot(g, b_perp, b_perp), min=1e-30))
+    f_norm = torch.sqrt(torch.clamp(_dot(g, f, f), min=0.0))
+    sin_xi = torch.clamp(
+        f_norm / torch.clamp(omega_fluid * b_norm, min=1e-30), 0.0, 1.0)
+    return f, sin_xi
+
+
+def observed_polarization(metric, r_obs, theta_obs, alphas, thetas,
+                          kappa1, kappa2):
+    """Invert the Walker-Penrose constant at the camera: (x, y, ok) with
+    f_obs = x e1 + y e2 in the screen-transverse basis, ok False where
+    the 2x2 solve is degenerate."""
+    k11, k21, k12, k22 = camera_constants(metric, r_obs, theta_obs, alphas,
+                                          thetas)
+    det = k11 * k22 - k12 * k21
+    ok = torch.abs(det) > 1e-20
+    det_safe = torch.where(ok, det, torch.ones_like(det))
+    x = (kappa1 * k22 - kappa2 * k12) / det_safe
+    y = (kappa2 * k11 - kappa1 * k21) / det_safe
+    return x, y, ok
+
+
+def _trace_disk_momentum(metric, scene, cfg, disk, alpha, theta,
+                         mesh=None):
+    """The polarized disk paths' trace, crossing momenta recorded; flat
+    ray arrays."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "the multi-device polarized disk trace (mesh) is not ported "
+            "to the PyTorch package yet (ROADMAP.md, Queue 1)")
+    return _trace_grid(metric, scene, cfg, disk, alpha, theta,
+                       record_momentum=True)
+
+
+def _disk_polarization(scene, cfg, disk, field, resolution, mesh, device,
+                       timer, what):
+    """The per-pixel algebra shared by the disk paths: (res, alpha,
+    r_in, hit, sin_xi, x, y, ok) of the first crossing."""
+    if any(abs(p) > 1e-12 for p in scene.psi):
+        raise ValueError(f"{what} requires psi = (0, 0) (BH-centered "
+                         f"camera)")
+    if getattr(scene, "Q", 0.0):
+        raise ValueError("polarized rendering supports uncharged (Kerr)"
+                         " scenes only; got Q != 0")
+    metric = Kerr(M=scene.M, a=scene.a)
+    dtype = _dtype_of(cfg)
+    fov = camera.fov_from_vertical(scene.vertical_fov, resolution)
+
+    with timer.stage("build_lookup"):
+        grid = dict(dtype=dtype, boost=scene.boost, device=device)
+        alpha = camera.build_alpha_lookup(resolution, fov, **grid)
+        theta = camera.build_theta_lookup(resolution, fov, **grid)
+
+    with timer.stage("precompute"):
+        res = _trace_disk_momentum(metric, scene, cfg, disk, alpha, theta,
+                                   mesh=mesh)
+
+    with timer.stage("render"):
+        t = dict(dtype=dtype, device=device)
+        M = torch.tensor(float(scene.M), **t)
+        a = torch.tensor(float(scene.a), **t)
+        hit = res.n_hits > 0
+        r_in = float(disk.r_in if disk.r_in is not None
+                     else r_isco(scene.M, scene.a, disk.prograde))
+        r_c = torch.clamp(res.r_hits[0], min=r_in)
+        f_em, sin_xi = emission_polarization(
+            M, a, r_c, res.pr_hits[0], res.pth_hits[0], res.xi,
+            field=field, prograde=disk.prograde)
+        th_eq = torch.full_like(r_c, np.pi / 2)
+        k_em = k_contravariant(M, a, r_c, th_eq, res.pr_hits[0],
+                               res.pth_hits[0], res.xi)
+        kappa1, kappa2 = walker_penrose(a, r_c, th_eq, k_em, f_em)
+        x, y, ok = observed_polarization(
+            metric, scene.r_obs, scene.theta_obs, alpha.reshape(-1),
+            theta.reshape(-1), kappa1, kappa2)
+    return res, r_in, hit, sin_xi, x, y, ok
+
+
+def render_polarization(scene: SceneConfig, resolution,
+                        cfg: RenderConfig = RenderConfig(),
+                        disk: DiskConfig = DiskConfig(),
+                        field: str = "toroidal", mesh=None, device="cuda"):
+    """Polarized accretion-disk image; returns (evpa, pol_frac, intensity,
+    stats), (H, W) float32 NumPy arrays.
+
+    evpa: the electric-vector position angle in radians from the image +x
+    axis, in (-pi/2, pi/2], NaN where there is no disk emission;
+    pol_frac: the synchrotron pitch weight sin^2(xi) in [0, 1];
+    intensity: the imaging path's emission of the same trace. First
+    (opaque) crossing only; the camera must be centred on the hole (psi
+    = 0) and the scene uncharged.
+    """
+    timer = StageTimer(device)
+    res, r_in, hit, sin_xi, x, y, ok = _disk_polarization(
+        scene, cfg, disk, field, resolution, mesh, device, timer,
+        "render_polarization")
+    with timer.stage("render"):
+        # Screen mapping: e2 (phi-hat) -> image -x, e1 (theta-hat) ->
+        # image +y (down); the EVPA from the image +x axis, mod pi.
+        evpa = torch.atan2(x, -y)
+        evpa = torch.remainder(evpa + np.pi / 2, np.pi) - np.pi / 2
+        good = hit & ok & (sin_xi > 0.0)
+        evpa = torch.where(good, evpa, torch.nan)
+        pol = torch.where(good, sin_xi ** 2, 0.0)
+        intensity, _rgb = disk_emission(scene, disk, r_in, res.n_hits,
+                                        res.r_hits, res.xi,
+                                        xi_hits=res.xi_hits)
+
+    def host(v):
+        return v.detach().cpu().numpy().astype(np.float32).reshape(
+            resolution)
+
+    stats = dict(
+        r_isco=r_isco(scene.M, scene.a, disk.prograde),
+        field=field,
+        disk_pixels=int(hit.sum()),
+        polarized_pixels=int(good.sum()),
+        integrator_steps=int(res.n_steps),
+        total_rays=resolution[0] * resolution[1],
+        traced_rays=resolution[0] * resolution[1],
+        timings=timer.finish())
+    return host(evpa), host(pol), host(intensity), stats
+
+
+def hotspot_qu_loop(scene: SceneConfig, resolution, times,
+                    cfg: RenderConfig = RenderConfig(),
+                    disk: DiskConfig = DiskConfig(), spot=None,
+                    field: str = "toroidal", mesh=None, device="cuda"):
+    """Integrated Stokes (Q, U) against time for an orbiting hot spot,
+    from one trace: the per-pixel EVPA and pitch weight do not change
+    with time, only the spot's pattern advects. Returns (times, I, Q, U,
+    stats) as float64 NumPy arrays (Q + iU = sum_px I p exp(2 i chi))."""
+    spot = spot if spot is not None else HotSpot()
+    timer = StageTimer(device)
+    times = list(times)
+    res, r_in, hit, sin_xi, x, y, ok = _disk_polarization(
+        scene, cfg, disk, field, resolution, mesh, device, timer,
+        "hotspot_qu_loop")
+    with timer.stage("render"):
+        evpa = torch.atan2(x, -y)
+        good = hit & ok
+        p_cos = torch.where(good, sin_xi ** 2 * torch.cos(2.0 * evpa), 0.0)
+        p_sin = torch.where(good, sin_xi ** 2 * torch.sin(2.0 * evpa), 0.0)
+        pattern = hotspot_pattern(spot, scene.M, scene.a, disk.prograde)
+        ts = torch.tensor(times, dtype=_dtype_of(cfg), device=device)
+        curves = []
+        for t in ts:
+            intensity, _rgb = disk_emission(
+                scene, disk, r_in, res.n_hits, res.r_hits, res.xi,
+                pattern=pattern, phi_hits=res.phi_hits, t=t,
+                xi_hits=res.xi_hits)
+            curves.append(torch.stack([intensity.sum(),
+                                       (intensity * p_cos).sum(),
+                                       (intensity * p_sin).sum()]))
+        iqu = (torch.stack(curves).cpu().numpy().astype(np.float64)
+               if curves else np.zeros((0, 3)))
+
+    stats = dict(
+        r_isco=r_isco(scene.M, scene.a, disk.prograde),
+        field=field,
+        orbit_period=abs(2.0 * np.pi / keplerian_omega(
+            scene.M, scene.a, spot.r0, disk.prograde)),
+        disk_pixels=int(hit.sum()),
+        n_samples=len(times),
+        total_rays=resolution[0] * resolution[1],
+        traced_rays=resolution[0] * resolution[1],
+        timings=timer.finish())
+    return (np.asarray(times, np.float64), iqu[:, 0], iqu[:, 1],
+            iqu[:, 2], stats)
 
 
 def _field_vector_offplane(field, r, th, prograde=True):

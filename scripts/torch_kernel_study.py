@@ -642,7 +642,9 @@ def parallel_builds(study, dirs, sources, declare, jobs=12):
     `dirs` ({build: directory}), at most `jobs` nvcc processes at a time,
     link each build's objects into a library under the build directory's
     `study` folder and load it; declare(lib, build, directory) declares
-    its entries and returns what the build keeps beside them. Returns
+    its entries and returns what the build keeps beside them. A directory
+    that holds csrc/lpt_pow_f64.cu builds its float64 extras sources as
+    the package does (relocatable, with that pow, device-linked). Returns
     {build: (library, nvcc log, object directory, declared)}."""
     import concurrent.futures
     import ctypes
@@ -652,9 +654,15 @@ def parallel_builds(study, dirs, sources, declare, jobs=12):
     for name, d in dirs.items():
         out = root / name.replace(":", "_")
         out.mkdir(parents=True, exist_ok=True)
-        for src in sources:
+        rdc = (d / _build.POW_SOURCE).exists()
+        srcs = [(src, _build.NVCC_FLAGS + (
+            _build.RDC_FLAGS if rdc and _build._rdc_source(src + ".cu")
+            else ())) for src in sources]
+        if any(_build.RDC_FLAGS[0] in f for _s, f in srcs):
+            srcs.append((_build.POW_SOURCE[:-len(".cu")], _build.POW_FLAGS))
+        for src, flags in srcs:
             cmds.append((name, out / f"{src}.o", [
-                _build._nvcc(), *_build.NVCC_FLAGS, "-c", "-o",
+                _build._nvcc(), *flags, "-c", "-o",
                 str(out / f"{src}.o"), str(d / f"{src}.cu")]))
 
     def run(cmd):
@@ -673,6 +681,11 @@ def parallel_builds(study, dirs, sources, declare, jobs=12):
         out = root / name.replace(":", "_")
         so = out / f"lpt_{study}.so"
         objs = [str(o) for n, o, _c in cmds if n == name]
+        rdc = [str(o) for n, o, c in cmds if n == name and "-rdc=true" in c]
+        if rdc:
+            objs.append(str(out / "dlink.o"))
+            subprocess.run([_build._nvcc(), *_build.DLINK_FLAGS, "-o",
+                            objs[-1], *rdc], check=True, capture_output=True)
         subprocess.run([_build._nvcc(), *_build.LINK_FLAGS, "-o", str(so),
                         *objs], check=True, capture_output=True)
         lib = ctypes.CDLL(str(so))

@@ -439,25 +439,30 @@ def test_mu_sources_build_the_mu_chart():
                       ("kerr_dop853_mu", "kerr_dp45_mu"),
                       ("kerr_dop853_mu_f64", "kerr_dop853_mu")):
         assert f'#include "{inc}.cu"' in (CSRC / f"{name}.cu").read_text()
-    assert _build.KERR_ENTRIES == ("lpt_kerr_dp45", "lpt_kerr_dp45_mu")
+    assert _build.KERR_ENTRIES == ("lpt_kerr_dp45", "lpt_kerr_dp45_mu",
+                                   "lpt_kerr_dp45_wide")
     assert {"kerr_dop853_mu.cu", "kerr_dop853_mu_f64.cu"} <= {
         s.name for s in _build._sources("dop853")}
 
 
 def test_three_libraries_split_the_sources():
-    """The DP45 mu-chart and Kerr-Newman-extras sources form the "more"
-    library (built apart, so the first DP45 launch builds no instance of
-    either), every DOP853 source the "dop853" one, the rest "dp45"; each
-    source belongs to exactly one."""
+    """The DP45 mu-chart, wide-disk and Kerr-Newman-extras sources form
+    the "more" library (built apart, so the first DP45 launch builds no
+    instance of either), every DOP853 source the "dop853" one, the rest
+    "dp45"; each source belongs to exactly one, but for the float64 pow
+    that every library compiles beside its float64 extras sources."""
     libs = {name: {s.name for s in _build._sources(name)}
             for name in _build.LIBRARIES}
-    every = {s.name for s in CSRC.glob("*.cu")}
+    every = {s.name for s in CSRC.glob("*.cu")} - {_build.POW_SOURCE}
     assert set().union(*libs.values()) == every
     assert sum(len(v) for v in libs.values()) == len(every)
     assert libs["more"] == {
-        "kerr_dp45_mu.cu", "kerr_dp45_mu_f64.cu"} | {
+        "kerr_dp45_mu.cu", "kerr_dp45_mu_f64.cu", "kerr_dp45_wide.cu",
+        "kerr_dp45_wide_f64.cu"} | {
         f"{e[len('lpt_'):]}_kn{d}.cu" for e in _build.KN_EXTRAS_ENTRIES
         for d in ("", "_f64")}
+    assert {"kerr_dop853_wide.cu", "kerr_dop853_wide_f64.cu"} <= libs[
+        "dop853"]
     assert "kerr_dp45.cu" in libs["dp45"] and all(
         n.startswith("kerr_dop853") for n in libs["dop853"])
     from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
@@ -553,3 +558,51 @@ def test_library_chains_on_the_cpu_follow_their_recurrence(form):
 def test_probe_forms_have_distinct_indices():
     idx = [v[0] for v in peak_probe.FORMS.values()]
     assert sorted(idx) == list(range(len(idx)))
+
+
+def test_float64_extras_sources_link_the_contracted_pow(monkeypatch,
+                                                        tmp_path):
+    """Each library compiles its float64 extras sources (and only those)
+    as relocatable device code calling lpt_pow_f64, compiles
+    csrc/lpt_pow_f64.cu with contraction, device-links the relocatable
+    objects and links the device-link object into the library; every
+    other source keeps -fmad=false and no -rdc."""
+    f64_extras = {n for n in (s.name for s in CSRC.glob("*.cu"))
+                  if n.endswith("_f64.cu") and any(
+                      f in n for f in ("_extras", "_stokes", "_movie",
+                                       "_orders"))}
+    assert {n for n in (s.name for s in CSRC.glob("*.cu"))
+            if _build._rdc_source(n)} == f64_extras
+    pow_src = (CSRC / _build.POW_SOURCE).read_text()
+    assert "__noinline__ double lpt_pow_f64" in pow_src
+    common = (CSRC / "kerr_dp45_common.cuh").read_text()
+    assert "#ifdef LPT_EXTERN_POW_F64" in common
+    assert "-fmad=false" not in _build.POW_FLAGS
+    assert "-fmad=true" in _build.POW_FLAGS
+    for library in _build.LIBRARIES:
+        cmds = []
+        monkeypatch.setattr(_build, "_start", lambda cmd: (cmd, None))
+        monkeypatch.setattr(_build, "_run",
+                            lambda procs: cmds.extend(c for c, _ in procs)
+                            or "")
+        monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+        monkeypatch.setattr(_build.os, "replace", lambda a, b: None)
+        monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+        _build._compile(tmp_path / f"{library}.so", library)
+        compiles = {c[-1].rsplit("/", 1)[-1]: c for c in cmds if "-c" in c}
+        rdc = {n for n, c in compiles.items() if "-rdc=true" in c}
+        assert rdc - {_build.POW_SOURCE} == {
+            s.name for s in _build._sources(library)} & f64_extras
+        assert _build.POW_SOURCE in rdc
+        for name, cmd in compiles.items():
+            if name == _build.POW_SOURCE:
+                assert "-fmad=false" not in cmd
+            else:
+                assert "-fmad=false" in cmd
+                assert ("-DLPT_EXTERN_POW_F64=1" in cmd) == (name in rdc)
+        dlink = [c for c in cmds if "-dlink" in c]
+        assert len(dlink) == 1 and len(
+            [a for a in dlink[0] if a.endswith(".o")]) == len(rdc) + 1
+        link = [c for c in cmds if "-shared" in c]
+        assert len(link) == 1 and any(a.endswith("dlink.o")
+                                      for a in link[0])

@@ -64,8 +64,17 @@ the CPU, and the chart raising where it has no instance. The Kerr-Newman
 flow of the extras kernel: its instances at the main paths' widths
 against the plain loop (both pairs and dtypes), each at its block bound,
 and a 64^2 float64 charged volumetric render on the card against the
-CPU.
+CPU. The disk variant's wide instances (5 to 8 slots): their first 4
+slots bitwise the 4-slot instance's and every slot against the plain loop
+(the disk gates) for each pair, dtype, family and momentum, 9 slots
+raising before a launch; and each disk mode of chip_smoke.py phase 24 at
+64^2 on the card against the CPU (disk masks >= 99 %, median |d| < 1e-3
+on disk pixels, the 1-D outputs within 1e-3 of their largest value, Q
+and U of the largest I).
 """
+
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -270,7 +279,7 @@ def test_disk_kernel_rejects_bad_inputs(cuda):
     al = torch.linspace(0.01, 0.1, 64, device=cuda)
     args = (m, R_OBS, al, al, THETA_DISK, 5000.0, 100, _plane(True))
     with pytest.raises(ValueError):
-        trace_disk_rays_cuda(*args, 5)
+        trace_disk_rays_cuda(*args, 0)
     with pytest.raises(ValueError):
         trace_disk_rays_cuda(m, R_OBS, al.half(), al.half(), *args[4:], 2)
     with pytest.raises(ValueError):
@@ -1673,3 +1682,116 @@ def test_charged_volumetric_render_on_card_matches_cpu(cuda):
     with pytest.raises(ValueError, match="uncharged Kerr"):
         polarization.render_polarized_volumetric(scene, (8, 8), cfg,
                                                  device=cuda)
+
+
+def _wide_plane():
+    """The photon-ring decomposition's recorder (every plane crossing)."""
+    return (0.0, 2.0 * R_OBS, float(np.pi / 2), False)
+
+
+def _near_critical(m, n, device, dtype):
+    """n rays just outside m's critical curve (bisection on the shadow
+    kernel's capture at each screen angle, then a factor 1 + eps, eps
+    log-uniform in [1e-7, 1e-3]), beside n of phase 8's random rays."""
+    rng = np.random.default_rng(24)
+    f32 = dict(dtype=torch.float32, device=device)
+    th = torch.tensor(rng.uniform(-np.pi, np.pi, 2 * n), **f32)
+    ac = m.alpha_crit(R_OBS, THETA_DISK)
+    lo, hi = torch.full((n,), 0.3 * ac, **f32), torch.full((n,), 3 * ac,
+                                                           **f32)
+    ref = torch.zeros(n, dtype=torch.bool, device=device)
+    for _ in range(32):
+        mid = 0.5 * (lo + hi)
+        cap = trace_rays_kerr_cuda(m, R_OBS, mid, th[n:], THETA_DISK, ref,
+                                   5000.0, 20000).status == -1
+        lo, hi = torch.where(cap, mid, lo), torch.where(cap, hi, mid)
+    eps = torch.tensor(1.0 + 10.0 ** rng.uniform(-7.0, -3.0, n), **f32)
+    al = torch.cat([torch.tensor(rng.uniform(0.01, 0.12, n), **f32),
+                    hi * eps])
+    return al.to(dtype).contiguous(), th.to(dtype).contiguous()
+
+
+@pytest.mark.parametrize("method", ["dp45", "dop853"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("family", ["kerr", "kerr_newman"])
+@pytest.mark.parametrize("momentum", [False, True])
+def test_wide_disk_instances(cuda, method, dtype, family, momentum):
+    """8 slots: slots 0-3, the status, final_alpha and min(n_hits, 4)
+    bitwise the 4-slot instance's; against the plain loop the disk gates
+    on every slot; some rays fill slot 5 and up."""
+    m = (Kerr(M=1.0, a=0.9) if family == "kerr"
+         else KerrNewman(M=1.0, a=0.6, Q=0.6))
+    al, th = _near_critical(m, 1024, cuda, dtype)
+    args = (m, R_OBS, al, th, THETA_DISK, 5000.0, 1000, _wide_plane())
+    kw = dict(record_momentum=momentum, method=method)
+    wide_before = getattr(trace_disk_rays_cuda, "launches_wide"
+                          + ("_dop853" if method == "dop853" else "")
+                          + ("_f64" if dtype == torch.float64 else ""))
+    rk = trace_disk_rays_cuda(*args, 8, **kw)
+    narrow = trace_disk_rays_cuda(*args, 4, **kw)
+    torch.cuda.synchronize()
+    assert getattr(trace_disk_rays_cuda, "launches_wide"
+                   + ("_dop853" if method == "dop853" else "")
+                   + ("_f64" if dtype == torch.float64 else "")) \
+        == wide_before + 1
+    assert len(rk.r_hits) == 8 and len(rk.pr_hits) == (8 if momentum else 0)
+    pairs = [(rk.status, narrow.status),
+             (rk.final_alpha.nan_to_num(9.0), narrow.final_alpha.nan_to_num(
+                 9.0)), (rk.n_hits.clamp(max=4), narrow.n_hits)]
+    for field in ("r_hits", "phi_hits", "pr_hits", "pth_hits"):
+        pairs += list(zip(getattr(rk, field)[:4], getattr(narrow, field)))
+    for a, b in pairs:
+        assert torch.equal(a, b)
+    nk = rk.n_hits.cpu().numpy()
+    assert (nk > 4).sum() > 0
+    rp = trace_disk_rays_plain(*args, 8, **kw)
+    npl = rp.n_hits.cpu().numpy()
+    assert (rk.status.cpu().numpy() == rp.status.cpu().numpy()).mean() > 0.99
+    assert (nk == npl).mean() > 0.99
+    for k in range(8):
+        both = (nk > k) & (npl > k)
+        if both.any():
+            d = np.abs(rk.r_hits[k].cpu().numpy()[both]
+                       - rp.r_hits[k].cpu().numpy()[both])
+            assert np.median(d) < 1e-3 and np.percentile(d, 99) < 0.1
+
+
+def test_wide_disk_rejects_nine_slots(cuda):
+    m = Kerr(M=1.0, a=0.9)
+    al = torch.linspace(0.01, 0.1, 64, device=cuda)
+    before = trace_disk_rays_cuda.launches_wide
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        trace_disk_rays_cuda(m, R_OBS, al, al, THETA_DISK, 5000.0, 100,
+                             _wide_plane(), 9)
+    assert trace_disk_rays_cuda.launches_wide == before
+    r = disk.trace_disk_rays(m, R_OBS, al, al, THETA_DISK, 5000.0, 100,
+                             disk.DiskConfig(opaque=False, max_hits=8))
+    assert len(r.r_hits) == 8
+
+
+def _smoke():
+    """chip_smoke.py, whose phase 24 renders and gates the disk-mode test
+    reuses."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+SMOKE = _smoke()
+
+
+@pytest.mark.parametrize("mode", SMOKE.P24_MODES)
+def test_disk_mode_on_card_matches_cpu(cuda, mode):
+    """chip_smoke.py phase 24's 64^2 render of each disk mode on the card
+    against the CPU, by its gates (p24_check); the card's render launches
+    the disk kernel and never the plain loop."""
+    before = SMOKE.disk_launches()
+    plain = kerr_trace.trace_disk_rays_kerr.launches
+    og = SMOKE.p24_render(mode, SMOKE.P24_CHECK, cuda, check=True)
+    assert SMOKE.disk_launches() > before
+    assert kerr_trace.trace_disk_rays_kerr.launches == plain
+    oc = SMOKE.p24_render(mode, SMOKE.P24_CHECK, "cpu", check=True)
+    row, ok = SMOKE.p24_check(mode, og, oc)
+    assert ok, row

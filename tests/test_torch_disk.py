@@ -389,10 +389,9 @@ def test_cli_disk_charged_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--frames", "4"], ["--aa", "4"], ["--decompose", "x.png"],
-    ["--polarization", "x.png"], ["--qu-loop", "x.png"],
-    ["--line-profile", "x.png"], ["--light-curve", "x.png"], ["--disk2"],
-    ["--multihost"], ["--visibility", "x.npz"], ["--centroid", "x.png"],
+    ["--light-curve", "x.png", "--light-travel-delay"], ["--disk2"],
+    ["--multihost"], ["--visibility", "x.npz"],
+    ["--frames", "4", "--centroid", "x.png"],
     ["--tilt", "10"], ["--warp-radius", "8"],
     ["--boost", "0.1", "0", "0"]])
 def test_cli_disk_rejects_modes_not_ported(tmp_path, flags):

@@ -322,7 +322,7 @@ def test_cli_shadow_schwarzschild_and_rn_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--disk"], ["--cache"], ["--rings"],
+    ["--cache"], ["--rings"],
     ["--magnification", "m.png"], ["--shear", "s.png"],
     ["--caustics", "c.png"], ["--microlens", "m.csv"],
     ["--time-delay", "t.png"], ["--find-images", "0.1,0.2"],
