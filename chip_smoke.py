@@ -364,9 +364,38 @@ Phases:
      pixel by pixel (where the curves part, how far Q cancels, the
      pixels that carry the gap, and how far a loop rotated by chi in
      place of 2 chi would sit: it must exceed 1e-2 of I's largest).
-The plain loops of phases 11-15, 17, 21, 22 and 24 and their CPU renders
-run in PLAIN_WORKERS child processes (PlainPool), queued at the start of
-phase 11 (phases 11-15) and of phases 17, 21, 22 and 24, while the
+ 25. tilted, warped and two-plane disks and crossing times through the
+     disk kernel's plane recorder (csrc/kerr_planes.cuh: the instances of
+     kerr_dp45_planes.cu and its f64 and DOP853 siblings, Kerr and
+     Kerr-Newman), the moving camera and the image-domain observables:
+     every instance on phase 24's rays with three plane sets (one tilted
+     opaque plane; an equatorial disk and a tilted ring, opaque, with
+     crossing times; a warped and a tilted translucent plane with
+     crossing times and momenta, 6 slots), both capped at P25_STEPS,
+     bitwise its plain loop (in its child) in every output of every
+     plane, with ptxas's registers and spills and the blocks an SM holds;
+     each set on config 4's 1024^2 grid (float32 DP45 Kerr, what the
+     1024^2 renders launch), both capped at GRID_STEPS, bitwise the same
+     way; phase 24's plane (kind 0, no crossing times) through the plane
+     recorder bitwise the wide instance and timed against it, on that
+     grid with 6 slots and on phase 24's rays with its slots;
+     the equatorial plane through the plane recorder bitwise the disk
+     variant; three planes raising before a launch; at 1024^2 through
+     the entry points, warm-up and 3 runs, a tilted disk (30 deg, line of
+     nodes at 45 deg), a warped one (warp radius 10), the CLI's --disk2,
+     a 64-point retarded-time light curve, and a moving camera (boost
+     0.5 c forward) on the blackbody disk, the main-path shadow, the
+     lens, the volumetric and the spectral renders, each with its
+     launches by kernel and no plain loop; the physics checks (a tilt of
+     0, one plane and an empty second plane bitwise the untilted render,
+     a periodic delayed curve, a bluer moving disk and a smaller moving
+     shadow, the Schwarzschild silhouette's first visibility null giving
+     2 alpha_crit within 5 %); each mode at 64^2 on the card against the
+     CPU (phase 24's gates; the shadow and lens on <= 1 % of pixels).
+The plain loops of phases 11-15, 17, 21, 22, 24 and 25 and their CPU
+renders run in PLAIN_WORKERS child processes (PlainPool), queued at the
+start of phase 11 (phases 11-15) and of phases 17, 21, 22, 24 and 25,
+while the
 parent runs its kernels; the plain_ms of those phases is the call's time
 in its child, beside the other children's work on the card. A kernel
 time that cuda_ms takes while a child has a call on the card is taken
@@ -418,7 +447,13 @@ kerr_dp45_mu entry also the mu and theta kernels alone at full depth on
 the same main-path rays with both bounds and their ratios. Phase 24's
 entry (kerr_dp45_disk_wide) counts the wide instance's launches on its
 renders and times it on the random rays (float32 DP45, Kerr, momenta)
-against the plain loop in its child. The last line is {"ok": true,
+against the plain loop in its child. Phase 25's entry
+(kerr_dp45_planes) counts the plane recorder's launches on its renders,
+times the float32 DP45 Kerr instance on the translucent set against its
+plain loop in its child, bounds it with the probe's attempts, accepted
+attempts and recorded crossings (bounds.planes_work), and carries every
+instance's time, plain time and bitwise result and their ptxas figures.
+The last line is {"ok": true,
 "device": {...}}. Exit code 0 iff every phase
 passed; without a CUDA device it exits 1 and prints no result.
 """
@@ -914,6 +949,11 @@ def kernel_label(mangled):
         return (f"kerr_{m.group(1)}<{real[m.group(2)]},family={m.group(3)},"
                 f"disk={m.group(4)},hits={m.group(5)},"
                 f"momentum={m.group(6)}{mu}>")
+    m = re.search(r"kerr_(dp45|dop853)_planes_kernelI([fd])Li(\d)E",
+                  mangled)
+    if m:
+        return (f"kerr_{m.group(1)}_planes<{real[m.group(2)]},"
+                f"family={m.group(3)}>")
     m = re.search(r"kerr_(dp45|dop853)_extras_kernelINS_\d+([A-Za-z]+)I"
                   r"(\w*?)([fd])EE", mangled)
     if m:
@@ -1801,7 +1841,14 @@ def aux_both(what, metric, label, form, al, th, max_steps, window,
     g = aux_compare(rk, rp, label, width)
     g.update(ms=ms, plain_ms=plain_ms, n_steps_kernel=int(rk.n_steps),
              n_steps_plain=int(rp.n_steps),
-             exits=int((probe["flags"] & 6).ne(0).sum()))
+             exits=int((probe["flags"] & 6).ne(0).sum()),
+             bitwise_plain=all(same_bits(x, y) for x, y in zip(
+                 aux_outputs(rk), aux_outputs(rp))))
+    # The Stokes kernel sums the Levi-Civita contraction in the plain
+    # loop's order: bitwise its plain loop in either pair.
+    require(g["bitwise_plain"] or not label.startswith("stokes"),
+            f"{what} {label}: the Stokes kernel is not bitwise its plain "
+            f"loop: {g}")
     g.update(attempts_stats(probe["attempts"], lambda i: aux_trace(
         metric, (form[0], form[1], tuple(a[i:i + 1] for a in form[2]),
                  form[3], form[4]), al[i:i + 1], th[i:i + 1], max_steps,
@@ -2263,14 +2310,11 @@ def aux_outputs(res):
 def f64_bitwise_gate(what, label, g, same):
     """Every float64 extras instance equals its plain float64 loop bit for
     bit (their float64 pow, csrc/lpt_pow_f64.cu, is built as PyTorch
-    builds its own), but
-    the Stokes form, whose kernel sums the Levi-Civita contraction in
-    another order than the plain loop (float32 differs too): it stays on
-    f64_extras_gate's bars."""
+    builds its own; the Stokes form's kernel sums the Levi-Civita
+    contraction in the plain loop's order)."""
     g["bitwise_plain"] = same
-    require(same or label.startswith("stokes"),
-            f"{what} {label}: the float64 kernel is not bitwise its plain "
-            f"loop: {g}")
+    require(same, f"{what} {label}: the float64 kernel is not bitwise its "
+            f"plain loop: {g}")
 
 
 def f64_counters():
@@ -5812,6 +5856,588 @@ def disk_family_phase(dev, card, pool, ctx):
     return [entry]
 
 
+# Phase 25: tilted, warped and two-plane disks and crossing times through
+# the disk kernel's plane recorder (csrc/kerr_planes.cuh, the instances of
+# csrc/kerr_dp45_planes.cu and its siblings), the moving camera (boost)
+# and the image-domain observables.
+PLANES_SOURCE = "light_path_tracer_tpu_torch/csrc/kerr_dp45_planes.cu"
+P25_INSTANCES = tuple((method, dtype, family)
+                      for method in ("dp45", "dop853")
+                      for dtype in ("float32", "float64")
+                      for family in ("kerr", "kerr_newman"))
+# The plane sets held bitwise against the plain loop: one flat tilted
+# opaque plane; an equatorial opaque disk and a tilted opaque ring with
+# the time recorder; a warped translucent disk and a tilted translucent
+# plane with the time recorder and momenta, 6 slots each.
+P25_SETS = ("tilt", "opaque", "translucent")
+# The random rays' attempt cap, kernel and plain loop alike: the plain
+# loop costs ~10-30 ms an iteration, and a lane that never ends runs to
+# the cap in it (phase 24's 1,000 took 2-28 s a set).
+P25_STEPS = 400
+P25_TILT = (float(np.radians(30.0)), float(np.radians(45.0)))
+P25_MODES = ("tilt", "warp", "disk2", "light curve delay", "boost disk",
+             "boost shadow", "boost lens", "boost volumetric",
+             "boost spectral")
+P25_BOOST = (0.0, 0.0, 0.5)
+P25_CURVE = 64
+
+
+def p25_disks(name):
+    """(DiskConfigs, record_time, record_momentum) of a plane set."""
+    from light_path_tracer_tpu_torch.disk import DiskConfig
+    tilt, az = P25_TILT
+    if name == "tilt":
+        return [DiskConfig(tilt=tilt, tilt_azimuth=az)], False, False
+    if name == "opaque":
+        return [DiskConfig(r_out=12.0),
+                DiskConfig(r_in=14.0, r_out=24.0, tilt=tilt,
+                           tilt_azimuth=az)], True, False
+    return [DiskConfig(tilt=tilt, tilt_azimuth=az, warp_radius=10.0,
+                       opaque=False, max_hits=6),
+            DiskConfig(r_in=3.0, r_out=20.0, tilt=-np.radians(25.0),
+                       tilt_azimuth=-1.0, opaque=False, max_hits=6)], \
+        True, True
+
+
+def p25_trace(family, al, th, name, method, kernel=True,
+              max_steps=P25_STEPS, **kw):
+    """Phase 25's plane set `name` on rays (al, th) through the kernel
+    wrapper or the plain loop (a PlainPool job), capped at max_steps: a
+    tuple of DiskTraceResult, one a plane."""
+    from light_path_tracer_tpu_torch import disk as dm
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    m = p24_metric(family)
+    disks, record_time, momentum = p25_disks(name)
+    planes = [(dm._plane_of(d, m), dm._normal_of(d)) for d in disks]
+    fn = kk.trace_disk_rays_cuda if kernel else kk.trace_disk_rays_plain
+    out = fn(m, R_OBS, al, th, THETA_DISK, LAMBDA_MAX, max_steps,
+             planes[0][0], max(d.max_hits for d in disks),
+             record_momentum=momentum, method=method,
+             disk_normal=planes[0][1], extra_disks=tuple(planes[1:]),
+             record_time=record_time, **kw)
+    return out if len(disks) > 1 else (out,)
+
+
+def p25_fields(res):
+    """Every output of a plane's DiskTraceResult as (name, tensor)."""
+    rows = []
+    for field in res._fields:
+        v = getattr(res, field)
+        if isinstance(v, tuple):
+            rows += [(f"{field}[{k}]", x) for k, x in enumerate(v)]
+        else:
+            rows.append((field, v))
+    return rows
+
+
+def p25_bitwise(rk, rp):
+    """Kernel records rk against plain records rp (tuples of planes):
+    the names of the outputs that differ, and the largest |d| of each."""
+    bad = {}
+    for k, (a, b) in enumerate(zip(rk, rp)):
+        for (name, x), (_n, y) in zip(p25_fields(a), p25_fields(b)):
+            if not same_bits(x.to(y.device), y):
+                d = (x.double().cpu() - y.double().cpu()).abs()
+                bad[f"plane {k} {name}"] = float(d.nan_to_num().max())
+    return bad
+
+
+def p25_recorder_vs_wide(al, th, slots, max_steps, momentum, method):
+    """Phase 24's translucent equatorial plane through the wide disk
+    instance and through the plane recorder (kind 0, no time recorder) on
+    rays (al, th) with `slots` slots: whether every output both write is
+    bitwise the same, and each one's kernel-alone ms (mean of 3, in turns
+    wide, planes, planes, wide)."""
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    kerr = p24_metric("kerr")
+    plane = p24_plane(kerr)
+    fns = dict(
+        wide=lambda: kk.trace_disk_rays_cuda(
+            kerr, R_OBS, al, th, THETA_DISK, LAMBDA_MAX, max_steps, plane,
+            slots, record_momentum=momentum, method=method),
+        planes=lambda: kk._trace_planes(
+            kerr, R_OBS, al, th, THETA_DISK, LAMBDA_MAX, max_steps,
+            [(plane, None)], slots, "fast", False, momentum, None, True,
+            method, False, multi=False))
+    a, b = fns["wide"](), fns["planes"]()
+    fields = ("status", "n_hits", "final_alpha", "n_half", "xi",
+              "n_steps", "r_hits", "phi_hits", "pr_hits", "pth_hits")
+    same = all(len(getattr(a, f)) == len(getattr(b, f))
+               and all(same_bits(x, y) for x, y in zip(getattr(a, f),
+                                                       getattr(b, f)))
+               if isinstance(getattr(a, f), tuple)
+               else same_bits(getattr(a, f), getattr(b, f))
+               for f in fields)
+    ms = dict(wide=[], planes=[])
+    for name in ("wide", "planes", "planes", "wide"):
+        ms[name].append(kernel_alone_ms(fns[name], 3))
+    return same, {k: float(np.mean(v)) for k, v in ms.items()}
+
+
+def p25_scene(boost=(0.0, 0.0, 0.0), **kw):
+    from light_path_tracer_tpu_torch.utils.config import SceneConfig
+    base = dict(M=1.0, a=0.9, r_obs_mult=R_OBS, theta_obs=THETA_DISK)
+    base.update(kw)
+    return SceneConfig(boost=tuple(boost), **base)
+
+
+def p25_render(mode, dim, device, boost=P25_BOOST):
+    """Phase 25's render `mode` at `dim` on `device` through the user's
+    entry point; returns (image or curve, stats) with stats carrying
+    traced_rays and timings. `boost` is the moving modes' camera
+    velocity (the static twin of a boosted mode takes (0, 0, 0))."""
+    from light_path_tracer_tpu_torch import disk as dm
+    from light_path_tracer_tpu_torch import pipeline, spectra, volumetric
+    from light_path_tracer_tpu_torch.utils.config import RenderConfig
+    cfg = RenderConfig()
+    tilt, az = P25_TILT
+    kw = dict(device=device)
+    if mode == "tilt":
+        return dm.render_disk(p25_scene(), dim, cfg,
+                              dm.DiskConfig(tilt=tilt, tilt_azimuth=az), **kw)
+    if mode == "warp":
+        return dm.render_disk(p25_scene(), dim, cfg,
+                              dm.DiskConfig(tilt=tilt, tilt_azimuth=az,
+                                            warp_radius=10.0), **kw)
+    if mode == "disk2":
+        # the CLI's --disk2 defaults: an opaque ring out to 30 M tilted 25
+        return dm.render_multi_disk(
+            p25_scene(), dim, cfg,
+            [dm.DiskConfig(), dm.DiskConfig(r_out=30.0,
+                                            tilt=np.radians(25.0))], **kw)
+    if mode == "light curve delay":
+        P = p24_period()
+        t, f, st = spectra.hotspot_light_curve(
+            p25_scene(), dim, [2.0 * P * k / P25_CURVE
+                               for k in range(P25_CURVE)],
+            cfg, dm.DiskConfig(), light_travel_delay=True, **kw)
+        return t, f, st
+    if mode == "boost disk":
+        return dm.render_disk(p25_scene(boost), dim, cfg,
+                              dm.DiskConfig(spectrum="blackbody"), **kw)
+    if mode == "boost shadow":
+        # config 3's scene, a moving camera
+        return pipeline.render_shadow(
+            p25_scene(boost, theta_obs=float(np.pi / 2)), dim, cfg, **kw)
+    if mode == "boost lens":
+        # config 2's Schwarzschild lens at half the side
+        src = np.random.default_rng(3).random(
+            (dim[0] // 2, dim[1] // 2, 3)).astype(np.float32)
+        out = pipeline.render_scene(p25_scene(boost, a=0.0,
+                                              theta_obs=float(np.pi / 2)),
+                                    src, cfg, **kw)
+        return out.image, dict(traced_rays=out.precompute.traced_rays,
+                               timings=out.timings)
+    riaf, freqs = scene_forms()["volumetric thin" if mode.endswith(
+        "volumetric") else "spectral 3-band"]
+    scene = p25_scene(boost, theta_obs=THETA_VOL, vertical_fov_deg=16.0)
+    if freqs is None:
+        return volumetric.render_volumetric(scene, dim, cfg, riaf, **kw)
+    return volumetric.render_volumetric_spectrum(scene, dim, freqs, cfg,
+                                                 riaf, **kw)
+
+
+def p25_counters():
+    """(wrapper, counter name pairs) of every kernel a phase-25 render
+    may launch, and the plain loops that none may call."""
+    from light_path_tracer_tpu_torch.ops import kerr_trace as tk
+    from light_path_tracer_tpu_torch.ops import schwarzschild_trace as st
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    from light_path_tracer_tpu_torch.ops.cuda import schwarzschild_kernel as sk
+    from light_path_tracer_tpu_torch.ops.cuda import volumetric_kernel as vk
+    wrappers = dict(disk=kk.trace_disk_rays_cuda,
+                    kerr=kk.trace_rays_kerr_cuda,
+                    orbit=sk.trace_rays_schwarzschild_cuda,
+                    volumetric=vk.trace_rays_volumetric_cuda,
+                    aux=vk.trace_rays_aux_cuda,
+                    spectral=vk.trace_rays_spectral_cuda)
+    plain = (tk.trace_disk_rays_kerr, tk.trace_rays_kerr,
+             tk.trace_rays_volumetric, tk.trace_rays_aux,
+             tk.trace_rays_spectral, st.trace_rays_schwarzschild)
+    return wrappers, plain
+
+
+def p25_zero():
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    wrappers, plain = p25_counters()
+    for fn in wrappers.values():
+        if hasattr(fn, "launches_dop853"):
+            kk.zero_counters(fn)
+        else:
+            fn.launches = fn.launches_f64 = 0
+    for fn in plain:
+        fn.launches = 0
+
+
+def p25_counts():
+    """Launches by wrapper (all pairs, dtypes and instance sets) and the
+    plain loops' calls since p25_zero."""
+    wrappers, plain = p25_counters()
+    counts = {name: sum(v for k, v in vars(fn).items()
+                        if k.startswith("launches"))
+              for name, fn in wrappers.items()}
+    import torch
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    counts["planes"] = sum(
+        getattr(wrappers["disk"], kk.counter_name(dtype, method, "planes"))
+        for dtype in (torch.float32, torch.float64)
+        for method in ("dp45", "dop853"))
+    counts["plain_loop_calls"] = sum(fn.launches for fn in plain)
+    return counts
+
+
+def p25_images(mode, out):
+    """(image-like tensor, mask) of a phase-25 render for the 64^2
+    comparison (the spectral bands stacked like frames)."""
+    import torch
+    img = out[0]
+    if mode == "boost spectral":
+        return img, img.sum(dim=0) > 0
+    if mode in ("boost shadow", "boost lens"):
+        return img, torch.ones(img.shape[:2], dtype=torch.bool,
+                               device=img.device)
+    return p24_images(mode, out)
+
+
+def p25_check(mode, og, oc):
+    """Phase 24's 64^2 gates on a phase-25 mode (the curve's as phase
+    24's light curve, the spectral bands as its frames)."""
+    if mode == "light curve delay":
+        return p24_check("light curve", og, oc)
+    ig, mg = p25_images(mode, og)
+    ic, mc = p25_images(mode, oc)
+    ig, mg = ig.cpu(), mg.cpu()
+    agree = float((mg == mc).float().mean())
+    both = mg & mc
+    d = (ig.double() - ic.double()).abs()
+    if mode == "boost spectral":
+        d = d.amax(dim=0)
+    if d.dim() == 3:
+        d = d.amax(dim=-1)
+    med = float(d[both].median()) if both.any() else 0.0
+    row = dict(mask_agree=agree, median=med,
+               max_abs=float(d.max()), differing=int((d > 0).sum()))
+    # the shadow and the lens are held pixel by pixel as configs 1-3 are
+    if mode in ("boost shadow", "boost lens"):
+        return row, float((d > 1e-3).float().mean()) <= 0.01
+    return row, agree >= 0.99 and med < 1e-3
+
+
+def p25_blue(img):
+    """Mean blue over mean red of a blackbody disk image's disk pixels."""
+    disk = img.sum(dim=-1) > 0
+    return float(img[..., 2][disk].double().mean()
+                 / img[..., 0][disk].double().mean())
+
+
+def p25_block_row(label, regs, spill):
+    """A plane-recorder instance's ptxas figures and the blocks of 128
+    threads an SM holds at those registers (65,536 / (128 x registers
+    rounded up to 8), at most 16)."""
+    import re
+    nums = dict((k, int(v)) for v, k in re.findall(
+        r"(\d+) bytes (stack frame|spill stores|spill loads)", spill))
+    return dict(registers=regs, spill_stores=nums.get("spill stores"),
+                spill_loads=nums.get("spill loads"),
+                stack_bytes=nums.get("stack frame"),
+                blocks_per_sm=min(16, 65536 // (128 * (-(-regs // 8) * 8))),
+                min_blocks=5)
+
+
+def tilted_phase(dev, card, pool, ctx):
+    """Phase 25; returns the kernels-line entry of the plane-recorder
+    instances."""
+    import torch
+    from light_path_tracer_tpu_torch import camera
+    from light_path_tracer_tpu_torch import disk as dm
+    from light_path_tracer_tpu_torch import observables
+    from light_path_tracer_tpu_torch.ops.cuda import _build
+    t_phase = time.perf_counter()
+    al_d, th_d = ctx["disk_rays"]
+    # The plain loops first (the children share the card): each plane set
+    # on config 4's 1024^2 grid (float32, DP45, Kerr: what the 1024^2
+    # renders launch), capped as phase 8 caps its grid, then the random
+    # rays; then the CPU side of the 64^2 checks.
+    fov = camera.fov_from_vertical(p24_scene().vertical_fov, P24_DIM)
+    grid = dict(dtype=torch.float32, device=dev)
+    al4 = camera.build_alpha_lookup(P24_DIM, fov, **grid).reshape(-1)
+    th4 = camera.build_theta_lookup(P24_DIM, fov, **grid).reshape(-1)
+    jobs = {("grid", name): pool.submit("p25_trace", "kerr", al4, th4, name,
+                                        "dp45", kernel=False,
+                                        max_steps=GRID_STEPS)
+            for name in P25_SETS}
+    rays = {}
+    for family in ("kerr", "kerr_newman"):
+        al, th = p24_wide_rays(family, al_d, th_d)
+        rays[family, "float32"] = (al, th)
+        rays[family, "float64"] = (al.double(), th.double())
+    jobs.update({(inst, name): pool.submit("p25_trace", inst[2],
+                                           *rays[inst[2], inst[1]], name,
+                                           inst[0], kernel=False)
+                 for inst in P25_INSTANCES for name in P25_SETS})
+    jobs.update({("cpu", mode): pool.submit("p25_render", mode, P24_CHECK,
+                                            "cpu", on="cpu")
+                 for mode in P25_MODES})
+    res_rows = {}
+    for library in ("more", "dop853"):
+        lib = _build.load_library(library)
+        print(f"  {library} library: built in {lib.build_seconds:.1f} s "
+              f"in this process", flush=True)
+        for name, regs, spill in ptxas_report(lib.build_log):
+            if "_planes<" in name:
+                res_rows[name] = p25_block_row(name, regs, spill)
+                print(f"  ptxas: {name}: {json.dumps(res_rows[name])}",
+                      flush=True)
+
+    # -- (a) every instance bitwise its plain loop -----------------------
+    print(f"plane recorder ({len(P25_INSTANCES)} instances x "
+          f"{len(P25_SETS)} plane sets, {al_d.numel()} rays, 1024 of them "
+          f"just outside the critical curve, capped at {P25_STEPS}) "
+          f"against the plain loop on the card, bitwise:", flush=True)
+    rows = {}
+    for inst in P25_INSTANCES:
+        method, dtype, family = inst
+        for name in P25_SETS:
+            probe = {}
+            rk = p25_trace(family, *rays[family, dtype], name, method,
+                           probe=probe)
+            plain_ms, rp = PlainPool.result(jobs[inst, name], dev)
+            bad = p25_bitwise(rk, rp)
+            row = dict(bitwise=not bad, differing=bad, plain_ms=plain_ms,
+                       hits=[int((r.n_hits > 0).sum()) for r in rk],
+                       slots_filled=[int(r.n_hits.max()) for r in rk],
+                       attempts_sum=int(probe["attempts"].to(
+                           torch.int64).sum()),
+                       accepted_sum=int(probe["accepted"].to(
+                           torch.int64).sum()),
+                       crossings=[int(r.n_hits.to(torch.int64).sum())
+                                  for r in rk])
+            rows[inst, name] = row
+            print(f"  {method} {dtype} {family} {name}: {json.dumps(row)}",
+                  flush=True)
+            require(not bad and all(h > 0 for h in row["hits"]),
+                    f"phase 25 {inst} {name}: {row}")
+    # Each plane set on the 1024^2 grid, kernel and plain loop both capped
+    # at GRID_STEPS: every output of every plane bitwise.
+    grid_rows = {}
+    for name in P25_SETS:
+        probe = {}
+        rk = p25_trace("kerr", al4, th4, name, "dp45", max_steps=GRID_STEPS,
+                       probe=probe)
+        plain_ms, rp = PlainPool.result(jobs["grid", name], dev)
+        bad = p25_bitwise(rk, rp)
+        grid_rows[name] = row = dict(
+            bitwise=not bad, differing=bad, plain_ms=plain_ms,
+            hits=[int((r.n_hits > 0).sum()) for r in rk],
+            slots_filled=[int(r.n_hits.max()) for r in rk],
+            slowest_attempts=int(probe["attempts"].max()),
+            n=int(al4.numel()), max_steps=GRID_STEPS)
+        print(f"  1024^2 grid, dp45 float32 kerr {name}, both capped at "
+              f"{GRID_STEPS}: {json.dumps(row)}", flush=True)
+        require(not bad and all(h > 0 for h in row["hits"]),
+                f"phase 25 1024^2 grid {name}: {row}")
+    # The kernel alone once the children have left the card.
+    for name in P25_SETS:
+        grid_rows[name]["ms"] = kernel_alone_ms(
+            lambda: p25_trace("kerr", al4, th4, name, "dp45",
+                              max_steps=GRID_STEPS), 3)
+    for inst in P25_INSTANCES:
+        method, dtype, family = inst
+        for name in ("tilt", "translucent"):
+            args = (family, *rays[family, dtype], name, method)
+            rows[inst, name]["ms"] = kernel_alone_ms(
+                lambda: p25_trace(*args), 3)
+    times = {" ".join(k[0]) + " " + k[1]: r["ms"] for k, r in rows.items()
+             if "ms" in r}
+    print(f"  kernel alone, ms: {json.dumps(times)} on {card}", flush=True)
+
+    # The equatorial plane through the plane recorder (the time recorder
+    # on) is the disk variant bitwise in every output both write.
+    kerr = p24_metric("kerr")
+    plane = (dm.r_isco(1.0, 0.9), 20.0, float(np.pi / 2), True)
+    for method in ("dp45", "dop853"):
+        for dtype in ("float32", "float64"):
+            al, th = rays["kerr", dtype]
+            kw = dict(method=method)
+            a = kk_disk(kerr, al, th, plane, **kw)
+            b = kk_disk(kerr, al, th, plane, record_time=True, **kw)
+            same = all(same_bits(x, y) for x, y in (
+                (a.status, b.status), (a.n_hits, b.n_hits),
+                (a.final_alpha, b.final_alpha), (a.n_half, b.n_half),
+                *zip(a.r_hits, b.r_hits), *zip(a.phi_hits, b.phi_hits)))
+            require(same and len(b.t_hits) == 2,
+                    f"phase 25: the equatorial plane recorder differs from "
+                    f"the disk variant ({method} {dtype})")
+    print("  the equatorial plane through the plane recorder equals the "
+          "disk variant bitwise (both pairs, both dtypes)", flush=True)
+    # The plane recorder with phase 24's plane (kind 0, no time recorder)
+    # against the wide instance it could stand in for: on the 1024^2 grid
+    # with the decomposition's 6 slots, and on phase 24's random rays with
+    # its slots and momenta.
+    al24, th24 = p24_wide_rays("kerr", al_d, th_d)
+    vs_wide = {}
+    for label, args in (
+            ("1024^2 grid 6 slots", (al4, th4, 6, GRID_STEPS, False)),
+            (f"phase 24 rays {WIDE_SLOTS} slots momenta",
+             (al24, th24, WIDE_SLOTS, WIDE_STEPS, True))):
+        for method in ("dp45", "dop853"):
+            same, ms = p25_recorder_vs_wide(*args, method)
+            vs_wide[f"{label} {method}"] = row = dict(bitwise=same, **ms)
+            require(same, f"phase 25: the plane recorder's kind-0 plane "
+                          f"differs from the wide instance ({label} "
+                          f"{method}): {row}")
+    print(f"  kind-0 plane recorder vs wide instance, kernel alone ms: "
+          f"{json.dumps(vs_wide)} on {card}", flush=True)
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    before = disk_launches()
+    try:
+        kk.trace_disk_rays_multi_cuda(
+            kerr, R_OBS, al_d, th_d, THETA_DISK, LAMBDA_MAX, 100,
+            [(plane, None)] * 3)
+        raised = False
+    except NotImplementedError:
+        raised = True
+    require(raised and disk_launches() == before,
+            "three planes on a CUDA tensor did not raise before a launch")
+
+    # -- (b) every mode at 1024^2 through its entry point ----------------
+    outs, modes = {}, {}
+    for mode in P25_MODES:
+        p25_zero()
+        torch.cuda.reset_peak_memory_stats(dev)
+        render = functools.partial(p25_render, mode, P24_DIM, dev)
+        out = render()
+        runs = []
+        for _ in range(3):
+            out = render()
+            runs.append(dict(out[-1]["timings"]))
+        st = out[-1]
+        row = dict(launches=p25_counts(),
+                   best_rays_per_s=max(st["traced_rays"] / t["precompute"]
+                                       for t in runs),
+                   peak_mib=torch.cuda.max_memory_allocated(dev) / 2**20,
+                   timings=runs)
+        n = row["launches"]
+        kernel = {"boost shadow": "kerr", "boost lens": "orbit",
+                  "boost volumetric": "volumetric",
+                  "boost spectral": "aux"}.get(mode, "disk")
+        require(n[kernel] > 0 and n["plain_loop_calls"] == 0,
+                f"phase 25 {mode}: {row}")
+        if mode in ("tilt", "warp", "disk2", "light curve delay"):
+            require(n["planes"] > 0, f"phase 25 {mode}: {row}")
+        row["profile"] = device_profile(render, 1)
+        outs[mode], modes[mode] = out, row
+        print(f"{mode} {P24_DIM[0]}^2: {json.dumps(row)}; best "
+              f"{row['best_rays_per_s']:,.0f} rays/s on {card}", flush=True)
+    path_planes = sum(r["launches"]["planes"] for r in modes.values())
+
+    # -- (c) the physics checks ------------------------------------------
+    checks = {}
+    scene = p25_scene()
+    cfg = ctx["cfg"]
+    still, _ = dm.render_disk(scene, P24_DIM, cfg, dm.DiskConfig(),
+                              device=dev)
+    tilt0, _ = dm.render_disk(scene, P24_DIM, cfg,
+                              dm.DiskConfig(tilt=0.0), device=dev)
+    single, _ = dm.render_multi_disk(scene, P24_DIM, cfg, [dm.DiskConfig()],
+                                     device=dev)
+    empty = dm.DiskConfig(r_in=8.0, r_out=7.0, opaque=False)
+    with_empty, st_e = dm.render_multi_disk(
+        scene, P24_DIM, cfg, [dm.DiskConfig(), empty], device=dev)
+    checks["tilt 0, one plane, an empty second plane"] = c = dict(
+        tilt0=same_bits(tilt0, still), single=same_bits(single, still),
+        empty_second=same_bits(with_empty, still),
+        empty_pixels=st_e["disk_pixels_per_plane"][1])
+    require(all(c[k] for k in ("tilt0", "single", "empty_second"))
+            and c["empty_pixels"] == 0, f"phase 25 planes: {c}")
+    _t, f, st = outs["light curve delay"]
+    half = P25_CURVE // 2
+    checks["light curve delay"] = c = dict(
+        periodic_rel=float(np.abs(f[:half] / f[half:] - 1.0).max()),
+        modulation=float(f.max() / f.min()),
+        delay_spread=st["delay_spread"])
+    require(np.isfinite(f).all() and (f > 0).all()
+            and c["periodic_rel"] < 1e-4 and c["delay_spread"] > 1.0,
+            f"phase 25 light curve: {c}")
+    img_b = outs["boost disk"][0]
+    img_s, _ = p25_render("boost disk", P24_DIM, dev, boost=(0.0, 0.0, 0.0))
+    checks["boost disk"] = c = dict(blue_over_red_moving=p25_blue(img_b),
+                                    blue_over_red_still=p25_blue(img_s))
+    require(c["blue_over_red_moving"] > c["blue_over_red_still"],
+            f"phase 25 boosted disk: {c}")
+    sh_b = outs["boost shadow"][0]
+    sh_s, st_s = p25_render("boost shadow", P24_DIM, dev,
+                            boost=(0.0, 0.0, 0.0))
+    checks["boost shadow"] = c = dict(
+        shadow_px_moving=int((sh_b == 0).sum()),
+        shadow_px_still=int((sh_s == 0).sum()))
+    require(0 < c["shadow_px_moving"] < c["shadow_px_still"],
+            f"phase 25 boosted shadow: {c}")
+    # The first null of the Schwarzschild silhouette's visibility gives
+    # the shadow's diameter (2 alpha_crit) to 5 %.
+    from light_path_tracer_tpu_torch import pipeline
+    scene1 = p25_scene(a=0.0, theta_obs=float(np.pi / 2),
+                       vertical_fov_deg=16.0)
+    img1, st1 = pipeline.render_shadow(scene1, P24_DIM, cfg, device=dev)
+    fov1 = camera.fov_from_vertical(scene1.vertical_fov, P24_DIM)
+    est, b_null, _prof = observables.shadow_diameter(
+        1.0 - img1, fov1, model="disk", pad=4)
+    true_d = 2.0 * st1["alpha_crit"]
+    checks["shadow diameter"] = c = dict(
+        estimate_rad=est, true_rad=true_d, b_null=b_null,
+        rel=abs(est / true_d - 1.0))
+    require(np.isfinite(b_null) and c["rel"] < 0.05,
+            f"phase 25 shadow diameter: {c}")
+    print(f"phase 25 physics checks: {json.dumps(checks)}", flush=True)
+
+    # -- (d) every mode at 64^2, the card against the CPU ----------------
+    check64 = {}
+    for mode in P25_MODES:
+        og = p25_render(mode, P24_CHECK, dev)
+        oc = PlainPool.result(jobs["cpu", mode], "cpu")[1]
+        check64[mode], ok = p25_check(mode, og, oc)
+        require(ok, f"phase 25 64^2 {mode} card vs CPU: {check64[mode]}")
+    print(f"phase 25 check, 64^2 card vs CPU: {json.dumps(check64)}",
+          flush=True)
+    print(f"phase 25: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # The entry: the DP45 float32 Kerr instance on the translucent set
+    # (two planes, the time recorder, momenta), its bound from the
+    # probe's attempts and accepted attempts and the recorded crossings.
+    inst = ("dp45", "float32", "kerr")
+    g = rows[inst, "translucent"]
+    step, crossing = bounds.planes_work((2, 1), record_time=True)
+    work = g["attempts_sum"] * kerr_work() + g["accepted_sum"] * step
+    for count, per in zip(g["crossings"], crossing):
+        work = work + count * per
+    n = int(al_d.numel())
+    # Bytes a ray: alpha, theta in; final_alpha, n_half, status, p_phi,
+    # t_end out, and each plane's count and 6 slots of (r, phi, xi, t,
+    # p_r, p_theta).
+    entry = kernel_entry(
+        "kerr_dp45_planes", PLANES_SOURCE, f"{JAX_KERNELS}:316",
+        path_planes, 0.0, g["ms"], g["plain_ms"], n,
+        8 + 20 + 2 * (4 + 6 * 6 * 4), work)
+    entry.update(
+        instances={" ".join(k[0]) + " " + k[1]: dict(
+            ms=r.get("ms"), plain_ms=r["plain_ms"], bitwise=r["bitwise"],
+            attempts_sum=r["attempts_sum"], accepted_sum=r["accepted_sum"],
+            crossings=r["crossings"]) for k, r in rows.items()},
+        resources=res_rows, grid_1024=grid_rows,
+        recorder_vs_wide=vs_wide, renders_1024={
+            m: dict(best_rays_per_s=r["best_rays_per_s"],
+                    launches=r["launches"]) for m, r in modes.items()})
+    return [entry]
+
+
+def kk_disk(metric, al, th, plane, **kw):
+    """The disk trace of `plane` (2 slots) through the kernel wrapper,
+    capped as phase 25's random rays."""
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    return kk.trace_disk_rays_cuda(metric, R_OBS, al, th, THETA_DISK,
+                                   LAMBDA_MAX, P25_STEPS, plane, 2, **kw)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6312,6 +6938,11 @@ def main() -> int:
     stamp(24)
     disk_kernels = disk_family_phase(dev, card, pool, dict(
         disk_rays=(al_d, th_d), cfg=cfg, dop853_build=dop853_build))
+
+    # -- 25. tilted, warped and two-plane disks, crossing times, boost ----
+    stamp(25)
+    planes_kernels = tilted_phase(dev, card, pool, dict(
+        disk_rays=(al_d, th_d), cfg=cfg))
     pool.close()
     stamp("retime")
     retime_entries(card)
@@ -6345,7 +6976,7 @@ def main() -> int:
                      kerr_row["attempts_sum"] * shadow_work)]
     kernels += (kernels5 + vol_kernels + new_kernels + [probe_kernel]
                 + f64_kernels + family_kernels + d853_kernels + mu_kernels
-                + disk_kernels)
+                + disk_kernels + planes_kernels)
     # The counted bound: every operation by kind at the rate phase 16
     # measured for it (a flop at no less than the published rate).
     for k in kernels:

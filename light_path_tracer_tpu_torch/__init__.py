@@ -27,7 +27,11 @@ emission-line profile and hot-spot light curve (`spectra.py`:
 (`render_polarization`, `polarization.hotspot_qu_loop`) trace through the
 kernel's disk variant (`trace_disk_rays_cuda`; 5 to 8 crossing slots
 through its wide instances), by default inside the two-pass straggler
-driver (`trace_disk_rays_two_pass`).
+driver (`trace_disk_rays_two_pass`); tilted and warped disks, several
+planes in one trace (`render_multi_disk`) and the crossing-time recorder
+(the retarded-time light curve) through its plane-recorder instances. A
+moving camera (`SceneConfig.boost`) aberrates every render's grids;
+`observables.py` reads rendered images in the visibility domain.
 
 The volumetric hot-flow image (`render_volumetric`, optically thin or
 self-absorbed), the multi-frequency spectral image
@@ -44,7 +48,8 @@ from light_path_tracer_tpu_torch.adaptive import (render_scene_adaptive,
                                                   render_shadow_adaptive)
 from light_path_tracer_tpu_torch.disk import (
     DiskConfig, render_disk, render_disk_aa, render_disk_decomposed,
-    render_disk_frames, render_scene_with_disk, render_scene_with_disk_aa)
+    render_disk_frames, render_multi_disk, render_scene_with_disk,
+    render_scene_with_disk_aa)
 from light_path_tracer_tpu_torch.models import (JohannsenPsaltis, Kerr,
                                                 KerrNewman,
                                                 ReissnerNordstrom,
@@ -68,6 +73,7 @@ __all__ = ["Kerr", "KerrNewman", "JohannsenPsaltis", "Schwarzschild",
            "precompute_final_alpha", "render_scene", "render_shadow",
            "RenderConfig", "SceneConfig", "DiskConfig", "render_disk",
            "render_disk_aa", "render_disk_decomposed", "render_disk_frames",
+           "render_multi_disk",
            "render_scene_with_disk", "render_scene_with_disk_aa",
            "line_profile", "hotspot_light_curve", "render_polarization",
            "RIAFConfig", "render_volumetric", "render_volumetric_spectrum",

@@ -11,8 +11,10 @@ float32 grid is the correctly rounded float64 one. (The JAX package's
 float32 grids promote to float64 through its NumPy scalars whenever x64
 is enabled, which is how its tests run; that is the reference here.)
 
-A camera boost (aberration) and alpha rounding (`decimals`) are not
-ported yet and raise.
+A camera boost (the moving observer's aberration, `aberrate_view`, and
+its Doppler factor, `doppler_lookup`) keeps the JAX package's split: the
+Lorentz factor and |beta|^2 are Python floats, the grids float64 tensors
+rounded once. Alpha rounding (`decimals`) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -92,15 +94,81 @@ def fov_from_vertical(vertical_fov, image_dimension):
     return (float(horizontal), float(vertical_fov))
 
 
-def _reject_unported(boost=None, decimals=None):
-    if boost is not None and any(float(b) != 0.0 for b in boost):
-        raise NotImplementedError(
-            "camera boost (aberration) is not ported to the PyTorch "
-            "package yet (ROADMAP.md, Queue 1)")
+def _boosted(boost) -> bool:
+    return boost is not None and any(float(b) != 0.0 for b in boost)
+
+
+def _reject_unported(decimals=None):
     if decimals is not None:
         raise NotImplementedError(
             "alpha rounding (decimals) is not ported: the dedup it fed "
             "was retired in the JAX package")
+
+
+# ---- relativistic aberration (observer at finite velocity) ----
+
+def aberrate_view(vx, vy, vz, boost):
+    """Special-relativistic aberration of unit view directions (observer
+    toward sky), moving-camera frame -> static frame, batched over tensors
+    that broadcast together.
+
+    `boost`: the camera's 3-velocity in units of c in camera coordinates
+    (+x right, +y down, +z forward), |boost| < 1. The photon propagates
+    along -v, so k' = -v goes through the propagation-vector map
+
+        k = (k'/gamma + (1 - 1/gamma)(bhat.k') bhat + beta) / (1 + beta.k')
+
+    and is renormalised. Flying toward the hole spreads camera directions
+    outward in the static frame: the shadow looks smaller. gamma and
+    |beta|^2 are Python floats, as in the JAX package.
+    """
+    bx, by, bz = (float(boost[0]), float(boost[1]), float(boost[2]))
+    b2 = bx * bx + by * by + bz * bz
+    if b2 >= 1.0:
+        raise ValueError("|boost| must be < 1 (units of c)")
+    if b2 == 0.0:
+        return vx, vy, vz
+    gamma = 1.0 / np.sqrt(1.0 - b2)
+    kx, ky, kz = -vx, -vy, -vz
+    bdotk = bx * kx + by * ky + bz * kz
+    coef = (1.0 - 1.0 / gamma) / b2 * bdotk
+    denom = 1.0 + bdotk
+    kx = (kx / gamma + coef * bx + bx) / denom
+    ky = (ky / gamma + coef * by + by) / denom
+    kz = (kz / gamma + coef * bz + bz) / denom
+    n = torch.sqrt(kx * kx + ky * ky + kz * kz)
+    return -kx / n, -ky / n, -kz / n
+
+
+def _view_grids(image_dimension, fov, device, pixel_offset=(0.0, 0.0)):
+    """Unit view-direction component grids (vx, vy, vz), float64, each
+    (H, W)."""
+    x_cam, y_cam = _cam_grids(image_dimension, fov, device, pixel_offset)
+    return _view_at(x_cam[None, :], y_cam[:, None])
+
+
+def _view_at(x_cam, y_cam):
+    """Unit view directions at camera-plane points (float64 tensors that
+    broadcast together), broadcast to their common shape."""
+    denom = torch.sqrt(1.0 + x_cam ** 2 + y_cam ** 2)
+    vx, vy, vz = x_cam / denom, y_cam / denom, 1.0 / denom
+    return torch.broadcast_tensors(vx, vy, vz)
+
+
+def doppler_lookup(image_dimension, fov, boost, dtype=torch.float32,
+                   pixel_offset=(0.0, 0.0), device="cuda"):
+    """Per-pixel Doppler factor delta = nu_cam / nu_static, (H, W):
+    gamma (1 + beta . v_static) with v_static the pixel's aberrated view
+    direction. Looking along the motion gives sqrt((1 + b) / (1 - b));
+    intensities scale as delta^4, blackbody temperatures as delta."""
+    bx, by, bz = (float(boost[0]), float(boost[1]), float(boost[2]))
+    b2 = bx * bx + by * by + bz * bz
+    vx, vy, vz = _view_grids(image_dimension, fov, device, pixel_offset)
+    if b2 == 0.0:
+        return torch.ones(vx.shape, dtype=dtype, device=vx.device)
+    gamma = 1.0 / np.sqrt(1.0 - b2)
+    vx, vy, vz = aberrate_view(vx, vy, vz, boost)
+    return (gamma * (1.0 + bx * vx + by * vy + bz * vz)).to(dtype)
 
 
 # ---- batched per-pixel grids (float64 on the device) ----
@@ -117,24 +185,32 @@ def _cam_grids(image_dimension, fov, device, pixel_offset=(0.0, 0.0)):
     return x_cam, y_cam
 
 
-def _alpha_at(x_cam, y_cam, psi):
+def _alpha_at(x_cam, y_cam, psi, boost=None):
     """Viewing angle to the BH direction at camera-plane points (float64
-    tensors that broadcast together)."""
+    tensors that broadcast together); a boost aberrates the view
+    directions into the static frame first."""
     d = psi_frame(psi).d
-    denom = torch.sqrt(1.0 + x_cam ** 2 + y_cam ** 2)
-    cos_alpha = (x_cam * float(d[0]) + y_cam * float(d[1])
-                 + float(d[2])) / denom
+    if _boosted(boost):
+        vx, vy, vz = aberrate_view(*_view_at(x_cam, y_cam), boost)
+        cos_alpha = vx * float(d[0]) + vy * float(d[1]) + vz * float(d[2])
+    else:
+        denom = torch.sqrt(1.0 + x_cam ** 2 + y_cam ** 2)
+        cos_alpha = (x_cam * float(d[0]) + y_cam * float(d[1])
+                     + float(d[2])) / denom
     return torch.arccos(torch.clamp(cos_alpha, -1.0, 1.0))
 
 
-def _theta_at(x_cam, y_cam, psi):
+def _theta_at(x_cam, y_cam, psi, boost=None):
     """Screen azimuth about the BH direction at camera-plane points
-    (float64 tensors that broadcast together)."""
+    (float64 tensors that broadcast together), of the aberrated view
+    directions under a boost."""
     frame = psi_frame(psi)
     e_x = [float(c) for c in frame.e_x]
     e_y = [float(c) for c in frame.e_y]
     denom = torch.sqrt(1.0 + x_cam ** 2 + y_cam ** 2)
     vx, vy, vz = x_cam / denom, y_cam / denom, 1.0 / denom
+    if _boosted(boost):
+        vx, vy, vz = aberrate_view(vx, vy, vz, boost)
     return torch.arctan2(
         vx * e_x[0] + vy * e_x[1] + vz * e_x[2],
         vx * e_y[0] + vy * e_y[1] + vz * e_y[2],
@@ -144,19 +220,21 @@ def _theta_at(x_cam, y_cam, psi):
 def build_alpha_lookup(image_dimension, fov, decimals=None, psi=(0.0, 0.0),
                        dtype=torch.float32, pixel_offset=(0.0, 0.0),
                        boost=None, device="cuda"):
-    """Per-pixel viewing angle alpha to the BH direction, (H, W)."""
-    _reject_unported(boost, decimals)
+    """Per-pixel viewing angle alpha to the BH direction, (H, W); `boost`
+    (camera 3-velocity, units of c) aberrates each view direction into
+    the static frame first (aberrate_view)."""
+    _reject_unported(decimals)
     x_cam, y_cam = _cam_grids(image_dimension, fov, device, pixel_offset)
-    return _alpha_at(x_cam[None, :], y_cam[:, None], psi).to(dtype)
+    return _alpha_at(x_cam[None, :], y_cam[:, None], psi, boost).to(dtype)
 
 
 def build_theta_lookup(image_dimension, fov, psi=(0.0, 0.0),
                        dtype=torch.float32, pixel_offset=(0.0, 0.0),
                        boost=None, device="cuda"):
-    """Per-pixel screen azimuth theta about the BH direction, (H, W)."""
-    _reject_unported(boost)
+    """Per-pixel screen azimuth theta about the BH direction, (H, W);
+    `boost` as in build_alpha_lookup."""
     x_cam, y_cam = _cam_grids(image_dimension, fov, device, pixel_offset)
-    return _theta_at(x_cam[None, :], y_cam[:, None], psi).to(dtype)
+    return _theta_at(x_cam[None, :], y_cam[:, None], psi, boost).to(dtype)
 
 
 def pixel_angles_at(py, px, image_dimension, fov, psi=(0.0, 0.0),
@@ -169,30 +247,41 @@ def pixel_angles_at(py, px, image_dimension, fov, psi=(0.0, 0.0),
     device. The grid builders' own maths (_alpha_at, _theta_at) in
     float64 at scattered pixels instead of the whole grid, so each value
     equals the grid's at its pixel (the adaptive-AA refinement traces
-    extra samples only at edge pixels).
+    extra samples only at edge pixels). `boost` as in build_alpha_lookup.
     """
-    _reject_unported(boost)
     height, width = image_dimension
     fx, fy = focal_lengths(image_dimension, fov)
     oy, ox = pixel_offset
     x_cam = (torch.as_tensor(px).to(torch.float64) - width / 2 + ox) / fx
     y_cam = (torch.as_tensor(py).to(torch.float64) - height / 2 + oy) / fy
-    return (_alpha_at(x_cam, y_cam, psi).to(dtype),
-            _theta_at(x_cam, y_cam, psi).to(dtype))
+    return (_alpha_at(x_cam, y_cam, psi, boost).to(dtype),
+            _theta_at(x_cam, y_cam, psi, boost).to(dtype))
 
 
 def axis_refine_columns(image_dimension, fov, psi=(0.0, 0.0),
                         refine_frac=0.07, boost=None, device="cuda"):
     """Boolean (W,) mask of columns near the BH's screen column, where
     tighter integrator tolerances are used (refine_frac of the widest
-    column offset)."""
-    _reject_unported(boost)
+    column offset). Under a boost the band is measured in the static
+    frame, where the near-axis rays live: each column's centre-row view
+    direction is aberrated before its offset from the BH's column is
+    taken."""
     height, width = image_dimension
     fx, _fy = focal_lengths(image_dimension, fov)
     x_cam = (np.arange(width) - width / 2) / fx
     _bh_y, bh_x_cam, in_front = psi_to_cam_projection(psi)
     if not in_front:
         return torch.zeros(width, dtype=torch.bool, device=device)
+    if _boosted(boost):
+        denom = np.sqrt(1.0 + x_cam ** 2)
+        f64 = dict(dtype=torch.float64, device=device)
+        vx = torch.as_tensor(x_cam / denom, **f64)
+        wx, _wy, wz = aberrate_view(vx, torch.zeros_like(vx),
+                                    torch.as_tensor(1.0 / denom, **f64),
+                                    boost)
+        x_rel = wx / torch.clamp(wz, min=1e-12) - bh_x_cam
+        x_abs_max = torch.clamp(torch.max(torch.abs(x_rel)), min=1e-12)
+        return torch.abs(x_rel) <= refine_frac * x_abs_max
     x_rel = x_cam - bh_x_cam
     x_abs_max = max(float(np.max(np.abs(x_rel))), 1e-12)
     return torch.as_tensor(np.abs(x_rel) <= refine_frac * x_abs_max,

@@ -107,6 +107,57 @@ def not_ported(what: str):
         f"Queue 1)")
 
 
+def _visibility_report(image, fov, path, model, true_diameter=None):
+    """The visibility-domain analysis of an image (observables.py): save
+    the |V| radial profile (baselines, amp, b_null, diameter_rad, model)
+    as .npz at `path` and print the first-null diameter."""
+    from light_path_tracer_tpu_torch import observables as obs
+    # The padded FFT grid is pad*H x pad*W: kept near 8k^2.
+    side = max(tuple(image.shape)[:2])
+    pad = max(2, min(8, 8192 // side))
+    est, b_null, (baselines, amp) = obs.shadow_diameter(
+        image, fov, model=model, pad=pad, n_bins=512)
+    np.savez(path, baselines=baselines.cpu().numpy(),
+             amp=amp.cpu().numpy(), b_null=b_null, diameter_rad=est,
+             model=model)
+    if np.isfinite(b_null):
+        line = (f"  visibility: first null at {b_null:,.1f} wavelengths"
+                f" -> {model}-model diameter {np.degrees(est):.4f} deg")
+        if true_diameter is not None:
+            line += f" (2*alpha_crit = {np.degrees(true_diameter):.4f})"
+        print(line)
+    else:
+        print("  visibility: no null within the sampled baselines "
+              "(featureless image or field of view too tight)")
+    print(f"Saved: {path}")
+
+
+def _centroid_report(path, scene, size, emission, light_curve, spot_r):
+    """The photocentre track of the raw per-frame emission
+    (observables.centroid_track) beside the light curve, written as the
+    CSV columns of the JAX package's figure (orbital phase, x and y in
+    arcsec with y up, flux over its mean) to PATH.csv; prints the
+    wobble. No figure is drawn."""
+    import torch
+    from light_path_tracer_tpu_torch import camera
+    from light_path_tracer_tpu_torch.observables import centroid_track
+    fov = camera.fov_from_vertical(scene.vertical_fov, (size, size))
+    track = np.degrees(centroid_track(
+        torch.as_tensor(emission).to(torch.float64), fov).cpu().numpy())
+    lc = np.asarray(torch.as_tensor(light_curve).cpu(), np.float64)
+    ph = np.arange(len(track)) / max(len(track), 1)
+    csv = _stem(path, ".csv")
+    np.savetxt(csv, np.column_stack([ph, track[:, 0] * 3600,
+                                     -track[:, 1] * 3600,
+                                     lc / max(lc.mean(), 1e-300)]),
+               delimiter=",", header="phase,x_arcsec,y_arcsec,flux_over_mean")
+    ext = np.ptp(track, axis=0) * 3600
+    print(f"  centroid wobble: {ext[0]:.3f} x {ext[1]:.3f} "
+          f"arcsec (spot orbit diameter "
+          f"{np.degrees(2 * spot_r / scene.r_obs) * 3600:.3f} arcsec)")
+    print(f"Saved: {csv}")
+
+
 def _scene_from(args):
     from light_path_tracer_tpu_torch.utils.config import SceneConfig
     return SceneConfig(

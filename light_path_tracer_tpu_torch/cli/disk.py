@@ -7,9 +7,10 @@ dispatched in the JAX package's order. Every flag of the JAX package's
 by this package's own writer (the frames as a numbered series), the
 curves as the CSV columns the JAX package writes beside its plots, and
 arrays as .npz; the GIF, the matplotlib plots and the EVPA tick overlay
-are not drawn. Tilted, warped and second disks, the boosted camera, the
-retarded-time light curve, the centroid and visibility reports and the
-multi-host render are not ported yet and raise."""
+are not drawn (the centroid report writes its CSV columns). Tilted,
+warped and second disks, the boosted camera, the retarded-time light
+curve and the visibility report run as in the JAX package; the
+multi-host render is not ported yet and raises."""
 
 from __future__ import annotations
 
@@ -17,20 +18,8 @@ import numpy as np
 
 from light_path_tracer_tpu_torch.cli._shared import (
     _add_multihost_args, _add_render_args, _add_scene_args,
-    _render_cfg_from, _stem, not_ported)
-
-
-def _reject_unported(args):
-    for flag, used in (("--disk2", args.disk2),
-                       ("--multihost", args.multihost),
-                       ("--visibility", args.visibility),
-                       ("--centroid", args.centroid),
-                       ("--light-travel-delay", args.light_travel_delay),
-                       ("--tilt", args.tilt != 0.0),
-                       ("--warp-radius", args.warp_radius != 0.0),
-                       ("--boost", any(b != 0.0 for b in args.boost))):
-        if used:
-            raise not_ported(f"disk {flag}")
+    _centroid_report, _render_cfg_from, _stem, _visibility_report,
+    not_ported)
 
 
 def _spot_times(args, scene, n):
@@ -161,7 +150,10 @@ def _light_curve(args, scene, cfg, disk) -> int:
     spot, period, ts = _spot_times(args, scene, max(args.frames, 32))
     t_arr, flux, stats = hotspot_light_curve(
         scene, (args.size, args.size), ts, cfg, disk, spot,
-        device=args.device)
+        light_travel_delay=args.light_travel_delay, device=args.device)
+    if args.light_travel_delay:
+        print(f"  light-travel delay: {stats['delay_spread']:.1f} M "
+              f"spread across the disk image")
     path = _save_csv(args.light_curve, [t_arr, flux], "time_M,flux")
     t = stats["timings"]
     print(f"Light curve: {len(ts)} samples over {args.orbits} orbit(s), "
@@ -185,28 +177,48 @@ def _frames(args, scene, cfg, disk) -> int:
     for path, frame in zip(paths, frames):
         _save_image(path, frame, disk.spectrum)
     npz_path = _stem(args.output, "_frames.npz")
-    np.savez(npz_path, times=np.asarray(times),
-             light_curve=stats["emission"].double().sum(dim=(1, 2))
-             .cpu().numpy())
+    light_curve = stats["emission"].double().sum(dim=(1, 2)).cpu().numpy()
+    np.savez(npz_path, times=np.asarray(times), light_curve=light_curve)
     t = stats["timings"]
     print(f"Hot-spot orbit: {args.frames} frames "
           f"({args.orbits} orbit(s), period {period:.1f} M), "
           f"ONE trace {t.get('precompute', 0.0):.3f}s + "
           f"render {t.get('render', 0.0):.3f}s")
     print(f"Saved: {paths[0]} .. {paths[-1]} + {npz_path}")
+    if args.centroid:
+        _centroid_report(args.centroid, scene, args.size,
+                         stats["emission"], light_curve, args.spot_r0)
     return 0
+
+
+def _disk2(args):
+    """The second plane of --disk2, the first disk's emission model."""
+    from light_path_tracer_tpu_torch.disk import DiskConfig
+    return DiskConfig(
+        r_in=args.disk2_r_in or None, r_out=args.disk2_r_out,
+        emissivity_index=args.emissivity_q, g_power=args.g_power,
+        opaque=not args.disk2_translucent, prograde=not args.retrograde,
+        tilt=float(np.radians(args.disk2_tilt)),
+        tilt_azimuth=float(np.radians(args.disk2_tilt_azimuth)),
+        spectrum=args.spectrum, t_peak=args.t_peak)
 
 
 def cmd_disk(args) -> int:
     """Accretion-disk render and its one-trace modes."""
     from light_path_tracer_tpu_torch.disk import (DiskConfig, render_disk,
-                                                  render_disk_aa)
+                                                  render_disk_aa,
+                                                  render_multi_disk)
     from light_path_tracer_tpu_torch.utils.config import SceneConfig
 
-    _reject_unported(args)
+    if args.multihost:
+        raise not_ported("disk --multihost")
     polarized = args.polarization or args.qu_loop
     if args.Q and polarized:
         print("  note: polarized rendering is Kerr-only; ignoring --Q")
+    if args.visibility and (polarized or args.line_profile
+                            or args.light_curve or args.frames > 1):
+        print("  note: --visibility applies to the still disk image "
+              "only; ignoring")
     if args.eps3:
         print("  note: disk mode is not wired for --eps3 (orbital "
               "dynamics are Kerr/charged closed forms); ignoring")
@@ -216,7 +228,8 @@ def cmd_disk(args) -> int:
         psi_y=float(np.radians(args.psi_y)),
         psi_x=float(np.radians(args.psi_x)),
         vertical_fov_deg=args.fov_v,
-        theta_obs=float(np.radians(args.inclination)))
+        theta_obs=float(np.radians(args.inclination)),
+        boost=tuple(args.boost))
     cfg = _render_cfg_from(args)
     disk = DiskConfig(r_out=args.r_out,
                       emissivity_index=args.emissivity_q,
@@ -237,7 +250,15 @@ def cmd_disk(args) -> int:
         if flag:
             return mode(args, scene, cfg, disk)
 
-    if args.aa > 1:
+    if args.disk2:
+        if args.aa > 1:
+            print("  note: --aa is not supported with --disk2; ignoring")
+        img, stats = render_multi_disk(scene, (args.size, args.size), cfg,
+                                       [disk, _disk2(args)],
+                                       device=args.device)
+        print(f"  two disks: per-plane pixels "
+              f"{stats['disk_pixels_per_plane']}")
+    elif args.aa > 1:
         img, stats = render_disk_aa(scene, (args.size, args.size), cfg,
                                     disk, aa_samples=args.aa,
                                     device=args.device)
@@ -256,6 +277,11 @@ def cmd_disk(args) -> int:
     print(f"  precompute {t.get('precompute', 0.0):.3f}s "
           f"({stats['traced_rays'] / trace_t:,.0f} rays/s)")
     print(f"Saved: {args.output}")
+    if args.visibility:
+        from light_path_tracer_tpu_torch import camera
+        fov = camera.fov_from_vertical(scene.vertical_fov,
+                                       (args.size, args.size))
+        _visibility_report(img, fov, args.visibility, model="ring")
     return 0
 
 
@@ -275,12 +301,13 @@ def register(sub):
                    help="retrograde disk orbits (ISCO moves out, "
                         "Doppler limb swaps)")
     p.add_argument("--tilt", type=float, default=0.0,
-                   help="disk tilt from the equator [deg] (not ported yet)")
+                   help="disk tilt from the equator [deg] (emitter model "
+                        "approximate for tilted Kerr)")
     p.add_argument("--tilt-azimuth", type=float, default=0.0,
                    help="azimuth of the tilted disk's line of nodes [deg]")
     p.add_argument("--warp-radius", type=float, default=0.0,
-                   help="Bardeen-Petterson warp radius [M] (not ported "
-                        "yet; 0 = flat plane)")
+                   help="Bardeen-Petterson warp radius [M] (0 = flat "
+                        "plane)")
     p.add_argument("--spectrum", default="powerlaw",
                    choices=["powerlaw", "blackbody"],
                    help="powerlaw: grayscale g^p r^-q (afmhot colormap); "
@@ -299,8 +326,9 @@ def register(sub):
                    help="hot-spot orbit radius [M]")
     p.add_argument("--spot-amplitude", type=float, default=6.0)
     p.add_argument("--centroid", default=None, metavar="PLOT.png",
-                   help="with --frames: photocenter track (not ported "
-                        "yet)")
+                   help="with --frames: the photocenter track and light "
+                        "curve written as PLOT.csv (phase, x_arcsec, "
+                        "y_arcsec, flux_over_mean; no plot is drawn)")
     p.add_argument("--fps", type=float, default=12.0,
                    help="GIF frame rate (unused: the frames are a PNG "
                         "series)")
@@ -341,14 +369,15 @@ def register(sub):
     p.add_argument("--line-bins", type=int, default=200,
                    help="energy bins for --line-profile")
     p.add_argument("--light-travel-delay", action="store_true",
-                   help="with --light-curve: retarded-time spot (not "
-                        "ported yet: needs the crossing-time recorder)")
+                   help="with --light-curve: the spot at each pixel's "
+                        "retarded time (the crossing-time recorder)")
     p.add_argument("--light-curve", default=None, metavar="PLOT.png",
                    help="orbiting hot-spot light curve (>= 32 samples or "
                         "--frames over --orbits orbits) written as "
                         "PLOT.csv (time_M,flux; no plot is drawn)")
     p.add_argument("--disk2", action="store_true",
-                   help="second independent disk plane (not ported yet)")
+                   help="second independent disk plane, traced in the "
+                        "same integration")
     p.add_argument("--disk2-r-in", type=float, default=0.0,
                    help="second disk inner radius [M] (0 = ISCO)")
     p.add_argument("--disk2-r-out", type=float, default=30.0)
@@ -358,6 +387,8 @@ def register(sub):
     p.add_argument("--disk2-translucent", action="store_true")
     p.add_argument("--output", default="accretion_disk.png")
     p.add_argument("--visibility", metavar="PATH",
-                   help="visibility-domain analysis (not ported yet)")
+                   help="visibility-domain analysis of the still image: "
+                        "|V| radial profile saved as .npz, first-null "
+                        "ring diameter printed")
     _add_multihost_args(p)
     p.set_defaults(fn=cmd_disk)

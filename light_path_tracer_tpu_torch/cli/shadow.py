@@ -7,7 +7,7 @@ import numpy as np
 
 from light_path_tracer_tpu_torch.cli._shared import (
     _add_multihost_args, _add_render_args, _add_scene_args,
-    _render_cfg_from, _scene_from, not_ported)
+    _render_cfg_from, _scene_from, _visibility_report, not_ported)
 
 
 def cmd_shadow(args) -> int:
@@ -16,8 +16,7 @@ def cmd_shadow(args) -> int:
     from light_path_tracer_tpu_torch.utils.save import save_gray_png
 
     for flag, used in (("--rings", args.rings),
-                       ("--multihost", args.multihost),
-                       ("--visibility", args.visibility is not None)):
+                       ("--multihost", args.multihost)):
         if used:
             raise not_ported(f"shadow {flag}")
 
@@ -58,6 +57,13 @@ def cmd_shadow(args) -> int:
     if stats.get("traced_rays"):
         print(f"  {stats['traced_rays'] / max(trace_t, 1e-12):,.0f} rays/s")
     print(f"Saved: {args.output}")
+    if args.visibility is not None:
+        from light_path_tracer_tpu_torch import camera
+        fov = camera.fov_from_vertical(scene.vertical_fov, resolution)
+        # The silhouette (bright disk on dark sky) is the compact source
+        # whose null encodes the shadow diameter.
+        _visibility_report(1.0 - img, fov, args.visibility, model="disk",
+                           true_diameter=2.0 * stats["alpha_crit"])
     return 0
 
 
@@ -81,6 +87,8 @@ def register(sub):
                    help="photon-ring decomposition (not ported yet)")
     p.add_argument("--output", default="black_hole_shadow.png")
     p.add_argument("--visibility", metavar="PATH",
-                   help="visibility-domain analysis (not ported yet)")
+                   help="visibility-domain analysis of the silhouette: "
+                        "|V| radial profile saved as .npz, first-null "
+                        "disk diameter printed against 2 alpha_crit")
     _add_multihost_args(p)
     p.set_defaults(fn=cmd_shadow)

@@ -6,23 +6,16 @@ Stokes maps, each from one trace. Every flag of the JAX package's
 `volumetric` is registered with its default. Pictures are written as PNG
 files by this package's own writer and the arrays as .npz; the animated
 GIF, the matplotlib panels and the EVPA tick overlay of the JAX package
-are not drawn. The visibility and centroid reports are not ported yet and
-raise."""
+are not drawn; the centroid report writes its CSV columns and the
+visibility report its .npz profile."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from light_path_tracer_tpu_torch.cli._shared import (
-    _add_render_args, _add_scene_args, _render_cfg_from, _scene_from,
-    _stem, not_ported)
-
-
-def _reject_unported(args):
-    for flag, used in (("--visibility", args.visibility),
-                       ("--centroid", args.centroid)):
-        if used:
-            raise not_ported(f"volumetric {flag}")
+    _add_render_args, _add_scene_args, _centroid_report, _render_cfg_from,
+    _scene_from, _stem, _visibility_report)
 
 
 def _polarization(args, scene, cfg, riaf) -> int:
@@ -80,6 +73,9 @@ def _movie(args, scene, cfg, riaf) -> int:
           f"{(lc.max() - lc.min()) / (lc.max() + lc.min()):.1%}, "
           f"retarded-time span {stats['t_max']:.0f} M")
     print(f"Saved: {paths[0]} .. {paths[-1]} + {npz_path}")
+    if args.centroid:
+        _centroid_report(args.centroid, scene, args.size,
+                         stats["emission"], lc, args.spot_r)
     return 0
 
 
@@ -164,7 +160,6 @@ def cmd_volumetric(args) -> int:
     from light_path_tracer_tpu_torch.volumetric import (RIAFConfig,
                                                         render_volumetric)
 
-    _reject_unported(args)
     scene = _scene_from(args)
     cfg = _render_cfg_from(args)
     # The blob only takes part in movies (the still and spectral
@@ -203,6 +198,14 @@ def cmd_volumetric(args) -> int:
     if args.alpha0 > 0.0:
         print(f"  self-absorbed: alpha0={args.alpha0}, "
               f"max optical depth {stats['tau_max']:.2f}")
+    if args.visibility:
+        from light_path_tracer_tpu_torch import camera
+        fov = camera.fov_from_vertical(scene.vertical_fov,
+                                       (args.size, args.size))
+        # The raw intensity, not the tone-mapped image, is what an
+        # interferometer measures.
+        _visibility_report(stats["emission"], fov, args.visibility,
+                           model="ring")
     print(f"Saved: {args.output}")
     return 0
 
@@ -271,7 +274,9 @@ def register(sub):
     p.add_argument("--spot-r", type=float, default=6.0,
                    help="blob orbit radius [M]")
     p.add_argument("--centroid", default=None, metavar="PLOT.png",
-                   help="with --movie: photocenter track (not ported yet)")
+                   help="with --movie: the photocenter track and light "
+                        "curve written as PLOT.csv (phase, x_arcsec, "
+                        "y_arcsec, flux_over_mean; no plot is drawn)")
     p.add_argument("--decompose", default=None, metavar="PANEL.png",
                    help="photon-ring order decomposition from one trace: "
                         "writes PANEL_composite.png, PANEL_n0.png .. on a "
@@ -295,5 +300,7 @@ def register(sub):
                    help="magnetic-field geometry for --polarization")
     p.add_argument("--output", default="volumetric.png")
     p.add_argument("--visibility", metavar="PATH",
-                   help="baseline-domain |V| profile (not ported yet)")
+                   help="baseline-domain |V| radial profile of the raw "
+                        "intensity, saved as .npz; the first-null ring "
+                        "diameter is printed")
     p.set_defaults(fn=cmd_volumetric)

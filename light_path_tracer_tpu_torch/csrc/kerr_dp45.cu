@@ -62,7 +62,9 @@
 // _wide_dop853, _wide_dop853_f64) and build nothing else, in the lazily
 // built "more" and "dop853" libraries. A ray's attempts do not depend on
 // its slots, so the first slots of a wide record are the narrow
-// instance's.
+// instance's. Tilted, warped and second planes and the crossing-time
+// recorder are the plane recorder's instances (kerr_planes.cuh, built by
+// kerr_dp45_planes.cu and its siblings with LPT_PLANES).
 //
 // Numerics follow the JAX package's dp45_integrate in the scalar type of
 // the instance (kerr_dp45_common.cuh): this file builds the float
@@ -634,6 +636,11 @@ int launch_family(const KerrCall<Real>& C, const Params<Real>& P,
 
 }  // namespace
 
+#ifdef LPT_PLANES
+// kerr_dp45_planes.cu and its siblings build the plane recorder's
+// instances and entry alone.
+#include "kerr_planes.cuh"
+#else
 extern "C" {
 
 #ifdef LPT_MU
@@ -703,3 +710,4 @@ const char* lpt_cuda_error_string(int code) {
 #endif
 
 }  // extern "C"
+#endif  // LPT_PLANES

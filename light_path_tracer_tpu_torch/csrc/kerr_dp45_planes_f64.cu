@@ -1,0 +1,5 @@
+// The float64 plane-recorder instances (entry lpt_kerr_dp45_planes_f64);
+// relocatable device code calling lpt_pow_f64.cu's pow (ops/cuda/_build.py).
+
+#define LPT_DOUBLE 1
+#include "kerr_dp45_planes.cu"

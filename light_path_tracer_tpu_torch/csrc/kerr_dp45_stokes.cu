@@ -16,7 +16,8 @@
 // inside) and the field direction b (vertical, toroidal or radial: one
 // switch, the same for every ray of a launch). u has only t and phi
 // components, so of the Levi-Civita contraction's 24 signed terms 12
-// vanish for every field; the rest are written out. Its Walker-Penrose
+// vanish for every field; the rest are written out, each divided and
+// summed as the plain loop sums them. Its Walker-Penrose
 // constant is inverted through the ray's four camera-side constants
 // (aux: kappa(e1), kappa(e2), read once into registers), which gives
 // cos 2chi and sin 2chi by algebra alone, and
@@ -107,14 +108,17 @@ struct Stokes {
     const T bl3 = g_phiphi * b3;
 
     // f^mu = eps^{mu nu rho sigma} u_nu k_rho b_sigma / sqrt(-det g): the
-    // twelve terms with nu in {t, phi}
-    const T inv_sqrtg = T(1.0) / jmax(Sigma * abs_(sin_th), T(1e-12));
-    const T f0 = ul3 * (kl1 * bl2 - kl2 * bl1) * inv_sqrtg;
-    const T f1 = (ul0 * (kl3 * bl2 - kl2 * bl3) +
-                  ul3 * (kl2 * bl0 - kl0 * bl2)) * inv_sqrtg;
-    const T f2 = (ul0 * (kl1 * bl3 - kl3 * bl1) +
-                  ul3 * (kl0 * bl1 - kl1 * bl0)) * inv_sqrtg;
-    const T f3 = ul0 * (kl2 * bl1 - kl1 * bl2) * inv_sqrtg;
+    // twelve terms with nu in {t, phi}, each divided by sqrt(-det g) and
+    // summed from zero in the order of the plain loop's contraction
+    // (polarization.py _PERMS, itertools.permutations order); the other
+    // twelve add zeros, which change no sum.
+    const T sqrtg = jmax(Sigma * abs_(sin_th), T(1e-12));
+    const T f0 = T(0.0) + ul3 * kl1 * bl2 / sqrtg + -ul3 * kl2 * bl1 / sqrtg;
+    const T f1 = T(0.0) + -ul0 * kl2 * bl3 / sqrtg + ul0 * kl3 * bl2 / sqrtg +
+                 -ul3 * kl0 * bl2 / sqrtg + ul3 * kl2 * bl0 / sqrtg;
+    const T f2 = T(0.0) + ul0 * kl1 * bl3 / sqrtg + -ul0 * kl3 * bl1 / sqrtg +
+                 ul3 * kl0 * bl1 / sqrtg + -ul3 * kl1 * bl0 / sqrtg;
+    const T f3 = T(0.0) + -ul0 * kl1 * bl2 / sqrtg + ul0 * kl2 * bl1 / sqrtg;
 
     // the fluid-frame pitch factor sin(xi) = |f| / (omega_fluid |b_perp|)
     const T omega_fluid = -(kl0 * u0 + kl3 * u3);

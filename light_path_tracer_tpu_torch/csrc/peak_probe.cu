@@ -45,7 +45,9 @@ enum ProbeForm {
   // eight chains a thread of one library sequence: float32, then float64
   kExp32x8 = 5, kPow32x8 = 6, kDiv32x8 = 7, kSqrt32x8 = 8, kSin32x8 = 9,
   kCos32x8 = 10, kExp64x8 = 11, kPow64x8 = 12, kDiv64x8 = 13,
-  kSqrt64x8 = 14, kSin64x8 = 15, kCos64x8 = 16
+  kSqrt64x8 = 14, kSin64x8 = 15, kCos64x8 = 16,
+  // atan2(v, b), the plane recorder's in-plane azimuth
+  kAtan232x8 = 17, kAtan264x8 = 18
 };
 
 // One fused multiply-add, rounded once, in float or double.
@@ -132,6 +134,12 @@ __device__ __forceinline__ float sin_(float x) { return sinf(x); }
 __device__ __forceinline__ double sin_(double x) { return sin(x); }
 __device__ __forceinline__ float cos_(float x) { return cosf(x); }
 __device__ __forceinline__ double cos_(double x) { return cos(x); }
+__device__ __forceinline__ float atan2_(float y, float x) {
+  return atan2f(y, x);
+}
+__device__ __forceinline__ double atan2_(double y, double x) {
+  return atan2(y, x);
+}
 
 struct ExpStep {
   template <class F> __device__ static F run(F v, F) { return exp_(-v); }
@@ -150,6 +158,11 @@ struct SinStep {
 };
 struct CosStep {
   template <class F> __device__ static F run(F v, F) { return cos_(v); }
+};
+struct Atan2Step {
+  template <class F> __device__ static F run(F v, F b) {
+    return atan2_(v, b);
+  }
 };
 
 // Eight independent chains v <- Op(v, b) an element, started 0.01 apart,
@@ -210,9 +223,10 @@ extern "C" {
 // a cudaError_t (0 on success). form: 0 float32 FMA, 1 float64 FMA (x and
 // out are double), 2 mixed, 3 sinf, 4 eight float32 FMA chains, 5..10
 // eight float32 chains of exp(-v), b^v, b / v, sqrt(v), sin(v), cos(v),
-// 11..16 the same in float64 (x and out are double). a and b are the
-// multiplier and the addend of the FMA forms; b is the base of the power
-// and the numerator of the division.
+// 11..16 the same in float64 (x and out are double), 17 and 18 eight
+// chains of atan2(v, b) in float32 and float64. a and b are the
+// multiplier and the addend of the FMA forms; b is the base of the power,
+// the numerator of the division and atan2's second argument.
 int lpt_peak_probe(int form, const void* x, void* out, int n, int k,
                    double a, double b, void* stream) {
   if (n <= 0) return 0;
@@ -257,6 +271,8 @@ int lpt_peak_probe(int form, const void* x, void* out, int n, int k,
     case kSqrt64x8: launch_op8<SqrtStep, double>(L); break;
     case kSin64x8: launch_op8<SinStep, double>(L); break;
     case kCos64x8: launch_op8<CosStep, double>(L); break;
+    case kAtan232x8: launch_op8<Atan2Step, float>(L); break;
+    case kAtan264x8: launch_op8<Atan2Step, double>(L); break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -5,12 +5,14 @@ The counterpart of `light_path_tracer_tpu.disk`: the still render
 (`render_disk`), the photon-ring decomposition (`render_disk_decomposed`),
 the hot-spot and textured-disk frames of one trace (`render_disk_frames`
 with `HotSpot`, `hotspot_pattern`, `texture_pattern`), the jittered-AA
-render (`render_disk_aa`) and the composite of the lensed background and
-the disk (`render_scene_with_disk`, `render_scene_with_disk_aa`).
-Model: a geometrically thin equatorial disk of Keplerian circular
-orbits between r_in (default r_isco) and r_out, power-law emissivity
-eps(r) ~ r^-q or a Shakura-Sunyaev blackbody. The trace
-records each ray's first max_hits in-disk equatorial crossings; each
+render (`render_disk_aa`), the composite of the lensed background and
+the disk (`render_scene_with_disk`, `render_scene_with_disk_aa`) and
+several planes in one trace (`render_multi_disk`).
+Model: a geometrically thin disk of Keplerian circular orbits between
+r_in (default r_isco) and r_out, in the equatorial plane or tilted
+(`DiskConfig.tilt`, `tilt_azimuth`) or warped (`warp_radius`),
+power-law emissivity eps(r) ~ r^-q or a Shakura-Sunyaev blackbody. The
+trace records each ray's first max_hits in-disk crossings; each
 contributes
 
     I_obs = g^p eps(r_c),   g = E_obs / E_em = 1 / (u^t (1 - Omega xi)),
@@ -25,11 +27,12 @@ included); the ISCO, the Keplerian Omega and the emitter redshift take
 the charge. The trace runs on the tensors' device: the hand-written CUDA
 kernel's disk variant on a CUDA device (through the two-pass driver by
 default), its plain PyTorch loop on the CPU. The emission and the tone
-map are plain PyTorch on the same device. The ISCO is host NumPy.
-
-Not ported yet (they raise, see ROADMAP.md): tilted and warped disks,
-the crossing-time recorder, a boosted camera, the multi-disk and
-multi-host renders.
+map are plain PyTorch on the same device. The ISCO is host NumPy. A
+tilted, warped or second plane and the crossing-time recorder
+(record_time) run the kernel's plane-recorder instances on the card. A
+boosted camera aberrates the grids and multiplies each crossing's shift
+by the pixel's Doppler factor. The multi-host render is not ported
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ import torch
 from light_path_tracer_tpu_torch import camera
 from light_path_tracer_tpu_torch.models import Kerr, KerrNewman
 from light_path_tracer_tpu_torch.ops.batch import _backend
-from light_path_tracer_tpu_torch.ops.kerr_trace import CAPTURED
+from light_path_tracer_tpu_torch.ops.kerr_trace import CAPTURED, WarpedBasis
 from light_path_tracer_tpu_torch.ops.types import DiskTraceResult
 from light_path_tracer_tpu_torch.pipeline import _dtype_of, _source_tensor
 from light_path_tracer_tpu_torch.render import render_lensed_image
@@ -53,17 +56,12 @@ from light_path_tracer_tpu_torch.utils.timing import StageTimer
 __all__ = ["DiskConfig", "DiskTraceResult", "HotSpot", "r_isco",
            "disk_temperature", "keplerian_omega", "keplerian_redshift",
            "covariant_tphi_components", "hotspot_pattern",
-           "texture_pattern", "trace_disk_rays", "disk_emission",
+           "texture_pattern", "disk_basis", "warped_basis",
+           "trace_disk_rays", "trace_disk_rays_multi", "disk_emission",
            "decomposed_display", "composite_gamma_encode", "render_disk",
            "render_disk_decomposed", "render_disk_frames",
-           "render_disk_aa", "render_scene_with_disk",
+           "render_disk_aa", "render_multi_disk", "render_scene_with_disk",
            "render_scene_with_disk_aa"]
-
-
-def _not_ported(what):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP.md, "
-        f"Queue 1)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,7 +74,12 @@ class DiskConfig:
     g_power: float = 3.0           # I_obs = g^p * eps (powerlaw spectrum)
     opaque: bool = True            # first crossing blocks deeper images
     prograde: bool = True          # orbit sense vs the BH spin
-    # Tilted / warped disk (not ported yet: nonzero values raise).
+    # Tilted disk: the plane's inclination from the equator and the
+    # azimuth of its line of nodes [rad]. The crossing geometry is exact;
+    # the emitter keeps the equatorial Keplerian formulas at the crossing
+    # radius with the ray's angular momentum about the normal (exact for
+    # a = 0). warp_radius: a Bardeen-Petterson warp, the tilt growing as
+    # tilt / (1 + (warp_radius / r)^4) (None: a flat plane).
     tilt: float = 0.0
     tilt_azimuth: float = 0.0
     warp_radius: float | None = None
@@ -86,6 +89,43 @@ class DiskConfig:
     # Shakura-Sunyaev profile, intensity ~ T_obs^4, utils/color.py colour.
     spectrum: str = "powerlaw"
     t_peak: float = 9000.0         # blackbody: peak disk temperature [K]
+
+
+def disk_basis(tilt: float, tilt_azimuth: float):
+    """(normal, e1, e2) of the disk plane as Python floats: the columns of
+    R_z(tilt_azimuth) R_x(tilt) acting on (z, x, y). tilt = 0 gives n = z,
+    e1 = x, e2 = y, so the in-plane azimuth is the chart's."""
+    si, ci = np.sin(tilt), np.cos(tilt)
+    sl, cl = np.sin(tilt_azimuth), np.cos(tilt_azimuth)
+    n = (si * sl, -si * cl, ci)
+    e1 = (cl, sl, 0.0)
+    e2 = (-sl * ci, cl * ci, si)
+    return (tuple(map(float, n)), tuple(map(float, e1)),
+            tuple(map(float, e2)))
+
+
+def warped_basis(tilt: float, tilt_azimuth: float, warp_radius: float,
+                 power: float = 4.0):
+    """The radius-dependent basis of a Bardeen-Petterson warp, iota(r) =
+    tilt / (1 + (warp_radius / r)^power) in disk_basis's convention: a
+    callable r -> ((n), (e1), (e2)) of tensors (ops.kerr_trace.WarpedBasis,
+    whose numbers the CUDA kernel reads)."""
+    return WarpedBasis(tilt, tilt_azimuth, warp_radius, power)
+
+
+def _plane_of(disk: DiskConfig, metric) -> tuple:
+    """(r_in, r_out, theta_plane, opaque) of a disk's recorder."""
+    return (_r_in_of(disk, metric.M, metric.a, getattr(metric, "Q", 0.0)),
+            float(disk.r_out), float(np.pi / 2), bool(disk.opaque))
+
+
+def _normal_of(disk: DiskConfig):
+    """The recorder's basis of a disk: warped, flat tilted or None."""
+    if disk.warp_radius is not None:
+        return warped_basis(disk.tilt, disk.tilt_azimuth, disk.warp_radius)
+    if disk.tilt != 0.0:
+        return disk_basis(disk.tilt, disk.tilt_azimuth)
+    return None
 
 
 def _scene_metric(scene: SceneConfig):
@@ -325,39 +365,69 @@ def trace_disk_rays(metric, r_obs, alphas, thetas, theta_obs,
                     pass1_steps: int = 512,
                     record_momentum: bool = False,
                     record_time: bool = False) -> DiskTraceResult:
-    """Trace rays recording equatorial crossings; returns DiskTraceResult.
+    """Trace rays recording the disk's crossings; returns DiskTraceResult.
 
     The tensors' device picks the path (backend must be 'auto'): the
-    CUDA kernel's disk variant for a CUDA tensor, its plain loop for a
-    CPU tensor. two_pass: straggler containment ('auto' = on, as in the
-    JAX package, whose disk workloads come from jittered grids whose
-    near-axis rays grind thousands of steps); pass1_steps caps the first
-    pass.
+    CUDA kernel's disk variant for a CUDA tensor (its plane-recorder
+    instances for a tilted or warped disk or with record_time), its plain
+    loop for a CPU tensor. two_pass: straggler containment ('auto' = on,
+    as in the JAX package, whose disk workloads come from jittered grids
+    whose near-axis rays grind thousands of steps); pass1_steps caps the
+    first pass. record_time adds t_hits (the coordinate time of each
+    crossing from the camera) and t_end (at capture, escape or an opaque
+    stop).
     """
     if method not in ("dp45", "dop853"):
         raise ValueError(
             f"disk mode supports integrator 'dp45' or 'dop853' (the "
             f"crossing recorder lives in the adaptive loop), got "
             f"{method!r}")
-    if disk.tilt != 0.0 or disk.warp_radius is not None:
-        raise _not_ported("tilted or warped disks")
-    if record_time:
-        raise _not_ported("the crossing-time recorder (record_time)")
     _backend(backend, alphas)
-    plane = (_r_in_of(disk, metric.M, metric.a, getattr(metric, "Q", 0.0)),
-             float(disk.r_out),
-             float(np.pi / 2), bool(disk.opaque))
     from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
         trace_disk_rays_cuda, trace_disk_rays_two_pass)
     args = (metric, float(r_obs), alphas, thetas, float(theta_obs),
-            float(lambda_max), max_steps, plane, disk.max_hits)
+            float(lambda_max), max_steps, _plane_of(disk, metric),
+            disk.max_hits)
+    kw = dict(precision=precision, record_momentum=record_momentum,
+              method=method, disk_normal=_normal_of(disk),
+              record_time=record_time)
     if two_pass if two_pass != "auto" else True:
-        return trace_disk_rays_two_pass(
-            *args, pass1_steps=pass1_steps, precision=precision,
-            record_momentum=record_momentum, method=method)
-    return trace_disk_rays_cuda(*args, precision=precision,
-                                record_momentum=record_momentum,
-                                method=method)
+        return trace_disk_rays_two_pass(*args, pass1_steps=pass1_steps, **kw)
+    return trace_disk_rays_cuda(*args, **kw)
+
+
+def trace_disk_rays_multi(metric, r_obs, alphas, thetas, theta_obs,
+                          lambda_max: float, max_steps: int, disks,
+                          precision: str = "fast", method: str = "dp45",
+                          two_pass="auto", pass1_steps: int = 512):
+    """Trace rays recording the crossings of several independent disk
+    planes in one integration; returns a tuple of DiskTraceResult, one a
+    disk, sharing the ray's status, heading and steps. A ray parks at its
+    first in-disk crossing of any opaque plane, so planes behind it are
+    occluded; every plane records max(max_hits) slots. On a CUDA tensor
+    the kernel's plane-recorder instances take two planes (more raise
+    NotImplementedError before any launch); the plain loop takes any
+    number."""
+    if method not in ("dp45", "dop853"):
+        raise ValueError(
+            f"disk mode supports integrator 'dp45' or 'dop853', got "
+            f"{method!r}")
+    disks = tuple(disks)
+    _backend("auto", alphas)
+    from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
+        trace_disk_rays_multi_cuda, trace_disk_rays_two_pass)
+    planes = [(_plane_of(d, metric), _normal_of(d)) for d in disks]
+    args = (metric, float(r_obs), alphas, thetas, float(theta_obs),
+            float(lambda_max), max_steps, planes)
+    max_hits = max(d.max_hits for d in disks)
+    if two_pass if two_pass != "auto" else True:
+        res = trace_disk_rays_two_pass(
+            *args[:-1], planes[0][0], max_hits, pass1_steps=pass1_steps,
+            precision=precision, method=method, disk_normal=planes[0][1],
+            extra_disks=tuple(planes[1:]))
+        return res if len(planes) > 1 else (res,)
+    return trace_disk_rays_multi_cuda(*args, max_hits, precision=precision,
+                                      method=method)
 
 
 def _pow4(x):
@@ -379,10 +449,10 @@ def disk_emission(scene: SceneConfig, disk: DiskConfig, r_in,
     multiplies each crossing's emission (needs phi_hits), evaluated at
     t - delay_hits[slot] where delays are given; per_slot returns the
     unsummed (n_slots, N) contributions; annulus=(r_lo, r_hi) masks each
-    crossing's radius. doppler (a moving camera) is not ported yet.
+    crossing's radius. doppler: the per-ray Doppler factor of a moving
+    camera (camera.doppler_lookup), which multiplies each crossing's
+    shift. xi_hits (a tilted disk) replace xi slot by slot.
     """
-    if doppler is not None:
-        raise _not_ported("the camera Doppler factor (boost)")
     color = disk.spectrum == "blackbody"
     if color:
         from light_path_tracer_tpu_torch.utils.color import blackbody_rgb
@@ -397,6 +467,8 @@ def disk_emission(scene: SceneConfig, disk: DiskConfig, r_in,
         xi_slot = xi_hits[slot] if len(xi_hits) > slot else xi
         g = keplerian_redshift(scene.M, scene.a, r_c, xi_slot,
                                disk.prograde, Q=scene.Q)
+        if doppler is not None:
+            g = g * doppler
         t_slot = t - delay_hits[slot] if len(delay_hits) > slot else t
         mult = (pattern(r_c, phi_hits[slot], t_slot)
                 if pattern is not None else 1.0)
@@ -473,9 +545,10 @@ def render_disk(scene: SceneConfig, resolution,
 
     with timer.stage("render"):
         r_in = _r_in_of(disk, scene.M, scene.a, scene.Q)
-        intensity, rgb = disk_emission(scene, disk, r_in, res.n_hits,
-                                       res.r_hits, res.xi,
-                                       xi_hits=res.xi_hits)
+        intensity, rgb = disk_emission(
+            scene, disk, r_in, res.n_hits, res.r_hits, res.xi,
+            doppler=_doppler(scene, cfg, resolution, device),
+            xi_hits=res.xi_hits)
         img = _finish_image(intensity, rgb, resolution, disk.tone_map)
 
     stats = dict(
@@ -492,25 +565,39 @@ def _lambda_max(scene) -> float:
 
 
 def _trace_grid(metric, scene, cfg, disk, alpha, theta, two_pass=None,
-                record_momentum=False) -> DiskTraceResult:
+                record_momentum=False, record_time=False) -> DiskTraceResult:
     """The disk trace of the camera grids (alpha, theta), raveled."""
     return trace_disk_rays(
         metric, scene.r_obs, alpha.reshape(-1), theta.reshape(-1),
         scene.theta_obs, _lambda_max(scene), cfg.max_steps, disk,
         backend=cfg.backend, precision=cfg.precision, method=cfg.integrator,
         two_pass=cfg.two_pass if two_pass is None else two_pass,
-        pass1_steps=cfg.pass1_steps, record_momentum=record_momentum)
+        pass1_steps=cfg.pass1_steps, record_momentum=record_momentum,
+        record_time=record_time)
 
 
 def _grids(scene, cfg, resolution, device, pixel_offset=(0.0, 0.0)):
-    """(fov, alpha, theta) of the scene's camera at `resolution`."""
-    if scene.boosted:
-        raise _not_ported("a boosted camera (boost)")
+    """(fov, alpha, theta) of the scene's camera at `resolution` (a boost
+    aberrates them)."""
     fov = camera.fov_from_vertical(scene.vertical_fov, resolution)
     grid = dict(psi=scene.psi, dtype=_dtype_of(cfg), device=device,
-                pixel_offset=tuple(pixel_offset))
+                pixel_offset=tuple(pixel_offset), boost=scene.boost)
     return (fov, camera.build_alpha_lookup(resolution, fov, **grid),
             camera.build_theta_lookup(resolution, fov, **grid))
+
+
+def _doppler(scene, cfg, resolution, device, offsets=((0.0, 0.0),)):
+    """The moving camera's per-ray Doppler factors of the passes at
+    `offsets`, raveled in the trace's order; None for a static camera.
+    The factor multiplies the disk's shift only: the lensed background
+    of a composite is display-referred and takes the aberration alone."""
+    if not scene.boosted:
+        return None
+    fov = camera.fov_from_vertical(scene.vertical_fov, resolution)
+    return torch.cat([camera.doppler_lookup(
+        resolution, fov, scene.boost, dtype=_dtype_of(cfg),
+        pixel_offset=tuple(off), device=device).reshape(-1)
+        for off in offsets])
 
 
 def _common_stats(scene, disk, res, rays):
@@ -555,6 +642,7 @@ def render_disk_decomposed(scene: SceneConfig, resolution,
         r_in = _r_in_of(disk, scene.M, scene.a, scene.Q)
         slot_i, slot_rgb = disk_emission(
             scene, rec, r_in, res.n_hits, res.r_hits, res.xi,
+            doppler=_doppler(scene, cfg, resolution, device),
             xi_hits=res.xi_hits, per_slot=True, annulus=(r_in, disk.r_out))
         shape = (n_orders,) + tuple(resolution)
         layers = (slot_i.reshape(shape) if slot_rgb is None
@@ -617,10 +705,12 @@ def render_disk_frames(scene: SceneConfig, resolution, times,
                                       Q=scene.Q)
         ts = torch.tensor(times, dtype=dtype, device=device)
         color = disk.spectrum == "blackbody"
+        dl = _doppler(scene, cfg, resolution, device)
         intensity, rgb = [], []
         for t in ts:
             i_t, rgb_t = disk_emission(scene, disk, r_in, res.n_hits,
-                                       res.r_hits, res.xi, pattern=pattern,
+                                       res.r_hits, res.xi, doppler=dl,
+                                       pattern=pattern,
                                        phi_hits=res.phi_hits, t=t,
                                        xi_hits=res.xi_hits)
             intensity.append(i_t)
@@ -736,9 +826,11 @@ def render_scene_with_disk(scene: SceneConfig, source_image,
         everything = slice(None)
         background = _background(img, alpha, theta, res, everything,
                                  resolution, alpha_crit, fov, scene, cfg)
-        intensity, rgb = disk_emission(scene, disk, r_in, res.n_hits,
-                                       res.r_hits, res.xi,
-                                       xi_hits=res.xi_hits)
+        intensity, rgb = disk_emission(
+            scene, disk, r_in, res.n_hits, res.r_hits, res.xi,
+            doppler=_doppler(scene, cfg, resolution, device,
+                             (pixel_offset,)),
+            xi_hits=res.xi_hits)
         lum = _tone_map(intensity, disk.tone_map) * disk_gain
         grayscale = background.dim() == 2
         disk_px = _disk_pixels(lum, intensity, rgb, resolution, grayscale,
@@ -780,8 +872,6 @@ def render_disk_aa(scene: SceneConfig, resolution,
     from light_path_tracer_tpu_torch.aa import _stacked_grids, aa_offsets
 
     metric = _scene_metric(scene)
-    if scene.boosted:
-        raise _not_ported("a boosted camera (boost)")
     timer = StageTimer(device)
     height, width = resolution
     fov = camera.fov_from_vertical(scene.vertical_fov, resolution)
@@ -797,9 +887,10 @@ def render_disk_aa(scene: SceneConfig, resolution,
 
     with timer.stage("render"):
         r_in = _r_in_of(disk, scene.M, scene.a, scene.Q)
-        intensity, rgb = disk_emission(scene, disk, r_in, res.n_hits,
-                                       res.r_hits, res.xi,
-                                       xi_hits=res.xi_hits)
+        intensity, rgb = disk_emission(
+            scene, disk, r_in, res.n_hits, res.r_hits, res.xi,
+            doppler=_doppler(scene, cfg, resolution, device, offsets),
+            xi_hits=res.xi_hits)
         intensity = intensity.reshape(n_s, height * width).mean(dim=0)
         if rgb is not None:
             rgb = rgb.reshape(n_s, height * width, 3).mean(dim=0)
@@ -810,6 +901,64 @@ def render_disk_aa(scene: SceneConfig, resolution,
         aa_samples=n_s,
         timings=timer.finish(),
         **_common_stats(scene, disk, res, n_s * height * width))
+    return img, stats
+
+
+def render_multi_disk(scene: SceneConfig, resolution,
+                      cfg: RenderConfig = RenderConfig(),
+                      disks=(DiskConfig(),), device="cuda"):
+    """Several independent disks (e.g. equatorial and tilted) in one
+    trace; returns (image, stats) as render_disk.
+
+    Emission adds over the planes, each with its own r_in, emissivity and
+    spectrum parameters (one spectrum type and tone map for all); an
+    opaque plane occludes the planes a ray would cross after it, since
+    the shared trace parks the ray there. render_multi_disk([d]) equals
+    render_disk(d). stats adds disk_pixels_per_plane and n_disks.
+    """
+    disks = tuple(disks)
+    if len({d.spectrum for d in disks}) != 1:
+        raise ValueError("all disks must share a spectrum type")
+    if len({d.tone_map for d in disks}) != 1:
+        raise ValueError("all disks must share a tone_map")
+    metric = _scene_metric(scene)
+    timer = StageTimer(device)
+    height, width = resolution
+
+    with timer.stage("build_lookup"):
+        _fov, alpha, theta = _grids(scene, cfg, resolution, device)
+
+    with timer.stage("precompute"):
+        results = trace_disk_rays_multi(
+            metric, scene.r_obs, alpha.reshape(-1), theta.reshape(-1),
+            scene.theta_obs, _lambda_max(scene), cfg.max_steps, disks,
+            precision=cfg.precision, method=cfg.integrator,
+            two_pass=cfg.two_pass, pass1_steps=cfg.pass1_steps)
+
+    with timer.stage("render"):
+        dl = _doppler(scene, cfg, resolution, device)
+        intensity = rgb = None
+        for disk, res in zip(disks, results):
+            inten_p, rgb_p = disk_emission(
+                scene, disk, _r_in_of(disk, scene.M, scene.a, scene.Q),
+                res.n_hits, res.r_hits, res.xi, doppler=dl,
+                xi_hits=res.xi_hits)
+            intensity = inten_p if intensity is None else intensity + inten_p
+            if rgb_p is not None:
+                rgb = rgb_p if rgb is None else rgb + rgb_p
+        img = _finish_image(intensity, rgb, resolution, disks[0].tone_map)
+
+    any_hit = torch.zeros_like(results[0].n_hits, dtype=torch.bool)
+    for res in results:
+        any_hit |= res.n_hits > 0
+    stats = dict(
+        alpha_crit=metric.alpha_crit(scene.r_obs, scene.theta_obs,
+                                    device=device),
+        disk_pixels=int(any_hit.sum()),
+        disk_pixels_per_plane=[int((r.n_hits > 0).sum()) for r in results],
+        n_disks=len(disks),
+        timings=timer.finish(),
+        **_common_stats(scene, disks[0], results[0], height * width))
     return img, stats
 
 
@@ -892,9 +1041,10 @@ def _render_scene_with_disk_aa_stacked(scene, source_image, cfg, disk,
 
     with timer.stage("render"):
         r_in = _r_in_of(disk, scene.M, scene.a, scene.Q)
-        intensity, rgb = disk_emission(scene, disk, r_in, res.n_hits,
-                                       res.r_hits, res.xi,
-                                       xi_hits=res.xi_hits)
+        intensity, rgb = disk_emission(
+            scene, disk, r_in, res.n_hits, res.r_hits, res.xi,
+            doppler=_doppler(scene, cfg, resolution, device, offsets),
+            xi_hits=res.xi_hits)
         per_pass = intensity.reshape(n_s, n_px)
         peaks = per_pass.max(dim=1, keepdim=True).values
         lum = (_tone_map(per_pass, disk.tone_map, peaks)

@@ -3,12 +3,14 @@
 The sources in `light_path_tracer_tpu_torch/csrc/*.cu` have a plain C
 interface; each `*_f64.cu` builds the float64 instances of its float
 sibling, each `*_mu*.cu` the Kerr kernel's mu-chart instances, each
-`*_wide*.cu` its disk variant's instances for 5 to 8 crossing slots and
-each `*_kn*.cu` the extras kernel's Kerr-Newman ones. They form three
-libraries: "dp45", the DP45 Kerr and extras kernels' theta and Kerr
-instances, the orbit kernel and the peak probe; "more", the DP45 mu-chart,
-wide and Kerr-Newman-extras instances (`kerr_dp45_*mu*.cu`,
-`kerr_dp45_wide*.cu`, `kerr_dp45_*_kn*.cu`); and "dop853", every
+`*_wide*.cu` its disk variant's instances for 5 to 8 crossing slots, each
+`*_planes*.cu` its plane-recorder instances (tilted, warped and second
+planes, crossing times) and each `*_kn*.cu` the extras kernel's
+Kerr-Newman ones. They form three libraries: "dp45", the DP45 Kerr and
+extras kernels' theta and Kerr instances, the orbit kernel and the peak
+probe; "more", the DP45 mu-chart, wide, plane-recorder and
+Kerr-Newman-extras instances (`kerr_dp45_*mu*.cu`, `kerr_dp45_wide*.cu`,
+`kerr_dp45_planes*.cu`, `kerr_dp45_*_kn*.cu`); and "dop853", every
 `kerr_dop853*.cu` source (the DOP853 instances of the Kerr and extras
 kernels, every chart, width and family). At the first use of a library
 each of its sources is compiled by its own `nvcc` for Hopper (`sm_90a`),
@@ -20,8 +22,9 @@ instances. A later process with the same sources loads the existing file.
 Nothing is compiled when a module is imported, and a missing `nvcc` or a
 failed build raises with the compiler's output.
 
-The float64 extras sources (`*_{extras,stokes,movie,orders}*_f64.cu`) are
-built as relocatable device code and call the float64 pow of
+The float64 extras and plane-recorder sources
+(`*_{extras,stokes,movie,orders,planes}*_f64.cu`) are built as
+relocatable device code and call the float64 pow of
 `csrc/lpt_pow_f64.cu`, a translation unit built with nvcc's default
 contraction, as PyTorch builds its own pow: each library that holds such
 sources compiles that file too and device-links them before the link.
@@ -72,24 +75,27 @@ EXTRAS_ENTRIES = ("lpt_kerr_dp45_extras", "lpt_kerr_dp45_stokes",
 KN_EXTRAS_ENTRIES = tuple(e for e in EXTRAS_ENTRIES
                           if e != "lpt_kerr_dp45_stokes")
 # The Kerr kernel's C entry points: the theta chart, the mu chart and the
-# wide disk instances.
+# wide disk instances (a call and the disk flag); the plane-recorder
+# instances take a call and a PlaneSet.
 KERR_ENTRIES = ("lpt_kerr_dp45", "lpt_kerr_dp45_mu", "lpt_kerr_dp45_wide")
+PLANES_ENTRY = "lpt_kerr_dp45_planes"
 
 
 def _variant_source(name):
-    """A source of the mu chart's, the wide disk or the Kerr-Newman
-    extras' instances."""
+    """A source of the mu chart's, the wide disk, the plane-recorder or
+    the Kerr-Newman extras' instances."""
     stem = name[:-len(".cu")]
-    return ("_mu" in stem or "_wide" in stem
+    return ("_mu" in stem or "_wide" in stem or "_planes" in stem
             or stem.endswith(("_kn", "_kn_f64")))
 
 
 def _rdc_source(name):
-    """A float64 source of the extras kernel (it calls lpt_pow_f64)."""
+    """A float64 source of the extras kernel or of the plane recorder (it
+    calls lpt_pow_f64)."""
     stem = name[:-len(".cu")]
     form = stem.removeprefix("kerr_dp45_").removeprefix("kerr_dop853_")
     return stem.endswith("_f64") and form.startswith(
-        ("extras", "stokes", "movie", "orders"))
+        ("extras", "stokes", "movie", "orders", "planes"))
 
 _P = ctypes.c_void_p
 _F = ctypes.c_float
@@ -207,6 +213,10 @@ def _declare_pair(lib, suffix, base=True, variants=True):
     for name in kerr:
         fn = getattr(lib, name + suffix)
         fn.argtypes = [_P, _I]
+        fn.restype = _I
+    if variants:
+        fn = getattr(lib, PLANES_ENTRY + suffix)
+        fn.argtypes = [_P, _P]
         fn.restype = _I
     for name in EXTRAS_ENTRIES if base else ():
         _declare_extras(lib, name + suffix, name + "_describe" + suffix)

@@ -58,8 +58,8 @@ __all__ = ["PEAK_FP32", "PEAK_FP64", "PEAK_BYTES", "PUBLISHED_FLOP",
            "GEODESIC", "MU_GEODESIC_FAMILIES", "Work", "form_flops",
            "attempt_flops", "source_ops",
            "transfer_ops", "rhs_ops", "attempt_ops", "extras_work",
-           "kerr_work", "orbit_work", "components", "flops_bound_ms",
-           "counted_bound_ms"]
+           "kerr_work", "planes_work", "orbit_work", "components",
+           "flops_bound_ms", "counted_bound_ms"]
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): float32 and
 # float64 outside the tensor cores, and HBM3.
@@ -131,7 +131,7 @@ def attempt_flops(components, rhs_extra=0, method="dp45"):
 
 # ---- the counted bound ---------------------------------------------------
 
-KINDS = ("flop", "div", "sqrt", "sin", "cos", "exp", "pow")
+KINDS = ("flop", "div", "sqrt", "sin", "cos", "exp", "pow", "atan2")
 # kind -> (the peak probe's form that times it, operations per counted
 # unit of that form's rate): a flop at the FMA chain's instruction rate,
 # raised to PUBLISHED_FLOP where the chain reads below it.
@@ -139,11 +139,11 @@ RATE_FORMS = {
     "float32": dict(flop=("fma32x8", 0.5), div=("div32x8", 1.0),
                     sqrt=("sqrt32x8", 1.0), sin=("sin32x8", 1.0),
                     cos=("cos32x8", 1.0), exp=("exp32x8", 1.0),
-                    pow=("pow32x8", 1.0)),
+                    pow=("pow32x8", 1.0), atan2=("atan232x8", 1.0)),
     "float64": dict(flop=("fma64", 0.5), div=("div64x8", 1.0),
                     sqrt=("sqrt64x8", 1.0), sin=("sin64x8", 1.0),
                     cos=("cos64x8", 1.0), exp=("exp64x8", 1.0),
-                    pow=("pow64x8", 1.0))}
+                    pow=("pow64x8", 1.0), atan2=("atan264x8", 1.0))}
 
 
 def _ops(**counts):
@@ -337,6 +337,54 @@ def kerr_work(dtype="float32", family="kerr", method="dp45", chart="theta"):
            else GEODESIC_FAMILIES)[family]
     return Work(attempt_flops(5, _extra_flops(geo, GEODESIC), method),
                 attempt_ops(5, geo, dtype, method), dtype)
+
+
+# The plane recorder (csrc/kerr_planes.cuh). An accepted attempt takes
+# one set of sines and cosines at its end (Trig: cos theta; sin theta
+# for a tilted plane or the time recorder; sin and cos phi for a tilted
+# plane), each plane's detector there (kind 0: a subtraction; a normal:
+# n . xhat, 7 flops; a warp adds n's basis: two divisions, a pow, a sin,
+# a cos and 3 flops) and the sign test's product, and with the time
+# recorder one tdot (18 flops, 2 divisions) and the trapezoid (4 flops):
+# the detectors and tdot at the start are the previous attempt's, which
+# the lane carries. A recorded crossing takes its own sines and cosines
+# (sin theta; cos theta for a normal or the time recorder; phi's for a
+# normal), then kind 0's azimuth (1 flop) or a normal's in-plane
+# azimuth and xi (25 flops, a division for the cotangent, an atan2; a
+# warp's basis at the crossing adds two divisions, a pow, a sin, a cos
+# and 5 flops), and with the time recorder tdot and t (22 flops, 2
+# divisions). The crossing's location (the root fraction and the
+# interpolation) is not counted.
+_DETECTOR = {0: _ops(flop=1), 1: _ops(flop=7),
+             2: _ops(flop=10, div=2, pow=1, sin=1, cos=1)}
+_AZIMUTH = {0: _ops(flop=1), 1: _ops(flop=25, div=1, atan2=1),
+            2: _ops(flop=30, div=3, pow=1, sin=1, cos=1, atan2=1)}
+_TDOT = _ops(flop=18, div=2)
+
+
+def _trig(sin_theta, cos_theta, phi):
+    """The library calls of one Trig: the sines and cosines taken."""
+    return _ops(sin=int(sin_theta) + int(phi),
+                cos=int(cos_theta) + int(phi))
+
+
+def planes_work(kinds, record_time=False, dtype="float32"):
+    """(the work of one accepted attempt, the work of one recorded
+    crossing on each plane) the plane recorder adds to the disk
+    variant's attempt (kerr_work), for planes of `kinds` (0 equatorial, 1
+    flat tilted, 2 warp): what bounds the plane-recorder instances with
+    the probe's accepted attempts and each plane's recorded crossings of
+    the run."""
+    tilted = any(kinds)
+    step = _add(_trig(tilted or record_time, True, tilted),
+                *(_add(_DETECTOR[k], _ops(flop=1)) for k in kinds),
+                *((_TDOT, _ops(flop=4)) if record_time else ()))
+    crossings = tuple(
+        _add(_trig(True, bool(k) or record_time, bool(k)), _AZIMUTH[k],
+             *((_TDOT, _ops(flop=4)) if record_time else ()))
+        for k in kinds)
+    return (Work(step["flop"] + step["div"], step, dtype),
+            tuple(Work(c["flop"] + c["div"], c, dtype) for c in crossings))
 
 
 def orbit_work(charged=False, dtype="float32"):

@@ -13,8 +13,13 @@ too: 1 to 4 slots through the instances of csrc/kerr_dp45.cu, 5 to 8
 through its wide instances (csrc/kerr_dp45_wide.cu and siblings; the DP45
 ones in the library `_build.load_library("more")` builds at their first
 launch); more than 8 raises NotImplementedError on a CUDA tensor before
-any launch (ROADMAP.md, Queue 2). The kernel runs one thread a ray in
-index order. It computes three
+any launch (ROADMAP.md, Queue 2). A tilted or warped plane, a second
+plane or the crossing-time recorder goes to the plane-recorder instances
+(csrc/kerr_planes.cuh through csrc/kerr_dp45_planes.cu and its f64 and
+DOP853 siblings; `trace_disk_rays_cuda` with disk_normal, extra_disks or
+record_time, `trace_disk_rays_multi_cuda`), up to two planes of 1 to 8
+slots; a third plane raises NotImplementedError before any launch. The
+kernel runs one thread a ray in index order. It computes three
 metric families, Kerr, Kerr-Newman and Johannsen-Psaltis (the shadow
 variant; the disk variant takes the first two), each named to the kernel
 by the metric's exact class: any other class raises, a subclass included.
@@ -83,8 +88,8 @@ from light_path_tracer_tpu_torch.models import (JohannsenPsaltis, Kerr,
                                                 KerrNewman)
 from light_path_tracer_tpu_torch.ops.cuda._build import check, load_library
 from light_path_tracer_tpu_torch.ops.kerr_trace import (
-    INVALID, POLAR_OBSERVER_SIN, _h_init_for, check_method, get_tols,
-    hybrid_poison, hybrid_slots, merge_results, stragglers)
+    INVALID, POLAR_OBSERVER_SIN, WarpedBasis, _h_init_for, check_method,
+    get_tols, hybrid_poison, hybrid_slots, merge_results, stragglers)
 from light_path_tracer_tpu_torch.ops.kerr_trace import (
     trace_disk_rays_kerr as trace_disk_rays_plain)
 from light_path_tracer_tpu_torch.ops.kerr_trace import (
@@ -93,6 +98,7 @@ from light_path_tracer_tpu_torch.ops.types import DiskTraceResult, TraceResult
 
 __all__ = ["trace_rays_kerr_cuda", "trace_rays_kerr_plain",
            "trace_disk_rays_cuda", "trace_disk_rays_plain",
+           "trace_disk_rays_multi_cuda",
            "trace_rays_kerr_two_pass", "trace_disk_rays_two_pass",
            "trace_rays_kerr_hybrid",
            "trace_rays_volumetric_two_pass", "trace_rays_aux_two_pass",
@@ -115,8 +121,11 @@ EXTRAS_FAMILIES = (Kerr, KerrNewman)
 # The charts of the shadow variant (KerrCall::chart).
 CHARTS = ("theta", "mu")
 # The sets of instances with launch counters of their own: the theta
-# chart's (no infix), the mu chart's and the wide disk instances.
-VARIANTS = CHARTS + ("wide",)
+# chart's (no infix), the mu chart's, the wide disk and the plane-recorder
+# instances.
+VARIANTS = CHARTS + ("wide", "planes")
+# Planes of the plane-recorder instances (csrc/kerr_planes.cuh kMaxPlanes).
+MAX_KERNEL_PLANES = 2
 
 
 def metric_family(metric, families=tuple(FAMILIES)) -> int:
@@ -153,8 +162,8 @@ def method_suffix(method) -> str:
 def library_of(method, variant=False) -> str:
     """The kernel library (ops/cuda/_build.py) that holds `method`'s
     instances: "dop853" for every DOP853 one; for DP45, "more" for the mu
-    chart's, the wide disk and the Kerr-Newman extras' (variant), "dp45"
-    for the rest."""
+    chart's, the wide disk, the plane-recorder and the Kerr-Newman
+    extras' (variant), "dp45" for the rest."""
     if method_suffix(method):
         return "dop853"
     return "more" if variant else "dp45"
@@ -163,8 +172,9 @@ def library_of(method, variant=False) -> str:
 def counter_name(dtype, method="dp45", chart="theta") -> str:
     """A wrapper's launch counter for the pair, dtype and set of
     instances (VARIANTS): "launches", "launches_f64", "launches_dop853"
-    or "launches_dop853_f64", with "_mu" or "_wide" after "launches" for
-    the mu chart's or the wide disk instances."""
+    or "launches_dop853_f64", with "_mu", "_wide" or "_planes" after
+    "launches" for the mu chart's, the wide disk or the plane-recorder
+    instances."""
     return ("launches" + ("" if chart == "theta" else "_" + chart)
             + method_suffix(method)
             + ("_f64" if dtype == torch.float64 else ""))
@@ -289,12 +299,14 @@ def family_scalars(metric) -> dict:
 def _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
             max_steps, precision, refine, disk, flags, probe, cycle_exit,
             method="dp45", event_interp="hermite", chart="theta",
-            force_invalid=None):
+            force_invalid=None, planes=None):
     """One launch of the kernel through its C entry point (the instance of
     the chart, the pair and the rays' dtype): the shadow variant, or the
     disk variant when `disk` holds (r_in, r_out, theta_plane, opaque,
     max_hits, momentum; the wide instances above NARROW_KERNEL_HITS).
-    Returns
+    With `planes` (a PlaneSet, whose pointers name the hit outputs) it
+    launches the plane-recorder instance instead and `disk` gives only
+    max_hits and momentum. Returns
     the per-ray outputs by name, "n_steps" the warp step sum (0-dim
     int64); "flags", the rays whose raw status is still RUNNING (bool),
     only when asked for."""
@@ -321,14 +333,16 @@ def _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
         r_in, r_out, theta_plane, opaque, max_hits, momentum = disk
         plane_c = math.cos(theta_plane)
         out["p_phi"] = p_phi = empty(n) if p_phi is None else p_phi
-        out["n_hits"] = empty(n, dt=torch.int32)
-        for k in ("r", "phi") + (("pr", "pth") if momentum else ()):
-            out[k] = empty(max_hits, n)
+        if planes is None:
+            out["n_hits"] = empty(n, dt=torch.int32)
+            for k in ("r", "phi") + (("pr", "pth") if momentum else ()):
+                out[k] = empty(max_hits, n)
     tols = get_tols(dtype, precision)
-    wide = max_hits > NARROW_KERNEL_HITS
-    entry = ("lpt_kerr_dp45" + ("_mu" if chart == "mu" else "")
-             + ("_wide" if wide else "") + method_suffix(method) + suffix)
-    lib = load_library(library_of(method, chart == "mu" or wide))
+    wide = planes is None and max_hits > NARROW_KERNEL_HITS
+    infix = ("_mu" if chart == "mu" else "") + ("_wide" if wide else "") + (
+        "_planes" if planes is not None else "")
+    entry = "lpt_kerr_dp45" + infix + method_suffix(method) + suffix
+    lib = load_library(library_of(method, bool(infix)))
     with torch.cuda.device(dev):
         call = (KerrCall64 if suffix else KerrCall)(
             alpha=alphas.data_ptr(), theta=thetas.data_ptr(),
@@ -361,7 +375,12 @@ def _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
             r_reclass=float(metric.capture_radius() * 1.1),
             r_in=float(r_in), r_out_disk=float(r_out), plane_c=plane_c,
             **family_scalars(metric))
-        rc = getattr(lib, entry)(ctypes.byref(call), int(disk is not None))
+        if planes is not None:
+            rc = getattr(lib, entry)(ctypes.byref(call),
+                                     ctypes.byref(planes))
+        else:
+            rc = getattr(lib, entry)(ctypes.byref(call),
+                                     int(disk is not None))
     check(lib, rc, f"{entry} launch")
     out["n_steps"] = warp_steps
     return out
@@ -433,16 +452,22 @@ def trace_disk_rays_cuda(metric, r_obs, alphas, thetas, theta_obs,
                          return_unconverged: bool = False,
                          record_momentum: bool = False,
                          probe: dict | None = None,
-                         _cycle_exit: bool = True, method: str = "dp45"):
+                         _cycle_exit: bool = True, method: str = "dp45",
+                         disk_normal=None, extra_disks=None,
+                         record_time: bool = False):
     """Trace N rays of a Kerr or Kerr-Newman metric with the kernel's
-    disk variant; returns DiskTraceResult (with return_unconverged,
-    (DiskTraceResult, raw-RUNNING mask)).
+    disk variant; returns DiskTraceResult (with extra_disks a tuple of
+    them, one a plane; with return_unconverged, (result, raw-RUNNING
+    mask)).
 
     Same arguments and result as trace_disk_rays_plain, whose events are
     then Hermite too; method "dp45" or "dop853". disk_plane =
     (r_in, r_out, theta_plane, opaque); max_disk_hits 1..8 (5..8 through
     the wide instances; more raises NotImplementedError before any
-    launch, fewer than 1 ValueError). alphas/
+    launch, fewer than 1 ValueError). A disk_normal (a flat basis or
+    ops.kerr_trace.WarpedBasis), one plane in extra_disks or
+    record_time launches the plane-recorder instances; a third plane
+    raises NotImplementedError before any launch. alphas/
     thetas: (N,) contiguous CUDA tensors, both float32 or both float64.
     probe: as trace_rays_kerr_cuda's. One kernel launch on the current
     stream, which does not synchronise. CPU tensors go to the plain
@@ -456,7 +481,9 @@ def trace_disk_rays_cuda(metric, r_obs, alphas, thetas, theta_obs,
             metric, r_obs, alphas, thetas, theta_obs, lambda_max,
             max_steps, disk_plane, max_disk_hits, precision=precision,
             return_unconverged=return_unconverged,
-            record_momentum=record_momentum, method=method)
+            record_momentum=record_momentum, method=method,
+            disk_normal=disk_normal, extra_disks=extra_disks,
+            record_time=record_time)
     check_method(method)
     _check_inputs((("alphas", alphas, None), ("thetas", thetas, None)),
                   alphas)
@@ -468,6 +495,13 @@ def trace_disk_rays_cuda(metric, r_obs, alphas, thetas, theta_obs,
     if max_disk_hits < 1:
         raise ValueError(f"max_disk_hits must be at least 1, got "
                          f"{max_disk_hits}")
+    if disk_normal is not None or extra_disks or record_time:
+        planes = [(disk_plane, disk_normal)] + list(extra_disks or ())
+        return _trace_planes(metric, r_obs, alphas, thetas, theta_obs,
+                             lambda_max, max_steps, planes, max_disk_hits,
+                             precision, return_unconverged,
+                             record_momentum, probe, _cycle_exit, method,
+                             record_time, multi=bool(extra_disks))
     r_in, r_out, theta_plane, opaque = disk_plane
     out = _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
                   max_steps, precision, None,
@@ -491,6 +525,137 @@ def trace_disk_rays_cuda(metric, r_obs, alphas, thetas, theta_obs,
 zero_counters(trace_disk_rays_cuda)
 
 
+def trace_disk_rays_multi_cuda(metric, r_obs, alphas, thetas, theta_obs,
+                               lambda_max: float, max_steps: int, planes,
+                               max_disk_hits: int = 2,
+                               precision: str = "fast",
+                               return_unconverged: bool = False,
+                               record_momentum: bool = False,
+                               probe: dict | None = None,
+                               method: str = "dp45",
+                               record_time: bool = False):
+    """Several disk planes in one trace: planes = [((r_in, r_out,
+    theta_plane, opaque), normal), ...]; returns a tuple of
+    DiskTraceResult, one a plane (trace_disk_rays_cuda with extra_disks).
+    On a CUDA tensor the plane-recorder instances take two planes; more
+    raise NotImplementedError before any launch."""
+    (plane0, normal0), rest = planes[0], tuple(planes[1:])
+    out = trace_disk_rays_cuda(
+        metric, r_obs, alphas, thetas, theta_obs, lambda_max, max_steps,
+        plane0, max_disk_hits, precision=precision,
+        return_unconverged=return_unconverged,
+        record_momentum=record_momentum, probe=probe, method=method,
+        disk_normal=normal0, extra_disks=rest, record_time=record_time)
+    if rest:
+        return out
+    return ((out[0],), out[1]) if return_unconverged else (out,)
+
+
+class PlaneSpec(ctypes.Structure):
+    """One plane of PlaneSet (csrc/kerr_planes.cuh), field for field, in
+    double: kind (0 the equatorial cos(theta) detector, 1 a flat basis,
+    2 a warp), opacity, then the outputs' pointers and the numbers."""
+
+    _fields_ = ([("kind", ctypes.c_int), ("opaque", ctypes.c_int)]
+                + [(name, ctypes.c_void_p) for name in (
+                    "hits", "r", "phi", "xi", "t", "pr", "pth")]
+                + [(name, ctypes.c_double) for name in (
+                    "r_in", "r_out", "plane_c", "tilt", "sl", "cl",
+                    "warp_radius", "power")]
+                + [("basis", ctypes.c_double * 9)])
+
+
+class PlaneSet(ctypes.Structure):
+    """The plane-recorder launch's planes (csrc/kerr_planes.cuh)."""
+
+    _fields_ = [("n_planes", ctypes.c_int), ("record_time", ctypes.c_int),
+                ("t_end", ctypes.c_void_p), ("accepted", ctypes.c_void_p),
+                ("planes", PlaneSpec * MAX_KERNEL_PLANES)]
+
+
+def _plane_spec(plane, normal, out):
+    """A PlaneSpec of one plane and its normal, writing to the tensors of
+    `out`; NotImplementedError for a callable normal that is not a
+    WarpedBasis (the kernel computes no other)."""
+    r_in, r_out, theta_plane, opaque = plane
+    spec = PlaneSpec(opaque=int(bool(opaque)), r_in=float(r_in),
+                     r_out=float(r_out), plane_c=math.cos(theta_plane),
+                     **{k: _ptr(out.get(k)) for k in (
+                         "hits", "r", "phi", "xi", "t", "pr", "pth")})
+    if isinstance(normal, WarpedBasis):
+        spec.kind = 2
+        spec.tilt, spec.sl, spec.cl = normal.tilt, normal.sl, normal.cl
+        spec.warp_radius, spec.power = normal.warp_radius, normal.power
+    elif callable(normal):
+        raise NotImplementedError(
+            "the CUDA plane recorder computes a flat basis or "
+            "disk.warped_basis's warp; other callable normals run on the "
+            "CPU's plain loop only")
+    elif normal is not None:
+        spec.kind = 1
+        flat = [float(c) for vec in normal for c in vec]
+        if len(flat) != 9:
+            raise ValueError("a disk normal is ((n), (e1), (e2)), three "
+                             "3-vectors")
+        spec.basis[:] = flat
+    return spec
+
+
+def _trace_planes(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
+                  max_steps, planes, max_hits, precision, return_unconverged,
+                  record_momentum, probe, cycle_exit, method, record_time,
+                  multi):
+    """One launch of the plane-recorder instances (trace_disk_rays_cuda's
+    route for tilted, warped and second planes and the time recorder).
+    The slots start at 0 and the kernel writes each as it records it."""
+    if len(planes) > MAX_KERNEL_PLANES:
+        raise NotImplementedError(
+            f"the CUDA plane recorder takes at most {MAX_KERNEL_PLANES} "
+            f"disk planes, got {len(planes)}; more are not ported yet "
+            f"(ROADMAP.md, Queue 2)")
+    n = alphas.numel()
+    dtype, dev = alphas.dtype, alphas.device
+    outs = []
+    for _plane, normal in planes:
+        keys = (("r", "phi") + (("xi",) if normal is not None else ())
+                + (("t",) if record_time else ())
+                + (("pr", "pth") if record_momentum else ()))
+        out = {k: torch.zeros(max_hits, n, dtype=dtype, device=dev)
+               for k in keys}
+        out["hits"] = torch.zeros(n, dtype=torch.int32, device=dev)
+        outs.append(out)
+    t_end = torch.empty(n, dtype=dtype, device=dev) if record_time else None
+    specs = [_plane_spec(pl, nrm, out) for (pl, nrm), out in zip(planes,
+                                                                outs)]
+    if probe is not None:
+        probe["accepted"] = torch.empty(n, dtype=torch.int32, device=dev)
+    pset = PlaneSet(n_planes=len(planes), record_time=int(bool(record_time)),
+                    t_end=_ptr(t_end),
+                    accepted=_ptr((probe or {}).get("accepted")))
+    for k, spec in enumerate(specs):
+        pset.planes[k] = spec
+    res = _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
+                  max_steps, precision, None,
+                  (0.0, 0.0, math.pi / 2, 0, max_hits, record_momentum),
+                  return_unconverged, probe, cycle_exit, method,
+                  planes=pset)
+    count_launch(trace_disk_rays_cuda, dtype, method, "planes")
+
+    def rows(out, k):
+        return tuple(out[k].unbind(0)) if k in out else ()
+    results = tuple(
+        DiskTraceResult(res["status"], out["hits"], rows(out, "r"),
+                        res["p_phi"], res["n_steps"], res["final_alpha"],
+                        res["n_half"], rows(out, "phi"), rows(out, "xi"),
+                        rows(out, "pr"), rows(out, "pth"), rows(out, "t"),
+                        t_end if t_end is not None else ())
+        for out in outs)
+    result = results if multi else results[0]
+    if return_unconverged:
+        return result, res["flags"]
+    return result
+
+
 # Re-trace slots of the Kerr and disk two-pass drivers (the JAX package's
 # default).
 SLOTS = 8192
@@ -503,6 +668,8 @@ def _two_pass(trace, pass1_steps, max_steps, slots):
     res1, unconv = trace(lambda t: t, pass1_steps, return_unconverged=True)
     idx, dest = stragglers(unconv, slots)
     res2 = trace(lambda t: t[idx], max_steps)
+    if isinstance(res1, tuple) and not hasattr(res1, "_fields"):
+        return tuple(merge_results(a, b, dest) for a, b in zip(res1, res2))
     return merge_results(res1, res2, dest)
 
 
@@ -594,18 +761,23 @@ def trace_disk_rays_two_pass(metric, r_obs, alphas, thetas, theta_obs,
                              slots: int = SLOTS, precision: str = "fast",
                              formulation: str = "theta",
                              record_momentum: bool = False, trace_fn=None,
-                             method: str = "dp45"):
+                             method: str = "dp45", disk_normal=None,
+                             extra_disks=None, record_time: bool = False):
     """trace_rays_kerr_two_pass's recipe over the disk variant: the
-    re-traced rays bring back their whole record (status, hits, heading).
-    Returns DiskTraceResult. trace_fn: the single-pass tracer,
-    trace_disk_rays_cuda by default."""
+    re-traced rays bring back their whole record (status, hits, heading,
+    crossing times and t_end). Returns DiskTraceResult (with extra_disks,
+    a tuple of them, each plane merged alike). trace_fn: the single-pass
+    tracer, trace_disk_rays_cuda by default."""
     trace_disk_rays_two_pass.launches += 1
     trace_fn = trace_fn or trace_disk_rays_cuda
+    extra = dict(disk_normal=disk_normal, extra_disks=extra_disks,
+                 record_time=record_time)
+    extra = {k: v for k, v in extra.items() if v}
     return _two_pass(lambda pick, steps, **kw: trace_fn(
         metric, r_obs, pick(alphas), pick(thetas), theta_obs, lambda_max,
         steps, disk_plane, max_disk_hits, precision=precision,
         formulation=formulation, record_momentum=record_momentum,
-        method=method, **kw), pass1_steps, max_steps, slots)
+        method=method, **extra, **kw), pass1_steps, max_steps, slots)
 
 
 trace_disk_rays_two_pass.launches = 0

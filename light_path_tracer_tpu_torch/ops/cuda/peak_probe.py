@@ -19,6 +19,8 @@ of length k over an array of elements, in these forms,
              float32 or float64, their sum stored (8 k calls): the library
              sequences (and the IEEE division) the ray kernels run, each at
              its throughput, which ops/cuda/bounds.py counts them against
+    "atan232x8", "atan264x8": the same of v <- atan2(v, 0.7), the plane
+             recorder's in-plane azimuth
 
 `chain_cuda` launches the hand-written kernel on a CUDA tensor and raises
 on any other CUDA input; on a CPU tensor it runs `chain_plain`, the same
@@ -53,13 +55,20 @@ LIBRARY_FORMS = {
 for _i, _op in enumerate(LIBRARY_FORMS):
     FORMS[f"{_op}32x8"] = (5 + _i, torch.float32, 8)
     FORMS[f"{_op}64x8"] = (11 + _i, torch.float64, 8)
+# atan2(v, b), the plane recorder's in-plane azimuth, on the next indices.
+LIBRARY_FORMS["atan2"] = (lambda v, b: torch.atan2(v, torch.full_like(v, b)),
+                          0.7)
+FORMS["atan232x8"] = (17, torch.float32, 8)
+FORMS["atan264x8"] = (18, torch.float64, 8)
 # Chain lengths measure_rates times (short, long): the FMA forms at 2,048
 # and 8,192; a library call costs tens of instructions, so its chains are
 # shorter, each long launch some milliseconds on an H100.
 CHAIN_LENGTHS = {form: (2048, 8192) for form in FORMS}
 CHAIN_LENGTHS.update({f"{op}{bits}x8": (k // 4, k) for bits, lengths in (
-    (32, dict(exp=512, pow=256, div=512, sqrt=512, sin=256, cos=256)),
-    (64, dict(exp=128, pow=64, div=256, sqrt=256, sin=128, cos=128)))
+    (32, dict(exp=512, pow=256, div=512, sqrt=512, sin=256, cos=256,
+              atan2=256)),
+    (64, dict(exp=128, pow=64, div=256, sqrt=256, sin=128, cos=128,
+              atan2=128)))
     for op, k in lengths.items()})
 # One thread an element: 2^22 elements are about fifteen full waves of
 # threads on an H100's 132 SMs.

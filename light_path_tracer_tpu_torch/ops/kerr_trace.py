@@ -240,14 +240,31 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
     recorder and a fifth return value, the dict of hit records: "n" (N,)
     int32 and "r", "phi" ("pr", "pth" with record_momentum) as
     (max_disk_hits, N) tensors. On each accepted step a sign change of
-    cos(theta) - cos(theta_plane) over [y, y_acc] (or landing on the
-    plane) is located at the linear root of that difference on the
-    step's Hermite interpolant (linear interpolation on lanes whose step
-    an event shortened, and on every lane with event_interp="linear"); a
-    crossing with r_in <= r <= r_out fills slot n
-    and increments n up to max_disk_hits, with the physical azimuth
-    (phi + pi where sin(theta) < 0). An opaque plane parks a ray that is
-    still running at its first such crossing, as ESCAPED.
+    the plane's detector over [y, y_acc] (or landing on the plane) is
+    located at the linear root of that difference on the step's Hermite
+    interpolant (linear interpolation on lanes whose step an event
+    shortened, and on every lane with event_interp="linear"); a crossing
+    with r_in <= r <= r_out fills slot n and increments n up to
+    max_disk_hits. The detector of an equatorial plane (disk_normal None)
+    is cos(theta) - cos(theta_plane), with the physical azimuth phi + pi
+    where sin(theta) < 0. disk_normal tilts the plane: a static basis
+    ((n), (e1), (e2)) of Python floats, or a callable r -> basis (a warp,
+    disk.warped_basis); the detector is then n . xhat(theta, phi), the
+    azimuth the in-plane atan2(xhat . e2, xhat . e1), and slot "xi" also
+    records the ray's angular momentum about n (the flat-embedding n . L
+    with a sign-preserving clamp of sin(theta) at 1e-12).
+
+    extra_disks: further ((r_in, r_out, theta_plane, opaque), normal)
+    planes, each with its own track of max_disk_hits slots under
+    hits["extra"] (a tuple of dicts like the first). A ray that is still
+    running parks, as ESCAPED, at its first in-disk crossing of any opaque
+    plane, the first in list order where one step crosses two.
+
+    record_time: hits["t"] (max_disk_hits, N) holds the coordinate time
+    of each recorded crossing and hits["t_now"] (N,) the ray's time at
+    the end (at its parking crossing for an opaque stop), accumulated by
+    a trapezoid of metric.tdot over each accepted (event-shortened)
+    segment; theta chart and a disk plane only.
 
     formulation: "theta" integrates (r, theta, phi, p_r, p_theta) with
     metric.rhs5; "mu" integrates (r, mu = cos(theta), phi, p_r, p_mu)
@@ -256,9 +273,6 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
     metric.state_from_mu), with mu's error weighed on the theta scale:
     its magnitude is floored at pi/2. The mu chart takes no extras, time
     recorder or disk plane, as in the JAX package.
-
-    Tilted or warped planes (disk_normal), further planes (extra_disks)
-    and the time recorder are later slices of the port.
     """
     if formulation not in ("theta", "mu"):
         raise ValueError(f"formulation must be 'theta' or 'mu', got "
@@ -273,12 +287,9 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
     if mu and disk_plane is not None:
         raise ValueError("disk mode supports formulation='theta' only")
     check_method(method, event_interp)
-    if disk_normal is not None:
-        raise _not_ported("tilted or warped disk planes (disk_normal)")
-    if extra_disks:
-        raise _not_ported("further disk planes (extra_disks)")
-    if record_time:
-        raise _not_ported("record_time")
+    if record_time and disk_plane is None:
+        raise ValueError("record_time needs a disk_plane (it exists to "
+                         "time crossings)")
     if sat_window and not sat_monitor:
         raise ValueError("sat_window > 0 needs a non-empty sat_monitor "
                          "(with nothing monitored every in-band lane "
@@ -314,18 +325,19 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
                                 device=y0.device)
 
     if disk_plane is not None:
-        r_in, r_out, theta_plane, opaque = disk_plane
-        # The cos(theta) detector sees the plane on every branch of the
-        # double-cover chart (over-the-pole rays cross at theta = -pi/2).
-        # cos(pi/2) is 6.1e-17, not 0: the tangent case below needs it.
-        plane_c = math.cos(theta_plane)
+        planes = [_Plane(disk_plane, disk_normal)] + [
+            _Plane(pl, nrm) for pl, nrm in (extra_disks or ())]
         slot_ids = torch.arange(max_disk_hits, dtype=torch.int32,
                                 device=y0.device)[:, None]
-        hits = {"n": torch.zeros_like(status0)}
-        for key in ("r", "phi") + (("pr", "pth") if record_momentum
-                                   else ()):
-            hits[key] = torch.zeros((max_disk_hits,) + y0[0].shape,
-                                    dtype=dtype, device=y0.device)
+        keys = (("r", "phi") + (("pr", "pth") if record_momentum else ())
+                + (("t",) if record_time else ()))
+        tracks = [pl.track(keys, max_disk_hits, status0, dtype)
+                  for pl in planes]
+        if record_time:
+            t_now = torch.zeros_like(y0[0])
+
+            def tdot(ys):
+                return metric.tdot(ys, p_t, p_phi)
 
     for step in range(max_steps):
         running = (status == RUNNING) & (lam < lam_max)
@@ -465,35 +477,44 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
         underflow = (reject | blowup) & (h_new < h_min)
 
         if disk_plane is not None:
-            # -- plane crossing on the accepted segment [y, y_acc] --
-            d_prev = torch.cos(y[1]) - plane_c
-            d_next = torch.cos(y_acc[1]) - plane_c
-            crossed = accept & ((d_prev * d_next < 0.0)
-                                | ((d_next == 0.0) & (d_prev != 0.0)))
-            den = torch.where(d_next == d_prev, one, d_next - d_prev)
-            frac_c = torch.clamp(-d_prev / den, 0.0, 1.0)
-            # k7 is the derivative at y5, so an event-shortened step
-            # interpolates linearly.
-            if event_interp == "hermite":
-                y_cross = _select(
-                    event, _lerp(y, y_acc, frac_c),
-                    _hermite_eval(y, y_acc, k1, k7, frac * h_eff, frac_c))
-            else:
-                y_cross = _lerp(y, y_acc, frac_c)
-            r_c = y_cross[0]
-            in_disk = crossed & (r_c >= r_in) & (r_c <= r_out)
-            phi_c = torch.where(torch.sin(y_cross[1]) < 0.0,
-                                y_cross[2] + math.pi, y_cross[2])
-            take = in_disk & (hits["n"] == slot_ids)
-            hits["r"] = torch.where(take, r_c, hits["r"])
-            hits["phi"] = torch.where(take, phi_c, hits["phi"])
-            if record_momentum:
-                hits["pr"] = torch.where(take, y_cross[3], hits["pr"])
-                hits["pth"] = torch.where(take, y_cross[4], hits["pth"])
-            hits["n"] = torch.where(
-                in_disk, torch.clamp(hits["n"] + 1, max=max_disk_hits),
-                hits["n"])
-            first_hit = in_disk & (hits["n"] == 1)
+            # -- plane crossings on the accepted segment [y, y_acc] --
+            seg = frac * h_eff
+            if record_time:
+                # a trapezoid of tdot over the accepted segment
+                td_prev = tdot(y)
+                t_acc = t_now + 0.5 * seg * (td_prev + tdot(y_acc))
+            crossings = []
+            for pl, track in zip(planes, tracks):
+                d_prev, d_next = pl.detector(y), pl.detector(y_acc)
+                crossed = accept & ((d_prev * d_next < 0.0)
+                                    | ((d_next == 0.0) & (d_prev != 0.0)))
+                den = torch.where(d_next == d_prev, one, d_next - d_prev)
+                frac_c = torch.clamp(-d_prev / den, 0.0, 1.0)
+                # k7 is the derivative at y5, so an event-shortened step
+                # interpolates linearly.
+                if event_interp == "hermite":
+                    y_cross = _select(
+                        event, _lerp(y, y_acc, frac_c),
+                        _hermite_eval(y, y_acc, k1, k7, seg, frac_c))
+                else:
+                    y_cross = _lerp(y, y_acc, frac_c)
+                r_c = y_cross[0]
+                in_disk = crossed & (r_c >= pl.r_in) & (r_c <= pl.r_out)
+                rec = dict(r=r_c, **pl.azimuth(y_cross, p_phi))
+                if record_momentum:
+                    rec.update(pr=y_cross[3], pth=y_cross[4])
+                if record_time:
+                    # the trapezoid over the sub-segment to the crossing
+                    rec["t"] = t_now + 0.5 * (frac_c * seg) * (
+                        td_prev + tdot(y_cross))
+                take = in_disk & (track["n"] == slot_ids)
+                for key, val in rec.items():
+                    track[key] = torch.where(take, val, track[key])
+                track["n"] = torch.where(
+                    in_disk, torch.clamp(track["n"] + 1, max=max_disk_hits),
+                    track["n"])
+                crossings.append((in_disk & (track["n"] == 1), y_cross,
+                                  rec.get("t")))
 
         # -- state/status update (masked) --
         y_prev = y
@@ -506,12 +527,21 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
         status = torch.where(cap, CAPTURED,
                              torch.where(esc, ESCAPED, status))
         status = torch.where(underflow | corrupt, INVALID, status)
-        if disk_plane is not None and opaque:
-            # The ray parks at its first in-disk crossing; a ray that
-            # was captured in the same step keeps its capture.
-            stop = first_hit & (status == RUNNING)
-            y = _select(stop, y_cross, y)
-            status = torch.where(stop, ESCAPED, status)
+        if disk_plane is not None:
+            # The ray parks at its first in-disk crossing of an opaque
+            # plane (the first in list order); a ray that was captured in
+            # the same step keeps its capture.
+            t_stop = t_acc if record_time else None
+            for pl, (first_hit, y_cross, t_c) in zip(planes, crossings):
+                if not pl.opaque:
+                    continue
+                stop = first_hit & (status == RUNNING)
+                y = _select(stop, y_cross, y)
+                status = torch.where(stop, ESCAPED, status)
+                if record_time:
+                    t_stop = torch.where(stop, t_c, t_stop)
+            if record_time:
+                t_now = torch.where(accept, t_stop, t_now)
         if sat_window:
             # Saturation and frozen-state exits: count consecutive
             # attempts, accepted or rejected, that left the monitored
@@ -534,8 +564,104 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
         h = h_new
 
     if disk_plane is not None:
+        hits = tracks[0]
+        if len(tracks) > 1:
+            hits["extra"] = tuple(tracks[1:])
+        if record_time:
+            hits["t_now"] = t_now
         return y, status, lam, attempts, hits
     return y, status, lam, attempts
+
+
+def _div(num, den):
+    """num / den for a Python float num, divided as the kernels and the
+    JAX package divide (PyTorch's float / tensor multiplies den's
+    reciprocal by num)."""
+    return torch.full((), float(num), dtype=den.dtype,
+                      device=den.device) / den
+
+
+class WarpedBasis:
+    """The disk basis of a Bardeen-Petterson warp (disk.warped_basis):
+    the plane tilts by iota(r) = tilt / (1 + (warp_radius / r)^power)
+    about the line of nodes at tilt_azimuth. Called with r it returns
+    ((n), (e1), (e2)) of tensors, the plain loops' detector basis; the
+    CUDA kernel reads the four numbers."""
+
+    def __init__(self, tilt, tilt_azimuth, warp_radius, power=4.0):
+        self.tilt, self.warp_radius = float(tilt), float(warp_radius)
+        self.power = float(power)
+        self.sl = float(math.sin(tilt_azimuth))
+        self.cl = float(math.cos(tilt_azimuth))
+
+    def __call__(self, r):
+        sl, cl = self.sl, self.cl
+        # the kernel divides and calls pow (operands.py)
+        ratio = _div(self.warp_radius, torch.clamp(r, min=1e-6))
+        iota = _div(self.tilt,
+                    1.0 + ratio ** kernel_operand(self.power, ratio))
+        si, ci = torch.sin(iota), torch.cos(iota)
+        zero = torch.zeros_like(si)
+        n = (si * sl, -si * cl, ci)
+        e1 = (cl + zero, sl + zero, zero)
+        e2 = (-sl * ci, cl * ci, si)
+        return n, e1, e2
+
+
+class _Plane:
+    """One disk plane of dp45_integrate's recorder: its annulus, opacity
+    and detector basis (None: the equatorial cos(theta) detector)."""
+
+    def __init__(self, plane, normal):
+        self.r_in, self.r_out, theta_plane, self.opaque = plane
+        # The cos(theta) detector sees the plane on every branch of the
+        # double-cover chart (over-the-pole rays cross at theta = -pi/2).
+        # cos(pi/2) is 6.1e-17, not 0: the tangent case needs it.
+        self.plane_c = math.cos(theta_plane)
+        if normal is None or callable(normal):
+            self.basis = normal
+        else:
+            self.basis = lambda r, _b=normal: _b
+
+    def track(self, keys, max_hits, status0, dtype):
+        track = {"n": torch.zeros_like(status0)}
+        for key in keys + (("xi",) if self.basis is not None else ()):
+            track[key] = torch.zeros((max_hits,) + status0.shape,
+                                     dtype=dtype, device=status0.device)
+        return track
+
+    def detector(self, ys):
+        if self.basis is None:
+            return torch.cos(ys[1]) - self.plane_c
+        (nx, ny, nz), _e1, _e2 = self.basis(ys[0])
+        sth, cth = torch.sin(ys[1]), torch.cos(ys[1])
+        sph, cph = torch.sin(ys[2]), torch.cos(ys[2])
+        return nx * sth * cph + ny * sth * sph + nz * cth
+
+    def azimuth(self, yc, p_phi):
+        """The crossing's physical azimuth ("phi") and, on a tilted plane,
+        the ray's angular momentum about its normal ("xi")."""
+        if self.basis is None:
+            # phi + pi on the sin(theta) < 0 branch of the chart
+            return dict(phi=torch.where(torch.sin(yc[1]) < 0.0,
+                                        yc[2] + math.pi, yc[2]))
+        (nx, ny, nz), e1, e2 = self.basis(yc[0])
+        th, ph, pth = yc[1], yc[2], yc[4]
+        sth, cth = torch.sin(th), torch.cos(th)
+        sph, cph = torch.sin(ph), torch.cos(ph)
+        xh, yh, zh = sth * cph, sth * sph, cth
+        u1 = xh * e1[0] + yh * e1[1] + zh * e1[2]
+        u2 = xh * e2[0] + yh * e2[1] + zh * e2[2]
+        # L = (-sin phi p_th - cot th cos phi p_phi, cos phi p_th - cot th
+        # sin phi p_phi, p_phi), with a sign-preserving clamp of sin th
+        tiny = torch.full_like(sth, 1e-12)
+        sth_safe = torch.where(torch.abs(sth) < 1e-12,
+                               torch.where(sth < 0.0, -tiny, tiny), sth)
+        cot = cth / sth_safe
+        lx = -sph * pth - cot * cph * p_phi
+        ly = cph * pth - cot * sph * p_phi
+        return dict(phi=torch.atan2(u2, u1),
+                    xi=nx * lx + ny * ly + nz * p_phi)
 
 
 def trace_rays_kerr(metric, r_obs, alphas, thetas, theta_obs, axis_refine,
@@ -714,18 +840,23 @@ def trace_rays_kerr_hybrid(metric, r_obs, alphas, thetas, theta_obs,
     return merge_results(res_a, res_b, dest)
 
 
-def disk_result(metric, p_t, p_phi, y_f, status_f, attempts, hits):
-    """DiskTraceResult from a disk trace's final state and hit records
-    (the (max_hits, N) tensors split into per-slot rows), with the
-    escape angle extracted in torch. Shared by the plain loop and the
-    CUDA wrapper."""
+def disk_results(metric, p_t, p_phi, y_f, status_f, attempts, tracks):
+    """One DiskTraceResult a plane from a disk trace's final state and the
+    planes' hit records (the (max_hits, N) tensors split into per-slot
+    rows; "t_now", the time at the end, with the time recorder), sharing
+    the escape angle extracted in torch."""
     final_alpha, n_half, status_out = finalize_angles(
         metric, y_f, p_t, p_phi, status_f)
-    rows = {k: tuple(hits[k].unbind(0)) if k in hits else ()
-            for k in ("r", "phi", "pr", "pth")}
-    return DiskTraceResult(status_out, hits["n"], rows["r"], p_phi,
-                           warp_step_sum(attempts), final_alpha, n_half,
-                           rows["phi"], (), rows["pr"], rows["pth"])
+    steps = warp_step_sum(attempts)
+
+    def one(hits):
+        rows = {k: tuple(hits[k].unbind(0)) if k in hits else ()
+                for k in ("r", "phi", "xi", "pr", "pth", "t")}
+        return DiskTraceResult(status_out, hits["n"], rows["r"], p_phi,
+                               steps, final_alpha, n_half, rows["phi"],
+                               rows["xi"], rows["pr"], rows["pth"],
+                               rows["t"], hits.get("t_now", ()))
+    return tuple(one(hits) for hits in tracks)
 
 
 def trace_disk_rays_kerr(metric, r_obs, alphas, thetas, theta_obs,
@@ -734,14 +865,18 @@ def trace_disk_rays_kerr(metric, r_obs, alphas, thetas, theta_obs,
                          formulation: str = "theta",
                          return_unconverged: bool = False,
                          record_momentum: bool = False,
-                         method: str = "dp45"):
-    """Trace rays recording disk-plane crossings; returns DiskTraceResult.
+                         method: str = "dp45", disk_normal=None,
+                         extra_disks=None, record_time: bool = False):
+    """Trace rays recording disk-plane crossings; returns DiskTraceResult,
+    or with extra_disks a tuple of them, one a plane, sharing the ray's
+    status, heading and steps.
 
     The plain version of the CUDA disk kernel and the counterpart of the
     JAX package's disk-mode trace: base tolerances on every ray (no
     axis-refine band), no certain-plunge exit. disk_plane = (r_in, r_out,
-    theta_plane, opaque). method: "dp45" or "dop853"; events are
-    Hermite, as in the disk kernel and every JAX entry point.
+    theta_plane, opaque); disk_normal, extra_disks and record_time as in
+    dp45_integrate (t_hits, t_end). method: "dp45" or "dop853"; events
+    are Hermite, as in the disk kernel and every JAX entry point.
     return_unconverged as in trace_rays_kerr.
     """
     trace_disk_rays_kerr.launches += 1
@@ -766,8 +901,13 @@ def trace_disk_rays_kerr(metric, r_obs, alphas, thetas, theta_obs,
         lambda_max=lambda_max, h_init=_h_init_for(r_obs),
         max_steps=max_steps, disk_plane=disk_plane,
         max_disk_hits=max_disk_hits, record_momentum=record_momentum,
-        method=method)
-    result = disk_result(metric, p_t, p_phi, y_f, status_f, attempts, hits)
+        method=method, disk_normal=disk_normal, extra_disks=extra_disks,
+        record_time=record_time)
+    t_now = {"t_now": hits["t_now"]} if record_time else {}
+    results = disk_results(
+        metric, p_t, p_phi, y_f, status_f, attempts,
+        [hits] + [dict(t, **t_now) for t in hits.get("extra", ())])
+    result = results if extra_disks else results[0]
     if return_unconverged:
         return result, status_f == RUNNING
     return result

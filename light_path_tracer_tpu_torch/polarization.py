@@ -58,7 +58,8 @@ from light_path_tracer_tpu_torch.disk import (DiskConfig, HotSpot,
 from light_path_tracer_tpu_torch.models import Kerr
 from light_path_tracer_tpu_torch.models.kerr import inverse_metric_terms
 from light_path_tracer_tpu_torch.ops.batch import _backend
-from light_path_tracer_tpu_torch.ops.kerr_trace import CAPTURED, INVALID
+from light_path_tracer_tpu_torch.operands import kernel_operand
+from light_path_tracer_tpu_torch.ops.kerr_trace import CAPTURED, INVALID, _div
 from light_path_tracer_tpu_torch.pipeline import _dtype_of
 from light_path_tracer_tpu_torch.utils.config import RenderConfig, SceneConfig
 from light_path_tracer_tpu_torch.utils.timing import StageTimer
@@ -426,8 +427,10 @@ def _flow_u_offplane(M, a, r, th, prograde=True):
     in 4-vector form."""
     g_tt, g_tphi, _g_rr, _g_thth, g_phiphi = covariant_metric(M, a, r, th)
     sqrtM = _sqrt(M)
-    om_k = (sqrtM / (r ** 1.5 + a * sqrtM) if prograde
-            else -sqrtM / (r ** 1.5 - a * sqrtM))
+    # the kernel divides the Python-float numerator by the tensor (PyTorch
+    # would multiply its reciprocal)
+    om_k = (_div(sqrtM, r ** 1.5 + a * sqrtM) if prograde
+            else _div(-sqrtM, r ** 1.5 - a * sqrtM))
     om_z = -g_tphi / torch.clamp(g_phiphi, min=1e-30)
 
     def timelike(om):
@@ -501,8 +504,10 @@ def make_polarized_volumetric_transfer(metric, riaf, field: str, p0: float):
         k11, k21, k12, k22 = aux
         r, th = y[0], y[1]
         j = _j_rest(r, torch.cos(th))
+        # the kernel calls pow (operands.py)
         w = (1.0 if riaf.g_power == 0.0
-             else _g_clipped(y[:5], p_t, p_phi) ** riaf.g_power)
+             else _g_clipped(y[:5], p_t, p_phi) ** kernel_operand(
+                 riaf.g_power, y))
         # E = 1 (p_t = -1), so L = p_phi.
         kappa1, kappa2, sin_xi = _local_polarization(
             M, a, r, th, y[3], y[4], p_phi, field, riaf.prograde)

@@ -20,9 +20,9 @@ integration:
   summed over pixels instead of imaged.
 
 The trace runs through the CUDA kernel's disk variant on a CUDA device and
-its plain loop on the CPU. The retarded-time light curve
-(light_travel_delay) needs the crossing-time recorder, which is not
-ported yet (ROADMAP.md, Queue 1 #5).
+its plain loop on the CPU; the retarded-time light curve
+(light_travel_delay) records each crossing's coordinate time (the
+kernel's plane-recorder instances on the card).
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ import torch
 
 from light_path_tracer_tpu_torch import camera
 from light_path_tracer_tpu_torch.disk import (
-    DiskConfig, HotSpot, _r_in_of, _scene_metric, _trace_grid,
+    DiskConfig, HotSpot, _doppler, _r_in_of, _scene_metric, _trace_grid,
     disk_emission, hotspot_pattern, keplerian_omega, keplerian_redshift,
     r_isco)
 from light_path_tracer_tpu_torch.ops.kerr_trace import CAPTURED
@@ -82,23 +82,26 @@ def weighted_histogram(values, weights, edges):
 
 
 def _trace_disk_grid(scene, resolution, cfg, disk, timer, aa_samples=1,
-                     device="cuda"):
+                     device="cuda", record_time=False):
     """Camera grids (aa_samples jittered passes stacked on the row axis,
-    aa.aa_offsets) and one disk trace; returns the DiskTraceResult."""
+    aa.aa_offsets) and one disk trace; returns (the DiskTraceResult, the
+    moving camera's per-ray Doppler factors or None)."""
     from light_path_tracer_tpu_torch.aa import _stacked_grids, aa_offsets
     metric = _scene_metric(scene)
     fov = camera.fov_from_vertical(scene.vertical_fov, resolution)
+    offsets = aa_offsets(aa_samples)
 
     with timer.stage("build_lookup"):
         alpha, theta = _stacked_grids(metric, scene, cfg, resolution, fov,
-                                      aa_offsets(aa_samples), device=device)
+                                      offsets, device=device)
 
     with timer.stage("precompute"):
         # Jittered grids force the two-pass straggler driver.
         two_pass = (cfg.two_pass if aa_samples == 1 or cfg.two_pass != "auto"
                     else True)
-        return _trace_grid(metric, scene, cfg, disk, alpha, theta,
-                           two_pass=two_pass)
+        res = _trace_grid(metric, scene, cfg, disk, alpha, theta,
+                          two_pass=two_pass, record_time=record_time)
+    return res, _doppler(scene, cfg, resolution, device, offsets)
 
 
 def _disk_stats(scene, disk, res, rays, timer):
@@ -125,8 +128,8 @@ def line_profile(scene: SceneConfig, resolution=(512, 512),
     ValueError.
     """
     timer = StageTimer(device)
-    res = _trace_disk_grid(scene, resolution, cfg, disk, timer,
-                           aa_samples=aa_samples, device=device)
+    res, dl = _trace_disk_grid(scene, resolution, cfg, disk, timer,
+                               aa_samples=aa_samples, device=device)
     r_in = _r_in_of(disk, scene.M, scene.a, scene.Q)
 
     with timer.stage("render"):
@@ -134,8 +137,11 @@ def line_profile(scene: SceneConfig, resolution=(512, 512),
         for slot in range(1 if disk.opaque else disk.max_hits):
             hit = res.n_hits > slot
             r_c = torch.clamp(res.r_hits[slot], min=r_in)
-            g = keplerian_redshift(scene.M, scene.a, r_c, res.xi,
+            xi = res.xi_hits[slot] if len(res.xi_hits) > slot else res.xi
+            g = keplerian_redshift(scene.M, scene.a, r_c, xi,
                                    disk.prograde, Q=scene.Q)
+            if dl is not None:
+                g = g * dl
             eps = (r_c / r_in) ** (-disk.emissivity_index)
             ws.append(torch.where(hit, g ** disk.g_power * eps, 0.0)
                       / aa_samples)
@@ -175,18 +181,31 @@ def hotspot_light_curve(scene: SceneConfig, resolution, times,
     spot: one trace, the pattern re-evaluated at each time (in the trace
     dtype) and the emission summed over pixels. Returns (times (T,),
     flux (T,), stats) as float64 NumPy arrays; one spot orbit is
-    stats["orbit_period"] M. light_travel_delay raises
-    NotImplementedError: it needs the crossing-time recorder (ROADMAP.md,
-    Queue 1 #5)."""
-    if light_travel_delay:
-        raise NotImplementedError(
-            "light_travel_delay needs the crossing-time recorder "
-            "(record_time), which is not ported to the PyTorch package "
-            "yet (ROADMAP.md, Queue 1 #5)")
+    stats["orbit_period"] M.
+
+    light_travel_delay=True records each crossing's coordinate time
+    (record_time) and evaluates the pattern at the retarded time t -
+    delay: the far side of the disk and the lensed secondary image are
+    seen at older phases. Delays are referred to the earliest recorded
+    first crossing among lit pixels (a constant offset only re-phases a
+    periodic pattern); stats["delay_spread"] is their spread over the
+    image in M.
+    """
     timer = StageTimer(device)
     times = list(times)
-    res = _trace_disk_grid(scene, resolution, cfg, disk, timer,
-                           device=device)
+    res, dl = _trace_disk_grid(scene, resolution, cfg, disk, timer,
+                               device=device,
+                               record_time=light_travel_delay)
+    delay_hits, delay_spread = (), 0.0
+    if light_travel_delay:
+        hit0 = res.n_hits > 0
+        if bool(hit0.any()):
+            t0 = res.t_hits[0]
+            big = torch.full_like(t0, np.inf)
+            t_ref = torch.min(torch.where(hit0, t0, big))
+            delay_hits = tuple(t - t_ref for t in res.t_hits)
+            delay_spread = float(torch.max(torch.where(hit0, t0, -big))
+                                 - t_ref)
     r_in = _r_in_of(disk, scene.M, scene.a, scene.Q)
     if pattern is None:
         pattern = hotspot_pattern(spot, scene.M, scene.a, disk.prograde,
@@ -195,13 +214,14 @@ def hotspot_light_curve(scene: SceneConfig, resolution, times,
     with timer.stage("render"):
         ts = torch.tensor(times, dtype=_dtype_of(cfg), device=device)
         flux = torch.stack([disk_emission(
-            scene, disk, r_in, res.n_hits, res.r_hits, res.xi,
+            scene, disk, r_in, res.n_hits, res.r_hits, res.xi, doppler=dl,
             pattern=pattern, phi_hits=res.phi_hits, t=t,
-            xi_hits=res.xi_hits)[0].sum() for t in ts])
+            xi_hits=res.xi_hits, delay_hits=delay_hits)[0].sum()
+            for t in ts])
 
     stats = dict(orbit_period=abs(2.0 * np.pi / keplerian_omega(
                      scene.M, scene.a, spot.r0, disk.prograde, Q=scene.Q)),
-                 n_samples=len(times), delay_spread=0.0,
+                 n_samples=len(times), delay_spread=delay_spread,
                  **_disk_stats(scene, disk, res, resolution[0]
                                * resolution[1], timer))
     return (np.asarray(times, np.float64),

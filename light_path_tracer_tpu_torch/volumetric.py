@@ -32,8 +32,9 @@ PyTorch loop (`ops/kerr_trace.py`) on the CPU. The transfer functions
 below are the plain loop's; each carries the description (`.kernel`) from
 which the kernel evaluates the same function in registers.
 
-Not ported yet (they raise, see ROADMAP.md Queue 1): a boosted camera
-and the multi-device `mesh=` path.
+A boosted camera aberrates the grids (the JAX package applies no
+Doppler factor to the hot flow). Not ported yet (it raises, see ROADMAP.md
+Queue 1): the multi-device `mesh=` path.
 """
 
 from __future__ import annotations
@@ -182,10 +183,7 @@ def _charge(metric) -> float:
 
 
 def _scene_metric(scene: SceneConfig):
-    """Kerr or Kerr-Newman of the scene (disk._scene_metric); a boosted
-    camera is not ported yet."""
-    if scene.boosted:
-        raise _not_ported("a boosted camera (boost)")
+    """Kerr or Kerr-Newman of the scene (disk._scene_metric)."""
     return disk._scene_metric(scene)
 
 
@@ -501,7 +499,8 @@ def make_order_transfer(metric, riaf: RIAFConfig, n_orders: int):
 def _lookups(scene, resolution, cfg, device):
     fov = camera.fov_from_vertical(scene.vertical_fov, resolution)
     dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
-    grid = dict(psi=scene.psi, dtype=dtype, device=device)
+    grid = dict(psi=scene.psi, dtype=dtype, device=device,
+                boost=scene.boost)
     alpha = camera.build_alpha_lookup(resolution, fov, **grid)
     theta = camera.build_theta_lookup(resolution, fov, **grid)
     return fov, alpha.reshape(-1), theta.reshape(-1)

@@ -8,6 +8,7 @@ main path's Kerr kernel loses its time, on one NVIDIA GPU.
   python3 scripts/torch_kernel_study.py --sections extras --parent DIR
                                         [--extras-blocks 3,4,5,6]
   python3 scripts/torch_kernel_study.py --sections kerr --parent DIR
+  python3 scripts/torch_kernel_study.py --sections planes --parent DIR
 
 ab: builds the kernel library twice from the same sources, as the package
     builds it (ops/cuda/_build.py NVCC_FLAGS, with -fmad=false) and with
@@ -108,6 +109,23 @@ kerr: the Kerr kernel (csrc/kerr_dp45.cu, shadow and disk variants)
     shadow instances, and the mu chart's Kerr and Kerr-Newman instances
     (the main path's rays with the hybrid's poison mask, DP45 and DOP853,
     float32 and float64), timed beside them.
+planes: the disk kernel's plane recorder (csrc/kerr_planes.cuh) against
+    an earlier commit's, DIR as for extras. Builds kerr_dp45_planes.cu,
+    kerr_dop853_planes.cu and their float64 siblings of DIR and of the
+    package into a library each (8 nvcc processes at once) and prints
+    each instance's registers and spills; then in turns (the order
+    reversed every other turn) after one untimed turn runs both on
+    chip_smoke's phase-25 plane sets (a flat tilted opaque plane; an
+    equatorial opaque disk and a tilted opaque ring with the time
+    recorder; a warped and a tilted translucent plane with the time
+    recorder and momenta, 6 slots): config 4's 1024^2 grid with the
+    float32 Kerr instances of both pairs (capped at 512 attempts, as
+    phase 25), and 4,096 random rays with every instance (Kerr and
+    Kerr-Newman, float32 and float64, DP45 and DOP853; capped at 400).
+    Each call is timed alone (chip_smoke.kernel_alone_ms, mean of 3; the
+    summary gives the median over turns), and every output of every
+    plane, the per-ray attempts and accepted attempts are held bitwise
+    against the earlier commit's.
 
 The first line is the card's name and power limit. Needs a CUDA device;
 imports nothing of JAX.
@@ -1323,6 +1341,126 @@ def kerr_section(dev, X, parent, turns):
     return report
 
 
+PLANES_SOURCES = ("kerr_dp45_planes", "kerr_dp45_planes_f64",
+                  "kerr_dop853_planes", "kerr_dop853_planes_f64")
+
+
+def planes_builds(parent):
+    """Build PLANES_SOURCES of the earlier commit's csrc/ (`parent`) and
+    of the package into a library each; print each instance's ptxas
+    figures. Returns {build: library}."""
+    from pathlib import Path
+    from chip_smoke import ptxas_report
+    from light_path_tracer_tpu_torch.ops.cuda import _build
+
+    def declare(lib, _name, _d):
+        for suffix in ("", "_f64", "_dop853", "_dop853_f64"):
+            fn = getattr(lib, _build.PLANES_ENTRY + suffix)
+            fn.argtypes = [_build._P, _build._P]
+            fn.restype = _build._I
+    dirs = {"parent": Path(parent), "package": _build.CSRC}
+    builds = parallel_builds("planes_study", dirs, PLANES_SOURCES, declare,
+                             jobs=8)
+    for name, (_lib, log, _out, _d) in builds.items():
+        for kname, regs, spill in ptxas_report(log):
+            print(f"  ptxas [{name}]: {kname}: {regs} registers; {spill}",
+                  flush=True)
+    return {name: lib for name, (lib, _log, _out, _d) in builds.items()}
+
+
+class use_planes_build:
+    """Within the block the plane-recorder launches of
+    ops/cuda/kerr_trace_kernel.py go to `lib` (planes_builds)."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __enter__(self):
+        from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel
+        self.kk = kerr_trace_kernel
+        self.saved = self.kk.load_library
+        self.kk.load_library = lambda library="dp45": self.lib
+
+    def __exit__(self, *exc):
+        self.kk.load_library = self.saved
+
+
+def planes_cases(dev):
+    """label -> fn(probe=None) -> a tuple of DiskTraceResult: the planes
+    section's calls."""
+    import torch
+    import chip_smoke as cs
+    from light_path_tracer_tpu_torch import camera
+    dim = (1024, 1024)
+    fov = camera.fov_from_vertical(cs.p24_scene().vertical_fov, dim)
+    f32 = dict(dtype=torch.float32, device=dev)
+    al4 = camera.build_alpha_lookup(dim, fov, **f32).reshape(-1)
+    th4 = camera.build_theta_lookup(dim, fov, **f32).reshape(-1)
+    rng = np.random.default_rng(25)
+    ra = torch.tensor(rng.uniform(0.01, 0.12, 4096), **f32)
+    rt = torch.tensor(rng.uniform(-np.pi, np.pi, 4096), **f32)
+    cases = {}
+    for name in cs.P25_SETS:
+        for method in ("dp45", "dop853"):
+            cases[f"1024^2 grid {method} float32 kerr {name}"] = (
+                lambda n=name, m=method, **kw: cs.p25_trace(
+                    "kerr", al4, th4, n, m, max_steps=cs.GRID_STEPS, **kw))
+        for method, dtype, family in cs.P25_INSTANCES:
+            dt = getattr(torch, dtype)
+            cases[f"4096 rays {method} {dtype} {family} {name}"] = (
+                lambda n=name, m=method, f=family, a=ra.to(dt), t=rt.to(dt),
+                **kw: cs.p25_trace(f, a, t, n, m, **kw))
+    return cases
+
+
+def planes_outputs(res, probe):
+    import chip_smoke as cs
+    return [x for plane in res for _n, x in cs.p25_fields(plane)] + [
+        probe["attempts"], probe["accepted"]]
+
+
+def planes_section(dev, parent, turns):
+    import torch
+    from chip_smoke import kernel_alone_ms, same_bits
+    builds = planes_builds(parent)
+    cases = planes_cases(dev)
+    names = list(builds)
+    report = dict(cases={})
+    want = {}
+    for name in names:                     # one untimed turn
+        with use_planes_build(builds[name]):
+            for fn in cases.values():
+                fn()
+    torch.cuda.synchronize()
+    for turn in range(turns):
+        for name in (names if turn % 2 == 0 else names[::-1]):
+            with use_planes_build(builds[name]):
+                for label, fn in cases.items():
+                    probe = {}
+                    got = planes_outputs(fn(probe=probe), probe)
+                    if name == "parent" and label not in want:
+                        want[label] = got
+                    row = report["cases"].setdefault(label, {}).setdefault(
+                        name, dict(kernel_ms=[]))
+                    row["kernel_ms"].append(kernel_alone_ms(fn, 3))
+                    if label in want:
+                        row["bitwise_equal"] = row.get(
+                            "bitwise_equal", True) and len(got) == len(
+                                want[label]) and all(
+                            same_bits(a, b) for a, b in zip(
+                                got, want[label]))
+                    print(f"turn {turn} [{name}] {label}: "
+                          f"{row['kernel_ms'][-1]:.3f} ms, bitwise "
+                          f"{row.get('bitwise_equal')}", flush=True)
+    for label, by in report["cases"].items():
+        summary = {name: dict(kernel_ms=float(np.median(r["kernel_ms"])),
+                              bitwise_equal=r.get("bitwise_equal"))
+                   for name, r in by.items()}
+        by["summary"] = summary
+        print(f"planes {label}: {json.dumps(summary)}", flush=True)
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1334,8 +1472,8 @@ def main() -> int:
     parser.add_argument("--sections", default="ab,rays,main,regs")
     parser.add_argument("--blocks", default="7,0")
     parser.add_argument("--parent", default=None,
-                        help="the earlier commit's csrc/ (extras and kerr "
-                             "sections)")
+                        help="the earlier commit's csrc/ (extras, kerr and "
+                             "planes sections)")
     parser.add_argument("--extras-blocks", default="",
                         help="block bounds to build every extras instance "
                              "with, comma separated (extras section)")
@@ -1368,6 +1506,10 @@ def main() -> int:
         if not args.parent:
             parser.error("the kerr section needs --parent")
         report["kerr"] = kerr_section(dev, X, args.parent, args.turns)
+    if "planes" in sections:
+        if not args.parent:
+            parser.error("the planes section needs --parent")
+        report["planes"] = planes_section(dev, args.parent, args.turns)
     print(f"builds (s): {json.dumps(builds.build_s)}", flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -64,9 +64,21 @@ def test_pixel_angles_at_matches_grid_builders(dtype, psi, offset):
 
 
 def test_pixel_angles_at_rejects_boost():
-    with pytest.raises(NotImplementedError):
+    # A boost is ported: the scattered pixels' angles equal the boosted
+    # grids' at those pixels bit for bit; |boost| >= 1 is a ValueError.
+    res, fov, boost = (4, 5), (0.5, 0.4), (0.1, -0.2, 0.3)
+    rows, cols = torch.meshgrid(torch.arange(4), torch.arange(5),
+                                indexing="ij")
+    al, th = camera.pixel_angles_at(rows.reshape(-1), cols.reshape(-1), res,
+                                    fov, boost=boost)
+    grid = dict(boost=boost, device="cpu")
+    assert torch.equal(al.reshape(res),
+                       camera.build_alpha_lookup(res, fov, **grid))
+    assert torch.equal(th.reshape(res),
+                       camera.build_theta_lookup(res, fov, **grid))
+    with pytest.raises(ValueError):
         camera.pixel_angles_at(torch.zeros(2), torch.zeros(2), (4, 4),
-                               (0.5, 0.5), boost=(0.1, 0.0, 0.0))
+                               (0.5, 0.5), boost=(0.8, 0.0, 0.8))
 
 
 @pytest.mark.parametrize("height", [24, 25])

@@ -131,6 +131,36 @@ def test_kerr_work_of_each_family(dtype):
         bounds.kerr_work(dtype, "custom")
 
 
+@pytest.mark.parametrize("kinds,record_time,step,crossing", [
+    # the equatorial plane: a cosine of theta and the detector's
+    # subtraction and sign product; its crossing's sine for the azimuth
+    ((0,), False, ops(flop=2, cos=1), [ops(flop=1, sin=1)]),
+    # with the time recorder: sin theta more, one tdot and the trapezoid
+    ((0,), True, ops(flop=24, div=2, sin=1, cos=1),
+     [ops(flop=23, div=2, sin=1, cos=1)]),
+    # a warp and a tilted plane with the time recorder: one set of sines
+    # and cosines a state (2 + 2), the warp's basis (a pow, a sin, a cos,
+    # two divisions) and one tdot, 11 library calls an accepted attempt
+    ((2, 1), True, ops(flop=10 + 1 + 7 + 1 + 18 + 4, div=4, pow=1, sin=3,
+                       cos=3),
+     [ops(flop=30 + 22, div=5, pow=1, sin=3, cos=3, atan2=1),
+      ops(flop=25 + 22, div=3, sin=2, cos=2, atan2=1)]),
+    ((1, 0), False, ops(flop=7 + 1 + 1 + 1, sin=2, cos=2),
+     [ops(flop=25, div=1, sin=2, cos=2, atan2=1), ops(flop=1, sin=1)]),
+], ids=["equatorial", "equatorial-time", "warp-tilt-time", "tilt-equatorial"])
+def test_planes_work_counts_each_state_once(kinds, record_time, step,
+                                            crossing):
+    """The plane recorder's work an accepted attempt counts each plane's
+    detector and tdot at the step's end only (the start's are carried)
+    and one set of sines and cosines a state; a crossing is counted on
+    its own plane."""
+    s, c = bounds.planes_work(kinds, record_time=record_time)
+    assert s.ops == step
+    assert s.flops == step["flop"] + step["div"]
+    assert [w.ops for w in c] == crossing
+    assert all(w.dtype == "float32" for w in (s, *c))
+
+
 def test_geometry_mode_drops_the_redshift():
     full = bounds.rhs_ops("spectral", 2)
     geo = bounds.rhs_ops("spectral", 2, geometry=True)
@@ -458,10 +488,12 @@ def test_three_libraries_split_the_sources():
     assert sum(len(v) for v in libs.values()) == len(every)
     assert libs["more"] == {
         "kerr_dp45_mu.cu", "kerr_dp45_mu_f64.cu", "kerr_dp45_wide.cu",
-        "kerr_dp45_wide_f64.cu"} | {
+        "kerr_dp45_wide_f64.cu", "kerr_dp45_planes.cu",
+        "kerr_dp45_planes_f64.cu"} | {
         f"{e[len('lpt_'):]}_kn{d}.cu" for e in _build.KN_EXTRAS_ENTRIES
         for d in ("", "_f64")}
-    assert {"kerr_dop853_wide.cu", "kerr_dop853_wide_f64.cu"} <= libs[
+    assert {"kerr_dop853_wide.cu", "kerr_dop853_wide_f64.cu",
+            "kerr_dop853_planes.cu", "kerr_dop853_planes_f64.cu"} <= libs[
         "dop853"]
     assert "kerr_dp45.cu" in libs["dp45"] and all(
         n.startswith("kerr_dop853") for n in libs["dop853"])
@@ -542,7 +574,7 @@ def test_library_chains_on_the_cpu_follow_their_recurrence(form):
     npdt = np.float64 if dtype == torch.float64 else np.float32
     fn = dict(exp=lambda v: np.exp(-v), pow=lambda v: npdt(b) ** v,
               div=lambda v: npdt(b) / v, sqrt=np.sqrt, sin=np.sin,
-              cos=np.cos)[form[:-4]]
+              cos=np.cos, atan2=lambda v: np.arctan2(v, npdt(b)))[form[:-4]]
     vs = [x.numpy() + npdt(0.01) * npdt(j) for j in range(8)]
     for _ in range(k):
         vs = [fn(v).astype(npdt) for v in vs]
@@ -570,7 +602,7 @@ def test_float64_extras_sources_link_the_contracted_pow(monkeypatch,
     f64_extras = {n for n in (s.name for s in CSRC.glob("*.cu"))
                   if n.endswith("_f64.cu") and any(
                       f in n for f in ("_extras", "_stokes", "_movie",
-                                       "_orders"))}
+                                       "_orders", "_planes"))}
     assert {n for n in (s.name for s in CSRC.glob("*.cu"))
             if _build._rdc_source(n)} == f64_extras
     pow_src = (CSRC / _build.POW_SOURCE).read_text()

@@ -77,9 +77,13 @@ def test_host_geometry_matches_jax():
 
 
 def test_boost_and_decimals_are_not_ported():
+    # The boost is ported (tests/test_torch_aberration.py holds it against
+    # JAX); alpha rounding (decimals) still raises.
     fov = _fov()
-    with pytest.raises(NotImplementedError):
-        tcam.build_alpha_lookup(DIM, fov, boost=(0.0, 0.0, 0.3),
-                                device="cpu")
+    ref = np.asarray(jcam.build_alpha_lookup(DIM, fov, boost=(0.0, 0.0, 0.3),
+                                             dtype=jnp.float64))
+    got = tcam.build_alpha_lookup(DIM, fov, boost=(0.0, 0.0, 0.3),
+                                  dtype=torch.float64, device="cpu")
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-12)
     with pytest.raises(NotImplementedError):
         tcam.build_alpha_lookup(DIM, fov, decimals=3, device="cpu")

@@ -23,6 +23,8 @@ jet, spectral) against its plain loop: status agreement above 0.99, p99
 single pass bitwise; the volumetric render on the card against the CPU:
 emission masks >= 99 %, median |d image| < 1e-4. The Stokes, movie and
 order forms against their plain loops: status agreement above 0.99, the
+Stokes form bitwise in both pairs and dtypes (its kernel sums the
+contraction in the plain loop's order), the
 Stokes and movie extras p99 |d| / max < 1e-3 (Q and U against max |I|),
 the order buckets by their sum per ray (p99 < 1e-3 of the largest) since
 floor(m) switches within rounding of an integer; the aux driver bitwise
@@ -70,7 +72,14 @@ slots bitwise the 4-slot instance's and every slot against the plain loop
 raising before a launch; and each disk mode of chip_smoke.py phase 24 at
 64^2 on the card against the CPU (disk masks >= 99 %, median |d| < 1e-3
 on disk pixels, the 1-D outputs within 1e-3 of their largest value, Q
-and U of the largest I).
+and U of the largest I). The plane recorder (tilted, warped and second
+planes, crossing times; csrc/kerr_planes.cuh): each instance (both
+pairs, dtypes and families) on phase 25's plane sets bitwise its plain
+loop on the card, the equatorial plane through it bitwise the disk
+variant, three planes raising before a launch; and each mode of
+chip_smoke.py phase 25 (tilted, warped and second disks, the delayed
+light curve, the boosted disk, shadow, lens and volumetric renders) at
+64^2 on the card against the CPU by its gates.
 """
 
 import importlib.util
@@ -544,6 +553,30 @@ def _aux_forms(m, al, th):
 AUX_FORMS = ["movie8 alpha0=0.0", "movie8 alpha0=0.3", "order3 alpha0=0.0",
              "order3 alpha0=0.3", "order2 alpha0=0.0", "stokes vertical",
              "stokes toroidal", "stokes radial"]
+
+
+@pytest.mark.parametrize("method", ["dp45", "dop853"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("field", ["vertical", "toroidal", "radial"])
+def test_stokes_kernel_bitwise_plain_loop(cuda, field, dtype, method):
+    """The Stokes kernel sums the Levi-Civita contraction in the plain
+    loop's order, so each instance (both pairs and dtypes) equals its
+    plain loop on the card bit for bit: status, final alpha and the
+    (I, Q, U) path integrals."""
+    m, al, th = _extras_rays(1024, cuda)
+    tf, n_extras, aux, monitor = _aux_forms(m, al, th)[f"stokes {field}"]
+    al, th = al.to(dtype), th.to(dtype)
+    aux = tuple(a.to(dtype) for a in aux)
+    kw = dict(sat_window=512, sat_monitor=monitor, method=method)
+    rk = vk.trace_rays_aux_cuda(m, R_OBS, al, th, THETA_DISK, tf, n_extras,
+                                aux, 5000.0, 1000, **kw)
+    rp = kerr_trace.trace_rays_aux(m, R_OBS, al, th, THETA_DISK, tf,
+                                   n_extras, aux, 5000.0, 1000, **kw)
+    for x, y in zip((rk.status, rk.final_alpha.nan_to_num(9.0),
+                     *rk.extras), (rp.status, rp.final_alpha.nan_to_num(9.0),
+                                   *rp.extras)):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("form", AUX_FORMS)
@@ -1794,4 +1827,79 @@ def test_disk_mode_on_card_matches_cpu(cuda, mode):
     assert kerr_trace.trace_disk_rays_kerr.launches == plain
     oc = SMOKE.p24_render(mode, SMOKE.P24_CHECK, "cpu", check=True)
     row, ok = SMOKE.p24_check(mode, og, oc)
+    assert ok, row
+
+
+@pytest.mark.parametrize("name", ["tilt", "opaque", "translucent"])
+@pytest.mark.parametrize("method", ["dp45", "dop853"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("family", ["kerr", "kerr_newman"])
+def test_plane_recorder_bitwise_plain_loop(cuda, family, dtype, method,
+                                           name):
+    """chip_smoke.py phase 25's plane sets (one tilted plane; an opaque
+    equatorial disk and tilted ring with crossing times; a warped and a
+    tilted translucent plane with crossing times and momenta) through the
+    plane-recorder instance, bitwise the plain loop on the card in every
+    output of every plane, on 1,024 random and 1,024 near-critical rays."""
+    m = (Kerr(M=1.0, a=0.9) if family == "kerr"
+         else KerrNewman(M=1.0, a=0.6, Q=0.6))
+    al, th = _near_critical(m, 1024, cuda, dtype)
+    before = getattr(trace_disk_rays_cuda, "launches_planes"
+                     + ("_dop853" if method == "dop853" else "")
+                     + ("_f64" if dtype == torch.float64 else ""))
+    rk = SMOKE.p25_trace(family, al, th, name, method)
+    assert getattr(trace_disk_rays_cuda, "launches_planes"
+                   + ("_dop853" if method == "dop853" else "")
+                   + ("_f64" if dtype == torch.float64 else "")) \
+        == before + 1
+    rp = SMOKE.p25_trace(family, al, th, name, method, kernel=False)
+    assert SMOKE.p25_bitwise(rk, rp) == {}
+    assert all(int((r.n_hits > 0).sum()) > 0 for r in rk)
+
+
+@pytest.mark.parametrize("method", ["dp45", "dop853"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_equatorial_plane_recorder_is_the_disk_variant(cuda, dtype, method):
+    """The equatorial plane with the time recorder (the plane recorder's
+    kind 0) equals the disk variant bitwise in every output both write."""
+    m = Kerr(M=1.0, a=0.9)
+    al, th = _near_critical(m, 1024, cuda, dtype)
+    plane = (disk.r_isco(1.0, 0.9), 20.0, float(np.pi / 2), True)
+    a = SMOKE.kk_disk(m, al, th, plane, method=method)
+    b = SMOKE.kk_disk(m, al, th, plane, method=method, record_time=True)
+    for x, y in ((a.status, b.status), (a.n_hits, b.n_hits),
+                 (a.n_half, b.n_half), *zip(a.r_hits, b.r_hits),
+                 *zip(a.phi_hits, b.phi_hits)):
+        assert torch.equal(x, y)
+    assert torch.equal(a.final_alpha.nan_to_num(9.0),
+                       b.final_alpha.nan_to_num(9.0))
+    assert len(b.t_hits) == 2 and b.t_end.shape == al.shape
+
+
+def test_plane_recorder_rejects_three_planes(cuda):
+    from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
+        trace_disk_rays_multi_cuda)
+    m = Kerr(M=1.0, a=0.9)
+    al = torch.linspace(0.01, 0.1, 64, device=cuda)
+    plane = (disk.r_isco(1.0, 0.9), 20.0, float(np.pi / 2), True)
+    before = SMOKE.disk_launches()
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        trace_disk_rays_multi_cuda(m, R_OBS, al, al, THETA_DISK, 5000.0, 100,
+                                   [(plane, None)] * 3)
+    assert SMOKE.disk_launches() == before
+
+
+@pytest.mark.parametrize("mode", SMOKE.P25_MODES)
+def test_phase25_mode_on_card_matches_cpu(cuda, mode):
+    """chip_smoke.py phase 25's 64^2 render of each mode (tilted, warped
+    and second disks, the delayed light curve, the boosted renders) on the
+    card against the CPU by its gates (p25_check); the card never calls a
+    plain loop."""
+    SMOKE.p25_zero()
+    og = SMOKE.p25_render(mode, SMOKE.P24_CHECK, cuda)
+    n = SMOKE.p25_counts()
+    assert n["plain_loop_calls"] == 0 and sum(
+        v for k, v in n.items() if k != "plain_loop_calls") > 0
+    oc = SMOKE.p25_render(mode, SMOKE.P24_CHECK, "cpu")
+    row, ok = SMOKE.p25_check(mode, og, oc)
     assert ok, row

@@ -273,24 +273,31 @@ def test_disk_two_pass_keeps_pass_one_beyond_slots():
 
 
 def test_trace_disk_rays_rejects_modes_not_ported():
+    # The time recorder and tilted and warped planes are ported
+    # (tests/test_torch_tilted_disk.py, test_torch_light_travel_delay.py
+    # hold them against JAX): here they fill their records. An unknown
+    # pair or backend is still a ValueError.
     m = Kerr(M=1.0, a=0.9)
     al = torch.full((4,), 0.05, dtype=torch.float64)
     args = (m, R_OBS, al, al, THETA, 5000.0, 100)
-    for kwargs in (dict(record_time=True),):
-        with pytest.raises(NotImplementedError):
-            disk.trace_disk_rays(*args, disk.DiskConfig(), **kwargs)
+    res = disk.trace_disk_rays(*args, disk.DiskConfig(), record_time=True)
+    assert len(res.t_hits) == 2 and res.t_end.shape == (4,)
     for cfg in (disk.DiskConfig(tilt=0.1), disk.DiskConfig(warp_radius=5.0)):
-        with pytest.raises(NotImplementedError):
-            disk.trace_disk_rays(*args, cfg)
+        res = disk.trace_disk_rays(*args, cfg)
+        assert len(res.xi_hits) == 2 and res.t_hits == ()
     with pytest.raises(ValueError):
         disk.trace_disk_rays(*args, disk.DiskConfig(), method="rk4")
     with pytest.raises(ValueError):
         disk.trace_disk_rays(*args, disk.DiskConfig(), backend="pallas")
+    # A camera Doppler factor multiplies the shift: g^p scales by d^p.
     scene = scene_from_jax(JScene(M=1.0, a=0.9, Q=0.2))
-    with pytest.raises(NotImplementedError):
-        disk.disk_emission(scene, disk.DiskConfig(), R_IN,
-                           torch.zeros(4, dtype=torch.int32), (al, al), al,
-                           doppler=al)
+    r = torch.full((4,), 8.0, dtype=torch.float64)
+    hits = torch.ones(4, dtype=torch.int32)
+    still, _ = disk.disk_emission(scene, disk.DiskConfig(), R_IN, hits,
+                                  (r, r), al)
+    moving, _ = disk.disk_emission(scene, disk.DiskConfig(), R_IN, hits,
+                                   (r, r), al, doppler=torch.full_like(r, 2.0))
+    torch.testing.assert_close(moving, still * 8.0, rtol=1e-12, atol=0)
 
 
 def test_disk_emission_options():
@@ -395,10 +402,17 @@ def test_cli_disk_charged_on_cpu(tmp_path, capsys):
     ["--tilt", "10"], ["--warp-radius", "8"],
     ["--boost", "0.1", "0", "0"]])
 def test_cli_disk_rejects_modes_not_ported(tmp_path, flags):
+    # Every flag but --multihost is ported and runs; --multihost raises.
     from light_path_tracer_tpu_torch.cli import main
-    with pytest.raises(NotImplementedError):
-        main(["disk", "--size", "8", "--device", "cpu",
-              "--output", str(tmp_path / "d.png"), *flags])
+    argv = ["disk", "--size", "8", "--device", "cpu",
+            "--output", str(tmp_path / "d.png"),
+            *(str(tmp_path / f) if f.endswith((".png", ".npz")) else f
+              for f in flags)]
+    if flags == ["--multihost"]:
+        with pytest.raises(NotImplementedError):
+            main(argv)
+    else:
+        assert main(argv) == 0
 
 
 def test_disk_parser_defaults_match_jax():

@@ -15,6 +15,8 @@ number of slots (the card's wide instances hold 5 to 8:
 tests/test_torch_cuda.py and chip_smoke.py phase 24).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -193,8 +195,16 @@ def test_render_disk_aa_matches_jax(dtype):
 
 
 def test_disk_modes_reject_boost():
-    scene = scene_from_jax(_scene(boost=(0.1, 0.0, 0.0)))
-    with pytest.raises(NotImplementedError, match="boost"):
-        disk.render_disk_decomposed(scene, (4, 4), device="cpu")
-    with pytest.raises(NotImplementedError, match="boost"):
-        disk.render_disk_aa(scene, (4, 4), device="cpu")
+    # A boost is ported: a boost of 0 renders the static image bitwise and
+    # a moving camera changes it (tests/test_torch_aberration.py holds the
+    # boosted renders against JAX).
+    static = scene_from_jax(_scene())
+    for render in (disk.render_disk_decomposed, disk.render_disk_aa):
+        ref, _ = render(static, (4, 4), device="cpu")
+        zero, _ = render(dataclasses.replace(static, boost=(0.0, 0.0, 0.0)),
+                         (4, 4), device="cpu")
+        moving, _ = render(dataclasses.replace(static, boost=(0.1, 0.0, 0.0)),
+                           (4, 4), device="cpu")
+        assert torch.equal(zero, ref)
+        assert bool(torch.isfinite(moving).all())
+        assert not torch.equal(moving, ref)

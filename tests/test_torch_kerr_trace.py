@@ -239,20 +239,27 @@ def test_trace_batch_rejects_branches_not_ported():
     empty = trace_batch(tm, R_OBS, torch.zeros(0))
     assert empty.final_alpha.shape == (0,) and int(empty.n_steps) == 0
     # The loop itself: extra state components, the saturation exits,
-    # DOP853, linear events and the mu chart are ported; tilted or further
-    # disk planes and the time recorder still raise, and an unknown pair
-    # or chart is a ValueError, as is the mu chart with a disk plane.
+    # DOP853, linear events, the mu chart, tilted and further disk planes
+    # and the time recorder are ported; the time recorder without a
+    # plane, an unknown pair or chart is a ValueError, as is the mu chart
+    # with a disk plane.
     one = torch.ones(8)
     loop = dict(atol=one, rtol=one, h_min=torch.tensor(1e-7), tiny_err=1e-8,
                 r_capture=torch.tensor(2.0), r_escape=torch.tensor(200.0),
                 lambda_max=10.0, h_init=1.0, max_steps=2)
-    for kwargs in (dict(disk_normal=(0.0, 0.0, 1.0)),
-                   dict(extra_disks=[((2.0, 9.0, 1.0, True), None)]),
-                   dict(record_time=True)):
-        with pytest.raises(NotImplementedError):
-            tk.dp45_integrate(tm, torch.ones((5, 8)), -one, one,
-                              torch.full((8,), 2, dtype=torch.int32),
-                              **loop, **kwargs)
+    plane = (2.0, 9.0, 1.0, True)
+    basis = ((0.0, 0.0, 1.0), (1.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+    for kwargs, key in ((dict(disk_normal=basis), "xi"),
+                        (dict(extra_disks=[(plane, None)]), "extra"),
+                        (dict(record_time=True), "t_now")):
+        out = tk.dp45_integrate(tm, torch.ones((5, 8)), -one, one,
+                                torch.full((8,), 2, dtype=torch.int32),
+                                **loop, disk_plane=plane, **kwargs)
+        assert key in out[4]
+    with pytest.raises(ValueError):
+        tk.dp45_integrate(tm, torch.ones((5, 8)), -one, one,
+                          torch.full((8,), 2, dtype=torch.int32), **loop,
+                          record_time=True)
     for kwargs in (dict(formulation="cos"),
                    dict(formulation="mu", disk_plane=(2.0, 9.0, 1.0, True))):
         with pytest.raises(ValueError):

@@ -256,6 +256,8 @@ def test_cli_movie_on_cpu(tmp_path, capsys):
     assert np.ptp(data["light_curve"]) > 0.0
     with pytest.raises(ValueError, match="PNG"):
         main(common + ["--movie", "3", "--output", str(tmp_path / "m.gif")])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        main(common + ["--movie", "3", "--centroid", str(tmp_path / "c.png"),
-                       "--output", str(out)])
+    # --centroid is ported: the track's CSV columns beside the name.
+    assert main(common + ["--movie", "3", "--centroid",
+                          str(tmp_path / "c.png"), "--output", str(out)]) == 0
+    track = np.loadtxt(tmp_path / "c.csv", delimiter=",")
+    assert track.shape == (3, 4) and np.isfinite(track).all()

@@ -20,8 +20,8 @@ render in float64 (images to 1e-6, emission and tau_hat to 1e-9 of the
 largest, the same flux, radii and spectral-index maps); the SSA turnover
 and the band scaling hold on the port's CPU path. The `volumetric` CLI
 renders a still and a band panel on the CPU, registers every JAX flag
-with its default, and raises for the reports not ported yet (visibility,
-centroid) and for charged scenes, in every mode.
+with its default, writes the visibility and centroid reports, and runs
+charged scenes in every mode.
 """
 
 import argparse
@@ -275,10 +275,19 @@ def test_cli_volumetric_on_cpu(tmp_path, capsys):
     ["--polarization", "x.png", "--visibility", "x.npz"],
     ["--visibility", "x.npz"], ["--centroid", "x.png"]])
 def test_cli_volumetric_rejects_modes_not_ported(tmp_path, flags):
+    # The centroid and visibility reports are ported: the movie's track
+    # is written as CSV beside its name, the still image's |V| profile as
+    # .npz; each is ignored where the JAX CLI ignores it.
     from light_path_tracer_tpu_torch.cli import main
-    with pytest.raises(NotImplementedError, match="not ported"):
-        main(["volumetric", "--size", "8", "--device", "cpu",
-              "--output", str(tmp_path / "v.png"), *flags])
+    argv = [str(tmp_path / f) if f.endswith((".png", ".npz")) else f
+            for f in flags]
+    assert main(["volumetric", "--size", "8", "--device", "cpu",
+                 "--output", str(tmp_path / "v.png"), *argv]) == 0
+    if "--movie" in flags:
+        assert np.loadtxt(tmp_path / "x.csv", delimiter=",").shape == (4, 4)
+    if flags == ["--visibility", "x.npz"]:
+        assert set(np.load(tmp_path / "x.npz").files) == {
+            "baselines", "amp", "b_null", "diameter_rad", "model"}
 
 
 @pytest.mark.parametrize("mode", ["thin", "decompose"])
