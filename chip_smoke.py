@@ -13,8 +13,10 @@ order-decomposition renders, the card's arithmetic peak rates, config
 5, the 4k Kerr shadow at 4 jittered samples a pixel, the Kerr-Newman
 and Johannsen-Psaltis metrics through the Kerr kernel, Hairer's
 DOP853 pair and linear event location through the Kerr and extras
-kernels, and the mu chart's hybrid tracer and charged volumetric
-scenes.
+kernels, the mu chart's hybrid tracer and charged volumetric scenes,
+the disk family, tilted, warped and multi-plane disks, and spectra,
+movies, ring orders, crossing slots and planes of any width (the broad
+instances).
 Phases:
   1. machine: card name and power limit, torch and nvcc versions;
   2. build: nvcc for sm_90a without FMA contraction (-fmad=false), with
@@ -334,36 +336,35 @@ Phases:
      the CPU renders run in P23_WORKERS child processes side by side,
      after every timed kernel run of the phase;
  24. the rest of the disk family through the disk kernel: the wide
-     instances (5-8 crossing slots, csrc/kerr_dp45_wide.cu and its f64
-     and DOP853 siblings; each pair, dtype, family and momentum) on
-     phase 8's 4,096 rays, their last 1,024 moved just outside the
-     critical curve (bisection on the shadow kernel, then 1 + eps), with
-     the decomposition's recorder (every plane crossing): slots 0-3,
-     the status, final_alpha and min(n_hits, 4) bitwise the 4-slot
-     instance's, then against the plain loop on the card by phase 8's
-     gates on every slot (bitwise reported), 9 slots raising before a
-     launch; the 1024^2 config-4 grid with the decomposition's recorder
-     and 6 slots, kernel against the plain loop (in its child), both
-     capped at GRID_STEPS: phase 8's gates on every slot, bitwise
-     reported; the 1024^2 translucent grid with 4, 6 and 8 slots (time,
-     launches, attempts a ray); every disk render at 1024^2 through its
-     entry point, warm-up and 3 runs (decomposed 3 and 6 orders, 32
-     frames over an orbit, disk AA x4, composite and composite AA x4,
-     line profile, light curve of 64 samples, polarization, Q-U loop of
-     32), the disk kernel counted and the plain loop not, each with its
-     rays/s and a frame's device time and launches, and the JAX
-     package's own physics checks (decomposed total against the
-     translucent trace, periodic frames, the opaque composite blocking
-     and the translucent one adding, the stacked composite AA equal to
-     its loop, Doppler horns and the flat-law total under supersampling,
-     a periodic and beamed light curve, a closed Q-U loop); then each
-     mode at 64^2 on the card against the CPU (masks >= 99 %, median
-     |d| < 1e-3 on disk pixels; 1-D outputs within 1e-3 of their
+     instances (5-8 crossing slots, csrc/kerr_dp45_wide.cu and its f64 and
+     DOP853 siblings; each pair, dtype, family and momentum) on phase 8's
+     4,096 rays, their last 1,024 moved just outside the critical curve
+     (bisection on the shadow kernel, then 1 + eps), with the
+     decomposition's recorder (every plane crossing): slots 0-3, the
+     status, final_alpha and min(n_hits, 4) bitwise the 4-slot instance's,
+     then against the plain loop on the card by phase 8's gates on every
+     slot (bitwise reported), 9 slots launching the plane recorder (no wide
+     launch); the 1024^2 config-4 grid with the decomposition's recorder
+     and 6 slots, kernel against the plain loop (in its child), both capped
+     at GRID_STEPS: phase 8's gates on every slot, bitwise reported; the
+     1024^2 translucent grid with 4, 6 and 8 slots (time, launches,
+     attempts a ray); every disk render at 1024^2 through its entry point,
+     warm-up and 3 runs (decomposed 3 and 6 orders, 32 frames over an
+     orbit, disk AA x4, composite and composite AA x4, line profile, light
+     curve of 64 samples, polarization, Q-U loop of 32), the disk kernel
+     counted and the plain loop not, each with its rays/s and a frame's
+     device time and launches, and the JAX package's own physics checks
+     (decomposed total against the translucent trace, periodic frames, the
+     opaque composite blocking and the translucent one adding, the stacked
+     composite AA equal to its loop, Doppler horns and the flat-law total
+     under supersampling, a periodic and beamed light curve, a closed Q-U
+     loop); then each mode at 64^2 on the card against the CPU (masks >= 99
+     %, median |d| < 1e-3 on disk pixels; 1-D outputs within 1e-3 of their
      largest value, the Q-U loop's Q and U of the largest I, each curve
-     read against I's largest value and its own), and the Q-U loop
-     pixel by pixel (where the curves part, how far Q cancels, the
-     pixels that carry the gap, and how far a loop rotated by chi in
-     place of 2 chi would sit: it must exceed 1e-2 of I's largest).
+     read against I's largest value and its own), and the Q-U loop pixel by
+     pixel (where the curves part, how far Q cancels, the pixels that carry
+     the gap, and how far a loop rotated by chi in place of 2 chi would
+     sit: it must exceed 1e-2 of I's largest).
  25. tilted, warped and two-plane disks and crossing times through the
      disk kernel's plane recorder (csrc/kerr_planes.cuh: the instances of
      kerr_dp45_planes.cu and its f64 and DOP853 siblings, Kerr and
@@ -380,7 +381,7 @@ Phases:
      recorder bitwise the wide instance and timed against it, on that
      grid with 6 slots and on phase 24's rays with its slots;
      the equatorial plane through the plane recorder bitwise the disk
-     variant; three planes raising before a launch; at 1024^2 through
+     variant; at 1024^2 through
      the entry points, warm-up and 3 runs, a tilted disk (30 deg, line of
      nodes at 45 deg), a warped one (warp radius 10), the CLI's --disk2,
      a 64-point retarded-time light curve, and a moving camera (boost
@@ -392,9 +393,32 @@ Phases:
      shadow, the Schwarzschild silhouette's first visibility null giving
      2 alpha_crit within 5 %); each mode at 64^2 on the card against the
      CPU (phase 24's gates; the shadow and lens on <= 1 % of pixels).
-The plain loops of phases 11-15, 17, 21, 22, 24 and 25 and their CPU
+ 26. any width: the broad library's build (at nice 19 beside phases 11
+     on) with each broad instance's registers, spills and blocks an SM;
+     every broad extras form (spectral, movie thin and absorbed, orders
+     thin and absorbed) at the narrow widths (3 bands, 8 frames, 4
+     orders) bitwise its compiled instance on phase 8's first 1,024
+     rays in every pair, dtype and family, and on the 1024^2 volumetric
+     grid (Kerr, DP45, float32, one launch capped at 4,096) timed
+     against it in turns; volumetric --movie 16 --centroid at 1024^2
+     through the CLI, a 1024^2 render of three translucent planes and
+     the 9-order disk decomposition, each with its launches (the broad
+     extras, the broad plane recorder, the plane recorder) and no plain
+     loop; every broad instance (40: 2 pairs x 2 dtypes x 2 families x
+     5 forms, as 6 wide cases: 12 and 40 bands with the saturation exit
+     on, 16 frames thin and absorbed, 6 orders thin and absorbed) on the
+     1,024 rays against the plain loop on the card, bitwise (orders by
+     the order gate where a plain bucket flips), capped at 64 with a
+     saturation window of 16 (some ray must end by it); the 12-slot
+     equatorial plane and three planes (equatorial, tilted, warped;
+     crossing times) on phase 24's Kerr rays, capped at 200, bitwise
+     their plain loop, DP45 and DOP853, float32 and float64; each broad
+     instance timed alone on the quiet card, the disk checks in turns
+     against the instance each extends (8 slots through the wide
+     instance, the first two planes through the plane recorder).
+The plain loops of phases 11-15, 17, 21, 22, 24, 25 and 26 and their CPU
 renders run in PLAIN_WORKERS child processes (PlainPool), queued at the
-start of phase 11 (phases 11-15) and of phases 17, 21, 22, 24 and 25,
+start of phase 11 (phases 11-15) and of phases 17, 21, 22, 24, 25 and 26,
 while the
 parent runs its kernels; the plain_ms of those phases is the call's time
 in its child, beside the other children's work on the card. A kernel
@@ -453,6 +477,14 @@ times the float32 DP45 Kerr instance on the translucent set against its
 plain loop in its child, bounds it with the probe's attempts, accepted
 attempts and recorded crossings (bounds.planes_work), and carries every
 instance's time, plain time and bitwise result and their ptxas figures.
+Phase 26's entries: kerr_dp45_broad (the broad movie thin, Kerr, DP45,
+float32: the launches of the --movie 16 path, its time and plain time
+on the 1,024 rays, its bound from bounds.broad_work and the probe's
+attempts, bound_state_ms the wide state's memory traffic alone; every
+instance's time, plain time and bitwise result, the 1024^2 width-8
+ratios, the resources and the paths), kerr_dp45_broad_planes (the
+three-plane recorder, DP45 float32, with the three-plane render's
+launches; bounded as phase 25's entry).
 The last line is {"ok": true,
 "device": {...}}. Exit code 0 iff every phase
 passed; without a CUDA device it exits 1 and prints no result.
@@ -949,11 +981,21 @@ def kernel_label(mangled):
         return (f"kerr_{m.group(1)}<{real[m.group(2)]},family={m.group(3)},"
                 f"disk={m.group(4)},hits={m.group(5)},"
                 f"momentum={m.group(6)}{mu}>")
-    m = re.search(r"kerr_(dp45|dop853)_planes_kernelI([fd])Li(\d)E",
+    m = re.search(r"kerr_(dp45|dop853)_planes(_list)?_kernelI([fd])Li(\d)E",
                   mangled)
     if m:
-        return (f"kerr_{m.group(1)}_planes<{real[m.group(2)]},"
-                f"family={m.group(3)}>")
+        # the broad plane recorder's kernel (any number of planes)
+        return (f"kerr_{m.group(1)}_planes{m.group(2) or ''}"
+                f"<{real[m.group(3)]},family={m.group(4)}>")
+    m = re.search(r"kerr_(dp45|dop853)_broad_kernelINS_\d+(Broad[A-Za-z]+)I"
+                  r"(\w*?)([fd])EE[fd]Li(\d)E", mangled)
+    if m:
+        args = ["absorbing=" + v for v in re.findall(r"Lb(\d)E",
+                                                      m.group(3))]
+        args.append(real[m.group(4)])
+        kn = "_kn" if m.group(5) == "1" else ""
+        return (f"kerr_{m.group(1)}_broad{kn}<{m.group(2)}"
+                f"<{','.join(args)}>>")
     m = re.search(r"kerr_(dp45|dop853)_extras_kernelINS_\d+([A-Za-z]+)I"
                   r"(\w*?)([fd])EE", mangled)
     if m:
@@ -5662,15 +5704,14 @@ def disk_family_phase(dev, card, pool, ctx):
     print(f"  kernel alone, wide (8 slots) against 4-slot, ms: "
           f"{json.dumps(times)}", flush=True)
     fn = kk.trace_disk_rays_cuda
-    before = disk_launches()
-    try:
-        p24_wide_trace("kerr", al_d, th_d, WIDE_SLOTS + 1, False, "dp45")
-        raised = False
-    except NotImplementedError:
-        raised = True
-    require(raised and disk_launches() == before,
-            "max_hits above 8 on a CUDA tensor did not raise before a "
-            "launch")
+    # Nine slots and more go to the plane recorder as one equatorial
+    # plane (phase 26 holds 12 bitwise against the plain loop).
+    before = (fn.launches_wide, fn.launches_planes)
+    p24_wide_trace("kerr", al_d, th_d, WIDE_SLOTS + 1, False, "dp45")
+    require((fn.launches_wide, fn.launches_planes)
+            == (before[0], before[1] + 1),
+            "max_hits above 8 on a CUDA tensor did not launch the plane "
+            "recorder")
 
     # The 1024^2 translucent config-4 grid: 4, 6 and 8 slots.
     kerr = p24_metric("kerr")
@@ -6288,17 +6329,6 @@ def tilted_phase(dev, card, pool, ctx):
                           f"{method}): {row}")
     print(f"  kind-0 plane recorder vs wide instance, kernel alone ms: "
           f"{json.dumps(vs_wide)} on {card}", flush=True)
-    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
-    before = disk_launches()
-    try:
-        kk.trace_disk_rays_multi_cuda(
-            kerr, R_OBS, al_d, th_d, THETA_DISK, LAMBDA_MAX, 100,
-            [(plane, None)] * 3)
-        raised = False
-    except NotImplementedError:
-        raised = True
-    require(raised and disk_launches() == before,
-            "three planes on a CUDA tensor did not raise before a launch")
 
     # -- (b) every mode at 1024^2 through its entry point ----------------
     outs, modes = {}, {}
@@ -6428,6 +6458,702 @@ def tilted_phase(dev, card, pool, ctx):
             m: dict(best_rays_per_s=r["best_rays_per_s"],
                     launches=r["launches"]) for m, r in modes.items()})
     return [entry]
+
+
+# -- phase 26: the broad instances ------------------------------------------
+BROAD_SOURCE = "light_path_tracer_tpu_torch/csrc/kerr_dp45_broad.cu"
+BROAD_PLANES_SOURCE = ("light_path_tracer_tpu_torch/csrc/"
+                       "kerr_dp45_broad_planes.cu")
+# The wide forms held against the plain loop (label -> kind, width,
+# absorbing), the narrow widths at which each broad form is held against
+# its compiled twin, and the broad entry's form of each kind.
+P26_FORMS = {"spectral 12": ("spectral", 12, False),
+             "spectral 40": ("spectral", 40, False),
+             "movie 16 thin": ("movie", 16, False),
+             "movie 16 absorbed": ("movie", 16, True),
+             "orders 6 thin": ("order", 6, False),
+             "orders 6 absorbed": ("order", 6, True)}
+P26_NARROW = {"spectral 3": ("spectral", 3, False),
+              "movie 8 thin": ("movie", 8, False),
+              "movie 8 absorbed": ("movie", 8, True),
+              "orders 4 thin": ("order", 4, False),
+              "orders 4 absorbed": ("order", 4, True)}
+# The rays (phase 8's first 1,024), their attempt cap (kernel and plain
+# loop alike: the plain loop costs ~40-300 ms an iteration at these
+# widths, and the mean ray ends in ~25-50 attempts) and the saturation
+# window, short enough that some rays end by the saturation exit within
+# the cap (the spectra monitor every band, extras 1..n).
+P26_RAYS = 1024
+P26_STEPS = 64
+P26_WINDOW = 16
+# The disk checks: 12 equatorial slots (phase 24's plane, momenta), and
+# three translucent planes (an equatorial disk, a tilted and a warped one,
+# with the time recorder), on phase 24's Kerr rays capped at
+# P26_DISK_STEPS; each timed against the instance it extends (8 slots
+# through the wide instance, the first two planes through the plane
+# recorder's PlaneSet).
+P26_SLOTS = 12
+P26_DISK_STEPS = 200
+P26_DISK_SETS = ("12 slots", "three planes")
+P26_DISK_INSTANCES = tuple((method, dtype) for method in ("dp45", "dop853")
+                           for dtype in ("float32", "float64"))
+P26_MOVIE = 16
+# The two-pass drivers' first-pass cap over the extras kernel (the 1024^2
+# grid's launches).
+DRIVER_PASS1 = 4096
+# The plane sets on which the broad recorder's PlaneList is timed against
+# the PlaneSet instances it could stand in for (config 4's 1024^2 grid,
+# capped at GRID_STEPS): phase 24's equatorial plane with the
+# decomposition's 6 slots, and phase 25's sets.
+P26_LIST_SETS = ("equatorial", "tilt", "opaque", "translucent")
+# Bytes a ray of the broad movie: alpha, theta in; the 1 + P26_MOVIE
+# extras, final_alpha, n_half and the status out, and the flags byte.
+P26_MOVIE_BYTES = 8 + 4 * (1 + P26_MOVIE + 3) + 1
+
+
+def p26_form(metric, label):
+    """A phase-26 form as aux_forms gives one: (transfer_fn, n_extras,
+    aux (), sat_monitor, the form as bounds takes it). Spectra: phase
+    12's 3-band scene with `width` bands log-spaced over [0.1, 10]
+    (width 3 is phase 12's own); movies: phase 14's blob, `width` frames
+    over one period; orders: phase 14's flow."""
+    from light_path_tracer_tpu_torch import volumetric
+    from light_path_tracer_tpu_torch.disk import keplerian_omega
+    kind, width, absorbing = {**P26_FORMS, **P26_NARROW}[label]
+    ab = int(absorbing)
+    desc = dict(kind=kind, width=width, absorbing=absorbing)
+    if kind == "spectral":
+        riaf, _freqs = scene_forms()["spectral 3-band"]
+        freqs = tuple(float(f) for f in np.geomspace(0.1, 10.0, width))
+        return (volumetric.make_spectral_transfer(metric, riaf, freqs),
+                1 + width, (), tuple(range(1, 1 + width)), desc)
+    riaf = volumetric.RIAFConfig(spot_amp=8.0 if kind == "movie" else 0.0,
+                                 alpha0=0.3 if ab else 0.0)
+    if kind == "movie":
+        period = 2.0 * np.pi / abs(keplerian_omega(1.0, 0.9, 6.0, True))
+        times = tuple(period * k / width for k in range(width))
+        tf = volumetric.make_movie_transfer(metric, riaf, times)
+    else:
+        tf = volumetric.make_order_transfer(metric, riaf, width)
+    return tf, 1 + ab + width, (), tuple(range(1 + ab, 1 + ab + width)), desc
+
+
+def p26_broad_form(label):
+    """The broad entry's form (volumetric_kernel.BROAD_FORMS) of a
+    label's kind."""
+    from light_path_tracer_tpu_torch.ops.cuda import volumetric_kernel as vk
+    kind, _width, absorbing = {**P26_FORMS, **P26_NARROW}[label]
+    name = {"spectral": "spectral", "movie": "movie", "order": "orders"}[
+        kind]
+    if kind != "spectral":
+        name += " absorbed" if absorbing else " thin"
+    return vk.BROAD_FORMS.index(name)
+
+
+def p26_trace(family, al, th, label, method, kernel=True,
+              max_steps=P26_STEPS, sat_window=P26_WINDOW, **kw):
+    """A phase-26 form on rays (al, th) through trace_rays_aux_cuda or
+    the plain loop (a PlainPool job), capped at max_steps (P26_STEPS)
+    with the saturation exit at sat_window (P26_WINDOW)."""
+    m = p24_metric(family)
+    return aux_trace(m, p26_form(m, label), al, th, max_steps, kernel,
+                     method=method, sat_window=sat_window, **kw)
+
+
+def p26_render_window():
+    """The renders' saturation window (RenderConfig.sat_window): the one
+    the main path's launches run with."""
+    from light_path_tracer_tpu_torch.utils.config import RenderConfig
+    return RenderConfig().sat_window
+
+
+def p26_launch(family, al, th, label, method, broad,
+               max_steps=P26_STEPS, sat_window=P26_WINDOW, probe=None):
+    """A phase-26 form through the narrow instance of its width or, with
+    `broad`, through the broad entry at the same width (one launch, no
+    counter), capped at max_steps: an ExtrasResult."""
+    from light_path_tracer_tpu_torch.ops.cuda import volumetric_kernel as vk
+    m = p24_metric(family)
+    tf, n_extras, _aux, monitor, _desc = p26_form(m, label)
+    entry, form, width = vk._family(tf.kernel, n_extras, 0)
+    if broad:
+        entry, form = vk.BROAD_ENTRY, p26_broad_form(label)
+    return vk._launch(entry, m, R_OBS, al, th, THETA_VOL, LAMBDA_MAX,
+                      max_steps, "fast", form, width, n_extras, tf.kernel,
+                      sat_window, monitor, probe, True, (), method)[0]
+
+
+def p26_extras_bitwise(a, b):
+    """Every output of two ExtrasResults bit for bit."""
+    return all(same_bits(x, y.to(x.device)) for x, y in zip(
+        (*aux_outputs(a), a.n_half_orbits, a.n_steps),
+        (*aux_outputs(b), b.n_half_orbits, b.n_steps)))
+
+
+def p26_planes():
+    """The three translucent planes of phase 26's check as DiskConfigs."""
+    from light_path_tracer_tpu_torch.disk import DiskConfig
+    tilt, az = P25_TILT
+    return [DiskConfig(opaque=False, max_hits=6),
+            DiskConfig(r_in=3.0, r_out=20.0, tilt=tilt, tilt_azimuth=az,
+                       opaque=False, max_hits=6),
+            DiskConfig(r_in=4.0, r_out=24.0, tilt=-np.radians(25.0),
+                       tilt_azimuth=-1.0, warp_radius=10.0, opaque=False,
+                       max_hits=6)]
+
+
+def p26_disk(al, th, name, method, kernel=True, max_steps=P26_DISK_STEPS,
+             **kw):
+    """A phase-26 disk check (Kerr a = 0.9) on rays (al, th) through the
+    disk wrapper or the plain loop (a PlainPool job), capped at
+    max_steps: "12 slots" or "8 slots" of phase 24's plane with
+    momenta, "three planes" or "two planes" (the first two) of
+    p26_planes with the time recorder. A tuple of DiskTraceResult, one a
+    plane."""
+    from light_path_tracer_tpu_torch import disk as dm
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    m = p24_metric("kerr")
+    fn = kk.trace_disk_rays_cuda if kernel else kk.trace_disk_rays_plain
+    if name.endswith("slots"):
+        return (fn(m, R_OBS, al, th, THETA_DISK, LAMBDA_MAX, max_steps,
+                   p24_plane(m), int(name.split()[0]),
+                   record_momentum=True, method=method, **kw),)
+    planes = [(dm._plane_of(d, m), dm._normal_of(d)) for d in p26_planes()]
+    planes = planes[:3 if name == "three planes" else 2]
+    return fn(m, R_OBS, al, th, THETA_DISK, LAMBDA_MAX, max_steps,
+              planes[0][0], 6, method=method, disk_normal=planes[0][1],
+              extra_disks=tuple(planes[1:]), record_time=True, **kw)
+
+
+def p26_disk_grid(dev):
+    """Config 4's 1024^2 disk grid (phases 24 and 25), flattened, float32
+    on `dev`."""
+    import torch
+    from light_path_tracer_tpu_torch import camera
+    fov = camera.fov_from_vertical(p24_scene().vertical_fov, P24_DIM)
+    grid = dict(dtype=torch.float32, device=dev)
+    return (camera.build_alpha_lookup(P24_DIM, fov, **grid).reshape(-1),
+            camera.build_theta_lookup(P24_DIM, fov, **grid).reshape(-1))
+
+
+def queue_phase26_grids(pool, dev):
+    """Phase 26's plain loops at the main paths' shapes, queued to `pool`
+    ahead of the phase (each runs for tens of seconds in its child): the
+    broad movie at P26_MOVIE frames on the 1024^2 volumetric grid (thin,
+    the renders' saturation window) and the three planes on config 4's
+    1024^2 disk grid, both capped at GRID_STEPS. Returns (jobs, the grids
+    by name)."""
+    grids = {"movie": p26_vol_grid(dev), "three planes": p26_disk_grid(dev)}
+    jobs = {"movie": pool.submit(
+        "p26_trace", "kerr", *grids["movie"], f"movie {P26_MOVIE} thin",
+        "dp45", kernel=False, max_steps=GRID_STEPS,
+        sat_window=p26_render_window()),
+        "three planes": pool.submit(
+            "p26_disk", *grids["three planes"], "three planes", "dp45",
+            kernel=False, max_steps=GRID_STEPS)}
+    return jobs, grids
+
+
+def p26_list_vs_set(al, th, name, method):
+    """A one- or two-plane set (P26_LIST_SETS) on rays (al, th), capped at
+    GRID_STEPS, through the PlaneSet instance the wrapper picks and
+    through the broad recorder's PlaneList: whether every output is
+    bitwise the same, and each one's kernel-alone ms (mean of 3, in turns
+    set, list, list, set)."""
+    from light_path_tracer_tpu_torch import disk as dm
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    m = p24_metric("kerr")
+    if name == "equatorial":
+        planes, slots, record_time, momentum = ([(p24_plane(m), None)], 6,
+                                                False, False)
+    else:
+        disks, record_time, momentum = p25_disks(name)
+        planes = [(dm._plane_of(d, m), dm._normal_of(d)) for d in disks]
+        slots = max(d.max_hits for d in disks)
+    fns = {lane: functools.partial(
+        kk._trace_planes, m, R_OBS, al, th, THETA_DISK, LAMBDA_MAX,
+        GRID_STEPS, planes, slots, "fast", False, momentum, None, True,
+        method, record_time, multi=True, plane_list=lane == "list")
+        for lane in ("set", "list")}
+    same = not p25_bitwise(fns["set"](), fns["list"]())
+    ms = dict(set=[], list=[])
+    for lane in ("set", "list", "list", "set"):
+        ms[lane].append(kernel_alone_ms(fns[lane], 3))
+    ms = {k: float(np.mean(v)) for k, v in ms.items()}
+    return dict(bitwise=same, planes=len(planes), slots=slots,
+                set_ms=ms["set"], list_ms=ms["list"],
+                list_over_set=ms["list"] / ms["set"])
+
+
+def queue_phase26(pool, dev, al_d, th_d):
+    """Phase 26's plain loops, queued to `pool` (after phase 25's): every
+    broad instance's forms on phase 8's first 1,024 rays, and the disk
+    checks on phase 24's Kerr rays (its random ones and 1,024 just outside
+    the critical curve). Returns (jobs, the rays by name)."""
+    rays = {"extras": (al_d[:P26_RAYS].contiguous(),
+                       th_d[:P26_RAYS].contiguous())}
+    rays["disk"] = p24_wide_rays("kerr", al_d[:2048], th_d[:2048])
+    jobs = {}
+    for inst in P25_INSTANCES:
+        method, dtype, family = inst
+        al, th = rays["extras"]
+        if dtype == "float64":
+            al, th = al.double(), th.double()
+        for label in P26_FORMS:
+            jobs[inst, label] = pool.submit("p26_trace", family, al, th,
+                                            label, method, kernel=False)
+    for method, dtype in P26_DISK_INSTANCES:
+        al, th = rays["disk"]
+        if dtype == "float64":
+            al, th = al.double(), th.double()
+        for name in P26_DISK_SETS:
+            jobs[method, dtype, name] = pool.submit(
+                "p26_disk", al, th, name, method, kernel=False)
+    return jobs, rays
+
+
+def p26_counters():
+    """(kernel wrappers by name, the plain loops) whose counts phase 26's
+    paths read."""
+    from light_path_tracer_tpu_torch.ops import kerr_trace as tk
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    from light_path_tracer_tpu_torch.ops.cuda import volumetric_kernel as vk
+    return (dict(aux=vk.trace_rays_aux_cuda, disk=kk.trace_disk_rays_cuda,
+                 kerr=kk.trace_rays_kerr_cuda,
+                 volumetric=vk.trace_rays_volumetric_cuda),
+            (tk.trace_rays_aux, tk.trace_rays_spectral,
+             tk.trace_rays_volumetric, tk.trace_disk_rays_kerr,
+             tk.trace_rays_kerr))
+
+
+def p26_path(label, run, want, card):
+    """Drive one path: every count set to 0 just before, run() once, the
+    counts read just after; want: (wrapper, counter) that must have
+    grown. Every plain loop must stay at 0. Returns (output, row)."""
+    import torch
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    wrappers, plain = p26_counters()
+    for fn in wrappers.values():
+        kk.zero_counters(fn)
+    for fn in plain:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {f"{name}.{k}": v for name, fn in wrappers.items()
+              for k, v in sorted(vars(fn).items())
+              if k.startswith("launches") and v}
+    plain_calls = sum(fn.launches for fn in plain)
+    row = dict(launches=counts, plain_loop_calls=plain_calls, wall_s=wall)
+    print(f"  {label}: {json.dumps(row)} on {card}", flush=True)
+    require(counts.get(f"{want[0]}.{want[1]}", 0) > 0 and plain_calls == 0,
+            f"phase 26 {label}: {row}")
+    return out, row
+
+
+def broad_resources(report):
+    """RESOURCES of every broad extras instance (both pairs, families and
+    dtypes), as extras_resources fills the narrow ones'."""
+    import re
+    from light_path_tracer_tpu_torch.ops.cuda import volumetric_kernel as vk
+    ptx = {name: spill for name, _regs, spill in report}
+    rows = {}
+    for method in ("dp45", "dop853"):
+        for label, entry, form, variant, dtype in [
+                x for fam in ("", "_kn")
+                for x in vk.broad_instances(method, fam)]:
+            require(label in ptx or not ptx, f"ptxas reported no {label}")
+            d = vk.describe_instance(entry, form, variant, dtype, method)
+            nums = dict((k, int(v)) for v, k in re.findall(
+                r"(\d+) bytes (stack frame|spill stores|spill loads)",
+                ptx.get(label, "")))
+            require(d["blocks_per_sm"] > 0, f"{label}: {d}")
+            rows[label] = RESOURCES[label] = dict(
+                registers=d["registers"],
+                spill_stores=nums.get("spill stores"),
+                spill_loads=nums.get("spill loads"),
+                stack_bytes=nums.get("stack frame"),
+                local_bytes=d["local_bytes"],
+                blocks_per_sm=d["blocks_per_sm"],
+                min_blocks=d["min_blocks"])
+    return rows
+
+
+def broad_phase(dev, card, pool, ctx):
+    """Phase 26; returns the kernels-line entries of the broad extras
+    instances and the broad plane recorder."""
+    import tempfile
+    import torch
+    from light_path_tracer_tpu_torch import disk as dm
+    from light_path_tracer_tpu_torch.cli import main as cli_main
+    from light_path_tracer_tpu_torch.ops.cuda import _build
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    from light_path_tracer_tpu_torch.utils.config import RenderConfig
+    t_phase = time.perf_counter()
+    jobs, rays = ctx["jobs"], ctx["rays"]
+    grid_jobs, grids = ctx["grid_jobs"], ctx["grids"]
+    window = p26_render_window()
+    lib, build_s = ctx["build"].result()
+    print(f"  broad library: built in {build_s:.1f} s at nice 19 beside "
+          f"phases 11 on ({len(_build._sources('broad'))} sources)",
+          flush=True)
+    report = ptxas_report(lib.build_log)
+    list_rows = {}
+    for name, regs, spill in report:
+        if "_broad" in name or "_planes_list" in name:
+            print(f"  ptxas: {name}: {regs} registers; {spill}", flush=True)
+        if "_planes_list<" in name:
+            list_rows[name] = p25_block_row(name, regs, spill)
+    res_rows = broad_resources(report)
+    print(f"  broad instances on the card: {json.dumps(res_rows)}",
+          flush=True)
+
+    # -- (a) each broad form at a narrow width against its compiled twin,
+    # bitwise, on the 1,024 rays and on the 1024^2 volumetric grid (Kerr,
+    # DP45, float32: the main path's instances; one launch each, capped at
+    # the two-pass drivers' first pass; timed in (d) on the quiet card)
+    al_x, th_x = rays["extras"]
+    narrow_rows = {}
+    for inst in P25_INSTANCES:
+        method, dtype, family = inst
+        al, th = ((al_x, th_x) if dtype == "float32"
+                  else (al_x.double(), th_x.double()))
+        for label in P26_NARROW:
+            a = p26_launch(family, al, th, label, method, broad=False)
+            b = p26_launch(family, al, th, label, method, broad=True)
+            same = p26_extras_bitwise(a, b)
+            narrow_rows[inst, label] = dict(bitwise=same)
+            require(same, f"phase 26 {inst} {label}: the broad form is not "
+                          f"bitwise its narrow instance")
+    print(f"  every broad form at the narrow widths (spectral 3 bands, "
+          f"movie 8 frames, orders 4) bitwise its narrow instance: "
+          f"{len(narrow_rows)} pairs", flush=True)
+    al_g, th_g = grids["movie"]
+    grid_fns = {}
+    for label in P26_NARROW:
+        grid_fns[label] = fns = {
+            broad: functools.partial(p26_launch, "kerr", al_g, th_g, label,
+                                     "dp45", broad, DRIVER_PASS1)
+            for broad in (False, True)}
+        require(p26_extras_bitwise(fns[False](), fns[True]()),
+                f"phase 26 1024^2 {label}: the broad form is not bitwise "
+                f"its narrow instance")
+    print("  every broad form at the narrow widths bitwise its narrow "
+          "instance on the 1024^2 volumetric grid too", flush=True)
+
+    # -- (b) the paths through the user's entry points --------------------
+    paths = {}
+    with tempfile.TemporaryDirectory(prefix="lpt_p26_") as out_dir:
+        argv = ["volumetric", "--a", "0.9", "--theta-obs", "80", "--fov-v",
+                "16", "--size", "1024", "--movie", str(P26_MOVIE),
+                "--centroid", os.path.join(out_dir, "w.png"), "--output",
+                os.path.join(out_dir, "m.png")]
+        cli_main(argv)      # warm-up
+        _, paths["movie"] = p26_path(
+            f"volumetric --movie {P26_MOVIE} --centroid at 1024^2 "
+            f"(the CLI)", lambda: cli_main(argv), ("aux", "launches_broad"),
+            card)
+        wrote = sorted(os.listdir(out_dir))
+    require(len([f for f in wrote if f.startswith("m_")
+                 and f.endswith(".png")]) == P26_MOVIE
+            and "w.csv" in wrote, f"phase 26 movie: wrote {wrote}")
+    scene = p24_scene()
+    cfg = RenderConfig()
+    (img3, st3), paths["three planes"] = p26_path(
+        "render_multi_disk, three translucent planes, 1024^2",
+        lambda: dm.render_multi_disk(scene, P24_DIM, cfg, p26_planes(),
+                                     device=dev),
+        ("disk", "launches_broad"), card)
+    require(bool(torch.isfinite(img3).all())
+            and all(p > 0 for p in st3["disk_pixels_per_plane"]),
+            f"phase 26 three planes: {st3.get('disk_pixels_per_plane')}")
+    (layers, st9), paths["orders 9"] = p26_path(
+        "render_disk_decomposed, 9 orders (disk --decompose --orders 9), "
+        "1024^2", lambda: dm.render_disk_decomposed(
+            scene, P24_DIM, cfg, dm.DiskConfig(), n_orders=9, device=dev),
+        ("disk", "launches_planes"), card)
+    require(layers.shape[0] == 9 and bool(torch.isfinite(layers).all())
+            and st9["flux_per_order"][0] > st9["flux_per_order"][1] > 0,
+            f"phase 26 9 orders: {st9['flux_per_order']}")
+
+    # -- (c) every broad instance against its plain loop on the card -----
+    print(f"broad instances ({len(P25_INSTANCES)} pairs, dtypes and "
+          f"families x {len(P26_FORMS)} forms, {P26_RAYS} rays, capped at "
+          f"{P26_STEPS}, sat_window {P26_WINDOW}) against the plain loop, "
+          f"bitwise:", flush=True)
+    rows, sat_exits = {}, 0
+    for inst in P25_INSTANCES:
+        method, dtype, family = inst
+        al, th = ((al_x, th_x) if dtype == "float32"
+                  else (al_x.double(), th_x.double()))
+        for label in P26_FORMS:
+            probe = {}
+            rk = p26_trace(family, al, th, label, method, probe=probe)
+            plain_ms, rp = PlainPool.result(jobs[inst, label], dev)
+            same = p26_extras_bitwise(rk, rp)
+            fl = probe["flags"].cpu().numpy()
+            row = dict(bitwise=same, plain_ms=plain_ms,
+                       attempts_sum=int(probe["attempts"].to(
+                           torch.int64).sum()),
+                       saturation_exits=int(((fl & 2) != 0).sum()),
+                       unconverged=int((fl & 1).sum()))
+            kind, width, _ab = P26_FORMS[label]
+            if kind == "order" and not same:
+                # the plain loop's own buckets may flip at an edge
+                xk = np.stack([e.double().cpu().numpy()
+                               for e in rk.extras[-width:]])
+                xp = np.stack([e.double().cpu().numpy()
+                               for e in rp.extras[-width:]])
+                g = order_numbers(xk, xp)
+                row.update(order_gate=order_gate(g), **g)
+                same = row["order_gate"]
+            sat_exits += row["saturation_exits"]
+            rows[inst, label] = row
+            print(f"  {method} {dtype} {family} {label}: {json.dumps(row)}",
+                  flush=True)
+            require(same, f"phase 26 {inst} {label}: {row}")
+    require(sat_exits > 0, "phase 26: no ray ended by the saturation "
+                           "exit")
+    print("  the equatorial 12 slots and the three planes against the "
+          "plain loop, bitwise:", flush=True)
+    al_k, th_k = rays["disk"]
+    disk_rows = {}
+    for method, dtype in P26_DISK_INSTANCES:
+        al, th = ((al_k, th_k) if dtype == "float32"
+                  else (al_k.double(), th_k.double()))
+        for name in P26_DISK_SETS:
+            probe = {}
+            before = (kk.trace_disk_rays_cuda.launches_broad
+                      + kk.trace_disk_rays_cuda.launches_broad_f64
+                      + kk.trace_disk_rays_cuda.launches_broad_dop853
+                      + kk.trace_disk_rays_cuda.launches_broad_dop853_f64)
+            rk = p26_disk(al, th, name, method, probe=probe)
+            broad = (kk.trace_disk_rays_cuda.launches_broad
+                     + kk.trace_disk_rays_cuda.launches_broad_f64
+                     + kk.trace_disk_rays_cuda.launches_broad_dop853
+                     + kk.trace_disk_rays_cuda.launches_broad_dop853_f64
+                     - before)
+            plain_ms, rp = PlainPool.result(jobs[method, dtype, name], dev)
+            bad = p25_bitwise(rk, rp)
+            row = dict(bitwise=not bad, differing=bad, plain_ms=plain_ms,
+                       broad_launches=broad,
+                       hits=[int((r.n_hits > 0).sum()) for r in rk],
+                       slots_filled=[int(r.n_hits.max()) for r in rk],
+                       attempts_sum=int(probe["attempts"].to(
+                           torch.int64).sum()),
+                       accepted_sum=int(probe["accepted"].to(
+                           torch.int64).sum()),
+                       crossings=[int(r.n_hits.to(torch.int64).sum())
+                                  for r in rk])
+            disk_rows[method, dtype, name] = row
+            print(f"  {method} {dtype} kerr {name}: {json.dumps(row)}",
+                  flush=True)
+            require(not bad and all(h > 0 for h in row["hits"])
+                    and broad == (1 if name == "three planes" else 0),
+                    f"phase 26 {method} {dtype} {name}: {row}")
+
+    # -- the main paths' shapes: the broad movie at P26_MOVIE frames on the
+    # 1024^2 volumetric grid (thin, the renders' saturation window) and the
+    # three planes on config 4's 1024^2 disk grid, each against its plain
+    # loop (children queued ahead of the phase), both capped at GRID_STEPS
+    movie_label = f"movie {P26_MOVIE} thin"
+    al4, th4 = grids["three planes"]
+    grid_rows = {}
+    probe = {}
+    rk = p26_trace("kerr", al_g, th_g, movie_label, "dp45",
+                   max_steps=GRID_STEPS, sat_window=window, probe=probe)
+    plain_ms, rp = PlainPool.result(grid_jobs["movie"], dev)
+    same = p26_extras_bitwise(rk, rp)
+    fl = probe["flags"].cpu().numpy()
+    att = probe["attempts"].to(torch.int64)
+    grid_rows["movie"] = row = dict(
+        bitwise=same, plain_ms=plain_ms, n=int(al_g.numel()),
+        max_steps=GRID_STEPS, sat_window=window,
+        attempts_sum=int(att.sum()), slowest_attempts=int(att.max()),
+        unconverged=int((fl & 1).sum()),
+        max_abs=max(float((x.double() - y.double()).abs().nan_to_num()
+                          .max()) for x, y in zip(aux_outputs(rk),
+                                                  aux_outputs(rp))))
+    print(f"  1024^2 volumetric grid, dp45 float32 kerr {movie_label}, "
+          f"both capped at {GRID_STEPS}: {json.dumps(row)}", flush=True)
+    require(same, f"phase 26 1024^2 {movie_label}: {row}")
+    probe = {}
+    rk = p26_disk(al4, th4, "three planes", "dp45", max_steps=GRID_STEPS,
+                  probe=probe)
+    plain_ms, rp = PlainPool.result(grid_jobs["three planes"], dev)
+    bad = p25_bitwise(rk, rp)
+    grid_rows["three planes"] = row = dict(
+        bitwise=not bad, differing=bad, plain_ms=plain_ms,
+        n=int(al4.numel()), max_steps=GRID_STEPS,
+        hits=[int((r.n_hits > 0).sum()) for r in rk],
+        slots_filled=[int(r.n_hits.max()) for r in rk],
+        attempts_sum=int(probe["attempts"].to(torch.int64).sum()),
+        slowest_attempts=int(probe["attempts"].max()),
+        accepted_sum=int(probe["accepted"].to(torch.int64).sum()),
+        crossings=[int(r.n_hits.to(torch.int64).sum()) for r in rk])
+    print(f"  1024^2 disk grid, dp45 float32 kerr three planes, both capped "
+          f"at {GRID_STEPS}: {json.dumps(row)}", flush=True)
+    require(not bad and all(h > 0 for h in row["hits"]),
+            f"phase 26 1024^2 three planes: {row}")
+
+    # -- (d) times on the quiet card: the narrow widths' broad forms
+    # against their narrow twins on the 1024^2 grid in turns (narrow,
+    # broad, broad, narrow), each broad instance and the broad plane
+    # recorder alone, the main path's instance beside its plain time
+    grid_ratio = {}
+    for label, fns in grid_fns.items():
+        ms = {False: [], True: []}
+        for broad in (False, True, True, False):
+            ms[broad].append(kernel_alone_ms(fns[broad], 1))
+        grid_ratio[label] = dict(
+            narrow_ms=float(np.mean(ms[False])),
+            broad_ms=float(np.mean(ms[True])),
+            broad_over_narrow=float(np.mean(ms[True]) / np.mean(ms[False])))
+    # the broad movie at P26_MOVIE frames on the same grid, against the
+    # narrow movie at 8 (the widest compiled one)
+    movie = kernel_alone_ms(functools.partial(
+        p26_launch, "kerr", al_g, th_g, movie_label, "dp45",
+        True, DRIVER_PASS1), 2)
+    grid_ratio[movie_label] = dict(
+        broad_ms=movie,
+        over_narrow_movie_8=movie / grid_ratio["movie 8 thin"]["narrow_ms"])
+    print(f"  1024^2 volumetric grid (Kerr, DP45, float32, capped at "
+          f"{DRIVER_PASS1}), broad against narrow, kernel alone in turns: "
+          f"{json.dumps(grid_ratio)} on {card}", flush=True)
+    # the main paths' launches alone: the movie and the three planes as
+    # checked above (capped at GRID_STEPS), and the movie as the two-pass
+    # driver's first pass launches it (capped at DRIVER_PASS1, the
+    # renders' window), each with its probe's attempts
+    grid_rows["movie"]["ms"] = kernel_alone_ms(functools.partial(
+        p26_trace, "kerr", al_g, th_g, movie_label, "dp45",
+        max_steps=GRID_STEPS, sat_window=window), 3)
+    grid_rows["three planes"]["ms"] = kernel_alone_ms(functools.partial(
+        p26_disk, al4, th4, "three planes", "dp45", max_steps=GRID_STEPS),
+        3)
+    probe = {}
+    p26_launch("kerr", al_g, th_g, movie_label, "dp45", True, DRIVER_PASS1,
+               window, probe)
+    att = probe["attempts"].to(torch.int64)
+    pass1 = dict(max_steps=DRIVER_PASS1, sat_window=window,
+                 attempts_sum=int(att.sum()),
+                 slowest_attempts=int(att.max()),
+                 ms=kernel_alone_ms(functools.partial(
+                     p26_launch, "kerr", al_g, th_g, movie_label, "dp45",
+                     True, DRIVER_PASS1, window), 2))
+    pass1["bound_ms"], pass1["bound_by"] = bounds.flops_bound_ms(
+        pass1["attempts_sum"] * bounds.broad_work("movie", P26_MOVIE),
+        int(al_g.numel()) * P26_MOVIE_BYTES)
+    grid_rows["movie"]["pass1"] = pass1
+    main_ms = {k: r["ms"] for k, r in grid_rows.items()}
+    print(f"  the main paths' launches alone at 1024^2 (capped at "
+          f"{GRID_STEPS}), ms: {json.dumps(main_ms)}; the movie as the "
+          f"driver's first pass launches it: {json.dumps(pass1)} on {card}",
+          flush=True)
+    # the broad recorder's PlaneList against the PlaneSet instances on one
+    # and two planes, in turns
+    list_vs_set = {}
+    for method in ("dp45", "dop853"):
+        for name in P26_LIST_SETS:
+            list_vs_set[f"{name} {method}"] = row = p26_list_vs_set(
+                al4, th4, name, method)
+            require(row["bitwise"], f"phase 26: the PlaneList differs from "
+                                    f"the PlaneSet ({name} {method}): {row}")
+    print(f"  PlaneList against PlaneSet on one and two planes (1024^2 disk "
+          f"grid, capped at {GRID_STEPS}), kernel alone ms: "
+          f"{json.dumps(list_vs_set)} on {card}", flush=True)
+    for inst in P25_INSTANCES:
+        method, dtype, family = inst
+        al, th = ((al_x, th_x) if dtype == "float32"
+                  else (al_x.double(), th_x.double()))
+        for label in P26_FORMS:
+            rows[inst, label]["ms"] = kernel_alone_ms(
+                functools.partial(p26_trace, family, al, th, label, method),
+                3)
+    # each disk check against the instance it extends, in turns
+    for method, dtype in P26_DISK_INSTANCES:
+        al, th = ((al_k, th_k) if dtype == "float32"
+                  else (al_k.double(), th_k.double()))
+        for name, base in (("three planes", "two planes"),
+                           ("12 slots", "8 slots")):
+            ms = {name: [], base: []}
+            for n in (base, name, name, base):
+                ms[n].append(kernel_alone_ms(functools.partial(
+                    p26_disk, al, th, n, method), 3))
+            disk_rows[method, dtype, name].update(
+                ms=float(np.mean(ms[name])), base=base,
+                base_ms=float(np.mean(ms[base])),
+                over_base=float(np.mean(ms[name]) / np.mean(ms[base])))
+    pairs = {" ".join(k): [r["ms"], r["base_ms"]]
+             for k, r in disk_rows.items()}
+    print(f"  disk checks alone against the instance each extends, ms: "
+          f"{json.dumps(pairs)} on {card}", flush=True)
+    times = {" ".join(k[0]) + " " + k[1]: [r["ms"], r["plain_ms"]]
+             for k, r in rows.items()}
+    print(f"  kernel alone and plain loop, ms: {json.dumps(times)} on "
+          f"{card}", flush=True)
+    print(f"phase 26: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # The entries, each timed, checked and bounded at its path's shape:
+    # the broad movie (Kerr, DP45, float32) on the 1024^2 volumetric grid
+    # with the CLI path's launches, and the broad plane recorder (float32
+    # DP45) on the 1024^2 disk grid with the three-plane render's; both
+    # capped at GRID_STEPS, their bounds from the probes' attempts.
+    gm = grid_rows["movie"]
+    entry = kernel_entry(
+        "kerr_dp45_broad", BROAD_SOURCE, f"{VOL_JAX}:276",
+        paths["movie"]["launches"].get("aux.launches_broad", 0),
+        gm["max_abs"], gm["ms"], gm["plain_ms"], gm["n"], P26_MOVIE_BYTES,
+        gm["attempts_sum"] * bounds.broad_work("movie", P26_MOVIE),
+        gm, instance="kerr_dp45_broad<BroadMovie<absorbing=0,float>>")
+    entry.update(
+        max_steps=GRID_STEPS, sat_window=window, bitwise=gm["bitwise"],
+        attempts_sum=gm["attempts_sum"], pass1=gm["pass1"],
+        bound_state_ms=1e3 * gm["attempts_sum"] * bounds.broad_state_bytes(
+            P26_MOVIE) / bounds.PEAK_BYTES,
+        instances={" ".join(k[0]) + " " + k[1]: dict(
+            ms=r["ms"], plain_ms=r["plain_ms"], bitwise=r["bitwise"],
+            attempts_sum=r["attempts_sum"],
+            saturation_exits=r["saturation_exits"])
+            for k, r in rows.items()},
+        narrow_width_bitwise=all(r["bitwise"] for r in narrow_rows.values()),
+        grid_1024_broad_vs_narrow=grid_ratio, resources=res_rows,
+        paths=paths, build_s=build_s)
+    d = grid_rows["three planes"]
+    step, crossing = bounds.planes_work((0, 1, 2), record_time=True)
+    work = d["attempts_sum"] * kerr_work() + d["accepted_sum"] * step
+    for count, per in zip(d["crossings"], crossing):
+        work = work + count * per
+    # Bytes a ray: alpha, theta in; final_alpha, n_half, status, p_phi,
+    # t_end out, and each plane's count and 6 slots of (r, phi, t) (xi
+    # too on the two planes with a normal).
+    planes_entry = kernel_entry(
+        "kerr_dp45_broad_planes", BROAD_PLANES_SOURCE, f"{JAX_KERNELS}:316",
+        paths["three planes"]["launches"].get("disk.launches_broad", 0),
+        0.0, d["ms"], d["plain_ms"], d["n"],
+        8 + 20 + 3 * 4 + 6 * 4 * (3 + 3 + 2), work, d)
+    planes_entry.update(
+        max_steps=GRID_STEPS, bitwise=d["bitwise"],
+        attempts_sum=d["attempts_sum"], accepted_sum=d["accepted_sum"],
+        crossings=d["crossings"], resources=list_rows,
+        list_vs_set=list_vs_set, instances={" ".join(k): dict(
+            ms=r["ms"], plain_ms=r["plain_ms"], bitwise=r["bitwise"],
+            base=r["base"], base_ms=r["base_ms"], over_base=r["over_base"],
+            slots_filled=r["slots_filled"], crossings=r["crossings"])
+            for k, r in disk_rows.items()})
+    return [entry, planes_entry]
+
+
+def p26_vol_grid(dev):
+    """The 1024^2 volumetric scene's rays (phases 11-15: 16 deg vertical
+    field of view), flattened, float32 on `dev`."""
+    import torch
+    from light_path_tracer_tpu_torch import camera
+    fov = camera.fov_from_vertical(float(np.radians(16.0)), VOL_DIM)
+    grid = dict(dtype=torch.float32, device=dev)
+    return (camera.build_alpha_lookup(VOL_DIM, fov, **grid).reshape(-1),
+            camera.build_theta_lookup(VOL_DIM, fov, **grid).reshape(-1))
 
 
 def kk_disk(metric, al, th, plane, **kw):
@@ -6889,6 +7615,8 @@ def main() -> int:
     # plain comparisons come first; the main-path, config 1, 2 and 4
     # timings are behind); phase 22 waits for it.
     dop853_build = background_build("dop853")
+    # The broad instances (phase 26) build beside them.
+    broad_build = background_build("broad")
     pool = PlainPool()
     vol_kernels, state = volumetric_phases(dev, card, pool)
 
@@ -6932,6 +7660,9 @@ def main() -> int:
 
     # -- 23. the mu chart and charged volumetric scenes -------------------
     stamp(23)
+    # Phase 26's plain loops at the main paths' 1024^2 shapes run beside
+    # phases 23-25.
+    grid_jobs26, grids26 = queue_phase26_grids(pool, dev)
     mu_kernels = mu_phase(dev, card, dict(rates=rates, build=more_build))
 
     # -- 24. the disk family: wide instances and every disk render --------
@@ -6943,6 +7674,13 @@ def main() -> int:
     stamp(25)
     planes_kernels = tilted_phase(dev, card, pool, dict(
         disk_rays=(al_d, th_d), cfg=cfg))
+
+    # -- 26. any width: the broad extras and plane-recorder instances ------
+    stamp(26)
+    jobs26, rays26 = queue_phase26(pool, dev, al_d, th_d)
+    broad_kernels = broad_phase(dev, card, pool, dict(
+        build=broad_build, jobs=jobs26, rays=rays26, grid_jobs=grid_jobs26,
+        grids=grids26))
     pool.close()
     stamp("retime")
     retime_entries(card)
@@ -6976,7 +7714,7 @@ def main() -> int:
                      kerr_row["attempts_sum"] * shadow_work)]
     kernels += (kernels5 + vol_kernels + new_kernels + [probe_kernel]
                 + f64_kernels + family_kernels + d853_kernels + mu_kernels
-                + disk_kernels + planes_kernels)
+                + disk_kernels + planes_kernels + broad_kernels)
     # The counted bound: every operation by kind at the rate phase 16
     # measured for it (a flop at no less than the published rate).
     for k in kernels:

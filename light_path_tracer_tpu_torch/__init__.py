@@ -26,10 +26,12 @@ emission-line profile and hot-spot light curve (`spectra.py`:
 `line_profile`, `hotspot_light_curve`) and the polarized disk
 (`render_polarization`, `polarization.hotspot_qu_loop`) trace through the
 kernel's disk variant (`trace_disk_rays_cuda`; 5 to 8 crossing slots
-through its wide instances), by default inside the two-pass straggler
-driver (`trace_disk_rays_two_pass`); tilted and warped disks, several
-planes in one trace (`render_multi_disk`) and the crossing-time recorder
-(the retarded-time light curve) through its plane-recorder instances. A
+through its wide instances, more through the plane recorder), by default
+inside the two-pass straggler driver (`trace_disk_rays_two_pass`);
+tilted and warped disks, several planes in one trace
+(`render_multi_disk`; three or more through the plane recorder's broad
+instances) and the crossing-time recorder (the retarded-time light
+curve) through its plane-recorder instances. A
 moving camera (`SceneConfig.boost`) aberrates every render's grids;
 `observables.py` reads rendered images in the visibility domain.
 
@@ -39,7 +41,9 @@ self-absorbed), the multi-frequency spectral image
 (`render_volumetric_movie`), the photon-ring order decomposition
 (`render_volumetric_decomposed`) and the polarized image
 (`render_polarized_volumetric`) trace through the CUDA extras kernel
-(`ops/cuda/volumetric_kernel.py`), by default inside its two-pass drivers.
+(`ops/cuda/volumetric_kernel.py`; more than 8 bands or frames and more
+than 4 orders through its broad instances), by default inside its
+two-pass drivers.
 
 This package imports torch and never jax.
 """

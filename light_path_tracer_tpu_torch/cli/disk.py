@@ -343,8 +343,7 @@ def register(sub):
                         "pixels); prints per-order fluxes and the "
                         "demagnification exponents")
     p.add_argument("--orders", type=int, default=3,
-                   help="image orders for --decompose (>= 2; up to 8 on "
-                        "a CUDA device)")
+                   help="image orders for --decompose (>= 2)")
     p.add_argument("--polarization", default=None, metavar="PLOT.png",
                    help="polarized disk image (Walker-Penrose transport; "
                         "BH-centered camera): writes the intensity to "

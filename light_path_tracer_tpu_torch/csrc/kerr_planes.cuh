@@ -14,7 +14,8 @@
 //
 // A lane runs the disk variant's loop (base tolerances, no plunge exit,
 // Hermite events) with up to kMaxPlanes planes, each read from the
-// launch's PlaneSet at run time:
+// launch's PlaneSet at run time (the broad instances: any number, from a
+// PlaneList in device memory, below):
 //   kind 0, the equatorial detector cos(theta) - plane_c and the physical
 //     azimuth (phi + pi where sin(theta) < 0);
 //   kind 1, a flat tilted plane of basis (n, e1, e2): the detector
@@ -24,8 +25,8 @@
 //   kind 2, a Bardeen-Petterson warp: kind 1 with the basis of the tilt
 //     iota(r) = tilt / (1 + (warp_radius / r)^power) at each point.
 // Each accepted step locates each plane's crossing as the disk variant
-// does; an in-disk crossing fills the plane's next slot (1 to 8 a plane,
-// the launch's max_hits). The ray parks at its first in-disk crossing of
+// does; an in-disk crossing fills the plane's next slot (the launch's
+// max_hits a plane, any number). The ray parks at its first in-disk crossing of
 // an opaque plane, the first in list order, as ESCAPED. With record_time
 // the lane also carries the coordinate time t from the camera, a
 // trapezoid of tdot over each accepted (event-shortened) segment and
@@ -39,9 +40,18 @@
 // and phi a state (Trig). The detectors and tdot at the step's start are
 // the previous step's ends, which the lane carries (d, td). The records
 // go straight to device memory when a slot fills (a slot is written
-// once, the outputs start at zero), so two planes of 8 slots cost no
-// registers: the lane holds the disk variant's state, the planes' counts
-// and detectors, and the time.
+// once, the outputs start at zero), so the slots cost no registers: the
+// lane holds the disk variant's state, the planes' counts and detectors,
+// and the time.
+//
+// Any number of planes (the broad instances, kerr_dp45_broad_planes.cu and
+// its siblings with LPT_BROAD_PLANES, entries lpt_kerr_dp45_broad_planes*,
+// in the "broad" library): the same lane over a PlaneList, whose planes
+// lie in device memory, with each plane's detectors (at the step's start
+// and end, two rows that swap on an accept) in a workspace of 2 n_planes
+// n scalars and its crossing count in its hits output; the plane count is
+// read at run time and the loops over the planes do not unroll. The 1-
+// and 2-plane instances keep their registers (PlaneRegs).
 //
 // Numerics: every operation in the plain loop's order, built with
 // -fmad=false as every source; the float64 instances build as
@@ -79,8 +89,86 @@ struct PlaneSet {
   PlaneSpec planes[kMaxPlanes];
 };
 
+// The planes of a broad launch: PlaneSet's fields with the planes in
+// device memory (n_planes of them) and the detectors' workspace d (2
+// n_planes n of the instance's type).
+struct PlaneList {
+  int n_planes, record_time;
+  void* t_end;
+  int* accepted;
+  const PlaneSpec* planes;
+  void* d;
+};
+
 static_assert(sizeof(PlaneSpec) == 200, "PlaneSpec layout");
 static_assert(sizeof(PlaneSet) == 424, "PlaneSet layout");
+static_assert(sizeof(PlaneList) == 40, "PlaneList layout");
+
+// The bound of a loop over a launch's planes: a PlaneSet's kMaxPlanes (a
+// constant: the loops unroll and skip the planes past n_planes), a
+// PlaneList's n_planes.
+__host__ __device__ __forceinline__ constexpr int plane_loop(
+    const PlaneSet&) {
+  return kMaxPlanes;
+}
+__host__ __device__ __forceinline__ int plane_loop(const PlaneList& PS) {
+  return PS.n_planes;
+}
+
+// A lane's per-plane state: each plane's detector at the step's start
+// (d) and end (d_next), and its count of recorded crossings (hits).
+// PlaneRegs holds a PlaneSet's in registers.
+template <class T>
+struct PlaneRegs {
+  T d_[kMaxPlanes], dn_[kMaxPlanes];
+  int n_[kMaxPlanes];
+  __device__ __forceinline__ void bind(const PlaneSet&, int, int) {}
+  __device__ __forceinline__ T& d(int p) { return d_[p]; }
+  __device__ __forceinline__ T& d_next(int p) { return dn_[p]; }
+  __device__ __forceinline__ int& hits(int p) { return n_[p]; }
+  // the end's detectors become the next step's start's
+  __device__ __forceinline__ void advance() {
+#pragma unroll
+    for (int p = 0; p < kMaxPlanes; ++p) d_[p] = dn_[p];
+  }
+};
+
+// A PlaneList's: the detectors in its workspace (row r of plane p at (r
+// n_planes + p) n + i; the rows swap on advance), the counts in the
+// planes' hits outputs.
+template <class T>
+struct PlaneRows {
+  T* d0;
+  const PlaneSpec* planes;
+  int n_planes, n, i, cur;
+  __device__ __forceinline__ void bind(const PlaneList& PS, int n_rays,
+                                       int ray) {
+    d0 = static_cast<T*>(PS.d);
+    planes = PS.planes;
+    n_planes = PS.n_planes;
+    n = n_rays;
+    i = ray;
+    cur = 0;
+  }
+  __device__ __forceinline__ T& row(int r, int p) {
+    return d0[(static_cast<size_t>(r) * n_planes + p) * n + i];
+  }
+  __device__ __forceinline__ T& d(int p) { return row(cur, p); }
+  __device__ __forceinline__ T& d_next(int p) { return row(cur ^ 1, p); }
+  __device__ __forceinline__ int& hits(int p) { return planes[p].hits[i]; }
+  __device__ __forceinline__ void advance() { cur ^= 1; }
+};
+
+template <class T, class Set>
+struct LaneOf;
+template <class T>
+struct LaneOf<T, PlaneSet> {
+  using type = PlaneRegs<T>;
+};
+template <class T>
+struct LaneOf<T, PlaneList> {
+  using type = PlaneRows<T>;
+};
 
 template <class T>
 struct Basis {
@@ -140,18 +228,19 @@ __device__ __forceinline__ Trig<T> trig_of(const T (&ys)[5], bool sth,
 }
 
 // Whether a plane of the launch has a normal (kind 1 or 2).
-__device__ __forceinline__ bool any_tilted(const PlaneSet& PS) {
+template <class Set>
+__device__ __forceinline__ bool any_tilted(const Set& PS) {
   bool tilted = false;
 #pragma unroll
-  for (int p = 0; p < kMaxPlanes; ++p)
+  for (int p = 0; p < plane_loop(PS); ++p)
     tilted = tilted || (p < PS.n_planes && PS.planes[p].kind != 0);
   return tilted;
 }
 
 // The sines and cosines the detectors and tdot read at a state.
-template <class T>
+template <class T, class Set>
 __device__ __forceinline__ Trig<T> state_trig(const T (&ys)[5],
-                                              const PlaneSet& PS) {
+                                              const Set& PS) {
   const bool tilted = any_tilted(PS);
   return trig_of<T>(ys, tilted || PS.record_time, true, tilted);
 }
@@ -197,21 +286,21 @@ __device__ __forceinline__ void put(void* out, int slot, int n, int i, T v) {
 }
 
 // One ray of the plane recorder in a lane's registers (the disk
-// variant's Ray of kerr_dp45.cu with its records in device memory).
-template <class T, int F>
+// variant's Ray of kerr_dp45.cu with its records in device memory), over
+// a PlaneSet or a PlaneList.
+template <class T, int F, class Set = PlaneSet>
 struct PlanesRay {
   T p_t, p_phi;
   T y[5], k1[5];
   T h, lam, t_now;
-  T d[kMaxPlanes];  // each plane's detector at y
   T td;             // tdot at y (record_time)
   int status, steps, accepted;
-  int n_hits[kMaxPlanes];
+  typename LaneOf<T, Set>::type L;  // the planes' detectors and counts
   CycleWatch<T> watch;
 
   __device__ __forceinline__ void start(const KerrCall<T>& C,
                                         const Params<T>& P,
-                                        const PlaneSet& PS, int i) {
+                                        const Set& PS, int i) {
     const RayStart<T> S = initial_state<F>(C.alpha[i], C.theta[i], P);
     p_t = S.p_t;
     p_phi = S.p_phi;
@@ -225,11 +314,12 @@ struct PlanesRay {
     steps = 0;
     accepted = 0;
     watch = CycleWatch<T>();
+    L.bind(PS, C.n, i);
     const Trig<T> G = state_trig<T>(y, PS);
 #pragma unroll
-    for (int p = 0; p < kMaxPlanes; ++p) {
-      n_hits[p] = 0;
-      d[p] = p < PS.n_planes ? detector<T>(PS.planes[p], y, G) : T(0.0);
+    for (int p = 0; p < plane_loop(PS); ++p) {
+      L.hits(p) = 0;
+      L.d(p) = p < PS.n_planes ? detector<T>(PS.planes[p], y, G) : T(0.0);
     }
     td = PS.record_time ? tdot<F>(y, G, p_t, p_phi, P) : T(0.0);
   }
@@ -240,7 +330,7 @@ struct PlanesRay {
 
   __device__ __forceinline__ void attempt(const KerrCall<T>& C,
                                           const Params<T>& P,
-                                          const PlaneSet& PS, int i) {
+                                          const Set& PS, int i) {
     const T lam_max = P.lambda_max;
     ++steps;
     Attempt<T> A;
@@ -267,25 +357,24 @@ struct PlanesRay {
     T y_stop[5];
     T t_stop = t_now;
     // each plane's detector and tdot at the step's end (the start's are
-    // the lane's d and td)
-    T d_next[kMaxPlanes];
+    // the lane's L.d and td)
     T td_next = T(0.0);
     if (A.accept) {
       const T seg = A.frac * A.h_eff;
       const Trig<T> G = state_trig<T>(A.y_acc, PS);
 #pragma unroll
-      for (int p = 0; p < kMaxPlanes; ++p)
-        d_next[p] =
+      for (int p = 0; p < plane_loop(PS); ++p)
+        L.d_next(p) =
             p < PS.n_planes ? detector<T>(PS.planes[p], A.y_acc, G) : T(0.0);
       if (PS.record_time) {
         td_next = tdot<F>(A.y_acc, G, p_t, p_phi, P);
         t_stop = t_now + T(0.5) * seg * (td + td_next);
       }
 #pragma unroll
-      for (int p = 0; p < kMaxPlanes; ++p) {
+      for (int p = 0; p < plane_loop(PS); ++p) {
         if (p >= PS.n_planes) continue;
         const PlaneSpec& S = PS.planes[p];
-        const T d_prev = d[p], d_end = d_next[p];
+        const T d_prev = L.d(p), d_end = L.d_next(p);
         if (!((d_prev * d_end < T(0.0)) ||
               (d_end == T(0.0) && d_prev != T(0.0))))
           continue;
@@ -339,7 +428,7 @@ struct PlanesRay {
           t_c = t_now + T(0.5) * (s * seg) *
                             (td + tdot<F>(yc, Gc, p_t, p_phi, P));
 
-        const int n = n_hits[p];
+        const int n = L.hits(p);
         if (n < C.max_hits) {
           put(S.r, n, C.n, i, yc[0]);
           put(S.phi, n, C.n, i, phi_c);
@@ -350,10 +439,10 @@ struct PlanesRay {
             put(S.pth, n, C.n, i, yc[4]);
           }
         }
-        n_hits[p] = n + 1 < C.max_hits ? n + 1 : C.max_hits;
+        L.hits(p) = n + 1 < C.max_hits ? n + 1 : C.max_hits;
         // an opaque plane parks a still-running ray at its first in-disk
         // crossing; a ray captured in the same step stays captured
-        if (S.opaque && n_hits[p] == 1 && st == kRunning && !stopped) {
+        if (S.opaque && L.hits(p) == 1 && st == kRunning && !stopped) {
 #pragma unroll
           for (int c = 0; c < 5; ++c) y_stop[c] = yc[c];
           st = kEscaped;
@@ -379,8 +468,7 @@ struct PlanesRay {
       }
       // the end's detectors and tdot are the next step's start's (a ray
       // parked at a crossing runs no more attempts)
-#pragma unroll
-      for (int p = 0; p < kMaxPlanes; ++p) d[p] = d_next[p];
+      L.advance();
       td = td_next;
       if (stopped) {
 #pragma unroll
@@ -405,7 +493,7 @@ struct PlanesRay {
 
   __device__ __forceinline__ void finish(const KerrCall<T>& C,
                                          const Params<T>& P,
-                                         const PlaneSet& PS, int i) {
+                                         const Set& PS, int i) {
     const Final<T> Fin = finalize<F>(y, p_t, p_phi, status, C.r_reclass, P);
     C.final_alpha[i] = Fin.alpha;
     C.n_half[i] = Fin.n_half;
@@ -422,8 +510,8 @@ struct PlanesRay {
     if (C.census != nullptr) C.census[i] = watch.census();
     C.p_phi[i] = p_phi;
 #pragma unroll
-    for (int p = 0; p < kMaxPlanes; ++p)
-      if (p < PS.n_planes) PS.planes[p].hits[i] = n_hits[p];
+    for (int p = 0; p < plane_loop(PS); ++p)
+      if (p < PS.n_planes) PS.planes[p].hits[i] = L.hits(p);
     if (PS.record_time) static_cast<T*>(PS.t_end)[i] = t_now;
     if (PS.accepted != nullptr) PS.accepted[i] = accepted;
   }
@@ -449,15 +537,45 @@ LPT_KERNEL(planes_kernel)(KerrCall<T> C, Params<T> P, PlaneSet PS) {
     atomicAdd(C.warp_steps, static_cast<unsigned long long>(warp_max));
 }
 
+#ifdef LPT_BROAD_PLANES
+// The broad plane-recorder kernel: any number of planes (a PlaneList).
+template <class T, int F>
+__global__ void __launch_bounds__(kThreads, kWideBlocksPerSm)
+LPT_KERNEL(planes_list_kernel)(KerrCall<T> C, Params<T> P, PlaneList PS) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  int steps = 0;
+  if (i < C.n) {
+    PlanesRay<T, F, PlaneList> R;
+    R.start(C, P, PS, i);
+    while (R.running(P)) R.attempt(C, P, PS, i);
+    R.finish(C, P, PS, i);
+    steps = R.steps;
+  }
+  const unsigned int warp_max =
+      __reduce_max_sync(kFullMask, static_cast<unsigned int>(steps));
+  if ((threadIdx.x & 31) == 0 && warp_max != 0)
+    atomicAdd(C.warp_steps, static_cast<unsigned long long>(warp_max));
+}
+
+using Planes = PlaneList;
+#else
+using Planes = PlaneSet;
+#endif
+
 template <int F>
 int launch_planes(const KerrCall<Real>& C, const Params<Real>& P,
-                  const PlaneSet& PS) {
+                  const Planes& PS) {
   const cudaStream_t s = static_cast<cudaStream_t>(C.stream);
   const cudaError_t err =
       cudaMemsetAsync(C.warp_steps, 0, sizeof(unsigned long long), s);
   if (err != cudaSuccess || C.n <= 0) return static_cast<int>(err);
+#ifdef LPT_BROAD_PLANES
+  LPT_KERNEL(planes_list_kernel)<Real, F>
+      <<<(C.n + kThreads - 1) / kThreads, kThreads, 0, s>>>(C, P, PS);
+#else
   LPT_KERNEL(planes_kernel)<Real, F>
       <<<(C.n + kThreads - 1) / kThreads, kThreads, 0, s>>>(C, P, PS);
+#endif
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -467,20 +585,20 @@ extern "C" {
 
 // Launches the plane-recorder instance of the call's family (kKerr or
 // kKerrNewman) for the call `call` (a KerrCall of this instance's Real,
-// chart 0, Hermite events; max_hits 1..kWideSlots and momentum read from
-// it) and the planes `planes` (a PlaneSet of 1..kMaxPlanes planes whose
+// chart 0, Hermite events; max_hits >= 1 and momentum read from it) and
+// the planes `planes` (a PlaneSet of 1..kMaxPlanes planes; in the broad
+// build a PlaneList of n_planes >= 1 planes and its workspace; their
 // outputs start at zero); returns a cudaError_t (0 on success).
 int LPT_ENTRY(lpt_kerr_dp45)(const void* call, const void* planes) {
   const KerrCall<Real>& C = *static_cast<const KerrCall<Real>*>(call);
-  const PlaneSet& PS = *static_cast<const PlaneSet*>(planes);
+  const Planes& PS = *static_cast<const Planes*>(planes);
   const Params<Real> P{C.M,        C.a,         C.r_plus,    C.r_obs,
                        C.theta_obs, C.lambda_max, C.max_steps, C.atol,
                        C.rtol,     C.atol_ref,  C.rtol_ref,  C.h_min,
                        C.tiny_err, C.h_init,    C.r_capture, C.q2,
                        C.r_pro,    C.eps3,      C.r_freeze};
-  if (C.event_interp || C.chart != 0 || C.max_hits < 1 ||
-      C.max_hits > kWideSlots || PS.n_planes < 1 ||
-      PS.n_planes > kMaxPlanes)
+  if (C.event_interp || C.chart != 0 || C.max_hits < 1 || PS.n_planes < 1 ||
+      PS.n_planes > plane_loop(PS))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (C.family) {
     case kKerr: return launch_planes<kKerr>(C, P, PS);

@@ -405,9 +405,8 @@ def trace_disk_rays_multi(metric, r_obs, alphas, thetas, theta_obs,
     disk, sharing the ray's status, heading and steps. A ray parks at its
     first in-disk crossing of any opaque plane, so planes behind it are
     occluded; every plane records max(max_hits) slots. On a CUDA tensor
-    the kernel's plane-recorder instances take two planes (more raise
-    NotImplementedError before any launch); the plain loop takes any
-    number."""
+    the kernel's plane-recorder instances take one or two planes and its
+    broad instances more; the plain loop takes any number too."""
     if method not in ("dp45", "dop853"):
         raise ValueError(
             f"disk mode supports integrator 'dp45' or 'dop853', got "
@@ -617,8 +616,9 @@ def render_disk_decomposed(scene: SceneConfig, resolution,
     anywhere on the plane (a translucent recorder with r_in = 0 and r_out
     at the escape radius), so slot k is image order k; order k's layer is
     the emission of that crossing where it lands in [r_in, r_out]. The
-    layers sum to the translucent render_disk intensity. n_orders above
-    4 traces through the kernel's wide instances (up to 8).
+    layers sum to the translucent render_disk intensity. On a CUDA
+    device n_orders 5 to 8 trace through the kernel's wide instances,
+    more through its plane recorder as one equatorial plane.
 
     Returns (layers, stats): layers (n_orders, H, W) linear intensity, or
     (n_orders, H, W, 3) linear sRGB for the blackbody spectrum, float32 on

@@ -5,14 +5,18 @@ interface; each `*_f64.cu` builds the float64 instances of its float
 sibling, each `*_mu*.cu` the Kerr kernel's mu-chart instances, each
 `*_wide*.cu` its disk variant's instances for 5 to 8 crossing slots, each
 `*_planes*.cu` its plane-recorder instances (tilted, warped and second
-planes, crossing times) and each `*_kn*.cu` the extras kernel's
-Kerr-Newman ones. They form three libraries: "dp45", the DP45 Kerr and
-extras kernels' theta and Kerr instances, the orbit kernel and the peak
-probe; "more", the DP45 mu-chart, wide, plane-recorder and
+planes, crossing times), each `*_kn*.cu` the extras kernel's
+Kerr-Newman ones and each `*_broad*.cu` the instances that read their
+width at run time (the extras kernel's spectra, movies and order
+decompositions wider than its compiled instances, and the plane recorder
+with any number of planes). They form four libraries: "dp45", the DP45
+Kerr and extras kernels' theta and Kerr instances, the orbit kernel and
+the peak probe; "more", the DP45 mu-chart, wide, plane-recorder and
 Kerr-Newman-extras instances (`kerr_dp45_*mu*.cu`, `kerr_dp45_wide*.cu`,
-`kerr_dp45_planes*.cu`, `kerr_dp45_*_kn*.cu`); and "dop853", every
+`kerr_dp45_planes*.cu`, `kerr_dp45_*_kn*.cu`); "dop853", every other
 `kerr_dop853*.cu` source (the DOP853 instances of the Kerr and extras
-kernels, every chart, width and family). At the first use of a library
+kernels, every chart, width and family); and "broad", every
+`*_broad*.cu` source, DP45 and DOP853. At the first use of a library
 each of its sources is compiled by its own `nvcc` for Hopper (`sm_90a`),
 all at once, and the objects are linked into one shared library under
 `build/light_path_tracer_tpu_torch/` beside the package, named by the
@@ -22,8 +26,8 @@ instances. A later process with the same sources loads the existing file.
 Nothing is compiled when a module is imported, and a missing `nvcc` or a
 failed build raises with the compiler's output.
 
-The float64 extras and plane-recorder sources
-(`*_{extras,stokes,movie,orders,planes}*_f64.cu`) are built as
+The float64 extras, plane-recorder and broad sources
+(`*_{extras,stokes,movie,orders,planes,broad}*_f64.cu`) are built as
 relocatable device code and call the float64 pow of
 `csrc/lpt_pow_f64.cu`, a translation unit built with nvcc's default
 contraction, as PyTorch builds its own pow: each library that holds such
@@ -79,6 +83,17 @@ KN_EXTRAS_ENTRIES = tuple(e for e in EXTRAS_ENTRIES
 # instances take a call and a PlaneSet.
 KERR_ENTRIES = ("lpt_kerr_dp45", "lpt_kerr_dp45_mu", "lpt_kerr_dp45_wide")
 PLANES_ENTRY = "lpt_kerr_dp45_planes"
+# The broad library's entries: the extras kernel's (a call, its
+# RiafParams and the width; a describe twin name + "_describe" that takes
+# the form), with Kerr-Newman instances name + "_kn", and the plane
+# recorder's with any number of planes (a call and a PlaneList).
+BROAD_EXTRAS_ENTRY = "lpt_kerr_dp45_broad"
+BROAD_PLANES_ENTRY = "lpt_kerr_dp45_broad_planes"
+
+
+def _broad_source(name):
+    """A source of the run-time-width instances (the "broad" library)."""
+    return "_broad" in name
 
 
 def _variant_source(name):
@@ -90,12 +105,12 @@ def _variant_source(name):
 
 
 def _rdc_source(name):
-    """A float64 source of the extras kernel or of the plane recorder (it
-    calls lpt_pow_f64)."""
+    """A float64 source of the extras kernel, of the plane recorder or of
+    the broad instances (it calls lpt_pow_f64)."""
     stem = name[:-len(".cu")]
     form = stem.removeprefix("kerr_dp45_").removeprefix("kerr_dop853_")
     return stem.endswith("_f64") and form.startswith(
-        ("extras", "stokes", "movie", "orders", "planes"))
+        ("extras", "stokes", "movie", "orders", "planes", "broad"))
 
 _P = ctypes.c_void_p
 _F = ctypes.c_float
@@ -120,10 +135,13 @@ def _nvcc() -> str:
 # The libraries: name -> (file name prefix, whether a source belongs).
 LIBRARIES = {
     "dp45": ("lpt_kernels", lambda name: not name.startswith("kerr_dop853")
-             and not _variant_source(name) and name != POW_SOURCE),
+             and not _variant_source(name) and not _broad_source(name)
+             and name != POW_SOURCE),
     "more": ("lpt_more", lambda name: not name.startswith("kerr_dop853")
-             and _variant_source(name)),
-    "dop853": ("lpt_dop853", lambda name: name.startswith("kerr_dop853")),
+             and _variant_source(name) and not _broad_source(name)),
+    "dop853": ("lpt_dop853", lambda name: name.startswith("kerr_dop853")
+               and not _broad_source(name)),
+    "broad": ("lpt_broad", _broad_source),
 }
 
 
@@ -137,10 +155,10 @@ def _sources(library="dp45"):
 
 
 def library_path(library="dp45") -> Path:
-    """Where the library `library` ("dp45", "more" or "dop853") for the
-    current
-    sources, headers and flags lives. The hash covers every source and
-    header (a DOP853 source includes its DP45 sibling)."""
+    """Where the library `library` ("dp45", "more", "dop853" or "broad")
+    for the current sources, headers and flags lives. The hash covers
+    every source and header (a DOP853 source includes its DP45
+    sibling)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS + RDC_FLAGS
                                 + POW_FLAGS + DLINK_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
@@ -237,6 +255,20 @@ def _declare(lib, library):
         for suffix in ("", "_f64"):
             _declare_pair(lib, suffix, base=False)
         return _declare_error_string(lib)
+    if library == "broad":
+        for suffix in ("", "_f64", "_dop853", "_dop853_f64"):
+            for kn in ("", "_kn"):
+                fn = getattr(lib, BROAD_EXTRAS_ENTRY + kn + suffix)
+                fn.argtypes = [_P, _P, _P]
+                fn.restype = _I
+                fn = getattr(lib, BROAD_EXTRAS_ENTRY + "_describe" + kn
+                             + suffix)
+                fn.argtypes = [_I, _P]
+                fn.restype = _I
+            fn = getattr(lib, BROAD_PLANES_ENTRY + suffix)
+            fn.argtypes = [_P, _P]
+            fn.restype = _I
+        return _declare_error_string(lib)
     for suffix, real in (("", _F), ("_f64", _D)):
         _declare_pair(lib, suffix, variants=False)
         fn = getattr(lib, "lpt_orbit_rk4" + suffix)
@@ -265,9 +297,10 @@ def _declare_error_string(lib):
 
 @functools.cache
 def load_library(library="dp45"):
-    """The compiled kernel library `library` ("dp45", "more" or "dop853"),
-    built on first use. Its `build_log` attribute holds nvcc's resource report
-    of the build that made it ('' where that build kept none), and
+    """The compiled kernel library `library` ("dp45", "more", "dop853" or
+    "broad"), built on first use. Its `build_log` attribute holds nvcc's
+    resource report of the build that made it ('' where that build kept
+    none), and
     `build_seconds` the seconds this process spent building it (0.0 when
     it loaded an existing file)."""
     if library not in LIBRARIES:

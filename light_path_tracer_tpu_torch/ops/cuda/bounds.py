@@ -43,6 +43,15 @@ calls no sin or cos; its state conversions run once a ray, as the
 initial conditions do, and are left out. The extras kernel's Kerr-Newman
 flow (`family`) adds the charge to W and Delta and takes the charged
 Keplerian Omega, a sqrt in place of the pow.
+
+The broad extras instances (csrc/kerr_broad_extras.cuh: spectra, movies
+and order decompositions of any width) do less of a wide component's
+work than a narrow instance would: its stage arguments are never formed
+and its stage-2 slope (which neither DP45 sum reads) never taken
+(`broad_work`), and they move its state through device memory, four
+scalars a component an attempt (`broad_state_bytes`): a floor of that
+design beside the contract's bound, which counts each input read and
+each output written once.
 """
 
 from __future__ import annotations
@@ -58,7 +67,8 @@ __all__ = ["PEAK_FP32", "PEAK_FP64", "PEAK_BYTES", "PUBLISHED_FLOP",
            "GEODESIC", "MU_GEODESIC_FAMILIES", "Work", "form_flops",
            "attempt_flops", "source_ops",
            "transfer_ops", "rhs_ops", "attempt_ops", "extras_work",
-           "kerr_work", "planes_work", "orbit_work", "components",
+           "broad_work", "broad_state_bytes", "kerr_work", "planes_work",
+           "orbit_work", "components",
            "flops_bound_ms", "counted_bound_ms"]
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): float32 and
@@ -325,6 +335,49 @@ def extras_work(kind, width=0, absorbing=False, profile="torus",
     flops = attempt_flops(n, form_flops(kind, width, absorbing) + extra,
                           method)
     return Work(flops, attempt_ops(n, rhs, dtype, method), dtype)
+
+
+def _width_slope_ops(kind, absorbing=False, family="kerr"):
+    """One wide component's slope from an evaluation's shared terms: a
+    band's, a frame's or an order's share of transfer_ops."""
+    return _add(transfer_ops(kind, 1, absorbing, family=family),
+                {k: -v for k, v in transfer_ops(kind, 0, absorbing,
+                                                family=family).items()})
+
+
+def broad_work(kind, width, absorbing=False, profile="torus",
+               dtype="float32", method="dp45", family="kerr"):
+    """One attempt of a broad extras instance (kind "spectral", "movie"
+    or "order") of `width` bands, frames or orders: the core (the
+    geodesic and the leading extras, 5 + 1 or 2 components) as
+    extras_work counts a narrow form at width 0, and a wide component's
+    slope at each stage its sums read (DP45: stages 3 to 7; DOP853: all
+    twelve new ones), its solution sum (y + h times the B sum), its error
+    sums (DP45: the E sum; DOP853: the E5 and E3 sums) and its error
+    scale, ratios and squares. The flops-only count is the ops' flops and
+    divisions."""
+    core_n = components(kind, 0, absorbing)
+    core = attempt_ops(core_n, rhs_ops(kind, 0, absorbing, profile,
+                                       family=family), dtype, method)
+    scale = 4 if dtype == "float32" else 2
+    slope = _width_slope_ops(kind, absorbing, family)
+    if method == "dop853":
+        sums = sum(2 * len(w) - 1 for w in (tb.D853_B, tb.D853_E5,
+                                            tb.D853_E3)) + 2
+        per = _add(_times(rhs_evaluations(method), slope),
+                   _ops(flop=sums + scale + 4, div=2))
+    else:
+        # y5: five products, four sums, h and y; E: six, five and h
+        per = _add(_times(5, slope), _ops(flop=11 + 12 + scale + 2, div=1))
+    ops = _add(core, _times(width, per))
+    return Work(ops["flop"] + ops["div"], ops, dtype)
+
+
+def broad_state_bytes(width, dtype="float32"):
+    """The bytes a broad instance moves a ray an attempt for its wide
+    state in device memory: each component's value and slope read, its
+    solution and end slope written."""
+    return 4 * width * (8 if dtype == "float64" else 4)
 
 
 def kerr_work(dtype="float32", family="kerr", method="dp45", chart="theta"):

@@ -12,13 +12,18 @@ adds the plane-crossing recorder and writes p_phi and the hit records
 too: 1 to 4 slots through the instances of csrc/kerr_dp45.cu, 5 to 8
 through its wide instances (csrc/kerr_dp45_wide.cu and siblings; the DP45
 ones in the library `_build.load_library("more")` builds at their first
-launch); more than 8 raises NotImplementedError on a CUDA tensor before
-any launch (ROADMAP.md, Queue 2). A tilted or warped plane, a second
-plane or the crossing-time recorder goes to the plane-recorder instances
-(csrc/kerr_planes.cuh through csrc/kerr_dp45_planes.cu and its f64 and
-DOP853 siblings; `trace_disk_rays_cuda` with disk_normal, extra_disks or
-record_time, `trace_disk_rays_multi_cuda`), up to two planes of 1 to 8
-slots; a third plane raises NotImplementedError before any launch. The
+launch), more through the plane recorder as one equatorial plane (its
+kind 0, bitwise the disk variant in every output both write). A tilted or
+warped plane, a second plane or the crossing-time recorder goes to the
+plane-recorder instances (csrc/kerr_planes.cuh through
+csrc/kerr_dp45_planes.cu and its f64 and DOP853 siblings;
+`trace_disk_rays_cuda` with disk_normal, extra_disks or record_time,
+`trace_disk_rays_multi_cuda`), one or two planes of any number of slots;
+three or more planes go to its broad instances
+(csrc/kerr_dp45_broad_planes.cu and siblings, in the library
+`_build.load_library("broad")` builds at their first launch), which read
+the plane count at run time and keep each plane's detectors in a
+workspace of 2 x planes x rays scalars on the device. The
 kernel runs one thread a ray in index order. It computes three
 metric families, Kerr, Kerr-Newman and Johannsen-Psaltis (the shadow
 variant; the disk variant takes the first two), each named to the kernel
@@ -45,10 +50,10 @@ they never fall back. Each wrapper counts its launches per pair and dtype
 `.launches_dop853` and `.launches_dop853_f64`), the mu and wide
 instances on counters of their own (`.launches_mu`, `.launches_mu_f64`,
 `.launches_mu_dop853`, `.launches_mu_dop853_f64`; `.launches_wide`,
-...). Given CPU tensors they run the kernel's plain version, the PyTorch
-loop (`trace_rays_kerr_plain`, `trace_disk_rays_plain`,
-ops/kerr_trace.py), because there is no kernel to run there; the tests
-and the chip smoke test compare the two.
+`.launches_planes`, `.launches_broad`, ...). Given CPU tensors they run
+the kernel's plain version, the PyTorch loop (`trace_rays_kerr_plain`,
+`trace_disk_rays_plain`, ops/kerr_trace.py), because there is no kernel
+to run there; the tests and the chip smoke test compare the two.
 
 The kernels end a lane frozen in an exact cycle at once
 (csrc/kerr_dp45_common.cuh, CycleWatch), which changes no output. The
@@ -106,7 +111,7 @@ __all__ = ["trace_rays_kerr_cuda", "trace_rays_kerr_plain",
 
 # Crossing slots of the disk variant: 1..NARROW_KERNEL_HITS through an
 # instance a count (csrc/kerr_dp45.cu), up to MAX_KERNEL_HITS through the
-# wide instances (csrc/kerr_dp45_wide.cu).
+# wide instances (csrc/kerr_dp45_wide.cu), more through the plane recorder.
 NARROW_KERNEL_HITS = 4
 MAX_KERNEL_HITS = 8
 
@@ -121,10 +126,11 @@ EXTRAS_FAMILIES = (Kerr, KerrNewman)
 # The charts of the shadow variant (KerrCall::chart).
 CHARTS = ("theta", "mu")
 # The sets of instances with launch counters of their own: the theta
-# chart's (no infix), the mu chart's, the wide disk and the plane-recorder
-# instances.
-VARIANTS = CHARTS + ("wide", "planes")
-# Planes of the plane-recorder instances (csrc/kerr_planes.cuh kMaxPlanes).
+# chart's (no infix), the mu chart's, the wide disk, the plane-recorder
+# and the broad instances (the run-time widths of csrc/*_broad*.cu).
+VARIANTS = CHARTS + ("wide", "planes", "broad")
+# Planes of the plane recorder's PlaneSet instances (csrc/kerr_planes.cuh
+# kMaxPlanes); more go to its broad instances.
 MAX_KERNEL_PLANES = 2
 
 
@@ -172,9 +178,9 @@ def library_of(method, variant=False) -> str:
 def counter_name(dtype, method="dp45", chart="theta") -> str:
     """A wrapper's launch counter for the pair, dtype and set of
     instances (VARIANTS): "launches", "launches_f64", "launches_dop853"
-    or "launches_dop853_f64", with "_mu", "_wide" or "_planes" after
-    "launches" for the mu chart's, the wide disk or the plane-recorder
-    instances."""
+    or "launches_dop853_f64", with "_mu", "_wide", "_planes" or "_broad"
+    after "launches" for the mu chart's, the wide disk, the
+    plane-recorder or the broad instances."""
     return ("launches" + ("" if chart == "theta" else "_" + chart)
             + method_suffix(method)
             + ("_f64" if dtype == torch.float64 else ""))
@@ -278,6 +284,16 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def to_device(t, device):
+    """A host tensor on `device`: to a CUDA device through pinned memory
+    without waiting for the stream (a pageable copy would wait for every
+    launch queued before it)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def family_scalars(metric) -> dict:
     """KerrCall's family fields of `metric`: the code, Kerr-Newman's Q^2
     and numeric prograde photon-orbit radius (its plunge exit),
@@ -304,9 +320,9 @@ def _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
     the chart, the pair and the rays' dtype): the shadow variant, or the
     disk variant when `disk` holds (r_in, r_out, theta_plane, opaque,
     max_hits, momentum; the wide instances above NARROW_KERNEL_HITS).
-    With `planes` (a PlaneSet, whose pointers name the hit outputs) it
-    launches the plane-recorder instance instead and `disk` gives only
-    max_hits and momentum. Returns
+    With `planes` (a PlaneSet, or a PlaneList for the broad instances,
+    whose pointers name the hit outputs) it launches the plane-recorder
+    instance instead and `disk` gives only max_hits and momentum. Returns
     the per-ray outputs by name, "n_steps" the warp step sum (0-dim
     int64); "flags", the rays whose raw status is still RUNNING (bool),
     only when asked for."""
@@ -339,10 +355,11 @@ def _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
                 out[k] = empty(max_hits, n)
     tols = get_tols(dtype, precision)
     wide = planes is None and max_hits > NARROW_KERNEL_HITS
+    broad = isinstance(planes, PlaneList)
     infix = ("_mu" if chart == "mu" else "") + ("_wide" if wide else "") + (
-        "_planes" if planes is not None else "")
+        "" if planes is None else "_broad_planes" if broad else "_planes")
     entry = "lpt_kerr_dp45" + infix + method_suffix(method) + suffix
-    lib = load_library(library_of(method, bool(infix)))
+    lib = load_library("broad" if broad else library_of(method, bool(infix)))
     with torch.cuda.device(dev):
         call = (KerrCall64 if suffix else KerrCall)(
             alpha=alphas.data_ptr(), theta=thetas.data_ptr(),
@@ -462,12 +479,12 @@ def trace_disk_rays_cuda(metric, r_obs, alphas, thetas, theta_obs,
 
     Same arguments and result as trace_disk_rays_plain, whose events are
     then Hermite too; method "dp45" or "dop853". disk_plane =
-    (r_in, r_out, theta_plane, opaque); max_disk_hits 1..8 (5..8 through
-    the wide instances; more raises NotImplementedError before any
-    launch, fewer than 1 ValueError). A disk_normal (a flat basis or
-    ops.kerr_trace.WarpedBasis), one plane in extra_disks or
-    record_time launches the plane-recorder instances; a third plane
-    raises NotImplementedError before any launch. alphas/
+    (r_in, r_out, theta_plane, opaque); max_disk_hits >= 1 (5..8
+    through the wide instances, more through the plane recorder as one
+    equatorial plane; fewer than 1 raises ValueError). A disk_normal (a
+    flat basis or ops.kerr_trace.WarpedBasis), planes in extra_disks or
+    record_time launch the plane-recorder instances (three or more
+    planes its broad ones). alphas/
     thetas: (N,) contiguous CUDA tensors, both float32 or both float64.
     probe: as trace_rays_kerr_cuda's. One kernel launch on the current
     stream, which does not synchronise. CPU tensors go to the plain
@@ -487,15 +504,11 @@ def trace_disk_rays_cuda(metric, r_obs, alphas, thetas, theta_obs,
     check_method(method)
     _check_inputs((("alphas", alphas, None), ("thetas", thetas, None)),
                   alphas)
-    if max_disk_hits > MAX_KERNEL_HITS:
-        raise NotImplementedError(
-            f"the CUDA disk kernel records at most {MAX_KERNEL_HITS} "
-            f"crossings a ray, got max_disk_hits={max_disk_hits}; more "
-            f"slots are not ported yet (ROADMAP.md, Queue 2)")
     if max_disk_hits < 1:
         raise ValueError(f"max_disk_hits must be at least 1, got "
                          f"{max_disk_hits}")
-    if disk_normal is not None or extra_disks or record_time:
+    if (disk_normal is not None or extra_disks or record_time
+            or max_disk_hits > MAX_KERNEL_HITS):
         planes = [(disk_plane, disk_normal)] + list(extra_disks or ())
         return _trace_planes(metric, r_obs, alphas, thetas, theta_obs,
                              lambda_max, max_steps, planes, max_disk_hits,
@@ -537,8 +550,8 @@ def trace_disk_rays_multi_cuda(metric, r_obs, alphas, thetas, theta_obs,
     """Several disk planes in one trace: planes = [((r_in, r_out,
     theta_plane, opaque), normal), ...]; returns a tuple of
     DiskTraceResult, one a plane (trace_disk_rays_cuda with extra_disks).
-    On a CUDA tensor the plane-recorder instances take two planes; more
-    raise NotImplementedError before any launch."""
+    On a CUDA tensor the plane-recorder instances take one or two planes,
+    its broad instances more."""
     (plane0, normal0), rest = planes[0], tuple(planes[1:])
     out = trace_disk_rays_cuda(
         metric, r_obs, alphas, thetas, theta_obs, lambda_max, max_steps,
@@ -573,6 +586,16 @@ class PlaneSet(ctypes.Structure):
                 ("planes", PlaneSpec * MAX_KERNEL_PLANES)]
 
 
+class PlaneList(ctypes.Structure):
+    """The broad plane-recorder launch's planes (csrc/kerr_planes.cuh):
+    PlaneSet's fields with the PlaneSpecs and the detectors' workspace on
+    the device."""
+
+    _fields_ = [("n_planes", ctypes.c_int), ("record_time", ctypes.c_int),
+                ("t_end", ctypes.c_void_p), ("accepted", ctypes.c_void_p),
+                ("planes", ctypes.c_void_p), ("d", ctypes.c_void_p)]
+
+
 def _plane_spec(plane, normal, out):
     """A PlaneSpec of one plane and its normal, writing to the tensors of
     `out`; NotImplementedError for a callable normal that is not a
@@ -604,15 +627,14 @@ def _plane_spec(plane, normal, out):
 def _trace_planes(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
                   max_steps, planes, max_hits, precision, return_unconverged,
                   record_momentum, probe, cycle_exit, method, record_time,
-                  multi):
+                  multi, plane_list=False):
     """One launch of the plane-recorder instances (trace_disk_rays_cuda's
-    route for tilted, warped and second planes and the time recorder).
-    The slots start at 0 and the kernel writes each as it records it."""
-    if len(planes) > MAX_KERNEL_PLANES:
-        raise NotImplementedError(
-            f"the CUDA plane recorder takes at most {MAX_KERNEL_PLANES} "
-            f"disk planes, got {len(planes)}; more are not ported yet "
-            f"(ROADMAP.md, Queue 2)")
+    route for tilted, warped and further planes, the time recorder and
+    more than MAX_KERNEL_HITS slots): up to MAX_KERNEL_PLANES planes
+    through a PlaneSet, more (or any number, with plane_list, which
+    times the two against each other) through the broad instances'
+    PlaneList. The slots start at 0 and the kernel writes each as it
+    records it."""
     n = alphas.numel()
     dtype, dev = alphas.dtype, alphas.device
     outs = []
@@ -629,17 +651,29 @@ def _trace_planes(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
                                                                 outs)]
     if probe is not None:
         probe["accepted"] = torch.empty(n, dtype=torch.int32, device=dev)
-    pset = PlaneSet(n_planes=len(planes), record_time=int(bool(record_time)),
-                    t_end=_ptr(t_end),
-                    accepted=_ptr((probe or {}).get("accepted")))
-    for k, spec in enumerate(specs):
-        pset.planes[k] = spec
+    head = dict(n_planes=len(planes), record_time=int(bool(record_time)),
+                t_end=_ptr(t_end),
+                accepted=_ptr((probe or {}).get("accepted")))
+    broad = plane_list or len(planes) > MAX_KERNEL_PLANES
+    if broad:
+        # the PlaneSpecs as bytes on the device, and the detectors' rows
+        table = (PlaneSpec * len(specs))(*specs)
+        spec_dev = to_device(torch.frombuffer(bytearray(table),
+                                              dtype=torch.uint8), dev)
+        work = torch.empty(2 * len(planes) * n, dtype=dtype, device=dev)
+        pset = PlaneList(planes=spec_dev.data_ptr(), d=work.data_ptr(),
+                         **head)
+    else:
+        pset = PlaneSet(**head)
+        for k, spec in enumerate(specs):
+            pset.planes[k] = spec
     res = _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
                   max_steps, precision, None,
                   (0.0, 0.0, math.pi / 2, 0, max_hits, record_momentum),
                   return_unconverged, probe, cycle_exit, method,
                   planes=pset)
-    count_launch(trace_disk_rays_cuda, dtype, method, "planes")
+    count_launch(trace_disk_rays_cuda, dtype, method,
+                 "broad" if broad else "planes")
 
     def rows(out, k):
         return tuple(out[k].unbind(0)) if k in out else ()

@@ -24,9 +24,16 @@ the kernel instance of its dtype and of the call's `method`, "dp45" or
 built at their first launch); the launch counters count per pair and
 dtype (`.launches`, `.launches_f64`, `.launches_dop853`,
 `.launches_dop853_f64`), and any other CUDA input raises (another
-dtype, a transfer function without a description, more than 8 bands or
-frames, more than 4 orders, aux inputs the transfer function does not
-take); CPU tensors run the plain loop (`ops/kerr_trace.py`). As in
+dtype, a transfer function without a description, aux inputs the
+transfer function does not take); CPU tensors run the plain loop
+(`ops/kerr_trace.py`). A width above the compiled instances' (more than
+MAX_BANDS bands or MAX_FRAMES frames, more than MAX_ORDERS orders)
+launches the broad instances (csrc/kerr_broad_extras.cuh, entries
+`lpt_kerr_dp45_broad*`, in the library `_build.load_library("broad")`
+builds at their first launch), which read the width at run time and keep
+the wide components in a workspace of 4 x width x rays scalars on the
+device (a failed allocation raises, as any failed launch does); they
+count on the `.launches_broad*` counters. As in
 `kerr_trace_kernel.py`, the private `_cycle_exit=False` grinds the exact
 cycles the kernel otherwise counts at once, and `probe` receives their
 census.
@@ -44,7 +51,7 @@ Each instance is built with its functor's block bound (kMinBlocks in
 csrc/kerr_dp45_extras.cuh: the 128-thread blocks an SM must hold, which
 caps its registers). `extras_instances` lists every compiled instance and
 `describe_instance` reports one's registers, local memory and blocks an SM
-on the current card.
+on the current card (`broad_instances` lists the broad ones).
 """
 
 from __future__ import annotations
@@ -57,7 +64,8 @@ from light_path_tracer_tpu_torch.ops import kerr_trace as tk
 from light_path_tracer_tpu_torch.ops.cuda._build import check, load_library
 from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
     EXTRAS_FAMILIES, FAMILIES, _check_call, _check_inputs, count_launch,
-    entry_suffix, family_scalars, library_of, method_suffix, zero_counters)
+    entry_suffix, family_scalars, library_of, method_suffix, to_device,
+    zero_counters)
 from light_path_tracer_tpu_torch.models import KerrNewman
 from light_path_tracer_tpu_torch.ops.kerr_trace import check_method
 from light_path_tracer_tpu_torch.ops.kerr_trace import (
@@ -66,13 +74,15 @@ from light_path_tracer_tpu_torch.ops.kerr_trace import (
 from light_path_tracer_tpu_torch.ops.types import ExtrasResult
 
 __all__ = ["RiafParams", "RiafParams64", "ExtrasCall", "ExtrasCall64",
-           "riaf_params", "extras_instances", "describe_instance",
+           "riaf_params", "extras_instances", "broad_instances",
+           "describe_instance", "Broad",
            "trace_rays_volumetric_cuda", "trace_rays_aux_cuda",
            "trace_rays_spectral_cuda", "MAX_BANDS", "MAX_FRAMES",
            "MAX_ORDERS", "MAX_AUX"]
 
-# What the families are compiled for (csrc/): spectral bands, movie
-# frames, image orders (2..MAX_ORDERS) and per-ray aux constants.
+# What the narrow families are compiled for (csrc/): spectral bands, movie
+# frames, image orders (2..MAX_ORDERS) and per-ray aux constants; wider
+# spectra, movies and decompositions launch the broad instances.
 MAX_BANDS = 8
 MAX_FRAMES = 8
 MAX_ORDERS = 4
@@ -145,6 +155,22 @@ class ExtrasCall64(ctypes.Structure):
     _fields_ = _call_fields(ctypes.c_double)
 
 
+class Broad(ctypes.Structure):
+    """The broad instances' Broad<T> (csrc/kerr_broad_extras.cuh), the same
+    for both scalar types: the per-width constants, the monitor bits and
+    the workspace (device pointers), and the width."""
+
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "c0", "c1", "monitor", "work")] + [("width", ctypes.c_int)])
+
+
+# The broad entry point and its forms (csrc/kerr_broad_extras.cuh
+# BroadForms): spectral, movie thin and absorbed, orders thin and absorbed.
+BROAD_ENTRY = "lpt_kerr_dp45_broad"
+BROAD_FORMS = ("spectral", "movie thin", "movie absorbed", "orders thin",
+               "orders absorbed")
+
+
 def riaf_params(spec, dtype=torch.float32):
     """The kernel's RiafParams for a volumetric.KernelTransfer: its
     constants, formed in double by KernelTransfer.constants, each rounded
@@ -157,12 +183,42 @@ def riaf_params(spec, dtype=torch.float32):
                geometry=int(k["g_power"] == 0.0),
                field=_FIELDS.get(spec.field, 0),
                **{name: k[name] for name in names})
-    for i, (ci, bs) in enumerate(zip(k["c"], k["band_scale"])):
+    # the broad instances read every band and frame from device arrays
+    # (broad_constants); the struct holds the narrow instances' widths
+    for i, (ci, bs) in enumerate(zip(k["c"][:MAX_BANDS],
+                                     k["band_scale"][:MAX_BANDS])):
         p.neg_c[i] = -ci
         p.band_scale[i] = bs
-    for i, t in enumerate(spec.times):
+    for i, t in enumerate(spec.times[:MAX_FRAMES]):
         p.times[i] = t
     return p
+
+
+def broad_constants(spec, dtype, device):
+    """The broad instances' per-width constants (Broad c0, c1) as device
+    tensors of `dtype`, formed in double and rounded once, as riaf_params
+    rounds RiafParams's: spectral, -c_i and the band scales; movie, the
+    frame times; orders, none."""
+    if spec.kind == "spectral":
+        k = spec.constants()
+        rows = ([-c for c in k["c"]], list(k["band_scale"]))
+    elif spec.kind == "movie":
+        rows = (list(spec.times),)
+    else:
+        rows = ()
+    return tuple(to_device(torch.tensor(r, dtype=torch.float64).to(dtype),
+                           device) for r in rows)
+
+
+def monitor_words(sat_monitor, n_extras, device):
+    """The broad instances' monitor: bit e of word e // 32 for each extra
+    e in sat_monitor, as int32 words on `device`."""
+    words = [0] * ((n_extras + 31) // 32)
+    for e in sat_monitor:
+        words[int(e) // 32] |= 1 << (int(e) % 32)
+    return to_device(torch.tensor([w - (1 << 32) if w >= 1 << 31 else w
+                                   for w in words], dtype=torch.int32),
+                     device)
 
 
 def family_infix(metric) -> str:
@@ -205,14 +261,32 @@ def extras_instances(method="dp45", family=""):
             for label, entry, form, variant in rows]
 
 
+def broad_instances(method="dp45", family=""):
+    """Every broad instance for an embedded pair and family ("" Kerr,
+    "_kn" Kerr-Newman), in float32 then float64, as extras_instances
+    lists the narrow ones: (label, C entry point, form, variant 0,
+    dtype), the label as ptxas's report names the kernel, e.g.
+    "kerr_dp45_broad<BroadMovie<absorbing=1,float>>"."""
+    kernel = ("kerr_dop853_broad" if method_suffix(method) else
+              "kerr_dp45_broad") + family
+    rows = ["BroadSpectral<{}>", "BroadMovie<absorbing=0,{}>",
+            "BroadMovie<absorbing=1,{}>", "BroadOrder<absorbing=0,{}>",
+            "BroadOrder<absorbing=1,{}>"]
+    return [(f"{kernel}<{label.format(real)}>", BROAD_ENTRY + family, form,
+             0, dtype)
+            for dtype, real in ((torch.float32, "float"),
+                                (torch.float64, "double"))
+            for form, label in enumerate(rows)]
+
+
 def describe_instance(entry, form, variant, dtype=torch.float32,
                       method="dp45"):
     """The resources of one extras instance on the current CUDA device, as
     the runtime reports them: blocks_per_sm (resident 128-thread blocks an
     SM), registers (a thread), local_bytes (a thread: spills and stack
     frame) and min_blocks (its __launch_bounds__ block bound). entry as
-    extras_instances gives it (with the family infix). Builds the pair's
-    library on first use."""
+    extras_instances or broad_instances gives it (with the family infix).
+    Builds the pair's library on first use."""
     if not torch.cuda.is_available():
         raise RuntimeError("describe_instance queries the CUDA runtime; it "
                            "needs a CUDA device")
@@ -220,9 +294,13 @@ def describe_instance(entry, form, variant, dtype=torch.float32,
     suffix = method_suffix(method) + entry_suffix(dtype)
     base, kn = ((entry[:-3], "_kn") if entry.endswith("_kn")
                 else (entry, ""))
-    lib = load_library(library_of(method, bool(kn)))
     name = f"{base}_describe{kn}{suffix}"
-    rc = getattr(lib, name)(int(form), int(variant), out)
+    if base == BROAD_ENTRY:
+        lib = load_library("broad")
+        rc = getattr(lib, name)(int(form), out)
+    else:
+        lib = load_library(library_of(method, bool(kn)))
+        rc = getattr(lib, name)(int(form), int(variant), out)
     check(lib, rc, name)
     keys = ("blocks_per_sm", "registers", "local_bytes", "min_blocks")
     return dict(zip(keys, list(out)))
@@ -252,8 +330,8 @@ def _launch(entry, metric, r_obs, alphas, thetas, theta_obs, lambda_max,
             sat_window, sat_monitor, probe, cycle_exit, aux=(),
             method="dp45"):
     """One kernel launch through the C entry point `entry` (the instance
-    of the pair and the rays' dtype); returns (ExtrasResult, unconverged
-    mask)."""
+    of the pair and the rays' dtype; the broad entry with the width
+    `variant`); returns (ExtrasResult, unconverged mask)."""
     _check_inputs((("alphas", alphas, None), ("thetas", thetas, None))
                   + tuple((f"aux[{i}]", a, None)
                           for i, a in enumerate(aux)), alphas)
@@ -280,7 +358,17 @@ def _launch(entry, metric, r_obs, alphas, thetas, theta_obs, lambda_max,
                      if probe is not None else (None, None))
     tols = get_tols(dtype, precision)
     params = riaf_params(spec, dtype)
-    lib = load_library(library_of(method, bool(family_infix(metric))))
+    broad = entry.startswith(BROAD_ENTRY)
+    if broad:
+        lib = load_library("broad")
+        consts = broad_constants(spec, dtype, dev)
+        monitor = monitor_words(sat_monitor, n_extras, dev)
+        work = torch.empty(4 * int(variant) * n, dtype=dtype, device=dev)
+        wide = Broad(monitor=monitor.data_ptr(), work=work.data_ptr(),
+                     width=int(variant),
+                     **{f"c{j}": c.data_ptr() for j, c in enumerate(consts)})
+    else:
+        lib = load_library(library_of(method, bool(family_infix(metric))))
     with torch.cuda.device(dev):
         call = (ExtrasCall64 if suffix else ExtrasCall)(
             alpha=alphas.data_ptr(), theta=thetas.data_ptr(),
@@ -292,7 +380,9 @@ def _launch(entry, metric, r_obs, alphas, thetas, theta_obs, lambda_max,
             stream=torch.cuda.current_stream().cuda_stream,
             n=n, form=int(form), variant=int(variant),
             max_steps=int(max_steps), sat_window=int(sat_window),
-            sat_monitor=sum(1 << int(i) for i in sat_monitor),
+            # (the broad instances read monitor_words instead)
+            sat_monitor=sum(1 << int(i) for i in sat_monitor
+                            if int(i) < 32),
             cycle_exit=int(bool(cycle_exit)), family=fam["family"],
             q2=fam["q2"], M=float(metric.M), a=float(metric.a),
             r_plus=float(metric.r_plus), r_obs=float(r_obs),
@@ -304,8 +394,9 @@ def _launch(entry, metric, r_obs, alphas, thetas, theta_obs, lambda_max,
             sat_r_max=saturation_r_max(metric) if sat_window else 0.0)
         for i, a in enumerate(aux):
             call.aux[i] = a.data_ptr()
-        rc = getattr(lib, entry + suffix)(ctypes.byref(call),
-                                          ctypes.byref(params))
+        args = (ctypes.byref(call), ctypes.byref(params)) + (
+            (ctypes.byref(wide),) if broad else ())
+        rc = getattr(lib, entry + suffix)(*args)
     check(lib, rc, f"{entry}{suffix} launch")
     if probe is not None:
         probe["attempts"] = steps
@@ -378,21 +469,24 @@ zero_counters(trace_rays_volumetric_cuda)
 
 def _family(spec, n_extras, n_aux):
     """(C entry point, form, variant) of a transfer description, after
-    checking its extras, aux count and compiled widths. The width is the
-    number of bands, frames or orders; absorption adds the tau extra to
-    the movie and order forms."""
+    checking its extras and aux count. The width is the number of bands,
+    frames or orders; absorption adds the tau extra to the movie and order
+    forms. A width up to the narrow instances' limit (MAX_BANDS,
+    MAX_FRAMES, MAX_ORDERS) picks that width's compiled instance (variant
+    = the width); a wider one the broad entry, its form in BROAD_FORMS
+    and variant the width."""
     absorbing = int(spec.riaf.alpha0 > 0.0)
     movie_entry = ("lpt_kerr_dp45_movie_absorbed" if absorbing
                    else "lpt_kerr_dp45_movie_thin")
-    # kind -> (entry, form, width, width limit, its name, extras, aux)
-    entry, form, width, limit, what, expect, want_aux = {
+    # kind -> (entry, form, width, width limit, extras, aux)
+    entry, form, width, limit, expect, want_aux = {
         "spectral": ("lpt_kerr_dp45_extras", 2, len(spec.freqs), MAX_BANDS,
-                     "bands", 1 + len(spec.freqs), 0),
+                     1 + len(spec.freqs), 0),
         "movie": (movie_entry, absorbing, len(spec.times), MAX_FRAMES,
-                  "frames", 1 + absorbing + len(spec.times), 0),
+                  1 + absorbing + len(spec.times), 0),
         "order": ("lpt_kerr_dp45_orders", absorbing, spec.n_orders,
-                  MAX_ORDERS, "orders", 1 + absorbing + spec.n_orders, 0),
-        "stokes": ("lpt_kerr_dp45_stokes", 0, 0, 0, "", 3, MAX_AUX),
+                  MAX_ORDERS, 1 + absorbing + spec.n_orders, 0),
+        "stokes": ("lpt_kerr_dp45_stokes", 0, 0, 0, 3, MAX_AUX),
     }[spec.kind]
     if n_extras != expect:
         raise ValueError(f"the {spec.kind} transfer has {expect} extras, "
@@ -404,9 +498,10 @@ def _family(spec, n_extras, n_aux):
         raise ValueError("polarized volumetric rendering supports "
                          "uncharged Kerr scenes only")
     if width > limit:
-        raise NotImplementedError(
-            f"{width} {what}: the CUDA {spec.kind} kernel is built for up "
-            f"to {limit} (ROADMAP.md, Queue 2)")
+        broad = {"spectral": "spectral",
+                 "movie": "movie " + ("absorbed" if absorbing else "thin"),
+                 "order": "orders " + ("absorbed" if absorbing else "thin")}
+        return BROAD_ENTRY, BROAD_FORMS.index(broad[spec.kind]), width
     return entry, form, width
 
 
@@ -449,7 +544,8 @@ def trace_rays_aux_cuda(metric, r_obs, alphas, thetas, theta_obs,
         entry, metric, r_obs, alphas, thetas, theta_obs, lambda_max,
         max_steps, precision, form, variant, n_extras, spec, sat_window,
         sat_monitor, probe, _cycle_exit, aux, method)
-    count_launch(trace_rays_aux_cuda, alphas.dtype, method)
+    count_launch(trace_rays_aux_cuda, alphas.dtype, method,
+                 "broad" if entry == BROAD_ENTRY else "theta")
     return (res, unconv) if return_unconverged else res
 
 

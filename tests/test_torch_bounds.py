@@ -524,7 +524,8 @@ def test_dop853_instances_are_the_dp45_ones_with_the_other_pair():
         assert "#define LPT_DOUBLE 1" in f64
         assert f'#include "{stem}.cu"' in f64
     srcs = {s.name for s in _build._sources("dop853")}
-    assert srcs == {s.name for s in CSRC.glob("kerr_dop853*.cu")}
+    assert srcs == {s.name for s in CSRC.glob("kerr_dop853*.cu")
+                    if "_broad" not in s.name}
     assert not srcs & {s.name for s in _build._sources("dp45")}
     assert _build.library_path("dop853").name.startswith("lpt_dop853_")
     assert _build.library_path("dp45").name.startswith("lpt_kernels_")
@@ -602,7 +603,7 @@ def test_float64_extras_sources_link_the_contracted_pow(monkeypatch,
     f64_extras = {n for n in (s.name for s in CSRC.glob("*.cu"))
                   if n.endswith("_f64.cu") and any(
                       f in n for f in ("_extras", "_stokes", "_movie",
-                                       "_orders", "_planes"))}
+                                       "_orders", "_planes", "_broad"))}
     assert {n for n in (s.name for s in CSRC.glob("*.cu"))
             if _build._rdc_source(n)} == f64_extras
     pow_src = (CSRC / _build.POW_SOURCE).read_text()
@@ -638,3 +639,80 @@ def test_float64_extras_sources_link_the_contracted_pow(monkeypatch,
         link = [c for c in cmds if "-shared" in c]
         assert len(link) == 1 and any(a.endswith("dlink.o")
                                       for a in link[0])
+
+
+@pytest.mark.parametrize("method", ["dp45", "dop853"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("kind, absorbing", [
+    ("spectral", False), ("movie", False), ("movie", True),
+    ("order", False), ("order", True)])
+def test_broad_work_drops_the_wide_stage_arguments(kind, absorbing, dtype,
+                                                   method):
+    """A broad instance's attempt is a narrow one's of the same width
+    less, a wide component, its stage arguments' sums (DP45's five rows,
+    35 flops; DOP853's eleven) and (DP45) its stage-2 slope; at width 0
+    it is the narrow form's core. Its memory-held state moves four
+    scalars a component an attempt."""
+    width = 12
+    narrow = bounds.extras_work(kind, width, absorbing, dtype=dtype,
+                                method=method)
+    broad = bounds.broad_work(kind, width, absorbing, dtype=dtype,
+                              method=method)
+    rows = (35 if method == "dp45"
+            else sum(2 * len(r) + 1 for r in tb.D853_A[1:]))
+    slope = bounds._width_slope_ops(kind, absorbing)
+    want = {k: narrow.ops[k] - width * ((rows if k == "flop" else 0)
+                                        + (slope[k] if method == "dp45"
+                                           else 0))
+            for k in bounds.KINDS}
+    assert broad.ops == want
+    assert broad.flops == broad.ops["flop"] + broad.ops["div"]
+    core = bounds.broad_work(kind, 0, absorbing, dtype=dtype, method=method)
+    assert core.ops == bounds.extras_work(kind, 0, absorbing, dtype=dtype,
+                                          method=method).ops
+    assert bounds.broad_state_bytes(width, dtype) == 4 * width * (
+        8 if dtype == "float64" else 4)
+
+
+def test_broad_instances_are_the_broad_sources():
+    """The broad library holds every *_broad* source and nothing else;
+    its extras instances are five forms a pair, family and dtype, labelled
+    kerr_dp45_broad / kerr_dop853_broad, each functor with its block
+    bound; its DOP853, float64 and Kerr-Newman sources include their
+    siblings as the narrow ones do."""
+    libs = {name: {s.name for s in _build._sources(name)}
+            for name in _build.LIBRARIES}
+    assert libs["broad"] == {s.name for s in CSRC.glob("*_broad*.cu")}
+    assert len(libs["broad"]) == 12
+    for method in ("dp45", "dop853"):
+        for family in ("", "_kn"):
+            rows = vk.broad_instances(method, family)
+            assert len(rows) == 10 and {r[1] for r in rows} == {
+                vk.BROAD_ENTRY + family}
+            assert [r[2] for r in rows] == list(range(5)) * 2
+            assert all(r[0].startswith(("kerr_dop853_broad" if method ==
+                                        "dop853" else "kerr_dp45_broad")
+                                       + family + "<") for r in rows)
+    text = (CSRC / "kerr_broad_extras.cuh").read_text()
+    functors = re.findall(r"\nstruct (Broad\w+) \{\n  static constexpr int "
+                          r"kLead", text)
+    assert sorted(functors) == ["BroadMovie", "BroadOrder", "BroadSpectral"]
+    for name in functors:
+        body = text.split(f"struct {name} {{", 1)[1].split("\n};", 1)[0]
+        assert re.search(r"static constexpr int kMinBlocks =\s", body), name
+    for stem, inc in (("kerr_dp45_broad_f64", "kerr_dp45_broad"),
+                      ("kerr_dp45_broad_kn", "kerr_dp45_broad"),
+                      ("kerr_dp45_broad_kn_f64", "kerr_dp45_broad_kn"),
+                      ("kerr_dop853_broad", "kerr_dp45_broad"),
+                      ("kerr_dop853_broad_f64", "kerr_dop853_broad"),
+                      ("kerr_dop853_broad_kn", "kerr_dp45_broad_kn"),
+                      ("kerr_dop853_broad_kn_f64", "kerr_dop853_broad_kn"),
+                      ("kerr_dp45_broad_planes_f64",
+                       "kerr_dp45_broad_planes"),
+                      ("kerr_dop853_broad_planes", "kerr_dp45_broad_planes"),
+                      ("kerr_dop853_broad_planes_f64",
+                       "kerr_dop853_broad_planes")):
+        assert f'#include "{inc}.cu"' in (CSRC / f"{stem}.cu").read_text()
+    planes = (CSRC / "kerr_dp45_broad_planes.cu").read_text()
+    assert "#define LPT_BROAD_PLANES 1" in planes
+    assert _build.library_path("broad").name.startswith("lpt_broad_")

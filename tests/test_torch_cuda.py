@@ -1790,13 +1790,21 @@ def test_wide_disk_instances(cuda, method, dtype, family, momentum):
 
 
 def test_wide_disk_rejects_nine_slots(cuda):
+    """Nine slots and more go through the plane recorder as one
+    equatorial plane (no wide launch), bitwise the plain loop on the card
+    in every output."""
     m = Kerr(M=1.0, a=0.9)
-    al = torch.linspace(0.01, 0.1, 64, device=cuda)
-    before = trace_disk_rays_cuda.launches_wide
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        trace_disk_rays_cuda(m, R_OBS, al, al, THETA_DISK, 5000.0, 100,
-                             _wide_plane(), 9)
-    assert trace_disk_rays_cuda.launches_wide == before
+    al, th = _near_critical(m, 1024, cuda, torch.float32)
+    before = (trace_disk_rays_cuda.launches_wide,
+              trace_disk_rays_cuda.launches_planes)
+    args = (m, R_OBS, al, th, THETA_DISK, 5000.0, 1000, _wide_plane(), 9)
+    rk = trace_disk_rays_cuda(*args, record_momentum=True)
+    assert (trace_disk_rays_cuda.launches_wide,
+            trace_disk_rays_cuda.launches_planes) == (before[0],
+                                                      before[1] + 1)
+    rp = trace_disk_rays_plain(*args, record_momentum=True)
+    assert len(rk.r_hits) == len(rk.pr_hits) == 9
+    assert SMOKE.p25_bitwise((rk,), (rp,)) == {}
     r = disk.trace_disk_rays(m, R_OBS, al, al, THETA_DISK, 5000.0, 100,
                              disk.DiskConfig(opaque=False, max_hits=8))
     assert len(r.r_hits) == 8
@@ -1877,16 +1885,23 @@ def test_equatorial_plane_recorder_is_the_disk_variant(cuda, dtype, method):
 
 
 def test_plane_recorder_rejects_three_planes(cuda):
+    """Three planes go to the plane recorder's broad instance (one launch
+    on its counter), bitwise the plain loop on the card in every output
+    of every plane."""
     from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
         trace_disk_rays_multi_cuda)
     m = Kerr(M=1.0, a=0.9)
-    al = torch.linspace(0.01, 0.1, 64, device=cuda)
+    al, th = _near_critical(m, 512, cuda, torch.float32)
     plane = (disk.r_isco(1.0, 0.9), 20.0, float(np.pi / 2), True)
-    before = SMOKE.disk_launches()
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        trace_disk_rays_multi_cuda(m, R_OBS, al, al, THETA_DISK, 5000.0, 100,
-                                   [(plane, None)] * 3)
-    assert SMOKE.disk_launches() == before
+    planes = [(plane, None), ((3.0, 20.0, float(np.pi / 2), False),
+                              disk.disk_basis(0.5, 0.7))] * 2
+    before = trace_disk_rays_cuda.launches_broad
+    args = (m, R_OBS, al, th, THETA_DISK, 5000.0, 400)
+    rk = trace_disk_rays_multi_cuda(*args, planes[:3], record_time=True)
+    assert trace_disk_rays_cuda.launches_broad == before + 1
+    rp = trace_disk_rays_plain(*args, plane, 2, extra_disks=planes[1:3],
+                               record_time=True)
+    assert len(rk) == 3 and SMOKE.p25_bitwise(rk, rp) == {}
 
 
 @pytest.mark.parametrize("mode", SMOKE.P25_MODES)
@@ -1903,3 +1918,38 @@ def test_phase25_mode_on_card_matches_cpu(cuda, mode):
     oc = SMOKE.p25_render(mode, SMOKE.P24_CHECK, "cpu")
     row, ok = SMOKE.p25_check(mode, og, oc)
     assert ok, row
+
+
+@pytest.mark.parametrize("label", list(SMOKE.P26_NARROW))
+@pytest.mark.parametrize("method", ["dp45", "dop853"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("family", ["kerr", "kerr_newman"])
+def test_broad_form_is_its_narrow_instance(cuda, family, dtype, method,
+                                           label):
+    """chip_smoke.py phase 26: each broad extras form at a narrow width
+    (3 bands, 8 frames, 4 orders) bitwise its compiled narrow instance on
+    1,024 random rays, and a wider one (16 frames, 40 bands, 6 orders)
+    bitwise the plain loop on the card."""
+    rng = np.random.default_rng(0)
+    al = torch.tensor(rng.uniform(0.01, 0.12, 1024), dtype=dtype,
+                      device=cuda)
+    th = torch.tensor(rng.uniform(-np.pi, np.pi, 1024), dtype=dtype,
+                      device=cuda)
+    a = SMOKE.p26_launch(family, al, th, label, method, broad=False)
+    b = SMOKE.p26_launch(family, al, th, label, method, broad=True)
+    assert SMOKE.p26_extras_bitwise(a, b)
+    wide = {"spectral": "spectral 40", "movie": "movie 16 thin",
+            "orders": "orders 6 absorbed"}[label.split()[0]]
+    before = getattr(vk.trace_rays_aux_cuda, kk_counter(dtype, method))
+    rk = SMOKE.p26_trace(family, al[:256], th[:256], wide, method)
+    assert getattr(vk.trace_rays_aux_cuda,
+                   kk_counter(dtype, method)) == before + 1
+    rp = SMOKE.p26_trace(family, al[:256], th[:256], wide, method,
+                         kernel=False)
+    assert SMOKE.p26_extras_bitwise(rk, rp)
+
+
+def kk_counter(dtype, method):
+    from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
+        counter_name)
+    return counter_name(dtype, method, "broad")

@@ -21,7 +21,7 @@ Inputs come from numpy seeds and go through both packages. Criteria:
   * the CUDA wrapper runs the plain loop on CPU tensors and its
     description carries the frame times; the kernel's blob constants are
     Python floats formed in double and rounded once; more than 8 frames
-    is refused for the kernel only;
+    route to the kernel's broad instances;
   * the `volumetric --movie` command writes one PNG a frame and the
     arrays, and refuses an animated format.
 """
@@ -224,8 +224,7 @@ def test_movie_wrapper_on_cpu_and_kernel_constants():
     assert vk._family(thin, 9, 0) == ("lpt_kerr_dp45_movie_thin", 0, 8)
     nine = volumetric.make_movie_transfer(m2, volumetric.RIAFConfig(),
                                           tuple(range(9))).kernel
-    with pytest.raises(NotImplementedError, match="9 frames"):
-        vk._family(nine, 10, 0)
+    assert vk._family(nine, 10, 0) == (vk.BROAD_ENTRY, 1, 9)
     with pytest.raises(ValueError, match="spot_amp"):
         volumetric.make_movie_transfer(
             m2, volumetric.RIAFConfig(spot_amp=-1.0), (0.0,))

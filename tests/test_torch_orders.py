@@ -27,7 +27,7 @@ Inputs come from numpy seeds and go through both packages. Criteria:
     image (1e-3 of its peak), flux falls with order, and absorption
     screens every order;
   * the wrapper's description and constants; fewer than 2 orders raise,
-    more than 4 are refused for the kernel only;
+    more than 4 route to the kernel's broad instances;
   * the `volumetric --decompose` command writes one PNG an order, the
     composite and the arrays.
 """
@@ -220,8 +220,7 @@ def test_order_wrapper_on_cpu_and_kernel_constants():
     assert vk._family(absorbed, 6, 0) == ("lpt_kerr_dp45_orders", 1, 4)
     five = volumetric.make_order_transfer(m, volumetric.RIAFConfig(),
                                           5).kernel
-    with pytest.raises(NotImplementedError, match="5 orders"):
-        vk._family(five, 6, 0)
+    assert vk._family(five, 6, 0) == (vk.BROAD_ENTRY, 3, 5)
     with pytest.raises(ValueError, match="n_orders"):
         volumetric.make_order_transfer(m, volumetric.RIAFConfig(), 1)
     with pytest.raises(NotImplementedError):
