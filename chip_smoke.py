@@ -16,7 +16,7 @@ DOP853 pair and linear event location through the Kerr and extras
 kernels, the mu chart's hybrid tracer and charged volumetric scenes,
 the disk family, tilted, warped and multi-plane disks, and spectra,
 movies, ring orders, crossing slots and planes of any width (the broad
-instances).
+instances), and the lens-map products on the surface kernel.
 Phases:
   1. machine: card name and power limit, torch and nvcc versions;
   2. build: nvcc for sm_90a without FMA contraction (-fmad=false), with
@@ -416,10 +416,32 @@ Phases:
      instance timed alone on the quiet card, the disk checks in turns
      against the instance each extends (8 slots through the wide
      instance, the first two planes through the plane recorder).
-The plain loops of phases 11-15, 17, 21, 22, 24, 25 and 26 and their CPU
+ 27. the surface kernel and the lens-map products: the surface library's
+     build (at nice 19 beside phases 11 on) with its instances'
+     registers and spills; every surface instance (24: 2 pairs x 2
+     dtypes x 3 families, Kerr a 0.9, Kerr-Newman a 0 Q 0.6 and
+     Johannsen-Psaltis, x with and without the time component) on 4,096
+     random rays, capped at 2,000, bitwise its plain loop on the card;
+     the map modes' 512^2 grid (float32, and float64 with the time
+     component), capped at 512, bitwise its plain loop; each mode of
+     the `shadow --rings` / `lens` CLI (the ring layers of a shadow and
+     of a lensed render, magnification, caustics, microlens, arrival
+     time in float32 and float64, shear, find-images) at 64^2 on the
+     card against the CPU (float32 maps p99 |d| < 1e-3 of the largest,
+     magnification and shear on pixels with a finite 3x3 neighbourhood;
+     float64 1e-9; the ring masks on >= 99 %; the same images), then at
+     the CLI's 512^2 through its entry point, best of 3 frames after a
+     warm-up, with its launches (the Kerr kernel for the ring layers and
+     magnification, the surface kernel for the rest) and no plain loop,
+     then once through the CLI itself (its files written, its launches,
+     no plain loop), and the caustics frame under torch.profiler; each instance on a
+     path of its own (find-images and the float32 arrival-time map at
+     512^2 for each pair and family).
+The plain loops of phases 11-15, 17, 20-22 and 24-27 and their CPU
 renders run in PLAIN_WORKERS child processes (PlainPool), queued at the
-start of phase 11 (phases 11-15) and of phases 17, 21, 22, 24, 25 and 26,
-while the
+start of phase 11 (phases 11-15) and of phases 17, 21, 22, 24 (also
+phase 27's), 25 and 26, and when phase 20 has drawn its sample, while
+the
 parent runs its kernels; the plain_ms of those phases is the call's time
 in its child, beside the other children's work on the card. A kernel
 time that cuda_ms takes while a child has a call on the card is taken
@@ -484,7 +506,12 @@ attempts, bound_state_ms the wide state's memory traffic alone; every
 instance's time, plain time and bitwise result, the 1024^2 width-8
 ratios, the resources and the paths), kerr_dp45_broad_planes (the
 three-plane recorder, DP45 float32, with the three-plane render's
-launches; bounded as phase 25's entry).
+launches; bounded as phase 25's entry). Phase 27's entries
+(kerr_surface_<pair>_<dtype>_<family>[_time], one an instance) count
+their launches on the instance's own paths, time the instance on the
+4,096 rays (the float32 and the float64-with-time Kerr DP45 ones on the
+512^2 grid) against the plain loop in its child, and bound it with the
+probe's attempts (bounds.surface_work).
 The last line is {"ok": true,
 "device": {...}}. Exit code 0 iff every phase
 passed; without a CUDA device it exits 1 and prints no result.
@@ -1007,6 +1034,11 @@ def kernel_label(mangled):
         kn = "_kn" if fam and fam.group(1) == "1" else ""
         return (f"kerr_{m.group(1)}_extras{kn}<{m.group(2)}"
                 f"<{','.join(args)}>>")
+    m = re.search(r"kerr_(dp45|dop853)_surface_kernelI([fd])Li(\d)ELb(\d)E",
+                  mangled)
+    if m:
+        return (f"kerr_{m.group(1)}_surface<{real[m.group(2)]},"
+                f"family={m.group(3)},time={m.group(4)}>")
     m = re.search(r"orbit_rk4_kernelILb(\d)E([fd])", mangled)
     if m:
         return f"orbit_rk4<charged={m.group(1)},{real[m.group(2)]}>"
@@ -2903,15 +2935,25 @@ def attempt_split(alphas, attempts, ac, groups):
     return out
 
 
-def config5_phase(dev, card, main):
+def p20_plain_driver(*args):
+    """Phase 20's two-pass driver over the plain loop on the sample (a
+    PlainPool job)."""
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    return kk.trace_rays_kerr_two_pass(*args, pass1_steps=SAMPLE5_PASS1,
+                                       trace_fn=kk.trace_rays_kerr_plain)
+
+
+def config5_phase(dev, card, main, pool):
     """Phase 20: config 5 through render_shadow_aa, the chunk rule on the
     card, the Kerr kernel and its driver against the plain loop on a
     sample of config 5's own rays, adaptive against uniform AA, and the
     AA entry points on the card against the CPU. main: the 1024^2 main
     path's rays, refine flags, per-ray attempts and kernel ms (phase 3),
-    for the split of the attempts. Returns the config-5 render's launches
-    of the Kerr kernel and of its driver, and their kernels-line entries
-    at config 5's shapes."""
+    for the split of the attempts. The plain loop and the driver over it
+    run on the sample in PlainPool's children, queued when the sample is
+    drawn and read at the phase's end. Returns the config-5 render's
+    launches of the Kerr kernel and of its driver, and their kernels-line
+    entries at config 5's shapes."""
     import torch
     from light_path_tracer_tpu_torch import aa, adaptive, camera
     from light_path_tracer_tpu_torch.ops import kerr_trace
@@ -3099,69 +3141,80 @@ def config5_phase(dev, card, main):
     subsets["all"] = torch.ones_like(subsets["random"])
     s_args = (metric, R_OBS, al[idx], th[idx], scene.theta_obs,
               zeros[:idx.numel()], LAMBDA_MAX, SAMPLE5_STEPS)
+    job_s = pool.submit("light_path_tracer_tpu_torch.ops.cuda."
+                        "kerr_trace_kernel:trace_rays_kerr_plain", *s_args)
+    job_d = pool.submit("p20_plain_driver", *s_args)
     probe = {}
     rk = kernel(*s_args, probe=probe)
     rd = driver(*s_args, pass1_steps=SAMPLE5_PASS1)
-    s_plain_ms, rp = cuda_ms(lambda: kk.trace_rays_kerr_plain(*s_args), 1)
-    d_plain_ms, rdp = cuda_ms(lambda: driver(
-        *s_args, pass1_steps=SAMPLE5_PASS1,
-        trace_fn=kk.trace_rays_kerr_plain), 1)
-    ended_capped = int((((probe["cycles"] >> 21) & 1023) > 0).sum())
-    # Phase 4's rules on the random rays, the polar-axis columns and the
-    # whole sample. On the slowest rays float32 is chaotic: the
-    # exit-ended lanes freeze under the cap in both versions, at
-    # states that sin and cos rounded apart on a few of them, and a few
-    # other slow rays end apart so (ROADMAP Queue 3). There float32 is
-    # held by status (the exit-ended lanes lane by lane), and float64,
-    # where both versions end every one of these rays, by phase 17's
-    # rules.
-    e, slowest = subsets["exit-ended"], subsets["slowest"]
-
-    def part(r, m):
-        return r._replace(final_alpha=r.final_alpha[m], status=r.status[m])
-
-    row_s = {name: compare(part(rk, m), part(rp, m), al[idx][m], ac)
-             for name, m in subsets.items()}
-    g_drv = compare(rd, rdp, al[idx], ac)
-    pairs = list(zip(rk.status[e].tolist(), rp.status[e].tolist()))
-    status_pairs = {f"{k}/{q}": pairs.count((k, q)) for k, q in set(pairs)}
-    d_e = (rk.final_alpha[e] - rp.final_alpha[e]).abs()
-    sl = idx[slowest]
+    sl = idx[subsets["slowest"]]
     x64 = (metric, R_OBS, al[sl].double(), th[sl].double(), scene.theta_obs,
            zeros[:sl.numel()], LAMBDA_MAX, SAMPLE5_STEPS)
     r64, p64 = kernel(*x64), kk.trace_rays_kerr_plain(*x64)
     g64 = compare(r64, p64, al[sl], ac)
-    e64 = e[slowest]
-    exit_row = dict(
-        f32_status_pairs=status_pairs, f32_frozen_by_the_exit=ended_capped,
-        f32_lanes_d_alpha_above_1e_3=int((d_e > 1e-3).sum()),
-        f32_max_abs_d_alpha=float(d_e.max()),
-        f64_captured=int((r64.status[e64] == -1).sum()))
-    driver_same = all(same_bits(a, b) for a, b in zip(rd[:3], rk[:3]))
-    print(f"config 5 kernel vs plain loop on {idx.numel()} of its stacked "
-          f"rays, both capped at {SAMPLE5_STEPS} attempts: "
-          f"{json.dumps(row_s)}; the {ex.numel()} exit-ended lanes "
-          f"{json.dumps(exit_row)}; the slowest set in float64 "
-          f"{json.dumps(g64)}; driver (pass1_steps {SAMPLE5_PASS1}) "
-          f"bitwise equal to the single pass {driver_same}, against the "
-          f"driver over the plain loop {json.dumps(g_drv)}; plain ms "
-          f"{s_plain_ms:.1f} (single pass), {d_plain_ms:.1f} (driver)",
-          flush=True)
-    for name in ("random", "polar-axis columns", "all"):
-        g = row_s[name]
-        require(g["status_agree"] > 0.99 and g["p99"] < 2e-3,
-                f"config 5 kernel vs plain loop, {name}: {g}")
-    require(g_drv["status_agree"] > 0.99 and g_drv["p99"] < 2e-3,
-            f"config 5 driver vs the driver over the plain loop: {g_drv}")
-    require(row_s["slowest"]["status_agree"] > 0.99
-            and row_s["exit-ended"]["status_agree"] == 1.0,
-            f"config 5: the slowest rays end otherwise in the plain loop: "
-            f"{row_s['slowest']}, exit-ended {exit_row}")
-    require(g64["status_agree"] > 0.999 and g64["p99"] < 1e-6,
-            f"config 5: the slowest rays in float64: {g64}")
-    require(driver_same, "config 5: the driver differs from the single "
-            "pass on the sample")
-    del rk, rd, rp, rdp, probe, r64, p64
+    ended_capped = int((((probe["cycles"] >> 21) & 1023) > 0).sum())
+    e = subsets["exit-ended"]
+    d64_lanes = dict(f64_captured=int(
+        (r64.status[e[subsets["slowest"]]] == -1).sum()))
+    al_idx = al[idx]
+    del r64, p64
+
+    def sample_gates():
+        """(b2)'s gates, once the children have run the plain loop and the
+        driver over it on the sample: (row_s, g_drv, plain ms of both)."""
+        s_plain_ms, rp = PlainPool.result(job_s, dev)
+        d_plain_ms, rdp = PlainPool.result(job_d, dev)
+        return (*b2_gates(rp, rdp), s_plain_ms, d_plain_ms)
+
+    def b2_gates(rp, rdp):
+        """Phase 4's rules on the random rays, the polar-axis columns and
+        the whole sample. On the slowest rays float32 is chaotic: the
+        exit-ended lanes freeze under the cap in both versions, at states
+        that sin and cos rounded apart on a few of them, and a few other
+        slow rays end apart so (ROADMAP Queue 3). There float32 is held by
+        status (the exit-ended lanes lane by lane), and float64, where both
+        versions end every one of these rays, by phase 17's rules."""
+        def part(r, m):
+            return r._replace(final_alpha=r.final_alpha[m],
+                              status=r.status[m])
+
+        row_s = {name: compare(part(rk, m), part(rp, m), al_idx[m], ac)
+                 for name, m in subsets.items()}
+        g_drv = compare(rd, rdp, al_idx, ac)
+        pairs = list(zip(rk.status[e].tolist(), rp.status[e].tolist()))
+        status_pairs = {f"{k}/{q}": pairs.count((k, q))
+                        for k, q in set(pairs)}
+        d_e = (rk.final_alpha[e] - rp.final_alpha[e]).abs()
+        exit_row = dict(
+            f32_status_pairs=status_pairs,
+            f32_frozen_by_the_exit=ended_capped,
+            f32_lanes_d_alpha_above_1e_3=int((d_e > 1e-3).sum()),
+            f32_max_abs_d_alpha=float(d_e.max()), **d64_lanes)
+        driver_same = all(same_bits(a, b) for a, b in zip(rd[:3], rk[:3]))
+        print(f"config 5 kernel vs plain loop on {idx.numel()} of its "
+              f"stacked rays, both capped at {SAMPLE5_STEPS} attempts: "
+              f"{json.dumps(row_s)}; the {ex.numel()} exit-ended lanes "
+              f"{json.dumps(exit_row)}; the slowest set in float64 "
+              f"{json.dumps(g64)}; driver (pass1_steps {SAMPLE5_PASS1}) "
+              f"bitwise equal to the single pass {driver_same}, against "
+              f"the driver over the plain loop {json.dumps(g_drv)}",
+              flush=True)
+        for name in ("random", "polar-axis columns", "all"):
+            g = row_s[name]
+            require(g["status_agree"] > 0.99 and g["p99"] < 2e-3,
+                    f"config 5 kernel vs plain loop, {name}: {g}")
+        require(g_drv["status_agree"] > 0.99 and g_drv["p99"] < 2e-3,
+                f"config 5 driver vs the driver over the plain loop: "
+                f"{g_drv}")
+        require(row_s["slowest"]["status_agree"] > 0.99
+                and row_s["exit-ended"]["status_agree"] == 1.0,
+                f"config 5: the slowest rays end otherwise in the plain "
+                f"loop: {row_s['slowest']}, exit-ended {exit_row}")
+        require(g64["status_agree"] > 0.999 and g64["p99"] < 1e-6,
+                f"config 5: the slowest rays in float64: {g64}")
+        require(driver_same, "config 5: the driver differs from the single "
+                "pass on the sample")
+        return row_s, g_drv
 
     # The exit-ended lanes at full depth with the exit and without it
     # (every attempt ground): bitwise equal, as phase 18 holds its grids.
@@ -3179,7 +3232,7 @@ def config5_phase(dev, card, main):
           f"equal {ground}", flush=True)
     require(ground, "config 5: the exit-ended lanes differ with the exit "
             "off")
-    del r_on, r_off, p_on, p_off
+    del r_on, r_off, p_on, p_off, probe
 
     # -- the Kerr kernel and its driver at config 5's shape: a launch a
     # pass-sized chunk (CUDA events, the four chunks in a row), against
@@ -3203,18 +3256,8 @@ def config5_phase(dev, card, main):
                   plain_max_steps=SAMPLE5_STEPS,
                   attempts_booked=int(attempts.sum()) // AA5,
                   exit_ended=int(exited.sum()))
-    entries = [
-        kernel_entry("kerr_dp45_config5", KERNEL_SOURCE, REPLACES,
-                     launches["kernel"], row_s["all"]["max_abs"], k_ms,
-                     s_plain_ms, chunk, 9 + 12,
-                     int(made.sum()) // AA5 * shadow_work, slowest),
-        kernel_entry("trace_rays_kerr_two_pass_config5", DRIVER_SOURCE,
-                     f"{JAX_KERNELS}:257", launches["driver"],
-                     g_drv["max_abs"], d_ms, d_plain_ms, chunk, 9 + 12,
-                     driver_attempts(made, cfg.pass1_steps) // AA5
-                     * shadow_work)]
-    for e in entries:
-        e.update(sample)
+    work_k = int(made.sum()) // AA5 * shadow_work
+    work_d = driver_attempts(made, cfg.pass1_steps) // AA5 * shadow_work
 
     # The attempts split by |alpha / alpha_crit - 1|: config 5's rays
     # (those the exit did not end) against the main path's, refined and
@@ -3311,6 +3354,21 @@ def config5_phase(dev, card, main):
             and all(checks[k]["rmse"] < 1e-3
                     for k in ("scene aa", "scene adaptive")),
             f"config 5 card vs CPU: {checks}")
+
+    # -- (b2)'s gates, the sample's plain loops read from the children ----
+    row_s, g_drv, s_plain_ms, d_plain_ms = sample_gates()
+    print(f"config 5 sample: plain ms {s_plain_ms:.1f} (single pass), "
+          f"{d_plain_ms:.1f} (driver), each in its child", flush=True)
+    entries = [
+        kernel_entry("kerr_dp45_config5", KERNEL_SOURCE, REPLACES,
+                     launches["kernel"], row_s["all"]["max_abs"], k_ms,
+                     s_plain_ms, chunk, 9 + 12, work_k, slowest),
+        kernel_entry("trace_rays_kerr_two_pass_config5", DRIVER_SOURCE,
+                     f"{JAX_KERNELS}:257", launches["driver"],
+                     g_drv["max_abs"], d_ms, d_plain_ms, chunk, 9 + 12,
+                     work_d)]
+    for entry in entries:
+        entry.update(sample)
     return launches, entries
 
 
@@ -7164,6 +7222,523 @@ def kk_disk(metric, al, th, plane, **kw):
                                    LAMBDA_MAX, P25_STEPS, plane, 2, **kw)
 
 
+# -- phase 27: the surface kernel and the lens-map products -------------
+
+SURFACE_SOURCE = "light_path_tracer_tpu_torch/csrc/kerr_surface{}.cu"
+# The JAX package's surface trace (an XLA loop there, no Pallas kernel).
+SURFACE_REPLACES = "light_path_tracer_tpu/ops/kerr_trace.py:536"
+P27_RAYS = 4096
+# Attempt caps of the kernel-versus-plain runs: the 4,096 random rays,
+# and the 512^2 grid (kernel and plain loop alike).
+P27_STEPS = 2000
+P27_GRID_STEPS = 512
+# The CLI's --size default of the map modes, and the card-vs-CPU check.
+P27_DIM = (512, 512)
+P27_CHECK = (64, 64)
+# The families of the surface kernel: Kerr, a charged a = 0 hole (the
+# route of Reissner-Nordstrom scenes) and Johannsen-Psaltis.
+P27_FAMILIES = {"kerr": dict(M=1.0, a=0.9),
+                "kerr_newman": dict(M=1.0, a=0.0, Q=0.6),
+                "johannsen_psaltis": JP_ARGS}
+P27_INSTANCES = tuple((method, dtype, family, timed)
+                      for method in ("dp45", "dop853")
+                      for dtype in ("float32", "float64")
+                      for family in P27_FAMILIES
+                      for timed in (False, True))
+# The 512^2 grid's instances held against the plain loop: the map modes'
+# (float32, no time) and the arrival-time map's default (float64, time).
+P27_GRID_INSTANCES = (("dp45", "float32", False), ("dp45", "float64", True))
+# The modes at the CLI's size, and those checked card against CPU.
+P27_MODES = ("rings", "scene_rings", "magnification", "caustics",
+             "microlens", "time_delay", "time_delay_f64", "shear",
+             "find_images")
+# A point source of --find-images (degrees), about theta_E / 3 off the
+# hole in the default scene.
+P27_BETA = (4.0, 1.0)
+
+
+def p27_metric(family):
+    from light_path_tracer_tpu_torch.models import (JohannsenPsaltis, Kerr,
+                                                    KerrNewman)
+    cls = {"kerr": Kerr, "kerr_newman": KerrNewman,
+           "johannsen_psaltis": JohannsenPsaltis}[family]
+    return cls(**P27_FAMILIES[family])
+
+
+def p27_rays(dev, dtype):
+    """The 4,096 random rays: alpha in [0.01, 0.2] rad (alpha_crit ~0.05
+    at r_obs = 100 M, so both captured and escaped rays), theta
+    uniform."""
+    import torch
+    rng = np.random.default_rng(27)
+    al = rng.uniform(0.01, 0.2, P27_RAYS)
+    th = rng.uniform(-np.pi, np.pi, P27_RAYS)
+    return (torch.tensor(al, dtype=getattr(torch, dtype), device=dev),
+            torch.tensor(th, dtype=getattr(torch, dtype), device=dev))
+
+
+def p27_trace(family, al, th, method, timed, kernel=True,
+              max_steps=P27_STEPS, probe=None):
+    """One surface trace of `family`'s metric at theta_obs 80 deg, the
+    sphere at its capture radius: the CUDA wrapper (kernel) or the plain
+    loop on the rays' device."""
+    from light_path_tracer_tpu_torch.ops.cuda import surface_kernel as sk
+    from light_path_tracer_tpu_torch.ops.kerr_trace import (
+        trace_rays_surface)
+    metric = p27_metric(family)
+    args = (metric, R_OBS, al, th, THETA_DISK,
+            float(metric.capture_radius()), LAMBDA_MAX, max_steps)
+    kw = dict(method=method, record_time=timed)
+    if kernel:
+        return sk.trace_rays_surface_cuda(*args, probe=probe, **kw)
+    return trace_rays_surface(*args, **kw)
+
+
+def p27_grid(dev, dtype):
+    """The 512^2 grid of the map modes' scene (Kerr a = 0.9, theta_obs
+    90 deg, 40 deg FOV): alpha and theta, every pixel."""
+    import torch
+    from light_path_tracer_tpu_torch import camera
+    fov = camera.fov_from_vertical(np.radians(40.0), P27_DIM)
+    g = dict(dtype=getattr(torch, dtype), device=dev)
+    return (camera.build_alpha_lookup(P27_DIM, fov, **g).reshape(-1),
+            camera.build_theta_lookup(P27_DIM, fov, **g).reshape(-1))
+
+
+def p27_grid_trace(al, th, method, timed, kernel=True, probe=None):
+    """The map modes' surface trace of the 512^2 grid, capped at
+    P27_GRID_STEPS attempts."""
+    from light_path_tracer_tpu_torch.models import Kerr
+    from light_path_tracer_tpu_torch.ops.cuda import surface_kernel as sk
+    from light_path_tracer_tpu_torch.ops.kerr_trace import (
+        trace_rays_surface)
+    metric = Kerr(M=1.0, a=0.9)
+    args = (metric, R_OBS, al, th, np.pi / 2,
+            float(metric.capture_radius()), LAMBDA_MAX, P27_GRID_STEPS)
+    kw = dict(method=method, record_time=timed)
+    if kernel:
+        return sk.trace_rays_surface_cuda(*args, probe=probe, **kw)
+    return trace_rays_surface(*args, **kw)
+
+
+def p27_bitwise(rk, rp):
+    """Every field of two SurfaceResults bitwise (NaN == NaN)."""
+    return all(same_bits(a.cpu(), b.cpu()) for a, b in zip(rk, rp))
+
+
+def p27_max_abs(rk, rp):
+    """The largest |difference| of the float fields where both are
+    finite."""
+    import torch
+    worst = 0.0
+    for a, b in zip(rk, rp):
+        if not a.dtype.is_floating_point or a.dim() == 0:
+            continue
+        a, b = a.cpu().double(), b.cpu().double()
+        ok = torch.isfinite(a) & torch.isfinite(b)
+        if bool(ok.any()):
+            worst = max(worst, float((a - b)[ok].abs().max()))
+    return worst
+
+
+def p27_scene(**kw):
+    from light_path_tracer_tpu_torch.utils.config import SceneConfig
+    return SceneConfig(**dict(dict(M=1.0, a=0.9, r_obs_mult=R_OBS), **kw))
+
+
+def p27_render(mode, dim, device, method="dp45", scene_kw=None):
+    """One map mode of the `lens` / `shadow` CLI through its entry point
+    on `device`: (maps as float64 NumPy arrays by name, stats). The
+    scene: Kerr a = 0.9 at r_obs 100 M, 40 deg FOV (the CLI's defaults
+    but the spin); float32 'fast' but time_delay_f64 and the stencils of
+    find_images."""
+    from light_path_tracer_tpu_torch import images, pipeline
+    from light_path_tracer_tpu_torch.utils.config import RenderConfig
+    scene = p27_scene(**(scene_kw or {}))
+    cfg = RenderConfig(integrator=method,
+                       dtype="float64" if mode == "time_delay_f64"
+                       else "float32")
+
+    def arr(x):
+        return np.asarray(x.cpu() if hasattr(x, "cpu") else x, np.float64)
+    if mode == "rings":
+        masks, comp, st = pipeline.render_rings(scene, dim, cfg,
+                                                device=device)
+        return {"masks": arr(masks), "composite": arr(comp)}, st
+    if mode == "scene_rings":
+        src = np.random.default_rng(5).random((*dim, 3)).astype(np.float32)
+        layers, img, st = pipeline.render_scene_rings(scene, src, cfg,
+                                                      device=device)
+        return {"layers": arr(layers)}, st
+    if mode == "magnification":
+        mu, st = pipeline.render_magnification(scene, dim, cfg,
+                                               device=device)
+        return {"mu": arr(mu)}, st
+    if mode == "caustics":
+        a, _ext, st = pipeline.render_caustics(scene, dim, cfg,
+                                               device=device)
+        return {"A": arr(a)}, st
+    if mode == "microlens":
+        _u, curve, st = pipeline.render_microlens_curve(scene, dim, cfg,
+                                                        device=device)
+        return {"curve": arr(curve)}, st
+    if mode in ("time_delay", "time_delay_f64"):
+        tau, st = pipeline.render_time_delay(scene, dim, cfg, device=device)
+        return {"tau": arr(tau), "beta_x": st.pop("beta_x"),
+                "beta_y": st.pop("beta_y")}, st
+    if mode == "shear":
+        maps, st = pipeline.render_shear(scene, dim, cfg, device=device)
+        return {k: arr(v) for k, v in maps.items()}, st
+    imgs, st = images.find_point_images(
+        scene, tuple(np.radians(P27_BETA)), resolution=dim, cfg=cfg,
+        device=device)
+    return {"images": np.array([[im.py, im.px, im.mu, im.tau, im.winding]
+                                for im in imgs]).reshape(-1, 5)}, st
+
+
+def p27_calm(*maps):
+    """Pixels whose 3x3 neighbourhood is finite in every map."""
+    ok = np.ones(maps[0].shape, bool)
+    for m in maps:
+        p = np.pad(np.isfinite(m), 1, constant_values=False)
+        for dy in range(3):
+            for dx in range(3):
+                ok &= p[dy:dy + m.shape[0], dx:dx + m.shape[1]]
+    return ok
+
+
+def p27_check(mode, og, oc):
+    """A 64^2 mode on the card against the CPU: the masks (rings) on
+    >= 99 % of pixels; float32 maps p99 |d| < 1e-3 of the CPU map's
+    largest value, the magnification and shear maps on pixels with a
+    finite 3x3 neighbourhood in both, the finite masks on >= 99 %;
+    float64 maps (time_delay_f64) the finite masks equal and p99 |d| <
+    1e-9 of the largest value; find_images the same images within 1e-6
+    px and mu, tau within 1e-6 relative."""
+    row = {}
+    for name, c in oc.items():
+        g = og[name]
+        if name == "images":
+            ok = g.shape == c.shape and (g.size == 0 or (
+                np.abs(g[:, :2] - c[:, :2]).max() < 1e-6
+                and np.allclose(g[:, 2:4], c[:, 2:4], rtol=1e-6,
+                                atol=1e-9)
+                and np.array_equal(g[:, 4], c[:, 4])))
+            row[name] = dict(n=int(c.shape[0]), ok=bool(ok))
+            continue
+        if name in ("masks", "composite", "layers"):
+            agree = float((g == c).all(axis=0).mean() if name == "masks"
+                          else (np.abs(g - c) < 1e-6).mean())
+            row[name] = dict(agree=agree, ok=agree >= 0.99)
+            continue
+        f64 = mode == "time_delay_f64"
+        sel = (p27_calm(g, c) if name in ("mu", "kappa", "gamma1", "gamma2",
+                                          "omega", "gamma")
+               else np.isfinite(g) & np.isfinite(c))
+        scale = float(np.abs(c[sel]).max()) if sel.any() else 1.0
+        d = np.abs(g - c)[sel] / max(scale, 1e-300)
+        p99 = float(np.percentile(d, 99)) if d.size else 0.0
+        mask = float((np.isfinite(g) == np.isfinite(c)).mean())
+        ok = (mask == 1.0 and p99 < 1e-9) if f64 else (
+            mask >= 0.99 and p99 < 1e-3)
+        row[name] = dict(p99=p99, max=float(d.max()) if d.size else 0.0,
+                         mask=mask, n=int(sel.sum()), ok=bool(ok))
+    return row
+
+
+def p27_counters():
+    """The wrappers and plain loops the map modes run through."""
+    from light_path_tracer_tpu_torch.ops import kerr_trace
+    from light_path_tracer_tpu_torch.ops import schwarzschild_trace
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    from light_path_tracer_tpu_torch.ops.cuda import schwarzschild_kernel
+    from light_path_tracer_tpu_torch.ops.cuda import surface_kernel as sk
+    return dict(kerr=kk.trace_rays_kerr_cuda,
+                orbit=schwarzschild_kernel.trace_rays_schwarzschild_cuda,
+                surface=sk.trace_rays_surface_cuda,
+                plain_surface=kerr_trace.trace_rays_surface,
+                plain_kerr=kerr_trace.trace_rays_kerr,
+                plain_orbit=schwarzschild_trace.trace_rays_schwarzschild)
+
+
+def p27_zero():
+    """Every count the map modes read, set to 0."""
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    from light_path_tracer_tpu_torch.ops.cuda import surface_kernel as sk
+    c = p27_counters()
+    kk.zero_counters(c["kerr"])
+    sk.zero_counters()
+    c["orbit"].launches = c["orbit"].launches_f64 = 0
+    for k in ("plain_surface", "plain_kerr", "plain_orbit"):
+        c[k].launches = 0
+
+
+def p27_counts():
+    """The counts since p27_zero: every surface instance's counter, the
+    Kerr and orbit kernels' launches and the plain loops' calls."""
+    from light_path_tracer_tpu_torch.ops.cuda import surface_kernel as sk
+    c = p27_counters()
+    out = sk.launches()
+    out.update(kerr=c["kerr"].launches + c["kerr"].launches_f64,
+               orbit=c["orbit"].launches + c["orbit"].launches_f64,
+               plain=sum(c[k].launches for k in (
+                   "plain_surface", "plain_kerr", "plain_orbit")))
+    return out
+
+
+def p27_counter(method, dtype, family, timed):
+    """The launch counter of one surface instance."""
+    import torch
+    from light_path_tracer_tpu_torch.ops.cuda import surface_kernel as sk
+    code = {"kerr": 0, "kerr_newman": 1, "johannsen_psaltis": 2}[family]
+    return sk.instance_counter(getattr(torch, dtype), method, code, timed)
+
+
+def p27_cli(tmp, size, device):
+    """Each map mode through the CLI a user runs (`shadow --rings`, `lens
+    --rings` on a random 8-bit source image, `lens --magnification`,
+    `--shear`, `--caustics`, `--microlens`, `--time-delay` in float64,
+    `--find-images`) at `size`, Kerr a = 0.9, writing into `tmp`: {mode:
+    dict(rc, the files it should write that exist, the launches of the
+    run (the counts zeroed just before, read just after))}."""
+    from light_path_tracer_tpu_torch.cli import main as cli_main
+    from light_path_tracer_tpu_torch.utils.save import write_png
+    src = os.path.join(tmp, "src.png")
+    write_png(src, (np.random.default_rng(5).random((size, size, 3))
+                    * 255).astype(np.uint8))
+
+    def out(name):
+        return os.path.join(tmp, name)
+    runs = {
+        "shadow --rings": (["shadow", "--rings", "--output", out("r.png")],
+                           ["r.png", "r_order0.png", "r_order3plus.png",
+                            "r_shadow.png"]),
+        "lens --rings": (["lens", "--rings", "--image", src, "--output",
+                          out("l.png")],
+                         ["l.png", "l_order0.png", "l_orderge3.png"]),
+        "lens --magnification": (["lens", "--magnification",
+                                  out("mu.png")], ["mu.png"]),
+        "lens --shear": (["lens", "--shear", out("s.png")],
+                         ["s_kappa.png", "s_gamma.png", "s_gamma1.png",
+                          "s_omega.png", "s.npz"]),
+        "lens --caustics": (["lens", "--caustics", out("c.png")],
+                            ["c.png"]),
+        "lens --microlens": (["lens", "--microlens", out("ml.csv")],
+                             ["ml.csv"]),
+        "lens --time-delay": (["lens", "--time-delay", out("t.png"),
+                               "--dtype", "float64"], ["t.png"]),
+        "lens --find-images": (["lens", "--find-images",
+                                ",".join(str(b) for b in P27_BETA)], []),
+    }
+    rows = {}
+    for mode, (argv, files) in runs.items():
+        p27_zero()
+        rc = cli_main([*argv, "--size", str(size), "--a", "0.9",
+                       "--device", device])
+        counts = p27_counts()
+        rows[mode] = dict(rc=rc, files=sum(os.path.exists(out(f))
+                                           for f in files),
+                          want=len(files),
+                          launches=sum(v for k, v in counts.items()
+                                       if k != "plain"),
+                          plain=counts["plain"])
+    return rows
+
+
+def queue_phase27(pool, dev):
+    """Queue phase 27's plain loops on the card (each instance on the
+    4,096 rays; the 512^2 grid for P27_GRID_INSTANCES) and its 64^2 CPU
+    renders; returns the jobs by key."""
+    jobs = {}
+    for inst in P27_INSTANCES:
+        method, dtype, family, timed = inst
+        al, th = p27_rays(dev, dtype)
+        jobs[inst] = pool.submit("p27_trace", family, al, th, method, timed,
+                                 kernel=False)
+    for method, dtype, timed in P27_GRID_INSTANCES:
+        al, th = p27_grid(dev, dtype)
+        jobs["grid", dtype] = pool.submit("p27_grid_trace", al, th, method,
+                                          timed, kernel=False)
+    for mode in P27_MODES:
+        jobs["cpu", mode] = pool.submit("p27_render", mode, P27_CHECK,
+                                        "cpu", on="cpu")
+    return jobs
+
+
+def surface_phase(dev, card, pool, ctx):
+    """Phase 27; returns the kernels-line entries of the surface kernel's
+    instances."""
+    import tempfile
+    import torch
+    from light_path_tracer_tpu_torch.ops.cuda import _build
+    t_phase = time.perf_counter()
+    jobs = ctx["jobs"]
+    lib, build_s = ctx["build"].result()
+    print(f"  surface library: built in {build_s:.1f} s at nice 19 beside "
+          f"phases 11 on ({len(_build._sources('surface'))} sources)",
+          flush=True)
+    for name, regs, spill in ptxas_report(lib.build_log):
+        print(f"  ptxas: {name}: {regs} registers; {spill}", flush=True)
+
+    # -- (a) every instance on the 4,096 random rays, bitwise its plain
+    # loop on the card (the plain loop in a child)
+    rows, kernel_rows = {}, {}
+    for inst in P27_INSTANCES:
+        method, dtype, family, timed = inst
+        al, th = p27_rays(dev, dtype)
+        probe = {}
+        rk = p27_trace(family, al, th, method, timed, probe=probe)
+        plain_ms, rp = PlainPool.result(jobs[inst], dev)
+        same = p27_bitwise(rk, rp)
+        att = probe["attempts"].to(torch.int64)
+        st = rk.status.cpu()
+        rows[inst] = dict(bitwise=same, plain_ms=plain_ms,
+                          escaped=int((st == 1).sum()),
+                          captured=int((st == -1).sum()),
+                          attempts_sum=int(att.sum()),
+                          slowest_attempts=int(att.max()))
+        kernel_rows[inst] = (rk, rp, plain_ms, int(att.sum()),
+                             _frozen(lambda: p27_trace(family, al, th,
+                                                       method, timed)))
+        require(same, f"phase 27 {inst}: the surface kernel is not "
+                      f"bitwise its plain loop: {rows[inst]} "
+                      f"max |d| {p27_max_abs(rk, rp)}")
+        require(rows[inst]["escaped"] > 100 and rows[inst]["captured"] > 100,
+                f"phase 27 {inst}: {rows[inst]}")
+    print(f"  every surface instance bitwise its plain loop on the card "
+          f"(4,096 rays, capped at {P27_STEPS}): "
+          f"{json.dumps({str(k): v for k, v in rows.items()})}", flush=True)
+
+    # -- (b) the 512^2 grid of the map modes, bitwise its plain loop
+    grid_rows = {}
+    for method, dtype, timed in P27_GRID_INSTANCES:
+        al, th = p27_grid(dev, dtype)
+        probe = {}
+        rk = p27_grid_trace(al, th, method, timed, probe=probe)
+        plain_ms, rp = PlainPool.result(jobs["grid", dtype], dev)
+        same = p27_bitwise(rk, rp)
+        att = probe["attempts"].to(torch.int64)
+        grid_rows[dtype] = dict(bitwise=same, plain_ms=plain_ms,
+                                attempts_sum=int(att.sum()),
+                                slowest_attempts=int(att.max()),
+                                at_cap=int((att >= P27_GRID_STEPS).sum()))
+        kernel_rows["grid", dtype] = (
+            rk, rp, plain_ms, int(att.sum()),
+            _frozen(lambda: p27_grid_trace(al, th, method, timed)))
+        require(same, f"phase 27 512^2 {dtype}: the surface kernel is not "
+                      f"bitwise its plain loop: {grid_rows[dtype]}")
+    print(f"  the 512^2 grid, capped at {P27_GRID_STEPS}, bitwise its plain "
+          f"loop: {json.dumps(grid_rows)}", flush=True)
+
+    # -- (c) each mode at 64^2 on the card against the CPU
+    checks = {}
+    for mode in P27_MODES:
+        og, _ = p27_render(mode, P27_CHECK, "cuda")
+        _ms, (oc, _st) = PlainPool.result(jobs["cpu", mode], "cpu")
+        checks[mode] = p27_check(mode, og, oc)
+        require(all(v["ok"] for v in checks[mode].values()),
+                f"phase 27 64^2 {mode} card vs CPU: {checks[mode]}")
+    print(f"  each mode at 64^2, card vs CPU: {json.dumps(checks)}",
+          flush=True)
+
+    # -- (d) each mode at the CLI's 512^2 through its entry point, warm-up
+    # and 3 frames, the counts zeroed just before and read just after
+    frames = {}
+    for mode in P27_MODES:
+        p27_render(mode, P27_DIM, "cuda")
+        p27_zero()
+        runs = []
+        for _ in range(3):
+            maps, st = p27_render(mode, P27_DIM, "cuda")
+            runs.append(st["timings"])
+        counts = p27_counts()
+        t = min(runs, key=lambda r: r["total"])
+        traced = st.get("traced_rays")
+        frames[mode] = dict(
+            frame_ms=1e3 * t["total"],
+            precompute_ms=1e3 * t.get("precompute", 0.0),
+            rays_per_s=traced / t["precompute"] if traced else None,
+            traced_rays=traced,
+            integrator_steps=st.get("integrator_steps"),
+            counts={k: v for k, v in counts.items() if v})
+        surface_modes = mode not in ("rings", "scene_rings", "magnification")
+        launched = (sum(v for k, v in counts.items()
+                        if k.startswith("launches")) if surface_modes
+                    else counts["kerr"])
+        require(launched >= 3 and counts["plain"] == 0,
+                f"phase 27 {mode} at 512^2: kernel launches {launched}, "
+                f"plain-loop calls {counts['plain']}")
+        finite = [np.isfinite(v).mean() for v in maps.values()
+                  if isinstance(v, np.ndarray) and v.size]
+        require(all(f > 0.5 for f in finite),
+                f"phase 27 {mode} at 512^2: finite shares {finite}")
+    print(f"  each mode at 512^2 through its entry point (best of 3 after "
+          f"a warm-up): {json.dumps(frames)} on {card}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = p27_cli(tmp, P27_DIM[0], "cuda")
+    print(f"  each mode through the CLI at 512^2: {json.dumps(cli)}",
+          flush=True)
+    require(all(r["rc"] == 0 and r["files"] == r["want"]
+                and r["launches"] > 0 and r["plain"] == 0
+                for r in cli.values()), f"phase 27 CLI: {cli}")
+    require(frames["find_images"]["counts"] and len(
+        p27_render("find_images", P27_DIM, "cuda")[0]["images"]) >= 1,
+        "phase 27: find_images found no image at 512^2")
+    prof = device_profile(lambda: p27_render("caustics", P27_DIM, "cuda"),
+                          3, "surface", lambda: p27_counts()[
+                              p27_counter("dp45", "float32", "kerr",
+                                          False)])
+    print(f"  the 512^2 caustics frame under torch.profiler (3 frames): "
+          f"{json.dumps(prof)}", flush=True)
+
+    # -- (e) each instance on a path of its own through the entry points:
+    # find_images (the float32 coarse grid, float64 stencils with and
+    # without the time) and the float32 arrival-time map, each pair and
+    # family, at 512^2; then the kernels-line entries
+    p27_zero()
+    for method in ("dp45", "dop853"):
+        for family, kw in (("kerr", {}), ("kerr_newman",
+                                          dict(a=0.0, Q=0.6)),
+                           ("johannsen_psaltis", dict(eps3=2.0))):
+            for mode in ("find_images", "time_delay"):
+                p27_render(mode, P27_DIM, "cuda", method=method,
+                           scene_kw=kw)
+    counts = p27_counts()
+    print(f"  the instances' own paths (find_images and the float32 "
+          f"arrival-time map at 512^2, each pair and family): "
+          f"{json.dumps(counts)}", flush=True)
+    require(counts["plain"] == 0, f"phase 27: plain-loop calls {counts}")
+    # Each instance alone on the quiet card (phase 27's children are done).
+    times = {key: kernel_alone_ms(row[4], 5)
+             for key, row in kernel_rows.items()}
+    print(f"  each instance alone (ms; 4,096 rays, the grid 512^2): "
+          f"{json.dumps({str(k): v for k, v in times.items()})} on {card}",
+          flush=True)
+    entries = []
+    suffix = {("dp45", "float32"): "", ("dp45", "float64"): "_f64",
+              ("dop853", "float32"): "_dop853",
+              ("dop853", "float64"): "_dop853_f64"}
+    for inst in P27_INSTANCES:
+        method, dtype, family, timed = inst
+        key = ("grid", dtype) if (family == "kerr" and (
+            method, dtype, timed) in P27_GRID_INSTANCES) else inst
+        rk, rp, plain_ms, att, _fn = kernel_rows[key]
+        ms = times[key]
+        size = 4 if dtype == "float32" else 8
+        entries.append(kernel_entry(
+            f"kerr_surface_{method}_{dtype}_{family}"
+            + ("_time" if timed else ""),
+            SURFACE_SOURCE.format(suffix[method, dtype]), SURFACE_REPLACES,
+            counts[p27_counter(method, dtype, family, timed)],
+            p27_max_abs(rk, rp),
+            ms, plain_ms, int(rk.status.numel()),
+            2 * size + (5 + 2 + int(timed)) * size + 8,
+            att * bounds.surface_work(dtype, family, method, timed)))
+    print(f"  [{time.perf_counter() - t_phase:.1f} s] phase 27 done",
+          flush=True)
+    return entries
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7615,8 +8190,10 @@ def main() -> int:
     # plain comparisons come first; the main-path, config 1, 2 and 4
     # timings are behind); phase 22 waits for it.
     dop853_build = background_build("dop853")
-    # The broad instances (phase 26) build beside them.
+    # The broad instances (phase 26) and the surface kernel (phase 27)
+    # build beside them.
     broad_build = background_build("broad")
+    surface_build = background_build("surface")
     pool = PlainPool()
     vol_kernels, state = volumetric_phases(dev, card, pool)
 
@@ -7645,7 +8222,7 @@ def main() -> int:
 
     # -- 20. config 5: the 4k jittered-AA shadow -------------------------
     stamp(20)
-    launches5, kernels5 = config5_phase(dev, card, main_rays)
+    launches5, kernels5 = config5_phase(dev, card, main_rays, pool)
 
     # -- 21. Kerr-Newman and Johannsen-Psaltis ----------------------------
     stamp(21)
@@ -7667,6 +8244,8 @@ def main() -> int:
 
     # -- 24. the disk family: wide instances and every disk render --------
     stamp(24)
+    # Phase 27's plain loops and 64^2 CPU renders run beside phases 24-26.
+    jobs27 = queue_phase27(pool, dev)
     disk_kernels = disk_family_phase(dev, card, pool, dict(
         disk_rays=(al_d, th_d), cfg=cfg, dop853_build=dop853_build))
 
@@ -7681,6 +8260,11 @@ def main() -> int:
     broad_kernels = broad_phase(dev, card, pool, dict(
         build=broad_build, jobs=jobs26, rays=rays26, grid_jobs=grid_jobs26,
         grids=grids26))
+
+    # -- 27. the surface kernel and the lens-map products ------------------
+    stamp(27)
+    surface_kernels = surface_phase(dev, card, pool, dict(
+        build=surface_build, jobs=jobs27))
     pool.close()
     stamp("retime")
     retime_entries(card)
@@ -7714,7 +8298,8 @@ def main() -> int:
                      kerr_row["attempts_sum"] * shadow_work)]
     kernels += (kernels5 + vol_kernels + new_kernels + [probe_kernel]
                 + f64_kernels + family_kernels + d853_kernels + mu_kernels
-                + disk_kernels + planes_kernels + broad_kernels)
+                + disk_kernels + planes_kernels + broad_kernels
+                + surface_kernels)
     # The counted bound: every operation by kind at the rate phase 16
     # measured for it (a flop at no less than the published rate).
     for k in kernels:

@@ -45,6 +45,15 @@ self-absorbed), the multi-frequency spectral image
 than 4 orders through its broad instances), by default inside its
 two-pass drivers.
 
+The lens-map products: the photon-ring layers (`render_rings`,
+`render_scene_rings`) and the magnification map (`render_magnification`)
+read the standard trace; caustics (`render_caustics`), the microlensing
+light curve (`render_microlens_curve`), the arrival-time map
+(`render_time_delay`), the shear maps (`render_shear`) and the
+point-image solver (`images.find_point_images`) trace the whole grid
+onto the capture surface through the CUDA surface kernel
+(`ops/cuda/surface_kernel.py`).
+
 This package imports torch and never jax.
 """
 
@@ -60,8 +69,12 @@ from light_path_tracer_tpu_torch.models import (JohannsenPsaltis, Kerr,
                                                 Schwarzschild, make_metric)
 from light_path_tracer_tpu_torch.ops.batch import trace_batch
 from light_path_tracer_tpu_torch.ops.types import TraceResult
+from light_path_tracer_tpu_torch.images import find_point_images
 from light_path_tracer_tpu_torch.pipeline import (
-    RenderOutput, precompute_final_alpha, render_scene, render_shadow)
+    RenderOutput, precompute_final_alpha, render_caustics,
+    render_magnification, render_microlens_curve, render_rings,
+    render_scene, render_scene_rings, render_shadow, render_shear,
+    render_time_delay)
 from light_path_tracer_tpu_torch.polarization import (
     render_polarization, render_polarized_volumetric)
 from light_path_tracer_tpu_torch.spectra import (hotspot_light_curve,
@@ -83,4 +96,7 @@ __all__ = ["Kerr", "KerrNewman", "JohannsenPsaltis", "Schwarzschild",
            "RIAFConfig", "render_volumetric", "render_volumetric_spectrum",
            "render_volumetric_movie", "render_volumetric_decomposed",
            "render_polarized_volumetric", "render_shadow_adaptive",
-           "render_scene_adaptive"]
+           "render_scene_adaptive", "render_rings", "render_scene_rings",
+           "render_magnification", "render_caustics",
+           "render_microlens_curve", "render_time_delay", "render_shear",
+           "find_point_images"]

@@ -1,15 +1,19 @@
-"""`lens` subcommand: the lensed background-image render.
+"""`lens` subcommand: the lensed background-image render and its
+map-level modes.
 
-The plain and AA renders of the JAX package's `lens`: load the image,
-print the metric, alpha_crit and the BH's screen offset, `render_scene`
-(or with `--aa N` `render_scene_aa`, with `--adaptive` too
-`render_scene_adaptive`; with `--disk` the composite with an accretion
-disk, `render_scene_with_disk` or with `--aa N` the stacked
-`render_scene_with_disk_aa`, blackbody disk pixels display-encoded), save
-the PNG and print the benchmark summary. Every flag of the JAX parser is
-registered with its default; the modes not ported yet (lookup cache,
-ring layers, the map-level products, multihost) raise
-NotImplementedError.
+The renders of the JAX package's `lens`: load the image, print the
+metric, alpha_crit and the BH's screen offset, `render_scene` (or with
+`--aa N` `render_scene_aa`, with `--adaptive` too `render_scene_adaptive`;
+with `--disk` the composite with an accretion disk, `render_scene_with_disk`
+or with `--aa N` the stacked `render_scene_with_disk_aa`, blackbody disk
+pixels display-encoded), save the PNG and print the benchmark summary;
+`--rings` also writes the lensed image split by photon-ring order. The
+map-level modes need no image: `--magnification`, `--shear`,
+`--caustics`, `--time-delay` (PNG through utils/color.py's tables;
+`--shear` one PNG a panel and an .npz of the maps), `--microlens` (a CSV)
+and `--find-images` (a printed table). Every flag of the JAX parser is
+registered with its default; the lookup cache (`--cache`) and
+`--multihost` raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -17,10 +21,11 @@ from __future__ import annotations
 import time
 
 import numpy as np
+import torch
 
 from light_path_tracer_tpu_torch.cli._shared import (
     _add_multihost_args, _add_render_args, _add_scene_args,
-    _render_cfg_from, _scene_from, not_ported)
+    _render_cfg_from, _scene_from, _stem, not_ported)
 
 
 def _metric_line(args) -> str:
@@ -70,22 +75,17 @@ def cmd_lens(args) -> int:
         print_benchmark_summary, render_scene)
     from light_path_tracer_tpu_torch.utils.save import read_png, save_png
 
-    for flag, used in (
-            ("--cache", args.cache),
-            ("--rings", args.rings),
-            ("--magnification", args.magnification is not None),
-            ("--shear", args.shear is not None),
-            ("--caustics", args.caustics is not None),
-            ("--microlens", args.microlens is not None),
-            ("--time-delay", args.time_delay is not None),
-            ("--find-images", args.find_images is not None),
-            ("--multihost", args.multihost)):
+    for flag, used in (("--cache", args.cache),
+                       ("--multihost", args.multihost)):
         if used:
             raise not_ported(f"lens {flag}")
 
     scene = _scene_from(args)
     cfg = _render_cfg_from(args)
     print(_metric_line(args))
+    for flag, mode in _MODES:
+        if getattr(args, flag) is not None:
+            return mode(args, scene, cfg)
 
     t0 = time.perf_counter()
     img = read_png(args.image)
@@ -107,6 +107,7 @@ def cmd_lens(args) -> int:
     print(f"BH screen offset: psi_y={args.psi_y:.4f} deg, "
           f"psi_x={args.psi_x:.4f} deg ({status})")
 
+    ring_tables = None
     if args.disk:
         result, stats = _composite(args, scene, cfg, img)
         timings = stats["timings"]
@@ -138,6 +139,14 @@ def cmd_lens(args) -> int:
         result = out.image
         total = out.precompute.total_rays
         traced = out.precompute.traced_rays
+        ring_tables = (out.precompute.final_alpha, out.precompute.winding)
+
+    if args.rings:
+        if ring_tables is None:
+            print(f"  note: --rings is not supported with "
+                  f"{'--disk' if args.disk else '--aa'}; ignoring")
+        else:
+            _ring_layers(args, ring_tables, result)
 
     t0 = time.perf_counter()
     save_png(args.output, result)
@@ -148,6 +157,162 @@ def cmd_lens(args) -> int:
                             timings)
     print(f"Saved: {args.output}")
     return 0
+
+
+def _save_rgb(path, rgb):
+    """Save an (H, W, 3) float RGB NumPy image in [0, 1] as a PNG."""
+    from light_path_tracer_tpu_torch.utils.save import save_png
+    save_png(path, np.asarray(rgb, np.float32))
+    print(f"Saved: {path}")
+
+
+def _timing_note(tt, second="render"):
+    return (f"(precompute {tt.get('precompute', 0.0):.3f}s, "
+            f"{second} {tt.get(second, 0.0):.3f}s)")
+
+
+def _ring_layers(args, ring_tables, result):
+    """Write the render split by photon-ring order from its own tables,
+    one PNG a layer (label without underscores), and print the counts."""
+    from light_path_tracer_tpu_torch.pipeline import lensed_ring_layers
+    from light_path_tracer_tpu_torch.utils.save import save_png
+    layers, order_pixels = lensed_ring_layers(
+        ring_tables[0], ring_tables[1], result, max_order=args.max_order)
+    for layer, label in zip(layers, order_pixels):
+        save_png(_stem(args.output, f"_{label.replace('_', '')}.png"),
+                 torch.clamp(layer, 0.0, 1.0))
+    for label, count in order_pixels.items():
+        print(f"  {label:<12} {count:>10,} px")
+
+
+def _magnification(args, scene, cfg):
+    from light_path_tracer_tpu_torch.pipeline import render_magnification
+    from light_path_tracer_tpu_torch.render import magnification_display
+    mu, st = render_magnification(scene, (args.size, args.size), cfg,
+                                  device=args.device)
+    print(f"Magnification map {args.size}x{args.size}: "
+          f"|mu|_max={st['mu_abs_max']:.1f}, "
+          f"{st['negative_parity_pixels']} odd-parity px, "
+          f"{st['shadow_pixels']} shadow px {_timing_note(st['timings'])}")
+    _save_rgb(args.magnification, magnification_display(mu))
+    return 0
+
+
+# The --shear panels: map, colour table, symmetric about 0.
+_SHEAR_PANELS = (("kappa", "RdBu_r", True), ("gamma", "inferno", False),
+                 ("gamma1", "RdBu_r", True), ("omega", "RdBu_r", True))
+
+
+def _shear(args, scene, cfg):
+    from light_path_tracer_tpu_torch.pipeline import render_shear
+    from light_path_tracer_tpu_torch.utils.color import colormap
+    maps, st = render_shear(scene, (args.size, args.size), cfg,
+                            device=args.device)
+    arrays = {k: v.cpu().numpy() for k, v in maps.items()}
+    print(f"Shear decomposition {args.size}x{args.size}: "
+          f"gamma_max={st['gamma_max']:.2f}, "
+          f"|omega|_max={st['omega_abs_max']:.2e}, "
+          f"{st['shadow_pixels']} shadow px {_timing_note(st['timings'])}")
+    for key, table, sym in _SHEAR_PANELS:
+        v = arrays[key]
+        fin = np.isfinite(v)
+        lim = (np.percentile(np.abs(v[fin]), 99.0) if fin.any() else 1.0
+               ) or 1.0
+        x = 0.5 * (v / lim + 1.0) if sym else v / lim
+        rgb = colormap(table, np.where(fin, x, 0.0))
+        rgb[~fin] = 0.0
+        _save_rgb(_stem(args.shear, f"_{key}.png"), rgb)
+    npz = _stem(args.shear, ".npz")
+    np.savez(npz, **arrays)
+    print(f"Saved: {npz}")
+    return 0
+
+
+def _caustics(args, scene, cfg):
+    from light_path_tracer_tpu_torch.pipeline import render_caustics
+    from light_path_tracer_tpu_torch.utils.color import colormap
+    amap, _extent, st = render_caustics(scene, (args.size, args.size), cfg,
+                                        bins=args.caustic_bins,
+                                        device=args.device)
+    disp = np.log10(1.0 + np.maximum(amap.cpu().numpy(), 0.0))
+    lim = np.percentile(disp, 99.5) or 1.0
+    print(f"Caustic map {args.caustic_bins}x{args.caustic_bins} "
+          f"(traced {args.size}x{args.size}, beta_max "
+          f"{np.degrees(st['beta_max']):.2f} deg): "
+          f"A_max={st['A_max']:.1f}, far-field median "
+          f"A={st['A_far_field']:.3f} {_timing_note(st['timings'])}")
+    _save_rgb(args.caustics, colormap("inferno",
+                                      np.clip(disp / lim, 0.0, 1.0)))
+    return 0
+
+
+def _time_delay(args, scene, cfg):
+    from light_path_tracer_tpu_torch.pipeline import render_time_delay
+    from light_path_tracer_tpu_torch.utils.color import colormap
+    tau, st = render_time_delay(scene, (args.size, args.size), cfg,
+                                device=args.device)
+    tau_np = tau.cpu().numpy()
+    disp = np.log10(1.0 + np.nan_to_num(tau_np, nan=0.0))
+    lim = np.nanpercentile(disp, 99.5) or 1.0
+    rgb = colormap("viridis", np.clip(disp / lim, 0.0, 1.0))
+    rgb[~np.isfinite(tau_np)] = 0.0
+    print(f"Arrival-time map {args.size}x{args.size}: "
+          f"tau_max={st['tau_max']:.2f} M, {st['shadow_pixels']} shadow px "
+          f"{_timing_note(st['timings'])}")
+    _save_rgb(args.time_delay, rgb)
+    return 0
+
+
+def _find_images(args, scene, cfg):
+    from light_path_tracer_tpu_torch.images import (find_point_images,
+                                                    format_image_table)
+    try:
+        bx_deg, by_deg = (float(v) for v in args.find_images.split(","))
+    except ValueError:
+        print("--find-images expects BX,BY in degrees "
+              f"(got {args.find_images!r})")
+        return 2
+    imgs, st = find_point_images(
+        scene, (np.radians(bx_deg), np.radians(by_deg)),
+        resolution=(args.size, args.size), cfg=cfg, device=args.device)
+    tt = st["timings"]
+    print(f"Images of point source at beta = ({bx_deg:.4f}, "
+          f"{by_deg:.4f}) deg ({args.size}x{args.size} grid):")
+    print(format_image_table(imgs, st))
+    print(f"  (precompute {tt.get('precompute', 0.0):.3f}s, "
+          f"refine {tt.get('refine', 0.0):.3f}s, "
+          f"products {tt.get('products', 0.0):.3f}s)")
+    return 0
+
+
+def _microlens(args, scene, cfg):
+    from light_path_tracer_tpu_torch.pipeline import render_microlens_curve
+    u_axis, curve, st = render_microlens_curve(
+        scene, (args.size, args.size), cfg, impact_u=args.track_impact,
+        span_u=args.track_span, n_points=args.track_points,
+        source_radius_u=args.source_radius, device=args.device)
+    curve_np = curve.cpu().numpy()
+    xs = np.linspace(-args.track_span, args.track_span, args.track_points)
+    # No plot is drawn: a .png path gets the CSV beside it.
+    path = (_stem(args.microlens, ".csv")
+            if args.microlens.lower().endswith(".png") else args.microlens)
+    with open(path, "w") as fh:
+        fh.write("track_pos_thetaE,u,A\n")
+        for x, uu, aa in zip(xs, u_axis, curve_np):
+            fh.write(f"{x:.6f},{uu:.6f},{aa:.8f}\n")
+    print(f"Microlensing curve ({args.track_points} points, "
+          f"impact u0={args.track_impact}, source radius "
+          f"{args.source_radius} theta_E, theta_E = "
+          f"{np.degrees(st['theta_E']):.3f} deg): "
+          f"A_peak={st['A_peak']:.4f}, baseline {st['A_baseline']:.4f}")
+    print(f"Saved: {path}")
+    return 0
+
+
+# The map-level modes in the JAX CLI's order of precedence.
+_MODES = (("magnification", _magnification), ("shear", _shear),
+          ("caustics", _caustics), ("time_delay", _time_delay),
+          ("find_images", _find_images), ("microlens", _microlens))
 
 
 def register(sub):
@@ -179,26 +344,44 @@ def register(sub):
                    help="adaptive-AA refinement budget (fraction of "
                         "pixels, the highest edge scores)")
     p.add_argument("--rings", action="store_true",
-                   help="photon-ring layers (not ported yet)")
+                   help="also write the lensed image split by photon-"
+                        "ring order (direct / 1st lensed / n-th ring), "
+                        "one PNG a layer")
     p.add_argument("--max-order", type=int, default=3)
     p.add_argument("--magnification", metavar="PATH",
-                   help="magnification map (not ported yet)")
+                   help="instead of lensing an image, write the signed "
+                        "magnification map (RdBu_r PNG; critical curves "
+                        "at |mu| -> inf, mu < 0 parity-flipped images, "
+                        "the shadow black); --size sets the grid")
     p.add_argument("--size", type=int, default=512,
                    help="grid size for the map-level modes")
     p.add_argument("--shear", metavar="PATH",
-                   help="weak-lensing decomposition (not ported yet)")
+                   help="write the weak-lensing decomposition of the "
+                        "traced lens map: one PNG a panel (PATH_kappa, "
+                        "_gamma, _gamma1, _omega) and PATH.npz of the "
+                        "maps; --size sets the grid")
     p.add_argument("--caustics", metavar="PATH",
-                   help="source-plane caustic map (not ported yet)")
-    p.add_argument("--caustic-bins", type=int, default=256)
+                   help="instead of lensing an image, write the "
+                        "source-plane magnification (caustic) map by "
+                        "inverse ray shooting (inferno PNG); --size sets "
+                        "the traced grid")
+    p.add_argument("--caustic-bins", type=int, default=256,
+                   help="source-plane bins per axis for --caustics")
     p.add_argument("--microlens", metavar="PATH",
-                   help="microlensing light curve (not ported yet)")
+                   help="write a microlensing light curve of a finite "
+                        "source crossing the lens at --track-impact as "
+                        "CSV (beside PATH as .csv when PATH is a .png)")
     p.add_argument("--track-impact", type=float, default=1.0)
     p.add_argument("--track-span", type=float, default=4.0)
     p.add_argument("--track-points", type=int, default=81)
     p.add_argument("--source-radius", type=float, default=0.3)
     p.add_argument("--time-delay", metavar="PATH",
-                   help="Fermat arrival-time map (not ported yet)")
+                   help="write the Fermat arrival-time map (viridis "
+                        "PNG; float64 recommended)")
     p.add_argument("--find-images", metavar="BX,BY",
-                   help="point-source image solver (not ported yet)")
+                   help="solve for every image of a point source at "
+                        "gnomonic sky position (BX, BY) degrees about "
+                        "the BH and print positions, signed "
+                        "magnifications, windings and relative delays")
     _add_multihost_args(p)
     p.set_defaults(fn=cmd_lens)

@@ -1,13 +1,44 @@
 """`shadow` subcommand: analytic or integrated shadow render, with
-uniform (`--aa N`) or adaptive (`--aa N --adaptive`) jittered AA."""
+uniform (`--aa N`) or adaptive (`--aa N --adaptive`) jittered AA, or the
+photon-ring decomposition (`--rings`: the composite and one gray mask
+PNG an order)."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from light_path_tracer_tpu_torch.cli._shared import (
     _add_multihost_args, _add_render_args, _add_scene_args,
-    _render_cfg_from, _scene_from, _visibility_report, not_ported)
+    _render_cfg_from, _scene_from, _stem, _visibility_report, not_ported)
+
+
+def _rings(args, scene, cfg):
+    """The photon-ring decomposition: the composite at --output, each
+    order's mask beside it (PATH_order0.png .. PATH_order{N}plus.png,
+    PATH_shadow.png)."""
+    from light_path_tracer_tpu_torch.pipeline import render_rings
+    from light_path_tracer_tpu_torch.utils.save import (save_gray_png,
+                                                        save_png)
+    if args.visibility is not None:
+        print("  note: --visibility is not supported with --rings; "
+              "ignoring")
+    masks, composite, stats = render_rings(
+        scene, (args.size, args.size), cfg, max_order=args.max_order,
+        device=args.device)
+    save_png(args.output, composite)
+    labels = ([f"order{k}" for k in range(args.max_order)]
+              + [f"order{args.max_order}plus", "shadow"])
+    for mask, label in zip(masks, labels):
+        save_gray_png(_stem(args.output, f"_{label}.png"),
+                      mask.to(torch.float32))
+    t = stats["timings"]
+    print(f"Photon-ring decomposition: {args.size}x{args.size}, "
+          f"a={scene.a}, precompute {t.get('precompute', 0.0):.3f}s")
+    for label, count in stats["order_pixels"].items():
+        print(f"  {label:<12} {count:>10,} px")
+    print(f"Saved: {args.output} (+ {len(labels)} per-order masks)")
+    return 0
 
 
 def cmd_shadow(args) -> int:
@@ -15,13 +46,13 @@ def cmd_shadow(args) -> int:
     from light_path_tracer_tpu_torch.pipeline import render_shadow
     from light_path_tracer_tpu_torch.utils.save import save_gray_png
 
-    for flag, used in (("--rings", args.rings),
-                       ("--multihost", args.multihost)):
-        if used:
-            raise not_ported(f"shadow {flag}")
+    if args.multihost:
+        raise not_ported("shadow --multihost")
 
     scene = _scene_from(args)
     cfg = _render_cfg_from(args)
+    if args.rings:
+        return _rings(args, scene, cfg)
     resolution = (args.size, args.size)
     if args.aa > 1:
         if args.analytic:
@@ -84,7 +115,11 @@ def register(sub):
     p.add_argument("--analytic", action="store_true",
                    help="zero-integration threshold test vs alpha_crit")
     p.add_argument("--rings", action="store_true",
-                   help="photon-ring decomposition (not ported yet)")
+                   help="photon-ring decomposition (direct image, "
+                        "1st lensed image, n-th photon ring): the "
+                        "composite and one mask PNG an order")
+    p.add_argument("--max-order", type=int, default=3,
+                   help="highest photon-ring order to separate")
     p.add_argument("--output", default="black_hole_shadow.png")
     p.add_argument("--visibility", metavar="PATH",
                    help="visibility-domain analysis of the silhouette: "

@@ -9,14 +9,16 @@ planes, crossing times), each `*_kn*.cu` the extras kernel's
 Kerr-Newman ones and each `*_broad*.cu` the instances that read their
 width at run time (the extras kernel's spectra, movies and order
 decompositions wider than its compiled instances, and the plane recorder
-with any number of planes). They form four libraries: "dp45", the DP45
+with any number of planes), and each `kerr_surface*.cu` the surface
+kernel's instances. They form five libraries: "dp45", the DP45
 Kerr and extras kernels' theta and Kerr instances, the orbit kernel and
 the peak probe; "more", the DP45 mu-chart, wide, plane-recorder and
 Kerr-Newman-extras instances (`kerr_dp45_*mu*.cu`, `kerr_dp45_wide*.cu`,
 `kerr_dp45_planes*.cu`, `kerr_dp45_*_kn*.cu`); "dop853", every other
 `kerr_dop853*.cu` source (the DOP853 instances of the Kerr and extras
-kernels, every chart, width and family); and "broad", every
-`*_broad*.cu` source, DP45 and DOP853. At the first use of a library
+kernels, every chart, width and family); "broad", every
+`*_broad*.cu` source, DP45 and DOP853; and "surface", the
+`kerr_surface*.cu` sources, DP45 and DOP853. At the first use of a library
 each of its sources is compiled by its own `nvcc` for Hopper (`sm_90a`),
 all at once, and the objects are linked into one shared library under
 `build/light_path_tracer_tpu_torch/` beside the package, named by the
@@ -26,8 +28,9 @@ instances. A later process with the same sources loads the existing file.
 Nothing is compiled when a module is imported, and a missing `nvcc` or a
 failed build raises with the compiler's output.
 
-The float64 extras, plane-recorder and broad sources
-(`*_{extras,stokes,movie,orders,planes,broad}*_f64.cu`) are built as
+The float64 extras, plane-recorder, broad and surface sources
+(`*_{extras,stokes,movie,orders,planes,broad}*_f64.cu`,
+`kerr_surface*_f64.cu`) are built as
 relocatable device code and call the float64 pow of
 `csrc/lpt_pow_f64.cu`, a translation unit built with nvcc's default
 contraction, as PyTorch builds its own pow: each library that holds such
@@ -89,11 +92,19 @@ PLANES_ENTRY = "lpt_kerr_dp45_planes"
 # recorder's with any number of planes (a call and a PlaneList).
 BROAD_EXTRAS_ENTRY = "lpt_kerr_dp45_broad"
 BROAD_PLANES_ENTRY = "lpt_kerr_dp45_broad_planes"
+# The surface kernel's entry (a SurfaceCall), one a pair and dtype.
+SURFACE_ENTRY = "lpt_kerr_surface"
 
 
 def _broad_source(name):
     """A source of the run-time-width instances (the "broad" library)."""
     return "_broad" in name
+
+
+def _surface_source(name):
+    """A source of the surface kernel's instances (the "surface"
+    library)."""
+    return name.startswith("kerr_surface")
 
 
 def _variant_source(name):
@@ -110,7 +121,8 @@ def _rdc_source(name):
     stem = name[:-len(".cu")]
     form = stem.removeprefix("kerr_dp45_").removeprefix("kerr_dop853_")
     return stem.endswith("_f64") and form.startswith(
-        ("extras", "stokes", "movie", "orders", "planes", "broad"))
+        ("extras", "stokes", "movie", "orders", "planes", "broad",
+         "kerr_surface"))
 
 _P = ctypes.c_void_p
 _F = ctypes.c_float
@@ -136,12 +148,13 @@ def _nvcc() -> str:
 LIBRARIES = {
     "dp45": ("lpt_kernels", lambda name: not name.startswith("kerr_dop853")
              and not _variant_source(name) and not _broad_source(name)
-             and name != POW_SOURCE),
+             and not _surface_source(name) and name != POW_SOURCE),
     "more": ("lpt_more", lambda name: not name.startswith("kerr_dop853")
              and _variant_source(name) and not _broad_source(name)),
     "dop853": ("lpt_dop853", lambda name: name.startswith("kerr_dop853")
                and not _broad_source(name)),
     "broad": ("lpt_broad", _broad_source),
+    "surface": ("lpt_surface", _surface_source),
 }
 
 
@@ -155,8 +168,8 @@ def _sources(library="dp45"):
 
 
 def library_path(library="dp45") -> Path:
-    """Where the library `library` ("dp45", "more", "dop853" or "broad")
-    for the current sources, headers and flags lives. The hash covers
+    """Where the library `library` ("dp45", "more", "dop853", "broad" or
+    "surface") for the current sources, headers and flags lives. The hash covers
     every source and header (a DOP853 source includes its DP45
     sibling)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS + RDC_FLAGS
@@ -269,6 +282,12 @@ def _declare(lib, library):
             fn.argtypes = [_P, _P]
             fn.restype = _I
         return _declare_error_string(lib)
+    if library == "surface":
+        for suffix in ("", "_f64", "_dop853", "_dop853_f64"):
+            fn = getattr(lib, SURFACE_ENTRY + suffix)
+            fn.argtypes = [_P]
+            fn.restype = _I
+        return _declare_error_string(lib)
     for suffix, real in (("", _F), ("_f64", _D)):
         _declare_pair(lib, suffix, variants=False)
         fn = getattr(lib, "lpt_orbit_rk4" + suffix)
@@ -297,8 +316,8 @@ def _declare_error_string(lib):
 
 @functools.cache
 def load_library(library="dp45"):
-    """The compiled kernel library `library` ("dp45", "more", "dop853" or
-    "broad"), built on first use. Its `build_log` attribute holds nvcc's
+    """The compiled kernel library `library` ("dp45", "more", "dop853",
+    "broad" or "surface"), built on first use. Its `build_log` attribute holds nvcc's
     resource report of the build that made it ('' where that build kept
     none), and
     `build_seconds` the seconds this process spent building it (0.0 when

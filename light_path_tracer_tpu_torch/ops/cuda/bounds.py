@@ -392,6 +392,27 @@ def kerr_work(dtype="float32", family="kerr", method="dp45", chart="theta"):
                 attempt_ops(5, geo, dtype, method), dtype)
 
 
+# The surface kernel's time component (csrc/kerr_surface.cuh tdot): Kerr
+# and Kerr-Newman as the plane recorder's tdot; Johannsen-Psaltis's
+# inverse_metric_jp for its two entries (30 flops, 7 divisions).
+_SURFACE_TDOT = {"kerr": _ops(flop=18, div=2),
+                 "kerr_newman": _ops(flop=21, div=2),
+                 "johannsen_psaltis": _ops(flop=30, div=7)}
+
+
+def surface_work(dtype="float32", family="kerr", method="dp45",
+                 record_time=False):
+    """One attempt of the surface kernel (csrc/kerr_surface.cuh): the
+    Kerr kernel's attempt over 5 components (kerr_work), or over 6 with
+    the coordinate time, whose rate adds to each evaluation."""
+    geo = GEODESIC_FAMILIES[family]
+    if not record_time:
+        return kerr_work(dtype, family, method)
+    rhs = _add(geo, _SURFACE_TDOT[family])
+    return Work(attempt_flops(6, _extra_flops(rhs, GEODESIC), method),
+                attempt_ops(6, rhs, dtype, method), dtype)
+
+
 # The plane recorder (csrc/kerr_planes.cuh). An accepted attempt takes
 # one set of sines and cosines at its end (Trig: cos theta; sin theta
 # for a tilted plane or the time recorder; sin and cos phi for a tilted

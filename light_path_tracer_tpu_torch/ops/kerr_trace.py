@@ -41,8 +41,8 @@ import torch.nn.functional as F
 from light_path_tracer_tpu_torch.operands import kernel_operand
 from light_path_tracer_tpu_torch.ops import tableau as tb
 from light_path_tracer_tpu_torch.ops.types import (
-    DiskTraceResult, ExtrasResult, SpectralResult, TraceResult,
-    VolumetricResult)
+    DiskTraceResult, ExtrasResult, SpectralResult, SurfaceResult,
+    TraceResult, VolumetricResult)
 
 RUNNING = 2
 ESCAPED = 1
@@ -1095,6 +1095,61 @@ def trace_rays_aux(metric, r_obs, alphas, thetas, theta_obs, transfer_fn,
 
 
 trace_rays_aux.launches = 0
+
+
+def trace_rays_surface(metric, r_obs, alphas, thetas, theta_obs,
+                       r_surface: float, lambda_max: float,
+                       max_steps: int = 200000, precision: str = "fast",
+                       method: str = "dp45", record_time: bool = False):
+    """Trace rays onto an opaque sphere at r = r_surface; returns
+    SurfaceResult.
+
+    The shared adaptive loop with the surface as its capture event
+    (r_capture = r_surface, r_escape = 2 r_obs), base tolerances on every
+    ray, no certain-plunge exit and Hermite event location, so captured
+    rays end localised on the sphere and escaped ones on the escape
+    sphere, their raw end state returned as it is. record_time=True
+    integrates the coordinate time as an error-controlled sixth
+    component (dt/dlambda = metric.tdot), shortened to the event point
+    with the rest of the state. The plain version of the CUDA surface
+    kernel (ops/cuda/surface_kernel.py).
+    """
+    trace_rays_surface.launches += 1
+    dtype = alphas.dtype
+    tols = get_tols(dtype, precision)
+
+    def scalar(x):
+        return torch.full((), float(x), dtype=dtype, device=alphas.device)
+
+    y0, p_t, p_phi, invalid0 = metric.initial_conditions_5d(
+        r_obs, alphas, thetas, theta_obs)
+    y0 = torch.stack(y0)
+    extra = None
+    if record_time:
+        y0 = torch.cat((y0, torch.zeros_like(y0[:1])))
+
+        def extra(y, p_t, p_phi):
+            return (metric.tdot(y[:5], p_t, p_phi),)
+    status0 = torch.where(invalid0, INVALID, RUNNING).to(torch.int32)
+    y_f, status_f, _lam_f, attempts = dp45_integrate(
+        metric, y0, p_t, p_phi, status0,
+        atol=torch.full_like(alphas, tols["atol"]),
+        rtol=torch.full_like(alphas, tols["rtol"]),
+        h_min=scalar(tols["h_min"]), tiny_err=tols["tiny_err"],
+        r_capture=scalar(r_surface), r_escape=scalar(float(r_obs) * 2.0),
+        lambda_max=lambda_max, h_init=_h_init_for(r_obs),
+        max_steps=max_steps, method=method, extra_rhs=extra)
+
+    t_hit = y_f[5] if record_time else torch.zeros_like(y_f[0])
+    xi = p_phi / torch.clamp(-p_t, min=1e-30)
+    final_alpha, n_half, status_out = finalize_angles(
+        metric, y_f[:5], p_t, p_phi, status_f)
+    return SurfaceResult(y_f[1], y_f[2], y_f[3], y_f[4], xi, t_hit,
+                         final_alpha, n_half, status_out,
+                         warp_step_sum(attempts))
+
+
+trace_rays_surface.launches = 0
 
 
 def finalize_angles(metric, y_f, p_t, p_phi, status_f):

@@ -102,3 +102,28 @@ class DiskTraceResult(NamedTuple):
     pth_hits: tuple = ()
     t_hits: tuple = ()
     t_end: tuple = ()
+
+
+class SurfaceResult(NamedTuple):
+    """Per-ray opaque-spherical-surface trace outcome
+    (`light_path_tracer_tpu.ops.types.SurfaceResult`, field for field).
+
+    status CAPTURED means the ray hit the sphere r = r_surface: theta,
+    phi are its raw chart coordinates there (double-cover theta,
+    cumulative phi) and p_r, p_theta its momentum. ESCAPED rays keep
+    their Hermite-localised state at r = 2 r_obs (the raw escape state
+    of the lens-map products) and their escape heading in final_alpha /
+    n_half_orbits, as in TraceResult. xi = L/E per ray; t_hit the
+    coordinate time from the camera (0 unless the trace recorded it).
+    """
+
+    theta: torch.Tensor          # (N,) float
+    phi: torch.Tensor            # (N,) float
+    p_r: torch.Tensor            # (N,) float
+    p_theta: torch.Tensor        # (N,) float
+    xi: torch.Tensor             # (N,) float
+    t_hit: torch.Tensor          # (N,) float
+    final_alpha: torch.Tensor    # (N,) float
+    n_half_orbits: torch.Tensor  # (N,) int32
+    status: torch.Tensor         # (N,) int32
+    n_steps: torch.Tensor        # () int64

@@ -10,11 +10,22 @@ image, or the renderer's texture gather. This package is
 eager, so `render_scene` runs its stages one after another with true
 per-stage times. The device is explicit and defaults to CUDA; nothing
 moves to another device by itself.
+
+The lens-map products: the photon-ring layers (`render_rings`,
+`lensed_ring_layers`, `render_scene_rings`) and the magnification map
+(`render_magnification`) read the frame's precompute; the source-plane
+modes (`render_caustics`, `render_microlens_curve`, `render_time_delay`,
+`render_shear`, and images.find_point_images) trace the whole grid onto
+the capture surface through the surface kernel
+(ops/cuda/surface_kernel.py) and read the side-exact source chart of the
+raw escape state (`_trace_escape_beta`). The JAX package's one-program
+wrappers of each mode are one eager body here; `mesh=` raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import numpy as np
@@ -22,6 +33,7 @@ import torch
 
 from light_path_tracer_tpu_torch import camera
 from light_path_tracer_tpu_torch.ops.batch import trace_batch
+from light_path_tracer_tpu_torch import render as _render
 from light_path_tracer_tpu_torch.render import _render_core
 from light_path_tracer_tpu_torch.utils.config import RenderConfig, SceneConfig
 from light_path_tracer_tpu_torch.utils.timing import StageTimer
@@ -286,3 +298,303 @@ def print_benchmark_summary(image_dimension, alpha_crit, total_rays,
           f"{(pixel_count / total_time) / 1e6:>10.2f} MPix/s")
     print(f"  {'trace_throughput':<26}"
           f"{traced_rays / precompute_time:>10.0f} rays/s")
+
+
+# ---- photon-ring layers and the lens-map products ----
+
+
+def _no_mesh(mesh, what):
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{what}(mesh=...) is not ported to the PyTorch package yet "
+            f"(ROADMAP.md, Queue 1)")
+
+
+def _order_pixels(masks, max_order):
+    counts = masks.reshape(masks.shape[0], -1).sum(dim=1).cpu().tolist()
+    return {lab: int(c) for lab, c in zip(_render.ring_labels(max_order),
+                                          counts)}
+
+
+def render_rings(scene: SceneConfig, resolution,
+                 cfg: RenderConfig = RenderConfig(), max_order: int = 3,
+                 device="cuda"):
+    """Photon-ring decomposition render (render.ring_decomposition) of
+    one precompute. Returns (masks (max_order + 2, H, W) bool, composite
+    (H, W, 3) float32, stats with the per-order pixel counts)."""
+    timer = StageTimer(device)
+    fov = camera.fov_from_vertical(scene.vertical_fov, resolution)
+    with timer.stage("precompute"):
+        pre = precompute_final_alpha(scene, cfg, resolution, fov,
+                                     device=device)
+    with timer.stage("render"):
+        masks, composite = _render.ring_decomposition(
+            pre.final_alpha, pre.winding, max_order=max_order)
+    metric = scene.metric()
+    stats = dict(
+        alpha_crit=metric.alpha_crit(scene.r_obs, scene.theta_obs,
+                                     device=device),
+        order_pixels=_order_pixels(masks, max_order),
+        total_rays=pre.total_rays, traced_rays=pre.traced_rays,
+        integrator_steps=pre.steps, timings=timer.finish())
+    return masks, composite, stats
+
+
+def lensed_ring_layers(final_alpha, winding, image, max_order: int = 3):
+    """Split a rendered lensed image into photon-ring-order layers from
+    the render's own tables (no further trace). Returns (layers
+    (max_order + 2, H, W[, C]), order_pixels); the layers are disjoint
+    and sum to `image` on the non-shadow pixels."""
+    masks, _ = _render.ring_decomposition(final_alpha, winding,
+                                          max_order=max_order)
+    lensed = torch.as_tensor(image, device=masks.device)
+    expand = (lambda m: m) if lensed.dim() == 2 else (lambda m: m[..., None])
+    zero = torch.zeros((), dtype=lensed.dtype, device=lensed.device)
+    layers = torch.stack([torch.where(expand(m), lensed, zero)
+                          for m in masks])
+    return layers, _order_pixels(masks, max_order)
+
+
+def render_scene_rings(scene: SceneConfig, source_image,
+                       cfg: RenderConfig = RenderConfig(),
+                       max_order: int = 3, device="cuda"):
+    """The lensed render of `source_image` split by winding order (one
+    trace serves every order). Returns (layers, lensed image, stats)."""
+    out = render_scene(scene, source_image, cfg, device=device)
+    layers, order_pixels = lensed_ring_layers(
+        out.precompute.final_alpha, out.precompute.winding, out.image,
+        max_order=max_order)
+    stats = dict(order_pixels=order_pixels, alpha_crit=out.alpha_crit,
+                 timings=out.timings)
+    return layers, out.image, stats
+
+
+def _finite_max(x, absolute=False):
+    v = x[torch.isfinite(x)]
+    if absolute:
+        v = v.abs()
+    return float(v.max()) if v.numel() else float("nan")
+
+
+def render_magnification(scene: SceneConfig, resolution,
+                         cfg: RenderConfig = RenderConfig(), device="cuda"):
+    """Signed lensing-magnification map of the scene's celestial lens
+    map (render.magnification_map) from one standard precompute. Returns
+    (mu (H, W) float32 NaN in the shadow, stats)."""
+    timer = StageTimer(device)
+    resolution = (int(resolution[0]), int(resolution[1]))
+    fov = camera.fov_from_vertical(scene.vertical_fov, resolution)
+    dtype = _dtype_of(cfg)
+    with timer.stage("precompute"):
+        pre = precompute_final_alpha(scene, cfg, resolution, fov,
+                                     device=device)
+    with timer.stage("render"):
+        theta_lookup = camera.build_theta_lookup(
+            resolution, fov, psi=scene.psi, dtype=dtype, boost=scene.boost,
+            device=device)
+        mu = _render.magnification_map(
+            pre.final_alpha.to(dtype), theta_lookup,
+            camera.psi_frame(scene.psi), resolution, fov)
+    finite = torch.isfinite(mu)
+    stats = {
+        "timings": timer.finish(),
+        "total_rays": resolution[0] * resolution[1],
+        "traced_rays": pre.traced_rays,
+        "integrator_steps": pre.steps,
+        "shadow_pixels": int((~finite).sum()),
+        "mu_abs_max": _finite_max(mu, absolute=True),
+        "negative_parity_pixels": int((mu[finite] < 0).sum()),
+    }
+    return mu, stats
+
+
+def _metric_5d(metric):
+    """The 5-D tracer of a metric: a spherically symmetric family traces
+    as Kerr (Schwarzschild) or Kerr-Newman (Reissner-Nordstrom) at
+    a = 0, which carry the coordinate time and the raw escape state the
+    orbit equation drops."""
+    if hasattr(metric, "initial_conditions_5d"):
+        return metric
+    from light_path_tracer_tpu_torch.models import (
+        Kerr, KerrNewman, ReissnerNordstrom, Schwarzschild)
+    if isinstance(metric, ReissnerNordstrom):
+        return KerrNewman(M=metric.M, a=0.0, Q=metric.Q)
+    if isinstance(metric, Schwarzschild):
+        return Kerr(M=metric.M, a=0.0)
+    raise ValueError(
+        f"{type(metric).__name__} has no 5-D tracer "
+        "(initial_conditions_5d) and no known a = 0 equivalent")
+
+
+def _lambda_max(r_obs) -> float:
+    return max(5000.0, 6.0 * float(r_obs))
+
+
+def _trace_escape_beta(scene: SceneConfig, cfg: RenderConfig, resolution,
+                       fov, record_time: bool = False, mesh=None,
+                       device="cuda"):
+    """Trace every pixel onto the capture surface and return the
+    side-exact gnomonic source coordinates (bx, by), each (H, W), the
+    raw SurfaceResult and the theta grid. The whole grid is traced (the
+    side-exact chart needs both halves)."""
+    from light_path_tracer_tpu_torch.ops.cuda.surface_kernel import (
+        trace_rays_surface_cuda)
+    from light_path_tracer_tpu_torch.ops.kerr_trace import ESCAPED
+    _no_mesh(mesh, "_trace_escape_beta")
+    dtype = _dtype_of(cfg)
+    metric = _metric_5d(scene.metric())
+    r_obs = scene.r_obs
+    grid = dict(psi=scene.psi, dtype=dtype, boost=scene.boost,
+                device=device)
+    alpha_lookup = camera.build_alpha_lookup(resolution, fov, **grid)
+    theta_lookup = camera.build_theta_lookup(resolution, fov, **grid)
+    res = trace_rays_surface_cuda(
+        metric, r_obs, alpha_lookup.reshape(-1), theta_lookup.reshape(-1),
+        scene.theta_obs, r_surface=float(metric.capture_radius()),
+        lambda_max=_lambda_max(r_obs), max_steps=cfg.max_steps,
+        precision=cfg.precision, method=cfg.integrator,
+        record_time=record_time)
+    bx, by = _render.world_escape_beta(
+        metric, 2.0 * r_obs, res.theta, res.phi, res.p_r, res.p_theta,
+        res.xi, res.status == ESCAPED, scene.theta_obs)
+    return (bx.reshape(resolution), by.reshape(resolution), res,
+            theta_lookup)
+
+
+def _surface_stats(timer, resolution, res):
+    n_px = resolution[0] * resolution[1]
+    return {"timings": timer.finish(), "total_rays": n_px,
+            "traced_rays": n_px, "integrator_steps": int(res.n_steps)}
+
+
+def render_caustics(scene: SceneConfig, resolution,
+                    cfg: RenderConfig = RenderConfig(), bins: int = 256,
+                    beta_max: float | None = None, mesh=None,
+                    device="cuda"):
+    """Source-plane magnification (caustic) map by inverse ray shooting
+    (render.source_plane_map) on the side-exact escape chart; beta_max
+    defaults to 70 % of the FOV half-angle. Returns (A (bins, bins)
+    float32, extent, stats)."""
+    _no_mesh(mesh, "render_caustics")
+    timer = StageTimer(device)
+    resolution = (int(resolution[0]), int(resolution[1]))
+    fov = camera.fov_from_vertical(scene.vertical_fov, resolution)
+    if beta_max is None:
+        beta_max = 0.7 * (scene.vertical_fov / 2.0)
+    with timer.stage("precompute"):
+        bx, by, res, _th = _trace_escape_beta(scene, cfg, resolution, fov,
+                                              device=device)
+    with timer.stage("render"):
+        amap, _extent = _render.source_plane_map(
+            bx, by, resolution, fov, float(beta_max), int(bins))
+    amap_np = amap.cpu().numpy()
+    stats = _surface_stats(timer, resolution, res)
+    stats.update(
+        beta_max=float(beta_max), A_max=float(amap_np.max()),
+        A_far_field=float(np.median(amap_np[amap_np > 0]))
+        if (amap_np > 0).any() else float("nan"))
+    return amap, (-float(beta_max), float(beta_max)), stats
+
+
+def render_microlens_curve(scene: SceneConfig, resolution,
+                           cfg: RenderConfig = RenderConfig(),
+                           impact_u: float = 1.0, span_u: float = 4.0,
+                           n_points: int = 81,
+                           source_radius_u: float = 0.3, mesh=None,
+                           device="cuda"):
+    """Microlensing light curve A(t) of a finite circular source on a
+    straight source-plane track at impact `impact_u` from -span_u to
+    +span_u (units of theta_E = sqrt(4 M / r_obs);
+    render.microlens_light_curve). Returns (u_axis, A, stats)."""
+    _no_mesh(mesh, "render_microlens_curve")
+    timer = StageTimer(device)
+    resolution = (int(resolution[0]), int(resolution[1]))
+    fov = camera.fov_from_vertical(scene.vertical_fov, resolution)
+    theta_e = math.sqrt(4.0 * scene.M / scene.r_obs)
+    xs = np.linspace(-span_u, span_u, n_points)
+    track = np.stack([xs * theta_e, np.full(n_points, impact_u * theta_e)],
+                     axis=-1)
+    with timer.stage("precompute"):
+        bx, by, res, _th = _trace_escape_beta(scene, cfg, resolution, fov,
+                                              device=device)
+    with timer.stage("render"):
+        curve = _render.microlens_light_curve(
+            bx, by, resolution, fov, track,
+            float(source_radius_u * theta_e))
+    curve_np = curve.cpu().numpy()
+    stats = _surface_stats(timer, resolution, res)
+    stats.update(theta_E=theta_e, A_peak=float(curve_np.max()),
+                 A_baseline=float(curve_np[0]))
+    return np.hypot(xs, impact_u), curve, stats
+
+
+def render_time_delay(scene: SceneConfig, resolution,
+                      cfg: RenderConfig = RenderConfig(dtype="float64"),
+                      mesh=None, device="cuda"):
+    """Per-pixel Fermat arrival-time map: the coordinate time rides the
+    surface trace as an error-controlled component, localised on the
+    escape sphere r_e = 2 r_obs, and each ray is referenced to the plane
+    wave of its own escape direction (render.fermat_tau); float64 by
+    default (t grows to ~4 r_obs while image delays are a few M).
+    Returns (tau (H, W) relative to its finite minimum, NaN where
+    captured or invalid; stats, with the side-exact source coordinates
+    "beta_x" / "beta_y" as NumPy arrays)."""
+    from light_path_tracer_tpu_torch.ops.kerr_trace import ESCAPED
+    _no_mesh(mesh, "render_time_delay")
+    timer = StageTimer(device)
+    resolution = (int(resolution[0]), int(resolution[1]))
+    fov = camera.fov_from_vertical(scene.vertical_fov, resolution)
+    metric = _metric_5d(scene.metric())
+    r_e = 2.0 * scene.r_obs
+    with timer.stage("precompute"):
+        bx, by, res, _th = _trace_escape_beta(
+            scene, cfg, resolution, fov, record_time=True, device=device)
+    with timer.stage("render"):
+        tau = _render.fermat_tau(metric, r_e, res.theta, res.phi, res.p_r,
+                                 res.p_theta, res.xi, res.t_hit,
+                                 res.status == ESCAPED)
+        known = ~torch.isnan(tau)
+        if bool(known.any()):
+            tau = tau - tau[known].min()
+        tau = tau.reshape(resolution)
+    finite = torch.isfinite(tau)
+    stats = _surface_stats(timer, resolution, res)
+    stats.update(shadow_pixels=int((~finite).sum()),
+                 tau_max=_finite_max(tau), beta_x=bx.cpu().numpy(),
+                 beta_y=by.cpu().numpy())
+    return tau, stats
+
+
+def render_shear(scene: SceneConfig, resolution,
+                 cfg: RenderConfig = RenderConfig(), mesh=None,
+                 device="cuda"):
+    """Convergence, shear and rotation maps of the traced lens map
+    (render.lens_jacobian_decomposition of the side-exact source chart
+    against the image-plane gnomonic grids). Returns (maps, stats): maps
+    "kappa", "gamma1", "gamma2", "omega" and "gamma" (= |gamma|), each
+    (H, W) float32, NaN within one pixel of the shadow or the chart's
+    edge."""
+    _no_mesh(mesh, "render_shear")
+    timer = StageTimer(device)
+    resolution = (int(resolution[0]), int(resolution[1]))
+    fov = camera.fov_from_vertical(scene.vertical_fov, resolution)
+    dtype = _dtype_of(cfg)
+    with timer.stage("precompute"):
+        bx, by, res, _th = _trace_escape_beta(scene, cfg, resolution, fov,
+                                              device=device)
+    with timer.stage("render"):
+        xb, yb = _render.image_gnomonic_grids(
+            resolution, fov, psi=scene.psi, dtype=dtype, boost=scene.boost,
+            device=bx.device)
+        kappa, gamma1, gamma2, omega = _render.lens_jacobian_decomposition(
+            bx, by, xb, yb)
+        gamma = torch.sqrt(gamma1 ** 2 + gamma2 ** 2)
+        maps = {k: v.to(torch.float32) for k, v in zip(
+            ("kappa", "gamma1", "gamma2", "omega", "gamma"),
+            (kappa, gamma1, gamma2, omega, gamma))}
+    g, o = maps["gamma"], maps["omega"]
+    stats = _surface_stats(timer, resolution, res)
+    stats.update(shadow_pixels=int((~torch.isfinite(g)).sum()),
+                 gamma_max=_finite_max(g),
+                 omega_abs_max=_finite_max(o, absolute=True))
+    return maps, stats

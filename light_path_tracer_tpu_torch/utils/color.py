@@ -12,6 +12,13 @@ The 256-entry log-spaced RGB(T) table is built once in float64 NumPy at
 import, as the JAX package builds it; `blackbody_rgb` is then a
 closed-form index, two gathers and a lerp in float32 on the tensor's
 device.
+
+`colormap` is the small colour table of the map products (the lens
+maps' PNGs, written without matplotlib): RdBu_r (ColorBrewer's 11-class
+RdBu, reversed), viridis and inferno, each as 9 or 11 anchors of the
+published tables interpolated linearly. The maps' numbers are the
+JAX package's; their colours follow these anchors, not matplotlib's
+256-entry tables.
 """
 
 from __future__ import annotations
@@ -100,3 +107,31 @@ def blackbody_chromaticity(T: float):
     X, Y, Z = (np.trapezoid(b * c, lam) for c in (xb, yb, zb))
     s = X + Y + Z
     return float(X / s), float(Y / s)
+
+
+# Anchors (0-255 RGB) of the map colour tables, evenly spaced on [0, 1].
+_COLOR_TABLES = {
+    "RdBu_r": ((5, 48, 97), (33, 102, 172), (67, 147, 195), (146, 197, 222),
+               (209, 229, 240), (247, 247, 247), (253, 219, 199),
+               (244, 165, 130), (214, 96, 77), (178, 24, 43),
+               (103, 0, 31)),
+    "viridis": ((68, 1, 84), (71, 45, 123), (59, 82, 139), (44, 114, 142),
+                (33, 145, 140), (40, 174, 128), (94, 201, 98),
+                (173, 220, 48), (253, 231, 37)),
+    "inferno": ((0, 0, 4), (31, 12, 72), (85, 15, 109), (136, 34, 106),
+                (186, 54, 85), (227, 89, 51), (249, 142, 9), (248, 201, 50),
+                (252, 255, 164)),
+}
+
+
+def colormap(name: str, x):
+    """The colour table `name` ("RdBu_r", "viridis" or "inferno") at
+    x in [0, 1] (clipped): (..., 3) float64 RGB in [0, 1] in NumPy."""
+    if name not in _COLOR_TABLES:
+        raise ValueError(f"no colour table {name!r}; expected one of "
+                         f"{', '.join(_COLOR_TABLES)}")
+    anchors = np.asarray(_COLOR_TABLES[name], np.float64) / 255.0
+    x = np.clip(np.asarray(x, np.float64), 0.0, 1.0)
+    at = np.linspace(0.0, 1.0, len(anchors))
+    return np.stack([np.interp(x, at, anchors[:, c]) for c in range(3)],
+                    axis=-1)

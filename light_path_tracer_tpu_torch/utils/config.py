@@ -2,9 +2,10 @@
 
 The same pair of frozen dataclasses as `light_path_tracer_tpu.utils.config`,
 field for field, so a scene and its numerics knobs carry across the two
-packages unchanged (`light_path_tracer_tpu_torch.convert`). The fields that
-select code this package has not ported yet are kept, and the code they
-reach raises `NotImplementedError`.
+packages unchanged (`light_path_tracer_tpu_torch.convert`). Every field
+is kept; the two that still select code this package has not ported
+raise `NotImplementedError` where they are read: a `custom_metric`
+(`SceneConfig.metric`) and a truthy `progress` (ops/batch.py).
 """
 
 from __future__ import annotations
@@ -31,8 +32,7 @@ class SceneConfig:
     vertical_fov_deg: float = 40.0
     theta_obs: float = math.pi / 2     # observer inclination
     # Camera 3-velocity in units of c, camera coords (+x right, +y down,
-    # +z forward); (0,0,0) = static observer. Non-zero is not ported yet
-    # (camera.py raises).
+    # +z forward); (0,0,0) = static observer (camera.aberrate_view).
     boost: tuple = (0.0, 0.0, 0.0)
     # User-defined spacetime. Not ported yet: metric() raises when set.
     custom_metric: object = None

@@ -595,15 +595,17 @@ def test_probe_forms_have_distinct_indices():
 
 def test_float64_extras_sources_link_the_contracted_pow(monkeypatch,
                                                         tmp_path):
-    """Each library compiles its float64 extras sources (and only those)
-    as relocatable device code calling lpt_pow_f64, compiles
-    csrc/lpt_pow_f64.cu with contraction, device-links the relocatable
-    objects and links the device-link object into the library; every
-    other source keeps -fmad=false and no -rdc."""
+    """Each library compiles its float64 extras, plane-recorder, broad
+    and surface sources (and only those) as relocatable device code
+    calling lpt_pow_f64, compiles csrc/lpt_pow_f64.cu with contraction,
+    device-links the relocatable objects and links the device-link
+    object into the library; every other source keeps -fmad=false and no
+    -rdc."""
     f64_extras = {n for n in (s.name for s in CSRC.glob("*.cu"))
                   if n.endswith("_f64.cu") and any(
                       f in n for f in ("_extras", "_stokes", "_movie",
-                                       "_orders", "_planes", "_broad"))}
+                                       "_orders", "_planes", "_broad",
+                                       "kerr_surface"))}
     assert {n for n in (s.name for s in CSRC.glob("*.cu"))
             if _build._rdc_source(n)} == f64_extras
     pow_src = (CSRC / _build.POW_SOURCE).read_text()
@@ -716,3 +718,23 @@ def test_broad_instances_are_the_broad_sources():
     planes = (CSRC / "kerr_dp45_broad_planes.cu").read_text()
     assert "#define LPT_BROAD_PLANES 1" in planes
     assert _build.library_path("broad").name.startswith("lpt_broad_")
+
+
+@pytest.mark.parametrize("method", ["dp45", "dop853"])
+@pytest.mark.parametrize("family", ["kerr", "kerr_newman",
+                                    "johannsen_psaltis"])
+def test_surface_work_is_the_kerr_attempt_plus_the_time(family, method):
+    """The surface kernel's attempt (csrc/kerr_surface.cuh): without the
+    time component the Kerr kernel's over 5 components; with it 6
+    components and the time's rate in every evaluation."""
+    for dtype in ("float32", "float64"):
+        plain = bounds.surface_work(dtype, family, method, False)
+        assert plain == bounds.kerr_work(dtype, family, method)
+        timed = bounds.surface_work(dtype, family, method, True)
+        evals = bounds.rhs_evaluations(method)
+        tdot = bounds._SURFACE_TDOT[family]
+        one_more = bounds.attempt_ops(6, bounds.GEODESIC_FAMILIES[family],
+                                      dtype, method)
+        assert timed.ops == {k: one_more[k] + evals * tdot.get(k, 0)
+                             for k in bounds.KINDS}
+        assert timed.flops > plain.flops and timed.dtype == dtype

@@ -79,7 +79,14 @@ loop on the card, the equatorial plane through it bitwise the disk
 variant, three planes raising before a launch; and each mode of
 chip_smoke.py phase 25 (tilted, warped and second disks, the delayed
 light curve, the boosted disk, shadow, lens and volumetric renders) at
-64^2 on the card against the CPU by its gates.
+64^2 on the card against the CPU by its gates. The surface kernel
+(csrc/kerr_surface.cuh): each instance (both pairs and dtypes; Kerr,
+Kerr-Newman at a = 0 and Johannsen-Psaltis; with and without the time
+component) bitwise the plain loop on the card on 1,024 of chip_smoke.py
+phase 27's rays, on its own launch counter; a metric class, dtype or
+pair it has no instance of raising before a launch; and each lens-map
+mode of phase 27 at 64^2 on the card against the CPU by its gates
+(p27_check).
 """
 
 import importlib.util
@@ -1953,3 +1960,61 @@ def kk_counter(dtype, method):
     from light_path_tracer_tpu_torch.ops.cuda.kerr_trace_kernel import (
         counter_name)
     return counter_name(dtype, method, "broad")
+
+
+@pytest.mark.parametrize("timed", [False, True], ids=["plain", "time"])
+@pytest.mark.parametrize("family", list(SMOKE.P27_FAMILIES))
+@pytest.mark.parametrize("dtype", ["float32", "float64"],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("method", ["dp45", "dop853"])
+def test_surface_instance_is_its_plain_loop(cuda, method, dtype, family,
+                                            timed):
+    """chip_smoke.py phase 27: each surface kernel instance (pair, dtype,
+    family, with and without the time component) bitwise the plain loop
+    on the card on 1,024 of its random rays, counted on its own counter
+    and never running the plain loop through the wrapper."""
+    from light_path_tracer_tpu_torch.ops.cuda import surface_kernel as sk
+    al, th = (x[:1024] for x in SMOKE.p27_rays(cuda, dtype))
+    name = SMOKE.p27_counter(method, dtype, family, timed)
+    before = getattr(sk.trace_rays_surface_cuda, name)
+    plain = kerr_trace.trace_rays_surface.launches
+    rk = SMOKE.p27_trace(family, al, th, method, timed)
+    assert getattr(sk.trace_rays_surface_cuda, name) == before + 1
+    assert kerr_trace.trace_rays_surface.launches == plain
+    rp = SMOKE.p27_trace(family, al, th, method, timed, kernel=False)
+    assert SMOKE.p27_bitwise(rk, rp), SMOKE.p27_max_abs(rk, rp)
+    assert int((rk.status == 1).sum()) > 0
+    assert int((rk.status == -1).sum()) > 0
+    if not timed:
+        assert not bool(rk.t_hit.any())
+
+
+def test_surface_kernel_refuses_what_it_lacks(cuda):
+    """A CUDA tensor the surface kernel takes no instance of raises
+    before a launch: another metric class, another dtype, another
+    pair."""
+    from light_path_tracer_tpu_torch.ops.cuda import surface_kernel as sk
+    al, th = SMOKE.p27_rays(cuda, "float32")
+    args = (R_OBS, al, th, 1.4, 2.0, 5000.0, 100)
+    with pytest.raises(TypeError):
+        sk.trace_rays_surface_cuda(Schwarzschild(M=1.0), *args)
+    with pytest.raises(ValueError):
+        sk.trace_rays_surface_cuda(Kerr(M=1.0, a=0.9), R_OBS, al.half(),
+                                   th.half(), 1.4, 2.0, 5000.0, 100)
+    with pytest.raises(NotImplementedError):
+        sk.trace_rays_surface_cuda(Kerr(M=1.0, a=0.9), *args, method="rk4")
+
+
+@pytest.mark.parametrize("mode", SMOKE.P27_MODES)
+def test_phase27_mode_on_card_matches_cpu(cuda, mode):
+    """chip_smoke.py phase 27's 64^2 render of each map mode on the card
+    against the CPU by its gates (p27_check); the card never calls a
+    plain loop."""
+    SMOKE.p27_zero()
+    og, _ = SMOKE.p27_render(mode, SMOKE.P27_CHECK, cuda)
+    n = SMOKE.p27_counts()
+    assert n["plain"] == 0 and sum(v for k, v in n.items()
+                                   if k != "plain") > 0
+    oc, _ = SMOKE.p27_render(mode, SMOKE.P27_CHECK, "cpu")
+    row = SMOKE.p27_check(mode, og, oc)
+    assert all(v["ok"] for v in row.values()), row

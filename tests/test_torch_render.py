@@ -322,11 +322,8 @@ def test_cli_shadow_schwarzschild_and_rn_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--cache"], ["--rings"],
-    ["--magnification", "m.png"], ["--shear", "s.png"],
-    ["--caustics", "c.png"], ["--microlens", "m.csv"],
-    ["--time-delay", "t.png"], ["--find-images", "0.1,0.2"],
-    ["--multihost"], ["--progress", "bar"]])
+    ["--cache"], ["--multihost"], ["--progress", "bar"],
+    ["--cache", "--magnification", "m.png"]])
 def test_cli_lens_rejects_modes_not_ported(tmp_path, flags):
     from light_path_tracer_tpu_torch.cli import main
     src = tmp_path / "src.png"
