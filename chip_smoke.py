@@ -16,7 +16,9 @@ DOP853 pair and linear event location through the Kerr and extras
 kernels, the mu chart's hybrid tracer and charged volumetric scenes,
 the disk family, tilted, warped and multi-plane disks, and spectra,
 movies, ring orders, crossing slots and planes of any width (the broad
-instances), and the lens-map products on the surface kernel.
+instances), the lens-map products on the surface kernel, and the
+sequences (camera pans, spin sweeps, flybys) through the Kerr kernel's
+run-time (M, a, r_obs) with the panoramas and the stellar surface.
 Phases:
   1. machine: card name and power limit, torch and nvcc versions;
   2. build: nvcc for sm_90a without FMA contraction (-fmad=false), with
@@ -436,11 +438,31 @@ Phases:
      then once through the CLI itself (its files written, its launches,
      no plain loop), and the caustics frame under torch.profiler; each instance on a
      path of its own (find-images and the float32 arrival-time map at
-     512^2 for each pair and family).
-The plain loops of phases 11-15, 17, 20-22 and 24-27 and their CPU
+     512^2 for each pair and family);
+ 28. run-time (M, a, r_obs) (dynamic_params): the theta and mu
+     instances with (M, a) = (1, 0.99) and with (M, a, r_obs) = (1, 0.9,
+     73.5) on phase 8's 4,096 rays, capped at 500, bitwise their plain
+     loop on the card; the 1024^2 flyby frame (20 M, 0.5 c) through the
+     hybrid, capped at 512, bitwise the same driver over the plain loop,
+     with its passes alone; a dynamic (M, a) = (1, 0.9) frame against the
+     static shadow with the mirror fold off (pixels equal on > 99 %,
+     JAX's bar); each mode (pan, spin, flyby shadow and lensed frames,
+     the panoramas at a 0.9 and 0, the star and its pulse profile) at 64^2
+     on the card against the CPU (p28_check); then through the CLI a user
+     runs, each with its counts zeroed just before and read just after:
+     `animate` an 8-frame 1024^2 pan of 2 deg across the hole's column
+     (Kerr a 0.9) and an 8-frame flyby 200 M -> 20 M with the boost
+     ramped to 0.5 c (every frame's launches and ms, the PNG frames, the
+     launches the same on every frame), `pano --grid-sky --height 1024`
+     at a 0.9 (the Kerr kernel) and a 0 (the orbit kernel), `star --size
+     1024`, `star --pulse-profile 64 --light-travel-delay` at 128^2; the
+     spin sweep a = 0, 0.5, 0.9, 0.99 at 1024^2 through
+     render_param_sequence; a flyby frame under torch.profiler.
+The plain loops of phases 11-15, 17, 20-22 and 24-28 and their CPU
 renders run in PLAIN_WORKERS child processes (PlainPool), queued at the
 start of phase 11 (phases 11-15) and of phases 17, 21, 22, 24 (also
-phase 27's), 25 and 26, and when phase 20 has drawn its sample, while
+phase 27's), 25 and 26 (also phase 28's), and when phase 20 has drawn
+its sample, while
 the
 parent runs its kernels; the plain_ms of those phases is the call's time
 in its child, beside the other children's work on the card. A kernel
@@ -511,7 +533,14 @@ launches; bounded as phase 25's entry). Phase 27's entries
 their launches on the instance's own paths, time the instance on the
 4,096 rays (the float32 and the float64-with-time Kerr DP45 ones on the
 512^2 grid) against the plain loop in its child, and bound it with the
-probe's attempts (bounds.surface_work).
+probe's attempts (bounds.surface_work). Phase 28's entries
+(kerr_dp45_dynamic, kerr_dp45_mu_dynamic: the theta and mu instances
+with run-time parameters; trace_rays_kerr_hybrid_dynamic: the driver)
+count their launches on the flyby and spin-sweep paths (the dynamic_
+counters), time each instance alone on the 4,096 rays with (M, a,
+r_obs) (m_a_ms: with (M, a); static_twin_ms: the static Kerr(1, 0.99)
+instance on the same rays, in turns) and the driver on the 1024^2 flyby
+frame, against the plain loop in its child.
 The last line is {"ok": true,
 "device": {...}}. Exit code 0 iff every phase
 passed; without a CUDA device it exits 1 and prints no result.
@@ -2408,6 +2437,69 @@ def f64_counters():
     return kernels, plains
 
 
+# Phase 17's float64 renders at 64^2 (each entry-point family), run on
+# the card in the parent and on the CPU in PlainPool's children.
+P17_RENDERS = ("shadow", "shadow aa", "lensed", "disk", "volumetric",
+               "spectrum", "movie", "movie absorbed", "decomposed",
+               "polarized")
+
+
+def p17_families(scene_v):
+    """label -> (the kernel wrapper's key in f64_counters, render(device))
+    of phase 17's float64 renders; scene_v: the volumetric scene of phase
+    11."""
+    from light_path_tracer_tpu_torch import (aa, disk, pipeline,
+                                             polarization, volumetric)
+    from light_path_tracer_tpu_torch.utils.config import (RenderConfig,
+                                                          SceneConfig)
+    cfg = RenderConfig(dtype="float64")
+    d64 = (64, 64)
+    scene_k = SceneConfig(M=1.0, a=0.9, vertical_fov_deg=12.0)
+    scene_s = SceneConfig(M=1.0, r_obs_mult=R_OBS, vertical_fov_deg=12.0)
+    scene_d = SceneConfig(M=1.0, a=0.9, r_obs_mult=R_OBS,
+                          theta_obs=THETA_DISK)
+    src = np.random.default_rng(4).random((64, 64, 3)).astype(np.float32)
+    period = 2.0 * np.pi / abs(volumetric.keplerian_omega(1.0, 0.9, 6.0,
+                                                           True))
+    times = tuple(period * k / 3 for k in range(3))
+    riaf3, freqs3 = scene_forms()["spectral 3-band"]
+    blob = volumetric.RIAFConfig(spot_amp=8.0)
+    return {
+        "shadow": ("kerr", lambda device: pipeline.render_shadow(
+            scene_k, d64, cfg, device=device)),
+        "shadow aa": ("kerr", lambda device: aa.render_shadow_aa(
+            scene_k, d64, cfg, aa_samples=4, device=device)),
+        "lensed": ("orbit", lambda device: pipeline.render_scene(
+            scene_s, src, RenderConfig(dtype="float64",
+                                       sampling="bilinear"),
+            device=device)),
+        "disk": ("disk", lambda device: disk.render_disk(
+            scene_d, d64, cfg, device=device)),
+        "volumetric": ("volumetric", lambda device: (
+            volumetric.render_volumetric(scene_v, d64, cfg, device=device))),
+        "spectrum": ("aux", lambda device: (
+            volumetric.render_volumetric_spectrum(
+                scene_v, d64, freqs3, cfg, riaf3, device=device))),
+        "movie": ("aux", lambda device: volumetric.render_volumetric_movie(
+            scene_v, d64, times, cfg, blob, device=device)),
+        "movie absorbed": ("aux", lambda device: (
+            volumetric.render_volumetric_movie(
+                scene_v, d64, times, cfg,
+                volumetric.RIAFConfig(spot_amp=8.0, alpha0=0.3),
+                device=device))),
+        "decomposed": ("aux", lambda device: (
+            volumetric.render_volumetric_decomposed(
+                scene_v, d64, cfg, n_orders=N_ORDERS, device=device))),
+        "polarized": ("aux", lambda device: (
+            polarization.render_polarized_volumetric(
+                scene_v, d64, cfg, device=device)))}
+
+
+def p17_render64(label, scene_v, device):
+    """One of phase 17's float64 64^2 renders on `device`."""
+    return p17_families(scene_v)[label][1](device)
+
+
 def float64_phase(dev, card, ctx):
     """Phase 17: every float64 kernel instance against the plain float64
     loop, the float64 renders of every entry-point family on the card
@@ -2416,8 +2508,7 @@ def float64_phase(dev, card, ctx):
     path's rays. Returns the kernels-line entries of the float64
     instances."""
     import torch
-    from light_path_tracer_tpu_torch import (aa, camera, disk, pipeline,
-                                             polarization, volumetric)
+    from light_path_tracer_tpu_torch import camera, pipeline
     from light_path_tracer_tpu_torch.models import (Kerr, ReissnerNordstrom,
                                                     Schwarzschild)
     from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
@@ -2449,6 +2540,10 @@ def float64_phase(dev, card, ctx):
                        ctx["opaque"], 2),
         **{type(mt).__name__: plain_job(pool, "orbit", mt, a)
            for mt, a in orbits.items()})
+    for label in P17_RENDERS:
+        jobs["cpu", label] = pool.submit("p17_render64", label,
+                                         ctx["state"]["scene"], "cpu",
+                                         on="cpu")
     g = both_versions(f"Kerr, {n} random rays", kerr, al.double(),
                       th.double(), rf, GATE_STEPS, 5, job=jobs["kerr"])
     require(g["status_agree"] > 0.999 and g["p99"] < 1e-6,
@@ -2517,49 +2612,9 @@ def float64_phase(dev, card, ctx):
 
     # The entry points in float64 at 64^2, on the card and on the CPU:
     # the card's renders launch only float64 instances and no plain loop.
+    # The CPU renders run in the children (queued at this phase's start).
     kernels, plains = f64_counters()
-    cfg = RenderConfig(dtype="float64")
-    d64 = (64, 64)
-    scene_k = SceneConfig(M=1.0, a=0.9, vertical_fov_deg=12.0)
-    scene_s = SceneConfig(M=1.0, r_obs_mult=R_OBS, vertical_fov_deg=12.0)
-    scene_d = SceneConfig(M=1.0, a=0.9, r_obs_mult=R_OBS,
-                          theta_obs=THETA_DISK)
-    scene_v = st["scene"]
-    src = np.random.default_rng(4).random((64, 64, 3)).astype(np.float32)
-    period = 2.0 * np.pi / abs(volumetric.keplerian_omega(1.0, 0.9, 6.0,
-                                                           True))
-    times = tuple(period * k / 3 for k in range(3))
-    riaf3, freqs3 = scene_forms()["spectral 3-band"]
-    blob = volumetric.RIAFConfig(spot_amp=8.0)
-    families = {
-        "shadow": ("kerr", lambda device: pipeline.render_shadow(
-            scene_k, d64, cfg, device=device)),
-        "shadow aa": ("kerr", lambda device: aa.render_shadow_aa(
-            scene_k, d64, cfg, aa_samples=4, device=device)),
-        "lensed": ("orbit", lambda device: pipeline.render_scene(
-            scene_s, src, RenderConfig(dtype="float64",
-                                       sampling="bilinear"),
-            device=device)),
-        "disk": ("disk", lambda device: disk.render_disk(
-            scene_d, d64, cfg, device=device)),
-        "volumetric": ("volumetric", lambda device: (
-            volumetric.render_volumetric(scene_v, d64, cfg, device=device))),
-        "spectrum": ("aux", lambda device: (
-            volumetric.render_volumetric_spectrum(
-                scene_v, d64, freqs3, cfg, riaf3, device=device))),
-        "movie": ("aux", lambda device: volumetric.render_volumetric_movie(
-            scene_v, d64, times, cfg, blob, device=device)),
-        "movie absorbed": ("aux", lambda device: (
-            volumetric.render_volumetric_movie(
-                scene_v, d64, times, cfg,
-                volumetric.RIAFConfig(spot_amp=8.0, alpha0=0.3),
-                device=device))),
-        "decomposed": ("aux", lambda device: (
-            volumetric.render_volumetric_decomposed(
-                scene_v, d64, cfg, n_orders=N_ORDERS, device=device))),
-        "polarized": ("aux", lambda device: (
-            polarization.render_polarized_volumetric(
-                scene_v, d64, cfg, device=device)))}
+    families = p17_families(ctx["state"]["scene"])
     f64_launches, checks = {}, {}
     for label, (kernel, render) in families.items():
         for c in (*kernels.values(), *plains):
@@ -2575,7 +2630,7 @@ def float64_phase(dev, card, ctx):
         require(n64 > 0 and n32 == 0 and n_plain == 0,
                 f"phase 17 {label} float64 render: {n64} float64 launches, "
                 f"{n32} float32, {n_plain} plain")
-        oc = render("cpu")
+        _ms, oc = PlainPool.result(jobs["cpu", label], "cpu")
         if label in ("shadow", "shadow aa"):
             c = dict(pixels_equal=float((og[0].cpu() == oc[0]).float()
                                         .mean()))
@@ -2671,7 +2726,7 @@ def float64_phase(dev, card, ctx):
                      ok_["plain_ms"], ok_["n"], 8 + 20,
                      ok_["attempts_sum"] * orbit_work(dtype="float64"),
                      ok_)]
-    n_bands = len(freqs3)
+    n_bands = len(scene_forms()["spectral 3-band"][1])
     for label, name, fam, desc, nbytes in (
             ("thin", "kerr_dp45_extras_f64", "volumetric",
              dict(kind="thin"), 16 + 8 + 13),
@@ -7739,6 +7794,537 @@ def surface_phase(dev, card, pool, ctx):
     return entries
 
 
+# -- phase 28: run-time (M, a, r_obs): pans, spin sweeps, flybys; the
+# panoramas and the stellar surface ---------------------------------------
+
+# The Kerr kernel with run-time scalars is row 1's tile kernel with its
+# dynamic_params (SMEM (M, a) or (M, a, r_obs)); the hybrid driver over it
+# carries them through both passes.
+DYN_REPLACES = f"{JAX_KERNELS}:40"
+DYN_HYBRID_REPLACES = "light_path_tracer_tpu/ops/kerr_trace.py:1309"
+# (a)'s run-time parameters: (M, a) at the static r_obs 100, and (M, a,
+# r_obs) with the radius a run-time value too; values whose float32 r_+
+# the float64 form does not give exactly.
+P28_DYN = {"m_a": (1.0, 0.99), "m_a_r": (1.0, 0.9, 73.5)}
+P28_CHARTS = ("theta", "mu")
+P28_RAYS = 4096
+P28_STEPS = 500
+# The main path's frames: 1024^2, Kerr a 0.9, theta_obs 90 deg; an 8-frame
+# pan of 2 deg across the hole's column, a spin sweep, an 8-frame flyby
+# 200 M -> 20 M with the boost ramped to 0.5 c.
+P28_DIM = (1024, 1024)
+P28_FRAMES = 8
+P28_SPINS = (0.0, 0.5, 0.9, 0.99)
+P28_FLY = (200.0, 20.0, 0.5)
+# The 1024^2 flyby frame held against the plain loop through the same
+# driver, capped at the first pass's 512 attempts.
+P28_FRAME_STEPS = 512
+# The panoramas (--height) and the stars (--size) of the CLI runs.
+P28_PANO_H = 1024
+P28_STAR = 1024
+P28_PULSE = (64, 128)
+# Card against CPU: the modes at 64^2 (the panorama 32 x 64), each
+# sequence capped at 1,000 attempts a ray on both (the CPU's plain mu
+# chart grinds rays beside the pole to the cap).
+P28_CHECK = (64, 64)
+P28_CHECK_STEPS = 1000
+P28_MODES = ("pan", "spin", "flyby", "flyby_lensed", "pano_kerr",
+             "pano_schwarzschild", "star", "pulse")
+
+
+def p28_rays(dev):
+    """Phase 8's 4,096 rays: alpha in [0.01, 0.12] rad, theta uniform."""
+    import torch
+    rng = np.random.default_rng(0)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.tensor(rng.uniform(0.01, 0.12, P28_RAYS), **f32),
+            torch.tensor(rng.uniform(-np.pi, np.pi, P28_RAYS), **f32))
+
+
+def p28_poison(form, al, th):
+    """The hybrid's poison mask of the rays under P28_DYN[form]."""
+    from light_path_tracer_tpu_torch.ops import kerr_trace as tk
+    m, r = tk.traced_scalars(None, R_OBS, P28_DYN[form], al.dtype)
+    return tk.hybrid_poison(m, r, al, th, np.pi / 2,
+                            tk.hybrid_slots(al.numel()))
+
+
+def p28_trace(chart, form, al, th, kernel=True, probe=None,
+              max_steps=P28_STEPS, poison=None):
+    """One trace with run-time parameters P28_DYN[form] (the metric and
+    radius arguments placeholders) in `chart`: the CUDA wrapper (kernel)
+    or the plain loop on the rays' device; the mu chart starts the
+    hybrid's poison mask (p28_poison, unless given) INVALID. Returns
+    (TraceResult, unconverged)."""
+    import torch
+    from light_path_tracer_tpu_torch.models import Kerr
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    kw = dict(formulation=chart, return_unconverged=True,
+              dynamic_params=P28_DYN[form])
+    if chart == "mu":
+        kw["force_invalid"] = (p28_poison(form, al, th) if poison is None
+                               else poison)
+    args = (Kerr(M=1.0, a=0.0), R_OBS, al, th, np.pi / 2,
+            torch.zeros(al.shape, dtype=torch.bool, device=al.device),
+            LAMBDA_MAX, max_steps)
+    if kernel:
+        return kk.trace_rays_kerr_cuda(*args, probe=probe, **kw)
+    return kk.trace_rays_kerr_plain(*args, **kw)
+
+
+def p28_frame_rays(dev):
+    """The flyby's last 1024^2 frame (r_obs 20 M, boost 0.5 c toward the
+    hole): its float32 grids."""
+    from light_path_tracer_tpu_torch import camera
+    fov = camera.fov_from_vertical(np.radians(40.0), P28_DIM)
+    al, th = camera.build_angle_lookups_dynamic(
+        P28_DIM, fov, 0.0, 0.0, boost_dynamic=(0.0, 0.0, P28_FLY[2]),
+        device=dev)
+    return al.reshape(-1), th.reshape(-1)
+
+
+def p28_frame_trace(al, th, kernel=True, probe=None):
+    """That frame through the CUDA hybrid with run-time (M, a, r_obs),
+    capped at P28_FRAME_STEPS, over the kernel or (kernel=False) the
+    plain loop on the rays' device."""
+    import torch
+    from light_path_tracer_tpu_torch.models import Kerr
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    return kk.trace_rays_kerr_hybrid(
+        Kerr(M=1.0, a=0.0), R_OBS, al, th, np.pi / 2,
+        torch.zeros(al.shape, dtype=torch.bool, device=al.device),
+        max(LAMBDA_MAX, 6.0 * P28_FLY[0]), P28_FRAME_STEPS,
+        pass1_steps=P28_FRAME_STEPS, probe=probe,
+        trace_fn=None if kernel else kk.trace_rays_kerr_plain,
+        dynamic_params=(1.0, 0.9, P28_FLY[1]))
+
+
+def p28_bitwise(ra, rb):
+    """Two (TraceResult, unconverged) pairs bitwise, field by field."""
+    return all(same_bits(a.cpu(), b.cpu()) for a, b in zip(
+        tuple(ra[0]) + (ra[1],), tuple(rb[0]) + (rb[1],)))
+
+
+def p28_scene(**kw):
+    from light_path_tracer_tpu_torch.utils.config import SceneConfig
+    return SceneConfig(**dict(dict(M=1.0, a=0.9, r_obs_mult=R_OBS), **kw))
+
+
+def p28_render(mode, dim, device, max_steps=P28_CHECK_STEPS):
+    """One phase-28 mode through its entry point on `device` at `dim`:
+    a dict of float64 NumPy arrays (the shadow masks, images, final alpha,
+    brightness or flux)."""
+    import torch
+    from light_path_tracer_tpu_torch import pano, sequence, star
+    from light_path_tracer_tpu_torch.utils.config import RenderConfig
+
+    def arr(x):
+        return np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x,
+                          np.float64)
+    kw = dict(max_steps=max_steps, device=device)
+    if mode == "pan":
+        f = sequence.render_sequence(p28_scene(), [(0.0, 0.01)],
+                                     resolution=dim, **kw)
+        return {"mask": arr(f[0])}
+    if mode == "spin":
+        f = sequence.render_param_sequence(p28_scene(a=0.0),
+                                           [(0.0, 0.0, 1.0, 0.99)], dim, **kw)
+        return {"mask": arr(f[0])}
+    if mode in ("flyby", "flyby_lensed"):
+        src = (np.random.default_rng(28).random((*dim, 3)).astype(np.float32)
+               if mode == "flyby_lensed" else None)
+        f = sequence.render_flyby(
+            p28_scene(), [(0.01, 0.0, 40.0, (0.0, 0.0, 0.3))],
+            source_image=src, resolution=dim, **kw)
+        return {"image" if src is not None else "mask": arr(f[0])}
+    if mode.startswith("pano"):
+        h = dim[0] // 2
+        out = pano.render_panorama(
+            p28_scene(a=0.9 if mode == "pano_kerr" else 0.0),
+            pano.grid_sky((h, 2 * h)), resolution=(h, 2 * h),
+            device=device)
+        return {"final_alpha": arr(out.final_alpha), "image": arr(out.image)}
+    cfg = RenderConfig()
+    if mode == "star":
+        img, st = star.render_star(p28_scene(a=0.3), dim, cfg,
+                                   device=device)
+        return {"image": arr(img), "brightness": arr(st["brightness"])}
+    _ph, flux, _st = star.pulse_profile(
+        p28_scene(a=0.3), cfg, star.StarConfig(omega=0.05), n_phases=16,
+        resolution=dim, light_travel_delay=True, device=device)
+    return {"flux": arr(flux)}
+
+
+def p28_check(mode, og, oc):
+    """A 64^2 mode on the card against the CPU: shadow masks (and the
+    panoramas' NaN masks) equal on >= 99 % of pixels; images median |d|
+    < 1e-3 (a texel flip moves a pixel whole); final alpha p99 |d| <
+    1e-3 rad where finite in both; the star's brightness p99 |d| < 1e-2
+    of its largest (the spots' sigmoid edges steepen the float32
+    rounding that parts the card from the CPU); the pulse's flux within
+    1e-3 relative."""
+    row = {}
+    for name, c in oc.items():
+        g = og[name]
+        if name == "mask":
+            agree = float((g == c).mean())
+            row[name] = dict(agree=agree, ok=agree >= 0.99)
+        elif name == "final_alpha":
+            agree = float((np.isnan(g) == np.isnan(c)).mean())
+            both = np.isfinite(g) & np.isfinite(c)
+            p99 = float(np.percentile(np.abs(g - c)[both], 99))
+            row[name] = dict(agree=agree, p99=p99,
+                             ok=agree >= 0.99 and p99 < 1e-3)
+        elif name == "image":
+            med = float(np.median(np.abs(g - c)))
+            row[name] = dict(median=med, ok=med < 1e-3)
+        elif name == "brightness":
+            d = np.abs(g - c) / max(float(np.abs(c).max()), 1e-300)
+            p99 = float(np.percentile(d, 99))
+            row[name] = dict(p99=p99, ok=p99 < 1e-2)
+        else:
+            rel = float(np.max(np.abs(g / c - 1.0)))
+            row[name] = dict(max_rel=rel, ok=rel < 1e-3)
+    return row
+
+
+def p28_counters():
+    """The wrappers and plain loops phase 28's paths run through."""
+    from light_path_tracer_tpu_torch.ops import kerr_trace as tk
+    from light_path_tracer_tpu_torch.ops import schwarzschild_trace as st
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    from light_path_tracer_tpu_torch.ops.cuda import schwarzschild_kernel
+    from light_path_tracer_tpu_torch.ops.cuda import surface_kernel as sk
+    return dict(kerr=kk.trace_rays_kerr_cuda, hybrid=kk.trace_rays_kerr_hybrid,
+                orbit=schwarzschild_kernel.trace_rays_schwarzschild_cuda,
+                surface=sk.trace_rays_surface_cuda,
+                plain=(tk.trace_rays_kerr, tk.trace_rays_surface,
+                       st.trace_rays_schwarzschild))
+
+
+def p28_zero():
+    """Every count phase 28's paths read, set to 0."""
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    from light_path_tracer_tpu_torch.ops.cuda import surface_kernel as sk
+    c = p28_counters()
+    kk.zero_counters(c["kerr"])
+    sk.zero_counters()
+    c["hybrid"].launches = 0
+    c["orbit"].launches = c["orbit"].launches_f64 = 0
+    for fn in c["plain"]:
+        fn.launches = 0
+
+
+def p28_counts():
+    """The counts since p28_zero: the Kerr kernel's theta and mu launches
+    and those with run-time parameters, the hybrid's calls, the orbit and
+    surface kernels' launches and the plain loops' calls."""
+    from light_path_tracer_tpu_torch.ops.cuda import surface_kernel as sk
+    c = p28_counters()
+    k = c["kerr"]
+    return dict(theta=k.launches, mu=k.launches_mu,
+                theta_dynamic=k.dynamic_launches,
+                mu_dynamic=k.dynamic_launches_mu,
+                hybrid=c["hybrid"].launches, orbit=c["orbit"].launches,
+                surface=sum(sk.launches().values()),
+                plain=sum(fn.launches for fn in c["plain"]))
+
+
+def p28_cli(tmp, argv):
+    """One CLI run on the card with the counts zeroed just before and read
+    just after: (rc, counts, seconds, stdout's last lines)."""
+    import contextlib
+    import io
+    from light_path_tracer_tpu_torch.cli import main as cli_main
+    p28_zero()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main([*argv, "--device", "cuda"])
+    secs = time.perf_counter() - t0
+    return rc, p28_counts(), secs, buf.getvalue().strip().splitlines()
+
+
+def queue_phase28(pool, dev):
+    """Queue phase 28's plain loops on the card ((a)'s four traces, (b)'s
+    1024^2 frame through the driver) and its 64^2 CPU renders; returns the
+    jobs by key."""
+    jobs = {}
+    al, th = p28_rays(dev)
+    for chart in P28_CHARTS:
+        for form in P28_DYN:
+            jobs[chart, form] = pool.submit("p28_trace", chart, form, al, th,
+                                            kernel=False)
+    fa, ft = p28_frame_rays(dev)
+    jobs["frame"] = pool.submit("p28_frame_trace", fa, ft, kernel=False)
+    for mode in P28_MODES:
+        jobs["cpu", mode] = pool.submit("p28_render", mode, P28_CHECK, "cpu",
+                                        on="cpu")
+    return jobs
+
+
+def dynamic_phase(dev, card, pool, ctx):
+    """Phase 28; returns the kernels-line entries of the Kerr kernel with
+    run-time parameters (theta and mu) and of the hybrid driver over it."""
+    import tempfile
+    import torch
+    from light_path_tracer_tpu_torch import pipeline, sequence
+    from light_path_tracer_tpu_torch.ops import kerr_trace as tk
+    t_phase = time.perf_counter()
+    jobs = ctx["jobs"]
+
+    # -- (a) the dynamic launches on 4,096 rays, bitwise their plain loop
+    al, th = p28_rays(dev)
+    rows, kern = {}, {}
+    for chart in P28_CHARTS:
+        for form in P28_DYN:
+            probe = {}
+            # the mask built once, outside the timed launches
+            poison = p28_poison(form, al, th) if chart == "mu" else None
+            rk = p28_trace(chart, form, al, th, probe=probe, poison=poison)
+            plain_ms, rp = PlainPool.result(jobs[chart, form], dev)
+            same = p28_bitwise(rk, rp)
+            att = probe["attempts"].to(torch.int64)
+            st = rk[0].status.cpu()
+            rows[f"{chart} {form}"] = dict(
+                bitwise=same, plain_ms=plain_ms,
+                escaped=int((st == 1).sum()), captured=int((st == -1).sum()),
+                invalid=int((st == 0).sum()), attempts_sum=int(att.sum()),
+                slowest_attempts=int(att.max()))
+            kern[chart, form] = dict(
+                plain_ms=plain_ms, attempts=int(att.sum()),
+                fn=_frozen(lambda: p28_trace(chart, form, al, th,
+                                             poison=poison)))
+            require(same, f"phase 28 {chart} {form}: the dynamic launch is "
+                          f"not bitwise its plain loop: "
+                          f"{rows[f'{chart} {form}']}")
+    print(f"  the dynamic launches on phase 8's 4,096 rays (capped at "
+          f"{P28_STEPS}) bitwise their plain loop on the card: "
+          f"{json.dumps(rows)}", flush=True)
+
+    # -- (b) a 1024^2 flyby frame through the hybrid, bitwise the same
+    # driver over the plain loop
+    fa, ft = p28_frame_rays(dev)
+    probe = {}
+    rk = p28_frame_trace(fa, ft, probe=probe)
+    plain_ms, rp = PlainPool.result(jobs["frame"], dev)
+    same = all(same_bits(a.cpu(), b.cpu()) for a, b in zip(rk, rp))
+    frame_ms, _ = cuda_ms(lambda: p28_frame_trace(fa, ft), 3)
+    n = int(fa.numel())
+    idx, _dest = tk.stragglers(probe["redo"], tk.hybrid_slots(n))
+    fb, tb = fa[idx], ft[idx]
+    pa, pb = {}, {}
+    ms_a = kernel_alone_ms(lambda: p28_trace_pass(
+        fa, ft, "mu", probe["poison"], pa), 3)
+    ms_b = kernel_alone_ms(lambda: p28_trace_pass(fb, tb, "theta", None,
+                                                  pb), 3)
+    frame = dict(bitwise=same, n=n, ms=frame_ms, plain_ms=plain_ms,
+                 pass_a_ms=ms_a, pass_b_ms=ms_b,
+                 poison=int(probe["poison"].sum()),
+                 retrace=int(probe["redo"].sum()),
+                 unconverged=int(probe["unconverged"].sum()),
+                 attempts_a=int(pa["attempts"].to(torch.int64).sum()),
+                 attempts_b=int(pb["attempts"].to(torch.int64).sum()),
+                 escaped=int((rk.status == 1).sum()),
+                 captured=int((rk.status == -1).sum()))
+    print(f"  the 1024^2 flyby frame (20 M, 0.5 c) through the hybrid, "
+          f"capped at {P28_FRAME_STEPS}, against the plain loop through "
+          f"it: {json.dumps(frame)} on {card}", flush=True)
+    require(same and frame["captured"] > 0 and frame["escaped"] > 0,
+            f"phase 28 1024^2 frame: {frame}")
+
+    # -- (c) a dynamic frame at (M, a) = (1, 0.9) against the static
+    # render_shadow with the mirror fold off (JAX's bar: > 99 %)
+    from light_path_tracer_tpu_torch.utils.config import RenderConfig
+    dyn = sequence.render_param_sequence(p28_scene(a=0.0),
+                                         [(0.0, 0.0, 1.0, 0.9)], P28_DIM)[0]
+    static, _st = pipeline.render_shadow(
+        p28_scene(), P28_DIM, RenderConfig(use_tb_symmetry=False),
+        device="cuda")
+    agree = float((dyn == static).float().mean())
+    print(f"  dynamic (M, a) = (1, 0.9) frame against the static shadow "
+          f"(fold off), 1024^2: pixels equal {agree:.6f}", flush=True)
+    require(agree > 0.99, f"phase 28 dynamic vs static: {agree}")
+
+    # -- (d) each mode at 64^2 on the card against the CPU
+    checks = {}
+    for mode in P28_MODES:
+        og = p28_render(mode, P28_CHECK, "cuda")
+        _ms, oc = PlainPool.result(jobs["cpu", mode], "cpu")
+        checks[mode] = p28_check(mode, og, oc)
+        require(all(v["ok"] for v in checks[mode].values()),
+                f"phase 28 64^2 {mode} card vs CPU: {checks[mode]}")
+    print(f"  each mode at 64^2, card vs CPU: {json.dumps(checks)}",
+          flush=True)
+
+    # -- (e) the main path at full width through the entry points, each
+    # path with its counts zeroed just before and read just after
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def out(name):
+            return os.path.join(tmp, name)
+        runs = {
+            "animate pan": ["animate", "--a", "0.9", "--size",
+                            str(P28_DIM[0]), "--frames", str(P28_FRAMES),
+                            "--pan-deg", "2", "--output", out("pan.gif")],
+            "animate flyby": ["animate", "--a", "0.9", "--size",
+                              str(P28_DIM[0]), "--frames", str(P28_FRAMES),
+                              "--flyby", f"{P28_FLY[0]:g}:{P28_FLY[1]:g}",
+                              "--boost-to", str(P28_FLY[2]),
+                              "--output", out("fly.gif")],
+            "pano a=0.9": ["pano", "--a", "0.9", "--grid-sky", "--height",
+                           str(P28_PANO_H), "--output", out("p9.png")],
+            "pano a=0": ["pano", "--grid-sky", "--height", str(P28_PANO_H),
+                         "--output", out("p0.png")],
+            "star": ["star", "--size", str(P28_STAR), "--output",
+                     out("s.png")],
+            "star pulse": ["star", "--pulse-profile", str(P28_PULSE[0]),
+                           "--light-travel-delay", "--omega", "0.05",
+                           "--size", str(P28_PULSE[1]), "--output",
+                           out("pp.npz")]}
+        for label, argv in runs.items():
+            rc, counts, secs, lines = p28_cli(tmp, argv)
+            row = dict(rc=rc, seconds=secs, counts=counts,
+                       said=[l for l in lines if l.startswith(
+                           ("Animation", "  launches", "Panorama", "Star",
+                            "  surface", "Pulse", "  trace_throughput"))])
+            if label.startswith("animate"):
+                stem = out("pan" if label.endswith("pan") else "fly")
+                rec = np.load(f"{stem}_frames.npz")
+                row.update(frame_launches=[int(x) for x in rec["launches"]],
+                           frame_ms=[float(x) for x in rec["ms"]],
+                           files=sum(os.path.exists(f"{stem}_{k:03d}.png")
+                                     for k in range(P28_FRAMES)))
+                frames = rec["frames"]
+                dark = [int((f == 0).sum()) for f in frames]
+                row["shadow_px"] = dark
+                require(row["files"] == P28_FRAMES
+                        and len(set(row["frame_launches"][1:])) == 1
+                        and min(row["frame_launches"]) > 0,
+                        f"phase 28 {label}: {row}")
+            paths[label] = row
+            print(f"  {label}: {json.dumps(row)} on {card}", flush=True)
+            require(rc == 0 and counts["plain"] == 0,
+                    f"phase 28 {label}: {row}")
+        pan, fly = paths["animate pan"], paths["animate flyby"]
+        require(pan["counts"]["hybrid"] == P28_FRAMES
+                and pan["counts"]["mu"] > 0 and pan["counts"]["theta"] > 0,
+                f"phase 28 pan path: {pan}")
+        require(fly["counts"]["mu_dynamic"] == P28_FRAMES
+                and fly["counts"]["theta_dynamic"] == P28_FRAMES
+                and fly["shadow_px"][-2] > fly["shadow_px"][0],
+                f"phase 28 flyby path: {fly}")
+        require(paths["pano a=0.9"]["counts"]["theta"] > 0
+                and paths["pano a=0"]["counts"]["orbit"] > 0
+                and paths["star"]["counts"]["surface"] > 0
+                and paths["star pulse"]["counts"]["surface"] > 0,
+                f"phase 28 pano / star paths: {paths}")
+    # the spin sweep (no CLI of its own), through its entry point
+    p28_zero()
+    stats = []
+    frames = sequence.render_param_sequence(
+        p28_scene(a=0.0), [(0.0, 0.0, 1.0, a) for a in P28_SPINS], P28_DIM,
+        frame_stats=stats)
+    spin = dict(counts=p28_counts(),
+                frame_launches=[s["launches"] for s in stats],
+                frame_ms=[s["ms"] for s in stats],
+                shadow_px=[int((f == 0).sum()) for f in frames])
+    print(f"  spin sweep a = {list(P28_SPINS)} at 1024^2: "
+          f"{json.dumps(spin)} on {card}", flush=True)
+    require(spin["counts"]["mu_dynamic"] == len(P28_SPINS)
+            and spin["counts"]["plain"] == 0
+            and len(set(spin["frame_launches"])) == 1
+            and not torch.equal(frames[0], frames[-1]),
+            f"phase 28 spin sweep: {spin}")
+    paths["spin"] = spin
+    kerr = p28_counters()["kerr"]
+    profs = {label: device_profile(run, 3, "kerr_dp45",
+                                   lambda: kerr.launches + kerr.launches_mu)
+             for label, run in (
+                 ("pan", lambda: sequence.render_sequence(
+                     p28_scene(), [(0.0, 0.0)], resolution=P28_DIM)),
+                 ("spin a=0.99", lambda: sequence.render_param_sequence(
+                     p28_scene(a=0.0), [(0.0, 0.0, 1.0, 0.99)], P28_DIM)),
+                 ("flyby 20 M 0.5 c", lambda: sequence.render_flyby(
+                     p28_scene(), [(P28_FLY[1], (0.0, 0.0, P28_FLY[2]))],
+                     resolution=P28_DIM)))}
+    print(f"  a 1024^2 frame of each sequence under torch.profiler (3 "
+          f"frames): {json.dumps(profs)} on {card}", flush=True)
+
+    # -- (f) the kernels-line entries: each dynamic instance alone on the
+    # 4,096 rays against its plain loop in its child; the driver on the
+    # 1024^2 frame
+    # each beside its static twin: the same rays and (M, a) = (1, 0.99) at
+    # r_obs 100 from a static Kerr (its scalars formed in float64), in turns
+    from light_path_tracer_tpu_torch.models import Kerr
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    zeros = torch.zeros(al.shape, dtype=torch.bool, device=dev)
+    twin_kw = {"theta": {}, "mu": dict(force_invalid=p28_poison("m_a", al,
+                                                                 th))}
+    twin = {chart: _frozen(lambda: kk.trace_rays_kerr_cuda(
+        Kerr(M=1.0, a=0.99), R_OBS, al, th, np.pi / 2, zeros, LAMBDA_MAX,
+        P28_STEPS, formulation=chart, return_unconverged=True,
+        **twin_kw[chart])) for chart in P28_CHARTS}
+    times, static = {}, {}
+    for _turn in range(2):
+        for key, k in kern.items():
+            times.setdefault(key, []).append(kernel_alone_ms(k["fn"], 5))
+        for chart, fn in twin.items():
+            static.setdefault(chart, []).append(kernel_alone_ms(fn, 5))
+    times = {key: float(np.median(v)) for key, v in times.items()}
+    static = {chart: float(np.median(v)) for chart, v in static.items()}
+    print(f"  each dynamic launch alone on the 4,096 rays (ms, median of 2 "
+          f"turns): {json.dumps({f'{c} {f}': v for (c, f), v in times.items()})}"
+          f"; the static (M, a) = (1, 0.99) twins: {json.dumps(static)} on "
+          f"{card}", flush=True)
+    launches = {chart: sum(p[f"{chart}_dynamic"] for p in (
+        paths["animate flyby"]["counts"], spin["counts"]))
+        for chart in P28_CHARTS}
+    entries = []
+    for chart, source in (("theta", KERNEL_SOURCE),
+                          ("mu", MU_SOURCE.format("dp45", ""))):
+        k = kern[chart, "m_a_r"]
+        e = kernel_entry(
+            "kerr_dp45" + ("_mu" if chart == "mu" else "") + "_dynamic",
+            source, DYN_REPLACES, launches[chart], 0.0,
+            times[chart, "m_a_r"], k["plain_ms"], P28_RAYS,
+            9 + 12 + (1 if chart == "mu" else 0),
+            k["attempts"] * kerr_work(chart=chart))
+        e.update(bitwise_plain=True, max_steps=P28_STEPS,
+                 dynamic_params=list(P28_DYN["m_a_r"]),
+                 m_a_ms=times[chart, "m_a"],
+                 m_a_plain_ms=kern[chart, "m_a"]["plain_ms"],
+                 static_twin_ms=static[chart])
+        entries.append(e)
+    h = kernel_entry(
+        "trace_rays_kerr_hybrid_dynamic", DRIVER_SOURCE, DYN_HYBRID_REPLACES,
+        paths["animate flyby"]["counts"]["hybrid"]
+        + spin["counts"]["hybrid"], 0.0, frame["ms"], frame["plain_ms"], n,
+        9 + 12, frame["attempts_a"] * kerr_work(chart="mu")
+        + frame["attempts_b"] * kerr_work())
+    h.update(bitwise_plain=True, frame=frame)
+    entries.append(h)
+    print(f"  [{time.perf_counter() - t_phase:.1f} s] phase 28 done",
+          flush=True)
+    return entries
+
+
+def p28_trace_pass(al, th, chart, poison, probe):
+    """One pass of p28_frame_trace's hybrid alone: pass A (mu, the poison
+    mask, capped) or pass B (theta on the re-trace slots)."""
+    import torch
+    from light_path_tracer_tpu_torch.models import Kerr
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    kw = dict(formulation=chart, probe=probe,
+              dynamic_params=(1.0, 0.9, P28_FLY[1]))
+    if chart == "mu":
+        kw.update(force_invalid=poison, return_unconverged=True)
+    return kk.trace_rays_kerr_cuda(
+        Kerr(M=1.0, a=0.0), R_OBS, al, th, np.pi / 2,
+        torch.zeros(al.shape, dtype=torch.bool, device=al.device),
+        max(LAMBDA_MAX, 6.0 * P28_FLY[0]), P28_FRAME_STEPS, **kw)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8257,6 +8843,8 @@ def main() -> int:
     # -- 26. any width: the broad extras and plane-recorder instances ------
     stamp(26)
     jobs26, rays26 = queue_phase26(pool, dev, al_d, th_d)
+    # Phase 28's plain loops and 64^2 CPU renders run beside phases 26-27.
+    jobs28 = queue_phase28(pool, dev)
     broad_kernels = broad_phase(dev, card, pool, dict(
         build=broad_build, jobs=jobs26, rays=rays26, grid_jobs=grid_jobs26,
         grids=grids26))
@@ -8265,6 +8853,11 @@ def main() -> int:
     stamp(27)
     surface_kernels = surface_phase(dev, card, pool, dict(
         build=surface_build, jobs=jobs27))
+
+    # -- 28. run-time (M, a, r_obs): pans, spin sweeps, flybys; panoramas
+    # and the stellar surface ----------------------------------------------
+    stamp(28)
+    dynamic_kernels = dynamic_phase(dev, card, pool, dict(jobs=jobs28))
     pool.close()
     stamp("retime")
     retime_entries(card)
@@ -8299,7 +8892,7 @@ def main() -> int:
     kernels += (kernels5 + vol_kernels + new_kernels + [probe_kernel]
                 + f64_kernels + family_kernels + d853_kernels + mu_kernels
                 + disk_kernels + planes_kernels + broad_kernels
-                + surface_kernels)
+                + surface_kernels + dynamic_kernels)
     # The counted bound: every operation by kind at the rate phase 16
     # measured for it (a flop at no less than the published rate).
     for k in kernels:

@@ -52,7 +52,14 @@ light curve (`render_microlens_curve`), the arrival-time map
 (`render_time_delay`), the shear maps (`render_shear`) and the
 point-image solver (`images.find_point_images`) trace the whole grid
 onto the capture surface through the CUDA surface kernel
-(`ops/cuda/surface_kernel.py`).
+(`ops/cuda/surface_kernel.py`), as do the stellar-surface images and
+pulse profiles (`star.py`: `render_star`, `pulse_profile`).
+
+Frame sequences (`sequence.py`: camera pans `render_sequence`, spin and
+mass sweeps `render_param_sequence`, flybys `render_flyby`) trace through
+the hybrid tracer with the Kerr kernel's run-time (M, a) and (M, a,
+r_obs) (`dynamic_params`); 360-degree panoramas (`pano.py`:
+`render_panorama`) through `trace_batch`.
 
 This package imports torch and never jax.
 """
@@ -70,6 +77,7 @@ from light_path_tracer_tpu_torch.models import (JohannsenPsaltis, Kerr,
 from light_path_tracer_tpu_torch.ops.batch import trace_batch
 from light_path_tracer_tpu_torch.ops.types import TraceResult
 from light_path_tracer_tpu_torch.images import find_point_images
+from light_path_tracer_tpu_torch.pano import render_panorama
 from light_path_tracer_tpu_torch.pipeline import (
     RenderOutput, precompute_final_alpha, render_caustics,
     render_magnification, render_microlens_curve, render_rings,
@@ -77,8 +85,13 @@ from light_path_tracer_tpu_torch.pipeline import (
     render_time_delay)
 from light_path_tracer_tpu_torch.polarization import (
     render_polarization, render_polarized_volumetric)
+from light_path_tracer_tpu_torch.sequence import (render_flyby,
+                                                  render_param_sequence,
+                                                  render_sequence)
 from light_path_tracer_tpu_torch.spectra import (hotspot_light_curve,
                                                  line_profile)
+from light_path_tracer_tpu_torch.star import (StarConfig, pulse_profile,
+                                              render_star)
 from light_path_tracer_tpu_torch.utils.config import RenderConfig, SceneConfig
 from light_path_tracer_tpu_torch.volumetric import (
     RIAFConfig, render_volumetric, render_volumetric_decomposed,
@@ -99,4 +112,6 @@ __all__ = ["Kerr", "KerrNewman", "JohannsenPsaltis", "Schwarzschild",
            "render_scene_adaptive", "render_rings", "render_scene_rings",
            "render_magnification", "render_caustics",
            "render_microlens_curve", "render_time_delay", "render_shear",
-           "find_point_images"]
+           "find_point_images", "render_sequence", "render_param_sequence",
+           "render_flyby", "render_panorama", "StarConfig", "render_star",
+           "pulse_profile"]

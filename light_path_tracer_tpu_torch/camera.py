@@ -15,6 +15,13 @@ A camera boost (the moving observer's aberration, `aberrate_view`, and
 its Doppler factor, `doppler_lookup`) keeps the JAX package's split: the
 Lorentz factor and |beta|^2 are Python floats, the grids float64 tensors
 rounded once. Alpha rounding (`decimals`) is not ported and raises.
+
+The run-time camera of the sequences (`psi_frame_dynamic`,
+`aberrate_view_dynamic`, `build_angle_lookups_dynamic`) computes in the
+trace dtype throughout, as the JAX package's traced-psi variants do: the
+frame from the pointing's sin and cos in that dtype, the view grids, the
+Lorentz factor and the arccos and arctan2 all in it. It has no
+axis-refine band and no mirror fold.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from light_path_tracer_tpu_torch.operands import kernel_operand
 
 
 class PsiFrame(NamedTuple):
@@ -286,3 +295,96 @@ def axis_refine_columns(image_dimension, fov, psi=(0.0, 0.0),
     x_abs_max = max(float(np.max(np.abs(x_rel))), 1e-12)
     return torch.as_tensor(np.abs(x_rel) <= refine_frac * x_abs_max,
                            device=device)
+
+
+# ---- run-time psi and boost (the sequences: no mirror fold, no band) ----
+
+def _norm3(v):
+    return torch.sqrt(torch.sum(v * v))
+
+
+def psi_frame_dynamic(psi_y, psi_x, dtype=torch.float32):
+    """psi_frame computed in `dtype`: (d, e_x, e_y) as (3,) CPU tensors,
+    the Gram-Schmidt basis of the JAX package's psi_frame_dynamic with
+    its fallbacks selected where the norms fall below 1e-12."""
+    f = dict(dtype=dtype)
+    py, px = torch.tensor(float(psi_y), **f), torch.tensor(float(psi_x), **f)
+    sin_p, cos_p = torch.sin(py), torch.cos(py)
+    sin_yw, cos_yw = torch.sin(px), torch.cos(px)
+    d = torch.stack([sin_yw * cos_p, -sin_p, cos_yw * cos_p])
+    cam_x = torch.tensor([1.0, 0.0, 0.0], **f)
+    cam_y = torch.tensor([0.0, 1.0, 0.0], **f)
+
+    e_x = cam_x - torch.dot(cam_x, d) * d
+    e_x_alt = cam_y - torch.dot(cam_y, d) * d
+    e_x = torch.where(_norm3(e_x) < 1e-12, e_x_alt, e_x)
+    e_x = e_x / torch.clamp(_norm3(e_x), min=1e-12)
+
+    e_y = cam_y - torch.dot(cam_y, d) * d - torch.dot(cam_y, e_x) * e_x
+    e_y = torch.where(_norm3(e_y) < 1e-12, torch.linalg.cross(d, e_x), e_y)
+    e_y = e_y / torch.clamp(_norm3(e_y), min=1e-12)
+    return d, e_x, e_y
+
+
+def aberrate_view_dynamic(vx, vy, vz, bx, by, bz):
+    """aberrate_view with the boost's scalars in the grids' dtype (the
+    flyby's per-frame boost): |b|^2, the Lorentz factor and the
+    projection coefficient are formed in that dtype, with the 0/0 of the
+    bhat projection guarded (tiny 1e-30), and b = 0 is the identity. |b|
+    >= 1 is not checked here; callers validate first."""
+    f = dict(dtype=vx.dtype)
+    bx, by, bz = (torch.tensor(float(b), **f) for b in (bx, by, bz))
+    b2 = bx * bx + by * by + bz * bz
+    if float(b2) == 0.0:
+        return vx, vy, vz
+    tiny = torch.tensor(1e-30, **f)
+    gamma = 1.0 / torch.sqrt(torch.maximum(1.0 - b2, tiny))
+    c = (1.0 - 1.0 / gamma) / torch.maximum(b2, tiny)
+    bx, by, bz, c = (float(x) for x in (bx, by, bz, c))
+    g = kernel_operand(float(gamma), vx)
+    kx, ky, kz = -vx, -vy, -vz
+    bdotk = bx * kx + by * ky + bz * kz
+    coef = c * bdotk
+    denom = 1.0 + bdotk
+    akx = (kx / g + coef * bx + bx) / denom
+    aky = (ky / g + coef * by + by) / denom
+    akz = (kz / g + coef * bz + bz) / denom
+    n = torch.sqrt(akx * akx + aky * aky + akz * akz)
+    return -akx / n, -aky / n, -akz / n
+
+
+def _view_grids_in(image_dimension, fov, dtype, device):
+    """Unit view-direction grids (vx, vy, vz), each (H, W), computed in
+    `dtype` on `device` (the sequences' grids)."""
+    height, width = image_dimension
+    fx, fy = focal_lengths(image_dimension, fov)
+    f = dict(dtype=dtype, device=device)
+    x_cam = torch.arange(width, **f) - width / 2
+    y_cam = torch.arange(height, **f) - height / 2
+    x_cam = (x_cam / kernel_operand(fx, x_cam))[None, :]
+    y_cam = (y_cam / kernel_operand(fy, y_cam))[:, None]
+    denom = torch.sqrt(1.0 + x_cam ** 2 + y_cam ** 2)
+    return torch.broadcast_tensors(x_cam / denom, y_cam / denom,
+                                   1.0 / denom)
+
+
+def build_angle_lookups_dynamic(image_dimension, fov, psi_y, psi_x,
+                                dtype=torch.float32, boost=None,
+                                boost_dynamic=None, device="cuda"):
+    """(alpha, theta) per-pixel grids, (H, W) each, of a sequence frame
+    pointed at (psi_y, psi_x), computed in `dtype` on `device`. `boost`
+    (one per sequence) aberrates the views as aberrate_view does;
+    `boost_dynamic` = (bx, by, bz) of this frame through
+    aberrate_view_dynamic instead (flybys)."""
+    d, e_x, e_y = ([float(c) for c in v]
+                   for v in psi_frame_dynamic(psi_y, psi_x, dtype))
+    vx, vy, vz = _view_grids_in(image_dimension, fov, dtype, device)
+    if boost_dynamic is not None:
+        vx, vy, vz = aberrate_view_dynamic(vx, vy, vz, *boost_dynamic)
+    elif _boosted(boost):
+        vx, vy, vz = aberrate_view(vx, vy, vz, boost)
+    cos_alpha = vx * d[0] + vy * d[1] + vz * d[2]
+    alpha = torch.arccos(torch.clamp(cos_alpha, -1.0, 1.0))
+    theta = torch.arctan2(vx * e_x[0] + vy * e_x[1] + vz * e_x[2],
+                          vx * e_y[0] + vy * e_y[1] + vz * e_y[2])
+    return alpha.to(dtype), theta.to(dtype)

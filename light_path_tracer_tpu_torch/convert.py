@@ -1,7 +1,7 @@
 """Carry the JAX package's state into this package.
 
 The tracer has no weights: a scene, a render configuration, a disk, hot
-spot or hot-flow configuration and the metric's parameters are its whole
+spot, hot-flow or stellar-surface configuration and the metric's parameters are its whole
 state. These functions read the JAX
 package's frozen dataclasses field by field, as plain Python floats, ints
 and strings, and build this package's objects from them. They import
@@ -66,6 +66,17 @@ def riaf_config_from_jax(riaf):
     from light_path_tracer_tpu_torch.volumetric import RIAFConfig
     return RIAFConfig(**{f.name: getattr(riaf, f.name)
                          for f in dataclasses.fields(RIAFConfig)})
+
+
+def star_config_from_jax(star):
+    """light_path_tracer_tpu.star.StarConfig -> this package's StarConfig,
+    field by field (the spots as tuples of floats)."""
+    from light_path_tracer_tpu_torch.star import StarConfig
+    values = {f.name: getattr(star, f.name)
+              for f in dataclasses.fields(StarConfig)}
+    values["spots"] = tuple(tuple(float(v) for v in spot)
+                            for spot in values["spots"])
+    return StarConfig(**values)
 
 
 def metric_from_jax(metric):

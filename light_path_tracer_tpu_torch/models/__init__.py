@@ -4,7 +4,7 @@ Kerr, Kerr-Newman and Johannsen-Psaltis."""
 from light_path_tracer_tpu_torch.models.base import Metric
 from light_path_tracer_tpu_torch.models.johannsen_psaltis import (
     JohannsenPsaltis)
-from light_path_tracer_tpu_torch.models.kerr import Kerr
+from light_path_tracer_tpu_torch.models.kerr import Kerr, TracedKerr
 from light_path_tracer_tpu_torch.models.kerr_newman import KerrNewman
 from light_path_tracer_tpu_torch.models.reissner_nordstrom import (
     ReissnerNordstrom)
@@ -30,5 +30,5 @@ def make_metric(M: float = 1.0, a: float = 0.0,
     return Schwarzschild(M=M)
 
 
-__all__ = ["Metric", "Kerr", "KerrNewman", "JohannsenPsaltis",
+__all__ = ["Metric", "Kerr", "TracedKerr", "KerrNewman", "JohannsenPsaltis",
            "Schwarzschild", "ReissnerNordstrom", "make_metric"]

@@ -19,9 +19,11 @@ Every batched method computes in the dtype of its input tensors, with the
 metric parameters as 0-dim tensors of that dtype, in the same operation
 order as the JAX package, so float32 results round the way JAX's do. The
 CUDA kernel (csrc/kerr_dp45.cu) carries the same formulas per thread; this
-module is its plain version. One class serves every (M, a): on the GPU
-the parameters are kernel arguments at run time, so the JAX package's
-traced-parameter twin is not needed.
+module is its plain version. On the GPU every (M, a) is a kernel argument
+at run time. `TracedKerr` is the counterpart of the JAX package's
+traced-parameter twin for the sequences' run-time (M, a): the same hot
+path with M, a and the radii derived from them formed in float32, as
+JAX's traced scalars form them.
 """
 
 from __future__ import annotations
@@ -82,6 +84,11 @@ class Kerr(Metric):
 
     def capture_radius(self) -> float:
         return self.r_plus * 1.01
+
+    def reclass_radius(self) -> float:
+        """Radius at/inside which extraction books a ray as captured:
+        1.1 x the capture radius."""
+        return self.capture_radius() * 1.1
 
     def _freeze_radius(self) -> float:
         """Radius at/below which the RHS is hard-zeroed."""
@@ -523,12 +530,12 @@ class Kerr(Metric):
         """
         r_f, th_f, phi_f, p_r_f, p_th_f = state5
         M, a = _scalar(self.M, r_f), _scalar(self.a, r_f)
-        r_capture = self.capture_radius()
+        r_reclass = self.reclass_radius()
 
         # the kernel divides by pi (light_path_tracer_tpu_torch/operands.py)
         n_half = torch.floor(torch.abs(phi_f)
                              / kernel_operand(math.pi, phi_f)).to(torch.int32)
-        is_captured = captured | (r_f <= r_capture * 1.1)
+        is_captured = captured | (r_f <= r_reclass)
         bad_state = ~(torch.isfinite(r_f) & torch.isfinite(th_f)
                       & torch.isfinite(phi_f))
 
@@ -577,3 +584,44 @@ class Kerr(Metric):
         n_half = torch.where(bad_state & ~is_captured,
                              torch.zeros_like(n_half), n_half)
         return status, final_alpha, n_half
+
+
+class TracedKerr(Kerr):
+    """Kerr with run-time (M, a): the sequences' metric (the JAX package's
+    `TracedKerr`, whose M and a are traced float32 scalars).
+
+    M and a are rounded to float32, and the radii that the hot path and
+    the kernel take are formed from them in float32 as JAX's traced
+    scalars form them: r_+ = M + sqrt(max(M M - a a, 0)), the capture
+    radius r_+ 1.01, the freeze radius r_+ 1.001 and the reclassification
+    radius (r_+ 1.01) 1.1, each product rounded once. The static `Kerr`
+    forms them in float64 and rounds once, which can differ by an ulp.
+    Every value is kept as a Python float holding the float32 number, so
+    each batched method reads it exactly. Only the batched hot path is
+    meant (as in JAX: no host-side geometry, and no |a| <= M check).
+    """
+
+    def __init__(self, M, a):
+        m32, a32 = np.float32(M), np.float32(a)
+        r_plus = m32 + np.sqrt(np.maximum(m32 * m32 - a32 * a32,
+                                          np.float32(0.0)))
+        capture = r_plus * np.float32(1.01)
+        object.__setattr__(self, "M", float(m32))
+        object.__setattr__(self, "a", float(a32))
+        object.__setattr__(self, "_radii", dict(
+            r_plus=float(r_plus), capture=float(capture),
+            freeze=float(r_plus * np.float32(1.001)),
+            reclass=float(capture * np.float32(1.1))))
+
+    @property
+    def r_plus(self) -> float:
+        return self._radii["r_plus"]
+
+    def capture_radius(self) -> float:
+        return self._radii["capture"]
+
+    def reclass_radius(self) -> float:
+        return self._radii["reclass"]
+
+    def _freeze_radius(self) -> float:
+        return self._radii["freeze"]

@@ -50,7 +50,10 @@ they never fall back. Each wrapper counts its launches per pair and dtype
 `.launches_dop853` and `.launches_dop853_f64`), the mu and wide
 instances on counters of their own (`.launches_mu`, `.launches_mu_f64`,
 `.launches_mu_dop853`, `.launches_mu_dop853_f64`; `.launches_wide`,
-`.launches_planes`, `.launches_broad`, ...). Given CPU tensors they run
+`.launches_planes`, `.launches_broad`, ...); a launch with run-time
+parameters (`dynamic_params`, the sequences' (M, a) or (M, a, r_obs))
+counts on `.dynamic_` + its counter too (`.dynamic_launches`,
+`.dynamic_launches_mu`, ...). Given CPU tensors they run
 the kernel's plain version, the PyTorch loop (`trace_rays_kerr_plain`,
 `trace_disk_rays_plain`, ops/kerr_trace.py), because there is no kernel
 to run there; the tests and the chip smoke test compare the two.
@@ -90,11 +93,12 @@ import math
 import torch
 
 from light_path_tracer_tpu_torch.models import (JohannsenPsaltis, Kerr,
-                                                KerrNewman)
+                                                KerrNewman, TracedKerr)
 from light_path_tracer_tpu_torch.ops.cuda._build import check, load_library
 from light_path_tracer_tpu_torch.ops.kerr_trace import (
     INVALID, POLAR_OBSERVER_SIN, WarpedBasis, _h_init_for, check_method,
-    get_tols, hybrid_poison, hybrid_slots, merge_results, stragglers)
+    get_tols, hybrid_poison, hybrid_slots, merge_results, stragglers,
+    traced_scalars)
 from light_path_tracer_tpu_torch.ops.kerr_trace import (
     trace_disk_rays_kerr as trace_disk_rays_plain)
 from light_path_tracer_tpu_torch.ops.kerr_trace import (
@@ -116,12 +120,13 @@ NARROW_KERNEL_HITS = 4
 MAX_KERNEL_HITS = 8
 
 # The metric families of the Kerr kernels (csrc/kerr_dp45_common.cuh kKerr,
-# kKerrNewman, kJohannsenPsaltis), keyed by the class that models each.
-FAMILIES = {Kerr: 0, KerrNewman: 1, JohannsenPsaltis: 2}
+# kKerrNewman, kJohannsenPsaltis), keyed by the class that models each; a
+# TracedKerr (run-time (M, a), its radii formed in float32) is Kerr.
+FAMILIES = {Kerr: 0, KerrNewman: 1, JohannsenPsaltis: 2, TracedKerr: 0}
 # The families of the disk variant, of the mu chart's instances and of
 # the extras kernel.
 DISK_FAMILIES = (Kerr, KerrNewman)
-MU_FAMILIES = (Kerr, KerrNewman)
+MU_FAMILIES = (Kerr, KerrNewman, TracedKerr)
 EXTRAS_FAMILIES = (Kerr, KerrNewman)
 # The charts of the shadow variant (KerrCall::chart).
 CHARTS = ("theta", "mu")
@@ -186,19 +191,25 @@ def counter_name(dtype, method="dp45", chart="theta") -> str:
             + ("_f64" if dtype == torch.float64 else ""))
 
 
-def count_launch(fn, dtype, method="dp45", chart="theta"):
+def count_launch(fn, dtype, method="dp45", chart="theta", dynamic=False):
     """One launch of a kernel wrapper, on its counter for the pair, dtype
-    and chart."""
+    and chart; a launch with run-time parameters (dynamic_params) also on
+    "dynamic_" + that counter."""
     name = counter_name(dtype, method, chart)
     setattr(fn, name, getattr(fn, name) + 1)
+    if dynamic:
+        setattr(fn, "dynamic_" + name, getattr(fn, "dynamic_" + name) + 1)
 
 
 def zero_counters(fn):
-    """Set every launch counter of a kernel wrapper to 0."""
+    """Set every launch counter of a kernel wrapper to 0, the dynamic_
+    ones too."""
     for dtype in (torch.float32, torch.float64):
         for method in ("dp45", "dop853"):
             for chart in VARIANTS:
-                setattr(fn, counter_name(dtype, method, chart), 0)
+                name = counter_name(dtype, method, chart)
+                setattr(fn, name, 0)
+                setattr(fn, "dynamic_" + name, 0)
 
 
 def _check_inputs(tensors, alphas):
@@ -389,7 +400,7 @@ def _launch(metric, r_obs, alphas, thetas, theta_obs, lambda_max,
             h_min=tols["h_min"], tiny_err=tols["tiny_err"],
             h_init=_h_init_for(r_obs),
             r_capture=float(metric.capture_radius()),
-            r_reclass=float(metric.capture_radius() * 1.1),
+            r_reclass=float(metric.reclass_radius()),
             r_in=float(r_in), r_out_disk=float(r_out), plane_c=plane_c,
             **family_scalars(metric))
         if planes is not None:
@@ -410,7 +421,8 @@ def trace_rays_kerr_cuda(metric, r_obs, alphas, thetas, theta_obs,
                          return_unconverged: bool = False,
                          probe: dict | None = None,
                          _cycle_exit: bool = True, method: str = "dp45",
-                         event_interp: str = "hermite", force_invalid=None):
+                         event_interp: str = "hermite", force_invalid=None,
+                         dynamic_params=None):
     """Trace N rays of a Kerr, Kerr-Newman or Johannsen-Psaltis metric
     with the CUDA kernel; returns TraceResult.
 
@@ -425,8 +437,13 @@ def trace_rays_kerr_cuda(metric, r_obs, alphas, thetas, theta_obs,
     the same device. probe: a dict that receives the per-ray raw final
     "state" (5, N; in theta, the mu instances convert it back),
     "raw_status", "attempts", "cycles" and "p_phi" (the module
-    docstring). One kernel launch on the current stream, which does not
-    synchronise. CPU tensors go to the plain version; other devices raise.
+    docstring). dynamic_params: run-time (M, a) or (M, a, r_obs), float32
+    only (ops.kerr_trace.traced_scalars): the launch then takes the
+    TracedKerr's float32 M, a, r_+, capture and reclassification radii,
+    and with three values the float32 radius, its escape radius and
+    first step; no other instance is needed. One kernel launch on the
+    current stream, which does not synchronise. CPU tensors go to the
+    plain version; other devices raise.
     """
     if not _check_call(alphas, metric, formulation, max_steps,
                        charts=CHARTS):
@@ -435,7 +452,9 @@ def trace_rays_kerr_cuda(metric, r_obs, alphas, thetas, theta_obs,
             lambda_max, max_steps, precision=precision,
             formulation=formulation, return_unconverged=return_unconverged,
             method=method, event_interp=event_interp,
-            force_invalid=force_invalid)
+            force_invalid=force_invalid, dynamic_params=dynamic_params)
+    metric, r_obs = traced_scalars(metric, r_obs, dynamic_params,
+                                   alphas.dtype)
     check_method(method, event_interp)
     inputs = (("alphas", alphas, None), ("thetas", thetas, None),
               ("axis_refine", axis_refine, torch.bool))
@@ -449,7 +468,8 @@ def trace_rays_kerr_cuda(metric, r_obs, alphas, thetas, theta_obs,
                   max_steps, precision, axis_refine, None,
                   return_unconverged, probe, _cycle_exit, method,
                   event_interp, formulation, force_invalid)
-    count_launch(trace_rays_kerr_cuda, alphas.dtype, method, formulation)
+    count_launch(trace_rays_kerr_cuda, alphas.dtype, method, formulation,
+                 dynamic_params is not None)
     result = TraceResult(out["final_alpha"], out["n_half"], out["status"],
                          out["n_steps"])
     if return_unconverged:
@@ -714,19 +734,23 @@ def trace_rays_kerr_two_pass(metric, r_obs, alphas, thetas, theta_obs,
                              precision: str = "fast",
                              formulation: str = "theta", trace_fn=None,
                              method: str = "dp45",
-                             event_interp: str = "hermite"):
+                             event_interp: str = "hermite",
+                             dynamic_params=None):
     """Straggler-robust tracing: a pass capped at `pass1_steps` attempts
     per ray, then a full-depth re-trace of the first `slots` rays still
     running. Returns TraceResult; see the module docstring. trace_fn:
     the single-pass tracer, trace_rays_kerr_cuda by default (the chip
-    smoke test also drives the plain loop through it)."""
+    smoke test also drives the plain loop through it). dynamic_params:
+    run-time (M, a) or (M, a, r_obs), carried through both passes."""
     trace_rays_kerr_two_pass.launches += 1
     trace_fn = trace_fn or trace_rays_kerr_cuda
+    dyn = {} if dynamic_params is None else dict(
+        dynamic_params=dynamic_params)
     return _two_pass(lambda pick, steps, **kw: trace_fn(
         metric, r_obs, pick(alphas), pick(thetas), theta_obs,
         pick(axis_refine), lambda_max, steps, precision=precision,
         formulation=formulation, method=method, event_interp=event_interp,
-        **kw), pass1_steps, max_steps, slots)
+        **dyn, **kw), pass1_steps, max_steps, slots)
 
 
 # Driver calls, so a run can show which path it took.
@@ -740,7 +764,8 @@ def trace_rays_kerr_hybrid(metric, r_obs, alphas, thetas, theta_obs,
                            s_thresh: float = 1e-3, slots: int | None = None,
                            pass1_steps: int | None = None,
                            precision: str = "fast", method: str = "dp45",
-                           trace_fn=None, probe: dict | None = None):
+                           trace_fn=None, probe: dict | None = None,
+                           dynamic_params=None):
     """The mu-chart tracer with the JAX Pallas backend's semantics (its
     trace_rays_kerr_hybrid with backend="pallas"); returns TraceResult.
 
@@ -759,19 +784,27 @@ def trace_rays_kerr_hybrid(metric, r_obs, alphas, thetas, theta_obs,
     run the plain loop with these semantics (the chip smoke test drives
     the plain loop on the card through it too). probe: a dict that
     receives the "poison", "redo" and pass A's "unconverged" masks
-    (device tensors, no sync).
+    (device tensors, no sync). dynamic_params: run-time (M, a) or (M, a,
+    r_obs) of the sequences, float32 only: the pole risk uses the
+    TracedKerr metric and the run-time radius, and both passes take them
+    (as the JAX Pallas backend's SMEM scalars); lambda_max stays the
+    caller's, for the largest radius of a sweep.
     The plain version with the XLA backend's semantics (no cap, no
     unconverged set) is ops.kerr_trace.trace_rays_kerr_hybrid.
     """
     trace_rays_kerr_hybrid.launches += 1
     trace_fn = trace_fn or trace_rays_kerr_cuda
     kw = dict(precision=precision, method=method, event_interp=event_interp)
+    if dynamic_params is not None:
+        kw["dynamic_params"] = dynamic_params
     if abs(math.sin(float(theta_obs))) < POLAR_OBSERVER_SIN:
         return trace_fn(metric, r_obs, alphas, thetas, theta_obs,
                         axis_refine, lambda_max, max_steps, **kw)
     slots = hybrid_slots(alphas.numel(), slots)
-    poison = hybrid_poison(metric, r_obs, alphas, thetas, theta_obs, slots,
-                           s_thresh)
+    risk_metric, risk_r = traced_scalars(metric, r_obs, dynamic_params,
+                                         alphas.dtype)
+    poison = hybrid_poison(risk_metric, risk_r, alphas, thetas, theta_obs,
+                           slots, s_thresh)
     p1 = max_steps if pass1_steps is None else min(pass1_steps, max_steps)
     res_a, unconv = trace_fn(metric, r_obs, alphas, thetas, theta_obs,
                              axis_refine, lambda_max, p1, formulation="mu",

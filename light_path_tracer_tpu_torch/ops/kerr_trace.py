@@ -35,9 +35,11 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from light_path_tracer_tpu_torch.models.kerr import TracedKerr
 from light_path_tracer_tpu_torch.operands import kernel_operand
 from light_path_tracer_tpu_torch.ops import tableau as tb
 from light_path_tracer_tpu_torch.ops.types import (
@@ -109,8 +111,38 @@ def get_tols(dtype, precision: str = "fast"):
 
 
 def _h_init_for(r_obs) -> float:
-    """Initial step size max(1, r_obs/100)."""
+    """Initial step size max(1, r_obs/100). A 0-dim tensor r_obs is a
+    run-time radius (the third of `dynamic_params`): the step is then
+    formed in its dtype, max(1, 0.01 r_obs) rounded once, as the JAX
+    package forms it for a traced radius."""
+    if isinstance(r_obs, torch.Tensor):
+        h = np.float32(0.01) * np.float32(float(r_obs))
+        return float(max(np.float32(1.0), h))
     return max(1.0, 0.01 * float(r_obs))
+
+
+def traced_scalars(metric, r_obs, dynamic_params, dtype):
+    """The metric and observer radius of a trace with run-time parameters:
+    (metric, r_obs) unchanged when dynamic_params is None; for (M, a) a
+    `TracedKerr` (M, a and its radii formed in float32) in place of
+    `metric`, which is then a placeholder; for (M, a, r_obs) also the
+    radius as a 0-dim float32 tensor, from which the escape radius
+    2 r_obs and the first step (_h_init_for) are formed in float32. The
+    JAX package's dynamic mode is float32 only (its Pallas path), and so
+    is this one: ValueError for any other dtype."""
+    if dynamic_params is None:
+        return metric, r_obs
+    if dtype != torch.float32:
+        raise ValueError(f"dynamic_params traces float32 rays only (the "
+                         f"JAX package's Pallas path is float32-only); got "
+                         f"{dtype}")
+    if len(dynamic_params) not in (2, 3):
+        raise ValueError(f"dynamic_params is (M, a) or (M, a, r_obs), got "
+                         f"{len(dynamic_params)} values")
+    metric = TracedKerr(float(dynamic_params[0]), float(dynamic_params[1]))
+    if len(dynamic_params) == 3:
+        r_obs = torch.tensor(float(dynamic_params[2]), dtype=torch.float32)
+    return metric, r_obs
 
 
 def warp_step_sum(attempts):
@@ -668,7 +700,8 @@ def trace_rays_kerr(metric, r_obs, alphas, thetas, theta_obs, axis_refine,
                     lambda_max: float, max_steps: int = 200000,
                     precision: str = "fast", formulation: str = "theta",
                     method: str = "dp45", return_unconverged: bool = False,
-                    event_interp: str = "hermite", force_invalid=None):
+                    event_interp: str = "hermite", force_invalid=None,
+                    dynamic_params=None):
     """Trace a batch of Kerr rays adaptively; returns TraceResult.
 
     alphas/thetas: (N,) screen viewing angle / azimuth; theta_obs scalar;
@@ -683,10 +716,13 @@ def trace_rays_kerr(metric, r_obs, alphas, thetas, theta_obs, axis_refine,
     (TraceResult, mask) with mask the rays whose raw status is still
     RUNNING after the loop: neither event fired within max_steps attempts
     and lambda was not spent, or it was. The two-pass drivers re-trace
-    those.
+    those. dynamic_params: run-time (M, a) or (M, a, r_obs), float32 only
+    (traced_scalars); `metric` (and with three values `r_obs`) is then a
+    placeholder, and lambda_max must bound the largest radius of a sweep.
     """
     trace_rays_kerr.launches += 1
     dtype = alphas.dtype
+    metric, r_obs = traced_scalars(metric, r_obs, dynamic_params, dtype)
     tols = get_tols(dtype, precision)
     atol = torch.where(axis_refine, torch.full_like(alphas, tols["atol_ref"]),
                        torch.full_like(alphas, tols["atol"]))
@@ -818,11 +854,14 @@ def trace_rays_kerr_hybrid(metric, r_obs, alphas, thetas, theta_obs,
     n_steps is the sum of both passes. A nearly polar observer
     (|sin theta_obs| < 0.1) traces everything in theta. The CUDA driver
     with the Pallas backend's semantics is
-    ops/cuda/kerr_trace_kernel.trace_rays_kerr_hybrid. dynamic_params
-    (traced sequences) is not ported.
+    ops/cuda/kerr_trace_kernel.trace_rays_kerr_hybrid. dynamic_params:
+    run-time (M, a) or (M, a, r_obs) of the sequences, float32 only
+    (traced_scalars): the pole risk, both passes and the extraction use
+    the TracedKerr metric and the run-time radius; lambda_max stays the
+    caller's, for the largest radius of a sweep.
     """
-    if dynamic_params is not None:
-        raise _not_ported("dynamic_params (traced parameter sequences)")
+    metric, r_obs = traced_scalars(metric, r_obs, dynamic_params,
+                                   alphas.dtype)
     kw = dict(precision=precision, method=method, event_interp=event_interp)
     if abs(math.sin(float(theta_obs))) < POLAR_OBSERVER_SIN:
         return trace_rays_kerr(metric, r_obs, alphas, thetas, theta_obs,

@@ -67,9 +67,12 @@ def _bilinear_gather(src_flat, px, py, height, width, wrap):
 
     Texel i's centre sits at coordinate i (the nearest rule is rint), so
     the unit cell is [i, i+1) with weight px - floor(px). wrap=True wraps
-    corners modulo the image, otherwise they clamp to the edge. The blend
-    runs in float64 and rounds once to the source dtype.
+    corners modulo the image, otherwise they clamp to the edge; a
+    (wrap_y, wrap_x) pair sets each axis (the equirect panorama wraps in
+    longitude and clamps at the poles). The blend runs in float64 and
+    rounds once to the source dtype.
     """
+    wrap_y, wrap_x = wrap if isinstance(wrap, tuple) else (wrap, wrap)
     x0f = torch.floor(px)
     y0f = torch.floor(py)
     tx = (px - x0f)[..., None]
@@ -78,11 +81,10 @@ def _bilinear_gather(src_flat, px, py, height, width, wrap):
     y0 = _to_i32(y0f).to(torch.int64)
 
     def at(yy, xx):
-        if wrap:
-            yy, xx = torch.remainder(yy, height), torch.remainder(xx, width)
-        else:
-            yy = torch.clamp(yy, 0, height - 1)
-            xx = torch.clamp(xx, 0, width - 1)
+        yy = (torch.remainder(yy, height) if wrap_y
+              else torch.clamp(yy, 0, height - 1))
+        xx = (torch.remainder(xx, width) if wrap_x
+              else torch.clamp(xx, 0, width - 1))
         return src_flat[yy * width + xx].to(torch.float64)
 
     v00 = at(y0, x0)

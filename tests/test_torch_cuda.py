@@ -86,7 +86,14 @@ component) bitwise the plain loop on the card on 1,024 of chip_smoke.py
 phase 27's rays, on its own launch counter; a metric class, dtype or
 pair it has no instance of raising before a launch; and each lens-map
 mode of phase 27 at 64^2 on the card against the CPU by its gates
-(p27_check).
+(p27_check). The Kerr kernel with run-time parameters (dynamic_params,
+chip_smoke.py phase 28): the theta and mu instances with (M, a) and (M,
+a, r_obs) bitwise the plain loop on the card on 1,024 of phase 8's rays,
+each on its dynamic_ counter; the hybrid over them on 65,536 rays of the
+1024^2 flyby frame bitwise the same driver over the plain loop; float64
+raising before a launch; and each mode of phase 28 (the pan, spin and
+flyby frames, a lensed flyby frame, the panoramas, the star and its pulse
+profile) at 64^2 on the card against the CPU by its gates (p28_check).
 """
 
 import importlib.util
@@ -2017,4 +2024,68 @@ def test_phase27_mode_on_card_matches_cpu(cuda, mode):
                                    if k != "plain") > 0
     oc, _ = SMOKE.p27_render(mode, SMOKE.P27_CHECK, "cpu")
     row = SMOKE.p27_check(mode, og, oc)
+    assert all(v["ok"] for v in row.values()), row
+
+
+@pytest.mark.parametrize("form", list(SMOKE.P28_DYN))
+@pytest.mark.parametrize("chart", SMOKE.P28_CHARTS)
+def test_dynamic_launch_is_its_plain_loop(cuda, chart, form):
+    """chip_smoke.py phase 28: the Kerr kernel's theta and mu instances
+    with run-time (M, a) and (M, a, r_obs) bitwise the plain loop on the
+    card on 1,024 of phase 8's rays, counted on the dynamic_ counter of
+    the chart and never running the plain loop through the wrapper."""
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    al, th = (x[:1024] for x in SMOKE.p28_rays(cuda))
+    name = "dynamic_" + kk.counter_name(torch.float32, "dp45", chart)
+    before = getattr(kk.trace_rays_kerr_cuda, name)
+    plain = kerr_trace.trace_rays_kerr.launches
+    rk = SMOKE.p28_trace(chart, form, al, th)
+    assert getattr(kk.trace_rays_kerr_cuda, name) == before + 1
+    assert kerr_trace.trace_rays_kerr.launches == plain
+    rp = SMOKE.p28_trace(chart, form, al, th, kernel=False)
+    assert SMOKE.p28_bitwise(rk, rp)
+    assert int((rk[0].status == 1).sum()) > 0
+    assert int((rk[0].status == -1).sum()) > 0
+
+
+def test_dynamic_hybrid_is_plain_loop_through_it(cuda):
+    """The hybrid with run-time (M, a, r_obs) on 65,536 rays of phase 28's
+    1024^2 flyby frame, capped at 512, bitwise the same driver over the
+    plain loop."""
+    from light_path_tracer_tpu_torch.models import Kerr as K
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    fa, ft = (x[::16].contiguous() for x in SMOKE.p28_frame_rays(cuda))
+    args = (K(M=1.0, a=0.0), R_OBS, fa, ft, np.pi / 2,
+            torch.zeros(fa.shape, dtype=torch.bool, device=cuda), 5000.0,
+            512)
+    kw = dict(pass1_steps=512, dynamic_params=(1.0, 0.9, 20.0))
+    rk = kk.trace_rays_kerr_hybrid(*args, **kw)
+    rp = kk.trace_rays_kerr_hybrid(*args, trace_fn=trace_rays_kerr_plain,
+                                   **kw)
+    assert all(SMOKE.same_bits(a.cpu(), b.cpu()) for a, b in zip(rk, rp))
+
+
+def test_dynamic_float64_raises_on_card(cuda):
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    al, th = (x[:64].double() for x in SMOKE.p28_rays(cuda))
+    ar = torch.zeros(64, dtype=torch.bool, device=cuda)
+    for dyn in SMOKE.P28_DYN.values():
+        with pytest.raises(ValueError, match="float32"):
+            kk.trace_rays_kerr_cuda(Kerr(M=1.0, a=0.0), R_OBS, al, th,
+                                    np.pi / 2, ar, 5000.0, 100,
+                                    dynamic_params=dyn)
+
+
+@pytest.mark.parametrize("mode", SMOKE.P28_MODES)
+def test_phase28_mode_on_card_matches_cpu(cuda, mode):
+    """chip_smoke.py phase 28's 64^2 render of each mode on the card
+    against the CPU by its gates (p28_check); the card never calls a
+    plain loop."""
+    SMOKE.p28_zero()
+    og = SMOKE.p28_render(mode, SMOKE.P28_CHECK, cuda)
+    n = SMOKE.p28_counts()
+    assert n["plain"] == 0 and sum(v for k, v in n.items()
+                                   if k != "plain") > 0
+    oc = SMOKE.p28_render(mode, SMOKE.P28_CHECK, "cpu")
+    row = SMOKE.p28_check(mode, og, oc)
     assert all(v["ok"] for v in row.values()), row

@@ -191,7 +191,13 @@ def test_port_imports_without_jax():
             "light_path_tracer_tpu_torch.cli.volumetric, "
             "light_path_tracer_tpu_torch.ops.cuda.volumetric_kernel, "
             "light_path_tracer_tpu_torch.ops.cuda.bounds, "
-            "light_path_tracer_tpu_torch.ops.cuda.peak_probe; "
+            "light_path_tracer_tpu_torch.ops.cuda.peak_probe, "
+            "light_path_tracer_tpu_torch.sequence, "
+            "light_path_tracer_tpu_torch.pano, "
+            "light_path_tracer_tpu_torch.star, "
+            "light_path_tracer_tpu_torch.cli.animate, "
+            "light_path_tracer_tpu_torch.cli.pano, "
+            "light_path_tracer_tpu_torch.cli.star; "
             "bad = sorted(m for m in sys.modules if "
             "m.startswith(('jax.', 'light_path_tracer_tpu.')) or "
             "m == 'light_path_tracer_tpu'); print(bad); "
