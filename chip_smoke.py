@@ -77,7 +77,7 @@ Phases:
      dimmer (Doppler beaming); then a 64^2 render on the card against the
      CPU (disk masks >= 99 %, median |d image| < 1e-3 on disk pixels).
  11. extras kernel vs plain version: 4,096 random rays (alpha in [0.3, 4]
-     alpha_crit, theta_obs = 80 deg, max_steps 1500, sat_window 512), the
+     alpha_crit, theta_obs = 80 deg, max_steps 1000, sat_window 512), the
      thin, absorbed (alpha0 0.5), jet (beta 0.6, index -1), 2-band
      (0.5/2, q 2) and 3-band (0.1/1/10, q 3) spectral forms (status
      agreement > 0.99, p99 |d tau| < 1e-3, p99 |d emission| / max per
@@ -107,7 +107,7 @@ Phases:
      loop: Stokes (toroidal and vertical field, four per-ray aux
      constants), Movie<8> thin and absorbed (alpha0 0.3, spot_amp 8, eight
      frames over one blob period) and Order<3> thin and absorbed, on
-     phase 11's 4,096 random rays with max_steps 1500 and sat_window 512
+     phase 11's 4,096 random rays with max_steps 1000 and sat_window 512
      (the plain loop costs ~10-40 ms an iteration, whatever the batch),
      against the plain loop in float32 and (Stokes, movie) float64; then
      the five forms of phase 15 on the scene's 256^2 grid, the Stokes
@@ -458,11 +458,44 @@ Phases:
      1024`, `star --pulse-profile 64 --light-travel-delay` at 128^2; the
      spin sweep a = 0, 0.5, 0.9, 0.99 at 1024^2 through
      render_param_sequence; a flyby frame under torch.profiler.
-The plain loops of phases 11-15, 17, 20-22 and 24-28 and their CPU
+ 29. the paths that run no kernel of their own, plain PyTorch on the
+     card with their blocks of steps replayed as CUDA graphs
+     (ops/graphs.py): through the CLI, with the counts zeroed just
+     before and read just after, `ray --no-plot` and `plot` (its ten
+     default angles: the Kerr kernel at a = 0.9, the orbit kernel at
+     a = 0; whether matplotlib drew the figure is printed), `orbit
+     --no-plot --npz` at its defaults (peri 8, apo 16, 6,000 steps) for
+     a = 0 and 0.9 and `shadow --integrator rk4 --a 0.9 --size 1024`
+     (these two in children on the card, queued at phase 23);
+     the ten angles in float64 through trace_ray (the kernels) and
+     trace_ray_trajectories on Kerr a 0.9 and Schwarzschild against the
+     same calls on the CPU (equal outcomes and windings; final alpha
+     within 1e-6 rad and the recorded paths within 1e-7 of their
+     scale, with equal sample counts, on the rays outside 0.9-1.1
+     alpha_crit, whose float64 sin / cos ulps grow as e^(pi winding)
+     near the critical curve, printed for the rest); each orbit's
+     precession equal to the CPU's within 1e-8 rad and the Schwarzschild
+     advance within 2e-3 of the exact radial quadrature; the RK4 1024^2
+     frame against the DP45 kernel's by tests/test_integrators.py's bars
+     (status agreement >= 95 % away from alpha_crit, median |d alpha| <
+     5e-3, p90 < 3e-2), its time, iterations and device kernels an
+     iteration (torch.profiler); `shadow --metric-py
+     examples/user_metric_torch.py:hayward --size 512` and
+     `:rotating_hayward --a 0.9 --size 512` (in a child on the card,
+     queued at phase 23: each bisects its alpha_crit on the plain loop),
+     the 512^2 frames' traces, and the closure identity
+     CustomMetric(kerr_covariant(1, 0.9)) at 512^2 against the Kerr
+     kernel (phase 3's gates), each also at 64^2 against the CPU (masks
+     >= 99 %, final alpha p99 < 1e-3 rad where finite in both); the fit
+     (in a child on the card): fit_scene_params from a = 0.35 to 0.7 on
+     the 32 x 32 fan of tests/test_diff.py's fit (r_obs 20, theta_obs 80
+     deg, n_steps 1024) within 1e-4, d(mean alpha)/da by autograd within
+     1e-4 relative of a central difference.
+The plain loops of phases 11-15, 17, 20-22 and 24-29 and their CPU
 renders run in PLAIN_WORKERS child processes (PlainPool), queued at the
-start of phase 11 (phases 11-15) and of phases 17, 21, 22, 24 (also
-phase 27's), 25 and 26 (also phase 28's), and when phase 20 has drawn
-its sample, while
+start of phase 11 (phases 11-15) and of phases 17, 21, 22, 23 (also
+phase 29's), 24 (also phase 27's), 25 and 26 (also phase 28's), and when
+phase 20 has drawn its sample, while
 the
 parent runs its kernels; the plain_ms of those phases is the call's time
 in its child, beside the other children's work on the card. A kernel
@@ -540,7 +573,9 @@ count their launches on the flyby and spin-sweep paths (the dynamic_
 counters), time each instance alone on the 4,096 rays with (M, a,
 r_obs) (m_a_ms: with (M, a); static_twin_ms: the static Kerr(1, 0.99)
 instance on the same rays, in turns) and the driver on the 1024^2 flyby
-frame, against the plain loop in its child.
+frame, against the plain loop in its child. Phase 29 adds no entry: its
+paths launch no kernel of their own (the ray and plot paths' launches of
+the Kerr and orbit kernels are counted and required there).
 The last line is {"ok": true,
 "device": {...}}. Exit code 0 iff every phase
 passed; without a CUDA device it exits 1 and prints no result.
@@ -1224,9 +1259,10 @@ VOL_PLAIN_DIM = (256, 256)
 VOL_CHECK_DIM = (64, 64)
 # Attempt cap and exits' window of phase 11: the cap above the exits'
 # ~600 attempts at sat_window 512 (the plain loop costs ~10-40 ms an
-# iteration, and a lane that never ends runs to the cap); phase 12's
-# driver check runs without the exits, capped at DRIVER_STEPS.
-VOL_STEPS = 1500
+# iteration, and a lane that never ends runs to the cap: the 3-band
+# form's slowest lane needs 2,110, so the cap sets its plain loop's time);
+# phase 12's driver check runs without the exits, capped at DRIVER_STEPS.
+VOL_STEPS = 1000
 VOL_WINDOW = 512
 DRIVER_STEPS = 512
 # Attempt cap of phase 12's 256^2 grid, kernel and plain loop alike.
@@ -1680,8 +1716,9 @@ MOVIE_SOURCE = "light_path_tracer_tpu_torch/csrc/kerr_dp45_movie_{}.cu"
 ORDER_SOURCE = "light_path_tracer_tpu_torch/csrc/kerr_dp45_orders.cu"
 PROBE_SOURCE = "light_path_tracer_tpu_torch/csrc/peak_probe.cu"
 # Phase 14's depth: the plain loop costs ~10 ms an iteration whatever the
-# batch, so its runs are capped here and the exits' window is short.
-AUX_STEPS = 1500
+# batch, so its runs are capped here (above the exits' ~600 attempts) and
+# the exits' window is short.
+AUX_STEPS = 1000
 AUX_WINDOW = 512
 # The 256^2 grid's forms with (attempt cap, sat_window): the main path's
 # window with the cap at 2,048, except the movie and thin order forms,
@@ -8325,6 +8362,471 @@ def p28_trace_pass(al, th, chart, poison, probe):
         max(LAMBDA_MAX, 6.0 * P28_FLY[0]), P28_FRAME_STEPS, **kw)
 
 
+# Phase 29: the paths that run no kernel of their own. The `plot` CLI's
+# default angles (deg); its families; the `orbit` CLI's default orbit and
+# the spins it runs at.
+P29_ANGLES = (0.0, 2.0, 4.0, 5.0, 5.5, 5.97, 6.5, 8.0, 10.0, 15.0)
+P29_FAMILIES = ("kerr", "schwarzschild")
+P29_ORBIT = dict(peri=8.0, apo=16.0, steps=6000)
+P29_SPINS = (0.0, 0.9)
+P29_RK4_SIZE = 1024
+# The user metrics of examples/user_metric_torch.py and their spins; the
+# closure identity CustomMetric(kerr_covariant(1, 0.9)) beside them.
+P29_EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "examples", "user_metric_torch.py")
+P29_CUSTOM = {"hayward": 0.0, "rotating_hayward": 0.9, "closure": 0.9}
+P29_CUSTOM_SIZE = 512
+P29_CHECK = (64, 64)
+# The fit: tests/test_diff.py's fit fan at 32 x 32.
+P29_FIT = dict(r_obs=20.0, theta_obs=float(np.radians(80.0)), n_steps=1024,
+               h_max=0.5, a=0.7, a0=0.35, side=32, lo=0.45, hi=1.0)
+
+
+def p29_metric(name):
+    """A phase-29 metric by name: Kerr a 0.9, Schwarzschild, a user metric
+    of examples/user_metric_torch.py, or the closure identity."""
+    from light_path_tracer_tpu_torch.models import (
+        CustomMetric, Kerr, Schwarzschild, kerr_covariant, load_user_metric)
+    if name == "kerr":
+        return Kerr(M=1.0, a=0.9)
+    if name == "schwarzschild":
+        return Schwarzschild(M=1.0)
+    if name == "closure":
+        return CustomMetric(M=1.0, a=0.9, covariant_fn=kerr_covariant(1.0, 0.9),
+                            label="closure")
+    return load_user_metric(f"{P29_EXAMPLES}:{name}", M=1.0,
+                            a=P29_CUSTOM[name])
+
+
+def p29_paths(name, device):
+    """The ten angles in float64 on `device`: trace_ray's (final alpha,
+    winding, outcome) through trace_batch, and trace_ray_trajectories'
+    outcomes and recorded paths (n_valid, 8)."""
+    import torch
+    from light_path_tracer_tpu_torch.trajectory import trace_ray_trajectories
+    m = p29_metric(name)
+    rays = [m.trace_ray(R_OBS, float(np.radians(d)), dtype=torch.float64,
+                        device=device) for d in P29_ANGLES]
+    trajs = trace_ray_trajectories(m, R_OBS, np.radians(P29_ANGLES),
+                                   dtype=torch.float64, device=device)
+    return dict(alpha=np.array([r[0] for r in rays]),
+                n_half=np.array([r[1] for r in rays]),
+                outcome=[r[2] for r in rays],
+                path_outcome=[o for _t, o in trajs],
+                paths=[None if t is None else
+                       t.states[:int(t.n_valid)].cpu().numpy()
+                       for t, _o in trajs])
+
+
+def p29_paths_check(name, og, oc):
+    """The card's p29_paths against the CPU's: equal outcomes everywhere;
+    on the angles outside 0.9-1.1 alpha_crit equal windings, final alpha
+    within 1e-6 rad and the recorded paths of equal length within 1e-7 of
+    their largest |state|; the gaps of the near-critical angles printed."""
+    ac = float(np.degrees(p29_metric(name).alpha_crit(R_OBS, device="cpu")))
+    rows, ok = {}, og["outcome"] == oc["outcome"] and (
+        og["path_outcome"] == oc["path_outcome"])
+    for i, deg in enumerate(P29_ANGLES):
+        stable = abs(deg - ac) > 0.1 * ac
+        da = abs(og["alpha"][i] - oc["alpha"][i])
+        pg, pc = og["paths"][i], oc["paths"][i]
+        row = dict(outcome=og["outcome"][i], stable=stable,
+                   d_alpha=None if np.isnan(da) else float(da),
+                   n_half=[int(og["n_half"][i]), int(oc["n_half"][i])],
+                   samples=[None if pg is None else len(pg),
+                            None if pc is None else len(pc)])
+        if pg is not None and pc is not None and len(pg) == len(pc):
+            row["path_rel"] = float(np.abs(pg - pc).max()
+                                    / np.abs(pc).max())
+        if stable:
+            ok = (ok and row["n_half"][0] == row["n_half"][1]
+                  and (row["outcome"] != "escaped" or da < 1e-6)
+                  and row["samples"][0] == row["samples"][1]
+                  and row.get("path_rel", 0.0) < 1e-7)
+        rows[f"{deg:g}"] = row
+    return dict(alpha_crit_deg=ac, rays=rows), ok
+
+
+def p29_quadrature(r_p, r_a, M=1.0):
+    """The exact Schwarzschild periapsis advance per orbit [rad] by the
+    radial quadrature: V(u) = E^2 - (1 - 2Mu)(1 + L^2 u^2) has the roots
+    1/r_a, 1/r_p and 1/(2M) - 1/r_a - 1/r_p, and the substitution
+    u = (u1 + u2)/2 - (u2 - u1)/2 cos(psi) leaves the smooth integrand
+    1 / sqrt(2M (u3 - u))."""
+    u1, u2 = 1.0 / r_a, 1.0 / r_p
+    u3 = 1.0 / (2.0 * M) - u1 - u2
+    psi = np.linspace(0.0, np.pi, 200001)
+    u = 0.5 * (u1 + u2) - 0.5 * (u2 - u1) * np.cos(psi)
+    return 2.0 * np.trapezoid(1.0 / np.sqrt(2.0 * M * (u3 - u)),
+                              psi) - 2.0 * np.pi
+
+
+def p29_cli(argv):
+    """One CLI run in this process: (rc, seconds, stdout lines)."""
+    import contextlib
+    import io
+    from light_path_tracer_tpu_torch.cli import main as cli_main
+    buf = io.StringIO()
+    _sync()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    _sync()
+    return rc, time.perf_counter() - t0, buf.getvalue().strip().splitlines()
+
+
+def p29_orbit(a, device, npz):
+    """`orbit --no-plot` at its defaults and spin a on `device`, its
+    numbers written to npz: (rc, seconds, lines, the npz's arrays)."""
+    rc, secs, lines = p29_cli(
+        ["orbit", "--no-plot", "--a", str(a), "--peri",
+         str(P29_ORBIT["peri"]), "--apo", str(P29_ORBIT["apo"]), "--steps",
+         str(P29_ORBIT["steps"]), "--device", str(device), "--npz", npz])
+    rec = dict(np.load(npz)) if rc == 0 else {}
+    return rc, secs, lines, rec
+
+
+def p29_counters():
+    """The counts phase 29's paths read: the Kerr kernel's and the orbit
+    kernel's launches (both dtypes), the plain Kerr and orbit loops' and
+    the fixed-step RK4 loop's calls."""
+    from light_path_tracer_tpu_torch.ops import kerr_trace as tk
+    from light_path_tracer_tpu_torch.ops import schwarzschild_trace as st
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    from light_path_tracer_tpu_torch.ops.cuda import schwarzschild_kernel
+    from light_path_tracer_tpu_torch.ops.kerr_rk4 import trace_rays_kerr_rk4
+    return dict(kerr=kk.trace_rays_kerr_cuda,
+                orbit=schwarzschild_kernel.trace_rays_schwarzschild_cuda,
+                plain=tk.trace_rays_kerr, plain_orbit=st.trace_rays_schwarzschild,
+                rk4=trace_rays_kerr_rk4)
+
+
+def p29_zero():
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    c = p29_counters()
+    kk.zero_counters(c["kerr"])
+    c["orbit"].launches = c["orbit"].launches_f64 = 0
+    for key in ("plain", "plain_orbit", "rk4"):
+        c[key].launches = 0
+
+
+def p29_counts():
+    c = p29_counters()
+    k = c["kerr"]
+    return dict(kerr=k.launches + k.launches_f64,
+                orbit=c["orbit"].launches + c["orbit"].launches_f64,
+                plain=c["plain"].launches,
+                plain_orbit=c["plain_orbit"].launches, rk4=c["rk4"].launches)
+
+
+def p29_rk4_cli(out):
+    """`shadow --integrator rk4 --a 0.9 --size 1024` on the card, the
+    counts zeroed just before and read just after: (rc, seconds, lines,
+    counts)."""
+    p29_zero()
+    rc, secs, lines = p29_cli(
+        ["shadow", "--integrator", "rk4", "--a", "0.9", "--size",
+         str(P29_RK4_SIZE), "--device", "cuda", "--output", out])
+    return rc, secs, lines, p29_counts()
+
+
+def p29_custom_cli(name, out):
+    """`shadow --metric-py examples/user_metric_torch.py:NAME --size 512`
+    (with --a at the example's spin) on the card, the counts zeroed just
+    before and read just after: (rc, seconds, lines, counts)."""
+    p29_zero()
+    rc, secs, lines = p29_cli(
+        ["shadow", "--metric-py", f"{P29_EXAMPLES}:{name}", "--a",
+         str(P29_CUSTOM[name]), "--size", str(P29_CUSTOM_SIZE), "--device",
+         "cuda", "--output", out])
+    return rc, secs, lines, p29_counts()
+
+
+def p29_frame(name, dim, device, integrator="dp45"):
+    """One frame's trace through precompute_final_alpha on `device`:
+    (final alpha as float64 NumPy, integrator steps, seconds, the alpha
+    grid). Kerr a = 0.9 unless `name` names a custom metric."""
+    import torch
+    from light_path_tracer_tpu_torch import camera
+    from light_path_tracer_tpu_torch.pipeline import precompute_final_alpha
+    from light_path_tracer_tpu_torch.utils.config import (RenderConfig,
+                                                          SceneConfig)
+    custom = None if name == "kerr" else p29_metric(name)
+    a = 0.9 if custom is None else P29_CUSTOM[name]
+    scene = SceneConfig(M=1.0, a=a, r_obs_mult=R_OBS, custom_metric=custom)
+    fov = camera.fov_from_vertical(scene.vertical_fov, dim)
+    _sync()
+    t0 = time.perf_counter()
+    pre = precompute_final_alpha(scene, RenderConfig(integrator=integrator),
+                                 dim, fov, device=device)
+    fa = pre.final_alpha.to(torch.float64).cpu().numpy()
+    secs = time.perf_counter() - t0
+    alpha = camera.build_alpha_lookup(dim, fov, device="cpu").numpy(
+    ).astype(np.float64)
+    return fa, int(pre.steps), secs, alpha
+
+
+def p29_frame_check(fg, fc):
+    """Two frames' final alpha: the masks (NaN = not escaped) equal on
+    >= 99 % and p99 |d alpha| < 1e-3 rad where finite in both."""
+    agree = float((np.isnan(fg) == np.isnan(fc)).mean())
+    both = np.isfinite(fg) & np.isfinite(fc)
+    p99 = float(np.percentile(np.abs(fg - fc)[both], 99))
+    return dict(mask_agree=agree, p99=p99), agree >= 0.99 and p99 < 1e-3
+
+
+def p29_fit():
+    """fit_scene_params on the card from a = 0.35 on the 32 x 32 fan of
+    data traced at a = 0.7, and d(mean alpha)/da at 0.6 by autograd and
+    by a central difference (eps 1e-5)."""
+    import torch
+    from light_path_tracer_tpu_torch import diff
+    f = P29_FIT
+    al = np.linspace(f["lo"], f["hi"], f["side"])
+    th = np.linspace(0.2, 2 * np.pi - 0.2, f["side"], endpoint=False)
+    A, T = np.meshgrid(al, th)
+    f64 = dict(dtype=torch.float64, device="cuda")
+    al, th = torch.tensor(A.ravel(), **f64), torch.tensor(T.ravel(), **f64)
+    kw = dict(n_steps=f["n_steps"], h_max=f["h_max"])
+    observed, status = diff.trace_final_alpha_diff(
+        1.0, f["a"], f["r_obs"], al, th, f["theta_obs"], **kw)
+    _sync()
+    t0 = time.perf_counter()
+    fitted, history = diff.fit_scene_params(
+        observed, al, th, {"a": f["a0"]},
+        {"M": 1.0, "r_obs": f["r_obs"], "theta_obs": f["theta_obs"]},
+        iters=20, **kw)
+    _sync()
+    secs = time.perf_counter() - t0
+
+    def mean_alpha(a):
+        fa, st = diff.trace_final_alpha_diff(1.0, a, f["r_obs"], al, th,
+                                             f["theta_obs"], **kw)
+        ok = st == 1
+        return torch.where(ok, fa, torch.zeros_like(fa)).sum() / ok.sum()
+    a = torch.tensor(0.6, requires_grad=True, **f64)
+    _sync()
+    t0 = time.perf_counter()
+    (grad,) = torch.autograd.grad(mean_alpha(a), a)
+    _sync()
+    grad_s = time.perf_counter() - t0
+    with torch.no_grad():
+        fd = (float(mean_alpha(0.6 + 1e-5)) - float(mean_alpha(0.6 - 1e-5))
+              ) / 2e-5
+    return dict(fitted_a=fitted["a"], history=history,
+                iterations=len(history) - 1, seconds=secs,
+                s_per_iteration=secs / max(len(history) - 1, 1),
+                escaped=int((status == 1).sum()), rays=int(al.numel()),
+                grad=float(grad), grad_s=grad_s, central_difference=fd)
+
+
+def queue_phase29(pool, dev):
+    """Queue phase 29's CPU runs (the ten angles, the two orbits, the
+    64^2 user-metric frames) and its runs in children on the card (the
+    two orbits, the RK4 shadow and the two --metric-py CLIs, the fit):
+    none of these launches a kernel of this package, and each is host-
+    bound, so they run beside the parent's phases 23-28."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="p29_")
+    jobs = dict(tmp=tmp)
+    for name in P29_FAMILIES:
+        jobs["paths", name] = pool.submit("p29_paths", name, "cpu", on="cpu")
+    for a in P29_SPINS:
+        for device in ("cpu", "cuda"):
+            jobs["orbit", a, device] = pool.submit(
+                "p29_orbit", a, device,
+                os.path.join(tmp, f"orbit_{device}_{a}.npz"), on=device)
+    jobs["rk4_cli"] = pool.submit("p29_rk4_cli",
+                                  os.path.join(tmp, "rk4.png"))
+    for name in P29_CUSTOM:
+        jobs["frame64", name] = pool.submit("p29_frame", name, P29_CHECK,
+                                            "cpu", on="cpu")
+    for name in ("hayward", "rotating_hayward"):
+        jobs["cli", name] = pool.submit(
+            "p29_custom_cli", name, os.path.join(tmp, f"{name}.png"))
+    jobs["fit"] = pool.submit("p29_fit")
+    return jobs
+
+
+def paths_phase(dev, card, pool, ctx):
+    """Phase 29: ray, plot and orbit, the fixed-step RK4, user metrics and
+    the differentiable fit on the card (module docstring)."""
+    import torch
+    t_phase = time.perf_counter()
+    jobs = ctx["jobs"]
+    tmp = jobs["tmp"]
+    try:
+        import matplotlib  # noqa: F401
+        figures = "matplotlib imports: the figures are drawn"
+    except ImportError:
+        figures = "matplotlib is not installed: no figure is drawn"
+    print(f"  {figures}", flush=True)
+
+    # -- (a) ray and plot through the CLI, counts zeroed around each
+    runs = {"ray": ["ray", "--no-plot"],
+            "ray a=0.9": ["ray", "--no-plot", "--a", "0.9"],
+            "plot a=0.9": ["plot", "--a", "0.9", "--output",
+                           os.path.join(tmp, "plot9.png")],
+            "plot a=0": ["plot", "--output", os.path.join(tmp, "plot0.png")]}
+    paths = {}
+    for label, argv in runs.items():
+        p29_zero()
+        rc, secs, lines = p29_cli(argv + ["--device", "cuda"])
+        row = dict(rc=rc, seconds=secs, counts=p29_counts(),
+                   said=[l for l in lines if not l.startswith("Saved")])
+        paths[label] = row
+        print(f"  {label}: {json.dumps(row)} on {card}", flush=True)
+        require(rc == 0 and row["counts"]["plain"] == 0
+                and row["counts"]["plain_orbit"] == 0,
+                f"phase 29 {label}: {row}")
+    require(paths["plot a=0.9"]["counts"]["kerr"] == len(P29_ANGLES)
+            and paths["plot a=0"]["counts"]["orbit"] == len(P29_ANGLES),
+            f"phase 29 plot paths: {paths}")
+
+    # -- (b) the ten angles in float64 on the card against the CPU
+    for name in P29_FAMILIES:
+        p29_zero()
+        _sync()
+        t0 = time.perf_counter()
+        og = p29_paths(name, "cuda")
+        secs = time.perf_counter() - t0
+        counts = p29_counts()
+        _ms, oc = PlainPool.result(jobs["paths", name], "cpu")
+        row, ok = p29_paths_check(name, og, oc)
+        row.update(seconds=secs, counts=counts)
+        print(f"  float64 trace_ray and paths, {name}, card vs CPU: "
+              f"{json.dumps(row)}", flush=True)
+        require(ok and counts["plain"] == 0 and counts["plain_orbit"] == 0
+                and counts["kerr"] + counts["orbit"] == len(P29_ANGLES),
+                f"phase 29 {name} paths: {row}")
+
+    # -- (c) orbit at its defaults for a = 0 and 0.9 (its child on the
+    # card), against the CPU
+    orbits = {}
+    for a in P29_SPINS:
+        _ms, (rc, secs, lines, rec) = PlainPool.result(
+            jobs["orbit", a, "cuda"], "cpu")
+        _ms, (rc_c, secs_c, _lines_c, rec_c) = PlainPool.result(
+            jobs["orbit", a, "cpu"], "cpu")
+        adv, adv_c = rec.get("periapsis_advance"), rec_c.get(
+            "periapsis_advance")
+        row = dict(rc=rc, seconds=secs, cpu_seconds=secs_c, said=lines,
+                   samples=int(len(rec.get("states", ()))),
+                   passages=None if adv is None else int(len(adv)))
+        same = (rc == rc_c == 0 and adv is not None and adv_c is not None
+                and len(adv) == len(adv_c))
+        if same:
+            row["d_precession_max"] = float(np.abs(adv - adv_c).max())
+            row["h_residual"] = float(np.abs(rec["hamiltonian"] + 0.5).max())
+        if a == 0.0 and adv is not None:
+            exact = p29_quadrature(P29_ORBIT["peri"], P29_ORBIT["apo"])
+            row.update(advance_mean=float(np.mean(adv)), exact=exact,
+                       rel=float(abs(np.mean(adv) / exact - 1.0)))
+            same = same and row["rel"] < 2e-3
+        orbits[f"a={a:g}"] = row
+        print(f"  orbit --no-plot a = {a:g} (its child on the card): "
+              f"{json.dumps(row)} on {card}", flush=True)
+        require(same and row["d_precession_max"] < 1e-8,
+                f"phase 29 orbit a={a:g}: {row}")
+
+    # -- (d) the fixed-step RK4 1024^2 shadow (the CLI in its child on
+    # the card), its frame against the DP45 kernel's
+    size = P29_RK4_SIZE
+    _ms, (rc, secs, lines, counts) = PlainPool.result(jobs["rk4_cli"], "cpu")
+    rk4_cli = dict(rc=rc, seconds=secs, counts=counts,
+                   said=[l for l in lines if not l.startswith("Saved")])
+    print(f"  shadow --integrator rk4 --a 0.9 --size {size} (its child on "
+          f"the card): {json.dumps(rk4_cli)} on {card}", flush=True)
+    require(rc == 0 and rk4_cli["counts"]["rk4"] == 1
+            and rk4_cli["counts"]["kerr"] == 0
+            and rk4_cli["counts"]["plain"] == 0, f"phase 29 rk4: {rk4_cli}")
+    dim = (size, size)
+    fr, steps_r, secs_r, alpha = p29_frame("kerr", dim, "cuda", "rk4")
+    fd, steps_d, secs_d, _alpha = p29_frame("kerr", dim, "cuda")
+    ac = p29_metric("kerr").alpha_crit(R_OBS)
+    away = (alpha < 0.8 * ac) | (alpha > 1.2 * ac)
+    both = np.isfinite(fr) & np.isfinite(fd)
+    d = np.abs(fr - fd)[both]
+    from light_path_tracer_tpu_torch.models import Kerr
+    from light_path_tracer_tpu_torch.ops.kerr_rk4 import trace_rays_kerr_rk4
+    from light_path_tracer_tpu_torch.pipeline import trace_inputs
+    from light_path_tracer_tpu_torch.utils.config import (RenderConfig,
+                                                          SceneConfig)
+    from light_path_tracer_tpu_torch import camera
+    scene = SceneConfig(M=1.0, a=0.9, r_obs_mult=R_OBS)
+    al, th, rf, _rows = trace_inputs(scene, RenderConfig(), dim,
+                                     camera.fov_from_vertical(
+                                         scene.vertical_fov, dim), dev)
+    capped = 16
+    prof = device_profile(lambda: trace_rays_kerr_rk4(
+        Kerr(M=1.0, a=0.9), R_OBS, al, th, np.pi / 2, rf, LAMBDA_MAX,
+        capped), 1)
+    rk4 = dict(status_agree_away=float((np.isfinite(fr) == np.isfinite(fd))
+                                       [away].mean()),
+               median=float(np.median(d)), p90=float(np.percentile(d, 90)),
+               rk4_s=secs_r, rk4_iterations=steps_r, dp45_kernel_s=secs_d,
+               dp45_warp_steps=steps_d,
+               kernels_per_iteration=prof["launches"] / capped,
+               profile_16_iterations=prof)
+    rk4["kernels_per_frame"] = rk4["kernels_per_iteration"] * steps_r
+    print(f"  RK4 1024^2 frame against the DP45 kernel's: {json.dumps(rk4)}"
+          f" on {card}", flush=True)
+    require(rk4["status_agree_away"] >= 0.95 and rk4["median"] < 5e-3
+            and rk4["p90"] < 3e-2, f"phase 29 rk4 vs dp45: {rk4}")
+    del al, th, rf
+
+    # -- (e) user metrics: the 512^2 frames, the closure identity, 64^2
+    # against the CPU, the --metric-py CLIs from their child
+    custom = {}
+    n = P29_CUSTOM_SIZE
+    fk, _steps, _secs, alpha_c = p29_frame("kerr", (n, n), "cuda")
+    for name in P29_CUSTOM:
+        p29_zero()
+        fg, steps, secs, _alpha = p29_frame(name, (n, n), "cuda")
+        row = dict(seconds=secs, warp_steps=steps, counts=p29_counts(),
+                   escaped=int(np.isfinite(fg).sum()))
+        require(row["counts"]["kerr"] == 0 and row["counts"]["plain"] == 1,
+                f"phase 29 {name} frame: {row}")
+        if name == "closure":
+            ac9 = p29_metric("kerr").alpha_crit(R_OBS)
+            stable = np.abs(alpha_c - ac9) > 0.05 * ac9
+            sk, sc = np.isfinite(fk), np.isfinite(fg)
+            dd = np.abs(fk - fg)[sk & sc & stable]
+            row.update(status_agree=float((sk == sc).mean()),
+                       p99=float(np.percentile(dd, 99)))
+            require(row["status_agree"] > 0.99 and row["p99"] < 2e-3,
+                    f"phase 29 closure identity: {row}")
+        og, _s, _t, _a = p29_frame(name, P29_CHECK, "cuda")
+        _ms, (oc, _s2, _t2, _a2) = PlainPool.result(jobs["frame64", name],
+                                                    "cpu")
+        row["check64"], ok = p29_frame_check(og, oc)
+        require(ok, f"phase 29 {name} 64^2 card vs CPU: {row}")
+        custom[name] = row
+        print(f"  {name} {n}^2 trace and 64^2 card vs CPU: "
+              f"{json.dumps(row)} on {card}", flush=True)
+    for name in ("hayward", "rotating_hayward"):
+        _ms, (rc, secs, lines, counts) = PlainPool.result(jobs["cli", name],
+                                                          "cpu")
+        row = dict(rc=rc, seconds=secs, counts=counts,
+                   said=[l for l in lines if not l.startswith("Saved")])
+        print(f"  shadow --metric-py {name} --size {n} (its child on the "
+              f"card): {json.dumps(row)}", flush=True)
+        require(rc == 0 and counts["kerr"] == 0 and counts["plain"] >= 1,
+                f"phase 29 --metric-py {name}: {row}")
+
+    # -- (f) the fit, from its child on the card
+    _ms, fit = PlainPool.result(jobs["fit"], "cpu")
+    fit["grad_vs_fd"] = abs(fit["grad"] - fit["central_difference"]) / abs(
+        fit["central_difference"])
+    print(f"  fit_scene_params a {P29_FIT['a0']} -> {P29_FIT['a']} on the "
+          f"{P29_FIT['side']}^2 fan (its child on the card): "
+          f"{json.dumps(fit)}", flush=True)
+    require(abs(fit["fitted_a"] - P29_FIT["a"]) < 1e-4
+            and fit["grad_vs_fd"] < 1e-4, f"phase 29 fit: {fit}")
+    print(f"  [{time.perf_counter() - t_phase:.1f} s] phase 29 done",
+          flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8826,6 +9328,9 @@ def main() -> int:
     # Phase 26's plain loops at the main paths' 1024^2 shapes run beside
     # phases 23-25.
     grid_jobs26, grids26 = queue_phase26_grids(pool, dev)
+    # Phase 29's CPU runs and its runs in children on the card beside
+    # phases 23-28.
+    jobs29 = queue_phase29(pool, dev)
     mu_kernels = mu_phase(dev, card, dict(rates=rates, build=more_build))
 
     # -- 24. the disk family: wide instances and every disk render --------
@@ -8858,6 +9363,10 @@ def main() -> int:
     # and the stellar surface ----------------------------------------------
     stamp(28)
     dynamic_kernels = dynamic_phase(dev, card, pool, dict(jobs=jobs28))
+
+    # -- 29. ray, plot, orbit, RK4, user metrics, the fit -----------------
+    stamp(29)
+    paths_phase(dev, card, pool, dict(jobs=jobs29))
     pool.close()
     stamp("retime")
     retime_entries(card)

@@ -61,6 +61,14 @@ the hybrid tracer with the Kerr kernel's run-time (M, a) and (M, a,
 r_obs) (`dynamic_params`); 360-degree panoramas (`pano.py`:
 `render_panorama`) through `trace_batch`.
 
+The paths that run no Pallas kernel in the JAX package are plain PyTorch
+on every device, their blocks of steps replayed as CUDA graphs on the
+card (`ops/graphs.py`): the 8-D path recorders (`trajectory.py`) and
+timelike orbits (`particles.py`), the fixed-step RK4 tracer
+(`ops/kerr_rk4.py`, `integrator="rk4"`), user-defined metrics
+(`models.CustomMetric`) and the differentiable tracer and fit
+(`diff.py`).
+
 This package imports torch and never jax.
 """
 

@@ -15,6 +15,11 @@ Usage:
   python -m light_path_tracer_tpu_torch pano --a 0.9 --grid-sky --height 512 --output p.png
   python -m light_path_tracer_tpu_torch star --size 256 --output star.png
   python -m light_path_tracer_tpu_torch star --pulse-profile 64 --light-travel-delay --size 128
+  python -m light_path_tracer_tpu_torch ray --alpha-deg 8 --no-plot
+  python -m light_path_tracer_tpu_torch plot --a 0.9 --angles 0,2,4,5.5,5.97,8
+  python -m light_path_tracer_tpu_torch orbit --a 0.9 --peri 8 --apo 16 --no-plot
+  python -m light_path_tracer_tpu_torch shadow --a 0.9 --size 1024 --integrator rk4
+  python -m light_path_tracer_tpu_torch shadow --size 512 --metric-py examples/user_metric_torch.py:hayward
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ from __future__ import annotations
 import argparse
 
 from light_path_tracer_tpu_torch.cli import (animate, disk, lens, pano,
-                                             shadow, star, volumetric)
+                                             shadow, star, trajectory,
+                                             volumetric)
 
 
 def build_parser():
@@ -37,6 +43,9 @@ def build_parser():
     shadow.register(sub)
     star.register(sub)
     volumetric.register(sub)
+    trajectory.register_ray(sub)
+    trajectory.register_plot(sub)
+    trajectory.register_orbit(sub)
     return parser
 
 

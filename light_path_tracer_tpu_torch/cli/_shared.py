@@ -3,6 +3,8 @@ the JAX package's flag names and defaults."""
 
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 
 
@@ -20,6 +22,16 @@ def _add_scene_args(p):
                         "(test-GR deformed Kerr; 0 = GR. Shadow and lens "
                         "modes; mutually exclusive with --Q, not wired "
                         "for disk orbital dynamics)")
+    p.add_argument("--metric-py", default=None, metavar="FILE.py:ATTR",
+                   help="user-defined spacetime: load a covariant-"
+                        "components function (r, th) -> (g_tt, g_tphi, "
+                        "g_rr, g_thth, g_phiphi) written with torch (or "
+                        "a ready CustomMetric) from a local Python file "
+                        "(models.custom.CustomMetric; --M/--a declare "
+                        "the asymptotic Kerr the far field approaches). "
+                        "Shadow/lens/magnification/AA/ray/plot modes; "
+                        "traced on the plain PyTorch loop on any device; "
+                        "mutually exclusive with --Q/--eps3")
     p.add_argument("--r-obs", type=float, default=100.0,
                    help="Observer distance in units of M (default: 100)")
     p.add_argument("--psi-y", type=float, default=0.0,
@@ -61,9 +73,9 @@ def _add_render_args(p):
                         "gate (accuracy tier)")
     p.add_argument("--integrator", default="dp45",
                    choices=["dp45", "dop853", "rk4"],
-                   help="Kerr integrator: dp45 (Dormand-Prince 4(5)) or "
-                        "dop853 (Hairer's 8(5,3)); rk4 is not ported and "
-                        "raises")
+                   help="Kerr integrator: dp45 (Dormand-Prince 4(5)), "
+                        "dop853 (Hairer's 8(5,3)) or rk4 (the fixed-step "
+                        "comparison tracer, plain PyTorch on any device)")
     p.add_argument("--max-steps", type=int, default=200000,
                    help="adaptive-step budget per ray")
     p.add_argument("--sampling", default="nearest",
@@ -160,6 +172,19 @@ def _centroid_report(path, scene, size, emission, light_curve, spot_r):
 
 def _scene_from(args):
     from light_path_tracer_tpu_torch.utils.config import SceneConfig
+    custom = None
+    spec = getattr(args, "metric_py", None)
+    if spec:
+        if args.Q or args.eps3:
+            raise SystemExit(
+                "error: --metric-py is mutually exclusive with "
+                "--Q/--eps3 (the user metric defines the spacetime)")
+        from light_path_tracer_tpu_torch.models import load_user_metric
+        custom = load_user_metric(spec, M=args.M, a=args.a)
+        if (custom.M != args.M or custom.a != args.a) and (
+                args.M != 1.0 or args.a != 0.0):
+            print(f"note: {spec} is a CustomMetric instance with "
+                  f"M={custom.M}, a={custom.a}; ignoring --M/--a")
     return SceneConfig(
         M=args.M, a=args.a, Q=args.Q, eps3=args.eps3,
         r_obs_mult=args.r_obs,
@@ -167,7 +192,19 @@ def _scene_from(args):
         psi_x=float(np.radians(args.psi_x)),
         vertical_fov_deg=args.fov_v,
         theta_obs=float(np.radians(args.theta_obs)),
-        boost=tuple(args.boost))
+        boost=tuple(args.boost), custom_metric=custom)
+
+
+def _reject_metric_py(args, mode: str) -> bool:
+    """Modes whose physics needs the closed-form families (disk orbits,
+    volumetric flows, stellar surfaces, run-time sweeps) refuse
+    --metric-py: prints the error and returns True."""
+    if getattr(args, "metric_py", None):
+        print(f"error: --metric-py is not supported in {mode} mode "
+              "(supported: shadow, lens, magnification, AA, ray, "
+              "plot)", file=sys.stderr)
+        return True
+    return False
 
 
 def _render_cfg_from(args):

@@ -18,6 +18,7 @@ import time
 import numpy as np
 
 from light_path_tracer_tpu_torch.cli._shared import (_add_scene_args,
+                                                     _reject_metric_py,
                                                      _scene_from)
 
 
@@ -52,6 +53,8 @@ def _write_gif(path, frames, fps) -> bool:
 def cmd_animate(args) -> int:
     """Camera-pan or flyby sequence -> PNG frames, .npz and (with Pillow)
     the GIF."""
+    if _reject_metric_py(args, "animate"):
+        return 2
     from light_path_tracer_tpu_torch.sequence import (render_flyby,
                                                       render_sequence)
     from light_path_tracer_tpu_torch.utils.save import read_png, write_png

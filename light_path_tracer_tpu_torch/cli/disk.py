@@ -18,8 +18,8 @@ import numpy as np
 
 from light_path_tracer_tpu_torch.cli._shared import (
     _add_multihost_args, _add_render_args, _add_scene_args,
-    _centroid_report, _render_cfg_from, _stem, _visibility_report,
-    not_ported)
+    _centroid_report, _reject_metric_py, _render_cfg_from, _stem,
+    _visibility_report, not_ported)
 
 
 def _spot_times(args, scene, n):
@@ -205,6 +205,8 @@ def _disk2(args):
 
 def cmd_disk(args) -> int:
     """Accretion-disk render and its one-trace modes."""
+    if _reject_metric_py(args, "disk"):
+        return 2
     from light_path_tracer_tpu_torch.disk import (DiskConfig, render_disk,
                                                   render_disk_aa,
                                                   render_multi_disk)

@@ -12,8 +12,8 @@ from __future__ import annotations
 import numpy as np
 
 from light_path_tracer_tpu_torch.cli._shared import (
-    _add_render_args, _add_scene_args, _render_cfg_from, _scene_from,
-    _visibility_report)
+    _add_render_args, _add_scene_args, _reject_metric_py, _render_cfg_from,
+    _scene_from, _visibility_report)
 
 
 def _plot(png, phases, flux, star, omega, stats) -> bool:
@@ -37,6 +37,8 @@ def _plot(png, phases, flux, star, omega, stats) -> bool:
 def cmd_star(args) -> int:
     """Compact-star surface image / pulse profile (star.py): hot caps on
     a neutron-star surface."""
+    if _reject_metric_py(args, "star"):
+        return 2
     from light_path_tracer_tpu_torch.star import (StarConfig, pulse_profile,
                                                   render_star)
     from light_path_tracer_tpu_torch.utils.save import save_afmhot_png

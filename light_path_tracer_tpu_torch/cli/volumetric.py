@@ -14,8 +14,8 @@ from __future__ import annotations
 import numpy as np
 
 from light_path_tracer_tpu_torch.cli._shared import (
-    _add_render_args, _add_scene_args, _centroid_report, _render_cfg_from,
-    _scene_from, _stem, _visibility_report)
+    _add_render_args, _add_scene_args, _centroid_report, _reject_metric_py,
+    _render_cfg_from, _scene_from, _stem, _visibility_report)
 
 
 def _polarization(args, scene, cfg, riaf) -> int:
@@ -156,6 +156,8 @@ def _spectrum(args, scene, cfg, riaf) -> int:
 def cmd_volumetric(args) -> int:
     """Hot-flow render (volumetric.py): emission integrated along every
     geodesic."""
+    if _reject_metric_py(args, "volumetric"):
+        return 2
     from light_path_tracer_tpu_torch.utils.save import save_afmhot_png
     from light_path_tracer_tpu_torch.volumetric import (RIAFConfig,
                                                         render_volumetric)

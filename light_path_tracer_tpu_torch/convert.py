@@ -17,10 +17,18 @@ from light_path_tracer_tpu_torch.utils.config import RenderConfig, SceneConfig
 
 
 def scene_from_jax(scene) -> SceneConfig:
-    """light_path_tracer_tpu SceneConfig -> this package's SceneConfig."""
+    """light_path_tracer_tpu SceneConfig -> this package's SceneConfig.
+
+    A JAX scene with a custom metric is refused (ValueError): its
+    CustomMetric holds a jax.numpy callable, which this package cannot
+    trace. Build the port's own models.CustomMetric from a torch
+    callable and set it as `custom_metric` instead."""
     if getattr(scene, "custom_metric", None) is not None:
-        raise NotImplementedError(
-            "custom metrics are not ported to the PyTorch package yet")
+        raise ValueError(
+            "the JAX scene's custom_metric holds a jax.numpy covariant "
+            "function, which this package cannot call; build "
+            "light_path_tracer_tpu_torch.models.CustomMetric from a torch "
+            "function instead")
     return SceneConfig(
         M=float(scene.M), a=float(scene.a), Q=float(scene.Q),
         eps3=float(scene.eps3), r_obs_mult=float(scene.r_obs_mult),

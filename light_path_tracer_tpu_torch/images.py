@@ -119,10 +119,9 @@ def _stencil_trace(metric, scene, cfg, resolution, fov, py, px, eps,
     NumPy arrays (NaN where not escaped) and the raw SurfaceResult
     (flat (5K,))."""
     from light_path_tracer_tpu_torch import render as _render
-    from light_path_tracer_tpu_torch.ops.cuda.surface_kernel import (
-        trace_rays_surface_cuda)
     from light_path_tracer_tpu_torch.ops.kerr_trace import ESCAPED
-    from light_path_tracer_tpu_torch.pipeline import _lambda_max
+    from light_path_tracer_tpu_torch.pipeline import (_lambda_max,
+                                                      surface_tracer)
 
     k = py.shape[0]
     off_y = np.array([0.0, 0.0, 0.0, eps, -eps])
@@ -134,7 +133,7 @@ def _stencil_trace(metric, scene, cfg, resolution, fov, py, px, eps,
         torch.tensor(sy, **f64), torch.tensor(sx, **f64), resolution, fov,
         psi=scene.psi, dtype=torch.float64, boost=scene.boost)
     r_obs = scene.r_obs
-    res = trace_rays_surface_cuda(
+    res = surface_tracer(metric)(
         metric, r_obs, al, th, scene.theta_obs,
         r_surface=float(metric.capture_radius()),
         lambda_max=_lambda_max(r_obs), max_steps=cfg.max_steps,

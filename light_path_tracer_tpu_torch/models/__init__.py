@@ -1,10 +1,15 @@
 """Spacetime metric model families: Schwarzschild, Reissner-Nordstrom,
-Kerr, Kerr-Newman and Johannsen-Psaltis."""
+Kerr, Kerr-Newman, Johannsen-Psaltis and user-defined metrics
+(`CustomMetric`)."""
 
 from light_path_tracer_tpu_torch.models.base import Metric
+from light_path_tracer_tpu_torch.models.custom import (
+    CustomMetric, kerr_covariant, load_covariant_fn, load_user_metric,
+    reissner_nordstrom_covariant)
 from light_path_tracer_tpu_torch.models.johannsen_psaltis import (
     JohannsenPsaltis)
-from light_path_tracer_tpu_torch.models.kerr import Kerr, TracedKerr
+from light_path_tracer_tpu_torch.models.kerr import (Kerr, TensorKerr,
+                                                     TracedKerr)
 from light_path_tracer_tpu_torch.models.kerr_newman import KerrNewman
 from light_path_tracer_tpu_torch.models.reissner_nordstrom import (
     ReissnerNordstrom)
@@ -30,5 +35,7 @@ def make_metric(M: float = 1.0, a: float = 0.0,
     return Schwarzschild(M=M)
 
 
-__all__ = ["Metric", "Kerr", "TracedKerr", "KerrNewman", "JohannsenPsaltis",
-           "Schwarzschild", "ReissnerNordstrom", "make_metric"]
+__all__ = ["Metric", "Kerr", "TracedKerr", "TensorKerr", "KerrNewman",
+           "JohannsenPsaltis", "Schwarzschild", "ReissnerNordstrom",
+           "CustomMetric", "kerr_covariant", "reissner_nordstrom_covariant",
+           "load_covariant_fn", "load_user_metric", "make_metric"]

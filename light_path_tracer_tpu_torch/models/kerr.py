@@ -41,7 +41,12 @@ _SIN2_FLOOR = 1e-15
 
 
 def _scalar(x, like):
-    """0-dim tensor of x in `like`'s dtype and device."""
+    """0-dim tensor of x in `like`'s dtype and device. A tensor x (a
+    `TensorKerr` parameter, a differentiable observer radius) is cast,
+    not copied through a Python float, so its shape and autograd graph
+    carry through."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=like.dtype, device=like.device)
     return torch.full((), float(x), dtype=like.dtype, device=like.device)
 
 
@@ -145,6 +150,19 @@ class Kerr(Metric):
         A = (r_obs**2 + a**2)**2 - a**2 * Delta_o * sin_th**2
         arg = b_crit * np.sqrt(Sigma_o * Delta_o / A) / r_obs
         return float(np.arcsin(np.clip(arg, -1.0, 1.0)))
+
+    def viewing_angle_to_impact_parameter(self, alpha, r_obs,
+                                          theta_obs=None):
+        if theta_obs is None:
+            theta_obs = np.pi / 2
+        if self.a == 0:
+            f = 1.0 - 2.0 * self.M / r_obs
+            return r_obs * np.sin(alpha) / np.sqrt(f)
+        Delta = self._Delta(r_obs)
+        Sigma = self._Sigma(r_obs, theta_obs)
+        sin_th = np.sin(theta_obs)
+        A = (r_obs**2 + self.a**2)**2 - self.a**2 * Delta * sin_th**2
+        return r_obs * np.sin(alpha) * np.sqrt(A / (Sigma * Delta))
 
     # ---- batched hot path (torch, structure-of-arrays) ----
 
@@ -512,6 +530,51 @@ class Kerr(Metric):
         out = torch.stack((dr, dmu, dphi, dp_r, dp_mu))
         return torch.where(frozen, torch.zeros_like(out), out)
 
+    def rhs5_autodiff(self, state5, p_t, p_phi):
+        """Reduced-state RHS from autograd of the Hamiltonian H = (1/2)
+        g^{mu nu}(r, theta) p_mu p_nu, generic over the `_inv_terms`
+        hook: the oracle of the hand-derived `rhs5`, and the integrator
+        of a metric with no hand form (`CustomMetric`). H is elementwise
+        over the rays, so the gradient of sum(H) holds each ray's
+        partials; dphi comes from the momentum partial directly. Same
+        frozen-horizon guard as rhs5, at `_freeze_radius`.
+
+        The gradient is taken with grad mode on inside the call, whatever
+        the caller's, on detached copies of the state, and the result is
+        detached: the tracers' loops run without a graph. Returns a (5,
+        N) tensor.
+        """
+        r, th, _phi, p_r, p_th = state5
+        M, a = _scalar(self.M, r), _scalar(self.a, r)
+        r_freeze = _scalar(self._freeze_radius(), r)
+        frozen = r <= r_freeze
+        r_s = torch.where(frozen, 10.0 * r_freeze + 10.0, r)
+        p_t_b = torch.as_tensor(p_t, dtype=r.dtype,
+                                device=r.device).expand(r.shape)
+        p_phi_b = torch.as_tensor(p_phi, dtype=r.dtype,
+                                  device=r.device).expand(r.shape)
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_()
+                      for x in (r_s, th, p_r, p_th)]
+            r_, th_, pr_, pth_ = leaves
+            g_tt, g_tphi, g_rr, g_thth, g_phiphi = self._inv_terms(
+                r_, th_, M, a)[:5]
+            H = 0.5 * torch.sum(
+                g_tt * p_t_b * p_t_b
+                + 2.0 * g_tphi * p_t_b * p_phi_b
+                + g_rr * pr_ * pr_
+                + g_thth * pth_ * pth_
+                + g_phiphi * p_phi_b * p_phi_b)
+            grads = torch.autograd.grad(H, leaves, allow_unused=True)
+        dHr, dHth, dHpr, dHpth = (
+            torch.zeros_like(r) if g is None else g.detach()
+            for g in grads)
+        g_tt, g_tphi, _g_rr, _g_thth, g_phiphi = self._inv_terms(
+            r_s, th, M, a)[:5]
+        dphi = g_tphi * p_t_b + g_phiphi * p_phi_b
+        out = torch.stack((dHpr, dHpth, dphi.detach(), -dHr, -dHth))
+        return torch.where(frozen, torch.zeros_like(out), out)
+
     def tdot(self, state5, p_t, p_phi):
         """Coordinate-time rate dt/dlambda = g^tt p_t + g^tphi p_phi
         along the reduced flow: the t-row of the full Hamiltonian system
@@ -585,6 +648,43 @@ class Kerr(Metric):
                              torch.zeros_like(n_half), n_half)
         return status, final_alpha, n_half
 
+    # ---- full 8-D Hamiltonian path (torch, batched) ----
+
+    def geodesic_equations(self, lam, state8):
+        """Hamilton's equations on the public 8-D state (..., 8), built
+        from the reduced-state `rhs5`: dt = g^tt p_t + g^tphi p_phi
+        (zeroed inside the family's freeze radius) and the cyclic momenta
+        constant."""
+        t, r, th, phi, p_t, p_r, p_th, p_phi = torch.movedim(state8, -1, 0)
+        dr, dth, dphi, dp_r, dp_th = self.rhs5(
+            (r, th, phi, p_r, p_th), p_t, p_phi)[0:5]
+        r_freeze = _scalar(self._freeze_radius(), r)
+        frozen = r <= r_freeze
+        r_s = torch.where(frozen, 10.0 * r_freeze + 10.0, r)
+        g_tt, g_tphi, *_rest = self._inv_terms(r_s, th, self.M, self.a)
+        dt = torch.where(frozen, torch.zeros_like(r),
+                         g_tt * p_t + g_tphi * p_phi)
+        zeros = torch.zeros_like(r)
+        return torch.stack(
+            [dt, dr, dth, dphi, zeros, dp_r, dp_th, zeros], dim=-1)
+
+    def initial_conditions_8d(self, r_obs, alpha, theta=0.0, theta_obs=None):
+        """Batched 8-D initial state from the screen angles (the 5-D
+        initial conditions with t = 0 and the conserved momenta).
+        Returns (state8, invalid_mask)."""
+        if theta_obs is None:
+            theta_obs = np.pi / 2
+        alpha = torch.as_tensor(alpha)
+        theta = torch.as_tensor(theta, dtype=alpha.dtype,
+                                device=alpha.device).expand(alpha.shape)
+        (r0, th0, phi0, p_r, p_th), p_t, p_phi, invalid = (
+            self.initial_conditions_5d(r_obs, alpha, theta, theta_obs))
+        zeros = torch.zeros_like(alpha)
+        state8 = torch.stack(
+            [zeros, r0, th0, phi0, p_t, p_r, p_th,
+             p_phi.expand(alpha.shape)], dim=-1)
+        return state8, invalid
+
 
 class TracedKerr(Kerr):
     """Kerr with run-time (M, a): the sequences' metric (the JAX package's
@@ -625,3 +725,34 @@ class TracedKerr(Kerr):
 
     def _freeze_radius(self) -> float:
         return self._radii["freeze"]
+
+
+class TensorKerr(Kerr):
+    """Kerr with (M, a) as tensors (0-dim, or one value a ray): the
+    differentiable tracer's metric (the JAX package's `TracedKerr` under
+    jax.grad and jax.jacfwd).
+
+    M and a keep their dtype, shape and autograd graph; r_+ = M +
+    sqrt(max(M M - a a, 0)), the capture radius r_+ 1.01, the freeze
+    radius r_+ 1.001 and the reclassification radius (r_+ 1.01) 1.1 are
+    tensors formed from them, so every batched method differentiates
+    through the parameters. Only the batched hot path is meant: no
+    host-side geometry and no |a| <= M check. `TracedKerr` (float32
+    Python floats, the sequences' form) stays as it is.
+    """
+
+    def __init__(self, M, a):
+        r_plus = M + torch.sqrt(torch.clamp(M * M - a * a, min=0.0))
+        object.__setattr__(self, "M", M)
+        object.__setattr__(self, "a", a)
+        object.__setattr__(self, "_r_plus", r_plus)
+
+    @property
+    def r_plus(self):
+        return self._r_plus
+
+    def capture_radius(self):
+        return self._r_plus * 1.01
+
+    def _freeze_radius(self):
+        return self._r_plus * 1.001

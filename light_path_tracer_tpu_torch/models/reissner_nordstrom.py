@@ -13,7 +13,8 @@ equation only:
     u''    = -u + 3 M u^2 - 2 Q^2 u^3
     w0^2   = 1/b^2 - u^2 + 2 M u^3 - Q^2 u^4
 
-|Q| > M (naked singularity) is rejected.
+|Q| > M (naked singularity) is rejected. The 8-D Hamiltonian path
+replaces R_S/(2 r^2) by f'/2 = M/r^2 - Q^2/r^3 in Schwarzschild's.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from light_path_tracer_tpu_torch.models.schwarzschild import (Schwarzschild,
                                                               _scalar)
@@ -79,3 +81,37 @@ class ReissnerNordstrom(Schwarzschild):
                  + 2.0 * M * (u0 * u0_2) - Q2 * (u0_2 * u0_2))
         w0, invalid = self._branch(alphas, w0_sq, b, f0)
         return u0, w0, invalid
+
+    # ---- full 8-D Hamiltonian path ----
+
+    def geodesic_equations(self, lam, state8):
+        """Hamilton's equations with f(r) = 1 - 2M/r + Q^2/r^2: the
+        Schwarzschild body with f'/2 = M/r^2 - Q^2/r^3 in place of
+        R_S/(2 r^2)."""
+        t, r, th, phi, p_t, p_r, p_th, p_phi = torch.movedim(state8, -1, 0)
+        horizon = self.R_S
+        M = self.M
+        Q2 = self.Q * self.Q
+        frozen = r <= horizon * 1.001
+
+        r_safe = torch.where(frozen, torch.full_like(r, 10.0 * horizon), r)
+        f = 1.0 - 2.0 * M / r_safe + Q2 / (r_safe * r_safe)
+        sin_th = torch.sin(th)
+        cos_th = torch.cos(th)
+        sin2 = torch.clamp(sin_th * sin_th, min=1e-15)
+        r2 = r_safe * r_safe
+        r3 = r2 * r_safe
+        half_fp = M / r2 - Q2 / r3          # f'(r) / 2
+
+        dt = -p_t / f
+        dr = f * p_r
+        dth = p_th / r2
+        dphi = p_phi / (r2 * sin2)
+        dp_r = (-half_fp * (p_t * p_t) / (f * f)
+                - half_fp * p_r * p_r
+                + (p_th * p_th + p_phi * p_phi / sin2) / r3)
+        dp_th = cos_th * p_phi * p_phi / (r2 * sin2 * torch.sqrt(sin2))
+        zeros = torch.zeros_like(r)
+        out = torch.stack(
+            [dt, dr, dth, dphi, zeros, dp_r, dp_th, zeros], dim=-1)
+        return torch.where(frozen[..., None], torch.zeros_like(out), out)

@@ -13,8 +13,9 @@ Every batched method computes in the dtype of its input tensors, with
 each Python-float constant rounded once to that dtype and the operations
 in the JAX package's order, so float32 results round the way JAX's do.
 The CUDA orbit kernel (csrc/schwarzschild_rk4.cu) carries the same
-formulas per thread. The 8-D Hamiltonian path serves trajectory plots
-only and is not ported yet.
+formulas per thread. The full 8-D Hamiltonian path (`geodesic_equations`,
+`initial_conditions_8d`) serves the trajectory recorder and the timelike
+orbits.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ import numpy as np
 import torch
 
 from light_path_tracer_tpu_torch.models.base import Metric
+
+_SIN2_FLOOR = 1e-15
 
 # jnp.maximum(x, 1e-300) rounds its floor to the array's dtype: 0.0 in
 # float32 (the literal underflows), 1e-300 in float64.
@@ -130,3 +133,58 @@ class Schwarzschild(Metric):
         final_alpha = torch.arccos(torch.clamp(-torch.cos(heading),
                                                -1.0, 1.0))
         return final_alpha, n_half, captured_by_radius
+
+    # ---- full 8-D Hamiltonian path (torch, batched) ----
+
+    def geodesic_equations(self, lam, state8):
+        """Hamilton's equations on [t, r, th, phi, p_t, p_r, p_th, p_phi]
+        (..., 8), hard-zeroed inside r <= 1.001 R_S, sin^2(theta)
+        floored at 1e-15."""
+        t, r, th, phi, p_t, p_r, p_th, p_phi = torch.movedim(state8, -1, 0)
+        R_S = self.R_S
+        frozen = r <= R_S * 1.001
+
+        r_safe = torch.where(frozen, torch.full_like(r, 10.0 * R_S), r)
+        f = 1.0 - R_S / r_safe
+        sin_th = torch.sin(th)
+        cos_th = torch.cos(th)
+        sin2 = torch.clamp(sin_th * sin_th, min=_SIN2_FLOOR)
+        r2 = r_safe * r_safe
+        r3 = r2 * r_safe
+
+        dt = -p_t / f
+        dr = f * p_r
+        dth = p_th / r2
+        dphi = p_phi / (r2 * sin2)
+        dp_r = (-(R_S / (2.0 * r2)) * (p_t * p_t) / (f * f)
+                - (R_S / (2.0 * r2)) * p_r * p_r
+                + (p_th * p_th + p_phi * p_phi / sin2) / r3)
+        dp_th = cos_th * p_phi * p_phi / (r2 * sin2 * torch.sqrt(sin2))
+        zeros = torch.zeros_like(r)
+        out = torch.stack(
+            [dt, dr, dth, dphi, zeros, dp_r, dp_th, zeros], dim=-1)
+        return torch.where(frozen[..., None], torch.zeros_like(out), out)
+
+    def initial_conditions_8d(self, r_obs, alpha, theta=0.0, theta_obs=None):
+        """Batched 8-D initial state of an equatorial launch at viewing
+        angle alpha (E = 1, L = b). Returns (state8, invalid_mask)."""
+        alpha = torch.as_tensor(alpha)
+        f0 = float(self.f(r_obs))
+        E = 1.0
+        b = r_obs * torch.sin(alpha) / float(np.sqrt(max(f0, 1e-300)))
+        L = b * E
+        p_r_sq = (E * E / f0 - L * L / (r_obs * r_obs)) / f0
+        invalid = p_r_sq < 0.0
+        p_r = -torch.sqrt(torch.clamp(p_r_sq, min=0.0))
+        zeros = torch.zeros_like(alpha)
+        state8 = torch.stack([
+            zeros,
+            torch.full_like(alpha, r_obs),
+            torch.full_like(alpha, math.pi / 2),
+            zeros,
+            torch.full_like(alpha, -E),
+            p_r,
+            zeros,
+            L,
+        ], dim=-1)
+        return state8, invalid

@@ -5,7 +5,11 @@ the orbit-equation tracer, Kerr to the adaptive tracer (DP45 or DOP853,
 with Hermite or linear event location): on the kernel in one
 pass or, for large batches, through the two-pass straggler driver; on the
 plain loop in one pass, as the JAX package's XLA branch ignores
-`two_pass`. A Kerr batch above `chunk_size` rays is traced in chunks of
+`two_pass`. `integrator="rk4"` selects the fixed-step RK4 tracer
+(ops/kerr_rk4.py) on any device, and a metric with no kernel
+(`supports_kernel = False`: `CustomMetric`, whose RHS is autograd of a
+user callable) traces on the plain loop on any device, as the JAX
+package routes both to XLA. A Kerr batch above `chunk_size` rays is traced in chunks of
 that size, optionally sorted by expected difficulty (|alpha -
 alpha_crit|, photon-ring grazers integrate longest) so that stragglers
 share chunks, then restored to the input order: the JAX package's
@@ -85,9 +89,11 @@ def trace_batch(metric, r_obs, alphas, thetas=None, theta_obs=math.pi / 2,
     near the polar axis re-traced in theta; on the kernel with the JAX
     Pallas backend's semantics (ops/cuda/kerr_trace_kernel.py, its first
     pass capped at `pass1_steps` when two-pass is on), on the plain loop
-    with its XLA backend's (ops/kerr_trace.py). Progress bars, chunk
-    stores and the fixed-step "rk4" raise NotImplementedError until they
-    are ported.
+    with its XLA backend's (ops/kerr_trace.py). integrator="rk4" traces
+    the fixed-step RK4 loop (ops/kerr_rk4.py) on the rays' device, with
+    h_max its base step 1.0; a metric with supports_kernel False traces
+    the plain loop on the rays' device. Progress bars and chunk stores
+    raise NotImplementedError until they are ported.
     """
     n = int(alphas.shape[0])
     device = alphas.device
@@ -112,7 +118,8 @@ def trace_batch(metric, r_obs, alphas, thetas=None, theta_obs=math.pi / 2,
         raise NotImplementedError(
             "chunk progress bars and chunk stores are not ported yet "
             "(ROADMAP.md, Queue 1)")
-    check_method(integrator, event_interp)
+    if integrator != "rk4":
+        check_method(integrator, event_interp)
 
     if thetas is None:
         thetas = torch.zeros_like(alphas)
@@ -127,12 +134,24 @@ def trace_batch(metric, r_obs, alphas, thetas=None, theta_obs=math.pi / 2,
     # was set on a TPU, where one straggler pins an 8192-lane tile;
     # PERF.md records what it does on the H100. Only the kernel path
     # takes it.
-    path = _backend(backend, alphas)
+    if not getattr(metric, "supports_kernel", True):
+        if backend == "cuda":
+            raise ValueError(
+                f"{type(metric).__name__} has no CUDA kernel (its RHS is "
+                f"autograd of a user callable); use backend='auto'")
+        _backend(backend, alphas)
+        path = "torch"
+    else:
+        path = _backend(backend, alphas)
     use_two_pass = path == "cuda" and (two_pass if two_pass != "auto"
                                        else n > 2_000_000)
     kwargs = dict(precision=precision, formulation=formulation,
                   method=integrator, event_interp=event_interp)
-    if formulation == "mu":
+    if integrator == "rk4":
+        from light_path_tracer_tpu_torch.ops.kerr_rk4 import (
+            trace_rays_kerr_rk4 as kerr_fn)
+        kwargs = {}
+    elif formulation == "mu":
         # The mu bulk with the theta pole re-trace, as the JAX package's
         # production branch (ops/batch.py there).
         kwargs = dict(precision=precision, method=integrator,

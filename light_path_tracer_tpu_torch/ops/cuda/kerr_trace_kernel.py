@@ -165,7 +165,8 @@ def entry_suffix(dtype) -> str:
 def method_suffix(method) -> str:
     """The C entry points' infix for an embedded pair: '' for "dp45",
     '_dop853' for "dop853" (the entry is name + infix + entry_suffix);
-    ValueError for any other method, NotImplementedError for "rk4"."""
+    ValueError for any other method, the fixed-step "rk4" included (it
+    has no kernel: ops/kerr_rk4.py)."""
     check_method(method)
     return "_dop853" if method == "dop853" else ""
 

@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from light_path_tracer_tpu_torch.models.kerr import TracedKerr
 from light_path_tracer_tpu_torch.operands import kernel_operand
 from light_path_tracer_tpu_torch.ops import tableau as tb
+from light_path_tracer_tpu_torch.ops.graphs import step_blocks
 from light_path_tracer_tpu_torch.ops.types import (
     DiskTraceResult, ExtrasResult, SpectralResult, SurfaceResult,
     TraceResult, VolumetricResult)
@@ -218,18 +219,16 @@ def _hermite_crossing_frac(r0, r1, fr0, fr1, h, target, frac_linear,
     return torch.where(torch.isfinite(s), s, frac_linear)
 
 
-def _not_ported(what):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet "
-        f"(ROADMAP.md, Queue 1)")
-
-
 def check_method(method, event_interp="hermite"):
     """ValueError for an embedded pair or event interpolant that no
-    adaptive loop of the JAX package runs; NotImplementedError for the
-    fixed-step RK4, which runs outside it there and is not ported."""
+    adaptive loop runs, the fixed-step RK4 included: it is a tracer of
+    its own (ops/kerr_rk4.py), which `trace_batch(integrator="rk4")`
+    selects."""
     if method == "rk4":
-        raise _not_ported("integrator='rk4'")
+        raise ValueError("integrator='rk4' is the fixed-step tracer "
+                         "(ops/kerr_rk4.py, trace_batch(integrator='rk4'));"
+                         " the adaptive loops and the CUDA kernels run "
+                         + " or ".join(METHODS))
     if method not in METHODS:
         raise ValueError(f"unknown integrator {method!r}; the adaptive loop "
                          f"runs {' or '.join(METHODS)}")
@@ -371,10 +370,13 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
             def tdot(ys):
                 return metric.tdot(ys, p_t, p_phi)
 
-    for step in range(max_steps):
+    def attempt(carry):
+        y, k1, h, lam, status, attempts = carry[:6]
+        if sat_window:
+            sat_cnt, frz_cnt = carry[6:8]
+        if record_time:
+            t_now = carry[-1]
         running = (status == RUNNING) & (lam < lam_max)
-        if step % _SYNC_EVERY == 0 and not bool(running.any()):
-            break
         h_eff = torch.clamp(torch.minimum(h, lam_max - lam), min=0.0)
 
         # -- RK stages (k1 via FSAL) --
@@ -594,6 +596,30 @@ def dp45_integrate(metric, y0, p_t, p_phi, status0, *, atol, rtol, h_min,
             lam = torch.where(saturated, lam_max, lam)
         attempts = attempts + running.to(attempts.dtype)
         h = h_new
+        out = (y, k1, h, lam, status, attempts)
+        if sat_window:
+            out += (sat_cnt, frz_cnt)
+        if record_time:
+            out += (t_now,)
+        return out, ()
+
+    def keep_going(carry):
+        lam, status = carry[3], carry[4]
+        return bool(((status == RUNNING) & (lam < lam_max)).any())
+
+    carry = (y, k1, h, lam, status, attempts)
+    if sat_window:
+        carry += (sat_cnt, frz_cnt)
+    if record_time:
+        carry += (t_now,)
+    # On the card the blocks replay as CUDA graphs, bitwise the eager
+    # loop, except with plane records (their tracks are updated in place
+    # outside the carry).
+    carry, _ = step_blocks(attempt, carry, max_steps, keep_going,
+                           block=_SYNC_EVERY, graph=disk_plane is None)
+    y, k1, h, lam, status, attempts = carry[:6]
+    if record_time:
+        t_now = carry[-1]
 
     if disk_plane is not None:
         hits = tracks[0]

@@ -430,6 +430,19 @@ def _lambda_max(r_obs) -> float:
     return max(5000.0, 6.0 * float(r_obs))
 
 
+def surface_tracer(metric):
+    """The surface trace of `metric`: the CUDA surface kernel's wrapper
+    (which runs its plain loop on a CPU tensor), or the plain loop on any
+    device for a metric with no kernel (a CustomMetric)."""
+    if getattr(metric, "supports_kernel", True):
+        from light_path_tracer_tpu_torch.ops.cuda.surface_kernel import (
+            trace_rays_surface_cuda)
+        return trace_rays_surface_cuda
+    from light_path_tracer_tpu_torch.ops.kerr_trace import (
+        trace_rays_surface)
+    return trace_rays_surface
+
+
 def _trace_escape_beta(scene: SceneConfig, cfg: RenderConfig, resolution,
                        fov, record_time: bool = False, mesh=None,
                        device="cuda"):
@@ -437,8 +450,6 @@ def _trace_escape_beta(scene: SceneConfig, cfg: RenderConfig, resolution,
     side-exact gnomonic source coordinates (bx, by), each (H, W), the
     raw SurfaceResult and the theta grid. The whole grid is traced (the
     side-exact chart needs both halves)."""
-    from light_path_tracer_tpu_torch.ops.cuda.surface_kernel import (
-        trace_rays_surface_cuda)
     from light_path_tracer_tpu_torch.ops.kerr_trace import ESCAPED
     _no_mesh(mesh, "_trace_escape_beta")
     dtype = _dtype_of(cfg)
@@ -448,7 +459,7 @@ def _trace_escape_beta(scene: SceneConfig, cfg: RenderConfig, resolution,
                 device=device)
     alpha_lookup = camera.build_alpha_lookup(resolution, fov, **grid)
     theta_lookup = camera.build_theta_lookup(resolution, fov, **grid)
-    res = trace_rays_surface_cuda(
+    res = surface_tracer(metric)(
         metric, r_obs, alpha_lookup.reshape(-1), theta_lookup.reshape(-1),
         scene.theta_obs, r_surface=float(metric.capture_radius()),
         lambda_max=_lambda_max(r_obs), max_steps=cfg.max_steps,

@@ -3,9 +3,9 @@
 The same pair of frozen dataclasses as `light_path_tracer_tpu.utils.config`,
 field for field, so a scene and its numerics knobs carry across the two
 packages unchanged (`light_path_tracer_tpu_torch.convert`). Every field
-is kept; the two that still select code this package has not ported
-raise `NotImplementedError` where they are read: a `custom_metric`
-(`SceneConfig.metric`) and a truthy `progress` (ops/batch.py).
+is kept; the one that still selects code this package has not ported
+raises `NotImplementedError` where it is read: a truthy `progress`
+(ops/batch.py).
 """
 
 from __future__ import annotations
@@ -34,7 +34,8 @@ class SceneConfig:
     # Camera 3-velocity in units of c, camera coords (+x right, +y down,
     # +z forward); (0,0,0) = static observer (camera.aberrate_view).
     boost: tuple = (0.0, 0.0, 0.0)
-    # User-defined spacetime. Not ported yet: metric() raises when set.
+    # User-defined spacetime (models.CustomMetric); when set, metric()
+    # returns it in place of the (M, a, Q, eps3) family.
     custom_metric: object = None
 
     @property
@@ -42,12 +43,10 @@ class SceneConfig:
         return (self.psi_y, self.psi_x)
 
     def metric(self):
-        """The scene's Metric: the (M, a, Q, eps3) family dispatch
-        (models.make_metric)."""
+        """The scene's Metric: the custom metric when one is set, else
+        the (M, a, Q, eps3) family dispatch (models.make_metric)."""
         if self.custom_metric is not None:
-            raise NotImplementedError(
-                "custom metrics are not ported to the PyTorch package yet "
-                "(ROADMAP.md, Queue 1)")
+            return self.custom_metric
         from light_path_tracer_tpu_torch.models import make_metric
         return make_metric(self.M, self.a, self.Q, self.eps3)
 
@@ -69,8 +68,8 @@ class RenderConfig:
     """Numerics + performance knobs."""
 
     dtype: str = "float32"             # "float32" | "float64"
-    # Kerr integrator: "dp45" (Dormand-Prince 4(5)) or "dop853" (Hairer's
-    # 8(5,3)); the fixed-step "rk4" is not ported.
+    # Kerr integrator: "dp45" (Dormand-Prince 4(5)), "dop853" (Hairer's
+    # 8(5,3)) or the fixed-step comparison "rk4" (ops/kerr_rk4.py).
     integrator: str = "dp45"
     # Only "auto": the tensor's device picks the path (CUDA -> the
     # hand-written kernel, CPU -> the plain PyTorch loop).

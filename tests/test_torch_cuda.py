@@ -1534,7 +1534,7 @@ def test_unknown_method_raises_on_a_cuda_tensor(cuda):
     m, _ac, al, th, ref = _rays(64, cuda)
     plain = kerr_trace.trace_rays_kerr.launches
     for kw, err in ((dict(method="rk45"), ValueError),
-                    (dict(method="rk4"), NotImplementedError),
+                    (dict(method="rk4"), ValueError),
                     (dict(event_interp="cubic"), ValueError)):
         with pytest.raises(err):
             trace_rays_kerr_cuda(m, R_OBS, al, th, np.pi / 2, ref, 5000.0,
@@ -2008,7 +2008,7 @@ def test_surface_kernel_refuses_what_it_lacks(cuda):
     with pytest.raises(ValueError):
         sk.trace_rays_surface_cuda(Kerr(M=1.0, a=0.9), R_OBS, al.half(),
                                    th.half(), 1.4, 2.0, 5000.0, 100)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         sk.trace_rays_surface_cuda(Kerr(M=1.0, a=0.9), *args, method="rk4")
 
 
@@ -2089,3 +2089,86 @@ def test_phase28_mode_on_card_matches_cpu(cuda, mode):
     oc = SMOKE.p28_render(mode, SMOKE.P28_CHECK, "cpu")
     row = SMOKE.p28_check(mode, og, oc)
     assert all(v["ok"] for v in row.values()), row
+
+
+class _eager_blocks:
+    """Within: the loops' step_blocks run every block eagerly."""
+
+    def __enter__(self):
+        from light_path_tracer_tpu_torch import trajectory
+        from light_path_tracer_tpu_torch.ops import graphs, kerr_rk4
+
+        def no_graph(*a, **kw):
+            return graphs.step_blocks(*a, **dict(kw, graph=False))
+        self.mods = (trajectory, kerr_rk4, kerr_trace)
+        for m in self.mods:
+            m.step_blocks = no_graph
+
+    def __exit__(self, *exc):
+        from light_path_tracer_tpu_torch.ops import graphs
+        for m in self.mods:
+            m.step_blocks = graphs.step_blocks
+
+
+def test_graph_blocks_bitwise_the_eager_loops(cuda):
+    """The CUDA-graph blocks of the 8-D recorder, the RK4 loop and a
+    CustomMetric's adaptive loop against the same loops run eagerly."""
+    from light_path_tracer_tpu_torch import particles as pt
+    from light_path_tracer_tpu_torch.models import load_user_metric
+    from light_path_tracer_tpu_torch.ops.kerr_rk4 import trace_rays_kerr_rk4
+    m = Kerr(M=1.0, a=0.9)
+    E, L = pt.orbit_from_apsides(m, 8.0, 16.0)
+    s8, _ = pt.timelike_initial_conditions(
+        m, torch.tensor(8.0, dtype=torch.float64, device=cuda), E, L)
+    _m, _ac, al, th, ref = _rays(512, cuda)
+    hay = load_user_metric(str(Path(__file__).resolve().parents[1]
+                               / "examples" / "user_metric_torch.py")
+                           + ":hayward")
+    runs = (lambda: pt.integrate_orbit(m, s8, n_steps=100),
+            lambda: trace_rays_kerr_rk4(m, R_OBS, al, th, np.pi / 2, ref,
+                                        5000.0, 200000),
+            lambda: kerr_trace.trace_rays_kerr(hay, R_OBS, al[:64], th[:64],
+                                               np.pi / 2, ref[:64], 5000.0,
+                                               4000))
+    for run in runs:
+        graphed = run()
+        with _eager_blocks():
+            eager = run()
+        for a, b in zip(graphed, eager):
+            assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+def test_custom_metric_and_rk4_on_card(cuda):
+    """A CustomMetric traces on the plain loop on a CUDA tensor (no kernel
+    launch; backend="cuda" refused) and equals the CPU's in float64, as
+    does the fixed-step RK4."""
+    from light_path_tracer_tpu_torch.models import (CustomMetric,
+                                                    kerr_covariant)
+    from light_path_tracer_tpu_torch.ops.batch import trace_batch
+    cm = CustomMetric(M=1.0, a=0.9, covariant_fn=kerr_covariant(1.0, 0.9))
+    m, _ac, al, th, ref = _rays(64, cuda)
+    al, th = al.double(), th.double()
+    with pytest.raises(ValueError):
+        trace_batch(cm, R_OBS, al, th, backend="cuda")
+    p0 = kerr_trace.trace_rays_kerr.launches
+    for metric, kw in ((cm, dict(max_steps=4000)),
+                       (m, dict(integrator="rk4"))):
+        k0 = trace_rays_kerr_cuda.launches_f64
+        rg = trace_batch(metric, R_OBS, al, th, np.pi / 2, ref, **kw)
+        assert trace_rays_kerr_cuda.launches_f64 == k0
+        rc = trace_batch(metric, R_OBS, al.cpu(), th.cpu(), np.pi / 2,
+                         ref.cpu(), **kw)
+        assert torch.equal(rg.status.cpu(), rc.status)
+        esc = rc.status == 1
+        assert (rg.final_alpha.cpu()[esc] - rc.final_alpha[esc]).abs().max() \
+            < 1e-9
+    assert kerr_trace.trace_rays_kerr.launches == p0 + 2
+
+
+@pytest.mark.parametrize("name", ("kerr", "schwarzschild"))
+def test_phase29_paths_on_card_match_cpu(cuda, name):
+    """chip_smoke.py phase 29's ten angles in float64 (trace_ray through
+    the kernels, the 8-D paths) on the card against the CPU."""
+    row, ok = SMOKE.p29_paths_check(name, SMOKE.p29_paths(name, "cuda"),
+                                    SMOKE.p29_paths(name, "cpu"))
+    assert ok, row

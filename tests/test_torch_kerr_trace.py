@@ -226,10 +226,12 @@ def test_trace_batch_rejects_branches_not_ported():
     tm = Kerr(M=1.0, a=0.9)
     al = torch.full((8,), 0.1)
     for kwargs in (dict(chunk_size=4, progress=True),
-                   dict(chunk_size=4, chunk_store={}), dict(progress="live"),
-                   dict(integrator="rk4")):
+                   dict(chunk_size=4, chunk_store={}), dict(progress="live")):
         with pytest.raises(NotImplementedError):
             trace_batch(tm, R_OBS, al, **kwargs)
+    # The fixed-step RK4 is ported (tests/test_torch_rk4.py).
+    res = trace_batch(tm, R_OBS, al, integrator="rk4")
+    assert res.status.shape == (8,) and int(res.n_steps) > 0
     # formulation="mu" is ported (tests/test_torch_mu.py); an unknown
     # chart is a ValueError.
     for kwargs in (dict(backend="pallas"), dict(integrator="rk45"),

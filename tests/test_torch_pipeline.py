@@ -197,7 +197,15 @@ def test_port_imports_without_jax():
             "light_path_tracer_tpu_torch.star, "
             "light_path_tracer_tpu_torch.cli.animate, "
             "light_path_tracer_tpu_torch.cli.pano, "
-            "light_path_tracer_tpu_torch.cli.star; "
+            "light_path_tracer_tpu_torch.cli.star, "
+            "light_path_tracer_tpu_torch.cli.trajectory, "
+            "light_path_tracer_tpu_torch.trajectory, "
+            "light_path_tracer_tpu_torch.particles, "
+            "light_path_tracer_tpu_torch.diff, "
+            "light_path_tracer_tpu_torch.models.custom, "
+            "light_path_tracer_tpu_torch.ops.kerr_rk4, "
+            "light_path_tracer_tpu_torch.ops.graphs, runpy; "
+            "runpy.run_path('examples/user_metric_torch.py'); "
             "bad = sorted(m for m in sys.modules if "
             "m.startswith(('jax.', 'light_path_tracer_tpu.')) or "
             "m == 'light_path_tracer_tpu'); print(bad); "
