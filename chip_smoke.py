@@ -18,7 +18,8 @@ the disk family, tilted, warped and multi-plane disks, and spectra,
 movies, ring orders, crossing slots and planes of any width (the broad
 instances), the lens-map products on the surface kernel, and the
 sequences (camera pans, spin sweeps, flybys) through the Kerr kernel's
-run-time (M, a, r_obs) with the panoramas and the stellar surface.
+run-time (M, a, r_obs) with the panoramas and the stellar surface, and
+the render server (serve.py) answering requests on the card.
 Phases:
   1. machine: card name and power limit, torch and nvcc versions;
   2. build: nvcc for sm_90a without FMA contraction (-fmad=false), with
@@ -491,11 +492,38 @@ Phases:
      the 32 x 32 fan of tests/test_diff.py's fit (r_obs 20, theta_obs 80
      deg, n_steps 1024) within 1e-4, d(mean alpha)/da by autograd within
      1e-4 relative of a central difference.
-The plain loops of phases 11-15, 17, 20-22 and 24-29 and their CPU
+ 30. the render server (serve.py): make_server("127.0.0.1", 0,
+     RenderService(device="cuda")) on a thread; /healthz (devices 1,
+     platform "gpu"); each mode at its published width, cold then warm
+     as npy and then as PNG, its counts zeroed just before each request
+     and read just after: the 1024^2 Kerr a 0.9 shadow (config 3: the
+     Kerr kernel), the 512^2 Schwarzschild lens with a seeded 512^2 PNG
+     background as image_b64 (config 2: the orbit kernel), the 1024^2
+     disk (config 4: the disk kernel and its driver), the 1024^2 thin
+     volumetric (a 0.9, theta_obs 80 deg, FOV 16 deg: the extras kernel
+     and its driver), the 512^2 caustics map and the 1024^2 star (the
+     surface kernel); each npy body bitwise the direct call on the card
+     (caustics, whose index_add_ atomics sum in no fixed order: bitwise
+     or within 1e-5 of each bin), its kernels launched and no plain
+     loop; the shadow's PNG reply the npy reply's encoding; 400 for a
+     bad mode and a custom_metric; with the render lock held, a
+     deadline_s of 0.2 gets 503, /healthz answers within 1 s, and a
+     request beyond max_queue gets 503 with Retry-After; the offline
+     `request` CLI's bytes equal to the HTTP body; then
+     checkpoint.cached_precompute on the shadow's scene (a miss, then a
+     hit, the tables bitwise), a chunked precompute (65,536-ray chunks)
+     stopped by a raising put after 3 chunks and resumed (3 chunks read
+     back, 5 traced, bitwise the fresh run, no chunk file left), and the
+     chunked trace with progress="live" bitwise the fresh run. Each
+     request's seconds, X-Render-Seconds and launches are printed, with
+     the direct call's seconds and the encodings'. No CPU render: the
+     earlier phases hold these pipelines against the CPU.
+The plain loops of phases 11-15, 17, 19-22 and 24-29 and their CPU
 renders run in PLAIN_WORKERS child processes (PlainPool), queued at the
-start of phase 11 (phases 11-15) and of phases 17, 21, 22, 23 (also
-phase 29's), 24 (also phase 27's), 25 and 26 (also phase 28's), and when
-phase 20 has drawn its sample, while
+start of phase 11 (phases 11-15) and of phases 17, 18 (phase 19's
+quarter-offset lanes), 21, 22, 23 (also phase 29's), 24 (also phase
+27's), 25 and 26 (also phase 28's), and when phase 20 has drawn its
+sample, while
 the
 parent runs its kernels; the plain_ms of those phases is the call's time
 in its child, beside the other children's work on the card. A kernel
@@ -575,7 +603,9 @@ r_obs) (m_a_ms: with (M, a); static_twin_ms: the static Kerr(1, 0.99)
 instance on the same rays, in turns) and the driver on the 1024^2 flyby
 frame, against the plain loop in its child. Phase 29 adds no entry: its
 paths launch no kernel of their own (the ray and plot paths' launches of
-the Kerr and orbit kernels are counted and required there).
+the Kerr and orbit kernels are counted and required there); nor does
+phase 30: its requests launch the kernels of the earlier entries
+(counted and required there).
 The last line is {"ok": true,
 "device": {...}}. Exit code 0 iff every phase
 passed; without a CUDA device it exits 1 and prints no result.
@@ -2833,15 +2863,60 @@ QUARTER_CAP = 1000
 ORDER_LANE = (171, 129)
 
 
-def reference_phase(dev, card):
+def p19_grid(offset, dev):
+    """Config 4's 1024^2 (alpha, theta) grid at a pixel offset, float32 on
+    `dev`, flattened."""
+    import torch
+    from light_path_tracer_tpu_torch import camera
+    dim = (1024, 1024)
+    fov4 = camera.fov_from_vertical(np.radians(40.0), dim)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (camera.build_alpha_lookup(dim, fov4, pixel_offset=offset,
+                                      **f32).reshape(-1),
+            camera.build_theta_lookup(dim, fov4, pixel_offset=offset,
+                                      **f32).reshape(-1))
+
+
+def p19_plane():
+    """Config 4's opaque equatorial disk plane."""
+    from light_path_tracer_tpu_torch import disk
+    return (disk.r_isco(1.0, 0.9), disk.DiskConfig().r_out,
+            float(np.pi / 2), True)
+
+
+def p19_lane_plain(al, th, max_steps):
+    """The plain loop on one config-4 lane (phase 19), in a PlainPool
+    child on the CPU: (status, n_hits, n_steps)."""
+    from light_path_tracer_tpu_torch.models import Kerr
+    from light_path_tracer_tpu_torch.ops import kerr_trace
+    rp = kerr_trace.trace_disk_rays_kerr(
+        Kerr(M=1.0, a=0.9), R_OBS, al, th, THETA_DISK, LAMBDA_MAX,
+        max_steps, p19_plane(), 2)
+    return int(rp.status[0]), int(rp.n_hits[0]), int(rp.n_steps)
+
+
+def queue_phase19(pool, dev):
+    """Phase 19's plain loops on the QUARTER_LANES, one lane a job on the
+    CPU in PlainPool's children (queued at phase 18's start; four of the
+    seven run to QUARTER_CAP, which held the parent ~60 s)."""
+    al, th = p19_grid((0.25, 0.25), dev)
+    return {(r, c): pool.submit("p19_lane_plain",
+                                al[r * 1024 + c:r * 1024 + c + 1],
+                                th[r * 1024 + c:r * 1024 + c + 1],
+                                QUARTER_CAP, on="cpu")
+            for r, c in QUARTER_LANES}
+
+
+def reference_phase(dev, card, lane_jobs):
     """Phase 19: the rays of ALIGNED_PINS, QUARTER_LANES and ORDER_LANE on
     the card against their pins; the in-kernel extraction against
     finalize_angles on the main path's final states; the Kerr kernel's
     warp step sum and unconverged flags against torch's from the probe,
     on the main path's 524,288 rays (float32 and float64) and on the
-    aligned and quarter-offset config-4 grids, with the wrapper's time."""
+    aligned and quarter-offset config-4 grids, with the wrapper's time.
+    lane_jobs: queue_phase19's plain loops on the QUARTER_LANES."""
     import torch
-    from light_path_tracer_tpu_torch import camera, disk, volumetric
+    from light_path_tracer_tpu_torch import camera, volumetric
     from light_path_tracer_tpu_torch.models import Kerr
     from light_path_tracer_tpu_torch.ops import kerr_trace
     from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
@@ -2851,17 +2926,9 @@ def reference_phase(dev, card):
     kerr = Kerr(M=1.0, a=0.9)
     dim = (1024, 1024)
     f32 = dict(dtype=torch.float32, device=dev)
-    plane = (disk.r_isco(1.0, 0.9), disk.DiskConfig().r_out,
-             float(np.pi / 2), True)
-    fov4 = camera.fov_from_vertical(np.radians(40.0), dim)
-    grids = {}
-    for label, off in (("aligned", (0.0, 0.0)), ("quarter-offset",
-                                                 (0.25, 0.25))):
-        grids[label] = (
-            camera.build_alpha_lookup(dim, fov4, pixel_offset=off,
-                                      **f32).reshape(-1),
-            camera.build_theta_lookup(dim, fov4, pixel_offset=off,
-                                      **f32).reshape(-1))
+    plane = p19_plane()
+    grids = {label: p19_grid(off, dev) for label, off in (
+        ("aligned", (0.0, 0.0)), ("quarter-offset", (0.25, 0.25)))}
     print(f"the reference's rays on the card, and the Kerr kernel's "
           f"booking, on {card}:", flush=True)
 
@@ -2876,11 +2943,7 @@ def reference_phase(dev, card):
                    status=int(rk.status[0]), n_hits=int(rk.n_hits[0]),
                    attempts=int(pr["attempts"][0]))
         if plain:
-            rp = kerr_trace.trace_disk_rays_kerr(
-                kerr, R_OBS, al[i:i + 1].cpu(), th[i:i + 1].cpu(),
-                THETA_DISK, LAMBDA_MAX, max_steps, plane, 2)
-            row["plain"] = (int(rp.status[0]), int(rp.n_hits[0]),
-                            int(rp.n_steps))
+            _ms, row["plain"] = PlainPool.result(lane_jobs[r, c], "cpu")
             row["open"] = (r, c) in OPEN_LANES
         print(f"  {json.dumps(row)}", flush=True)
         return row
@@ -2890,12 +2953,6 @@ def reference_phase(dev, card):
         require((row["status"], row["n_hits"], row["attempts"]) == pin,
                 f"phase 19: config-4 ray ({r}, {c}) ends as {row}, not as "
                 f"JAX's (status, n_hits, attempts) {pin}")
-    for r, c in QUARTER_LANES:
-        row = disk_ray("quarter-offset", r, c, QUARTER_CAP, True)
-        require(row["open"] or (row["status"], row["n_hits"],
-                                row["attempts"]) == tuple(row["plain"]),
-                f"phase 19: quarter-offset lane ({r}, {c}) ends as {row}, "
-                f"not as the plain loop")
     d = (256, 256)
     fov = camera.fov_from_vertical(np.radians(16.0), d)
     lane = ORDER_LANE[0] * d[1] + ORDER_LANE[1]
@@ -2979,6 +3036,14 @@ def reference_phase(dev, card):
                 == row["warp_step_sum_torch"],
                 f"phase 19: the Kerr kernel's warp step sum or flags differ "
                 f"from torch's on {label}: {row}")
+
+    # Last, so that the lanes' plain loops in the children have run.
+    for r, c in QUARTER_LANES:
+        row = disk_ray("quarter-offset", r, c, QUARTER_CAP, True)
+        require(row["open"] or (row["status"], row["n_hits"],
+                                row["attempts"]) == tuple(row["plain"]),
+                f"phase 19: quarter-offset lane ({r}, {c}) ends as {row}, "
+                f"not as the plain loop")
     return rows
 
 
@@ -8827,6 +8892,471 @@ def paths_phase(dev, card, pool, ctx):
           flush=True)
 
 
+P30_SIZE = 1024
+P30_LENS = 512
+P30_CAUSTICS = 512
+P30_CHUNK = 65536
+P30_CRASH_AFTER = 3
+
+
+def p30_requests(png_b64):
+    """The requests of phase 30 at the published widths (module
+    docstring), each with its mode's kernels as its launch counts name
+    them."""
+    kerr = {"a": 0.9, "r_obs_mult": R_OBS, "theta_obs": 90.0,
+            "vertical_fov_deg": 40.0}
+    size = [P30_SIZE, P30_SIZE]
+    return {
+        "shadow": ({"mode": "shadow", "size": size, "scene": kerr,
+                    "render": {"dtype": "float32", "precision": "fast"}},
+                   ("kerr",)),
+        "lens": ({"mode": "lens", "scene": {"r_obs_mult": R_OBS},
+                  "image_b64": png_b64}, ("orbit",)),
+        "disk": ({"mode": "disk", "size": size,
+                  "scene": {"a": 0.9, "r_obs_mult": R_OBS,
+                            "theta_obs": 80.0}, "disk": {}},
+                 ("disk", "disk_driver")),
+        "volumetric": ({"mode": "volumetric", "size": size,
+                        "scene": {"a": 0.9, "r_obs_mult": R_OBS,
+                                  "theta_obs": 80.0,
+                                  "vertical_fov_deg": 16.0},
+                        "riaf": {}}, ("volumetric", "vol_driver")),
+        "caustics": ({"mode": "caustics", "size": [P30_CAUSTICS] * 2,
+                      "scene": kerr}, ("surface",)),
+        "star": ({"mode": "star", "size": size, "scene": {},
+                  "star": {"spots": [[30.0, 0.0, 20.0, 1.0]]}},
+                 ("surface",)),
+    }
+
+
+def p30_counters():
+    """The wrappers and plain loops phase 30's modes run through."""
+    from light_path_tracer_tpu_torch.ops import kerr_trace as tk
+    from light_path_tracer_tpu_torch.ops import schwarzschild_trace as st
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    from light_path_tracer_tpu_torch.ops.cuda import schwarzschild_kernel
+    from light_path_tracer_tpu_torch.ops.cuda import volumetric_kernel as vk
+    return dict(kerr=kk.trace_rays_kerr_cuda, disk=kk.trace_disk_rays_cuda,
+                disk_driver=kk.trace_disk_rays_two_pass,
+                orbit=schwarzschild_kernel.trace_rays_schwarzschild_cuda,
+                volumetric=vk.trace_rays_volumetric_cuda,
+                vol_driver=kk.trace_rays_volumetric_two_pass,
+                plain=(tk.trace_rays_kerr, tk.trace_disk_rays_kerr,
+                       tk.trace_rays_volumetric, tk.trace_rays_surface,
+                       st.trace_rays_schwarzschild))
+
+
+def p30_zero():
+    """Every count phase 30 reads, set to 0."""
+    from light_path_tracer_tpu_torch.ops.cuda import kerr_trace_kernel as kk
+    from light_path_tracer_tpu_torch.ops.cuda import surface_kernel as sk
+    c = p30_counters()
+    for k in ("kerr", "disk", "volumetric"):
+        kk.zero_counters(c[k])
+    sk.zero_counters()
+    c["orbit"].launches = c["orbit"].launches_f64 = 0
+    for fn in (c["disk_driver"], c["vol_driver"]) + c["plain"]:
+        fn.launches = 0
+
+
+def p30_counts():
+    """The counts since p30_zero: each kernel's float32 DP45 launches,
+    the drivers' calls and the plain loops' calls."""
+    from light_path_tracer_tpu_torch.ops.cuda import surface_kernel as sk
+    c = p30_counters()
+    out = {k: c[k].launches for k in ("kerr", "disk", "disk_driver",
+                                      "orbit", "volumetric", "vol_driver")}
+    out.update(surface=sum(sk.launches().values()),
+               plain=sum(fn.launches for fn in c["plain"]))
+    return out
+
+
+def p30_direct(mode, decoded, device="cuda"):
+    """The direct call a user makes for a decoded request, outside the
+    server: the image as NumPy."""
+    from light_path_tracer_tpu_torch import disk, pipeline, star, volumetric
+    (_mode, scene, cfg, dcfg, riaf, scfg, src, size, _dl) = decoded
+    size = tuple(size) if size is not None else None
+    if mode == "shadow":
+        img, _ = pipeline.render_shadow(scene, size, cfg, device=device)
+    elif mode == "lens":
+        img = pipeline.render_scene(scene, src, cfg, device=device).image
+    elif mode == "disk":
+        img, _ = disk.render_disk(scene, size, cfg, dcfg, device=device)
+    elif mode == "volumetric":
+        img, _ = volumetric.render_volumetric(scene, size, cfg, riaf,
+                                              device=device)
+    elif mode == "caustics":
+        img, _ext, _ = pipeline.render_caustics(
+            scene, size, cfg, bins=max(size[0] // 2, 8), device=device)
+    else:
+        img, _ = star.render_star(scene, size, cfg, scfg, device=device)
+    return img.cpu().numpy()
+
+
+def p30_post(url, payload, path="/render"):
+    """(status, body, headers, wall seconds) of one POST; non-2xx
+    statuses returned."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url + path, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            out = resp.status, resp.read(), dict(resp.headers)
+    except urllib.error.HTTPError as err:
+        out = err.code, err.read(), dict(err.headers)
+    return out + (time.perf_counter() - t0,)
+
+
+def p30_get(url, path):
+    import urllib.request
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url + path, timeout=60) as resp:
+        body = json.loads(resp.read())
+    return body, time.perf_counter() - t0
+
+
+def p30_npy(body):
+    import io
+    return np.load(io.BytesIO(body), allow_pickle=False)
+
+
+def p30_same(a, b):
+    """Bitwise equal arrays (NaN where NaN)."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and a.tobytes() == b.tobytes())
+
+
+def p30_caustics_ok(got, want):
+    """The caustics map deposits by index_add_, whose atomic float32 adds
+    on the card sum in no fixed order: bitwise, or else within 1e-5 of
+    each bin's value (or of the largest value's 1e-6) with equal zero
+    bins."""
+    if p30_same(got, want):
+        return True, 0
+    d = np.abs(got.astype(np.float64) - want)
+    bar = np.maximum(1e-5 * np.abs(want), 1e-6 * np.abs(want).max())
+    return bool((d <= bar).all() and ((got == 0) == (want == 0)).all()), \
+        int((got != want).sum())
+
+
+def p30_mode(url, mode, req, kernels, card):
+    """One mode through the server: a cold and a warm npy request and a
+    warm png one, each with its launches, against the direct call on the
+    card (bitwise; caustics by p30_caustics_ok) and its time."""
+    from light_path_tracer_tpu_torch import serve
+    row = {}
+    bodies = {}
+    for label, fmt in (("cold", "npy"), ("warm", "npy"), ("png", "png")):
+        p30_zero()
+        status, body, hdr, wall = p30_post(url, dict(req, format=fmt))
+        counts = p30_counts()
+        require(status == 200, f"phase 30 {mode} {label}: {status} "
+                f"{body[:400]!r}")
+        bodies[label] = body
+        row[label] = dict(seconds=wall,
+                          render_seconds=float(hdr["X-Render-Seconds"]),
+                          cache=hdr["X-Cache"], bytes=len(body),
+                          counts=counts)
+        require(counts["plain"] == 0 and all(counts[k] > 0
+                                              for k in kernels),
+                f"phase 30 {mode} {label}: launches {counts}")
+    require(row["cold"]["cache"] == "cold" and row["warm"]["cache"] == "warm",
+            f"phase 30 {mode}: X-Cache {row}")
+    got = p30_npy(bodies["cold"])
+    decoded = serve.decode_request(req)
+    p30_zero()
+    _sync()
+    t0 = time.perf_counter()
+    want = p30_direct(mode, decoded)
+    row["direct_seconds"] = time.perf_counter() - t0
+    row["direct_counts"] = p30_counts()
+    t0 = time.perf_counter()
+    for fmt in ("npy", "png"):
+        serve._encode_image(serve._display_encode(mode, got, fmt), fmt)
+        row[f"encode_{fmt}_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    for label in ("cold", "warm", "png"):
+        r = row[label]
+        r["http_seconds"] = (r["seconds"] - r["render_seconds"]
+                             - row["encode_npy_seconds" if label != "png"
+                                   else "encode_png_seconds"])
+    same_warm = p30_same(p30_npy(bodies["warm"]), got)
+    if mode == "caustics":
+        ok, differ = p30_caustics_ok(got, want)
+        ok_warm, differ_warm = p30_caustics_ok(p30_npy(bodies["warm"]), got)
+        row.update(bitwise_direct=differ == 0, bins_differ=differ,
+                   bitwise_warm=differ_warm == 0)
+        ok = ok and ok_warm
+    else:
+        ok = p30_same(got, want) and same_warm
+        row.update(bitwise_direct=p30_same(got, want),
+                   bitwise_warm=same_warm)
+    row.update(shape=list(got.shape), dtype=str(got.dtype),
+               finite=bool(np.isfinite(got).all()))
+    print(f"  {mode}: {json.dumps(row)} on {card}", flush=True)
+    require(ok, f"phase 30 {mode}: the reply differs from the direct call "
+            f"on the card: {row}")
+    return row, bodies
+
+
+def p30_cache(tmp, card):
+    """cached_precompute on the shadow request's scene (miss, hit), a
+    chunked precompute stopped after P30_CRASH_AFTER chunks and resumed,
+    and the chunked trace with the live bar, each against the fresh run
+    bitwise."""
+    import contextlib
+    import io
+    import torch
+    from light_path_tracer_tpu_torch import camera
+    from light_path_tracer_tpu_torch import checkpoint as ckpt
+    from light_path_tracer_tpu_torch.pipeline import precompute_final_alpha
+    from light_path_tracer_tpu_torch import serve
+    req, _k = p30_requests("")["shadow"]
+    _m, scene, cfg, *_rest = serve.decode_request(req)
+    dim = (P30_SIZE, P30_SIZE)
+    fov = camera.fov_from_vertical(scene.vertical_fov, dim)
+
+    def same(a, b):
+        return (torch.equal(a.final_alpha.isnan(), b.final_alpha.isnan())
+                and torch.equal(a.final_alpha.nan_to_num(),
+                                b.final_alpha.nan_to_num())
+                and torch.equal(a.winding.to(torch.int32),
+                                b.winding.to(torch.int32)))
+
+    row = {}
+    cache_dir = os.path.join(tmp, "lookup_cache")
+    out = []
+    for label in ("miss", "hit"):
+        _sync()
+        t0 = time.perf_counter()
+        pre, hit = ckpt.cached_precompute(scene, cfg, dim, fov,
+                                          cache_dir=cache_dir, device="cuda")
+        _sync()
+        row[label] = dict(hit=hit, seconds=time.perf_counter() - t0,
+                          device=str(pre.final_alpha.device))
+        out.append(pre)
+    row["hit_equals_miss"] = same(*out)
+    require(not row["miss"]["hit"] and row["hit"]["hit"]
+            and row["hit_equals_miss"]
+            and row["hit"]["device"].startswith("cuda"),
+            f"phase 30 lookup cache: {row}")
+
+    chunked = dataclasses.replace(cfg, chunk_size=P30_CHUNK)
+    p30_zero()
+    _sync()
+    t0 = time.perf_counter()
+    fresh = precompute_final_alpha(scene, chunked, dim, fov, device="cuda")
+    _sync()
+    row["fresh_seconds"] = time.perf_counter() - t0
+    row["fresh_launches"] = p30_counts()["kerr"]
+    n_chunks = -(-fresh.traced_rays // P30_CHUNK)
+
+    class Stop(Exception):
+        pass
+
+    class CrashingStore(ckpt.ChunkStore):
+        puts = 0
+
+        def put(self, start, res):
+            if CrashingStore.puts >= P30_CRASH_AFTER:
+                raise Stop(f"stopped before chunk {start}")
+            super().put(start, res)
+            CrashingStore.puts += 1
+
+    class CountingStore(ckpt.ChunkStore):
+        hits = puts = 0
+
+        def get(self, start):
+            res = super().get(start)
+            CountingStore.hits += res is not None
+            return res
+
+        def put(self, start, res):
+            CountingStore.puts += 1
+            super().put(start, res)
+
+    resume_dir = os.path.join(tmp, "resume")
+    store_cls = ckpt.ChunkStore
+    try:
+        ckpt.ChunkStore = CrashingStore
+        try:
+            ckpt.cached_precompute(scene, chunked, dim, fov,
+                                   cache_dir=resume_dir, resume=True,
+                                   device="cuda")
+            stopped = False
+        except Stop:
+            stopped = True
+        stored = sorted(f for f in os.listdir(resume_dir)
+                        if f.startswith("chunks_"))
+        ckpt.ChunkStore = CountingStore
+        p30_zero()
+        _sync()
+        t0 = time.perf_counter()
+        resumed, hit = ckpt.cached_precompute(
+            scene, chunked, dim, fov, cache_dir=resume_dir, resume=True,
+            device="cuda")
+        _sync()
+        row["resume_seconds"] = time.perf_counter() - t0
+    finally:
+        ckpt.ChunkStore = store_cls
+    left = [f for f in os.listdir(resume_dir) if f.startswith("chunks_")]
+    row.update(chunks=n_chunks, stopped=stopped, stored=len(stored),
+               resume_hits=CountingStore.hits, resume_puts=CountingStore.puts,
+               resume_launches=p30_counts()["kerr"], chunk_files_left=len(left),
+               resumed_equals_fresh=same(resumed, fresh), resumed_hit=hit)
+    require(stopped and len(stored) == P30_CRASH_AFTER
+            and CountingStore.hits == P30_CRASH_AFTER
+            and CountingStore.puts == n_chunks - P30_CRASH_AFTER
+            and row["resume_launches"] == n_chunks - P30_CRASH_AFTER
+            and not left and not hit and row["resumed_equals_fresh"],
+            f"phase 30 chunk resume: {row}")
+
+    bar = io.StringIO()
+    _sync()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(bar):
+        live = precompute_final_alpha(
+            scene, dataclasses.replace(chunked, progress="live"), dim, fov,
+            device="cuda")
+    _sync()
+    row.update(live_seconds=time.perf_counter() - t0,
+               live_equals_fresh=same(live, fresh),
+               live_bar=bar.getvalue().strip().split("\r")[-1])
+    print(f"  lookup cache, chunk resume and the live bar on the 1024^2 "
+          f"shadow scene: {json.dumps(row)} on {card}", flush=True)
+    require(row["live_equals_fresh"]
+            and f"{n_chunks}/{n_chunks}" in row["live_bar"],
+            f"phase 30 live bar: {row}")
+    return row
+
+
+def serve_phase(dev, card):
+    """Phase 30: the port's HTTP render server on the card (module
+    docstring). No CPU render: the earlier phases hold each pipeline
+    against the CPU."""
+    import base64
+    import shutil
+    import tempfile
+    import threading
+    from light_path_tracer_tpu_torch import serve
+    from light_path_tracer_tpu_torch.cli import main as cli_main
+    from light_path_tracer_tpu_torch.utils.save import encode_png, read_png
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="lpt_p30_")
+    bg = (np.random.default_rng(30).random((P30_LENS, P30_LENS, 3))
+          * 255).astype(np.uint8)
+    png_b64 = base64.b64encode(encode_png(bg)).decode()
+    svc = serve.RenderService(device="cuda")
+    server = serve.make_server("127.0.0.1", 0, svc)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    host, port = server.server_address[:2]
+    url = f"http://{host}:{port}"
+    try:
+        health, secs = p30_get(url, "/healthz")
+        print(f"  /healthz: {json.dumps(health)} in {secs:.4f} s", flush=True)
+        require(health == {"ok": True, "devices": 1, "platform": "gpu"},
+                f"phase 30 /healthz: {health}")
+
+        rows, bodies = {}, {}
+        for mode, (req, kernels) in p30_requests(png_b64).items():
+            rows[mode], bodies[mode] = p30_mode(url, mode, req, kernels,
+                                                card)
+
+        # The PNG reply decodes to the pixels of the npy reply's encoding.
+        shadow = p30_npy(bodies["shadow"]["cold"])
+        png_px = read_png(bodies["shadow"]["png"])
+        want_px = read_png(serve._encode_image(shadow, "png")[0])
+        require(png_px.shape == (P30_SIZE, P30_SIZE, 4)
+                and np.array_equal(png_px, want_px)
+                and np.array_equal(png_px[..., 0],
+                                   shadow.astype(np.float32)),
+                "phase 30: the shadow PNG reply is not the npy reply's "
+                "encoding")
+
+        # Client errors, the held lock: deadline, /healthz, overload.
+        errors = {}
+        for label, bad in (("bad mode", {"mode": "nope"}),
+                           ("custom_metric", {"mode": "shadow", "scene": {
+                               "custom_metric": "evil.py:f"}})):
+            status, body, _h, _w = p30_post(url, bad)
+            errors[label] = status
+            require(status == 400, f"phase 30 {label}: {status} {body!r}")
+        small = {"mode": "shadow", "size": [64, 64], "format": "npy"}
+        require(svc._lock.acquire(timeout=60), "phase 30: the render lock")
+        waiters = []
+        try:
+            status, body, _h, wall = p30_post(url, dict(small,
+                                                        deadline_s=0.2))
+            errors["deadline_s 0.2"] = dict(status=status, seconds=wall)
+            require(status == 503 and json.loads(body)["error"]
+                    == "deadline exceeded", f"phase 30 deadline: {status}")
+            health, secs = p30_get(url, "/healthz")
+            errors["healthz while held"] = secs
+            require(health["ok"] and secs < 1.0,
+                    f"phase 30 /healthz under the lock: {secs:.3f} s")
+            results = []
+            for _ in range(svc.max_queue):
+                t = threading.Thread(target=lambda: results.append(
+                    p30_post(url, dict(small, deadline_s=60.0))))
+                t.start()
+                waiters.append(t)
+            for _ in range(500):
+                if svc.stats()["waiting"] >= svc.max_queue:
+                    break
+                time.sleep(0.01)
+            status, body, hdr, wall = p30_post(url, small)
+            errors["overload"] = dict(status=status, seconds=wall,
+                                      retry_after=hdr.get("Retry-After"),
+                                      waiting=svc.stats()["waiting"])
+            require(status == 503 and json.loads(body)["error"]
+                    == "overloaded" and hdr.get("Retry-After") == "1",
+                    f"phase 30 overload: {errors['overload']}")
+        finally:
+            svc._lock.release()
+            for t in waiters:
+                t.join(timeout=120)
+        require(len(results) == svc.max_queue
+                and all(r[0] == 200 for r in results),
+                f"phase 30: the queued requests: {[r[0] for r in results]}")
+        print(f"  errors and the held lock: {json.dumps(errors)}", flush=True)
+
+        # The offline `request` CLI: the bytes of the HTTP body.
+        req_path = os.path.join(tmp, "shadow.json")
+        out_path = os.path.join(tmp, "shadow.npy")
+        with open(req_path, "w") as fh:
+            json.dump(dict(p30_requests("")["shadow"][0], format="npy"), fh)
+        p30_zero()
+        t0 = time.perf_counter()
+        rc = cli_main(["request", req_path, "--output", out_path])
+        cli_s = time.perf_counter() - t0
+        with open(out_path, "rb") as fh:
+            same_cli = fh.read() == bodies["shadow"]["cold"]
+        cli_counts = p30_counts()
+        print(f"  request CLI: rc {rc}, {cli_s:.3f} s, bytes equal to the "
+              f"HTTP body {same_cli}, launches {json.dumps(cli_counts)}",
+              flush=True)
+        require(rc == 0 and same_cli and cli_counts["kerr"] > 0
+                and cli_counts["plain"] == 0, "phase 30 request CLI")
+
+        stats, _s = p30_get(url, "/stats")
+        print(f"  /stats: {json.dumps(stats)}", flush=True)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    try:
+        cache = p30_cache(tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  [{time.perf_counter() - t_phase:.1f} s] phase 30 done",
+          flush=True)
+    return dict(modes=rows, errors=errors, cache=cache)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -9302,11 +9832,14 @@ def main() -> int:
 
     # -- 18. the exact-cycle exit -------------------------------------------
     stamp(18)
+    # Phase 19's plain loops on the quarter-offset lanes run beside
+    # phases 18-19.
+    jobs19 = queue_phase19(pool, dev)
     cycle_phase(card)
 
     # -- 19. the rays of the reference; the Kerr kernel's booking --------
     stamp(19)
-    reference_phase(dev, card)
+    reference_phase(dev, card, jobs19)
 
     # -- 20. config 5: the 4k jittered-AA shadow -------------------------
     stamp(20)
@@ -9368,6 +9901,10 @@ def main() -> int:
     stamp(29)
     paths_phase(dev, card, pool, dict(jobs=jobs29))
     pool.close()
+
+    # -- 30. the render server ----------------------------------------------
+    stamp(30)
+    serve_phase(dev, card)
     stamp("retime")
     retime_entries(card)
     stamp("end")

@@ -69,9 +69,15 @@ timelike orbits (`particles.py`), the fixed-step RK4 tracer
 (`models.CustomMetric`) and the differentiable tracer and fit
 (`diff.py`).
 
+The serving shell: the HTTP render server (`serve.py`, the offline
+`request` replay), the lookup-table cache and chunk resume
+(`checkpoint.py`), chunk progress bars (`utils/progress.py`) and the
+telemetry helpers (`utils/telemetry.py`).
+
 This package imports torch and never jax.
 """
 
+from light_path_tracer_tpu_torch.version import __version__
 from light_path_tracer_tpu_torch.adaptive import (render_scene_adaptive,
                                                   render_shadow_adaptive)
 from light_path_tracer_tpu_torch.disk import (
@@ -122,4 +128,4 @@ __all__ = ["Kerr", "KerrNewman", "JohannsenPsaltis", "Schwarzschild",
            "render_microlens_curve", "render_time_delay", "render_shear",
            "find_point_images", "render_sequence", "render_param_sequence",
            "render_flyby", "render_panorama", "StarConfig", "render_star",
-           "pulse_profile"]
+           "pulse_profile", "__version__"]

@@ -20,42 +20,10 @@ Usage:
   python -m light_path_tracer_tpu_torch orbit --a 0.9 --peri 8 --apo 16 --no-plot
   python -m light_path_tracer_tpu_torch shadow --a 0.9 --size 1024 --integrator rk4
   python -m light_path_tracer_tpu_torch shadow --size 512 --metric-py examples/user_metric_torch.py:hayward
+  python -m light_path_tracer_tpu_torch lens --image src.png --cache
+  python -m light_path_tracer_tpu_torch request req.json --output out.png
 """
 
-from __future__ import annotations
-
-import argparse
-
-from light_path_tracer_tpu_torch.cli import (animate, disk, lens, pano,
-                                             shadow, star, trajectory,
-                                             volumetric)
-
-
-def build_parser():
-    parser = argparse.ArgumentParser(
-        prog="light_path_tracer_tpu_torch",
-        description="General-relativistic ray tracer (PyTorch/CUDA port)")
-    sub = parser.add_subparsers(dest="command")
-    animate.register(sub)
-    disk.register(sub)
-    lens.register(sub)
-    pano.register(sub)
-    shadow.register(sub)
-    star.register(sub)
-    volumetric.register(sub)
-    trajectory.register_ray(sub)
-    trajectory.register_plot(sub)
-    trajectory.register_orbit(sub)
-    return parser
-
-
-def main(argv=None) -> int:
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    if not getattr(args, "fn", None):
-        parser.print_help()
-        return 2
-    return args.fn(args)
-
+from light_path_tracer_tpu_torch.cli.app import build_parser, main
 
 __all__ = ["build_parser", "main"]

@@ -45,7 +45,9 @@ def _add_scene_args(p):
                         "(default: 90 = equatorial)")
     p.add_argument("--boost", type=float, nargs=3, default=(0.0, 0.0, 0.0),
                    metavar=("BX", "BY", "BZ"),
-                   help="camera 3-velocity in units of c (not ported yet)")
+                   help="camera 3-velocity in units of c (camera coords: "
+                        "+x right, +y down, +z toward the BH); aberrates "
+                        "the view and Doppler-shifts the disk")
 
 
 def _add_render_args(p):
@@ -60,13 +62,16 @@ def _add_render_args(p):
                    help="rays per chunk (0 = whole grid in one dispatch)")
     p.add_argument("--progress", default="off",
                    choices=["off", "bar", "live"],
-                   help="chunked-trace progress (not ported yet)")
+                   help="chunked-trace progress: tqdm bar or the live "
+                        "ANSI bar with CPU/RSS telemetry (needs "
+                        "--chunk-size)")
     p.add_argument("--no-symmetry", action="store_true",
                    help="disable top/bottom mirror symmetry")
     p.add_argument("--loop-around", action="store_true",
                    help="wrap out-of-FOV source samples (legacy mode)")
     p.add_argument("--cache", action="store_true",
-                   help="cache traced lookup tables (not ported yet)")
+                   help="cache traced lookup tables in lookup_cache/ "
+                        "(lens)")
     p.add_argument("--precision", default="fast",
                    choices=["fast", "precise", "gate"],
                    help="tolerance tier: fast (throughput), precise, or "
@@ -209,8 +214,6 @@ def _reject_metric_py(args, mode: str) -> bool:
 
 def _render_cfg_from(args):
     from light_path_tracer_tpu_torch.utils.config import RenderConfig
-    if args.progress != "off":
-        raise not_ported("--progress")
     return RenderConfig(
         dtype=args.dtype,
         max_steps=args.max_steps,
@@ -219,4 +222,5 @@ def _render_cfg_from(args):
         render_loop_around=args.loop_around,
         precision=args.precision,
         integrator=args.integrator,
-        sampling=args.sampling)
+        sampling=args.sampling,
+        progress={"off": False, "bar": True, "live": "live"}[args.progress])

@@ -11,9 +11,11 @@ pixels display-encoded), save the PNG and print the benchmark summary;
 map-level modes need no image: `--magnification`, `--shear`,
 `--caustics`, `--time-delay` (PNG through utils/color.py's tables;
 `--shear` one PNG a panel and an .npz of the maps), `--microlens` (a CSV)
-and `--find-images` (a printed table). Every flag of the JAX parser is
-registered with its default; the lookup cache (`--cache`) and
-`--multihost` raise NotImplementedError.
+and `--find-images` (a printed table). `--cache` keeps the traced tables
+in `lookup_cache/` (checkpoint.cached_precompute; a re-render of the same
+scene with another image skips the trace) and prints `lookup cache
+HIT|MISS`. Every flag of the JAX parser is registered with its default;
+`--multihost` raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -75,10 +77,8 @@ def cmd_lens(args) -> int:
         print_benchmark_summary, render_scene)
     from light_path_tracer_tpu_torch.utils.save import read_png, save_png
 
-    for flag, used in (("--cache", args.cache),
-                       ("--multihost", args.multihost)):
-        if used:
-            raise not_ported(f"lens {flag}")
+    if args.multihost:
+        raise not_ported("lens --multihost")
 
     scene = _scene_from(args)
     cfg = _render_cfg_from(args)
@@ -109,10 +109,21 @@ def cmd_lens(args) -> int:
 
     ring_tables = None
     if args.disk:
+        if args.cache:
+            print("  note: --cache is not supported with --disk "
+                  "(composite re-traces); ignoring")
         result, stats = _composite(args, scene, cfg, img)
         timings = stats["timings"]
         timings["load_image"] = timings.get("load_image", 0.0) + load_time
         total, traced = stats["total_rays"], stats["traced_rays"]
+    elif args.cache:
+        if args.aa > 1:
+            print("  note: --aa is not supported with --cache "
+                  "(the cache stores one non-jittered lookup); ignoring")
+        result, timings, pre = _cached(args, scene, cfg, img, fov)
+        timings["load_image"] += load_time
+        total, traced = pre.total_rays, pre.traced_rays
+        ring_tables = (pre.final_alpha, pre.winding)
     elif args.aa > 1:
         if args.adaptive:
             from light_path_tracer_tpu_torch.adaptive import (
@@ -157,6 +168,34 @@ def cmd_lens(args) -> int:
                             timings)
     print(f"Saved: {args.output}")
     return 0
+
+
+def _cached(args, scene, cfg, img, fov):
+    """The lensed render from the lookup cache's tables
+    (checkpoint.cached_precompute) through render.render_lensed_image:
+    (image, timings, PrecomputeResult)."""
+    from light_path_tracer_tpu_torch import camera
+    from light_path_tracer_tpu_torch.checkpoint import cached_precompute
+    from light_path_tracer_tpu_torch.pipeline import _source_tensor
+    from light_path_tracer_tpu_torch.render import render_lensed_image
+    from light_path_tracer_tpu_torch.utils.timing import StageTimer
+    dim = tuple(img.shape[:2])
+    timer = StageTimer(args.device)
+    with timer.stage("load_image"):
+        src = _source_tensor(img, args.device)
+    with timer.stage("precompute"):
+        pre, hit = cached_precompute(scene, cfg, dim, fov,
+                                     device=args.device)
+    print(f"  lookup cache {'HIT' if hit else 'MISS'}")
+    with timer.stage("render"):
+        theta_lookup = camera.build_theta_lookup(
+            dim, fov, psi=scene.psi, dtype=pre.final_alpha.dtype,
+            boost=scene.boost, device=args.device)
+        lensed = render_lensed_image(
+            src, None, pre.final_alpha, pre.winding, None, fov,
+            cfg.render_loop_around, psi=scene.psi,
+            theta_lookup=theta_lookup, sampling=cfg.sampling)
+    return lensed, timer.finish(), pre
 
 
 def _save_rgb(path, rgb):

@@ -27,6 +27,7 @@ import torch
 
 from light_path_tracer_tpu_torch.ops.kerr_trace import check_method
 from light_path_tracer_tpu_torch.ops.types import TraceResult
+from light_path_tracer_tpu_torch.utils.progress import chunk_iterator
 
 
 def _backend(backend, alphas):
@@ -92,8 +93,15 @@ def trace_batch(metric, r_obs, alphas, thetas=None, theta_obs=math.pi / 2,
     with its XLA backend's (ops/kerr_trace.py). integrator="rk4" traces
     the fixed-step RK4 loop (ops/kerr_rk4.py) on the rays' device, with
     h_max its base step 1.0; a metric with supports_kernel False traces
-    the plain loop on the rays' device. Progress bars and chunk stores
-    raise NotImplementedError until they are ported.
+    the plain loop on the rays' device.
+    progress (chunked path only): False, True (a tqdm bar) or "live" (the
+    ANSI bar with CPU and RSS telemetry, utils/progress.py); on a CUDA
+    device each chunk is synchronised before the bar moves.
+    chunk_store (chunked path only): a checkpoint.ChunkStore; each chunk
+    found in it is taken from it (moved to the rays' device) instead of
+    traced, and each traced chunk is put into it as it completes, so an
+    interrupted trace resumes from its last completed chunk. With neither
+    a bar nor a store the chunks launch with no host sync between them.
     """
     n = int(alphas.shape[0])
     device = alphas.device
@@ -114,10 +122,6 @@ def trace_batch(metric, r_obs, alphas, thetas=None, theta_obs=math.pi / 2,
         return orbit_fn(metric, float(r_obs), alphas, phi_max=phi_max,
                         h_max=h_max)
 
-    if progress or chunk_store is not None:
-        raise NotImplementedError(
-            "chunk progress bars and chunk stores are not ported yet "
-            "(ROADMAP.md, Queue 1)")
     if integrator != "rk4":
         check_method(integrator, event_interp)
 
@@ -196,9 +200,20 @@ def trace_batch(metric, r_obs, alphas, thetas=None, theta_obs=math.pi / 2,
     t_s = _pad_to(t_s, n_pad, 0.0)
     ar_s = _pad_to(ar_s, n_pad, False)
 
-    chunks = [trace(a_s[s:s + chunk_size], t_s[s:s + chunk_size],
-                    ar_s[s:s + chunk_size])
-              for s in range(0, n_pad, chunk_size)]
+    sync_bar = bool(progress) and device.type == "cuda"
+    chunks = []
+    for s in chunk_iterator(range(0, n_pad, chunk_size), progress):
+        res = chunk_store.get(s) if chunk_store is not None else None
+        if res is not None:
+            res = TraceResult(*(x.to(device) for x in res))
+        else:
+            res = trace(a_s[s:s + chunk_size], t_s[s:s + chunk_size],
+                        ar_s[s:s + chunk_size])
+            if chunk_store is not None:
+                chunk_store.put(s, res)      # its .cpu() waits for the chunk
+            elif sync_bar:
+                torch.cuda.synchronize(device)
+        chunks.append(res)
     fa = torch.cat([c.final_alpha for c in chunks])[:n]
     nh = torch.cat([c.n_half_orbits for c in chunks])[:n]
     st = torch.cat([c.status for c in chunks])[:n]

@@ -77,18 +77,21 @@ def _use_tb(scene: SceneConfig, cfg: RenderConfig) -> bool:
 
 def precompute_final_alpha(scene: SceneConfig, cfg: RenderConfig,
                            image_dimension, fov, alpha_lookup=None,
-                           device="cuda") -> PrecomputeResult:
+                           device="cuda",
+                           chunk_store=None) -> PrecomputeResult:
     """Trace one ray per pixel; returns per-pixel (final_alpha, winding).
 
     Spherically symmetric metrics trace every pixel. Kerr applies the
     axis-refine band and, when the scene allows it, the top/bottom mirror
     symmetry, so only (H + 1) // 2 rows are traced. alpha_lookup: the
-    (H, W) alpha grid when the caller has built it already.
+    (H, W) alpha grid when the caller has built it already. chunk_store:
+    a checkpoint.ChunkStore for the chunked Kerr trace (cfg.chunk_size),
+    so an interrupted precompute resumes from its last completed chunk.
     """
     fov = (float(fov[0]), float(fov[1]))
     image_dimension = (int(image_dimension[0]), int(image_dimension[1]))
     return _precompute_eager(scene, cfg, image_dimension, fov, device,
-                             alpha_lookup)
+                             alpha_lookup, chunk_store=chunk_store)
 
 
 def _alpha_grid(scene: SceneConfig, cfg: RenderConfig, image_dimension,
@@ -131,8 +134,8 @@ def _winding_clip(n_half, cfg: RenderConfig):
 
 
 def _precompute_eager(scene: SceneConfig, cfg: RenderConfig,
-                      image_dimension, fov, device,
-                      alpha_lookup=None) -> PrecomputeResult:
+                      image_dimension, fov, device, alpha_lookup=None,
+                      chunk_store=None) -> PrecomputeResult:
     metric = scene.metric()
     height, width = image_dimension
     if metric.is_spherically_symmetric:
@@ -158,7 +161,7 @@ def _precompute_eager(scene: SceneConfig, cfg: RenderConfig,
         integrator=cfg.integrator, event_interp=cfg.event_interp,
         two_pass=cfg.two_pass, pass1_steps=cfg.pass1_steps,
         formulation=cfg.formulation, precision=cfg.precision,
-        progress=cfg.progress)
+        progress=cfg.progress, chunk_store=chunk_store)
 
     fa_rows = res.final_alpha.reshape(trace_rows, width).to(torch.float32)
     w_rows = _winding_clip(res.n_half_orbits, cfg).reshape(trace_rows, width)

@@ -2,10 +2,8 @@
 
 The same pair of frozen dataclasses as `light_path_tracer_tpu.utils.config`,
 field for field, so a scene and its numerics knobs carry across the two
-packages unchanged (`light_path_tracer_tpu_torch.convert`). Every field
-is kept; the one that still selects code this package has not ported
-raises `NotImplementedError` where it is read: a truthy `progress`
-(ops/batch.py).
+packages unchanged (`light_path_tracer_tpu_torch.convert`) and hash to the
+same lookup-cache key (checkpoint.cache_key).
 """
 
 from __future__ import annotations
@@ -107,4 +105,6 @@ class RenderConfig:
     use_tb_symmetry: bool = True       # top/bottom mirror when applicable
     render_loop_around: bool = False
     winding_max: int = 65535           # uint16 winding clip
-    progress: bool | str = False       # chunked path only; not ported
+    # Chunked-trace progress (chunked path only): False | True (tqdm) |
+    # "live" (in-place ANSI bar with CPU% and RSS, utils/progress.py).
+    progress: bool | str = False

@@ -9,8 +9,10 @@ can be loaded and saved where neither matplotlib nor Pillow is installed.
     afmhot colormap applied to the colormap index, then saved as RGB;
   * `save_gamma_png`: the blackbody disk save, clip(x, 0, 1)^(1/2.2)
     in NumPy on the host, saved as RGB;
-  * `write_png`: 8-bit gray, gray+alpha, RGB or RGBA PNG;
-  * `read_png`: 8-bit non-interlaced gray, gray+alpha, RGB or RGBA PNG ->
+  * `write_png` / `encode_png`: 8-bit gray, gray+alpha, RGB or RGBA PNG
+    (to a file, or as bytes);
+  * `read_png`: 8-bit non-interlaced gray, gray+alpha, RGB or RGBA PNG
+    (a path or its bytes) ->
     float32 / 255, as `matplotlib.image.imread` returns a PNG (gray as
     (H, W), gray+alpha widened to RGBA, RGB(A) as (H, W, C)).
 """
@@ -75,9 +77,9 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
 
 
-def write_png(path, pixels):
-    """Write an (H, W) or (H, W, C) uint8 array, C in 1..4, as an 8-bit
-    PNG (gray, gray+alpha, RGB or RGBA)."""
+def encode_png(pixels) -> bytes:
+    """An (H, W) or (H, W, C) uint8 array, C in 1..4, as the bytes of an
+    8-bit PNG (gray, gray+alpha, RGB or RGBA)."""
     px = np.ascontiguousarray(np.asarray(pixels, dtype=np.uint8))
     if px.ndim == 2:
         px = px[..., None]
@@ -91,11 +93,16 @@ def write_png(path, pixels):
                          axis=1).tobytes()
     header = struct.pack(">IIBBBBB", width, height, 8,
                          _COLOR_TYPE[channels], 0, 0, 0)
+    return (_SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(raw, 6)) + _chunk(b"IEND", b""))
+
+
+def write_png(path, pixels):
+    """Write an (H, W) or (H, W, C) uint8 array, C in 1..4, as an 8-bit
+    PNG (gray, gray+alpha, RGB or RGBA)."""
+    blob = encode_png(pixels)
     with open(path, "wb") as fh:
-        fh.write(_SIGNATURE)
-        fh.write(_chunk(b"IHDR", header))
-        fh.write(_chunk(b"IDAT", zlib.compress(raw, 6)))
-        fh.write(_chunk(b"IEND", b""))
+        fh.write(blob)
 
 
 def save_gray_png(path, img):
@@ -153,11 +160,15 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int):
     return out
 
 
-def read_png(path):
+def read_png(source):
     """Read an 8-bit non-interlaced gray, gray+alpha, RGB or RGBA PNG as
-    float32 in [0, 1]."""
-    with open(path, "rb") as fh:
-        blob = fh.read()
+    float32 in [0, 1]; `source` is a path or the file's bytes."""
+    if isinstance(source, (bytes, bytearray, memoryview)):
+        blob, path = bytes(source), "the PNG bytes"
+    else:
+        path = source
+        with open(path, "rb") as fh:
+            blob = fh.read()
     if not blob.startswith(_SIGNATURE):
         if blob[:3] == b"\xff\xd8\xff":
             raise ValueError(

@@ -94,6 +94,10 @@ each on its dynamic_ counter; the hybrid over them on 65,536 rays of the
 raising before a launch; and each mode of phase 28 (the pan, spin and
 flyby frames, a lensed flyby frame, the panoramas, the star and its pulse
 profile) at 64^2 on the card against the CPU by its gates (p28_check).
+The render server (serve.py): a /render on a handler thread bitwise the
+same render on the main thread, /healthz naming the card; device_memory()
+keyed by card; the chunked trace with the live bar and a chunk store (a
+host sync a chunk) bitwise the trace without them.
 """
 
 import importlib.util
@@ -2172,3 +2176,72 @@ def test_phase29_paths_on_card_match_cpu(cuda, name):
     row, ok = SMOKE.p29_paths_check(name, SMOKE.p29_paths(name, "cuda"),
                                     SMOKE.p29_paths(name, "cpu"))
     assert ok, row
+
+
+def test_serve_handler_thread_equals_main_thread(cuda):
+    """A /render on the server's handler thread (its kernels on that
+    thread's current stream) equals the same render on this thread
+    bitwise; /healthz names the card."""
+    import io
+    import json
+    import threading
+    import urllib.request
+    from light_path_tracer_tpu_torch import serve
+    server = serve.make_server(port=0,
+                               service=serve.RenderService(device="cuda"))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = "http://%s:%d" % server.server_address[:2]
+    req = {"mode": "shadow", "size": [256, 256], "format": "npy",
+           "scene": {"a": 0.9, "r_obs_mult": R_OBS}}
+    try:
+        with urllib.request.urlopen(url + "/healthz") as resp:
+            assert json.loads(resp.read()) == {
+                "ok": True, "devices": torch.cuda.device_count(),
+                "platform": "gpu"}
+        k0 = trace_rays_kerr_cuda.launches
+        with urllib.request.urlopen(urllib.request.Request(
+                url + "/render", data=json.dumps(req).encode())) as resp:
+            got = np.load(io.BytesIO(resp.read()))
+        assert trace_rays_kerr_cuda.launches > k0
+    finally:
+        server.shutdown()
+        server.server_close()
+    _mode, scene, cfg, *_ = serve.decode_request(req)
+    img, _stats = pipeline.render_shadow(scene, (256, 256), cfg,
+                                         device="cuda")
+    assert got.tobytes() == img.cpu().numpy().tobytes()
+
+
+def test_device_memory_keys(cuda):
+    from light_path_tracer_tpu_torch.utils.telemetry import device_memory
+    x = torch.ones(1 << 20, device=cuda)
+    out = device_memory()
+    assert list(out) == [f"cuda:{i}" for i in
+                         range(torch.cuda.device_count())]
+    stats = out[f"cuda:{cuda.index}"]
+    assert stats["bytes_in_use"] >= x.numel() * 4
+    assert stats["peak_bytes_in_use"] >= stats["bytes_in_use"]
+
+
+def test_trace_batch_progress_and_store_on_card(cuda, tmp_path):
+    """The chunked trace with the live bar and a chunk store (a host sync
+    a chunk) equals it without them bitwise; stored chunks come back on
+    the card."""
+    import contextlib
+    import io
+    from light_path_tracer_tpu_torch.checkpoint import ChunkStore
+    from light_path_tracer_tpu_torch.ops.batch import trace_batch
+    m, _ac, al, th, ref = _rays(4096, cuda)
+    kw = dict(chunk_size=1024, max_steps=20000)
+    plain = trace_batch(m, R_OBS, al, th, np.pi / 2, ref, **kw)
+    store = ChunkStore(str(tmp_path), "k")
+    with contextlib.redirect_stderr(io.StringIO()) as err:
+        live = trace_batch(m, R_OBS, al, th, np.pi / 2, ref,
+                           progress="live", chunk_store=store, **kw)
+    again = trace_batch(m, R_OBS, al, th, np.pi / 2, ref, chunk_store=store,
+                        **kw)
+    assert "4/4" in err.getvalue() and len(store.chunk_starts()) == 4
+    for res in (live, again):
+        for a, b in zip(res, plain):
+            assert a.device == b.device and torch.equal(
+                torch.nan_to_num(a), torch.nan_to_num(b))

@@ -222,13 +222,18 @@ def test_cuda_wrapper_runs_plain_version_on_cpu():
                                   want.final_alpha.numpy())
 
 
-def test_trace_batch_rejects_branches_not_ported():
+def test_trace_batch_rejects_branches_not_ported(tmp_path):
     tm = Kerr(M=1.0, a=0.9)
     al = torch.full((8,), 0.1)
+    # Progress bars and chunk stores are ported
+    # (tests/test_torch_telemetry.py): they trace as without them.
+    from light_path_tracer_tpu_torch.checkpoint import ChunkStore
+    whole = trace_batch(tm, R_OBS, al)
     for kwargs in (dict(chunk_size=4, progress=True),
-                   dict(chunk_size=4, chunk_store={}), dict(progress="live")):
-        with pytest.raises(NotImplementedError):
-            trace_batch(tm, R_OBS, al, **kwargs)
+                   dict(chunk_size=4, chunk_store=ChunkStore(
+                       str(tmp_path), "k")), dict(progress="live")):
+        res = trace_batch(tm, R_OBS, al, **kwargs)
+        assert torch.equal(res.status, whole.status)
     # The fixed-step RK4 is ported (tests/test_torch_rk4.py).
     res = trace_batch(tm, R_OBS, al, integrator="rk4")
     assert res.status.shape == (8,) and int(res.n_steps) > 0
